@@ -1,0 +1,60 @@
+"""Public Executor: the fluid.Executor-compatible entry point.
+
+Counterpart of paddle_tpu/executor.py. Executor() with no place runs on
+CUDAPlace(0) and raises at once when no CUDA device is visible; pass
+CPUPlace() to run on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from . import framework
+from .core.engine import Engine
+from .core.place import Place, default_place
+from .core.scope import global_scope
+from .core.types import dtype_to_np
+
+__all__ = ["Executor"]
+
+
+def _to_name_str(fetch):
+    if isinstance(fetch, str):
+        return fetch
+    if isinstance(fetch, framework.Variable):
+        return fetch.name
+    raise TypeError(f"fetch target must be Variable or str, got "
+                    f"{type(fetch)}")
+
+
+class Executor:
+    def __init__(self, place: Optional[Place] = None):
+        self.place = place if place is not None else default_place()
+        self.device = self.place.torch_device()
+        self._engine = Engine()
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None):
+        """Run `program` once: feeds (numpy arrays) in, fetches (numpy
+        arrays) out."""
+        if program is None:
+            program = framework.default_main_program()
+        scope = scope or global_scope()
+        fetch_names = [_to_name_str(f) for f in fetch_list or []]
+        return self._engine.run(program, scope, self.device,
+                                self._canonical_feed(feed, program),
+                                fetch_names)
+
+    @staticmethod
+    def _canonical_feed(feed, program):
+        """numpy arrays in the dtypes the Program declares. Integer ids
+        stay integer (the JAX package narrows int64 to int32; compare
+        values, not dtypes)."""
+        out = {}
+        for k, v in (feed or {}).items():
+            arr = np.asarray(v)
+            var = program.global_block().find_var(k)
+            if var is not None and arr.dtype != dtype_to_np(var.dtype):
+                arr = arr.astype(dtype_to_np(var.dtype))
+            out[k] = arr
+        return out

@@ -1,0 +1,11 @@
+"""Activation ops (counterpart of paddle_tpu/ops/activations.py: relu)."""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register_op
+
+
+@register_op("relu")
+def relu(ctx):
+    ctx.set_output("Out", torch.relu(ctx.input("X")))

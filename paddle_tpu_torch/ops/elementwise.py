@@ -1,0 +1,39 @@
+"""Elementwise binary ops with fluid's axis broadcast (counterpart of
+paddle_tpu/ops/elementwise.py): Y's shape aligns to a contiguous run of
+X's dims starting at `axis`; axis == -1 aligns trailing dims."""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register_op
+
+
+def _broadcast_y(x, y, axis):
+    if x.shape == y.shape:
+        return y
+    if axis is None or axis == -1:
+        if y.ndim <= x.ndim:
+            return y
+        return y.reshape(y.shape[-x.ndim:]) if x.ndim else y
+    y_shape = list(y.shape)
+    # trim trailing 1s (fluid permits e.g. y=[C,1,1] matched to axis=1)
+    while y_shape and y_shape[-1] == 1:
+        y_shape.pop()
+    new_shape = [1] * axis + y_shape + \
+        [1] * (x.ndim - axis - len(y_shape))
+    return y.reshape(new_shape)
+
+
+def _binary(op_type, fn):
+    @register_op(op_type)
+    def _lower(ctx, _fn=fn):
+        x = ctx.input("X")
+        y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
+        ctx.set_output("Out", _fn(x, y))
+    _lower.__name__ = op_type
+    return _lower
+
+
+_binary("elementwise_add", torch.add)
+_binary("elementwise_mul", torch.mul)
+_binary("elementwise_div", torch.div)

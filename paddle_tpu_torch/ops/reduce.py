@@ -1,0 +1,21 @@
+"""Reductions (counterpart of paddle_tpu/ops/reduce.py: reduce_sum)."""
+from __future__ import annotations
+
+from ..core.registry import register_op
+
+
+@register_op("reduce_sum")
+def reduce_sum(ctx):
+    x = ctx.input("X")
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False):
+        out = x.sum()
+        if keep:
+            out = out.reshape([1] * x.ndim)
+    else:
+        dims = ctx.attr("dim", [0])
+        if isinstance(dims, int):
+            dims = [dims]
+        out = x.sum(dim=[d if d >= 0 else d + x.ndim for d in dims],
+                    keepdim=keep)
+    ctx.set_output("Out", out)

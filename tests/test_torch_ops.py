@@ -1,0 +1,201 @@
+"""One-op parity: each of the 16 op types on Transformer inference's path
+runs through the JAX package's lowering and the port's lowering on the
+same numpy inputs, made from a seed.
+
+Tolerance: float32 results agree to 1e-5 relative and 1e-6 absolute
+(only the order of float32 sums differs between XLA and torch on the
+CPU); integer and fill results are exact. gaussian_random cannot agree
+bit for bit (jax.random and torch draw different numbers from one seed),
+so both draws are held to the requested mean and std, each within five
+standard errors.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu  # noqa: F401  (registers the JAX lowerings)
+from paddle_tpu.core.registry import ExecContext as JaxContext
+from paddle_tpu.core.registry import OPS as JAX_OPS
+
+import paddle_tpu_torch  # noqa: F401  (registers the port's lowerings)
+from paddle_tpu_torch.core.registry import ExecContext as PtContext
+from paddle_tpu_torch.core.registry import OPS as PT_OPS
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+class _Op:
+    """The op view both registries' ExecContexts read."""
+
+    def __init__(self, type, inputs, outputs, attrs):
+        self.type = type
+        self._inputs = {s: [s.lower()] for s in inputs}
+        self._outputs = {s: [s.lower() + "_out"] for s in outputs}
+        self._attrs = dict(attrs)
+
+    def input(self, slot):
+        return self._inputs.get(slot, [])
+
+    def output(self, slot):
+        return self._outputs.get(slot, [])
+
+    def input_slots(self):
+        return list(self._inputs)
+
+    def output_slots(self):
+        return list(self._outputs)
+
+    def attr(self, name, default=None):
+        return self._attrs.get(name, default)
+
+    def has_attr(self, name):
+        return name in self._attrs
+
+    def all_attrs(self):
+        return dict(self._attrs)
+
+    def _all_attrs(self):
+        return self._attrs.items()
+
+
+def _run_both(op_type, inputs, outputs, attrs):
+    """Returns {slot: (jax numpy result, port numpy result)}."""
+    op = _Op(op_type, inputs, outputs, attrs)
+    jenv = {s.lower(): jnp.asarray(a) for s, a in inputs.items()}
+    JAX_OPS.get(op_type).lowering(JaxContext(op, jenv))
+    penv = {s.lower(): torch.from_numpy(np.array(a))
+            for s, a in inputs.items()}
+    PT_OPS.get(op_type).lowering(PtContext(op, penv, torch.device("cpu")))
+    return {s: (np.asarray(jenv[op.output(s)[0]]),
+                penv[op.output(s)[0]].numpy()) for s in outputs}
+
+
+def _rng():
+    return np.random.default_rng(1234)
+
+
+def _f32(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _attn_inputs(rng, B=2, Sq=12, Sk=16, H=4, D=8):
+    q, k, v = _f32(rng, B, Sq, H, D), _f32(rng, B, Sk, H, D), \
+        _f32(rng, B, Sk, H, D)
+    lens = np.array([Sk, Sk - 5])
+    bias = np.where(np.arange(Sk)[None, :] < lens[:, None], 0.0,
+                    -1e9).astype(np.float32)[:, None, None, :]
+    return {"Q": q, "K": k, "V": v, "BiasQK": bias}
+
+
+def _cases():
+    rng = _rng()
+    x3 = _f32(rng, 2, 3, 8)
+    ids = rng.integers(0, 10, (3, 5)).astype(np.int32)
+    attn = _attn_inputs(rng)
+    return [
+        ("fill_constant", {}, ["Out"],
+         {"shape": [3, 4], "value": 2.5, "dtype": 9}),
+        ("fill_constant", {}, ["Out"],
+         {"shape": [5], "value": 7.0, "dtype": 5}),
+        ("scale", {"X": x3}, ["Out"], {"scale": 1.5, "bias": 0.25}),
+        ("scale", {"X": x3}, ["Out"],
+         {"scale": 22.627, "bias": 0.5, "bias_after_scale": False}),
+        ("reshape2", {"X": x3}, ["Out", "XShape"],
+         {"shape": [0, 0, 2, 4]}),
+        ("reshape2", {"X": x3}, ["Out", "XShape"], {"shape": [-1, 24]}),
+        ("squeeze2", {"X": _f32(rng, 2, 5, 1)}, ["Out", "XShape"],
+         {"axes": [-1]}),
+        ("squeeze2", {"X": _f32(rng, 1, 5, 1)}, ["Out", "XShape"],
+         {"axes": []}),
+        ("lookup_table", {"W": _f32(rng, 10, 6), "Ids": ids}, ["Out"],
+         {"padding_idx": -1}),
+        ("lookup_table", {"W": _f32(rng, 10, 6), "Ids": ids[..., None]},
+         ["Out"], {"padding_idx": 3}),
+        ("mul", {"X": x3, "Y": _f32(rng, 8, 5)}, ["Out"],
+         {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+        ("mul", {"X": _f32(rng, 4, 6), "Y": _f32(rng, 6, 3)}, ["Out"], {}),
+        ("elementwise_add", {"X": x3, "Y": _f32(rng, 8)}, ["Out"],
+         {"axis": 2}),
+        ("elementwise_add", {"X": x3, "Y": _f32(rng, 2, 3, 8)}, ["Out"],
+         {"axis": -1}),
+        ("elementwise_mul", {"X": _f32(rng, 3, 5), "Y": _f32(rng, 3, 5)},
+         ["Out"], {"axis": -1}),
+        ("elementwise_mul", {"X": x3, "Y": _f32(rng, 3)}, ["Out"],
+         {"axis": 1}),
+        ("elementwise_div", {"X": np.float32(7.5),
+                             "Y": np.float32(3.0)}, ["Out"], {"axis": -1}),
+        ("elementwise_div", {"X": x3, "Y": _f32(rng, 8) + 3}, ["Out"],
+         {"axis": -1}),
+        ("relu", {"X": x3}, ["Out"], {}),
+        ("reduce_sum", {"X": x3}, ["Out"],
+         {"reduce_all": True, "dim": [0], "keep_dim": False}),
+        ("reduce_sum", {"X": x3}, ["Out"],
+         {"reduce_all": False, "dim": [1, -1], "keep_dim": True}),
+        ("layer_norm", {"X": x3, "Scale": _f32(rng, 8),
+                        "Bias": _f32(rng, 8)}, ["Y", "Mean", "Variance"],
+         {"epsilon": 1e-5, "begin_norm_axis": 2}),
+        ("layer_norm", {"X": x3}, ["Y", "Mean", "Variance"],
+         {"epsilon": 1e-3, "begin_norm_axis": 1}),
+        ("add_position_encoding", {"X": _f32(rng, 2, 7, 16)}, ["Out"],
+         {"alpha": 1.0, "beta": 1.0}),
+        ("add_position_encoding", {"X": _f32(rng, 1, 5, 6)}, ["Out"],
+         {"alpha": 0.5, "beta": 2.0}),
+        ("label_smoothed_softmax_xent",
+         {"Logits": _f32(rng, 2, 5, 11),
+          "Label": rng.integers(0, 11, (2, 5)).astype(np.int32)},
+         ["Loss"], {"epsilon": 0.1}),
+        ("label_smoothed_softmax_xent",
+         {"Logits": _f32(rng, 6, 11),
+          "Label": rng.integers(0, 11, (6, 1)).astype(np.int32)},
+         ["Loss"], {"epsilon": 0.0}),
+        ("fused_attention", attn, ["Out"],
+         {"scale": 8 ** -0.5, "layout": "bshd", "dropout_prob": 0.1,
+          "is_test": True, "causal": False}),
+        ("fused_attention", attn, ["Out"],
+         {"scale": -1.0, "layout": "bshd", "is_test": True,
+          "causal": True}),
+        ("fused_attention",
+         {s: (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+              if s != "BiasQK" else a) for s, a in attn.items()},
+         ["Out"], {"scale": 0.3, "layout": "bhsd", "causal": True}),
+    ]
+
+
+_CASES = _cases()
+
+
+@pytest.mark.parametrize(
+    "op_type,inputs,outputs,attrs", _CASES,
+    ids=[f"{c[0]}-{i}" for i, c in enumerate(_CASES)])
+def test_op_matches_jax(op_type, inputs, outputs, attrs):
+    for slot, (j, p) in _run_both(op_type, inputs, outputs,
+                                  attrs).items():
+        assert p.shape == j.shape, (slot, p.shape, j.shape)
+        if np.issubdtype(j.dtype, np.floating):
+            assert p.dtype == j.dtype
+            np.testing.assert_allclose(p, j, rtol=RTOL, atol=ATOL,
+                                       err_msg=slot)
+        else:
+            np.testing.assert_array_equal(p, j, err_msg=slot)
+
+
+def test_every_slice_op_type_is_covered():
+    assert {c[0] for c in _CASES} | {"gaussian_random"} == \
+        set(PT_OPS.types())
+
+
+@pytest.mark.parametrize("seed", [0, 11])
+def test_gaussian_random_matches_jax_in_distribution(seed):
+    attrs = {"shape": [64, 128], "mean": 0.5, "std": 2.0, "seed": seed,
+             "dtype": 9, "__op_uid__": 3}
+    outs = _run_both("gaussian_random", {}, ["Out"], attrs)["Out"]
+    n = 64 * 128
+    for draw in outs:
+        assert draw.shape == (64, 128) and draw.dtype == np.float32
+        assert abs(draw.mean() - 0.5) < 5 * 2.0 / np.sqrt(n)
+        assert abs(draw.std() - 2.0) < 5 * 2.0 / np.sqrt(2 * n)
+    # the port's draw is a function of (seed, program seed, op uid)
+    again = _run_both("gaussian_random", {}, ["Out"], attrs)["Out"][1]
+    np.testing.assert_array_equal(again, outs[1])
