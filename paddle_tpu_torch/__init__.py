@@ -1,14 +1,16 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 A second package beside the JAX one, with the same module names and the
-same fluid-style surface: build a Program with `layers`, run it with
+same fluid-style surface: build a Program with `layers`, minimize its
+cost with an `optimizer` (optionally under
+`contrib.mixed_precision.decorate`), run it with
 `Executor(CUDAPlace(0))`. Its hand-written kernels are CUDA C++ for
 Hopper (sm_90a) under `csrc/`, built at first use. It imports torch and
 numpy, and nothing of JAX or of paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
-from . import unique_name  # noqa: F401
+from . import backward, contrib, optimizer, unique_name  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .core.scope import (LoDTensor, Scope, global_scope,  # noqa: F401
                          scope_guard)

@@ -82,10 +82,20 @@ class Variable:
 
 
 class Scope:
-    """Name -> Variable map. Child scopes arrive with control flow."""
+    """Name -> Variable map, and the count of runs of each Program in
+    this scope (it seeds random ops: every run draws anew, and a fresh
+    scope replays the same draws). Child scopes arrive with control
+    flow."""
 
     def __init__(self):
         self._vars: Dict[str, Variable] = {}
+        self._runs: Dict[int, int] = {}
+
+    def next_run(self, program_uid: int) -> int:
+        """Index of this run of the program in this scope (0, 1, ...)."""
+        i = self._runs.get(program_uid, 0)
+        self._runs[program_uid] = i + 1
+        return i
 
     def var(self, name: str) -> Variable:
         v = self._vars.get(name)

@@ -2,10 +2,15 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py _fa_kernel (line 353),
 // reached through _fa_forward (line 593) and its pl.pallas_call. Same
-// function, without dropout: s = q.k^T * scale + bias, causal mask
-// (absolute col > row) with -1e30, running max and sum in float32,
-// out = acc / max(l, 1e-30) in q's dtype, optional
+// function: s = q.k^T * scale + bias, causal mask (absolute col > row)
+// with -1e30, running max and sum in float32, optional attention-weights
+// dropout, out = acc / max(l, 1e-30) in q's dtype, optional
 // lse = m + log(max(l, 1e-30)) as a narrow [B, H, Sq] float32 tensor.
+//
+// Dropout (drop_t in 1..255): a weight is kept when the position hash
+// of flash_attention_common.cuh is below drop_t, and kept weights scale
+// by 256/drop_t. As on the TPU, the denominator l sums the undropped
+// weights: out = dropout(softmax(s)) . v.
 //
 // What bounds it on this card: at the Transformer-base serving shape
 // (B=32, S=256, H=8, D=64) one call does 4*B*H*S*S*D = 4.3 GFLOP and must
@@ -26,7 +31,9 @@
 //     warp shuffles;
 //   * causal blocks stop at the last key tile that touches the diagonal;
 //   * the ragged edges (Sq, Sk not multiples of 64, D < the padded width)
-//     are masked in the kernel, so any S works.
+//     are masked in the kernel, so any S works;
+//   * the dropout mask is recomputed from the hash (about a dozen integer
+//     operations per weight) instead of being read from memory.
 // float32 FMA on CUDA cores is the first, simple design; wgmma and TMA
 // come later.
 //
@@ -35,19 +42,18 @@
 // template parameter: products and sums stay float32, p is rounded to
 // bf16 before the p.V product as the TPU kernel casts p to v's dtype.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per tile
-constexpr int NTHREADS = 256;      // 16 x 16
-constexpr int P_STRIDE = BK + 16;  // row stride of the p tile (floats)
-constexpr float NEG_INF = -1e30f;  // the TPU kernel's finite mask value
-constexpr float L_FLOOR = 1e-30f;
+using fa::BK;
+using fa::BQ;
+using fa::from_f;
+using fa::L_FLOOR;
+using fa::NEG_INF;
+using fa::NTHREADS;
+using fa::P_STRIDE;
+using fa::to_f;
 
 struct Params {
   const void* q;
@@ -65,23 +71,11 @@ struct Params {
   int64_t bias_sb, bias_sh, bias_sq;
   float scale;
   int causal;
+  // dropout: drop_t in 1..255 (0: off), seed words, 256 / drop_t
+  uint32_t s0, s1;
+  int drop_t;
+  float drop_scale;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(NTHREADS)
@@ -107,6 +101,7 @@ __global__ void __launch_bounds__(NTHREADS)
   T* og = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const uint32_t hseed = fa::head_seed(p.s0, p.s1, b * p.H + h);
 
   // q tile, zero beyond Sq and D
   for (int i = tid; i < BQ * DPAD; i += NTHREADS) {
@@ -200,8 +195,13 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float e = expf(s[i][j] - m_new);
-        sum += e;
-        sP[(ty + 16 * i) * P_STRIDE + tx + 16 * j] = to_f(from_f<T>(e));
+        sum += e;  // l sums the undropped weights
+        float w = e;
+        if (p.drop_t > 0)
+          w = fa::keep(hseed, row, k0 + tx + 16 * j, p.Sk, p.drop_t)
+                  ? e * p.drop_scale
+                  : 0.f;
+        sP[(ty + 16 * i) * P_STRIDE + tx + 16 * j] = to_f(from_f<T>(w));
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -278,14 +278,18 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 float32, 1 bfloat16. strides: 15 element strides, in order
 // q (b, s, h), k (b, s, h), v (b, s, h), out (b, s, h), bias (b, h, q).
-// bias and lse may be null. Returns the cudaError_t of the launch.
+// bias and lse may be null. drop_t: 0 for no dropout, else the keep
+// threshold 1..255 with seed words s0, s1. Returns the cudaError_t of the
+// launch.
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* bias,
                                       void* out, void* lse, int dtype,
                                       int B, int H, int Sq, int Sk, int D,
                                       const int64_t* strides, float scale,
-                                      int causal, void* stream) {
-  if (D < 1 || D > 128 || B < 1 || H < 1 || Sq < 1 || Sk < 1)
+                                      int causal, uint32_t s0, uint32_t s1,
+                                      int drop_t, void* stream) {
+  if (D < 1 || D > 128 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
+      drop_t < 0 || drop_t > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -316,6 +320,10 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   p.bias_sq = strides[14];
   p.scale = scale;
   p.causal = causal;
+  p.s0 = s0;
+  p.s1 = s1;
+  p.drop_t = drop_t;
+  p.drop_scale = drop_t > 0 ? static_cast<float>(256.0 / drop_t) : 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)

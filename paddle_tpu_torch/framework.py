@@ -10,6 +10,7 @@ no tensor value on the host.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -110,11 +111,17 @@ class Variable:
 
 
 class Parameter(Variable):
-    """Trainable persistable variable."""
+    """Trainable persistable variable. optimize_attr carries a per-param
+    learning-rate multiplier; regularizer and gradient_clip_attr are read
+    by the optimizer's regularization and clip passes."""
 
     def __init__(self, block, shape, dtype, trainable=True, **kwargs):
         kwargs.setdefault("persistable", True)
         self.trainable = trainable
+        self.optimize_attr = kwargs.pop("optimize_attr",
+                                        {"learning_rate": 1.0})
+        self.regularizer = kwargs.pop("regularizer", None)
+        self.gradient_clip_attr = kwargs.pop("gradient_clip_attr", None)
         super().__init__(block, shape=shape, dtype=dtype, **kwargs)
         self.stop_gradient = not trainable
 
@@ -168,6 +175,10 @@ class Operator:
     def attr(self, name: str, default=None):
         return self._attrs.get(name, default)
 
+    def _all_attrs(self):
+        """Every attr, the internal ones (op uid) included."""
+        return self._attrs.items()
+
     def all_attrs(self):
         return {k: v for k, v in self._attrs.items()
                 if not k.startswith("__")}
@@ -206,6 +217,7 @@ class Block:
             return self.vars[name]
         v = Variable(self, **kwargs)
         self.vars[name] = v
+        self.program._bump_version()
         return v
 
     def create_parameter(self, **kwargs) -> Parameter:
@@ -215,20 +227,32 @@ class Block:
         p = Parameter(gb, kwargs.pop("shape"), kwargs.pop("dtype"),
                       **kwargs)
         gb.vars[name] = p
+        self.program._bump_version()
         return p
 
     def find_var(self, name: str) -> Optional[Variable]:
         return self.vars.get(name)
+
+    def has_var(self, name: str) -> bool:
+        return name in self.vars
+
+    def _find_var_recursive(self, name: str) -> Optional[Variable]:
+        return self.vars.get(name)   # one block: no parent to search
 
     def all_parameters(self) -> List[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     # -- ops ----------------------------------------------------------------
     def append_op(self, type: str, inputs=None, outputs=None,
-                  attrs=None) -> Operator:
+                  attrs=None, infer_shape: bool = True) -> Operator:
+        """Append an op; with infer_shape, run its lowering on meta
+        tensors and write the output shapes and dtypes (grad ops are
+        appended without: their vars take the forward vars' shapes)."""
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
-        self._infer_op_shapes(op)
+        self.program._bump_version()
+        if infer_shape:
+            self._infer_op_shapes(op)
         return op
 
     def _infer_op_shapes(self, op: Operator):
@@ -270,11 +294,22 @@ class Block:
 # ---------------------------------------------------------------------------
 
 class Program:
-    """A list of blocks; block 0 is the global block."""
+    """A list of blocks; block 0 is the global block. `_amp` is the
+    mixed-precision config the decorator sets (None: no AMP); `_uid` is
+    unique per Program object and keys the per-scope run counter that
+    seeds random ops."""
+
+    _next_uid = itertools.count()
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
         self.random_seed = 0
+        self._uid = next(Program._next_uid)
+        self._version = 0
+        self._amp = None
+
+    def _bump_version(self):
+        self._version += 1
 
     def global_block(self) -> Block:
         return self.blocks[0]

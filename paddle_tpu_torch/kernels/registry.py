@@ -1,12 +1,13 @@
 """Hand-written kernels: launch counters, the plain-reference switch and
 the build step.
 
-Each CUDA kernel is one source under paddle_tpu_torch/csrc/ with a plain C
-interface. At first use it is compiled with nvcc for sm_90a into a shared
-library under paddle_tpu_torch/_build/ (named by a hash of the source and
-flags, so an edited source rebuilds) and loaded with ctypes. Nothing is
-built when a module is imported: this module imports on machines with no
-nvcc and no card.
+Each CUDA kernel lives in a source under paddle_tpu_torch/csrc/ with a
+plain C interface (one source may hold several kernels). At first use a
+source is compiled with nvcc for sm_90a into a shared library under
+paddle_tpu_torch/_build/ (named by a hash of the source, the shared
+headers and the flags, so an edit rebuilds) and loaded with ctypes.
+Nothing is built when a module is imported: this module imports on
+machines with no nvcc and no card.
 
 Each wrapper adds one to its kernel's launch count where it launches the
 kernel, and nowhere else, so a run can show that it went through the
@@ -30,7 +31,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel name -> its source under csrc/
-SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu"}
+SOURCES = {
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd_dq": "flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "flash_attention_bwd.cu",
+    "fused_adam": "fused_optimizer.cu",
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -95,34 +101,41 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The shared library of kernel `name` (that of its source)."""
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> Dict[str, float]:
-    """Compile the named kernels (default: all) that are not built yet,
-    one nvcc process per source, all started together. Returns seconds
-    per kernel built; raises with nvcc's output if one fails. The
-    compiler's register/shared-memory report goes to
-    _build/<name>.log."""
+    """Compile the sources of the named kernels (default: all) that are
+    not built yet, one nvcc process per source, all started together.
+    Returns seconds per source built (by source stem); raises with
+    nvcc's output if one fails. The compiler's register/shared-memory
+    report goes to _build/<source stem>.log."""
     names = list(SOURCES if names is None else names)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = {}
+    for n in names:
+        path, src = library_path(n), CSRC / SOURCES[n]
+        if not path.exists():
+            todo[src.stem] = (path, src)
     if not todo:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (tmp, subprocess.Popen(
+    for n, (path, src) in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[n] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     seconds, failed = {}, []
-    for n, (tmp, proc) in procs.items():
+    for n, (path, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         seconds[n] = time.perf_counter() - t0
         (BUILD_DIR / f"{n}.log").write_text(out)
@@ -130,18 +143,25 @@ def build(names=None) -> Dict[str, float]:
             failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n"
                           f"{out}")
             continue
-        os.replace(tmp, library_path(n))  # atomic: no half-written .so
+        os.replace(tmp, path)  # atomic: no half-written .so
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return seconds
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of one kernel, built at first use."""
+    """The loaded shared library of one kernel's source, built at first
+    use. Loaded once per process: later calls read no file (a launch on
+    the hot path must not hash the sources again)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _build_lock:
-        lib = _libs.get(name)
+        path = library_path(name)
+        lib = _libs.get(path.name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(path))
+            _libs[path.name] = lib
+        _libs[name] = lib
         return lib

@@ -29,6 +29,10 @@ class LayerHelper:
             name=unique_name.generate(f"{self.name}.tmp"),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, **kwargs):
+        return self.main_program.global_block().create_var(
+            persistable=persistable, **kwargs)
+
     def create_parameter(self, attr, shape, dtype, is_bias=False,
                          default_initializer=None):
         attr = ParamAttr._to_attr(attr)

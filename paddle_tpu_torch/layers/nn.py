@@ -1,6 +1,7 @@
 """NN layers (counterpart of paddle_tpu/layers/nn.py). The builders that
-Transformer inference calls: fc, embedding, layer_norm, fused_attention,
-reshape, squeeze, reduce_sum, add_position_encoding, elementwise_*."""
+Transformer training and inference call: fc, embedding, layer_norm,
+fused_attention, dropout, reshape, squeeze, reduce_sum,
+add_position_encoding, elementwise_*."""
 from __future__ import annotations
 
 import copy
@@ -12,7 +13,8 @@ from ..param_attr import ParamAttr
 from ..initializer import Constant
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "fused_attention", "reshape",
+    "fc", "embedding", "layer_norm", "fused_attention", "dropout",
+    "reshape",
     "squeeze", "reduce_sum", "add_position_encoding", "elementwise_add",
     "elementwise_mul", "elementwise_div",
 ]
@@ -135,6 +137,22 @@ def fused_attention(q, k, v, bias=None, scale=None, block_q=None,
                             "dropout_prob": float(dropout_prob),
                             "is_test": bool(is_test),
                             "causal": bool(causal)})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Out = x with a random dropout_prob of its elements zeroed (and,
+    with "upscale_in_train", the rest scaled up); Mask (uint8) marks the
+    kept ones. The op's seed attr fixes the draw when nonzero."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    helper.append_op(
+        "dropout", inputs={"X": x}, outputs={"Out": out, "Mask": mask},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
     return out
 
 

@@ -2,13 +2,14 @@
 
 Counterpart of paddle_tpu/models/transformer.py, on its fused path:
 fuse_attention=True (op fused_attention, layout bshd, causal decoder
-self-attention through the op attr) and fuse_loss=True (op
-label_smoothed_softmax_xent). With is_test=True the Program is the JAX
-package's, op for op, and every parameter has the same explicit name, so
-parameters initialized by either package load into the other by name.
-The composed attention and loss paths, the incremental-decode cache and
-dropout layers are not ported yet: the builder refuses configurations
-that would need them.
+self-attention through the op attr, attention-weights dropout inside the
+op) and fuse_loss=True (op label_smoothed_softmax_xent). For inference
+(is_test=True) and for training (with its dropout layers, upscale in
+train) the Program is the JAX package's, op for op, and every parameter
+has the same explicit name, so parameters initialized by either package
+load into the other by name. The composed attention and loss paths and
+the incremental-decode cache are not ported yet: the builder refuses
+configurations that would need them.
 """
 from __future__ import annotations
 
@@ -79,13 +80,22 @@ def multi_head_attention(q_in, kv_in, attn_bias, cfg: TransformerConfig,
     return _linear(ctx, cfg.d_model, name + "_o")
 
 
-def _ffn(x, cfg: TransformerConfig, name):
+def _dropout(x, cfg, is_test):
+    if cfg.dropout and not is_test:
+        x = layers.dropout(x, cfg.dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    return x
+
+
+def _ffn(x, cfg: TransformerConfig, name, is_test=False):
     hidden = _linear(x, cfg.d_inner, name + "_fc1", act="relu")
+    hidden = _dropout(hidden, cfg, is_test)
     return _linear(hidden, cfg.d_model, name + "_fc2")
 
 
-def _pre_post(x, residual, name):
-    """post-norm residual block tail: LN(residual + x)."""
+def _pre_post(x, residual, cfg, name, is_test):
+    """post-norm residual block tail: LN(residual + dropout(x))."""
+    x = _dropout(x, cfg, is_test)
     out = layers.elementwise_add(x, residual)
     return layers.layer_norm(
         out, begin_norm_axis=2,
@@ -107,32 +117,38 @@ def _embed(ids, vocab_size, cfg, name):
 
 def encoder(src_ids, src_bias, cfg: TransformerConfig, is_test=False):
     x = _embed(src_ids, cfg.src_vocab_size, cfg, "src_word_emb.w_0")
+    x = _dropout(x, cfg, is_test)
     for i in range(cfg.n_layer):
         p = f"enc_{i}"
         attn = multi_head_attention(x, x, src_bias, cfg, p + "_attn",
                                     is_test)
-        x = _pre_post(attn, x, p + "_attn")
-        x = _pre_post(_ffn(x, cfg, p + "_ffn"), x, p + "_ffn")
+        x = _pre_post(attn, x, cfg, p + "_attn", is_test)
+        ffn = _ffn(x, cfg, p + "_ffn", is_test)
+        x = _pre_post(ffn, x, cfg, p + "_ffn", is_test)
     return x
 
 
 def decoder(trg_ids, trg_bias, enc_out, cross_bias, cfg, is_test=False):
     x = _embed(trg_ids, cfg.trg_vocab_size, cfg, "trg_word_emb.w_0")
+    x = _dropout(x, cfg, is_test)
     for i in range(cfg.n_layer):
         p = f"dec_{i}"
         self_attn = multi_head_attention(x, x, trg_bias, cfg,
                                          p + "_self_attn", is_test,
                                          causal=True)
-        x = _pre_post(self_attn, x, p + "_self_attn")
+        x = _pre_post(self_attn, x, cfg, p + "_self_attn", is_test)
         cross = multi_head_attention(x, enc_out, cross_bias, cfg,
                                      p + "_cross_attn", is_test)
-        x = _pre_post(cross, x, p + "_cross_attn")
-        x = _pre_post(_ffn(x, cfg, p + "_ffn"), x, p + "_ffn")
+        x = _pre_post(cross, x, cfg, p + "_cross_attn", is_test)
+        ffn = _ffn(x, cfg, p + "_ffn", is_test)
+        x = _pre_post(ffn, x, cfg, p + "_ffn", is_test)
     return x
 
 
 def transformer_train(cfg: TransformerConfig, is_test=False):
-    """Build the scoring graph. Feeds (dense, host-prepared):
+    """Build the training graph (is_test=False: with dropout; minimize
+    its cost with an optimizer) or the scoring graph. Feeds (dense,
+    host-prepared):
       src_ids   int32 [B, S_src]
       trg_ids   int32 [B, S_trg]        (decoder input, shifted right)
       lbl_ids   int32 [B, S_trg]        (decoder target)
@@ -145,11 +161,6 @@ def transformer_train(cfg: TransformerConfig, is_test=False):
         raise NotImplementedError(
             "paddle_tpu_torch builds the fused Transformer only "
             "(fuse_attention=True, fuse_loss=True, label_smooth_eps > 0)")
-    if cfg.dropout and not is_test:
-        raise NotImplementedError(
-            "dropout is not ported yet: build with is_test=True or "
-            "dropout=0")
-
     def _data(name, shape, dtype):
         return layers.data(name, shape, append_batch_size=False,
                            dtype=dtype)

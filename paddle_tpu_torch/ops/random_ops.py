@@ -1,17 +1,18 @@
 """Random ops (counterpart of paddle_tpu/ops/random_ops.py:
 gaussian_random). Each op draws from its own torch.Generator on the op's
-device, seeded from the `seed` attr or the program seed and op uid
-(ExecContext.generator). torch cannot reproduce jax.random's bits: the
-same seed gives the same numbers within the port only."""
+device, seeded from the `seed` attr or the program seed, the op uid and
+the run index (ExecContext.generator). torch cannot reproduce
+jax.random's bits: the same seed gives the same numbers within the port
+only."""
 from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_no_grad_op
 from ..core.types import dtype_to_torch
 
 
-@register_op("gaussian_random")
+@register_no_grad_op("gaussian_random")
 def gaussian_random(ctx):
     shape = [int(s) for s in ctx.attr("shape", [])]
     dt = dtype_to_torch(ctx.attr("dtype", "float32"))

@@ -1,14 +1,18 @@
-"""fused_attention_plain (the CUDA kernel's plain PyTorch version) against
-the JAX package's flash-attention forward, and the wrapper's routing.
+"""The plain PyTorch versions of the CUDA flash-attention kernels (the
+forward, with and without attention dropout, and the dq / dk-dv
+backward) against the JAX package's flash attention, the dropout hash
+mask against the JAX package's, and the wrappers' routing.
 
-The JAX side runs its Pallas kernel _fa_forward in interpret mode (as
-tests/test_flash_attention_bwd.py does) and its composed _attn_reference.
-Tolerance: float32 1e-5 relative and absolute (float32 sums in another
-order); bf16 inputs 2e-2 against the float32 reference on the same
-bf16-rounded inputs (p and out round to bf16).
+The JAX side runs its Pallas kernels _fa_forward / _fa_backward in
+interpret mode (as tests/test_flash_attention_bwd.py does) and its
+composed _attn_reference. Dropout cases hand both sides the same two
+uint32 seed words. Tolerance: float32 1e-5 relative and absolute
+(float32 sums in another order); bf16 inputs 2e-2 against the float32
+reference on the same bf16-rounded inputs (p and out round to bf16).
+The keep mask must agree bit for bit.
 
-The kernel itself is held against the plain version on the card in
-tests/test_torch_cuda.py and chip_smoke.py.
+The kernels themselves are held against the plain versions on the card
+in tests/test_torch_cuda.py and chip_smoke.py.
 """
 import importlib
 
@@ -146,10 +150,122 @@ def test_cpu_tensor_routes_to_plain(monkeypatch):
 
 
 def test_wrapper_refuses_dropout():
+    """Keep thresholds the kernels do not realize are refused: t >= 256
+    means no dropout (the caller passes None), t <= 0 drops everything
+    (the caller emits zeros)."""
     q, k, v, b = (torch.from_numpy(a) for a in _inputs(4, "bshd"))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        pfa.fused_attention_forward(q, k, v, b, 0.25, False, "bshd",
-                                    dropout_prob=0.1)
+    for t in (0, 256, -3):
+        with pytest.raises(ValueError, match="dropout"):
+            pfa.fused_attention_forward(q, k, v, b, 0.25, False, "bshd",
+                                        dropout=(1, 2, t))
+
+
+_SEEDS = [(0, 0), (0x12345678, 0x9ABCDEF0), (0xFFFFFFFF, 7)]
+
+
+@pytest.mark.parametrize("s0,s1", _SEEDS)
+@pytest.mark.parametrize("B,H,Sq,Sk,t", [(2, 4, 16, 16, 230),
+                                         (1, 3, 12, 40, 128),
+                                         (3, 2, 33, 7, 1),
+                                         (2, 2, 9, 9, 255)])
+def test_dropout_keep_mask_is_the_jax_mask_bit_for_bit(s0, s1, B, H, Sq, Sk,
+                                                       t):
+    seed = jnp.asarray(np.array([s0, s1], np.uint32).view(np.int32))
+    want = np.asarray(jfa.dropout_keep_mask(seed, B, H, Sq, Sk, t))
+    got = pfa.dropout_keep_mask(s0, s1, B, H, Sq, Sk, t).numpy()
+    assert got.dtype == np.bool_ and got.shape == (B, H, Sq, Sk)
+    np.testing.assert_array_equal(got, want)
+    if 1 < t < 255:
+        assert 0 < got.mean() < 1
+
+
+def _jax_drop(dropout):
+    if dropout is None:
+        return None
+    s0, s1, t = dropout
+    return jnp.asarray(np.array([s0, s1], np.uint32)), t
+
+
+_DROPS = [None, (0x12345678, 0x9ABCDEF0, 230), (5, 9, 128)]
+_DROP_IDS = ["nodrop", "t230", "t128"]
+
+
+@pytest.mark.parametrize("dropout", _DROPS[1:], ids=_DROP_IDS[1:])
+@pytest.mark.parametrize("layout,Sq,Sk,bias,causal,pad_all", _CASES,
+                         ids=_IDS)
+def test_plain_dropout_forward_matches_jax_kernel_interpret(
+        layout, Sq, Sk, bias, causal, pad_all, dropout, monkeypatch):
+    monkeypatch.setattr(jfa, "_INTERPRET", True)
+    q, k, v, b = _inputs(6, layout, Sq=Sq, Sk=Sk, bias=bias,
+                         pad_all_row=pad_all)
+    scale = 8 ** -0.5
+    jo, jl = jfa._fa_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if b is None else jnp.asarray(b), scale, Sq, Sk,
+        return_lse=True, layout=layout, causal=causal,
+        dropout=_jax_drop(dropout))
+    tt = (lambda a: None if a is None else torch.from_numpy(a))
+    po, pl = pfa.fused_attention_plain(tt(q), tt(k), tt(v), tt(b), scale,
+                                       causal, layout, return_lse=True,
+                                       dropout=dropout)
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("dropout", _DROPS, ids=_DROP_IDS)
+@pytest.mark.parametrize("layout,Sq,Sk,bias,causal,pad_all", _CASES,
+                         ids=_IDS)
+def test_plain_backward_matches_jax_backward_interpret(
+        layout, Sq, Sk, bias, causal, pad_all, dropout, monkeypatch):
+    """dq, dk, dv (and dbias for a per-head bias) of the plain backward
+    against JAX _fa_backward in interpret mode, both from the JAX
+    forward's out and lse."""
+    monkeypatch.setattr(jfa, "_INTERPRET", True)
+    q, k, v, b = _inputs(7, layout, Sq=Sq, Sk=Sk, bias=bias,
+                         pad_all_row=pad_all)
+    g = np.random.default_rng(8).standard_normal(q.shape).astype(
+        np.float32)
+    scale = 8 ** -0.5
+    jargs = [jnp.asarray(a) for a in (q, k, v)] + \
+        [None if b is None else jnp.asarray(b)]
+    jd = _jax_drop(dropout)
+    out, lse = jfa._fa_forward(*jargs, scale, Sq, Sk, return_lse=True,
+                               layout=layout, causal=causal, dropout=jd)
+    want_dbias = bias == "per_head"
+    want = jfa._fa_backward(*jargs, out, lse, jnp.asarray(g), scale, Sq,
+                            Sk, layout=layout, want_dbias=want_dbias,
+                            causal=causal, dropout=jd)
+    tt = (lambda a: None if a is None else torch.from_numpy(np.array(a)))
+    got = pfa.fused_attention_backward(
+        tt(q), tt(k), tt(v), tt(b), tt(out), tt(lse), tt(g), scale, causal,
+        layout, dropout=dropout, want_dbias=want_dbias)
+    names = ("dq", "dk", "dv", "dbias")
+    for name, pg, jg in zip(names, got, list(want) + [None] * 4):
+        if not want_dbias and name == "dbias":
+            assert pg is None
+            continue
+        np.testing.assert_allclose(pg.numpy(), np.asarray(jg), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+def test_cpu_backward_routes_to_plain(monkeypatch):
+    def _no_launch(*a, **k):
+        raise AssertionError("a CUDA kernel was launched for CPU input")
+
+    monkeypatch.setattr(pfa, "_launch_bwd", _no_launch)
+    q, k, v, b = (torch.from_numpy(a)
+                  for a in _inputs(9, "bshd", Sq=12, Sk=16))
+    out, lse = pfa.fused_attention_forward(q, k, v, b, 0.25, True, "bshd",
+                                           return_lse=True)
+    kreg.reset_counts()
+    got = pfa.fused_attention_backward(q, k, v, b, out, lse,
+                                       torch.ones_like(q), 0.25, True,
+                                       "bshd")
+    assert kreg.launches()["flash_attention_bwd_dq"] == 0
+    assert kreg.launches()["flash_attention_bwd_dkv"] == 0
+    assert got[3] is None and got[0].shape == q.shape
 
 
 @pytest.mark.parametrize("bad", ["bias_dtype", "bias_shape", "head_dim",
@@ -191,9 +307,16 @@ def test_build_without_nvcc_says_so(monkeypatch, tmp_path):
         kreg.nvcc_path()
 
 
-def test_kernel_source_exports_the_bound_symbol():
-    src = (kreg.CSRC / kreg.SOURCES["flash_attention_fwd"]).read_text()
-    assert 'extern "C" int pt_flash_attention_fwd(' in src
+_SYMBOLS = {"flash_attention_fwd": "pt_flash_attention_fwd",
+            "flash_attention_bwd_dq": "pt_flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv": "pt_flash_attention_bwd_dkv",
+            "fused_adam": "pt_fused_adam"}
+
+
+@pytest.mark.parametrize("kernel", sorted(_SYMBOLS))
+def test_kernel_source_exports_the_bound_symbol(kernel):
+    src = (kreg.CSRC / kreg.SOURCES[kernel]).read_text()
+    assert f'extern "C" int {_SYMBOLS[kernel]}(' in src
     assert "sm_90a" in " ".join(kreg.NVCC_FLAGS)
-    name = kreg.library_path("flash_attention_fwd").name
-    assert name.startswith("libflash_attention_fwd-")
+    name = kreg.library_path(kernel).name
+    assert name.startswith("lib" + kreg.SOURCES[kernel][:-3] + "-")

@@ -1,6 +1,9 @@
-"""One-op parity: each of the 16 op types on Transformer inference's path
-runs through the JAX package's lowering and the port's lowering on the
-same numpy inputs, made from a seed.
+"""One-op parity: each forward op type on Transformer inference's and
+training's path runs through the JAX package's lowering and the port's
+lowering on the same numpy inputs, made from a seed. (The grad ops are
+held against the JAX package in tests/test_torch_backward.py, adam in
+tests/test_torch_training.py; dropout's random branch, which cannot draw
+the JAX package's bits, in tests/test_torch_training.py too.)
 
 Tolerance: float32 results agree to 1e-5 relative and 1e-6 absolute
 (only the order of float32 sums differs between XLA and torch on the
@@ -156,6 +159,18 @@ def _cases():
         ("fused_attention", attn, ["Out"],
          {"scale": -1.0, "layout": "bshd", "is_test": True,
           "causal": True}),
+        ("dropout", {"X": x3}, ["Out"],
+         {"dropout_prob": 0.3, "is_test": True,
+          "dropout_implementation": "downgrade_in_infer"}),
+        ("dropout", {"X": x3}, ["Out"],
+         {"dropout_prob": 0.3, "is_test": True,
+          "dropout_implementation": "upscale_in_train"}),
+        ("dropout", {"X": x3}, ["Out", "Mask"],
+         {"dropout_prob": 0.001, "is_test": False, "seed": 5,
+          "dropout_implementation": "upscale_in_train"}),   # t = 256
+        ("dropout", {"X": x3}, ["Out", "Mask"],
+         {"dropout_prob": 0.999, "is_test": False, "seed": 5,
+          "dropout_implementation": "upscale_in_train"}),   # t = 0
         ("fused_attention",
          {s: (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
               if s != "BiasQK" else a) for s, a in attn.items()},
@@ -182,8 +197,11 @@ def test_op_matches_jax(op_type, inputs, outputs, attrs):
 
 
 def test_every_slice_op_type_is_covered():
-    assert {c[0] for c in _CASES} | {"gaussian_random"} == \
-        set(PT_OPS.types())
+    """Every forward op type the port registers has a case here, except
+    the ones held elsewhere (see the module docstring)."""
+    forward = {t for t in PT_OPS.types() if not PT_OPS.get(t).is_grad_op}
+    assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} == \
+        forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
