@@ -7,27 +7,44 @@
    card's name and power limit as nvidia-smi reports them.
 2. Builds every kernel of the port from paddle_tpu_torch/csrc with nvcc
    (one process per source, all at once) and prints the build seconds.
-3. Kernel phase: holds each kernel against its plain PyTorch version on
-   the card, in float32 and bf16: the flash-attention forward (without
-   and with attention dropout), its dq and dk/dv backward kernels, and
-   Adam. Then times kernel, plain version and the library yardstick:
-   the forward at the serving shape, and all four kernels at the
+3. Kernel phase: holds each attention and Adam kernel against its plain
+   PyTorch version on the card, in float32 and bf16: the flash-attention
+   forward (without and with attention dropout), its dq and dk/dv
+   backward kernels, and Adam. Then times kernel, plain version and the
+   library yardstick: the forward at the serving shape, all four at the
    training shape (B=96, S=128, H=8, D=64, bf16; Adam over the 255
    parameters of Transformer-base).
 4. Serving phase: builds full-width Transformer-base (6+6 layers,
    d_model 512, 8 heads, vocab 32000, fuse_attention) with the port's
    layers, initializes it on the card from a seed, and scores 3 ragged
-   batches of 32 x 256 tokens through Executor.run. Checks finite logits
-   and cost, 18 attention launches per forward, and the logits against
-   the same forward under plain_reference().
+   batches of 32 x 256 tokens through Executor.run in float32. Checks
+   finite logits and cost, 18 attention launches per forward, and the
+   logits against the same forward under plain_reference().
 5. Training phase: the same model as bench.py trains it (dropout 0.1,
    contrib.mixed_precision.decorate(AdamOptimizer(2e-4)): bf16 compute,
    float32 master weights) takes 5 steps on one ragged batch of
    96 x 128. Checks a finite, falling loss, exactly 18 forward, 18 dq,
-   18 dk/dv and 255 Adam launches per step, and one step from a copy of
-   the initial scope under plain_reference() against the kernels' first
-   step. Prints steps/s, tokens/s, peak memory and a profile of one step.
-6. Prints one JSON line of per-kernel numbers, then, last, the device
+   18 dk/dv and 255 Adam launches per step (no GEMM kernel: none is
+   opted in), and one step from a copy of the initial scope under
+   plain_reference() against the kernels' first step. Prints steps/s,
+   tokens/s, peak memory and a profile of one step.
+6. GEMM kernels: quantized_matmul int8 (bit-equal) and bf16 against
+   their plain versions at the four GEMM shapes of the serving forward
+   and at 256x384x128, and every instantiated tuned_matmul variant
+   (epilogues none, layer_norm, dropout_residual) at every serving shape
+   it divides. Then tuning.variants.search_variants on the card at the
+   serving forward's most frequent GEMM (M=8192, N=512, K=512), the path
+   of the layer_norm and dropout_residual epilogues, and the device
+   times of every GEMM kernel (the search's winning tiles), its plain
+   version and its library yardstick at the four serving shapes.
+7. Serving in the GEMM modes: the batches of phase 4 again with every
+   one of the 97 mul ops through a GEMM kernel:
+   PT_KERNEL_QUANT_MATMUL=int8, =bf16, and with the search's float32
+   winner registered (register_winner). Each mode requires 97 launches
+   of its kernel a forward, prints the registry's dispatch stats, and
+   holds its logits against the same forward with only the GEMMs plain
+   (int8: bit-equal), under plain_reference(), and against float32.
+8. Prints one JSON line of per-kernel numbers, then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
@@ -80,11 +97,41 @@ COST_RTOL = 1e-4
 LOSS_STEP_RTOL = 1e-3
 GRAD_NOISE_RATIO = 1.5
 
+# GEMM kernels, each against its plain version on the same inputs,
+# relative error in the norm: bf16 and the tuned float32 GEMMs differ
+# only in the order of their float32 sums (products of bf16 values are
+# exact in float32); int8 must be bit-equal (exact int32 tile sums, then
+# the same two roundings a tile, in K order)
+GEMM_RTOL = 1e-5
+# a whole serving forward through the GEMM kernels against the same
+# forward with the GEMMs (or every kernel) on their plain versions,
+# relative error of the logits in the norm. int8: with only the GEMMs
+# plain, bit-equal (each GEMM is, on the same inputs). Otherwise a
+# last-bit difference (the attention kernel's or bf16 GEMMs' float32
+# sums) moves a value across a rounding boundary of the next GEMM's
+# quantization, by one int8 step (1/127 of its tile's range) or one bf16
+# step (2^-8); the next GEMMs carry the change on and cross more
+# boundaries, and over 12 layers the two forwards end as far apart as
+# two draws of the quantization noise (1.7e-2 in int8, measured on an
+# H100). So the bound there is the mode's parity bound. Tuned float32:
+# sum order only.
+QUANT_FWD_RTOL = {"int8": 5e-2, "bf16": 1e-2, "tuned": 1e-5}
+# the same forward against the float32 (cuBLAS) one: the parity bounds
+# of kernels/parity.py (int8 5e-2, bf16 1e-2, tuned 1e-4)
+PARITY_RTOL = {"int8": 5e-2, "bf16": 1e-2, "tuned": 1e-4}
+# the serving forward's mul ops at B=32, S=256: (M, K, N, ops a forward)
+SERVE_GEMMS = ((8192, 512, 512, 72), (8192, 512, 2048, 12),
+               (8192, 2048, 512, 12), (8192, 512, 32000, 1))
+SERVE_MULS = sum(g[3] for g in SERVE_GEMMS)      # 97
+# the variant search runs on the serving forward's most frequent GEMM
+SEARCH_PROBLEM = (8192, 512, 512)                 # M, N, K
+
 # Published peaks (NVIDIA data sheets, dense): float32 outside the tensor
-# cores and bf16 in them, in FLOP/s, and HBM bytes/s. Keyed by the name
-# torch reports.
-_PEAKS = {"PCIe": (51e12, 756e12, 2.0e12), "NVL": (60e12, 835e12, 3.9e12),
-          "SXM": (67e12, 989e12, 3.35e12)}
+# cores, bf16 and int8 in them, in FLOP/s (OP/s), and HBM bytes/s. Keyed
+# by the name torch reports.
+_PEAKS = {"PCIe": (51e12, 756e12, 2.0e12, 1513e12),
+          "NVL": (60e12, 835e12, 3.9e12, 1671e12),
+          "SXM": (67e12, 989e12, 3.35e12, 1979e12)}
 
 # the training shape: bench.py's Transformer-base batch
 TRAIN_B, TRAIN_S, LR = 96, 128, 2e-4
@@ -300,7 +347,7 @@ def time_attention(torch, dev, card):
     bound for the same work."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    peak_flops, _, peak_bw = _peaks(card)
+    peak_flops, _, peak_bw, _ = _peaks(card)
     B, H, S, D = 32, 8, 256, 64
     q, k, v, bias = _attn_inputs(torch, dev, torch.float32, "bshd", B, H,
                                  S, S, D, "key_pad", seed=7)
@@ -369,7 +416,7 @@ def time_training_attention(torch, dev, card):
     causal mask: kernel, plain and library times and the bounds."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    _, peak_bf16, peak_bw = _peaks(card)
+    _, peak_bf16, peak_bw, _ = _peaks(card)
     B, H, S, D = TRAIN_B, 8, TRAIN_S, 64
     q, k, v, bias = _attn_inputs(torch, dev, torch.bfloat16, "bshd", B, H,
                                  S, S, D, "key_pad", seed=7)
@@ -454,7 +501,7 @@ def time_adam(torch, dev, card, shapes):
     program: kernel (one launch per parameter), plain and
     torch.optim.Adam(fused=True), and the bound of 28 bytes an element."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
-    _, _, peak_bw = _peaks(card)
+    _, _, peak_bw, _ = _peaks(card)
     state = [_adam_state(torch, dev, int(np.prod(sh)), i)
              for i, sh in enumerate(shapes)]
     n = sum(p.numel() for p, _, _, _ in state)
@@ -514,6 +561,7 @@ def where_time_goes(torch, exe, main, feed, cost, scope):
                     reverse=True)[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    return {"cost_only_s": cost_only, "wall_s": wall, "busy_s": busy}
 
 
 def slice_phase(torch, dev):
@@ -530,6 +578,9 @@ def slice_phase(torch, dev):
     n_attn = sum(op.type == "fused_attention"
                  for op in main.global_block().ops)
     _require(n_attn == 18, f"expected 18 fused_attention ops, got {n_attn}")
+    n_mul = sum(op.type == "mul" for op in main.global_block().ops)
+    _require(n_mul == SERVE_MULS, f"expected {SERVE_MULS} mul ops, got "
+                                  f"{n_mul}")
 
     exe = pt.Executor(pt.CUDAPlace(0))
     scope = pt.Scope()
@@ -586,7 +637,15 @@ def slice_phase(torch, dev):
              "forward disagrees with plain_reference()")
 
     where_time_goes(torch, exe, main, batches[-1], cost, scope)
+    _serving_rates(batches, secs, B, S)
+    print(f"  peak memory allocated: {peak_gb:.3f} GB; launches per "
+          f"forward: {counts['flash_attention_fwd'] // len(batches)}")
+    served = {"exe": exe, "main": main, "scope": scope, "batches": batches,
+              "logits": logits, "cost": cost, "f32": outs[-1]}
+    return counts, lerr, served
 
+
+def _serving_rates(batches, secs, B, S):
     tokens = [int(f["lbl_w"].sum() + (f["src_bias"] == 0).sum())
               for f in batches]
     steady = secs[1:]
@@ -597,9 +656,348 @@ def slice_phase(torch, dev):
     print(f"  tokens/s (non-pad src+trg, batches 2-3, fetch included): "
           f"{tps:.1f}; padded tokens/s: "
           f"{B * 2 * S * len(steady) / sum(steady):.1f}")
-    print(f"  peak memory allocated: {peak_gb:.3f} GB; launches per "
-          f"forward: {counts['flash_attention_fwd'] // len(batches)}")
-    return counts, lerr
+    return tps
+
+
+def _rel(torch, got, ref):
+    """Relative error in the norm, in float64."""
+    got, ref = got.double(), ref.double()
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def _gemm_inputs(torch, dev, M, K, N, seed, dtype=None):
+    """x [M, K], y [K, N] on the card from a seed; every 97th row of x
+    is 30x larger, so that some tiles' scales are set by a few rows."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(M, K, device=dev, generator=g)
+    x[::97] *= 30.0
+    y = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+    dtype = dtype or torch.float32
+    return x.to(dtype), y.to(dtype)
+
+
+def _epilogue_inputs(torch, dev, M, N, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return {"gamma": 1.0 + 0.1 * torch.randn(N, device=dev, generator=g),
+            "beta": 0.1 * torch.randn(N, device=dev, generator=g),
+            "mask": (torch.rand(M, N, device=dev, generator=g) < 0.9)
+            .float(),
+            "residual": torch.randn(M, N, device=dev, generator=g)}
+
+
+def gemm_kernel_phase(torch, dev):
+    """quantized_matmul (int8 bit-equal, bf16 within GEMM_RTOL) at the
+    four serving shapes and 256x384x128, float32 and bf16 operands; every
+    instantiated tuned_matmul variant within GEMM_RTOL at every serving
+    shape it divides. Returns {(kernel, M, K, N): max |err|} (float32
+    operands)."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.kernels import registry as kreg
+    from paddle_tpu_torch.tuning import variants as V
+    worst = {}
+    shapes = [(M, K, N) for M, K, N, _ in SERVE_GEMMS] + [(256, 384, 128)]
+    for M, K, N in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = _gemm_inputs(torch, dev, M, K, N, M + K + N, dtype)
+            for mode in ("int8", "bf16"):
+                got = qm.quantized_matmul(x, y, mode=mode)
+                ref = qm.quantized_matmul_plain(x, y, mode)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                diff = int((got != ref).sum())
+                rel = _rel(torch, got, ref)
+                ok = diff == 0 if mode == "int8" else rel <= GEMM_RTOL
+                ok = ok and bool(torch.isfinite(got).all())
+                print(f"  quantized_matmul_{mode} vs plain [{_dname(torch, dtype):8s}] "
+                      f"{M}x{K}x{N}: {diff} elements differ, rel "
+                      f"{rel:.3e}, max|err| {err:.3e} "
+                      f"({'bit-equal required' if mode == 'int8' else f'rtol {GEMM_RTOL:g}'}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                _require(ok, f"quantized_matmul_{mode} {dtype} {M}x{K}x{N} "
+                             f"disagrees with its plain version")
+                if dtype == torch.float32:
+                    worst[(f"quantized_matmul_{mode}", M, K, N)] = err
+                del got, ref
+    built = V.instantiated_variants()
+    print(f"  tuned_matmul variants built: "
+          f"{[f'{bm}x{bn}x{bk}/{ep}' for bm, bn, bk, ep in built]}")
+    for M, K, N, _ in SERVE_GEMMS:
+        x, y = _gemm_inputs(torch, dev, M, K, N, 7 * M + N)
+        e = _epilogue_inputs(torch, dev, M, N, 11 + N)
+        for v in V.enumerate_variants(M, N, K):
+            kw = V._kwargs(v, e)
+            got = V.tuned_matmul(x, y, variant=v, **kw)
+            with kreg.plain_reference():
+                ref = V.tuned_matmul(x, y, variant=v, **kw)
+            torch.cuda.synchronize()
+            rel = _rel(torch, got, ref)
+            err = (got - ref).abs().max().item()
+            ok = rel <= GEMM_RTOL and bool(torch.isfinite(got).all())
+            print(f"  {v.label} vs plain {M}x{K}x{N}: rel {rel:.3e}, "
+                  f"max|err| {err:.3e} (rtol {GEMM_RTOL:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            _require(ok, f"{v.label} {M}x{K}x{N} disagrees with its plain "
+                         f"version")
+            key = (V._KERNELS[v.epilogue], M, K, N)
+            worst[key] = max(worst.get(key, 0.0), err)
+            del got, ref
+    return worst
+
+
+def search_phase(torch, dev):
+    """The tuned_matmul variant search on the card at SEARCH_PROBLEM, the
+    path of the layer_norm and dropout_residual epilogues; registers the
+    none winner for float32 mul/matmul. Returns (search result,
+    launches during the search)."""
+    from paddle_tpu_torch.kernels import registry as kreg
+    from paddle_tpu_torch.tuning import variants as V
+    M, N, K = SEARCH_PROBLEM
+    kreg.reset_counts()
+    res = V.search_variants(M, N, K, iters=20, device=dev)
+    counts = kreg.launches()
+    _require(res["timed"], "the variant search did not time on the card")
+    _require(res["considered"] == len(res["admitted"]),
+             f"only {len(res['admitted'])} of {res['considered']} variants "
+             f"passed parity")
+    for row in res["admitted"]:
+        print(f"  {row['bm']}x{row['bn']}x{row['bk']}/{row['epilogue']}: "
+              f"{row['ms']:.4f} ms (median of 20), rel err "
+              f"{row['rel_err']:.3e}")
+    _require(set(res["winners"]) == {"none", "layer_norm",
+                                     "dropout_residual"},
+             f"winners {res['winners']}")
+    print(f"  winners at M={M} N={N} K={K}: "
+          + ", ".join(f"{ep} {w['bm']}x{w['bn']}x{w['bk']} {w['ms']:.4f} ms"
+                      for ep, w in res["winners"].items()))
+    print(f"  launches during the search: "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    for name in ("tuned_matmul", "tuned_matmul_ln", "tuned_matmul_dr"):
+        _require(counts[name] > 0, f"the search never launched {name}")
+    return res, counts
+
+
+def _int_mm_call(torch, x, y):
+    """torch._int_mm on the already-quantized operands: the int8 product
+    alone (no quantization, no scales, int32 out), so not the same
+    function. None when this torch build refuses both layouts of B."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    qa = qm.quantize_int8(x, qm.tile_scales(x)).to(torch.int8)
+    qb = qm.quantize_int8(y, qm.tile_scales(y)).to(torch.int8)
+    for b in (qb.t().contiguous().t(), qb):      # column-major, row-major
+        try:
+            torch._int_mm(qa, b)
+        except RuntimeError as exc:
+            print(f"  torch._int_mm refused B of strides {b.stride()}: "
+                  f"{str(exc).splitlines()[0][:100]}")
+            continue
+        return lambda b=b: torch._int_mm(qa, b)
+    return None
+
+
+def _call_device_ms(torch, fn, iters=10):
+    """Device time of one call of fn: every CUDA kernel it launches,
+    summed, from torch.profiler over `iters` calls (host launch time, which
+    CUDA events over back-to-back calls of a small GEMM would measure, is
+    left out)."""
+    return _device_ms(torch, fn, iters, ("",))[""]
+
+
+def time_gemms(torch, dev, card, winners):
+    """Each GEMM kernel at the four serving shapes (float32 operands, as
+    the serving forward gives them): kernel, plain and library device
+    times per call (all the kernels each launches) and the bound. The
+    tuned kernels run the search's winning tiles; the layer_norm epilogue
+    only where N is a winner's bn. Returns {(kernel, M, K, N): row}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.tuning import variants as V
+    peak_f32, peak_bf16, peak_bw, peak_i8 = _peaks(card)
+    out = {}
+    for M, K, N, per_fwd in SERVE_GEMMS:
+        x, y = _gemm_inputs(torch, dev, M, K, N, 5 * M + K)
+        e = _epilogue_inputs(torch, dev, M, N, 13 + K)
+        mnk = 2 * M * N * K
+        io = 4 * (M * K + K * N + M * N)
+        xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+        rows = {
+            "quantized_matmul_int8": (
+                lambda: qm.quantized_matmul(x, y, mode="int8"),
+                lambda: qm.quantized_matmul_plain(x, y, "int8"),
+                _int_mm_call(torch, x, y),
+                "torch._int_mm on the quantized operands (the int8 "
+                "product alone: not the same function)",
+                mnk, io, peak_i8),
+            "quantized_matmul_bf16": (
+                lambda: qm.quantized_matmul(x, y, mode="bf16"),
+                lambda: qm.quantized_matmul_plain(x, y, "bf16"),
+                lambda: torch.matmul(xb, yb),
+                "torch.matmul of the bf16 operands (bf16 out)",
+                mnk, io, peak_bf16),
+        }
+        for ep, name in (("none", "tuned_matmul"),
+                         ("layer_norm", "tuned_matmul_ln"),
+                         ("dropout_residual", "tuned_matmul_dr")):
+            w = winners[ep]
+            v = V.Variant(w["bm"], w["bn"], w["bk"], ep)
+            if ep == "layer_norm" and v.bn != N:
+                continue
+            kw = V._kwargs(v, e)
+            if ep == "none":
+                lib = (lambda: torch.matmul(x, y))
+                what, extra_b, extra_f = "torch.matmul float32 (cuBLAS, " \
+                    "TF32 off): the same function", 0, 0
+            elif ep == "layer_norm":
+                lib = (lambda kw=kw: F.layer_norm(
+                    torch.matmul(x, y), (N,), kw["gamma"], kw["beta"],
+                    1e-5))
+                what, extra_b, extra_f = "F.layer_norm(torch.matmul) " \
+                    "(composed)", 8 * N, 8 * M * N
+            else:
+                lib = (lambda kw=kw: torch.matmul(x, y) * kw["mask"]
+                       * (1 / 0.9) + kw["residual"])
+                what, extra_b, extra_f = "torch.matmul * mask / 0.9 + " \
+                    "residual (composed)", 8 * M * N, 3 * M * N
+            rows[name] = (
+                lambda v=v, kw=kw: V.tuned_matmul(x, y, variant=v, **kw),
+                lambda v=v, kw=kw: V.tuned_matmul_plain(x, y, variant=v,
+                                                        **kw),
+                lib, what, mnk + extra_f, io + extra_b, peak_f32)
+        for name, (kern, plain, lib, what, flops, nbytes, peak) in \
+                rows.items():
+            ms = _call_device_ms(torch, kern)
+            events_ms = _time_ms(kern, iters=10, warmup=2)
+            plain_ms = _call_device_ms(torch, plain, iters=5)
+            lib_ms = None if lib is None else _call_device_ms(torch, lib)
+            bound, by = _bound(flops, nbytes, peak, peak_bw)
+            out[(name, M, K, N)] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by, "per_forward": per_fwd,
+                "library": what, "events_ms": events_ms}
+            print(f"  {name} {M}x{K}x{N} (x{per_fwd} a forward): kernel "
+                  f"{ms:.4f} ms device ({events_ms:.4f} ms a call on the "
+                  f"host's clock), plain {plain_ms:.4f} ms, library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+                  f"[{what}], bound {bound:.4f} ms ({by}: "
+                  f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:g} T/s, "
+                  f"{nbytes / 1e6:.1f} MB at {peak_bw / 1e12:g} TB/s)")
+        del x, y, xb, yb, e
+    for name in ("quantized_matmul_int8", "quantized_matmul_bf16",
+                 "tuned_matmul"):
+        tot = sum(r["ms"] * r["per_forward"] for (n, *_), r in out.items()
+                  if n == name)
+        bnd = sum(r["bound_ms"] * r["per_forward"]
+                  for (n, *_), r in out.items() if n == name)
+        print(f"  {name}: the {SERVE_MULS} GEMMs of one serving forward "
+              f"take {tot:.3f} ms of kernel time (bound {bnd:.3f} ms)")
+    return out
+
+
+def _gemm_plain_forward(kreg, name, run):
+    """run() with registry kernel `name` replaced by a stand-in with the
+    same gate whose run is the kernel's wrapper under plain_reference():
+    the GEMMs take their plain version, every other kernel launches."""
+    kern = kreg.get(name)
+
+    def plain_run(x, y, out_dtype=None, **_kw):
+        with kreg.plain_reference():
+            return kern.run(x, y, out_dtype=out_dtype)
+
+    kreg.register_kernel(name, op_types=kern.op_types,
+                         eligible=kern.eligible, run=plain_run)
+    try:
+        return run()
+    finally:
+        kreg.register_kernel(name, op_types=kern.op_types,
+                             eligible=kern.eligible, run=kern.run,
+                             doc=kern.doc)
+
+
+def serve_mode(torch, served, mode):
+    """The serving forward again with every mul through one GEMM kernel:
+    mode int8 / bf16 (PT_KERNEL_QUANT_MATMUL) or tuned (the registered
+    search winner). Requires 97 launches of that kernel and 18 of the
+    attention kernel a forward, compares the logits with the same forward
+    with only the GEMMs plain (int8: bit-equal), with the same forward
+    under plain_reference(), and with the float32 forward, and prints the
+    dispatch stats. Returns the kernel's launches in this mode's three
+    forwards."""
+    from paddle_tpu_torch.kernels import registry as kreg
+    exe, main, scope = served["exe"], served["main"], served["scope"]
+    batches, logits, cost = served["batches"], served["logits"], \
+        served["cost"]
+    routed = {"int8": "quantized_matmul_int8",
+              "bf16": "quantized_matmul_bf16", "tuned": "tuned_matmul"}[mode]
+    if mode != "tuned":
+        os.environ["PT_KERNEL_QUANT_MATMUL"] = mode
+    try:
+        kreg.reset_stats()
+        kreg.reset_counts()
+        secs, last = [], None
+        for feed in batches:
+            t0 = time.perf_counter()
+            last = exe.run(main, feed=feed, fetch_list=[logits, cost],
+                           scope=scope)
+            secs.append(time.perf_counter() - t0)
+        counts = kreg.launches()
+        stats = kreg.dispatch_stats()
+        print(f"  dispatch stats: {stats['per_kernel']} (decisions "
+              f"{stats['decisions']}, custom {stats['custom']})")
+        n = len(batches)
+        want = {k: 0 for k in counts}
+        want.update({routed: SERVE_MULS * n, "flash_attention_fwd": 18 * n})
+        _require(counts == want, f"{mode} serving launched {counts}, want "
+                                 f"{want}")
+        lg, c = last
+        _require(bool(np.isfinite(lg).all()) and np.isfinite(c),
+                 "non-finite logits or cost")
+        with kreg.plain_reference():
+            ref_lg, ref_c = exe.run(main, feed=batches[-1],
+                                    fetch_list=[logits, cost], scope=scope)
+        _require(kreg.launches() == counts,
+                 "plain_reference() launched a kernel")
+        gp_lg, gp_c = _gemm_plain_forward(
+            kreg, "tuned_matmul" if mode == "tuned" else "quantized_matmul",
+            lambda: exe.run(main, feed=batches[-1],
+                            fetch_list=[logits, cost], scope=scope))
+        _require(kreg.launches()[routed] == counts[routed],
+                 "the GEMMs' plain stand-in launched the kernel")
+        f32_lg, f32_c = served["f32"]
+
+        def rel(a, b):
+            return float(np.linalg.norm((a - b).ravel().astype(np.float64))
+                         / np.linalg.norm(b.ravel().astype(np.float64)))
+
+        r_gp, r_plain, r_f32 = rel(lg, gp_lg), rel(lg, ref_lg), \
+            rel(lg, f32_lg)
+        gp_equal = bool(np.array_equal(lg, gp_lg)) and float(c) == \
+            float(gp_c)
+        print(f"  logits vs the same forward with only the GEMMs plain: "
+              f"rel {r_gp:.3e}, max|err| "
+              f"{float(np.abs(lg - gp_lg).max()):.3e}, bit-equal "
+              f"{gp_equal} (rtol {QUANT_FWD_RTOL[mode]:g}"
+              f"{'; int8 must be bit-equal' if mode == 'int8' else ''}); "
+              f"vs plain_reference() in {mode} mode: rel {r_plain:.3e}, "
+              f"max|err| {float(np.abs(lg - ref_lg).max()):.3e} (rtol "
+              f"{QUANT_FWD_RTOL[mode]:g}); vs the float32 forward: rel "
+              f"{r_f32:.3e} (parity bound {PARITY_RTOL[mode]:g}); cost "
+              f"{float(c):.6f}, GEMMs plain {float(gp_c):.6f}, all plain "
+              f"{float(ref_c):.6f}, float32 {float(f32_c):.6f}")
+        _require(gp_equal if mode == "int8" else
+                 r_gp <= QUANT_FWD_RTOL[mode],
+                 f"{mode} forward disagrees with the same forward with "
+                 f"its GEMMs plain")
+        _require(r_plain <= QUANT_FWD_RTOL[mode],
+                 f"{mode} forward disagrees with plain_reference()")
+        _require(r_f32 <= PARITY_RTOL[mode],
+                 f"{mode} forward is beyond the parity bound of float32")
+        wt = where_time_goes(torch, exe, main, batches[-1], cost, scope)
+        tps = _serving_rates(batches, secs, *lg.shape[:2])
+        return counts[routed], {"tokens_s": tps, **wt, "rel_plain": r_plain,
+                                "rel_gemm_plain": r_gp, "rel_f32": r_f32}
+    finally:
+        os.environ.pop("PT_KERNEL_QUANT_MATMUL", None)
 
 
 def _build_training(pt, T):
@@ -707,8 +1105,9 @@ def training_phase(torch, dev, built):
     print(f"  losses: {', '.join(f'{x:.6f}' for x in losses)}")
     _require(all(np.isfinite(losses)), "non-finite loss")
     _require(losses[-1] < losses[0], "the loss did not fall in 5 steps")
-    want = {"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
-            "flash_attention_bwd_dkv": 18, "fused_adam": 255}
+    want = {k: 0 for k in kreg.launches()}      # no GEMM kernel
+    want.update({"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
+                 "flash_attention_bwd_dkv": 18, "fused_adam": 255})
     for i, c in enumerate(per_step):
         _require(c == want, f"step {i + 1} launched {c}, want {want}")
     print(f"  launches per step: {per_step[0]}")
@@ -805,11 +1204,15 @@ def main():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
+    # slices 1 and 2 first, in the order they always ran, so that their
+    # host-bound times meet the same process state as before; then the
+    # GEMM kernels of slice 3
     print("[kernel phase]")
     worst = kernel_phase(torch, dev)
     adam_err, adam_ulp = adam_phase(torch, dev)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.tuning import variants as V
     built = _build_training(pt, T)
     shapes = [p.shape for p in built[1].all_parameters()]
     times = time_attention(torch, dev, card)
@@ -819,11 +1222,30 @@ def main():
         _require(t["ms"] > 0, "the profiler saw no device time")
 
     print("[serving phase]")
-    counts, _ = slice_phase(torch, dev)
+    counts, _, served = slice_phase(torch, dev)
     print(f"  launches in the serving phase: {counts}")
 
     print("[training phase]")
     tcounts = training_phase(torch, dev, built)
+
+    print("[GEMM kernel phase]")
+    gemm_worst = gemm_kernel_phase(torch, dev)
+    print("[variant search]")
+    search, search_counts = search_phase(torch, dev)
+    print("[GEMM times]")
+    gtimes = time_gemms(torch, dev, card, search["winners"])
+
+    serve_launches = {}
+    for mode in ("int8", "bf16", "tuned"):
+        print(f"[serving phase, {mode} GEMMs]")
+        if mode == "tuned":
+            _require(V.register_winner(search["winners"]) == "tuned_matmul",
+                     "no none winner to register")
+        try:
+            serve_launches[mode], _ = serve_mode(torch, served, mode)
+        finally:
+            kreg.unregister_kernel("tuned_matmul")
+    del served
 
     src = "paddle_tpu_torch/csrc/"
     bf = "bfloat16"
@@ -851,6 +1273,32 @@ def main():
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    # the GEMM kernels at the serving forward's most frequent shape; the
+    # launches of the routed ones are those of their serving mode, those
+    # of the two fused epilogues the variant search's (their path)
+    M, N, K = SEARCH_PROBLEM
+    for name, source, replaces, launches in (
+            ("quantized_matmul_int8", "quantized_matmul.cu",
+             "paddle_tpu/kernels/quantized_matmul.py:64",
+             serve_launches["int8"]),
+            ("quantized_matmul_bf16", "quantized_matmul.cu",
+             "paddle_tpu/kernels/quantized_matmul.py:64",
+             serve_launches["bf16"]),
+            ("tuned_matmul", "tuned_matmul.cu",
+             "paddle_tpu/tuning/variants.py:70", serve_launches["tuned"]),
+            ("tuned_matmul_ln", "tuned_matmul.cu",
+             "paddle_tpu/tuning/variants.py:88",
+             search_counts["tuned_matmul_ln"]),
+            ("tuned_matmul_dr", "tuned_matmul.cu",
+             "paddle_tpu/tuning/variants.py:110",
+             search_counts["tuned_matmul_dr"])):
+        t = gtimes[(name, M, K, N)]
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": gemm_worst[(name, M, K, N)],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": rows}))

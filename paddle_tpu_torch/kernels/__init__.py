@@ -1,1 +1,4 @@
-"""Hand-written Hopper kernels and their plain PyTorch versions."""
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+Importing this package registers the kernels that ops reach through the
+registry (kernels/registry.py)."""
+from . import quantized_matmul  # noqa: F401  (registers for mul/matmul)

@@ -318,7 +318,7 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed with CUDA error "
                            f"{err}")
-    registry.count(_KERNEL)
+    registry.count_launch(_KERNEL)
     return (out, lse) if return_lse else out
 
 
@@ -369,6 +369,6 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
             if err != 0:
                 raise RuntimeError(f"{name} launch failed with CUDA error "
                                    f"{err}")
-            registry.count(name)
+            registry.count_launch(name)
     dbias = _reduce_bias_grad(ds, bias) if want_dbias else None
     return dq, dk, dv, dbias

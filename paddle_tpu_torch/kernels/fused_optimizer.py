@@ -82,5 +82,5 @@ def _launch(p, g, m, v, lr_t, beta1, beta2, epsilon):
                  torch.cuda.current_stream(p.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {err}")
-    registry.count(_KERNEL)
+    registry.count_launch(_KERNEL)
     return p, m, v

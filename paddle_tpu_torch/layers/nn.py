@@ -1,7 +1,7 @@
 """NN layers (counterpart of paddle_tpu/layers/nn.py). The builders that
 Transformer training and inference call: fc, embedding, layer_norm,
 fused_attention, dropout, reshape, squeeze, reduce_sum,
-add_position_encoding, elementwise_*."""
+add_position_encoding, elementwise_*; and matmul."""
 from __future__ import annotations
 
 import copy
@@ -14,7 +14,7 @@ from ..initializer import Constant
 
 __all__ = [
     "fc", "embedding", "layer_norm", "fused_attention", "dropout",
-    "reshape",
+    "matmul", "reshape",
     "squeeze", "reduce_sum", "add_position_encoding", "elementwise_add",
     "elementwise_mul", "elementwise_div",
 ]
@@ -80,6 +80,17 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         "layer_norm", inputs=inputs,
         outputs={"Y": out, "Mean": mean, "Variance": var},
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "matmul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
     return out
 
 

@@ -1,8 +1,9 @@
 """Card-only tests of paddle_tpu_torch: each kernel against its plain
 PyTorch version on the GPU (flash-attention forward with and without
-dropout, its dq and dk/dv backward, Adam), a tiny Transformer forward on
-the card against the same Program on the CPU, and three training steps
-of it. They skip where torch sees no CUDA device.
+dropout, its dq and dk/dv backward, Adam, quantized_matmul int8 and
+bf16, every tuned_matmul variant), a tiny Transformer forward on the
+card against the same Program on the CPU (float32 and int8 mode), and
+three training steps of it. They skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -13,6 +14,9 @@ another order); backward float32 1e-4 (each gradient sums up to S
 products of recomputed p, in another order than the plain version's
 matmuls); bf16 2e-2 (p, ds and the outputs round to bf16). Adam: at most
 ADAM_ULP units in the last place (each operation rounds once in both).
+quantized_matmul int8: bit-equal (exact integer tile sums, the same two
+roundings a tile); bf16 and the tuned float32 GEMMs: GEMM_RTOL relative
+in the norm (float32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -30,6 +34,7 @@ F32_TOL = 1e-5
 BWD_F32_TOL = 1e-4
 BF16_TOL = 2e-2
 ADAM_ULP = 1
+GEMM_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -270,3 +275,114 @@ def test_tiny_transformer_training_on_card_matches_cpu(cuda):
             np.asarray(gpu_scope.find_var(n).get_tensor()),
             np.asarray(cpu_scope.find_var(n).get_tensor()),
             rtol=1e-4, atol=1e-4, err_msg=n)
+
+
+def _rel(got, ref):
+    return ((got.double() - ref.double()).norm() / ref.double().norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(256, 384, 128), (384, 256, 512)])
+def test_quantized_matmul_matches_plain_on_card(cuda, M, K, N, dtype):
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(
+        cuda, dtype)
+    y = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(
+        cuda, dtype)
+    x[1] *= 40.0                     # one row that sets its tiles' scales
+    for mode in ("int8", "bf16"):
+        kreg.reset_counts()
+        got = qm.quantized_matmul(x, y, mode=mode)
+        torch.cuda.synchronize()
+        assert kreg.launches()[f"quantized_matmul_{mode}"] == 1
+        ref = qm.quantized_matmul_plain(x, y, mode)
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        if mode == "int8":
+            assert torch.equal(got, ref)
+        else:
+            assert _rel(got, ref) <= GEMM_RTOL
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quantized_matmul(x.t().contiguous().t(), y, mode="int8")
+
+
+def test_every_tuned_variant_matches_plain_on_card(cuda):
+    from paddle_tpu_torch.tuning import variants as V
+    built = V.instantiated_variants()
+    assert sorted(built) == sorted(
+        (b[0], b[1], b[2], ep) for ep in ("none", "layer_norm",
+                                          "dropout_residual")
+        for b in V._BLOCKS[ep])
+    for N in (256, 512):
+        d = V._problem(256, N, 128, cuda)
+        for v in V.enumerate_variants(256, N, 128):
+            kreg.reset_counts()
+            got = V._run_variant(v, d)
+            torch.cuda.synchronize()
+            assert kreg.launches()[V._KERNELS[v.epilogue]] == 1, v.label
+            with kreg.plain_reference():
+                ref = V._run_variant(v, d)
+            assert _rel(got, ref) <= GEMM_RTOL, v.label
+
+
+def test_search_and_winner_route_mul_on_card(cuda):
+    from paddle_tpu_torch.tuning import variants as V
+    res = V.search_variants(256, 256, 256, iters=2, device=cuda)
+    assert res["timed"] and all(r["ms"] > 0 for r in res["admitted"])
+    assert set(res["winners"]) == {"none", "layer_norm",
+                                   "dropout_residual"}
+    try:
+        assert V.register_winner(res["winners"]) == "tuned_matmul"
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((512, 256), np.float32)
+        w = rng.standard_normal((256, 256), np.float32)
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            a = pt.layers.data(name="a", shape=[512, 256], dtype="float32",
+                               append_batch_size=False)
+            b = pt.layers.data(name="b", shape=[256, 256], dtype="float32",
+                               append_batch_size=False)
+            out = pt.layers.matmul(a, b)
+        kreg.reset_counts()
+        got, = pt.Executor().run(main, feed={"a": x, "b": w},
+                                 fetch_list=[out], scope=pt.Scope())
+        assert kreg.launches()["tuned_matmul"] == 1
+        np.testing.assert_allclose(got, x @ w, rtol=1e-4, atol=1e-4)
+    finally:
+        kreg.unregister_kernel("tuned_matmul")
+
+
+def test_tiny_transformer_int8_on_card_matches_cpu(cuda, monkeypatch):
+    """int8 mode: the card's kernels against the plain versions on the
+    CPU. Not bit-equal as a whole: a last-bit difference upstream (the
+    attention kernel's float32 sums) can move a value across a rounding
+    boundary of the next quantization."""
+    cfg = T.transformer_base(src_vocab_size=256, trg_vocab_size=256,
+                             fuse_attention=True)
+    cfg.n_layer, cfg.d_model, cfg.d_inner = 2, 128, 256
+    cfg.n_head, cfg.d_head = 4, 32
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, logits, _ = T.transformer_train(cfg, is_test=True)
+    cpu_scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu_scope)
+    gpu_scope = pt.Scope()
+    load_params_from_numpy(
+        gpu_scope, {p.name: np.asarray(cpu_scope.find_var(p.name)
+                                       .get_tensor())
+                    for p in main.all_parameters()}, pt.CUDAPlace(0))
+    feed = T.make_batch(cfg, 4, 32, 32, rng=np.random.default_rng(1),
+                        src_lens=np.array([32, 20, 27, 9]),
+                        trg_lens=np.array([32, 31, 12, 25]))
+    monkeypatch.setenv("PT_KERNEL_QUANT_MATMUL", "int8")
+    monkeypatch.setattr(kreg, "_ROUTE_ON_CPU", True)
+    lc, cc = pt.Executor(pt.CPUPlace()).run(
+        main, feed=feed, fetch_list=[logits, cost], scope=cpu_scope)
+    n_mul = sum(op.type == "mul" for op in main.global_block().ops)
+    kreg.reset_counts()
+    lg, cg = pt.Executor().run(main, feed=feed, fetch_list=[logits, cost],
+                               scope=gpu_scope)
+    assert kreg.launches()["quantized_matmul_int8"] == n_mul
+    rel = np.linalg.norm(lg - lc) / np.linalg.norm(lc)
+    assert rel <= 1e-3 and abs(float(cg) - float(cc)) <= 1e-3

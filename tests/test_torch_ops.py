@@ -119,6 +119,11 @@ def _cases():
         ("mul", {"X": x3, "Y": _f32(rng, 8, 5)}, ["Out"],
          {"x_num_col_dims": 2, "y_num_col_dims": 1}),
         ("mul", {"X": _f32(rng, 4, 6), "Y": _f32(rng, 6, 3)}, ["Out"], {}),
+        ("matmul", {"X": _f32(rng, 4, 6), "Y": _f32(rng, 5, 6)}, ["Out"],
+         {"transpose_Y": True, "alpha": 0.5}),
+        ("matmul", {"X": _f32(rng, 2, 6, 4), "Y": _f32(rng, 2, 6, 3)},
+         ["Out"], {"transpose_X": True}),
+        ("matmul", {"X": _f32(rng, 6), "Y": _f32(rng, 6, 3)}, ["Out"], {}),
         ("elementwise_add", {"X": x3, "Y": _f32(rng, 8)}, ["Out"],
          {"axis": 2}),
         ("elementwise_add", {"X": x3, "Y": _f32(rng, 2, 3, 8)}, ["Out"],
