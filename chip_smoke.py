@@ -7,13 +7,17 @@
    card's name and power limit as nvidia-smi reports them.
 2. Builds every kernel of the port from paddle_tpu_torch/csrc with nvcc
    (one process per source, all at once) and prints the build seconds.
-3. Kernel phase: holds each attention and Adam kernel against its plain
-   PyTorch version on the card, in float32 and bf16: the flash-attention
-   forward (without and with attention dropout), its dq and dk/dv
-   backward kernels, and Adam. Then times kernel, plain version and the
-   library yardstick: the forward at the serving shape, all four at the
-   training shape (B=96, S=128, H=8, D=64, bf16; Adam over the 255
-   parameters of Transformer-base).
+3. Kernel phase: holds each attention and optimizer kernel against its
+   plain PyTorch version on the card, in float32 and bf16: the
+   flash-attention forward (without and with attention dropout), its dq
+   and dk/dv backward kernels, Adam, and SGD (0 ulp at LeNet's six
+   parameter shapes, at lengths 1, 127, 129 and 513, and over the 255
+   parameter shapes of Transformer-base). Then times kernel, plain
+   version and the library yardstick: the forward at the serving shape,
+   all four at the training shape (B=96, S=128, H=8, D=64, bf16; Adam
+   over the 99 parameters of Transformer-base that the registry routes
+   to it, and the plain update of the other 156 on the host's clock),
+   and SGD at Transformer-base's and LeNet's sizes.
 4. Serving phase: builds full-width Transformer-base (6+6 layers,
    d_model 512, 8 heads, vocab 32000, fuse_attention) with the port's
    layers, initializes it on the card from a seed, and scores 3 ragged
@@ -24,8 +28,11 @@
    contrib.mixed_precision.decorate(AdamOptimizer(2e-4)): bf16 compute,
    float32 master weights) takes 5 steps on one ragged batch of
    96 x 128. Checks a finite, falling loss, exactly 18 forward, 18 dq,
-   18 dk/dv and 255 Adam launches per step (no GEMM kernel: none is
-   opted in), and one step from a copy of the initial scope under
+   18 dk/dv and 99 Adam launches per step (the registry routes the 99
+   parameters of at least PT_KERNEL_MIN_NUMEL = 65536 elements to the
+   kernel and lowers the other 156; no GEMM kernel: none is opted in),
+   the registry's decisions, and one step from a copy of the initial
+   scope under
    plain_reference() against the kernels' first step. Prints steps/s,
    tokens/s, peak memory and a profile of one step.
 6. GEMM kernels: quantized_matmul int8 (bit-equal) and bf16 against
@@ -44,11 +51,24 @@
    of its kernel a forward, prints the registry's dispatch stats, and
    holds its logits against the same forward with only the GEMMs plain
    (int8: bit-equal), under plain_reference(), and against float32.
-8. Prints one JSON line of per-kernel numbers, then, last, the device
+8. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+   pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
+   bench.py's batch, through Executor, twice from the same startup
+   state: with the default knobs (every parameter below the 65536
+   floor: 0 SGD launches, 6 lowered updates a step) and with
+   PT_KERNEL_MIN_NUMEL=1 (6 SGD launches a step); losses and final
+   parameters must be equal (cuDNN deterministic). Then
+   save_persistables / load_persistables into a fresh scope (the next
+   step gives the same loss from both) and save_inference_model /
+   load_inference_model in a fresh scope (B=512 inference equal to the
+   live test clone's). Prints steps/s, images/s and the device-busy
+   share of one profiled step.
+9. Prints one JSON line of per-kernel numbers, then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
-float32 matmuls run in full float32 (TF32 off), as the port assumes.
+float32 matmuls and convolutions run in full float32 (TF32 off), as the
+port assumes.
 """
 from __future__ import annotations
 
@@ -72,6 +92,9 @@ BF16_TOL = 2e-2
 BWD_F32_TOL = 1e-4
 # Adam: both round each operation once, in the same order
 ADAM_ULP = 1
+# SGD: the same two roundings (lr*g, then the difference), never
+# contracted into a fused multiply-add
+SGD_ULP = 0
 # whole-forward logits, kernel vs plain_reference(): the attention
 # outputs' float32 rounding differences (~5e-7), carried through 12
 # layers and 30 layer norms; logits have std ~0.45 at this
@@ -135,6 +158,12 @@ _PEAKS = {"PCIe": (51e12, 756e12, 2.0e12, 1513e12),
 
 # the training shape: bench.py's Transformer-base batch
 TRAIN_B, TRAIN_S, LR = 96, 128, 2e-4
+# LeNet on MNIST: bench.py's batch (bench_lenet) and the SGD rate of
+# tests/test_executor_mnist.py
+MNIST_B, MNIST_STEPS, MNIST_LR = 512, 10, 0.05
+# LeNet inference from a loaded inference model against the live test
+# clone: the same ops on the same weights (cuDNN deterministic)
+INFER_ATOL = 1e-6
 
 
 def _require(cond, msg):
@@ -385,23 +414,28 @@ def time_attention(torch, dev, card):
 
 def _device_ms(torch, fn, iters, keys):
     """Device time per call of fn, summed over the CUDA kernels whose
-    name holds each key, from torch.profiler over `iters` calls."""
+    name holds each key, from torch.profiler over `iters` calls. A
+    session that records no device time at all is taken again (seen
+    once on the card: a GEMM read 0.0000 ms), at most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {k: 0.0 for k in keys}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for k in keys:
-            if k in e.key:
-                out[k] += e.self_device_time_total / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {k: 0.0 for k in keys}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for k in keys:
+                if k in e.key:
+                    out[k] += e.self_device_time_total / 1e3 / iters
+        if any(v > 0 for v in out.values()):
+            break
     return out
 
 
@@ -496,23 +530,39 @@ def time_training_attention(torch, dev, card):
     return res
 
 
+def _routed(shapes):
+    """The parameter shapes the registry routes to an optimizer kernel
+    at the current PT_KERNEL_MIN_NUMEL, and the others."""
+    from paddle_tpu_torch.kernels import registry as kreg
+    floor = kreg.min_numel()
+    routed = [sh for sh in shapes if int(np.prod(sh)) >= floor]
+    return routed, [sh for sh in shapes if int(np.prod(sh)) < floor]
+
+
 def time_adam(torch, dev, card, shapes):
-    """One Adam step over every parameter shape of the training
-    program: kernel (one launch per parameter), plain and
-    torch.optim.Adam(fused=True), and the bound of 28 bytes an element."""
+    """One Adam step over the parameter shapes of the training program
+    that the registry routes to the kernel: kernel (one launch per
+    parameter), plain and torch.optim.Adam(fused=True), and the bound of
+    28 bytes an element. Then the plain update of the parameters it
+    lowers, as the adam op runs it on the card: host clock and device
+    time."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
     _, _, peak_bw, _ = _peaks(card)
+    routed, lowered = _routed(shapes)
     state = [_adam_state(torch, dev, int(np.prod(sh)), i)
-             for i, sh in enumerate(shapes)]
+             for i, sh in enumerate(routed)]
+    low_state = [_adam_state(torch, dev, int(np.prod(sh)), i)
+                 for i, sh in enumerate(lowered)]
     n = sum(p.numel() for p, _, _, _ in state)
+    n_low = sum(p.numel() for p, _, _, _ in low_state)
     lr_t = _lr_t(torch, dev)
 
     def kernel():
         for p, g, m, v in state:
             fo.fused_adam(p, g, m, v, lr_t)
 
-    def plain():
-        for p, g, m, v in state:
+    def plain(st=state):
+        for p, g, m, v in st:
             fo.adam_plain(p, g, m, v, lr_t[0], 0.9, 0.999, 1e-8)
 
     ev = _time_ms(kernel, iters=10, warmup=2)
@@ -524,14 +574,113 @@ def time_adam(torch, dev, card, shapes):
     opt = torch.optim.Adam(params, lr=LR, fused=True)
     lib = _time_ms(opt.step, iters=10, warmup=2)
     bound = 28 * n / peak_bw * 1e3
-    print(f"  adam over {len(shapes)} parameters, {n} elements: kernel "
-          f"device {dev_ms:.4f} ms ({len(shapes)} launches; events over "
-          f"the launch loop {ev:.4f} ms), plain {pl:.4f} ms, "
+    low_ev = _time_ms(lambda: plain(low_state), iters=10, warmup=2)
+    low_dev = _device_ms(torch, lambda: plain(low_state), 5, ("",))[""]
+
+    def low_kernel():   # the same parameters through the kernel
+        for p, g, m, v in low_state:
+            fo.fused_adam(p, g, m, v, lr_t)
+
+    low_kev = _time_ms(low_kernel, iters=10, warmup=2)
+    low_kdev = _device_ms(torch, low_kernel, 5, ("adam_kernel",))[
+        "adam_kernel"]
+    print(f"  adam over the {len(routed)} routed parameters, {n} elements: "
+          f"kernel device {dev_ms:.4f} ms ({len(routed)} launches; events "
+          f"over the launch loop {ev:.4f} ms), plain {pl:.4f} ms, "
           f"torch.optim.Adam(fused=True) {lib:.4f} ms, bound {bound:.4f} "
           f"ms (bytes: 28 B x {n})")
+    print(f"  adam plain update of the {len(lowered)} lowered parameters, "
+          f"{n_low} elements: host clock (events over the loop) "
+          f"{low_ev:.4f} ms, device {low_dev:.4f} ms; the same "
+          f"parameters through the kernel: {low_kev:.4f} ms on the host's "
+          f"clock, {low_kdev:.4f} ms device")
     return {"ms": dev_ms, "events_ms": ev, "plain_ms": pl,
             "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
-            "elements": n}
+            "elements": n, "routed": len(routed),
+            "lowered_events_ms": low_ev, "lowered_device_ms": low_dev}
+
+
+def _sgd_pair(torch, dev, n, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.randn(n, device=dev, generator=g),
+            torch.randn(n, device=dev, generator=g) * 1e-2)
+
+
+def sgd_phase(torch, dev, groups):
+    """The SGD kernel against its plain version, 0 ulp, over each group
+    of parameter shapes (weight decay 1e-4 too on the odd lengths);
+    returns the worst |err|."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    lr = torch.tensor([MNIST_LR], device=dev)
+    worst = 0.0
+    for label, shapes, wds in groups:
+        ulp, err, n = 0, 0.0, 0
+        for i, sh in enumerate(shapes):
+            p, g = _sgd_pair(torch, dev, int(np.prod(sh)), i)
+            for wd in wds:
+                ref = fo.sgd_plain(p, g, lr[0], wd)
+                got = fo.fused_sgd(p.clone(), g, lr, weight_decay=wd)
+                ulp = max(ulp, int(_ulps(torch, got, ref).max()))
+                err = max(err, (got - ref).abs().max().item())
+            n += p.numel()
+        torch.cuda.synchronize()
+        print(f"  sgd vs plain, {label} ({len(shapes)} tensors, {n} "
+              f"elements): max ulp {ulp}, max|err| {err:.3e} (bound "
+              f"{SGD_ULP} ulp) {'ok' if ulp <= SGD_ULP else 'FAIL'}")
+        _require(ulp <= SGD_ULP, f"fused_sgd ({label}) is {ulp} ulp from "
+                                 f"its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def time_sgd(torch, dev, card, shapes, label):
+    """One SGD step over the given parameter shapes: the kernel (one
+    launch per parameter), the plain version and two library calls that
+    compute the same update (p.add_(g, alpha=-lr) per parameter, and
+    torch._foreach_add_ over the list, the yardstick: one call), all by
+    profiler device time; and the bound of 12 bytes an element (read p
+    and g, write p)."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    _, _, peak_bw, _ = _peaks(card)
+    pairs = [_sgd_pair(torch, dev, int(np.prod(sh)), i)
+             for i, sh in enumerate(shapes)]
+    ps, gs = [p for p, _ in pairs], [g for _, g in pairs]
+    n = sum(p.numel() for p in ps)
+    lr = torch.tensor([MNIST_LR], device=dev)
+
+    def kernel():
+        for p, g in pairs:
+            fo.fused_sgd(p, g, lr)
+
+    def plain():
+        for p, g in pairs:
+            fo.sgd_plain(p, g, lr[0])
+
+    def each():
+        for p, g in pairs:
+            p.add_(g, alpha=-MNIST_LR)
+
+    def foreach():
+        torch._foreach_add_(ps, gs, alpha=-MNIST_LR)
+
+    ev = _time_ms(kernel, iters=10, warmup=2)
+    pl_ev = _time_ms(plain, iters=10, warmup=2)
+    dev_ms = _device_ms(torch, kernel, 5, ("sgd_kernel",))["sgd_kernel"]
+    pl = _device_ms(torch, plain, 5, ("",))[""]
+    lib_each = _device_ms(torch, each, 5, ("",))[""]
+    lib = _device_ms(torch, foreach, 5, ("",))[""]
+    bound = 12 * n / peak_bw * 1e3
+    print(f"  sgd over {label}'s {len(shapes)} parameters, {n} elements "
+          f"(device ms a step): kernel {dev_ms:.4f} ({len(shapes)} "
+          f"launches; events over the launch loop {ev:.4f}), plain "
+          f"{pl:.4f} (events {pl_ev:.4f}), p.add_ per parameter "
+          f"{lib_each:.4f}, "
+          f"torch._foreach_add_ {lib:.4f}, bound {bound:.4f} (bytes: "
+          f"12 B x {n})")
+    return {"ms": dev_ms, "events_ms": ev, "plain_ms": pl,
+            "library_ms": lib, "library_each_ms": lib_each,
+            "bound_ms": bound, "bound_by": "bytes", "elements": n}
 
 
 def where_time_goes(torch, exe, main, feed, cost, scope):
@@ -1056,13 +1205,20 @@ def training_phase(torch, dev, built):
     block = main.global_block()
     types = [op.type for op in block.ops]
     n_params = len(main.all_parameters())
+    routed, lowered = _routed([p.shape for p in main.all_parameters()])
     print(f"  training program: {len(types)} ops, {n_params} parameters, "
           f"{types.count('fused_attention')} attention, "
-          f"{types.count('adam')} adam")
+          f"{types.count('adam')} adam; at PT_KERNEL_MIN_NUMEL="
+          f"{kreg.min_numel()} the registry routes {len(routed)} "
+          f"parameters ({sum(int(np.prod(s)) for s in routed)} of "
+          f"{sum(int(np.prod(p.shape)) for p in main.all_parameters())} "
+          f"elements) to fused_adam and lowers {len(lowered)}")
     _require(types.count("fused_attention") == 18 and
              types.count("fused_attention_grad") == 18 and
              types.count("adam") == n_params == 255,
              "the training program is not bench.py's Transformer-base")
+    _require(len(routed) == 99, f"{len(routed)} parameters reach the "
+                                f"floor, want 99")
 
     exe = pt.Executor(pt.CUDAPlace(0))
     scope = pt.Scope()
@@ -1085,10 +1241,11 @@ def training_phase(torch, dev, built):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, secs, per_step = [], [], []
+    losses, secs, per_step, decisions = [], [], [], []
     first_masks = after_first = None
     for step in range(5):
         kreg.reset_counts()
+        kreg.reset_stats()
         t0 = time.perf_counter()
         res = exe.run(main, feed=feed,
                       fetch_list=[cost] + (masks if step == 0 else []),
@@ -1096,6 +1253,7 @@ def training_phase(torch, dev, built):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per_step.append(kreg.launches())
+        decisions.append(kreg.dispatch_stats()["per_kernel"])
         losses.append(float(res[0]))
         if step == 0:
             first_masks = res[1:]
@@ -1107,10 +1265,14 @@ def training_phase(torch, dev, built):
     _require(losses[-1] < losses[0], "the loss did not fall in 5 steps")
     want = {k: 0 for k in kreg.launches()}      # no GEMM kernel
     want.update({"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
-                 "flash_attention_bwd_dkv": 18, "fused_adam": 255})
-    for i, c in enumerate(per_step):
+                 "flash_attention_bwd_dkv": 18, "fused_adam": len(routed)})
+    for i, (c, d) in enumerate(zip(per_step, decisions)):
         _require(c == want, f"step {i + 1} launched {c}, want {want}")
+        _require(d.get("fused_adam") == {"custom": len(routed),
+                                         "lowered": len(lowered)},
+                 f"step {i + 1}: fused_adam decisions {d.get('fused_adam')}")
     print(f"  launches per step: {per_step[0]}")
+    print(f"  registry decisions per step: {decisions[0]}")
 
     # the first step again, from copies of the initial scope: with every
     # wrapper on its plain version, and in float32 (AMP off)
@@ -1173,6 +1335,169 @@ def training_phase(torch, dev, built):
     return total
 
 
+def _mnist_program(pt):
+    """LeNet with SGD(MNIST_LR) as the port builds it, its test clone and
+    the prediction var."""
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, acc, _ = pt.models.lenet_train()
+        test_prog = main.clone(for_test=True)
+        pt.optimizer.SGD(learning_rate=MNIST_LR).minimize(cost)
+    main.random_seed = startup.random_seed = SEED
+    pred = [op for op in main.global_block().ops
+            if op.type == "softmax"][0].output("Out")[0]
+    return main, startup, test_prog, cost, acc, pred
+
+
+def _mnist_run(torch, pt, kreg, exe, main, feed, cost, acc, scope, floor):
+    """MNIST_STEPS steps at PT_KERNEL_MIN_NUMEL=floor (None: the
+    default), the launch counts set to 0 just before and read just
+    after; returns losses, seconds a step, launches and the fused_sgd
+    decisions of each step."""
+    old = os.environ.pop("PT_KERNEL_MIN_NUMEL", None)
+    if floor is not None:
+        os.environ["PT_KERNEL_MIN_NUMEL"] = floor
+    try:
+        losses, accs, secs, decisions = [], [], [], []
+        kreg.reset_counts()
+        for _ in range(MNIST_STEPS):
+            kreg.reset_stats()
+            t0 = time.perf_counter()
+            loss, a = exe.run(main, feed=feed, fetch_list=[cost, acc],
+                              scope=scope)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            accs.append(float(a[0]))
+            decisions.append(kreg.dispatch_stats()["per_kernel"]
+                             .get("fused_sgd"))
+        launches = kreg.launches()
+    finally:
+        os.environ.pop("PT_KERNEL_MIN_NUMEL", None)
+        if old is not None:
+            os.environ["PT_KERNEL_MIN_NUMEL"] = old
+    return losses, accs, secs, launches, decisions
+
+
+def mnist_phase(torch, dev, card):
+    """LeNet with SGD at B=512 through Executor: 10 steps with the
+    default floor and 10 with PT_KERNEL_MIN_NUMEL=1 from the same startup
+    state (equal results), then save/load of the persistables and of the
+    inference model. Returns the SGD kernel's launches in the floor-1
+    run and the LeNet parameter shapes."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+
+    main, startup, test_prog, cost, acc, pred = _mnist_program(pt)
+    types = [op.type for op in main.global_block().ops]
+    shapes = [p.shape for p in main.all_parameters()]
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    print(f"  LeNet SGD program: {len(types)} ops ({types.count('sgd')} "
+          f"sgd, {sum(t.endswith('_grad') for t in types)} grad), "
+          f"parameters {shapes} ({n_el} elements)")
+    _require(len(types) == 35 and types.count("sgd") == 6 and
+             sum(t.endswith("_grad") for t in types) == 13,
+             "the LeNet program is not the JAX package's 35 ops")
+    rng = np.random.RandomState(0)              # bench.py's batch
+    feed = {"img": rng.rand(MNIST_B, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (MNIST_B, 1)).astype(np.int64)}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope0 = pt.Scope()
+    exe.run(startup, scope=scope0)
+    persist = [v.name for v in main.global_block().vars.values()
+               if v.persistable and scope0.find_var(v.name) is not None]
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        runs = {}
+        for label, floor in (("default floor", None), ("floor 1", "1")):
+            scope = _copy_scope(pt, scope0, persist)
+            runs[label] = _mnist_run(torch, pt, kreg, exe, main, feed, cost,
+                                     acc, scope, floor) + (scope,)
+            losses, accs, secs, launches, dec, _ = runs[label]
+            steady = secs[1:]
+            print(f"  {label}: losses {', '.join(f'{x:.6f}' for x in losses)}"
+                  f"; accuracy {accs[0]:.4f} -> {accs[-1]:.4f}")
+            print(f"  {label}: steps/s (steps 2-{MNIST_STEPS}) "
+                  f"{len(steady) / sum(steady):.3f}, images/s "
+                  f"{MNIST_B * len(steady) / sum(steady):.1f}; step seconds "
+                  f"{', '.join(f'{x:.4f}' for x in secs)}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; fused_sgd "
+                  f"decisions a step {dec[0]}")
+            _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                     f"{label}: the LeNet loss did not fall")
+            want = 6 * MNIST_STEPS if floor else 0
+            _require(launches == {**{k: 0 for k in launches},
+                                  "fused_sgd": want},
+                     f"{label}: launches {launches}, want {want} fused_sgd "
+                     f"and nothing else")
+            _require(all(d == ({"custom": 6} if floor else {"lowered": 6})
+                         for d in dec), f"{label}: decisions {dec}")
+        a, b = runs["default floor"], runs["floor 1"]
+        _require(a[0] == b[0], f"losses differ: {a[0]} vs {b[0]}")
+        worst = max((b[5].find_var(n).get_tensor().tensor -
+                     a[5].find_var(n).get_tensor().tensor).abs().max().item()
+                    for n in persist)
+        print(f"  floor 1 against the default floor: losses equal, "
+              f"parameters max|diff| {worst:.3e}")
+        _require(worst == 0.0, "the kernel's parameters differ from the "
+                               "plain updates'")
+        sgd_launches = b[3]["fused_sgd"]
+        profile_step(torch, exe, main, feed, cost, b[5])
+
+        # save / load: persistables, then the inference model
+        trained = a[5]
+        os.makedirs(os.path.join(ROOT, "paddle_tpu_torch", "_build"),
+                    exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "paddle_tpu_torch", "_build")) as tmp:
+            ckpt, model = os.path.join(tmp, "ckpt"), os.path.join(tmp, "m")
+            with pt.scope_guard(trained):
+                pt.io.save_persistables(exe, ckpt, main)
+            loaded = pt.Scope()
+            with pt.scope_guard(loaded):
+                pt.io.load_persistables(exe, ckpt, main)
+            live_out, = exe.run(test_prog, feed=feed, fetch_list=[pred],
+                                scope=trained)
+            with pt.scope_guard(trained):
+                pt.io.save_inference_model(model, ["img"], [pred], exe, main)
+            steps = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                                   scope=sc)[0]) for sc in (trained, loaded)]
+            print(f"  save_persistables / load_persistables "
+                  f"({len(os.listdir(ckpt))} files): next step loss {steps[0]:.6f} (trained scope) "
+                  f"vs {steps[1]:.6f} (loaded scope)")
+            _require(steps[0] == steps[1], "the loaded checkpoint steps "
+                                           "differently")
+            fresh = pt.Scope()
+            with pt.scope_guard(fresh):
+                prog, feeds, fetches = pt.io.load_inference_model(model, exe)
+            img = {feeds[0]: feed["img"]}
+            out, = exe.run(prog, feed=img, fetch_list=fetches, scope=fresh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MNIST_STEPS):
+                exe.run(prog, feed=img, fetch_list=fetches, scope=fresh)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t0) / MNIST_STEPS
+            err = float(np.abs(out - live_out).max())
+            print(f"  inference model ({len(prog.global_block().ops)} ops) "
+                  f"loaded in a fresh scope: output {out.shape}, max|err| vs "
+                  f"the live test clone {err:.3e} (atol {INFER_ATOL:g}); "
+                  f"{secs:.4f} s a batch, {MNIST_B / secs:.1f} images/s "
+                  f"(fetch included)")
+            _require(out.shape == (MNIST_B, 10) and
+                     bool(np.isfinite(out).all()) and err <= INFER_ATOL,
+                     "the loaded inference model disagrees with the live "
+                     "test clone")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    return sgd_launches, shapes
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1218,7 +1543,16 @@ def main():
     times = time_attention(torch, dev, card)
     ttimes = time_training_attention(torch, dev, card)
     atimes = time_adam(torch, dev, card, shapes)
-    for t in (ttimes[False]["dq"], ttimes[False]["dkv"], atimes):
+    lenet_shapes = [p.shape for p in _mnist_program(pt)[0].all_parameters()]
+    sgd_err = sgd_phase(torch, dev, (
+        ("lengths 1, 127, 129, 513", [(1,), (127,), (129,), (513,)],
+         (0.0, 1e-4)),
+        ("LeNet", lenet_shapes, (0.0,)),
+        ("Transformer-base", shapes, (0.0,))))
+    stimes = time_sgd(torch, dev, card, shapes, "Transformer-base")
+    slenet = time_sgd(torch, dev, card, lenet_shapes, "LeNet")
+    for t in (ttimes[False]["dq"], ttimes[False]["dkv"], atimes, stimes,
+              slenet):
         _require(t["ms"] > 0, "the profiler saw no device time")
 
     print("[serving phase]")
@@ -1247,6 +1581,11 @@ def main():
             kreg.unregister_kernel("tuned_matmul")
     del served
 
+    # LeNet last: earlier profiler sessions and large buffers slowed a
+    # later step in one process (PERF.md, PR 3)
+    print("[mnist phase]")
+    sgd_launches, _ = mnist_phase(torch, dev, card)
+
     src = "paddle_tpu_torch/csrc/"
     bf = "bfloat16"
     rows = []
@@ -1267,9 +1606,13 @@ def main():
                     "training shape drop t=230")]),
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
-             adam_err)):
+             adam_err),
+            ("fused_sgd", "fused_optimizer.cu",
+             "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
+             sgd_err)):
+        launches = sgd_launches if name == "fused_sgd" else tcounts[name]
         rows.append({"name": name, "route": "cuda", "source": src + source,
-                     "replaces": replaces, "launches": tcounts[name],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
@@ -1300,6 +1643,9 @@ def main():
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    for row in rows:
+        _require(row["ms"] > 0, f"{row['name']}: the profiler saw no device "
+                                f"time")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

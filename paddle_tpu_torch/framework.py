@@ -1,11 +1,13 @@
 """Program IR: Program / Block / Operator / Variable / Parameter.
 
-Counterpart of paddle_tpu/framework.py. These classes are the desc; the
-port has no protobuf round trip yet (Program serialization comes with a
-codec that needs no protobuf package). Build-time shape inference runs
-the op's torch lowering on ``device="meta"`` tensors, the counterpart of
-the JAX package's jax.eval_shape: every lowering is meta-safe, reading
-no tensor value on the host.
+Counterpart of paddle_tpu/framework.py. These classes are the desc;
+`to_proto` / `from_proto` convert a Program to and from the ProgramDesc
+messages of proto/framework_desc.py (the JAX package's schema and wire
+format, written without a protobuf package), which `clone`,
+`serialize_to_string` and `parse_from_string` use. Build-time shape
+inference runs the op's torch lowering on ``device="meta"`` tensors, the
+counterpart of the JAX package's jax.eval_shape: every lowering is
+meta-safe, reading no tensor value on the host.
 """
 from __future__ import annotations
 
@@ -14,11 +16,13 @@ import itertools
 import threading
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .core.registry import OPS, ExecContext, OP_UID_ATTR
 from .core.types import (DT_FLOAT32, convert_dtype, dtype_to_str,
                          dtype_to_torch)
+from .proto import framework_desc as fd
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -92,7 +96,8 @@ class Variable:
 
     def __init__(self, block: "Block", name: Optional[str] = None,
                  shape: Optional[Sequence[int]] = None, dtype=None,
-                 persistable: bool = False, stop_gradient: bool = False):
+                 persistable: bool = False, stop_gradient: bool = False,
+                 lod_level: int = 0, kind: int = fd.VK_DENSE_TENSOR):
         self.block = block
         self.name = name or unique_name.generate("_generated_var")
         self.shape = tuple(int(d) for d in shape) if shape is not None \
@@ -101,6 +106,8 @@ class Variable:
             else DT_FLOAT32
         self.persistable = persistable
         self.stop_gradient = stop_gradient
+        self.lod_level = lod_level
+        self.kind = kind
 
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
@@ -108,6 +115,21 @@ class Variable:
                 f"persistable={self.persistable})")
 
     __str__ = __repr__
+
+    def to_proto(self) -> fd.VarDesc:
+        return fd.VarDesc(
+            name=self.name, kind=self.kind, persistable=self.persistable,
+            stop_gradient=self.stop_gradient,
+            tensor=fd.TensorDesc(data_type=self.dtype, dims=list(self.shape),
+                                 lod_level=self.lod_level))
+
+    @staticmethod
+    def from_proto(block, p: fd.VarDesc) -> "Variable":
+        t = p.tensor or fd.TensorDesc()
+        return Variable(block, name=p.name, shape=t.dims,
+                        dtype=t.data_type, persistable=p.persistable,
+                        stop_gradient=p.stop_gradient,
+                        lod_level=t.lod_level, kind=p.kind)
 
 
 class Parameter(Variable):
@@ -191,8 +213,87 @@ class Operator:
     def output_arg_names(self):
         return [n for ns in self._outputs.values() for n in ns]
 
+    def has_attr(self, name: str) -> bool:
+        return name in self._attrs
+
     def __repr__(self):
         return f"Op({self.type}, in={self._inputs}, out={self._outputs})"
+
+    def to_proto(self) -> fd.OpDesc:
+        return fd.OpDesc(
+            type=self.type,
+            inputs=[fd.IOSlot(parameter=s, arguments=list(n))
+                    for s, n in self._inputs.items()],
+            outputs=[fd.IOSlot(parameter=s, arguments=list(n))
+                     for s, n in self._outputs.items()],
+            attrs=[_encode_attr(k, v) for k, v in self._attrs.items()])
+
+    @staticmethod
+    def from_proto(block, p: fd.OpDesc) -> "Operator":
+        """The op as it was written: no uid is added where it had none."""
+        op = Operator.__new__(Operator)
+        op.block = block
+        op.type = p.type
+        op._inputs = {s.parameter: list(s.arguments) for s in p.inputs}
+        op._outputs = {s.parameter: list(s.arguments) for s in p.outputs}
+        op._attrs = {a.name: _decode_attr(a) for a in p.attrs}
+        return op
+
+
+def _encode_attr(name, val) -> fd.Attr:
+    """One attr as the JAX package writes it (paddle_tpu/framework.py
+    _encode_attr): a bool is AT_BOOL, an int AT_LONG, a float AT_FLOAT in
+    both `d` and `f`, a list by the type of its items (an empty list is
+    AT_LONGS)."""
+    a = fd.Attr(name=name)
+    if isinstance(val, bool):
+        a.type, a.b = fd.AT_BOOL, val
+    elif isinstance(val, (int, np.integer)):
+        a.type, a.i = fd.AT_LONG, int(val)
+    elif isinstance(val, float):
+        a.type, a.d, a.f = fd.AT_FLOAT, val, val
+    elif isinstance(val, str):
+        a.type, a.s = fd.AT_STRING, val
+    elif isinstance(val, (list, tuple)):
+        if all(isinstance(x, bool) for x in val) and val:
+            a.type, a.bools = fd.AT_BOOLS, list(val)
+        elif all(isinstance(x, (int, np.integer)) for x in val):
+            a.type, a.ints = fd.AT_LONGS, [int(x) for x in val]
+        elif all(isinstance(x, float) for x in val):
+            a.type, a.floats = fd.AT_FLOATS, list(val)
+        elif all(isinstance(x, str) for x in val):
+            a.type, a.strings = fd.AT_STRINGS, list(val)
+        else:
+            raise TypeError(f"unsupported list attr {name}: {val!r}")
+    elif val is None:
+        a.type = fd.AT_NONE
+    else:
+        raise TypeError(f"unsupported attr type for {name}: {type(val)}")
+    return a
+
+
+def _decode_attr(a: fd.Attr):
+    t = a.type
+    if t == fd.AT_BOOL:
+        return a.b
+    if t in (fd.AT_INT, fd.AT_LONG):
+        return int(a.i)
+    if t == fd.AT_FLOAT:
+        return float(a.d) if a.d else float(a.f)
+    if t == fd.AT_STRING:
+        return a.s
+    if t in (fd.AT_INTS, fd.AT_LONGS):
+        return [int(x) for x in a.ints]
+    if t == fd.AT_FLOATS:
+        return list(a.floats)
+    if t == fd.AT_STRINGS:
+        return list(a.strings)
+    if t == fd.AT_BOOLS:
+        return list(a.bools)
+    if t in (fd.AT_BLOCK, fd.AT_BLOCKS):
+        raise NotImplementedError(f"attr {a.name!r} names a sub-block: "
+                                  f"control flow is not ported")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +386,14 @@ class Block:
                 else int(d) for d in val.shape)
             v.dtype = convert_dtype(val.dtype)
 
+    def to_proto(self) -> fd.BlockDesc:
+        # one block: no parent and no forward block (-1, as the JAX
+        # package writes a root block)
+        return fd.BlockDesc(idx=self.idx, parent_idx=-1,
+                            forward_block_idx=-1,
+                            vars=[v.to_proto() for v in self.vars.values()],
+                            ops=[op.to_proto() for op in self.ops])
+
     def __repr__(self):
         return f"Block(idx={self.idx}, ops={[o.type for o in self.ops]})"
 
@@ -319,6 +428,65 @@ class Program:
 
     def all_parameters(self):
         return self.global_block().all_parameters()
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A copy through the serialized form, as the JAX package clones.
+        The desc has no parameter flag, so Parameters are restored from
+        this Program; with for_test every op that has an is_test attr
+        gets is_test=True. The seed and the AMP config carry over."""
+        p = Program.from_proto(self.to_proto())
+        p.random_seed = self.random_seed
+        p._amp = self._amp
+        for sb, db in zip(self.blocks, p.blocks):
+            for name, v in sb.vars.items():
+                old = db.vars.get(name)
+                if isinstance(v, Parameter) and old is not None:
+                    param = Parameter(
+                        db, old.shape, old.dtype, name=name,
+                        persistable=old.persistable, trainable=v.trainable,
+                        optimize_attr=dict(v.optimize_attr),
+                        regularizer=v.regularizer,
+                        gradient_clip_attr=v.gradient_clip_attr,
+                        lod_level=old.lod_level, kind=old.kind)
+                    db.vars[name] = param
+        if for_test:
+            for b in p.blocks:
+                for op in b.ops:
+                    if op.has_attr("is_test"):
+                        op._attrs["is_test"] = True
+        p._bump_version()
+        return p
+
+    # ---- serialization ------------------------------------------------------
+    def to_proto(self) -> fd.ProgramDesc:
+        return fd.ProgramDesc(version=1,
+                              blocks=[b.to_proto() for b in self.blocks])
+
+    def serialize_to_string(self) -> bytes:
+        return self.to_proto().SerializeToString()
+
+    @staticmethod
+    def parse_from_string(s: bytes) -> "Program":
+        return Program.from_proto(fd.ProgramDesc.FromString(s))
+
+    @staticmethod
+    def from_proto(proto: fd.ProgramDesc) -> "Program":
+        if len(proto.blocks) > 1:
+            raise NotImplementedError(
+                f"a program of {len(proto.blocks)} blocks: control-flow "
+                f"sub-blocks are not ported")
+        prog = Program()
+        b = prog.global_block()
+        for bp in proto.blocks:
+            for vp in bp.vars:
+                b.vars[vp.name] = Variable.from_proto(b, vp)
+            b.ops = [Operator.from_proto(b, opp) for opp in bp.ops]
+        prog._bump_version()
+        return prog
 
     def __repr__(self):
         return (f"Program(blocks={len(self.blocks)}, "

@@ -1,21 +1,30 @@
-"""Adam update: the wrapper of the CUDA kernel and its plain PyTorch
-version.
+"""Adam and SGD updates: the wrappers of the CUDA kernels, their plain
+PyTorch versions and their registry entries.
 
 Counterpart of paddle_tpu/kernels/fused_optimizer.py (_adam_block via
-fused_adam). The kernel is paddle_tpu_torch/csrc/fused_optimizer.cu: one
-pass over p, g, m, v that writes p', m', v' in place, any length, with
-the bias-corrected rate lr_t read from a one-element float32 tensor on
-the card (no host sync). A CUDA tensor always goes to the kernel (one
-launch per call); a CPU or meta tensor goes to adam_plain, and so does a
-CUDA tensor under kernels.registry.plain_reference().
+fused_adam, _sgd_block via fused_sgd; the bucket_sweep surface is not
+ported). The kernels are in paddle_tpu_torch/csrc/fused_optimizer.cu:
+one pass over the operands that writes the new values in place, any
+length, with the rate (Adam's bias-corrected lr_t, SGD's lr) read from
+a one-element float32 tensor on the card (no host sync). A CUDA tensor
+always goes to the kernel (one launch per call); a CPU or meta tensor
+goes to the plain version, and so does a CUDA tensor under
+kernels.registry.plain_reference().
 
-The arithmetic is the JAX lowered adam's (paddle_tpu/ops/optimizer_ops.py
-adam), with its grouping:
-    m' = b1*m + (1-b1)*g
-    v' = b2*v + ((1-b2)*g)*g
-    p' = p - (lr_t*m') / (sqrt(v') + eps)
-The kernel rounds each operation separately (no fused multiply-add), so
-it gives the plain version's float32 results bit for bit.
+Both are registered as the JAX package registers them: ``fused_adam``
+for the ``adam`` op and ``fused_sgd`` for ``sgd``, eligible for float32
+operands of at least ``PT_KERNEL_MIN_NUMEL`` elements (default 65536).
+The ops ask the registry (ops/optimizer_ops.py); a parameter it does not
+route takes the plain update.
+
+The arithmetic is the JAX lowered ops' (paddle_tpu/ops/optimizer_ops.py),
+with their grouping:
+    adam:  m' = b1*m + (1-b1)*g
+           v' = b2*v + ((1-b2)*g)*g
+           p' = p - (lr_t*m') / (sqrt(v') + eps)
+    sgd:   p' = p - lr*(g + wd*p)        (wd = 0 on the op path)
+The kernels round each operation separately (no fused multiply-add), so
+they give the plain versions' float32 results bit for bit.
 """
 from __future__ import annotations
 
@@ -25,15 +34,23 @@ import torch
 
 from . import registry
 
-_KERNEL = "fused_adam"
+__all__ = ["adam_plain", "fused_adam", "sgd_plain", "fused_sgd"]
 
 
 def adam_plain(p, g, m, v, lr_t, beta1, beta2, epsilon):
-    """The kernel's function in plain PyTorch: returns new (p', m', v')."""
+    """The Adam kernel's function in plain PyTorch: returns new
+    (p', m', v')."""
     m_new = beta1 * m + (1.0 - beta1) * g
     v_new = beta2 * v + (1.0 - beta2) * g * g
     p_new = p - lr_t * m_new / (torch.sqrt(v_new) + epsilon)
     return p_new, m_new, v_new
+
+
+def sgd_plain(p, g, lr, weight_decay=0.0):
+    """The SGD kernel's function in plain PyTorch: returns a new p'."""
+    if weight_decay:
+        g = g + weight_decay * p
+    return p - lr * g
 
 
 def fused_adam(p, g, m, v, lr_t, beta1=0.9, beta2=0.999, epsilon=1e-8):
@@ -41,46 +58,98 @@ def fused_adam(p, g, m, v, lr_t, beta1=0.9, beta2=0.999, epsilon=1e-8):
     on p's device. On the card p, m and v are updated in place and
     returned; elsewhere new tensors are returned."""
     if p.device.type == "cuda" and not registry.plain_forced():
-        return _launch(p, g, m, v, lr_t, beta1, beta2, epsilon)
+        return _launch_adam(p, g, m, v, lr_t, beta1, beta2, epsilon)
     if p.device.type in ("cpu", "meta", "cuda"):
         return adam_plain(p, g, m, v, lr_t.reshape(()), beta1, beta2,
                           epsilon)
     raise ValueError(f"fused_adam: unsupported device {p.device}")
 
 
-def _check(p, g, m, v, lr_t):
-    for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
+def fused_sgd(p, g, lr, weight_decay=0.0):
+    """One SGD step on one parameter. lr: a one-element float32 tensor on
+    p's device. On the card p is updated in place and returned;
+    elsewhere a new tensor is returned."""
+    if p.device.type == "cuda" and not registry.plain_forced():
+        return _launch_sgd(p, g, lr, weight_decay)
+    if p.device.type in ("cpu", "meta", "cuda"):
+        return sgd_plain(p, g, lr.reshape(()), weight_decay)
+    raise ValueError(f"fused_sgd: unsupported device {p.device}")
+
+
+def _check(kernel, rate, **operands):
+    """Every operand float32, contiguous, of p's shape on p's device; the
+    rate one float32 there."""
+    p = operands["p"]
+    for name, t in operands.items():
         if t.device != p.device or t.dtype != torch.float32:
-            raise TypeError(f"fused_adam: {name} must be float32 on "
+            raise TypeError(f"{kernel}: {name} must be float32 on "
                             f"{p.device}, got {t.dtype} on {t.device}")
         if t.shape != p.shape or not t.is_contiguous():
-            raise ValueError(f"fused_adam: {name} {tuple(t.shape)} must be "
+            raise ValueError(f"{kernel}: {name} {tuple(t.shape)} must be "
                              f"contiguous with p's shape {tuple(p.shape)}")
-    if lr_t.device != p.device or lr_t.dtype != torch.float32 or \
-            lr_t.numel() != 1:
-        raise TypeError("fused_adam: lr_t must be one float32 on the card")
+    if rate.device != p.device or rate.dtype != torch.float32 or \
+            rate.numel() != 1:
+        raise TypeError(f"{kernel}: the rate must be one float32 on the "
+                        f"card")
 
 
-def _bind(lib):
-    fn = lib.pt_fused_adam
+def _bind(lib, symbol, argtypes):
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int64, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_float, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(p, g, m, v, lr_t, beta1, beta2, epsilon):
-    _check(p, g, m, v, lr_t)
-    fn = _bind(registry.library(_KERNEL))
+_P, _F, _N = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
+_ADAM_ARGS = [_P, _P, _P, _P, _P, _N, _F, _F, _F, _F, _F, _P]
+_SGD_ARGS = [_P, _P, _P, _N, _F, _P]
+
+
+def _finish(kernel, err):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
+    registry.count_launch(kernel)
+
+
+def _launch_adam(p, g, m, v, lr_t, beta1, beta2, epsilon):
+    _check("fused_adam", lr_t, p=p, g=g, m=m, v=v)
+    fn = _bind(registry.library("fused_adam"), "pt_fused_adam", _ADAM_ARGS)
     with torch.cuda.device(p.device):
         err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
                  lr_t.data_ptr(), p.numel(), beta1, 1.0 - beta1, beta2,
                  1.0 - beta2, epsilon,
                  torch.cuda.current_stream(p.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {err}")
-    registry.count_launch(_KERNEL)
+    _finish("fused_adam", err)
     return p, m, v
+
+
+def _launch_sgd(p, g, lr, weight_decay):
+    _check("fused_sgd", lr, p=p, g=g)
+    fn = _bind(registry.library("fused_sgd"), "pt_fused_sgd", _SGD_ARGS)
+    with torch.cuda.device(p.device):
+        err = fn(p.data_ptr(), g.data_ptr(), lr.data_ptr(), p.numel(),
+                 weight_decay,
+                 torch.cuda.current_stream(p.device).cuda_stream)
+    _finish("fused_sgd", err)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# registry entries (paddle_tpu/kernels/fused_optimizer.py:294-310)
+# ---------------------------------------------------------------------------
+
+def _dense_f32(sig: registry.Signature) -> bool:
+    return (all(dt == "float32" for dt in sig.dtypes)
+            and sig.numel >= registry.min_numel())
+
+
+registry.register_kernel(
+    "fused_adam", op_types=("adam",), eligible=_dense_f32, run=fused_adam,
+    doc="single-pass Adam update (m/v EMAs + bias-corrected step); dense "
+        "f32, >= PT_KERNEL_MIN_NUMEL elements")
+
+registry.register_kernel(
+    "fused_sgd", op_types=("sgd",), eligible=_dense_f32, run=fused_sgd,
+    doc="single-pass SGD update; dense f32, >= PT_KERNEL_MIN_NUMEL "
+        "elements")

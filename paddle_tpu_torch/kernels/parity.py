@@ -2,17 +2,16 @@
 in for (counterpart of paddle_tpu/kernels/parity.py, in part).
 
 A case runs its baseline through the port's own op lowering
-(core.registry.OPS) with the registry flag off and under
-plain_reference(), so the baseline is the arithmetic users get with
-kernels off (the adam op hands its update to the kernel wrapper
-directly, not through the registry, hence plain_reference()); then it
-runs the kernel's entry point, which launches the kernel for CUDA
-tensors and runs its plain version for CPU tensors. Both run on the
-device the case is given.
+(core.registry.OPS) with the registry flag off, so the baseline is the
+arithmetic users get with kernels off (plain_reference() besides, so
+that no wrapper reached another way launches); then it runs the
+kernel's entry point, which launches the kernel for CUDA tensors and
+runs its plain version for CPU tensors. Both run on the device the case
+is given.
 
 Tolerances are the JAX package's: ulp bounds for value-preserving
-kernels (Adam: 4 ulp), relative error in the norm for value-approximating
-ones (quantized matmul int8 5e-2 and bf16 1e-2 on unit-scale data; the
+kernels (Adam and SGD: 4 ulp), relative error in the norm for
+value-approximating ones (quantized matmul int8 5e-2 and bf16 1e-2 on unit-scale data; the
 tuned GEMM variants 1e-4, float32 reassociation only).
 """
 from __future__ import annotations
@@ -140,6 +139,24 @@ def _adam_case(shape):
     return Case("fused_adam", f"fused_adam/f32/{shape}", run)
 
 
+def _sgd_case(shape):
+    def run(device):
+        r = np.random.default_rng(11)
+        p = r.standard_normal(shape, dtype=np.float32)
+        g = r.standard_normal(shape, dtype=np.float32)
+        env = {"p": _t(p, device), "g": _t(g, device),
+               "lr": _t(np.array([0.05], np.float32), device)}
+        _run_lowered("sgd",
+                     {"Param": ["p"], "Grad": ["g"], "LearningRate": ["lr"]},
+                     {"ParamOut": ["po"]}, {}, env, device)
+        from .fused_optimizer import fused_sgd
+        # a fresh copy: the kernel updates p in place
+        po = fused_sgd(_t(p, device), env["g"], env["lr"])
+        return {"metric": "ulp", "tol": 4.0,
+                "value": max_ulp(env["po"], po)}
+    return Case("fused_sgd", f"fused_sgd/f32/{shape}", run)
+
+
 def _qmm_case(mode, tol):
     def run(device):
         r = np.random.default_rng(13)
@@ -158,11 +175,13 @@ def _qmm_case(mode, tol):
 
 
 def cases() -> List[Case]:
-    """Every parity case: Adam, quantized_matmul int8 and bf16, and the
-    tuned GEMM variants of the JAX package's default problem (256^3)."""
+    """Every parity case: Adam, SGD, quantized_matmul int8 and bf16, and
+    the tuned GEMM variants of the JAX package's default problem
+    (256^3)."""
     from ..tuning import variants
-    out = [_adam_case((4096,)), _adam_case((513, 7)),
-           _qmm_case("int8", 5e-2), _qmm_case("bf16", 1e-2)]
+    out = [_adam_case((4096,)), _adam_case((513, 7)), _sgd_case((2048,)),
+           _sgd_case((129, 5)), _qmm_case("int8", 5e-2),
+           _qmm_case("bf16", 1e-2)]
     return out + [case for _, case in variants.variant_cases()]
 
 

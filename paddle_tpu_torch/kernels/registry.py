@@ -61,6 +61,7 @@ SOURCES = {
     "flash_attention_bwd_dq": "flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "flash_attention_bwd.cu",
     "fused_adam": "fused_optimizer.cu",
+    "fused_sgd": "fused_optimizer.cu",
     "quantized_matmul_int8": "quantized_matmul.cu",
     "quantized_matmul_bf16": "quantized_matmul.cu",
     "tuned_matmul": "tuned_matmul.cu",

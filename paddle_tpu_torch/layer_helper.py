@@ -43,12 +43,8 @@ class LayerHelper:
                 f"{self.name}.b" if is_bias else f"{self.name}.w")
         initializer = attr.initializer or default_initializer
         if initializer is None:
-            if not is_bias:
-                raise ValueError(
-                    f"parameter {attr.name!r} has no initializer; the "
-                    "port has no default weight initializer yet, so give "
-                    "ParamAttr(initializer=...)")
-            initializer = init_mod.Constant(0.0)
+            initializer = init_mod.Constant(0.0) if is_bias else \
+                init_mod.Xavier()
 
         shape = [int(d) for d in shape]
         gb = self.main_program.global_block()

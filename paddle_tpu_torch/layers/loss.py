@@ -1,10 +1,21 @@
-"""Loss layers (counterpart of paddle_tpu/layers/loss.py:
-label_smoothed_softmax_xent)."""
+"""Loss layers (counterpart of paddle_tpu/layers/loss.py: cross_entropy
+and label_smoothed_softmax_xent)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["label_smoothed_softmax_xent"]
+__all__ = ["cross_entropy", "label_smoothed_softmax_xent"]
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": input, "Label": label},
+                     outputs={"Y": out},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def label_smoothed_softmax_xent(logits, label, epsilon=0.1):

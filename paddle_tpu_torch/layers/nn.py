@@ -1,7 +1,8 @@
 """NN layers (counterpart of paddle_tpu/layers/nn.py). The builders that
 Transformer training and inference call: fc, embedding, layer_norm,
 fused_attention, dropout, reshape, squeeze, reduce_sum,
-add_position_encoding, elementwise_*; and matmul."""
+add_position_encoding, elementwise_*; matmul; and those of LeNet:
+conv2d, pool2d, softmax, mean, top_k/topk."""
 from __future__ import annotations
 
 import copy
@@ -10,11 +11,11 @@ import numpy as np
 
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "fused_attention", "dropout",
-    "matmul", "reshape",
+    "fc", "embedding", "conv2d", "pool2d", "layer_norm", "fused_attention",
+    "dropout", "softmax", "mean", "top_k", "topk", "matmul", "reshape",
     "squeeze", "reduce_sum", "add_position_encoding", "elementwise_add",
     "elementwise_mul", "elementwise_div",
 ]
@@ -58,6 +59,83 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                (padding_idx if padding_idx >= 0 else size[0] + padding_idx),
                "remote_prefetch": False})
     return out
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, data_format="NCHW", name=None):
+    """The filter's default initializer is Normal(0, sqrt(2 / fan_in)); a
+    conv whose groups equal its input and output channels (> 1) is a
+    depthwise_conv2d op, as in the JAX package."""
+    helper = LayerHelper("conv2d", bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(
+            f"data_format must be NCHW or NHWC, got {data_format!r}")
+    channel_last = data_format == "NHWC"
+    num_channels = input.shape[-1] if channel_last else input.shape[1]
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * int(np.prod(filter_size))
+    w = helper.create_parameter(
+        param_attr, filter_shape, input.dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    op_type = "depthwise_conv2d" if (groups == num_channels and
+                                     num_filters == num_channels and
+                                     groups > 1) else "conv2d"
+    helper.append_op(
+        op_type, inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "data_format": data_format})
+    pre_act = helper.append_bias_op(
+        out, dim_start=3 if channel_last else 1,
+        dim_end=None if channel_last else 2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, data_format="NCHW",
+           name=None):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    return _single_op("softmax", input, {"axis": axis})
+
+
+def mean(x, name=None):
+    return _single_op("mean", x, {})
+
+
+def top_k(input, k=1, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
+
+
+def topk(input, k, name=None):
+    return top_k(input, k, name=name)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -1,4 +1,5 @@
 """Model builders."""
-from . import transformer  # noqa: F401
+from . import lenet, transformer  # noqa: F401
+from .lenet import lenet_train  # noqa: F401
 from .transformer import (TransformerConfig, transformer_base,  # noqa: F401
                           transformer_train)

@@ -1,3 +1,3 @@
 """Op lowerings. Importing this package registers every op."""
-from . import (activations, basic, elementwise, fused, matmul,  # noqa: F401
-               nn, optimizer_ops, random_ops, reduce)
+from . import (activations, basic, conv, elementwise, fused,  # noqa: F401
+               matmul, metrics, nn, optimizer_ops, random_ops, reduce)

@@ -1,4 +1,4 @@
-"""Tensor ops: fill_constant, sum, scale, reshape2, squeeze2,
+"""Tensor ops: fill_constant, sum, scale, reshape2, squeeze2, top_k,
 lookup_table and its dense grad (counterpart of paddle_tpu/ops/basic.py).
 The "2"-suffixed ops carry an XShape output, here a zero-size marker
 holding the input's shape."""
@@ -82,6 +82,16 @@ def squeeze2(ctx):
              if not (i in axes and d == 1)]
     ctx.set_output("Out", x.reshape(shape))
     _xshape(ctx, x)
+
+
+@register_no_grad_op("top_k")
+def top_k(ctx):
+    """The k largest values of the last axis, in descending order, and
+    their int64 indices. No gradient: the JAX op has one, but no program
+    of the port differentiates through top_k (accuracy reads it)."""
+    vals, idx = torch.topk(ctx.input("X"), int(ctx.attr("k", 1)), dim=-1)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idx.long())
 
 
 def _ids(ids):

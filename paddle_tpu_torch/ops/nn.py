@@ -1,6 +1,7 @@
-"""Dense NN ops: layer_norm, add_position_encoding,
-label_smoothed_softmax_xent with its hand-written grad, and dropout
-(counterpart of paddle_tpu/ops/nn.py). layer_norm and dropout take the
+"""Dense NN ops: softmax, cross_entropy, layer_norm,
+add_position_encoding, label_smoothed_softmax_xent with its hand-written
+grad, and dropout (counterpart of paddle_tpu/ops/nn.py). softmax and
+cross_entropy take the generic gradient. layer_norm and dropout take the
 generic gradient (the vector-Jacobian product of the lowering): the
 layer_norm lowering keeps its statistics in float32 under bf16, and the
 dropout grad reuses the forward's record or its seed, so it never draws
@@ -11,6 +12,39 @@ import torch
 
 from ..core.registry import (GRAD_SUFFIX, override_grad_lowering,
                              register_op)
+
+
+@register_op("softmax")
+def softmax(ctx):
+    """Over the last axis, as the JAX op computes it (it reads no other
+    axis; the port refuses one rather than ignore it)."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    if axis not in (-1, x.ndim - 1):
+        raise NotImplementedError(f"softmax over axis {axis} (not the "
+                                  f"last) is not ported")
+    ctx.set_output("Out", torch.softmax(x, dim=-1))
+
+
+@register_op("cross_entropy", no_grad_slots=("Label",))
+def cross_entropy(ctx):
+    """-log(x + 1e-12) of the probability at the label (hard labels;
+    rows whose label is ignore_index give 0), or -sum(label *
+    log(x + 1e-12)) over the last axis (soft_label)."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    eps = 1e-12
+    if ctx.attr("soft_label", False):
+        out = -torch.sum(label * torch.log(x + eps), dim=-1, keepdim=True)
+    else:
+        ids = label.long()
+        if ids.ndim == x.ndim:
+            ids = ids.squeeze(-1)
+        picked = torch.gather(x, -1, ids[..., None].clamp(0, x.shape[-1]
+                                                          - 1))
+        out = -torch.log(picked + eps)
+        keep = ids[..., None] != ctx.attr("ignore_index", -100)
+        out = torch.where(keep, out, torch.zeros_like(out))
+    ctx.set_output("Y", out)
 
 
 @register_op("layer_norm")

@@ -1,4 +1,5 @@
-"""Reductions (counterpart of paddle_tpu/ops/reduce.py: reduce_sum)."""
+"""Reductions (counterpart of paddle_tpu/ops/reduce.py: reduce_sum and
+mean)."""
 from __future__ import annotations
 
 from ..core.registry import register_op
@@ -19,3 +20,9 @@ def reduce_sum(ctx):
         out = x.sum(dim=[d if d >= 0 else d + x.ndim for d in dims],
                     keepdim=keep)
     ctx.set_output("Out", out)
+
+
+@register_op("mean")
+def mean(ctx):
+    """The mean of every element, a 0-d tensor (as the JAX op gives)."""
+    ctx.set_output("Out", ctx.input("X").mean())

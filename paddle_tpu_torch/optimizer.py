@@ -1,9 +1,9 @@
 """Optimizers: minimize() = append_backward + one update op per parameter.
 
-Counterpart of paddle_tpu/optimizer.py (Optimizer and AdamOptimizer; the
-other rules are not ported yet). The learning rate is a persistable
-global var; accumulators are persistable vars initialized by fill ops in
-the startup program; every op of the optimize phase (clip,
+Counterpart of paddle_tpu/optimizer.py (Optimizer, SGDOptimizer and
+AdamOptimizer; the other rules are not ported yet). The learning rate is
+a persistable global var; accumulators are persistable vars initialized
+by fill ops in the startup program; every op of the optimize phase (clip,
 regularization, update) carries op_role "optimize". Update ops bind
 ParamOut to Param, so the engine writes the new values back in place.
 """
@@ -21,7 +21,7 @@ from .layer_helper import LayerHelper
 from .layers import tensor as _tensor
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -130,6 +130,20 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": p, "Grad": g,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p}, infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -163,4 +177,5 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon}, infer_shape=False)
 
 
+SGD = SGDOptimizer
 Adam = AdamOptimizer

@@ -1,9 +1,11 @@
 """Card-only tests of paddle_tpu_torch: each kernel against its plain
 PyTorch version on the GPU (flash-attention forward with and without
-dropout, its dq and dk/dv backward, Adam, quantized_matmul int8 and
-bf16, every tuned_matmul variant), a tiny Transformer forward on the
-card against the same Program on the CPU (float32 and int8 mode), and
-three training steps of it. They skip where torch sees no CUDA device.
+dropout, its dq and dk/dv backward, Adam, SGD, quantized_matmul int8
+and bf16, every tuned_matmul variant), a tiny Transformer forward on the
+card against the same Program on the CPU (float32 and int8 mode), three
+training steps of it, and LeNet's SGD step with its updates in the
+kernel against the same step with them plain. They skip where torch
+sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -13,7 +15,8 @@ Tolerances: forward float32 1e-5 relative and absolute (float32 sums in
 another order); backward float32 1e-4 (each gradient sums up to S
 products of recomputed p, in another order than the plain version's
 matmuls); bf16 2e-2 (p, ds and the outputs round to bf16). Adam: at most
-ADAM_ULP units in the last place (each operation rounds once in both).
+ADAM_ULP units in the last place (each operation rounds once in both);
+SGD: 0 ulp (the same two roundings, lr*g and the difference).
 quantized_matmul int8: bit-equal (exact integer tile sums, the same two
 roundings a tile); bf16 and the tuned float32 GEMMs: GEMM_RTOL relative
 in the norm (float32 sums in another order).
@@ -206,6 +209,60 @@ def test_adam_matches_plain_on_card(cuda, n):
         assert int(_ulps(a, r).max()) <= ADAM_ULP, name
 
 
+@pytest.mark.parametrize("n", [1, 127, 129, 513, 25000])
+def test_sgd_matches_plain_on_card(cuda, n):
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    p, g = (torch.randn(n, device=cuda, generator=gen) for _ in range(2))
+    lr = torch.tensor([0.05], device=cuda)
+    for wd in (0.0, 1e-4):
+        ref = fo.sgd_plain(p.clone(), g, lr[0], wd)
+        kreg.reset_counts()
+        got = fo.fused_sgd(p, g, lr, weight_decay=wd)
+        torch.cuda.synchronize()
+        assert kreg.launches()["fused_sgd"] == 1
+        assert got is p                                   # in place
+        assert int(_ulps(got, ref).max()) == 0, wd
+        p = ref
+
+
+def _lenet_losses(cuda, monkeypatch, floor, steps=3):
+    monkeypatch.setenv("PT_KERNEL_MIN_NUMEL", floor)
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, _, _ = pt.models.lenet_train()
+        pt.optimizer.SGD(learning_rate=0.05).minimize(cost)
+    main.random_seed = startup.random_seed = 7
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    r = np.random.RandomState(0)
+    feed = {"img": r.rand(64, 1, 28, 28).astype(np.float32),
+            "label": r.randint(0, 10, (64, 1)).astype(np.int64)}
+    kreg.reset_counts()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                            scope=scope)[0]) for _ in range(steps)]
+    params = {p.name: np.asarray(scope.find_var(p.name).get_tensor())
+              for p in main.all_parameters()}
+    return losses, params, kreg.launches()["fused_sgd"]
+
+
+def test_lenet_sgd_kernel_equals_plain_update_on_card(cuda, monkeypatch):
+    """LeNet's SGD step with every update in the kernel (floor 1) and
+    with every update plain (floor 65536), from the same startup state:
+    equal losses and parameters (cuDNN in deterministic mode)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    plain = _lenet_losses(cuda, monkeypatch, "65536")
+    kernel = _lenet_losses(cuda, monkeypatch, "1")
+    assert plain[2] == 0 and kernel[2] == 3 * 6
+    assert kernel[0] == plain[0]
+    for n in plain[1]:
+        assert np.array_equal(kernel[1][n], plain[1][n]), n
+
+
 def test_tiny_transformer_on_card_matches_cpu(cuda):
     cfg = T.transformer_base(src_vocab_size=64, trg_vocab_size=64,
                              fuse_attention=True)
@@ -234,10 +291,13 @@ def test_tiny_transformer_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(cg, cc, rtol=1e-5)
 
 
-def test_tiny_transformer_training_on_card_matches_cpu(cuda):
+def test_tiny_transformer_training_on_card_matches_cpu(cuda, monkeypatch):
     """Three Adam steps of the tiny Transformer (float32, dropout 0) on
     the card against the same Program on the CPU, from the same
-    parameters: losses and every parameter and moment within 1e-4."""
+    parameters: losses and every parameter and moment within 1e-4. The
+    size floor is 1, so every parameter's update goes through the Adam
+    kernel."""
+    monkeypatch.setenv("PT_KERNEL_MIN_NUMEL", "1")
     cfg = T.transformer_base(src_vocab_size=64, trg_vocab_size=64,
                              fuse_attention=True, dropout=0.0)
     cfg.n_layer, cfg.d_model, cfg.d_inner = 2, 32, 64

@@ -715,8 +715,10 @@ def test_forward_only_wrapper_passes_values_and_refuses_gradients():
 
 
 def test_training_without_opt_in_routes_nothing(route):
-    """With no knob set and no winner, a training step routes nothing and
-    its gradient is the float32 one."""
+    """With no knob set and no winner, a training step routes no GEMM
+    and its gradient is the float32 one; only the Adam updates (a
+    registry kernel since Adam honours the registry) route, one a
+    parameter at this floor of 1."""
     pt.framework.unique_name.reset()
     main, startup, loss = _train_program(pt.layers, pt)
     with pt.program_guard(main, startup):
@@ -728,4 +730,5 @@ def test_training_without_opt_in_routes_nothing(route):
     val, = exe.run(main, feed={"x": xv}, fetch_list=[loss], scope=scope)
     assert np.isfinite(val)
     stats = pkreg.dispatch_stats()["per_kernel"]
+    assert stats.pop("fused_adam") == {"custom": len(main.all_parameters())}
     assert stats and all(v.get("custom", 0) == 0 for v in stats.values())
