@@ -8,15 +8,18 @@
 2. Builds every kernel of the port from paddle_tpu_torch/csrc with nvcc
    (one process per source, all at once) and prints the build seconds.
 3. Kernel phase: holds each attention and optimizer kernel against its
-   plain PyTorch version on the card, in float32 and bf16: the
-   flash-attention forward (without and with attention dropout), its dq
-   and dk/dv backward kernels, Adam, and SGD (0 ulp at LeNet's six
-   parameter shapes, at lengths 1, 127, 129 and 513, and over the 255
-   parameter shapes of Transformer-base). Then times kernel, plain
-   version and the library yardstick: the forward at the serving shape,
-   all four at the training shape (B=96, S=128, H=8, D=64, bf16; Adam
+   plain PyTorch version on the card: the flash-attention forward
+   (without and with attention dropout), its dq and dk/dv backward
+   kernels (float32 through the CUDA-core kernels; bf16 through the
+   tensor-core forward and dk/dv kernels, as the entry points choose,
+   and again through the CUDA-core ones), Adam, and SGD (0 ulp at
+   LeNet's six parameter shapes, at lengths 1, 127, 129 and 513, and
+   over the 255 parameter shapes of Transformer-base). Then times
+   kernel, plain version and the library yardstick: the forward at the
+   serving shape, the attention kernels of both designs at the training
+   shape (B=96, S=128, H=8, D=64, bf16; device time, sdpa's too), Adam
    over the 99 parameters of Transformer-base that the registry routes
-   to it, and the plain update of the other 156 on the host's clock),
+   to it (and the plain update of the other 156 on the host's clock),
    and SGD at Transformer-base's and LeNet's sizes.
 4. Serving phase: builds full-width Transformer-base (6+6 layers,
    d_model 512, 8 heads, vocab 32000, fuse_attention) with the port's
@@ -28,7 +31,8 @@
    contrib.mixed_precision.decorate(AdamOptimizer(2e-4)): bf16 compute,
    float32 master weights) takes 5 steps on one ragged batch of
    96 x 128. Checks a finite, falling loss, exactly 18 forward, 18 dq,
-   18 dk/dv and 99 Adam launches per step (the registry routes the 99
+   18 dk/dv (all 18 forward and 18 dk/dv launches the tensor-core
+   kernels) and 99 Adam launches per step (the registry routes the 99
    parameters of at least PT_KERNEL_MIN_NUMEL = 65536 elements to the
    kernel and lowers the other 156; no GEMM kernel: none is opted in),
    the registry's decisions, and one step from a copy of the initial
@@ -72,6 +76,7 @@ port assumes.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -260,67 +265,99 @@ def _dname(torch, dtype):
     return str(dtype).replace("torch.", "")
 
 
+@contextlib.contextmanager
+def _cuda_core_kernels(fa):
+    """While it lasts, every attention call takes the CUDA-core kernels
+    (the wrappers' choice, _sm90_eligible, reads False): to check and
+    time that design on bf16 calls the tensor-core one would take."""
+    eligible = fa._sm90_eligible
+    fa._sm90_eligible = lambda *args: False
+    try:
+        yield
+    finally:
+        fa._sm90_eligible = eligible
+
+
 def kernel_phase(torch, dev):
     """Every attention kernel against its plain version over the case
-    list, without and with dropout; returns {(kernel, dtype, case):
-    max |err|}."""
+    list, without and with dropout: float32 through the CUDA-core
+    kernels, bf16 through the tensor-core forward and dk/dv kernels (the
+    wrappers' choice, checked by the launch counters) and again through
+    the CUDA-core ones; returns {(kernel, dtype, case): max |err|}."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import registry as kreg
     worst = {}
     for dtype, tol, btol in ((torch.float32, F32_TOL, BWD_F32_TOL),
                              (torch.bfloat16, BF16_TOL, BF16_TOL)):
         dname = _dname(torch, dtype)
+        designs = ("simt",) if dtype == torch.float32 else ("sm90", "simt")
         for (name, layout, B, H, Sq, Sk, D, bias_kind, causal,
              pad_all) in _CASES:
             q, k, v, bias = _attn_inputs(torch, dev, dtype, layout, B, H,
                                          Sq, Sk, D, bias_kind, pad_all)
             scale = D ** -0.5
+            want_dbias = bias_kind == "per_head"
             for drop in [None] + _DROPOUTS:
                 tag = "" if drop is None else f" drop t={drop[2]}"
-                out, lse = fa.fused_attention_forward(
-                    q, k, v, bias, scale, causal, layout, return_lse=True,
-                    dropout=drop)
                 ref, ref_lse = fa.fused_attention_plain(
                     q, k, v, bias, scale, causal, layout, return_lse=True,
                     dropout=drop)
-                torch.cuda.synchronize()
-                err, ok = _close(torch, out, ref, tol)
-                lerr, lok = _close(torch, lse, ref_lse, tol)
-                print(f"  fwd vs plain [{dname:8s}] {name + tag:36s} "
-                      f"out max|err|={err:.3e} lse max|err|={lerr:.3e} "
-                      f"tol={tol:g} {'ok' if ok and lok else 'FAIL'}")
-                _require(ok and lok, f"flash_attention_fwd {dname} "
-                                     f"{name}{tag} disagrees with its "
-                                     f"plain version")
-                worst[("flash_attention_fwd", dname, name + tag)] = err
-
                 g = torch.randn(q.shape, device=dev,
                                 generator=torch.Generator(device=dev)
                                 .manual_seed(3)).to(dtype)
-                want_dbias = bias_kind == "per_head"
-                got = fa.fused_attention_backward(
-                    q, k, v, bias, ref, ref_lse, g, scale, causal, layout,
-                    dropout=drop, want_dbias=want_dbias)
                 exp = fa.fused_attention_backward_plain(
                     q, k, v, bias, ref, ref_lse, g, scale, causal, layout,
                     dropout=drop, want_dbias=want_dbias)
-                torch.cuda.synchronize()
-                errs = {}
-                for gname, a, r in zip(("dq", "dk", "dv", "dbias"), got,
-                                       exp):
-                    if r is None:
-                        continue
-                    errs[gname], ok = _close(torch, a, r, btol)
-                    ok = ok and r.abs().max().item() > 0   # not vacuous
-                    _require(ok, f"flash attention backward {gname} "
-                                 f"{dname} {name}{tag} disagrees with its "
-                                 f"plain version")
-                print(f"  bwd vs plain [{dname:8s}] {name + tag:36s} "
-                      + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-                      + f" tol={btol:g} ok")
-                worst[("flash_attention_bwd_dq", dname, name + tag)] = \
-                    errs["dq"]
-                worst[("flash_attention_bwd_dkv", dname, name + tag)] = \
-                    max(errs["dk"], errs["dv"])
+                for design in designs:
+                    kreg.reset_counts()
+                    # the entry points, as the main path calls them
+                    with (_cuda_core_kernels(fa) if design == "simt"
+                          else contextlib.nullcontext()):
+                        out, lse = fa.fused_attention_forward(
+                            q, k, v, bias, scale, causal, layout,
+                            return_lse=True, dropout=drop)
+                        got = fa.fused_attention_backward(
+                            q, k, v, bias, ref, ref_lse, g, scale, causal,
+                            layout, dropout=drop, want_dbias=want_dbias)
+                    torch.cuda.synchronize()
+                    sm90 = int(design == "sm90")
+                    c = kreg.launches()
+                    _require(c["flash_attention_fwd"] == 1
+                             and c["flash_attention_fwd_sm90"] == sm90
+                             and c["flash_attention_bwd_dkv"] == 1
+                             and c["flash_attention_bwd_dkv_sm90"] == sm90,
+                             f"{dname} {name}{tag}: launches {c}, want the "
+                             f"{design} kernels")
+                    suffix = "_sm90" if sm90 else ""
+                    fwd_k = "flash_attention_fwd" + suffix
+                    dkv_k = "flash_attention_bwd_dkv" + suffix
+                    err, ok = _close(torch, out, ref, tol)
+                    lerr, lok = _close(torch, lse, ref_lse, tol)
+                    print(f"  fwd vs plain [{dname:8s} {design:4s}] "
+                          f"{name + tag:36s} out max|err|={err:.3e} lse "
+                          f"max|err|={lerr:.3e} tol={tol:g} "
+                          f"{'ok' if ok and lok else 'FAIL'}")
+                    _require(ok and lok, f"{fwd_k} {dname} {name}{tag} "
+                                         f"disagrees with its plain version")
+                    worst[(fwd_k, dname, name + tag)] = err
+                    errs = {}
+                    for gname, a, r in zip(("dq", "dk", "dv", "dbias"), got,
+                                           exp):
+                        if r is None:
+                            continue
+                        errs[gname], ok = _close(torch, a, r, btol)
+                        ok = ok and r.abs().max().item() > 0   # not vacuous
+                        _require(ok, f"flash attention backward {gname} "
+                                     f"{dname} {design} {name}{tag} "
+                                     f"disagrees with its plain version")
+                    print(f"  bwd vs plain [{dname:8s} {design:4s}] "
+                          f"{name + tag:36s} "
+                          + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+                          + f" tol={btol:g} ok")
+                    key = ("flash_attention_bwd_dq", dname, name + tag)
+                    worst[key] = max(worst.get(key, 0.0), errs["dq"])
+                    worst[(dkv_k, dname, name + tag)] = \
+                        max(errs["dk"], errs["dv"])
     return worst
 
 
@@ -372,8 +409,10 @@ def adam_phase(torch, dev):
 
 
 def time_attention(torch, dev, card):
-    """Kernel, plain and library times at the serving shape, and the
-    bound for the same work."""
+    """Kernel, plain and library times at the serving shape (float32,
+    the CUDA-core forward's main path), and the bound for the same work.
+    Kernel and library times are device time (torch.profiler), the
+    plain version's and the kernel's events figure the host's clock."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     peak_flops, _, peak_bw, _ = _peaks(card)
@@ -383,8 +422,13 @@ def time_attention(torch, dev, card):
     scale = D ** -0.5
     res = {}
     for causal in (False, True):
-        kern = _time_ms(lambda: fa.fused_attention_forward(
-            q, k, v, bias, scale, causal, "bshd"))
+        def fwd(causal=causal):
+            return fa.fused_attention_forward(q, k, v, bias, scale, causal,
+                                              "bshd")
+
+        kern = _device_ms(torch, fwd, 20, ("fa_fwd_kernel",))[
+            "fa_fwd_kernel"]
+        kern_ev = _time_ms(fwd)
         plain = _time_ms(lambda: fa.fused_attention_plain(
             q, k, v, bias, scale, causal, "bshd"))
         pairs = S * (S + 1) // 2 if causal else S * S
@@ -394,16 +438,18 @@ def time_attention(torch, dev, card):
         lib = None
         if not causal:   # sdpa takes no mask together with is_causal
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=bias, scale=scale))
+            lib = _call_device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias, scale=scale), 20)
         res[causal] = {"ms": kern, "plain_ms": plain, "library_ms": lib,
                        "bound_ms": max(bound_f, bound_b),
                        "bound_by": "operations" if bound_f >= bound_b
                        else "bytes", "gflop": flops / 1e9,
                        "mb": nbytes / 1e6}
         print(f"  flash_attention_fwd B={B} S={S} H={H} D={D} "
-              f"causal={causal}: kernel {kern:.4f} ms, plain "
-              f"{plain:.4f} ms, library "
+              f"causal={causal} float32: kernel {kern:.4f} ms (device; "
+              f"events {kern_ev:.4f} ms), plain {plain:.4f} ms (events), "
+              f"sdpa "
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{res[causal]['bound_ms']:.4f} ms "
               f"({res[causal]['bound_by']}: {flops / 1e9:.3f} GFLOP at "
@@ -414,29 +460,34 @@ def time_attention(torch, dev, card):
 
 def _device_ms(torch, fn, iters, keys):
     """Device time per call of fn, summed over the CUDA kernels whose
-    name holds each key, from torch.profiler over `iters` calls. A
-    session that records no device time at all is taken again (seen
-    once on the card: a GEMM read 0.0000 ms), at most twice."""
+    name holds each key, from torch.profiler over `iters` calls: the
+    median of three sessions, whose readings are printed (on the card a
+    session once read a GEMM at 0.0000 ms, and once sdpa's forward and
+    backward at half the others' time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    reads = {k: [] for k in keys}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = {k: 0.0 for k in keys}
+        got = {k: 0.0 for k in keys}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
             for k in keys:
                 if k in e.key:
-                    out[k] += e.self_device_time_total / 1e3 / iters
-        if any(v > 0 for v in out.values()):
-            break
-    return out
+                    got[k] += e.self_device_time_total / 1e3 / iters
+        for k in keys:
+            reads[k].append(got[k])
+    print("    profiler sessions (ms): " + "; ".join(
+        f"{k or 'every kernel'} " + ", ".join(f"{x:.4f}" for x in r)
+        for k, r in reads.items()))
+    return {k: sorted(r)[1] for k, r in reads.items()}
 
 
 def _bound(flops, nbytes, peak_flops, peak_bw):
@@ -447,7 +498,11 @@ def _bound(flops, nbytes, peak_flops, peak_bw):
 def time_training_attention(torch, dev, card):
     """Forward (with dropout, returning lse) and backward kernels at the
     training shape in bf16, key-padding bias, without and with the
-    causal mask: kernel, plain and library times and the bounds."""
+    causal mask, each attention kernel in both designs (tensor-core, the
+    main path's, and CUDA-core): kernel, plain and library times and the
+    bounds. Kernel and library times are device time (torch.profiler):
+    each kernel's own, and every CUDA kernel that sdpa launches; the
+    events figures of earlier runs are printed on their own line."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     _, peak_bf16, peak_bw, _ = _peaks(card)
@@ -466,17 +521,29 @@ def time_training_attention(torch, dev, card):
         out, lse = fa.fused_attention_forward(q, k, v, bias, scale, causal,
                                               "bshd", return_lse=True,
                                               dropout=drop)
-        fwd = _time_ms(lambda: fa.fused_attention_forward(
-            q, k, v, bias, scale, causal, "bshd", return_lse=True,
-            dropout=drop))
+        t = {}
+        for design, fkey, dkey in (("sm90", "fa_fwd_sm90_kernel",
+                                    "dkv_sm90_kernel"),
+                                   ("simt", "fa_fwd_kernel", "dkv_kernel")):
+            def fwd_call():
+                return fa._launch(q, k, v, bias, scale, causal, "bshd",
+                                  True, drop)
+
+            def bwd_call():
+                return fa._launch_bwd(q, k, v, bias, out, lse, g, scale,
+                                      causal, "bshd", drop, False)
+
+            with (_cuda_core_kernels(fa) if design == "simt"
+                  else contextlib.nullcontext()):
+                t[design] = {
+                    "fwd": _device_ms(torch, fwd_call, 20, (fkey,))[fkey],
+                    "fwd_ev": _time_ms(fwd_call),
+                    "bwd": _device_ms(torch, bwd_call, 20,
+                                      ("di_kernel", "dq_kernel", dkey)),
+                    "bwd_ev": _time_ms(bwd_call)}
+            t[design]["dkv"] = t[design]["bwd"][dkey]
         fwd_plain = _time_ms(lambda: fa.fused_attention_plain(
             q, k, v, bias, scale, causal, "bshd", return_lse=True,
-            dropout=drop))
-        dev_ms = _device_ms(torch, lambda: fa.fused_attention_backward(
-            q, k, v, bias, out, lse, g, scale, causal, "bshd",
-            dropout=drop), 20, ("di_kernel", "dq_kernel", "dkv_kernel"))
-        bwd = _time_ms(lambda: fa.fused_attention_backward(
-            q, k, v, bias, out, lse, g, scale, causal, "bshd",
             dropout=drop))
         bwd_plain = _time_ms(lambda: fa.fused_attention_backward_plain(
             q, k, v, bias, out, lse, g, scale, causal, "bshd",
@@ -498,35 +565,48 @@ def time_training_attention(torch, dev, card):
         def lib_fwd_bwd():
             torch.autograd.backward(lib_fwd(), gt)
 
-        lib_f = _time_ms(lib_fwd)
-        lib_fb = _time_ms(lib_fwd_bwd)
+        lib_f = _call_device_ms(torch, lib_fwd, 20)
+        lib_fb = _call_device_ms(torch, lib_fwd_bwd, 20)
+        lib_f_ev = _time_ms(lib_fwd)
+        lib_fb_ev = _time_ms(lib_fwd_bwd)
         fb, fby = _bound(2 * mm, 4 * el * 2 + bias.numel() * 4 + rows * 4,
                          peak_bf16, peak_bw)
         qb, qby = _bound(3 * mm, 6 * el * 2 + bias.numel() * 4 + rows * 8,
                          peak_bf16, peak_bw)
         kb, kby = _bound(4 * mm, 6 * el * 2 + bias.numel() * 4 + rows * 8,
                          peak_bf16, peak_bw)
+        dq_bwd = t["sm90"]["bwd"]
+        fwd_row = {"plain_ms": fwd_plain, "library_ms": lib_f,
+                   "bound_ms": fb, "bound_by": fby}
+        dkv_row = {"plain_ms": bwd_plain, "library_ms": lib_fb - lib_f,
+                   "bound_ms": kb, "bound_by": kby}
         res[causal] = {
-            "fwd": {"ms": fwd, "plain_ms": fwd_plain, "library_ms": lib_f,
-                    "bound_ms": fb, "bound_by": fby},
-            "dq": {"ms": dev_ms["di_kernel"] + dev_ms["dq_kernel"],
+            "fwd": {"ms": t["simt"]["fwd"], **fwd_row},
+            "fwd_sm90": {"ms": t["sm90"]["fwd"], **fwd_row},
+            "dq": {"ms": dq_bwd["di_kernel"] + dq_bwd["dq_kernel"],
                    "plain_ms": bwd_plain, "library_ms": lib_fb - lib_f,
                    "bound_ms": qb, "bound_by": qby},
-            "dkv": {"ms": dev_ms["dkv_kernel"], "plain_ms": bwd_plain,
-                    "library_ms": lib_fb - lib_f, "bound_ms": kb,
-                    "bound_by": kby},
-            "bwd_ms": bwd}
+            "dkv": {"ms": t["simt"]["dkv"], **dkv_row},
+            "dkv_sm90": {"ms": t["sm90"]["dkv"], **dkv_row}}
         print(f"  training shape B={B} S={S} H={H} D={D} bf16 dropout 0.1 "
-              f"causal={causal}:")
-        print(f"    forward+lse: kernel {fwd:.4f} ms, plain "
-              f"{fwd_plain:.4f} ms, sdpa {lib_f:.4f} ms, bound {fb:.4f} ms "
-              f"({fby}; {2 * mm / 1e9:.3f} GFLOP)")
-        print(f"    backward: both kernels {bwd:.4f} ms (events); device "
-              f"di {dev_ms['di_kernel']:.4f} + dq {dev_ms['dq_kernel']:.4f}"
-              f" ms (bound {qb:.4f}, {qby}), dk/dv "
-              f"{dev_ms['dkv_kernel']:.4f} ms (bound {kb:.4f}, {kby}); "
-              f"plain backward {bwd_plain:.4f} ms; sdpa backward "
+              f"causal={causal} (device time):")
+        print(f"    forward+lse: tensor-core kernel {t['sm90']['fwd']:.4f} "
+              f"ms, CUDA-core kernel {t['simt']['fwd']:.4f} ms, plain "
+              f"{fwd_plain:.4f} ms (events), sdpa {lib_f:.4f} ms, bound "
+              f"{fb:.4f} ms ({fby}; {2 * mm / 1e9:.3f} GFLOP)")
+        print(f"    backward: di {dq_bwd['di_kernel']:.4f} + dq "
+              f"{dq_bwd['dq_kernel']:.4f} ms (bound {qb:.4f}, {qby}); dk/dv "
+              f"tensor-core {t['sm90']['dkv']:.4f} ms, CUDA-core "
+              f"{t['simt']['dkv']:.4f} ms (bound {kb:.4f}, {kby}); plain "
+              f"backward {bwd_plain:.4f} ms (events); sdpa backward "
               f"{lib_fb - lib_f:.4f} ms (fwd+bwd {lib_fb:.4f} - fwd)")
+        print(f"    events over a loop of calls, as in earlier runs: "
+              f"forward tensor-core {t['sm90']['fwd_ev']:.4f} ms, CUDA-core "
+              f"{t['simt']['fwd_ev']:.4f} ms; both backward kernels with "
+              f"the tensor-core dk/dv {t['sm90']['bwd_ev']:.4f} ms, with "
+              f"the CUDA-core one {t['simt']['bwd_ev']:.4f} ms; sdpa forward "
+              f"{lib_f_ev:.4f} ms, sdpa backward {lib_fb_ev - lib_f_ev:.4f} "
+              f"ms (fwd+bwd {lib_fb_ev:.4f})")
     return res
 
 
@@ -758,10 +838,12 @@ def slice_phase(torch, dev):
     counts = kreg.launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    _require(counts["flash_attention_fwd"] == 18 * len(batches),
+    _require(counts["flash_attention_fwd"] == 18 * len(batches)
+             and counts["flash_attention_fwd_sm90"] == 0,
              f"flash_attention_fwd launched "
              f"{counts['flash_attention_fwd']} times in "
-             f"{len(batches)} forwards (want 18 each)")
+             f"{len(batches)} float32 forwards (want 18 each, none of "
+             f"them the bf16 tensor-core kernel's)")
     for (lg, c), feed in zip(outs, batches):
         _require(lg.shape == (B, S, cfg.trg_vocab_size),
                  f"logits shape {lg.shape}")
@@ -1265,7 +1347,10 @@ def training_phase(torch, dev, built):
     _require(losses[-1] < losses[0], "the loss did not fall in 5 steps")
     want = {k: 0 for k in kreg.launches()}      # no GEMM kernel
     want.update({"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
-                 "flash_attention_bwd_dkv": 18, "fused_adam": len(routed)})
+                 "flash_attention_bwd_dkv": 18,
+                 "flash_attention_fwd_sm90": 18,
+                 "flash_attention_bwd_dkv_sm90": 18,
+                 "fused_adam": len(routed)})
     for i, (c, d) in enumerate(zip(per_step, decisions)):
         _require(c == want, f"step {i + 1} launched {c}, want {want}")
         _require(d.get("fused_adam") == {"custom": len(routed),
@@ -1551,8 +1636,9 @@ def main():
         ("Transformer-base", shapes, (0.0,))))
     stimes = time_sgd(torch, dev, card, shapes, "Transformer-base")
     slenet = time_sgd(torch, dev, card, lenet_shapes, "LeNet")
-    for t in (ttimes[False]["dq"], ttimes[False]["dkv"], atimes, stimes,
-              slenet):
+    for t in (times[False], ttimes[False]["fwd"], ttimes[False]["fwd_sm90"],
+              ttimes[False]["dq"], ttimes[False]["dkv"],
+              ttimes[False]["dkv_sm90"], atimes, stimes, slenet):
         _require(t["ms"] > 0, "the profiler saw no device time")
 
     print("[serving phase]")
@@ -1588,29 +1674,49 @@ def main():
 
     src = "paddle_tpu_torch/csrc/"
     bf = "bfloat16"
+    train = "training shape drop t=230"
+    # the shared attention counters count both designs: a CUDA-core row
+    # takes its main path's launches less the tensor-core ones. The
+    # CUDA-core forward's main path is float32 serving (its row: the
+    # serving phase's launches, times at the serving shape); the
+    # CUDA-core dk/dv runs on no main path (0 launches; its times are
+    # of the bf16 training shape through that design, beside the new
+    # kernel's)
     rows = []
-    for name, source, replaces, t, err in (
+    for name, source, replaces, t, err, launches in (
             ("flash_attention_fwd", "flash_attention_fwd.cu",
+             "paddle_tpu/kernels/flash_attention.py:353", times[False],
+             worst[("flash_attention_fwd", "float32", "serving shape")],
+             counts["flash_attention_fwd"]
+             - counts["flash_attention_fwd_sm90"]),
+            ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
              "paddle_tpu/kernels/flash_attention.py:353",
-             ttimes[False]["fwd"],
-             worst[("flash_attention_fwd", bf, "training shape drop t=230")]),
+             ttimes[False]["fwd_sm90"],
+             worst[("flash_attention_fwd_sm90", bf, train)],
+             tcounts["flash_attention_fwd_sm90"]),
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:426",
              ttimes[False]["dq"],
-             worst[("flash_attention_bwd_dq", bf,
-                    "training shape drop t=230")]),
+             worst[("flash_attention_bwd_dq", bf, train)],
+             tcounts["flash_attention_bwd_dq"]),
             ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:502",
              ttimes[False]["dkv"],
-             worst[("flash_attention_bwd_dkv", bf,
-                    "training shape drop t=230")]),
+             worst[("flash_attention_bwd_dkv", bf, train)],
+             tcounts["flash_attention_bwd_dkv"]
+             - tcounts["flash_attention_bwd_dkv_sm90"]),
+            ("flash_attention_bwd_dkv_sm90",
+             "flash_attention_bwd_dkv_sm90.cu",
+             "paddle_tpu/kernels/flash_attention.py:502",
+             ttimes[False]["dkv_sm90"],
+             worst[("flash_attention_bwd_dkv_sm90", bf, train)],
+             tcounts["flash_attention_bwd_dkv_sm90"]),
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
-             adam_err),
+             adam_err, tcounts["fused_adam"]),
             ("fused_sgd", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
-             sgd_err)):
-        launches = sgd_launches if name == "fused_sgd" else tcounts[name]
+             sgd_err, sgd_launches)):
         rows.append({"name": name, "route": "cuda", "source": src + source,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": err, "ms": t["ms"],

@@ -16,6 +16,8 @@ constexpr int NTHREADS = 256;      // 16 x 16
 constexpr int P_STRIDE = BK + 16;  // row stride of a [64][64] score tile
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's finite mask value
 constexpr float L_FLOOR = 1e-30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -57,12 +59,18 @@ __device__ __forceinline__ uint32_t head_seed(uint32_t s0, uint32_t s1,
   return s0 ^ mix32(s1 ^ (bh * 0x9E3779B1u));
 }
 
+// pos = row * Sk + col (mod 2^32)
+__device__ __forceinline__ bool keep_pos(uint32_t hseed, uint32_t pos,
+                                         int t) {
+  return (mix32(pos ^ hseed) & 255u) < static_cast<uint32_t>(t);
+}
+
 __device__ __forceinline__ bool keep(uint32_t hseed, int row, int col,
                                      int Sk, int t) {
-  const uint32_t pos = static_cast<uint32_t>(row) *
-                           static_cast<uint32_t>(Sk) +
-                       static_cast<uint32_t>(col);
-  return (mix32(pos ^ hseed) & 255u) < static_cast<uint32_t>(t);
+  return keep_pos(hseed,
+                  static_cast<uint32_t>(row) * static_cast<uint32_t>(Sk) +
+                      static_cast<uint32_t>(col),
+                  t);
 }
 
 }  // namespace fa

@@ -4,10 +4,15 @@ dq and dk/dv) and their plain PyTorch versions.
 Counterpart of paddle_tpu/kernels/flash_attention.py: _fa_kernel via
 _fa_forward, and _fa_bwd_dq_kernel / _fa_bwd_dkv_kernel via
 _fa_backward. The kernels are paddle_tpu_torch/csrc/flash_attention_fwd.cu
-and flash_attention_bwd.cu, built at first use (kernels/registry.py). A
-CUDA tensor always goes to the kernels; a CPU tensor goes to the plain
-versions. The meta tensors of build-time shape inference take the plain
-versions too, which read no value. Under
+and flash_attention_bwd.cu (float32 FMA on CUDA cores, any dtype the
+wrappers take), and the tensor-core designs for bf16,
+flash_attention_fwd_sm90.cu and flash_attention_bwd_dkv_sm90.cu (wgmma
+and TMA), all built at first use (kernels/registry.py). A bf16 call that
+meets TMA's rules (_sm90_eligible) takes the tensor-core forward and
+dk/dv kernels; every other call the CUDA-core ones. A CUDA tensor always
+goes to the kernels; a CPU tensor goes to the plain versions. The meta
+tensors of build-time shape inference take the plain versions too,
+which read no value. Under
 kernels.registry.plain_reference() CUDA tensors take the plain versions
 as well.
 
@@ -37,6 +42,10 @@ _L_FLOOR = 1e-30
 _KERNEL = "flash_attention_fwd"
 _KERNEL_DQ = "flash_attention_bwd_dq"
 _KERNEL_DKV = "flash_attention_bwd_dkv"
+# the tensor-core designs; the counters above count every launch of
+# their entry, these two the tensor-core launches alone
+_KERNEL_SM90 = "flash_attention_fwd_sm90"
+_KERNEL_DKV_SM90 = "flash_attention_bwd_dkv_sm90"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128
 _M32 = 0xFFFFFFFF
@@ -279,6 +288,28 @@ def _check(q, k, v, bias, layout):
     return B, H, Sq, Sk, D
 
 
+def _sm90_eligible(q, k, v, out, layout):
+    """Whether a call can take the tensor-core kernels: TMA's rules for
+    the four [B, S, H, D] / [B, H, S, D] tensors it reads or writes
+    (forward: q, k, v, out; backward: q, k, v, dout). bf16, D a multiple
+    of 8 and at most 128, every base pointer 16-byte aligned, every
+    (batch, sequence, head) stride a multiple of 16 bytes. A pure
+    function of dtypes, shapes, pointers and strides."""
+    ts = (q, k, v, out)
+    if any(t.dtype != torch.bfloat16 or t.ndim != 4 for t in ts):
+        return False
+    D = q.shape[-1]
+    if D % 8 or D > _MAX_D:
+        return False
+    for t in ts:
+        if t.stride(3) != 1 or t.data_ptr() % 16:
+            return False
+        if any(st * t.element_size() % 16
+               for st in _seq_strides(t, layout)):
+            return False
+    return True
+
+
 def _bias_strides(bias):
     if bias is None:
         return (0, 0, 0)
@@ -286,8 +317,8 @@ def _bias_strides(bias):
                  for i in range(3))
 
 
-def _bind(lib):
-    fn = lib.pt_flash_attention_fwd
+def _bind(lib, symbol):
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
@@ -298,16 +329,23 @@ def _bind(lib):
 
 
 def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
+    """The forward kernel: the tensor-core one where _sm90_eligible
+    holds, else the CUDA-core one."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
     s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
     out = torch.empty_like(q)
+    sm90 = _sm90_eligible(q, k, v, out, layout)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     strides = (ctypes.c_int64 * 15)(
         *_seq_strides(q, layout), *_seq_strides(k, layout),
         *_seq_strides(v, layout), *_seq_strides(out, layout),
         *_bias_strides(bias))
-    fn = _bind(registry.library(_KERNEL))
+    if sm90:
+        fn = _bind(registry.library(_KERNEL_SM90),
+                   "pt_flash_attention_fwd_sm90")
+    else:
+        fn = _bind(registry.library(_KERNEL), "pt_flash_attention_fwd")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(),
@@ -316,9 +354,11 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
                  int(bool(causal)), s0, s1, t,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{_KERNEL_SM90 if sm90 else _KERNEL} launch "
+                           f"failed with CUDA error {err}")
     registry.count_launch(_KERNEL)
+    if sm90:
+        registry.count_launch(_KERNEL_SM90)
     return (out, lse) if return_lse else out
 
 
@@ -334,6 +374,8 @@ def _bind_bwd(lib, symbol):
 
 def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                 dropout, want_dbias):
+    """The dq kernel (with its di pre-pass), then a dk/dv kernel: the
+    tensor-core one where _sm90_eligible holds, else the CUDA-core one."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
     s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
     dout = dout.to(q.dtype).contiguous()
@@ -346,6 +388,7 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                          f"[{B}, {H}, {Sq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     lse = lse.contiguous()
+    sm90 = _sm90_eligible(q, k, v, dout, layout)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     want_dbias = bool(want_dbias) and bias is not None
@@ -354,7 +397,6 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
     strides = (ctypes.c_int64 * 27)(
         *(st for x in (q, k, v, out, dout, dq, dk, dv)
           for st in _seq_strides(x, layout)), *_bias_strides(bias))
-    lib = registry.library(_KERNEL_DQ)
     ptr = (lambda x: None if x is None else x.data_ptr())
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), ptr(bias), lse.data_ptr(), di.data_ptr(),
@@ -363,12 +405,39 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
             int(bool(causal)), s0, s1, t)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        for name, symbol in ((_KERNEL_DQ, "pt_flash_attention_bwd_dq"),
-                             (_KERNEL_DKV, "pt_flash_attention_bwd_dkv")):
+        for names, symbol in (
+                ((_KERNEL_DQ,), "pt_flash_attention_bwd_dq"),
+                ((_KERNEL_DKV, _KERNEL_DKV_SM90),
+                 "pt_flash_attention_bwd_dkv_sm90") if sm90 else
+                ((_KERNEL_DKV,), "pt_flash_attention_bwd_dkv")):
+            lib = registry.library(names[-1])
             err = _bind_bwd(lib, symbol)(*args, stream)
             if err != 0:
-                raise RuntimeError(f"{name} launch failed with CUDA error "
-                                   f"{err}")
-            registry.count_launch(name)
+                raise RuntimeError(f"{names[-1]} launch failed with CUDA "
+                                   f"error {err}")
+            for name in names:
+                registry.count_launch(name)
     dbias = _reduce_bias_grad(ds, bias) if want_dbias else None
     return dq, dk, dv, dbias
+
+
+def wgmma_probe(a, b):
+    """One m64n64k16 wgmma product of each kind the tensor-core kernels
+    use, on the card: a, b [64, 64] bf16 CUDA tensors; returns
+    (a . b^T from shared memory, bf16(a . b^T) . b with A from registers)
+    in float32. For the card tests."""
+    if a.shape != (64, 64) or b.shape != (64, 64) or a.device.type != \
+            "cuda" or a.dtype != torch.bfloat16 or b.dtype != a.dtype:
+        raise ValueError("wgmma_probe takes two [64, 64] bf16 CUDA tensors")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    r = torch.empty_like(c)
+    fn = registry.library(_KERNEL_SM90).pt_fa_sm90_wgmma_probe
+    p = ctypes.c_void_p
+    fn.argtypes, fn.restype = [p] * 5, ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), r.data_ptr(),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma probe failed with CUDA error {err}")
+    return c, r

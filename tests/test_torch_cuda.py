@@ -1,11 +1,12 @@
 """Card-only tests of paddle_tpu_torch: each kernel against its plain
 PyTorch version on the GPU (flash-attention forward with and without
-dropout, its dq and dk/dv backward, Adam, SGD, quantized_matmul int8
-and bf16, every tuned_matmul variant), a tiny Transformer forward on the
-card against the same Program on the CPU (float32 and int8 mode), three
-training steps of it, and LeNet's SGD step with its updates in the
-kernel against the same step with them plain. They skip where torch
-sees no CUDA device.
+dropout, its dq and dk/dv backward, the bf16 tensor-core forward and
+dk/dv kernels and one wgmma product of each kind they use, Adam, SGD,
+quantized_matmul int8 and bf16, every tuned_matmul variant), a tiny
+Transformer forward on the card against the same Program on the CPU
+(float32 and int8 mode), three training steps of it, and LeNet's SGD
+step with its updates in the kernel against the same step with them
+plain. They skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -177,6 +178,126 @@ def test_backward_matches_plain_on_card(cuda, dtype, dropout, layout, B, H,
         assert torch.isfinite(g.float()).all(), name
         torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol,
                                    msg=name)
+
+
+# the tensor-core kernels (bf16): chip_smoke.py's case list
+_SM90_CASES = [
+    # (layout, B, H, Sq, Sk, D, bias, causal, pad_all)
+    ("bshd", 4, 8, 256, 256, 64, "key_pad", False, False),
+    ("bshd", 4, 8, 256, 256, 64, "key_pad", True, False),
+    ("bshd", 4, 8, 192, 256, 64, "key_pad", False, False),
+    ("bhsd", 2, 8, 128, 160, 64, "per_head", True, False),
+    ("bshd", 3, 4, 77, 77, 96, "key_pad", True, False),
+    ("bhsd", 2, 3, 50, 130, 128, "key_pad", False, False),
+    ("bshd", 4, 8, 128, 128, 64, "key_pad", False, True),
+    ("bshd", 32, 8, 256, 256, 64, "key_pad", False, False),
+    ("bshd", 32, 8, 256, 256, 64, "key_pad", True, False),
+    ("bshd", 96, 8, 128, 128, 64, "key_pad", False, False),
+    ("bshd", 96, 8, 128, 128, 64, "key_pad", True, False),
+]
+
+
+def test_sm90_wgmma_probe_matches_matmul_on_card(cuda):
+    """One m64n64k16 product of each kind the tensor-core kernels use,
+    through TMA's 128-byte swizzle: A.B^T with both operands K-major in
+    shared memory, then bf16(A.B^T).B with A from registers and B
+    MN-major, against torch.matmul of the same bf16 values in float32
+    (sums in another order only)."""
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rng.standard_normal((64, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(2))
+    c, r = pfa.wgmma_probe(a, b)
+    torch.cuda.synchronize()
+    want_c = a.float() @ b.float().T
+    torch.testing.assert_close(c, want_c, rtol=1e-5, atol=1e-4)
+    want_r = c.to(torch.bfloat16).float() @ b.float()
+    torch.testing.assert_close(r, want_r, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dropout", _DROP, ids=_DROP_IDS)
+@pytest.mark.parametrize("layout,B,H,Sq,Sk,D,bias,causal,pad_all",
+                         _SM90_CASES)
+def test_sm90_forward_matches_plain_on_card(cuda, dropout, layout, B, H, Sq,
+                                            Sk, D, bias, causal, pad_all):
+    q, k, v, b = _inputs(cuda, torch.bfloat16, layout, B, H, Sq, Sk, D, bias,
+                         pad_all, seed=3)
+    assert pfa._sm90_eligible(q, k, v, q, layout)
+    kreg.reset_counts()
+    out, lse = pfa.fused_attention_forward(q, k, v, b, D ** -0.5, causal,
+                                           layout, return_lse=True,
+                                           dropout=dropout)
+    torch.cuda.synchronize()
+    counts = kreg.launches()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_fwd_sm90"] == 1
+    ref, ref_lse = pfa.fused_attention_plain(q, k, v, b, D ** -0.5, causal,
+                                             layout, return_lse=True,
+                                             dropout=dropout)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dropout", _DROP, ids=_DROP_IDS)
+@pytest.mark.parametrize("layout,B,H,Sq,Sk,D,bias,causal,pad_all",
+                         _SM90_CASES)
+def test_sm90_dkv_matches_plain_on_card(cuda, dropout, layout, B, H, Sq, Sk,
+                                        D, bias, causal, pad_all):
+    q, k, v, b = _inputs(cuda, torch.bfloat16, layout, B, H, Sq, Sk, D, bias,
+                         pad_all, seed=4)
+    # dO from a seed of its own, as q, k, v are made (not from the global
+    # CUDA generator, whose draw depends on the tests run before)
+    dout = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    scale = D ** -0.5
+    out, lse = pfa.fused_attention_plain(q, k, v, b, scale, causal, layout,
+                                         return_lse=True, dropout=dropout)
+    kreg.reset_counts()
+    got = pfa.fused_attention_backward(q, k, v, b, out, lse, dout, scale,
+                                       causal, layout, dropout=dropout)
+    torch.cuda.synchronize()
+    counts = kreg.launches()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_bwd_dkv_sm90"] == 1
+    ref = pfa.fused_attention_backward_plain(q, k, v, b, out, lse, dout,
+                                             scale, causal, layout,
+                                             dropout=dropout)
+    for name, g, r in zip(("dk", "dv"), got[1:3], ref[1:3]):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert r.abs().max() > 0, name                 # not vacuous
+        torch.testing.assert_close(g.float(), r.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL, msg=name)
+
+
+def test_misaligned_bf16_takes_the_cuda_core_kernels_on_card(cuda):
+    """A bf16 call whose q starts 2 bytes past a 16-byte boundary breaks
+    TMA's rules: the CUDA-core kernels run it, and agree with the plain
+    version."""
+    B, S, H, D = 2, 64, 4, 64
+    n = B * S * H * D
+    base = torch.randn(n + 1, device=cuda).to(torch.bfloat16)
+    q = base[1:].view(B, S, H, D)
+    _, k, v, b = _inputs(cuda, torch.bfloat16, "bshd", B, H, S, S, D,
+                         "key_pad", False)
+    assert not pfa._sm90_eligible(q, k, v, k, "bshd")
+    kreg.reset_counts()
+    out, lse = pfa.fused_attention_forward(q, k, v, b, D ** -0.5, False,
+                                           "bshd", return_lse=True)
+    dq, dk, dv, _ = pfa.fused_attention_backward(
+        q, k, v, b, out, lse, out, D ** -0.5, False, "bshd")
+    torch.cuda.synchronize()
+    counts = kreg.launches()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_fwd_sm90"] == 0
+    assert counts["flash_attention_bwd_dkv_sm90"] == 0
+    ref = pfa.fused_attention_plain(q, k, v, b, D ** -0.5, False, "bshd")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
 
 
 def _ulps(a, b):
