@@ -11,8 +11,12 @@
    plain PyTorch version on the card: the flash-attention forward
    (without and with attention dropout), its dq and dk/dv backward
    kernels (float32 through the CUDA-core kernels; bf16 through the
-   tensor-core forward and dk/dv kernels, as the entry points choose,
-   and again through the CUDA-core ones), Adam, and SGD (0 ulp at
+   tensor-core forward, dq (di fused in) and dk/dv kernels, as the entry
+   points choose, and again through the CUDA-core ones; head dims 192
+   and 256 through the CUDA-core kernels in both dtypes; the bf16
+   gradients of rows whose keys are all padded against
+   flash_attention.bf16_backward_bound), one call under
+   PT_KERNEL_DENY=flash_attention (no launch), Adam, and SGD (0 ulp at
    LeNet's six parameter shapes, at lengths 1, 127, 129 and 513, and
    over the 255 parameter shapes of Transformer-base). Then times
    kernel, plain version and the library yardstick: the forward at the
@@ -31,8 +35,8 @@
    contrib.mixed_precision.decorate(AdamOptimizer(2e-4)): bf16 compute,
    float32 master weights) takes 5 steps on one ragged batch of
    96 x 128. Checks a finite, falling loss, exactly 18 forward, 18 dq,
-   18 dk/dv (all 18 forward and 18 dk/dv launches the tensor-core
-   kernels) and 99 Adam launches per step (the registry routes the 99
+   18 dk/dv (all of them the tensor-core kernels) and 99 Adam launches
+   per step (the registry routes the 99
    parameters of at least PT_KERNEL_MIN_NUMEL = 65536 elements to the
    kernel and lowers the other 156; no GEMM kernel: none is opted in),
    the registry's decisions, and one step from a copy of the initial
@@ -46,8 +50,12 @@
    it divides. Then tuning.variants.search_variants on the card at the
    serving forward's most frequent GEMM (M=8192, N=512, K=512), the path
    of the layer_norm and dropout_residual epilogues, and the device
-   times of every GEMM kernel (the search's winning tiles), its plain
-   version and its library yardstick at the four serving shapes.
+   times of every GEMM kernel (the search's winning tiles; the quantized
+   GEMM split into its pre-pass and its GEMM), its plain version and its
+   library yardstick at the four serving shapes. With
+   `--baseline DIR` (an earlier checkout of the repo, e.g. unpacked with
+   git archive) the quantized GEMM of that checkout is built and timed
+   in turns with this one's.
 7. Serving in the GEMM modes: the batches of phase 4 again with every
    one of the 97 mul ops through a GEMM kernel:
    PT_KERNEL_QUANT_MATMUL=int8, =bf16, and with the search's float32
@@ -234,6 +242,8 @@ _CASES = [
      False),
     ("ragged S=77, D=96", "bshd", 3, 4, 77, 77, 96, "key_pad", True,
      False),
+    ("no bias, ragged S=77", "bhsd", 3, 4, 77, 77, 64, "none", False,
+     False),
     ("ragged Sq=50 Sk=130, D=128", "bhsd", 2, 3, 50, 130, 128, "key_pad",
      False, False),
     ("rows with all keys padded", "bshd", 4, 8, 128, 128, 64, "key_pad",
@@ -246,6 +256,11 @@ _CASES = [
      False, False),
     ("training shape, causal", "bshd", TRAIN_B, 8, TRAIN_S, TRAIN_S, 64,
      "key_pad", True, False),
+    # head dims above 128 take the CUDA-core kernels in both dtypes
+    ("head dim 256, causal", "bshd", 2, 4, 128, 128, 256, "key_pad", True,
+     False),
+    ("head dim 192, Sq != Sk", "bhsd", 2, 4, 96, 160, 192, "per_head",
+     False, False),
 ]
 # attention dropout: (seed word 0, seed word 1, keep threshold t);
 # t = 230 is dropout 0.1, the training path's
@@ -278,25 +293,46 @@ def _cuda_core_kernels(fa):
         fa._sm90_eligible = eligible
 
 
+def _bound_check(torch, fa, got, q, k, v, bias, out, lse, g, scale, causal,
+                 layout, drop):
+    """{grad: (max |err - bound| excess, max |err|)} of bf16 dq, dk, dv
+    against flash_attention.bf16_backward_bound: what a correct bf16
+    kernel meets where a row's keys are all padded (p = 1 on every key,
+    |ds| in the tens)."""
+    exact, bound = fa.bf16_backward_bound(q, k, v, bias, out, lse, g, scale,
+                                          causal, layout, drop)
+    res = {}
+    for name, a, e, b in zip(("dq", "dk", "dv"), got, exact, bound):
+        err = (a.double() - e).abs()
+        res[name] = ((err - b).max().item(), err.max().item())
+    return res
+
+
 def kernel_phase(torch, dev):
     """Every attention kernel against its plain version over the case
     list, without and with dropout: float32 through the CUDA-core
-    kernels, bf16 through the tensor-core forward and dk/dv kernels (the
-    wrappers' choice, checked by the launch counters) and again through
-    the CUDA-core ones; returns {(kernel, dtype, case): max |err|}."""
+    kernels, bf16 through the tensor-core forward, dq and dk/dv kernels
+    (the wrappers' choice, checked by the launch counters) and again
+    through the CUDA-core ones; head dims above 128 through the CUDA-core
+    kernels in both dtypes. bf16 gradients of the case whose rows have
+    all keys padded are held to flash_attention.bf16_backward_bound, the
+    rest to BF16_TOL. Then one call under PT_KERNEL_DENY=flash_attention
+    launches nothing. Returns {(kernel, dtype, case): max |err|}."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import registry as kreg
     worst = {}
     for dtype, tol, btol in ((torch.float32, F32_TOL, BWD_F32_TOL),
                              (torch.bfloat16, BF16_TOL, BF16_TOL)):
         dname = _dname(torch, dtype)
-        designs = ("simt",) if dtype == torch.float32 else ("sm90", "simt")
         for (name, layout, B, H, Sq, Sk, D, bias_kind, causal,
              pad_all) in _CASES:
             q, k, v, bias = _attn_inputs(torch, dev, dtype, layout, B, H,
                                          Sq, Sk, D, bias_kind, pad_all)
+            eligible = fa._sm90_eligible(q, k, v, q, layout)
+            designs = ("sm90", "simt") if eligible else ("simt",)
             scale = D ** -0.5
             want_dbias = bias_kind == "per_head"
+            bounded = dtype == torch.bfloat16 and pad_all
             for drop in [None] + _DROPOUTS:
                 tag = "" if drop is None else f" drop t={drop[2]}"
                 ref, ref_lse = fa.fused_attention_plain(
@@ -324,12 +360,15 @@ def kernel_phase(torch, dev):
                     c = kreg.launches()
                     _require(c["flash_attention_fwd"] == 1
                              and c["flash_attention_fwd_sm90"] == sm90
+                             and c["flash_attention_bwd_dq"] == 1
+                             and c["flash_attention_bwd_dq_sm90"] == sm90
                              and c["flash_attention_bwd_dkv"] == 1
                              and c["flash_attention_bwd_dkv_sm90"] == sm90,
                              f"{dname} {name}{tag}: launches {c}, want the "
                              f"{design} kernels")
                     suffix = "_sm90" if sm90 else ""
                     fwd_k = "flash_attention_fwd" + suffix
+                    dq_k = "flash_attention_bwd_dq" + suffix
                     dkv_k = "flash_attention_bwd_dkv" + suffix
                     err, ok = _close(torch, out, ref, tol)
                     lerr, lok = _close(torch, lse, ref_lse, tol)
@@ -346,18 +385,52 @@ def kernel_phase(torch, dev):
                         if r is None:
                             continue
                         errs[gname], ok = _close(torch, a, r, btol)
-                        ok = ok and r.abs().max().item() > 0   # not vacuous
+                        ok = (ok or (bounded and gname != "dbias")) and \
+                            r.abs().max().item() > 0   # not vacuous
                         _require(ok, f"flash attention backward {gname} "
                                      f"{dname} {design} {name}{tag} "
                                      f"disagrees with its plain version")
+                    line = " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+                    if bounded:
+                        bd = _bound_check(torch, fa, got, q, k, v, bias, ref,
+                                          ref_lse, g, scale, causal, layout,
+                                          drop)
+                        for gname, (excess, e) in bd.items():
+                            _require(excess <= 0,
+                                     f"{gname} {design} {name}{tag} is "
+                                     f"beyond the bf16 bound by {excess:.3e}")
+                        line += " (vs exact: " + " ".join(
+                            f"{k}={e:.3e} bound-excess={x:.2e}"
+                            for k, (x, e) in bd.items()) + \
+                            "; bf16_backward_bound, not BF16_TOL)"
+                    else:
+                        line += f" tol={btol:g}"
                     print(f"  bwd vs plain [{dname:8s} {design:4s}] "
-                          f"{name + tag:36s} "
-                          + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-                          + f" tol={btol:g} ok")
-                    key = ("flash_attention_bwd_dq", dname, name + tag)
-                    worst[key] = max(worst.get(key, 0.0), errs["dq"])
+                          f"{name + tag:36s} {line} ok")
+                    worst[(dq_k, dname, name + tag)] = errs["dq"]
                     worst[(dkv_k, dname, name + tag)] = \
                         max(errs["dk"], errs["dv"])
+    # the registry's deny list: the plain version, no launch
+    os.environ["PT_KERNEL_DENY"] = "flash_attention"
+    try:
+        q, k, v, bias = _attn_inputs(torch, dev, torch.bfloat16, "bshd", 2,
+                                     8, 128, 128, 64, "key_pad")
+        kreg.reset_counts()
+        kreg.reset_stats()
+        out, lse = fa.fused_attention_forward(q, k, v, bias, 0.125, False,
+                                              "bshd", return_lse=True)
+        fa.fused_attention_backward(q, k, v, bias, out, lse, out, 0.125,
+                                    False, "bshd")
+        torch.cuda.synchronize()
+        stats = kreg.dispatch_stats()["per_kernel"]
+        print(f"  PT_KERNEL_DENY=flash_attention: launches "
+              f"{sum(kreg.launches().values())}, decisions {stats}")
+        _require(not any(kreg.launches().values()) and stats == {
+            "flash_attention": {"denied": 2}},
+            "a denied attention call launched a kernel")
+    finally:
+        os.environ.pop("PT_KERNEL_DENY", None)
+        kreg.reset_stats()
     return worst
 
 
@@ -461,15 +534,19 @@ def time_attention(torch, dev, card):
 def _device_ms(torch, fn, iters, keys):
     """Device time per call of fn, summed over the CUDA kernels whose
     name holds each key, from torch.profiler over `iters` calls: the
-    median of three sessions, whose readings are printed (on the card a
-    session once read a GEMM at 0.0000 ms, and once sdpa's forward and
-    backward at half the others' time)."""
+    median of three sessions that saw each key's kernels, all readings
+    printed. On the card a session sometimes drops a kernel's events (a
+    GEMM once read 0.0000 ms in two of three sessions, and once sdpa's
+    forward and backward half the others' time), so a session that reads
+    0 for a key does not count for it, and up to eight are run to find
+    three that do."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     reads = {k: [] for k in keys}
-    for _ in range(3):
+    seen = {k: [] for k in keys}
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -484,10 +561,15 @@ def _device_ms(torch, fn, iters, keys):
                     got[k] += e.self_device_time_total / 1e3 / iters
         for k in keys:
             reads[k].append(got[k])
+            if got[k] > 0:
+                seen[k].append(got[k])
+        if all(len(v) >= 3 for v in seen.values()):
+            break
     print("    profiler sessions (ms): " + "; ".join(
         f"{k or 'every kernel'} " + ", ".join(f"{x:.4f}" for x in r)
         for k, r in reads.items()))
-    return {k: sorted(r)[1] for k, r in reads.items()}
+    return {k: sorted(v)[len(v) // 2] if v else 0.0
+            for k, v in seen.items()}
 
 
 def _bound(flops, nbytes, peak_flops, peak_bw):
@@ -499,7 +581,8 @@ def time_training_attention(torch, dev, card):
     """Forward (with dropout, returning lse) and backward kernels at the
     training shape in bf16, key-padding bias, without and with the
     causal mask, each attention kernel in both designs (tensor-core, the
-    main path's, and CUDA-core): kernel, plain and library times and the
+    main path's, and CUDA-core; the CUDA-core dq with its di pre-pass, the
+    tensor-core one with di fused in): kernel, plain and library times and the
     bounds. Kernel and library times are device time (torch.profiler):
     each kernel's own, and every CUDA kernel that sdpa launches; the
     events figures of earlier runs are printed on their own line."""
@@ -522,9 +605,11 @@ def time_training_attention(torch, dev, card):
                                               "bshd", return_lse=True,
                                               dropout=drop)
         t = {}
-        for design, fkey, dkey in (("sm90", "fa_fwd_sm90_kernel",
-                                    "dkv_sm90_kernel"),
-                                   ("simt", "fa_fwd_kernel", "dkv_kernel")):
+        for design, fkey, qkeys, dkey in (
+                ("sm90", "fa_fwd_sm90_kernel", ("dq_sm90_kernel",),
+                 "dkv_sm90_kernel"),
+                ("simt", "fa_fwd_kernel", ("di_kernel", "dq_kernel"),
+                 "dkv_kernel")):
             def fwd_call():
                 return fa._launch(q, k, v, bias, scale, causal, "bshd",
                                   True, drop)
@@ -538,10 +623,10 @@ def time_training_attention(torch, dev, card):
                 t[design] = {
                     "fwd": _device_ms(torch, fwd_call, 20, (fkey,))[fkey],
                     "fwd_ev": _time_ms(fwd_call),
-                    "bwd": _device_ms(torch, bwd_call, 20,
-                                      ("di_kernel", "dq_kernel", dkey)),
+                    "bwd": _device_ms(torch, bwd_call, 20, qkeys + (dkey,)),
                     "bwd_ev": _time_ms(bwd_call)}
             t[design]["dkv"] = t[design]["bwd"][dkey]
+            t[design]["dq"] = sum(t[design]["bwd"][k] for k in qkeys)
         fwd_plain = _time_ms(lambda: fa.fused_attention_plain(
             q, k, v, bias, scale, causal, "bshd", return_lse=True,
             dropout=drop))
@@ -575,17 +660,18 @@ def time_training_attention(torch, dev, card):
                          peak_bf16, peak_bw)
         kb, kby = _bound(4 * mm, 6 * el * 2 + bias.numel() * 4 + rows * 8,
                          peak_bf16, peak_bw)
-        dq_bwd = t["sm90"]["bwd"]
+        simt_bwd = t["simt"]["bwd"]
         fwd_row = {"plain_ms": fwd_plain, "library_ms": lib_f,
                    "bound_ms": fb, "bound_by": fby}
+        dq_row = {"plain_ms": bwd_plain, "library_ms": lib_fb - lib_f,
+                  "bound_ms": qb, "bound_by": qby}
         dkv_row = {"plain_ms": bwd_plain, "library_ms": lib_fb - lib_f,
                    "bound_ms": kb, "bound_by": kby}
         res[causal] = {
             "fwd": {"ms": t["simt"]["fwd"], **fwd_row},
             "fwd_sm90": {"ms": t["sm90"]["fwd"], **fwd_row},
-            "dq": {"ms": dq_bwd["di_kernel"] + dq_bwd["dq_kernel"],
-                   "plain_ms": bwd_plain, "library_ms": lib_fb - lib_f,
-                   "bound_ms": qb, "bound_by": qby},
+            "dq": {"ms": t["simt"]["dq"], **dq_row},
+            "dq_sm90": {"ms": t["sm90"]["dq"], **dq_row},
             "dkv": {"ms": t["simt"]["dkv"], **dkv_row},
             "dkv_sm90": {"ms": t["sm90"]["dkv"], **dkv_row}}
         print(f"  training shape B={B} S={S} H={H} D={D} bf16 dropout 0.1 "
@@ -594,17 +680,19 @@ def time_training_attention(torch, dev, card):
               f"ms, CUDA-core kernel {t['simt']['fwd']:.4f} ms, plain "
               f"{fwd_plain:.4f} ms (events), sdpa {lib_f:.4f} ms, bound "
               f"{fb:.4f} ms ({fby}; {2 * mm / 1e9:.3f} GFLOP)")
-        print(f"    backward: di {dq_bwd['di_kernel']:.4f} + dq "
-              f"{dq_bwd['dq_kernel']:.4f} ms (bound {qb:.4f}, {qby}); dk/dv "
+        print(f"    backward: dq tensor-core (di fused) "
+              f"{t['sm90']['dq']:.4f} ms, CUDA-core di "
+              f"{simt_bwd['di_kernel']:.4f} + dq "
+              f"{simt_bwd['dq_kernel']:.4f} ms (bound {qb:.4f}, {qby}); dk/dv "
               f"tensor-core {t['sm90']['dkv']:.4f} ms, CUDA-core "
               f"{t['simt']['dkv']:.4f} ms (bound {kb:.4f}, {kby}); plain "
               f"backward {bwd_plain:.4f} ms (events); sdpa backward "
               f"{lib_fb - lib_f:.4f} ms (fwd+bwd {lib_fb:.4f} - fwd)")
         print(f"    events over a loop of calls, as in earlier runs: "
               f"forward tensor-core {t['sm90']['fwd_ev']:.4f} ms, CUDA-core "
-              f"{t['simt']['fwd_ev']:.4f} ms; both backward kernels with "
-              f"the tensor-core dk/dv {t['sm90']['bwd_ev']:.4f} ms, with "
-              f"the CUDA-core one {t['simt']['bwd_ev']:.4f} ms; sdpa forward "
+              f"{t['simt']['fwd_ev']:.4f} ms; the backward's kernels, "
+              f"tensor-core {t['sm90']['bwd_ev']:.4f} ms, CUDA-core "
+              f"{t['simt']['bwd_ev']:.4f} ms; sdpa forward "
               f"{lib_f_ev:.4f} ms, sdpa backward {lib_fb_ev - lib_f_ev:.4f} "
               f"ms (fwd+bwd {lib_fb_ev:.4f})")
     return res
@@ -1035,16 +1123,82 @@ def _call_device_ms(torch, fn, iters=10):
     return _device_ms(torch, fn, iters, ("",))[""]
 
 
-def time_gemms(torch, dev, card, winners):
+def _mm_f32_out(torch, xb, yb):
+    """torch.mm(xb, yb, out_dtype=torch.float32) where this torch has the
+    overload (bf16 operands, float32 out), else None."""
+    try:
+        torch.mm(xb[:128, :128], yb[:128, :128], out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as exc:
+        print(f"  torch.mm(out_dtype=float32) refused: "
+              f"{str(exc).splitlines()[0][:100]}")
+        return None
+    return lambda: torch.mm(xb, yb, out_dtype=torch.float32)
+
+
+def _baseline_qmm(torch, baseline):
+    """call(x, y, mode) of the quantized GEMM of an earlier checkout of
+    this repo (its paddle_tpu_torch/csrc/quantized_matmul.cu, the same C
+    interface, the mma.sync design up to PR 5), built with the port's
+    nvcc flags into _build/baseline/: to time both designs in one run."""
+    import ctypes
+    from paddle_tpu_torch.kernels import registry as kreg
+    src = os.path.join(baseline, "paddle_tpu_torch", "csrc",
+                       "quantized_matmul.cu")
+    out_dir = kreg.BUILD_DIR / "baseline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libquantized_matmul_baseline.so"
+    res = subprocess.run([kreg.nvcc_path(), *kreg.NVCC_FLAGS, "-o", str(so),
+                          src], capture_output=True, text=True)
+    _require(res.returncode == 0, f"the baseline's build failed:\n"
+                                  f"{res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(str(so)).pt_quantized_matmul
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p, p, p]
+    fn.restype = i
+
+    def call(x, y, mode):
+        M, K = x.shape
+        N = y.shape[1]
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=x.device)
+
+        out = empty((M, N), torch.float32)
+        sa = sb = None
+        if mode == "int8":
+            wa, wb = empty((M, K), torch.int8), empty((N, K), torch.int8)
+            sa = empty((M // 128, K // 128), torch.float32)
+            sb = empty((K // 128, N // 128), torch.float32)
+        else:   # the baseline reads only a bf16 x as it is
+            wa = None if x.dtype == torch.bfloat16 \
+                else empty((M, K), torch.bfloat16)
+            wb = empty((N, K), torch.bfloat16)
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
+                 int(y.dtype == torch.bfloat16), M, N, K,
+                 0 if mode == "int8" else 1, ptr(wa), ptr(wb), ptr(sa),
+                 ptr(sb), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        _require(err == 0, f"baseline quantized_matmul failed: {err}")
+        return out
+    return call
+
+
+def time_gemms(torch, dev, card, winners, baseline=None):
     """Each GEMM kernel at the four serving shapes (float32 operands, as
     the serving forward gives them): kernel, plain and library device
-    times per call (all the kernels each launches) and the bound. The
-    tuned kernels run the search's winning tiles; the layer_norm epilogue
-    only where N is a winner's bn. Returns {(kernel, M, K, N): row}."""
+    times per call (all the kernels each launches; the quantized GEMM
+    split into its pre-pass and its GEMM) and the bound. The tuned
+    kernels run the search's winning tiles; the layer_norm epilogue only
+    where N is a winner's bn. With `baseline` (an earlier checkout), the
+    quantized GEMM of that checkout too, in turns with this one (baseline,
+    this, this, baseline), each result against this one's (int8 bit-equal).
+    Returns {(kernel, M, K, N): row}."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import quantized_matmul as qm
     from paddle_tpu_torch.tuning import variants as V
     peak_f32, peak_bf16, peak_bw, peak_i8 = _peaks(card)
+    base = _baseline_qmm(torch, baseline) if baseline else None
     out = {}
     for M, K, N, per_fwd in SERVE_GEMMS:
         x, y = _gemm_inputs(torch, dev, M, K, N, 5 * M + K)
@@ -1052,19 +1206,24 @@ def time_gemms(torch, dev, card, winners):
         mnk = 2 * M * N * K
         io = 4 * (M * K + K * N + M * N)
         xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+        mm32 = _mm_f32_out(torch, xb, yb)
         rows = {
             "quantized_matmul_int8": (
                 lambda: qm.quantized_matmul(x, y, mode="int8"),
                 lambda: qm.quantized_matmul_plain(x, y, "int8"),
                 _int_mm_call(torch, x, y),
                 "torch._int_mm on the quantized operands (the int8 "
-                "product alone: not the same function)",
+                "product alone: no quantization, no scales, int32 out; not "
+                "the same function)",
                 mnk, io, peak_i8),
             "quantized_matmul_bf16": (
                 lambda: qm.quantized_matmul(x, y, mode="bf16"),
                 lambda: qm.quantized_matmul_plain(x, y, "bf16"),
-                lambda: torch.matmul(xb, yb),
-                "torch.matmul of the bf16 operands (bf16 out)",
+                mm32 or (lambda: torch.matmul(xb, yb)),
+                "torch.mm(out_dtype=float32) of the bf16 operands (the "
+                "float32 output; leaves out the casts of x and y)"
+                if mm32 else "torch.matmul of the bf16 operands (leaves "
+                "out the casts and writes bf16, half the output bytes)",
                 mnk, io, peak_bf16),
         }
         for ep, name in (("none", "tuned_matmul"),
@@ -1097,7 +1256,23 @@ def time_gemms(torch, dev, card, winners):
                 lib, what, mnk + extra_f, io + extra_b, peak_f32)
         for name, (kern, plain, lib, what, flops, nbytes, peak) in \
                 rows.items():
-            ms = _call_device_ms(torch, kern)
+            quant = name.startswith("quantized_matmul")
+            old_a = mode = None
+            if quant and base is not None:
+                mode = name.rsplit("_", 1)[1]
+                got, ref = base(x, y, mode), kern()
+                torch.cuda.synchronize()
+                same = bool(torch.equal(got, ref)) if mode == "int8" else \
+                    _rel(torch, got, ref) <= GEMM_RTOL
+                _require(same, f"baseline {name} {M}x{K}x{N} disagrees")
+                del got, ref
+                old_a = _call_device_ms(torch, lambda: base(x, y, mode))
+            if quant:
+                split = _device_ms(torch, kern, 10,
+                                   ("", "pack_both", "qmm_sm90_kernel"))
+                ms = split[""]
+            else:
+                ms = _call_device_ms(torch, kern)
             events_ms = _time_ms(kern, iters=10, warmup=2)
             plain_ms = _call_device_ms(torch, plain, iters=5)
             lib_ms = None if lib is None else _call_device_ms(torch, lib)
@@ -1106,9 +1281,24 @@ def time_gemms(torch, dev, card, winners):
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": by, "per_forward": per_fwd,
                 "library": what, "events_ms": events_ms}
+            extra = ""
+            if quant:
+                extra = (f" = pre-pass {split['pack_both']:.4f} + GEMM "
+                         f"{split['qmm_sm90_kernel']:.4f}")
+            if name == "quantized_matmul_bf16" and mm32 is not None:
+                mm_ms = _call_device_ms(torch, lambda: torch.matmul(xb, yb))
+                extra += (f"; torch.matmul of the bf16 operands (bf16 out) "
+                          f"{mm_ms:.4f} ms")
+            if old_a is not None:
+                new_b = _call_device_ms(torch, kern)
+                old_b = _call_device_ms(torch, lambda: base(x, y, mode))
+                out[(name, M, K, N)]["baseline_ms"] = (old_a + old_b) / 2
+                extra += (f"; the baseline checkout's design (mma.sync) "
+                          f"{old_a:.4f} / {old_b:.4f} ms around this one's "
+                          f"{ms:.4f} / {new_b:.4f} ms (device, in turns)")
             print(f"  {name} {M}x{K}x{N} (x{per_fwd} a forward): kernel "
-                  f"{ms:.4f} ms device ({events_ms:.4f} ms a call on the "
-                  f"host's clock), plain {plain_ms:.4f} ms, library "
+                  f"{ms:.4f} ms device{extra} ({events_ms:.4f} ms a call on "
+                  f"the host's clock), plain {plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
                   f"[{what}], bound {bound:.4f} ms ({by}: "
                   f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:g} T/s, "
@@ -1301,6 +1491,11 @@ def training_phase(torch, dev, built):
              "the training program is not bench.py's Transformer-base")
     _require(len(routed) == 99, f"{len(routed)} parameters reach the "
                                 f"floor, want 99")
+    # the attention biases are masks built from the feed: no grad op
+    # binds BiasQK@GRAD, so no dq call writes the per-element ds
+    dbias = [op for op in block.ops if op.type == "fused_attention_grad"
+             and any(op.output("BiasQK@GRAD"))]
+    print(f"  attention grad ops binding BiasQK@GRAD: {len(dbias)}")
 
     exe = pt.Executor(pt.CUDAPlace(0))
     scope = pt.Scope()
@@ -1349,6 +1544,7 @@ def training_phase(torch, dev, built):
     want.update({"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
                  "flash_attention_bwd_dkv": 18,
                  "flash_attention_fwd_sm90": 18,
+                 "flash_attention_bwd_dq_sm90": 18,
                  "flash_attention_bwd_dkv_sm90": 18,
                  "fused_adam": len(routed)})
     for i, (c, d) in enumerate(zip(per_step, decisions)):
@@ -1356,6 +1552,9 @@ def training_phase(torch, dev, built):
         _require(d.get("fused_adam") == {"custom": len(routed),
                                          "lowered": len(lowered)},
                  f"step {i + 1}: fused_adam decisions {d.get('fused_adam')}")
+        _require(d.get("flash_attention") == {"custom": 36},
+                 f"step {i + 1}: flash_attention decisions "
+                 f"{d.get('flash_attention')}")
     print(f"  launches per step: {per_step[0]}")
     print(f"  registry decisions per step: {decisions[0]}")
 
@@ -1583,7 +1782,14 @@ def mnist_phase(torch, dev, card):
     return sgd_launches, shapes
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="an earlier checkout of this repo: time its "
+                         "quantized GEMM beside this one's in the GEMM times "
+                         "phase")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1637,8 +1843,9 @@ def main():
     stimes = time_sgd(torch, dev, card, shapes, "Transformer-base")
     slenet = time_sgd(torch, dev, card, lenet_shapes, "LeNet")
     for t in (times[False], ttimes[False]["fwd"], ttimes[False]["fwd_sm90"],
-              ttimes[False]["dq"], ttimes[False]["dkv"],
-              ttimes[False]["dkv_sm90"], atimes, stimes, slenet):
+              ttimes[False]["dq"], ttimes[False]["dq_sm90"],
+              ttimes[False]["dkv"], ttimes[False]["dkv_sm90"], atimes, stimes,
+              slenet):
         _require(t["ms"] > 0, "the profiler saw no device time")
 
     print("[serving phase]")
@@ -1653,7 +1860,7 @@ def main():
     print("[variant search]")
     search, search_counts = search_phase(torch, dev)
     print("[GEMM times]")
-    gtimes = time_gemms(torch, dev, card, search["winners"])
+    gtimes = time_gemms(torch, dev, card, search["winners"], args.baseline)
 
     serve_launches = {}
     for mode in ("int8", "bf16", "tuned"):
@@ -1679,9 +1886,9 @@ def main():
     # takes its main path's launches less the tensor-core ones. The
     # CUDA-core forward's main path is float32 serving (its row: the
     # serving phase's launches, times at the serving shape); the
-    # CUDA-core dk/dv runs on no main path (0 launches; its times are
-    # of the bf16 training shape through that design, beside the new
-    # kernel's)
+    # CUDA-core dq (with its di pre-pass) and dk/dv run on no main path
+    # (0 launches; their times are of the bf16 training shape through
+    # that design, beside the new kernels')
     rows = []
     for name, source, replaces, t, err, launches in (
             ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -1698,7 +1905,13 @@ def main():
              "paddle_tpu/kernels/flash_attention.py:426",
              ttimes[False]["dq"],
              worst[("flash_attention_bwd_dq", bf, train)],
-             tcounts["flash_attention_bwd_dq"]),
+             tcounts["flash_attention_bwd_dq"]
+             - tcounts["flash_attention_bwd_dq_sm90"]),
+            ("flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_sm90.cu",
+             "paddle_tpu/kernels/flash_attention.py:426",
+             ttimes[False]["dq_sm90"],
+             worst[("flash_attention_bwd_dq_sm90", bf, train)],
+             tcounts["flash_attention_bwd_dq_sm90"]),
             ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:502",
              ttimes[False]["dkv"],
@@ -1750,8 +1963,9 @@ def main():
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
     for row in rows:
-        _require(row["ms"] > 0, f"{row['name']}: the profiler saw no device "
-                                f"time")
+        _require(row["ms"] > 0 and (row["library_ms"] is None
+                                    or row["library_ms"] > 0),
+                 f"{row['name']}: the profiler saw no device time")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

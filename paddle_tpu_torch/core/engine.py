@@ -117,7 +117,8 @@ def _persistable_outputs(block) -> List[str]:
 
 class Engine:
     def run(self, program, scope: Scope, device: torch.device,
-            feed: Dict[str, np.ndarray], fetch_names: List[str]):
+            feed: Dict[str, np.ndarray], fetch_names: List[str],
+            return_numpy: bool = True):
         block = program.global_block()
         env: Dict[str, torch.Tensor] = {}
         missing = []
@@ -162,5 +163,6 @@ class Engine:
             if n not in env:
                 raise KeyError(f"fetch target {n!r} was not computed by "
                                f"the program")
-            results.append(tensor_to_numpy(env[n]))
+            results.append(tensor_to_numpy(env[n]) if return_numpy
+                           else env[n])
         return results

@@ -33,7 +33,12 @@
 //     loads, bank-skewed strides), then a 4 x D/16 slice of the gradient
 //     from the ds (and p_drop) tile in shared memory.
 //   * causal: dq stops at the diagonal key tile, dk/dv starts at the
-//     diagonal query tile.
+//     diagonal query tile;
+//   * head dims up to 128 stage whole [64][D] tiles (q and dO, or k and v,
+//     once a block); D up to 256 would need 266 KB of such tiles, over
+//     the 227 KB a block may have, so there the products run over two
+//     128-column chunks of every operand, reloaded for each tile (the
+//     gradient's accumulator still spans all of D).
 //   * rows past Sq read lse = +inf (p = 0) and keys past Sk give p = 0,
 //     so any S works; rows whose keys are all padded by a large negative
 //     bias stay finite, as in the plain version.
@@ -93,22 +98,18 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// a[i][j] += A[ra + 16i] . B[rb + 16j] over the padded width, for two
-// pairs of tiles at once (s = A1.B1, dp = A2.B2).
-template <int DPAD>
+// a[i][j] += A[ra + 16i] . B[rb + 16j] over the staged width CH, for two
+// pairs of tiles at once (s += A1.B1, dp += A2.B2).
+template <int CH>
 __device__ __forceinline__ void two_products(const float* A1,
                                              const float* B1,
                                              const float* A2,
                                              const float* B2, int ra,
                                              int rb, float (&s)[4][4],
                                              float (&dp)[4][4]) {
-  constexpr int ST = DPAD + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  constexpr int ST = CH + 4;
 #pragma unroll 2
-  for (int d = 0; d < DPAD; d += 4) {
+  for (int d = 0; d < CH; d += 4) {
     float4 a1[4], b1[4], a2[4], b2[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -136,14 +137,15 @@ __device__ __forceinline__ void two_products(const float* A1,
   }
 }
 
-// acc[i][4g + c] += sum_j P[(ty + 16i)][j] * X[j][64g + 4tx + c]: rows
-// ty + 16i of a [64][64] tile P times a [64][ST] tile X.
-template <int DPAD>
+// acc[i][4(g0 + g) + c] += sum_j P[(ty + 16i)][j] * X[j][64g + 4tx + c]:
+// rows ty + 16i of a [64][64] tile P times a [64][CH + 4] tile X, the
+// columns of chunk g0 / (CH / 64) of a gradient of width DPAD.
+template <int CH, int DPAD>
 __device__ __forceinline__ void tile_times(const float* P, const float* X,
-                                           int ty, int tx,
+                                           int ty, int tx, int g0,
                                            float (&acc)[4][4 * (DPAD / 64)]) {
-  constexpr int ST = DPAD + 4;
-  constexpr int G = DPAD / 64;
+  constexpr int ST = CH + 4;
+  constexpr int G = CH / 64;
 #pragma unroll 2
   for (int j = 0; j < 64; j += 4) {
     float4 pa[4];
@@ -162,10 +164,11 @@ __device__ __forceinline__ void tile_times(const float* P, const float* X,
                             : jj == 1 ? pa[i].y
                             : jj == 2 ? pa[i].z
                                       : pa[i].w;
-          acc[i][4 * g + 0] = fmaf(pij, xb.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pij, xb.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pij, xb.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pij, xb.w, acc[i][4 * g + 3]);
+          float* a = &acc[i][4 * (g0 + g)];
+          a[0] = fmaf(pij, xb.x, a[0]);
+          a[1] = fmaf(pij, xb.y, a[1]);
+          a[2] = fmaf(pij, xb.z, a[2]);
+          a[3] = fmaf(pij, xb.w, a[3]);
         }
       }
     }
@@ -195,9 +198,18 @@ __global__ void __launch_bounds__(NTHREADS) di_kernel(const Params p) {
   if (lane == 0) p.di[r] = acc;
 }
 
+// The staged width of a head dim padded to DPAD: the whole of it up to
+// 128, else 128-column chunks.
+template <int DPAD>
+__host__ __device__ constexpr int chunk() {
+  return DPAD <= 128 ? DPAD : 128;
+}
+
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
-  constexpr int ST = DPAD + 4;
+  constexpr int CH = chunk<DPAD>();
+  constexpr int NC = DPAD / CH;
+  constexpr int ST = CH + 4;
   constexpr int G = DPAD / 64;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][ST]
@@ -211,17 +223,18 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* og = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const uint32_t hseed = fa::head_seed(p.s0, p.s1, static_cast<uint32_t>(bh));
 
-  load_tile<T, DPAD>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
-                     p.q_ss, q0, p.Sq, p.D);
-  load_tile<T, DPAD>(sO,
-                     static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh,
-                     p.do_ss, q0, p.Sq, p.D);
+  if constexpr (NC == 1) {  // q and dO stay for the whole block
+    load_tile<T, CH>(sQ, qg, p.q_ss, q0, p.Sq, p.D);
+    load_tile<T, CH>(sO, og, p.do_ss, q0, p.Sq, p.D);
+  }
   for (int r = tid; r < BQ; r += NTHREADS) {
     const bool in = q0 + r < p.Sq;
     sL[r] = in ? p.lse[bh * p.Sq + q0 + r] : CUDART_INF_F;  // p = 0
@@ -238,13 +251,23 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
   const int n_tiles = (kv_end + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the last tile's sK/sV/sS reads are done
-    load_tile<T, DPAD>(sK, kg, p.k_ss, k0, p.Sk, p.D);
-    load_tile<T, DPAD>(sV, vg, p.v_ss, k0, p.Sk, p.D);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    two_products<DPAD>(sQ, sK, sO, sV, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();  // the last reads of the staged tiles are done
+      if constexpr (NC > 1) {
+        load_tile<T, CH>(sQ, qg + c * CH, p.q_ss, q0, p.Sq, p.D - c * CH);
+        load_tile<T, CH>(sO, og + c * CH, p.do_ss, q0, p.Sq, p.D - c * CH);
+      }
+      load_tile<T, CH>(sK, kg + c * CH, p.k_ss, k0, p.Sk, p.D - c * CH);
+      load_tile<T, CH>(sV, vg + c * CH, p.v_ss, k0, p.Sk, p.D - c * CH);
+      __syncthreads();
+      two_products<CH>(sQ, sK, sO, sV, ty, tx, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i, row = q0 + r;
@@ -269,7 +292,16 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
       }
     }
     __syncthreads();
-    tile_times<DPAD>(sS, sK, ty, tx, acc);
+    // the last chunk of k is staged; the others are loaded again
+#pragma unroll
+    for (int c = NC - 1; c >= 0; --c) {
+      if (c != NC - 1) {
+        __syncthreads();
+        load_tile<T, CH>(sK, kg + c * CH, p.k_ss, k0, p.Sk, p.D - c * CH);
+        __syncthreads();
+      }
+      tile_times<CH, DPAD>(sS, sK, ty, tx, c * (CH / 64), acc);
+    }
   }
 
   T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
@@ -290,7 +322,9 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
 
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
-  constexpr int ST = DPAD + 4;
+  constexpr int CH = chunk<DPAD>();
+  constexpr int NC = DPAD / CH;
+  constexpr int ST = CH + 4;
   constexpr int G = DPAD / 64;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);  // [BK][ST]
@@ -307,14 +341,16 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
   const int64_t bh = static_cast<int64_t>(b) * p.H + h;
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* og = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const uint32_t hseed = fa::head_seed(p.s0, p.s1, static_cast<uint32_t>(bh));
 
-  load_tile<T, DPAD>(sK, static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh,
-                     p.k_ss, k0, p.Sk, p.D);
-  load_tile<T, DPAD>(sV, static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh,
-                     p.v_ss, k0, p.Sk, p.D);
+  if constexpr (NC == 1) {  // k and v stay for the whole block
+    load_tile<T, CH>(sK, kg, p.k_ss, k0, p.Sk, p.D);
+    load_tile<T, CH>(sV, vg, p.v_ss, k0, p.Sk, p.D);
+  }
 
   float acc_k[4][4 * G], acc_v[4][4 * G];
 #pragma unroll
@@ -327,19 +363,31 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
   const int n_tiles = (p.Sq + BQ - 1) / BQ;
   for (int t = t0; t < n_tiles; ++t) {
     const int q0 = t * BQ;
-    __syncthreads();  // the last tile's sQ/sO/sP/sS reads are done
-    load_tile<T, DPAD>(sQ, qg, p.q_ss, q0, p.Sq, p.D);
-    load_tile<T, DPAD>(sO, og, p.do_ss, q0, p.Sq, p.D);
-    for (int r = tid; r < BQ; r += NTHREADS) {
-      const bool in = q0 + r < p.Sq;
-      sL[r] = in ? p.lse[bh * p.Sq + q0 + r] : CUDART_INF_F;
-      sD[r] = in ? p.di[bh * p.Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
     // transposed tiles: keys ty + 16i, rows tx + 16j
     float s[4][4], dp[4][4];
-    two_products<DPAD>(sK, sQ, sV, sO, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();  // the last reads of the staged tiles are done
+      if constexpr (NC > 1) {
+        load_tile<T, CH>(sK, kg + c * CH, p.k_ss, k0, p.Sk, p.D - c * CH);
+        load_tile<T, CH>(sV, vg + c * CH, p.v_ss, k0, p.Sk, p.D - c * CH);
+      }
+      load_tile<T, CH>(sQ, qg + c * CH, p.q_ss, q0, p.Sq, p.D - c * CH);
+      load_tile<T, CH>(sO, og + c * CH, p.do_ss, q0, p.Sq, p.D - c * CH);
+      if (c == 0) {
+        for (int r = tid; r < BQ; r += NTHREADS) {
+          const bool in = q0 + r < p.Sq;
+          sL[r] = in ? p.lse[bh * p.Sq + q0 + r] : CUDART_INF_F;
+          sD[r] = in ? p.di[bh * p.Sq + q0 + r] : 0.f;
+        }
+      }
+      __syncthreads();
+      two_products<CH>(sK, sQ, sV, sO, ty, tx, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int key = k0 + ty + 16 * i;
@@ -366,8 +414,18 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
       }
     }
     __syncthreads();
-    tile_times<DPAD>(sP, sO, ty, tx, acc_v);
-    tile_times<DPAD>(sS, sQ, ty, tx, acc_k);
+    // the last chunk of q and dO is staged; the others are loaded again
+#pragma unroll
+    for (int c = NC - 1; c >= 0; --c) {
+      if (c != NC - 1) {
+        __syncthreads();
+        load_tile<T, CH>(sQ, qg + c * CH, p.q_ss, q0, p.Sq, p.D - c * CH);
+        load_tile<T, CH>(sO, og + c * CH, p.do_ss, q0, p.Sq, p.D - c * CH);
+        __syncthreads();
+      }
+      tile_times<CH, DPAD>(sP, sO, ty, tx, c * (CH / 64), acc_v);
+      tile_times<CH, DPAD>(sS, sQ, ty, tx, c * (CH / 64), acc_k);
+    }
   }
 
   T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
@@ -399,7 +457,8 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = static_cast<int>(
-      sizeof(float) * (4 * 64 * (DPAD + 4) + BQ * P_STRIDE + 2 * BQ));
+      sizeof(float) *
+      (4 * 64 * (chunk<DPAD>() + 4) + BQ * P_STRIDE + 2 * BQ));
   err = cudaFuncSetAttribute(dq_kernel<T, DPAD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
@@ -412,7 +471,8 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
 template <typename T, int DPAD>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   const int smem = static_cast<int>(
-      sizeof(float) * (4 * 64 * (DPAD + 4) + 2 * BK * P_STRIDE + 2 * BQ));
+      sizeof(float) *
+      (4 * 64 * (chunk<DPAD>() + 4) + 2 * BK * P_STRIDE + 2 * BQ));
   cudaError_t err = cudaFuncSetAttribute(
       dkv_kernel<T, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -427,7 +487,7 @@ int fill(Params& p, const void* q, const void* k, const void* v,
          const void* lse, void* di, void* dq, void* dk, void* dv, void* ds,
          int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
          int causal, uint32_t s0, uint32_t s1, int drop_t) {
-  if (D < 1 || D > 128 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
+  if (D < 1 || D > 256 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
       drop_t < 0 || drop_t > 255)
     return 0;
   p.q = q;
@@ -488,10 +548,13 @@ extern "C" int pt_flash_attention_bwd_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = D <= 64 ? launch_dq<float, 64>(p, s) : launch_dq<float, 128>(p, s);
+    err = D <= 64    ? launch_dq<float, 64>(p, s)
+          : D <= 128 ? launch_dq<float, 128>(p, s)
+                     : launch_dq<float, 256>(p, s);
   else if (dtype == 1)
-    err = D <= 64 ? launch_dq<__nv_bfloat16, 64>(p, s)
-                  : launch_dq<__nv_bfloat16, 128>(p, s);
+    err = D <= 64    ? launch_dq<__nv_bfloat16, 64>(p, s)
+          : D <= 128 ? launch_dq<__nv_bfloat16, 128>(p, s)
+                     : launch_dq<__nv_bfloat16, 256>(p, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -512,10 +575,13 @@ extern "C" int pt_flash_attention_bwd_dkv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = D <= 64 ? launch_dkv<float, 64>(p, s) : launch_dkv<float, 128>(p, s);
+    err = D <= 64    ? launch_dkv<float, 64>(p, s)
+          : D <= 128 ? launch_dkv<float, 128>(p, s)
+                     : launch_dkv<float, 256>(p, s);
   else if (dtype == 1)
-    err = D <= 64 ? launch_dkv<__nv_bfloat16, 64>(p, s)
-                  : launch_dkv<__nv_bfloat16, 128>(p, s);
+    err = D <= 64    ? launch_dkv<__nv_bfloat16, 64>(p, s)
+          : D <= 128 ? launch_dkv<__nv_bfloat16, 128>(p, s)
+                     : launch_dkv<__nv_bfloat16, 256>(p, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -37,6 +37,8 @@
 // float32 FMA on CUDA cores is the first, simple design; wgmma and TMA
 // come later.
 //
+// Head dims up to 256 (the padded widths 64, 128 and 256; at 256 the q,
+// k, v and p tiles take 214 KB of the 227 KB a block may have).
 // Layouts bshd ([B, S, H, D]) and bhsd ([B, H, S, D]) both arrive as
 // strides; the head dimension must be contiguous. bf16 inputs are a
 // template parameter: products and sums stay float32, p is rounded to
@@ -288,7 +290,7 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const int64_t* strides, float scale,
                                       int causal, uint32_t s0, uint32_t s1,
                                       int drop_t, void* stream) {
-  if (D < 1 || D > 128 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
+  if (D < 1 || D > 256 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
       drop_t < 0 || drop_t > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -327,10 +329,13 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = D <= 64 ? launch<float, 64>(p, s) : launch<float, 128>(p, s);
+    err = D <= 64    ? launch<float, 64>(p, s)
+          : D <= 128 ? launch<float, 128>(p, s)
+                     : launch<float, 256>(p, s);
   else if (dtype == 1)
-    err = D <= 64 ? launch<__nv_bfloat16, 64>(p, s)
-                  : launch<__nv_bfloat16, 128>(p, s);
+    err = D <= 64    ? launch<__nv_bfloat16, 64>(p, s)
+          : D <= 128 ? launch<__nv_bfloat16, 128>(p, s)
+                     : launch<__nv_bfloat16, 256>(p, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -34,16 +34,28 @@ class Executor:
         self.device = self.place.torch_device()
         self._engine = Engine()
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None):
-        """Run `program` once: feeds (numpy arrays) in, fetches (numpy
-        arrays) out."""
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True):
+        """Run `program` once: feeds (numpy arrays) in, fetches out, with
+        the reference's arguments and defaults.
+
+        feed_var_name / fetch_var_name name Fluid's feed and fetch
+        holders. The port, like the JAX package, feeds and fetches
+        variables by name and builds no feed or fetch ops, so they change
+        nothing. return_numpy=True gives numpy arrays (bf16 as float32);
+        False gives the fetched torch tensors as they lie on the device.
+        use_program_cache is accepted for the reference's signature: the
+        port runs each op eagerly and keeps no program cache yet, so it
+        changes nothing either."""
+        del feed_var_name, fetch_var_name, use_program_cache
         if program is None:
             program = framework.default_main_program()
         scope = scope or global_scope()
         fetch_names = [_to_name_str(f) for f in fetch_list or []]
         return self._engine.run(program, scope, self.device,
                                 self._canonical_feed(feed, program),
-                                fetch_names)
+                                fetch_names, return_numpy=return_numpy)
 
     @staticmethod
     def _canonical_feed(feed, program):

@@ -5,14 +5,16 @@ Counterpart of paddle_tpu/kernels/flash_attention.py: _fa_kernel via
 _fa_forward, and _fa_bwd_dq_kernel / _fa_bwd_dkv_kernel via
 _fa_backward. The kernels are paddle_tpu_torch/csrc/flash_attention_fwd.cu
 and flash_attention_bwd.cu (float32 FMA on CUDA cores, any dtype the
-wrappers take), and the tensor-core designs for bf16,
-flash_attention_fwd_sm90.cu and flash_attention_bwd_dkv_sm90.cu (wgmma
-and TMA), all built at first use (kernels/registry.py). A bf16 call that
-meets TMA's rules (_sm90_eligible) takes the tensor-core forward and
-dk/dv kernels; every other call the CUDA-core ones. A CUDA tensor always
-goes to the kernels; a CPU tensor goes to the plain versions. The meta
-tensors of build-time shape inference take the plain versions too,
-which read no value. Under
+wrappers take, head dims up to 256), and the tensor-core designs for
+bf16, flash_attention_fwd_sm90.cu, flash_attention_bwd_dq_sm90.cu (di
+fused in) and flash_attention_bwd_dkv_sm90.cu (wgmma and TMA, head dims
+up to 128), all built at first use (kernels/registry.py). A bf16 call
+that meets TMA's rules (_sm90_eligible) takes the tensor-core kernels;
+every other call the CUDA-core ones. A CUDA tensor goes to the kernels
+unless the kernel registry denies "flash_attention"
+(FLAGS_use_custom_kernels=0, PT_KERNEL_DENY); a CPU tensor goes to the
+plain versions (_route). The meta tensors of build-time shape inference
+take the plain versions too, which read no value. Under
 kernels.registry.plain_reference() CUDA tensors take the plain versions
 as well.
 
@@ -43,11 +45,19 @@ _KERNEL = "flash_attention_fwd"
 _KERNEL_DQ = "flash_attention_bwd_dq"
 _KERNEL_DKV = "flash_attention_bwd_dkv"
 # the tensor-core designs; the counters above count every launch of
-# their entry, these two the tensor-core launches alone
+# their entry, these three the tensor-core launches alone
 _KERNEL_SM90 = "flash_attention_fwd_sm90"
 _KERNEL_DKV_SM90 = "flash_attention_bwd_dkv_sm90"
+_KERNEL_DQ_SM90 = "flash_attention_bwd_dq_sm90"
+# the name the kernel registry's flag, deny list and dispatch stats use
+_REGISTRY_NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128
+# head dims the kernels take: the CUDA-core kernels any D up to 256 (the
+# head dims public models use: 64, 80, 96, 128, 160, 192, 256); the
+# tensor-core kernels D % 8 == 0 up to 128 (their accumulators at
+# D > 128 would not fit in 255 registers a thread)
+_MAX_D = 256
+_MAX_D_SM90 = 128
 _M32 = 0xFFFFFFFF
 
 
@@ -196,17 +206,93 @@ def fused_attention_backward_plain(q, k, v, bias, out, lse, dout, scale,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
+# bf16's unit roundoff (8 significant bits): |bf16(x) - x| <= 2^-8 |x|
+_U_BF16 = 2.0 ** -8
+# float32 arithmetic before the roundings (the scores, p, dp, di and the
+# float32 sums: each some Sk * 2^-24 relative, far below this for
+# Sk <= 4096), taken against the magnitudes before dp - di cancels
+_F32_SLACK = 2.0 ** -12
+
+
+def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
+                        layout, dropout=None):
+    """What a correct bf16 backward must meet: ((dq, dk, dv) exact, (dq,
+    dk, dv) bound), float64 tensors in q/k/v's shapes.
+
+    The exact gradients are taken in float64 from the same bf16 inputs,
+    out and lse, with the float32 p of the plain version (in a row whose
+    keys all carry a -1e9 bias, lse rounds to -1e9 and p is 1 on every
+    key, as in the JAX kernels) and ds and p_drop unrounded. A kernel
+    rounds ds (and p_drop) to bf16 before the products, each within
+    2^-8 of itself, and rounds its float32 result to bf16, so elementwise
+        |dq - dq_exact| <= 2^-8 |dq_exact|
+                           + scale * sum_j (2^-8 |ds_ij|
+                                            + 2^-12 m_ij) |k_jd|
+    with m_ij = p_ij (|dp_ij| + |di_i|) for the float32 arithmetic before
+    the roundings; dk the same with q for k and the sum over rows, dv
+    with p_drop for ds and dO for k (m = p_drop). Where p = 1 on every key
+    |ds| is in the tens, and this bound, not BF16_TOL, is what a correct
+    kernel meets there."""
+    dropout = _check_dropout(dropout)
+    bshd = layout == "bshd"
+    f64 = torch.float64
+    p = torch.exp(_scores(q, k, bias, scale, causal, bshd)
+                  - lse.float()[..., None]).to(f64)
+    qd, kd, vd, od, gd = (x.to(f64) for x in (q, k, v, out, dout))
+    if bshd:   # [B, H, S, D] from here on
+        qd, kd, vd, od, gd = (x.transpose(1, 2) for x in
+                              (qd, kd, vd, od, gd))
+    di = (gd * od).sum(-1, keepdim=True)
+    dp = gd @ vd.transpose(-1, -2)
+    p_v = p
+    if dropout is not None:
+        keep = _keep(dropout, p).to(f64) * (256.0 / dropout[2])
+        dp, p_v = dp * keep, p * keep
+    ds = p * (dp - di)
+    m = p * (dp.abs() + di.abs())
+    w = _U_BF16 * ds.abs() + _F32_SLACK * m
+    wv = (_U_BF16 + _F32_SLACK) * p_v
+    exact = (scale * ds @ kd, scale * ds.transpose(-1, -2) @ qd,
+             p_v.transpose(-1, -2) @ gd)
+    slack = (scale * w @ kd.abs(), scale * w.transpose(-1, -2) @ qd.abs(),
+             wv.transpose(-1, -2) @ gd.abs())
+    bound = tuple(_U_BF16 * e.abs() + s for e, s in zip(exact, slack))
+    if bshd:
+        exact, bound = (tuple(x.transpose(1, 2) for x in t)
+                        for t in (exact, bound))
+    return exact, bound
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
 def _route(q):
+    """"kernel" or "plain", as the reference's use_kernel_path decides
+    (paddle_tpu/kernels/flash_attention.py), and counted as the kernel
+    registry counts its decisions, where routing is possible (a CUDA
+    tensor, or a CPU tensor under registry._ROUTE_ON_CPU): under
+    FLAGS_use_custom_kernels=0 or PT_KERNEL_DENY=flash_attention the
+    plain (composed) version runs, counted `denied`; otherwise a CUDA
+    tensor launches the kernels (`custom`), and a CPU tensor, or any
+    tensor under plain_reference(), runs the plain version (`lowered`).
+    Where routing is impossible (a CPU tensor without the hook, the meta
+    tensors of shape inference) the plain version runs uncounted. The
+    TPU's crossover (_KERNEL_MIN_SEQ_PRODUCT) was measured on a TPU and
+    is not carried over."""
     dev = q.device.type
-    if dev == "cuda" and not registry.plain_forced():
-        return "kernel"
-    if dev in ("cpu", "meta", "cuda"):
+    if dev not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"fused attention: unsupported device {q.device}")
+    if not registry._device_routes(q.device):
         return "plain"
-    raise ValueError(f"fused attention: unsupported device {q.device}")
+    if not registry.allowed(_REGISTRY_NAME):
+        registry.count(_REGISTRY_NAME, "denied")
+        return "plain"
+    if dev == "cuda" and not registry.plain_forced():
+        registry.count(_REGISTRY_NAME, "custom")
+        return "kernel"
+    registry.count(_REGISTRY_NAME, "lowered")
+    return "plain"
 
 
 def fused_attention_forward(q, k, v, bias, scale, causal, layout,
@@ -228,8 +314,8 @@ def fused_attention_forward(q, k, v, bias, scale, causal, layout,
 def fused_attention_backward(q, k, v, bias, out, lse, dout, scale, causal,
                              layout, dropout=None, want_dbias=False):
     """Gradients of fused_attention_forward from its out and lse:
-    (dq, dk, dv, dbias). On the card: the dq kernel (with its di
-    pre-pass), then the dk/dv kernel."""
+    (dq, dk, dv, dbias). On the card: the dq kernel (with di), then the
+    dk/dv kernel."""
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"unknown attention layout {layout!r}")
     if _route(q) == "kernel":
@@ -268,7 +354,7 @@ def _check(q, k, v, bias, layout):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree "
                          f"({layout})")
     if not 1 <= D <= _MAX_D:
-        raise ValueError(f"fused attention kernel takes head dim 1..."
+        raise ValueError(f"fused attention kernels take head dims 1 to "
                          f"{_MAX_D}, got {D}")
     if min(B, H, Sq, Sk) < 1 or B > 65535 or H > 65535:
         raise ValueError(f"fused attention kernel: unsupported sizes "
@@ -292,14 +378,14 @@ def _sm90_eligible(q, k, v, out, layout):
     """Whether a call can take the tensor-core kernels: TMA's rules for
     the four [B, S, H, D] / [B, H, S, D] tensors it reads or writes
     (forward: q, k, v, out; backward: q, k, v, dout). bf16, D a multiple
-    of 8 and at most 128, every base pointer 16-byte aligned, every
+    of 8 and at most _MAX_D_SM90, every base pointer 16-byte aligned, every
     (batch, sequence, head) stride a multiple of 16 bytes. A pure
     function of dtypes, shapes, pointers and strides."""
     ts = (q, k, v, out)
     if any(t.dtype != torch.bfloat16 or t.ndim != 4 for t in ts):
         return False
     D = q.shape[-1]
-    if D % 8 or D > _MAX_D:
+    if D % 8 or D > _MAX_D_SM90:
         return False
     for t in ts:
         if t.stride(3) != 1 or t.data_ptr() % 16:
@@ -374,8 +460,10 @@ def _bind_bwd(lib, symbol):
 
 def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                 dropout, want_dbias):
-    """The dq kernel (with its di pre-pass), then a dk/dv kernel: the
-    tensor-core one where _sm90_eligible holds, else the CUDA-core one."""
+    """The dq kernel, then the dk/dv kernel: where _sm90_eligible holds
+    (out too meets TMA's rules) the tensor-core ones, the dq kernel with
+    the di pre-pass fused in; else the CUDA-core ones, dq after its di
+    pre-pass."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
     s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
     dout = dout.to(q.dtype).contiguous()
@@ -388,7 +476,8 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                          f"[{B}, {H}, {Sq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     lse = lse.contiguous()
-    sm90 = _sm90_eligible(q, k, v, dout, layout)
+    sm90 = _sm90_eligible(q, k, v, dout, layout) and \
+        _sm90_eligible(out, k, v, dout, layout)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     want_dbias = bool(want_dbias) and bias is not None
@@ -403,13 +492,17 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ds),
             _DTYPES[q.dtype], B, H, Sq, Sk, D, strides, float(scale),
             int(bool(causal)), s0, s1, t)
+    if sm90:
+        launches = (((_KERNEL_DQ, _KERNEL_DQ_SM90),
+                     "pt_flash_attention_bwd_dq_sm90"),
+                    ((_KERNEL_DKV, _KERNEL_DKV_SM90),
+                     "pt_flash_attention_bwd_dkv_sm90"))
+    else:
+        launches = (((_KERNEL_DQ,), "pt_flash_attention_bwd_dq"),
+                    ((_KERNEL_DKV,), "pt_flash_attention_bwd_dkv"))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        for names, symbol in (
-                ((_KERNEL_DQ,), "pt_flash_attention_bwd_dq"),
-                ((_KERNEL_DKV, _KERNEL_DKV_SM90),
-                 "pt_flash_attention_bwd_dkv_sm90") if sm90 else
-                ((_KERNEL_DKV,), "pt_flash_attention_bwd_dkv")):
+        for names, symbol in launches:
             lib = registry.library(names[-1])
             err = _bind_bwd(lib, symbol)(*args, stream)
             if err != 0:

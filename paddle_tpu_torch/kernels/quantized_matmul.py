@@ -2,7 +2,8 @@
 its plain PyTorch version and its registration for ``mul``/``matmul``.
 
 Counterpart of paddle_tpu/kernels/quantized_matmul.py (_qmm_block via
-quantized_matmul). The kernel is paddle_tpu_torch/csrc/quantized_matmul.cu.
+quantized_matmul). The kernel is paddle_tpu_torch/csrc/quantized_matmul.cu
+(wgmma and TMA: one pre-pass launch for the operands, then the GEMM).
 C = x @ y for x [M, K], y [K, N] (float32 or bf16, M, N, K multiples of
 128), float32 out unless `out_dtype` is given:
 
@@ -145,9 +146,6 @@ def _check(x, y):
         if not t.is_contiguous():
             raise ValueError(f"quantized_matmul kernel: {name} must be "
                              f"contiguous")
-    if x.shape[0] // 64 > 65535:
-        raise ValueError(f"quantized_matmul kernel: M={x.shape[0]} is too "
-                         f"large")
 
 
 def _bind(lib):
@@ -175,8 +173,9 @@ def _launch(x, y, mode):
         sa = empty((M // _TILE, K // _TILE), torch.float32)
         sb = empty((K // _TILE, N // _TILE), torch.float32)
     else:
-        # a bf16 x aligned to 16 bytes is read as it is
-        wa = None if x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0 \
+        # an x aligned to 16 bytes is read as it is (float32 is rounded to
+        # bf16 inside the GEMM); otherwise the pre-pass rounds it into wa
+        wa = None if x.data_ptr() % 16 == 0 \
             else empty((M, K), torch.bfloat16)
         wb = empty((N, K), torch.bfloat16)
     name = _KERNELS[mode]

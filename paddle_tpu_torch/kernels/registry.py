@@ -62,6 +62,7 @@ SOURCES = {
     "flash_attention_bwd_dkv": "flash_attention_bwd.cu",
     "flash_attention_fwd_sm90": "flash_attention_fwd_sm90.cu",
     "flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv_sm90.cu",
+    "flash_attention_bwd_dq_sm90": "flash_attention_bwd_dq_sm90.cu",
     "fused_adam": "fused_optimizer.cu",
     "fused_sgd": "fused_optimizer.cu",
     "quantized_matmul_int8": "quantized_matmul.cu",

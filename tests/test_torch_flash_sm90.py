@@ -1,8 +1,9 @@
-"""Which attention kernel design a call takes, and the bf16 path on the
-CPU.
+"""Which attention kernel design a call takes, the bf16 path on the CPU,
+and the bound a bf16 backward meets.
 
 The wrappers send a bf16 call to the tensor-core kernels
-(csrc/flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu) when
+(csrc/flash_attention_fwd_sm90.cu, flash_attention_bwd_dq_sm90.cu,
+flash_attention_bwd_dkv_sm90.cu) when
 _sm90_eligible holds: TMA's rules for q, k, v and out (or dout), D a
 multiple of 8 and at most 128, 16-byte-aligned bases, strides multiples
 of 16 bytes. Every other call on the card takes the CUDA-core kernels.
@@ -16,6 +17,12 @@ the same bf16 inputs within BF16_TOL = 2e-2 (p, ds and the outputs
 round to bf16 at other places). The kernels themselves are held against
 the plain versions on the card in tests/test_torch_cuda.py and
 chip_smoke.py.
+
+flash_attention.bf16_backward_bound (what a correct bf16 dq, dk, dv
+meets against the exact gradients: 2^-8 of ds's or p_drop's
+contribution and of the result) holds for the plain version on the
+CPU, rows whose keys are all padded included, and a dq that lost one
+key's term or rounded ds to 6 bits breaks it.
 """
 import importlib
 
@@ -199,3 +206,58 @@ def test_bf16_cpu_path_is_plain_and_matches_jax_kernels(
                                    np.asarray(w, np.float32),
                                    rtol=BF16_TOL, atol=BF16_TOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("name,symbol", [
+    ("flash_attention_bwd_dq_sm90", "pt_flash_attention_bwd_dq_sm90"),
+    ("quantized_matmul_int8", "pt_quantized_matmul")])
+def test_tensor_core_sources_of_this_slice(name, symbol):
+    """The tensor-core dq and quantized GEMM sources are registered, export
+    their entry point and use wgmma and TMA (the quantized GEMM also the
+    mbarrier ring); the dq source computes di itself (no di pre-pass)."""
+    src = (kreg.CSRC / kreg.SOURCES[name]).read_text()
+    assert f'extern "C" int {symbol}(' in src
+    assert name in kreg.launches()
+    for ptx in ("wgmma.mma_async" if "quantized" in name else "wgmma_",
+                "tma_load"):
+        assert ptx in src
+    if name == "flash_attention_bwd_dq_sm90":
+        # one kernel, which writes di for the dk/dv kernel itself
+        assert src.count("__global__") == 1 and "p.di[" in src
+
+
+@pytest.mark.parametrize("dropout", [None, (7, 11, 128)],
+                         ids=["nodrop", "t128"])
+def test_bf16_bound_holds_for_the_plain_version_and_catches_errors(dropout):
+    """bf16_backward_bound on the CPU: the plain bf16 backward (which
+    rounds ds and p_drop to bf16 as the kernels do) meets it over seeded
+    draws of dO, rows whose keys are all padded included; a dq whose ds
+    skipped one key's contribution, or was rounded to 6 bits, does not."""
+    rng = np.random.default_rng(40)
+    B, H, S, D = 2, 2, 32, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    b = torch.zeros(B, 1, 1, S)
+    b[-1] = -1e9                       # every key of the last row padded
+    scale = D ** -0.5
+    out, lse = pfa.fused_attention_plain(q, k, v, b, scale, False, "bshd",
+                                         return_lse=True, dropout=dropout)
+    for seed in range(8):
+        g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            q.shape).astype(np.float32)).bfloat16()
+        got = pfa.fused_attention_backward_plain(q, k, v, b, out, lse, g,
+                                                 scale, False, "bshd",
+                                                 dropout=dropout)
+        exact, bound = pfa.bf16_backward_bound(q, k, v, b, out, lse, g,
+                                               scale, False, "bshd", dropout)
+        for a, e, bd in zip(got[:3], exact, bound):
+            assert ((a.double() - e).abs() <= bd).all()
+        # where all keys are padded the bound is wider than BF16_TOL
+        assert bound[0][-1].max() > BF16_TOL
+    # one key's term missing from dq: beyond the bound
+    kd = k.double()
+    wrong = exact[0] - scale * 0.5 * kd[:, :1] * exact[0].abs().amax()
+    assert ((wrong - exact[0]).abs() > bound[0]).any()
+    # ds rounded to 6 bits instead of 8: beyond it too
+    coarse = exact[0] * (1 + 2.0 ** -5)
+    assert ((coarse - exact[0]).abs() > bound[0]).any()

@@ -628,16 +628,18 @@ def _score(side, mod, seed):
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
 def test_tiny_transformer_quantized_matches_jax(tiny_transformers, route,
                                                 monkeypatch, mode):
-    n_mul = sum(op.type == "mul" for op in
-                tiny_transformers["port"][1].global_block().ops)
+    ops = [op.type for op in tiny_transformers["port"][1].global_block().ops]
+    n_mul, n_attn = ops.count("mul"), ops.count("fused_attention")
     f32_port = _score(tiny_transformers["port"], pt_transformer, 3)
     monkeypatch.setenv("PT_KERNEL_QUANT_MATMUL", mode)
     pkreg.reset_stats()
     jl, jc = _score(tiny_transformers["jax"], jax_transformer, 3)
     pl, pc = _score(tiny_transformers["port"], pt_transformer, 3)
-    # every mul of the port's forward went to the kernel's wrapper
+    # every mul of the port's forward went to the kernel's wrapper; the
+    # attention ops ran their plain version on the CPU (lowered)
     assert pkreg.dispatch_stats()["per_kernel"] == {
-        "quantized_matmul": {"custom": n_mul}}
+        "quantized_matmul": {"custom": n_mul},
+        "flash_attention": {"lowered": n_attn}}
     assert pl.shape == jl.shape == (B, S, 384)
     assert np.isfinite(pl).all() and np.isfinite(pc)
     assert _rel(jl, pl) <= TF_LOGITS_RTOL[mode]
