@@ -10,27 +10,31 @@
 3. Kernel phase: holds each attention and optimizer kernel against its
    plain PyTorch version on the card: the flash-attention forward
    (without and with attention dropout), its dq and dk/dv backward
-   kernels (float32 through the CUDA-core kernels; bf16 through the
-   tensor-core forward, dq (di fused in) and dk/dv kernels, as the entry
-   points choose, and again through the CUDA-core ones; head dims 192
-   and 256 through the CUDA-core kernels in both dtypes; the bf16
+   kernels (float32 through the tensor-core (3xTF32) forward and the
+   CUDA-core backward kernels; bf16 through the tensor-core forward, dq
+   (di fused in) and dk/dv kernels, as the entry points choose; both
+   dtypes again through the CUDA-core ones; head dims 192, 256, 264, 320
+   and 512 through the CUDA-core kernels in both dtypes; the bf16
    gradients of rows whose keys are all padded against
    flash_attention.bf16_backward_bound), one call under
-   PT_KERNEL_DENY=flash_attention (no launch), Adam, and SGD (0 ulp at
-   LeNet's six parameter shapes, at lengths 1, 127, 129 and 513, and
-   over the 255 parameter shapes of Transformer-base). Then times
-   kernel, plain version and the library yardstick: the forward at the
-   serving shape, the attention kernels of both designs at the training
-   shape (B=96, S=128, H=8, D=64, bf16; device time, sdpa's too), Adam
-   over the 99 parameters of Transformer-base that the registry routes
-   to it (and the plain update of the other 156 on the host's clock),
-   and SGD at Transformer-base's and LeNet's sizes.
+   PT_KERNEL_DENY=flash_attention (no launch), Adam, and SGD (one
+   multi-tensor launch a list, 0 ulp, over lengths 1, 127, 129 and 513,
+   LeNet's six parameter shapes and the 255 parameter shapes of
+   Transformer-base). Then times kernel, plain version and the library
+   yardstick: the float32 forward at the serving shape in both designs,
+   the attention kernels of both designs at the training shape (B=96,
+   S=128, H=8, D=64, bf16; device time, sdpa's too), Adam over the 99
+   parameters of Transformer-base that the registry routes to it (and
+   the plain update of the other 156 on the host's clock), and SGD at
+   Transformer-base's and LeNet's sizes (one list a launch, and the same
+   kernel a parameter at a time, against torch._foreach_add_).
 4. Serving phase: builds full-width Transformer-base (6+6 layers,
    d_model 512, 8 heads, vocab 32000, fuse_attention) with the port's
    layers, initializes it on the card from a seed, and scores 3 ragged
    batches of 32 x 256 tokens through Executor.run in float32. Checks
-   finite logits and cost, 18 attention launches per forward, and the
-   logits against the same forward under plain_reference().
+   finite logits and cost, 18 attention launches per forward (all of
+   them the float32 tensor-core forward), and the logits against the
+   same forward under plain_reference().
 5. Training phase: the same model as bench.py trains it (dropout 0.1,
    contrib.mixed_precision.decorate(AdamOptimizer(2e-4)): bf16 compute,
    float32 master weights) takes 5 steps on one ragged batch of
@@ -54,8 +58,9 @@
    GEMM split into its pre-pass and its GEMM), its plain version and its
    library yardstick at the four serving shapes. With
    `--baseline DIR` (an earlier checkout of the repo, e.g. unpacked with
-   git archive) the quantized GEMM of that checkout is built and timed
-   in turns with this one's.
+   git archive) the CUDA-core attention forward, the SGD kernel and the
+   quantized GEMM of that checkout are built and timed in turns with
+   this one's (phases 3 and 6).
 7. Serving in the GEMM modes: the batches of phase 4 again with every
    one of the 97 mul ops through a GEMM kernel:
    PT_KERNEL_QUANT_MATMUL=int8, =bf16, and with the search's float32
@@ -68,8 +73,9 @@
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
    floor: 0 SGD launches, 6 lowered updates a step) and with
-   PT_KERNEL_MIN_NUMEL=1 (6 SGD launches a step); losses and final
-   parameters must be equal (cuDNN deterministic). Then
+   PT_KERNEL_MIN_NUMEL=1 (the engine hands the six sgd ops to one
+   multi-tensor SGD launch a step); losses and final parameters must be
+   equal (cuDNN deterministic). Then
    save_persistables / load_persistables into a fresh scope (the next
    step gives the same loss from both) and save_inference_model /
    load_inference_model in a fresh scope (B=512 inference equal to the
@@ -163,11 +169,11 @@ SERVE_MULS = sum(g[3] for g in SERVE_GEMMS)      # 97
 SEARCH_PROBLEM = (8192, 512, 512)                 # M, N, K
 
 # Published peaks (NVIDIA data sheets, dense): float32 outside the tensor
-# cores, bf16 and int8 in them, in FLOP/s (OP/s), and HBM bytes/s. Keyed
-# by the name torch reports.
-_PEAKS = {"PCIe": (51e12, 756e12, 2.0e12, 1513e12),
-          "NVL": (60e12, 835e12, 3.9e12, 1671e12),
-          "SXM": (67e12, 989e12, 3.35e12, 1979e12)}
+# cores, bf16 in them, HBM bytes/s, int8 and TF32 in the tensor cores, in
+# FLOP/s (OP/s). Keyed by the name torch reports.
+_PEAKS = {"PCIe": (51e12, 756e12, 2.0e12, 1513e12, 378e12),
+          "NVL": (60e12, 835e12, 3.9e12, 1671e12, 417e12),
+          "SXM": (67e12, 989e12, 3.35e12, 1979e12, 495e12)}
 
 # the training shape: bench.py's Transformer-base batch
 TRAIN_B, TRAIN_S, LR = 96, 128, 2e-4
@@ -204,6 +210,27 @@ def _time_ms(fn, iters=30, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _queued_ms(torch, fn, iters=10):
+    """Device time per call of fn from CUDA events around `iters` calls
+    queued behind torch.cuda._sleep (about 60 ms of the card's time, in
+    which the host queues them), so the card runs them back to back
+    whatever the host takes a call: a check on the profiler's reading,
+    printed beside it. Returns (ms a call, host ms to queue them)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host
 
 
 def _attn_inputs(torch, dev, dtype, layout, B, H, Sq, Sk, D, bias_kind,
@@ -256,11 +283,17 @@ _CASES = [
      False, False),
     ("training shape, causal", "bshd", TRAIN_B, 8, TRAIN_S, TRAIN_S, 64,
      "key_pad", True, False),
-    # head dims above 128 take the CUDA-core kernels in both dtypes
+    # head dims above 128 take the CUDA-core kernels in both dtypes;
+    # above 256 in 256-column groups of the output
     ("head dim 256, causal", "bshd", 2, 4, 128, 128, 256, "key_pad", True,
      False),
     ("head dim 192, Sq != Sk", "bhsd", 2, 4, 96, 160, 192, "per_head",
      False, False),
+    ("head dim 264, causal", "bshd", 2, 4, 96, 80, 264, "key_pad", True,
+     False),
+    ("head dim 320, Sq != Sk", "bhsd", 2, 2, 77, 130, 320, "per_head",
+     False, False),
+    ("head dim 512", "bshd", 2, 2, 64, 64, 512, "key_pad", False, False),
 ]
 # attention dropout: (seed word 0, seed word 1, keep threshold t);
 # t = 230 is dropout 0.1, the training path's
@@ -310,13 +343,14 @@ def _bound_check(torch, fa, got, q, k, v, bias, out, lse, g, scale, causal,
 
 def kernel_phase(torch, dev):
     """Every attention kernel against its plain version over the case
-    list, without and with dropout: float32 through the CUDA-core
-    kernels, bf16 through the tensor-core forward, dq and dk/dv kernels
-    (the wrappers' choice, checked by the launch counters) and again
-    through the CUDA-core ones; head dims above 128 through the CUDA-core
-    kernels in both dtypes. bf16 gradients of the case whose rows have
-    all keys padded are held to flash_attention.bf16_backward_bound, the
-    rest to BF16_TOL. Then one call under PT_KERNEL_DENY=flash_attention
+    list, without and with dropout: float32 through the tensor-core
+    (3xTF32) forward and the CUDA-core backward kernels, bf16 through
+    the tensor-core forward, dq and dk/dv kernels (the wrappers' choice,
+    checked by the launch counters), and both again through the
+    CUDA-core ones; head dims above 128 through the CUDA-core kernels in
+    both dtypes. bf16 gradients of the case whose rows have all keys
+    padded are held to flash_attention.bf16_backward_bound, the rest to
+    BF16_TOL. Then one call under PT_KERNEL_DENY=flash_attention
     launches nothing. Returns {(kernel, dtype, case): max |err|}."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import registry as kreg
@@ -356,20 +390,24 @@ def kernel_phase(torch, dev):
                             q, k, v, bias, ref, ref_lse, g, scale, causal,
                             layout, dropout=drop, want_dbias=want_dbias)
                     torch.cuda.synchronize()
-                    sm90 = int(design == "sm90")
+                    # bf16: the three tensor-core kernels; float32: the
+                    # tensor-core forward, the CUDA-core backward
+                    sm90 = design == "sm90"
+                    bf = sm90 and dtype == torch.bfloat16
+                    fwd_k = "flash_attention_fwd" + (
+                        "" if not sm90 else "_sm90" if bf else "_f32_sm90")
+                    dq_k = "flash_attention_bwd_dq" + ("_sm90" if bf
+                                                       else "")
+                    dkv_k = "flash_attention_bwd_dkv" + ("_sm90" if bf
+                                                         else "")
+                    want = {n: 0 for n in kreg.launches()}
+                    for n in ("flash_attention_fwd", fwd_k,
+                              "flash_attention_bwd_dq", dq_k,
+                              "flash_attention_bwd_dkv", dkv_k):
+                        want[n] = 1
                     c = kreg.launches()
-                    _require(c["flash_attention_fwd"] == 1
-                             and c["flash_attention_fwd_sm90"] == sm90
-                             and c["flash_attention_bwd_dq"] == 1
-                             and c["flash_attention_bwd_dq_sm90"] == sm90
-                             and c["flash_attention_bwd_dkv"] == 1
-                             and c["flash_attention_bwd_dkv_sm90"] == sm90,
-                             f"{dname} {name}{tag}: launches {c}, want the "
-                             f"{design} kernels")
-                    suffix = "_sm90" if sm90 else ""
-                    fwd_k = "flash_attention_fwd" + suffix
-                    dq_k = "flash_attention_bwd_dq" + suffix
-                    dkv_k = "flash_attention_bwd_dkv" + suffix
+                    _require(c == want, f"{dname} {name}{tag}: launches "
+                                        f"{c}, want the {design} kernels")
                     err, ok = _close(torch, out, ref, tol)
                     lerr, lok = _close(torch, lse, ref_lse, tol)
                     print(f"  fwd vs plain [{dname:8s} {design:4s}] "
@@ -481,54 +519,125 @@ def adam_phase(torch, dev):
     return worst_err, worst_ulp
 
 
-def time_attention(torch, dev, card):
-    """Kernel, plain and library times at the serving shape (float32,
-    the CUDA-core forward's main path), and the bound for the same work.
-    Kernel and library times are device time (torch.profiler), the
-    plain version's and the kernel's events figure the host's clock."""
+def time_attention(torch, dev, card, baseline=None):
+    """The float32 forward at the serving shape (the main path of
+    float32 attention) in both designs: the tensor-core (3xTF32) kernel
+    the entry point takes and the CUDA-core one (_cuda_core_kernels),
+    their plain version and sdpa, and the bound of each design's work:
+    3xTF32 at the TF32 peak, float32 FMA at the float32 peak. With
+    `baseline` (an earlier checkout) its CUDA-core forward too, in turns
+    with this one's (baseline, this, this, baseline), its output against
+    this one's. Kernel and library times are device time
+    (torch.profiler); the plain version's and the kernels' events figure
+    the host's clock."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    peak_flops, _, peak_bw, _ = _peaks(card)
+    peak_flops, _, peak_bw, _, peak_tf32 = _peaks(card)
     B, H, S, D = 32, 8, 256, 64
     q, k, v, bias = _attn_inputs(torch, dev, torch.float32, "bshd", B, H,
                                  S, S, D, "key_pad", seed=7)
     scale = D ** -0.5
+    nbytes = 4 * q.numel() * 4 + bias.numel() * 4
     res = {}
     for causal in (False, True):
         def fwd(causal=causal):
             return fa.fused_attention_forward(q, k, v, bias, scale, causal,
                                               "bshd")
 
-        kern = _device_ms(torch, fwd, 20, ("fa_fwd_kernel",))[
-            "fa_fwd_kernel"]
-        kern_ev = _time_ms(fwd)
+        tc = _device_ms(torch, fwd, 20, ("fa_fwd_f32_sm90_kernel",))[
+            "fa_fwd_f32_sm90_kernel"]
+        tc_ev = _time_ms(fwd)
+        tc_q, tc_host = _queued_ms(torch, fwd)
+        simt = ("fa_fwd_kernel",)
+        with _cuda_core_kernels(fa):
+            if baseline:
+                base = _baseline_fwd(torch, fa, baseline, q, k, v, bias,
+                                     scale, causal)
+                _require(torch.equal(base(), fwd()),
+                         "the baseline's CUDA-core forward disagrees")
+                b1 = _device_ms(torch, base, 20, simt)[simt[0]]
+            kern = _device_ms(torch, fwd, 20, simt)[simt[0]]
+            kern_ev = _time_ms(fwd)
+            if baseline:
+                kern = (kern + _device_ms(torch, fwd, 20, simt)[simt[0]]) / 2
+                base_ms = (b1 + _device_ms(torch, base, 20, simt)[simt[0]]) / 2
+                print(f"    CUDA-core forward, the baseline checkout's "
+                      f"{base_ms:.4f} ms against this one's {kern:.4f} ms "
+                      f"(in turns; equal outputs)")
         plain = _time_ms(lambda: fa.fused_attention_plain(
             q, k, v, bias, scale, causal, "bshd"))
         pairs = S * (S + 1) // 2 if causal else S * S
         flops = 4 * B * H * pairs * D
-        nbytes = 4 * q.numel() * 4 + bias.numel() * 4
-        bound_f, bound_b = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
         lib = None
         if not causal:   # sdpa takes no mask together with is_causal
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = _call_device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=bias, scale=scale), 20)
-        res[causal] = {"ms": kern, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": max(bound_f, bound_b),
-                       "bound_by": "operations" if bound_f >= bound_b
-                       else "bytes", "gflop": flops / 1e9,
-                       "mb": nbytes / 1e6}
-        print(f"  flash_attention_fwd B={B} S={S} H={H} D={D} "
-              f"causal={causal} float32: kernel {kern:.4f} ms (device; "
-              f"events {kern_ev:.4f} ms), plain {plain:.4f} ms (events), "
-              f"sdpa "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-              f"{res[causal]['bound_ms']:.4f} ms "
-              f"({res[causal]['bound_by']}: {flops / 1e9:.3f} GFLOP at "
-              f"{peak_flops / 1e12:g} TFLOP/s fp32, {nbytes / 1e6:.1f} MB "
-              f"at {peak_bw / 1e12:g} TB/s)")
+        bound, by = _bound(flops, nbytes, peak_flops, peak_bw)
+        tc_bound, tc_by = _bound(3 * flops, nbytes, peak_tf32, peak_bw)
+        common = {"plain_ms": plain, "library_ms": lib,
+                  "gflop": flops / 1e9, "mb": nbytes / 1e6}
+        res[causal] = {"ms": kern, "bound_ms": bound, "bound_by": by,
+                       **common}
+        if baseline:
+            res[causal]["baseline_ms"] = base_ms
+        res[("f32_sm90", causal)] = {"ms": tc, "bound_ms": tc_bound,
+                                     "bound_by": tc_by, **common}
+        print(f"  float32 forward B={B} S={S} H={H} D={D} causal={causal}: "
+              f"tensor-core (3xTF32) kernel {tc:.4f} ms (device; events "
+              f"{tc_ev:.4f} ms; queued events {tc_q:.4f} ms, host "
+              f"{tc_host:.1f} ms to queue 10), bound {tc_bound:.4f} ms ({tc_by}: "
+              f"{3 * flops / 1e9:.3f} GFLOP of TF32 at "
+              f"{peak_tf32 / 1e12:g} TFLOP/s); CUDA-core kernel "
+              f"{kern:.4f} ms (device; events {kern_ev:.4f} ms), bound "
+              f"{bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP at "
+              f"{peak_flops / 1e12:g} TFLOP/s fp32); {nbytes / 1e6:.1f} MB "
+              f"at {peak_bw / 1e12:g} TB/s; plain {plain:.4f} ms (events), "
+              f"sdpa {'n/a' if lib is None else f'{lib:.4f} ms'}")
     return res
+
+
+def _baseline_fwd(torch, fa, baseline, q, k, v, bias, scale, causal):
+    """A call of the CUDA-core forward of an earlier checkout (its
+    flash_attention_fwd.cu, the same C interface) on these bshd inputs,
+    returning out."""
+    import ctypes
+    fn = fa._bind(_baseline_lib(baseline, "flash_attention_fwd.cu"),
+                  "pt_flash_attention_fwd")
+    B, S, H, D = q.shape
+
+    def call():
+        out = torch.empty_like(q)
+        strides = (ctypes.c_int64 * 15)(
+            *(st for x in (q, k, v, out)
+              for st in fa._seq_strides(x, "bshd")), *fa._bias_strides(bias))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), None, 0, B, H, S, k.shape[1], D, strides,
+                 float(scale), int(causal), 0, 0, 0,
+                 torch.cuda.current_stream().cuda_stream)
+        _require(err == 0, f"baseline flash_attention_fwd failed: {err}")
+        return out
+    return call
+
+
+def _baseline_sgd(torch, baseline, pairs, lr):
+    """One SGD step of an earlier checkout over (p, g) pairs: its
+    fused_optimizer.cu's single-tensor pt_fused_sgd, one launch a
+    parameter (the design before the multi-tensor launch)."""
+    import ctypes
+    fn = _baseline_lib(baseline, "fused_optimizer.cu").pt_fused_sgd
+    P = ctypes.c_void_p
+    fn.argtypes = [P, P, P, ctypes.c_int64, ctypes.c_float, P]
+    fn.restype = ctypes.c_int
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        for p, g in pairs:
+            err = fn(p.data_ptr(), g.data_ptr(), lr.data_ptr(), p.numel(),
+                     0.0, stream)
+            _require(err == 0, f"baseline fused_sgd failed: {err}")
+    return call
 
 
 def _device_ms(torch, fn, iters, keys):
@@ -588,7 +697,7 @@ def time_training_attention(torch, dev, card):
     events figures of earlier runs are printed on their own line."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    _, peak_bf16, peak_bw, _ = _peaks(card)
+    _, peak_bf16, peak_bw, _, _ = _peaks(card)
     B, H, S, D = TRAIN_B, 8, TRAIN_S, 64
     q, k, v, bias = _attn_inputs(torch, dev, torch.bfloat16, "bshd", B, H,
                                  S, S, D, "key_pad", seed=7)
@@ -715,7 +824,7 @@ def time_adam(torch, dev, card, shapes):
     lowers, as the adam op runs it on the card: host clock and device
     time."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
-    _, _, peak_bw, _ = _peaks(card)
+    _, _, peak_bw, _, _ = _peaks(card)
     routed, lowered = _routed(shapes)
     state = [_adam_state(torch, dev, int(np.prod(sh)), i)
              for i, sh in enumerate(routed)]
@@ -776,41 +885,55 @@ def _sgd_pair(torch, dev, n, seed):
 
 
 def sgd_phase(torch, dev, groups):
-    """The SGD kernel against its plain version, 0 ulp, over each group
-    of parameter shapes (weight decay 1e-4 too on the odd lengths);
-    returns the worst |err|."""
+    """The SGD kernel against its plain version, 0 ulp: one multi-tensor
+    launch over each group's list of parameter shapes (weight decay 1e-4
+    too on the odd lengths); returns the worst |err|."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.kernels import registry as kreg
     lr = torch.tensor([MNIST_LR], device=dev)
     worst = 0.0
     for label, shapes, wds in groups:
-        ulp, err, n = 0, 0.0, 0
-        for i, sh in enumerate(shapes):
-            p, g = _sgd_pair(torch, dev, int(np.prod(sh)), i)
-            for wd in wds:
-                ref = fo.sgd_plain(p, g, lr[0], wd)
-                got = fo.fused_sgd(p.clone(), g, lr, weight_decay=wd)
-                ulp = max(ulp, int(_ulps(torch, got, ref).max()))
-                err = max(err, (got - ref).abs().max().item())
-            n += p.numel()
-        torch.cuda.synchronize()
+        pairs = [_sgd_pair(torch, dev, int(np.prod(sh)), i)
+                 for i, sh in enumerate(shapes)]
+        n = sum(p.numel() for p, _ in pairs)
+        ulp, err = 0, 0.0
+        for wd in wds:
+            refs = [fo.sgd_plain(p, g, lr[0], wd) for p, g in pairs]
+            kreg.reset_counts()
+            got = fo.fused_sgd_multi([p.clone() for p, _ in pairs],
+                                     [g for _, g in pairs], lr,
+                                     weight_decay=wd)
+            torch.cuda.synchronize()
+            _require(kreg.launches()["fused_sgd"] == 1,
+                     f"fused_sgd ({label}): {kreg.launches()['fused_sgd']} "
+                     f"launches for one list")
+            for a, r in zip(got, refs):
+                ulp = max(ulp, int(_ulps(torch, a, r).max()))
+                err = max(err, (a - r).abs().max().item())
         print(f"  sgd vs plain, {label} ({len(shapes)} tensors, {n} "
-              f"elements): max ulp {ulp}, max|err| {err:.3e} (bound "
-              f"{SGD_ULP} ulp) {'ok' if ulp <= SGD_ULP else 'FAIL'}")
+              f"elements, one launch): max ulp {ulp}, max|err| {err:.3e} "
+              f"(bound {SGD_ULP} ulp) {'ok' if ulp <= SGD_ULP else 'FAIL'}")
         _require(ulp <= SGD_ULP, f"fused_sgd ({label}) is {ulp} ulp from "
                                  f"its plain version")
         worst = max(worst, err)
     return worst
 
 
-def time_sgd(torch, dev, card, shapes, label):
-    """One SGD step over the given parameter shapes: the kernel (one
-    launch per parameter), the plain version and two library calls that
-    compute the same update (p.add_(g, alpha=-lr) per parameter, and
-    torch._foreach_add_ over the list, the yardstick: one call), all by
-    profiler device time; and the bound of 12 bytes an element (read p
-    and g, write p)."""
+def time_sgd(torch, dev, card, shapes, label, baseline=None):
+    """One SGD step over the given parameter shapes: the kernel as the
+    engine calls it (one list, one launch), the same kernel a parameter
+    at a time (a list of one a launch, as many launches as the design
+    before the list launch made),
+    the plain version and two library calls that compute the same
+    update (p.add_(g, alpha=-lr) per parameter, and torch._foreach_add_
+    over the list, the yardstick: one call), all by profiler device
+    time; and the bound of 12 bytes an element (read p and g, write
+    p). With `baseline` (an earlier checkout) its SGD kernel too, one
+    launch a parameter, in turns with this one's list launch, its
+    parameters against this one's (0 ulp)."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
-    _, _, peak_bw, _ = _peaks(card)
+    from paddle_tpu_torch.kernels import registry as kreg
+    _, _, peak_bw, _, _ = _peaks(card)
     pairs = [_sgd_pair(torch, dev, int(np.prod(sh)), i)
              for i, sh in enumerate(shapes)]
     ps, gs = [p for p, _ in pairs], [g for _, g in pairs]
@@ -818,6 +941,9 @@ def time_sgd(torch, dev, card, shapes, label):
     lr = torch.tensor([MNIST_LR], device=dev)
 
     def kernel():
+        fo.fused_sgd_multi(ps, gs, lr)
+
+    def per_param():
         for p, g in pairs:
             fo.fused_sgd(p, g, lr)
 
@@ -832,23 +958,56 @@ def time_sgd(torch, dev, card, shapes, label):
     def foreach():
         torch._foreach_add_(ps, gs, alpha=-MNIST_LR)
 
+    kreg.reset_counts()
+    kernel()
+    launches = kreg.launches()["fused_sgd"]
+    base_ms = None
+    if baseline:
+        base = _baseline_sgd(torch, baseline, pairs, lr)
+        twins = [(p.clone(), g) for p, g in pairs]
+        base()
+        fo.fused_sgd_multi([p for p, _ in twins], [g for _, g in twins], lr)
+        _require(all(torch.equal(p, t) for (p, _), (t, _) in
+                     zip(pairs, twins)), "the baseline's SGD disagrees")
+        old = ("sgd_kernel",)
+        runs = [_device_ms(torch, base, 5, old)[old[0]],
+                _device_ms(torch, kernel, 5, ("sgd_multi_kernel",))[
+                    "sgd_multi_kernel"],
+                _device_ms(torch, kernel, 5, ("sgd_multi_kernel",))[
+                    "sgd_multi_kernel"],
+                _device_ms(torch, base, 5, old)[old[0]]]
+        base_ms = (runs[0] + runs[3]) / 2
+        print(f"  sgd over {label}: the baseline checkout's kernel "
+              f"({len(shapes)} launches) {base_ms:.4f} ms against this "
+              f"one's list launch {(runs[1] + runs[2]) / 2:.4f} ms (in "
+              f"turns: {', '.join(f'{x:.4f}' for x in runs)}; equal "
+              f"parameters)")
     ev = _time_ms(kernel, iters=10, warmup=2)
+    kq, kq_host = _queued_ms(torch, kernel)
+    fq, fq_host = _queued_ms(torch, foreach)
+    each_ev = _time_ms(per_param, iters=10, warmup=2)
     pl_ev = _time_ms(plain, iters=10, warmup=2)
-    dev_ms = _device_ms(torch, kernel, 5, ("sgd_kernel",))["sgd_kernel"]
+    key = ("sgd_multi_kernel",)
+    dev_ms = _device_ms(torch, kernel, 5, key)[key[0]]
+    each_ms = _device_ms(torch, per_param, 5, key)[key[0]]
     pl = _device_ms(torch, plain, 5, ("",))[""]
     lib_each = _device_ms(torch, each, 5, ("",))[""]
     lib = _device_ms(torch, foreach, 5, ("",))[""]
     bound = 12 * n / peak_bw * 1e3
     print(f"  sgd over {label}'s {len(shapes)} parameters, {n} elements "
-          f"(device ms a step): kernel {dev_ms:.4f} ({len(shapes)} "
-          f"launches; events over the launch loop {ev:.4f}), plain "
-          f"{pl:.4f} (events {pl_ev:.4f}), p.add_ per parameter "
-          f"{lib_each:.4f}, "
-          f"torch._foreach_add_ {lib:.4f}, bound {bound:.4f} (bytes: "
-          f"12 B x {n})")
-    return {"ms": dev_ms, "events_ms": ev, "plain_ms": pl,
-            "library_ms": lib, "library_each_ms": lib_each,
-            "bound_ms": bound, "bound_by": "bytes", "elements": n}
+          f"(device ms a step): kernel {dev_ms:.4f} ({launches} launch(es) "
+          f"a list; events {ev:.4f}; queued events {kq:.4f}, host "
+          f"{kq_host:.1f} ms to queue 10; torch._foreach_add_ queued "
+          f"{fq:.4f}, host {fq_host:.1f} ms), the same kernel a parameter at a "
+          f"time {each_ms:.4f} ({len(shapes)} launches; events "
+          f"{each_ev:.4f}), plain {pl:.4f} (events {pl_ev:.4f}), p.add_ "
+          f"per parameter {lib_each:.4f}, torch._foreach_add_ {lib:.4f}, "
+          f"bound {bound:.4f} (bytes: 12 B x {n})")
+    return {"ms": dev_ms, "events_ms": ev, "per_param_ms": each_ms,
+            "baseline_ms": base_ms, "queued_ms": kq,
+            "launches": launches, "plain_ms": pl, "library_ms": lib,
+            "library_each_ms": lib_each, "bound_ms": bound,
+            "bound_by": "bytes", "elements": n}
 
 
 def where_time_goes(torch, exe, main, feed, cost, scope):
@@ -927,11 +1086,12 @@ def slice_phase(torch, dev):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     _require(counts["flash_attention_fwd"] == 18 * len(batches)
+             and counts["flash_attention_fwd_f32_sm90"] == 18 * len(batches)
              and counts["flash_attention_fwd_sm90"] == 0,
              f"flash_attention_fwd launched "
              f"{counts['flash_attention_fwd']} times in "
-             f"{len(batches)} float32 forwards (want 18 each, none of "
-             f"them the bf16 tensor-core kernel's)")
+             f"{len(batches)} float32 forwards (want 18 each, all of them "
+             f"the float32 tensor-core kernel's)")
     for (lg, c), feed in zip(outs, batches):
         _require(lg.shape == (B, S, cfg.trg_vocab_size),
                  f"logits shape {lg.shape}")
@@ -1135,23 +1295,28 @@ def _mm_f32_out(torch, xb, yb):
     return lambda: torch.mm(xb, yb, out_dtype=torch.float32)
 
 
-def _baseline_qmm(torch, baseline):
-    """call(x, y, mode) of the quantized GEMM of an earlier checkout of
-    this repo (its paddle_tpu_torch/csrc/quantized_matmul.cu, the same C
-    interface, the mma.sync design up to PR 5), built with the port's
-    nvcc flags into _build/baseline/: to time both designs in one run."""
+def _baseline_lib(baseline, source):
+    """The library of one source of an earlier checkout of this repo (its
+    paddle_tpu_torch/csrc/<source>), built with the port's nvcc flags into
+    _build/baseline/: to time both versions of a kernel in one run."""
     import ctypes
     from paddle_tpu_torch.kernels import registry as kreg
-    src = os.path.join(baseline, "paddle_tpu_torch", "csrc",
-                       "quantized_matmul.cu")
+    src = os.path.join(baseline, "paddle_tpu_torch", "csrc", source)
     out_dir = kreg.BUILD_DIR / "baseline"
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libquantized_matmul_baseline.so"
+    so = out_dir / f"lib{source[:-3]}_baseline.so"
     res = subprocess.run([kreg.nvcc_path(), *kreg.NVCC_FLAGS, "-o", str(so),
                           src], capture_output=True, text=True)
     _require(res.returncode == 0, f"the baseline's build failed:\n"
                                   f"{res.stdout}{res.stderr}")
-    fn = ctypes.CDLL(str(so)).pt_quantized_matmul
+    return ctypes.CDLL(str(so))
+
+
+def _baseline_qmm(torch, baseline):
+    """call(x, y, mode) of the quantized GEMM of an earlier checkout of
+    this repo (its quantized_matmul.cu, the same C interface)."""
+    import ctypes
+    fn = _baseline_lib(baseline, "quantized_matmul.cu").pt_quantized_matmul
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p, p, p]
     fn.restype = i
@@ -1197,7 +1362,7 @@ def time_gemms(torch, dev, card, winners, baseline=None):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import quantized_matmul as qm
     from paddle_tpu_torch.tuning import variants as V
-    peak_f32, peak_bf16, peak_bw, peak_i8 = _peaks(card)
+    peak_f32, peak_bf16, peak_bw, peak_i8, _ = _peaks(card)
     base = _baseline_qmm(torch, baseline) if baseline else None
     out = {}
     for M, K, N, per_fwd in SERVE_GEMMS:
@@ -1339,11 +1504,11 @@ def serve_mode(torch, served, mode):
     """The serving forward again with every mul through one GEMM kernel:
     mode int8 / bf16 (PT_KERNEL_QUANT_MATMUL) or tuned (the registered
     search winner). Requires 97 launches of that kernel and 18 of the
-    attention kernel a forward, compares the logits with the same forward
-    with only the GEMMs plain (int8: bit-equal), with the same forward
-    under plain_reference(), and with the float32 forward, and prints the
-    dispatch stats. Returns the kernel's launches in this mode's three
-    forwards."""
+    float32 tensor-core attention forward a forward, compares the logits
+    with the same forward with only the GEMMs plain (int8: bit-equal),
+    with the same forward under plain_reference(), and with the float32
+    forward, and prints the dispatch stats. Returns the kernel's launches
+    in this mode's three forwards."""
     from paddle_tpu_torch.kernels import registry as kreg
     exe, main, scope = served["exe"], served["main"], served["scope"]
     batches, logits, cost = served["batches"], served["logits"], \
@@ -1367,7 +1532,8 @@ def serve_mode(torch, served, mode):
               f"{stats['decisions']}, custom {stats['custom']})")
         n = len(batches)
         want = {k: 0 for k in counts}
-        want.update({routed: SERVE_MULS * n, "flash_attention_fwd": 18 * n})
+        want.update({routed: SERVE_MULS * n, "flash_attention_fwd": 18 * n,
+                     "flash_attention_fwd_f32_sm90": 18 * n})
         _require(counts == want, f"{mode} serving launched {counts}, want "
                                  f"{want}")
         lg, c = last
@@ -1713,7 +1879,8 @@ def mnist_phase(torch, dev, card):
                   f"decisions a step {dec[0]}")
             _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
                      f"{label}: the LeNet loss did not fall")
-            want = 6 * MNIST_STEPS if floor else 0
+            # the engine hands the six sgd ops to one list launch a step
+            want = MNIST_STEPS if floor else 0
             _require(launches == {**{k: 0 for k in launches},
                                   "fused_sgd": want},
                      f"{label}: launches {launches}, want {want} fused_sgd "
@@ -1787,8 +1954,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="an earlier checkout of this repo: time its "
-                         "quantized GEMM beside this one's in the GEMM times "
-                         "phase")
+                         "CUDA-core attention forward, SGD kernel and "
+                         "quantized GEMM in turns with this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1805,8 +1972,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
+         "clocks.max.mem", "--format=csv"], capture_output=True,
+        text=True).stdout.strip().replace("\n", "; ")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{card}; TF32 off")
+          f"{card}; TF32 off; nvidia-smi {clocks}")
 
     print("[build]")
     t0 = time.perf_counter()
@@ -1831,7 +2002,7 @@ def main(argv=None):
     from paddle_tpu_torch.tuning import variants as V
     built = _build_training(pt, T)
     shapes = [p.shape for p in built[1].all_parameters()]
-    times = time_attention(torch, dev, card)
+    times = time_attention(torch, dev, card, args.baseline)
     ttimes = time_training_attention(torch, dev, card)
     atimes = time_adam(torch, dev, card, shapes)
     lenet_shapes = [p.shape for p in _mnist_program(pt)[0].all_parameters()]
@@ -1840,12 +2011,14 @@ def main(argv=None):
          (0.0, 1e-4)),
         ("LeNet", lenet_shapes, (0.0,)),
         ("Transformer-base", shapes, (0.0,))))
-    stimes = time_sgd(torch, dev, card, shapes, "Transformer-base")
-    slenet = time_sgd(torch, dev, card, lenet_shapes, "LeNet")
-    for t in (times[False], ttimes[False]["fwd"], ttimes[False]["fwd_sm90"],
-              ttimes[False]["dq"], ttimes[False]["dq_sm90"],
-              ttimes[False]["dkv"], ttimes[False]["dkv_sm90"], atimes, stimes,
-              slenet):
+    stimes = time_sgd(torch, dev, card, shapes, "Transformer-base",
+                      args.baseline)
+    slenet = time_sgd(torch, dev, card, lenet_shapes, "LeNet",
+                      args.baseline)
+    for t in (times[False], times[("f32_sm90", False)], ttimes[False]["fwd"],
+              ttimes[False]["fwd_sm90"], ttimes[False]["dq"],
+              ttimes[False]["dq_sm90"], ttimes[False]["dkv"],
+              ttimes[False]["dkv_sm90"], atimes, stimes, slenet):
         _require(t["ms"] > 0, "the profiler saw no device time")
 
     print("[serving phase]")
@@ -1884,18 +2057,25 @@ def main(argv=None):
     train = "training shape drop t=230"
     # the shared attention counters count both designs: a CUDA-core row
     # takes its main path's launches less the tensor-core ones. The
-    # CUDA-core forward's main path is float32 serving (its row: the
+    # float32 forward's main path is serving (the tensor-core row: the
     # serving phase's launches, times at the serving shape); the
-    # CUDA-core dq (with its di pre-pass) and dk/dv run on no main path
-    # (0 launches; their times are of the bf16 training shape through
-    # that design, beside the new kernels')
+    # CUDA-core forward, dq (with its di pre-pass) and dk/dv run on no
+    # main path (0 launches; their times are of the serving and the bf16
+    # training shape through that design, beside the new kernels')
     rows = []
     for name, source, replaces, t, err, launches in (
             ("flash_attention_fwd", "flash_attention_fwd.cu",
              "paddle_tpu/kernels/flash_attention.py:353", times[False],
              worst[("flash_attention_fwd", "float32", "serving shape")],
              counts["flash_attention_fwd"]
-             - counts["flash_attention_fwd_sm90"]),
+             - counts["flash_attention_fwd_sm90"]
+             - counts["flash_attention_fwd_f32_sm90"]),
+            ("flash_attention_fwd_f32_sm90", "flash_attention_fwd_f32_sm90.cu",
+             "paddle_tpu/kernels/flash_attention.py:353",
+             times[("f32_sm90", False)],
+             worst[("flash_attention_fwd_f32_sm90", "float32",
+                    "serving shape")],
+             counts["flash_attention_fwd_f32_sm90"]),
             ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
              "paddle_tpu/kernels/flash_attention.py:353",
              ttimes[False]["fwd_sm90"],

@@ -19,7 +19,10 @@ A training run differs in three ways:
   new dropout masks, and two fresh scopes draw the same ones.
 Each intermediate is freed after its last reader in the block (a fetch
 target or a persistable is kept), so peak memory holds what the backward
-still needs and little else.
+still needs and little else. A run of consecutive ops whose type has a
+group lowering (core/registry.py register_group: the sgd ops of a step
+that share a rate) runs in one call, so a kernel can take it in one
+launch, as the JAX package's one executable per block does.
 """
 from __future__ import annotations
 
@@ -66,28 +69,56 @@ def _last_reads(block, keep):
     return frees
 
 
+def _group_end(ops, i, key, record_slots):
+    """The end of the run of ops from index i that one group lowering
+    takes: the same type, equal keys, no forward record, and no op that
+    reads what an earlier op of the run writes."""
+    first = ops[i]
+    k, written = key(first), set(first.output_arg_names)
+    j = i + 1
+    while j < len(ops):
+        op = ops[j]
+        if op.type != first.type or key(op) != k or \
+                op.attr(OP_UID_ATTR) in record_slots or \
+                written.intersection(op.input_arg_names):
+            break
+        written.update(op.output_arg_names)
+        j += 1
+    return j
+
+
 def run_block_ops(block, env: Dict[str, torch.Tensor], device, run=None,
                   frees=None):
     """Run every op of `block` in order, reading and writing `env`.
     `run` is the RunState (None: no records, program seed 0); `frees`
     maps an op index to the names to drop from env after it."""
     record_slots = run.record_slots if run is not None else {}
-    for i, op in enumerate(block.ops):
+    ops = block.ops
+    i = 0
+    while i < len(ops):
+        op = ops[i]
         info = OPS.get(op.type)
+        j = i + 1
         try:
             uid = op.attr(OP_UID_ATTR)
             if uid in record_slots and not info.is_grad_op:
                 run.records[uid] = run_forward_for_vjp(
                     op.type, op._inputs, op._outputs, op._attrs,
                     record_slots[uid], env, env, device, run)
+            elif info.group is not None:
+                key, lower = info.group
+                j = _group_end(ops, i, key, record_slots)
+                lower([ExecContext(o, env, device, run) for o in ops[i:j]])
             else:
                 info.lowering(ExecContext(op, env, device, run))
         except EnforceNotMet:
             raise
         except Exception as exc:  # re-raise with op and var context
             raise wrap_op_error(exc, op, env, i) from exc
-        for n in (frees or {}).get(i, ()):
-            env.pop(n, None)
+        for k in range(i, j):
+            for n in (frees or {}).get(k, ()):
+                env.pop(n, None)
+        i = j
 
 
 def _persistable_inputs(block) -> List[str]:

@@ -41,13 +41,19 @@ RENAME_SEP = "@RENAME@"
 
 
 class OpInfo:
-    __slots__ = ("type", "lowering", "no_grad_slots", "is_grad_op")
+    """One op type. `group`, where set (register_group), is
+    ``(key(op), lowering(ctxs))``: the engine hands a run of consecutive
+    ops of this type with equal keys to ``lowering`` in one call."""
+
+    __slots__ = ("type", "lowering", "no_grad_slots", "is_grad_op",
+                 "group")
 
     def __init__(self, type, lowering, no_grad_slots=(), is_grad_op=False):
         self.type = type
         self.lowering = lowering
         self.no_grad_slots = frozenset(no_grad_slots)
         self.is_grad_op = is_grad_op
+        self.group = None
 
 
 class OpInfoMap:
@@ -94,6 +100,19 @@ def register_no_grad_op(op_type: str):
     """Register an op that has no gradient (fills, optimizer updates)."""
     def deco(fn):
         OPS.insert(OpInfo(op_type, fn))
+        return fn
+    return deco
+
+
+def register_group(op_type: str, key):
+    """Decorator registering ``fn(ctxs)``, the lowering of a run of
+    consecutive ``op_type`` ops whose ``key(op)`` agree (and none of which
+    reads what an earlier one of the run writes): the port's counterpart
+    of the JAX package compiling a block's updates into one executable,
+    where a kernel can take the whole run in one launch. Each op must
+    give the same result as through its own lowering."""
+    def deco(fn):
+        OPS.get(op_type).group = (key, fn)
         return fn
     return deco
 

@@ -35,20 +35,25 @@
 //   * causal: dq stops at the diagonal key tile, dk/dv starts at the
 //     diagonal query tile;
 //   * head dims up to 128 stage whole [64][D] tiles (q and dO, or k and v,
-//     once a block); D up to 256 would need 266 KB of such tiles, over
-//     the 227 KB a block may have, so there the products run over two
-//     128-column chunks of every operand, reloaded for each tile (the
-//     gradient's accumulator still spans all of D).
+//     once a block); above that the products run over 128-column chunks
+//     of every operand, reloaded for each tile, and each block
+//     accumulates one 256-column group of its gradient (one group up to
+//     D = 256; the grid's x dimension is tiles x groups, and each group's
+//     block recomputes the same s and dp), so every D from 1 up runs.
 //   * rows past Sq read lse = +inf (p = 0) and keys past Sk give p = 0,
 //     so any S works; rows whose keys are all padded by a large negative
 //     bias stay finite, as in the plain version.
-// float32 FMA on CUDA cores first; wgmma and TMA come later.
+// bf16 calls that meet TMA's rules take the tensor-core designs
+// (flash_attention_bwd_dq_sm90.cu, flash_attention_bwd_dkv_sm90.cu); these
+// kernels take float32 and every other call.
 
 #include "flash_attention_common.cuh"
 
 namespace {
 
 using fa::BK;
+using fa::chunk;
+using fa::load_tile;
 using fa::BQ;
 using fa::from_f;
 using fa::NEG_INF;
@@ -82,21 +87,6 @@ struct Params {
   int drop_t;
   float drop_scale;
 };
-
-// Load rows [r0, r0 + 64) of one head's [S, D] slice into a float32
-// [64][ST] tile, zero past S and D.
-template <typename T, int DPAD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t row_stride, int r0, int S,
-                                          int D) {
-  constexpr int ST = DPAD + 4;
-  for (int i = threadIdx.x; i < 64 * DPAD; i += NTHREADS) {
-    const int r = i / DPAD, d = i % DPAD;
-    float x = 0.f;
-    if (r0 + r < S && d < D) x = to_f(src[(r0 + r) * row_stride + d]);
-    dst[r * ST + d] = x;
-  }
-}
 
 // a[i][j] += A[ra + 16i] . B[rb + 16j] over the staged width CH, for two
 // pairs of tiles at once (s += A1.B1, dp += A2.B2).
@@ -198,17 +188,17 @@ __global__ void __launch_bounds__(NTHREADS) di_kernel(const Params p) {
   if (lane == 0) p.di[r] = acc;
 }
 
-// The staged width of a head dim padded to DPAD: the whole of it up to
-// 128, else 128-column chunks.
+// The column groups of a gradient and the blocks of one tile: one group
+// up to D = 256, else ceil(D / 256).
 template <int DPAD>
-__host__ __device__ constexpr int chunk() {
-  return DPAD <= 128 ? DPAD : 128;
+__host__ __device__ __forceinline__ int n_groups(int D) {
+  return (D + DPAD - 1) / DPAD;
 }
 
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
   constexpr int CH = chunk<DPAD>();
-  constexpr int NC = DPAD / CH;
+  constexpr int NC = DPAD / CH;  // chunks of a column group
   constexpr int ST = CH + 4;
   constexpr int G = DPAD / 64;
   extern __shared__ float4 smem4[];
@@ -221,7 +211,12 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
   float* sD = sL + BQ;                          // di [BQ]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int groups = n_groups<DPAD>(p.D);
+  const int q0 = (blockIdx.x / groups) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int d0 = (blockIdx.x % groups) * DPAD;  // this block's dq columns
+  const int c0 = d0 / CH;                       // its first chunk
+  // chunks of the operands s and dp sum over
+  const int n_in = NC == 1 ? 1 : (p.D + CH - 1) / CH;
   const int64_t bh = static_cast<int64_t>(b) * p.H + h;
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* og = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
@@ -256,8 +251,7 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < n_in; ++c) {
       __syncthreads();  // the last reads of the staged tiles are done
       if constexpr (NC > 1) {
         load_tile<T, CH>(sQ, qg + c * CH, p.q_ss, q0, p.Sq, p.D - c * CH);
@@ -285,19 +279,22 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
             d = fa::keep(hseed, row, col, p.Sk, p.drop_t) ? d * p.drop_scale
                                                          : 0.f;
           ds = pr * (d - sD[r]);
-          if (p.ds != nullptr)
+          if (p.ds != nullptr && d0 == 0)
             p.ds[(bh * p.Sq + row) * p.Sk + col] = ds;
         }
         sS[r * P_STRIDE + tx + 16 * j] = fa::round_to<T>(ds);
       }
     }
     __syncthreads();
-    // the last chunk of k is staged; the others are loaded again
+    // the group's chunks of k: the last of D is staged, the others are
+    // loaded again; chunks past D add nothing
 #pragma unroll
     for (int c = NC - 1; c >= 0; --c) {
-      if (c != NC - 1) {
+      const int gc = c0 + c;
+      if (gc >= n_in) continue;
+      if (gc != n_in - 1) {
         __syncthreads();
-        load_tile<T, CH>(sK, kg + c * CH, p.k_ss, k0, p.Sk, p.D - c * CH);
+        load_tile<T, CH>(sK, kg + gc * CH, p.k_ss, k0, p.Sk, p.D - gc * CH);
         __syncthreads();
       }
       tile_times<CH, DPAD>(sS, sK, ty, tx, c * (CH / 64), acc);
@@ -313,7 +310,7 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int d = 64 * g + 4 * tx + c;
+        const int d = d0 + 64 * g + 4 * tx + c;
         if (d < p.D)
           dqg[row * p.dq_ss + d] = from_f<T>(acc[i][4 * g + c] * p.scale);
       }
@@ -337,7 +334,11 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
   float* sD = sL + BQ;                          // di [BQ]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int groups = n_groups<DPAD>(p.D);
+  const int k0 = (blockIdx.x / groups) * BK, h = blockIdx.y, b = blockIdx.z;
+  const int d0 = (blockIdx.x % groups) * DPAD;  // this block's dk/dv columns
+  const int c0 = d0 / CH;                       // its first chunk
+  const int n_in = NC == 1 ? 1 : (p.D + CH - 1) / CH;
   const int64_t bh = static_cast<int64_t>(b) * p.H + h;
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* og = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
@@ -369,8 +370,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < n_in; ++c) {
       __syncthreads();  // the last reads of the staged tiles are done
       if constexpr (NC > 1) {
         load_tile<T, CH>(sK, kg + c * CH, p.k_ss, k0, p.Sk, p.D - c * CH);
@@ -414,13 +414,17 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
       }
     }
     __syncthreads();
-    // the last chunk of q and dO is staged; the others are loaded again
+    // the group's chunks of q and dO: the last of D is staged, the
+    // others are loaded again; chunks past D add nothing
 #pragma unroll
     for (int c = NC - 1; c >= 0; --c) {
-      if (c != NC - 1) {
+      const int gc = c0 + c;
+      if (gc >= n_in) continue;
+      if (gc != n_in - 1) {
         __syncthreads();
-        load_tile<T, CH>(sQ, qg + c * CH, p.q_ss, q0, p.Sq, p.D - c * CH);
-        load_tile<T, CH>(sO, og + c * CH, p.do_ss, q0, p.Sq, p.D - c * CH);
+        load_tile<T, CH>(sQ, qg + gc * CH, p.q_ss, q0, p.Sq, p.D - gc * CH);
+        load_tile<T, CH>(sO, og + gc * CH, p.do_ss, q0, p.Sq,
+                         p.D - gc * CH);
         __syncthreads();
       }
       tile_times<CH, DPAD>(sP, sO, ty, tx, c * (CH / 64), acc_v);
@@ -438,7 +442,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int d = 64 * g + 4 * tx + c;
+        const int d = d0 + 64 * g + 4 * tx + c;
         if (d < p.D) {
           dkg[key * p.dk_ss + d] = from_f<T>(acc_k[i][4 * g + c] * p.scale);
           dvg[key * p.dv_ss + d] = from_f<T>(acc_v[i][4 * g + c]);
@@ -463,7 +467,7 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
+  const dim3 grid((p.Sq + BQ - 1) / BQ * n_groups<DPAD>(p.D), p.H, p.B);
   dq_kernel<T, DPAD><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -477,7 +481,7 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
       dkv_kernel<T, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sk + BK - 1) / BK, p.H, p.B);
+  const dim3 grid((p.Sk + BK - 1) / BK * n_groups<DPAD>(p.D), p.H, p.B);
   dkv_kernel<T, DPAD><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -487,8 +491,8 @@ int fill(Params& p, const void* q, const void* k, const void* v,
          const void* lse, void* di, void* dq, void* dk, void* dv, void* ds,
          int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
          int causal, uint32_t s0, uint32_t s1, int drop_t) {
-  if (D < 1 || D > 256 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
-      drop_t < 0 || drop_t > 255)
+  if (D < 1 || B < 1 || H < 1 || Sq < 1 || Sk < 1 || drop_t < 0 ||
+      drop_t > 255)
     return 0;
   p.q = q;
   p.k = k;

@@ -41,6 +41,44 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// The staged width of a head dim padded to DPAD: the whole of it up to
+// 128, else 128-column chunks (and above 256, 256-column groups of the
+// output, one block each).
+template <int DPAD>
+__host__ __device__ constexpr int chunk() {
+  return DPAD <= 128 ? DPAD : 128;
+}
+
+// Load rows [r0, r0 + 64) of one head's [S, D] slice into a float32
+// [64][ST] tile, columns 0 .. W - 1, zero past S and D (D <= 0: all zero).
+// Eight loads a thread are in flight before their stores: the compiler
+// cannot move a global load past a store through a generic pointer.
+template <typename T, int W, int ST = W + 4>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int64_t row_stride, int r0, int S,
+                                          int D) {
+  constexpr int PER = 64 * W / NTHREADS;  // elements a thread
+  constexpr int BATCH = PER < 8 ? PER : 8;
+  static_assert(PER * NTHREADS == 64 * W && PER % BATCH == 0,
+                "tile width");
+#pragma unroll 1
+  for (int i0 = 0; i0 < PER; i0 += BATCH) {
+    float x[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = (i0 + u) * NTHREADS + threadIdx.x;
+      const int r = i / W, d = i % W;
+      x[u] = r0 + r < S && d < D ? to_f(src[(r0 + r) * row_stride + d])
+                                 : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = (i0 + u) * NTHREADS + threadIdx.x;
+      dst[(i / W) * ST + i % W] = x[u];
+    }
+  }
+}
+
 // The attention-dropout keep mask of paddle_tpu/kernels/flash_attention.py
 // (_hash_keep, dropout_keep_mask): murmur3's finalizer over
 // (seed words, batch*H + head, absolute row, absolute column, Sk). It is a

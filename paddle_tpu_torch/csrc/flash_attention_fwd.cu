@@ -34,11 +34,17 @@
 //     are masked in the kernel, so any S works;
 //   * the dropout mask is recomputed from the hash (about a dozen integer
 //     operations per weight) instead of being read from memory.
-// float32 FMA on CUDA cores is the first, simple design; wgmma and TMA
-// come later.
+// Calls that meet TMA's rules take the tensor-core designs instead
+// (flash_attention_fwd_sm90.cu in bf16, flash_attention_fwd_f32_sm90.cu in
+// float32); this kernel takes every other call: head dims above 128 or
+// not a multiple of a 16-byte row, tensors off 16-byte alignment.
 //
-// Head dims up to 256 (the padded widths 64, 128 and 256; at 256 the q,
-// k, v and p tiles take 214 KB of the 227 KB a block may have).
+// Any head dim: up to 128 the q, k and v tiles are staged whole; above
+// that the scores run over 128-column chunks of q and k, reloaded for
+// each key tile, and each block writes a 256-column group of the output
+// (the grid's x dimension is query tiles x column groups; every group's
+// block recomputes the same scores, so their softmax statistics agree,
+// and the first group's block writes lse).
 // Layouts bshd ([B, S, H, D]) and bhsd ([B, H, S, D]) both arrive as
 // strides; the head dimension must be contiguous. bf16 inputs are a
 // template parameter: products and sums stay float32, p is rounded to
@@ -79,11 +85,19 @@ struct Params {
   float drop_scale;
 };
 
+// The column groups of the output and the blocks of one query tile: one
+// group up to D = 256, else ceil(D / 256).
+template <int DPAD>
+__host__ __device__ __forceinline__ int n_groups(int D) {
+  return (D + DPAD - 1) / DPAD;
+}
+
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(NTHREADS)
     fa_fwd_kernel(const Params p) {
-  constexpr int QK_STRIDE = DPAD + 4;  // 16-byte aligned, bank-skewed
-  constexpr int G = DPAD / 64;         // float4 output columns per thread
+  constexpr int CH = fa::chunk<DPAD>();  // staged width of q and k
+  constexpr int QK_STRIDE = CH + 4;      // 16-byte aligned, bank-skewed
+  constexpr int G = DPAD / 64;           // float4 output columns per thread
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][QK_STRIDE]
   float* sK = sQ + BQ * QK_STRIDE;              // [BK][QK_STRIDE]
@@ -93,7 +107,11 @@ __global__ void __launch_bounds__(NTHREADS)
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
+  const int groups = n_groups<DPAD>(p.D);
+  const int q0 = (blockIdx.x / groups) * BQ;
+  const int d0 = (blockIdx.x % groups) * DPAD;  // this block's out columns
+  // chunks of q and k the scores sum over
+  const int n_in = CH == DPAD ? 1 : (p.D + CH - 1) / CH;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
@@ -105,13 +123,9 @@ __global__ void __launch_bounds__(NTHREADS)
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const uint32_t hseed = fa::head_seed(p.s0, p.s1, b * p.H + h);
 
-  // q tile, zero beyond Sq and D
-  for (int i = tid; i < BQ * DPAD; i += NTHREADS) {
-    const int r = i / DPAD, d = i % DPAD;
-    float x = 0.f;
-    if (q0 + r < p.Sq && d < p.D) x = to_f(qg[(q0 + r) * p.q_ss + d]);
-    sQ[r * QK_STRIDE + d] = x;
-  }
+  // the whole q tile stays, zero beyond Sq and D
+  if constexpr (CH == DPAD)
+    fa::load_tile<T, CH>(sQ, qg, p.q_ss, q0, p.Sq, p.D);
 
   float m[4], l[4], acc[4][4 * G];
 #pragma unroll
@@ -128,45 +142,44 @@ __global__ void __launch_bounds__(NTHREADS)
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the last tile's sK/sV/sP reads are done
-    for (int i = tid; i < BK * DPAD; i += NTHREADS) {
-      const int r = i / DPAD, d = i % DPAD;
-      float kx = 0.f, vx = 0.f;  // zero rows keep 0 * p finite
-      if (k0 + r < p.Sk && d < p.D) {
-        kx = to_f(kg[(k0 + r) * p.k_ss + d]);
-        vx = to_f(vg[(k0 + r) * p.v_ss + d]);
-      }
-      sK[r * QK_STRIDE + d] = kx;
-      sV[r * DPAD + d] = vx;
-    }
-    __syncthreads();
-
-    // scores for rows ty + 16i, keys tx + 16j
+    // scores for rows ty + 16i, keys tx + 16j, over the chunks of D
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < n_in; ++c) {
+      __syncthreads();  // the last reads of sQ/sK/sV/sP are done
+      if constexpr (CH != DPAD)
+        fa::load_tile<T, CH>(sQ, qg + c * CH, p.q_ss, q0, p.Sq,
+                             p.D - c * CH);
+      // zero rows keep 0 * p finite
+      fa::load_tile<T, CH>(sK, kg + c * CH, p.k_ss, k0, p.Sk, p.D - c * CH);
+      if (c == 0)
+        fa::load_tile<T, DPAD, DPAD>(sV, vg + d0, p.v_ss, k0, p.Sk,
+                                     p.D - d0);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DPAD; d += 4) {
-      float4 qa[4], kb[4];
+      for (int d = 0; d < CH; d += 4) {
+        float4 qa[4], kb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(
-            &sQ[(ty + 16 * i) * QK_STRIDE + d]);
+        for (int i = 0; i < 4; ++i)
+          qa[i] = *reinterpret_cast<const float4*>(
+              &sQ[(ty + 16 * i) * QK_STRIDE + d]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(
-            &sK[(tx + 16 * j) * QK_STRIDE + d]);
+        for (int j = 0; j < 4; ++j)
+          kb[j] = *reinterpret_cast<const float4*>(
+              &sK[(tx + 16 * j) * QK_STRIDE + d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-        }
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
+            s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
+            s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
+            s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+          }
+      }
     }
 
     // scale, bias, masks, then the online-softmax update per row
@@ -215,7 +228,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     __syncthreads();
 
-    // out rows ty + 16i, columns 64g + 4tx .. +3:  acc += p . v
+    // out rows ty + 16i, columns d0 + 64g + 4tx .. +3:  acc += p . v
 #pragma unroll 2
     for (int j = 0; j < BK; j += 4) {
       float4 pa[4];
@@ -254,10 +267,10 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int d = 64 * g + 4 * tx + c;
+        const int d = d0 + 64 * g + 4 * tx + c;
         if (d < p.D) og[row * p.o_ss + d] = from_f<T>(acc[i][4 * g + c] / denom);
       }
-    if (p.lse != nullptr && tx == 0)
+    if (p.lse != nullptr && tx == 0 && d0 == 0)
       p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + row] =
           m[i] + logf(denom);
   }
@@ -265,13 +278,14 @@ __global__ void __launch_bounds__(NTHREADS)
 
 template <typename T, int DPAD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  constexpr int CH = fa::chunk<DPAD>();
   const int smem = static_cast<int>(
-      sizeof(float) * ((BQ + BK) * (DPAD + 4) + BK * DPAD + BQ * P_STRIDE));
+      sizeof(float) * ((BQ + BK) * (CH + 4) + BK * DPAD + BQ * P_STRIDE));
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_kernel<T, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
+  const dim3 grid((p.Sq + BQ - 1) / BQ * n_groups<DPAD>(p.D), p.H, p.B);
   fa_fwd_kernel<T, DPAD><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -290,8 +304,8 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const int64_t* strides, float scale,
                                       int causal, uint32_t s0, uint32_t s1,
                                       int drop_t, void* stream) {
-  if (D < 1 || D > 256 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
-      drop_t < 0 || drop_t > 255)
+  if (D < 1 || B < 1 || H < 1 || Sq < 1 || Sk < 1 || drop_t < 0 ||
+      drop_t > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;

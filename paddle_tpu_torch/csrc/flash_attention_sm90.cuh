@@ -1,8 +1,9 @@
 // Hopper pieces shared by the tensor-core flash-attention kernels
-// (flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu): mbarrier
-// and TMA (cp.async.bulk.tensor) wrappers, wgmma.mma_async m64n64k16 bf16
-// with A from shared memory or from registers, the shared-memory matrix
-// descriptors of a 128-byte-swizzled tile, and the host-side tensor maps.
+// (flash_attention_{fwd,bwd_dq,bwd_dkv}_sm90.cu, flash_attention_fwd_f32_sm90.cu):
+// mbarrier and TMA (cp.async.bulk.tensor) wrappers, wgmma.mma_async
+// m64n64k16 bf16 and m64n64k8 tf32 with A from shared memory or from
+// registers, the shared-memory matrix descriptors of a 128-byte-swizzled
+// tile, and the host-side tensor maps (bf16 and float32).
 //
 // Tiles. Every bf16 tile is [rows][64] elements, one 128-byte row a
 // sequence position, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a
@@ -75,6 +76,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// generic-proxy stores to shared memory (st.shared) made visible to the
+// async proxy (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // --------------------------------------------------------------------- TMA
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
@@ -90,20 +97,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 }
 
 // The 4-D map of a [B, S, H, D] or [B, H, S, D] tensor (see encode_seq)
-// loads `rows` sequence positions x 64 columns from chunk `dc` (columns
-// 64 dc ..) of head h, batch b, starting at position s0.
+// loads `rows` sequence positions x one 128-byte row of columns (64 bf16
+// or 32 float32) from chunk `dc` (columns cols * dc ..) of head h, batch
+// b, starting at position s0.
 struct SeqMap {
   CUtensorMap map;
   int head_inner;  // 1: dims (D, H, S, B); 0: dims (D, S, H, B)
+  int cols;        // columns a chunk: 64 (bf16) or 32 (float32)
 };
 
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const SeqMap& m,
                                               uint32_t bar, int dc, int s0,
                                               int h, int b) {
   if (m.head_inner)
-    tma_load_4d(dst, &m.map, bar, 64 * dc, h, s0, b);
+    tma_load_4d(dst, &m.map, bar, m.cols * dc, h, s0, b);
   else
-    tma_load_4d(dst, &m.map, bar, 64 * dc, s0, h, b);
+    tma_load_4d(dst, &m.map, bar, m.cols * dc, s0, h, b);
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -189,8 +198,61 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "r"(accumulate));
 }
 
+// tf32 (10-bit mantissa, float32 range): 32-bit operands, K = 8 a step
+// (32 bytes of a 128-byte row, as bf16's k16), both shared-memory
+// operands K-major (32-bit types take no transpose).
+
+// d (+)= A . B^T, A [64 x 8] and B [64 x 8] K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " PT_WGMMA_D32
+      ", %32, %33, p, 1, 1;\n"
+      "}\n"
+      : PT_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A . B^T, A [64 x 8] from registers (fragment a: rows 16w + g
+// (a[0], a[2]) and 16w + g + 8 (a[1], a[3]), columns c (a[0], a[1]) and
+// c + 4 (a[2], a[3]) for lane 4g + c of warp w), B [64 x 8] K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " PT_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : PT_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 #undef PT_WGMMA_D32
 #undef PT_WGMMA_OUT32
+
+// x rounded to tf32 (to nearest, ties away), as a 32-bit pattern whose
+// low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the 3xTF32 split of x: hi = tf32(x), lo = tf32(x - hi); x - hi is exact
+// in float32, and hi + lo is x to about 2^-22 of |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x: low 16 bits
@@ -238,37 +300,44 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of one bf16 [B, S, H, D] or [B, H, S, D] tensor from its element
-// strides of (batch, sequence, head), the head dim contiguous: dims ordered
-// as they lie in memory, boxes of 64 columns x `rows` positions, 128-byte
-// swizzle, zero fill past every edge (ragged S, D < 64 per chunk). TMA
+// The map of one bf16 (or, with f32, float32) [B, S, H, D] or [B, H, S, D]
+// tensor from its element strides of (batch, sequence, head), the head dim
+// contiguous: dims ordered as they lie in memory, boxes of one 128-byte
+// row of columns (64 bf16, 32 float32) x `rows` positions, 128-byte
+// swizzle, zero fill past every edge (ragged S, D short of a chunk). TMA
 // wants a 16-byte-aligned base and strides that are multiples of 16 bytes:
 // false if those fail or the driver refuses.
 inline bool encode_seq(SeqMap* m, const void* base, int B, int H, int S,
-                       int D, int64_t sb, int64_t ss, int64_t sh, int rows) {
+                       int D, int64_t sb, int64_t ss, int64_t sh, int rows,
+                       bool f32 = false) {
   EncodeTiledFn fn = encode_tiled();
+  const int64_t es = f32 ? 4 : 2;
   if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
-      (sb * 2) % 16 != 0 || (ss * 2) % 16 != 0 || (sh * 2) % 16 != 0 ||
-      D % 8 != 0)
+      (sb * es) % 16 != 0 || (ss * es) % 16 != 0 || (sh * es) % 16 != 0 ||
+      (D * es) % 16 != 0)
     return false;
   m->head_inner = sh <= ss;
+  m->cols = static_cast<int>(128 / es);
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], estr[4] = {1, 1, 1, 1};
   dims[0] = static_cast<cuuint64_t>(D);
-  box[0] = 64;
+  box[0] = static_cast<cuuint32_t>(m->cols);
   if (m->head_inner) {
     dims[1] = H, dims[2] = S;
-    strides[0] = sh * 2, strides[1] = ss * 2;
+    strides[0] = sh * es, strides[1] = ss * es;
     box[1] = 1, box[2] = rows;
   } else {
     dims[1] = S, dims[2] = H;
-    strides[0] = ss * 2, strides[1] = sh * 2;
+    strides[0] = ss * es, strides[1] = sh * es;
     box[1] = rows, box[2] = 1;
   }
   dims[3] = static_cast<cuuint64_t>(B);
-  strides[2] = sb * 2;
+  strides[2] = sb * es;
   box[3] = 1;
-  return fn(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return fn(&m->map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4,
             const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

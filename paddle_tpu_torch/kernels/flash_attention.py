@@ -5,11 +5,14 @@ Counterpart of paddle_tpu/kernels/flash_attention.py: _fa_kernel via
 _fa_forward, and _fa_bwd_dq_kernel / _fa_bwd_dkv_kernel via
 _fa_backward. The kernels are paddle_tpu_torch/csrc/flash_attention_fwd.cu
 and flash_attention_bwd.cu (float32 FMA on CUDA cores, any dtype the
-wrappers take, head dims up to 256), and the tensor-core designs for
-bf16, flash_attention_fwd_sm90.cu, flash_attention_bwd_dq_sm90.cu (di
-fused in) and flash_attention_bwd_dkv_sm90.cu (wgmma and TMA, head dims
-up to 128), all built at first use (kernels/registry.py). A bf16 call
-that meets TMA's rules (_sm90_eligible) takes the tensor-core kernels;
+wrappers take, any head dim), the tensor-core designs for bf16,
+flash_attention_fwd_sm90.cu, flash_attention_bwd_dq_sm90.cu (di fused
+in) and flash_attention_bwd_dkv_sm90.cu (wgmma and TMA, head dims up to
+128), and the float32 forward on the tensor cores,
+flash_attention_fwd_f32_sm90.cu (3xTF32 wgmma, head dims up to 128),
+all built at first use (kernels/registry.py). A call that meets TMA's
+rules (_sm90_eligible) takes the tensor-core kernels: bf16 forward and
+backward, float32 the forward (its backward stays on the CUDA cores);
 every other call the CUDA-core ones. A CUDA tensor goes to the kernels
 unless the kernel registry denies "flash_attention"
 (FLAGS_use_custom_kernels=0, PT_KERNEL_DENY); a CPU tensor goes to the
@@ -49,14 +52,16 @@ _KERNEL_DKV = "flash_attention_bwd_dkv"
 _KERNEL_SM90 = "flash_attention_fwd_sm90"
 _KERNEL_DKV_SM90 = "flash_attention_bwd_dkv_sm90"
 _KERNEL_DQ_SM90 = "flash_attention_bwd_dq_sm90"
+# the float32 tensor-core forward; flash_attention_fwd counts it too
+_KERNEL_F32_SM90 = "flash_attention_fwd_f32_sm90"
 # the name the kernel registry's flag, deny list and dispatch stats use
 _REGISTRY_NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernels take: the CUDA-core kernels any D up to 256 (the
-# head dims public models use: 64, 80, 96, 128, 160, 192, 256); the
-# tensor-core kernels D % 8 == 0 up to 128 (their accumulators at
-# D > 128 would not fit in 255 registers a thread)
-_MAX_D = 256
+# head dims the kernels take: the CUDA-core kernels any D (chunks of 128
+# columns above 128, groups of 256 output columns above 256); the
+# tensor-core kernels rows of 16-byte multiples (bf16 D % 8 == 0,
+# float32 D % 4 == 0) up to 128 (their accumulators at D > 128 would not
+# fit in 255 registers a thread)
 _MAX_D_SM90 = 128
 _M32 = 0xFFFFFFFF
 
@@ -353,9 +358,9 @@ def _check(q, k, v, bias, layout):
         raise ValueError(f"fused attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree "
                          f"({layout})")
-    if not 1 <= D <= _MAX_D:
-        raise ValueError(f"fused attention kernels take head dims 1 to "
-                         f"{_MAX_D}, got {D}")
+    if D < 1:
+        raise ValueError(f"fused attention kernels take head dims from 1, "
+                         f"got {D}")
     if min(B, H, Sq, Sk) < 1 or B > 65535 or H > 65535:
         raise ValueError(f"fused attention kernel: unsupported sizes "
                          f"B={B} H={H} Sq={Sq} Sk={Sk}")
@@ -377,15 +382,18 @@ def _check(q, k, v, bias, layout):
 def _sm90_eligible(q, k, v, out, layout):
     """Whether a call can take the tensor-core kernels: TMA's rules for
     the four [B, S, H, D] / [B, H, S, D] tensors it reads or writes
-    (forward: q, k, v, out; backward: q, k, v, dout). bf16, D a multiple
-    of 8 and at most _MAX_D_SM90, every base pointer 16-byte aligned, every
-    (batch, sequence, head) stride a multiple of 16 bytes. A pure
+    (forward: q, k, v, out; backward: q, k, v, dout). All four bf16 (the
+    forward and backward kernels) or all four float32 (the 3xTF32
+    forward), rows of 16-byte multiples (D % 8 == 0 in bf16, D % 4 == 0 in
+    float32) at most _MAX_D_SM90 wide, every base pointer 16-byte aligned,
+    every (batch, sequence, head) stride a multiple of 16 bytes. A pure
     function of dtypes, shapes, pointers and strides."""
     ts = (q, k, v, out)
-    if any(t.dtype != torch.bfloat16 or t.ndim != 4 for t in ts):
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != q.dtype or t.ndim != 4 for t in ts):
         return False
     D = q.shape[-1]
-    if D % 8 or D > _MAX_D_SM90:
+    if D % (16 // q.element_size()) or D > _MAX_D_SM90:
         return False
     for t in ts:
         if t.stride(3) != 1 or t.data_ptr() % 16:
@@ -415,8 +423,8 @@ def _bind(lib, symbol):
 
 
 def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
-    """The forward kernel: the tensor-core one where _sm90_eligible
-    holds, else the CUDA-core one."""
+    """The forward kernel: the tensor-core one of q's dtype where
+    _sm90_eligible holds, else the CUDA-core one."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
     s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
     out = torch.empty_like(q)
@@ -427,11 +435,9 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
         *_seq_strides(q, layout), *_seq_strides(k, layout),
         *_seq_strides(v, layout), *_seq_strides(out, layout),
         *_bias_strides(bias))
-    if sm90:
-        fn = _bind(registry.library(_KERNEL_SM90),
-                   "pt_flash_attention_fwd_sm90")
-    else:
-        fn = _bind(registry.library(_KERNEL), "pt_flash_attention_fwd")
+    name = (_KERNEL if not sm90 else _KERNEL_SM90
+            if q.dtype == torch.bfloat16 else _KERNEL_F32_SM90)
+    fn = _bind(registry.library(name), "pt_" + name)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(),
@@ -440,11 +446,10 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
                  int(bool(causal)), s0, s1, t,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{_KERNEL_SM90 if sm90 else _KERNEL} launch "
-                           f"failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     registry.count_launch(_KERNEL)
     if sm90:
-        registry.count_launch(_KERNEL_SM90)
+        registry.count_launch(name)
     return (out, lse) if return_lse else out
 
 
@@ -460,10 +465,10 @@ def _bind_bwd(lib, symbol):
 
 def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                 dropout, want_dbias):
-    """The dq kernel, then the dk/dv kernel: where _sm90_eligible holds
-    (out too meets TMA's rules) the tensor-core ones, the dq kernel with
-    the di pre-pass fused in; else the CUDA-core ones, dq after its di
-    pre-pass."""
+    """The dq kernel, then the dk/dv kernel: for bf16 where _sm90_eligible
+    holds (out too meets TMA's rules) the tensor-core ones, the dq kernel
+    with the di pre-pass fused in; else (float32 always) the CUDA-core
+    ones, dq after its di pre-pass."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
     s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
     dout = dout.to(q.dtype).contiguous()
@@ -476,7 +481,8 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                          f"[{B}, {H}, {Sq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     lse = lse.contiguous()
-    sm90 = _sm90_eligible(q, k, v, dout, layout) and \
+    sm90 = q.dtype == torch.bfloat16 and \
+        _sm90_eligible(q, k, v, dout, layout) and \
         _sm90_eligible(out, k, v, dout, layout)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)

@@ -6,10 +6,12 @@ fused_adam, _sgd_block via fused_sgd; the bucket_sweep surface is not
 ported). The kernels are in paddle_tpu_torch/csrc/fused_optimizer.cu:
 one pass over the operands that writes the new values in place, any
 length, with the rate (Adam's bias-corrected lr_t, SGD's lr) read from
-a one-element float32 tensor on the card (no host sync). A CUDA tensor
-always goes to the kernel (one launch per call); a CPU or meta tensor
-goes to the plain version, and so does a CUDA tensor under
-kernels.registry.plain_reference().
+a one-element float32 tensor on the card (no host sync). Adam takes one
+parameter a launch; SGD a list of parameters a launch (fused_sgd_multi,
+which the engine calls with every sgd op of a step that shares a rate;
+fused_sgd is a list of one). A CUDA tensor always goes to the kernel; a
+CPU or meta tensor goes to the plain version, and so does a CUDA tensor
+under kernels.registry.plain_reference().
 
 Both are registered as the JAX package registers them: ``fused_adam``
 for the ``adam`` op and ``fused_sgd`` for ``sgd``, eligible for float32
@@ -34,7 +36,8 @@ import torch
 
 from . import registry
 
-__all__ = ["adam_plain", "fused_adam", "sgd_plain", "fused_sgd"]
+__all__ = ["adam_plain", "fused_adam", "sgd_plain", "fused_sgd",
+           "fused_sgd_multi"]
 
 
 def adam_plain(p, g, m, v, lr_t, beta1, beta2, epsilon):
@@ -66,14 +69,27 @@ def fused_adam(p, g, m, v, lr_t, beta1=0.9, beta2=0.999, epsilon=1e-8):
 
 
 def fused_sgd(p, g, lr, weight_decay=0.0):
-    """One SGD step on one parameter. lr: a one-element float32 tensor on
-    p's device. On the card p is updated in place and returned;
-    elsewhere a new tensor is returned."""
-    if p.device.type == "cuda" and not registry.plain_forced():
-        return _launch_sgd(p, g, lr, weight_decay)
-    if p.device.type in ("cpu", "meta", "cuda"):
-        return sgd_plain(p, g, lr.reshape(()), weight_decay)
-    raise ValueError(f"fused_sgd: unsupported device {p.device}")
+    """One SGD step on one parameter: fused_sgd_multi on a list of one."""
+    return fused_sgd_multi([p], [g], lr, weight_decay)[0]
+
+
+def fused_sgd_multi(ps, gs, lr, weight_decay=0.0):
+    """One SGD step on each parameter of a list, with one rate lr (a
+    one-element float32 tensor on their device). On the card one launch
+    updates every p in place (more launches only past 1024 tensors) and
+    the list is returned; elsewhere a list of new tensors."""
+    if len(ps) != len(gs):
+        raise ValueError(f"fused_sgd: {len(ps)} parameters, {len(gs)} "
+                         f"gradients")
+    if not ps:
+        return []
+    dev = ps[0].device
+    if dev.type == "cuda" and not registry.plain_forced():
+        return _launch_sgd(ps, gs, lr, weight_decay)
+    if dev.type in ("cpu", "meta", "cuda"):
+        return [sgd_plain(p, g, lr.reshape(()), weight_decay)
+                for p, g in zip(ps, gs)]
+    raise ValueError(f"fused_sgd: unsupported device {dev}")
 
 
 def _check(kernel, rate, **operands):
@@ -103,7 +119,8 @@ def _bind(lib, symbol, argtypes):
 
 _P, _F, _N = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
 _ADAM_ARGS = [_P, _P, _P, _P, _P, _N, _F, _F, _F, _F, _F, _P]
-_SGD_ARGS = [_P, _P, _P, _N, _F, _P]
+_SGD_ARGS = [_P, _P, _P, ctypes.c_int, _P, _F, _P,
+             ctypes.POINTER(ctypes.c_int)]
 
 
 def _finish(kernel, err):
@@ -124,15 +141,28 @@ def _launch_adam(p, g, m, v, lr_t, beta1, beta2, epsilon):
     return p, m, v
 
 
-def _launch_sgd(p, g, lr, weight_decay):
-    _check("fused_sgd", lr, p=p, g=g)
-    fn = _bind(registry.library("fused_sgd"), "pt_fused_sgd", _SGD_ARGS)
-    with torch.cuda.device(p.device):
-        err = fn(p.data_ptr(), g.data_ptr(), lr.data_ptr(), p.numel(),
-                 weight_decay,
-                 torch.cuda.current_stream(p.device).cuda_stream)
-    _finish("fused_sgd", err)
-    return p
+def _launch_sgd(ps, gs, lr, weight_decay):
+    for p, g in zip(ps, gs):
+        if p.device != ps[0].device:
+            raise ValueError(f"fused_sgd: parameters on {ps[0].device} "
+                             f"and {p.device}")
+        _check("fused_sgd", lr, p=p, g=g)
+    fn = _bind(registry.library("fused_sgd"), "pt_fused_sgd_multi",
+               _SGD_ARGS)
+    n = len(ps)
+    launched = ctypes.c_int(0)
+    dev = ps[0].device
+    with torch.cuda.device(dev):
+        err = fn((_P * n)(*(p.data_ptr() for p in ps)),
+                 (_P * n)(*(g.data_ptr() for g in gs)),
+                 (_N * n)(*(p.numel() for p in ps)), n, lr.data_ptr(),
+                 weight_decay, torch.cuda.current_stream(dev).cuda_stream,
+                 ctypes.byref(launched))
+    for _ in range(launched.value):
+        registry.count_launch("fused_sgd")
+    if err != 0:
+        raise RuntimeError(f"fused_sgd launch failed with CUDA error {err}")
+    return ps
 
 
 # ---------------------------------------------------------------------------
@@ -151,5 +181,6 @@ registry.register_kernel(
 
 registry.register_kernel(
     "fused_sgd", op_types=("sgd",), eligible=_dense_f32, run=fused_sgd,
-    doc="single-pass SGD update; dense f32, >= PT_KERNEL_MIN_NUMEL "
-        "elements")
+    run_many=fused_sgd_multi,
+    doc="single-pass SGD update, one launch for a list of parameters; "
+        "dense f32, >= PT_KERNEL_MIN_NUMEL elements")

@@ -61,6 +61,7 @@ SOURCES = {
     "flash_attention_bwd_dq": "flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "flash_attention_bwd.cu",
     "flash_attention_fwd_sm90": "flash_attention_fwd_sm90.cu",
+    "flash_attention_fwd_f32_sm90": "flash_attention_fwd_f32_sm90.cu",
     "flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv_sm90.cu",
     "flash_attention_bwd_dq_sm90": "flash_attention_bwd_dq_sm90.cu",
     "fused_adam": "fused_optimizer.cu",
@@ -135,15 +136,19 @@ def signature(op_type: str, *tensors) -> Signature:
 
 class Kernel:
     """One registered kernel: the op types it serves, its eligibility
-    predicate and its entry point ``run(x, y, out_dtype=...)``."""
+    predicate, its entry point ``run(x, y, out_dtype=...)`` and, where it
+    has one, ``run_many``: the same over lists of operands in one launch
+    (the engine's grouped ops, core/registry.py register_group)."""
 
-    __slots__ = ("name", "op_types", "run", "eligible", "doc")
+    __slots__ = ("name", "op_types", "run", "run_many", "eligible", "doc")
 
     def __init__(self, name: str, op_types: Tuple[str, ...], run: Callable,
-                 eligible: Callable[[Signature], bool], doc: str = ""):
+                 eligible: Callable[[Signature], bool], doc: str = "",
+                 run_many: Optional[Callable] = None):
         self.name = name
         self.op_types = op_types
         self.run = run
+        self.run_many = run_many
         self.eligible = eligible
         self.doc = doc
 
@@ -156,10 +161,11 @@ _STATS: Dict[str, Dict[str, int]] = {}  # kernel name -> outcome counts
 
 def register_kernel(name: str, *, op_types: Sequence[str],
                     eligible: Callable[[Signature], bool], run: Callable,
-                    doc: str = "") -> Kernel:
+                    doc: str = "",
+                    run_many: Optional[Callable] = None) -> Kernel:
     """Register (or re-register) a kernel. A new name goes after those
     already registered for its op types."""
-    kern = Kernel(name, tuple(op_types), run, eligible, doc)
+    kern = Kernel(name, tuple(op_types), run, eligible, doc, run_many)
     if name in _KERNELS:
         for lst in _BY_OP.values():
             lst[:] = [k for k in lst if k.name != name]

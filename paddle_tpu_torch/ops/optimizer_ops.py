@@ -8,7 +8,10 @@ lowerings do: ``routable`` first, then ``select`` on the operands'
 signature. A selected kernel (fused_adam, fused_sgd: float32, at least
 PT_KERNEL_MIN_NUMEL elements) runs, in place on the card; otherwise the
 op computes the plain update on whatever device it is on. Either way
-the arithmetic is the JAX lowering's, bit for bit.
+the arithmetic is the JAX lowering's, bit for bit. The engine hands a
+run of sgd ops that share a LearningRate to sgd_group: each op still
+asks the registry (and is counted) on its own, and every parameter a
+kernel with a list entry (run_many) takes is updated in one call of it.
 
 adam computes the bias-corrected rate lr_t = lr*sqrt(1-b2^t)/(1-b1^t) on
 the device and folds the beta-power updates Beta1PowOut = b1^t*b1,
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_no_grad_op
+from ..core.registry import register_group, register_no_grad_op
 from ..kernels import registry as kreg
 from ..kernels.fused_optimizer import adam_plain, sgd_plain
 
@@ -38,17 +41,44 @@ def _dense(op_type, g):
                                   f"not ported")
 
 
-@register_no_grad_op("sgd")
-def sgd(ctx):
+def _sgd_operands(ctx):
+    """(p, g, lr, the registry's kernel or None) of one sgd op."""
     p, g = ctx.input("Param"), ctx.input("Grad")
     _dense("sgd", g)
     lr = ctx.input("LearningRate").reshape(1).to(p.dtype)
     sel = _select("sgd", p, g)
-    g = g.to(p.dtype).contiguous()
+    return p, g.to(p.dtype).contiguous(), lr, sel
+
+
+@register_no_grad_op("sgd")
+def sgd(ctx):
+    p, g, lr, sel = _sgd_operands(ctx)
     if sel is not None:
         ctx.set_output("ParamOut", sel.run(p, g, lr))
     else:
         ctx.set_output("ParamOut", sgd_plain(p, g, lr.reshape(())))
+
+
+@register_group("sgd", key=lambda op: tuple(op.input("LearningRate")))
+def sgd_group(ctxs):
+    """A run of sgd ops with one LearningRate var: the parameters each
+    kernel with a list entry takes go to it in one call (lr from the
+    first of them), every other parameter as through sgd()."""
+    lists = {}
+    for ctx in ctxs:
+        p, g, lr, sel = _sgd_operands(ctx)
+        if sel is not None and sel.run_many is not None:
+            entry = lists.setdefault(sel.name, (sel, lr, [], [], []))
+            entry[2].append(ctx)
+            entry[3].append(p)
+            entry[4].append(g)
+        elif sel is not None:
+            ctx.set_output("ParamOut", sel.run(p, g, lr))
+        else:
+            ctx.set_output("ParamOut", sgd_plain(p, g, lr.reshape(())))
+    for sel, lr, cs, ps, gs in lists.values():
+        for ctx, p_new in zip(cs, sel.run_many(ps, gs, lr)):
+            ctx.set_output("ParamOut", p_new)
 
 
 @register_no_grad_op("adam")

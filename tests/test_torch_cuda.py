@@ -1,8 +1,10 @@
 """Card-only tests of paddle_tpu_torch: each kernel against its plain
 PyTorch version on the GPU (flash-attention forward with and without
-dropout, its dq and dk/dv backward, head dims up to 256, the bf16
-tensor-core forward, dq (di fused in) and dk/dv kernels and one wgmma
-product of each kind they use, the registry's deny list, Adam, SGD,
+dropout, its dq and dk/dv backward, head dims from 1 up (264, 320 and 512
+included), the bf16 tensor-core forward, dq (di fused in) and dk/dv
+kernels and one wgmma product of each kind they use, the float32
+tensor-core (3xTF32) forward, the registry's deny list, Adam, SGD (one
+parameter, and lists of them in one launch),
 quantized_matmul int8 and bf16, every tuned_matmul variant), a tiny
 Transformer forward on the card against the same Program on the CPU
 (float32 and int8 mode), three training steps of it, and LeNet's SGD
@@ -506,12 +508,123 @@ def test_head_dims_above_128_run_the_cuda_core_kernels_on_card(
                                    msg=name)
 
 
-def test_head_dim_above_256_raises_on_card(cuda):
-    q, k, v = (torch.zeros(1, 8, 1, 264, device=cuda) for _ in range(3))
+_WIDER_D_CASES = [
+    # (layout, B, H, Sq, Sk, D, bias, causal)
+    ("bshd", 2, 2, 96, 80, 264, "key_pad", True),
+    ("bhsd", 2, 2, 77, 130, 320, "per_head", False),
+    ("bshd", 2, 2, 64, 64, 512, "key_pad", False),
+    ("bhsd", 1, 3, 70, 70, 512, "none", True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [None, _DROP[1]], ids=["nodrop", "t230"])
+@pytest.mark.parametrize("layout,B,H,Sq,Sk,D,bias,causal", _WIDER_D_CASES)
+def test_head_dims_above_256_run_the_cuda_core_kernels_on_card(
+        cuda, dtype, dropout, layout, B, H, Sq, Sk, D, bias, causal):
+    """Head dims 264, 320 and 512 run on the CUDA-core kernels (256-column
+    groups of the output a block, 128-column chunks of every operand),
+    forward and backward, both layouts, causal or not, within F32_TOL /
+    BWD_F32_TOL / BF16_TOL of the plain versions."""
+    q, k, v, b = _inputs(cuda, dtype, layout, B, H, Sq, Sk, D, bias, False,
+                         seed=23)
+    dout = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        q.shape).astype(np.float32)).to(cuda, dtype)
+    scale = D ** -0.5
+    want_dbias = bias == "per_head"
     kreg.reset_counts()
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        pfa.fused_attention_forward(q, k, v, None, 0.1, False, "bshd")
-    assert not any(kreg.launches().values())
+    out, lse = pfa.fused_attention_forward(q, k, v, b, scale, causal, layout,
+                                           return_lse=True, dropout=dropout)
+    got = pfa.fused_attention_backward(q, k, v, b, out, lse, dout, scale,
+                                       causal, layout, dropout=dropout,
+                                       want_dbias=want_dbias)
+    torch.cuda.synchronize()
+    counts = kreg.launches()
+    assert {n: c for n, c in counts.items() if c} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    ref, ref_lse = pfa.fused_attention_plain(q, k, v, b, scale, causal,
+                                             layout, return_lse=True,
+                                             dropout=dropout)
+    tol = _tol(dtype, F32_TOL)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+    exp = pfa.fused_attention_backward_plain(q, k, v, b, out, lse, dout,
+                                             scale, causal, layout,
+                                             dropout=dropout,
+                                             want_dbias=want_dbias)
+    tol = _tol(dtype, BWD_F32_TOL)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, exp):
+        if r is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g.float()).all(), name
+        assert r.abs().max() > 0, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+# the float32 tensor-core forward: chip_smoke.py's tensor-core cases (all
+# of them meet TMA's rules in float32 too), D = 40 and 36 (rows of 16-byte
+# multiples in float32), rows whose keys are all padded, Sq and Sk off
+# multiples of 64
+_F32_SM90_CASES = _SM90_CASES + [
+    ("bshd", 3, 2, 77, 77, 40, "none", True, False),
+    ("bhsd", 2, 3, 33, 100, 36, "key_pad", False, True),
+    ("bshd", 2, 2, 130, 61, 128, "per_head", True, False),
+]
+
+
+@pytest.mark.parametrize("dropout", _DROP, ids=_DROP_IDS)
+@pytest.mark.parametrize("layout,B,H,Sq,Sk,D,bias,causal,pad_all",
+                         _F32_SM90_CASES)
+def test_f32_tensor_core_forward_matches_plain_on_card(
+        cuda, dropout, layout, B, H, Sq, Sk, D, bias, causal, pad_all):
+    """The 3xTF32 forward (wgmma tf32, each operand split into hi and
+    lo) within F32_TOL of the plain float32 version, out and lse."""
+    q, k, v, b = _inputs(cuda, torch.float32, layout, B, H, Sq, Sk, D, bias,
+                         pad_all, seed=4)
+    assert pfa._sm90_eligible(q, k, v, q, layout)
+    kreg.reset_counts()
+    out, lse = pfa.fused_attention_forward(q, k, v, b, D ** -0.5, causal,
+                                           layout, return_lse=True,
+                                           dropout=dropout)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kreg.launches().items() if c} == {
+        "flash_attention_fwd": 1, "flash_attention_fwd_f32_sm90": 1}
+    ref, ref_lse = pfa.fused_attention_plain(q, k, v, b, D ** -0.5, causal,
+                                             layout, return_lse=True,
+                                             dropout=dropout)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("D", [30, 64])
+def test_f32_off_tma_rules_takes_the_cuda_core_forward_on_card(cuda, D):
+    """D = 30 (rows of 120 bytes) and q starting 4 bytes past a 16-byte
+    boundary: the CUDA-core forward, within F32_TOL."""
+    B, S, H = 2, 96, 4
+    q, k, v, b = _inputs(cuda, torch.float32, "bshd", B, H, S, S, D,
+                         "key_pad", False, seed=6)
+    if D == 64:
+        base = torch.empty(q.numel() + 1, device=cuda)
+        base[1:].copy_(q.reshape(-1))
+        q = base[1:].view(q.shape)
+        assert q.data_ptr() % 16 == 4
+    assert not pfa._sm90_eligible(q, k, v, k, "bshd")
+    kreg.reset_counts()
+    out, lse = pfa.fused_attention_forward(q, k, v, b, D ** -0.5, False,
+                                           "bshd", return_lse=True)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kreg.launches().items() if c} == {
+        "flash_attention_fwd": 1}
+    ref, ref_lse = pfa.fused_attention_plain(q, k, v, b, D ** -0.5, False,
+                                             "bshd", return_lse=True)
+    torch.testing.assert_close(out, ref, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=F32_TOL, atol=F32_TOL)
 
 
 def _ulps(a, b):
@@ -562,6 +675,43 @@ def test_sgd_matches_plain_on_card(cuda, n):
         p = ref
 
 
+def _sgd_lists(dev, sizes, seed):
+    """Parameters and gradients of the given lengths, each a view that
+    starts 0-3 floats past a 16-byte boundary, p and g apart."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ps, gs = [], []
+    for i, n in enumerate(sizes):
+        op, og = i % 4, (i // 4) % 4
+        ps.append(torch.randn(n + 4, device=dev, generator=gen)[op:op + n])
+        gs.append(torch.randn(n + 4, device=dev, generator=gen)[og:og + n])
+    return ps, gs
+
+
+@pytest.mark.parametrize("sizes,launches", [
+    ([1, 3, 4096, 4097, 130000, 16, 0, 5, 70000, 25000, 500, 8], 1),
+    ([(i * 37) % 300 + 1 for i in range(2500)], 3)], ids=["mixed", "2500"])
+def test_sgd_list_matches_plain_on_card(cuda, sizes, launches):
+    """One multi-tensor launch over a list of tensors of mixed lengths
+    (an empty one too), misaligned views among them (float4 where p and
+    g share their offset, else element by element), and a list of 2500
+    that needs three launches (1024 tensors a launch): 0 ulp from
+    sgd_plain, with and without weight decay, in place."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    ps, gs = _sgd_lists(cuda, sizes, len(sizes))
+    assert {p.data_ptr() % 16 for p in ps} == {0, 4, 8, 12}
+    lr = torch.tensor([0.05], device=cuda)
+    for wd in (0.0, 1e-4):
+        ref = [fo.sgd_plain(p.clone(), g, lr[0], wd) for p, g in zip(ps, gs)]
+        kreg.reset_counts()
+        got = fo.fused_sgd_multi(ps, gs, lr, weight_decay=wd)
+        torch.cuda.synchronize()
+        assert kreg.launches()["fused_sgd"] == launches
+        for a, p, r in zip(got, ps, ref):
+            assert a is p                                  # in place
+            assert p.numel() == 0 or int(_ulps(a, r).max()) == 0, wd
+
+
 def _lenet_losses(cuda, monkeypatch, floor, steps=3):
     monkeypatch.setenv("PT_KERNEL_MIN_NUMEL", floor)
     pt.framework.unique_name.reset()
@@ -592,7 +742,8 @@ def test_lenet_sgd_kernel_equals_plain_update_on_card(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     plain = _lenet_losses(cuda, monkeypatch, "65536")
     kernel = _lenet_losses(cuda, monkeypatch, "1")
-    assert plain[2] == 0 and kernel[2] == 3 * 6
+    # the engine hands the step's six sgd ops to one multi-tensor launch
+    assert plain[2] == 0 and kernel[2] == 3 * 1
     assert kernel[0] == plain[0]
     for n in plain[1]:
         assert np.array_equal(kernel[1][n], plain[1][n]), n

@@ -278,7 +278,7 @@ def test_launch_checks_refuse_what_the_kernel_does_not_take(bad):
     elif bad == "bias_shape":
         b = b[:, :, :, :-1]
     elif bad == "head_dim":
-        q, k, v = (torch.zeros(2, 16, 1, 257) for _ in range(3))
+        q, k, v = (torch.zeros(2, 16, 1, 0) for _ in range(3))
         b = None
     elif bad == "kv_mismatch":
         v = v[:, :-1].contiguous()

@@ -3,13 +3,16 @@ and the bound a bf16 backward meets.
 
 The wrappers send a bf16 call to the tensor-core kernels
 (csrc/flash_attention_fwd_sm90.cu, flash_attention_bwd_dq_sm90.cu,
-flash_attention_bwd_dkv_sm90.cu) when
-_sm90_eligible holds: TMA's rules for q, k, v and out (or dout), D a
-multiple of 8 and at most 128, 16-byte-aligned bases, strides multiples
-of 16 bytes. Every other call on the card takes the CUDA-core kernels.
-_sm90_eligible reads dtypes, shapes, pointers and strides only, so it is
-tested here on CPU tensors: every case shape of chip_smoke.py in both
-layouts, misaligned and float32 inputs.
+flash_attention_bwd_dkv_sm90.cu), and a float32 forward to the 3xTF32
+tensor-core forward (csrc/flash_attention_fwd_f32_sm90.cu), when
+_sm90_eligible holds: TMA's rules for q, k, v and out (or dout), all of
+one dtype, rows of 16-byte multiples (D % 8 == 0 in bf16, D % 4 == 0 in
+float32) at most 128 wide, 16-byte-aligned bases, strides multiples of
+16 bytes. Every other call on the card takes the CUDA-core kernels, and
+so does every float32 backward. _sm90_eligible reads dtypes, shapes,
+pointers and strides only, so it is tested here on CPU tensors: every
+case shape of chip_smoke.py in both layouts, misaligned and mixed-dtype
+inputs.
 
 A bf16 CPU tensor still takes the plain versions (bit for bit), and
 those hold against the JAX package's Pallas kernels in interpret mode on
@@ -55,13 +58,14 @@ def _qkv(layout, B, H, Sq, Sk, D, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("dtype,sm90", [(torch.bfloat16, True),
-                                        (torch.float32, False)],
+                                        (torch.float32, True)],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("layout", _LAYOUTS)
 @pytest.mark.parametrize("B,H,Sq,Sk,D", _SHAPES)
 def test_case_shapes_take_the_design_of_their_dtype(B, H, Sq, Sk, D, layout,
                                                     dtype, sm90):
-    """bf16: the tensor-core kernels; float32: the CUDA-core ones."""
+    """bf16: the tensor-core kernels; float32: the tensor-core (3xTF32)
+    forward (its backward keeps the CUDA-core kernels)."""
     q, k, v, out = _qkv(layout, B, H, Sq, Sk, D, dtype)
     assert pfa._sm90_eligible(q, k, v, out, layout) is sm90
 

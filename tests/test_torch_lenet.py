@@ -356,8 +356,10 @@ def test_three_sgd_steps_match_jax():
 
 @pytest.fixture
 def spies(monkeypatch):
-    """Arm the CPU routing hook and count the registry's calls into the
-    two optimizer kernels' entry points."""
+    """Arm the CPU routing hook and count the parameters the registry
+    hands the two optimizer kernels' entry points: one a call of `run`,
+    the list's length a call of `run_many` (the engine's grouped sgd
+    ops)."""
     monkeypatch.setattr(kreg, "_ROUTE_ON_CPU", True)
     monkeypatch.delenv("PT_KERNEL_DENY", raising=False)
     monkeypatch.delenv("PT_KERNEL_MIN_NUMEL", raising=False)
@@ -369,6 +371,11 @@ def spies(monkeypatch):
             calls[_name] += 1
             return _run(*a, **kw)
         monkeypatch.setattr(kern, "run", spy)
+        if kern.run_many is not None:
+            def spy_many(ps, *a, _run=kern.run_many, _name=name, **kw):
+                calls[_name] += len(ps)
+                return _run(ps, *a, **kw)
+            monkeypatch.setattr(kern, "run_many", spy_many)
     return calls
 
 
