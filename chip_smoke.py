@@ -49,14 +49,20 @@
    tokens/s, peak memory and a profile of one step.
 6. GEMM kernels: quantized_matmul int8 (bit-equal) and bf16 against
    their plain versions at the four GEMM shapes of the serving forward
-   and at 256x384x128, and every instantiated tuned_matmul variant
-   (epilogues none, layer_norm, dropout_residual) at every serving shape
-   it divides. Then tuning.variants.search_variants on the card at the
-   serving forward's most frequent GEMM (M=8192, N=512, K=512), the path
-   of the layer_norm and dropout_residual epilogues, and the device
-   times of every GEMM kernel (the search's winning tiles; the quantized
-   GEMM split into its pre-pass and its GEMM), its plain version and its
-   library yardstick at the four serving shapes. With
+   and at 256x384x128, and every instantiated tuned_matmul variant of
+   both designs (the CUDA-core tiles of tuned_matmul.cu and the 3xTF32
+   tensor-core tiles of tuned_matmul_sm90.cu; epilogues none,
+   layer_norm, dropout_residual) at every serving shape it divides, and
+   a probe of how the tensor cores round a float32 sum. Then
+   tuning.variants.search_variants on the card at the serving forward's
+   most frequent GEMM (M=8192, N=512, K=512), the path of the
+   layer_norm and dropout_residual epilogues and of the CUDA-core tiles
+   (both designs timed in the same run; the none and layer_norm winners
+   must be tensor-core tiles), and the device times of every GEMM kernel
+   (the search's winning tiles and the fastest CUDA-core ones; the
+   quantized GEMM and the tensor-core tuned GEMM split into pre-pass and
+   GEMM), its plain version and its library yardstick at the four
+   serving shapes. With
    `--baseline DIR` (an earlier checkout of the repo, e.g. unpacked with
    git archive) the CUDA-core attention forward, the SGD kernel and the
    quantized GEMM of that checkout are built and timed in turns with
@@ -64,8 +70,9 @@
 7. Serving in the GEMM modes: the batches of phase 4 again with every
    one of the 97 mul ops through a GEMM kernel:
    PT_KERNEL_QUANT_MATMUL=int8, =bf16, and with the search's float32
-   winner registered (register_winner). Each mode requires 97 launches
-   of its kernel a forward, prints the registry's dispatch stats, and
+   winner registered (register_winner; a tensor-core tile, so
+   tuned_matmul_sm90). Each mode requires 97 launches of its kernel a
+   forward, prints the registry's dispatch stats, and
    holds its logits against the same forward with only the GEMMs plain
    (int8: bit-equal), under plain_reference(), and against float32.
 8. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
@@ -349,9 +356,10 @@ def kernel_phase(torch, dev):
     checked by the launch counters), and both again through the
     CUDA-core ones; head dims above 128 through the CUDA-core kernels in
     both dtypes. bf16 gradients of the case whose rows have all keys
-    padded are held to flash_attention.bf16_backward_bound, the rest to
-    BF16_TOL. Then one call under PT_KERNEL_DENY=flash_attention
-    launches nothing. Returns {(kernel, dtype, case): max |err|}."""
+    padded are held to flash_attention.bf16_backward_bound, those above
+    D = 256 to it and to BF16_TOL, the rest to BF16_TOL. Then one call
+    under PT_KERNEL_DENY=flash_attention launches nothing. Returns
+    {(kernel, dtype, case): max |err|}."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import registry as kreg
     worst = {}
@@ -367,6 +375,8 @@ def kernel_phase(torch, dev):
             scale = D ** -0.5
             want_dbias = bias_kind == "per_head"
             bounded = dtype == torch.bfloat16 and pad_all
+            # bf16 above D = 256: BF16_TOL and the bound, both
+            also_bound = dtype == torch.bfloat16 and D > 256
             for drop in [None] + _DROPOUTS:
                 tag = "" if drop is None else f" drop t={drop[2]}"
                 ref, ref_lse = fa.fused_attention_plain(
@@ -429,7 +439,7 @@ def kernel_phase(torch, dev):
                                      f"{dname} {design} {name}{tag} "
                                      f"disagrees with its plain version")
                     line = " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-                    if bounded:
+                    if bounded or also_bound:
                         bd = _bound_check(torch, fa, got, q, k, v, bias, ref,
                                           ref_lse, g, scale, causal, layout,
                                           drop)
@@ -439,8 +449,9 @@ def kernel_phase(torch, dev):
                                      f"beyond the bf16 bound by {excess:.3e}")
                         line += " (vs exact: " + " ".join(
                             f"{k}={e:.3e} bound-excess={x:.2e}"
-                            for k, (x, e) in bd.items()) + \
+                            for k, (x, e) in bd.items()) + (
                             "; bf16_backward_bound, not BF16_TOL)"
+                            if bounded else f"; and tol={btol:g})")
                     else:
                         line += f" tol={btol:g}"
                     print(f"  bwd vs plain [{dname:8s} {design:4s}] "
@@ -1202,6 +1213,16 @@ def gemm_kernel_phase(torch, dev):
     built = V.instantiated_variants()
     print(f"  tuned_matmul variants built: "
           f"{[f'{bm}x{bn}x{bk}/{ep}' for bm, bn, bk, ep in built]}")
+    _require(sorted(built) == sorted(
+        (*b, ep) for ep, blocks in V._BLOCKS.items() for b in blocks),
+        "the built tuned_matmul variants are not the search space")
+    probe = V.round_probe(dev)
+    torch.cuda.synchronize()
+    mags = probe.abs()
+    near, zero = int((mags == 1 + 2.0 ** -23).sum()), int((mags == 1).sum())
+    print(f"  tensor cores' float32 sums (one tf32 wgmma adding 0.625 ulp to "
+          f"+-1): {near} of 4096 rounded to nearest, {zero} toward zero")
+    _require(near + zero == 4096, "the rounding probe read neither")
     for M, K, N, _ in SERVE_GEMMS:
         x, y = _gemm_inputs(torch, dev, M, K, N, 7 * M + N)
         e = _epilogue_inputs(torch, dev, M, N, 11 + N)
@@ -1214,12 +1235,12 @@ def gemm_kernel_phase(torch, dev):
             rel = _rel(torch, got, ref)
             err = (got - ref).abs().max().item()
             ok = rel <= GEMM_RTOL and bool(torch.isfinite(got).all())
-            print(f"  {v.label} vs plain {M}x{K}x{N}: rel {rel:.3e}, "
-                  f"max|err| {err:.3e} (rtol {GEMM_RTOL:g}) "
+            print(f"  {v.label} [{v.kernel}] vs plain {M}x{K}x{N}: rel "
+                  f"{rel:.3e}, max|err| {err:.3e} (rtol {GEMM_RTOL:g}) "
                   f"{'ok' if ok else 'FAIL'}")
             _require(ok, f"{v.label} {M}x{K}x{N} disagrees with its plain "
                          f"version")
-            key = (V._KERNELS[v.epilogue], M, K, N)
+            key = (v.kernel, M, K, N)
             worst[key] = max(worst.get(key, 0.0), err)
             del got, ref
     return worst
@@ -1227,9 +1248,10 @@ def gemm_kernel_phase(torch, dev):
 
 def search_phase(torch, dev):
     """The tuned_matmul variant search on the card at SEARCH_PROBLEM, the
-    path of the layer_norm and dropout_residual epilogues; registers the
-    none winner for float32 mul/matmul. Returns (search result,
-    launches during the search)."""
+    path of the layer_norm and dropout_residual epilogues and of the
+    CUDA-core tiles; it times both designs in the same run, and the none
+    and layer_norm winners must be tensor-core tiles. Returns (search
+    result, launches during the search)."""
     from paddle_tpu_torch.kernels import registry as kreg
     from paddle_tpu_torch.tuning import variants as V
     M, N, K = SEARCH_PROBLEM
@@ -1241,20 +1263,37 @@ def search_phase(torch, dev):
              f"only {len(res['admitted'])} of {res['considered']} variants "
              f"passed parity")
     for row in res["admitted"]:
-        print(f"  {row['bm']}x{row['bn']}x{row['bk']}/{row['epilogue']}: "
-              f"{row['ms']:.4f} ms (median of 20), rel err "
+        v = _variant(V, row)
+        print(f"  {v.label} [{'tensor cores' if v.sm90 else 'CUDA cores'}]"
+              f": {row['ms']:.4f} ms (median of 20), rel err "
               f"{row['rel_err']:.3e}")
     _require(set(res["winners"]) == {"none", "layer_norm",
                                      "dropout_residual"},
              f"winners {res['winners']}")
+    for ep in ("none", "layer_norm"):
+        _require(_variant(V, res["winners"][ep]).sm90,
+                 f"the {ep} winner is not a tensor-core tile")
     print(f"  winners at M={M} N={N} K={K}: "
           + ", ".join(f"{ep} {w['bm']}x{w['bn']}x{w['bk']} {w['ms']:.4f} ms"
                       for ep, w in res["winners"].items()))
     print(f"  launches during the search: "
           f"{ {k: c for k, c in counts.items() if c} }")
-    for name in ("tuned_matmul", "tuned_matmul_ln", "tuned_matmul_dr"):
+    for name in ("tuned_matmul", "tuned_matmul_ln", "tuned_matmul_dr",
+                 "tuned_matmul_sm90", "tuned_matmul_ln_sm90"):
         _require(counts[name] > 0, f"the search never launched {name}")
     return res, counts
+
+
+def _variant(V, row):
+    return V.Variant(row["bm"], row["bn"], row["bk"], row["epilogue"])
+
+
+def _best_cuda_core(V, search, ep):
+    """The fastest admitted CUDA-core tile of epilogue `ep` in the search
+    (the earlier design, timed beside the tensor-core winner)."""
+    rows = [r for r in search["admitted"]
+            if r["epilogue"] == ep and not _variant(V, r).sm90]
+    return min(rows, key=lambda r: r["ms"])
 
 
 def _int_mm_call(torch, x, y):
@@ -1349,21 +1388,31 @@ def _baseline_qmm(torch, baseline):
     return call
 
 
-def time_gemms(torch, dev, card, winners, baseline=None):
+def time_gemms(torch, dev, card, search, baseline=None):
     """Each GEMM kernel at the four serving shapes (float32 operands, as
     the serving forward gives them): kernel, plain and library device
     times per call (all the kernels each launches; the quantized GEMM
-    split into its pre-pass and its GEMM) and the bound. The tuned
-    kernels run the search's winning tiles; the layer_norm epilogue only
-    where N is a winner's bn. With `baseline` (an earlier checkout), the
-    quantized GEMM of that checkout too, in turns with this one (baseline,
-    this, this, baseline), each result against this one's (int8 bit-equal).
-    Returns {(kernel, M, K, N): row}."""
+    split into its pre-pass and its GEMM, the tensor-core tuned GEMM into
+    its B^T pre-pass and its GEMM), the kernel on the host's clock
+    (CUDA events around back-to-back calls) and the bound. The tuned
+    rows: the search's tensor-core winners (none; layer_norm where N is
+    its bn) and, beside them, the fastest CUDA-core tile of each, and the
+    dropout_residual winner; their bound counts the float32 product as
+    3xTF32 operations at the TF32 peak (the least the card can do for a
+    float32-accurate product) plus the epilogue's float32 operations.
+    With `baseline` (an earlier checkout), the quantized GEMM of that
+    checkout too, in turns with this one (baseline, this, this,
+    baseline), each result against this one's (int8 bit-equal). Returns
+    {(kernel, M, K, N): row}."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import quantized_matmul as qm
     from paddle_tpu_torch.tuning import variants as V
-    peak_f32, peak_bf16, peak_bw, peak_i8, _ = _peaks(card)
+    peak_f32, peak_bf16, peak_bw, peak_i8, peak_tf32 = _peaks(card)
     base = _baseline_qmm(torch, baseline) if baseline else None
+    winners = search["winners"]
+    tuned = [winners["none"], _best_cuda_core(V, search, "none"),
+             winners["layer_norm"], _best_cuda_core(V, search, "layer_norm"),
+             winners["dropout_residual"]]
     out = {}
     for M, K, N, per_fwd in SERVE_GEMMS:
         x, y = _gemm_inputs(torch, dev, M, K, N, 5 * M + K)
@@ -1380,7 +1429,7 @@ def time_gemms(torch, dev, card, winners, baseline=None):
                 "torch._int_mm on the quantized operands (the int8 "
                 "product alone: no quantization, no scales, int32 out; not "
                 "the same function)",
-                mnk, io, peak_i8),
+                [(mnk, peak_i8)], io),
             "quantized_matmul_bf16": (
                 lambda: qm.quantized_matmul(x, y, mode="bf16"),
                 lambda: qm.quantized_matmul_plain(x, y, "bf16"),
@@ -1389,21 +1438,19 @@ def time_gemms(torch, dev, card, winners, baseline=None):
                 "float32 output; leaves out the casts of x and y)"
                 if mm32 else "torch.matmul of the bf16 operands (leaves "
                 "out the casts and writes bf16, half the output bytes)",
-                mnk, io, peak_bf16),
+                [(mnk, peak_bf16)], io),
         }
-        for ep, name in (("none", "tuned_matmul"),
-                         ("layer_norm", "tuned_matmul_ln"),
-                         ("dropout_residual", "tuned_matmul_dr")):
-            w = winners[ep]
-            v = V.Variant(w["bm"], w["bn"], w["bk"], ep)
-            if ep == "layer_norm" and v.bn != N:
+        for w in tuned:
+            v = _variant(V, w)
+            if M % v.bm or N % v.bn or K % v.bk or (
+                    v.epilogue == "layer_norm" and v.bn != N):
                 continue
             kw = V._kwargs(v, e)
-            if ep == "none":
+            if v.epilogue == "none":
                 lib = (lambda: torch.matmul(x, y))
                 what, extra_b, extra_f = "torch.matmul float32 (cuBLAS, " \
                     "TF32 off): the same function", 0, 0
-            elif ep == "layer_norm":
+            elif v.epilogue == "layer_norm":
                 lib = (lambda kw=kw: F.layer_norm(
                     torch.matmul(x, y), (N,), kw["gamma"], kw["beta"],
                     1e-5))
@@ -1414,13 +1461,13 @@ def time_gemms(torch, dev, card, winners, baseline=None):
                        * (1 / 0.9) + kw["residual"])
                 what, extra_b, extra_f = "torch.matmul * mask / 0.9 + " \
                     "residual (composed)", 8 * M * N, 3 * M * N
-            rows[name] = (
+            rows[v.kernel] = (
                 lambda v=v, kw=kw: V.tuned_matmul(x, y, variant=v, **kw),
                 lambda v=v, kw=kw: V.tuned_matmul_plain(x, y, variant=v,
                                                         **kw),
-                lib, what, mnk + extra_f, io + extra_b, peak_f32)
-        for name, (kern, plain, lib, what, flops, nbytes, peak) in \
-                rows.items():
+                lib, f"{what}; tile {v.bm}x{v.bn}x{v.bk}",
+                [(3 * mnk, peak_tf32), (extra_f, peak_f32)], io + extra_b)
+        for name, (kern, plain, lib, what, ops, nbytes) in rows.items():
             quant = name.startswith("quantized_matmul")
             old_a = mode = None
             if quant and base is not None:
@@ -1432,24 +1479,26 @@ def time_gemms(torch, dev, card, winners, baseline=None):
                 _require(same, f"baseline {name} {M}x{K}x{N} disagrees")
                 del got, ref
                 old_a = _call_device_ms(torch, lambda: base(x, y, mode))
-            if quant:
-                split = _device_ms(torch, kern, 10,
-                                   ("", "pack_both", "qmm_sm90_kernel"))
-                ms = split[""]
-            else:
-                ms = _call_device_ms(torch, kern)
+            parts = (("pack_both", "qmm_sm90_kernel") if quant else
+                     ("split_transpose", "tmm_sm90_kernel")
+                     if name.endswith("_sm90") else ())
+            split = _device_ms(torch, kern, 10, ("", *parts))
+            ms = split[""]
             events_ms = _time_ms(kern, iters=10, warmup=2)
             plain_ms = _call_device_ms(torch, plain, iters=5)
             lib_ms = None if lib is None else _call_device_ms(torch, lib)
-            bound, by = _bound(flops, nbytes, peak, peak_bw)
+            t_ops = sum(f / pk for f, pk in ops) * 1e3
+            t_bytes = nbytes / peak_bw * 1e3
+            bound = max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
             out[(name, M, K, N)] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": by, "per_forward": per_fwd,
                 "library": what, "events_ms": events_ms}
             extra = ""
-            if quant:
-                extra = (f" = pre-pass {split['pack_both']:.4f} + GEMM "
-                         f"{split['qmm_sm90_kernel']:.4f}")
+            if parts:
+                extra = (f" = pre-pass {split[parts[0]]:.4f} + GEMM "
+                         f"{split[parts[1]]:.4f}")
             if name == "quantized_matmul_bf16" and mm32 is not None:
                 mm_ms = _call_device_ms(torch, lambda: torch.matmul(xb, yb))
                 extra += (f"; torch.matmul of the bf16 operands (bf16 out) "
@@ -1458,19 +1507,20 @@ def time_gemms(torch, dev, card, winners, baseline=None):
                 new_b = _call_device_ms(torch, kern)
                 old_b = _call_device_ms(torch, lambda: base(x, y, mode))
                 out[(name, M, K, N)]["baseline_ms"] = (old_a + old_b) / 2
-                extra += (f"; the baseline checkout's design (mma.sync) "
+                extra += (f"; the baseline checkout's design "
                           f"{old_a:.4f} / {old_b:.4f} ms around this one's "
                           f"{ms:.4f} / {new_b:.4f} ms (device, in turns)")
+            opstr = " + ".join(f"{f / 1e9:.3g} GFLOP at {pk / 1e12:g} T/s"
+                               for f, pk in ops if f)
             print(f"  {name} {M}x{K}x{N} (x{per_fwd} a forward): kernel "
                   f"{ms:.4f} ms device{extra} ({events_ms:.4f} ms a call on "
                   f"the host's clock), plain {plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-                  f"[{what}], bound {bound:.4f} ms ({by}: "
-                  f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:g} T/s, "
+                  f"[{what}], bound {bound:.4f} ms ({by}: {opstr}, "
                   f"{nbytes / 1e6:.1f} MB at {peak_bw / 1e12:g} TB/s)")
         del x, y, xb, yb, e
     for name in ("quantized_matmul_int8", "quantized_matmul_bf16",
-                 "tuned_matmul"):
+                 "tuned_matmul_sm90", "tuned_matmul"):
         tot = sum(r["ms"] * r["per_forward"] for (n, *_), r in out.items()
                   if n == name)
         bnd = sum(r["bound_ms"] * r["per_forward"]
@@ -1513,8 +1563,10 @@ def serve_mode(torch, served, mode):
     exe, main, scope = served["exe"], served["main"], served["scope"]
     batches, logits, cost = served["batches"], served["logits"], \
         served["cost"]
+    # tuned: the search's none winner, a tensor-core tile (search_phase)
     routed = {"int8": "quantized_matmul_int8",
-              "bf16": "quantized_matmul_bf16", "tuned": "tuned_matmul"}[mode]
+              "bf16": "quantized_matmul_bf16",
+              "tuned": "tuned_matmul_sm90"}[mode]
     if mode != "tuned":
         os.environ["PT_KERNEL_QUANT_MATMUL"] = mode
     try:
@@ -2033,7 +2085,7 @@ def main(argv=None):
     print("[variant search]")
     search, search_counts = search_phase(torch, dev)
     print("[GEMM times]")
-    gtimes = time_gemms(torch, dev, card, search["winners"], args.baseline)
+    gtimes = time_gemms(torch, dev, card, search, args.baseline)
 
     serve_launches = {}
     for mode in ("int8", "bf16", "tuned"):
@@ -2118,7 +2170,8 @@ def main(argv=None):
                      "library_ms": t["library_ms"]})
     # the GEMM kernels at the serving forward's most frequent shape; the
     # launches of the routed ones are those of their serving mode, those
-    # of the two fused epilogues the variant search's (their path)
+    # of the two fused epilogues and of the CUDA-core tiles the variant
+    # search's (their path)
     M, N, K = SEARCH_PROBLEM
     for name, source, replaces, launches in (
             ("quantized_matmul_int8", "quantized_matmul.cu",
@@ -2127,8 +2180,14 @@ def main(argv=None):
             ("quantized_matmul_bf16", "quantized_matmul.cu",
              "paddle_tpu/kernels/quantized_matmul.py:64",
              serve_launches["bf16"]),
-            ("tuned_matmul", "tuned_matmul.cu",
+            ("tuned_matmul_sm90", "tuned_matmul_sm90.cu",
              "paddle_tpu/tuning/variants.py:70", serve_launches["tuned"]),
+            ("tuned_matmul", "tuned_matmul.cu",
+             "paddle_tpu/tuning/variants.py:70",
+             search_counts["tuned_matmul"]),
+            ("tuned_matmul_ln_sm90", "tuned_matmul_sm90.cu",
+             "paddle_tpu/tuning/variants.py:88",
+             search_counts["tuned_matmul_ln_sm90"]),
             ("tuned_matmul_ln", "tuned_matmul.cu",
              "paddle_tpu/tuning/variants.py:88",
              search_counts["tuned_matmul_ln"]),

@@ -11,6 +11,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .place import default_place
+
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host copy of a tensor. numpy has no bfloat16, so a bf16 tensor
@@ -33,9 +35,10 @@ class LoDTensor:
 
     def set(self, array, place=None):
         """Copy a numpy array (or tensor) in, onto `place`'s device
-        (the CPU when no place is given)."""
-        device = place.torch_device() if place is not None \
-            else torch.device("cpu")
+        (the default place, CUDAPlace(0), when no place is given: it
+        raises where torch sees no card; pass CPUPlace() for the CPU)."""
+        device = (place if place is not None else default_place()) \
+            .torch_device()
         if isinstance(array, torch.Tensor):
             self._tensor = array.to(device)
         else:

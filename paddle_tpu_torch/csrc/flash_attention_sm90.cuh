@@ -1,9 +1,12 @@
-// Hopper pieces shared by the tensor-core flash-attention kernels
-// (flash_attention_{fwd,bwd_dq,bwd_dkv}_sm90.cu, flash_attention_fwd_f32_sm90.cu):
-// mbarrier and TMA (cp.async.bulk.tensor) wrappers, wgmma.mma_async
-// m64n64k16 bf16 and m64n64k8 tf32 with A from shared memory or from
-// registers, the shared-memory matrix descriptors of a 128-byte-swizzled
-// tile, and the host-side tensor maps (bf16 and float32).
+// Hopper pieces shared by the tensor-core kernels (the flash-attention
+// kernels flash_attention_{fwd,bwd_dq,bwd_dkv}_sm90.cu and
+// flash_attention_fwd_f32_sm90.cu, the GEMMs quantized_matmul.cu and
+// tuned_matmul_sm90.cu): mbarrier and TMA (cp.async.bulk.tensor) wrappers,
+// wgmma.mma_async m64n64k16 bf16 and m64n64k8 / m64n128k8 tf32 with A
+// from shared memory or from registers, the shared-memory matrix
+// descriptors of a 128-byte-swizzled tile (and of a 64-byte-swizzled one),
+// and the host-side tensor maps (4-D bf16 and float32 sequences, 2-D
+// row-major matrices).
 //
 // Tiles. Every bf16 tile is [rows][64] elements, one 128-byte row a
 // sequence position, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a
@@ -96,6 +99,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// box (c0 columns, c1 rows) of a 2-D map (see encode_2d)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // The 4-D map of a [B, S, H, D] or [B, H, S, D] tensor (see encode_seq)
 // loads `rows` sequence positions x one 128-byte row of columns (64 bf16
 // or 32 float32) from chunk `dc` (columns cols * dc ..) of head h, batch
@@ -130,9 +144,15 @@ __device__ __forceinline__ void wgmma_wait_all() {
 // Pins accumulator registers at this point of the program: ordinary code
 // after a wgmma.wait_group reads them only after the wait, and code before
 // a wgmma has written them before it is issued.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
@@ -146,6 +166,26 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 // the reduction dim runs along the tile's 64 columns
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return desc_sw128(addr, 16, 1024);
+}
+
+// K-major, rows of `kRowBytes` bytes written by TMA with the swizzle of
+// that span: 128 (as desc_kmajor) or 64 (64-byte swizzle, mode 2: address
+// bits 4-5 XOR bits 7-8, 8-row groups 512 B apart). A k step adds its
+// byte offset within the row to addr, as with 128 bytes.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_kmajor_rows(uint32_t addr) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "swizzle span");
+  constexpr uint64_t mode = kRowBytes == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32) | (mode << 62);
+}
+
+// The byte offset of `off` (row * kRowBytes + byte in the row) within a
+// tile that TMA wrote with the swizzle of a kRowBytes span (a tile base
+// aligned to 1024 bytes): the 16-byte chunk index XOR the row's bits.
+template <int kRowBytes>
+__host__ __device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  return off ^ ((off >> 3) & (kRowBytes == 128 ? 0x70u : 0x30u));
 }
 
 // the reduction dim runs along the tile's rows; N = the 64 columns (one
@@ -235,6 +275,39 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
         "r"(accumulate));
 }
 
+#define PT_WGMMA_D64                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (+)= A . B^T, A [64 x 8] from registers (fragment a, as
+// wgmma_rs_tf32), B [128 x 8] K-major in shared memory. Accumulator
+// layout as m64n64's, j = 0..15.
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " PT_WGMMA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : PT_WGMMA_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+#undef PT_WGMMA_D64
 #undef PT_WGMMA_D32
 #undef PT_WGMMA_OUT32
 
@@ -340,6 +413,29 @@ inline bool encode_seq(SeqMap* m, const void* base, int B, int H, int S,
             4,
             const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 2-D map of a row-major [rows, K] matrix: boxes of `box_cols`
+// elements (one swizzle span: 128 bytes, or 64 with SWIZZLE_64B) x
+// `box_rows` rows. False if the base is not 16-byte aligned or the driver
+// refuses (K * elem_bytes must be a multiple of 16).
+inline bool encode_2d(CUtensorMap* m, CUtensorMapDataType type,
+                      int elem_bytes, const void* base, int rows, int K,
+                      int box_cols, int box_rows = 128,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return false;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * elem_bytes};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                       static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t estr[2] = {1, 1};
+  return fn(m, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

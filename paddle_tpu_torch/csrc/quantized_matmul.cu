@@ -59,7 +59,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_attention_sm90.cuh"  // mbarrier, descriptors, tensor maps
+#include "flash_attention_sm90.cuh"  // mbarrier, TMA, descriptors, maps
 
 namespace {
 
@@ -221,16 +221,6 @@ __global__ void __launch_bounds__(PACK_THREADS, 2)
 
 // ------------------------------------------------------------ the GEMM
 
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 #define PT_D64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -379,17 +369,6 @@ __device__ __forceinline__ void wgmma_bf16_rs256(float (&d)[128],
 
 #undef PT_D128
 
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_acc(int32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 struct GemmParams {
   CUtensorMap ta, tb;
   const float* sa;  // int8: [M/128, K/128]
@@ -447,12 +426,13 @@ __global__ void __launch_bounds__(GTHREADS, 1)
     const uint32_t at = sbase + s * C::STAGE;
     sm90::mbar_expect_tx(full(s), C::STAGE);
     if (MODE == 2) {
-      tma_load_2d(at, &p.ta, full(s), kt * C::KT, m0);
-      tma_load_2d(at + PART, &p.ta, full(s), kt * C::KT + 32, m0);
+      sm90::tma_load_2d(at, &p.ta, full(s), kt * C::KT, m0);
+      sm90::tma_load_2d(at + PART, &p.ta, full(s), kt * C::KT + 32, m0);
     } else {
-      tma_load_2d(at, &p.ta, full(s), kt * 128 / (MODE == 0 ? 1 : 2), m0);
+      sm90::tma_load_2d(at, &p.ta, full(s), kt * 128 / (MODE == 0 ? 1 : 2),
+                        m0);
     }
-    tma_load_2d(at + C::A_BYTES, &p.tb, full(s),
+    sm90::tma_load_2d(at + C::A_BYTES, &p.tb, full(s),
                 kt * 128 / (MODE == 0 ? 1 : 2), n0);
   };
   if (tid == 0) {
@@ -493,7 +473,7 @@ __global__ void __launch_bounds__(GTHREADS, 1)
         int32_t isum[64];
 #pragma unroll
         for (int e = 0; e < 64; ++e) isum[e] = 0;
-        fence_acc(isum);
+        sm90::fence_regs(isum);
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -501,14 +481,14 @@ __global__ void __launch_bounds__(GTHREADS, 1)
                       sm90::desc_kmajor(b_s + kk * 32), kk > 0);
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
-        fence_acc(isum);
+        sm90::fence_regs(isum);
         const float sc = __fmul_rn(sa_row[kt], sb_col[kt * (p.N / TILE)]);
 #pragma unroll
         for (int e = 0; e < 64; ++e)
           acc[e] = __fadd_rn(acc[e],
                              __fmul_rn(static_cast<float>(isum[e]), sc));
       } else if constexpr (MODE == 1) {
-        fence_acc(acc);
+        sm90::fence_regs(acc);
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -516,7 +496,7 @@ __global__ void __launch_bounds__(GTHREADS, 1)
                         sm90::desc_kmajor(b_s + kk * 32), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
-        fence_acc(acc);
+        sm90::fence_regs(acc);
       } else {
         // the A fragment of k16 step kk from the float32 boxes: rows r0
         // and r0 + 8, columns 16 kk + cq (+1) and 16 kk + 8 + cq (+1),
@@ -530,12 +510,11 @@ __global__ void __launch_bounds__(GTHREADS, 1)
             const int r = r0 + 8 * (q & 1);
             const int col = 16 * (kk & 1) + cq + 8 * (q >> 1);
             const float2 v = *reinterpret_cast<const float2*>(
-                box + r * 128 + (((col >> 2) ^ (r & 7)) << 4) +
-                (col & 3) * 4);
+                box + sm90::swizzled<128>(r * 128 + col * 4));
             a[kk][q] = sm90::pack_bf16(v.x, v.y);
           }
         }
-        fence_acc(acc);
+        sm90::fence_regs(acc);
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
@@ -547,7 +526,7 @@ __global__ void __launch_bounds__(GTHREADS, 1)
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
-        fence_acc(acc);
+        sm90::fence_regs(acc);
       }
       sm90::mbar_arrive(empty(s));
       // refill this stage once both warpgroups are done with it
@@ -577,26 +556,6 @@ __global__ void __launch_bounds__(GTHREADS, 1)
       *reinterpret_cast<float4*>(orow + 8 * j) = v;
     }
   }
-}
-
-// The 2-D map of a row-major [rows, K] matrix: boxes of `box_cols`
-// elements (128 bytes) x `box_rows` rows, 128-byte swizzle.
-bool encode_2d(CUtensorMap* m, CUtensorMapDataType type, int elem_bytes,
-               const void* base, int rows, int K, int box_cols,
-               int box_rows = 128) {
-  sm90::EncodeTiledFn fn = sm90::encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0)
-    return false;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                        static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * elem_bytes};
-  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                       static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t estr[2] = {1, 1};
-  return fn(m, type, 2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE, int BN>
@@ -686,8 +645,10 @@ extern "C" int pt_quantized_matmul(const void* x, int x_dtype, const void* y,
                                   (M / TILE) * (K / TILE), y, y_dtype, wb,
                                   static_cast<float*>(sb), M, N, K, stream)))
       return err;
-    if (!encode_2d(&p.ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wa, M, K, 128) ||
-        !encode_2d(&p.tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wb, N, K, 128))
+    if (!sm90::encode_2d(&p.ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wa, M, K,
+                         128) ||
+        !sm90::encode_2d(&p.tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wb, N, K,
+                         128))
       return static_cast<int>(cudaErrorInvalidValue);
     return gemm<0, 128>(p, stream);
   }
@@ -695,18 +656,20 @@ extern "C" int pt_quantized_matmul(const void* x, int x_dtype, const void* y,
   if ((err = pack<false>(x, x_dtype, wa, nullptr, nx, y, y_dtype, wb,
                          nullptr, M, N, K, stream)))
     return err;
-  if (!encode_2d(&p.tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wb, N, K, 64))
+  if (!sm90::encode_2d(&p.tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wb, N, K,
+                       64))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wa != nullptr || x_dtype == 1) {
-    if (!encode_2d(&p.ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+    if (!sm90::encode_2d(&p.ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                    wa != nullptr ? wa : x, M, K, 64))
       return static_cast<int>(cudaErrorInvalidValue);
     return gemm<1, 128>(p, stream);
   }
-  if (!encode_2d(&p.ta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, M, K, 32))
+  if (!sm90::encode_2d(&p.ta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, M, K,
+                       32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N % 256 != 0) return gemm<2, 128>(p, stream);
-  if (!encode_2d(&p.tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wb, N, K, 64,
+  if (!sm90::encode_2d(&p.tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wb, N, K, 64,
                  256))
     return static_cast<int>(cudaErrorInvalidValue);
   return gemm<2, 256>(p, stream);

@@ -213,9 +213,9 @@ def fused_attention_backward_plain(q, k, v, bias, out, lse, dout, scale,
 
 # bf16's unit roundoff (8 significant bits): |bf16(x) - x| <= 2^-8 |x|
 _U_BF16 = 2.0 ** -8
-# float32 arithmetic before the roundings (the scores, p, dp, di and the
-# float32 sums: each some Sk * 2^-24 relative, far below this for
-# Sk <= 4096), taken against the magnitudes before dp - di cancels
+# float32 arithmetic before the roundings: a float32 sum of n terms in any
+# order is within n 2^-24 of the sum of their magnitudes, and 2^-12 is
+# that for n = 4096 (head dims and key counts up to 4096)
 _F32_SLACK = 2.0 ** -12
 
 
@@ -227,17 +227,37 @@ def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
     The exact gradients are taken in float64 from the same bf16 inputs,
     out and lse, with the float32 p of the plain version (in a row whose
     keys all carry a -1e9 bias, lse rounds to -1e9 and p is 1 on every
-    key, as in the JAX kernels) and ds and p_drop unrounded. A kernel
-    rounds ds (and p_drop) to bf16 before the products, each within
-    2^-8 of itself, and rounds its float32 result to bf16, so elementwise
-        |dq - dq_exact| <= 2^-8 |dq_exact|
-                           + scale * sum_j (2^-8 |ds_ij|
-                                            + 2^-12 m_ij) |k_jd|
-    with m_ij = p_ij (|dp_ij| + |di_i|) for the float32 arithmetic before
-    the roundings; dk the same with q for k and the sum over rows, dv
-    with p_drop for ds and dO for k (m = p_drop). Where p = 1 on every key
-    |ds| is in the tens, and this bound, not BF16_TOL, is what a correct
-    kernel meets there."""
+    key, as in the JAX kernels) and ds and p_drop unrounded. Derivation,
+    for dq (dk the same with q for k and the sum over rows; dv with
+    p_drop for ds, dO for k, and m = p_drop):
+
+    1. A kernel computes ds_ij = p_ij (dp_ij - di_i) from float32 dot
+       products over the head dim, dp_ij = dO_i . v_j (times the keep
+       scale) and di_i = dO_i . O_i. Each is within D 2^-24 <= 2^-12 of
+       the sum of its products' magnitudes, not of its value: where
+       those cancel (row 0 of a causal head sees one key, so p = 1,
+       exact ds = 0 and dp = di, which can be ~1e-4 against products
+       summing to ~1e2 in magnitude) the rounding is all there is. So
+           m_ij = p_ij (sum_d |dO_id| |v_jd| + sum_d |dO_id| |O_id|)
+       with 2^-12 m_ij bounding the float32 error of ds_ij (p's own,
+       from the scores and exp, relative and far below 2^-12 here, is
+       bounded by the same term since |dp - di| <= m / p). The kernel
+       rounds ds_ij to bf16, within 2^-8 |ds_ij|, so its float32 sum
+       f = scale * sum_j bf16(ds_ij) k_jd is within
+           s = scale * sum_j (2^-8 |ds_ij| + 2^-12 m_ij) |k_jd|
+       of exact (the float32 sum over keys, Sk 2^-24 of the same
+       magnitudes, is inside the 2^-12 term).
+    2. The kernel then rounds f, not the exact value, to bf16:
+       |bf16(f) - f| <= 2^-8 |f| <= 2^-8 (|exact| + s). So
+           |dq - exact| <= s + 2^-8 (|exact| + s).
+    3. Head dims above 128: the CUDA-core kernels run the scores and dp
+       over 128-column chunks, each chunk's products added to the same
+       float32 register, so a score is one float32 sum of D products in
+       D's order, as below 128, and gets no term of its own; the
+       gradients' columns are split into groups, not their sums.
+
+    Where p = 1 on every key |ds| is in the tens, and this bound, not
+    BF16_TOL, is what a correct kernel meets there."""
     dropout = _check_dropout(dropout)
     bshd = layout == "bshd"
     f64 = torch.float64
@@ -249,19 +269,22 @@ def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
                               (qd, kd, vd, od, gd))
     di = (gd * od).sum(-1, keepdim=True)
     dp = gd @ vd.transpose(-1, -2)
+    # the magnitudes of the two dot products' terms (step 1)
+    adi = (gd.abs() * od.abs()).sum(-1, keepdim=True)
+    adp = gd.abs() @ vd.abs().transpose(-1, -2)
     p_v = p
     if dropout is not None:
         keep = _keep(dropout, p).to(f64) * (256.0 / dropout[2])
-        dp, p_v = dp * keep, p * keep
+        dp, adp, p_v = dp * keep, adp * keep, p * keep
     ds = p * (dp - di)
-    m = p * (dp.abs() + di.abs())
+    m = p * (adp + adi)
     w = _U_BF16 * ds.abs() + _F32_SLACK * m
     wv = (_U_BF16 + _F32_SLACK) * p_v
     exact = (scale * ds @ kd, scale * ds.transpose(-1, -2) @ qd,
              p_v.transpose(-1, -2) @ gd)
     slack = (scale * w @ kd.abs(), scale * w.transpose(-1, -2) @ qd.abs(),
              wv.transpose(-1, -2) @ gd.abs())
-    bound = tuple(_U_BF16 * e.abs() + s for e, s in zip(exact, slack))
+    bound = tuple(s + _U_BF16 * (e.abs() + s) for e, s in zip(exact, slack))
     if bshd:
         exact, bound = (tuple(x.transpose(1, 2) for x in t)
                         for t in (exact, bound))

@@ -2,13 +2,21 @@
 epilogues, ranked by time measured on the card (counterpart of
 paddle_tpu/tuning/variants.py).
 
-A variant is a tile shape (bm, bn, bk) of csrc/tuned_matmul.cu crossed
-with an epilogue: none, layer_norm (the row normalized with eps 1e-5,
-times gamma, plus beta; needs bn == N) or dropout_residual
-(acc * mask / 0.9 + residual). The JAX package's space is TPU tile
-shapes; the port's is the tile shapes its CUDA source instantiates:
-GEMM tiles for none and dropout_residual, row tiles (bm 16 or 32, bn
-256 or 512, the whole row of C) for layer_norm. The legality rule is the
+A variant is a tile shape (bm, bn, bk) crossed with an epilogue: none,
+layer_norm (the row normalized with eps 1e-5, times gamma, plus beta;
+needs bn == N) or dropout_residual (acc * mask / 0.9 + residual). The
+JAX package's space is TPU tile shapes; the port's is the tile shapes
+its two CUDA sources instantiate, and a tile names its design:
+
+* csrc/tuned_matmul.cu, float32 on the CUDA cores: GEMM tiles (bk 8 or
+  16) for none and dropout_residual, row tiles (bm 16 or 32, bn 256 or
+  512, the whole row of C) for layer_norm;
+* csrc/tuned_matmul_sm90.cu, 3xTF32 on the tensor cores (wgmma + TMA,
+  B^T split into tf32 hi and lo by a pre-pass launch): 128x128x32,
+  128x256x32 and 128x256x16 for none, 64x256x32 and 64x512x16 for
+  layer_norm.
+
+The search times both designs in the same run. The legality rule is the
 JAX package's: the tile divides the problem, and layer_norm needs
 bn == N.
 
@@ -23,8 +31,10 @@ mul/matmul; the layer_norm and dropout_residual winners have no op to
 route (the JAX package routes only ``none`` too), so the search is their
 path.
 
-``tuned_matmul`` launches the kernel for CUDA tensors (launch counts
-tuned_matmul, tuned_matmul_ln, tuned_matmul_dr by epilogue) and runs the
+``tuned_matmul`` launches the kernel for CUDA tensors (launch counts by
+epilogue and design: tuned_matmul, tuned_matmul_ln, tuned_matmul_dr on
+the CUDA cores, tuned_matmul_sm90, tuned_matmul_ln_sm90 on the tensor
+cores; ``Variant.kernel`` names a variant's) and runs the
 plain version (``tuned_matmul_plain``) for CPU tensors and under
 kernels.registry.plain_reference(). It has no backward: its gradient
 raises (registry.forward_only).
@@ -37,6 +47,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.place import default_place
+
 __all__ = ["Variant", "enumerate_variants", "variant_cases",
            "verify_variant", "search_variants", "tuned_matmul",
            "tuned_matmul_plain", "register_winner"]
@@ -47,12 +59,19 @@ _REL_TOL = 1e-4      # float32 reassociation only (blocked-K sums)
 
 _EPILOGUES = ("none", "layer_norm", "dropout_residual")
 _EPI_CODES = {"none": 0, "layer_norm": 1, "dropout_residual": 2}
+# launch counters by epilogue (the CUDA-core design; "_sm90" appended for
+# the tensor-core one)
 _KERNELS = {"none": "tuned_matmul", "layer_norm": "tuned_matmul_ln",
             "dropout_residual": "tuned_matmul_dr"}
 # the tile shapes csrc/tuned_matmul.cu instantiates, by epilogue
 _GEMM_BLOCKS = ((64, 64, 16), (128, 64, 16), (128, 128, 8))
 _ROW_BLOCKS = ((16, 256, 16), (32, 256, 8), (16, 512, 8), (32, 512, 8))
-_BLOCKS = {"none": _GEMM_BLOCKS, "layer_norm": _ROW_BLOCKS,
+# and csrc/tuned_matmul_sm90.cu (bk 32: one 128-byte row of float32; 16
+# where a 32-deep stage of B^T hi and lo would leave room for one)
+_SM90_BLOCKS = {"none": ((128, 128, 32), (128, 256, 32), (128, 256, 16)),
+                "layer_norm": ((64, 256, 32), (64, 512, 16))}
+_BLOCKS = {"none": _GEMM_BLOCKS + _SM90_BLOCKS["none"],
+           "layer_norm": _ROW_BLOCKS + _SM90_BLOCKS["layer_norm"],
            "dropout_residual": _GEMM_BLOCKS}
 
 
@@ -69,6 +88,18 @@ class Variant:
     def label(self) -> str:
         return (f"tuned_matmul/{self.epilogue}/"
                 f"{self.bm}x{self.bn}x{self.bk}")
+
+    @property
+    def sm90(self) -> bool:
+        """A tile of the tensor-core design (tuned_matmul_sm90.cu)."""
+        return (self.bm, self.bn, self.bk) in _SM90_BLOCKS.get(
+            self.epilogue, ())
+
+    @property
+    def kernel(self) -> str:
+        """The launch counter (and registry.SOURCES name) of this
+        variant's kernel."""
+        return _KERNELS[self.epilogue] + ("_sm90" if self.sm90 else "")
 
     def as_dict(self) -> Dict[str, Any]:
         return {"bm": self.bm, "bn": self.bn, "bk": self.bk,
@@ -139,7 +170,7 @@ def tuned_matmul(x, y, *, variant: Variant, gamma=None, beta=None,
         raise ValueError(f"tuned_matmul: unsupported device {a.device}")
 
     from ..kernels import registry as kreg
-    return kreg.forward_only(_KERNELS[variant.epilogue], run, x, y, p0, p1)
+    return kreg.forward_only(variant.kernel, run, x, y, p0, p1)
 
 
 def _bind(lib, symbol):
@@ -148,6 +179,10 @@ def _bind(lib, symbol):
         p, i = ctypes.c_void_p, ctypes.c_int
         if symbol == "pt_tuned_matmul":
             fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, p]
+        elif symbol == "pt_tuned_matmul_sm90":   # and the workspace bt
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, p, p]
+        elif symbol == "pt_tuned_matmul_sm90_round_probe":
+            fn.argtypes = [p, p]
         else:
             fn.argtypes = [ctypes.POINTER(ctypes.c_int), i]
         fn.restype = i
@@ -155,21 +190,46 @@ def _bind(lib, symbol):
 
 
 def instantiated_variants() -> List[tuple]:
-    """(bm, bn, bk, epilogue) of every variant the built library holds
-    (builds it at first use)."""
+    """(bm, bn, bk, epilogue) of every variant the built libraries hold,
+    the CUDA-core design's, then the tensor-core one's (builds them at
+    first use)."""
     from ..kernels import registry as kreg
-    fn = _bind(kreg.library("tuned_matmul"), "pt_tuned_matmul_variants")
-    n = fn(None, 0)
-    buf = (ctypes.c_int * (4 * n))()
-    fn(buf, n)
     names = {c: e for e, c in _EPI_CODES.items()}
-    return [(buf[4 * i], buf[4 * i + 1], buf[4 * i + 2],
-             names[buf[4 * i + 3]]) for i in range(n)]
+    out = []
+    for name, symbol in (("tuned_matmul", "pt_tuned_matmul_variants"),
+                         ("tuned_matmul_sm90",
+                          "pt_tuned_matmul_sm90_variants")):
+        fn = _bind(kreg.library(name), symbol)
+        n = fn(None, 0)
+        buf = (ctypes.c_int * (4 * n))()
+        fn(buf, n)
+        out += [(buf[4 * i], buf[4 * i + 1], buf[4 * i + 2],
+                 names[buf[4 * i + 3]]) for i in range(n)]
+    return out
+
+
+def round_probe(device=None) -> torch.Tensor:
+    """[64, 64] float32 from one tf32 wgmma onto an accumulator of +-1
+    that adds 0.625 of its last place (csrc/tuned_matmul_sm90.cu
+    round_probe_kernel): +-(1 + 2^-23) everywhere if the tensor cores
+    round their float32 sums to nearest, +-1 if toward zero."""
+    from ..kernels import registry as kreg
+    dev = _device(device)
+    if dev.type != "cuda":
+        raise ValueError("round_probe runs on a CUDA device")
+    out = torch.empty((64, 64), dtype=torch.float32, device=dev)
+    fn = _bind(kreg.library("tuned_matmul_sm90"),
+               "pt_tuned_matmul_sm90_round_probe")
+    with torch.cuda.device(dev):
+        err = fn(out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"round probe failed with CUDA error {err}")
+    return out
 
 
 def _launch(x, y, variant, p0, p1):
     from ..kernels import registry as kreg
-    name = _KERNELS[variant.epilogue]
+    name = variant.kernel
     for t in (x, y, p0, p1):
         if t is None:
             continue
@@ -183,13 +243,19 @@ def _launch(x, y, variant, p0, p1):
     if M // variant.bm > 65535:
         raise ValueError(f"{name}: M={M} is too large for bm={variant.bm}")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    fn = _bind(kreg.library(name), "pt_tuned_matmul")
     ptr = (lambda t: None if t is None else t.data_ptr())
+    args = [x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+            variant.bm, variant.bn, variant.bk,
+            _EPI_CODES[variant.epilogue], ptr(p0), ptr(p1)]
+    if variant.sm90:
+        # the pre-pass writes B^T split into tf32 hi (rows 0..N-1) and lo
+        bt = torch.empty((2 * N, K), dtype=torch.float32, device=x.device)
+        fn = _bind(kreg.library(name), "pt_tuned_matmul_sm90")
+        args.append(bt.data_ptr())
+    else:
+        fn = _bind(kreg.library(name), "pt_tuned_matmul")
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                 variant.bm, variant.bn, variant.bk,
-                 _EPI_CODES[variant.epilogue], ptr(p0), ptr(p1),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} ({variant.label}) launch failed with "
                            f"CUDA error {err}")
@@ -216,9 +282,11 @@ def enumerate_variants(M: int = 256, N: int = 256, K: int = 256
 
 
 def _device(device) -> torch.device:
+    """`device`, or the default place's (CUDAPlace(0), which raises where
+    torch sees no card): the search never falls back to the CPU."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return default_place().torch_device()
 
 
 def _problem(M, N, K, device, seed=23):
@@ -264,7 +332,7 @@ def variant_cases(M: int = 256, N: int = 256, K: int = 256):
             got = _run_variant(v, d)
             return {"metric": "rel", "tol": _REL_TOL,
                     "value": rel_err(ref, got)}
-        return Case(_KERNELS[v.epilogue], v.label, run)
+        return Case(v.kernel, v.label, run)
 
     return [(v, make(v)) for v in enumerate_variants(M, N, K)]
 

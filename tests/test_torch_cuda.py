@@ -5,7 +5,8 @@ included), the bf16 tensor-core forward, dq (di fused in) and dk/dv
 kernels and one wgmma product of each kind they use, the float32
 tensor-core (3xTF32) forward, the registry's deny list, Adam, SGD (one
 parameter, and lists of them in one launch),
-quantized_matmul int8 and bf16, every tuned_matmul variant), a tiny
+quantized_matmul int8 and bf16, every tuned_matmul variant of both
+designs and the tensor-core tiles at the serving shapes), a tiny
 Transformer forward on the card against the same Program on the CPU
 (float32 and int8 mode), three training steps of it, and LeNet's SGD
 step with its updates in the kernel against the same step with them
@@ -22,7 +23,9 @@ matmuls); bf16 2e-2 (p, ds and the outputs round to bf16), except where
 a row's keys are all padded: there p = 1 on every key, |ds| is in the
 tens, and every bf16 gradient is held to the bound a correct bf16 kernel
 meets against the exact gradients (flash_attention.bf16_backward_bound:
-2^-8 of ds's or p_drop's contribution and of the result). Adam: at most
+2^-8 of ds's or p_drop's contribution and of the float32 result, plus
+2^-12 of the magnitudes of the float32 dot products); bf16 gradients at
+head dims above 256 are held to both. Adam: at most
 ADAM_ULP units in the last place (each operation rounds once in both);
 SGD: 0 ulp (the same two roundings, lr*g and the difference).
 quantized_matmul int8: bit-equal (exact integer tile sums, the same two
@@ -526,7 +529,9 @@ def test_head_dims_above_256_run_the_cuda_core_kernels_on_card(
     """Head dims 264, 320 and 512 run on the CUDA-core kernels (256-column
     groups of the output a block, 128-column chunks of every operand),
     forward and backward, both layouts, causal or not, within F32_TOL /
-    BWD_F32_TOL / BF16_TOL of the plain versions."""
+    BWD_F32_TOL / BF16_TOL of the plain versions; the bf16 gradients also
+    within flash_attention.bf16_backward_bound of the exact ones, as at
+    D <= 256."""
     q, k, v, b = _inputs(cuda, dtype, layout, B, H, Sq, Sk, D, bias, False,
                          seed=23)
     dout = torch.from_numpy(np.random.default_rng(24).standard_normal(
@@ -563,6 +568,9 @@ def test_head_dims_above_256_run_the_cuda_core_kernels_on_card(
         assert r.abs().max() > 0, name
         torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol,
                                    msg=name)
+    if dtype == torch.bfloat16:
+        _assert_within_bound(got[:3], q, k, v, b, out, lse, dout, scale,
+                             causal, layout, dropout)
 
 
 # the float32 tensor-core forward: chip_smoke.py's tensor-core cases (all
@@ -901,22 +909,72 @@ def test_quantized_matmul_serving_shapes_on_card(cuda, M, K, N):
 
 
 def test_every_tuned_variant_matches_plain_on_card(cuda):
+    """Every instantiated tile of both designs (tuned_matmul.cu on the
+    CUDA cores, tuned_matmul_sm90.cu in 3xTF32 on the tensor cores)
+    within GEMM_RTOL of the plain version, one launch of its own kernel
+    counter and none of another."""
     from paddle_tpu_torch.tuning import variants as V
     built = V.instantiated_variants()
     assert sorted(built) == sorted(
         (b[0], b[1], b[2], ep) for ep in ("none", "layer_norm",
                                           "dropout_residual")
         for b in V._BLOCKS[ep])
+    assert {v.kernel for v in V.enumerate_variants(256, 512, 128)} == {
+        "tuned_matmul", "tuned_matmul_ln", "tuned_matmul_dr",
+        "tuned_matmul_sm90", "tuned_matmul_ln_sm90"}
     for N in (256, 512):
         d = V._problem(256, N, 128, cuda)
         for v in V.enumerate_variants(256, N, 128):
             kreg.reset_counts()
             got = V._run_variant(v, d)
             torch.cuda.synchronize()
-            assert kreg.launches()[V._KERNELS[v.epilogue]] == 1, v.label
+            assert {n: c for n, c in kreg.launches().items() if c} == {
+                v.kernel: 1}, v.label
             with kreg.plain_reference():
                 ref = V._run_variant(v, d)
             assert _rel(got, ref) <= GEMM_RTOL, v.label
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 512, 32000), (8192, 2048, 512)])
+def test_tensor_core_tuned_tiles_at_serving_shapes_on_card(cuda, M, K, N):
+    """The tensor-core tiles at the serving forward's widest and deepest
+    GEMMs (float32 operands as the forward gives them, every 97th row of
+    x 30x larger) within GEMM_RTOL of the plain float32 product; the
+    layer_norm tile where N is its bn."""
+    from paddle_tpu_torch.tuning import variants as V
+    rng = np.random.default_rng(M + 3 * K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(cuda)
+    x[::97] *= 30.0
+    y = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(cuda) \
+        * K ** -0.5
+    e = {"gamma": torch.from_numpy(
+             1 + 0.1 * rng.standard_normal(N, np.float32)).to(cuda),
+         "beta": torch.from_numpy(
+             0.1 * rng.standard_normal(N, np.float32)).to(cuda)}
+    tiles = [v for v in V.enumerate_variants(M, N, K) if v.sm90]
+    assert {v.epilogue for v in tiles} == (
+        {"none", "layer_norm"} if N == 512 else {"none"})
+    for v in tiles:
+        kw = V._kwargs(v, e)
+        got = V.tuned_matmul(x, y, variant=v, **kw)
+        ref = V.tuned_matmul_plain(x, y, variant=v, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), v.label
+        assert _rel(got, ref) <= GEMM_RTOL, v.label
+        del got, ref
+
+
+def test_tensor_core_round_probe_on_card(cuda):
+    """The probe of how the tensor cores round a float32 sum (one tf32
+    wgmma adding 0.625 of the last place to +-1) reads one mode in every
+    element: +-(1 + 2^-23) to nearest, +-1 toward zero; the sign follows
+    the column."""
+    from paddle_tpu_torch.tuning import variants as V
+    out = V.round_probe(cuda).cpu()
+    sign = torch.where(torch.arange(64) % 2 == 1, -1.0, 1.0)[None, :]
+    mags = (out * sign)
+    assert (mags > 0).all()
+    assert (mags == 1).all() or (mags == 1 + 2.0 ** -23).all()
 
 
 def test_search_and_winner_route_mul_on_card(cuda):
@@ -940,7 +998,9 @@ def test_search_and_winner_route_mul_on_card(cuda):
         kreg.reset_counts()
         got, = pt.Executor().run(main, feed={"a": x, "b": w},
                                  fetch_list=[out], scope=pt.Scope())
-        assert kreg.launches()["tuned_matmul"] == 1
+        w0 = res["winners"]["none"]
+        kern = V.Variant(w0["bm"], w0["bn"], w0["bk"], "none").kernel
+        assert kreg.launches()[kern] == 1
         np.testing.assert_allclose(got, x @ w, rtol=1e-4, atol=1e-4)
     finally:
         kreg.unregister_kernel("tuned_matmul")

@@ -230,15 +230,12 @@ def test_tensor_core_sources_of_this_slice(name, symbol):
         assert src.count("__global__") == 1 and "p.di[" in src
 
 
-@pytest.mark.parametrize("dropout", [None, (7, 11, 128)],
-                         ids=["nodrop", "t128"])
-def test_bf16_bound_holds_for_the_plain_version_and_catches_errors(dropout):
-    """bf16_backward_bound on the CPU: the plain bf16 backward (which
-    rounds ds and p_drop to bf16 as the kernels do) meets it over seeded
-    draws of dO, rows whose keys are all padded included; a dq whose ds
+def _check_bf16_bound(dropout, D, S):
+    """The plain bf16 backward meets bf16_backward_bound over seeded
+    draws of dO (rows whose keys are all padded included); a dq whose ds
     skipped one key's contribution, or was rounded to 6 bits, does not."""
     rng = np.random.default_rng(40)
-    B, H, S, D = 2, 2, 32, 32
+    B, H = 2, 2
     q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
         np.float32)).bfloat16() for _ in range(3))
     b = torch.zeros(B, 1, 1, S)
@@ -265,3 +262,51 @@ def test_bf16_bound_holds_for_the_plain_version_and_catches_errors(dropout):
     # ds rounded to 6 bits instead of 8: beyond it too
     coarse = exact[0] * (1 + 2.0 ** -5)
     assert ((coarse - exact[0]).abs() > bound[0]).any()
+
+
+def test_bf16_bound_holds_where_the_dot_products_cancel():
+    """Row 0 of a causal head sees one key: p = 1, exact ds = 0 (dp = di)
+    and the float32 dq is rounding alone, scaled by magnitudes that the
+    dot products dp = dO.v and di = dO.O cancel. The plain bf16 backward
+    meets the bound there (the card test's D = 264 case, whose element
+    (0, 0, 0, 0) exceeded the earlier forms by 5.8e-8)."""
+    rng = np.random.default_rng(23)
+    B, H, Sq, Sk, D = 2, 2, 96, 80, 264
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).bfloat16() for S in (Sq, Sk, Sk))
+    lens = np.maximum(Sk - 5 * np.arange(B), 1)
+    b = torch.from_numpy(np.where(np.arange(Sk)[None, :] < lens[:, None],
+                                  0.0, -1e9).astype(np.float32)
+                         [:, None, None, :])
+    g = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        q.shape).astype(np.float32)).bfloat16()
+    scale = D ** -0.5
+    out, lse = pfa.fused_attention_plain(q, k, v, b, scale, True, "bshd",
+                                         return_lse=True)
+    got = pfa.fused_attention_backward_plain(q, k, v, b, out, lse, g, scale,
+                                             True, "bshd")
+    exact, bound = pfa.bf16_backward_bound(q, k, v, b, out, lse, g, scale,
+                                           True, "bshd")
+    for a, e, bd in zip(got[:3], exact, bound):
+        assert ((a.double() - e).abs() <= bd).all()
+    # the case is exercised: exact dq of row 0 is 0, the float32 one not
+    assert exact[0][:, 0].abs().max() == 0
+    assert got[0][:, 0].abs().max() > 0
+
+
+@pytest.mark.parametrize("dropout", [None, (7, 11, 128)],
+                         ids=["nodrop", "t128"])
+def test_bf16_bound_holds_for_the_plain_version_and_catches_errors(dropout):
+    """bf16_backward_bound on the CPU at D = 32: the plain bf16 backward
+    (which rounds ds and p_drop to bf16 as the kernels do) meets it, and
+    it catches a skipped key and a coarser rounding."""
+    _check_bf16_bound(dropout, D=32, S=32)
+
+
+@pytest.mark.parametrize("dropout", [None, (7, 11, 128)],
+                         ids=["nodrop", "t128"])
+def test_bf16_bound_holds_above_head_dim_256(dropout):
+    """The same at D = 264, where the CUDA-core kernels sum the scores
+    over 128-column chunks and write 256-column groups of the
+    gradients."""
+    _check_bf16_bound(dropout, D=264, S=24)

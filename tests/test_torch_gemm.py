@@ -61,6 +61,7 @@ jqm = importlib.import_module("paddle_tpu.kernels.quantized_matmul")
 INT8_RTOL = 1e-6
 BF16_RTOL = 1e-5
 TUNED_RTOL = 1e-4
+GEMM_RTOL = 1e-5     # a kernel on the card against its plain version
 TF_LOGITS_RTOL = {"int8": 1e-6, "bf16": 2e-3}
 TF_COST_ATOL = {"int8": 1e-5, "bf16": 1e-4}
 
@@ -465,6 +466,9 @@ def test_layers_matmul_in_a_program():
     ("layer_norm", (16, 256, 16), 256, 256, 256),
     ("layer_norm", (32, 512, 8), 64, 512, 128),
     ("dropout_residual", (128, 64, 16), 256, 256, 256),
+    # tiles of the tensor-core design (tuned_matmul_sm90.cu)
+    ("none", (128, 256, 32), 256, 256, 256),
+    ("layer_norm", (64, 512, 16), 128, 512, 128),
 ])
 def test_tuned_epilogue_matches_jax_interpret(monkeypatch, epilogue, blocks,
                                               M, N, K):
@@ -480,6 +484,81 @@ def test_tuned_epilogue_matches_jax_interpret(monkeypatch, epilogue, blocks,
         np.testing.assert_array_equal(pd[k].numpy(), np.asarray(jd[k]))
     got = pvariants._run_variant(pvariants.Variant(*blocks, epilogue), pd)
     assert _rel(ref, got.numpy()) <= TUNED_RTOL
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32 (the tensor-core design's arithmetic), in plain numpy
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero (the magnitude's bits plus half of the
+    dropped 13, then the 13 cleared), as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x1000) & ~np.uint64(0x1FFF)
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)           # tf32's step at 1
+    x = np.array([1 + ulp / 4, 1 + ulp / 2, 1 + 3 * ulp / 4,
+                  -(1 + ulp / 2), 1 + ulp * 1.5], np.float32)
+    np.testing.assert_array_equal(
+        _tf32_rna(x), np.array([one, one + ulp, one + ulp, -(one + ulp),
+                                one + 2 * ulp], np.float32))
+    hi, lo = _split_tf32(np.float32(np.pi))
+    assert hi == _tf32_rna(hi) and lo == _tf32_rna(lo)
+    assert abs(float(hi) + float(lo) - float(np.float32(np.pi))) <= \
+        2.0 ** -21 * np.pi
+
+
+@pytest.mark.parametrize("K", [512, 2048])
+def test_three_tf32_products_keep_float32_accuracy(K):
+    """lo.hi + hi.lo + hi.hi (lo.lo dropped) is within GEMM_RTOL of the
+    float32 product at the serving depths, where one TF32 product
+    (hi.hi) is not. The tensor cores round their float32 sums toward
+    zero: one such sum over all of K = 2048 drifts beyond GEMM_RTOL, so
+    the kernel adds each 32-deep stage's products to its sum as a fresh
+    partial, which keeps it within."""
+    r = np.random.default_rng(K)
+    x = r.standard_normal((64, K), dtype=np.float32)
+    x[::7] *= 30.0
+    y = (r.standard_normal((K, 128)) * K ** -0.5).astype(np.float32)
+    ref = x @ y                                      # float32
+    xh, xl = _split_tf32(x)
+    yh, yl = _split_tf32(y)
+    f64 = (lambda a: a.astype(np.float64))
+    three = f64(xl) @ f64(yh) + f64(xh) @ f64(yl) + f64(xh) @ f64(yh)
+    assert _rel(ref, three) <= GEMM_RTOL
+    assert _rel(ref, f64(xh) @ f64(yh)) > 10 * GEMM_RTOL
+
+    def toward_zero(v):                              # float64 -> float32
+        f = v.astype(np.float32)
+        return np.where(np.abs(f.astype(np.float64)) > np.abs(v),
+                        np.nextafter(f, np.float32(0)), f)
+
+    def tensor_core_sum(stage):
+        """The products of each `stage` columns of K summed rounding
+        toward zero a k8 step, the stages' sums added to nearest."""
+        total = np.zeros(ref.shape, np.float32)
+        for k0 in range(0, K, stage):
+            part = np.zeros(ref.shape, np.float32)
+            for k in range(k0, k0 + stage, 8):
+                s = slice(k, k + 8)
+                for a, b in ((xl, yh), (xh, yl), (xh, yh)):
+                    part = toward_zero(f64(part) + f64(a[:, s]) @ f64(b[s]))
+            total = total + part
+        return total
+
+    assert _rel(ref, tensor_core_sum(32)) <= GEMM_RTOL
+    if K == 2048:
+        assert _rel(ref, tensor_core_sum(K)) > GEMM_RTOL
 
 
 def test_tuned_matmul_checks_its_operands():
@@ -509,12 +588,27 @@ def test_variant_enumeration_respects_constraints():
     for n in (256, 512):
         assert any(v.epilogue == "layer_norm" and v.bn == n
                    for v in pvariants.enumerate_variants(256, n, 256))
-    # every serving GEMM shape takes every GEMM tile
+    # every serving GEMM shape takes every none tile of both designs
     for (M, K, N) in ((8192, 512, 512), (8192, 512, 2048),
                       (8192, 2048, 512), (8192, 512, 32000)):
         assert {(v.bm, v.bn, v.bk) for v in
                 pvariants.enumerate_variants(M, N, K)
-                if v.epilogue == "none"} == set(pvariants._GEMM_BLOCKS)
+                if v.epilogue == "none"} == set(pvariants._BLOCKS["none"])
+    # the tensor-core tiles: 3 for none, and one layer_norm tile with
+    # bn == N at N = 256 and at d_model; dropout_residual has none
+    sm90 = {ep: {(v.bm, v.bn, v.bk) for n in (256, 512)
+                 for v in pvariants.enumerate_variants(8192, n, 512)
+                 if v.epilogue == ep and v.sm90}
+            for ep in ("none", "layer_norm", "dropout_residual")}
+    assert sm90 == {"none": set(pvariants._SM90_BLOCKS["none"]),
+                    "layer_norm": {(64, 256, 32), (64, 512, 16)},
+                    "dropout_residual": set()}
+    for v in pvariants.enumerate_variants(8192, 512, 512):
+        assert v.kernel == {"none": "tuned_matmul",
+                            "layer_norm": "tuned_matmul_ln",
+                            "dropout_residual": "tuned_matmul_dr"}[
+            v.epilogue] + ("_sm90" if v.sm90 else "")
+        assert v.kernel in pkreg.SOURCES
 
 
 def test_variant_cases_pass_on_cpu():
@@ -524,7 +618,7 @@ def test_variant_cases_pass_on_cpu():
 
 
 def test_search_variants_on_cpu_reports_no_time():
-    res = pvariants.search_variants(256, 256, 256)
+    res = pvariants.search_variants(256, 256, 256, device="cpu")
     assert res["timed"] is False and res["device"] == "cpu"
     assert res["considered"] == len(res["admitted"]) == len(
         pvariants.enumerate_variants(256, 256, 256))
