@@ -17,17 +17,22 @@
    and 512 through the CUDA-core kernels in both dtypes; the bf16
    gradients of rows whose keys are all padded against
    flash_attention.bf16_backward_bound), one call under
-   PT_KERNEL_DENY=flash_attention (no launch), Adam, and SGD (one
-   multi-tensor launch a list, 0 ulp, over lengths 1, 127, 129 and 513,
-   LeNet's six parameter shapes and the 255 parameter shapes of
-   Transformer-base). Then times kernel, plain version and the library
-   yardstick: the float32 forward at the serving shape in both designs,
-   the attention kernels of both designs at the training shape (B=96,
-   S=128, H=8, D=64, bf16; device time, sdpa's too), Adam over the 99
-   parameters of Transformer-base that the registry routes to it (and
-   the plain update of the other 156 on the host's clock), and SGD at
-   Transformer-base's and LeNet's sizes (one list a launch, and the same
-   kernel a parameter at a time, against torch._foreach_add_).
+   PT_KERNEL_DENY=flash_attention (no launch), Adam (one multi-tensor
+   launch a list, 0 ulp over three steps in p, m, v and the beta powers:
+   the 99 parameter shapes of Transformer-base that the registry routes
+   to it, lengths 1, 3, 4097 and 65537 with and without weight decay,
+   views one element past a 16-byte boundary, and 1100 tensors, three
+   launches), and SGD (one multi-tensor launch a list, 0 ulp, over
+   lengths 1, 127, 129 and 513, LeNet's six parameter shapes and the 255
+   parameter shapes of Transformer-base). Then times kernel, plain
+   version and the library yardstick: the float32 forward at the serving
+   shape in both designs, the attention kernels of both designs at the
+   training shape (B=96, S=128, H=8, D=64, bf16; device time, sdpa's
+   too), Adam's one launch over the 99 routed parameters against
+   torch.optim.Adam(fused=True) (and the plain update of the other 156
+   on the host's clock), and SGD at Transformer-base's and LeNet's sizes
+   (one list a launch, and the same kernel a parameter at a time,
+   against torch._foreach_add_).
 4. Serving phase: builds full-width Transformer-base (6+6 layers,
    d_model 512, 8 heads, vocab 32000, fuse_attention) with the port's
    layers, initializes it on the card from a seed, and scores 3 ragged
@@ -39,10 +44,11 @@
    contrib.mixed_precision.decorate(AdamOptimizer(2e-4)): bf16 compute,
    float32 master weights) takes 5 steps on one ragged batch of
    96 x 128. Checks a finite, falling loss, exactly 18 forward, 18 dq,
-   18 dk/dv (all of them the tensor-core kernels) and 99 Adam launches
+   18 dk/dv (all of them the tensor-core kernels) and 1 Adam launch
    per step (the registry routes the 99
    parameters of at least PT_KERNEL_MIN_NUMEL = 65536 elements to the
-   kernel and lowers the other 156; no GEMM kernel: none is opted in),
+   kernel and lowers the other 156, and the engine hands the 99 to one
+   multi-tensor launch; no GEMM kernel: none is opted in),
    the registry's decisions, and one step from a copy of the initial
    scope under
    plain_reference() against the kernels' first step. Prints steps/s,
@@ -57,16 +63,17 @@
    tuning.variants.search_variants on the card at the serving forward's
    most frequent GEMM (M=8192, N=512, K=512), the path of the
    layer_norm and dropout_residual epilogues and of the CUDA-core tiles
-   (both designs timed in the same run; the none and layer_norm winners
-   must be tensor-core tiles), and the device times of every GEMM kernel
-   (the search's winning tiles and the fastest CUDA-core ones; the
-   quantized GEMM and the tensor-core tuned GEMM split into pre-pass and
-   GEMM), its plain version and its library yardstick at the four
-   serving shapes. With
-   `--baseline DIR` (an earlier checkout of the repo, e.g. unpacked with
-   git archive) the CUDA-core attention forward, the SGD kernel and the
-   quantized GEMM of that checkout are built and timed in turns with
-   this one's (phases 3 and 6).
+   (both designs timed in the same run, each variant by runs of calls
+   queued back to back; the none and layer_norm winners must be
+   tensor-core tiles), and the device times of every GEMM kernel (the
+   search's winning tiles and the fastest CUDA-core ones; for
+   dropout_residual the fastest tile of each design; the quantized GEMM
+   and the tensor-core tuned GEMM split into pre-pass and GEMM), its
+   plain version and its library yardstick at the four serving shapes.
+   With `--baseline DIR` (an earlier checkout of the repo, e.g. unpacked
+   with git archive) the CUDA-core attention forward, the SGD and Adam
+   kernels and the quantized GEMM of that checkout are built and timed
+   in turns with this one's (phases 3 and 6).
 7. Serving in the GEMM modes: the batches of phase 4 again with every
    one of the 97 mul ops through a GEMM kernel:
    PT_KERNEL_QUANT_MATMUL=int8, =bf16, and with the search's float32
@@ -117,7 +124,7 @@ BF16_TOL = 2e-2
 # recomputed p, in another order than the plain version's matmuls
 BWD_F32_TOL = 1e-4
 # Adam: both round each operation once, in the same order
-ADAM_ULP = 1
+ADAM_ULP = 0
 # SGD: the same two roundings (lr*g, then the difference), never
 # contracted into a fused multiply-add
 SGD_ULP = 0
@@ -507,10 +514,72 @@ def _lr_t(torch, dev, step=3):
                          / (1 - 0.9 ** step)], device=dev)
 
 
-def adam_phase(torch, dev):
-    """The Adam kernel against its plain version on lengths that cut
-    blocks and a Transformer-base embedding; returns the worst |err| and
-    ulp distance."""
+def _adam_list(torch, dev, sizes, seed, offset=0):
+    """Per tensor (p, g, m, v) of the given lengths, views `offset`
+    elements past the start of their buffers, and each tensor's beta
+    powers (steps 1 to 8, one float32 each on the card)."""
+    state, b1ps, b2ps = [], [], []
+    for i, n in enumerate(sizes):
+        ts = _adam_state(torch, dev, n + offset, seed + i)
+        state.append([t[offset:] for t in ts])
+        step = i % 8 + 1
+        b1ps.append(torch.tensor([0.9 ** step], device=dev))
+        b2ps.append(torch.tensor([0.999 ** step], device=dev))
+    return state, b1ps, b2ps
+
+
+def _adam_list_ulp(torch, dev, label, sizes, seed, offset=0, wd=0.0,
+                   steps=3, launches=1):
+    """fused_adam_multi over one list, `steps` consecutive steps (each
+    from the previous one's outputs, the beta powers included) against
+    adam_multi_plain on copies: the worst ulp and |err| over p, m, v and
+    the beta powers, and the launches each step reported."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.kernels import registry as kreg
+    state, b1, b2 = _adam_list(torch, dev, sizes, seed, offset)
+    ps, gs, ms, vs = (list(c) for c in zip(*state))
+    rp, rm, rv = ([t.clone() for t in c] for c in (ps, ms, vs))
+    r1, r2 = b1, b2
+    lr = torch.tensor([LR], device=dev)
+    ulp, err = 0, 0.0
+    for _ in range(steps):
+        ref = fo.adam_multi_plain(rp, gs, rm, rv, lr, r1, r2, 0.9, 0.999,
+                                  1e-8, wd)
+        kreg.reset_counts()
+        got = fo.fused_adam_multi(ps, gs, ms, vs, lr, b1, b2, 0.9, 0.999,
+                                  1e-8, wd)
+        torch.cuda.synchronize()
+        n_launch = kreg.launches()["fused_adam"]
+        _require(n_launch == launches, f"fused_adam_multi ({label}): "
+                                       f"{n_launch} launches, want "
+                                       f"{launches}")
+        for a, r in zip(got, ref):
+            for x, y in zip(a, r):
+                if x.numel():
+                    ulp = max(ulp, int(_ulps(torch, x, y).max()))
+                    err = max(err, (x - y).abs().max().item())
+        rp, rm, rv, r1, r2 = ref
+        ps, ms, vs, b1, b2 = got     # on the card p, m and v themselves
+    n = sum(int(x) for x in sizes)
+    print(f"  adam list vs plain, {label} ({len(sizes)} tensors, {n} "
+          f"elements, {launches} launch(es) a step, {steps} steps, "
+          f"wd {wd:g}): max ulp {ulp} over p, m, v and the beta powers, "
+          f"max|err| {err:.3e} (bound {ADAM_ULP} ulp) "
+          f"{'ok' if ulp <= ADAM_ULP else 'FAIL'}")
+    _require(ulp <= ADAM_ULP, f"fused_adam_multi ({label}) is {ulp} ulp "
+                              f"from its plain version")
+    return err, ulp
+
+
+def adam_phase(torch, dev, shapes):
+    """The Adam kernel against its plain version, 0 ulp: the single entry
+    (a list of one) on lengths that cut blocks and a Transformer-base
+    embedding; the list entry over the parameter shapes the registry
+    routes in Transformer-base (one launch), odd lengths, operands one
+    element past a 16-byte boundary, and a list longer than one table
+    (1100 tensors, three launches), several steps each, the beta powers
+    and weight decay included. Returns the worst |err| and ulp
+    distance."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
     worst_err, worst_ulp = 0.0, 0
     lr_t = _lr_t(torch, dev)
@@ -526,6 +595,19 @@ def adam_phase(torch, dev):
               f"{'ok' if ulp <= ADAM_ULP else 'FAIL'}")
         _require(ulp <= ADAM_ULP, f"fused_adam n={n} is {ulp} ulp from "
                                   f"its plain version")
+        worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulp)
+    routed = [int(np.prod(sh)) for sh in _routed(shapes)[0]]
+    odd = [1, 3, 4097, 65537]
+    for label, sizes, offset, wd, launches in (
+            (f"Transformer-base's {len(routed)} routed shapes", routed, 0,
+             0.0, 1),
+            ("lengths 1, 3, 4097, 65537", odd, 0, 0.0, 1),
+            ("lengths 1, 3, 4097, 65537, weight decay", odd, 0, 0.01, 1),
+            ("views 1 element past 16 bytes", odd + [513, 4096], 1, 0.0, 1),
+            ("1100 tensors (512 a table)",
+             [(i * 37) % 300 + 1 for i in range(1100)], 0, 0.0, 3)):
+        err, ulp = _adam_list_ulp(torch, dev, label, sizes, len(sizes),
+                                  offset, wd, 3, launches)
         worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulp)
     return worst_err, worst_ulp
 
@@ -635,9 +717,13 @@ def _baseline_fwd(torch, fa, baseline, q, k, v, bias, scale, causal):
 def _baseline_sgd(torch, baseline, pairs, lr):
     """One SGD step of an earlier checkout over (p, g) pairs: its
     fused_optimizer.cu's single-tensor pt_fused_sgd, one launch a
-    parameter (the design before the multi-tensor launch)."""
+    parameter (the design before the multi-tensor launch); None where
+    the checkout has none (its SGD is this one's list launch)."""
     import ctypes
-    fn = _baseline_lib(baseline, "fused_optimizer.cu").pt_fused_sgd
+    lib = _baseline_lib(baseline, "fused_optimizer.cu")
+    if not hasattr(lib, "pt_fused_sgd"):
+        return None           # the baseline has this checkout's design
+    fn = lib.pt_fused_sgd
     P = ctypes.c_void_p
     fn.argtypes = [P, P, P, ctypes.c_int64, ctypes.c_float, P]
     fn.restype = ctypes.c_int
@@ -651,45 +737,57 @@ def _baseline_sgd(torch, baseline, pairs, lr):
     return call
 
 
+def _kernels(prof):
+    """The CUDA kernels' events of a profiler session, as torch's own
+    tables sum them: without user annotations, which carry device time
+    too (torch.optim's Optimizer.step#Adam.step range read as much as
+    the kernels under it)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _device_ms(torch, fn, iters, keys):
     """Device time per call of fn, summed over the CUDA kernels whose
     name holds each key, from torch.profiler over `iters` calls: the
-    median of three sessions that saw each key's kernels, all readings
-    printed. On the card a session sometimes drops a kernel's events (a
-    GEMM once read 0.0000 ms in two of three sessions, and once sdpa's
-    forward and backward half the others' time), so a session that reads
-    0 for a key does not count for it, and up to eight are run to find
-    three that do."""
-    from torch.autograd import DeviceType
+    median of three sessions that saw all of each key's kernels, all
+    readings printed. On the card a session sometimes drops a kernel's
+    events (a GEMM once read 0.0000 ms in two of three sessions, sdpa's
+    forward and backward once half the others' time, torch.matmul once
+    0.0234 against 0.0715), so a session counts for a key only where it
+    saw as many of its kernels as the fullest session did (a reading of
+    0 never counts), and up to eight are run to find three that do."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    reads = {k: [] for k in keys}
-    seen = {k: [] for k in keys}
+    reads = {k: [] for k in keys}      # (ms, kernels seen) a session
+
+    def full(r):
+        most = max(n for _, n in r)
+        return [ms for ms, n in r if n == most and ms > 0]
+
     for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        got = {k: 0.0 for k in keys}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
+        got = {k: [0.0, 0] for k in keys}
+        for e in _kernels(prof):
             for k in keys:
                 if k in e.key:
-                    got[k] += e.self_device_time_total / 1e3 / iters
+                    got[k][0] += e.self_device_time_total / 1e3 / iters
+                    got[k][1] += e.count
         for k in keys:
-            reads[k].append(got[k])
-            if got[k] > 0:
-                seen[k].append(got[k])
-        if all(len(v) >= 3 for v in seen.values()):
+            reads[k].append(tuple(got[k]))
+        if all(len(full(r)) >= 3 for r in reads.values()):
             break
     print("    profiler sessions (ms): " + "; ".join(
-        f"{k or 'every kernel'} " + ", ".join(f"{x:.4f}" for x in r)
+        f"{k or 'every kernel'} " + ", ".join(f"{x:.4f}" for x, _ in r)
         for k, r in reads.items()))
-    return {k: sorted(v)[len(v) // 2] if v else 0.0
-            for k, v in seen.items()}
+    return {k: sorted(full(r))[len(full(r)) // 2] if full(r) else 0.0
+            for k, r in reads.items()}
 
 
 def _bound(flops, nbytes, peak_flops, peak_bw):
@@ -827,64 +925,136 @@ def _routed(shapes):
     return routed, [sh for sh in shapes if int(np.prod(sh)) < floor]
 
 
-def time_adam(torch, dev, card, shapes):
-    """One Adam step over the parameter shapes of the training program
-    that the registry routes to the kernel: kernel (one launch per
-    parameter), plain and torch.optim.Adam(fused=True), and the bound of
-    28 bytes an element. Then the plain update of the parameters it
-    lowers, as the adam op runs it on the card: host clock and device
-    time."""
+def _baseline_adam(torch, baseline, state, lr_t):
+    """One Adam step of an earlier checkout over (p, g, m, v) tensors:
+    its fused_optimizer.cu's per-parameter pt_fused_adam, one launch a
+    parameter, with the bias-corrected rate lr_t (the design before the
+    multi-tensor launch)."""
+    import ctypes
+    fn = _baseline_lib(baseline, "fused_optimizer.cu").pt_fused_adam
+    P, F = ctypes.c_void_p, ctypes.c_float
+    fn.argtypes = [P, P, P, P, P, ctypes.c_int64, F, F, F, F, F, P]
+    fn.restype = ctypes.c_int
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        for p, g, m, v in state:
+            err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                     lr_t.data_ptr(), p.numel(), 0.9, 1.0 - 0.9, 0.999,
+                     1.0 - 0.999, 1e-8, stream)
+            _require(err == 0, f"baseline fused_adam failed: {err}")
+    return call
+
+
+def time_adam(torch, dev, card, shapes, baseline=None):
+    """One Adam step over the parameter shapes of the training program that
+    the registry routes to the kernel: the kernel as the engine calls it
+    (one list, one launch; events around ten calls queued behind a sleep,
+    the row's time, beside the profiler's reading and events over one call
+    at a time), the plain version, torch.optim.Adam(fused=True) (the
+    yardstick, queued events too) and the bound of 28 bytes an element. With
+    `baseline` (an earlier checkout) its per-parameter kernel too, in turns
+    with this one's list launch (its results against this one's, 0 ulp).
+    Then the plain update of the parameters the registry lowers, as the adam
+    op runs it on the card: host clock and device time."""
     from paddle_tpu_torch.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.kernels import registry as kreg
     _, _, peak_bw, _, _ = _peaks(card)
     routed, lowered = _routed(shapes)
-    state = [_adam_state(torch, dev, int(np.prod(sh)), i)
-             for i, sh in enumerate(routed)]
+    state, b1ps, b2ps = _adam_list(torch, dev, [int(np.prod(sh))
+                                                for sh in routed], 0)
+    ps, gs, ms, vs = (list(c) for c in zip(*state))
     low_state = [_adam_state(torch, dev, int(np.prod(sh)), i)
                  for i, sh in enumerate(lowered)]
-    n = sum(p.numel() for p, _, _, _ in state)
+    n = sum(p.numel() for p in ps)
     n_low = sum(p.numel() for p, _, _, _ in low_state)
+    lr = torch.tensor([LR], device=dev)
     lr_t = _lr_t(torch, dev)
+    key = ("adam_multi_kernel",)
 
     def kernel():
-        for p, g, m, v in state:
-            fo.fused_adam(p, g, m, v, lr_t)
+        fo.fused_adam_multi(ps, gs, ms, vs, lr, b1ps, b2ps)
 
-    def plain(st=state):
-        for p, g, m, v in st:
-            fo.adam_plain(p, g, m, v, lr_t[0], 0.9, 0.999, 1e-8)
+    def plain():
+        fo.adam_multi_plain(ps, gs, ms, vs, lr, b1ps, b2ps, 0.9, 0.999,
+                            1e-8)
 
+    kreg.reset_counts()
+    kernel()
+    launches = kreg.launches()["fused_adam"]
+    _require(launches == 1, f"{launches} Adam launches for one list")
+    base_ms = None
+    if baseline:
+        # one bias-corrected rate for every parameter (step 3's), which
+        # the baseline takes as it is and the list kernel computes from
+        # the beta powers, both in float32 and rounded alike
+        b3 = [torch.tensor([0.9 ** 3], device=dev)] * len(ps)
+        b3v = [torch.tensor([0.999 ** 3], device=dev)] * len(ps)
+        rate = (lr * torch.sqrt(1 - b3v[0]) / (1 - b3[0])).reshape(1)
+        twins = [[t.clone() for t in ts] for ts in state]
+        base = _baseline_adam(torch, baseline, twins, rate)
+        base()
+        fo.fused_adam_multi(ps, gs, ms, vs, lr, b3, b3v)
+        torch.cuda.synchronize()
+        _require(all(torch.equal(a, b) for ts, tw in zip(state, twins)
+                     for a, b in zip(ts, tw)),
+                 "the baseline's Adam disagrees")
+        old = ("adam_kernel",)
+        runs = [_device_ms(torch, base, 5, old)[old[0]],
+                _device_ms(torch, kernel, 5, key)[key[0]],
+                _device_ms(torch, kernel, 5, key)[key[0]],
+                _device_ms(torch, base, 5, old)[old[0]]]
+        queued = [_queued_ms(torch, f)[0]
+                  for f in (base, kernel, kernel, base)]
+        base_ms = (queued[0] + queued[3]) / 2
+        print(f"  adam over the {len(routed)} routed parameters: the "
+              f"baseline checkout's kernel ({len(routed)} launches) "
+              f"{base_ms:.4f} ms against this one's list launch "
+              f"{(queued[1] + queued[2]) / 2:.4f} ms (queued events, in "
+              f"turns: {', '.join(f'{x:.4f}' for x in queued)}; "
+              f"profiler, in turns: {', '.join(f'{x:.4f}' for x in runs)};"
+              f" equal results)")
+        del twins
     ev = _time_ms(kernel, iters=10, warmup=2)
-    dev_ms = _device_ms(torch, kernel, 5, ("adam_kernel",))["adam_kernel"]
+    kq, kq_host = _queued_ms(torch, kernel)
+    prof_ms = _device_ms(torch, kernel, 5, key)[key[0]]
     pl = _time_ms(plain, iters=5, warmup=1)
-    params = [p.clone().requires_grad_(True) for p, _, _, _ in state]
-    for prm, (_, g, _, _) in zip(params, state):
+    params = [p.clone().requires_grad_(True) for p in ps]
+    for prm, g in zip(params, gs):
         prm.grad = g.clone()
     opt = torch.optim.Adam(params, lr=LR, fused=True)
-    lib = _time_ms(opt.step, iters=10, warmup=2)
+    lib_prof = _device_ms(torch, opt.step, 5, ("",))[""]
+    lib_ev = _time_ms(opt.step, iters=10, warmup=2)
+    lib, _ = _queued_ms(torch, opt.step)
+    del params, opt
     bound = 28 * n / peak_bw * 1e3
-    low_ev = _time_ms(lambda: plain(low_state), iters=10, warmup=2)
-    low_dev = _device_ms(torch, lambda: plain(low_state), 5, ("",))[""]
-
-    def low_kernel():   # the same parameters through the kernel
-        for p, g, m, v in low_state:
-            fo.fused_adam(p, g, m, v, lr_t)
-
-    low_kev = _time_ms(low_kernel, iters=10, warmup=2)
-    low_kdev = _device_ms(torch, low_kernel, 5, ("adam_kernel",))[
-        "adam_kernel"]
+    # the profiler has read this launch (and SGD's list launch) below its
+    # byte bound, which no kernel can beat: the row's time is the queued
+    # events', the card running calls back to back (the yardstick's too)
+    below = " (below the byte bound: not a time)" if prof_ms < bound else ""
+    low_ev = _time_ms(lambda: [fo.adam_plain(p, g, m, v, lr_t[0], 0.9,
+                                             0.999, 1e-8)
+                               for p, g, m, v in low_state],
+                      iters=10, warmup=2)
+    low_dev = _device_ms(torch, lambda: [
+        fo.adam_plain(p, g, m, v, lr_t[0], 0.9, 0.999, 1e-8)
+        for p, g, m, v in low_state], 5, ("",))[""]
     print(f"  adam over the {len(routed)} routed parameters, {n} elements: "
-          f"kernel device {dev_ms:.4f} ms ({len(routed)} launches; events "
-          f"over the launch loop {ev:.4f} ms), plain {pl:.4f} ms, "
-          f"torch.optim.Adam(fused=True) {lib:.4f} ms, bound {bound:.4f} "
-          f"ms (bytes: 28 B x {n})")
+          f"kernel {kq:.4f} ms ({launches} launch; queued events, host "
+          f"{kq_host:.1f} ms to queue 10; the profiler {prof_ms:.4f} ms"
+          f"{below}; events over one call at a time {ev:.4f} ms), plain "
+          f"{pl:.4f} ms (events), "
+          f"torch.optim.Adam(fused=True) {lib:.4f} ms (queued events; "
+          f"the profiler {lib_prof:.4f} ms, events over the loop "
+          f"{lib_ev:.4f} ms), bound {bound:.4f} ms (bytes: "
+          f"28 B x {n})")
     print(f"  adam plain update of the {len(lowered)} lowered parameters, "
           f"{n_low} elements: host clock (events over the loop) "
-          f"{low_ev:.4f} ms, device {low_dev:.4f} ms; the same "
-          f"parameters through the kernel: {low_kev:.4f} ms on the host's "
-          f"clock, {low_kdev:.4f} ms device")
-    return {"ms": dev_ms, "events_ms": ev, "plain_ms": pl,
-            "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
-            "elements": n, "routed": len(routed),
+          f"{low_ev:.4f} ms, device {low_dev:.4f} ms")
+    return {"ms": kq, "events_ms": ev, "profiler_ms": prof_ms,
+            "plain_ms": pl, "library_ms": lib, "bound_ms": bound,
+            "bound_by": "bytes", "elements": n, "routed": len(routed),
+            "launches": launches, "baseline_ms": base_ms,
             "lowered_events_ms": low_ev, "lowered_device_ms": low_dev}
 
 
@@ -973,8 +1143,11 @@ def time_sgd(torch, dev, card, shapes, label, baseline=None):
     kernel()
     launches = kreg.launches()["fused_sgd"]
     base_ms = None
-    if baseline:
-        base = _baseline_sgd(torch, baseline, pairs, lr)
+    base = _baseline_sgd(torch, baseline, pairs, lr) if baseline else None
+    if baseline and base is None:
+        print(f"  sgd over {label}: the baseline checkout has this one's "
+              f"list launch (no per-parameter kernel to time)")
+    if base is not None:
         twins = [(p.clone(), g) for p, g in pairs]
         base()
         fo.fused_sgd_multi([p for p, _ in twins], [g for _, g in twins], lr)
@@ -1026,7 +1199,6 @@ def where_time_goes(torch, exe, main, feed, cost, scope):
     full run is the logits' trip to the host), then once under
     torch.profiler: device busy share and the kernels that take most
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -1038,8 +1210,7 @@ def where_time_goes(torch, exe, main, feed, cost, scope):
         exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f"  forward fetching only the cost: {cost_only:.4f} s; "
           f"profiled: wall {wall:.4f} s, device busy {busy:.4f} s "
@@ -1265,7 +1436,10 @@ def search_phase(torch, dev):
     for row in res["admitted"]:
         v = _variant(V, row)
         print(f"  {v.label} [{'tensor cores' if v.sm90 else 'CUDA cores'}]"
-              f": {row['ms']:.4f} ms (median of 20), rel err "
+              f": {row['ms']:.4f} ms a call (the ranking: median of "
+              f"{V._RUNS} runs of 20 calls queued back to back), "
+              f"{row['single_ms']:.4f} ms a single call (median of 20, "
+              f"the host's launch included), rel err "
               f"{row['rel_err']:.3e}")
     _require(set(res["winners"]) == {"none", "layer_norm",
                                      "dropout_residual"},
@@ -1274,12 +1448,14 @@ def search_phase(torch, dev):
         _require(_variant(V, res["winners"][ep]).sm90,
                  f"the {ep} winner is not a tensor-core tile")
     print(f"  winners at M={M} N={N} K={K}: "
-          + ", ".join(f"{ep} {w['bm']}x{w['bn']}x{w['bk']} {w['ms']:.4f} ms"
-                      for ep, w in res["winners"].items()))
+          + ", ".join(f"{ep} {w['bm']}x{w['bn']}x{w['bk']} {w['ms']:.4f} ms "
+                      f"({'tensor' if _variant(V, w).sm90 else 'CUDA'} "
+                      f"cores)" for ep, w in res["winners"].items()))
     print(f"  launches during the search: "
           f"{ {k: c for k, c in counts.items() if c} }")
     for name in ("tuned_matmul", "tuned_matmul_ln", "tuned_matmul_dr",
-                 "tuned_matmul_sm90", "tuned_matmul_ln_sm90"):
+                 "tuned_matmul_sm90", "tuned_matmul_ln_sm90",
+                 "tuned_matmul_dr_sm90"):
         _require(counts[name] > 0, f"the search never launched {name}")
     return res, counts
 
@@ -1288,11 +1464,12 @@ def _variant(V, row):
     return V.Variant(row["bm"], row["bn"], row["bk"], row["epilogue"])
 
 
-def _best_cuda_core(V, search, ep):
-    """The fastest admitted CUDA-core tile of epilogue `ep` in the search
-    (the earlier design, timed beside the tensor-core winner)."""
+def _best_tile(V, search, ep, sm90):
+    """The fastest admitted tile of epilogue `ep` in the search of one
+    design: the tensor-core one (sm90), or the CUDA-core one (the earlier
+    design, timed beside it)."""
     rows = [r for r in search["admitted"]
-            if r["epilogue"] == ep and not _variant(V, r).sm90]
+            if r["epilogue"] == ep and _variant(V, r).sm90 == sm90]
     return min(rows, key=lambda r: r["ms"])
 
 
@@ -1389,30 +1566,30 @@ def _baseline_qmm(torch, baseline):
 
 
 def time_gemms(torch, dev, card, search, baseline=None):
-    """Each GEMM kernel at the four serving shapes (float32 operands, as
-    the serving forward gives them): kernel, plain and library device
-    times per call (all the kernels each launches; the quantized GEMM
-    split into its pre-pass and its GEMM, the tensor-core tuned GEMM into
-    its B^T pre-pass and its GEMM), the kernel on the host's clock
-    (CUDA events around back-to-back calls) and the bound. The tuned
-    rows: the search's tensor-core winners (none; layer_norm where N is
-    its bn) and, beside them, the fastest CUDA-core tile of each, and the
-    dropout_residual winner; their bound counts the float32 product as
-    3xTF32 operations at the TF32 peak (the least the card can do for a
-    float32-accurate product) plus the epilogue's float32 operations.
-    With `baseline` (an earlier checkout), the quantized GEMM of that
-    checkout too, in turns with this one (baseline, this, this,
-    baseline), each result against this one's (int8 bit-equal). Returns
-    {(kernel, M, K, N): row}."""
+    """Each GEMM kernel at the four serving shapes (float32 operands, as the
+    serving forward gives them): kernel, plain and library device times per
+    call (all the kernels each launches; the quantized GEMM split into its
+    pre-pass and its GEMM, the tensor-core tuned GEMM into its B^T pre-pass
+    and its GEMM), the kernel on the host's clock (CUDA events around back-
+    to-back calls) and the bound. The tuned rows: the search's tensor-core
+    winners (none; layer_norm where N is its bn) and, beside them, the
+    fastest CUDA-core tile of each, and the fastest dropout_residual tile of
+    each design; their bound counts the float32 product as 3xTF32 operations
+    at the TF32 peak (the least the card can do for a float32-accurate
+    product) plus the epilogue's float32 operations. With `baseline` (an
+    earlier checkout), the quantized GEMM of that checkout too, in turns
+    with this one (baseline, this, this, baseline), each result against this
+    one's (int8 bit-equal). Returns {(kernel, M, K, N): row}."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import quantized_matmul as qm
     from paddle_tpu_torch.tuning import variants as V
     peak_f32, peak_bf16, peak_bw, peak_i8, peak_tf32 = _peaks(card)
     base = _baseline_qmm(torch, baseline) if baseline else None
     winners = search["winners"]
-    tuned = [winners["none"], _best_cuda_core(V, search, "none"),
-             winners["layer_norm"], _best_cuda_core(V, search, "layer_norm"),
-             winners["dropout_residual"]]
+    tuned = [winners["none"], _best_tile(V, search, "none", False),
+             winners["layer_norm"], _best_tile(V, search, "layer_norm", False),
+             _best_tile(V, search, "dropout_residual", True),
+             _best_tile(V, search, "dropout_residual", False)]
     out = {}
     for M, K, N, per_fwd in SERVE_GEMMS:
         x, y = _gemm_inputs(torch, dev, M, K, N, 5 * M + K)
@@ -1665,7 +1842,6 @@ def _copy_scope(pt, scope, names):
 def profile_step(torch, exe, main, feed, cost, scope):
     """One training step under torch.profiler: wall time, device busy
     share and the kernels that take most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1673,11 +1849,13 @@ def profile_step(torch, exe, main, feed, cost, scope):
         exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    adam = [e for e in kernels if "adam" in e.key]
     print(f"  profiled step: wall {wall:.4f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.1f} %)")
+          f"({100 * busy / wall:.1f} %); the Adam kernel "
+          f"{sum(e.self_device_time_total for e in adam) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in adam)} launch(es)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
@@ -1764,7 +1942,9 @@ def training_phase(torch, dev, built):
                  "flash_attention_fwd_sm90": 18,
                  "flash_attention_bwd_dq_sm90": 18,
                  "flash_attention_bwd_dkv_sm90": 18,
-                 "fused_adam": len(routed)})
+                 # the engine hands the step's adam ops to one list: one
+                 # multi-tensor launch takes every routed parameter
+                 "fused_adam": 1})
     for i, (c, d) in enumerate(zip(per_step, decisions)):
         _require(c == want, f"step {i + 1} launched {c}, want {want}")
         _require(d.get("fused_adam") == {"custom": len(routed),
@@ -2006,8 +2186,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="an earlier checkout of this repo: time its "
-                         "CUDA-core attention forward, SGD kernel and "
-                         "quantized GEMM in turns with this one's")
+                         "CUDA-core attention forward, SGD and Adam "
+                         "kernels and quantized GEMM in turns with this "
+                         "one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2048,15 +2229,15 @@ def main(argv=None):
     # GEMM kernels of slice 3
     print("[kernel phase]")
     worst = kernel_phase(torch, dev)
-    adam_err, adam_ulp = adam_phase(torch, dev)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import transformer as T
     from paddle_tpu_torch.tuning import variants as V
     built = _build_training(pt, T)
     shapes = [p.shape for p in built[1].all_parameters()]
+    adam_err, adam_ulp = adam_phase(torch, dev, shapes)
     times = time_attention(torch, dev, card, args.baseline)
     ttimes = time_training_attention(torch, dev, card)
-    atimes = time_adam(torch, dev, card, shapes)
+    atimes = time_adam(torch, dev, card, shapes, args.baseline)
     lenet_shapes = [p.shape for p in _mnist_program(pt)[0].all_parameters()]
     sgd_err = sgd_phase(torch, dev, (
         ("lengths 1, 127, 129, 513", [(1,), (127,), (129,), (513,)],
@@ -2191,6 +2372,9 @@ def main(argv=None):
             ("tuned_matmul_ln", "tuned_matmul.cu",
              "paddle_tpu/tuning/variants.py:88",
              search_counts["tuned_matmul_ln"]),
+            ("tuned_matmul_dr_sm90", "tuned_matmul_sm90.cu",
+             "paddle_tpu/tuning/variants.py:110",
+             search_counts["tuned_matmul_dr_sm90"]),
             ("tuned_matmul_dr", "tuned_matmul.cu",
              "paddle_tpu/tuning/variants.py:110",
              search_counts["tuned_matmul_dr"])):

@@ -2,28 +2,40 @@
 //
 // Adam replaces: paddle_tpu/kernels/fused_optimizer.py _adam_block (line
 // 108), reached through fused_adam (line 202) and its pl.pallas_call. Same
-// function as the JAX lowered adam (paddle_tpu/ops/optimizer_ops.py):
+// function as the JAX lowered adam (paddle_tpu/ops/optimizer_ops.py),
+// with the JAX kernel's weight-decay term (0 on the op path):
+//   lr_t = lr*sqrt(1-b2p)/(1-b1p)      (b1p, b2p: the tensor's beta powers)
 //   m' = b1*m + (1-b1)*g
 //   v' = b2*v + ((1-b2)*g)*g
-//   p' = p - (lr_t*m') / (sqrt(v') + eps)
-// on float32 tensors of any length, written in place over p, m and v.
-// lr_t = lr*sqrt(1-b2^t)/(1-b1^t) is computed on the card by the caller
-// and read here from a device pointer, so no value crosses to the host.
+//   p' = p - ((lr_t*m') / (sqrt(v') + eps) + (lr_t*wd)*p)
+//   Beta1PowOut = b1p*b1, Beta2PowOut = b2p*b2
+// on float32 tensors of any length, p, m and v written in place. lr, b1p
+// and b2p are read from device pointers, so no value crosses to the host.
 //
 // What bounds it on this card: 4 loads and 3 stores of 4 bytes per
 // element against about 10 floating-point operations: 28 bytes per
-// element, far below the ridge point. It is bound by HBM bandwidth
-// (93.3M elements of Transformer-base: 2.61 GB, 0.78 ms at 3.35 TB/s).
+// element, far below the ridge point. It is bound by HBM bandwidth (the
+// 99 parameters the registry routes in Transformer-base, 93.2M elements:
+// 2.61 GB, 0.78 ms at 3.35 TB/s). Host launches matter as much: one
+// launch a parameter, each behind the scalar launches that computed its
+// lr_t and beta powers, made a training step's update ~800 launches.
 //
-// What the design does about that: a grid-stride loop over the flat
-// arrays, one element per thread per step, so that neighbouring threads
-// touch neighbouring addresses and every byte is read or written once;
-// no staging through shared memory (there is no reuse to exploit). Each
-// operation is rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn /
-// __fsqrt_rn keep nvcc from contracting them into fused multiply-adds),
-// so the kernel gives the plain PyTorch version's results bit for bit.
-// One launch per parameter; a multi-tensor launch over all parameters
-// is later work.
+// What the design does about that: SGD's multi-tensor design below. One
+// launch updates a whole list (the engine hands it every adam op of a
+// step that shares a rate and betas; a single parameter is a list of
+// one). The table of (p, g, m, v, b1p, b2p, n) and each tensor's first
+// chunk travels by value as the kernel's parameter (512 tensors a
+// launch; a longer list takes more launches). Each block updates a
+// chunk of ADAM_CHUNK elements: it finds its tensor by binary search
+// over the first chunks and computes the tensor's lr_t itself; the
+// tensor's first block writes the new beta powers into a fresh [T, 2]
+// buffer (never over b1p and b2p, which the tensor's other blocks still
+// read). Where p, g, m and v share their offset from a 16-byte boundary
+// the chunk moves as float4 loads and stores between a scalar head and
+// tail; else element by element. Each operation is rounded on its own
+// (__fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn keep nvcc from
+// contracting them into fused multiply-adds), so the kernel gives the
+// plain PyTorch version's results bit for bit.
 //
 // SGD replaces: paddle_tpu/kernels/fused_optimizer.py _sgd_block (line
 // 133), reached through fused_sgd (line 225) and the same pl.pallas_call:
@@ -56,27 +68,123 @@ namespace {
 
 constexpr int NTHREADS = 256;
 
+// elements a block updates
+constexpr int ADAM_CHUNK = 4096;
+// tensors a launch takes: the table below stays under the 32 764 bytes a
+// kernel's parameters may hold
+constexpr int ADAM_MAX_TENSORS = 512;
+
+struct AdamTable {
+  const float* lr;
+  float* pow_out;  // [count, 2]: b1p*b1, b2p*b2 of each tensor
+  float b1, one_minus_b1, b2, one_minus_b2, eps, wd;
+  int count;
+  float* p[ADAM_MAX_TENSORS];
+  const float* g[ADAM_MAX_TENSORS];
+  float* m[ADAM_MAX_TENSORS];
+  float* v[ADAM_MAX_TENSORS];
+  const float* b1p[ADAM_MAX_TENSORS];
+  const float* b2p[ADAM_MAX_TENSORS];
+  int64_t n[ADAM_MAX_TENSORS];
+  int first_chunk[ADAM_MAX_TENSORS];  // ascending; tensor t's first block
+};
+static_assert(sizeof(AdamTable) <= 32764, "kernel parameters too large");
+
+struct AdamHyper {
+  float b1, one_minus_b1, b2, one_minus_b2, eps, wd, lr_t, lr_wd;
+};
+
+__device__ __forceinline__ void adam_step(float& p, float g, float& m,
+                                          float& v, const AdamHyper& h) {
+  const float mi =
+      __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.one_minus_b1, g));
+  const float vi = __fadd_rn(__fmul_rn(h.b2, v),
+                             __fmul_rn(__fmul_rn(h.one_minus_b2, g), g));
+  float upd =
+      __fdiv_rn(__fmul_rn(h.lr_t, mi), __fadd_rn(__fsqrt_rn(vi), h.eps));
+  if (h.wd != 0.0f) upd = __fadd_rn(upd, __fmul_rn(h.lr_wd, p));
+  p = __fsub_rn(p, upd);
+  m = mi;
+  v = vi;
+}
+
 __global__ void __launch_bounds__(NTHREADS)
-    adam_kernel(float* __restrict__ p, const float* __restrict__ g,
-                float* __restrict__ m, float* __restrict__ v,
-                const float* __restrict__ lr_t_ptr, int64_t n, float b1,
-                float one_minus_b1, float b2, float one_minus_b2,
-                float eps) {
-  const float lr_t = *lr_t_ptr;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    const float gi = g[i];
-    const float mi =
-        __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(one_minus_b1, gi));
-    const float vi = __fadd_rn(__fmul_rn(b2, v[i]),
-                               __fmul_rn(__fmul_rn(one_minus_b2, gi), gi));
-    const float upd =
-        __fdiv_rn(__fmul_rn(lr_t, mi), __fadd_rn(__fsqrt_rn(vi), eps));
-    p[i] = __fadd_rn(p[i], -upd);
-    m[i] = mi;
-    v[i] = vi;
+    adam_multi_kernel(const __grid_constant__ AdamTable a) {
+  __shared__ int s_t;
+  __shared__ float s_lr_t;
+  const int chunk = blockIdx.x;
+  if (threadIdx.x == 0) {
+    // the last tensor whose first chunk is at or before this one
+    int lo = 0, hi = a.count - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (a.first_chunk[mid] <= chunk)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const float b1p = *a.b1p[lo], b2p = *a.b2p[lo];
+    s_t = lo;
+    s_lr_t = __fdiv_rn(__fmul_rn(*a.lr, __fsqrt_rn(__fsub_rn(1.0f, b2p))),
+                       __fsub_rn(1.0f, b1p));
+    if (chunk == a.first_chunk[lo]) {
+      a.pow_out[2 * lo] = __fmul_rn(b1p, a.b1);
+      a.pow_out[2 * lo + 1] = __fmul_rn(b2p, a.b2);
+    }
+  }
+  __syncthreads();
+  const int t = s_t;
+  AdamHyper h;
+  h.b1 = a.b1;
+  h.one_minus_b1 = a.one_minus_b1;
+  h.b2 = a.b2;
+  h.one_minus_b2 = a.one_minus_b2;
+  h.eps = a.eps;
+  h.wd = a.wd;
+  h.lr_t = s_lr_t;
+  h.lr_wd = __fmul_rn(h.lr_t, a.wd);
+  float* __restrict__ p = a.p[t];
+  const float* __restrict__ g = a.g[t];
+  float* __restrict__ m = a.m[t];
+  float* __restrict__ v = a.v[t];
+  const int64_t start =
+      static_cast<int64_t>(chunk - a.first_chunk[t]) * ADAM_CHUNK;
+  const int64_t end = min(a.n[t], start + ADAM_CHUNK);
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(p + start);
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g + start);
+  const uintptr_t ma = reinterpret_cast<uintptr_t>(m + start);
+  const uintptr_t va = reinterpret_cast<uintptr_t>(v + start);
+  int64_t v0 = start, v1 = start;  // the float4 span [v0, v1)
+  if ((((pa ^ ga) | (pa ^ ma) | (pa ^ va)) & 15) == 0 && start < end) {
+    v0 = min(end, start + static_cast<int64_t>(((16 - (pa & 15)) & 15) >> 2));
+    v1 = v0 + ((end - v0) & ~int64_t{3});
+    float4* p4 = reinterpret_cast<float4*>(p + v0);
+    const float4* g4 = reinterpret_cast<const float4*>(g + v0);
+    float4* m4 = reinterpret_cast<float4*>(m + v0);
+    float4* v4 = reinterpret_cast<float4*>(v + v0);
+    const int nv = static_cast<int>((v1 - v0) >> 2);
+#pragma unroll 4
+    for (int j = threadIdx.x; j < nv; j += NTHREADS) {
+      float4 x = p4[j], mm = m4[j], vv = v4[j];
+      const float4 y = __ldg(g4 + j);
+      adam_step(x.x, y.x, mm.x, vv.x, h);
+      adam_step(x.y, y.y, mm.y, vv.y, h);
+      adam_step(x.z, y.z, mm.z, vv.z, h);
+      adam_step(x.w, y.w, mm.w, vv.w, h);
+      p4[j] = x;
+      m4[j] = mm;
+      v4[j] = vv;
+    }
+  }
+  // the scalar head [start, v0) and tail [v1, end)
+  const int64_t head = v0 - start;
+  for (int64_t i = threadIdx.x; i < head + (end - v1); i += NTHREADS) {
+    const int64_t e = i < head ? start + i : v1 + (i - head);
+    float pe = p[e], me = m[e], ve = v[e];
+    adam_step(pe, g[e], me, ve, h);
+    p[e] = pe;
+    m[e] = me;
+    v[e] = ve;
   }
 }
 
@@ -157,30 +265,65 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + NTHREADS - 1) / NTHREADS;
-  // enough blocks to fill 132 SMs many times over; the loop takes the rest
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  return static_cast<int>(blocks);
-}
-
 }  // namespace
 
-// p, m, v: float32 [n], updated in place; g: float32 [n]; lr_t: one
-// float32 on the card. Returns the cudaError_t of the launch.
-extern "C" int pt_fused_adam(void* p, const void* g, void* m, void* v,
-                             const void* lr_t, int64_t n, float b1,
-                             float one_minus_b1, float b2,
-                             float one_minus_b2, float eps, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  adam_kernel<<<grid_for(n), NTHREADS, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v),
-      static_cast<const float*>(lr_t), n, b1, one_minus_b1, b2,
-      one_minus_b2, eps);
-  return static_cast<int>(cudaGetLastError());
+// count tensors: p[i], m[i], v[i] float32 [n[i]], updated in place; g[i]
+// float32 [n[i]]; b1p[i], b2p[i]: one float32 each on the card, the
+// tensor's beta powers; lr: one float32 on the card; pow_out: float32
+// [count, 2], written with b1p[i]*b1 and b2p[i]*b2; wd: weight decay (0
+// on the op path). Launches adam_multi_kernel as few times as the table
+// allows (once for up to ADAM_MAX_TENSORS tensors) and writes the number
+// of launches to *launches. Returns the cudaError_t of the first failed
+// launch, or 0.
+extern "C" int pt_fused_adam_multi(void* const* p, const void* const* g,
+                                   void* const* m, void* const* v,
+                                   const void* const* b1p,
+                                   const void* const* b2p, const int64_t* n,
+                                   int count, const void* lr, void* pow_out,
+                                   float b1, float one_minus_b1, float b2,
+                                   float one_minus_b2, float eps, float wd,
+                                   void* stream, int* launches) {
+  *launches = 0;
+  if (count < 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < count; ++i)
+    if (n[i] < 0) return static_cast<int>(cudaErrorInvalidValue);
+  thread_local AdamTable table;  // 30 KB: not on the caller's stack
+  table.lr = static_cast<const float*>(lr);
+  table.b1 = b1;
+  table.one_minus_b1 = one_minus_b1;
+  table.b2 = b2;
+  table.one_minus_b2 = one_minus_b2;
+  table.eps = eps;
+  table.wd = wd;
+  int i = 0;
+  while (i < count) {
+    // every tensor takes one chunk at least: an empty one still writes
+    // its beta powers
+    table.pow_out = static_cast<float*>(pow_out) + 2 * static_cast<int64_t>(i);
+    int k = 0;
+    int64_t chunks = 0;
+    for (; i < count && k < ADAM_MAX_TENSORS; ++i, ++k) {
+      const int64_t c = n[i] == 0 ? 1 : (n[i] + ADAM_CHUNK - 1) / ADAM_CHUNK;
+      if (chunks + c > 0x7FFFFFFF) break;  // the grid's x limit
+      table.p[k] = static_cast<float*>(p[i]);
+      table.g[k] = static_cast<const float*>(g[i]);
+      table.m[k] = static_cast<float*>(m[i]);
+      table.v[k] = static_cast<float*>(v[i]);
+      table.b1p[k] = static_cast<const float*>(b1p[i]);
+      table.b2p[k] = static_cast<const float*>(b2p[i]);
+      table.n[k] = n[i];
+      table.first_chunk[k] = static_cast<int>(chunks);
+      chunks += c;
+    }
+    if (k == 0) return static_cast<int>(cudaErrorInvalidValue);
+    table.count = k;
+    adam_multi_kernel<<<static_cast<unsigned>(chunks), NTHREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(table);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  return 0;
 }
 
 // count tensors: p[i] float32 [n[i]], updated in place, g[i] float32

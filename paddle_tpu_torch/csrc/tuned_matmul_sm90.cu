@@ -1,18 +1,18 @@
 // Float32 GEMM for Hopper's tensor cores (sm_90a) in 3xTF32, plain C
 // interface: wgmma.mma_async and TMA.
 //
-// Replaces: paddle_tpu/tuning/variants.py _mm_block (line 70) and
-// _mm_ln_block (line 88), reached through tuned_matmul (line 129) and
-// their pl.pallas_call (lines 172, 178). C = epilogue(A.B) for A [M, K],
-// B [K, N] float32, C float32, with one of two epilogues:
-//   none:       C = acc
-//   layer_norm: each row of acc normalized (the mean, then the mean of
-//               squared deviations about it, rsqrt(var + 1e-5)), times
-//               gamma [N], plus beta [N]; the block owns whole rows
-//               (BN == N)
-// The dropout/residual epilogue (_mm_dr_block) stays on the CUDA-core
-// kernel of tuned_matmul.cu; its epilogue would go where this file's
-// layer_norm one does, on the same main loop.
+// Replaces: paddle_tpu/tuning/variants.py _mm_block (line 70),
+// _mm_ln_block (line 88) and _mm_dr_block (line 110), reached through
+// tuned_matmul (line 129) and their pl.pallas_call (lines 172, 178, 185).
+// C = epilogue(A.B) for A [M, K], B [K, N] float32, C float32, with one
+// of three epilogues:
+//   none:             C = acc
+//   layer_norm:       each row of acc normalized (the mean, then the
+//                     mean of squared deviations about it,
+//                     rsqrt(var + 1e-5)), times gamma [N], plus beta [N];
+//                     the block owns whole rows (BN == N)
+//   dropout_residual: C = acc * mask * (1/0.9) + residual, mask and
+//                     residual float32 [M, N]
 //
 // What bounds it on this card: operations. Float32 on the CUDA cores caps
 // at 67 TFLOP/s (the earlier design, tuned_matmul.cu, reached 59 % of it
@@ -21,7 +21,8 @@
 // hi = tf32(x) and lo = tf32(x - hi), and a product is lo.hi + hi.lo +
 // hi.hi (lo.lo, about 2^-22 of it, is dropped; the small terms first, as
 // CUTLASS's OpMultiplyAddFastF32). At 8192x512x512 that is 12.9 GFLOP of
-// TF32, 26 us at 495 TFLOP/s, against 34.6 MB of A, B and C (10 us).
+// TF32, 26 us at 495 TFLOP/s, against 34.6 MB of A, B and C (10 us;
+// dropout_residual reads 33.5 MB more, mask and residual: 10 us).
 //
 // What the design does about that:
 //   * one pre-pass launch writes B^T split, as hi rows [0, N) and lo rows
@@ -56,11 +57,18 @@
 //     registers, the mean and then the squared deviations, as the
 //     reference does;
 //   * C leaves the registers as 16-byte stores (a lane pair swaps halves
-//     of its rows with one shuffle).
+//     of its rows with one shuffle);
+//   * dropout_residual: the tiles of none; in the store loop each lane
+//     reads one float4 of the mask and one of the residual at the address
+//     it stores (streaming loads: read once, kept out of the way of A and
+//     B^T in L2), the next store's two loads issued before this one's
+//     arithmetic, each operation rounded on its own as in the plain
+//     version. The producer runs on into the next tile's TMA loads
+//     meanwhile, so those reads overlap the next main loop.
 //
 // The variants, each instantiated below (BM, BN, BK, epilogue):
-//   none:       128x128x32, 128x256x32, 128x256x16
-//   layer_norm: 64x256x32, 64x512x16
+//   none, dropout_residual: 128x128x32, 128x256x32, 128x256x16
+//   layer_norm:             64x256x32, 64x512x16
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,8 +86,9 @@ constexpr int CONSUMER_REGS = 232;
 constexpr uint32_t SMEM_MAX = 232448;     // a block's dynamic shared memory
 constexpr uint32_t TABLES = 1024;         // layer_norm: [2][2 wg][64] floats
 constexpr float LN_EPS = 1e-5f;
+constexpr float INV_KEEP = 1.0f / 0.9f;   // dropout keep probability 0.9
 
-enum Epilogue { EPI_NONE = 0, EPI_LN = 1 };
+enum Epilogue { EPI_NONE = 0, EPI_LN = 1, EPI_DR = 2 };
 
 template <int BM, int BN, int BK, int EPI>
 struct Cfg {
@@ -108,6 +117,8 @@ struct Params {
   float* out;
   const float* gamma;     // layer_norm: [N]
   const float* beta;
+  const float* mask;      // dropout_residual: [M, N]
+  const float* residual;
   int M, N, K;
 };
 
@@ -306,18 +317,39 @@ __global__ void __launch_bounds__(THREADS, 1)
     // Lanes c and c ^ 1 swap: an even lane stores 4 columns of row r0,
     // an odd one 4 of row r0 + 8, as one 16-byte store each.
     const bool odd = lane & 1;
-    float* orow = p.out +
-                  static_cast<size_t>(m0 + r0 + (odd ? 8 : 0)) * p.N + n0 +
-                  wcol + ((2 * c4) & ~3);
+    const size_t at = static_cast<size_t>(m0 + r0 + (odd ? 8 : 0)) * p.N +
+                      n0 + wcol + ((2 * c4) & ~3);
+    float* orow = p.out + at;
+    // dropout_residual: this store's mask and residual, loaded one store
+    // ahead
+    [[maybe_unused]] float4 mk, rs;
+    if constexpr (EPI == EPI_DR) {
+      mk = __ldcs(reinterpret_cast<const float4*>(p.mask + at));
+      rs = __ldcs(reinterpret_cast<const float4*>(p.residual + at));
+    }
 #pragma unroll
     for (int j = 0; j < C::WN / 8; ++j) {
       const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
       const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
       const float g0 = __shfl_xor_sync(0xffffffffu, s0, 1);
       const float g1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-      const float4 v = odd ? make_float4(g0, g1, acc[4 * j + 2],
-                                         acc[4 * j + 3])
-                           : make_float4(acc[4 * j], acc[4 * j + 1], g0, g1);
+      float4 v = odd ? make_float4(g0, g1, acc[4 * j + 2], acc[4 * j + 3])
+                     : make_float4(acc[4 * j], acc[4 * j + 1], g0, g1);
+      if constexpr (EPI == EPI_DR) {
+        float4 mk_next = mk, rs_next = rs;
+        if (j + 1 < C::WN / 8) {
+          mk_next = __ldcs(
+              reinterpret_cast<const float4*>(p.mask + at + 8 * (j + 1)));
+          rs_next = __ldcs(reinterpret_cast<const float4*>(
+              p.residual + at + 8 * (j + 1)));
+        }
+        v.x = __fadd_rn(__fmul_rn(__fmul_rn(v.x, mk.x), INV_KEEP), rs.x);
+        v.y = __fadd_rn(__fmul_rn(__fmul_rn(v.y, mk.y), INV_KEEP), rs.y);
+        v.z = __fadd_rn(__fmul_rn(__fmul_rn(v.z, mk.z), INV_KEEP), rs.z);
+        v.w = __fadd_rn(__fmul_rn(__fmul_rn(v.w, mk.w), INV_KEEP), rs.w);
+        mk = mk_next;
+        rs = rs_next;
+      }
       *reinterpret_cast<float4*>(orow + 8 * j) = v;
     }
   }
@@ -352,7 +384,11 @@ int gemm(Params& p, const float* B, float* bt, cudaStream_t stream) {
   using C = Cfg<BM, BN, BK, EPI>;
   if (p.M % BM || p.N % BN || p.K % BK ||
       (EPI == EPI_LN && (p.N != BN || p.gamma == nullptr ||
-                         p.beta == nullptr)))
+                         p.beta == nullptr)) ||
+      (EPI == EPI_DR &&
+       (p.mask == nullptr || p.residual == nullptr ||
+        reinterpret_cast<uintptr_t>(p.mask) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(p.residual) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   split_transpose<<<dim3(p.N / 32, (p.K + 31) / 32), 256, 0, stream>>>(
       B, bt, p.K, p.N);
@@ -422,13 +458,18 @@ __global__ void __launch_bounds__(128) round_probe_kernel(float* out) {
   X(128, 128, 32, EPI_NONE)       \
   X(128, 256, 32, EPI_NONE)       \
   X(128, 256, 16, EPI_NONE)       \
+  X(128, 128, 32, EPI_DR)         \
+  X(128, 256, 32, EPI_DR)         \
+  X(128, 256, 16, EPI_DR)         \
   X(64, 256, 32, EPI_LN)          \
   X(64, 512, 16, EPI_LN)
 
 }  // namespace
 
 // C [M, N] = epilogue(A [M, K] . B [K, N]) under variant (bm, bn, bk):
-// epilogue 0 none, 1 layer_norm (p0 gamma [N], p1 beta [N]). bt is the
+// epilogue 0 none, 1 layer_norm (p0 gamma [N], p1 beta [N]), 2
+// dropout_residual (p0 mask [M, N], p1 residual [M, N], 16-byte
+// aligned). bt is the
 // caller's workspace, float32 [2N, K]. A, C and bt 16-byte aligned, K a
 // multiple of 4 (TMA's row pitch). Two launches: the B^T pre-pass, then
 // the GEMM. Returns cudaErrorInvalidValue for a variant that is not
@@ -444,8 +485,8 @@ extern "C" int pt_tuned_matmul_sm90(const void* A, const void* B, void* C,
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.out = static_cast<float*>(C);
-  p.gamma = static_cast<const float*>(p0);
-  p.beta = static_cast<const float*>(p1);
+  p.gamma = p.mask = static_cast<const float*>(p0);
+  p.beta = p.residual = static_cast<const float*>(p1);
   p.M = M;
   p.N = N;
   p.K = K;

@@ -94,10 +94,15 @@ def _mix32(h):
     return h ^ (h >> 16)
 
 
-def dropout_keep_mask(s0, s1, B, H, Sq, Sk, t, device="cpu"):
+def dropout_keep_mask(s0, s1, B, H, Sq, Sk, t, device=None):
     """[B, H, Sq, Sk] bool keep mask: the JAX package's
     dropout_keep_mask(seed, ...) with seed = (s0, s1) as uint32 words,
-    and the mask the CUDA kernels compute."""
+    and the mask the CUDA kernels compute. On `device`, or on the default
+    place's (CUDAPlace(0), which raises where torch sees no card) when
+    None."""
+    if device is None:
+        from ..core.place import default_place
+        device = default_place().torch_device()
     rows = torch.arange(Sq, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(Sk, dtype=torch.int64, device=device)[None, :]
     pos = (rows * Sk + cols) & _M32

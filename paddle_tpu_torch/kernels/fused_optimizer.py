@@ -5,13 +5,18 @@ Counterpart of paddle_tpu/kernels/fused_optimizer.py (_adam_block via
 fused_adam, _sgd_block via fused_sgd; the bucket_sweep surface is not
 ported). The kernels are in paddle_tpu_torch/csrc/fused_optimizer.cu:
 one pass over the operands that writes the new values in place, any
-length, with the rate (Adam's bias-corrected lr_t, SGD's lr) read from
-a one-element float32 tensor on the card (no host sync). Adam takes one
-parameter a launch; SGD a list of parameters a launch (fused_sgd_multi,
-which the engine calls with every sgd op of a step that shares a rate;
-fused_sgd is a list of one). A CUDA tensor always goes to the kernel; a
-CPU or meta tensor goes to the plain version, and so does a CUDA tensor
-under kernels.registry.plain_reference().
+length, a list of parameters a launch, with the rates read from
+one-element float32 tensors on the card (no host sync). Adam's list
+entry, fused_adam_multi, takes each tensor's beta powers and computes
+its bias-corrected rate lr_t = lr*sqrt(1-b2p)/(1-b1p) and its new beta
+powers in the kernel; fused_adam takes lr_t itself, as the JAX
+fused_adam does, and is the list entry on a list of one (beta powers 0,
+so that lr_t comes out as given). SGD's list entry is fused_sgd_multi;
+fused_sgd is a list of one. The engine calls the list entries with every
+adam (sgd) op of a step that shares a rate (and betas). A CUDA tensor
+always goes to the kernel; a CPU or meta tensor goes to the plain
+version, and so does a CUDA tensor under
+kernels.registry.plain_reference().
 
 Both are registered as the JAX package registers them: ``fused_adam``
 for the ``adam`` op and ``fused_sgd`` for ``sgd``, eligible for float32
@@ -20,11 +25,12 @@ The ops ask the registry (ops/optimizer_ops.py); a parameter it does not
 route takes the plain update.
 
 The arithmetic is the JAX lowered ops' (paddle_tpu/ops/optimizer_ops.py),
-with their grouping:
+with their grouping, and the JAX kernels' weight-decay terms (0 on the
+op path):
     adam:  m' = b1*m + (1-b1)*g
            v' = b2*v + ((1-b2)*g)*g
-           p' = p - (lr_t*m') / (sqrt(v') + eps)
-    sgd:   p' = p - lr*(g + wd*p)        (wd = 0 on the op path)
+           p' = p - ((lr_t*m') / (sqrt(v') + eps) + (lr_t*wd)*p)
+    sgd:   p' = p - lr*(g + wd*p)
 The kernels round each operation separately (no fused multiply-add), so
 they give the plain versions' float32 results bit for bit.
 """
@@ -36,17 +42,38 @@ import torch
 
 from . import registry
 
-__all__ = ["adam_plain", "fused_adam", "sgd_plain", "fused_sgd",
-           "fused_sgd_multi"]
+__all__ = ["adam_plain", "fused_adam", "fused_adam_multi", "sgd_plain",
+           "fused_sgd", "fused_sgd_multi"]
 
 
-def adam_plain(p, g, m, v, lr_t, beta1, beta2, epsilon):
+def adam_plain(p, g, m, v, lr_t, beta1, beta2, epsilon, weight_decay=0.0):
     """The Adam kernel's function in plain PyTorch: returns new
     (p', m', v')."""
     m_new = beta1 * m + (1.0 - beta1) * g
     v_new = beta2 * v + (1.0 - beta2) * g * g
-    p_new = p - lr_t * m_new / (torch.sqrt(v_new) + epsilon)
-    return p_new, m_new, v_new
+    upd = lr_t * m_new / (torch.sqrt(v_new) + epsilon)
+    if weight_decay:
+        upd = upd + (lr_t * weight_decay) * p
+    return p - upd, m_new, v_new
+
+
+def adam_multi_plain(ps, gs, ms, vs, lr, b1ps, b2ps, beta1, beta2,
+                     epsilon, weight_decay=0.0):
+    """The Adam list kernel's function in plain PyTorch, with the adam
+    op's arithmetic for the rate and the beta powers: returns new lists
+    (p', m', v', b1p*beta1, b2p*beta2)."""
+    out = ([], [], [], [], [])
+    lr = lr.reshape(())
+    for p, g, m, v, b1p, b2p in zip(ps, gs, ms, vs, b1ps, b2ps):
+        b1, b2 = b1p.reshape(()), b2p.reshape(())
+        lr_t = lr * torch.sqrt(1 - b2) / (1 - b1)
+        new = adam_plain(p, g, m, v, lr_t, beta1, beta2, epsilon,
+                         weight_decay)
+        new += ((b1 * beta1).reshape(b1p.shape),
+                (b2 * beta2).reshape(b2p.shape))
+        for lst, t in zip(out, new):
+            lst.append(t)
+    return out
 
 
 def sgd_plain(p, g, lr, weight_decay=0.0):
@@ -56,16 +83,44 @@ def sgd_plain(p, g, lr, weight_decay=0.0):
     return p - lr * g
 
 
-def fused_adam(p, g, m, v, lr_t, beta1=0.9, beta2=0.999, epsilon=1e-8):
-    """One Adam step on one parameter. lr_t: a one-element float32 tensor
-    on p's device. On the card p, m and v are updated in place and
-    returned; elsewhere new tensors are returned."""
-    if p.device.type == "cuda" and not registry.plain_forced():
-        return _launch_adam(p, g, m, v, lr_t, beta1, beta2, epsilon)
-    if p.device.type in ("cpu", "meta", "cuda"):
-        return adam_plain(p, g, m, v, lr_t.reshape(()), beta1, beta2,
-                          epsilon)
-    raise ValueError(f"fused_adam: unsupported device {p.device}")
+def fused_adam(p, g, m, v, lr_t, beta1=0.9, beta2=0.999, epsilon=1e-8,
+               weight_decay=0.0):
+    """One Adam step on one parameter with the bias-corrected rate lr_t (a
+    one-element float32 tensor on p's device): fused_adam_multi on a list
+    of one whose beta powers are 0, so that its rate is lr_t itself
+    (lr_t*sqrt(1-0)/(1-0) == lr_t). Returns (p', m', v'): on the card p,
+    m and v, updated in place; elsewhere new tensors."""
+    zero = torch.zeros(1, dtype=torch.float32, device=p.device)
+    out = fused_adam_multi([p], [g], [m], [v], lr_t, [zero], [zero],
+                           beta1, beta2, epsilon, weight_decay)
+    return out[0][0], out[1][0], out[2][0]
+
+
+def fused_adam_multi(ps, gs, ms, vs, lr, b1ps, b2ps, beta1=0.9,
+                     beta2=0.999, epsilon=1e-8, weight_decay=0.0):
+    """One Adam step on each parameter of a list, with one rate lr (a
+    one-element float32 tensor on their device) and each parameter's
+    beta powers b1ps[i], b2ps[i] (one float32 each there). Returns lists
+    (p', m', v', Beta1PowOut, Beta2PowOut). On the card one launch
+    updates every p, m and v in place (more launches only past 512
+    tensors) and the beta powers come in a fresh buffer; elsewhere new
+    tensors."""
+    n = len(ps)
+    if not all(len(x) == n for x in (gs, ms, vs, b1ps, b2ps)):
+        raise ValueError(f"fused_adam: lists of {n} parameters, "
+                         f"{len(gs)} gradients, {len(ms)} and {len(vs)} "
+                         f"moments, {len(b1ps)} and {len(b2ps)} beta "
+                         f"powers")
+    if not ps:
+        return [], [], [], [], []
+    dev = ps[0].device
+    if dev.type == "cuda" and not registry.plain_forced():
+        return _launch_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1, beta2,
+                            epsilon, weight_decay)
+    if dev.type in ("cpu", "meta", "cuda"):
+        return adam_multi_plain(ps, gs, ms, vs, lr, b1ps, b2ps, beta1,
+                                beta2, epsilon, weight_decay)
+    raise ValueError(f"fused_adam: unsupported device {dev}")
 
 
 def fused_sgd(p, g, lr, weight_decay=0.0):
@@ -103,10 +158,14 @@ def _check(kernel, rate, **operands):
         if t.shape != p.shape or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} {tuple(t.shape)} must be "
                              f"contiguous with p's shape {tuple(p.shape)}")
-    if rate.device != p.device or rate.dtype != torch.float32 or \
-            rate.numel() != 1:
-        raise TypeError(f"{kernel}: the rate must be one float32 on the "
-                        f"card")
+    _check_scalar(kernel, "the rate", rate, p.device)
+
+
+def _check_scalar(kernel, name, t, device):
+    if t.device != device or t.dtype != torch.float32 or t.numel() != 1:
+        raise TypeError(f"{kernel}: {name} must be one float32 on "
+                        f"{device}, got {t.dtype} [{t.numel()}] on "
+                        f"{t.device}")
 
 
 def _bind(lib, symbol, argtypes):
@@ -118,27 +177,48 @@ def _bind(lib, symbol, argtypes):
 
 
 _P, _F, _N = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
-_ADAM_ARGS = [_P, _P, _P, _P, _P, _N, _F, _F, _F, _F, _F, _P]
+_ADAM_ARGS = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _F, _F, _F,
+              _F, _F, _F, _P, ctypes.POINTER(ctypes.c_int)]
 _SGD_ARGS = [_P, _P, _P, ctypes.c_int, _P, _F, _P,
              ctypes.POINTER(ctypes.c_int)]
 
 
-def _finish(kernel, err):
+def _launch_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1, beta2, epsilon,
+                 weight_decay):
+    dev = ps[0].device
+    for p, g, m, v, b1p, b2p in zip(ps, gs, ms, vs, b1ps, b2ps):
+        if p.device != dev:
+            raise ValueError(f"fused_adam: parameters on {dev} and "
+                             f"{p.device}")
+        _check("fused_adam", lr, p=p, g=g, m=m, v=v)
+        _check_scalar("fused_adam", "Beta1Pow", b1p, dev)
+        _check_scalar("fused_adam", "Beta2Pow", b2p, dev)
+    fn = _bind(registry.library("fused_adam"), "pt_fused_adam_multi",
+               _ADAM_ARGS)
+    n = len(ps)
+    pows = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
+
+    def ptrs(ts):
+        return (_P * n)(*(t.data_ptr() for t in ts))
+    with torch.cuda.device(dev):
+        err = fn(ptrs(ps), ptrs(gs), ptrs(ms), ptrs(vs), ptrs(b1ps),
+                 ptrs(b2ps), (_N * n)(*(p.numel() for p in ps)), n,
+                 lr.data_ptr(), pows.data_ptr(), beta1, 1.0 - beta1, beta2,
+                 1.0 - beta2, epsilon, weight_decay,
+                 torch.cuda.current_stream(dev).cuda_stream,
+                 ctypes.byref(launched))
+    for _ in range(launched.value):
+        registry.count_launch("fused_adam")
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
-    registry.count_launch(kernel)
-
-
-def _launch_adam(p, g, m, v, lr_t, beta1, beta2, epsilon):
-    _check("fused_adam", lr_t, p=p, g=g, m=m, v=v)
-    fn = _bind(registry.library("fused_adam"), "pt_fused_adam", _ADAM_ARGS)
-    with torch.cuda.device(p.device):
-        err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                 lr_t.data_ptr(), p.numel(), beta1, 1.0 - beta1, beta2,
-                 1.0 - beta2, epsilon,
-                 torch.cuda.current_stream(p.device).cuda_stream)
-    _finish("fused_adam", err)
-    return p, m, v
+        raise RuntimeError(f"fused_adam launch failed with CUDA error {err}")
+    # one view a tensor, in the shape of its input
+    outs = []
+    for col, ins in ((0, b1ps), (1, b2ps)):
+        views = pows[:, col:col + 1].unbind(0)
+        outs.append([v if v.shape == b.shape else v.reshape(b.shape)
+                     for v, b in zip(views, ins)])
+    return ps, ms, vs, outs[0], outs[1]
 
 
 def _launch_sgd(ps, gs, lr, weight_decay):
@@ -176,8 +256,10 @@ def _dense_f32(sig: registry.Signature) -> bool:
 
 registry.register_kernel(
     "fused_adam", op_types=("adam",), eligible=_dense_f32, run=fused_adam,
-    doc="single-pass Adam update (m/v EMAs + bias-corrected step); dense "
-        "f32, >= PT_KERNEL_MIN_NUMEL elements")
+    run_many=fused_adam_multi,
+    doc="single-pass Adam update (m/v EMAs + bias-corrected step), one "
+        "launch for a list of parameters; dense f32, >= "
+        "PT_KERNEL_MIN_NUMEL elements")
 
 registry.register_kernel(
     "fused_sgd", op_types=("sgd",), eligible=_dense_f32, run=fused_sgd,

@@ -185,7 +185,12 @@ def cases() -> List[Case]:
     return out + [case for _, case in variants.variant_cases()]
 
 
-def run_case(case: Case, device="cpu") -> Dict[str, Any]:
+def run_case(case: Case, device=None) -> Dict[str, Any]:
+    """Run one case on `device`, or on the default place's device
+    (CUDAPlace(0), which raises where torch sees no card) when None."""
+    if device is None:
+        from ..core.place import default_place
+        device = default_place().torch_device()
     res = case.runner(torch.device(device))
     res.update(kernel=case.kernel, label=case.label,
                passed=bool(res["value"] <= res["tol"]))

@@ -73,6 +73,7 @@ SOURCES = {
     "tuned_matmul_dr": "tuned_matmul.cu",
     "tuned_matmul_sm90": "tuned_matmul_sm90.cu",
     "tuned_matmul_ln_sm90": "tuned_matmul_sm90.cu",
+    "tuned_matmul_dr_sm90": "tuned_matmul_sm90.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

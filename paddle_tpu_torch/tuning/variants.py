@@ -13,8 +13,8 @@ its two CUDA sources instantiate, and a tile names its design:
   512, the whole row of C) for layer_norm;
 * csrc/tuned_matmul_sm90.cu, 3xTF32 on the tensor cores (wgmma + TMA,
   B^T split into tf32 hi and lo by a pre-pass launch): 128x128x32,
-  128x256x32 and 128x256x16 for none, 64x256x32 and 64x512x16 for
-  layer_norm.
+  128x256x32 and 128x256x16 for none and dropout_residual, 64x256x32
+  and 64x512x16 for layer_norm.
 
 The search times both designs in the same run. The legality rule is the
 JAX package's: the tile divides the problem, and layer_norm needs
@@ -22,10 +22,12 @@ bn == N.
 
 ``search_variants`` admits only variants whose parity case passes
 against the composed PyTorch baseline (kernels/parity.py), then ranks
-the admitted ones by the median time of single launches, timed with CUDA
-events. It times only on the card: on the CPU it verifies parity (the
-wrapper runs its plain version there), reports no time, ranks nothing,
-and says so with ``"timed": False``. ``register_winner`` makes the
+the admitted ones by time on the card: CUDA events around a run of
+back-to-back calls (queued behind a sleep on the card), per call, the
+median of several runs (a single call between two events measures the
+host's launch more than the card). It times only on the card: on the
+CPU it verifies parity (the wrapper runs its plain version there),
+reports no time, ranks nothing, and says so with ``"timed": False``. ``register_winner`` makes the
 ``none`` winner the ``tuned_matmul`` kernel of the registry for float32
 mul/matmul; the layer_norm and dropout_residual winners have no op to
 route (the JAX package routes only ``none`` too), so the search is their
@@ -33,8 +35,9 @@ path.
 
 ``tuned_matmul`` launches the kernel for CUDA tensors (launch counts by
 epilogue and design: tuned_matmul, tuned_matmul_ln, tuned_matmul_dr on
-the CUDA cores, tuned_matmul_sm90, tuned_matmul_ln_sm90 on the tensor
-cores; ``Variant.kernel`` names a variant's) and runs the
+the CUDA cores, tuned_matmul_sm90, tuned_matmul_ln_sm90,
+tuned_matmul_dr_sm90 on the tensor cores; ``Variant.kernel`` names a
+variant's) and runs the
 plain version (``tuned_matmul_plain``) for CPU tensors and under
 kernels.registry.plain_reference(). It has no backward: its gradient
 raises (registry.forward_only).
@@ -56,6 +59,11 @@ __all__ = ["Variant", "enumerate_variants", "variant_cases",
 _LN_EPS = 1e-5
 _KEEP = 0.9          # dropout keep probability of the fused epilogue
 _REL_TOL = 1e-4      # float32 reassociation only (blocked-K sums)
+_RUNS = 5            # timed runs of back-to-back calls a variant
+# the card's sleep ahead of a timed run, per call queued behind it:
+# ~0.5 ms at the H100's clocks, several times what the host takes to
+# queue one call
+_SLEEP_CYCLES = 1_000_000
 
 _EPILOGUES = ("none", "layer_norm", "dropout_residual")
 _EPI_CODES = {"none": 0, "layer_norm": 1, "dropout_residual": 2}
@@ -68,11 +76,14 @@ _GEMM_BLOCKS = ((64, 64, 16), (128, 64, 16), (128, 128, 8))
 _ROW_BLOCKS = ((16, 256, 16), (32, 256, 8), (16, 512, 8), (32, 512, 8))
 # and csrc/tuned_matmul_sm90.cu (bk 32: one 128-byte row of float32; 16
 # where a 32-deep stage of B^T hi and lo would leave room for one)
-_SM90_BLOCKS = {"none": ((128, 128, 32), (128, 256, 32), (128, 256, 16)),
-                "layer_norm": ((64, 256, 32), (64, 512, 16))}
+_SM90_GEMM_BLOCKS = ((128, 128, 32), (128, 256, 32), (128, 256, 16))
+_SM90_BLOCKS = {"none": _SM90_GEMM_BLOCKS,
+                "layer_norm": ((64, 256, 32), (64, 512, 16)),
+                "dropout_residual": _SM90_GEMM_BLOCKS}
 _BLOCKS = {"none": _GEMM_BLOCKS + _SM90_BLOCKS["none"],
            "layer_norm": _ROW_BLOCKS + _SM90_BLOCKS["layer_norm"],
-           "dropout_residual": _GEMM_BLOCKS}
+           "dropout_residual": _GEMM_BLOCKS
+           + _SM90_BLOCKS["dropout_residual"]}
 
 
 class Variant:
@@ -346,29 +357,44 @@ def verify_variant(v: Variant, M=256, N=256, K=256, device=None
     raise KeyError(v.label)
 
 
-def _time_ms(fn, iters):
-    """Median of `iters` single calls on the card, CUDA events."""
+def _time_ms(fn, iters, runs=_RUNS):
+    """ms a call on the card: CUDA events around `iters` calls queued
+    behind a sleep on the card (the host queues them meanwhile, so the
+    card runs them back to back however long the host takes a call),
+    divided by `iters`; the median of `runs` such runs. Returns (that,
+    the median of `iters` single calls between two events, which is
+    what a lone call costs on the host's clock, launches included)."""
     fn()                                   # warm-up (and build)
-    times = []
-    for _ in range(max(1, iters)):
+    torch.cuda.synchronize()
+
+    def events(n, queued):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(_SLEEP_CYCLES * n)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+        return start.elapsed_time(end) / n
+
+    n = max(1, iters)
+    runs_ms = sorted(events(n, True) for _ in range(max(1, runs)))
+    single = sorted(events(1, False) for _ in range(n))
+    return runs_ms[len(runs_ms) // 2], single[len(single) // 2]
 
 
 def search_variants(M: int = 256, N: int = 256, K: int = 256,
                     iters: int = 3, device=None) -> Dict[str, Any]:
-    """enumerate -> parity-admit -> rank by median ms on the card.
+    """enumerate -> parity-admit -> rank by ms a call on the card.
 
     Returns {"timed", "device", "problem", "considered", "admitted":
-    [{bm, bn, bk, epilogue, rel_err, ms}], "winners": {epilogue: row}}.
-    On the CPU, "timed" is False, every "ms" is None and "winners" is
-    empty: parity is verified, nothing is ranked."""
+    [{bm, bn, bk, epilogue, rel_err, ms, single_ms}], "winners":
+    {epilogue: row}}: "ms" is the median over runs of `iters`
+    back-to-back calls (the ranking), "single_ms" the median of single
+    calls. On the CPU, "timed" is False, both times are None and
+    "winners" is empty: parity is verified, nothing is ranked."""
     from ..kernels.parity import run_case
     dev = _device(device)
     timed = dev.type == "cuda"
@@ -379,11 +405,12 @@ def search_variants(M: int = 256, N: int = 256, K: int = 256,
         res = run_case(case, dev)
         if not res["passed"]:
             continue
-        ms = None
+        ms = single = None
         if timed:
             d = _problem(M, N, K, dev)
-            ms = _time_ms(lambda v=v, d=d: _run_variant(v, d), iters)
-        admitted.append({**v.as_dict(), "rel_err": res["value"], "ms": ms})
+            ms, single = _time_ms(lambda v=v, d=d: _run_variant(v, d), iters)
+        admitted.append({**v.as_dict(), "rel_err": res["value"], "ms": ms,
+                         "single_ms": single})
     winners: Dict[str, Any] = {}
     if timed:
         for row in sorted(admitted, key=lambda r: (r["ms"], r["bm"],

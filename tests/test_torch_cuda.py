@@ -3,10 +3,12 @@ PyTorch version on the GPU (flash-attention forward with and without
 dropout, its dq and dk/dv backward, head dims from 1 up (264, 320 and 512
 included), the bf16 tensor-core forward, dq (di fused in) and dk/dv
 kernels and one wgmma product of each kind they use, the float32
-tensor-core (3xTF32) forward, the registry's deny list, Adam, SGD (one
-parameter, and lists of them in one launch),
+tensor-core (3xTF32) forward, the registry's deny list, Adam and SGD
+(one parameter, and lists of them in one launch: several Adam steps,
+the beta powers and more than one table a list),
 quantized_matmul int8 and bf16, every tuned_matmul variant of both
-designs and the tensor-core tiles at the serving shapes), a tiny
+designs and the tensor-core tiles at the serving shapes, the
+dropout_residual ones among them), a tiny
 Transformer forward on the card against the same Program on the CPU
 (float32 and int8 mode), three training steps of it, and LeNet's SGD
 step with its updates in the kernel against the same step with them
@@ -25,8 +27,8 @@ tens, and every bf16 gradient is held to the bound a correct bf16 kernel
 meets against the exact gradients (flash_attention.bf16_backward_bound:
 2^-8 of ds's or p_drop's contribution and of the float32 result, plus
 2^-12 of the magnitudes of the float32 dot products); bf16 gradients at
-head dims above 256 are held to both. Adam: at most
-ADAM_ULP units in the last place (each operation rounds once in both);
+head dims above 256 are held to both. Adam: 0 units in the last place
+(ADAM_ULP: each operation rounds once in both, in the same order);
 SGD: 0 ulp (the same two roundings, lr*g and the difference).
 quantized_matmul int8: bit-equal (exact integer tile sums, the same two
 roundings a tile); bf16 and the tuned float32 GEMMs: GEMM_RTOL relative
@@ -47,7 +49,7 @@ pytestmark = pytest.mark.cuda
 F32_TOL = 1e-5
 BWD_F32_TOL = 1e-4
 BF16_TOL = 2e-2
-ADAM_ULP = 1
+ADAM_ULP = 0
 GEMM_RTOL = 1e-5
 
 
@@ -720,6 +722,113 @@ def test_sgd_list_matches_plain_on_card(cuda, sizes, launches):
             assert p.numel() == 0 or int(_ulps(a, r).max()) == 0, wd
 
 
+def _adam_lists(dev, sizes, seed):
+    """Per tensor (p, g, m, v) of the given lengths, each a view that
+    starts 0-3 floats past a 16-byte boundary (p, g, m and v apart in
+    turns), and each tensor's beta powers (steps 1 to 8)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state, b1ps, b2ps = [], [], []
+    for i, n in enumerate(sizes):
+        offs = [0, 0, 0, 0]
+        offs[i % 4] = (i // 4 + 1) % 4
+        ts = []
+        for j, o in enumerate(offs):     # p, g, m, v (v >= 0)
+            t = torch.randn(n + 4, device=dev, generator=gen)
+            t = t * 0.1 if j == 2 else (t * 0.01).abs() if j == 3 else t
+            ts.append(t[o:o + n])
+        state.append(ts)
+        step = i % 8 + 1
+        b1ps.append(torch.tensor([0.9 ** step], device=dev))
+        b2ps.append(torch.tensor([0.999 ** step], device=dev))
+    return state, b1ps, b2ps
+
+
+@pytest.mark.parametrize("sizes,launches", [
+    ([1, 3, 4096, 4097, 130000, 16, 0, 5, 65537, 25000, 500, 8], 1),
+    ([(i * 37) % 300 + 1 for i in range(1100)], 3)], ids=["mixed", "1100"])
+def test_adam_list_matches_plain_on_card(cuda, sizes, launches):
+    """One multi-tensor Adam launch over a list of tensors of mixed
+    lengths (an empty one too), misaligned views among them (float4 where
+    p, g, m and v share their offset, else element by element), and a
+    list of 1100 that needs three launches (512 tensors a launch): three
+    consecutive steps, with and without weight decay, 0 ulp from the
+    plain version in p, m, v and the beta powers, p, m and v in place."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    lr = torch.tensor([2e-4], device=cuda)
+    for wd in (0.0, 0.01):
+        state, b1ps, b2ps = _adam_lists(cuda, sizes, len(sizes))
+        assert {t.data_ptr() % 16 for ts in state for t in ts} == \
+            {0, 4, 8, 12}
+        ps, gs, ms, vs = (list(col) for col in zip(*state))
+        rp, rm, rv = ([t.clone() for t in col] for col in (ps, ms, vs))
+        b1, b2, r1, r2 = b1ps, b2ps, b1ps, b2ps
+        for step in range(3):
+            ref = fo.adam_multi_plain(rp, gs, rm, rv, lr, r1, r2, 0.9,
+                                      0.999, 1e-8, wd)
+            kreg.reset_counts()
+            got = fo.fused_adam_multi(ps, gs, ms, vs, lr, b1, b2, 0.9,
+                                      0.999, 1e-8, wd)
+            torch.cuda.synchronize()
+            assert kreg.launches()["fused_adam"] == launches
+            for a, t in zip(got[0] + got[1] + got[2], ps + ms + vs):
+                assert a is t                              # in place
+            for name, a, r in zip(("p", "m", "v", "b1p", "b2p"), got, ref):
+                for x, y in zip(a, r):
+                    assert x.shape == y.shape, name
+                    assert x.numel() == 0 or \
+                        int(_ulps(x, y).max()) == ADAM_ULP == 0, \
+                        (name, step, wd)
+            rp, rm, rv, r1, r2 = ref
+            b1, b2 = got[3], got[4]
+
+
+def test_adam_launch_refuses_bad_operands_on_card(cuda):
+    """A CUDA tensor of the wrong dtype, lists of different lengths, or a
+    beta power of two elements raise; nothing falls back to the plain
+    version."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    p = torch.zeros(8, device=cuda)
+    one = torch.ones(1, device=cuda)
+    lr = torch.tensor([1e-3], device=cuda)
+    kreg.reset_counts()
+    with pytest.raises(TypeError, match="g must be float32"):
+        fo.fused_adam_multi([p], [p.double()], [p], [p], lr, [one], [one])
+    with pytest.raises(ValueError, match="lists of 1 parameters"):
+        fo.fused_adam_multi([p], [p, p], [p], [p], lr, [one], [one])
+    with pytest.raises(TypeError, match="Beta1Pow must be one float32"):
+        fo.fused_adam_multi([p], [p], [p], [p], lr,
+                            [torch.ones(2, device=cuda)], [one])
+    with pytest.raises(TypeError, match="Beta2Pow must be one float32"):
+        fo.fused_adam_multi([p], [p], [p], [p], lr, [one], [one.cpu()])
+    with pytest.raises(ValueError, match="contiguous"):
+        fo.fused_adam(torch.zeros(8, 2, device=cuda).t(),
+                      torch.zeros(2, 8, device=cuda),
+                      torch.zeros(2, 8, device=cuda),
+                      torch.zeros(2, 8, device=cuda), lr)
+    assert kreg.launches()["fused_adam"] == 0
+
+
+def test_dropout_residual_tile_refuses_bad_operands_on_card(cuda):
+    """The tensor-core dropout_residual tile raises on a mask of another
+    dtype or a residual off a 16-byte boundary; it launches nothing and
+    falls back to nothing."""
+    from paddle_tpu_torch.tuning import variants as V
+    d = V._problem(256, 256, 128, cuda)
+    v = V.Variant(128, 128, 32, "dropout_residual")
+    assert v.sm90 and v.kernel == "tuned_matmul_dr_sm90"
+    kreg.reset_counts()
+    with pytest.raises(TypeError, match="float32"):
+        V.tuned_matmul(d["x"], d["y"], variant=v, mask=d["mask"].double(),
+                       residual=d["residual"])
+    res = torch.empty(256 * 256 + 1, device=cuda)[1:].view(256, 256)
+    res.copy_(d["residual"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        V.tuned_matmul(d["x"], d["y"], variant=v, mask=d["mask"],
+                       residual=res)
+    assert not any(kreg.launches().values())
+
+
 def _lenet_losses(cuda, monkeypatch, floor, steps=3):
     monkeypatch.setenv("PT_KERNEL_MIN_NUMEL", floor)
     pt.framework.unique_name.reset()
@@ -823,7 +932,8 @@ def test_tiny_transformer_training_on_card_matches_cpu(cuda, monkeypatch):
     assert counts["flash_attention_fwd"] == 3 * 6
     assert counts["flash_attention_bwd_dq"] == 3 * 6
     assert counts["flash_attention_bwd_dkv"] == 3 * 6
-    assert counts["fused_adam"] == 3 * len(main.all_parameters())
+    # the engine hands the step's adam ops to one multi-tensor launch
+    assert counts["fused_adam"] == 3 * 1
     for n in persist:
         np.testing.assert_allclose(
             np.asarray(gpu_scope.find_var(n).get_tensor()),
@@ -921,7 +1031,7 @@ def test_every_tuned_variant_matches_plain_on_card(cuda):
         for b in V._BLOCKS[ep])
     assert {v.kernel for v in V.enumerate_variants(256, 512, 128)} == {
         "tuned_matmul", "tuned_matmul_ln", "tuned_matmul_dr",
-        "tuned_matmul_sm90", "tuned_matmul_ln_sm90"}
+        "tuned_matmul_sm90", "tuned_matmul_ln_sm90", "tuned_matmul_dr_sm90"}
     for N in (256, 512):
         d = V._problem(256, N, 128, cuda)
         for v in V.enumerate_variants(256, N, 128):
@@ -935,12 +1045,14 @@ def test_every_tuned_variant_matches_plain_on_card(cuda):
             assert _rel(got, ref) <= GEMM_RTOL, v.label
 
 
-@pytest.mark.parametrize("M,K,N", [(8192, 512, 32000), (8192, 2048, 512)])
+@pytest.mark.parametrize("M,K,N", [(8192, 512, 512), (8192, 512, 2048),
+                                   (8192, 2048, 512), (8192, 512, 32000)])
 def test_tensor_core_tuned_tiles_at_serving_shapes_on_card(cuda, M, K, N):
-    """The tensor-core tiles at the serving forward's widest and deepest
-    GEMMs (float32 operands as the forward gives them, every 97th row of
-    x 30x larger) within GEMM_RTOL of the plain float32 product; the
-    layer_norm tile where N is its bn."""
+    """The tensor-core tiles at the serving forward's four GEMM shapes
+    (float32 operands as the forward gives them, every 97th row of x 30x
+    larger) within GEMM_RTOL of the plain version: none and
+    dropout_residual at every shape, the layer_norm tile where N is its
+    bn."""
     from paddle_tpu_torch.tuning import variants as V
     rng = np.random.default_rng(M + 3 * K + N)
     x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(cuda)
@@ -950,15 +1062,23 @@ def test_tensor_core_tuned_tiles_at_serving_shapes_on_card(cuda, M, K, N):
     e = {"gamma": torch.from_numpy(
              1 + 0.1 * rng.standard_normal(N, np.float32)).to(cuda),
          "beta": torch.from_numpy(
-             0.1 * rng.standard_normal(N, np.float32)).to(cuda)}
+             0.1 * rng.standard_normal(N, np.float32)).to(cuda),
+         "mask": torch.from_numpy(
+             (rng.random((M, N)) < 0.9).astype(np.float32)).to(cuda),
+         "residual": torch.from_numpy(
+             rng.standard_normal((M, N), np.float32)).to(cuda)}
     tiles = [v for v in V.enumerate_variants(M, N, K) if v.sm90]
     assert {v.epilogue for v in tiles} == (
-        {"none", "layer_norm"} if N == 512 else {"none"})
+        {"none", "layer_norm", "dropout_residual"} if N == 512
+        else {"none", "dropout_residual"})
     for v in tiles:
         kw = V._kwargs(v, e)
+        kreg.reset_counts()
         got = V.tuned_matmul(x, y, variant=v, **kw)
         ref = V.tuned_matmul_plain(x, y, variant=v, **kw)
         torch.cuda.synchronize()
+        assert {n: c for n, c in kreg.launches().items() if c} == {
+            v.kernel: 1}, v.label
         assert torch.isfinite(got).all(), v.label
         assert _rel(got, ref) <= GEMM_RTOL, v.label
         del got, ref

@@ -469,6 +469,9 @@ def test_layers_matmul_in_a_program():
     # tiles of the tensor-core design (tuned_matmul_sm90.cu)
     ("none", (128, 256, 32), 256, 256, 256),
     ("layer_norm", (64, 512, 16), 128, 512, 128),
+    ("dropout_residual", (128, 128, 32), 256, 256, 256),
+    ("dropout_residual", (128, 256, 32), 256, 256, 256),
+    ("dropout_residual", (128, 256, 16), 256, 512, 128),
 ])
 def test_tuned_epilogue_matches_jax_interpret(monkeypatch, epilogue, blocks,
                                               M, N, K):
@@ -594,15 +597,16 @@ def test_variant_enumeration_respects_constraints():
         assert {(v.bm, v.bn, v.bk) for v in
                 pvariants.enumerate_variants(M, N, K)
                 if v.epilogue == "none"} == set(pvariants._BLOCKS["none"])
-    # the tensor-core tiles: 3 for none, and one layer_norm tile with
-    # bn == N at N = 256 and at d_model; dropout_residual has none
+    # the tensor-core tiles: 3 for none and for dropout_residual, and one
+    # layer_norm tile with bn == N at N = 256 and at d_model
     sm90 = {ep: {(v.bm, v.bn, v.bk) for n in (256, 512)
                  for v in pvariants.enumerate_variants(8192, n, 512)
                  if v.epilogue == ep and v.sm90}
             for ep in ("none", "layer_norm", "dropout_residual")}
     assert sm90 == {"none": set(pvariants._SM90_BLOCKS["none"]),
                     "layer_norm": {(64, 256, 32), (64, 512, 16)},
-                    "dropout_residual": set()}
+                    "dropout_residual": {(128, 128, 32), (128, 256, 32),
+                                         (128, 256, 16)}}
     for v in pvariants.enumerate_variants(8192, 512, 512):
         assert v.kernel == {"none": "tuned_matmul",
                             "layer_norm": "tuned_matmul_ln",
@@ -613,7 +617,7 @@ def test_variant_enumeration_respects_constraints():
 
 def test_variant_cases_pass_on_cpu():
     for v, case in pvariants.variant_cases(256, 512, 128):
-        res = pparity.run_case(case)
+        res = pparity.run_case(case, device="cpu")
         assert res["passed"] and res["kernel"].startswith("tuned_matmul")
 
 
@@ -660,7 +664,7 @@ def test_register_winner_routes_only_plain_gemm(route, monkeypatch):
 @pytest.mark.parametrize("label", [c.label for c in pparity.cases()])
 def test_parity_cases_pass_on_cpu(label):
     case, = [c for c in pparity.cases() if c.label == label]
-    res = pparity.run_case(case)
+    res = pparity.run_case(case, device="cpu")
     assert res["passed"], res
 
 

@@ -13,6 +13,8 @@ import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.scope import LoDTensor
+from paddle_tpu_torch.kernels import flash_attention as FA
+from paddle_tpu_torch.kernels import parity
 from paddle_tpu_torch.tuning import variants as V
 
 
@@ -53,3 +55,30 @@ def test_lodtensor_set_on_the_cpu_place():
     np.testing.assert_array_equal(np.asarray(t), a)
     t.set(torch.ones(4), pt.CPUPlace())
     assert t.tensor.device.type == "cpu" and t.shape() == (4,)
+
+
+def _sgd_case():
+    case, = [c for c in parity.cases() if c.label.startswith("fused_sgd")
+             and c.label.endswith("(2048,)")]
+    return case
+
+
+def test_run_case_without_a_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
+        parity.run_case(_sgd_case())
+
+
+def test_run_case_takes_the_cpu_only_when_asked():
+    for dev in ("cpu", torch.device("cpu")):
+        assert parity.run_case(_sgd_case(), dev)["passed"]
+
+
+def test_dropout_keep_mask_without_a_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
+        FA.dropout_keep_mask(1, 2, 1, 2, 4, 4, 230)
+
+
+def test_dropout_keep_mask_takes_the_cpu_only_when_asked():
+    for dev in ("cpu", torch.device("cpu")):
+        keep = FA.dropout_keep_mask(1, 2, 1, 2, 4, 4, 230, dev)
+        assert keep.device.type == "cpu" and keep.shape == (1, 2, 4, 4)
