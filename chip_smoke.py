@@ -197,6 +197,23 @@ MNIST_B, MNIST_STEPS, MNIST_LR = 512, 10, 0.05
 # LeNet inference from a loaded inference model against the live test
 # clone: the same ops on the same weights (cuDNN deterministic)
 INFER_ATOL = 1e-6
+# ResNet-50 (BASELINE config 2): bench.py's batch and optimizer
+# (bench_resnet50: B=128, 224x224, Momentum(0.1, 0.9) under decorate)
+RN_B, RN_HW, RN_STEPS, RN_LR, RN_MU = 128, 224, 5, 0.1, 0.9
+# the first step's loss under bf16 AMP against the same step in float32
+# from a copy of the same scope, relative: every conv rounds its output
+# to bf16 (2^-9 relative) through 53 layers; at depth 18 on the CPU the
+# two packages' bf16 first-step losses are 0.8 % and 1.3 % from float32
+# (tests/test_torch_resnet.py's sizes), and full width and B=128 average
+# more values a statistic
+RN_AMP_LOSS_RTOL = 2e-2
+# the float32 NHWC step from the NCHW graph's weights against the NCHW
+# step, relative: the same sums in another order (cuDNN picks other
+# algorithms for the two layouts) through 53 convolutions and 53 batch
+# norms; the CPU tests hold it to 1e-5 at depth 18
+RN_NHWC_RTOL = 1e-4
+# the plan cache A/B: turns of each mode and steps a turn
+AB_TURNS, AB_STEPS = 4, 3
 
 
 def _require(cond, msg):
@@ -1831,6 +1848,15 @@ def _build_training(pt, T):
     return cfg, main, startup, cost
 
 
+def _training_feed(T, cfg):
+    """One ragged batch of TRAIN_B x TRAIN_S from SEED."""
+    B, S = TRAIN_B, TRAIN_S
+    rng = np.random.default_rng(SEED)
+    return T.make_batch(cfg, B, S, S, rng=rng,
+                        src_lens=rng.integers(S // 2, S + 1, B),
+                        trg_lens=rng.integers(S // 2, S + 1, B))
+
+
 def _copy_scope(pt, scope, names):
     new = pt.Scope()
     for n in names:
@@ -1839,9 +1865,11 @@ def _copy_scope(pt, scope, names):
     return new
 
 
-def profile_step(torch, exe, main, feed, cost, scope):
+def profile_step(torch, exe, main, feed, cost, scope, kernel="adam"):
     """One training step under torch.profiler: wall time, device busy
-    share and the kernels that take most device time."""
+    share, the device time of the kernels whose name holds `kernel`
+    (None: no such line) and the kernels that take most device time.
+    Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1851,15 +1879,19 @@ def profile_step(torch, exe, main, feed, cost, scope):
         wall = time.perf_counter() - t0
     kernels = _kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    adam = [e for e in kernels if "adam" in e.key]
-    print(f"  profiled step: wall {wall:.4f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.1f} %); the Adam kernel "
-          f"{sum(e.self_device_time_total for e in adam) / 1e3:.3f} ms in "
-          f"{sum(e.count for e in adam)} launch(es)")
+    line = f"  profiled step: wall {wall:.4f} s, device busy {busy:.4f} s " \
+        f"({100 * busy / wall:.1f} %)"
+    if kernel is not None:
+        mine = [e for e in kernels if kernel in e.key]
+        line += f"; the {kernel} kernel " \
+            f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms " \
+            f"in {sum(e.count for e in mine)} launch(es)"
+    print(line)
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
+    return busy / wall
 
 
 def training_phase(torch, dev, built):
@@ -1902,10 +1934,7 @@ def training_phase(torch, dev, built):
     f32_scope = _copy_scope(pt, scope, persist)
 
     B, S = TRAIN_B, TRAIN_S
-    rng = np.random.default_rng(SEED)
-    feed = T.make_batch(cfg, B, S, S, rng=rng,
-                        src_lens=rng.integers(S // 2, S + 1, B),
-                        trg_lens=rng.integers(S // 2, S + 1, B))
+    feed = _training_feed(T, cfg)
     masks = [op.output("Mask")[0] for op in block.ops
              if op.type == "dropout"][:3]
     params = [p.name for p in main.all_parameters()]
@@ -2015,6 +2044,312 @@ def training_phase(torch, dev, built):
     print(f"  peak memory allocated: {peak_gb:.3f} GB")
     total = {k: sum(c[k] for c in per_step) for k in want}
     return total
+
+
+def _build_resnet(pt, layout="NCHW"):
+    """bench.py's ResNet-50 training program (bench_resnet50), built with
+    the port: resnet_train(depth=50) under
+    decorate(MomentumOptimizer(0.1, 0.9))."""
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, acc, _ = pt.models.resnet_train(depth=50, layout=layout)
+        opt = pt.contrib.mixed_precision.decorate(
+            pt.optimizer.MomentumOptimizer(RN_LR, RN_MU))
+        opt.minimize(cost)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, cost, acc
+
+
+def _resnet_feed(layout="NCHW"):
+    """bench.py's random batch: B=128 images of 3x224x224 in [0, 1) and
+    1000-class labels from RandomState(0) (NHWC: the same images
+    transposed)."""
+    rng = np.random.RandomState(0)
+    img = rng.rand(RN_B, 3, RN_HW, RN_HW).astype(np.float32)
+    if layout == "NHWC":
+        img = np.ascontiguousarray(img.transpose(0, 2, 3, 1))
+    return {"image": img,
+            "label": rng.randint(0, 1000, (RN_B, 1)).astype(np.int64)}
+
+
+def resnet_phase(torch, dev):
+    """RN_STEPS steps of ResNet-50 at B=128, 224x224, under bf16 AMP with
+    Momentum, through Executor.run on the card: a finite, falling loss,
+    no launch of any of the port's kernels, the running statistics of
+    res_conv1 moved; the first step against the same step in float32
+    from a copy of the initial scope, and the float32 NHWC step from the
+    same weights against the NCHW one. Prints images/s (steps 2-5, the
+    fetch included), the device-busy share of one profiled step, its
+    top kernels and peak memory. Returns the program, its startup, cost
+    and feed for the cache A/B."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+
+    t0 = time.perf_counter()
+    main, startup, cost, acc = _build_resnet(pt)
+    types = [op.type for op in main.global_block().ops]
+    n_params = len(main.all_parameters())
+    print(f"  ResNet-50 program built in {time.perf_counter() - t0:.2f} s: "
+          f"{len(types)} ops ({types.count('conv2d')} conv2d, "
+          f"{types.count('batch_norm')} batch_norm, "
+          f"{types.count('momentum')} momentum), {n_params} parameters "
+          f"(trained and running statistics), "
+          f"{len([op for op in startup.global_block().ops])} startup ops; "
+          f"cudnn.benchmark {torch.backends.cudnn.benchmark} (the port "
+          f"does not set it)")
+    _require(len(types) == 535 and types.count("conv2d") == 53 and
+             types.count("batch_norm") == 53 and
+             types.count("momentum") == 161,
+             "the ResNet-50 program is not the JAX package's 535 ops")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    persist = [v.name for v in main.global_block().vars.values()
+               if v.persistable and scope.find_var(v.name) is not None]
+    f32_scope = _copy_scope(pt, scope, persist)
+    nhwc_scope = _copy_scope(pt, scope, persist)
+    stats = ("res_conv1.bn.mean", "res_conv1.bn.var")
+    stats0 = {n: scope.find_var(n).get_tensor().tensor.clone()
+              for n in stats}
+    feed = _resnet_feed()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kreg.reset_counts()
+    losses, accs, secs = [], [], []
+    for _ in range(RN_STEPS):
+        t0 = time.perf_counter()
+        loss, a = exe.run(main, feed=feed, fetch_list=[cost, acc],
+                          scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        accs.append(float(a[0]))
+    launches = kreg.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses: {', '.join(f'{x:.6f}' for x in losses)}; accuracy "
+          f"{accs[0]:.4f} -> {accs[-1]:.4f}")
+    _require(all(np.isfinite(losses)), "non-finite ResNet-50 loss")
+    _require(losses[-1] < losses[0],
+             f"the ResNet-50 loss did not fall in {RN_STEPS} steps")
+    print(f"  launches of the port's kernels in the {RN_STEPS} steps: "
+          f"{ {k: v for k, v in launches.items() if v} or 'none'}")
+    _require(not any(launches.values()),
+             f"the ResNet-50 path launched {launches}")
+    moved = {n: (scope.find_var(n).get_tensor().tensor - stats0[n])
+             .abs().max().item() for n in stats}
+    print(f"  running statistics, max|change| over {RN_STEPS} steps: "
+          + ", ".join(f"{n} {v:.4e}" for n, v in moved.items()))
+    _require(all(v > 0 for v in moved.values()),
+             "the running statistics of res_conv1 did not move")
+
+    # the first step in float32 (AMP off) from a copy of the initial
+    # scope; then the NHWC graph's float32 step from the same weights
+    amp, main._amp = main._amp, None
+    try:
+        f32 = float(exe.run(main, feed=feed, fetch_list=[cost],
+                            scope=f32_scope)[0])
+    finally:
+        main._amp = amp
+    hmain, _, hcost, _ = _build_resnet(pt, "NHWC")
+    hmain._amp = None
+    nhwc = float(exe.run(hmain, feed=_resnet_feed("NHWC"),
+                         fetch_list=[hcost], scope=nhwc_scope)[0])
+    e_amp = abs(losses[0] - f32) / abs(f32)
+    e_nhwc = abs(nhwc - f32) / abs(f32)
+    print(f"  first step: bf16 AMP loss {losses[0]:.6f}, float32 "
+          f"{f32:.6f}, rel err {e_amp:.3e} (bound {RN_AMP_LOSS_RTOL:g}); "
+          f"float32 NHWC from the same weights {nhwc:.6f}, rel err vs "
+          f"NCHW {e_nhwc:.3e} (bound {RN_NHWC_RTOL:g})")
+    _require(e_amp <= RN_AMP_LOSS_RTOL,
+             "the AMP step is not within its bound of float32")
+    _require(e_nhwc <= RN_NHWC_RTOL, "NHWC disagrees with NCHW")
+    del f32_scope, nhwc_scope, hmain
+
+    busy = profile_step(torch, exe, main, feed, cost, scope, kernel=None)
+    steady = secs[1:]
+    print(f"  step seconds: {', '.join(f'{x:.4f}' for x in secs)} (first "
+          f"includes warm-up)")
+    print(f"  steps/s (steps 2-{RN_STEPS}): {len(steady) / sum(steady):.3f}"
+          f"; images/s {RN_B * len(steady) / sum(steady):.1f} (fetch "
+          f"included); device busy share of a profiled step "
+          f"{100 * busy:.1f} %")
+    print(f"  peak memory allocated: {peak_gb:.3f} GB")
+    return main, startup, cost, feed
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """cuDNN's deterministic algorithms and torch's deterministic
+    implementations (index_add_ among them), so that two runs of the
+    same steps give the same bits."""
+    old = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = old[:2]
+        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
+
+
+@contextlib.contextmanager
+def _lowering_clock():
+    """Host seconds inside Engine.run, inside the op lowerings (group
+    lowerings and forward records included; a lowering called from
+    another counts once) and in the fetches' trip to numpy, which waits
+    for the card: Engine.run less the other two is the engine's own
+    host time."""
+    import functools
+    from paddle_tpu_torch.core import engine as E
+    from paddle_tpu_torch.core.registry import OPS
+    acc = {"run": 0.0, "lower": 0.0, "fetch": 0.0}
+    depth = {k: 0 for k in acc}
+
+    def timed(fn, key):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if depth[key]:
+                return fn(*a, **kw)
+            depth[key] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+                depth[key] -= 1
+        return wrapper
+
+    saved = [(info, info.lowering, info._group)
+             for info in OPS._map.values()]
+    run, fetch = E.Engine.run, E.tensor_to_numpy
+    for info, lowering, group in saved:
+        info.lowering = timed(lowering, "lower")
+        if group is not None:   # the plans' spans stand: no new plan
+            info._group = (group[0], timed(group[1], "lower"))
+    E.Engine.run = timed(run, "run")
+    E.tensor_to_numpy = timed(fetch, "fetch")
+    try:
+        yield acc
+    finally:
+        E.Engine.run, E.tensor_to_numpy = run, fetch
+        for info, lowering, group in saved:
+            info.lowering, info._group = lowering, group
+
+
+def cache_ab_phase(torch, dev, models):
+    """For each (label, program, startup, cost, feed): the training step
+    with the engine's plan cache on (one Executor) and with
+    use_program_cache=False (another), from two copies of one startup
+    scope, in turns (AB_TURNS x on then off, AB_STEPS steps a turn) in
+    deterministic mode. The fetched losses must be bit-equal between
+    the two, and the cache-on run must reuse its plan at every step but
+    the first. Prints steps/s for each and the host ms a step spends in
+    Engine.run outside the lowerings; returns the cache-on Executor and
+    scope of each model for the host profiles."""
+    import paddle_tpu_torch as pt
+    kept = {}
+    with _deterministic(torch):
+        for label, main, startup, cost, feed in models:
+            exe0, scope0 = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+            exe0.run(startup, scope=scope0)
+            persist = [v.name for v in main.global_block().vars.values()
+                       if v.persistable and
+                       scope0.find_var(v.name) is not None]
+            scopes = {c: _copy_scope(pt, scope0, persist)
+                      for c in (True, False)}
+            del scope0
+            exes = {c: pt.Executor(pt.CUDAPlace(0)) for c in (True, False)}
+            losses = {True: [], False: []}
+            secs = {True: [], False: []}
+            for _ in range(AB_TURNS):
+                for cached in (True, False):
+                    torch.cuda.synchronize()
+                    for _ in range(AB_STEPS):
+                        t0 = time.perf_counter()
+                        loss, = exes[cached].run(
+                            main, feed=feed, fetch_list=[cost],
+                            scope=scopes[cached],
+                            use_program_cache=cached)
+                        secs[cached].append(time.perf_counter() - t0)
+                        losses[cached].append(loss)
+            n = AB_TURNS * AB_STEPS
+            equal = all(np.array_equal(a, b) for a, b in
+                        zip(losses[True], losses[False]))
+            counters = {c: dict(exes[c]._engine.counters)
+                        for c in (True, False)}
+            rates = {c: [AB_STEPS / sum(secs[c][t * AB_STEPS:
+                                                (t + 1) * AB_STEPS])
+                         for t in range(AB_TURNS)] for c in (True, False)}
+            print(f"  {label}: steps/s a turn, cache on "
+                  f"{', '.join(f'{r:.3f}' for r in rates[True])}; off "
+                  f"{', '.join(f'{r:.3f}' for r in rates[False])}; over "
+                  f"steps 2-{n}: on "
+                  f"{(n - 1) / sum(secs[True][1:]):.3f}, off "
+                  f"{(n - 1) / sum(secs[False][1:]):.3f}")
+            print(f"  {label}: losses bit-equal over {n} steps: {equal} "
+                  f"(last {float(losses[True][-1]):.6f}); counters on "
+                  f"{counters[True]}, off {counters[False]}")
+            _require(equal, f"{label}: the losses differ with and without "
+                            f"the plan cache")
+            _require(counters[True]["fast_path_hits"] == n - 1 and
+                     counters[True]["traces"] == 1 and
+                     counters[False]["fast_path_hits"] == 0 and
+                     counters[False]["traces"] == n,
+                     f"{label}: plan counters {counters}")
+            split = {}
+            for cached in (True, False):
+                with _lowering_clock() as acc:
+                    for _ in range(AB_STEPS):
+                        exes[cached].run(main, feed=feed,
+                                         fetch_list=[cost],
+                                         scope=scopes[cached],
+                                         use_program_cache=cached)
+                split[cached] = {k: 1e3 * v / AB_STEPS
+                                 for k, v in acc.items()}
+            print(f"  {label}: host ms a step in Engine.run outside the "
+                  f"lowerings and the fetch: on "
+                  f"{split[True]['run'] - split[True]['lower'] - split[True]['fetch']:.2f}"
+                  f", off "
+                  f"{split[False]['run'] - split[False]['lower'] - split[False]['fetch']:.2f}"
+                  f" (inside the lowerings: on {split[True]['lower']:.2f}, "
+                  f"off {split[False]['lower']:.2f}; fetch, waiting for "
+                  f"the card: on {split[True]['fetch']:.2f}, off "
+                  f"{split[False]['fetch']:.2f}; clocked over {AB_STEPS} "
+                  f"steps each)")
+            kept[label] = (exes[True], scopes[True], main, cost, feed)
+            del scopes[False], exes[False]
+    return kept
+
+
+def host_profile(torch, label, exe, scope, main, cost, feed):
+    """One training step with the plan cache on under cProfile: the top
+    10 functions by cumulative host time."""
+    import cProfile
+    import io
+    import pstats
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    prof.disable()
+    out = io.StringIO()
+    stats = pstats.Stats(prof, stream=out).sort_stats("cumulative")
+    stats.print_stats(10)
+    print(f"  {label}: {stats.total_calls} calls, "
+          f"{stats.total_tt:.4f} s under cProfile")
+    body = out.getvalue().splitlines()
+    start = next(i for i, ln in enumerate(body) if "ncalls" in ln)
+    for ln in body[start:start + 11]:
+        print(f"    {ln.rstrip()}")
 
 
 def _mnist_program(pt):
@@ -2129,7 +2464,7 @@ def mnist_phase(torch, dev, card):
         _require(worst == 0.0, "the kernel's parameters differ from the "
                                "plain updates'")
         sgd_launches = b[3]["fused_sgd"]
-        profile_step(torch, exe, main, feed, cost, b[5])
+        profile_step(torch, exe, main, feed, cost, b[5], kernel="sgd")
 
         # save / load: persistables, then the inference model
         trained = a[5]
@@ -2279,6 +2614,22 @@ def main(argv=None):
         finally:
             kreg.unregister_kernel("tuned_matmul")
     del served
+
+    print("[resnet50 phase]")
+    rn = resnet_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    print("[plan cache A/B]")
+    cfg = built[0]
+    kept = cache_ab_phase(torch, dev, (
+        ("Transformer-base", built[1], built[2], built[3],
+         _training_feed(T, cfg)),
+        ("ResNet-50", *rn)))
+    print("[host profile]")
+    for label, (exe, scope, main, cost, feed) in kept.items():
+        host_profile(torch, label, exe, scope, main, cost, feed)
+    del kept, rn
+    torch.cuda.empty_cache()
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

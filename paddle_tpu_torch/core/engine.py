@@ -23,6 +23,15 @@ still needs and little else. A run of consecutive ops whose type has a
 group lowering (core/registry.py register_group: the sgd ops of a step
 that share a rate) runs in one call, so a kernel can take it in one
 launch, as the JAX package's one executable per block does.
+
+What depends only on the program is worked out once: the first run of a
+(program fingerprint, block, fetch names, AMP config, registry
+generation) key with a given scope and feed signature builds a _Plan (the counterpart of the JAX
+package's _FastPathEntry): the persistables read and written with their
+scope Variables, the forward records, the steps (group spans) with each
+op's OpInfo and the names to free after each. Later runs of the key
+reuse it; Executor.run(use_program_cache=False) builds one for the run
+alone.
 """
 from __future__ import annotations
 
@@ -87,38 +96,58 @@ def _group_end(ops, i, key, record_slots):
     return j
 
 
-def run_block_ops(block, env: Dict[str, torch.Tensor], device, run=None,
-                  frees=None):
-    """Run every op of `block` in order, reading and writing `env`.
-    `run` is the RunState (None: no records, program seed 0); `frees`
-    maps an op index to the names to drop from env after it."""
-    record_slots = run.record_slots if run is not None else {}
+# how run_block_ops runs a span of ops
+_PLAIN, _RECORD, _GROUP = 0, 1, 2
+
+
+def block_spans(block, record_slots, frees):
+    """The steps of one run of `block`: (i, j, kind, info, drop) for ops
+    i..j-1, where kind is _RECORD (a forward op that leaves a record for
+    its grad op), _GROUP (a run of ops for one group lowering) or
+    _PLAIN, info the OpInfo of op i, and drop the names to free from env
+    after the step (`frees` maps an op index to the names whose last
+    reader it is)."""
     ops = block.ops
+    spans = []
     i = 0
     while i < len(ops):
         op = ops[i]
         info = OPS.get(op.type)
-        j = i + 1
+        j, kind = i + 1, _PLAIN
+        if op.attr(OP_UID_ATTR) in record_slots and not info.is_grad_op:
+            kind = _RECORD
+        elif info.group is not None:
+            kind = _GROUP
+            j = _group_end(ops, i, info.group[0], record_slots)
+        drop = tuple(n for k in range(i, j) for n in frees.get(k, ()))
+        spans.append((i, j, kind, info, drop))
+        i = j
+    return spans
+
+
+def run_block_ops(block, env: Dict[str, torch.Tensor], device, run, spans):
+    """Run the ops of `block` step by step as `spans` (block_spans)
+    says, reading and writing `env`; `run` is the RunState."""
+    ops = block.ops
+    for i, j, kind, info, drop in spans:
+        op = ops[i]
         try:
-            uid = op.attr(OP_UID_ATTR)
-            if uid in record_slots and not info.is_grad_op:
+            if kind == _RECORD:
+                uid = op.attr(OP_UID_ATTR)
                 run.records[uid] = run_forward_for_vjp(
                     op.type, op._inputs, op._outputs, op._attrs,
-                    record_slots[uid], env, env, device, run)
-            elif info.group is not None:
-                key, lower = info.group
-                j = _group_end(ops, i, key, record_slots)
-                lower([ExecContext(o, env, device, run) for o in ops[i:j]])
+                    run.record_slots[uid], env, env, device, run)
+            elif kind == _GROUP:
+                info.group[1]([ExecContext(o, env, device, run)
+                               for o in ops[i:j]])
             else:
                 info.lowering(ExecContext(op, env, device, run))
         except EnforceNotMet:
             raise
         except Exception as exc:  # re-raise with op and var context
             raise wrap_op_error(exc, op, env, i) from exc
-        for k in range(i, j):
-            for n in (frees or {}).get(k, ()):
-                env.pop(n, None)
-        i = j
+        for n in drop:
+            env.pop(n, None)
 
 
 def _persistable_inputs(block) -> List[str]:
@@ -146,45 +175,139 @@ def _persistable_outputs(block) -> List[str]:
     return out
 
 
+def _missing_error(missing):
+    return RuntimeError(
+        f"persistable variable(s) not initialized in the scope "
+        f"(run the startup program first?): {missing}")
+
+
+def _feed_signature(feed):
+    return tuple(sorted((n, a.shape, a.dtype.str) for n, a in feed.items()))
+
+
+class _Plan:
+    """What one run of a block needs that depends only on the program,
+    the scope, the fetches and the feed signature: the persistable
+    inputs and outputs with their scope Variables (by reference: valid
+    while the plan's scope is the run's and erased nothing since), each
+    feed's dtype, the forward records to take, and the steps with their
+    free lists. Built at the first run of a key; the runs after it reuse
+    it and read each Variable's current tensor."""
+
+    __slots__ = ("scope", "generation", "device", "feed_sig", "in_vars",
+                 "out_vars", "feed_dtypes", "record_slots", "grad_uids",
+                 "spans")
+
+    def __init__(self, block, scope, device, feed_sig, fetch_names):
+        self.scope = scope
+        self.generation = scope.generation
+        self.device = device
+        self.feed_sig = feed_sig
+        inputs = _persistable_inputs(block)
+        missing = [n for n in inputs if scope.find_var(n) is None]
+        if missing:
+            raise _missing_error(missing)
+        self.in_vars = [(n, scope.find_var(n)) for n in inputs]
+        outputs = _persistable_outputs(block)
+        self.out_vars = [(n, scope.var(n)) for n in outputs]
+        self.feed_dtypes = {}
+        for name, _, _ in feed_sig:
+            var = block.find_var(name)
+            if var is not None:
+                self.feed_dtypes[name] = dtype_to_torch(var.dtype)
+        self.record_slots, self.grad_uids = training_plan(block)
+        frees = _last_reads(block, set(fetch_names) | set(outputs))
+        self.spans = block_spans(block, self.record_slots, frees)
+
+    def valid_for(self, scope, device, feed_sig):
+        return self.scope is scope and \
+            self.generation == scope.generation and \
+            self.device == device and self.feed_sig == feed_sig
+
+
+# plans kept per key: one per live feed signature (a training loop sees
+# one or two: the batches and a shorter last one)
+_MAX_PLANS = 4
+
+
 class Engine:
+    """Runs blocks; keeps each block's plan (_Plan) by (program
+    fingerprint, block, fetch names, AMP config, op registry generation),
+    at most _MAX_PLANS a key, one per feed signature. Kernel selection
+    happens inside each lowering on every call, so the registry's flags
+    and environment are not part of the key. `counters`: runs,
+    fast_path_hits (runs that reused a plan) and traces (plans built)."""
+
+    def __init__(self):
+        self._plans: Dict[tuple, List[_Plan]] = {}
+        self.counters = {"runs": 0, "fast_path_hits": 0, "traces": 0}
+
+    @staticmethod
+    def _key(program, fetch_names):
+        amp = program._amp
+        return (program.fingerprint, 0, tuple(fetch_names),
+                None if amp is None else
+                (amp["dtype"], amp["black_ops"], amp["white_ops"]),
+                OPS.generation)
+
+    def _plan(self, block, key, scope, device, feed, fetch_names):
+        sig = _feed_signature(feed)
+        if key is not None:
+            for plan in self._plans.get(key, ()):
+                if plan.valid_for(scope, device, sig):
+                    self.counters["fast_path_hits"] += 1
+                    return plan
+        plan = _Plan(block, scope, device, sig, fetch_names)
+        self.counters["traces"] += 1
+        if key is not None:
+            plans = self._plans.setdefault(key, [])
+            plans.append(plan)
+            if len(plans) > _MAX_PLANS:
+                plans.pop(0)
+        return plan
+
     def run(self, program, scope: Scope, device: torch.device,
             feed: Dict[str, np.ndarray], fetch_names: List[str],
-            return_numpy: bool = True):
+            return_numpy: bool = True, use_program_cache: bool = True):
+        """One run of the program's global block. use_program_cache=False
+        builds the plan for this run alone: it neither reuses one nor
+        keeps it."""
+        self.counters["runs"] += 1
         block = program.global_block()
+        key = self._key(program, fetch_names) if use_program_cache \
+            else None
+        plan = self._plan(block, key, scope, device, feed, fetch_names)
         env: Dict[str, torch.Tensor] = {}
         missing = []
-        for n in _persistable_inputs(block):
-            var = scope.find_var(n)
-            if var is None or not var.is_initialized():
+        for n, var in plan.in_vars:
+            t = var.get_tensor().tensor
+            if t is None:
                 missing.append(n)
-                continue
-            env[n] = var.get_tensor().tensor.to(device)
+            elif t.device != device:
+                env[n] = t.to(device)
+            else:
+                env[n] = t
         if missing:
-            raise RuntimeError(
-                f"persistable variable(s) not initialized in the scope "
-                f"(run the startup program first?): {missing}")
+            raise _missing_error(missing)
         for name, arr in feed.items():
             t = torch.tensor(arr, device=device)
-            var = block.find_var(name)
-            if var is not None and t.dtype != dtype_to_torch(var.dtype):
-                t = t.to(dtype_to_torch(var.dtype))   # bf16 feeds
+            dt = plan.feed_dtypes.get(name)
+            if dt is not None and t.dtype != dt:
+                t = t.to(dt)                  # bf16 feeds
             env[name] = t
 
-        outputs = _persistable_outputs(block)
-        record_slots, grad_uids = training_plan(block)
         run = RunState(program.random_seed, scope.next_run(program._uid),
-                       record_slots, grad_uids)
-        frees = _last_reads(block, set(fetch_names) | set(outputs))
+                       plan.record_slots, plan.grad_uids)
         amp = program._amp
         with torch.no_grad(), amp_guard(
                 amp is not None,
                 *((amp["dtype"], amp["black_ops"], amp["white_ops"])
                   if amp is not None else ())):
-            run_block_ops(block, env, device, run, frees)
+            run_block_ops(block, env, device, run, plan.spans)
 
-        for n in outputs:
+        for n, var in plan.out_vars:
             t = env[n]
-            holder = scope.var(n).get_tensor()
+            holder = var.get_tensor()
             old = holder.tensor
             if old is not None and old.dtype != t.dtype:
                 t = t.to(old.dtype)   # params and optimizer state keep

@@ -43,22 +43,37 @@ RENAME_SEP = "@RENAME@"
 class OpInfo:
     """One op type. `group`, where set (register_group), is
     ``(key(op), lowering(ctxs))``: the engine hands a run of consecutive
-    ops of this type with equal keys to ``lowering`` in one call."""
+    ops of this type with equal keys to ``lowering`` in one call. The
+    engine's plans fix which ops a group takes, so setting `group`
+    advances OPS.generation, which keys them."""
 
     __slots__ = ("type", "lowering", "no_grad_slots", "is_grad_op",
-                 "group")
+                 "_group")
 
     def __init__(self, type, lowering, no_grad_slots=(), is_grad_op=False):
         self.type = type
         self.lowering = lowering
         self.no_grad_slots = frozenset(no_grad_slots)
         self.is_grad_op = is_grad_op
-        self.group = None
+        self._group = None
+
+    @property
+    def group(self):
+        return self._group
+
+    @group.setter
+    def group(self, value):
+        self._group = value
+        OPS.generation += 1
 
 
 class OpInfoMap:
+    """Op type -> OpInfo. `generation` counts the group lowerings set
+    (OpInfo.group), which change the engine's plans."""
+
     def __init__(self):
         self._map: Dict[str, OpInfo] = {}
+        self.generation = 0
 
     def insert(self, info: OpInfo):
         if info.type in self._map:

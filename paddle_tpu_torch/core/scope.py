@@ -87,12 +87,14 @@ class Variable:
 class Scope:
     """Name -> Variable map, and the count of runs of each Program in
     this scope (it seeds random ops: every run draws anew, and a fresh
-    scope replays the same draws). Child scopes arrive with control
-    flow."""
+    scope replays the same draws). `generation` counts erasures: the
+    engine's plans hold Variables by reference and are valid only while
+    it stays the same. Child scopes arrive with control flow."""
 
     def __init__(self):
         self._vars: Dict[str, Variable] = {}
         self._runs: Dict[int, int] = {}
+        self.generation = 0
 
     def next_run(self, program_uid: int) -> int:
         """Index of this run of the program in this scope (0, 1, ...)."""
@@ -109,6 +111,13 @@ class Scope:
 
     def find_var(self, name: str) -> Optional[Variable]:
         return self._vars.get(name)
+
+    def erase(self, names):
+        """Remove the named variables (names not in the scope are
+        skipped)."""
+        for n in names:
+            self._vars.pop(n, None)
+        self.generation += 1
 
 
 _global_scope = Scope()

@@ -45,17 +45,21 @@ class Executor:
         variables by name and builds no feed or fetch ops, so they change
         nothing. return_numpy=True gives numpy arrays (bf16 as float32);
         False gives the fetched torch tensors as they lie on the device.
-        use_program_cache is accepted for the reference's signature: the
-        port runs each op eagerly and keeps no program cache yet, so it
-        changes nothing either."""
-        del feed_var_name, fetch_var_name, use_program_cache
+        use_program_cache=True reuses the engine's plan of the block
+        (core/engine.py _Plan: the persistables, records, steps and free
+        lists), built at the first run with this program version,
+        fetch list, scope and feed signature; False builds the plan for
+        this run alone and neither reuses nor keeps one: the reference's
+        semantics for a program changed without a version bump."""
+        del feed_var_name, fetch_var_name
         if program is None:
             program = framework.default_main_program()
         scope = scope or global_scope()
         fetch_names = [_to_name_str(f) for f in fetch_list or []]
         return self._engine.run(program, scope, self.device,
                                 self._canonical_feed(feed, program),
-                                fetch_names, return_numpy=return_numpy)
+                                fetch_names, return_numpy=return_numpy,
+                                use_program_cache=use_program_cache)
 
     @staticmethod
     def _canonical_feed(feed, program):

@@ -420,6 +420,12 @@ class Program:
     def _bump_version(self):
         self._version += 1
 
+    @property
+    def fingerprint(self):
+        """(uid, version): changes with every mutation of the Program,
+        so it keys the engine's per-step plans."""
+        return (self._uid, self._version)
+
     def global_block(self) -> Block:
         return self.blocks[0]
 

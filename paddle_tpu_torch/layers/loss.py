@@ -1,10 +1,11 @@
-"""Loss layers (counterpart of paddle_tpu/layers/loss.py: cross_entropy
-and label_smoothed_softmax_xent)."""
+"""Loss layers (counterpart of paddle_tpu/layers/loss.py: cross_entropy,
+softmax_with_cross_entropy and label_smoothed_softmax_xent)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cross_entropy", "label_smoothed_softmax_xent"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "label_smoothed_softmax_xent"]
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
@@ -16,6 +17,26 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
                      attrs={"soft_label": soft_label,
                             "ignore_index": ignore_index})
     return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The loss, and with return_softmax also the softmax. The op always
+    computes a numerically stable log-softmax, whatever
+    numeric_stable_mode says."""
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        inputs={"Logits": logits, "Label": label},
+        outputs={"Softmax": softmax, "Loss": loss},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+               "axis": axis})
+    if return_softmax:
+        return loss, softmax
+    return loss
 
 
 def label_smoothed_softmax_xent(logits, label, epsilon=0.1):

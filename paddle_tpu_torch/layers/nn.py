@@ -1,8 +1,9 @@
 """NN layers (counterpart of paddle_tpu/layers/nn.py). The builders that
 Transformer training and inference call: fc, embedding, layer_norm,
 fused_attention, dropout, reshape, squeeze, reduce_sum,
-add_position_encoding, elementwise_*; matmul; and those of LeNet:
-conv2d, pool2d, softmax, mean, top_k/topk."""
+add_position_encoding, elementwise_*; matmul; those of LeNet:
+conv2d, pool2d, softmax, mean, top_k/topk; and those of ResNet:
+batch_norm, relu."""
 from __future__ import annotations
 
 import copy
@@ -17,7 +18,7 @@ __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "layer_norm", "fused_attention",
     "dropout", "softmax", "mean", "top_k", "topk", "matmul", "reshape",
     "squeeze", "reduce_sum", "add_position_encoding", "elementwise_add",
-    "elementwise_mul", "elementwise_div",
+    "elementwise_mul", "elementwise_div", "batch_norm", "relu",
 ]
 
 
@@ -159,6 +160,47 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         outputs={"Y": out, "Mean": mean, "Variance": var},
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
     return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale and Bias are trained parameters; the running Mean and
+    Variance are persistables that are not trained (initialized to 0
+    and 1), which the op updates in place through MeanOut and
+    VarianceOut."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    dtype = input.dtype
+    ch = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [ch], dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [ch], dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False,
+                  initializer=Constant(0.0)), [ch], dtype)
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False,
+                  initializer=Constant(1.0)), [ch], dtype)
+    saved_mean = helper.create_variable_for_type_inference(dtype, True)
+    saved_var = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": variance},
+        outputs={"Y": out, "MeanOut": mean, "VarianceOut": variance,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def relu(x, name=None):
+    return _single_op("relu", x, {})
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,

@@ -1,11 +1,14 @@
-"""Dense NN ops: softmax, cross_entropy, layer_norm,
-add_position_encoding, label_smoothed_softmax_xent with its hand-written
-grad, and dropout (counterpart of paddle_tpu/ops/nn.py). softmax and
-cross_entropy take the generic gradient. layer_norm and dropout take the
-generic gradient (the vector-Jacobian product of the lowering): the
-layer_norm lowering keeps its statistics in float32 under bf16, and the
-dropout grad reuses the forward's record or its seed, so it never draws
-a new mask."""
+"""Dense NN ops: softmax, cross_entropy, softmax_with_cross_entropy,
+layer_norm, batch_norm, add_position_encoding,
+label_smoothed_softmax_xent with its hand-written grad, and dropout
+(counterpart of paddle_tpu/ops/nn.py). softmax, cross_entropy and
+softmax_with_cross_entropy take the generic gradient. layer_norm,
+batch_norm and dropout take the generic gradient (the vector-Jacobian
+product of the lowering): the two norms keep their statistics in float32
+under bf16, batch_norm's running statistics move once a step (the
+forward's record writes MeanOut and VarianceOut; a grad op that
+recomputes the forward writes nothing back), and the dropout grad reuses
+the forward's record or its seed, so it never draws a new mask."""
 from __future__ import annotations
 
 import torch
@@ -45,6 +48,75 @@ def cross_entropy(ctx):
         keep = ids[..., None] != ctx.attr("ignore_index", -100)
         out = torch.where(keep, out, torch.zeros_like(out))
     ctx.set_output("Y", out)
+
+
+@register_op("softmax_with_cross_entropy", no_grad_slots=("Label",))
+def softmax_with_cross_entropy(ctx):
+    """Loss = -log_softmax(logits) at the label (hard labels; rows whose
+    label is ignore_index give 0), or -sum(label * log_softmax(logits))
+    over the last axis (soft_label); Softmax = exp(log_softmax)."""
+    logits, label = ctx.input("Logits"), ctx.input("Label")
+    axis = ctx.attr("axis", -1)
+    if axis not in (-1, logits.ndim - 1):
+        raise NotImplementedError(f"softmax_with_cross_entropy over axis "
+                                  f"{axis} (not the last) is not ported")
+    log_p = torch.log_softmax(logits, dim=-1)
+    if ctx.attr("soft_label", False):
+        loss = -torch.sum(label * log_p, dim=-1, keepdim=True)
+    else:
+        ids = label.long()
+        if ids.ndim == logits.ndim:
+            ids = ids.squeeze(-1)
+        loss = -torch.gather(log_p, -1, ids[..., None].clamp(
+            0, logits.shape[-1] - 1))
+        keep = ids[..., None] != ctx.attr("ignore_index", -100)
+        loss = torch.where(keep, loss, torch.zeros_like(loss))
+    ctx.set_output("Softmax", torch.exp(log_p))
+    ctx.set_output("Loss", loss)
+
+
+@register_op("batch_norm", no_grad_slots=("Mean", "Variance"))
+def batch_norm(ctx):
+    """Y = (x - mean) / sqrt(var + eps) * scale + bias over every axis but
+    the channel's (axis 1 in NCHW, the last in NHWC). Training takes the
+    batch's mean and biased variance and sets MeanOut = Mean*momentum +
+    mean*(1-momentum), the same for VarianceOut, SavedMean = mean and
+    SavedVariance = 1/sqrt(var + eps); is_test or use_global_stats
+    normalize by Mean and Variance, which pass through, and the saved
+    statistics are zeros. A bf16 x is normalized in float32 and Y
+    rounded to bf16 once; the statistics stay float32.
+
+    The normalization is torch's native batch norm, whose backward
+    keeps only x and the two statistics; the variance of the running
+    update is read back from its 1/sqrt(var + eps)."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    mean_in, var_in = ctx.input("Mean"), ctx.input("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    use_global = ctx.attr("use_global_stats", False) or \
+        ctx.attr("is_test", False)
+    channel_last = ctx.attr("data_layout", "NCHW") == "NHWC"
+    xc = x.movedim(-1, 1) if channel_last else x
+    if use_global:
+        y = torch.native_batch_norm(xc, scale, bias, mean_in, var_in,
+                                    False, 0.0, eps)[0]
+        mean_out, var_out = mean_in, var_in
+        saved_mean = torch.zeros_like(mean_in)
+        saved_var = torch.zeros_like(var_in)
+    else:
+        y, mean, inv_std = torch.native_batch_norm(
+            xc, scale, bias, None, None, True, 0.0, eps)
+        var = inv_std.detach().pow(-2) - eps
+        mean = mean.detach()
+        mean_out = mean_in * momentum + mean * (1 - momentum)
+        var_out = var_in * momentum + var * (1 - momentum)
+        saved_mean, saved_var = mean, inv_std.detach()
+    ctx.set_output("Y", y.movedim(1, -1) if channel_last else y)
+    ctx.set_output("MeanOut", mean_out)
+    ctx.set_output("VarianceOut", var_out)
+    ctx.set_output("SavedMean", saved_mean)
+    ctx.set_output("SavedVariance", saved_var)
 
 
 @register_op("layer_norm")

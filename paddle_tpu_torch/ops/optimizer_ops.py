@@ -1,5 +1,5 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py:
-sgd and adam, dense gradients). Updates write ParamOut/...Out, which
+sgd, momentum and adam, dense gradients). Updates write ParamOut/...Out, which
 name the same vars as their inputs; the engine writes them back to the
 scope. Gradients never flow through updates (register_no_grad_op).
 
@@ -51,6 +51,24 @@ def _sgd_operands(ctx):
     lr = ctx.input("LearningRate").reshape(1).to(p.dtype)
     sel = _select("sgd", p, g)
     return p, g.to(p.dtype).contiguous(), lr, sel
+
+
+@register_no_grad_op("momentum")
+def momentum(ctx):
+    """v' = mu*v + g; p' = p - lr*v', or with use_nesterov
+    p' = p - (g + mu*v')*lr: the JAX lowering's operations in its order,
+    each rounded once (no kernel: the JAX package has none)."""
+    p, g, v = ctx.input("Param"), ctx.input("Grad"), ctx.input("Velocity")
+    _dense("momentum", g)
+    lr = ctx.input("LearningRate").reshape(()).to(p.dtype)
+    mu = ctx.attr("mu")
+    v_new = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.set_output("ParamOut", p_new)
+    ctx.set_output("VelocityOut", v_new)
 
 
 @register_no_grad_op("sgd")

@@ -1,7 +1,8 @@
 """Optimizers: minimize() = append_backward + one update op per parameter.
 
-Counterpart of paddle_tpu/optimizer.py (Optimizer, SGDOptimizer and
-AdamOptimizer; the other rules are not ported yet). The learning rate is
+Counterpart of paddle_tpu/optimizer.py (Optimizer, SGDOptimizer,
+MomentumOptimizer and AdamOptimizer; the other rules are not ported
+yet). The learning rate is
 a persistable global var; accumulators are persistable vars initialized
 by fill ops in the startup program; every op of the optimize phase (clip,
 regularization, update) carries op_role "optimize". Update ops bind
@@ -21,7 +22,8 @@ from .layer_helper import LayerHelper
 from .layers import tensor as _tensor
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -144,6 +146,33 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": p}, infer_shape=False)
 
 
+class MomentumOptimizer(Optimizer):
+    """One velocity accumulator a parameter; the momentum op's attrs mu
+    and use_nesterov."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "VelocityOut": v},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov},
+            infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -178,4 +207,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -10,9 +10,11 @@ quantized_matmul int8 and bf16, every tuned_matmul variant of both
 designs and the tensor-core tiles at the serving shapes, the
 dropout_residual ones among them), a tiny
 Transformer forward on the card against the same Program on the CPU
-(float32 and int8 mode), three training steps of it, and LeNet's SGD
+(float32 and int8 mode), three training steps of it, LeNet's SGD
 step with its updates in the kernel against the same step with them
-plain. They skip where torch sees no CUDA device.
+plain, one bf16 AMP step of ResNet-50 at 224x224, and training steps of
+LeNet and the tiny Transformer with and without the engine's plan cache
+(bit-equal). They skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -1160,3 +1162,93 @@ def test_tiny_transformer_int8_on_card_matches_cpu(cuda, monkeypatch):
     assert kreg.launches()["quantized_matmul_int8"] == n_mul
     rel = np.linalg.norm(lg - lc) / np.linalg.norm(lc)
     assert rel <= 1e-3 and abs(float(cg) - float(cc)) <= 1e-3
+
+
+def test_resnet50_amp_step_on_card(cuda):
+    """One step of bench.py's ResNet-50 program (depth 50, 224x224,
+    Momentum(0.1, 0.9) under decorate) at B=8 on the card: a finite
+    loss, the running statistics of every batch norm moved, and none of
+    the port's kernels launched (no attention; the one mul runs
+    cuBLAS)."""
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, _, _ = pt.models.resnet_train(depth=50)
+        pt.contrib.mixed_precision.decorate(
+            pt.optimizer.MomentumOptimizer(0.1, 0.9)).minimize(cost)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    stats = [v.name for v in main.global_block().vars.values()
+             if v.name.endswith((".bn.mean", ".bn.var"))]
+    before = {n: scope.find_var(n).get_tensor().tensor.clone()
+              for n in stats}
+    r = np.random.RandomState(0)
+    feed = {"image": r.rand(8, 3, 224, 224).astype(np.float32),
+            "label": r.randint(0, 1000, (8, 1)).astype(np.int64)}
+    kreg.reset_counts()
+    loss, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    assert np.isfinite(loss).all()
+    assert not any(kreg.launches().values())
+    assert len(stats) == 2 * 53
+    for n in stats:
+        after = scope.find_var(n).get_tensor().tensor
+        assert after.dtype == torch.float32 and after.is_cuda, n
+        assert not torch.equal(after, before[n]), n
+
+
+def _cache_steps(main, startup, cost, feed, cached):
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    losses = [exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                      use_program_cache=cached)[0] for _ in range(3)]
+    state = {v.name: scope.find_var(v.name).get_tensor().tensor.clone()
+             for v in main.global_block().vars.values()
+             if v.persistable and scope.find_var(v.name) is not None}
+    return losses, state, exe._engine.counters["fast_path_hits"]
+
+
+@pytest.mark.parametrize("model", ["lenet", "transformer"])
+def test_plan_cache_steps_bit_equal_on_card(cuda, monkeypatch, model):
+    """3 training steps with the engine's plan cache and without it
+    (use_program_cache=False) from the same startup state: bit-equal
+    losses and persistables, in deterministic mode (cuDNN's
+    deterministic algorithms; torch's deterministic index_add_ for the
+    embedding gradients)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        if model == "lenet":
+            cost, _, _ = pt.models.lenet_train()
+            pt.optimizer.SGD(learning_rate=0.05).minimize(cost)
+            r = np.random.RandomState(0)
+            feed = {"img": r.rand(64, 1, 28, 28).astype(np.float32),
+                    "label": r.randint(0, 10, (64, 1)).astype(np.int64)}
+        else:
+            cfg = T.transformer_base(src_vocab_size=64, trg_vocab_size=64,
+                                     fuse_attention=True, dropout=0.1)
+            cfg.n_layer, cfg.d_model, cfg.d_inner = 1, 32, 64
+            cfg.n_head, cfg.d_head = 4, 8
+            cost, _, _ = T.transformer_train(cfg)
+            pt.contrib.mixed_precision.decorate(
+                pt.optimizer.AdamOptimizer(learning_rate=2e-3)).minimize(
+                    cost)
+            feed = T.make_batch(cfg, 4, 16, 12,
+                                rng=np.random.default_rng(3),
+                                src_lens=np.array([16, 11, 7, 13]),
+                                trg_lens=np.array([12, 9, 5, 12]))
+    main.random_seed = startup.random_seed = 5
+    try:
+        la, sa, hits_a = _cache_steps(main, startup, cost, feed, True)
+        lb, sb, hits_b = _cache_steps(main, startup, cost, feed, False)
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+    assert (hits_a, hits_b) == (2, 0)
+    assert all(np.array_equal(a, b) for a, b in zip(la, lb))
+    assert sa.keys() == sb.keys()
+    for n in sa:
+        assert torch.equal(sa[n], sb[n]), n

@@ -204,13 +204,15 @@ def test_op_matches_jax(op_type, inputs, outputs, attrs):
 def test_every_slice_op_type_is_covered():
     """Every forward op type the port registers has a case here, except
     the ones held elsewhere (see the module docstring; the ops of LeNet
-    and SGD are held in test_torch_lenet.py)."""
+    and SGD are held in test_torch_lenet.py, those of ResNet and Momentum
+    in test_torch_resnet.py)."""
     forward = {t for t in PT_OPS.types() if not PT_OPS.get(t).is_grad_op}
     lenet = {"conv2d", "depthwise_conv2d", "pool2d", "softmax",
              "cross_entropy", "mean", "top_k", "accuracy", "uniform_random",
              "sgd"}
+    resnet = {"batch_norm", "softmax_with_cross_entropy", "momentum"}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
-        lenet == forward
+        lenet | resnet == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
