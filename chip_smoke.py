@@ -82,7 +82,24 @@
    forward, prints the registry's dispatch stats, and
    holds its logits against the same forward with only the GEMMs plain
    (int8: bit-equal), under plain_reference(), and against float32.
-8. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+8. CTR phase (BASELINE config 4, bench.py's bench_ctr): Wide&Deep with
+   dense embedding gradients (the bench default), Wide&Deep with
+   is_sparse=True (SelectedRows gradients) and DeepFM, at vocab
+   1000001, B=4096, AdagradOptimizer(0.01), 10 steps each through
+   Executor.run. Prints examples/s (steps 2-10, fetch included), peak
+   memory, the losses, the device-busy share and top kernels of a
+   profiled step and a cProfile of one step; requires finite,
+   pairwise-distinct losses, no launch of the port's kernels, sparse
+   against dense from the same initial scope (the first loss, the
+   parameters after 3 steps), and one more sparse step with every
+   sparse lowering under sync debug mode "error". Times dense and
+   sparse Wide&Deep in turns, and the embedding table's gradient and
+   update on each path against its byte bound (the sparse update kernel
+   by kernel). Then a padding_idx table with
+   duplicate ids through the sparse update of SGD, Momentum, Adagrad
+   and Adam: no device-side assert, no host sync, the padding row and
+   the rows never looked up unchanged.
+9. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -95,7 +112,7 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-9. Prints one JSON line of per-kernel numbers, then, last, the device
+10. Prints one JSON line of per-kernel numbers, then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
@@ -214,6 +231,28 @@ RN_AMP_LOSS_RTOL = 2e-2
 RN_NHWC_RTOL = 1e-4
 # the plan cache A/B: turns of each mode and steps a turn
 AB_TURNS, AB_STEPS = 4, 3
+# CTR (BASELINE config 4): bench.py's bench_ctr (ctr_train(vocab_size=
+# 1000001), AdagradOptimizer(0.01), B=4096, 26 slots, 13 dense features)
+CTR_B, CTR_VOCAB, CTR_SLOTS, CTR_DENSE = 4096, 1000001, 26, 13
+CTR_STEPS, CTR_LR = 10, 0.01
+# Wide&Deep with is_sparse=True against the dense default, from copies of
+# one initial scope. The first loss is the same forward on the same
+# parameters: to CTR_LOSS_RTOL. After 3 steps the parameters: the sparse
+# path merges duplicate ids with one scatter-add and the dense one adds
+# them into the table with another, in orders the card's atomics leave
+# open, so the two differ in the last bits of those rows' gradients and,
+# from step 2, of every activation. Each element to CTR_RTOL/CTR_ATOL,
+# but where every gradient it saw stayed below CTR_TINY_G (its Adagrad
+# moment below CTR_TINY_G^2): there Adagrad's update lr*g/(|g| + 1e-6)
+# multiplies the absolute rounding of a cancelling gradient by up to 2500,
+# and such elements are held to CTR_TINY_G_ATOL, a hundredth of one step's
+# move (tests/test_torch_ctr.py holds the port to the JAX package on the
+# CPU the same way)
+CTR_LOSS_RTOL = 1e-6
+CTR_RTOL = CTR_ATOL = 1e-5
+CTR_TINY_G, CTR_TINY_G_ATOL = 1e-4, 1e-4
+# Wide&Deep dense against sparse in turns: turns, and steps a turn
+CTR_AB_TURNS, CTR_AB_STEPS = 6, 5
 
 
 def _require(cond, msg):
@@ -752,6 +791,393 @@ def _baseline_sgd(torch, baseline, pairs, lr):
                      0.0, stream)
             _require(err == 0, f"baseline fused_sgd failed: {err}")
     return call
+
+
+def _build_ctr(pt, kind, optimizer=None):
+    """bench.py's CTR training program (bench_ctr): kind "wide_deep" or
+    "deepfm" is ctr_train(kind, vocab_size=1000001); "sparse" is
+    Wide&Deep with is_sparse=True and ctr_train's loss, as a user builds
+    it; "padded" looks a sparse [1000001, 16] table up with padding_idx
+    0 into one fc. Minimized by AdagradOptimizer(0.01), or `optimizer`.
+    Returns (main, startup, cost, feed names)."""
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        if kind in ("wide_deep", "deepfm"):
+            cost, _, feeds = pt.models.ctr_train(kind, vocab_size=CTR_VOCAB)
+        else:
+            L = pt.layers
+            slots = L.data("slot_ids", [-1, CTR_SLOTS],
+                           append_batch_size=False, dtype="int32")
+            dense = L.data("dense_feat", [-1, CTR_DENSE],
+                           append_batch_size=False, dtype="float32")
+            label = L.data("ctr_label", [-1, 1], append_batch_size=False,
+                           dtype="float32")
+            feeds = ["slot_ids", "dense_feat", "ctr_label"]
+            if kind == "sparse":
+                logit = pt.models.wide_deep.wide_deep(
+                    slots, dense, CTR_VOCAB, 16, is_sparse=True)
+            else:
+                emb = L.embedding(slots, [CTR_VOCAB, 16], is_sparse=True,
+                                  padding_idx=0,
+                                  param_attr=pt.ParamAttr(name="pad_emb.w_0"))
+                logit = L.fc(L.concat([L.flatten(emb), dense], axis=1), 1)
+            cost = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+            L.sigmoid(logit)                  # ctr_train's probability
+        (optimizer or pt.optimizer.AdagradOptimizer(CTR_LR)).minimize(cost)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, cost, feeds
+
+
+def _ctr_feed(feeds):
+    """bench.py's batch (RandomState(0): slot ids in [0, 1000001), rand
+    dense features, 0/1 labels) at B=4096, the named feeds of it."""
+    rng = np.random.RandomState(0)
+    batch = {
+        "slot_ids": rng.randint(0, CTR_VOCAB,
+                                (CTR_B, CTR_SLOTS)).astype(np.int32),
+        "dense_feat": rng.rand(CTR_B, CTR_DENSE).astype(np.float32),
+        "ctr_label": rng.randint(0, 2, (CTR_B, 1)).astype(np.float32)}
+    return {k: batch[k] for k in feeds}
+
+
+@contextlib.contextmanager
+def _sync_checked(torch, op_types):
+    """Each lowering of `op_types` (a group lowering too) runs under
+    torch.cuda.set_sync_debug_mode("error"): one that blocks the host
+    until the card drains raises. Yields the count of lowerings run so."""
+    import functools
+    from paddle_tpu_torch.core.registry import OPS
+    ran = {"lowerings": 0}
+
+    def checked(fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            old = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(old)
+                ran["lowerings"] += 1
+        return wrapper
+
+    saved = [(OPS.get(t), OPS.get(t).lowering, OPS.get(t)._group)
+             for t in op_types]
+    for info, lowering, group in saved:
+        info.lowering = checked(lowering)
+        if group is not None:   # the plans' spans stand: no new plan
+            info._group = (group[0], checked(group[1]))
+    try:
+        yield ran
+    finally:
+        for info, lowering, group in saved:
+            info.lowering, info._group = lowering, group
+
+
+# the op types of the sparse updates: their lowerings must not sync
+_SPARSE_OPS = ("lookup_table_grad", "sum", "scale", "sgd", "momentum",
+               "adagrad", "adam")
+
+
+def _ctr_run(torch, pt, kreg, label, main, cost, feed, scope, exe,
+             sync_check=False):
+    """CTR_STEPS steps through Executor.run on the card; prints the
+    losses, the step seconds (each ends at the fetched loss),
+    examples/s, peak memory and the device-busy share of one profiled
+    step after them; requires finite, distinct losses and no launch of
+    the port's kernels. sync_check: then one more step with the sparse
+    lowerings under sync debug mode "error" (the fetch outside it).
+    Returns the losses and the parameters and moments after 3 steps
+    (host copies)."""
+    params = [p.name for p in main.all_parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kreg.reset_counts()
+    losses, secs, after3 = [], [], None
+    for step in range(CTR_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                    scope=scope)[0]))
+        secs.append(time.perf_counter() - t0)
+        if step == 2:
+            after3 = {n: scope.find_var(n).get_tensor().tensor.to(
+                "cpu", copy=True)
+                for n in params + [n + "_moment_0" for n in params]}
+    launches = kreg.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = secs[1:]
+    print(f"  {label}: losses {', '.join(f'{x:.6f}' for x in losses)}")
+    print(f"  {label}: step seconds {', '.join(f'{x:.4f}' for x in secs)} "
+          f"(first includes warm-up); examples/s (steps 2-{CTR_STEPS}, "
+          f"fetch included) {CTR_B * len(steady) / sum(steady):.1f}; peak "
+          f"memory allocated {peak_gb:.3f} GB")
+    _require(all(np.isfinite(losses)) and
+             len(set(losses)) == len(losses),
+             f"{label}: the losses are not finite and pairwise distinct")
+    _require(not any(launches.values()),
+             f"{label}: the CTR path launched {launches}")
+    if sync_check:
+        with _sync_checked(torch, _SPARSE_OPS) as ran:
+            out = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                          return_numpy=False)[0]
+        print(f"  {label}: one more step, {ran['lowerings']} sparse-path "
+              f"lowerings under sync debug mode 'error', loss "
+              f"{float(out):.6f}")
+        _require(ran["lowerings"] >= 2,
+                 f"{label}: no sparse lowering ran under the sync check")
+    busy = profile_step(torch, exe, main, feed, cost, scope, kernel=None)
+    print(f"  {label}: device busy share of a profiled step "
+          f"{100 * busy:.1f} %")
+    host_profile(torch, label, exe, scope, main, cost, feed)
+    return losses, after3
+
+
+def _ctr_compare(torch, dense, sparse):
+    """Dense against sparse Wide&Deep after 3 steps: the largest
+    elementwise difference of each parameter over its bound (CTR_RTOL /
+    CTR_ATOL, CTR_TINY_G_ATOL where every gradient stayed below
+    CTR_TINY_G)."""
+    worst, tiny = 0.0, 0
+    for n, d in dense.items():
+        if n.endswith("_moment_0"):
+            continue
+        s = sparse[n]
+        small = dense[n + "_moment_0"] < CTR_TINY_G ** 2
+        atol = torch.where(small, CTR_TINY_G_ATOL, CTR_ATOL)
+        ratio = ((s - d).abs() / (atol + CTR_RTOL * d.abs())).max().item()
+        worst = max(worst, ratio)
+        tiny += int(small.sum())
+    return worst, tiny
+
+
+def ctr_phase(torch, dev):
+    """Wide&Deep (dense embedding gradients, the bench default), Wide&Deep
+    with is_sparse=True and DeepFM at vocab 1000001, B=4096, CTR_STEPS
+    Adagrad steps each through Executor.run on the card; the sparse
+    run's sparse lowerings under sync debug mode "error"; dense against
+    sparse from copies of one initial scope; then the padded program
+    (padding_idx and duplicate ids) with each optimizer's sparse
+    update, 2 steps under the sync check: no device-side assert, the
+    padding row and the rows never looked up unchanged. Between them,
+    the device time of the embedding table's update on each path
+    (ctr_update_times)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+
+    t0 = time.perf_counter()
+    runs, init = {}, None
+    for label, kind in (("Wide&Deep dense", "wide_deep"),
+                        ("Wide&Deep sparse", "sparse"),
+                        ("DeepFM dense", "deepfm")):
+        main, startup, cost, feeds = _build_ctr(pt, kind)
+        types = [op.type for op in main.global_block().ops]
+        print(f"  {label}: {len(types)} ops ({types.count('adagrad')} "
+              f"adagrad, {types.count('mul')} mul), "
+              f"{len(startup.global_block().ops)} startup ops")
+        _require((len(types), len(startup.global_block().ops)) ==
+                 ((58, 17) if kind == "deepfm" else (55, 23)),
+                 f"{label}: not the JAX package's program")
+        # an Executor a run: its plans hold their scope, and each run's
+        # peak memory is its own
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        if kind == "sparse":    # the dense run's initial scope
+            for n, t in init.items():
+                scope.var(n).get_tensor().set_tensor(t.to(dev))
+            init = None
+        else:
+            exe.run(startup, scope=scope)
+            if kind == "wide_deep":
+                init = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                        for n, v in scope._vars.items()}
+        runs[label] = _ctr_run(torch, pt, kreg, label, main, cost,
+                               _ctr_feed(feeds), scope, exe,
+                               sync_check=kind == "sparse")
+        del exe, scope
+        torch.cuda.empty_cache()
+        if kind == "sparse":
+            (ld, pd), (ls, ps) = (runs.pop("Wide&Deep dense"),
+                                  runs.pop("Wide&Deep sparse"))
+            e_loss = abs(ls[0] - ld[0]) / abs(ld[0])
+            worst, tiny = _ctr_compare(torch, pd, ps)
+            print(f"  Wide&Deep sparse against dense: first loss rel err "
+                  f"{e_loss:.3e} (bound {CTR_LOSS_RTOL:g}); parameters "
+                  f"after 3 steps: largest |diff| over its bound "
+                  f"{worst:.3f} ({tiny} elements whose gradients stayed "
+                  f"below {CTR_TINY_G:g} held to {CTR_TINY_G_ATOL:g}, the "
+                  f"rest to {CTR_ATOL:g})")
+            _require(e_loss <= CTR_LOSS_RTOL and worst <= 1.0,
+                     "sparse Wide&Deep disagrees with dense")
+            del pd, ps
+    ctr_ab(torch, pt)
+    ctr_update_times(torch, dev)
+
+    # padding_idx and duplicate ids through each optimizer's sparse update
+    rng = np.random.RandomState(1)
+    for name, opt in (("sgd", pt.optimizer.SGD(CTR_LR)),
+                      ("momentum", pt.optimizer.Momentum(CTR_LR, 0.9)),
+                      ("adagrad", pt.optimizer.Adagrad(CTR_LR)),
+                      ("adam", pt.optimizer.Adam(CTR_LR))):
+        main, startup, cost, feeds = _build_ctr(pt, "padded", opt)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        feed = _ctr_feed(feeds)
+        ids = feed["slot_ids"]
+        ids[::3, 0] = 0                        # padding_idx
+        ids[:, 1] = ids[:, 2]                  # duplicates
+        ids[rng.rand(*ids.shape) < 0.1] = 7    # a row hit ~10,000 times
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        table = scope.find_var("pad_emb.w_0").get_tensor()
+        before = table.tensor.clone()
+        with _sync_checked(torch, _SPARSE_OPS) as ran:
+            losses = [exe.run(main, feed=feed, fetch_list=[cost],
+                              scope=scope, return_numpy=False)[0]
+                      for _ in range(2)]
+        losses = [float(x) for x in losses]
+        torch.cuda.synchronize()               # a device assert raises
+        untouched = torch.ones(CTR_VOCAB, dtype=torch.bool, device=dev)
+        untouched[torch.from_numpy(ids.reshape(-1).astype(np.int64))
+                  .to(dev)] = False
+        untouched[0] = True
+        moved = (table.tensor - before).abs().amax(dim=1)
+        still = moved[untouched].max().item()
+        touched = moved[~untouched].min().item()
+        print(f"  padded {name}: losses {losses[0]:.6f}, {losses[1]:.6f}; "
+              f"{ran['lowerings']} sparse-path lowerings under sync debug "
+              f"mode 'error'; padding row and {int(untouched.sum()) - 1} "
+              f"rows never looked up: max|change| {still:.3e}; looked-up "
+              f"rows: min max|change| {touched:.3e}")
+        _require(all(np.isfinite(losses)) and losses[0] != losses[1],
+                 f"padded {name}: losses {losses}")
+        _require(still == 0.0 and touched > 0.0 and ran["lowerings"] >= 2,
+                 f"padded {name}: parked rows moved or looked-up rows did "
+                 f"not")
+        del exe, scope, table, before
+    torch.cuda.empty_cache()
+    print(f"  CTR phase: {time.perf_counter() - t0:.1f} s")
+
+
+def ctr_ab(torch, pt):
+    """Wide&Deep with dense and with sparse embedding gradients in turns
+    (dense first in even turns, sparse first in odd ones), each from a
+    copy of one initial scope on its own Executor: examples/s of each
+    turn of CTR_AB_STEPS steps, each step ending at its fetched loss. The
+    host's clock drifts through a long process, so only turns compare."""
+    built = {k: _build_ctr(pt, k) for k in ("wide_deep", "sparse")}
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(built["wide_deep"][1], scope=init)
+    runs = {}
+    for k, (main, _, cost, feeds) in built.items():
+        runs[k] = (pt.Executor(pt.CUDAPlace(0)),
+                   _copy_scope(pt, init, list(init._vars)), main, cost,
+                   _ctr_feed(feeds))
+    del init
+    for exe, scope, main, cost, feed in runs.values():   # plans built
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    rates = {k: [] for k in runs}
+    for turn in range(CTR_AB_TURNS):
+        for k in sorted(runs, reverse=turn % 2 == 1):
+            exe, scope, main, cost, feed = runs[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CTR_AB_STEPS):
+                loss = float(exe.run(main, feed=feed, fetch_list=[cost],
+                                     scope=scope)[0])
+            rates[k].append(CTR_B * CTR_AB_STEPS /
+                            (time.perf_counter() - t0))
+            _require(np.isfinite(loss), f"CTR A/B {k}: loss {loss}")
+    for k, label in (("wide_deep", "dense"), ("sparse", "sparse")):
+        print(f"  Wide&Deep {label} in turns ({CTR_AB_TURNS} x "
+              f"{CTR_AB_STEPS} steps): examples/s "
+              f"{', '.join(f'{r:.1f}' for r in rates[k])}; median "
+              f"{float(np.median(rates[k])):.1f}")
+    wins = sum(d > s for d, s in zip(rates["wide_deep"], rates["sparse"]))
+    print(f"  dense read faster in {wins} of {CTR_AB_TURNS} turns")
+
+
+def ctr_update_times(torch, dev, iters=20):
+    """Device ms (CUDA events around `iters` calls, after 3) of the
+    embedding table's gradient and Adagrad update at bench.py's shape
+    (ids of a B=4096 x 26 batch into the [1000001, 16] table), through
+    the ops' lowerings: dense (lookup_table_grad: a zero table and
+    index_add_; adagrad over the whole table) and sparse
+    (lookup_table_grad's SelectedRows; adagrad's merge, gathers and row
+    writes), beside the byte bound of each at 3.35 TB/s: each input
+    read once, each output written once."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext, _SlotView
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, CTR_VOCAB, (CTR_B, CTR_SLOTS))
+                           .astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    g_out = 1e-4 * torch.randn(CTR_B, CTR_SLOTS, 16, device=dev,
+                               generator=gen)
+    w = 0.01 * torch.randn(CTR_VOCAB, 16, device=dev, generator=gen)
+    m = torch.zeros_like(w)
+    lr = torch.full((1,), CTR_LR, device=dev)
+
+    def grad(sparse):
+        env = {"w": w, "ids": ids, "g": g_out}
+        view = _SlotView("lookup_table_grad",
+                         {"W": ["w"], "Ids": ["ids"], "Out@GRAD": ["g"]},
+                         {"W@GRAD": ["dw"]},
+                         {"is_sparse": sparse, "padding_idx": -1})
+        OPS.get("lookup_table_grad").lowering(ExecContext(view, env, dev))
+        return env["dw"]
+
+    def update(dw):
+        env = {"p": w, "g": dw, "m": m, "lr": lr}
+        view = _SlotView("adagrad", {"Param": ["p"], "Grad": ["g"],
+                                     "Moment": ["m"], "LearningRate": ["lr"]},
+                         {"ParamOut": ["p"], "MomentOut": ["m"]},
+                         {"epsilon": 1e-6})
+        OPS.get("adagrad").lowering(ExecContext(view, env, dev))
+
+    def events_ms(fn):
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    dense_g, sparse_g = grad(False), grad(True)
+    n_ids, table = CTR_B * CTR_SLOTS, w.numel() * 4
+    slices = n_ids * 16 * 4
+    rows = [("dense grad (zero table, index_add_)", lambda: grad(False),
+             table + slices + n_ids * 4),
+            ("dense adagrad (whole table)", lambda: update(dense_g),
+             5 * table),
+            ("sparse grad (SelectedRows)", lambda: grad(True),
+             slices + n_ids * 4),
+            ("sparse adagrad (merge, gather, write rows)",
+             lambda: update(sparse_g), slices + n_ids * 8 + 4 * slices)]
+    for label, fn, nbytes in rows:
+        ms = events_ms(fn)
+        bound = nbytes / 3.35e12 * 1e3
+        print(f"  table update, {label}: {ms:.4f} ms device (CUDA events); "
+              f"byte bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), "
+              f"{ms / bound:.1f}x")
+    # where the sparse update's device time goes, kernel by kernel
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        update(sparse_g)
+        torch.cuda.synchronize()
+    kernels = _kernels(prof)
+    print(f"  sparse adagrad, one call: {len(kernels)} kernel names, "
+          f"{sum(e.count for e in kernels)} launches, "
+          f"{sum(e.self_device_time_total for e in kernels) / 1e3:.4f} ms "
+          f"device (profiler)")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.4f} ms x{e.count:<3d} "
+              f"{e.key[:90]}")
 
 
 def _kernels(prof):
@@ -2630,6 +3056,9 @@ def main(argv=None):
         host_profile(torch, label, exe, scope, main, cost, feed)
     del kept, rn
     torch.cuda.empty_cache()
+
+    print("[ctr phase]")
+    ctr_phase(torch, dev)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

@@ -2,8 +2,11 @@
 paddle_tpu/contrib/mixed_precision/decorator.py): bf16 compute with the
 float32 parameters as master weights, and a static loss scale. bf16 has
 float32's exponent range, so the scale defaults to 1 (no scale ops).
-Dynamic loss scaling (the JAX package's stability-guard path) is not
-ported: asking for it raises.
+decorate() and the class take the JAX package's arguments in its order
+and with its defaults; the dynamic-scaling knobs (incr_every_n_steps,
+decr_every_n_nan_or_inf, incr_ratio, decr_ratio) are stored, but
+dynamic loss scaling itself (the JAX package's stability-guard path)
+and float16 are not ported: asking for either raises.
 
 backward() sets Program._amp (dtype and op lists); the engine runs the
 whole block under that policy (core/amp.py), forward, backward and
@@ -21,7 +24,9 @@ __all__ = ["decorate", "OptimizerWithMixedPrecision"]
 
 class OptimizerWithMixedPrecision:
     def __init__(self, optimizer, amp_lists=None, init_loss_scaling=1.0,
-                 use_dynamic_loss_scaling=False, dtype="bfloat16"):
+                 use_dynamic_loss_scaling=False, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=2, incr_ratio=2.0,
+                 decr_ratio=0.8, dtype="bfloat16"):
         if use_dynamic_loss_scaling:
             raise NotImplementedError(
                 "dynamic loss scaling is not ported to paddle_tpu_torch; "
@@ -34,13 +39,23 @@ class OptimizerWithMixedPrecision:
         self._optimizer = optimizer
         self._amp_lists = amp_lists or AutoMixedPrecisionLists()
         self._loss_scaling = float(init_loss_scaling)
+        self._incr_every_n_steps = int(incr_every_n_steps)
+        self._decr_every_n_nan_or_inf = int(decr_every_n_nan_or_inf)
+        self._incr_ratio = float(incr_ratio)
+        self._decr_ratio = float(decr_ratio)
         self._dtype = torch.bfloat16
 
     def get_loss_scaling(self):
         return self._loss_scaling
 
     def backward(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
+                 no_grad_set=None, callbacks=None):
+        """callbacks: the JAX package takes the argument and calls
+        nothing; the port refuses one rather than drop it unseen."""
+        if callbacks is not None:
+            raise NotImplementedError(
+                "backward(callbacks=...): gradient callbacks are not "
+                "ported")
         program = loss.block.program
         program._amp = {"dtype": self._dtype,
                         "black_ops": frozenset(self._amp_lists.black_list),
@@ -69,8 +84,12 @@ class OptimizerWithMixedPrecision:
 
 
 def decorate(optimizer, amp_lists=None, init_loss_scaling=1.0,
+             incr_every_n_steps=1000, decr_every_n_nan_or_inf=2,
+             incr_ratio=2.0, decr_ratio=0.8,
              use_dynamic_loss_scaling=False, dtype="bfloat16"):
-    """Wrap `optimizer` for bf16 mixed-precision training."""
-    return OptimizerWithMixedPrecision(optimizer, amp_lists,
-                                       init_loss_scaling,
-                                       use_dynamic_loss_scaling, dtype)
+    """Wrap `optimizer` for bf16 mixed-precision training (the JAX
+    package's arguments, in its order)."""
+    return OptimizerWithMixedPrecision(
+        optimizer, amp_lists, init_loss_scaling, use_dynamic_loss_scaling,
+        incr_every_n_steps, decr_every_n_nan_or_inf, incr_ratio,
+        decr_ratio, dtype)

@@ -26,6 +26,8 @@ import threading
 
 import torch
 
+from .selected_rows import is_selected_rows
+
 _state = threading.local()
 
 WHITE_OPS = frozenset({
@@ -111,27 +113,34 @@ def op_mode(op_type: str):
     return None
 
 
+def _to(value, dtype):
+    """value in `dtype`: a tensor, or a SelectedRows by its values."""
+    return value.astype(dtype) if is_selected_rows(value) \
+        else value.to(dtype)
+
+
 def cast_in(mode, value, follow: bool):
-    """The input-side policy for one value. `follow`: some float input of
-    this op already carries the amp dtype (gray ops)."""
+    """The input-side policy for one value (a tensor or a SelectedRows).
+    `follow`: some float input of this op already carries the amp dtype
+    (gray ops)."""
     dt = getattr(value, "dtype", None)
     if dt is None:
         return value
     if mode == "white":
         if dt == torch.float32:
-            return value.to(_st()["dtype"])
+            return _to(value, _st()["dtype"])
     elif mode == "gray":
         if follow and dt == torch.float32:
-            return value.to(_st()["dtype"])
+            return _to(value, _st()["dtype"])
     elif mode == "black":
         if dt in _REDUCED:
-            return value.float()
+            return _to(value, torch.float32)
     return value
 
 
 def cast_out(mode, value):
     if mode == "out_cast" and getattr(value, "dtype", None) == torch.float32:
-        return value.to(_st()["dtype"])
+        return _to(value, _st()["dtype"])
     return value
 
 

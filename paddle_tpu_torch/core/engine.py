@@ -32,6 +32,14 @@ scope Variables, the forward records, the steps (group spans) with each
 op's OpInfo and the names to free after each. Later runs of the key
 reuse it; Executor.run(use_program_cache=False) builds one for the run
 alone.
+
+Engine.run takes the reference's arguments: a Place (or a torch.device;
+None is default_place(), CUDAPlace(0)), block_idx 0 (sub-blocks are not
+ported) and `iterations`: K runs of the plan on the same feeds, each
+with its own run index, returning the fetches of the last. A feed that
+is already a torch tensor on the run's device is used as it is. Values
+in the env may be SelectedRows (core/selected_rows.py): the sparse
+gradients of lookup_table.
 """
 from __future__ import annotations
 
@@ -42,10 +50,12 @@ import torch
 
 from .amp import amp_guard
 from .enforce import EnforceNotMet, wrap_op_error
+from .place import Place, default_place
 from .registry import (OP_UID_ATTR, OPS, ExecContext, RunState,
                        grad_diff_slots, has_generic_grad,
                        run_forward_for_vjp)
 from .scope import Scope, tensor_to_numpy
+from .selected_rows import is_selected_rows
 from .types import dtype_to_torch
 
 
@@ -182,7 +192,34 @@ def _missing_error(missing):
 
 
 def _feed_signature(feed):
-    return tuple(sorted((n, a.shape, a.dtype.str) for n, a in feed.items()))
+    """(name, shape, dtype) of each feed, numpy arrays and torch tensors
+    alike."""
+    return tuple(sorted((n, tuple(a.shape), str(a.dtype))
+                        for n, a in feed.items()))
+
+
+def _device(place) -> torch.device:
+    """The torch device of a Place, a torch.device, or None (the default
+    place, CUDAPlace(0), which raises naming CPUPlace() where torch sees
+    no card)."""
+    if place is None:
+        place = default_place()
+    if isinstance(place, Place):
+        return place.torch_device()
+    if isinstance(place, torch.device):
+        return place
+    raise TypeError(f"place must be a Place (CPUPlace(), CUDAPlace(i)) or "
+                    f"a torch.device, got {type(place).__name__}")
+
+
+def _fetch_numpy(value):
+    """A fetch as return_numpy=True gives it. A SelectedRows comes back
+    as the JAX engine gives one: a 0-d object array holding it."""
+    if is_selected_rows(value):
+        out = np.empty((), dtype=object)
+        out[()] = value
+        return out
+    return tensor_to_numpy(value)
 
 
 class _Plan:
@@ -266,17 +303,53 @@ class Engine:
                 plans.pop(0)
         return plan
 
-    def run(self, program, scope: Scope, device: torch.device,
-            feed: Dict[str, np.ndarray], fetch_names: List[str],
-            return_numpy: bool = True, use_program_cache: bool = True):
-        """One run of the program's global block. use_program_cache=False
-        builds the plan for this run alone: it neither reuses one nor
-        keeps it."""
+    def run(self, program, scope: Scope, place, feed, fetch_names,
+            block_idx: int = 0, return_numpy: bool = True,
+            iterations: int = 1, use_program_cache: bool = True):
+        """Run the program's global block `iterations` times on the same
+        feeds (numpy arrays or torch tensors), each run with its own run
+        index (random ops draw anew), and return the fetches of the last
+        run. use_program_cache=False builds the plan for this call
+        alone: it neither reuses one nor keeps it."""
+        if block_idx != 0:
+            raise NotImplementedError(
+                f"block_idx={block_idx}: sub-blocks are not ported; the "
+                f"engine runs block 0")
+        iterations = int(iterations)
+        if iterations < 1:
+            raise ValueError(f"iterations must be at least 1, got "
+                             f"{iterations}")
+        device = _device(place)
         self.counters["runs"] += 1
         block = program.global_block()
         key = self._key(program, fetch_names) if use_program_cache \
             else None
         plan = self._plan(block, key, scope, device, feed, fetch_names)
+        feeds = {}
+        for name, arr in feed.items():
+            if isinstance(arr, torch.Tensor):
+                t = arr if arr.device == device else arr.to(device)
+            else:
+                t = torch.tensor(arr, device=device)
+            dt = plan.feed_dtypes.get(name)
+            if dt is not None and t.dtype != dt:
+                t = t.to(dt)                  # bf16 feeds
+            feeds[name] = t
+        for _ in range(iterations):
+            env = self._run_once(program, block, scope, device, plan, feeds)
+        results = []
+        for n in fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch target {n!r} was not computed by "
+                               f"the program")
+            results.append(_fetch_numpy(env[n]) if return_numpy
+                           else env[n])
+        return results
+
+    @staticmethod
+    def _run_once(program, block, scope, device, plan, feeds):
+        """One run of the plan: the persistables from the scope, the ops,
+        the persistables written back. Returns the env."""
         env: Dict[str, torch.Tensor] = {}
         missing = []
         for n, var in plan.in_vars:
@@ -289,12 +362,7 @@ class Engine:
                 env[n] = t
         if missing:
             raise _missing_error(missing)
-        for name, arr in feed.items():
-            t = torch.tensor(arr, device=device)
-            dt = plan.feed_dtypes.get(name)
-            if dt is not None and t.dtype != dt:
-                t = t.to(dt)                  # bf16 feeds
-            env[name] = t
+        env.update(feeds)
 
         run = RunState(program.random_seed, scope.next_run(program._uid),
                        plan.record_slots, plan.grad_uids)
@@ -312,11 +380,4 @@ class Engine:
             if old is not None and old.dtype != t.dtype:
                 t = t.to(old.dtype)   # params and optimizer state keep
             holder.set_tensor(t)      # their dtype (float32 under AMP)
-        results = []
-        for n in fetch_names:
-            if n not in env:
-                raise KeyError(f"fetch target {n!r} was not computed by "
-                               f"the program")
-            results.append(tensor_to_numpy(env[n]) if return_numpy
-                           else env[n])
-        return results
+        return env

@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/executor.py. Executor() with no place runs on
 CUDAPlace(0) and raises at once when no CUDA device is visible; pass
-CPUPlace() to run on the CPU.
+CPUPlace() to run on the CPU. A closed Executor (close()) raises on run.
 """
 from __future__ import annotations
 
@@ -33,6 +33,13 @@ class Executor:
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
         self._engine = Engine()
+        self._closed = False
+
+    def close(self):
+        """Close the Executor: its engine and the engine's plans go, and
+        a later run raises."""
+        self._closed = True
+        self._engine = Engine()
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
@@ -52,11 +59,13 @@ class Executor:
         this run alone and neither reuses nor keeps one: the reference's
         semantics for a program changed without a version bump."""
         del feed_var_name, fetch_var_name
+        if self._closed:
+            raise RuntimeError("Executor is closed")
         if program is None:
             program = framework.default_main_program()
         scope = scope or global_scope()
         fetch_names = [_to_name_str(f) for f in fetch_list or []]
-        return self._engine.run(program, scope, self.device,
+        return self._engine.run(program, scope, self.place,
                                 self._canonical_feed(feed, program),
                                 fetch_names, return_numpy=return_numpy,
                                 use_program_cache=use_program_cache)

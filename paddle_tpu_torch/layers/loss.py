@@ -1,10 +1,12 @@
 """Loss layers (counterpart of paddle_tpu/layers/loss.py: cross_entropy,
-softmax_with_cross_entropy and label_smoothed_softmax_xent)."""
+softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits and
+label_smoothed_softmax_xent)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits",
            "label_smoothed_softmax_xent"]
 
 
@@ -37,6 +39,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None, normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "sigmoid_cross_entropy_with_logits",
+        inputs={"X": x, "Label": label}, outputs={"Out": out},
+        attrs={"ignore_index": ignore_index, "normalize": normalize})
+    return out
 
 
 def label_smoothed_softmax_xent(logits, label, epsilon=0.1):

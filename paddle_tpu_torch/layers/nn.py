@@ -2,8 +2,9 @@
 Transformer training and inference call: fc, embedding, layer_norm,
 fused_attention, dropout, reshape, squeeze, reduce_sum,
 add_position_encoding, elementwise_*; matmul; those of LeNet:
-conv2d, pool2d, softmax, mean, top_k/topk; and those of ResNet:
-batch_norm, relu."""
+conv2d, pool2d, softmax, mean, top_k/topk; those of ResNet:
+batch_norm, relu; and those of the CTR models: flatten, concat,
+sigmoid, elementwise_sub."""
 from __future__ import annotations
 
 import copy
@@ -19,6 +20,7 @@ __all__ = [
     "dropout", "softmax", "mean", "top_k", "topk", "matmul", "reshape",
     "squeeze", "reduce_sum", "add_position_encoding", "elementwise_add",
     "elementwise_mul", "elementwise_div", "batch_norm", "relu",
+    "flatten", "concat", "sigmoid", "elementwise_sub",
 ]
 
 
@@ -203,6 +205,28 @@ def relu(x, name=None):
     return _single_op("relu", x, {})
 
 
+def sigmoid(x, name=None):
+    return _single_op("sigmoid", x, {})
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("flatten2", inputs={"X": x},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axis": axis})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
            name=None):
     helper = LayerHelper("matmul", name=name)
@@ -302,6 +326,10 @@ def _elementwise(op_type, x, y, axis=-1, name=None):
 
 def elementwise_add(x, y, axis=-1, name=None):
     return _elementwise("elementwise_add", x, y, axis, name)
+
+
+def elementwise_sub(x, y, axis=-1, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, name)
 
 
 def elementwise_mul(x, y, axis=-1, name=None):

@@ -1,4 +1,5 @@
-"""Activation ops (counterpart of paddle_tpu/ops/activations.py: relu)."""
+"""Activation ops (counterpart of paddle_tpu/ops/activations.py: relu and
+sigmoid)."""
 from __future__ import annotations
 
 import torch
@@ -9,3 +10,8 @@ from ..core.registry import register_op
 @register_op("relu")
 def relu(ctx):
     ctx.set_output("Out", torch.relu(ctx.input("X")))
+
+
+@register_op("sigmoid")
+def sigmoid(ctx):
+    ctx.set_output("Out", torch.sigmoid(ctx.input("X")))

@@ -1,13 +1,17 @@
-"""Tensor ops: fill_constant, sum, scale, reshape2, squeeze2, top_k,
-lookup_table and its dense grad (counterpart of paddle_tpu/ops/basic.py).
-The "2"-suffixed ops carry an XShape output, here a zero-size marker
-holding the input's shape."""
+"""Tensor ops: fill_constant, sum, scale, reshape2, squeeze2, flatten,
+flatten2, concat, top_k, lookup_table with its dense and SelectedRows
+grads, merge_selected_rows and get_tensor_from_selected_rows
+(counterpart of paddle_tpu/ops/basic.py). The "2"-suffixed ops carry an
+XShape output, here a zero-size marker holding the input's shape. sum
+and scale take SelectedRows too (core/selected_rows.py)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import (GRAD_SUFFIX, override_grad_lowering,
                              register_no_grad_op, register_op)
+from ..core.selected_rows import (SelectedRows, is_selected_rows,
+                                  maybe_to_dense)
 from ..core.types import dtype_to_torch
 
 
@@ -23,8 +27,17 @@ def fill_constant(ctx):
 @register_op("sum")
 def sum_op(ctx):
     """Elementwise sum of the X inputs, added left to right (gray under
-    AMP: bf16 when any input is)."""
+    AMP: bf16 when any input is). SelectedRows inputs, all of them,
+    give their rows and values concatenated (the optimizer merges the
+    duplicates); mixed with dense inputs they are made dense."""
     xs = ctx.inputs("X")
+    if any(is_selected_rows(x) for x in xs):
+        if all(is_selected_rows(x) for x in xs):
+            ctx.set_output("Out", SelectedRows(
+                torch.cat([x.rows for x in xs]),
+                torch.cat([x.values for x in xs]), xs[0].height))
+            return
+        xs = [maybe_to_dense(x) for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -36,6 +49,13 @@ def scale(ctx):
     x = ctx.input("X")
     s = ctx.attr("scale", 1.0)
     b = ctx.attr("bias", 0.0)
+    if is_selected_rows(x):
+        # a bias on the rows that are absent would make it dense
+        if b != 0.0:
+            raise ValueError("scale with a bias is not defined for a "
+                             "SelectedRows input")
+        ctx.set_output("Out", x.map_values(lambda v: (v * s).to(v.dtype)))
+        return
     if ctx.attr("bias_after_scale", True):
         out = x * s + b
     else:
@@ -84,6 +104,29 @@ def squeeze2(ctx):
     _xshape(ctx, x)
 
 
+@register_op("flatten")
+def flatten(ctx):
+    """X as a matrix: the dims before `axis` make the rows."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", 1)
+    lead = 1
+    for d in x.shape[:axis]:
+        lead *= d
+    ctx.set_output("Out", x.reshape(lead, -1))
+
+
+@register_op("flatten2")
+def flatten2(ctx):
+    flatten(ctx)
+    _xshape(ctx, ctx.input("X"))
+
+
+@register_op("concat")
+def concat(ctx):
+    ctx.set_output("Out", torch.cat(ctx.inputs("X"),
+                                    dim=ctx.attr("axis", 0)))
+
+
 @register_no_grad_op("top_k")
 def top_k(ctx):
     """The k largest values of the last axis, in descending order, and
@@ -115,17 +158,17 @@ def lookup_table(ctx):
 
 @override_grad_lowering("lookup_table")
 def lookup_table_grad(ctx):
-    """Dense W@GRAD: the output cotangent's rows added into a zero table
-    at their ids (index_add_), in W's dtype; rows looked up at
+    """W@GRAD in W's dtype. Dense: the output cotangent's rows added into
+    a zero table at their ids (index_add_); rows looked up at
     padding_idx add nothing, as the forward zeroed them. The JAX package
     takes the generic vjp of its gather here, which is the same
     scatter-add. Duplicate ids add in an order that atomics leave open
     on the card, so the last bits of such rows may differ run to run.
-    The sparse (SelectedRows) branch is not ported."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table is_sparse=True (SelectedRows gradient) is not "
-            "ported")
+    is_sparse=True: a SelectedRows whose rows are the looked-up ids and
+    whose values are the cotangent's slices, each padding_idx slot
+    parked at the table's height; the dense table is never built. A
+    missing cotangent gives the dense zero table in both modes, as in
+    the JAX package."""
     out_names = ctx.op.output("W" + GRAD_SUFFIX)
     if not (out_names and out_names[0]):
         return
@@ -133,11 +176,38 @@ def lookup_table_grad(ctx):
     ids = _ids(ctx.env[ctx.op.input("Ids")[0]]).reshape(-1)
     g_names = ctx.op.input("Out" + GRAD_SUFFIX)
     g = ctx.env.get(g_names[0]) if g_names and g_names[0] else None
+    padding_idx = ctx.attr("padding_idx", -1)
+    padded = padding_idx is not None and padding_idx >= 0
+    if g is not None and ctx.attr("is_sparse", False):
+        values = g.reshape((ids.shape[0],) + tuple(w.shape[1:])).to(w.dtype)
+        rows = ids.masked_fill(ids == padding_idx, w.shape[0]) if padded \
+            else ids
+        ctx.env[out_names[0]] = SelectedRows(rows, values, w.shape[0])
+        return
     dw = torch.zeros_like(w)
     if g is not None:
         g = g.reshape(ids.shape[0], -1).to(w.dtype)
-        padding_idx = ctx.attr("padding_idx", -1)
-        if padding_idx is not None and padding_idx >= 0:
+        if padded:
             g = g.masked_fill((ids == padding_idx)[:, None], 0)
         dw.index_add_(0, ids, g)
     ctx.env[out_names[0]] = dw
+
+
+@register_no_grad_op("merge_selected_rows")
+def merge_selected_rows(ctx):
+    """Duplicate rows summed into one slot each (core/selected_rows.py
+    merge_rows)."""
+    x = ctx.input("X")
+    if not is_selected_rows(x):
+        raise TypeError("merge_selected_rows needs a SelectedRows input")
+    ctx.set_output("Out", x.merged())
+
+
+@register_no_grad_op("get_tensor_from_selected_rows")
+def get_tensor_from_selected_rows(ctx):
+    """The values tensor of a SelectedRows."""
+    x = ctx.input("X")
+    if not is_selected_rows(x):
+        raise TypeError("get_tensor_from_selected_rows needs a "
+                        "SelectedRows input")
+    ctx.set_output("Out", x.values)

@@ -35,5 +35,6 @@ def _binary(op_type, fn):
 
 
 _binary("elementwise_add", torch.add)
+_binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
 _binary("elementwise_div", torch.div)

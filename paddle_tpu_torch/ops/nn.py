@@ -1,8 +1,9 @@
 """Dense NN ops: softmax, cross_entropy, softmax_with_cross_entropy,
-layer_norm, batch_norm, add_position_encoding,
-label_smoothed_softmax_xent with its hand-written grad, and dropout
-(counterpart of paddle_tpu/ops/nn.py). softmax, cross_entropy and
-softmax_with_cross_entropy take the generic gradient. layer_norm,
+sigmoid_cross_entropy_with_logits, layer_norm, batch_norm,
+add_position_encoding, label_smoothed_softmax_xent with its
+hand-written grad, and dropout (counterpart of paddle_tpu/ops/nn.py).
+softmax, cross_entropy, softmax_with_cross_entropy and
+sigmoid_cross_entropy_with_logits take the generic gradient. layer_norm,
 batch_norm and dropout take the generic gradient (the vector-Jacobian
 product of the lowering): the two norms keep their statistics in float32
 under bf16, batch_norm's running statistics move once a step (the
@@ -73,6 +74,24 @@ def softmax_with_cross_entropy(ctx):
         loss = torch.where(keep, loss, torch.zeros_like(loss))
     ctx.set_output("Softmax", torch.exp(log_p))
     ctx.set_output("Loss", loss)
+
+
+@register_op("sigmoid_cross_entropy_with_logits",
+             no_grad_slots=("Label",))
+def sigmoid_cross_entropy_with_logits(ctx):
+    """max(x, 0) - x*label + log1p(exp(-|x|)) elementwise, 0 where the
+    label is ignore_index; with normalize, divided by the count of the
+    other labels (at least 1). The JAX op's formula, operation for
+    operation (torch.maximum splits the gradient of a tie as
+    jnp.maximum does)."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    loss = torch.maximum(x, x.new_zeros(())) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    mask = label != ctx.attr("ignore_index", -100)
+    loss = torch.where(mask, loss, 0.0)
+    if ctx.attr("normalize", False):
+        loss = loss / torch.clamp_min(mask.to(x.dtype).sum(), 1.0)
+    ctx.set_output("Out", loss)
 
 
 @register_op("batch_norm", no_grad_slots=("Mean", "Variance"))

@@ -1,8 +1,8 @@
 """Optimizers: minimize() = append_backward + one update op per parameter.
 
 Counterpart of paddle_tpu/optimizer.py (Optimizer, SGDOptimizer,
-MomentumOptimizer and AdamOptimizer; the other rules are not ported
-yet). The learning rate is
+MomentumOptimizer, AdagradOptimizer and AdamOptimizer; the other rules
+are not ported yet). The learning rate is
 a persistable global var; accumulators are persistable vars initialized
 by fill ops in the startup program; every op of the optimize phase (clip,
 regularization, update) carries op_role "optimize". Update ops bind
@@ -23,7 +23,8 @@ from .layers import tensor as _tensor
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+           "MomentumOptimizer", "Adagrad", "AdagradOptimizer", "Adam",
+           "AdamOptimizer"]
 
 
 class Optimizer:
@@ -173,6 +174,32 @@ class MomentumOptimizer(Optimizer):
             infer_shape=False)
 
 
+class AdagradOptimizer(Optimizer):
+    """One moment accumulator a parameter, filled with
+    initial_accumulator_value; the adagrad op's attr epsilon."""
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p, fill_value=self._initial)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": p, "Grad": g, "Moment": m,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "MomentOut": m},
+            attrs={"epsilon": self._epsilon}, infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -208,4 +235,5 @@ class AdamOptimizer(Optimizer):
 
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

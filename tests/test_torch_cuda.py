@@ -12,9 +12,14 @@ dropout_residual ones among them), a tiny
 Transformer forward on the card against the same Program on the CPU
 (float32 and int8 mode), three training steps of it, LeNet's SGD
 step with its updates in the kernel against the same step with them
-plain, one bf16 AMP step of ResNet-50 at 224x224, and training steps of
+plain, one bf16 AMP step of ResNet-50 at 224x224, training steps of
 LeNet and the tiny Transformer with and without the engine's plan cache
-(bit-equal). They skip where torch sees no CUDA device.
+(bit-equal), the sparse (SelectedRows) update of sgd, momentum, adagrad
+and adam against the same update on the CPU (with no host sync, and
+parked slots, padding_idx rows and merge slack, touching no row and
+firing no device assert), and Wide&Deep at vocab 1001 with dense and
+with sparse embedding gradients. They skip where torch sees no CUDA
+device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -31,7 +36,15 @@ meets against the exact gradients (flash_attention.bf16_backward_bound:
 2^-12 of the magnitudes of the float32 dot products); bf16 gradients at
 head dims above 256 are held to both. Adam: 0 units in the last place
 (ADAM_ULP: each operation rounds once in both, in the same order);
-SGD: 0 ulp (the same two roundings, lr*g and the difference).
+SGD: 0 ulp (the same two roundings, lr*g and the difference). Sparse
+updates against the CPU: SPARSE_TOL (duplicate rows summed in another
+order by the card's atomics; the CPU's vectorized sqrt is 1 ulp off in
+places). A row looked up k = 2048 times is summed in an order the
+atomics leave open: the merged slices to 2 k 2^-24 of the sum of the
+magnitudes added (the worst case of two summation orders), sgd's
+parameter row likewise over |p| and lr times the slices; the other
+updates are then held to SPARSE_TOL on the merged gradient. Wide&Deep
+sparse against dense: see CTR_TINY_G.
 quantized_matmul int8: bit-equal (exact integer tile sums, the same two
 roundings a tile); bf16 and the tuned float32 GEMMs: GEMM_RTOL relative
 in the norm (float32 sums in another order).
@@ -53,6 +66,13 @@ BWD_F32_TOL = 1e-4
 BF16_TOL = 2e-2
 ADAM_ULP = 0
 GEMM_RTOL = 1e-5
+SPARSE_TOL = 1e-6
+# Wide&Deep, sparse against dense after 3 steps, elementwise RTOL/ATOL
+# 1e-5 but where every gradient an element saw stayed below CTR_TINY_G:
+# Adagrad's lr*g/(|g| + 1e-6) magnifies the rounding of such a cancelling
+# gradient, and those are held to CTR_TINY_G_ATOL (as
+# tests/test_torch_ctr.py holds the port to the JAX package)
+CTR_TINY_G, CTR_TINY_G_ATOL = 1e-4, 1e-4
 
 
 @pytest.fixture
@@ -1252,3 +1272,228 @@ def test_plan_cache_steps_bit_equal_on_card(cuda, monkeypatch, model):
     assert sa.keys() == sb.keys()
     for n in sa:
         assert torch.equal(sa[n], sb[n]), n
+
+
+# ---------------------------------------------------------------------------
+# SelectedRows: the sparse updates and Wide&Deep
+# ---------------------------------------------------------------------------
+
+class _OptOp:
+    """An optimizer op's view: slot -> the slot's name in lower case."""
+
+    def __init__(self, type, inputs, outputs, attrs):
+        self.type = type
+        self._inputs = {s: [s.lower()] for s in inputs}
+        self._outputs = {s: [s[:-3].lower()] for s in outputs}
+        self._attrs = attrs
+
+    def input(self, slot):
+        return self._inputs.get(slot, [])
+
+    def output(self, slot):
+        return self._outputs.get(slot, [])
+
+    def input_slots(self):
+        return list(self._inputs)
+
+    def attr(self, name, default=None):
+        return self._attrs.get(name, default)
+
+
+_SPARSE_OPTS = {
+    "sgd": ({}, []),
+    "momentum": ({"mu": 0.9, "use_nesterov": False}, ["Velocity"]),
+    "momentum_nesterov": ({"mu": 0.9, "use_nesterov": True}, ["Velocity"]),
+    "adagrad": ({"epsilon": 1e-6}, ["Moment"]),
+    "adam": ({"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+             ["Moment1", "Moment2", "Beta1Pow", "Beta2Pow"]),
+}
+
+
+def _sparse_update(name, dev, height, rows, values, seed=0):
+    """One sparse update of optimizer `name` on `dev` from seeded state;
+    the card's runs under sync debug mode "error". Returns the state
+    before and after, on the CPU."""
+    from paddle_tpu_torch.core.registry import ExecContext, OPS
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    attrs, state = _SPARSE_OPTS[name]
+    rng = np.random.default_rng(seed)
+    d = values.shape[1]
+    ins = {"Param": rng.standard_normal((height, d)).astype(np.float32),
+           "LearningRate": np.array([0.05], np.float32)}
+    for s in state:
+        ins[s] = np.array([0.9 ** 3 if s == "Beta1Pow" else 0.999 ** 3],
+                          np.float32) if s.endswith("Pow") \
+            else np.abs(rng.standard_normal((height, d))).astype(np.float32)
+    outs = [s + "Out" for s in ins if s != "LearningRate"]
+    op = _OptOp(name.split("_")[0], list(ins) + ["Grad"], outs, attrs)
+    env = {s.lower(): torch.from_numpy(a.copy()).to(dev)
+           for s, a in ins.items()}
+    env["grad"] = SelectedRows(torch.from_numpy(rows).to(dev),
+                               torch.from_numpy(values).to(dev), height)
+    before = {k: v.cpu().clone() for k, v in env.items() if k != "grad"}
+    lowering = OPS.get(op.type).lowering
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lowering(ExecContext(op, env, dev))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()            # a device assert raises here
+    else:
+        lowering(ExecContext(op, env, dev))
+    return before, {k: v.cpu() for k, v in env.items() if k != "grad"}
+
+
+def _sparse_grad(height, n, d, seed, padding_idx=None, all_parked=False,
+                 heavy=False):
+    """rows and values of a sparse gradient: n slots over the first
+    height - 10 rows (rows height-10.. never looked up), padding_idx
+    slots parked at height; heavy: a quarter of the slots on one row."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, height - 10, n)
+    if heavy:
+        rows[: n // 4] = rows[n // 4]
+    if padding_idx is not None:
+        rows[rng.random(n) < 0.2] = padding_idx
+        rows = np.where(rows == padding_idx, height, rows)
+    if all_parked:
+        rows[:] = height
+    return rows.astype(np.int64), rng.standard_normal((n, d)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(_SPARSE_OPTS))
+@pytest.mark.parametrize("height,n", [
+    (12, 20),                     # every row looked up ~8 times
+    (1000001, 106496)])           # the CTR batch's ids into its table
+def test_sparse_update_matches_cpu_on_card(cuda, name, height, n):
+    rows, values = _sparse_grad(height, n, 16, seed=height,
+                                padding_idx=3)
+    _, want = _sparse_update(name, torch.device("cpu"), height, rows,
+                             values)
+    before, got = _sparse_update(name, cuda, height, rows, values)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=SPARSE_TOL, atol=SPARSE_TOL,
+                                   err_msg=k)
+        if got[k].shape[0] == height:
+            # the padding row and the rows never looked up: untouched
+            for r in [3] + list(range(height - 10, height)):
+                assert torch.equal(got[k][r], before[k][r]), (k, r)
+
+
+def _sum_bound(rows, mags, height):
+    """Per row, 2 k 2^-24 times the sum of the magnitudes added into it
+    (k of them): how far two orders of a float32 sum can part."""
+    k = np.bincount(rows, minlength=height + 1)[:height, None]
+    total = np.zeros((height, mags.shape[1]))
+    live = rows < height
+    np.add.at(total, rows[live], mags[live])
+    return 2.0 * k * 2.0 ** -24 * total
+
+
+@pytest.mark.parametrize("name", sorted(_SPARSE_OPTS))
+def test_heavy_duplicates_on_card(cuda, name):
+    """A quarter of 8192 slots on one row of 50000: the card's merge
+    against the CPU's within the summation bound; sgd (no merge) within
+    it over the parameter; the merged update from the CPU's merged
+    gradient within SPARSE_TOL."""
+    from paddle_tpu_torch.core.selected_rows import merge_rows
+    height = 50000
+    rows, values = _sparse_grad(height, 8192, 16, seed=5, padding_idx=3,
+                                heavy=True)
+    r, v = merge_rows(torch.from_numpy(rows), torch.from_numpy(values),
+                      height)
+    rc, vc = merge_rows(torch.from_numpy(rows).to(cuda),
+                        torch.from_numpy(values).to(cuda), height)
+    assert torch.equal(rc.cpu(), r)
+    live = (r < height).numpy()
+    bound = _sum_bound(rows, np.abs(values), height)[r.numpy()[live]]
+    assert (np.abs(vc.cpu().numpy()[live] - v.numpy()[live])
+            <= bound + SPARSE_TOL).all()
+    if name == "sgd":
+        before, got = _sparse_update(name, cuda, height, rows, values)
+        _, want = _sparse_update(name, torch.device("cpu"), height, rows,
+                                 values)
+        p0 = before["param"].numpy()
+        bound = _sum_bound(rows, 0.05 * np.abs(values), height) + \
+            2.0 * np.bincount(rows, minlength=height + 1)[:height, None] \
+            * 2.0 ** -24 * np.abs(p0)
+        assert (np.abs(got["param"].numpy() - want["param"].numpy())
+                <= bound + SPARSE_TOL).all()
+        return
+    # the merged gradient has no duplicates: its update is order-free
+    rows, values = r.numpy(), v.numpy()
+    _, want = _sparse_update(name, torch.device("cpu"), height, rows,
+                             values)
+    _, got = _sparse_update(name, cuda, height, rows, values)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=SPARSE_TOL, atol=SPARSE_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(_SPARSE_OPTS))
+def test_all_parked_sparse_update_changes_nothing_on_card(cuda, name):
+    rows, values = _sparse_grad(1000, 64, 16, seed=1, all_parked=True)
+    before, got = _sparse_update(name, cuda, 1000, rows, values)
+    for k in got:
+        if got[k].shape[0] == 1000:
+            assert torch.equal(got[k], before[k]), k
+
+
+def _wide_deep(is_sparse):
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    L = pt.layers
+    with pt.program_guard(main, startup):
+        slots = L.data("slot_ids", [-1, 26], append_batch_size=False,
+                       dtype="int32")
+        dense = L.data("dense_feat", [-1, 13], append_batch_size=False,
+                       dtype="float32")
+        label = L.data("ctr_label", [-1, 1], append_batch_size=False,
+                       dtype="float32")
+        logit = pt.models.wide_deep.wide_deep(slots, dense, 1001, 16,
+                                              is_sparse=is_sparse)
+        cost = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+        pt.optimizer.AdagradOptimizer(0.01).minimize(cost)
+    main.random_seed = startup.random_seed = 5
+    return main, startup, cost
+
+
+def test_wide_deep_sparse_step_matches_dense_on_card(cuda):
+    """3 Adagrad steps of Wide&Deep at vocab 1001, B=64 with is_sparse
+    True and False from the same parameters on the card, and the dense
+    steps against the same steps on the CPU."""
+    r = np.random.RandomState(0)
+    feed = {"slot_ids": r.randint(0, 1001, (64, 26)).astype(np.int32),
+            "dense_feat": r.rand(64, 13).astype(np.float32),
+            "ctr_label": r.randint(0, 2, (64, 1)).astype(np.float32)}
+    main, startup, _ = _wide_deep(False)
+    scope0 = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope0)
+    init = {n: np.asarray(scope0.find_var(n).get_tensor())
+            for n in scope0._vars}
+    out = {}
+    for label, is_sparse, place in (("dense", False, pt.CUDAPlace(0)),
+                                    ("sparse", True, pt.CUDAPlace(0)),
+                                    ("cpu", False, pt.CPUPlace())):
+        main, _, cost = _wide_deep(is_sparse)
+        scope = pt.Scope()
+        load_params_from_numpy(scope, init, place)
+        exe = pt.Executor(place)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scope)[0]) for _ in range(3)]
+        out[label] = losses, {n: np.asarray(scope.find_var(n).get_tensor())
+                              for n in init}
+    for label in ("sparse", "cpu"):
+        losses, state = out[label]
+        np.testing.assert_allclose(losses, out["dense"][0], rtol=1e-5,
+                                   atol=1e-5, err_msg=label)
+        for n, d in out["dense"][1].items():
+            m = out["dense"][1].get(n + "_moment_0")
+            atol = 1e-5 if m is None else \
+                np.where(m < CTR_TINY_G ** 2, CTR_TINY_G_ATOL, 1e-5)
+            assert (np.abs(state[n] - d) <= atol + 1e-5 * np.abs(d)).all(), \
+                (label, n)

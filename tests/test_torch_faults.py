@@ -17,6 +17,18 @@ signature.
 * Executor.run takes feed_var_name, fetch_var_name, return_numpy and
   use_program_cache with the reference's defaults: one fluid script with
   all four runs through both packages.
+* Engine.run takes the reference's (program, scope, place, feed,
+  fetch_names, block_idx, return_numpy, iterations, use_program_cache):
+  a Place positionally and by keyword, place=None as CUDAPlace(0)
+  (raising as Executor() does where torch sees no card), block_idx 0
+  only, a torch tensor feed used as it is, and iterations=3 equal to
+  three single runs and to the JAX engine's iterations=3.
+* decorate and OptimizerWithMixedPrecision take the JAX package's nine
+  arguments in its order: its positional call with incr_every_n_steps,
+  and incr_ratio by keyword, build and train a step in both packages;
+  backward(callbacks=...) is refused by name.
+* A closed Executor raises on run in both packages, and close drops the
+  port's plans.
 
 Tolerance: float32 1e-5 relative and absolute (float32 sums in another
 order), as the port's other attention tests.
@@ -31,11 +43,13 @@ import jax.numpy as jnp
 
 import paddle_tpu as fluid
 from paddle_tpu.core import flags as jflags
+from paddle_tpu.core.engine import Engine as JaxEngine
 from paddle_tpu.core.scope import Scope as JaxScope
 from paddle_tpu.kernels import registry as jkreg
 from paddle_tpu.models import transformer as jax_transformer
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.core.engine import Engine as PtEngine
 from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.kernels import flash_attention as pfa
@@ -359,3 +373,165 @@ def test_executor_run_takes_the_reference_arguments():
     loss_j, = jexe.run(jmain, feed, [jloss], "feed", "fetch", jscope)
     np.testing.assert_allclose(loss_p, np.asarray(loss_j), rtol=RTOL,
                                atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# Engine.run's signature, decorate's arguments, Executor.close
+# ---------------------------------------------------------------------------
+
+def _feed(seed=4):
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((6, 8)).astype(np.float32),
+            "y": rng.integers(0, 4, (6, 1)).astype(np.int64)}
+
+
+def _both_scripts():
+    """The fluid script in both packages from the JAX package's
+    initialization: (jax main, scope, loss), (port main, scope, loss)."""
+    jmain, jstartup, _, jloss = _script(fluid, fluid.layers)
+    jscope = JaxScope()
+    fluid.Executor(fluid.CPUPlace()).run(jstartup, scope=jscope)
+    params = {p.name: np.asarray(jscope.find_var(p.name).get_tensor())
+              for p in jmain.all_parameters()}
+    pmain, pstartup, _, ploss = _script(pt, pt.layers)
+    pscope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(pstartup, scope=pscope)
+    load_params_from_numpy(pscope, params, pt.CPUPlace())
+    return (jmain, jscope, jloss), (pmain, pscope, ploss)
+
+
+def _params(prog, scope):
+    return {p.name: np.asarray(scope.find_var(p.name).get_tensor())
+            for p in prog.all_parameters()}
+
+
+def test_engine_run_takes_the_reference_arguments():
+    _, (main, scope, loss) = _both_scripts()
+    eng, feed, cpu = PtEngine(), _feed(), pt.CPUPlace()
+    # positionally, block_idx in sixth place
+    a, = eng.run(main, scope, cpu, feed, [loss.name], 0, True, 1, True)
+    b, = eng.run(program=main, scope=scope, place=cpu, feed=feed,
+                 fetch_names=[loss.name], block_idx=0, return_numpy=True,
+                 iterations=1, use_program_cache=True)
+    c, = eng.run(main, scope, torch.device("cpu"), feed, [loss.name])
+    assert all(isinstance(v, np.ndarray) and np.isfinite(v)
+               for v in (a, b, c))
+    assert len({float(a), float(b), float(c)}) == 3   # SGD steps
+    with pytest.raises(NotImplementedError, match="sub-blocks"):
+        eng.run(main, scope, cpu, feed, [loss.name], 1)
+    with pytest.raises(TypeError, match="Place"):
+        eng.run(main, scope, "cpu", feed, [loss.name])
+    # a torch tensor on the run's device is the feed itself
+    x = torch.from_numpy(feed["x"])
+    got, = eng.run(main, scope, cpu, dict(feed, x=x), ["x"],
+                   return_numpy=False)
+    assert got is x
+
+
+def test_engine_run_place_none_is_cuda_place_0(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, (main, scope, loss) = _both_scripts()
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)") as eng_err:
+        PtEngine().run(main, scope, None, _feed(), [loss.name])
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)") as exe_err:
+        pt.Executor()
+    assert str(eng_err.value) == str(exe_err.value)
+
+
+def test_iterations_run_the_plan_k_times_in_both_packages():
+    """iterations=3: three SGD steps on one feed, the last step's loss
+    fetched; equal to three single runs in the port (bit for bit, the
+    same ops) and to the JAX engine's iterations=3 (RTOL/ATOL)."""
+    (jmain, jscope, jloss), (pmain, pscope, ploss) = _both_scripts()
+    _, (smain, sscope, sloss) = _both_scripts()
+    feed = _feed()
+    jl, = JaxEngine().run(jmain, jscope, fluid.CPUPlace(), feed,
+                          [jloss.name], iterations=3)
+    eng = PtEngine()
+    pl, = eng.run(pmain, pscope, pt.CPUPlace(), feed, [ploss.name],
+                  iterations=3)
+    assert eng.counters["runs"] == 1 and eng.counters["traces"] == 1
+    single = PtEngine()
+    for _ in range(3):
+        sl, = single.run(smain, sscope, pt.CPUPlace(), feed, [sloss.name])
+    assert float(pl) == float(sl)
+    np.testing.assert_allclose(pl, np.asarray(jl), rtol=RTOL, atol=ATOL)
+    pp, sp, jp = (_params(pmain, pscope), _params(smain, sscope),
+                  _params(jmain, jscope))
+    for n in jp:
+        np.testing.assert_array_equal(pp[n], sp[n], err_msg=n)
+        np.testing.assert_allclose(pp[n], jp[n], rtol=RTOL, atol=ATOL,
+                                   err_msg=n)
+    with pytest.raises(ValueError, match="iterations"):
+        eng.run(pmain, pscope, pt.CPUPlace(), feed, [ploss.name],
+                iterations=0)
+
+
+def _amp_script(pkg, wrap):
+    """The fluid script with SGD under `wrap(optimizer)`."""
+    pkg.framework.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        x = pkg.layers.data(name="x", shape=[8], dtype="float32")
+        y = pkg.layers.data(name="y", shape=[1], dtype="int64")
+        pred = pkg.layers.fc(pkg.layers.fc(x, 16, act="relu"), 4,
+                             act="softmax")
+        loss = pkg.layers.mean(pkg.layers.cross_entropy(pred, y))
+        opt = wrap(pkg.contrib.mixed_precision,
+                   pkg.optimizer.SGD(learning_rate=0.05))
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = 3
+    return main, startup, loss, opt
+
+
+_KNOBS = ("_loss_scaling", "_incr_every_n_steps",
+          "_decr_every_n_nan_or_inf", "_incr_ratio", "_decr_ratio")
+
+
+@pytest.mark.parametrize("call", ["positional", "keyword", "class"])
+def test_decorate_takes_the_reference_arguments(call):
+    import paddle_tpu.contrib.mixed_precision  # noqa: F401
+    wrap = {
+        # the reference's order: amp_lists, init_loss_scaling,
+        # incr_every_n_steps, decr_every_n_nan_or_inf, incr_ratio,
+        # decr_ratio, use_dynamic_loss_scaling, dtype
+        "positional": lambda mp, o: mp.decorate(o, None, 1.0, 500, 3,
+                                                 2.5, 0.5, False,
+                                                 "bfloat16"),
+        "keyword": lambda mp, o: mp.decorate(o, incr_ratio=2.0),
+        "class": lambda mp, o: mp.OptimizerWithMixedPrecision(
+            o, None, 1.0, False, 700, 4, 3.0, 0.25, "bfloat16"),
+    }[call]
+    losses, knobs = [], []
+    for pkg, Scope in ((fluid, JaxScope), (pt, pt.Scope)):
+        main, startup, loss, opt = _amp_script(pkg, wrap)
+        scope = Scope()
+        exe = pkg.Executor(pkg.CPUPlace())
+        exe.run(startup, scope=scope)
+        out, = exe.run(main, feed=_feed(), fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(out)))
+        knobs.append([getattr(opt, k) for k in _KNOBS])
+        assert main._amp is not None
+    assert all(np.isfinite(losses))
+    assert knobs[0] == knobs[1]
+
+
+def test_decorate_backward_refuses_callbacks():
+    main, _, loss, opt = _amp_script(
+        pt, lambda mp, o: mp.decorate(o))
+    with pytest.raises(NotImplementedError, match="callbacks"):
+        opt.backward(loss, callbacks=[lambda *a: None])
+
+
+def test_closed_executor_raises_as_the_jax_one():
+    _, (main, scope, loss) = _both_scripts()
+    jexe = fluid.Executor(fluid.CPUPlace())
+    pexe = pt.Executor(pt.CPUPlace())
+    pexe.run(main, feed=_feed(), fetch_list=[loss], scope=scope)
+    assert pexe._engine._plans and pexe._engine.counters["runs"] == 1
+    for exe in (jexe, pexe):
+        exe.close()
+    assert not pexe._engine._plans and pexe._engine.counters["runs"] == 0
+    for exe, prog in ((jexe, fluid.Program()), (pexe, main)):
+        with pytest.raises(RuntimeError, match="Executor is closed"):
+            exe.run(prog, feed=_feed(), fetch_list=[], scope=scope)

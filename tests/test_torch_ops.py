@@ -205,14 +205,19 @@ def test_every_slice_op_type_is_covered():
     """Every forward op type the port registers has a case here, except
     the ones held elsewhere (see the module docstring; the ops of LeNet
     and SGD are held in test_torch_lenet.py, those of ResNet and Momentum
-    in test_torch_resnet.py)."""
+    in test_torch_resnet.py, those of the CTR models and Adagrad in
+    test_torch_ctr.py)."""
     forward = {t for t in PT_OPS.types() if not PT_OPS.get(t).is_grad_op}
     lenet = {"conv2d", "depthwise_conv2d", "pool2d", "softmax",
              "cross_entropy", "mean", "top_k", "accuracy", "uniform_random",
              "sgd"}
     resnet = {"batch_norm", "softmax_with_cross_entropy", "momentum"}
+    ctr = {"flatten", "flatten2", "concat", "sigmoid",
+           "sigmoid_cross_entropy_with_logits", "elementwise_sub",
+           "adagrad", "merge_selected_rows",
+           "get_tensor_from_selected_rows"}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
-        lenet | resnet == forward
+        lenet | resnet | ctr == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
