@@ -99,7 +99,26 @@
    duplicate ids through the sparse update of SGD, Momentum, Adagrad
    and Adam: no device-side assert, no host sync, the padding row and
    the rows never looked up unchanged.
-9. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+9. Dygraph phase (BASELINE config 5, bench.py's bench_dygraph): the
+   dygraph ResNet-50 (dygraph_resnet: bottleneck [3, 4, 6, 3], NCHW,
+   1000 classes) built under dygraph.guard(CUDAPlace(0)) and trained
+   with MomentumOptimizer(0.1, 0.9) under dygraph.jit.capture(amp=True)
+   at B=128, 224x224 on RandomState(0)'s batch on the card. Discovery
+   (the step on meta tensors) must create the parameters an eager build
+   from the same seed draws and move no statistic or velocity; each of
+   10 calls must be one CUDA-graph replay (the capture under sync debug
+   mode "error": no host sync in the step), no kernel of the port
+   captured, the master parameters float32, the loss finite and falling
+   below its first value. Prints images/s over the bench's windows of 10
+   and 20 steps, the host ms of a captured call, the busy share and top
+   kernels of a profiled replay and peak memory; eager and captured
+   steps in turns (images/s, host ms); 5 captured and 5 eager steps from
+   one state in deterministic mode, bit-equal; the first float32 loss
+   at B=8 against graph-mode ResNet-50 (models/resnet.py) on the same
+   parameters, mapped by creation order; and 2 eager Adam steps in
+   float32 at B=32, one fused_adam launch a step, bit-equal to the same
+   steps under plain_reference().
+10. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -112,7 +131,8 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-10. Prints one JSON line of per-kernel numbers, then, last, the device
+11. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+   the training phase's and the dygraph phase's), then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
@@ -231,6 +251,21 @@ RN_AMP_LOSS_RTOL = 2e-2
 RN_NHWC_RTOL = 1e-4
 # the plan cache A/B: turns of each mode and steps a turn
 AB_TURNS, AB_STEPS = 4, 3
+# dygraph (BASELINE config 5, bench.py's bench_dygraph): the captured
+# ResNet-50 at B=128 under bf16 AMP, DY_STEPS steps, then the bench's
+# windows of 10 and 20 steps; eager against captured in DY_TURNS turns of
+# DY_TURN_STEPS steps each; the two compared bit for bit over
+# DY_CMP_STEPS steps from one initial state in deterministic mode (the
+# same kernels in the same order: the graph replays the kernels its
+# capture launched, so the bound is 0)
+DY_B, DY_STEPS, DY_TURNS, DY_TURN_STEPS, DY_CMP_STEPS = 128, 10, 3, 3, 5
+# dygraph against graph-mode ResNet-50: the first loss in float32 at
+# B=8, relative (the same lowerings on the same parameters and batch in
+# deterministic mode: measured equal, held to float32 sums in another
+# order)
+DY_GRAPH_B, DY_GRAPH_RTOL = 8, 1e-5
+# eager dygraph Adam through the fused_adam kernel: B=32, 2 steps
+DY_ADAM_B, DY_ADAM_STEPS, DY_ADAM_LR = 32, 2, 1e-3
 # CTR (BASELINE config 4): bench.py's bench_ctr (ctr_train(vocab_size=
 # 1000001), AdagradOptimizer(0.01), B=4096, 26 slots, 13 dense features)
 CTR_B, CTR_VOCAB, CTR_SLOTS, CTR_DENSE = 4096, 1000001, 26, 13
@@ -2942,6 +2977,426 @@ def mnist_phase(torch, dev, card):
     return sgd_launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# dygraph (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+def dygraph_resnet(fluid, stages=(3, 4, 6, 3), width=64, class_dim=1000):
+    """bench.py's dygraph ResNet-50 (_DyBottleneck and _dygraph_resnet50:
+    bottleneck blocks [3, 4, 6, 3], NCHW, a 7x7 stem of 64 channels, 1000
+    classes) as a dygraph Layer of the package `fluid` (any with the
+    fluid dygraph API), with the stage counts, the base width (the stem's
+    channels; stage i's bottlenecks have width * 2**i) and the classes as
+    parameters, so that a test builds a small one from the same code."""
+    dygraph = fluid.dygraph
+    nn = dygraph.nn
+
+    class Bottleneck(dygraph.Layer):
+        def __init__(self, name, ch, stride, shortcut):
+            super().__init__(name)
+            self.c1 = nn.Conv2D(name + "_1", ch, 1, bias_attr=False)
+            self.b1 = nn.BatchNorm(name + "_b1", act="relu")
+            self.c2 = nn.Conv2D(name + "_2", ch, 3, stride=stride,
+                                padding=1, bias_attr=False)
+            self.b2 = nn.BatchNorm(name + "_b2", act="relu")
+            self.c3 = nn.Conv2D(name + "_3", ch * 4, 1, bias_attr=False)
+            self.b3 = nn.BatchNorm(name + "_b3")
+            self.shortcut = shortcut
+            if not shortcut:
+                self.cs = nn.Conv2D(name + "_s", ch * 4, 1, stride=stride,
+                                    bias_attr=False)
+                self.bs = nn.BatchNorm(name + "_bs")
+
+        def forward(self, x):
+            y = self.b3(self.c3(self.b2(self.c2(self.b1(self.c1(x))))))
+            sc = x if self.shortcut else self.bs(self.cs(x))
+            return fluid.layers.relu(fluid.layers.elementwise_add(sc, y))
+
+    class ResNet(dygraph.Layer):
+        def __init__(self):
+            super().__init__("dyres")
+            self.stem = nn.Conv2D("stem", width, 7, stride=2, padding=3,
+                                  bias_attr=False)
+            self.bn = nn.BatchNorm("stem_bn", act="relu")
+            self.pool = nn.Pool2D("pool", 3, "max", 2, 1)
+            self.blocks = []
+            for si, n in enumerate(stages):
+                for bi in range(n):
+                    blk = Bottleneck(f"s{si}b{bi}", width * 2 ** si,
+                                     2 if bi == 0 and si > 0 else 1,
+                                     shortcut=bi != 0)
+                    setattr(self, f"blk_{si}_{bi}", blk)
+                    self.blocks.append(blk)
+            self.gap = nn.Pool2D("gap", global_pooling=True,
+                                 pool_type="avg")
+            self.fc = nn.FC("fc", class_dim)
+
+        def forward(self, x):
+            h = self.pool(self.bn(self.stem(x)))
+            for blk in self.blocks:
+                h = blk(h)
+            return self.fc(self.gap(h))
+
+    return ResNet()
+
+
+def dygraph_step(fluid, net, opt):
+    """bench.py's bench_dygraph step: softmax cross-entropy, backward,
+    minimize, clear the gradients; returns the loss."""
+    def step(x, y):
+        logits = net(x)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, y))
+        loss.backward()
+        opt.minimize(loss)
+        net.clear_gradients()
+        return loss
+    return step
+
+
+def _dy_batch(torch, dev, n):
+    """bench.py's bench_dygraph batch: n images of 3x224x224 in [0, 1)
+    and 1000-class labels from RandomState(0), on the card."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(n, 3, RN_HW, RN_HW).astype(np.float32)
+    y = rng.randint(0, 1000, (n, 1)).astype(np.int64)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _dy_guard(pt):
+    """dygraph.guard on the card with the tracer's generator seeded
+    (from numpy's, as in the JAX package)."""
+    np.random.seed(SEED)
+    return pt.dygraph.guard(pt.CUDAPlace(0))
+
+
+def _dy_snapshot(state):
+    return {n: vb.value.clone() for n, vb in state.items()}
+
+
+def _dy_restore(state, snap):
+    for n, vb in state.items():
+        vb.value = snap[n].clone()
+
+
+def _dy_loss(loss):
+    return float(loss.numpy().reshape(()))
+
+
+def _dy_eager(pt, step, cap, x, y):
+    """One eager step under the capture's AMP guard."""
+    with cap._amp_cm():
+        return step(pt.dygraph.VarBase(x, stop_gradient=True),
+                    pt.dygraph.VarBase(y, stop_gradient=True))
+
+
+def _dy_discovery(torch, pt, tracer, net, cap, x, y):
+    """The capture's discovery on the bench batch: the state it finds,
+    created with the values an eager build from the same seed draws,
+    batch norms at their initial statistics, velocities zero: no update
+    applied. Returns the state's snapshot."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap._discover_state(tracer, [x, y])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    state = cap._state
+    params = {n: vb for n, vb in state.items() if n.startswith("p:")}
+    vel = [vb for n, vb in state.items() if n.startswith("a:velocity:")]
+    bns = [layer for layer in net.sublayers()
+           if isinstance(layer, pt.dygraph.nn.BatchNorm)]
+    print(f"  discovery (the step on meta tensors) {secs:.3f} s: "
+          f"{len(params)} parameters ({sum(vb.trainable for vb in params.values())} "
+          f"trained, {len(bns)} batch norms), {len(vel)} velocities, "
+          f"eager_calls {cap.eager_calls}")
+    _require(len(params) == 53 + 53 * 4 + 2 and len(vel) == 161 and
+             len(bns) == 53, "the dygraph ResNet-50 is not bench.py's")
+    _require(all(vb.value.dtype == torch.float32 and
+                 vb.value.device.type == "cuda"
+                 for vb in state.values()),
+             "the state is not float32 on the card")
+    _require(all(not v.value.any() for v in vel), "discovery moved a "
+                                                  "velocity")
+    for bn in bns:
+        scale, bias, mean, var = (p.value for p in bn._parameters.values())
+        _require(bool((scale == 1).all() and (bias == 0).all() and
+                      (mean == 0).all() and (var == 1).all()),
+                 f"discovery moved {bn.full_name()}")
+    # the same seed's eager build, its parameters made by an evaluation
+    # forward of two images: the values discovery created
+    with _dy_guard(pt):
+        other = dygraph_resnet(pt)
+        other.eval()
+        with pt.dygraph.no_grad():
+            other(pt.dygraph.VarBase(x[:2], stop_gradient=True))
+        ref = [p.value for _, p in other._stable_named_parameters()]
+    got = [p.value for _, p in net._stable_named_parameters()]
+    same = len(ref) == len(got) and all(torch.equal(a, b)
+                                        for a, b in zip(got, ref))
+    print(f"  discovered parameters equal an eager build's from seed "
+          f"{SEED}: {same}")
+    _require(same, "discovery's parameters are not the initializers'")
+    return _dy_snapshot(state)
+
+
+def _dy_bench(torch, pt, kreg, cap, x, y):
+    """bench.py's bench_dygraph on the capture: DY_STEPS calls (the
+    first captures), the windows of 10 and 20 steps, one profiled
+    replay. Returns images/s, the busy share and the captured call's
+    host ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kreg.reset_counts()
+    t0 = time.perf_counter()
+    losses = [_dy_loss(cap(x, y))]
+    first = time.perf_counter() - t0
+    captured = kreg.launches()
+    losses += [_dy_loss(cap(x, y)) for _ in range(DY_STEPS - 1)]
+    replays = sum(getattr(e, "replays", 0) for e in cap._cache.values())
+    print(f"  first call (two warm-up steps on a side stream, the capture "
+          f"under sync debug mode 'error': no host sync in the step, one "
+          f"replay) {first:.3f} s; launches of the port's kernels "
+          f"captured: {({k: v for k, v in captured.items() if v}) or 'none'}")
+    print(f"  losses: {', '.join(f'{v:.6f}' for v in losses)}")
+    print(f"  captured_calls {cap.captured_calls}, graph replays {replays}, "
+          f"signatures {len(cap._cache)}, eager_calls {cap.eager_calls}")
+    _require(not any(captured.values()),
+             "the captured Momentum step launched a kernel of the port")
+    # at bench.py's lr 0.1 the loss of this initialization falls for
+    # two steps and then rises above its first value, as graph mode's
+    # does from the same parameters (PERF.md §6): the check is that
+    # it fell below the first loss
+    _require(all(np.isfinite(losses)) and min(losses[1:]) < losses[0],
+             f"the captured loss did not fall in {DY_STEPS} steps")
+    _require(cap.captured_calls == replays == DY_STEPS and
+             len(cap._cache) == 1 and cap.eager_calls == 1,
+             "not one graph replay a call")
+    _require(all(vb.value.dtype == torch.float32
+                 for vb in cap._state.values()),
+             "a master parameter left float32")
+
+    for _ in range(2):
+        cap(x, y)
+    _dy_loss(cap(x, y))
+
+    def window(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss = cap(x, y)
+        _dy_loss(loss)                      # the fetch fences
+        return time.perf_counter() - t0
+    t1, t2 = window(10), window(20)
+    sps = 10 / (t2 - t1) if t2 - t1 > 0.02 * t2 else 30 / (t1 + t2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap(x, y)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cap(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  images/s: windows of 10 and 20 steps {DY_B * 10 / t1:.1f} and "
+          f"{DY_B * 20 / t2:.1f}; bench.py's rate {DY_B * sps:.1f} "
+          f"({sps:.3f} steps/s); host {host_ms:.3f} ms a captured call")
+    print(f"  profiled replay: wall {wall:.4f} s, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.1f} %), {sum(e.count for e in kernels)} "
+          f"kernels; peak memory allocated {peak:.3f} GB")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}")
+    return DY_B * sps, busy / wall, host_ms
+
+
+def _dy_turns(torch, pt, step, cap, x, y):
+    """Eager and captured steps in turns: images/s and host ms a step of
+    each (an eager step is bound by the host)."""
+    rates = {"eager": [], "captured": []}
+    host = {"eager": [], "captured": []}
+    for _ in range(DY_TURNS):
+        for mode in ("eager", "captured"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DY_TURN_STEPS):
+                loss = _dy_eager(pt, step, cap, x, y) if mode == "eager" \
+                    else cap(x, y)
+            enq = time.perf_counter() - t0
+            _dy_loss(loss)
+            secs = time.perf_counter() - t0
+            rates[mode].append(DY_B * DY_TURN_STEPS / secs)
+            host[mode].append(enq * 1e3 / DY_TURN_STEPS)
+    for mode in rates:
+        print(f"  {mode}: images/s a turn "
+              f"{', '.join(f'{r:.1f}' for r in rates[mode])} (median "
+              f"{np.median(rates[mode]):.1f}); host ms a step before the "
+              f"fetch {', '.join(f'{h:.1f}' for h in host[mode])}")
+    return {m: float(np.median(r)) for m, r in rates.items()}
+
+
+def _dy_compare(torch, pt, step, opt, snap, state, x, y):
+    """DY_CMP_STEPS captured steps (a new capture) and DY_CMP_STEPS
+    eager ones from the same initial state, in deterministic mode: equal
+    losses and state, bit for bit."""
+    with _deterministic(torch):
+        _dy_restore(state, snap)
+        cap = pt.dygraph.jit.capture(step, optimizer=opt, amp=True)
+        lc = [_dy_loss(cap(x, y)) for _ in range(DY_CMP_STEPS)]
+        sc = _dy_snapshot(state)
+        _dy_restore(state, snap)
+        le = [_dy_loss(_dy_eager(pt, step, cap, x, y))
+              for _ in range(DY_CMP_STEPS)]
+        se = _dy_snapshot(state)
+        del cap
+    diff = max(float((sc[n].double() - se[n].double()).abs().max())
+               for n in state)
+    differ = sum(not torch.equal(sc[n], se[n]) for n in state)
+    print(f"  deterministic, {DY_CMP_STEPS} steps from one state: captured "
+          f"losses {', '.join(f'{v:.6f}' for v in lc)}; eager "
+          f"{', '.join(f'{v:.6f}' for v in le)}; {differ} of {len(state)} "
+          f"state tensors differ, max|diff| {diff:.3e} (bound 0)")
+    _require(lc == le and differ == 0,
+             "the captured steps are not the eager steps")
+
+
+def _dy_against_graph(torch, pt, dev):
+    """The dygraph ResNet-50's first loss against graph-mode ResNet-50's
+    (models/resnet.py) on the same parameters, float32, B=DY_GRAPH_B.
+    The parameters map by creation order, which both builds share
+    (stem, then each bottleneck's 1x1, 3x3, 1x1 and shortcut convolution
+    each followed by its batch norm, then the fc); a parameter whose
+    shape differs fails the step."""
+    x, y = _dy_batch(torch, dev, DY_GRAPH_B)
+    with _deterministic(torch):
+        with _dy_guard(pt):
+            tracer = pt.framework._dygraph_tracer()
+            net = dygraph_resnet(pt)
+            with pt.dygraph.no_grad():
+                loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(
+                    net(pt.dygraph.VarBase(x, stop_gradient=True)),
+                    pt.dygraph.VarBase(y, stop_gradient=True)))
+            dy_loss = _dy_loss(loss)
+            dy = list(tracer._params.values())
+        pt.framework.unique_name.reset()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            cost, _, _ = pt.models.resnet_train(depth=50)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        graph = main.all_parameters()
+        differ = [(i, p.name, tuple(p.shape), d.shape)
+                  for i, (p, d) in enumerate(zip(graph, dy))
+                  if tuple(p.shape) != d.shape]
+        print(f"  dygraph against graph mode: {len(dy)} parameters against "
+              f"{len(graph)}, {len(differ)} shapes differ {differ[:4]}")
+        _require(len(dy) == len(graph) and not differ,
+                 "the dygraph and graph-mode ResNet-50 differ")
+        for p, d in zip(graph, dy):
+            scope.var(p.name).get_tensor().set_tensor(d.value.clone())
+        g_loss = float(exe.run(main, feed={"image": x.cpu().numpy(),
+                                           "label": y.cpu().numpy()},
+                               fetch_list=[cost], scope=scope)[0])
+    err = abs(dy_loss - g_loss) / abs(g_loss)
+    print(f"  first loss, float32, B={DY_GRAPH_B}: dygraph {dy_loss:.7f}, "
+          f"graph mode {g_loss:.7f}, rel err {err:.3e} (bound "
+          f"{DY_GRAPH_RTOL:g})")
+    _require(err <= DY_GRAPH_RTOL, "dygraph and graph mode disagree")
+
+
+def _dy_adam(torch, pt, kreg, dev):
+    """DY_ADAM_STEPS eager Adam steps of the dygraph ResNet-50 in
+    float32 at B=DY_ADAM_B: fused_adam launched as the registry's rules
+    predict (one list launch a step for the parameters of at least
+    PT_KERNEL_MIN_NUMEL elements, a launch taking up to 512), the
+    parameters bit-equal to the same steps under plain_reference() in
+    deterministic mode. Returns fused_adam's launches."""
+    x, y = _dy_batch(torch, dev, DY_ADAM_B)
+    xv = pt.dygraph.VarBase(x, stop_gradient=True)
+    yv = pt.dygraph.VarBase(y, stop_gradient=True)
+    with _deterministic(torch), \
+            _dy_guard(pt):
+        tracer = pt.framework._dygraph_tracer()
+        net = dygraph_resnet(pt)
+        net.eval()
+        with pt.dygraph.no_grad():
+            net(pt.dygraph.VarBase(x[:2], stop_gradient=True))
+        net.train()
+        p0 = _dy_snapshot(tracer._params)
+        routed = [p for p in tracer._params.values() if p.trainable and
+                  p.value.numel() >= kreg.min_numel()]
+        want = DY_ADAM_STEPS * -(-len(routed) // 512)
+        runs = {}
+        for mode in ("kernel", "plain"):
+            _dy_restore(tracer._params, p0)
+            opt = pt.optimizer.AdamOptimizer(DY_ADAM_LR)
+            step = dygraph_step(pt, net, opt)
+            kreg.reset_counts()
+            kreg.reset_stats()
+            with (kreg.plain_reference() if mode == "plain"
+                  else contextlib.nullcontext()):
+                losses = [_dy_loss(step(xv, yv))
+                          for _ in range(DY_ADAM_STEPS)]
+            runs[mode] = (losses, _dy_snapshot(tracer._params),
+                          kreg.launches()["fused_adam"],
+                          kreg.dispatch_stats()["per_kernel"]
+                          .get("fused_adam", {}))
+    (lk, sk, nk, dk), (lp, sp, n_plain, _) = runs["kernel"], runs["plain"]
+    differ = sum(not torch.equal(sk[n], sp[n]) for n in sk)
+    print(f"  eager Adam, float32, B={DY_ADAM_B}: {len(routed)} of "
+          f"{len(p0)} parameters reach PT_KERNEL_MIN_NUMEL="
+          f"{kreg.min_numel()}; fused_adam launches {nk} in "
+          f"{DY_ADAM_STEPS} steps (predicted {want}), dispatch {dk}; "
+          f"losses {lk} (kernel) and {lp} (plain_reference, {n_plain} "
+          f"launches); {differ} of {len(sk)} tensors differ (bound 0)")
+    _require(len(routed) > 0 and nk == want and
+             dk.get("custom") == DY_ADAM_STEPS * len(routed),
+             "fused_adam did not launch as the registry predicts")
+    _require(n_plain == 0 and lk == lp and differ == 0,
+             "the Adam kernel's steps are not plain_reference()'s")
+    return nk
+
+
+def dygraph_phase(torch, dev):
+    """BASELINE config 5 (bench.py's bench_dygraph): the dygraph
+    ResNet-50 captured at B=128 under bf16 AMP with Momentum, eager
+    against captured, dygraph against graph mode, eager Adam through the
+    kernel. Returns fused_adam's launches and the rates."""
+    import gc
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+
+    x, y = _dy_batch(torch, dev, DY_B)
+    with _dy_guard(pt):
+        tracer = pt.framework._dygraph_tracer()
+        net = dygraph_resnet(pt)
+        opt = pt.optimizer.MomentumOptimizer(RN_LR, RN_MU)
+        step = dygraph_step(pt, net, opt)
+        cap = pt.dygraph.jit.capture(step, optimizer=opt, amp=True)
+        snap = _dy_discovery(torch, pt, tracer, net, cap, x, y)
+        state = cap._state
+        rate, busy, host_ms = _dy_bench(torch, pt, kreg, cap, x, y)
+        turns = _dy_turns(torch, pt, step, cap, x, y)
+        del cap
+        gc.collect()
+        torch.cuda.empty_cache()
+        _dy_compare(torch, pt, step, opt, snap, state, x, y)
+    del net, opt, step, snap, state, tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dy_against_graph(torch, pt, dev)
+    launches = _dy_adam(torch, pt, kreg, dev)
+    torch.cuda.empty_cache()
+    return launches, {"images_s": rate, "busy": busy, "host_ms": host_ms,
+                      **turns}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3060,6 +3515,9 @@ def main(argv=None):
     print("[ctr phase]")
     ctr_phase(torch, dev)
 
+    print("[dygraph phase]")
+    dy_adam, _ = dygraph_phase(torch, dev)
+
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
     print("[mnist phase]")
@@ -3119,7 +3577,7 @@ def main(argv=None):
              tcounts["flash_attention_bwd_dkv_sm90"]),
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
-             adam_err, tcounts["fused_adam"]),
+             adam_err, tcounts["fused_adam"] + dy_adam),
             ("fused_sgd", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
              sgd_err, sgd_launches)):

@@ -10,11 +10,13 @@ numpy, and nothing of JAX or of paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
-from . import backward, contrib, optimizer, unique_name  # noqa: F401
+from . import backward, contrib, dygraph, optimizer  # noqa: F401
+from . import unique_name  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .core.scope import (LoDTensor, Scope, global_scope,  # noqa: F401
                          scope_guard)
 from .executor import Executor  # noqa: F401
 from .framework import (Program, default_main_program,  # noqa: F401
-                        default_startup_program, program_guard)
+                        default_startup_program, in_dygraph_mode,
+                        program_guard)
 from .param_attr import ParamAttr  # noqa: F401

@@ -79,6 +79,10 @@ def amp_dtype() -> torch.dtype:
     return _st()["dtype"]
 
 
+def amp_enabled() -> bool:
+    return _st()["enabled"]
+
+
 @contextlib.contextmanager
 def amp_guard(enabled=True, dtype=torch.bfloat16, black_ops=(),
               white_ops=()):

@@ -159,18 +159,25 @@ class RunState:
     run index, and the forward records the grad ops consume.
     `record_slots` maps the uid of each forward op whose generic grad op
     is in the block to the slots that grad op differentiates; `grad_uids`
-    holds the uids of every grad op in the block."""
+    holds the uids of every grad op in the block.
+
+    The dygraph tracer keeps one RunState for all its ops: `generator`
+    is then its own generator, which every random op without a fixed
+    seed draws from in turn, and `capturing` is set while a CUDA graph
+    captures a step (dygraph/jit.py)."""
 
     __slots__ = ("program_seed", "run", "records", "record_slots",
-                 "grad_uids")
+                 "grad_uids", "generator", "capturing")
 
     def __init__(self, program_seed=0, run=0, record_slots=None,
-                 grad_uids=()):
+                 grad_uids=(), generator=None):
         self.program_seed = program_seed
         self.run = run
         self.records: Dict[int, object] = {}
         self.record_slots = record_slots or {}
         self.grad_uids = frozenset(grad_uids)
+        self.generator = generator
+        self.capturing = False
 
 
 class ExecContext:
@@ -258,17 +265,29 @@ class ExecContext:
         """A generator on the op's device, seeded from the op's `seed`
         attr when nonzero, else from the program seed, the op uid and
         the run index. A grad op has its forward's uid, so it draws what
-        its forward drew. None on the meta device, where nothing is
-        drawn."""
+        its forward drew. Under the dygraph tracer an op without a fixed
+        seed draws from the tracer's generator (RunState.generator).
+        None on the meta device, where nothing is drawn."""
         if self.device.type == "meta":
             return None
+        run = self.run
+        if run is not None and run.generator is not None and \
+                not self.op.attr("seed", 0):
+            return run.generator
         g = torch.Generator(device=self.device)
         g.manual_seed(self._seed())
         return g
 
     def seed_words(self):
         """Two uint32 words from the same seed, made on the host (no
-        device round trip): the seed of an in-kernel hash."""
+        device round trip): the seed of an in-kernel hash. Refused while
+        a CUDA graph captures a step: a host seed would repeat on every
+        replay."""
+        if self.run is not None and self.run.capturing:
+            raise RuntimeError(
+                f"{self.op.type}: an in-kernel random seed is drawn on the "
+                f"host, so a CUDA graph would replay the same one on every "
+                f"call; this op cannot be captured")
         g = torch.Generator()
         g.manual_seed(self._seed())
         w = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, generator=g)

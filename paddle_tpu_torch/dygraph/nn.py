@@ -1,0 +1,125 @@
+"""Dygraph NN layers (counterpart of paddle_tpu/dygraph/nn.py): FC,
+Linear, Conv2D, Pool2D, BatchNorm, Embedding, LayerNorm and Dropout. Each
+layer calls the graph-mode layer builder, which in dygraph mode creates
+the layer's parameters through the tracer (once: the tracer's lazy
+creation memo) and runs its ops at once. BatchNorm's moving mean and
+variance are parameters that are not trained; the batch_norm op updates
+them in place (MeanOut and VarianceOut are the same VarBases)."""
+from __future__ import annotations
+
+from .. import layers as L
+from .layers import Layer
+
+__all__ = ["Conv2D", "Pool2D", "FC", "Linear", "BatchNorm", "Embedding",
+           "LayerNorm", "Dropout"]
+
+
+class FC(Layer):
+    def __init__(self, name_scope=None, size=None, num_flatten_dims=1,
+                 param_attr=None, bias_attr=None, act=None,
+                 dtype="float32"):
+        super().__init__(name_scope, dtype)
+        self._size = size
+        self._num_flatten_dims = num_flatten_dims
+        self._param_attr = param_attr
+        self._bias_attr = bias_attr
+        self._act = act
+
+    def forward(self, input):
+        return L.fc(input, self._size,
+                    num_flatten_dims=self._num_flatten_dims,
+                    param_attr=self._param_attr,
+                    bias_attr=self._bias_attr, act=self._act)
+
+
+class Linear(FC):
+    def __init__(self, input_dim, output_dim, param_attr=None,
+                 bias_attr=None, act=None, dtype="float32"):
+        super().__init__(None, output_dim, 1, param_attr, bias_attr, act,
+                         dtype)
+
+
+class Conv2D(Layer):
+    def __init__(self, name_scope=None, num_filters=None, filter_size=3,
+                 stride=1, padding=0, dilation=1, groups=None,
+                 param_attr=None, bias_attr=None, use_cudnn=True,
+                 act=None, dtype="float32", num_channels=None):
+        super().__init__(name_scope, dtype)
+        self._kw = dict(num_filters=num_filters, filter_size=filter_size,
+                        stride=stride, padding=padding, dilation=dilation,
+                        groups=groups, param_attr=param_attr,
+                        bias_attr=bias_attr, act=act)
+
+    def forward(self, input):
+        return L.conv2d(input, **self._kw)
+
+
+class Pool2D(Layer):
+    def __init__(self, name_scope=None, pool_size=-1, pool_type="max",
+                 pool_stride=1, pool_padding=0, global_pooling=False,
+                 use_cudnn=True, ceil_mode=False, exclusive=True):
+        super().__init__(name_scope)
+        self._kw = dict(pool_size=pool_size, pool_type=pool_type,
+                        pool_stride=pool_stride,
+                        pool_padding=pool_padding,
+                        global_pooling=global_pooling,
+                        ceil_mode=ceil_mode, exclusive=exclusive)
+
+    def forward(self, input):
+        return L.pool2d(input, **self._kw)
+
+
+class BatchNorm(Layer):
+    def __init__(self, name_scope=None, num_channels=None, act=None,
+                 is_test=False, momentum=0.9, epsilon=1e-5,
+                 param_attr=None, bias_attr=None, dtype="float32",
+                 data_layout="NCHW", in_place=False,
+                 moving_mean_name=None, moving_variance_name=None,
+                 do_model_average_for_mean_and_var=False,
+                 use_global_stats=False, trainable_statistics=False):
+        super().__init__(name_scope, dtype)
+        self._kw = dict(act=act, momentum=momentum, epsilon=epsilon,
+                        param_attr=param_attr, bias_attr=bias_attr,
+                        data_layout=data_layout,
+                        use_global_stats=use_global_stats)
+
+    def forward(self, input):
+        return L.batch_norm(input, is_test=not self.training, **self._kw)
+
+
+class Embedding(Layer):
+    def __init__(self, name_scope=None, size=None, is_sparse=False,
+                 is_distributed=False, padding_idx=None, param_attr=None,
+                 dtype="float32"):
+        super().__init__(name_scope, dtype)
+        self._kw = dict(size=size, is_sparse=is_sparse,
+                        padding_idx=padding_idx, param_attr=param_attr,
+                        dtype=dtype)
+
+    def forward(self, input):
+        return L.embedding(input, **self._kw)
+
+
+class LayerNorm(Layer):
+    def __init__(self, name_scope=None, scale=True, shift=True,
+                 begin_norm_axis=1, epsilon=1e-5, param_attr=None,
+                 bias_attr=None, act=None):
+        super().__init__(name_scope)
+        self._kw = dict(scale=scale, shift=shift,
+                        begin_norm_axis=begin_norm_axis, epsilon=epsilon,
+                        param_attr=param_attr, bias_attr=bias_attr,
+                        act=act)
+
+    def forward(self, input):
+        return L.layer_norm(input, **self._kw)
+
+
+class Dropout(Layer):
+    def __init__(self, p=0.5, dropout_implementation="downgrade_in_infer"):
+        super().__init__()
+        self._p = p
+        self._impl = dropout_implementation
+
+    def forward(self, input):
+        return L.dropout(input, self._p, is_test=not self.training,
+                         dropout_implementation=self._impl)

@@ -27,7 +27,8 @@ from .proto import framework_desc as fd
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_startup_program", "default_main_program", "program_guard",
-    "unique_name",
+    "unique_name", "in_dygraph_mode", "_dygraph_tracer",
+    "dygraph_guard_level",
 ]
 
 # Stands in for -1 (dynamic) dims during shape inference. Highly
@@ -85,6 +86,31 @@ class _UniqueNameNS:
 
 
 unique_name = _UniqueNameNS()
+
+
+# ---------------------------------------------------------------------------
+# dygraph mode switch (the tracer lives in paddle_tpu_torch.dygraph)
+# ---------------------------------------------------------------------------
+
+_dygraph_tracer_holder = threading.local()
+
+
+def _dygraph_tracer():
+    return getattr(_dygraph_tracer_holder, "tracer", None)
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer() is not None
+
+
+@contextlib.contextmanager
+def dygraph_guard_level(tracer):
+    old = getattr(_dygraph_tracer_holder, "tracer", None)
+    _dygraph_tracer_holder.tracer = tracer
+    try:
+        yield
+    finally:
+        _dygraph_tracer_holder.tracer = old
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,15 @@
 """LayerHelper: parameter creation and op appending shared by the layers
-(counterpart of paddle_tpu/layer_helper.py, graph mode only)."""
+(counterpart of paddle_tpu/layer_helper.py). In dygraph mode the
+temporaries are VarBases, parameters come from the tracer (float32
+master weights under an active AMP guard) and append_op runs the op
+through the tracer at once."""
 from __future__ import annotations
 
-from .framework import (Parameter, default_main_program,
-                        default_startup_program, unique_name)
+from .core.amp import amp_enabled
+from .core.types import DT_BFLOAT16, DT_FLOAT16, DT_FLOAT32, convert_dtype
+from .framework import (Parameter, _dygraph_tracer, default_main_program,
+                        default_startup_program, in_dygraph_mode,
+                        unique_name)
 from . import initializer as init_mod
 from .param_attr import ParamAttr
 
@@ -25,6 +31,9 @@ class LayerHelper:
     # ---- variables --------------------------------------------------------
     def create_variable_for_type_inference(self, dtype,
                                            stop_gradient=False):
+        if in_dygraph_mode():
+            from .dygraph.tracer import VarBase
+            return VarBase(None, stop_gradient=stop_gradient)
         return self.main_program.current_block().create_var(
             name=unique_name.generate(f"{self.name}.tmp"),
             dtype=dtype, stop_gradient=stop_gradient)
@@ -38,13 +47,23 @@ class LayerHelper:
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
+        # a parameter created lazily under an AMP guard (dygraph) whose
+        # dtype follows a bf16 activation stays float32: parameters are
+        # master weights, and the policy casts them where they are used
+        if amp_enabled() and convert_dtype(dtype) in (DT_BFLOAT16,
+                                                      DT_FLOAT16):
+            dtype = DT_FLOAT32
         if not attr.name:
             attr.name = unique_name.generate(
                 f"{self.name}.b" if is_bias else f"{self.name}.w")
+            attr._generated = True   # the tracer's lazy-creation memo
         initializer = attr.initializer or default_initializer
         if initializer is None:
             initializer = init_mod.Constant(0.0) if is_bias else \
                 init_mod.Xavier()
+        if in_dygraph_mode():
+            return _dygraph_tracer().create_parameter(
+                attr, shape, dtype, initializer, is_bias)
 
         shape = [int(d) for d in shape]
         gb = self.main_program.global_block()
@@ -68,6 +87,9 @@ class LayerHelper:
 
     # ---- ops --------------------------------------------------------------
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        if in_dygraph_mode():
+            return _dygraph_tracer().trace_op(type, inputs or {},
+                                              outputs or {}, attrs or {})
         return self.main_program.current_block().append_op(
             type, inputs=inputs, outputs=outputs, attrs=attrs)
 

@@ -142,8 +142,9 @@ def topk(input, k, name=None):
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
-               epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
-    helper = LayerHelper("layer_norm", name=name)
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", act=act, name=name)
     dtype = input.dtype
     norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
     inputs = {"X": input}
@@ -161,7 +162,7 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         "layer_norm", inputs=inputs,
         outputs={"Y": out, "Mean": mean, "Variance": var},
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
-    return out
+    return helper.append_activation(out)
 
 
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,

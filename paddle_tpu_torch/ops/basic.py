@@ -1,4 +1,4 @@
-"""Tensor ops: fill_constant, sum, scale, reshape2, squeeze2, flatten,
+"""Tensor ops: fill_constant, sum, cast, scale, reshape2, squeeze2, flatten,
 flatten2, concat, top_k, lookup_table with its dense and SelectedRows
 grads, merge_selected_rows and get_tensor_from_selected_rows
 (counterpart of paddle_tpu/ops/basic.py). The "2"-suffixed ops carry an
@@ -42,6 +42,13 @@ def sum_op(ctx):
     for x in xs[1:]:
         out = out + x
     ctx.set_output("Out", out)
+
+
+@register_op("cast")
+def cast(ctx):
+    """X converted to `out_dtype`."""
+    ctx.set_output("Out", ctx.input("X").to(
+        dtype_to_torch(ctx.attr("out_dtype"))))
 
 
 @register_op("scale")

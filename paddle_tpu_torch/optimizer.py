@@ -7,16 +7,31 @@ a persistable global var; accumulators are persistable vars initialized
 by fill ops in the startup program; every op of the optimize phase (clip,
 regularization, update) carries op_role "optimize". Update ops bind
 ParamOut to Param, so the engine writes the new values back in place.
+
+In dygraph mode minimize() takes the gradients loss.backward() left on
+the tracer's parameters; the learning rate and the accumulators are
+VarBases on the tracer's device, and the update ops run through the
+tracer (the same lowerings as graph mode), all of one minimize at once
+(Tracer.trace_ops): a run of sgd or adam ops sharing their
+hyper-parameters goes to the group lowering the engine uses, so an eager
+Adam step is one list launch, as a graph step is. A LearningRateDecay
+rate is stepped by every minimize and written into the rate's tensor.
+Clipping and regularization are not applied in dygraph mode, as in the
+JAX package.
 """
 from __future__ import annotations
 
 from collections import defaultdict
 from typing import Dict
 
+import torch
+
 from .backward import OP_ROLE_ATTR, append_backward
 from .clip import append_gradient_clip_ops
-from .framework import (Variable, default_main_program,
-                        default_startup_program, program_guard, unique_name)
+from .core.types import dtype_to_torch
+from .framework import (Variable, _dygraph_tracer, default_main_program,
+                        default_startup_program, in_dygraph_mode,
+                        program_guard, unique_name)
 from .initializer import Constant
 from .layer_helper import LayerHelper
 from .layers import tensor as _tensor
@@ -37,8 +52,60 @@ class Optimizer:
             defaultdict(dict)
         self.helper = None
 
+    # ---- dygraph ----------------------------------------------------------
+    class _EagerBlock:
+        """The block the update ops go to in dygraph mode: it keeps them,
+        and run() traces them all at once (Tracer.trace_ops)."""
+
+        def __init__(self):
+            self.ops = []
+
+        def append_op(self, type=None, inputs=None, outputs=None,
+                      attrs=None, infer_shape=True):
+            self.ops.append((type, inputs or {}, outputs or {},
+                             attrs or {}))
+            return outputs
+
+        def run(self):
+            return _dygraph_tracer().trace_ops(self.ops)
+
+    def _dygraph_params_grads(self, parameter_list=None):
+        """(parameter, gradient) of every trainable parameter of the
+        tracer (of `parameter_list`, by VarBase or name, when given) that
+        holds a gradient, in creation order."""
+        from .dygraph.tracer import VarBase
+        wanted = None if parameter_list is None else {
+            v if isinstance(v, str) else v.name for v in parameter_list}
+        pgs = []
+        for p in _dygraph_tracer()._params.values():
+            if wanted is not None and p.name not in wanted:
+                continue
+            if not p.trainable or p.grad is None:
+                continue
+            pgs.append((p, VarBase(p.grad, stop_gradient=True)))
+        return pgs
+
     # ---- learning rate ----------------------------------------------------
     def _create_global_learning_rate(self):
+        if in_dygraph_mode():
+            from .dygraph.learning_rate_scheduler import LearningRateDecay
+            from .dygraph.tracer import VarBase
+            holder = self._learning_rate_map.get("dygraph")
+            decay = isinstance(self._learning_rate, LearningRateDecay)
+            if holder is None:
+                if isinstance(self._learning_rate, VarBase):
+                    self._learning_rate_map["dygraph"] = self._learning_rate
+                    return
+                holder = VarBase(torch.full(
+                    (1,), 0.0 if decay else float(self._learning_rate),
+                    dtype=torch.float32, device=_dygraph_tracer().device),
+                    stop_gradient=True)
+                self._learning_rate_map["dygraph"] = holder
+            if decay:
+                # in place: a captured step bakes this write into its
+                # graph, and the graph reads this tensor
+                holder.value.fill_(float(self._learning_rate()))
+            return
         prog = default_main_program()
         if id(prog) in self._learning_rate_map:
             return
@@ -51,6 +118,8 @@ class Optimizer:
             persistable=True)
 
     def _global_learning_rate(self, program=None):
+        if in_dygraph_mode():
+            return self._learning_rate_map.get("dygraph")
         program = program or default_main_program()
         return self._learning_rate_map.get(id(program))
 
@@ -70,6 +139,14 @@ class Optimizer:
         if cached is not None:
             return cached
         shape = shape if shape is not None else list(param.shape)
+        if in_dygraph_mode():
+            from .dygraph.tracer import VarBase
+            acc = VarBase(torch.full(
+                shape, float(fill_value),
+                dtype=dtype_to_torch(dtype or param.dtype),
+                device=_dygraph_tracer().device), stop_gradient=True)
+            self._accumulators[name][param.name] = acc
+            return acc
         var_name = unique_name.generate(f"{param.name}_{name}")
         var = self.helper.create_global_variable(
             name=var_name, persistable=True, dtype=dtype or param.dtype,
@@ -93,22 +170,29 @@ class Optimizer:
 
     # ---- the pass ---------------------------------------------------------
     def _create_optimization_pass(self, parameters_and_grads):
-        block = default_main_program().global_block()
+        block = Optimizer._EagerBlock() if in_dygraph_mode() else \
+            default_main_program().global_block()
         self.helper = LayerHelper(self.__class__.__name__)
         self._create_global_learning_rate()
         self._create_accumulators(
             block, [p for p, g in parameters_and_grads if g is not None])
-        return [self._append_optimize_op(block, pg)
-                for pg in parameters_and_grads
-                if pg[1] is not None and pg[0].trainable]
+        ops = [self._append_optimize_op(block, pg)
+               for pg in parameters_and_grads
+               if pg[1] is not None and pg[0].trainable]
+        return block.run() if in_dygraph_mode() else ops
 
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        if in_dygraph_mode():
+            # loss.backward() left the gradients on the parameters
+            return self._dygraph_params_grads(parameter_list)
         with program_guard(loss.block.program,
                            startup_program or default_startup_program()):
             return append_backward(loss, parameter_list, no_grad_set)
 
     def apply_gradients(self, params_grads):
+        if in_dygraph_mode():
+            return self._create_optimization_pass(params_grads)
         block = default_main_program().global_block()
         start = len(block.ops)
         params_grads = append_gradient_clip_ops(params_grads)
@@ -120,6 +204,8 @@ class Optimizer:
         return ops
 
     def apply_optimize(self, loss, startup_program, params_grads):
+        if in_dygraph_mode():
+            return self.apply_gradients(params_grads)
         with program_guard(loss.block.program,
                            startup_program or default_startup_program()):
             return self.apply_gradients(params_grads)

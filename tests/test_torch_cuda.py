@@ -1497,3 +1497,125 @@ def test_wide_deep_sparse_step_matches_dense_on_card(cuda):
                 np.where(m < CTR_TINY_G ** 2, CTR_TINY_G_ATOL, 1e-5)
             assert (np.abs(state[n] - d) <= atol + 1e-5 * np.abs(d)).all(), \
                 (label, n)
+
+
+# ---------------------------------------------------------------------------
+# dygraph.jit.capture: one CUDA graph a signature
+# ---------------------------------------------------------------------------
+
+def _dy_conv_net():
+    """tests/test_dygraph_capture.py's ConvNet."""
+    class ConvNet(pt.dygraph.Layer):
+        def __init__(self):
+            super().__init__("net")
+            self.c1 = pt.dygraph.nn.Conv2D("c1", 8, 3, padding=1)
+            self.c2 = pt.dygraph.nn.Conv2D("c2", 16, 3, padding=1, stride=2)
+            self.fc = pt.dygraph.nn.FC("fc", 10)
+
+        def forward(self, x):
+            h = pt.layers.relu(self.c1(x))
+            return self.fc(pt.layers.relu(self.c2(h)))
+    return ConvNet()
+
+
+def _dy_step(model, opt, extra=None):
+    def step(x, y):
+        logits = model(x)
+        loss = pt.layers.mean(
+            pt.layers.softmax_with_cross_entropy(logits, y))
+        if extra is not None:
+            extra(loss)
+        loss.backward()
+        opt.minimize(loss)
+        model.clear_gradients()
+        return loss
+    return step
+
+
+def _dy_data(dev, n=16):
+    r = np.random.RandomState(0)
+    return (torch.from_numpy(r.rand(n, 1, 28, 28).astype(np.float32)).to(dev),
+            torch.from_numpy(r.randint(0, 10, (n, 1))).to(dev))
+
+
+def test_dygraph_capture_is_a_cuda_graph(cuda):
+    """Adam through the capture on the card: discovery, one graph a
+    signature, every call one replay, and the trajectory of the eager
+    steps from the same parameters (deterministic: 0 ulp)."""
+    x, y = _dy_data(cuda)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _capture_against_eager(x, y)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _capture_against_eager(x, y):
+    np.random.seed(0)
+    with pt.dygraph.guard(pt.CUDAPlace(0)):
+        model = _dy_conv_net()
+        opt = pt.optimizer.AdamOptimizer(0.01)
+        step = _dy_step(model, opt)
+        cap = pt.dygraph.jit.capture(step, optimizer=opt)
+        tracer = pt.framework._dygraph_tracer()
+        cap._discover_state(tracer, [x, y])
+        init = {n: vb.value.clone() for n, vb in cap._state.items()}
+        lc = [float(cap(x, y).numpy().reshape(())) for _ in range(4)]
+        entry, = cap._cache.values()
+        assert isinstance(entry.graph, torch.cuda.CUDAGraph)
+        assert entry.replays == cap.captured_calls == 4
+        assert cap.eager_calls == 1
+        after = {n: vb.value.clone() for n, vb in cap._state.items()}
+        for n, vb in cap._state.items():
+            vb.value = init[n].clone()
+        le = [float(step(pt.dygraph.VarBase(x, stop_gradient=True),
+                         pt.dygraph.VarBase(y, stop_gradient=True))
+                    .numpy().reshape(())) for _ in range(4)]
+        assert lc == le and lc[-1] < lc[0]
+        for n, vb in cap._state.items():
+            assert torch.equal(vb.value, after[n]), n
+        # a parameter replaced between calls is read by the next replay
+        w = model.fc.parameters()[0]
+        w.set_value(np.zeros(w.shape, np.float32))
+        cap(x, y)
+        assert w.value is cap._static[f"p:{w.name}"]
+        assert float(w.value.abs().max()) < 0.1
+
+
+def test_dygraph_capture_refuses_a_host_sync(cuda):
+    x, y = _dy_data(cuda)
+    np.random.seed(0)
+    with pt.dygraph.guard(pt.CUDAPlace(0)):
+        model = _dy_conv_net()
+        opt = pt.optimizer.SGDOptimizer(0.1)
+        # .item() on the card (discovery's loss is a meta tensor, and
+        # the eager warm-up may sync): the capture must refuse it
+        cap = pt.dygraph.jit.capture(_dy_step(
+            model, opt, extra=lambda loss: loss.value.is_meta or
+            loss.value.item()), optimizer=opt)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            cap(x, y)
+        assert cap.eager_calls == 1 and cap.captured_calls == 0
+        # the state is the discovered one, on the card, not a graph's
+        for n, vb in cap._state.items():
+            assert vb.value.device.type == "cuda" and vb.grad is None, n
+        assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_dygraph_captured_dropout_draws_anew_or_raises(cuda):
+    """A captured Dropout must not replay one mask: each replay draws a
+    new one from the tracer's generator registered with the graph, or
+    the capture raises where torch cannot register it."""
+    x = torch.ones(64, 64, device=cuda)
+    np.random.seed(0)
+    with pt.dygraph.guard(pt.CUDAPlace(0)):
+        drop = pt.dygraph.nn.Dropout(0.5)
+        cap = pt.dygraph.jit.capture(lambda v: drop(v))
+        if hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            a, b, c = (cap(x).numpy() for _ in range(3))
+            assert not np.array_equal(a, b) and not np.array_equal(b, c)
+            assert 0.4 < (a > 0).mean() < 0.6
+        else:
+            with pytest.raises(RuntimeError, match="random"):
+                cap(x)

@@ -102,6 +102,8 @@ def _cases():
          {"shape": [3, 4], "value": 2.5, "dtype": 9}),
         ("fill_constant", {}, ["Out"],
          {"shape": [5], "value": 7.0, "dtype": 5}),
+        ("cast", {"X": x3 * 10}, ["Out"], {"in_dtype": 9, "out_dtype": 5}),
+        ("cast", {"X": x3}, ["Out"], {"in_dtype": 9, "out_dtype": 7}),
         ("scale", {"X": x3}, ["Out"], {"scale": 1.5, "bias": 0.25}),
         ("scale", {"X": x3}, ["Out"],
          {"scale": 22.627, "bias": 0.5, "bias_after_scale": False}),
