@@ -82,7 +82,22 @@
    forward, prints the registry's dispatch stats, and
    holds its logits against the same forward with only the GEMMs plain
    (int8: bit-equal), under plain_reference(), and against float32.
-8. CTR phase (BASELINE config 4, bench.py's bench_ctr): Wide&Deep with
+8. Graph capture phase: Executor.run replaying one CUDA graph a run
+   (core/engine.py _Captured) on every main path, captured against
+   eager (use_program_cache=False) in turns: ResNet-50 (bench.py's,
+   B=128, bf16 AMP, Momentum) with the batch on the card and from
+   numpy, Transformer-base training (B=96, S=128, dropout 0.1) and
+   serving (B=32, S=256, float32 and int8); for each the rate, the
+   busy share and top kernels of a profiled replay, the host ms of a
+   captured run, peak memory and the graph pools, and the engine's
+   counters. 5 captured runs against 5 eager ones from one state in
+   deterministic mode, bit for bit (ResNet-50, the Transformer with
+   dropout and 18/18/18/1 attention and Adam launches a run, LeNet
+   with its SGD in the fused_sgd kernel), serving within LOGITS_ATOL of
+   eager, iterations=3 against three single runs, a scope write
+   between replays, and Wide&Deep dense and sparse captured or kept
+   eager as the capture rule decides (printed with the reason).
+9. CTR phase (BASELINE config 4, bench.py's bench_ctr): Wide&Deep with
    dense embedding gradients (the bench default), Wide&Deep with
    is_sparse=True (SelectedRows gradients) and DeepFM, at vocab
    1000001, B=4096, AdagradOptimizer(0.01), 10 steps each through
@@ -99,7 +114,7 @@
    duplicate ids through the sparse update of SGD, Momentum, Adagrad
    and Adam: no device-side assert, no host sync, the padding row and
    the rows never looked up unchanged.
-9. Dygraph phase (BASELINE config 5, bench.py's bench_dygraph): the
+10. Dygraph phase (BASELINE config 5, bench.py's bench_dygraph): the
    dygraph ResNet-50 (dygraph_resnet: bottleneck [3, 4, 6, 3], NCHW,
    1000 classes) built under dygraph.guard(CUDAPlace(0)) and trained
    with MomentumOptimizer(0.1, 0.9) under dygraph.jit.capture(amp=True)
@@ -118,7 +133,7 @@
    parameters, mapped by creation order; and 2 eager Adam steps in
    float32 at B=32, one fused_adam launch a step, bit-equal to the same
    steps under plain_reference().
-10. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+11. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -131,13 +146,17 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-11. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+12. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's and the dygraph phase's), then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
 float32 matmuls and convolutions run in full float32 (TF32 off), as the
-port assumes.
+port assumes. Executor.run captures a plan's block at the plan's second
+run and replays it after (core/engine.py), so from their second step on
+the phases' runs are graph replays; the sparse step of the CTR phase
+that must run its lowerings under sync debug mode "error" runs op by
+op (use_program_cache=False).
 """
 from __future__ import annotations
 
@@ -288,6 +307,12 @@ CTR_RTOL = CTR_ATOL = 1e-5
 CTR_TINY_G, CTR_TINY_G_ATOL = 1e-4, 1e-4
 # Wide&Deep dense against sparse in turns: turns, and steps a turn
 CTR_AB_TURNS, CTR_AB_STEPS = 6, 5
+# the graph capture phase: captured and eager runs in CAP_TURNS turns of
+# CAP_TURN_STEPS runs each; CAP_CMP_STEPS captured runs (after the plan's
+# first, eager, run) against as many eager ones from one state, bit for
+# bit (the graph replays the kernels its capture launched, on the same
+# inputs, with the same random words: the bound is 0)
+CAP_TURNS, CAP_TURN_STEPS, CAP_CMP_STEPS = 3, 3, 5
 
 
 def _require(cond, msg):
@@ -953,9 +978,12 @@ def _ctr_run(torch, pt, kreg, label, main, cost, feed, scope, exe,
     _require(not any(launches.values()),
              f"{label}: the CTR path launched {launches}")
     if sync_check:
+        # op by op (use_program_cache=False): a captured block replays
+        # without running its lowerings (its capture ran them under the
+        # same mode)
         with _sync_checked(torch, _SPARSE_OPS) as ran:
             out = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
-                          return_numpy=False)[0]
+                          return_numpy=False, use_program_cache=False)[0]
         print(f"  {label}: one more step, {ran['lowerings']} sparse-path "
               f"lowerings under sync debug mode 'error', loss "
               f"{float(out):.6f}")
@@ -2496,12 +2524,17 @@ def training_phase(torch, dev, built):
     profile_step(torch, exe, main, feed, cost, scope)
     steady = secs[1:]
     tokens = int(feed["lbl_w"].sum())
+    # step 1 runs a plan of its own (it fetches masks too); the plan of
+    # steps 2-5 runs eager at step 2, captures its block at step 3 and
+    # replays it at steps 4-5
+    replays = secs[3:]
     print(f"  step seconds: {', '.join(f'{x:.4f}' for x in secs)} (first "
-          f"includes warm-up)")
+          f"includes warm-up, third the capture)")
     print(f"  steps/s (steps 2-5): {len(steady) / sum(steady):.3f}; "
           f"non-pad target tokens/s: {tokens * len(steady) / sum(steady):.1f}"
           f" ({tokens} per step); padded tokens/s: "
-          f"{B * S * len(steady) / sum(steady):.1f}")
+          f"{B * S * len(steady) / sum(steady):.1f}; steps/s of the "
+          f"replays (steps 4-5): {len(replays) / sum(replays):.3f}")
     print(f"  peak memory allocated: {peak_gb:.3f} GB")
     total = {k: sum(c[k] for c in per_step) for k in want}
     return total
@@ -2629,13 +2662,14 @@ def resnet_phase(torch, dev):
     del f32_scope, nhwc_scope, hmain
 
     busy = profile_step(torch, exe, main, feed, cost, scope, kernel=None)
-    steady = secs[1:]
+    steady, replays = secs[1:], secs[2:]
     print(f"  step seconds: {', '.join(f'{x:.4f}' for x in secs)} (first "
-          f"includes warm-up)")
+          f"includes warm-up, second the capture)")
     print(f"  steps/s (steps 2-{RN_STEPS}): {len(steady) / sum(steady):.3f}"
           f"; images/s {RN_B * len(steady) / sum(steady):.1f} (fetch "
-          f"included); device busy share of a profiled step "
-          f"{100 * busy:.1f} %")
+          f"included), of the replays (steps 3-{RN_STEPS}) "
+          f"{RN_B * len(replays) / sum(replays):.1f}; device busy share of "
+          f"a profiled step {100 * busy:.1f} %")
     print(f"  peak memory allocated: {peak_gb:.3f} GB")
     return main, startup, cost, feed
 
@@ -3397,6 +3431,456 @@ def dygraph_phase(torch, dev):
                       **turns}
 
 
+# ---------------------------------------------------------------------------
+# graph capture: Executor.run as one CUDA graph replay a run
+# ---------------------------------------------------------------------------
+
+def _graph_pool_gb(torch):
+    """(allocated, reserved) GB of the caching allocator's CUDA-graph
+    private pools (the segments of a pool other than the default one)."""
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0)]
+    return (sum(s["allocated_size"] for s in segs) / 1e9,
+            sum(s["total_size"] for s in segs) / 1e9)
+
+
+def _counters(exe):
+    c = exe._engine.counters
+    return {k: c[k] for k in ("runs", "captures", "replays", "eager_runs",
+                              "fast_path_hits", "traces")}
+
+
+@contextlib.contextmanager
+def _capture_clock():
+    """Host seconds of the parts of a capture: the capture rule on meta
+    tensors, the warm-up runs, gc.collect and the capture itself
+    (gc.collect and the allocator's empty_cache run inside it)."""
+    import functools
+    import gc
+    from paddle_tpu_torch.core import cuda_graph, engine as E
+    acc = {"rule": 0.0, "warm_up": 0.0, "gc": 0.0, "capture": 0.0}
+    saved = [(E, "capture_blocker", "rule"), (cuda_graph, "warm_up",
+             "warm_up"), (cuda_graph, "capture", "capture"),
+             (gc, "collect", "gc")]
+
+    def timed(fn, key):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return wrapper
+
+    old = [getattr(mod, name) for mod, name, _ in saved]
+    for (mod, name, key), fn in zip(saved, old):
+        setattr(mod, name, timed(fn, key))
+    try:
+        yield acc
+    finally:
+        for (mod, name, _), fn in zip(saved, old):
+            setattr(mod, name, fn)
+
+
+def _cap_first_runs(torch, label, exe, main, feed, fetch, scope):
+    """A plan's first run (eager) and its second (the capture and a
+    replay), each to its fetch, with the capture's parts clocked."""
+    secs = []
+    with _capture_clock() as acc:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            _cap_run(exe, main, feed, fetch, scope)
+            secs.append(time.perf_counter() - t0)
+    print(f"  {label}: first run (eager) {secs[0]:.3f} s; second run "
+          f"{secs[1]:.3f} s: the capture rule {acc['rule']:.3f}, warm-up "
+          f"{acc['warm_up']:.3f}, capture {acc['capture']:.3f} (of it "
+          f"gc.collect {acc['gc']:.3f})")
+
+
+def _cap_run(exe, main, feed, fetch, scope, cached=True, numpy=True):
+    return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   use_program_cache=cached, return_numpy=numpy)
+
+
+def _cap_turns(torch, label, units, per_step, modes):
+    """Runs of each mode in CAP_TURNS turns of CAP_TURN_STEPS steps (the
+    order alternating between turns): `units` a second (units a step
+    per_step), each turn ending at its last step's fetched loss, and the
+    host ms of a run before that fetch (the enqueue). modes: name ->
+    step() returning the fetched value. Returns the median rates."""
+    rates = {m: [] for m in modes}
+    host = {m: [] for m in modes}
+    for turn in range(CAP_TURNS):
+        for m in (list(modes) if turn % 2 == 0 else list(modes)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enq = 0.0
+            for _ in range(CAP_TURN_STEPS):
+                t1 = time.perf_counter()
+                out = modes[m]()
+                enq += time.perf_counter() - t1
+            float(out.reshape(-1)[0])          # the fetch fences
+            secs = time.perf_counter() - t0
+            rates[m].append(per_step * CAP_TURN_STEPS / secs)
+            host[m].append(enq * 1e3 / CAP_TURN_STEPS)
+    for m in modes:
+        print(f"  {label} {m}: {units} a turn "
+              f"{', '.join(f'{r:.1f}' for r in rates[m])} (median "
+              f"{np.median(rates[m]):.1f}); host ms a run "
+              f"{', '.join(f'{h:.2f}' for h in host[m])}")
+    return {m: float(np.median(r)) for m, r in rates.items()}
+
+
+def _cap_compare(torch, pt, kreg, label, main, startup, feed, fetch, steps,
+                 want_launches=None, env=None):
+    """steps + 1 runs with the plan cache (the first eager, the second
+    captures, the rest replay) and steps + 1 with use_program_cache=False
+    from copies of one startup scope, with the same run indices, in
+    deterministic mode: the fetches of every run and every persistable
+    at the end must be equal bit for bit; with want_launches, the launch
+    counts of every run too. Returns the captured engine's counters."""
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        with _deterministic(torch):
+            init = pt.Scope()
+            pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+            persist = [v.name for v in main.global_block().vars.values()
+                       if v.persistable and init.find_var(v.name)
+                       is not None]
+            outs, counts, state, counters = {}, {}, {}, {}
+            for cached in (True, False):
+                exe = pt.Executor(pt.CUDAPlace(0))
+                scope = _copy_scope(pt, init, persist)
+                outs[cached], counts[cached] = [], []
+                for _ in range(steps + 1):
+                    kreg.reset_counts()
+                    outs[cached].append(_cap_run(exe, main, feed, fetch,
+                                                 scope, cached))
+                    counts[cached].append(kreg.launches())
+                state[cached] = {n: scope.find_var(n).get_tensor().tensor
+                                 .clone() for n in persist}
+                counters[cached] = _counters(exe)
+                exe.close()
+                del exe, scope
+            del init
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    equal_out = all(np.array_equal(a, b) for x, y in
+                    zip(outs[True], outs[False]) for a, b in zip(x, y))
+    equal_state = all(torch.equal(state[True][n], state[False][n])
+                      for n in state[True])
+    c = counters[True]
+    print(f"  {label}: {steps + 1} runs with the plan cache ({c['captures']} "
+          f"capture, {c['replays']} replays, {c['eager_runs']} eager) and "
+          f"{steps + 1} eager, deterministic mode: fetches bit-equal "
+          f"{equal_out}, {len(state[True])} persistables bit-equal "
+          f"{equal_state}; first fetch {float(outs[True][0][0]):.6f}, "
+          f"last {float(outs[True][-1][0]):.6f}")
+    _require(equal_out and equal_state,
+             f"{label}: captured runs differ from eager runs")
+    _require(c["captures"] == 1 and c["replays"] == steps and
+             c["eager_runs"] == 1 and
+             counters[False]["eager_runs"] == steps + 1,
+             f"{label}: counters {counters}")
+    _require(counts[True] == counts[False],
+             f"{label}: launches captured {counts[True]} vs eager "
+             f"{counts[False]}")
+    if want_launches is not None:
+        for i, cnt in enumerate(counts[True]):
+            _require({k: v for k, v in cnt.items() if v} == want_launches,
+                     f"{label}: run {i + 1} launched {cnt}, want "
+                     f"{want_launches}")
+    return c
+
+
+def _cap_measure(torch, pt, label, exe, main, scope, fetch, modes, units,
+                 per_step):
+    """The captured plan's numbers: the turns of `modes`, a profiled
+    replay (busy share, top kernels), the host ms of a captured run
+    (return_numpy=False: the enqueue), peak memory and the graph pool.
+    `modes["captured"]` must be a replay."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = _cap_turns(torch, label, units, per_step, modes)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pool = _graph_pool_gb(torch)
+    feed = modes.feed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print(f"  {label}: host ms of one captured run before its fetch "
+          f"{host_ms:.3f}; peak memory allocated {peak:.3f} GB; graph "
+          f"pools after the turns: {pool[0]:.3f} GB allocated, "
+          f"{pool[1]:.3f} GB reserved")
+    busy = profile_step(torch, exe, main, feed, fetch[0], scope,
+                        kernel=None)
+    print(f"  {label}: counters {_counters(exe)}")
+    return {**rates, "busy": busy, "host_ms": host_ms, "peak_gb": peak,
+            "pool_gb": pool}
+
+
+class _Modes(dict):
+    """name -> step(); `feed` is the captured mode's feed."""
+    feed = None
+
+
+def _cap_resnet(torch, pt, kreg, dev):
+    """ResNet-50 (BASELINE config 2), B=128, bf16 AMP, Momentum: captured
+    with the numpy batch and with the batch on the card, eager
+    (use_program_cache=False) in turns; 5 captured runs against 5 eager
+    ones bit for bit; no launch of the port's kernels."""
+    main, startup, cost, acc = _build_resnet(pt)
+    feed = _resnet_feed()
+    card = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    kreg.reset_counts()
+    for f, kind in ((feed, "numpy batch"), (card, "batch on the card")):
+        _cap_first_runs(torch, f"ResNet-50, {kind}", exe, main, f, [cost],
+                        scope)
+    modes = _Modes(
+        captured_card=lambda: _cap_run(exe, main, card, [cost], scope,
+                                       numpy=False)[0],
+        captured_numpy=lambda: _cap_run(exe, main, feed, [cost], scope,
+                                        numpy=False)[0],
+        eager_numpy=lambda: _cap_run(exe, main, feed, [cost], scope,
+                                     False, False)[0])
+    modes.feed = card
+    m = _cap_measure(torch, pt, "ResNet-50", exe, main, scope, [cost],
+                     modes, "images/s", RN_B)
+    launches = kreg.launches()
+    _require(not any(launches.values()),
+             f"the captured ResNet-50 launched {launches}")
+    c = _counters(exe)
+    _require(c["captures"] == 2 and c["replays"] >= 5,
+             f"ResNet-50: counters {c}")
+    exe.close()
+    del exe, scope, card
+    gc_cuda(torch)
+    _cap_compare(torch, pt, kreg, "ResNet-50", main, startup, feed,
+                 [cost, acc], CAP_CMP_STEPS)
+    gc_cuda(torch)
+    return m
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cap_transformer(torch, pt, kreg, dev, built):
+    """Transformer-base training (B=96, S=128, dropout 0.1, bf16 AMP,
+    Adam): captured and eager in turns; 5 captured runs against 5 eager
+    ones with the same run indices, dropout on, bit for bit, each with
+    18 forward, 18 dq, 18 dk/dv attention launches and 1 Adam launch."""
+    from paddle_tpu_torch.models import transformer as T
+    cfg, main, startup, cost = built
+    feed = _training_feed(T, cfg)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    _cap_first_runs(torch, "Transformer-base training", exe, main, feed,
+                    [cost], scope)
+    modes = _Modes(
+        captured=lambda: _cap_run(exe, main, feed, [cost], scope,
+                                  numpy=False)[0],
+        eager=lambda: _cap_run(exe, main, feed, [cost], scope, False,
+                               False)[0])
+    modes.feed = feed
+    m = _cap_measure(torch, pt, "Transformer-base training", exe, main,
+                     scope, [cost], modes, "steps/s", 1)
+    exe.close()
+    del exe, scope
+    gc_cuda(torch)
+    want = {"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
+            "flash_attention_bwd_dkv": 18, "flash_attention_fwd_sm90": 18,
+            "flash_attention_bwd_dq_sm90": 18,
+            "flash_attention_bwd_dkv_sm90": 18, "fused_adam": 1}
+    _cap_compare(torch, pt, kreg, "Transformer-base training", main,
+                 startup, feed, [cost], CAP_CMP_STEPS, want)
+    gc_cuda(torch)
+    tokens = int(feed["lbl_w"].sum())
+    print(f"  Transformer-base training: non-pad target tokens/s "
+          f"captured {tokens * m['captured']:.1f}, eager "
+          f"{tokens * m['eager']:.1f}")
+    return m
+
+
+def _cap_serving(torch, pt, kreg, dev):
+    """Transformer-base serving (B=32, S=256) in float32 and with every
+    mul in the int8 GEMM kernel: captured runs (one replay a forward)
+    against the eager forward, within LOGITS_ATOL, and tokens/s of both
+    in turns."""
+    from paddle_tpu_torch.models import transformer as T
+    cfg = T.transformer_base(fuse_attention=True)
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, logits, _ = T.transformer_train(cfg, is_test=True)
+    startup.random_seed = SEED
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    B, S = 32, 256
+    rng = np.random.default_rng(SEED)
+    feed = T.make_batch(cfg, B, S, S, rng=rng,
+                        src_lens=rng.integers(S // 2, S + 1, B),
+                        trg_lens=rng.integers(S // 2, S + 1, B))
+    tokens = int(feed["lbl_w"].sum() + (feed["src_bias"] == 0).sum())
+    out = {}
+    for mode in ("float32", "int8"):
+        if mode == "int8":
+            os.environ["PT_KERNEL_QUANT_MATMUL"] = "int8"
+        try:
+            kreg.reset_counts()
+            runs = [_cap_run(exe, main, feed, [logits, cost], scope)
+                    for _ in range(3)]
+            eager = _cap_run(exe, main, feed, [logits, cost], scope, False)
+            counts = kreg.launches()
+            err = max(float(np.abs(r[0] - eager[0]).max()) for r in runs)
+            cerr = max(abs(float(r[1]) - float(eager[1])) /
+                       abs(float(eager[1])) for r in runs)
+            print(f"  serving {mode}: captured forwards vs the eager one: "
+                  f"logits max|err| {err:.3e} (atol {LOGITS_ATOL:g}), cost "
+                  f"rel err {cerr:.3e} (rtol {COST_RTOL:g}); launches in "
+                  f"3 captured + 1 eager forwards "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            _require(err <= LOGITS_ATOL and cerr <= COST_RTOL,
+                     f"serving {mode}: captured disagrees with eager")
+            _require(counts["flash_attention_fwd_f32_sm90"] == 18 * 4 and
+                     (mode == "float32" or
+                      counts["quantized_matmul_int8"] == SERVE_MULS * 4),
+                     f"serving {mode}: launches {counts}")
+            modes = _Modes(
+                captured=lambda: _cap_run(exe, main, feed, [cost], scope,
+                                          numpy=False)[0],
+                eager=lambda: _cap_run(exe, main, feed, [cost], scope,
+                                       False, False)[0])
+            modes.feed = feed
+            for _ in range(2):      # the cost-only plan: eager, capture
+                _cap_run(exe, main, feed, [cost], scope)
+            m = _cap_measure(torch, pt, f"serving {mode}", exe, main,
+                             scope, [cost], modes, "tokens/s", tokens)
+            out[mode] = {**m, "err": err}
+        finally:
+            os.environ.pop("PT_KERNEL_QUANT_MATMUL", None)
+    exe.close()
+    del exe, scope
+    gc_cuda(torch)
+    return out
+
+
+def _cap_lenet(torch, pt, kreg):
+    """LeNet at B=512 with SGD through the fused_sgd list kernel
+    (PT_KERNEL_MIN_NUMEL=1): 5 captured runs against 5 eager ones bit for
+    bit, one launch a run; then iterations=3 (the scope after one call
+    equals the scope after three single runs) and a scope write between
+    two replays (load_params_from_numpy), which the next replay reads."""
+    from paddle_tpu_torch.io import load_params_from_numpy
+    main, startup, _, cost, acc, _ = _mnist_program(pt)
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(MNIST_B, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (MNIST_B, 1)).astype(np.int64)}
+    _cap_compare(torch, pt, kreg, "LeNet SGD (PT_KERNEL_MIN_NUMEL=1)",
+                 main, startup, feed, [cost, acc], CAP_CMP_STEPS,
+                 {"fused_sgd": 1}, env={"PT_KERNEL_MIN_NUMEL": "1"})
+    with _deterministic(torch):
+        init = pt.Scope()
+        pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+        persist = [v.name for v in main.global_block().vars.values()
+                   if v.persistable and init.find_var(v.name) is not None]
+        scopes = [_copy_scope(pt, init, persist) for _ in range(4)]
+        exes = [pt.Executor(pt.CUDAPlace(0)) for _ in range(4)]
+        for exe, sc in zip(exes, scopes):
+            _cap_run(exe, main, feed, [cost], sc)
+        # iterations=3 in one call against three single runs (replays)
+        exes[0]._engine.run(main, scopes[0], pt.CUDAPlace(0), feed,
+                            [cost.name], iterations=3)
+        for _ in range(3):
+            _cap_run(exes[1], main, feed, [cost], scopes[1])
+        equal = all(torch.equal(scopes[0].find_var(n).get_tensor().tensor,
+                                scopes[1].find_var(n).get_tensor().tensor)
+                    for n in persist)
+        c0, c1 = _counters(exes[0]), _counters(exes[1])
+        print(f"  LeNet iterations=3 in one call vs three single runs: "
+              f"{len(persist)} persistables bit-equal {equal}; counters "
+              f"{c0} vs {c1}")
+        _require(equal and c0["replays"] == c1["replays"] == 3,
+                 "iterations=3 disagrees with three single runs")
+        # a scope write between two replays: captured and eager alike
+        w = main.all_parameters()[0].name
+        new_w = np.full(tuple(scopes[2].find_var(w).get_tensor().tensor
+                              .shape), 0.01, np.float32)
+        losses = {}
+        for i, cached in ((2, True), (3, False)):
+            out = [_cap_run(exes[i], main, feed, [cost], scopes[i],
+                            cached)[0] for _ in range(2)]
+            load_params_from_numpy(scopes[i], {w: new_w}, pt.CUDAPlace(0))
+            out += [_cap_run(exes[i], main, feed, [cost], scopes[i],
+                             cached)[0] for _ in range(2)]
+            losses[cached] = [float(x) for x in out]
+        print(f"  LeNet scope write between replays: losses captured "
+              f"{losses[True]}, eager {losses[False]}; counters "
+              f"{_counters(exes[2])}")
+        _require(losses[True] == losses[False] and
+                 losses[True][2] != losses[True][1] and
+                 _counters(exes[2])["captures"] == 1,
+                 "a scope write between replays did not take effect")
+        for exe in exes:
+            exe.close()
+    gc_cuda(torch)
+
+
+def _cap_ctr(torch, pt, kreg):
+    """Wide&Deep with dense and with sparse embedding gradients at
+    bench.py's size: three runs each; captured or eager as the capture
+    rule decides, and why."""
+    for kind in ("wide_deep", "sparse"):
+        main, startup, cost, feeds = _build_ctr(pt, kind)
+        feed = _ctr_feed(feeds)
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        exe.run(startup, scope=scope)
+        losses = [float(_cap_run(exe, main, feed, [cost], scope)[0])
+                  for _ in range(3)]
+        c = _counters(exe)
+        reasons = list(exe._engine.eager_reasons.values())
+        print(f"  CTR {kind}: losses {', '.join(f'{x:.6f}' for x in losses)}"
+              f"; {'captured' if c['captures'] else 'eager'} "
+              f"({'the capture rule admits the block' if not reasons else 'the capture rule keeps it eager: ' + reasons[0]}); "
+              f"counters {c}")
+        _require(all(np.isfinite(losses)) and len(set(losses)) == 3,
+                 f"CTR {kind}: losses {losses}")
+        _require(c["captures"] + len(reasons) == 1,
+                 f"CTR {kind}: neither captured nor refused: {c}")
+        exe.close()
+        del exe, scope
+    gc_cuda(torch)
+
+
+def capture_phase(torch, dev, built):
+    """Executor.run as one CUDA graph replay a run (core/engine.py
+    _Captured) on every main path: ResNet-50, Transformer-base training
+    and serving, LeNet (iterations=3, a scope write), the CTR models.
+    Returns the measured numbers."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    out = {"resnet": _cap_resnet(torch, pt, kreg, dev),
+           "training": _cap_transformer(torch, pt, kreg, dev, built),
+           "serving": _cap_serving(torch, pt, kreg, dev)}
+    _cap_lenet(torch, pt, kreg)
+    _cap_ctr(torch, pt, kreg)
+    print(f"  graph capture phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3494,7 +3978,12 @@ def main(argv=None):
             serve_launches[mode], _ = serve_mode(torch, served, mode)
         finally:
             kreg.unregister_kernel("tuned_matmul")
+    served["exe"].close()
     del served
+    gc_cuda(torch)
+
+    print("[graph capture phase]")
+    capture_phase(torch, dev, built)
 
     print("[resnet50 phase]")
     rn = resnet_phase(torch, dev)

@@ -33,13 +33,29 @@ op's OpInfo and the names to free after each. Later runs of the key
 reuse it; Executor.run(use_program_cache=False) builds one for the run
 alone.
 
+From a plan's second run on, the block runs as one CUDA graph, the
+counterpart of the JAX engine's jitted step (trace_step, with the
+updated persistables donated and the random key a traced argument): a
+rule decides before any launch whether the block can be captured (it
+runs once on the meta device, as the JAX engine's eval_shape probe; an
+op that cannot run there keeps it eager), then _Captured warms the step
+up on clones of the state, captures it under sync debug mode "error"
+(core/cuda_graph.py) and replays it at every run: the feeds copied into
+static inputs, the persistables living in static tensors that the
+scope's Variables point at, the random ops' generators and the
+attention kernels' device seeds rewritten for each run's index
+(registry.GraphRandom), the fetches copied out, and the launch counts
+of one run added at each replay. On the CPU a replay runs the step on
+the same static tensors.
+
 Engine.run takes the reference's arguments: a Place (or a torch.device;
 None is default_place(), CUDAPlace(0)), block_idx 0 (sub-blocks are not
 ported) and `iterations`: K runs of the plan on the same feeds, each
-with its own run index, returning the fetches of the last. A feed that
-is already a torch tensor on the run's device is used as it is. Values
-in the env may be SelectedRows (core/selected_rows.py): the sparse
-gradients of lookup_table.
+with its own run index (replays of a captured block), returning the
+fetches of the last. A feed that is already a torch tensor on the run's
+device is used as it is (copied on the device into a captured block's
+static input). Values in the env may be SelectedRows
+(core/selected_rows.py): the sparse gradients of lookup_table.
 """
 from __future__ import annotations
 
@@ -48,11 +64,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from . import cuda_graph
 from .amp import amp_guard
 from .enforce import EnforceNotMet, wrap_op_error
 from .place import Place, default_place
-from .registry import (OP_UID_ATTR, OPS, ExecContext, RunState,
-                       grad_diff_slots, has_generic_grad,
+from .registry import (OP_UID_ATTR, OPS, ExecContext, GraphRandom,
+                       RunState, grad_diff_slots, has_generic_grad,
                        run_forward_for_vjp)
 from .scope import Scope, tensor_to_numpy
 from .selected_rows import is_selected_rows
@@ -135,28 +152,33 @@ def block_spans(block, record_slots, frees):
     return spans
 
 
+def _run_span(block, env, device, run, span):
+    i, j, kind, info, _ = span
+    op = block.ops[i]
+    if kind == _RECORD:
+        uid = op.attr(OP_UID_ATTR)
+        run.records[uid] = run_forward_for_vjp(
+            op.type, op._inputs, op._outputs, op._attrs,
+            run.record_slots[uid], env, env, device, run)
+    elif kind == _GROUP:
+        info.group[1]([ExecContext(o, env, device, run)
+                       for o in block.ops[i:j]])
+    else:
+        info.lowering(ExecContext(op, env, device, run))
+
+
 def run_block_ops(block, env: Dict[str, torch.Tensor], device, run, spans):
     """Run the ops of `block` step by step as `spans` (block_spans)
     says, reading and writing `env`; `run` is the RunState."""
-    ops = block.ops
-    for i, j, kind, info, drop in spans:
-        op = ops[i]
+    for span in spans:
         try:
-            if kind == _RECORD:
-                uid = op.attr(OP_UID_ATTR)
-                run.records[uid] = run_forward_for_vjp(
-                    op.type, op._inputs, op._outputs, op._attrs,
-                    run.record_slots[uid], env, env, device, run)
-            elif kind == _GROUP:
-                info.group[1]([ExecContext(o, env, device, run)
-                               for o in ops[i:j]])
-            else:
-                info.lowering(ExecContext(op, env, device, run))
+            _run_span(block, env, device, run, span)
         except EnforceNotMet:
             raise
         except Exception as exc:  # re-raise with op and var context
-            raise wrap_op_error(exc, op, env, i) from exc
-        for n in drop:
+            raise wrap_op_error(exc, block.ops[span[0]], env,
+                                span[0]) from exc
+        for n in span[4]:
             env.pop(n, None)
 
 
@@ -222,6 +244,209 @@ def _fetch_numpy(value):
     return tensor_to_numpy(value)
 
 
+def _amp_guard(program):
+    amp = program._amp
+    return amp_guard(amp is not None,
+                     *((amp["dtype"], amp["black_ops"], amp["white_ops"])
+                       if amp is not None else ()))
+
+
+def _meta(t):
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def capture_blocker(program, block, plan, feeds, fetch_names):
+    """The rule that decides, before any launch, whether the engine
+    captures a block (the counterpart of the JAX engine's eval_shape
+    probe): the block runs once on the meta device, on meta tensors of
+    the persistables and feeds, as build-time shape inference runs its
+    ops. None when every op ran there and every fetch and persistable
+    written is a tensor (plan.written then holds the meta tensors of the
+    persistables written); else the reason the block stays eager: the
+    type of the first op that could not run there (a shape that depends
+    on values, a host read), or the fetch or state that is no tensor."""
+    env = {}
+    for n, var in plan.in_vars:
+        t = var.get_tensor().tensor
+        if not isinstance(t, torch.Tensor):
+            return f"state {n}"
+        env[n] = _meta(t)
+    env.update((n, _meta(t)) for n, t in feeds.items())
+    run = RunState(program.random_seed, 0, plan.record_slots,
+                   plan.grad_uids)
+    meta = torch.device("meta")
+    with torch.no_grad(), _amp_guard(program):
+        for span in plan.spans:
+            try:
+                _run_span(block, env, meta, run, span)
+            except Exception:   # the op cannot run on meta: the rule
+                return block.ops[span[0]].type
+            for n in span[4]:
+                env.pop(n, None)
+    for n in list(fetch_names) + [n for n, _ in plan.out_vars]:
+        if not isinstance(env.get(n), torch.Tensor):
+            return f"fetch {n}" if n in fetch_names else f"state {n}"
+    plan.written = {n: env[n] for n, _ in plan.out_vars}
+    return None
+
+
+def _routing():
+    """What a capture bakes in besides the plan: the kernel registry's
+    routing (kernels.registry.routing_state), torch's deterministic mode
+    and its float32 matmul precision. The convolution library's own
+    switches are read when a block is captured: set them before a
+    program's first runs."""
+    from ..kernels import registry as kreg
+    return (kreg.routing_state(),
+            torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+class _Captured:
+    """A plan's block captured as one CUDA graph (core/cuda_graph.py),
+    the counterpart of the JAX engine's jitted TracedStep. It holds one
+    static input tensor a feed, one static tensor a persistable the block
+    reads or writes (the scope's Variables point at them; the block's
+    new values are copied into them at the end of the graph, in the
+    holder's dtype), the fetch targets the graph writes, the block's
+    GraphRandom and the launch counts and registry decisions of one run
+    (`counted`). On a card the step runs twice on a side stream on
+    clones of the state (its draws make the GraphRandom's generators and
+    seed tensors; it launches nothing a run counts), then is captured.
+
+    On the CPU there is no graph: a replay runs the step itself on the
+    same static tensors with the same bookkeeping (feeds copied in,
+    state synced, random state prepared, fetches copied out). The first
+    replay draws the GraphRandom's generators and seed tensors and
+    counts its launches and decisions as `counted`; each later one
+    counts `counted` in place of its own, as a graph replay does."""
+
+    __slots__ = ("device", "routing", "inputs", "state", "holders",
+                 "outputs", "random", "counted", "graph", "_body")
+
+    def __init__(self, program, block, scope, device, plan, feeds,
+                 fetch_names, routing, pool):
+        from ..kernels import registry as kreg
+        self.device = device
+        self.routing = routing
+        self.graph = self.outputs = self.counted = None
+        self.inputs = {n: t.clone() for n, t in feeds.items()}
+        self.holders = {n: var.get_tensor()
+                        for n, var in plan.in_vars + plan.out_vars}
+        self.state = {n: self.holders[n].tensor.to(device, copy=True)
+                      for n, _ in plan.in_vars}
+        for n, meta in plan.written.items():   # written, never read
+            if n not in self.state:
+                old = self.holders[n].tensor
+                self.state[n] = torch.empty(
+                    meta.shape, device=device,
+                    dtype=meta.dtype if old is None else old.dtype)
+        self.random = random = GraphRandom(program.random_seed, device)
+        # the closures hold no reference to self or the plan: a dropped
+        # engine frees its graphs without waiting for the cycle collector
+        inputs, state = self.inputs, self.state
+        written = {n: state[n] for n in plan.written}
+        records, grad_uids, spans = plan.record_slots, plan.grad_uids, \
+            plan.spans
+
+        def step(start, index):
+            env = dict(start)
+            env.update(inputs)
+            run = RunState(program.random_seed, index, records, grad_uids,
+                           graph=random)
+            with torch.no_grad(), _amp_guard(program):
+                run_block_ops(block, env, device, run, spans)
+            return env
+
+        first = scope.peek_run(program._uid)
+
+        def body(index=first):
+            env = step(state, index)
+            cuda_graph.copy_back(written, env.__getitem__)
+            return {n: env[n] for n in fetch_names}
+
+        self._body = body
+        if device.type != "cuda":
+            return
+        snap = kreg.counts_snapshot()
+        try:
+            cuda_graph.warm_up(lambda: step(
+                {n: t.clone() for n, t in state.items()}, first), device)
+            kreg.counts_restore(snap)
+            random.seal()
+            if random.generators and not cuda_graph.can_register():
+                raise RuntimeError(
+                    "capture: the block draws random numbers, and this "
+                    "torch cannot register a generator with a CUDA graph, "
+                    "so every replay would draw the same ones")
+            self.graph, self.outputs = cuda_graph.capture(
+                body, random.generators.values(), pool)
+            self.counted = kreg.counts_delta(snap, kreg.counts_snapshot())
+        finally:
+            kreg.counts_restore(snap)
+
+    def load_feeds(self, feed):
+        """Copy the run's feeds into the static inputs: a tensor on the
+        run's device on the device, a numpy array through pinned host
+        memory."""
+        for n, static in self.inputs.items():
+            a = feed[n]
+            if isinstance(a, torch.Tensor) and a.device == static.device:
+                static.copy_(a)
+                continue
+            host = a if isinstance(a, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(a))
+            if host.dtype != static.dtype:
+                host = host.to(static.dtype)
+            if static.device.type == "cuda":
+                static.copy_(host.pin_memory(), non_blocking=True)
+            else:
+                static.copy_(host)
+
+    def sync_state(self):
+        """Point each scope Variable at its static tensor, copying in a
+        value set since the last run. False when such a value no longer
+        fits its static tensor (another shape or dtype): the block must
+        be captured again."""
+        for n, t in self.state.items():
+            v = self.holders[n].tensor
+            if v is not t and v is not None and (
+                    v.shape != t.shape or v.dtype != t.dtype):
+                return False
+        for n, t in self.state.items():   # written, never set yet
+            if self.holders[n].tensor is None:
+                self.holders[n].set_tensor(t)
+        cuda_graph.sync_state(self.state, lambda n: self.holders[n].tensor,
+                              lambda n, t: self.holders[n].set_tensor(t))
+        return True
+
+    def replay(self, index):
+        """One run with run index `index`: the random state prepared for
+        it, the graph replayed (on the CPU: the step run), the launches
+        and decisions of a run counted."""
+        from ..kernels import registry as kreg
+        self.random.prepare(index)
+        if self.graph is not None:
+            self.graph.replay()
+        elif self.counted is None:
+            before = kreg.counts_snapshot()
+            self.outputs = self._body(index)
+            self.counted = kreg.counts_delta(before, kreg.counts_snapshot())
+            self.random.seal()
+            return
+        else:
+            snap = kreg.counts_snapshot()
+            self.outputs = self._body(index)
+            kreg.counts_restore(snap)
+        kreg.counts_add(self.counted)
+
+    def release(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.outputs = self._body = None
+
+
 class _Plan:
     """What one run of a block needs that depends only on the program,
     the scope, the fetches and the feed signature: the persistable
@@ -233,7 +458,7 @@ class _Plan:
 
     __slots__ = ("scope", "generation", "device", "feed_sig", "in_vars",
                  "out_vars", "feed_dtypes", "record_slots", "grad_uids",
-                 "spans")
+                 "spans", "runs", "blocker", "written", "captured")
 
     def __init__(self, block, scope, device, feed_sig, fetch_names):
         self.scope = scope
@@ -255,6 +480,10 @@ class _Plan:
         self.record_slots, self.grad_uids = training_plan(block)
         frees = _last_reads(block, set(fetch_names) | set(outputs))
         self.spans = block_spans(block, self.record_slots, frees)
+        self.runs = 0
+        self.blocker = _UNPROBED
+        self.written = None
+        self.captured = None
 
     def valid_for(self, scope, device, feed_sig):
         return self.scope is scope and \
@@ -265,6 +494,8 @@ class _Plan:
 # plans kept per key: one per live feed signature (a training loop sees
 # one or two: the batches and a shorter last one)
 _MAX_PLANS = 4
+# _Plan.blocker before the capture rule has run
+_UNPROBED = object()
 
 
 class Engine:
@@ -272,12 +503,32 @@ class Engine:
     fingerprint, block, fetch names, AMP config, op registry generation),
     at most _MAX_PLANS a key, one per feed signature. Kernel selection
     happens inside each lowering on every call, so the registry's flags
-    and environment are not part of the key. `counters`: runs,
-    fast_path_hits (runs that reused a plan) and traces (plans built)."""
+    and environment are not part of the key; a captured block is
+    captured again when they change (_routing).
+
+    With the plan cache on, the second run of a plan captures its block
+    as one CUDA graph (_Captured) when the capture rule admits it
+    (capture_blocker), and every later run replays it: the counterpart
+    of the JAX engine's jitted step. The first run is eager (it builds
+    the plan and the kernels); a block the rule refuses stays eager, and
+    `eager_reasons` maps its (program fingerprint, fetch names) to the
+    reason. On the CPU the same bookkeeping replays by running the step
+    on the static tensors. The graphs of an engine share one memory pool.
+
+    `counters`: runs (Engine.run calls), fast_path_hits (runs that
+    reused a plan), traces (plans built), captures (blocks captured),
+    replays (runs of a captured block) and eager_runs (runs of the
+    block op by op)."""
 
     def __init__(self):
         self._plans: Dict[tuple, List[_Plan]] = {}
-        self.counters = {"runs": 0, "fast_path_hits": 0, "traces": 0}
+        # the graphs' shared memory pool, and the live graphs in it (torch
+        # frees a pool with its last graph: a new one is made then)
+        self._pool = None
+        self._live = 0
+        self.counters = {"runs": 0, "fast_path_hits": 0, "traces": 0,
+                         "captures": 0, "replays": 0, "eager_runs": 0}
+        self.eager_reasons: Dict[tuple, str] = {}
 
     @staticmethod
     def _key(program, fetch_names):
@@ -300,8 +551,24 @@ class Engine:
             plans = self._plans.setdefault(key, [])
             plans.append(plan)
             if len(plans) > _MAX_PLANS:
-                plans.pop(0)
+                self._release(plans.pop(0))
         return plan
+
+    def _release(self, plan):
+        """Release a plan's captured graph, if it has one."""
+        cap, plan.captured = plan.captured, None
+        if cap is not None:
+            self._live -= cap.graph is not None
+            cap.release()
+
+    def close(self):
+        """Release every plan and captured graph, and the graphs' memory
+        pool."""
+        for plans in self._plans.values():
+            for plan in plans:
+                self._release(plan)
+        self._plans.clear()
+        self._pool = None
 
     def run(self, program, scope: Scope, place, feed, fetch_names,
             block_idx: int = 0, return_numpy: bool = True,
@@ -310,7 +577,10 @@ class Engine:
         feeds (numpy arrays or torch tensors), each run with its own run
         index (random ops draw anew), and return the fetches of the last
         run. use_program_cache=False builds the plan for this call
-        alone: it neither reuses one nor keeps it."""
+        alone: it neither reuses one nor keeps it, and captures nothing.
+        A captured block returns clones of its fetches (numpy copies with
+        return_numpy), so no caller holds a tensor the next replay
+        overwrites."""
         if block_idx != 0:
             raise NotImplementedError(
                 f"block_idx={block_idx}: sub-blocks are not ported; the "
@@ -325,6 +595,43 @@ class Engine:
         key = self._key(program, fetch_names) if use_program_cache \
             else None
         plan = self._plan(block, key, scope, device, feed, fetch_names)
+        plan.runs += 1
+        feeds = None
+        if key is not None and plan.runs > 1:
+            missing = [n for n, var in plan.in_vars
+                       if var.get_tensor().tensor is None]
+            if missing:
+                raise _missing_error(missing)
+            if plan.blocker is _UNPROBED:
+                feeds = self._feeds(plan, feed, device)
+                plan.blocker = capture_blocker(program, block, plan, feeds,
+                                               fetch_names)
+                if plan.blocker is not None:
+                    self.eager_reasons.setdefault(
+                        (program.fingerprint, tuple(fetch_names)),
+                        plan.blocker)
+            if plan.blocker is None:
+                return self._replay(program, block, scope, device, plan,
+                                    feed, feeds, fetch_names,
+                                    return_numpy, iterations)
+        if feeds is None:
+            feeds = self._feeds(plan, feed, device)
+        for _ in range(iterations):
+            env = self._run_once(program, block, scope, device, plan, feeds)
+            self.counters["eager_runs"] += 1
+        results = []
+        for n in fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch target {n!r} was not computed by "
+                               f"the program")
+            results.append(_fetch_numpy(env[n]) if return_numpy
+                           else env[n])
+        return results
+
+    @staticmethod
+    def _feeds(plan, feed, device):
+        """The feeds as tensors on the device in the dtypes the block
+        declares."""
         feeds = {}
         for name, arr in feed.items():
             if isinstance(arr, torch.Tensor):
@@ -335,16 +642,37 @@ class Engine:
             if dt is not None and t.dtype != dt:
                 t = t.to(dt)                  # bf16 feeds
             feeds[name] = t
+        return feeds
+
+    def _replay(self, program, block, scope, device, plan, feed, feeds,
+                fetch_names, return_numpy, iterations):
+        """The captured runs of a plan: the block captured at its first
+        call here (and again when the routing changed or a scope value no
+        longer fits), then one replay a run."""
+        cap = plan.captured
+        routing = _routing()
+        if cap is not None and (cap.routing != routing or
+                                not cap.sync_state()):
+            self._release(plan)
+            cap = None
+        if cap is None:
+            if feeds is None:
+                feeds = self._feeds(plan, feed, device)
+            if device.type == "cuda" and not self._live:
+                self._pool = torch.cuda.graph_pool_handle()
+            cap = plan.captured = _Captured(
+                program, block, scope, device, plan, feeds, fetch_names,
+                routing, self._pool)
+            self._live += cap.graph is not None
+            self.counters["captures"] += 1
+            cap.sync_state()
+        else:
+            cap.load_feeds(feed)
         for _ in range(iterations):
-            env = self._run_once(program, block, scope, device, plan, feeds)
-        results = []
-        for n in fetch_names:
-            if n not in env:
-                raise KeyError(f"fetch target {n!r} was not computed by "
-                               f"the program")
-            results.append(_fetch_numpy(env[n]) if return_numpy
-                           else env[n])
-        return results
+            cap.replay(scope.next_run(program._uid))
+            self.counters["replays"] += 1
+        return [_fetch_numpy(cap.outputs[n]) if return_numpy
+                else cap.outputs[n].clone() for n in fetch_names]
 
     @staticmethod
     def _run_once(program, block, scope, device, plan, feeds):
@@ -366,11 +694,7 @@ class Engine:
 
         run = RunState(program.random_seed, scope.next_run(program._uid),
                        plan.record_slots, plan.grad_uids)
-        amp = program._amp
-        with torch.no_grad(), amp_guard(
-                amp is not None,
-                *((amp["dtype"], amp["black_ops"], amp["white_ops"])
-                  if amp is not None else ())):
+        with torch.no_grad(), _amp_guard(program):
             run_block_ops(block, env, device, run, plan.spans)
 
         for n, var in plan.out_vars:

@@ -154,12 +154,97 @@ def op_seed(program_seed: int, uid: int, run: int = 0) -> int:
     return zlib.crc32(f"{int(program_seed)}:{int(uid)}:{int(run)}".encode())
 
 
+class GraphRandom:
+    """The random state of a block the engine captures as a CUDA graph
+    (core/engine.py): one generator and one device seed tensor for each
+    draw of a run, made at the first warm-up run and kept for the
+    graph's life, so that a replay reads them where the capture did.
+    A draw is keyed by (kind, seed source, occurrence): the source is
+    the op's fixed `seed` attr or its uid, and the occurrence counts the
+    draws of that source in one run, so a grad op that draws again for
+    its forward's uid (no record) gets a generator of its own, seeded as
+    its forward's: in eager runs each draw is a fresh generator, and a
+    second draw from one graph generator would advance its offset.
+
+    Before each replay, prepare(r) re-seeds every generator for run
+    index r (a registered generator replays from the seed and offset it
+    holds then) and writes every seed tensor with the words of run r,
+    from the host derivation the eager run uses (op_seed): a captured run
+    with index r draws the masks of the eager run with index r. The seed
+    tensors are rows of one int64 [N, 2] buffer (seal()), written by one
+    copy from pinned host memory."""
+
+    def __init__(self, program_seed, device):
+        self.program_seed = program_seed
+        self.device = device
+        self.generators: Dict[tuple, torch.Generator] = {}
+        self.slots: Dict[tuple, torch.Tensor] = {}
+        self.sealed = False
+        self._buf = None
+
+    def _new(self, key):
+        if self.sealed:
+            raise RuntimeError(
+                f"capture: a random draw ({key[0]} of {key[1]}) that no "
+                f"warm-up run made")
+
+    def seed_of(self, source, run):
+        kind, value = source
+        return value if kind == "seed" else \
+            op_seed(self.program_seed, value, run)
+
+    def generator(self, key, seed):
+        g = self.generators.get(key)
+        if g is None:
+            self._new(key)
+            g = self.generators[key] = torch.Generator(device=self.device)
+            g.manual_seed(seed)
+        return g
+
+    def seed_slot(self, key, words):
+        t = self.slots.get(key)
+        if t is None:
+            self._new(key)
+            t = self.slots[key] = torch.tensor(
+                words, dtype=torch.int64).to(self.device)
+        return t
+
+    def seal(self):
+        """After the warm-up runs: no new draw; the seed tensors become
+        rows of one buffer."""
+        self.sealed = True
+        if self.slots:
+            keys = list(self.slots)
+            self._buf = torch.stack([self.slots[k] for k in keys])
+            self.slots = dict(zip(keys, self._buf.unbind(0)))
+
+    def prepare(self, run):
+        """Re-seed the generators and rewrite the seed tensors for run
+        index `run`, on the current stream, with no host sync: the words
+        go to the card through pinned memory that the caching host
+        allocator keeps until the copy is done."""
+        for (_, source, _), g in self.generators.items():
+            g.manual_seed(self.seed_of(source, run))
+        if self._buf is None:
+            return
+        host = torch.tensor([op_seed_words(self.seed_of(source, run))
+                             for _, source, _ in self.slots],
+                            dtype=torch.int64)
+        if self.device.type == "cuda":
+            self._buf.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            self._buf.copy_(host)
+
+
 class RunState:
     """What one Executor run shares with its ops: the program seed, the
     run index, and the forward records the grad ops consume.
     `record_slots` maps the uid of each forward op whose generic grad op
     is in the block to the slots that grad op differentiates; `grad_uids`
-    holds the uids of every grad op in the block.
+    holds the uids of every grad op in the block. `graph`, set while the
+    engine warms up, captures or replays a block (capture mode), is the
+    block's GraphRandom: the random ops draw from its generators and
+    seed tensors, counted per source in `draws`.
 
     The dygraph tracer keeps one RunState for all its ops: `generator`
     is then its own generator, which every random op without a fixed
@@ -167,10 +252,10 @@ class RunState:
     captures a step (dygraph/jit.py)."""
 
     __slots__ = ("program_seed", "run", "records", "record_slots",
-                 "grad_uids", "generator", "capturing")
+                 "grad_uids", "generator", "capturing", "graph", "draws")
 
     def __init__(self, program_seed=0, run=0, record_slots=None,
-                 grad_uids=(), generator=None):
+                 grad_uids=(), generator=None, graph=None):
         self.program_seed = program_seed
         self.run = run
         self.records: Dict[int, object] = {}
@@ -178,6 +263,29 @@ class RunState:
         self.grad_uids = frozenset(grad_uids)
         self.generator = generator
         self.capturing = False
+        self.graph = graph
+        self.draws: Dict[tuple, int] = {}
+
+
+def op_seed_words(seed: int):
+    """The two uint32 words of an in-kernel hash seed, from one op seed,
+    made on the host."""
+    g = torch.Generator()
+    g.manual_seed(int(seed))
+    w = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, generator=g)
+    return int(w[0]), int(w[1])
+
+
+def seed_tensor(words, device) -> torch.Tensor:
+    """Two seed words as the attention kernels read them: int64 [2] on
+    `device`, each holding a uint32; to a card through pinned memory,
+    with no host sync."""
+    host = torch.tensor([int(w) & 0xFFFFFFFF for w in words],
+                        dtype=torch.int64)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 class ExecContext:
@@ -261,19 +369,34 @@ class ExecContext:
         return op_seed(run.program_seed if run else 0,
                        self.op.attr(OP_UID_ATTR, 0), run.run if run else 0)
 
+    def _draw_key(self, kind):
+        """(kind, seed source, occurrence in this run) of a draw in
+        capture mode (GraphRandom)."""
+        seed = self.op.attr("seed", 0)
+        source = ("seed", int(seed)) if seed else \
+            ("uid", self.op.attr(OP_UID_ATTR, 0))
+        draws = self.run.draws
+        n = draws.get((kind, source), 0)
+        draws[(kind, source)] = n + 1
+        return kind, source, n
+
     def generator(self) -> Optional[torch.Generator]:
         """A generator on the op's device, seeded from the op's `seed`
         attr when nonzero, else from the program seed, the op uid and
         the run index. A grad op has its forward's uid, so it draws what
         its forward drew. Under the dygraph tracer an op without a fixed
-        seed draws from the tracer's generator (RunState.generator).
-        None on the meta device, where nothing is drawn."""
+        seed draws from the tracer's generator (RunState.generator); in
+        capture mode from the block's GraphRandom, seeded alike. None on
+        the meta device, where nothing is drawn."""
         if self.device.type == "meta":
             return None
         run = self.run
         if run is not None and run.generator is not None and \
                 not self.op.attr("seed", 0):
             return run.generator
+        if run is not None and run.graph is not None:
+            return run.graph.generator(self._draw_key("generator"),
+                                       self._seed())
         g = torch.Generator(device=self.device)
         g.manual_seed(self._seed())
         return g
@@ -282,16 +405,28 @@ class ExecContext:
         """Two uint32 words from the same seed, made on the host (no
         device round trip): the seed of an in-kernel hash. Refused while
         a CUDA graph captures a step: a host seed would repeat on every
-        replay."""
-        if self.run is not None and self.run.capturing:
+        replay (seed_tensor() is the kernels' seed)."""
+        if self.run is not None and (self.run.capturing or
+                                     self.run.graph is not None):
             raise RuntimeError(
                 f"{self.op.type}: an in-kernel random seed is drawn on the "
                 f"host, so a CUDA graph would replay the same one on every "
                 f"call; this op cannot be captured")
-        g = torch.Generator()
-        g.manual_seed(self._seed())
-        w = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, generator=g)
-        return int(w[0]), int(w[1])
+        return op_seed_words(self._seed())
+
+    def seed_tensor(self) -> torch.Tensor:
+        """The seed words of seed_words() as the attention kernels read
+        them: an int64 [2] tensor on the op's device. In capture mode it
+        is the block's seed tensor for this draw (GraphRandom), which the
+        engine rewrites before every replay; on the meta device an empty
+        one."""
+        if self.device.type == "meta":
+            return torch.empty(2, dtype=torch.int64, device="meta")
+        run = self.run
+        if run is not None and run.graph is not None:
+            key = self._draw_key("seed")
+            return run.graph.seed_slot(key, op_seed_words(self._seed()))
+        return seed_tensor(self.seed_words(), self.device)
 
     # ---- forward records --------------------------------------------------
     def wants_record(self) -> bool:

@@ -102,6 +102,12 @@ class Scope:
         self._runs[program_uid] = i + 1
         return i
 
+    def peek_run(self, program_uid: int) -> int:
+        """The index next_run would give, without taking it: the
+        engine's warm-up runs before a capture draw with it and consume
+        no run."""
+        return self._runs.get(program_uid, 0)
+
     def var(self, name: str) -> Variable:
         v = self._vars.get(name)
         if v is None:

@@ -83,7 +83,7 @@ struct Params {
   int64_t bias_sb, bias_sh, bias_sq;
   float scale;
   int causal;
-  uint32_t s0, s1;
+  const int64_t* seed;  // [2] on the card; null: no dropout
   int drop_t;
   float drop_scale;
 };
@@ -224,7 +224,7 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-  const uint32_t hseed = fa::head_seed(p.s0, p.s1, static_cast<uint32_t>(bh));
+  const uint32_t hseed = fa::head_seed_dev(p.seed, static_cast<uint32_t>(bh));
 
   if constexpr (NC == 1) {  // q and dO stay for the whole block
     load_tile<T, CH>(sQ, qg, p.q_ss, q0, p.Sq, p.D);
@@ -346,7 +346,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-  const uint32_t hseed = fa::head_seed(p.s0, p.s1, static_cast<uint32_t>(bh));
+  const uint32_t hseed = fa::head_seed_dev(p.seed, static_cast<uint32_t>(bh));
 
   if constexpr (NC == 1) {  // k and v stay for the whole block
     load_tile<T, CH>(sK, kg, p.k_ss, k0, p.Sk, p.D);
@@ -490,9 +490,9 @@ int fill(Params& p, const void* q, const void* k, const void* v,
          const void* out, const void* dout, const void* bias,
          const void* lse, void* di, void* dq, void* dk, void* dv, void* ds,
          int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
-         int causal, uint32_t s0, uint32_t s1, int drop_t) {
+         int causal, const void* seed, int drop_t) {
   if (D < 1 || B < 1 || H < 1 || Sq < 1 || Sk < 1 || drop_t < 0 ||
-      drop_t > 255)
+      drop_t > 255 || (drop_t > 0 && seed == nullptr))
     return 0;
   p.q = q;
   p.k = k;
@@ -520,8 +520,7 @@ int fill(Params& p, const void* q, const void* k, const void* v,
   for (int i = 0; i < 27; ++i) *dst[i] = st[i];
   p.scale = scale;
   p.causal = causal;
-  p.s0 = s0;
-  p.s1 = s1;
+  p.seed = drop_t > 0 ? static_cast<const int64_t*>(seed) : nullptr;
   p.drop_t = drop_t;
   p.drop_scale = drop_t > 0 ? static_cast<float>(256.0 / drop_t) : 1.f;
   return 1;
@@ -534,7 +533,8 @@ int fill(Params& p, const void* q, const void* k, const void* v,
 // dq, dk, dv (each batch, sequence, head) and bias (batch, head, query).
 // lse and di are [B, H, Sq] float32; bias, ds and the outputs the entry
 // point does not write may be null. drop_t: 0 for no dropout, else the
-// keep threshold 1..255 with seed words s0, s1. Returns the cudaError_t.
+// keep threshold 1..255, with seed pointing at the two seed words on the
+// card (int64 [2]). Returns the cudaError_t.
 //
 // pt_flash_attention_bwd_dq: writes di (pre-pass), dq and, if ds is not
 // null, ds (which the caller zeroes: causal-skipped tiles are not
@@ -543,11 +543,11 @@ extern "C" int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
     void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* strides, float scale, int causal, uint32_t s0,
-    uint32_t s1, int drop_t, void* stream) {
+    int D, const int64_t* strides, float scale, int causal, const void* seed,
+    int drop_t, void* stream) {
   Params p;
   if (!fill(p, q, k, v, out, dout, bias, lse, di, dq, dk, dv, ds, B, H, Sq,
-            Sk, D, strides, scale, causal, s0, s1, drop_t))
+            Sk, D, strides, scale, causal, seed, drop_t))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -570,11 +570,11 @@ extern "C" int pt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
     void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* strides, float scale, int causal, uint32_t s0,
-    uint32_t s1, int drop_t, void* stream) {
+    int D, const int64_t* strides, float scale, int causal, const void* seed,
+    int drop_t, void* stream) {
   Params p;
   if (!fill(p, q, k, v, out, dout, bias, lse, di, dq, dk, dv, ds, B, H, Sq,
-            Sk, D, strides, scale, causal, s0, s1, drop_t))
+            Sk, D, strides, scale, causal, seed, drop_t))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

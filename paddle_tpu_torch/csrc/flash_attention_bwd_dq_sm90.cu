@@ -68,7 +68,7 @@ struct Params {
   int64_t bias_sb, bias_sh, bias_sq;
   float scale;
   int causal;
-  uint32_t s0, s1;
+  const int64_t* seed;  // [2] on the card; null: no dropout
   int drop_t;
   float drop_scale;
 };
@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(128, DCH == 1 ? 3 : 2)
 
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-  const uint32_t hseed = fa::head_seed(p.s0, p.s1, static_cast<uint32_t>(bh));
+  const uint32_t hseed = fa::head_seed_dev(p.seed, static_cast<uint32_t>(bh));
   const float scale2 = p.scale * fa::LOG2E;
   const bool q_edge = q0 + 64 > p.Sq;
 
@@ -370,11 +370,12 @@ extern "C" int pt_flash_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
     void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* st, float scale, int causal, uint32_t s0,
-    uint32_t s1, int drop_t, void* stream) {
+    int D, const int64_t* st, float scale, int causal, const void* seed,
+    int drop_t, void* stream) {
   (void)dk, (void)dv;
   if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || B < 1 || H < 1 ||
-      Sq < 1 || Sk < 1 || drop_t < 0 || drop_t > 255 ||
+      Sq < 1 || Sk < 1 || drop_t < 0 ||
+      (drop_t > 0 && seed == nullptr) || drop_t > 255 ||
       reinterpret_cast<uintptr_t>(dq) % 4 != 0 || st[15] % 2 != 0 ||
       st[16] % 2 != 0 || st[17] % 2 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -405,8 +406,7 @@ extern "C" int pt_flash_attention_bwd_dq_sm90(
   p.bias_sq = st[26];
   p.scale = scale;
   p.causal = causal;
-  p.s0 = s0;
-  p.s1 = s1;
+  p.seed = drop_t > 0 ? static_cast<const int64_t*>(seed) : nullptr;
   p.drop_t = drop_t;
   p.drop_scale = drop_t > 0 ? static_cast<float>(256.0 / drop_t) : 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

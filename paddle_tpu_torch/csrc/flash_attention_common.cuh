@@ -97,6 +97,18 @@ __device__ __forceinline__ uint32_t head_seed(uint32_t s0, uint32_t s1,
   return s0 ^ mix32(s1 ^ (bh * 0x9E3779B1u));
 }
 
+// head_seed from the two seed words on the card (int64 [2], each holding
+// a uint32; null: no dropout, and no mask is drawn). The kernels read the
+// words here, so a CUDA graph that captured them draws the masks of the
+// words written before each replay.
+__device__ __forceinline__ uint32_t head_seed_dev(const int64_t* seed,
+                                                  uint32_t bh) {
+  return seed == nullptr
+             ? 0u
+             : head_seed(static_cast<uint32_t>(seed[0]),
+                         static_cast<uint32_t>(seed[1]), bh);
+}
+
 // pos = row * Sk + col (mod 2^32)
 __device__ __forceinline__ bool keep_pos(uint32_t hseed, uint32_t pos,
                                          int t) {

@@ -79,8 +79,9 @@ struct Params {
   int64_t bias_sb, bias_sh, bias_sq;
   float scale;
   int causal;
-  // dropout: drop_t in 1..255 (0: off), seed words, 256 / drop_t
-  uint32_t s0, s1;
+  // dropout: drop_t in 1..255 (0: off), the seed words on the card
+  // (int64 [2]; null when off), 256 / drop_t
+  const int64_t* seed;
   int drop_t;
   float drop_scale;
 };
@@ -121,7 +122,7 @@ __global__ void __launch_bounds__(NTHREADS)
   T* og = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
   const float* bg =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-  const uint32_t hseed = fa::head_seed(p.s0, p.s1, b * p.H + h);
+  const uint32_t hseed = fa::head_seed_dev(p.seed, b * p.H + h);
 
   // the whole q tile stays, zero beyond Sq and D
   if constexpr (CH == DPAD)
@@ -295,17 +296,19 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // dtype: 0 float32, 1 bfloat16. strides: 15 element strides, in order
 // q (b, s, h), k (b, s, h), v (b, s, h), out (b, s, h), bias (b, h, q).
 // bias and lse may be null. drop_t: 0 for no dropout, else the keep
-// threshold 1..255 with seed words s0, s1. Returns the cudaError_t of the
-// launch.
+// threshold 1..255, with seed pointing at the two seed words on the card
+// (int64 [2], each holding a uint32; read by the kernel, never by the
+// host, so a CUDA graph replays it with the words of each run). Returns
+// the cudaError_t of the launch.
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* bias,
                                       void* out, void* lse, int dtype,
                                       int B, int H, int Sq, int Sk, int D,
                                       const int64_t* strides, float scale,
-                                      int causal, uint32_t s0, uint32_t s1,
+                                      int causal, const void* seed,
                                       int drop_t, void* stream) {
   if (D < 1 || B < 1 || H < 1 || Sq < 1 || Sk < 1 || drop_t < 0 ||
-      drop_t > 255)
+      drop_t > 255 || (drop_t > 0 && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -336,8 +339,7 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   p.bias_sq = strides[14];
   p.scale = scale;
   p.causal = causal;
-  p.s0 = s0;
-  p.s1 = s1;
+  p.seed = drop_t > 0 ? static_cast<const int64_t*>(seed) : nullptr;
   p.drop_t = drop_t;
   p.drop_scale = drop_t > 0 ? static_cast<float>(256.0 / drop_t) : 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -79,7 +79,7 @@ struct Params {
   int64_t bias_sb, bias_sh, bias_sq;
   float scale;
   int causal;
-  uint32_t s0, s1;
+  const int64_t* seed;  // [2] on the card; null: no dropout
   int drop_t;
   float drop_scale;
 };
@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(128, DC == 1 ? 2 : 1)
                    ? p.bias + b * p.bias_sb + h * p.bias_sh +
                          (r_lo + 8 * h2) * p.bias_sq
                    : nullptr;
-  const uint32_t hseed = fa::head_seed(p.s0, p.s1, b * p.H + h);
+  const uint32_t hseed = fa::head_seed_dev(p.seed, b * p.H + h);
   const float scale2 = p.scale * fa::LOG2E;
 
   float o[DC][32];
@@ -399,10 +399,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" int pt_flash_attention_fwd_f32_sm90(
     const void* q, const void* k, const void* v, const void* bias,
     void* out, void* lse, int dtype, int B, int H, int Sq, int Sk, int D,
-    const int64_t* strides, float scale, int causal, uint32_t s0,
-    uint32_t s1, int drop_t, void* stream) {
+    const int64_t* strides, float scale, int causal, const void* seed,
+    int drop_t, void* stream) {
   if (dtype != 0 || D < 4 || D > 128 || D % 4 != 0 || B < 1 || H < 1 ||
-      Sq < 1 || Sk < 1 || drop_t < 0 || drop_t > 255 ||
+      Sq < 1 || Sk < 1 || drop_t < 0 ||
+      (drop_t > 0 && seed == nullptr) || drop_t > 255 ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -434,8 +435,7 @@ extern "C" int pt_flash_attention_fwd_f32_sm90(
   p.bias_sq = strides[14];
   p.scale = scale;
   p.causal = causal;
-  p.s0 = s0;
-  p.s1 = s1;
+  p.seed = drop_t > 0 ? static_cast<const int64_t*>(seed) : nullptr;
   p.drop_t = drop_t;
   p.drop_scale = drop_t > 0 ? static_cast<float>(256.0 / drop_t) : 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

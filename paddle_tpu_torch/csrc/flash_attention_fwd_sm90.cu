@@ -71,7 +71,7 @@ struct Params {
   int64_t bias_sb, bias_sh, bias_sq;
   float scale;
   int causal;
-  uint32_t s0, s1;
+  const int64_t* seed;  // [2] on the card; null: no dropout
   int drop_t;
   float drop_scale;
 };
@@ -148,7 +148,7 @@ __global__ void __launch_bounds__(128, DCH == 1 ? 4 : 1)
                    ? p.bias + b * p.bias_sb + h * p.bias_sh +
                          (r_lo + 8 * h2) * p.bias_sq
                    : nullptr;
-  const uint32_t hseed = fa::head_seed(p.s0, p.s1, b * p.H + h);
+  const uint32_t hseed = fa::head_seed_dev(p.seed, b * p.H + h);
   const float scale2 = p.scale * fa::LOG2E;
 
   float o[DCH][32];
@@ -395,10 +395,11 @@ __global__ void __launch_bounds__(128)
 extern "C" int pt_flash_attention_fwd_sm90(
     const void* q, const void* k, const void* v, const void* bias,
     void* out, void* lse, int dtype, int B, int H, int Sq, int Sk, int D,
-    const int64_t* strides, float scale, int causal, uint32_t s0,
-    uint32_t s1, int drop_t, void* stream) {
+    const int64_t* strides, float scale, int causal, const void* seed,
+    int drop_t, void* stream) {
   if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || B < 1 || H < 1 ||
-      Sq < 1 || Sk < 1 || drop_t < 0 || drop_t > 255 ||
+      Sq < 1 || Sk < 1 || drop_t < 0 ||
+      (drop_t > 0 && seed == nullptr) || drop_t > 255 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 || strides[9] % 8 != 0 ||
       strides[10] % 8 != 0 || strides[11] % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -426,8 +427,7 @@ extern "C" int pt_flash_attention_fwd_sm90(
   p.bias_sq = strides[14];
   p.scale = scale;
   p.causal = causal;
-  p.s0 = s0;
-  p.s1 = s1;
+  p.seed = drop_t > 0 ? static_cast<const int64_t*>(seed) : nullptr;
   p.drop_t = drop_t;
   p.drop_scale = drop_t > 0 ? static_cast<float>(256.0 / drop_t) : 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -18,8 +18,9 @@ real initial values and no update is applied; the value an abstract
 output replaced is restored from the tracer's snapshot. The state is the
 tracer's parameters, the optimizer's accumulators and `extra_state`.
 
-On a CUDA device each input signature then gets one torch.cuda.CUDAGraph:
-the step runs twice on a side stream on clones of the state (kernel
+On a CUDA device each input signature then gets one torch.cuda.CUDAGraph
+(core/cuda_graph.py, shared with the engine's captured blocks): the step
+runs twice on a side stream on clones of the state (kernel
 builds, library handles, workspaces and algorithm choices happen there),
 then is captured under sync debug mode "error" (a host sync in the step
 raises) reading static input buffers and the state tensors, and ends by
@@ -50,11 +51,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..core import cuda_graph
 from .tracer import VarBase
 
 __all__ = ["capture", "CapturedFunction"]
-
-_WARMUP_RUNS = 2
 
 
 def _flatten(outs):
@@ -209,11 +209,10 @@ class CapturedFunction:
     def _sync_state(self):
         """Copy a state value replaced since the last call into the
         graph's tensor."""
-        for n, vb in self._state.items():
-            t = self._static[n]
-            if vb.value is not t:
-                t.copy_(vb.value)
-                vb.value = t
+        def repoint(n, t):
+            self._state[n].value = t
+        cuda_graph.sync_state(self._static,
+                              lambda n: self._state[n].value, repoint)
 
     def _lr_decay(self):
         from .learning_rate_scheduler import LearningRateDecay
@@ -221,49 +220,42 @@ class CapturedFunction:
         return lr if isinstance(lr, LearningRateDecay) else None
 
     def _capture(self, tracer, ins):
-        """One CUDA graph of the step for the signature of `ins`."""
+        """One CUDA graph of the step for the signature of `ins`
+        (core/cuda_graph.py: warm-up on clones of the state, capture,
+        the new state copied into the graph's tensors)."""
         names = list(self._state)
         state = [self._state[n] for n in names]
         static = [self._static[n] for n in names]
         static_ins = [a.clone() for a in ins]
         decay = self._lr_decay()
         step_num = decay.step_num if decay is not None else None
-        cur = torch.cuda.current_stream(static_ins[0].device
-                                        if static_ins else None)
-        side = torch.cuda.Stream(device=cur.device)
-        side.wait_stream(cur)
+
+        def warm():
+            for vb, t in zip(state, static):
+                vb.value = t.clone()
+            self._run_step(tracer, static_ins)
+
+        def step():
+            outs = self._run_step(tracer, static_ins)
+            cuda_graph.copy_back(self._static,
+                                 lambda n: self._state[n].value)
+            return outs
+
         try:
-            with torch.cuda.stream(side):
-                for _ in range(_WARMUP_RUNS):
-                    for vb, t in zip(state, static):
-                        vb.value = t.clone()
-                    self._run_step(tracer, static_ins)
-            cur.wait_stream(side)
+            cuda_graph.warm_up(warm, tracer.device)
             for vb, t in zip(state, static):
                 vb.value = t
             if decay is not None:
                 decay.step_num = step_num   # advance once, at capture
-            graph = torch.cuda.CUDAGraph()
             gen = tracer._run.generator
-            registered = hasattr(graph, "register_generator_state")
-            if registered:
-                graph.register_generator_state(gen)
             drawn = gen.get_state()
-            sync_mode = torch.cuda.get_sync_debug_mode()
             tracer._run.capturing = True
             try:
-                with torch.cuda.graph(graph):
-                    torch.cuda.set_sync_debug_mode("error")
-                    try:
-                        outs = self._run_step(tracer, static_ins)
-                        for vb, t in zip(state, static):
-                            if vb.value is not t:
-                                t.copy_(vb.value)
-                    finally:
-                        torch.cuda.set_sync_debug_mode(sync_mode)
+                graph, outs = cuda_graph.capture(step, (gen,))
             finally:
                 tracer._run.capturing = False
-            if not registered and not torch.equal(drawn, gen.get_state()):
+            if not cuda_graph.can_register() and \
+                    not torch.equal(drawn, gen.get_state()):
                 raise RuntimeError(
                     "capture: the step draws random numbers, and this "
                     "torch cannot register the tracer's generator with a "

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import framework
 from .core.engine import Engine
@@ -36,9 +37,10 @@ class Executor:
         self._closed = False
 
     def close(self):
-        """Close the Executor: its engine and the engine's plans go, and
-        a later run raises."""
+        """Close the Executor: its engine's plans, captured CUDA graphs
+        and their memory pool are released, and a later run raises."""
         self._closed = True
+        self._engine.close()
         self._engine = Engine()
 
     def run(self, program=None, feed=None, fetch_list=None,
@@ -74,9 +76,14 @@ class Executor:
     def _canonical_feed(feed, program):
         """numpy arrays in the dtypes the Program declares. Integer ids
         stay integer (the JAX package narrows int64 to int32; compare
-        values, not dtypes)."""
+        values, not dtypes). A torch tensor passes as it is: the engine
+        takes it on its device (a batch already on the card is copied on
+        the card) and casts it to the declared dtype there."""
         out = {}
         for k, v in (feed or {}).items():
+            if isinstance(v, torch.Tensor):
+                out[k] = v
+                continue
             arr = np.asarray(v)
             var = program.global_block().find_var(k)
             if var is not None and arr.dtype != dtype_to_np(var.dtype):

@@ -26,13 +26,18 @@ running-max start (-inf would turn a fully masked row into NaN), and a
 1e-30 floor under the softmax denominator. Causal masking is absolute
 (col > row is masked) even when Sq != Sk.
 
-Attention dropout is `dropout = (s0, s1, t)`: two uint32 seed words and
-the keep threshold t in 1..255. A weight is kept when the position hash
-of paddle_tpu's dropout_keep_mask is below t (dropout_keep_mask here is
-the same mask, bit for bit); kept weights scale by 256/t, and the
-softmax denominator sums the undropped weights. The mask depends on
-position only, so the kernels and the plain versions drop the same
-weights whatever their tiles.
+Attention dropout is `dropout = (seed, t)`: the two uint32 seed words as
+an int64 [2] tensor on q's device (ExecContext.seed_tensor) and the keep
+threshold t in 1..255; `(s0, s1, t)` with the words as ints is taken too
+and put on the device first. The kernels read the words from the device
+tensor, never from the host (the counterpart of the JAX kernels'
+seed_ref), so a CUDA graph that captured a call draws, at each replay,
+the mask of the words written before it. A weight is kept when the
+position hash of paddle_tpu's dropout_keep_mask is below t
+(dropout_keep_mask here is the same mask, bit for bit); kept weights
+scale by 256/t, and the softmax denominator sums the undropped weights.
+The mask depends on position only, so the kernels and the plain versions
+drop the same weights whatever their tiles.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import ctypes
 
 import torch
 
+from ..core.registry import seed_tensor
 from . import registry
 
 _NEG_INF = -1e30
@@ -97,9 +103,11 @@ def _mix32(h):
 def dropout_keep_mask(s0, s1, B, H, Sq, Sk, t, device=None):
     """[B, H, Sq, Sk] bool keep mask: the JAX package's
     dropout_keep_mask(seed, ...) with seed = (s0, s1) as uint32 words,
-    and the mask the CUDA kernels compute. On `device`, or on the default
-    place's (CUDAPlace(0), which raises where torch sees no card) when
-    None."""
+    and the mask the CUDA kernels compute. s0 and s1 are ints, or 0-d
+    int64 tensors (the two elements of a device seed tensor: the mask is
+    then computed on the device, with no host read). On `device`, or on
+    the default place's (CUDAPlace(0), which raises where torch sees no
+    card) when None."""
     if device is None:
         from ..core.place import default_place
         device = default_place().torch_device()
@@ -108,21 +116,36 @@ def dropout_keep_mask(s0, s1, B, H, Sq, Sk, t, device=None):
     pos = (rows * Sk + cols) & _M32
     bh = torch.arange(B * H, dtype=torch.int64,
                       device=device).reshape(B, H, 1, 1)
-    seed = (int(s0) & _M32) ^ _mix32((int(s1) & _M32)
-                                     ^ _mul32(bh, 0x9E3779B1))
+    if not isinstance(s0, torch.Tensor):
+        s0, s1 = int(s0), int(s1)
+    seed = (s0 & _M32) ^ _mix32((s1 & _M32) ^ _mul32(bh, 0x9E3779B1))
     return (_mix32(pos[None, None] ^ seed) & 255) < int(t)
 
 
-def _check_dropout(dropout):
+def _check_dropout(dropout, device):
+    """(seed, t) with seed an int64 [2] tensor on `device`, from either
+    form of the dropout argument; None for none."""
     if dropout is None:
         return None
-    s0, s1, t = dropout
+    if len(dropout) == 3:
+        s0, s1, t = dropout
+        seed = seed_tensor((s0, s1), device)
+    else:
+        seed, t = dropout
+        if not isinstance(seed, torch.Tensor) or seed.dtype != \
+                torch.int64 or tuple(seed.shape) != (2,) or \
+                seed.device != torch.device(device):
+            raise TypeError(
+                f"attention dropout: the seed must be an int64 [2] tensor "
+                f"on {device}, got {getattr(seed, 'dtype', type(seed))} "
+                f"{tuple(getattr(seed, 'shape', ()))} on "
+                f"{getattr(seed, 'device', None)}")
     if not 1 <= int(t) <= 255:
         raise ValueError(
             f"attention dropout: the kernels realize keep thresholds "
             f"1..255, got t={t} (t >= 256 is no dropout: pass None; "
             f"t <= 0 drops everything: emit zeros at the call site)")
-    return int(s0) & _M32, int(s1) & _M32, int(t)
+    return seed.contiguous(), int(t)
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +167,8 @@ def _scores(q, k, bias, scale, causal, bshd):
 
 def _keep(dropout, s):
     B, H, Sq, Sk = s.shape
-    s0, s1, t = dropout
-    return dropout_keep_mask(s0, s1, B, H, Sq, Sk, t, s.device)
+    seed, t = dropout
+    return dropout_keep_mask(seed[0], seed[1], B, H, Sq, Sk, t, s.device)
 
 
 def fused_attention_plain(q, k, v, bias, scale, causal, layout,
@@ -154,14 +177,14 @@ def fused_attention_plain(q, k, v, bias, scale, causal, layout,
     the same masks and constants, the dropped weights rounded to v's
     dtype before p.v (as the kernel does for bf16), out in q's dtype;
     lse [B, H, Sq] float32 of the undropped weights."""
-    dropout = _check_dropout(dropout)
+    dropout = _check_dropout(dropout, q.device)
     bshd = layout == "bshd"
     s = _scores(q, k, bias, scale, causal, bshd)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(_L_FLOOR)   # [B,H,Sq,1]
     if dropout is not None:
-        t = dropout[2]
+        t = dropout[1]
         p = torch.where(_keep(dropout, s), p * (256.0 / t),
                         torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhd->bqhd" if bshd else "bhqk,bhkd->bhqd",
@@ -188,7 +211,7 @@ def fused_attention_backward_plain(q, k, v, bias, out, lse, dout, scale,
     forward's out and lse [B, H, Sq]: returns (dq, dk, dv, dbias), the
     gradients in q/k/v's dtypes, dbias (bias's dtype) only with
     want_dbias and a bias."""
-    dropout = _check_dropout(dropout)
+    dropout = _check_dropout(dropout, q.device)
     bshd = layout == "bshd"
     p = torch.exp(_scores(q, k, bias, scale, causal, bshd)
                   - lse.float()[..., None])
@@ -201,7 +224,7 @@ def fused_attention_backward_plain(q, k, v, bias, out, lse, dout, scale,
     p_v = p
     if dropout is not None:
         keep = _keep(dropout, p)
-        c = 256.0 / dropout[2]
+        c = 256.0 / dropout[1]
         zero = torch.zeros_like(p)
         dp = torch.where(keep, dp * c, zero)
         p_v = torch.where(keep, p * c, zero)
@@ -263,7 +286,7 @@ def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
 
     Where p = 1 on every key |ds| is in the tens, and this bound, not
     BF16_TOL, is what a correct kernel meets there."""
-    dropout = _check_dropout(dropout)
+    dropout = _check_dropout(dropout, q.device)
     bshd = layout == "bshd"
     f64 = torch.float64
     p = torch.exp(_scores(q, k, bias, scale, causal, bshd)
@@ -279,7 +302,7 @@ def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
     adp = gd.abs() @ vd.abs().transpose(-1, -2)
     p_v = p
     if dropout is not None:
-        keep = _keep(dropout, p).to(f64) * (256.0 / dropout[2])
+        keep = _keep(dropout, p).to(f64) * (256.0 / dropout[1])
         dp, adp, p_v = dp * keep, adp * keep, p * keep
     ds = p * (dp - di)
     m = p * (adp + adi)
@@ -332,7 +355,8 @@ def fused_attention_forward(q, k, v, bias, scale, causal, layout,
                             return_lse=False, dropout=None):
     """Attention forward on q/k/v [B, S, H, D] (layout "bshd") or
     [B, H, S, D] ("bhsd"), with an optional additive bias
-    [B|1, 1|H, 1|Sq, Sk] and optional attention dropout (s0, s1, t).
+    [B|1, 1|H, 1|Sq, Sk] and optional attention dropout (seed, t) or
+    (s0, s1, t).
     Returns out (q's layout and dtype) and, with return_lse, lse
     [B, H, Sq] float32."""
     if layout not in ("bshd", "bhsd"):
@@ -442,10 +466,10 @@ def _bias_strides(bias):
 def _bind(lib, symbol):
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i,
-                       u, u, i, p]
+                       p, i, p]
         fn.restype = i
     return fn
 
@@ -454,7 +478,7 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
     """The forward kernel: the tensor-core one of q's dtype where
     _sm90_eligible holds, else the CUDA-core one."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
-    s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
+    seed, t = _check_dropout(dropout, q.device) or (None, 0)
     out = torch.empty_like(q)
     sm90 = _sm90_eligible(q, k, v, out, layout)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
@@ -471,8 +495,8 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
                  None if bias is None else bias.data_ptr(),
                  out.data_ptr(), None if lse is None else lse.data_ptr(),
                  _DTYPES[q.dtype], B, H, Sq, Sk, D, strides, float(scale),
-                 int(bool(causal)), s0, s1, t,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 int(bool(causal)), None if seed is None else seed.data_ptr(),
+                 t, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     registry.count_launch(_KERNEL)
@@ -484,9 +508,9 @@ def _launch(q, k, v, bias, scale, causal, layout, return_lse, dropout):
 def _bind_bwd(lib, symbol):
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 12 + [i] * 6 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i, u, u, i, p]
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i, p, i, p]
         fn.restype = i
     return fn
 
@@ -498,7 +522,7 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
     with the di pre-pass fused in; else (float32 always) the CUDA-core
     ones, dq after its di pre-pass."""
     B, H, Sq, Sk, D = _check(q, k, v, bias, layout)
-    s0, s1, t = _check_dropout(dropout) or (0, 0, 0)
+    seed, t = _check_dropout(dropout, q.device) or (None, 0)
     dout = dout.to(q.dtype).contiguous()
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError(f"fused attention backward: out "
@@ -525,7 +549,7 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
             dout.data_ptr(), ptr(bias), lse.data_ptr(), di.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ds),
             _DTYPES[q.dtype], B, H, Sq, Sk, D, strides, float(scale),
-            int(bool(causal)), s0, s1, t)
+            int(bool(causal)), ptr(seed), t)
     if sm90:
         launches = (((_KERNEL_DQ, _KERNEL_DQ_SM90),
                      "pt_flash_attention_bwd_dq_sm90"),

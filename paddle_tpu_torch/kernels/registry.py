@@ -326,6 +326,65 @@ def reset_counts():
         _launches[name] = 0
 
 
+def counts_snapshot():
+    """The launch counts and the dispatch decisions as they stand."""
+    with _STATS_LOCK:
+        stats = {k: dict(v) for k, v in _STATS.items()}
+    return dict(_launches), stats
+
+
+def counts_restore(snap):
+    """Put the counts of a counts_snapshot() back: what was counted since
+    is forgotten (the engine's warm-up and capture runs launch nothing
+    that a run counts)."""
+    launches, stats = snap
+    _launches.update(launches)
+    with _STATS_LOCK:
+        _STATS.clear()
+        _STATS.update({k: dict(v) for k, v in stats.items()})
+
+
+def counts_delta(before, after):
+    """What was counted between two counts_snapshot()s."""
+    launches = {k: n - before[0].get(k, 0) for k, n in after[0].items()
+                if n != before[0].get(k, 0)}
+    stats = {}
+    for k, d in after[1].items():
+        old = before[1].get(k, {})
+        diff = {o: n - old.get(o, 0) for o, n in d.items()
+                if n != old.get(o, 0)}
+        if diff:
+            stats[k] = diff
+    return launches, stats
+
+
+def counts_add(delta):
+    """Count a counts_delta() once more: a CUDA-graph replay counts the
+    launches and decisions its capture counted."""
+    launches, stats = delta
+    for k, n in launches.items():
+        _launches[k] = _launches.get(k, 0) + n
+    with _STATS_LOCK:
+        for k, d in stats.items():
+            cur = _STATS.setdefault(k, {})
+            for o, n in d.items():
+                cur[o] = cur.get(o, 0) + n
+
+
+def routing_state():
+    """What the wrappers and lowerings read at each call to choose a
+    kernel or its plain version: the flag, the knobs, the plain-reference
+    switch, the CPU hook and the registered kernels. A captured graph
+    replays the choices of its capture, so the engine captures again
+    when this changes."""
+    from ..core.flags import FLAGS
+    from ..tuning import knobs
+    return (bool(FLAGS.use_custom_kernels),
+            tuple(knobs.value(k) for k in knobs.names()),
+            plain_forced(), _ROUTE_ON_CPU,
+            tuple((n, id(k)) for n, k in _KERNELS.items()))
+
+
 # ---------------------------------------------------------------------------
 # plain reference switch
 # ---------------------------------------------------------------------------

@@ -9,12 +9,13 @@ over: the CUDA kernels pick their own tiles, and block_q/block_k stay in
 the Program only for parity.
 
 Attention dropout (dropout_prob, off under is_test) draws its two seed
-words from the op's seed (ExecContext.seed_words: program seed, op uid,
-run index); the grad op has the forward's uid and so the same words.
-When the grad op is in the block, the forward keeps (out, lse, seed
-words) as its record and the grad op consumes it: the forward kernel
-runs once per step, and the backward reads the forward's own out and
-lse.
+words from the op's seed (program seed, op uid, run index) and hands
+them to the kernels as a device tensor (ExecContext.seed_tensor: in a
+block the engine captures, the tensor it rewrites before each replay);
+the grad op has the forward's uid and so the same words. When the grad
+op is in the block, the forward keeps (out, lse, seed) as its record
+and the grad op consumes it: the forward kernel runs once per step, and
+the backward reads the forward's own out and lse.
 """
 from __future__ import annotations
 
@@ -56,8 +57,7 @@ def _attn_args(ctx):
 def _dropout(ctx, drop_t):
     if drop_t is None:
         return None
-    s0, s1 = ctx.seed_words()
-    return s0, s1, drop_t
+    return ctx.seed_tensor(), drop_t
 
 
 @register_op("fused_attention")
@@ -86,8 +86,8 @@ def fused_attention(ctx):
 @override_grad_lowering("fused_attention")
 def fused_attention_grad(ctx):
     """dQ, dK, dV (and dBiasQK only when BiasQK@GRAD is bound) through
-    the backward kernels, from the forward's record (out, lse, seed
-    words); without a record the forward runs again for them. Each
+    the backward kernels, from the forward's record (out, lse, seed);
+    without a record the forward runs again for them. Each
     gradient comes out in its primal's dtype."""
     op = ctx.op
     q, k, v, bias, layout, scale, causal, drop_t = _attn_args(ctx)

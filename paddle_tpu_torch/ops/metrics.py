@@ -17,6 +17,8 @@ def accuracy(ctx):
     correct = (indices == lbl).any(dim=-1).float().sum()
     n = indices.shape[0]
     ctx.set_output("Correct", correct.to(torch.int32))
-    ctx.set_output("Total", torch.tensor(n, dtype=torch.int32,
-                                         device=indices.device))
+    # a fill on the device, not a copy from the host (a CUDA graph
+    # captures no host-to-card copy)
+    ctx.set_output("Total", torch.full((), n, dtype=torch.int32,
+                                       device=indices.device))
     ctx.set_output("Accuracy", (correct / n).reshape(1))

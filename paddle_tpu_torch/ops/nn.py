@@ -227,8 +227,9 @@ def dropout(ctx):
     upscale_in_train the kept values divide by t/256, the keep
     probability actually realized, so E[out] = x. t >= 256 (keep all)
     and t <= 0 (drop all) are exact. Mask is the keep mask as uint8.
-    The bytes come from the op's generator (uid and run index), so they
-    differ from the JAX package's bits."""
+    The bytes come from the op's generator (uid and run index; under a
+    captured block one registered with the graph, re-seeded before each
+    replay), so they differ from the JAX package's bits."""
     x = ctx.input("X")
     prob = ctx.attr("dropout_prob", 0.5)
     is_test = ctx.attr("is_test", False)

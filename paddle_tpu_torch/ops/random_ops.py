@@ -1,7 +1,10 @@
 """Random ops (counterpart of paddle_tpu/ops/random_ops.py:
 uniform_random and gaussian_random). Each op draws from its own
 torch.Generator on the op's device, seeded from the `seed` attr or the
-program seed, the op uid and the run index (ExecContext.generator).
+program seed, the op uid and the run index (ExecContext.generator; in
+a block the engine captures, a generator registered with the graph and
+re-seeded for each run's index, so a replay draws what the eager run
+with that index draws).
 torch cannot reproduce jax.random's bits: the same seed gives the same
 numbers within the port only."""
 from __future__ import annotations

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["value"]
+__all__ = ["value", "names"]
 
 # name -> (environment variable, type, default)
 _KNOBS = {
@@ -37,3 +37,8 @@ def value(name: str):
         return kind(raw)
     except (TypeError, ValueError):
         return default
+
+
+def names():
+    """The knobs' names."""
+    return tuple(_KNOBS)

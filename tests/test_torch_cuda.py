@@ -17,9 +17,14 @@ LeNet and the tiny Transformer with and without the engine's plan cache
 (bit-equal), the sparse (SelectedRows) update of sgd, momentum, adagrad
 and adam against the same update on the CPU (with no host sync, and
 parked slots, padding_idx rows and merge slack, touching no row and
-firing no device assert), and Wide&Deep at vocab 1001 with dense and
-with sparse embedding gradients. They skip where torch sees no CUDA
-device.
+firing no device assert), Wide&Deep at vocab 1001 with dense and
+with sparse embedding gradients, and the engine's captured blocks
+(ResNet-50's bottlenecks at stages [1, 1, 1, 1] and the tiny
+Transformer with dropout: captured runs bit-equal to eager ones; the
+attention kernels reading their dropout seed from the card, also
+inside a CUDA graph; a host copy inside a captured block raising; a
+capture after every graph of an engine was released). They skip where
+torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -49,6 +54,8 @@ quantized_matmul int8: bit-equal (exact integer tile sums, the same two
 roundings a tile); bf16 and the tuned float32 GEMMs: GEMM_RTOL relative
 in the norm (float32 sums in another order).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1619,3 +1626,218 @@ def test_dygraph_captured_dropout_draws_anew_or_raises(cuda):
         else:
             with pytest.raises(RuntimeError, match="random"):
                 cap(x)
+
+
+# ---------------------------------------------------------------------------
+# the engine's captured block (core/engine.py _Captured) and the device
+# seed of the attention kernels
+# ---------------------------------------------------------------------------
+
+def _deterministic(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    return old
+
+
+def _capture_program(model, monkeypatch):
+    """ResNet-50's bottleneck blocks at stages [1, 1, 1, 1] under bf16 AMP
+    with Momentum, or the 2+2-layer d_model 64 Transformer with dropout
+    0.1 under bf16 AMP with Adam; (main, startup, cost, feed)."""
+    from paddle_tpu_torch.models import resnet as R
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        if model == "resnet":
+            monkeypatch.setitem(R._DEPTH_CFG, 50,
+                                ("bottleneck", [1, 1, 1, 1]))
+            cost, _, _ = pt.models.resnet_train(depth=50,
+                                                image_shape=(3, 64, 64))
+            opt = pt.optimizer.MomentumOptimizer(0.1, 0.9)
+            r = np.random.RandomState(0)
+            feed = {"image": r.rand(8, 3, 64, 64).astype(np.float32),
+                    "label": r.randint(0, 1000, (8, 1)).astype(np.int64)}
+        else:
+            cfg = T.transformer_base(src_vocab_size=64, trg_vocab_size=64,
+                                     fuse_attention=True, dropout=0.1)
+            cfg.n_layer, cfg.d_model, cfg.d_inner = 2, 64, 128
+            cfg.n_head, cfg.d_head = 4, 16
+            cost, _, _ = T.transformer_train(cfg)
+            opt = pt.optimizer.AdamOptimizer(learning_rate=2e-3)
+            feed = T.make_batch(cfg, 4, 16, 12,
+                                rng=np.random.default_rng(3),
+                                src_lens=np.array([16, 11, 7, 13]),
+                                trg_lens=np.array([12, 9, 5, 12]))
+        pt.contrib.mixed_precision.decorate(opt).minimize(cost)
+    main.random_seed = startup.random_seed = 5
+    return main, startup, cost, feed
+
+
+@pytest.mark.parametrize("model", ["resnet", "transformer"])
+def test_captured_steps_bit_equal_eager_steps_on_card(cuda, monkeypatch,
+                                                      model):
+    """4 steps with the plan cache (the second run captures the block,
+    the others replay it) and 4 with use_program_cache=False, from one
+    startup state in deterministic mode: bit-equal losses and
+    persistables, dropout masks included; the attention launches counted
+    per run under replay."""
+    old = _deterministic(monkeypatch)
+    main, startup, cost, feed = _capture_program(model, monkeypatch)
+    try:
+        runs = {}
+        for cached in (True, False):
+            exe, scope = pt.Executor(), pt.Scope()
+            exe.run(startup, scope=scope)
+            before = dict(exe._engine.counters)
+            losses, counts = [], []
+            for _ in range(4):
+                kreg.reset_counts()
+                losses.append(exe.run(main, feed=feed, fetch_list=[cost],
+                                      scope=scope,
+                                      use_program_cache=cached)[0])
+                counts.append(kreg.launches())
+            state = {v.name: scope.find_var(v.name).get_tensor().tensor
+                     .clone() for v in main.global_block().vars.values()
+                     if v.persistable and scope.find_var(v.name)
+                     is not None}
+            runs[cached] = (losses, counts, state,
+                            {k: v - before[k] for k, v in
+                             exe._engine.counters.items()})
+            exe.close()
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+    (la, ca, sa, na), (lb, cb, sb, nb) = runs[True], runs[False]
+    assert (na["captures"], na["replays"], na["eager_runs"]) == (1, 3, 1)
+    assert (nb["captures"], nb["replays"], nb["eager_runs"]) == (0, 0, 4)
+    assert all(np.array_equal(a, b) for a, b in zip(la, lb))
+    assert len({float(x) for x in la}) == 4
+    assert ca == cb
+    if model == "transformer":
+        assert ca[0]["flash_attention_fwd"] == 6 == \
+            ca[-1]["flash_attention_bwd_dkv"]
+    for n in sa:
+        assert torch.equal(sa[n], sb[n]), n
+
+
+@pytest.mark.parametrize("design", ["tensor_core", "cuda_core"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernels_read_their_seed_on_the_card(cuda, monkeypatch,
+                                                       design, dtype):
+    """Forward and backward with the seed as a device tensor: equal to
+    the same words as ints bit for bit and to the plain version within
+    its tolerance; captured once in a CUDA graph, each replay draws the
+    mask of the words written into the tensor before it."""
+    if design == "cuda_core":
+        monkeypatch.setattr(pfa, "_sm90_eligible", lambda *a: False)
+    layout, B, H, S, D = "bshd", 2, 4, 128, 64
+    q, k, v, b = _inputs(cuda, dtype, layout, B, H, S, S, D, "key_pad",
+                         False)
+    g = torch.randn_like(q)
+    scale, t = D ** -0.5, 230
+    seed = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64,
+                        device=cuda)
+
+    def step(drop):
+        out, lse = pfa.fused_attention_forward(q, k, v, b, scale, False,
+                                               layout, return_lse=True,
+                                               dropout=drop)
+        grads = pfa.fused_attention_backward(q, k, v, b, out, lse, g,
+                                             scale, False, layout,
+                                             dropout=drop)
+        return (out, lse) + tuple(grads[:3])
+
+    got = step((seed, t))
+    host = step((0x12345678, 0x9ABCDEF0, t))
+    for a, h in zip(got, host):
+        assert torch.equal(a, h)
+    with kreg.plain_reference():
+        ref = step((seed, t))
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=tol,
+                               atol=tol)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step((seed, t))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step((seed, t))
+    for words in ((3, 4), (0xFFFFFFFF, 7)):
+        seed.copy_(torch.tensor(words, dtype=torch.int64))
+        graph.replay()
+        want = step((*words, t))
+        for a, w in zip(outs, want):
+            assert torch.equal(a, w), words
+
+
+_H2D = "host_copy_for_capture_test"
+
+
+def test_a_host_sync_in_a_captured_block_raises_on_card(cuda):
+    """An op that copies a host value to the card runs on meta, so the
+    rule admits its block; the capture (sync debug mode "error") then
+    raises: it does not run the block eager."""
+    from paddle_tpu_torch.core.registry import OPS, register_op
+
+    @register_op(_H2D)
+    def _h2d(ctx):
+        x = ctx.input("X")
+        ctx.set_output("Out", x + torch.tensor([1.0], device=x.device))
+    try:
+        _host_copy_block_raises()
+    finally:
+        for t in (_H2D, _H2D + "_grad"):
+            OPS._map.pop(t, None)
+
+
+def _host_copy_block_raises():
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [4], dtype="float32")
+        h = pt.layers.fc(x, 4)
+        out = main.global_block().create_var(name="shifted",
+                                             dtype="float32", shape=h.shape)
+        main.global_block().append_op(type=_H2D, inputs={"X": [h.name]},
+                                      outputs={"Out": [out.name]},
+                                      infer_shape=False)
+        cost = pt.layers.mean(out)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.ones((2, 4), np.float32)}
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope)   # eager
+    with pytest.raises(RuntimeError):
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    assert not exe._engine.eager_reasons
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_recapture_after_every_graph_was_released_on_card(cuda):
+    """A routing change releases a plan's graph before its next capture,
+    which then needs a memory pool of its own (torch frees a pool with
+    its last graph): plain_reference() and back capture twice more."""
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, _, _ = pt.models.lenet_train()
+        pt.optimizer.SGD(learning_rate=0.05).minimize(cost)
+    r = np.random.RandomState(0)
+    feed = {"img": r.rand(16, 1, 28, 28).astype(np.float32),
+            "label": r.randint(0, 10, (16, 1)).astype(np.int64)}
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    before = dict(exe._engine.counters)
+    for plain in (False, True, False):
+        with (kreg.plain_reference() if plain else
+              contextlib.nullcontext()):
+            for _ in range(2):
+                loss, = exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scope)
+                assert np.isfinite(loss).all()
+    c = {k: v - before[k] for k, v in exe._engine.counters.items()}
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (3, 5, 1)
+    exe.close()
