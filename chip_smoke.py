@@ -33,7 +33,7 @@
    on the host's clock), and SGD at Transformer-base's and LeNet's sizes
    (one list a launch, and the same kernel a parameter at a time,
    against torch._foreach_add_).
-4. Serving phase: builds full-width Transformer-base (6+6 layers,
+4. Scoring phase: builds full-width Transformer-base (6+6 layers,
    d_model 512, 8 heads, vocab 32000, fuse_attention) with the port's
    layers, initializes it on the card from a seed, and scores 3 ragged
    batches of 32 x 256 tokens through Executor.run in float32. Checks
@@ -82,6 +82,29 @@
    forward, prints the registry's dispatch stats, and
    holds its logits against the same forward with only the GEMMs plain
    (int8: bit-equal), under plain_reference(), and against float32.
+   Serving phase: the JAX package's book LM (inference/serving
+   build_book_lm: single-head, 6 layers, hidden 512, vocab 32000, the
+   decoder widths and depth of bench.py's Transformer-base) initialized
+   on the card from SEED, exported and loaded, then served by the
+   continuous-batching engine at BucketSpec(batch=128, prefill 64/128/
+   256, cache 128/256/512) from a paged KV cache of 4098 pages. warmup()
+   must capture the 6 signatures; a burst of 512 requests
+   (RandomState(0): prompts of 8-256 tokens, 32-128 new tokens) must
+   end all ok with no page in use, and plan, capture and run eagerly
+   nothing; prints tokens/s, requests/s, occupancy, prefill and decode
+   ms by bucket (median, p99), peak memory and the census's KV bytes,
+   the busy share and top kernels of 20 profiled decode steps. The
+   first 4 requests' tokens must equal reference_generate's, one
+   prefill and one decode dispatch plain_reference()'s (LOGITS_ATOL).
+   Then bursts of 128 in float32 and with every mul in the bf16, int8
+   and tuned GEMM kernel: 37 launches a prefill and a decode dispatch,
+   tokens/s, the share of tokens equal to float32's, a solo run
+   against the batch (not required in int8: its scales tie a row to its
+   batch mates), the dispatches against plain_reference()
+   (QUANT_FWD_RTOL); the GEMMs at a decode dispatch's shapes timed
+   against their plain versions, library calls and bounds; and 8
+   generate calls from 4 threads through ServeServer, equal to the
+   in-process tokens, then a drained shutdown().
 8. Graph capture phase: Executor.run replaying one CUDA graph a run
    (core/engine.py _Captured) on every main path, captured against
    eager (use_program_cache=False) in turns: ResNet-50 (bench.py's,
@@ -147,7 +170,8 @@
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
 12. Prints one JSON line of per-kernel numbers (fused_adam's launches:
-   the training phase's and the dygraph phase's), then, last, the device
+   the training phase's and the dygraph phase's; the quantized and
+   tuned GEMMs': the scoring and the serving phase's), then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
@@ -3881,6 +3905,445 @@ def capture_phase(torch, dev, built):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [serving phase]: the book LM through the serving engine
+# ---------------------------------------------------------------------------
+
+# Transformer-base's decoder widths and depth (bench.py:828-840), the book
+# LM single-head as the JAX package builds it
+BOOK = {"vocab": 32000, "hidden": 512, "num_layers": 6, "max_len": 1024}
+BOOK_BUCKETS = {"batch": 128, "prefill_lens": (64, 128, 256),
+                "cache_lens": (128, 256, 512)}
+BOOK_REQUESTS = 512        # the float32 burst
+BOOK_MODE_REQUESTS = 128   # the burst in each GEMM mode
+BOOK_PARITY = 4            # requests held to reference_generate in full
+BOOK_PROFILED_STEPS = 20
+# the mul ops of one prefill or decode dispatch: 6 fc a layer, the head
+BOOK_MULS = 6 * BOOK["num_layers"] + 1
+# a decode dispatch's GEMMs, (M, K, N, ops a dispatch)
+BOOK_GEMMS = ((128, 512, 512, 4 * BOOK["num_layers"]),
+              (128, 512, 1024, BOOK["num_layers"]),
+              (128, 1024, 512, BOOK["num_layers"]),
+              (128, 512, 32000, 1))
+_BOOK_KERNEL = {"bf16": "quantized_matmul_bf16",
+                "int8": "quantized_matmul_int8", "tuned": "tuned_matmul_sm90"}
+
+
+def _book_specs(n, seed=0):
+    """n (prompt, max_new_tokens) pairs from RandomState(seed): prompt
+    lengths uniform in 8-256, ids in 1..31999, max_new_tokens uniform in
+    32-128 (every context fits the 512 bucket)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        length = int(rs.randint(8, 257))
+        prompt = rs.randint(1, BOOK["vocab"], length).tolist()
+        out.append((prompt, int(rs.randint(32, 129))))
+    return out
+
+
+def _book_model(torch, pt, S, d):
+    """The book LM initialized on the card from SEED, exported to d and
+    loaded there."""
+    pt.framework.unique_name.reset()
+    pre, dec, startup, meta = S.build_book_lm(**BOOK)
+    startup.random_seed = SEED
+    bk = S.BucketSpec(**BOOK_BUCKETS)
+    with pt.scope_guard(pt.Scope()):
+        exe = pt.Executor()
+        exe.run(startup)
+        S.export_serving_model(d, exe, pre, dec, meta, buckets=bk)
+        exe.close()
+    return S.load_serving_model(d)
+
+
+def _book_engine(S, model, n):
+    """A ServingEngine whose queue and default tenant take n requests at
+    once (the reference's default tenant runs 8 at a time), so that the
+    batch and the KV cache bound the occupancy."""
+    return S.ServingEngine(model, max_queue=n, quotas={
+        "default": S.TenantQuota(max_concurrent=n)})
+
+
+def _book_burst(torch, S, model, specs):
+    """specs submitted at once to a new engine (_book_engine), then
+    step() until drained; every dispatch timed on the host's clock (to
+    its logits' host copy, so the device's time is in it), by bucket.
+    Returns the engine, the requests, the wall seconds, the steps and
+    the times."""
+    eng = _book_engine(S, model, len(specs))
+    times = {"prefill": {}, "decode": {}}
+
+    def timed(kind, fn, bucket):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            times[kind].setdefault(bucket(a), []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    model.prefill_rows = timed("prefill", model.prefill_rows,
+                               lambda a: a[0].shape[1])
+    model.decode = timed("decode", model.decode,
+                         lambda a: a[2].shape[2] - 1)
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=n) for p, n in specs]
+        steps = 0
+        while eng.pending():
+            eng.step()
+            steps += 1
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill_rows, model.decode
+    _require(all(r.status == S.STATUS_OK for r in reqs),
+             f"requests not ok: "
+             f"{sorted({r.status for r in reqs if r.status != 'ok'})}")
+    tokens = sum(len(r.tokens) for r in reqs)
+    occ = list(eng.occupancy_history)
+    print(f"  {len(reqs)} requests, {tokens} generated tokens in "
+          f"{wall:.3f} s ({steps} steps): {tokens / wall:.1f} tokens/s, "
+          f"{len(reqs) / wall:.2f} requests/s (logits' host copies "
+          f"included); decode occupancy mean {np.mean(occ):.1f}, max "
+          f"{max(occ)} of {model.buckets.batch}; "
+          f"{sum(r.status == S.STATUS_OK for r in reqs)} ok; pages in use "
+          f"after the drain {eng.kv.pages_in_use}")
+    for kind in ("prefill", "decode"):
+        for b, ms in sorted(times[kind].items()):
+            print(f"    {kind} bucket {b}: {len(ms)} dispatches, median "
+                  f"{np.median(ms):.3f} ms, p99 "
+                  f"{np.percentile(ms, 99):.3f} ms")
+    _require(eng.kv.pages_in_use == 0, "pages left in use after the drain")
+    return eng, reqs, wall, steps, times
+
+
+def _book_busy(torch, S, model, specs):
+    """The device-busy share of BOOK_PROFILED_STEPS decode steps of a
+    full batch under torch.profiler, and its top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = _book_engine(S, model, len(specs))
+    for p, _ in specs:
+        eng.submit(p, max_new_tokens=BOOK_PROFILED_STEPS + 8)
+    while eng._queue or eng._admitted:
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(BOOK_PROFILED_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"  {BOOK_PROFILED_STEPS} profiled decode steps of "
+          f"{len(eng._running)} sequences: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s ({100 * busy / wall:.1f} %), "
+          f"{1e3 * busy / BOOK_PROFILED_STEPS:.3f} ms of device time a "
+          f"step")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}")
+    while eng.pending():
+        eng.step()
+    return busy / wall
+
+
+def _book_dispatches(S, model, prompts):
+    """One prefill dispatch of up to a batch of prompts at the 256
+    bucket, then one decode dispatch on its k/v (the 256 cache bucket):
+    (prefill logits at each prompt's last position, k, v, decode logits,
+    k_new, v_new)."""
+    B = model.buckets.batch
+    Sp = model.buckets.prefill_lens[-1]
+    prompts = prompts[:B]
+    tok, pos, mask = S.export.prefill_feeds(prompts, Sp, B)
+    rows = [len(p) - 1 for p in prompts] + [0] * (B - len(prompts))
+    lg, k, v = model.prefill_rows(tok, pos, mask, rows)
+    last = [int(np.argmax(lg[b])) for b in range(len(prompts))]
+    t, p, m = S.export.decode_feeds(
+        last + [None] * (B - len(prompts)),
+        [len(x) for x in prompts] + [0] * (B - len(prompts)), Sp, B)
+    dl, kn, vn = model.decode(t, p, m, k, v)
+    return lg, k, v, dl, kn, vn
+
+
+def _book_vs_plain(torch, kreg, S, model, prompts, mode):
+    """A prefill and a decode dispatch against the same under
+    plain_reference(): the max |err| of each output; float32 within
+    LOGITS_ATOL, a GEMM mode within its QUANT_FWD_RTOL in the norm."""
+    got = _book_dispatches(S, model, prompts)
+    with kreg.plain_reference():
+        ref = _book_dispatches(S, model, prompts)
+    errs = []
+    for g, r in zip(got, ref):
+        g = torch.as_tensor(g).double().cpu()
+        r = torch.as_tensor(r).double().cpu()
+        errs.append(((g - r).abs().max().item(),
+                     ((g - r).norm() / r.norm()).item()))
+    names = ("prefill logits", "k", "v", "decode logits", "k_new",
+             "v_new")
+    print("  against plain_reference(): " + "; ".join(
+        f"{n} max|err| {e:.3e} rel {r:.3e}" for n, (e, r) in
+        zip(names, errs)))
+    if mode == "float32":
+        _require(max(e for e, _ in errs) <= LOGITS_ATOL,
+                 "a float32 dispatch disagrees with plain_reference()")
+    else:
+        _require(max(r for _, r in errs) <= QUANT_FWD_RTOL[mode],
+                 f"a {mode} dispatch disagrees with plain_reference()")
+    return max(e for e, _ in errs)
+
+
+def _book_launches(kreg, S, model, prompts):
+    """The kernel launches of one prefill and of one decode dispatch."""
+    B = model.buckets.batch
+    Sp = model.buckets.prefill_lens[-1]
+    tok, pos, mask = S.export.prefill_feeds(prompts, Sp, B)
+    kreg.reset_counts()
+    _, k, v = model.prefill_rows(tok, pos, mask, [0] * B)
+    pre = {n: c for n, c in kreg.launches().items() if c}
+    t, p, m = S.export.decode_feeds([1] * B, [Sp] * B, Sp, B)
+    kreg.reset_counts()
+    model.decode(t, p, m, k, v)
+    dec = {n: c for n, c in kreg.launches().items() if c}
+    print(f"  launches of one prefill dispatch {pre}, of one decode "
+          f"dispatch {dec}")
+    return pre, dec
+
+
+def time_book_gemms(torch, dev, card, search):
+    """The GEMM kernels at the shapes of a decode dispatch (float32
+    operands, as the engine gives them): device time per call of the
+    kernel (all it launches), its plain version and its library call,
+    and the bound."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.tuning import variants as V
+    peak_f32, peak_bf16, peak_bw, peak_i8, peak_tf32 = _peaks(card)
+    win = _variant(V, search["winners"]["none"])
+    out = {}
+    for M, K, N, per in BOOK_GEMMS:
+        x, y = _gemm_inputs(torch, dev, M, K, N, 7 * M + K + N)
+        xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+        mm32 = _mm_f32_out(torch, xb, yb)
+        mnk = 2 * M * N * K
+        io = 4 * (M * K + K * N + M * N)
+        rows = {"quantized_matmul_int8": (
+                    lambda: qm.quantized_matmul(x, y, mode="int8"),
+                    lambda: qm.quantized_matmul_plain(x, y, "int8"),
+                    _int_mm_call(torch, x, y), [(mnk, peak_i8)],
+                    "torch._int_mm on the quantized operands"),
+                "quantized_matmul_bf16": (
+                    lambda: qm.quantized_matmul(x, y, mode="bf16"),
+                    lambda: qm.quantized_matmul_plain(x, y, "bf16"),
+                    mm32 or (lambda: torch.matmul(xb, yb)),
+                    [(mnk, peak_bf16)],
+                    "torch.mm(out_dtype=float32)" if mm32 else
+                    "torch.matmul bf16"),
+                "tuned_matmul_sm90": (
+                    lambda: V.tuned_matmul(x, y, variant=win),
+                    lambda: V.tuned_matmul_plain(x, y, variant=win),
+                    lambda: torch.matmul(x, y),
+                    [(3 * mnk, peak_tf32)],
+                    f"torch.matmul float32; tile {win.bm}x{win.bn}x"
+                    f"{win.bk}")}
+        for name, (kern, plain, lib, ops, what) in rows.items():
+            ms = _call_device_ms(torch, kern)
+            plain_ms = _call_device_ms(torch, plain, iters=5)
+            lib_ms = None if lib is None else _call_device_ms(torch, lib)
+            t_ops = sum(f / pk for f, pk in ops) * 1e3
+            t_bytes = io / peak_bw * 1e3
+            bound = max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            out[(name, M, K, N)] = {"ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": lib_ms,
+                                    "bound_ms": bound, "bound_by": by,
+                                    "per_dispatch": per}
+            print(f"  {name} {M}x{K}x{N} (x{per} a decode dispatch): "
+                  f"kernel {ms:.4f} ms device, plain {plain_ms:.4f} ms, "
+                  f"library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+                  f"[{what}], bound {bound:.4f} ms ({by})")
+        del x, y, xb, yb
+    for name in _BOOK_KERNEL.values():
+        tot = sum(r["ms"] * r["per_dispatch"]
+                  for (n, *_), r in out.items() if n == name)
+        lib = sum((r["library_ms"] or 0.0) * r["per_dispatch"]
+                  for (n, *_), r in out.items() if n == name)
+        bnd = sum(r["bound_ms"] * r["per_dispatch"]
+                  for (n, *_), r in out.items() if n == name)
+        print(f"  {name}: the {BOOK_MULS} GEMMs of a decode dispatch take "
+              f"{tot:.3f} ms of kernel time (library {lib:.3f} ms, bound "
+              f"{bnd:.3f} ms)")
+    return out
+
+
+def _book_mode(torch, kreg, S, model, specs, f32_reqs, mode):
+    """The GEMM mode's signatures captured again (the routing changed),
+    37 launches of its kernel per prefill and per decode dispatch (none
+    in float32), a burst of BOOK_MODE_REQUESTS, its dispatches against
+    plain_reference() and its tokens against the float32 burst's and
+    against reference_generate. Returns the kernel's launches on the
+    main path (the dispatches and the burst) and the tokens/s."""
+    name = _BOOK_KERNEL.get(mode)
+    t0 = time.perf_counter()
+    model.warmup()
+    print(f"  warmup in {mode} mode: {time.perf_counter() - t0:.2f} s")
+    prompts = [p for p, _ in specs]
+    pre, dec = _book_launches(kreg, S, model, prompts)
+    want = {name: BOOK_MULS} if name else {}
+    _require(pre == want and dec == want,
+             f"{mode}: want {want} launched a dispatch")
+    kreg.reset_counts()
+    c0 = model.engine_counters()
+    _, reqs, wall, steps, _ = _book_burst(torch, S, model, specs)
+    launches = kreg.launches()[name] + 2 * BOOK_MULS if name else 0
+    c1 = model.engine_counters()
+    _require(c1["captures"] == c0["captures"]
+             and c1["eager_runs"] == c0["eager_runs"],
+             f"{mode}: the burst captured or ran eagerly")
+    same = sum(a == b for r, f in zip(reqs, f32_reqs)
+               for a, b in zip(r.tokens, f.tokens))
+    total = sum(len(r.tokens) for r in reqs)
+    first = sum(r.tokens[0] == f.tokens[0] for r, f in zip(reqs, f32_reqs))
+    print(f"  tokens equal to the float32 run's: {same} of {total} "
+          f"({100 * same / total:.1f} %); first tokens {first} of "
+          f"{len(reqs)}")
+    n = 16
+    solo = S.reference_generate(model, specs[0][0], n)
+    print(f"  request 0 alone (reference_generate, {n} tokens) equal to "
+          f"its batched tokens: {solo == reqs[0].tokens[:n]}")
+    if mode != "int8":     # int8 scales tie a row to its batch mates
+        _require(solo == reqs[0].tokens[:n],
+                 f"{mode}: batched tokens differ from the solo run")
+    _book_vs_plain(torch, kreg, S, model, prompts, mode)
+    return launches, total / wall
+
+
+def serving_phase(torch, dev, card, search):
+    """The book LM at Transformer-base's decoder widths served on the
+    card through the serving engine (inference/serving): export, load,
+    warmup (one CUDA graph a signature), a float32 burst, parity, the
+    GEMM modes, decode-shape GEMM times, and the RPC server. Returns
+    ({kernel: launches on this phase's main path}, GEMM times)."""
+    import socket
+    import tempfile
+    import threading
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import serving as S
+    from paddle_tpu_torch.kernels import registry as kreg
+    from paddle_tpu_torch.observability import memory as obs_memory
+    from paddle_tpu_torch.tuning import variants as V
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        model = _book_model(torch, pt, S, d)
+        print(f"  book LM {BOOK}, buckets {BOOK_BUCKETS}: built, "
+              f"initialized, exported and loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    n_sig = model.warmup()
+    torch.cuda.synchronize()
+    c_warm = dict(model.engine_counters())
+    print(f"  warmup: {n_sig} signatures in {time.perf_counter() - t0:.2f}"
+          f" s; engine counters {c_warm}")
+    _require(n_sig == 6 and c_warm["captures"] == 6,
+             "warmup did not capture the 6 signatures")
+
+    specs = _book_specs(BOOK_REQUESTS)
+    kreg.reset_counts()
+    eng, reqs, wall, steps, times = _book_burst(torch, S, model, specs)
+    c = {k: v - c_warm[k] for k, v in model.engine_counters().items()}
+    print(f"  engine since warmup: captures {c['captures']}, replays "
+          f"{c['replays']}, eager runs {c['eager_runs']}, plans built "
+          f"{c['traces']}; kernel launches "
+          f"{ {n: v for n, v in kreg.launches().items() if v} }")
+    _require(c["captures"] == 0 and c["eager_runs"] == 0
+             and c["traces"] == 0, "the burst planned, captured or ran "
+             "eagerly after warmup")
+    cen = obs_memory.census(top_n=4)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+          f"; census: kv_cache {cen['owners']['kv_cache']['bytes'] / 1e9:.3f}"
+          f" GB, predictor {cen['owners']['predictor']['bytes'] / 1e9:.3f} "
+          f"GB, orphan (graph pools, the allocator's blocks) "
+          f"{cen['orphan_bytes'] / 1e9:.3f} GB of "
+          f"{cen['live_bytes'] / 1e9:.3f} GB allocated")
+    del eng
+    busy = _book_busy(torch, S, model, [(p, n) for p, n in specs[:128]])
+
+    t0 = time.perf_counter()
+    for r, (p, n) in zip(reqs[:BOOK_PARITY], specs):
+        ref = S.reference_generate(model, p, n)
+        _require(ref == r.tokens, "float32 tokens differ from "
+                 "reference_generate")
+    print(f"  the first {BOOK_PARITY} requests' tokens equal "
+          f"reference_generate bit for bit "
+          f"({time.perf_counter() - t0:.2f} s)")
+    prompts = [p for p, _ in specs[:model.buckets.batch]]
+    _book_vs_plain(torch, kreg, S, model, prompts, "float32")
+
+    # each GEMM mode beside a float32 burst of the same requests
+    launches, rates = {}, {}
+    for mode in ("float32", "bf16", "int8", "tuned"):
+        print(f"  [{mode} GEMMs]")
+        if mode == "tuned":
+            _require(V.register_winner(search["winners"]) == "tuned_matmul",
+                     "no none winner to register")
+        elif mode != "float32":
+            os.environ["PT_KERNEL_QUANT_MATMUL"] = mode
+        try:
+            n, rates[mode] = _book_mode(
+                torch, kreg, S, model, specs[:BOOK_MODE_REQUESTS],
+                reqs[:BOOK_MODE_REQUESTS], mode)
+            if mode != "float32":
+                launches[_BOOK_KERNEL[mode]] = n
+        finally:
+            os.environ.pop("PT_KERNEL_QUANT_MATMUL", None)
+            kreg.unregister_kernel("tuned_matmul")
+    print(f"  tokens/s by GEMM mode, bursts of {BOOK_MODE_REQUESTS}: "
+          + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
+    gtimes = time_book_gemms(torch, dev, card, search)
+
+    print("  [RPC]")
+    model.warmup()      # float32 again, before the server's threads
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    ep = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    srv = S.ServeServer(ep, S.ServingEngine(model)).start()
+    got = {}
+
+    def client(i):
+        for j in (i, i + 4):
+            p, n = specs[j]
+            got[j] = S.generate(ep, p, max_new_tokens=n, timeout=300.0)
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300.0)
+        rpc_s = time.perf_counter() - t0
+    finally:
+        drained = srv.shutdown()
+    _require(drained, "the server did not drain")
+    _require(sorted(got) == list(range(8)) and all(
+        got[j]["status"] == S.STATUS_OK and got[j]["tokens"] ==
+        reqs[j].tokens for j in range(8)),
+        "the RPC clients' tokens differ from the in-process engine's")
+    print(f"  4 client threads, 8 generate calls in {rpc_s:.2f} s: tokens "
+          f"equal the in-process engine's; shutdown() drained")
+    print(f"  [serving phase] wall {time.perf_counter() - t_phase:.1f} s, "
+          f"device busy {100 * busy:.1f} % of the profiled decode steps")
+    return launches, gtimes
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3954,9 +4417,9 @@ def main(argv=None):
               ttimes[False]["dkv_sm90"], atimes, stimes, slenet):
         _require(t["ms"] > 0, "the profiler saw no device time")
 
-    print("[serving phase]")
+    print("[scoring phase]")
     counts, _, served = slice_phase(torch, dev)
-    print(f"  launches in the serving phase: {counts}")
+    print(f"  launches in the scoring phase: {counts}")
 
     print("[training phase]")
     tcounts = training_phase(torch, dev, built)
@@ -3970,7 +4433,7 @@ def main(argv=None):
 
     serve_launches = {}
     for mode in ("int8", "bf16", "tuned"):
-        print(f"[serving phase, {mode} GEMMs]")
+        print(f"[scoring phase, {mode} GEMMs]")
         if mode == "tuned":
             _require(V.register_winner(search["winners"]) == "tuned_matmul",
                      "no none winner to register")
@@ -3980,6 +4443,14 @@ def main(argv=None):
             kreg.unregister_kernel("tuned_matmul")
     served["exe"].close()
     del served
+    gc_cuda(torch)
+
+    print("[serving phase]")
+    book_launches, book_gemms = serving_phase(torch, dev, card, search)
+    for name, n in book_launches.items():
+        serve_launches[{"quantized_matmul_int8": "int8",
+                        "quantized_matmul_bf16": "bf16",
+                        "tuned_matmul_sm90": "tuned"}[name]] += n
     gc_cuda(torch)
 
     print("[graph capture phase]")

@@ -10,7 +10,7 @@ numpy, and nothing of JAX or of paddle_tpu.
 """
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
-from . import backward, contrib, dygraph, optimizer  # noqa: F401
+from . import backward, contrib, dygraph, inference, optimizer  # noqa: F401
 from . import unique_name  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .core.scope import (LoDTensor, Scope, global_scope,  # noqa: F401

@@ -518,9 +518,12 @@ class Engine:
     `counters`: runs (Engine.run calls), fast_path_hits (runs that
     reused a plan), traces (plans built), captures (blocks captured),
     replays (runs of a captured block) and eager_runs (runs of the
-    block op by op)."""
+    block op by op). `max_plans` bounds the plans kept a key (None: no
+    bound, for a caller that declares its signatures, as the inference
+    predictor does)."""
 
-    def __init__(self):
+    def __init__(self, max_plans=_MAX_PLANS):
+        self._max_plans = max_plans
         self._plans: Dict[tuple, List[_Plan]] = {}
         # the graphs' shared memory pool, and the live graphs in it (torch
         # frees a pool with its last graph: a new one is made then)
@@ -550,9 +553,24 @@ class Engine:
         if key is not None:
             plans = self._plans.setdefault(key, [])
             plans.append(plan)
-            if len(plans) > _MAX_PLANS:
+            if self._max_plans is not None and \
+                    len(plans) > self._max_plans:
                 self._release(plans.pop(0))
         return plan
+
+    def captured_tensors(self):
+        """(label, tensor) of the static tensors of every captured plan:
+        its feeds' inputs, its state and its fetch targets (for the
+        memory census)."""
+        for i, plan in enumerate(p for plans in self._plans.values()
+                                 for p in plans):
+            cap = plan.captured
+            if cap is None:
+                continue
+            for kind, tensors in (("in", cap.inputs), ("state", cap.state),
+                                  ("out", cap.outputs or {})):
+                for n, t in tensors.items():
+                    yield f"plan{i}.{kind}:{n}", t
 
     def _release(self, plan):
         """Release a plan's captured graph, if it has one."""

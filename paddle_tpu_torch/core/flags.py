@@ -17,6 +17,18 @@ _DEFAULTS: Dict[str, Any] = {
     # route eligible ops through the custom-kernel registry
     # (kernels/registry.py); per-kernel denial: PT_KERNEL_DENY
     "use_custom_kernels": True,
+    # the RPC framing of distributed/async_ps.py and its resilience
+    # layer (distributed/resilience.py), with the JAX package's defaults
+    "rpc_deadline_s": 60.0,       # total deadline of one RPC, retries in
+    "rpc_max_retries": 5,         # retries after the first attempt
+    "rpc_backoff_base_s": 0.1,    # retry i sleeps base * 2**i (+ jitter)
+    "rpc_backoff_max_s": 2.0,     # one backoff's cap, before jitter
+    "rpc_backoff_jitter": 0.5,    # each backoff scaled by U[1, 1+jitter]
+    "rpc_breaker_failures": 5,    # consecutive failures that open a breaker
+    "rpc_breaker_cooldown_s": 2.0,  # open breaker's wait before a probe
+    "rpc_max_message_mb": 1024,   # refuse a larger length prefix unread
+    # metric observation and spans (observability/metrics.py)
+    "telemetry": False,
 }
 _VALUES: Dict[str, Any] = dict(_DEFAULTS)
 _LOCK = threading.Lock()
@@ -44,6 +56,9 @@ def set_flags(flags: Dict[str, Any]):
         for raw, value in flags.items():
             name = _name(raw)
             _VALUES[name] = _coerce(name, value)
+            if name == "telemetry":
+                from ..observability import metrics
+                metrics.enable_telemetry(_VALUES[name])
 
 
 def get_flags(names) -> Dict[str, Any]:

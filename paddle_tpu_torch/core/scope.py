@@ -118,6 +118,9 @@ class Scope:
     def find_var(self, name: str) -> Optional[Variable]:
         return self._vars.get(name)
 
+    def local_var_names(self):
+        return list(self._vars)
+
     def erase(self, names):
         """Remove the named variables (names not in the scope are
         skipped)."""

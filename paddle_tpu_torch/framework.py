@@ -399,8 +399,11 @@ class Block:
                                     device=_META)
         try:
             info.lowering(ExecContext(op, env, _META))
-        except NotImplementedError:
-            # no meta kernel for some torch op: shapes stay as declared
+        except Exception:
+            # no meta kernel for some torch op, or shapes that only the
+            # data settle (a sentinel dim plus a static one, as a decode
+            # step's concat of the cache and the new token gives): the
+            # shapes stay as declared, as the JAX package leaves them
             return
         for name in op.output_arg_names:
             val = env.get(name)

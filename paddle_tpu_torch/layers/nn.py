@@ -1,6 +1,6 @@
 """NN layers (counterpart of paddle_tpu/layers/nn.py). The builders that
 Transformer training and inference call: fc, embedding, layer_norm,
-fused_attention, dropout, reshape, squeeze, reduce_sum,
+fused_attention, dropout, reshape, squeeze, unsqueeze, reduce_sum,
 add_position_encoding, elementwise_*; matmul; those of LeNet:
 conv2d, pool2d, softmax, mean, top_k/topk; those of ResNet:
 batch_norm, relu; and those of the CTR models: flatten, concat,
@@ -18,9 +18,9 @@ from ..initializer import Constant, Normal
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "layer_norm", "fused_attention",
     "dropout", "softmax", "mean", "top_k", "topk", "matmul", "reshape",
-    "squeeze", "reduce_sum", "add_position_encoding", "elementwise_add",
-    "elementwise_mul", "elementwise_div", "batch_norm", "relu",
-    "flatten", "concat", "sigmoid", "elementwise_sub",
+    "squeeze", "unsqueeze", "reduce_sum", "add_position_encoding",
+    "elementwise_add", "elementwise_mul", "elementwise_div", "batch_norm",
+    "relu", "flatten", "concat", "sigmoid", "elementwise_sub",
 ]
 
 
@@ -254,6 +254,16 @@ def squeeze(input, axes, name=None):
     out = helper.create_variable_for_type_inference(input.dtype)
     xshape = helper.create_variable_for_type_inference(input.dtype, True)
     helper.append_op("squeeze2", inputs={"X": input},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axes": axes})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("unsqueeze2", inputs={"X": input},
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"axes": axes})
     return out

@@ -1,9 +1,10 @@
-"""Tensor ops: fill_constant, sum, cast, scale, reshape2, squeeze2, flatten,
-flatten2, concat, top_k, lookup_table with its dense and SelectedRows
-grads, merge_selected_rows and get_tensor_from_selected_rows
-(counterpart of paddle_tpu/ops/basic.py). The "2"-suffixed ops carry an
-XShape output, here a zero-size marker holding the input's shape. sum
-and scale take SelectedRows too (core/selected_rows.py)."""
+"""Tensor ops: fill_constant, sum, cast, scale, reshape2, squeeze2,
+unsqueeze, unsqueeze2, flatten, flatten2, concat, top_k, lookup_table
+with its dense and SelectedRows grads, merge_selected_rows and
+get_tensor_from_selected_rows (counterpart of paddle_tpu/ops/basic.py).
+The "2"-suffixed ops carry an XShape output, here a zero-size marker
+holding the input's shape. sum and scale take SelectedRows too
+(core/selected_rows.py)."""
 from __future__ import annotations
 
 import torch
@@ -109,6 +110,22 @@ def squeeze2(ctx):
              if not (i in axes and d == 1)]
     ctx.set_output("Out", x.reshape(shape))
     _xshape(ctx, x)
+
+
+@register_op("unsqueeze")
+def unsqueeze(ctx):
+    """X with a dim of 1 inserted at each of `axes`, in ascending
+    order, as the JAX lowering expands them."""
+    out = ctx.input("X")
+    for a in sorted(ctx.attr("axes")):
+        out = out.unsqueeze(a)
+    ctx.set_output("Out", out)
+
+
+@register_op("unsqueeze2")
+def unsqueeze2(ctx):
+    unsqueeze(ctx)
+    _xshape(ctx, ctx.input("X"))
 
 
 @register_op("flatten")

@@ -23,8 +23,12 @@ with sparse embedding gradients, and the engine's captured blocks
 Transformer with dropout: captured runs bit-equal to eager ones; the
 attention kernels reading their dropout seed from the card, also
 inside a CUDA graph; a host copy inside a captured block raising; a
-capture after every graph of an engine was released). They skip where
-torch sees no CUDA device.
+capture after every graph of an engine was released), and the serving
+engine (the book LM's signatures captured by warmup(), a burst of
+replays only with each request's tokens equal to its solo run, 37
+GEMM-kernel launches a dispatch in bf16 and int8 mode, ServeServer's
+threads against the in-process engine). They skip where torch sees no
+CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -1841,3 +1845,127 @@ def test_recapture_after_every_graph_was_released_on_card(cuda):
     c = {k: v - before[k] for k, v in exe._engine.counters.items()}
     assert (c["captures"], c["replays"], c["eager_runs"]) == (3, 5, 1)
     exe.close()
+
+
+def _book_lm_on_card(tmp_path, vocab, hidden, layers, buckets):
+    """A book LM initialized on the card from the startup program's
+    seed, exported, and loaded on the card (warmed up)."""
+    from paddle_tpu_torch.inference import serving
+    pt.framework.unique_name.reset()
+    pre, dec, startup, meta = serving.build_book_lm(
+        vocab=vocab, hidden=hidden, num_layers=layers, max_len=64)
+    startup.random_seed = 7
+    d = str(tmp_path / "book_lm")
+    with pt.scope_guard(pt.Scope()):
+        exe = pt.Executor()
+        exe.run(startup)
+        serving.export_serving_model(d, exe, pre, dec, meta,
+                                     buckets=buckets)
+    model = serving.load_serving_model(d)
+    assert model.device.type == "cuda"
+    return model
+
+
+_BOOK_PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [10, 11, 12, 13, 14]]
+
+
+def test_serving_burst_replays_and_matches_solo_on_card(cuda, tmp_path):
+    """After warmup() every signature is a CUDA graph: a burst plans,
+    captures and runs eagerly nothing, and each request's tokens equal
+    its solo run (reference_generate) bit for bit, float32."""
+    from paddle_tpu_torch.inference import serving
+    bk = serving.BucketSpec(batch=3, prefill_lens=(8,),
+                            cache_lens=(16, 24))
+    model = _book_lm_on_card(tmp_path, 29, 8, 2, bk)
+    assert model.warmup() == 3
+    c0 = dict(model.engine_counters())
+    assert c0["captures"] == 3
+    eng = serving.ServingEngine(model)
+    reqs = [eng.submit(p, max_new_tokens=12) for p in _BOOK_PROMPTS]
+    while eng.pending():
+        eng.step()
+    c1 = model.engine_counters()
+    assert (c1["captures"], c1["eager_runs"], c1["traces"]) == \
+        (c0["captures"], c0["eager_runs"], c0["traces"])
+    assert c1["replays"] > c0["replays"]
+    assert eng.kv.pages_in_use == 0
+    for r, p in zip(reqs, _BOOK_PROMPTS):
+        assert r.status == serving.STATUS_OK
+        assert r.tokens == serving.reference_generate(model, p, 12)
+    assert model.engine_counters()["captures"] == c0["captures"]
+
+
+def test_serving_gemm_kernels_per_dispatch_on_card(cuda, tmp_path,
+                                                   monkeypatch):
+    """At hidden 128, vocab 256 and batch 128 every fc of a prefill and
+    of a decode dispatch (6 a layer and the head) takes the quantized
+    GEMM in its mode; bf16 tokens equal the solo run's (each output row
+    depends on its own row)."""
+    from paddle_tpu_torch.inference import serving
+    bk = serving.BucketSpec(batch=128, prefill_lens=(8,),
+                            cache_lens=(16,))
+    model = _book_lm_on_card(tmp_path, 256, 128, 2, bk)
+    for mode in ("bf16", "int8"):
+        monkeypatch.setenv("PT_KERNEL_QUANT_MATMUL", mode)
+        assert model.warmup() == 2
+        name = f"quantized_matmul_{mode}"
+        tok, pos, mask = serving.export.prefill_feeds(
+            [[1, 2, 3]] * 128, 8, 128)
+        kreg.reset_counts()
+        _, k, v = model.prefill(tok, pos, mask)
+        assert kreg.launches()[name] == 13
+        t, p, m = serving.export.decode_feeds([5] * 128, [3] * 128, 16,
+                                              128)
+        ck = torch.zeros((2, 128, 16, 128), device=cuda)
+        kreg.reset_counts()
+        model.decode(t, p, m, ck, ck)
+        assert kreg.launches()[name] == 13
+        if mode == "bf16":
+            eng = serving.ServingEngine(model)
+            reqs = [eng.submit(pr, max_new_tokens=6)
+                    for pr in _BOOK_PROMPTS]
+            while eng.pending():
+                eng.step()
+            for r, pr in zip(reqs, _BOOK_PROMPTS):
+                assert r.tokens == serving.reference_generate(model, pr, 6)
+
+
+def test_serve_server_threads_match_engine_on_card(cuda, tmp_path):
+    """ServeServer replays the graphs from its loop thread; four client
+    threads get the tokens the in-process engine gives."""
+    import socket
+    import threading
+    from paddle_tpu_torch.inference import serving
+    bk = serving.BucketSpec(batch=3, prefill_lens=(8,), cache_lens=(24,))
+    model = _book_lm_on_card(tmp_path, 29, 8, 2, bk)
+    model.warmup()
+    c0 = dict(model.engine_counters())
+    eng = serving.ServingEngine(model)
+    want = [eng.submit(p, max_new_tokens=6) for p in _BOOK_PROMPTS]
+    while eng.pending():
+        eng.step()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    ep = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    srv = serving.ServeServer(ep, serving.ServingEngine(model)).start()
+    got = {}
+
+    def client(i):
+        got[i] = serving.generate(ep, _BOOK_PROMPTS[i], max_new_tokens=6,
+                                  timeout=120.0)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(_BOOK_PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+    finally:
+        assert srv.shutdown() is True
+    assert [got[i]["tokens"] for i in range(len(_BOOK_PROMPTS))] == \
+        [r.tokens for r in want]
+    c1 = model.engine_counters()
+    assert (c1["captures"], c1["eager_runs"]) == (c0["captures"],
+                                                  c0["eager_runs"])

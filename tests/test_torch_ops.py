@@ -1,5 +1,5 @@
 """One-op parity: each forward op type on Transformer inference's and
-training's path runs through the JAX package's lowering and the port's
+training's path (and the serving book LM's unsqueeze) runs through the JAX package's lowering and the port's
 lowering on the same numpy inputs, made from a seed. (The grad ops are
 held against the JAX package in tests/test_torch_backward.py, adam in
 tests/test_torch_training.py; dropout's random branch, which cannot draw
@@ -182,6 +182,12 @@ def _cases():
          {s: (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
               if s != "BiasQK" else a) for s, a in attn.items()},
          ["Out"], {"scale": 0.3, "layout": "bhsd", "causal": True}),
+        # the serving book LM's decode program (inference/serving)
+        ("unsqueeze2", {"X": _f32(rng, 4, 6)}, ["Out", "XShape"],
+         {"axes": [1]}),
+        ("unsqueeze2", {"X": _f32(rng, 3, 5)}, ["Out", "XShape"],
+         {"axes": [0, -1]}),
+        ("unsqueeze", {"X": _f32(rng, 2, 3)}, ["Out"], {"axes": [2, 0]}),
     ]
 
 
