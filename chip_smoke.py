@@ -156,7 +156,28 @@
    parameters, mapped by creation order; and 2 eager Adam steps in
    float32 at B=32, one fused_adam launch a step, bit-equal to the same
    steps under plain_reference().
-11. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+11. Sequence phase (BASELINE config 3's variable-length path): the
+   PaddlePaddle book's sentiment classifiers (models/sentiment.py:
+   stacked_lstm_net with 3 LSTMs, convolution_net with two
+   sequence_conv_pool branches) at the book's widths (emb 128, hid 512,
+   vocab 5148), Adagrad(0.002) on a sparse embedding, B=128, on LoD
+   batches of RandomState(i) reviews whose lengths are log-normal
+   (median 174, sigma 0.75, clipped to [10, 2494]: IMDB's shape). For
+   each net: a pool of SEQ_POOL batches, each run three times with the
+   plan cache (its first run eager, its second captures, its third
+   replays) and the same runs with use_program_cache=False, from one
+   startup state in deterministic mode: fetches and persistables
+   bit-equal; the first loss against the port on the CPU from the same
+   parameters (SEQ_LOSS_RTOL); the captures clocked; eager against
+   captured in turns (examples/s, tokens/s, host s a run), a profiled
+   replay (busy share, kernels a step, top kernels), peak memory and
+   the graph pools; a stream of SEQ_STREAM distinct batches (a plan
+   each, eager); for the stacked net, save_inference_model and the
+   AnalysisPredictor on the card on LoD feeds (a capture a signature at
+   warmup, then none; outputs equal to the Executor's). Prints each
+   batch's padded share (N * longest / tokens). No kernel of the port
+   is launched.
+12. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -169,7 +190,7 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-12. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+13. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's and the dygraph phase's; the quantized and
    tuned GEMMs': the scoring and the serving phase's), then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
@@ -4344,6 +4365,356 @@ def serving_phase(torch, dev, card, search):
     return launches, gtimes
 
 
+# ---------------------------------------------------------------------------
+# sequence phase: LoD batches through the book's sentiment classifiers
+# ---------------------------------------------------------------------------
+
+# the book's widths (understand_sentiment): emb 128, hid 512 (each LSTM's
+# hidden 128), 3 stacked LSTMs, 2 classes; vocab about the book's IMDB
+# word_dict(); Adagrad(0.002), sparse embedding, B=128
+SEQ = {"input_dim": 5148, "emb_dim": 128, "hid_dim": 512}
+SEQ_B = 128
+# review lengths: log-normal, median 174 words, sigma 0.75, clipped to
+# [10, 2494] (IMDB's shape): batches 0 and 1 hold 33,145 and 29,353
+# tokens, their longest reviews 955 and 896
+SEQ_LEN = (174.0, 0.75, 10, 2494)
+SEQ_POOL = 2        # LoD batches cycled (each its own plan and graph)
+SEQ_STREAM = 3      # distinct batches run once each, eagerly
+SEQ_TURNS = 2       # turns of one pass over the pool, eager and captured
+SEQ_SERVE_RUNS = 4  # predictor runs a warmed signature
+# the first step's loss on the card against the port on the CPU from the
+# same parameters: float32 on both (TF32 off), sums in another order;
+# measured 8.6e-8 (stacked_lstm_net) and 0 (convolution_net) on the H100
+SEQ_LOSS_RTOL = 1e-6
+# the predictor's replayed forward against the Executor's eager one on
+# the card: the same kernels
+SEQ_INFER_ATOL = 1e-6
+
+
+def _seq_batch(seed):
+    """(ids [T, 1] int64, [lengths], labels [B, 1] int64) of one batch of
+    SEQ_B reviews from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    med, sigma, lo, hi = SEQ_LEN
+    lens = np.clip(np.round(np.exp(rng.normal(np.log(med), sigma, SEQ_B))),
+                   lo, hi).astype(np.int64)
+    ids = rng.randint(0, SEQ["input_dim"], (int(lens.sum()), 1))
+    labels = rng.randint(0, 2, (SEQ_B, 1))
+    return ids.astype(np.int64), [lens.tolist()], labels.astype(np.int64)
+
+
+def _seq_feed(pt, batch, place):
+    ids, lens, labels = batch
+    return {"words": pt.create_lod_tensor(ids, lens, place),
+            "label": labels}
+
+
+def _seq_padded_share(batch):
+    lens = batch[1][0]
+    return len(lens) * max(lens) / sum(lens)
+
+
+def _seq_first_loss_cpu(pt, main, cost, state, batch):
+    """The forward of `main` (the ops `cost` needs) on the CPU from the
+    card's initial `state` (name -> CPU tensor) on `batch`."""
+    prog = pt.io._prune_program(main, [cost.name])
+    scope = pt.Scope()
+    for n, t in state.items():
+        scope.var(n).get_tensor().set_tensor(t.clone())
+    exe = pt.Executor(pt.CPUPlace())
+    return float(exe.run(prog, feed=_seq_feed(pt, batch, pt.CPUPlace()),
+                         fetch_list=[cost], scope=scope,
+                         use_program_cache=False)[0])
+
+
+def _seq_profile(torch, fn):
+    """One call of fn() under torch.profiler: (wall s, busy share, device
+    kernels launched, the top kernels by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return wall, busy / wall, sum(e.count for e in kernels), top
+
+
+def _seq_compare(torch, pt, kreg, label, main, cost, acc, init, feeds):
+    """Each pool batch three times through the plan cache (its first run
+    eager, its second captures, its third replays) and the same runs
+    with use_program_cache=False, from copies of the initial state, in
+    deterministic mode: fetches and persistables bit-equal, no kernel of
+    the port launched. Returns (exe, scope, losses, eager reasons) of the
+    cached runs."""
+    runs = [f for f in feeds] * 3
+    out, state = {}, {}
+    with _deterministic(torch):
+        for cached in (True, False):
+            exe = pt.Executor(pt.CUDAPlace(0))
+            scope = _copy_scope(pt, init, list(init._vars))
+            kreg.reset_counts()
+            with _capture_clock() as clock:
+                out[cached] = [[np.asarray(v) for v in _cap_run(
+                    exe, main, f, [cost, acc], scope, cached)]
+                    for f in runs]
+            launched = {k: v for k, v in kreg.launches().items() if v}
+            _require(not launched, f"{label}: the phase launched {launched}")
+            state[cached] = {n: v.get_tensor().tensor.clone()
+                             for n, v in scope._vars.items()}
+            if cached:
+                kept = (exe, scope, clock, dict(exe._engine.eager_reasons))
+            else:
+                exe.close()
+    equal_out = all(np.array_equal(a, b) for x, y in
+                    zip(out[True], out[False]) for a, b in zip(x, y))
+    equal_state = all(torch.equal(state[True][n], state[False][n])
+                      for n in state[True])
+    exe, scope, clock, reasons = kept
+    c = _counters(exe)
+    losses = [float(o[0]) for o in out[True]]
+    print(f"  {label}: {len(runs)} runs over {len(feeds)} LoD batches "
+          f"with the plan cache ({c['captures']} captures, {c['replays']} "
+          f"replays, {c['eager_runs']} eager) and {len(runs)} eager, "
+          f"deterministic mode: fetches bit-equal {equal_out}, "
+          f"{len(state[True])} persistables bit-equal {equal_state}; "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}; 0 kernel "
+          f"launches")
+    print(f"  {label}: the captures' parts: the capture rule "
+          f"{clock['rule']:.3f} s, warm-up {clock['warm_up']:.3f} s, "
+          f"capture {clock['capture']:.3f} s (of it gc.collect "
+          f"{clock['gc']:.3f} s); eager reasons {reasons or 'none'}")
+    _require(equal_out and equal_state,
+             f"{label}: captured runs differ from eager runs")
+    _require(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    if not reasons:
+        _require((c["captures"], c["replays"], c["eager_runs"]) ==
+                 (len(feeds), 2 * len(feeds), len(feeds)),
+                 f"{label}: counters {c}")
+    return exe, scope, losses, reasons
+
+
+def _seq_rates(torch, pt, label, exe, main, fetch, scope, feeds, tokens,
+               captured):
+    """Eager (use_program_cache=False) against the plan cache's runs
+    (replays where `captured`: `fetch` is the fetch list the plans were
+    made for) in SEQ_TURNS turns of one pass over the pool each, the
+    order alternating: examples/s and tokens/s, each turn ending at its
+    last fetched loss. First one pass of cached runs: the plans were
+    captured in deterministic mode, and leaving it changes the routing a
+    capture bakes in, so each is captured again (clocked)."""
+    with _capture_clock() as clock:
+        c0 = _counters(exe)
+        t0 = time.perf_counter()
+        for f in feeds:
+            _cap_run(exe, main, f, fetch, scope)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    print(f"  {label}: {_counters(exe)['captures'] - c0['captures']} "
+          f"captures again outside deterministic mode in {secs:.3f} s: "
+          f"warm-up {clock['warm_up']:.3f} s, capture "
+          f"{clock['capture']:.3f} s")
+    modes = ("eager", "captured")
+    secs = {m: [] for m in modes}
+    runs = {m: [] for m in modes}
+    before = _counters(exe)
+    for turn in range(SEQ_TURNS):
+        for m in (modes if turn % 2 == 0 else modes[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in feeds:
+                t1 = time.perf_counter()
+                loss = _cap_run(exe, main, f, fetch, scope,
+                                cached=m == "captured", numpy=False)[0]
+                runs[m].append(time.perf_counter() - t1)
+            float(loss)
+            secs[m].append(time.perf_counter() - t0)
+    after = _counters(exe)
+    for m in modes:
+        med = float(np.median(secs[m]))
+        print(f"  {label} {m if m == 'eager' or captured else 'cached'}: "
+              f"s a pass over the pool "
+              f"{', '.join(f'{x:.3f}' for x in secs[m])} (median "
+              f"{med:.3f}; host s a run before its fetch "
+              f"{', '.join(f'{x:.3f}' for x in runs[m])}): "
+              f"{SEQ_B * len(feeds) / med:.1f} examples/s, "
+              f"{tokens / med:.1f} tokens/s")
+    delta = {k: after[k] - before[k] for k in after}
+    print(f"  {label}: counters over the turns {delta}")
+    _require(delta["captures"] == 0, f"{label}: the turns captured again")
+
+
+def _seq_stream(torch, pt, label, main, cost, init, n):
+    """SEQ_STREAM batches never seen before, one run each through the
+    plan cache on a fresh Executor: each builds its own plan and runs
+    eagerly (a user without bucketing)."""
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = _copy_scope(pt, init, list(init._vars))
+    batches = [_seq_batch(1000 + i) for i in range(n)]
+    feeds = [_seq_feed(pt, b, pt.CUDAPlace(0)) for b in batches]
+    tokens = sum(sum(b[1][0]) for b in batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feeds:
+        loss = _cap_run(exe, main, f, [cost], scope, numpy=False)[0]
+    float(loss)
+    secs = time.perf_counter() - t0
+    c = _counters(exe)
+    print(f"  {label}: a stream of {n} distinct batches ({tokens} tokens): "
+          f"{secs:.3f} s, {SEQ_B * n / secs:.1f} examples/s, "
+          f"{tokens / secs:.1f} tokens/s; counters {c}")
+    _require(c["traces"] == n and c["eager_runs"] == n and
+             c["captures"] == 0, f"{label}: stream counters {c}")
+    exe.close()
+
+
+def _seq_serve(torch, pt, exe, main, pred, scope, batches):
+    """save_inference_model of the trained net, then AnalysisPredictor on
+    the card on LoD feeds: each pool batch warmed (its plan, then its
+    capture), then SEQ_SERVE_RUNS runs each with no capture, their
+    outputs against the Executor's eager forward on the same scope."""
+    import tempfile
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    test = pt.io._prune_program(main, [pred.name])
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["words"], [pred], exe,
+                                       main_program=main)
+        predictor = create_paddle_predictor(AnalysisConfig(d))
+    it = predictor.get_input_tensor("words")
+    ot = predictor.get_output_tensor(predictor.get_output_names()[0])
+
+    def run(b):
+        it.copy_from_cpu(b[0])
+        it.set_lod([[0] + np.cumsum(b[1][0]).tolist()])
+        predictor.zero_copy_run()
+        return ot.copy_to_cpu()
+
+    t0 = time.perf_counter()
+    for b in batches:
+        for _ in range(2):
+            run(b)
+    warm = time.perf_counter() - t0
+    c0 = dict(predictor._engine.counters)
+    worst = 0.0
+    t0 = time.perf_counter()
+    outs = [[run(b) for b in batches] for _ in range(SEQ_SERVE_RUNS)]
+    secs = time.perf_counter() - t0
+    c1 = predictor._engine.counters
+    for i, b in enumerate(batches):
+        ref = np.asarray(exe.run(test, feed=_seq_feed(pt, b,
+                                                      pt.CUDAPlace(0)),
+                                 fetch_list=[pred], scope=scope,
+                                 use_program_cache=False)[0])
+        for o in outs:
+            worst = max(worst, float(np.abs(o[i] - ref).max()))
+    n = SEQ_SERVE_RUNS * len(batches)
+    new = {k: c1[k] - c0[k] for k in ("captures", "eager_runs", "traces")}
+    print(f"  serving: AnalysisPredictor on {len(batches)} LoD signatures "
+          f"of B={SEQ_B}: warmup {warm:.3f} s ({c0['captures']} captures); "
+          f"then {n} runs in {secs:.3f} s ({SEQ_B * n / secs:.1f} "
+          f"examples/s, the outputs' host copies included) with "
+          f"{new['captures']} captures, {new['eager_runs']} eager runs; "
+          f"max |predictor - Executor| {worst:.3e} (bound "
+          f"{SEQ_INFER_ATOL:g})")
+    _require(c0["captures"] == len(batches) and not any(new.values()),
+             f"serving: counters {c0} -> {dict(c1)}")
+    _require(worst <= SEQ_INFER_ATOL, "serving: the predictor disagrees "
+             "with the Executor")
+
+
+def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
+    """One net (models/sentiment.py NETS key) through the phase."""
+    from paddle_tpu_torch.models import sentiment
+    label = {"stacked_lstm": "stacked_lstm_net",
+             "conv": "convolution_net"}[net]
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, cost, acc, pred = sentiment.sentiment_train(net, **SEQ)
+    main.random_seed = startup.random_seed = SEED
+    types = [op.type for op in main.global_block().ops]
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    print(f"  {label}: {len(types)} ops ({types.count('lstm')} lstm, "
+          f"{types.count('sequence_conv')} sequence_conv, "
+          f"{types.count('sequence_pool')} sequence_pool, "
+          f"{types.count('adagrad')} adagrad), "
+          f"{sum(int(np.prod(p.shape)) for p in main.all_parameters())} "
+          f"parameters")
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons = _seq_compare(
+        torch, pt, kreg, label, main, cost, acc, init, feeds)
+    t1 = time.perf_counter()
+    cpu = _seq_first_loss_cpu(pt, main, cost, cpu_state, batches[0])
+    err = abs(losses[0] - cpu) / abs(cpu)
+    print(f"  {label}: first loss {losses[0]:.7f} on the card, {cpu:.7f} "
+          f"on the CPU ({time.perf_counter() - t1:.1f} s): rel err "
+          f"{err:.3e} (bound {SEQ_LOSS_RTOL:g})")
+    _require(err <= SEQ_LOSS_RTOL, f"{label}: card and CPU disagree")
+    kreg.reset_counts()
+    _seq_rates(torch, pt, label, exe, main, [cost, acc], scope, feeds,
+               tokens, not reasons)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pool = _graph_pool_gb(torch)
+    c0 = _counters(exe)
+    wall, busy, n_kernels, top = _seq_profile(torch, lambda: _cap_run(
+        exe, main, feeds[0], [cost, acc], scope, numpy=False))
+    c1 = _counters(exe)
+    _require(c1["replays"] == c0["replays"] + 1 or reasons,
+             f"{label}: the profiled run was no replay: {c0} -> {c1}")
+    print(f"  {label}: peak memory allocated {peak:.3f} GB; graph pools "
+          f"{pool[0]:.3f} GB allocated, {pool[1]:.3f} GB reserved")
+    print(f"  {label}: profiled {'replay' if not reasons else 'eager run'}"
+          f" of batch 0: wall {wall:.4f} s, device busy "
+          f"{100 * busy:.1f} %, {n_kernels} kernels")
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+    _seq_stream(torch, pt, label, main, cost, init, SEQ_STREAM)
+    if net == "stacked_lstm":
+        _seq_serve(torch, pt, exe, main, pred, scope, batches)
+    launched = {k: v for k, v in kreg.launches().items() if v}
+    _require(not launched, f"{label}: the phase launched {launched}")
+    exe.close()
+    del exe, scope, init
+    gc_cuda(torch)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s")
+
+
+def sequence_phase(torch, dev):
+    """The book's sentiment classifiers (stacked_lstm_net, then
+    convolution_net) at the book's widths on IMDB-shaped LoD batches of
+    B=128 through Executor.run on the card: a pool of SEQ_POOL batches
+    captured against eager bit for bit, the first loss against the CPU,
+    eager against captured in turns, a profiled replay, peak memory, a
+    stream of SEQ_STREAM distinct batches run eagerly, and for the
+    stacked net the predictor on LoD feeds. No kernel of the port is
+    launched."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    batches = [_seq_batch(i) for i in range(SEQ_POOL)]
+    feeds = [_seq_feed(pt, b, pt.CUDAPlace(0)) for b in batches]
+    tokens = sum(sum(b[1][0]) for b in batches)
+    for i, b in enumerate(batches):
+        lens = b[1][0]
+        print(f"  batch {i}: {SEQ_B} reviews, {sum(lens)} tokens, lengths "
+              f"{min(lens)}-{max(lens)} (median {int(np.median(lens))}); "
+              f"padded share N*maxT/sum(T) {_seq_padded_share(b):.3f}")
+    for net in ("stacked_lstm", "conv"):
+        _seq_net(torch, pt, kreg, net, batches, feeds, tokens)
+    print(f"  sequence phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4477,6 +4848,9 @@ def main(argv=None):
 
     print("[dygraph phase]")
     dy_adam, _ = dygraph_phase(torch, dev)
+
+    print("[sequence phase]")
+    sequence_phase(torch, dev)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

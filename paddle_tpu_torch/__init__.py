@@ -13,9 +13,11 @@ from . import framework, initializer, io, layers, models  # noqa: F401
 from . import backward, contrib, dygraph, inference, optimizer  # noqa: F401
 from . import unique_name  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
-from .core.scope import (LoDTensor, Scope, global_scope,  # noqa: F401
-                         scope_guard)
+from .core.scope import (LoDTensor, Scope, create_lod_tensor,  # noqa: F401
+                         global_scope, scope_guard)
 from .executor import Executor  # noqa: F401
+from . import lod_tensor, nets  # noqa: F401
+from .lod_tensor import create_random_int_lodtensor  # noqa: F401
 from .framework import (Program, default_main_program,  # noqa: F401
                         default_startup_program, in_dygraph_mode,
                         program_guard)

@@ -56,6 +56,19 @@ fetches of the last. A feed that is already a torch tensor on the run's
 device is used as it is (copied on the device into a captured block's
 static input). Values in the env may be SelectedRows
 (core/selected_rows.py): the sparse gradients of lookup_table.
+
+LoD (variable-length batches): a feed may be a LoDTensor, whose offsets
+are host data. They are part of the feed signature, so a plan (and its
+captured graph) belongs to one LoD, as the JAX engine compiles one step
+a LoD signature: two batches of equal shapes and other offsets have two
+plans. A run's lod_env (RunState) starts from the feeds' offsets; the
+sequence ops set their outputs' (ExecContext.set_lod) and the
+row-preserving ops of _LOD_SHARING_OPS pass their input's on
+(_share_lod), the meta-device run of the capture rule included. The
+index tensors the sequence ops derive from offsets are made at a plan's
+first run and kept in its LodIndexCache, so a capture and its replays
+copy nothing from the host. A fetch with a LoD comes back as a
+LoDTensor holding its offsets.
 """
 from __future__ import annotations
 
@@ -69,9 +82,9 @@ from .amp import amp_guard
 from .enforce import EnforceNotMet, wrap_op_error
 from .place import Place, default_place
 from .registry import (OP_UID_ATTR, OPS, ExecContext, GraphRandom,
-                       RunState, grad_diff_slots, has_generic_grad,
-                       run_forward_for_vjp)
-from .scope import Scope, tensor_to_numpy
+                       LodIndexCache, RunState, grad_diff_slots,
+                       has_generic_grad, run_forward_for_vjp)
+from .scope import LoDTensor, Scope, tensor_to_numpy
 from .selected_rows import is_selected_rows
 from .types import dtype_to_torch
 
@@ -123,6 +136,56 @@ def _group_end(ops, i, key, record_slots):
     return j
 
 
+# Row-preserving ops that share their first LoD input's offsets with
+# same-row-count outputs — the opt-in analog of the reference's per-op
+# ShareLoD calls (a blanket row-count heuristic would mis-tag e.g.
+# transpose of a square tensor). Covers the common token-wise pipeline:
+# embedding -> fc/mul -> activation -> norm -> emission.
+_LOD_SHARING_OPS = frozenset({
+    "lookup_table", "mul", "sum", "scale", "cast", "clip", "dropout",
+    "softmax", "log_softmax", "layer_norm", "elementwise_add",
+    "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "elementwise_min", "elementwise_pow", "assign",
+    "relu", "relu6", "sigmoid", "tanh", "exp", "log", "sqrt", "rsqrt",
+    "abs", "square", "gelu", "swish", "softplus", "softsign",
+    "leaky_relu", "elu", "brelu", "soft_relu", "hard_sigmoid", "selu",
+    "stanh", "logsigmoid", "pow", "concat", "row_conv",
+})
+
+
+def _share_lod(op, env, lod_env):
+    """Default LoD propagation (reference ShareLoD in InferShape): for
+    row-preserving ops, an output that kept the row count of a
+    LoD-carrying input inherits its offsets, unless the lowering set
+    one explicitly. This is what lets `emission = fc(embedding(word))`
+    stay per-sequence for the CRF."""
+    if op.type not in _LOD_SHARING_OPS:
+        return
+    src = None
+    for slot in op.input_slots():
+        for n in op.input(slot):
+            if lod_env.get(n):
+                src = n
+                break
+        if src:
+            break
+    if src is None:
+        return
+    sv = env.get(src)
+    src_rows = sv.shape[0] if hasattr(sv, "shape") and \
+        getattr(sv, "shape", None) else None
+    if src_rows is None:
+        return
+    for slot in op.output_slots():
+        for n in op.output(slot):
+            if n in lod_env:
+                continue
+            v = env.get(n)
+            shape = getattr(v, "shape", None)
+            if shape and shape[0] == src_rows:
+                lod_env[n] = lod_env[src]
+
+
 # how run_block_ops runs a span of ops
 _PLAIN, _RECORD, _GROUP = 0, 1, 2
 
@@ -169,7 +232,9 @@ def _run_span(block, env, device, run, span):
 
 def run_block_ops(block, env: Dict[str, torch.Tensor], device, run, spans):
     """Run the ops of `block` step by step as `spans` (block_spans)
-    says, reading and writing `env`; `run` is the RunState."""
+    says, reading and writing `env`; `run` is the RunState, whose
+    lod_env the row-preserving ops extend (_share_lod)."""
+    lod_env = run.lod_env
     for span in spans:
         try:
             _run_span(block, env, device, run, span)
@@ -178,6 +243,9 @@ def run_block_ops(block, env: Dict[str, torch.Tensor], device, run, spans):
         except Exception as exc:  # re-raise with op and var context
             raise wrap_op_error(exc, block.ops[span[0]], env,
                                 span[0]) from exc
+        if lod_env:
+            for k in range(span[0], span[1]):
+                _share_lod(block.ops[k], env, lod_env)
         for n in span[4]:
             env.pop(n, None)
 
@@ -213,10 +281,28 @@ def _missing_error(missing):
         f"(run the startup program first?): {missing}")
 
 
-def _feed_signature(feed):
-    """(name, shape, dtype) of each feed, numpy arrays and torch tensors
-    alike."""
-    return tuple(sorted((n, tuple(a.shape), str(a.dtype))
+def _split_lods(feed):
+    """(values, lods): each feed's array or tensor, and the offsets of
+    each fed LoDTensor that carries them."""
+    values, lods = {}, {}
+    for n, v in feed.items():
+        if isinstance(v, LoDTensor):
+            if v.tensor is None:
+                raise ValueError(f"feed {n!r} is a LoDTensor that holds no "
+                                 f"tensor")
+            if v.lod():
+                lods[n] = [list(level) for level in v.lod()]
+            v = v.tensor
+        values[n] = v
+    return values, lods
+
+
+def _feed_signature(feed, lods=None):
+    """(name, shape, dtype, LoD) of each feed, numpy arrays and torch
+    tensors alike: two batches with the same shapes and other offsets
+    have two signatures, as the JAX engine compiles one step a LoD."""
+    return tuple(sorted((n, tuple(a.shape), str(a.dtype),
+                         tuple(map(tuple, (lods or {}).get(n, ()))))
                         for n, a in feed.items()))
 
 
@@ -242,6 +328,15 @@ def _fetch_numpy(value):
         out[()] = value
         return out
     return tensor_to_numpy(value)
+
+
+def _fetch(value, lod, return_numpy):
+    """One fetch: a var with a LoD comes back as a LoDTensor holding the
+    tensor and its offsets (return_numpy or not, as from the JAX
+    engine); else numpy (return_numpy) or the tensor."""
+    if lod:
+        return LoDTensor(value, lod)
+    return _fetch_numpy(value) if return_numpy else value
 
 
 def _amp_guard(program):
@@ -273,7 +368,7 @@ def capture_blocker(program, block, plan, feeds, fetch_names):
         env[n] = _meta(t)
     env.update((n, _meta(t)) for n, t in feeds.items())
     run = RunState(program.random_seed, 0, plan.record_slots,
-                   plan.grad_uids)
+                   plan.grad_uids, lod_env=dict(plan.feed_lods))
     meta = torch.device("meta")
     with torch.no_grad(), _amp_guard(program):
         for span in plan.spans:
@@ -281,6 +376,8 @@ def capture_blocker(program, block, plan, feeds, fetch_names):
                 _run_span(block, env, meta, run, span)
             except Exception:   # the op cannot run on meta: the rule
                 return block.ops[span[0]].type
+            for k in range(span[0], span[1]):
+                _share_lod(block.ops[k], env, run.lod_env)
             for n in span[4]:
                 env.pop(n, None)
     for n in list(fetch_names) + [n for n, _ in plan.out_vars]:
@@ -349,12 +446,14 @@ class _Captured:
         written = {n: state[n] for n in plan.written}
         records, grad_uids, spans = plan.record_slots, plan.grad_uids, \
             plan.spans
+        feed_lods, lod_cache = plan.feed_lods, plan.lod_cache
 
         def step(start, index):
             env = dict(start)
             env.update(inputs)
             run = RunState(program.random_seed, index, records, grad_uids,
-                           graph=random)
+                           graph=random, lod_env=dict(feed_lods),
+                           lod_cache=lod_cache)
             with torch.no_grad(), _amp_guard(program):
                 run_block_ops(block, env, device, run, spans)
             return env
@@ -454,17 +553,25 @@ class _Plan:
     while the plan's scope is the run's and erased nothing since), each
     feed's dtype, the forward records to take, and the steps with their
     free lists. Built at the first run of a key; the runs after it reuse
-    it and read each Variable's current tensor."""
+    it and read each Variable's current tensor. The feed signature
+    holds the feeds' LoDs (`feed_lods`), so a plan's LoD-derived index
+    tensors (`lod_cache`) and the LoDs of its fetches (`fetch_lods`, set
+    by its first run, which is eager) are the same at every run."""
 
-    __slots__ = ("scope", "generation", "device", "feed_sig", "in_vars",
-                 "out_vars", "feed_dtypes", "record_slots", "grad_uids",
-                 "spans", "runs", "blocker", "written", "captured")
+    __slots__ = ("scope", "generation", "device", "feed_sig", "feed_lods",
+                 "lod_cache", "fetch_lods", "in_vars", "out_vars",
+                 "feed_dtypes", "record_slots", "grad_uids", "spans",
+                 "runs", "blocker", "written", "captured")
 
-    def __init__(self, block, scope, device, feed_sig, fetch_names):
+    def __init__(self, block, scope, device, feed_sig, fetch_names,
+                 feed_lods=None):
         self.scope = scope
         self.generation = scope.generation
         self.device = device
         self.feed_sig = feed_sig
+        self.feed_lods = feed_lods or {}
+        self.lod_cache = LodIndexCache()
+        self.fetch_lods = {}
         inputs = _persistable_inputs(block)
         missing = [n for n in inputs if scope.find_var(n) is None]
         if missing:
@@ -473,7 +580,7 @@ class _Plan:
         outputs = _persistable_outputs(block)
         self.out_vars = [(n, scope.var(n)) for n in outputs]
         self.feed_dtypes = {}
-        for name, _, _ in feed_sig:
+        for name, _, _, _ in feed_sig:
             var = block.find_var(name)
             if var is not None:
                 self.feed_dtypes[name] = dtype_to_torch(var.dtype)
@@ -541,14 +648,14 @@ class Engine:
                 (amp["dtype"], amp["black_ops"], amp["white_ops"]),
                 OPS.generation)
 
-    def _plan(self, block, key, scope, device, feed, fetch_names):
-        sig = _feed_signature(feed)
+    def _plan(self, block, key, scope, device, feed, lods, fetch_names):
+        sig = _feed_signature(feed, lods)
         if key is not None:
             for plan in self._plans.get(key, ()):
                 if plan.valid_for(scope, device, sig):
                     self.counters["fast_path_hits"] += 1
                     return plan
-        plan = _Plan(block, scope, device, sig, fetch_names)
+        plan = _Plan(block, scope, device, sig, fetch_names, lods)
         self.counters["traces"] += 1
         if key is not None:
             plans = self._plans.setdefault(key, [])
@@ -592,10 +699,12 @@ class Engine:
             block_idx: int = 0, return_numpy: bool = True,
             iterations: int = 1, use_program_cache: bool = True):
         """Run the program's global block `iterations` times on the same
-        feeds (numpy arrays or torch tensors), each run with its own run
-        index (random ops draw anew), and return the fetches of the last
-        run. use_program_cache=False builds the plan for this call
-        alone: it neither reuses one nor keeps it, and captures nothing.
+        feeds (numpy arrays, torch tensors, or LoDTensors whose offsets
+        the sequence ops read), each run with its own run index (random
+        ops draw anew), and return the fetches of the last run (a fetch
+        with a LoD as a LoDTensor). use_program_cache=False builds the
+        plan for this call alone: it neither reuses one nor keeps it,
+        and captures nothing.
         A captured block returns clones of its fetches (numpy copies with
         return_numpy), so no caller holds a tensor the next replay
         overwrites."""
@@ -612,7 +721,9 @@ class Engine:
         block = program.global_block()
         key = self._key(program, fetch_names) if use_program_cache \
             else None
-        plan = self._plan(block, key, scope, device, feed, fetch_names)
+        feed, lods = _split_lods(feed)
+        plan = self._plan(block, key, scope, device, feed, lods,
+                          fetch_names)
         plan.runs += 1
         feeds = None
         if key is not None and plan.runs > 1:
@@ -635,15 +746,16 @@ class Engine:
         if feeds is None:
             feeds = self._feeds(plan, feed, device)
         for _ in range(iterations):
-            env = self._run_once(program, block, scope, device, plan, feeds)
+            env = self._run_once(program, block, scope, device, plan, feeds,
+                                 fetch_names)
             self.counters["eager_runs"] += 1
         results = []
         for n in fetch_names:
             if n not in env:
                 raise KeyError(f"fetch target {n!r} was not computed by "
                                f"the program")
-            results.append(_fetch_numpy(env[n]) if return_numpy
-                           else env[n])
+            results.append(_fetch(env[n], plan.fetch_lods.get(n),
+                                  return_numpy))
         return results
 
     @staticmethod
@@ -689,11 +801,17 @@ class Engine:
         for _ in range(iterations):
             cap.replay(scope.next_run(program._uid))
             self.counters["replays"] += 1
-        return [_fetch_numpy(cap.outputs[n]) if return_numpy
-                else cap.outputs[n].clone() for n in fetch_names]
+        results = []
+        for n in fetch_names:
+            lod = plan.fetch_lods.get(n)
+            # numpy is a copy already; a tensor is cloned
+            v = cap.outputs[n] if return_numpy and not lod \
+                else cap.outputs[n].clone()
+            results.append(_fetch(v, lod, return_numpy))
+        return results
 
     @staticmethod
-    def _run_once(program, block, scope, device, plan, feeds):
+    def _run_once(program, block, scope, device, plan, feeds, fetch_names):
         """One run of the plan: the persistables from the scope, the ops,
         the persistables written back. Returns the env."""
         env: Dict[str, torch.Tensor] = {}
@@ -711,9 +829,12 @@ class Engine:
         env.update(feeds)
 
         run = RunState(program.random_seed, scope.next_run(program._uid),
-                       plan.record_slots, plan.grad_uids)
+                       plan.record_slots, plan.grad_uids,
+                       lod_env=dict(plan.feed_lods), lod_cache=plan.lod_cache)
         with torch.no_grad(), _amp_guard(program):
             run_block_ops(block, env, device, run, plan.spans)
+        plan.fetch_lods = {n: run.lod_env[n] for n in fetch_names
+                           if run.lod_env.get(n)}
 
         for n, var in plan.out_vars:
             t = env[n]

@@ -29,6 +29,7 @@ from __future__ import annotations
 import zlib
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import amp as _amp
@@ -236,6 +237,21 @@ class GraphRandom:
             self._buf.copy_(host)
 
 
+class LodIndexCache:
+    """The index tensors that one engine plan's ops derive from host LoD
+    offsets (gather and scatter tables, masks, segment ids), by (kind,
+    key, device): made at the plan's first run, before any capture, and
+    read by every later run and by the captured graph, so that no run
+    after the first copies one to the card. `built` counts the tensors
+    made (the meta device's excepted)."""
+
+    __slots__ = ("tensors", "built")
+
+    def __init__(self):
+        self.tensors: Dict[tuple, torch.Tensor] = {}
+        self.built = 0
+
+
 class RunState:
     """What one Executor run shares with its ops: the program seed, the
     run index, and the forward records the grad ops consume.
@@ -244,7 +260,10 @@ class RunState:
     holds the uids of every grad op in the block. `graph`, set while the
     engine warms up, captures or replays a block (capture mode), is the
     block's GraphRandom: the random ops draw from its generators and
-    seed tensors, counted per source in `draws`.
+    seed tensors, counted per source in `draws`. `lod_env` maps a var
+    name to its LoD (host offsets: the feeds', then what the ops set or
+    share), and `lod_cache` is the plan's LodIndexCache (None: an index
+    tensor is made at each use).
 
     The dygraph tracer keeps one RunState for all its ops: `generator`
     is then its own generator, which every random op without a fixed
@@ -252,10 +271,12 @@ class RunState:
     captures a step (dygraph/jit.py)."""
 
     __slots__ = ("program_seed", "run", "records", "record_slots",
-                 "grad_uids", "generator", "capturing", "graph", "draws")
+                 "grad_uids", "generator", "capturing", "graph", "draws",
+                 "lod_env", "lod_cache")
 
     def __init__(self, program_seed=0, run=0, record_slots=None,
-                 grad_uids=(), generator=None, graph=None):
+                 grad_uids=(), generator=None, graph=None, lod_env=None,
+                 lod_cache=None):
         self.program_seed = program_seed
         self.run = run
         self.records: Dict[int, object] = {}
@@ -265,6 +286,8 @@ class RunState:
         self.capturing = False
         self.graph = graph
         self.draws: Dict[tuple, int] = {}
+        self.lod_env = {} if lod_env is None else lod_env
+        self.lod_cache = lod_cache
 
 
 def op_seed_words(seed: int):
@@ -295,15 +318,22 @@ class ExecContext:
     run).
 
     Under amp_guard, input()/inputs()/set_output()/set_outputs() apply
-    the mixed-precision policy of core/amp.py."""
+    the mixed-precision policy of core/amp.py. `lod_env` maps var names
+    to their LoD (None: the run's, RunState.lod_env, or none outside a
+    run)."""
 
-    __slots__ = ("op", "env", "device", "run", "_amp_mode", "_amp_follow")
+    __slots__ = ("op", "env", "device", "run", "lod_env", "_amp_mode",
+                 "_amp_follow")
 
-    def __init__(self, op, env, device: torch.device, run=None):
+    def __init__(self, op, env, device: torch.device, run=None,
+                 lod_env=None):
         self.op = op
         self.env = env
         self.device = device
         self.run = run
+        if lod_env is None:
+            lod_env = run.lod_env if run is not None else {}
+        self.lod_env = lod_env
         self._amp_mode = _amp.op_mode(op.type)
         self._amp_follow = False
         if self._amp_mode == "gray":
@@ -359,6 +389,43 @@ class ExecContext:
     # ---- attrs ------------------------------------------------------------
     def attr(self, name: str, default=None):
         return self.op.attr(name, default)
+
+    # ---- LoD (ragged metadata, host side) ----------------------------------
+    def get_lod(self, slot_or_name: str):
+        """The LoD of the first var of input slot `slot_or_name` (or of
+        the var of that name): a list of offset levels, [] for none."""
+        names = self.op.input(slot_or_name)
+        name = names[0] if names else slot_or_name
+        return self.lod_env.get(name, [])
+
+    def set_lod(self, slot_or_name: str, lod):
+        names = self.op.output(slot_or_name)
+        name = names[0] if names else slot_or_name
+        self.lod_env[name] = [list(map(int, lv)) for lv in lod]
+
+    def lod_index(self, kind: str, key, build) -> torch.Tensor:
+        """The tensor on the op's device of the numpy array `build()`
+        makes from host offsets: an index, mask or segment table. `key`
+        (hashable: the offsets and whatever else fixes the array) with
+        `kind` names it; within an engine plan it is made once, at the
+        plan's first run, and kept (RunState.lod_cache), so a captured
+        graph reads it and no later run copies it to the card. On the
+        meta device an empty tensor of its shape."""
+        if self.device.type == "meta":
+            a = build()
+            return torch.empty(a.shape, device="meta",
+                               dtype=torch.from_numpy(a[:0]).dtype)
+        cache = self.run.lod_cache if self.run is not None else None
+        full = (kind, key, self.device)
+        if cache is not None:
+            t = cache.tensors.get(full)
+            if t is not None:
+                return t
+        t = torch.from_numpy(np.ascontiguousarray(build())).to(self.device)
+        if cache is not None:
+            cache.tensors[full] = t
+            cache.built += 1
+        return t
 
     # ---- randomness -------------------------------------------------------
     def _seed(self) -> int:
@@ -497,16 +564,23 @@ class VjpRecord:
 
 
 def run_forward_for_vjp(fwd_type, inputs, outputs, attrs, diff_slots,
-                        env_in, env_out, device, run) -> VjpRecord:
+                        env_in, env_out, device, run,
+                        lod_env=None) -> VjpRecord:
     """Run forward lowering `fwd_type` on env_in[inputs] with the float
     inputs of `diff_slots` as autograd leaves; write the detached outputs
-    to env_out under the names in `outputs` (slot -> names). Returns the
+    to env_out under the names in `outputs` (slot -> names), and the
+    LoDs the lowering set to `lod_env` (None: the run's). Returns the
     VjpRecord."""
     local, in_map, leaves = {}, {}, {}
+    if lod_env is None:
+        lod_env = run.lod_env if run is not None else {}
+    local_lod = {}
     for s, names in inputs.items():
         in_map[s] = []
         for i, n in enumerate(names):
             ln = f"{s}:{i}"
+            if n in lod_env:
+                local_lod[ln] = lod_env[n]
             v = env_in[n]
             if s in diff_slots and v.is_floating_point():
                 v = v.detach().requires_grad_(True)
@@ -517,10 +591,13 @@ def run_forward_for_vjp(fwd_type, inputs, outputs, attrs, diff_slots,
                for s, names in outputs.items()}
     view = _SlotView(fwd_type, in_map, out_map, attrs)
     with torch.enable_grad():
-        OPS.get(fwd_type).lowering(ExecContext(view, local, device, run))
+        OPS.get(fwd_type).lowering(ExecContext(view, local, device, run,
+                                               local_lod))
     outs = {}
     for s, names in outputs.items():
         for i, (ln, n) in enumerate(zip(out_map[s], names)):
+            if ln in local_lod:
+                lod_env[n] = local_lod[ln]
             val = local.get(ln)
             if val is None:
                 continue
@@ -558,7 +635,8 @@ def generic_grad_lowering(fwd_type: str):
             attrs = {k: v for k, v in op._attrs.items()}
             rec = run_forward_for_vjp(
                 fwd_type, {s: op.input(s) for s in fwd_in}, outputs,
-                attrs, frozenset(diff), ctx.env, {}, ctx.device, ctx.run)
+                attrs, frozenset(diff), ctx.env, {}, ctx.device, ctx.run,
+                ctx.lod_env)
         outs, cts = [], []
         for (s, i), out in rec.outs.items():
             if not out.requires_grad:

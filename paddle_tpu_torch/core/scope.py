@@ -24,14 +24,18 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class LoDTensor:
-    """The fluid tensor holder over one torch.Tensor. Level-of-detail
-    offsets arrive with the sequence ops; no op of the port reads them
-    yet."""
+    """The fluid tensor holder over one torch.Tensor, with its
+    level-of-detail offsets: a list of levels, each a list of ascending
+    row offsets from 0 (counterpart of paddle_tpu/core/scope.py
+    LoDTensor). The offsets are host-side Python ints: reading them
+    never touches the card. The sequence ops read them (ops/sequence.py)
+    and the engine keys its plans on them."""
 
-    __slots__ = ("_tensor",)
+    __slots__ = ("_tensor", "_lod")
 
-    def __init__(self, tensor: Optional[torch.Tensor] = None):
+    def __init__(self, tensor: Optional[torch.Tensor] = None, lod=None):
         self._tensor = tensor
+        self._lod = [list(map(int, level)) for level in (lod or [])]
 
     def set(self, array, place=None):
         """Copy a numpy array (or tensor) in, onto `place`'s device
@@ -47,6 +51,40 @@ class LoDTensor:
     def set_tensor(self, tensor: torch.Tensor):
         self._tensor = tensor
 
+    def set_lod(self, lod):
+        self._lod = [list(map(int, level)) for level in lod]
+
+    def lod(self):
+        return self._lod
+
+    def recursive_sequence_lengths(self):
+        return [[b - a for a, b in zip(level[:-1], level[1:])]
+                for level in self._lod]
+
+    def set_recursive_sequence_lengths(self, lengths):
+        self._lod = []
+        for level in lengths:
+            offs = [0]
+            for n in level:
+                offs.append(offs[-1] + int(n))
+            self._lod.append(offs)
+
+    def has_valid_recursive_sequence_lengths(self):
+        """Offsets ascending from 0, each level's last offset the number
+        of entries of the next level (rows for the last level): the
+        reference's CheckLoD."""
+        t = self._tensor
+        expect = t.shape[0] if t is not None and t.dim() else 0
+        for level in reversed(self._lod):
+            if not level or level[0] != 0:
+                return False
+            if any(b < a for a, b in zip(level[:-1], level[1:])):
+                return False
+            if level[-1] != expect:
+                return False
+            expect = len(level) - 1
+        return True
+
     def shape(self):
         return tuple(self._tensor.shape) if self._tensor is not None \
             else ()
@@ -60,7 +98,21 @@ class LoDTensor:
         return a.astype(dtype) if dtype else a
 
     def __repr__(self):
-        return f"LoDTensor(shape={self.shape()})"
+        return f"LoDTensor(shape={self.shape()}, lod={self._lod})"
+
+
+def create_lod_tensor(data, recursive_seq_lens, place=None):
+    """A LoDTensor of `data` (a numpy array, or a LoDTensor whose values
+    are taken) on `place` (None: CUDAPlace(0)) with the offsets of
+    `recursive_seq_lens`, one list of lengths a level."""
+    t = LoDTensor()
+    t.set(data.tensor if isinstance(data, LoDTensor) else data, place)
+    t.set_recursive_sequence_lengths(recursive_seq_lens)
+    if not t.has_valid_recursive_sequence_lengths():
+        raise ValueError(
+            f"recursive_seq_lens {recursive_seq_lens} do not partition the "
+            f"{t.shape()[0] if t.shape() else 0} rows of the data")
+    return t
 
 
 class Variable:

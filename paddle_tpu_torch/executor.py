@@ -14,7 +14,7 @@ import torch
 from . import framework
 from .core.engine import Engine
 from .core.place import Place, default_place
-from .core.scope import global_scope
+from .core.scope import LoDTensor, global_scope
 from .core.types import dtype_to_np
 
 __all__ = ["Executor"]
@@ -78,12 +78,20 @@ class Executor:
         stay integer (the JAX package narrows int64 to int32; compare
         values, not dtypes). A torch tensor passes as it is: the engine
         takes it on its device (a batch already on the card is copied on
-        the card) and casts it to the declared dtype there."""
+        the card) and casts it to the declared dtype there. A LoDTensor
+        (create_lod_tensor) passes as it is, with its offsets, as the
+        JAX Executor takes it; like the JAX Executor, this one refuses
+        an (array, lod) pair."""
         out = {}
         for k, v in (feed or {}).items():
-            if isinstance(v, torch.Tensor):
+            if isinstance(v, (torch.Tensor, LoDTensor)):
                 out[k] = v
                 continue
+            if isinstance(v, tuple):
+                raise TypeError(
+                    f"feed {k!r} is a tuple: feed a LoDTensor "
+                    f"(create_lod_tensor(array, lengths, place)) for "
+                    f"variable-length data, or an array")
             arr = np.asarray(v)
             var = program.global_block().find_var(k)
             if var is not None and arr.dtype != dtype_to_np(var.dtype):

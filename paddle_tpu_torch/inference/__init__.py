@@ -31,8 +31,13 @@ one first met later captures under the same lock.
 AOT: the JAX predictor serializes its executable (StableHLO) next to
 the model so a new process skips the trace. A CUDA graph has no on-disk
 form: ``enable_aot`` is accepted and writes nothing, and a new process
-plans and captures again (ROADMAP.md A.10). LoD feeds are refused: no
-sequence op of the JAX package is ported (A.5).
+plans and captures again (ROADMAP.md A.10).
+
+LoD feeds (ZeroCopyTensor.set_lod, PaddleTensor.lod) go to the engine
+as LoDTensors; each LoD is its own signature, with its own plan and
+capture, and a fetch's LoD comes back (ZeroCopyTensor.lod() of an
+output, PaddleTensor.lod). A LoD that does not partition its feed's
+rows is refused.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ import torch
 from .. import io as _io
 from ..core.engine import Engine
 from ..core.place import CPUPlace, default_place
-from ..core.scope import Scope, scope_guard, tensor_to_numpy
+from ..core.scope import LoDTensor, Scope, scope_guard, tensor_to_numpy
 from ..core.types import dtype_to_np
 from ..executor import Executor
 from ..observability import memory as _obs_memory
@@ -152,7 +157,7 @@ class ZeroCopyTensor:
     def lod(self):
         if self._is_input:
             return self._pred._input_lods.get(self._name, [])
-        return []
+        return self._pred._output_lods.get(self._name, [])
 
     def copy_to_cpu(self):
         return self._pred._outputs[self._name]
@@ -189,6 +194,8 @@ class AnalysisPredictor:
         self._inputs: Dict[str, object] = {}
         self._input_lods: Dict[str, list] = {}
         self._outputs: Dict[str, np.ndarray] = {}
+        self._output_lods: Dict[str, list] = {}
+        self._last_lods: List[list] = []
         # signature -> runs; the engine keeps every signature's plan
         self._compiled: Dict[tuple, int] = {}
         self._engine = Engine(max_plans=None)
@@ -214,6 +221,7 @@ class AnalysisPredictor:
         outs = self._run_feeds(dict(self._inputs), dict(self._input_lods),
                                to_host=True)
         self._outputs = dict(zip(self._fetch_names, outs))
+        self._output_lods = dict(zip(self._fetch_names, self._last_lods))
 
     # -- classic Run ---------------------------------------------------------
 
@@ -225,7 +233,11 @@ class AnalysisPredictor:
             if t.lod:
                 lods[name] = [list(lv) for lv in t.lod]
         outs = self._run_feeds(feeds, lods, to_host=True)
-        return [PaddleTensor(o, n) for n, o in zip(self._fetch_names, outs)]
+        result = []
+        for n, o, lod in zip(self._fetch_names, outs, self._last_lods):
+            result.append(PaddleTensor(o, n))
+            result[-1].lod = lod
+        return result
 
     def clone(self) -> "AnalysisPredictor":
         """A predictor over this one's loaded weights (the same scope: no
@@ -259,26 +271,39 @@ class AnalysisPredictor:
         return out
 
     @staticmethod
-    def _sig_of(feeds):
-        return tuple((n, tuple(feeds[n].shape), str(feeds[n].dtype))
+    def _sig_of(feeds, lods=None):
+        """(name, shape, dtype, LoD) of each feed: each LoD is its own
+        signature, with its own plan and capture."""
+        lods = lods or {}
+        return tuple((n, tuple(feeds[n].shape), str(feeds[n].dtype),
+                      tuple(map(tuple, lods.get(n, ()))))
                      for n in sorted(feeds))
 
     def _run_feeds(self, feeds, lods=None, to_host=False):
-        """The fetches of one run on `feeds`: tensors on the device, or
-        numpy copies (`to_host`: True for all, or a set of indices),
-        made under the run lock."""
-        if any(lods.values() if lods else ()):
-            raise NotImplementedError(
-                "LoD feeds: paddle_tpu_torch ports no sequence op yet "
-                "(ROADMAP.md A.5), so the predictor takes dense feeds "
-                "only")
+        """The fetches of one run on `feeds` with the offsets of `lods`
+        (name -> LoD): tensors on the device, or numpy copies (`to_host`:
+        True for all, or a set of indices), made under the run lock. The
+        fetches' LoDs are left in `_last_lods`."""
         feeds = self._canonical(feeds)
-        sig = self._sig_of(feeds)
+        lods = {n: lod for n, lod in (lods or {}).items() if lod}
+        sig = self._sig_of(feeds, lods)
+        fed = dict(feeds)
+        for n, lod in lods.items():
+            t = LoDTensor(feeds[n], lod)
+            if not t.has_valid_recursive_sequence_lengths():
+                raise ValueError(
+                    f"feed {n!r}: LoD {lod} does not partition its "
+                    f"{feeds[n].shape[0] if feeds[n].dim() else 0} rows")
+            fed[n] = t
         with _RUN_LOCK:
             self._compiled[sig] = self._compiled.get(sig, 0) + 1
             outs = self._engine.run(self._program, self._scope,
-                                    self._place, feeds, self._fetch_names,
+                                    self._place, fed, self._fetch_names,
                                     return_numpy=False)
+            self._last_lods = [o.lod() if isinstance(o, LoDTensor) else []
+                               for o in outs]
+            outs = [o.tensor if isinstance(o, LoDTensor) else o
+                    for o in outs]
             if to_host:
                 outs = [tensor_to_numpy(o)
                         if to_host is True or i in to_host else o

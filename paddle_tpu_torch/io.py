@@ -76,10 +76,12 @@ def _atomic_write(path: str):
         raise
 
 
-def _serialize_tensor(f, name: str, arr: np.ndarray):
+def _serialize_tensor(f, name: str, arr: np.ndarray, lod=()):
     payload = _io.BytesIO()
     np.save(payload, arr, allow_pickle=False)
-    meta = json.dumps({"name": name, "lod": []}).encode("utf-8")
+    meta = json.dumps({"name": name,
+                       "lod": [[int(x) for x in level] for level in lod]}
+                      ).encode("utf-8")
     f.write(_MAGIC)
     f.write(struct.pack("<II", len(meta), payload.getbuffer().nbytes))
     f.write(meta)
@@ -87,7 +89,7 @@ def _serialize_tensor(f, name: str, arr: np.ndarray):
 
 
 def _deserialize_tensors(f):
-    """{name: array} of every tensor in a tensor file."""
+    """{name: (array, lod)} of every tensor in a tensor file."""
     out = {}
     while True:
         head = f.read(4)
@@ -104,12 +106,9 @@ def _deserialize_tensors(f):
                 "tensor file carries non-JSON (pickled?) metadata; "
                 "refusing to unpickle checkpoint data: save it again "
                 "with a current build") from None
-        if meta.get("lod"):
-            raise NotImplementedError(
-                f"tensor {meta['name']!r} carries LoD offsets: LoD tensors "
-                f"are not ported")
-        out[meta["name"]] = np.load(_io.BytesIO(f.read(data_len)),
-                                    allow_pickle=False)
+        out[meta["name"]] = (np.load(_io.BytesIO(f.read(data_len)),
+                                     allow_pickle=False),
+                             meta.get("lod") or [])
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,
@@ -130,8 +129,8 @@ def save_vars(executor, dirname, main_program=None, vars=None,
         if sv is None or not sv.is_initialized():
             skipped.append(v.name)
         else:
-            present.append((v.name, tensor_to_numpy(
-                sv.get_tensor().tensor)))
+            t = sv.get_tensor()
+            present.append((v.name, tensor_to_numpy(t.tensor), t.lod()))
     if skipped:
         if raise_on_missing:
             raise ValueError(
@@ -143,12 +142,12 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     os.makedirs(dirname, exist_ok=True)
     if filename is not None:
         with _atomic_write(os.path.join(dirname, filename)) as f:
-            for name, arr in present:
-                _serialize_tensor(f, name, arr)
+            for name, arr, lod in present:
+                _serialize_tensor(f, name, arr, lod)
     else:
-        for name, arr in present:
+        for name, arr, lod in present:
             with _atomic_write(os.path.join(dirname, name)) as f:
-                _serialize_tensor(f, name, arr)
+                _serialize_tensor(f, name, arr, lod)
 
 
 def save_params(executor, dirname, main_program=None, filename=None,
@@ -192,8 +191,10 @@ def load_vars(executor, dirname, main_program=None, vars=None,
                     f"{v.name!r}: partial or corrupt checkpoint")
             with open(path, "rb") as f:
                 tensors.update(_deserialize_tensors(f))
-    for name, arr in tensors.items():
-        scope.var(name).get_tensor().set(arr, place)
+    for name, (arr, lod) in tensors.items():
+        t = scope.var(name).get_tensor()
+        t.set(arr, place)
+        t.set_lod(lod)
 
 
 def load_params(executor, dirname, main_program=None, filename=None):

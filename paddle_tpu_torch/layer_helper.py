@@ -86,12 +86,18 @@ class LayerHelper:
         return param
 
     # ---- ops --------------------------------------------------------------
-    def append_op(self, type, inputs=None, outputs=None, attrs=None):
+    def append_op(self, type, inputs=None, outputs=None, attrs=None,
+                  infer_shape=True):
+        """Append the op (in dygraph mode: run it). infer_shape=False
+        leaves the outputs' shapes as declared: a sequence op's rows
+        depend on the LoD its feeds carry, which building does not
+        know."""
         if in_dygraph_mode():
             return _dygraph_tracer().trace_op(type, inputs or {},
                                               outputs or {}, attrs or {})
         return self.main_program.current_block().append_op(
-            type, inputs=inputs, outputs=outputs, attrs=attrs)
+            type, inputs=inputs, outputs=outputs, attrs=attrs,
+            infer_shape=infer_shape)
 
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         bias_attr = self.kwargs.get("bias_attr")

@@ -6,11 +6,16 @@ from ..framework import default_main_program
 __all__ = ["data"]
 
 
-def data(name, shape, append_batch_size=True, dtype="float32",
-         stop_gradient=True):
+def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
+         type=None, stop_gradient=True):
+    """A feed variable. `lod_level` (recorded on its VarDesc) is the
+    number of LoD levels its LoDTensor feeds carry; `type` is accepted
+    as the reference takes it and changes nothing: a dense tensor."""
+    del type
     shape = list(shape)
     if append_batch_size:
         shape = [-1] + shape
     block = default_main_program().current_block()
     return block.create_var(name=name, shape=shape, dtype=dtype,
+                            lod_level=lod_level,
                             stop_gradient=stop_gradient)

@@ -3,8 +3,9 @@ Transformer training and inference call: fc, embedding, layer_norm,
 fused_attention, dropout, reshape, squeeze, unsqueeze, reduce_sum,
 add_position_encoding, elementwise_*; matmul; those of LeNet:
 conv2d, pool2d, softmax, mean, top_k/topk; those of ResNet:
-batch_norm, relu; and those of the CTR models: flatten, concat,
-sigmoid, elementwise_sub."""
+batch_norm, relu; those of the CTR models: flatten, concat,
+sigmoid, elementwise_sub; and the recurrent layers of the sequence
+models: dynamic_lstm, dynamic_gru."""
 from __future__ import annotations
 
 import copy
@@ -21,6 +22,7 @@ __all__ = [
     "squeeze", "unsqueeze", "reduce_sum", "add_position_encoding",
     "elementwise_add", "elementwise_mul", "elementwise_div", "batch_norm",
     "relu", "flatten", "concat", "sigmoid", "elementwise_sub",
+    "dynamic_lstm", "dynamic_gru",
 ]
 
 
@@ -33,19 +35,32 @@ def _single_op(op_type, x, attrs):
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
-       act=None, name=None):
-    """One input only: multi-input fc (op `sum`) is not ported yet."""
+       act=None, is_test=False, name=None):
+    """One `mul` a input (each with its own weight; `param_attr` one for
+    all or a list, one a input), then `sum` when there are several, the
+    bias and the activation."""
     helper = LayerHelper("fc", bias_attr=bias_attr, act=act, name=name)
-    x = input
-    # a copy: the generated name must not stick to the caller's attr
-    pattr = copy.copy(ParamAttr._to_attr(param_attr))
-    in_dim = int(np.prod(x.shape[num_flatten_dims:]))
-    w = helper.create_parameter(pattr, [in_dim, size], x.dtype)
-    tmp = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(
-        "mul", inputs={"X": x, "Y": w}, outputs={"Out": tmp},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
-    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
+    inputs = list(input) if isinstance(input, (list, tuple)) else [input]
+    # copies: a generated name must not stick to the caller's attr, nor
+    # one input's weight name to the next's
+    pattrs = [copy.copy(ParamAttr._to_attr(a)) for a in param_attr] \
+        if isinstance(param_attr, (list, tuple)) else \
+        [copy.copy(ParamAttr._to_attr(param_attr)) for _ in inputs]
+    muls = []
+    for x, pattr in zip(inputs, pattrs):
+        in_dim = int(np.prod(x.shape[num_flatten_dims:]))
+        w = helper.create_parameter(pattr, [in_dim, size], x.dtype)
+        tmp = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(
+            "mul", inputs={"X": x, "Y": w}, outputs={"Out": tmp},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        muls.append(tmp)
+    pre_bias = muls[0]
+    if len(muls) > 1:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": muls},
+                         outputs={"Out": pre_bias})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -349,3 +364,69 @@ def elementwise_mul(x, y, axis=-1, name=None):
 
 def elementwise_div(x, y, axis=-1, name=None):
     return _elementwise("elementwise_div", x, y, axis, name)
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """The LoD LSTM (op `lstm`): `input` is the [T, 4 * hidden] LoD
+    projection and size = 4 * hidden; the bias holds the peephole
+    weights after the gate biases ([1, 7 * hidden]) with use_peepholes.
+    Returns (hidden, cell), [T, hidden] each."""
+    helper = LayerHelper("lstm", name=name)
+    hidden = size // 4
+    weight = helper.create_parameter(param_attr, [hidden, 4 * hidden],
+                                     dtype)
+    bias_size = [1, 7 * hidden] if use_peepholes else [1, 4 * hidden]
+    bias = helper.create_parameter(bias_attr, bias_size, dtype,
+                                   is_bias=True)
+    h = helper.create_variable_for_type_inference(dtype)
+    c = helper.create_variable_for_type_inference(dtype)
+    h.shape = c.shape = (-1, hidden)
+    batch_gate = helper.create_variable_for_type_inference(dtype, True)
+    batch_cell = helper.create_variable_for_type_inference(dtype, True)
+    inputs = {"Input": input, "Weight": weight, "Bias": bias}
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    if c_0 is not None:
+        inputs["C0"] = c_0
+    helper.append_op(
+        "lstm", inputs=inputs,
+        outputs={"Hidden": h, "Cell": c, "BatchGate": batch_gate,
+                 "BatchCellPreAct": batch_cell},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation},
+        infer_shape=False)
+    return h, c
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None,
+                origin_mode=False, name=None):
+    """The LoD GRU (op `gru`): `input` is the [T, 3 * size] LoD
+    projection. Returns the hidden states, [T, size]."""
+    helper = LayerHelper("gru", name=name)
+    dtype = input.dtype
+    weight = helper.create_parameter(param_attr, [size, 3 * size], dtype)
+    bias = helper.create_parameter(bias_attr, [1, 3 * size], dtype,
+                                   is_bias=True)
+    h = helper.create_variable_for_type_inference(dtype)
+    h.shape = (-1, size)
+    bg = helper.create_variable_for_type_inference(dtype, True)
+    brh = helper.create_variable_for_type_inference(dtype, True)
+    bh = helper.create_variable_for_type_inference(dtype, True)
+    inputs = {"Input": input, "Weight": weight, "Bias": bias}
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    helper.append_op(
+        "gru", inputs=inputs,
+        outputs={"Hidden": h, "BatchGate": bg,
+                 "BatchResetHiddenPrev": brh, "BatchHidden": bh},
+        attrs={"is_reverse": is_reverse, "origin_mode": origin_mode,
+               "gate_activation": gate_activation,
+               "activation": candidate_activation}, infer_shape=False)
+    return h

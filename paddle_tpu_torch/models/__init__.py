@@ -1,7 +1,8 @@
 """Model builders."""
-from . import lenet, resnet, transformer, wide_deep  # noqa: F401
+from . import lenet, resnet, sentiment, transformer, wide_deep  # noqa: F401
 from .lenet import lenet_train  # noqa: F401
 from .resnet import resnet_train  # noqa: F401
+from .sentiment import sentiment_train  # noqa: F401
 from .transformer import (TransformerConfig, transformer_base,  # noqa: F401
                           transformer_train)
 from .wide_deep import ctr_train  # noqa: F401

@@ -1,5 +1,5 @@
-"""Activation ops (counterpart of paddle_tpu/ops/activations.py: relu and
-sigmoid)."""
+"""Activation ops (counterpart of paddle_tpu/ops/activations.py: relu,
+sigmoid and tanh)."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +15,8 @@ def relu(ctx):
 @register_op("sigmoid")
 def sigmoid(ctx):
     ctx.set_output("Out", torch.sigmoid(ctx.input("X")))
+
+
+@register_op("tanh")
+def tanh(ctx):
+    ctx.set_output("Out", torch.tanh(ctx.input("X")))

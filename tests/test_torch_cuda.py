@@ -1969,3 +1969,203 @@ def test_serve_server_threads_match_engine_on_card(cuda, tmp_path):
     c1 = model.engine_counters()
     assert (c1["captures"], c1["eager_runs"]) == (c0["captures"],
                                                   c0["eager_runs"])
+
+
+# ---------------------------------------------------------------------------
+# [sequence phase]: LoD batches, the sequence and recurrent ops
+# ---------------------------------------------------------------------------
+
+_SEQ_LOD = [[0, 3, 3, 7, 8]]      # four sequences, one of length 0
+
+
+def _seq_op_view(op_type, inputs, outputs, attrs):
+    from paddle_tpu_torch.core.registry import _SlotView
+    return _SlotView(op_type, {s: [s.lower()] for s in inputs},
+                     {s: [n] for s, n in outputs.items()}, dict(attrs))
+
+
+def _seq_run(op_type, inputs, outputs, attrs, lods, dev, cts=None,
+             grads_of=()):
+    """The op's outputs, and with `cts` (output slot -> cotangent) the
+    gradients of `grads_of` through its grad lowering, on `dev`."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext
+    names = {s: s.lower() + "_out" for s in outputs}
+    env = {s.lower(): torch.from_numpy(np.array(a)).to(dev)
+           for s, a in inputs.items()}
+    OPS.get(op_type).lowering(ExecContext(
+        _seq_op_view(op_type, inputs, names, attrs), env, dev, None,
+        dict(lods)))
+    outs = {s: env[n].cpu() for s, n in names.items()}
+    if not cts:
+        return outs, {}
+    g_inputs = {**inputs, **{s: outs[s].numpy() for s in outputs}}
+    g_inputs.update({s + "@GRAD": c for s, c in cts.items()})
+    view = _seq_op_view(op_type + "_grad", g_inputs,
+                        {s + "@GRAD": s.lower() + "@g" for s in grads_of},
+                        attrs)
+    for s in outputs:
+        if s not in cts:
+            view._inputs[s + "@GRAD"] = [""]
+    genv = {s.lower(): torch.from_numpy(np.array(a)).to(dev)
+            for s, a in g_inputs.items()}
+    OPS.get(op_type + "_grad").lowering(ExecContext(view, genv, dev, None,
+                                                    dict(lods)))
+    return outs, {s: genv[s.lower() + "@g"].cpu() for s in grads_of}
+
+
+def _seq_cases():
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((8, 5)).astype(np.float32)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    lod = {"x": _SEQ_LOD}
+    cases = [("sequence_pool", {"X": x}, ["Out"], {"pooltype": p}, lod,
+              ["X"]) for p in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST",
+                               "FIRST")]
+    cases += [
+        ("sequence_softmax", {"X": f(8, 1)}, ["Out"], {}, lod, ["X"]),
+        ("sequence_reverse", {"X": x}, ["Y"], {}, lod, ["X"]),
+        ("sequence_conv", {"X": x, "Filter": f(15, 6)}, ["Out"],
+         {"contextLength": 3, "contextStart": -1}, lod, ["X", "Filter"]),
+        ("sequence_pad", {"X": x, "PadValue": np.array([0.5], np.float32)},
+         ["Out"], {"padded_length": -1}, lod, ["X"]),
+        ("sequence_expand_as", {"X": f(4, 3), "Y": f(8, 1)}, ["Out"], {},
+         {"y": _SEQ_LOD}, ["X"]),
+        ("sequence_scatter", {"X": f(4, 6), "Ids": np.array(
+            [[0], [5], [1], [2], [2], [0], [3], [4]], np.int64),
+            "Updates": f(8, 1)}, ["Out"], {}, {"ids": _SEQ_LOD},
+         ["X", "Updates"]),
+        ("lstm", {"Input": f(8, 20), "Weight": f(5, 20), "Bias": f(1, 35),
+                  "H0": f(4, 5), "C0": f(4, 5)}, ["Hidden", "Cell"],
+         {"use_peepholes": True, "is_reverse": True}, {"input": _SEQ_LOD},
+         ["Input", "Weight", "Bias", "H0"]),
+        ("gru", {"Input": f(8, 15), "Weight": f(5, 15), "Bias": f(1, 15)},
+         ["Hidden"], {"is_reverse": False, "origin_mode": True},
+         {"input": _SEQ_LOD}, ["Input", "Weight", "Bias"]),
+    ]
+    return cases
+
+
+_SEQ_CASES = _seq_cases()
+
+
+@pytest.mark.parametrize("case", range(len(_SEQ_CASES)), ids=[
+    f"{c[0]}-{c[3].get('pooltype', i)}" for i, c in enumerate(_SEQ_CASES)])
+def test_sequence_op_on_card_matches_cpu(cuda, case):
+    """Each sequence and recurrent op and its gradient on the card
+    against the same lowering on the CPU (F32_TOL; backward BWD_F32_TOL)."""
+    op_type, inputs, outs, attrs, lods, grads_of = _SEQ_CASES[case]
+    rng = np.random.default_rng(case)
+    ref, _ = _seq_run(op_type, inputs, outs, attrs, lods,
+                      torch.device("cpu"))
+    cts = {s: rng.standard_normal(tuple(ref[s].shape)).astype(np.float32)
+           for s in outs}
+    cpu = _seq_run(op_type, inputs, outs, attrs, lods, torch.device("cpu"),
+                   cts, grads_of)
+    card = _seq_run(op_type, inputs, outs, attrs, lods, cuda, cts, grads_of)
+    for s in outs:
+        torch.testing.assert_close(card[0][s], cpu[0][s], rtol=F32_TOL,
+                                   atol=F32_TOL)
+    for s in grads_of:
+        torch.testing.assert_close(card[1][s], cpu[1][s], rtol=BWD_F32_TOL,
+                                   atol=BWD_F32_TOL)
+
+
+def _seq_tiny(net):
+    from paddle_tpu_torch.models import sentiment
+    pt.framework.unique_name.reset()
+    main, startup, cost, acc, pred = sentiment.sentiment_train(
+        net, input_dim=100, emb_dim=16, hid_dim=32)
+    main.random_seed = startup.random_seed = 3
+    return main, startup, cost, acc, pred
+
+
+def _seq_feeds(place, seeds=(0, 1)):
+    feeds = []
+    for s in seeds:
+        rng = np.random.RandomState(s)
+        lens = [int(n) for n in rng.randint(1, 30, 6)]
+        ids = rng.randint(0, 100, (sum(lens), 1)).astype(np.int64)
+        feeds.append({"words": pt.create_lod_tensor(ids, [lens], place),
+                      "label": rng.randint(0, 2, (6, 1)).astype(np.int64)})
+    return feeds
+
+
+@pytest.mark.parametrize("net", ["stacked_lstm", "conv"])
+def test_sentiment_steps_captured_bit_equal_eager_on_card(cuda, monkeypatch,
+                                                          net):
+    """Two LoD batches, three runs each with the plan cache (eager, the
+    capture, a replay: one graph a LoD) and the same runs with
+    use_program_cache=False, from one startup state in deterministic
+    mode: bit-equal fetches and persistables, no kernel of the port
+    launched, no index tensor made after a plan's first run."""
+    old = _deterministic(monkeypatch)
+    main, startup, cost, acc, _ = _seq_tiny(net)
+    feeds = _seq_feeds(pt.CUDAPlace(0)) * 3
+    try:
+        runs = {}
+        for cached in (True, False):
+            exe, scope = pt.Executor(), pt.Scope()
+            exe.run(startup, scope=scope)
+            kreg.reset_counts()
+            out, built = [], []
+            for f in feeds:
+                out.append([np.asarray(v) for v in exe.run(
+                    main, feed=f, fetch_list=[cost, acc], scope=scope,
+                    use_program_cache=cached)])
+                plans = exe._engine._plans.get(
+                    exe._engine._key(main, [cost.name, acc.name]), [])
+                built.append(sum(p.lod_cache.built for p in plans))
+            assert not any(kreg.launches().values())
+            state = {v.name: scope.find_var(v.name).get_tensor().tensor
+                     .clone() for v in main.global_block().vars.values()
+                     if v.persistable and scope.find_var(v.name)
+                     is not None}
+            runs[cached] = (out, state, dict(exe._engine.counters), built,
+                            dict(exe._engine.eager_reasons))
+            exe.close()
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+    (oa, sa, ca, built, reasons), (ob, sb, _, _, _) = runs[True], runs[False]
+    assert not reasons
+    # eager: the startup program's run and each plan's first
+    assert (ca["captures"], ca["replays"], ca["eager_runs"]) == (2, 4, 3)
+    assert built[1] > built[0] > 0 and built[2:] == [built[1]] * 4
+    for a, b in zip(oa, ob):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for n in sa:
+        assert torch.equal(sa[n], sb[n]), n
+
+
+def test_lod_predictor_on_card_matches_executor(cuda, tmp_path):
+    """The tiny stacked net saved; the predictor on the card on two LoD
+    signatures: warmup captures each once, later runs replay with no
+    capture, the outputs equal the Executor's eager forward."""
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    main, startup, cost, _, pred = _seq_tiny("stacked_lstm")
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feeds = _seq_feeds(pt.CPUPlace())
+    test = pt.io._prune_program(main, [pred.name])
+    refs = [np.asarray(exe.run(test, feed=f, fetch_list=[pred], scope=scope,
+                               use_program_cache=False)[0]) for f in feeds]
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(str(tmp_path), ["words"], [pred], exe,
+                                   main_program=main)
+    predictor = create_paddle_predictor(AnalysisConfig(str(tmp_path)))
+    it = predictor.get_input_tensor("words")
+    ot = predictor.get_output_tensor(predictor.get_output_names()[0])
+    for rnd in range(3):
+        if rnd == 2:
+            before = dict(predictor._engine.counters)
+        for f, ref in zip(feeds, refs):
+            it.copy_from_cpu(np.asarray(f["words"]))
+            it.set_lod(f["words"].lod())
+            predictor.zero_copy_run()
+            torch.testing.assert_close(torch.from_numpy(ot.copy_to_cpu()),
+                                       torch.from_numpy(ref), rtol=F32_TOL,
+                                       atol=F32_TOL)
+    c = predictor._engine.counters
+    assert c["captures"] == 2 == before["captures"]
+    assert c["eager_runs"] == 2 and c["replays"] == 4

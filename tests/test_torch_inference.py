@@ -11,9 +11,10 @@ the port's Executor and the JAX package's predictor, on the CPU.
   captures and every later one replays (the engine's counters), a
   torch tensor feeds as a numpy array does, the predictor's tensors
   appear in the memory census.
-* The parts that are refused or kept as knobs: LoD feeds raise (no
-  sequence op is ported), enable_aot writes no artifact, and
-  AnalysisConfig() means the card (it raises where torch sees none).
+* The parts that are refused or kept as knobs: a LoD that does not
+  partition its feed's rows raises (a valid one is served), enable_aot
+  writes no artifact, and AnalysisConfig() means the card (it raises
+  where torch sees none).
 """
 import os
 import shutil
@@ -195,14 +196,23 @@ def test_predictor_in_memory_census(tmp_path):
 
 
 def test_predictor_lod_input_refused(tmp_path):
-    model_dir, xs, _ = _train_and_save(tmp_path)
+    """A LoD that partitions the feed's rows is served (the dense model
+    carries it to its output) and is a signature of its own; one that
+    does not is refused."""
+    model_dir, xs, ref = _train_and_save(tmp_path)
     pred = _predictor(model_dir)
     it = pred.get_input_tensor("x")
     it.copy_from_cpu(xs)
     it.set_lod([[0, 6, 16]])
     assert it.lod() == [[0, 6, 16]]
-    with pytest.raises(NotImplementedError, match="LoD feeds"):
+    pred.zero_copy_run()
+    ot = pred.get_output_tensor(pred.get_output_names()[0])
+    np.testing.assert_allclose(ot.copy_to_cpu(), ref, rtol=TOL, atol=TOL)
+    assert ot.lod() == [[0, 6, 16]]
+    it.set_lod([[0, 6, 17]])
+    with pytest.raises(ValueError, match="does not partition"):
         pred.zero_copy_run()
+    assert len(pred._compiled) == 1
 
 
 def test_enable_aot_accepted_writes_nothing(tmp_path):

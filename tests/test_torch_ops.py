@@ -188,6 +188,7 @@ def _cases():
         ("unsqueeze2", {"X": _f32(rng, 3, 5)}, ["Out", "XShape"],
          {"axes": [0, -1]}),
         ("unsqueeze", {"X": _f32(rng, 2, 3)}, ["Out"], {"axes": [2, 0]}),
+        ("tanh", {"X": 3 * _f32(rng, 4, 5)}, ["Out"], {}),
     ]
 
 
@@ -214,7 +215,9 @@ def test_every_slice_op_type_is_covered():
     the ones held elsewhere (see the module docstring; the ops of LeNet
     and SGD are held in test_torch_lenet.py, those of ResNet and Momentum
     in test_torch_resnet.py, those of the CTR models and Adagrad in
-    test_torch_ctr.py)."""
+    test_torch_ctr.py, the sequence ops in test_torch_sequence.py and the
+    recurrent ones in test_torch_rnn.py)."""
+    import test_torch_sequence
     forward = {t for t in PT_OPS.types() if not PT_OPS.get(t).is_grad_op}
     lenet = {"conv2d", "depthwise_conv2d", "pool2d", "softmax",
              "cross_entropy", "mean", "top_k", "accuracy", "uniform_random",
@@ -224,8 +227,10 @@ def test_every_slice_op_type_is_covered():
            "sigmoid_cross_entropy_with_logits", "elementwise_sub",
            "adagrad", "merge_selected_rows",
            "get_tensor_from_selected_rows"}
+    sequence = {c[0] for c in test_torch_sequence._CASES}
+    rnn = {"lstm", "gru", "lstm_unit", "gru_unit"}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
-        lenet | resnet | ctr == forward
+        lenet | resnet | ctr | sequence | rnn == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
