@@ -177,7 +177,29 @@
    warmup, then none; outputs equal to the Executor's). Prints each
    batch's padded share (N * longest / tokens). No kernel of the port
    is launched.
-12. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+12. Control flow phase: the PaddlePaddle book's RNN encoder-decoder
+   (chapter 08; models/seq2seq.py: a DynamicRNN encoder, its last step
+   booting a DynamicRNN decoder, a softmax fc over the target
+   vocabulary, AdamOptimizer(0.01)) at vocab 30000, word 512, hidden
+   512, B=64, on LoD batches of random ids whose lengths are WMT14's
+   shape (log-normal, median 26, sigma 0.55, clipped to [2, 80]),
+   source and target apart. A pool of CF_POOL batches, each run CF_RUNS
+   times with the plan cache (eager, the capture, replays) and the same
+   runs with use_program_cache=False from one startup state in
+   deterministic mode: losses and persistables bit-equal, no block kept
+   eager, exactly one fused_adam launch a step over the 7 parameters the
+   registry routes; one step against the same step under
+   plain_reference() (bit-equal); the first loss against the port on
+   the CPU (CF_LOSS_RTOL); eager against captured in turns (examples/s,
+   target tokens/s), the captures clocked, a profiled replay (busy
+   share, kernels), peak memory and the graph pools; a stream of
+   CF_STREAM distinct batches (eager); save_inference_model with the
+   logits as the fetch and the AnalysisPredictor on the src and tgt_in
+   LoD feeds (no capture after warm-up, equal to the Executor); a While
+   loop (kept eager, its reason printed), an IfElse row-wise branch and
+   a StaticRNN trained 3 Adam steps captured, each against the CPU
+   (CF_ATOL); Adam timed at the seq2seq's parameter shapes.
+13. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -190,8 +212,9 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-13. Prints one JSON line of per-kernel numbers (fused_adam's launches:
-   the training phase's and the dygraph phase's; the quantized and
+14. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+   the training phase's, the dygraph phase's and the control flow
+   phase's captured steps; the quantized and
    tuned GEMMs': the scoring and the serving phase's), then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
@@ -4414,16 +4437,16 @@ def _seq_padded_share(batch):
     return len(lens) * max(lens) / sum(lens)
 
 
-def _seq_first_loss_cpu(pt, main, cost, state, batch):
+def _seq_first_loss_cpu(pt, main, cost, state, feed):
     """The forward of `main` (the ops `cost` needs) on the CPU from the
-    card's initial `state` (name -> CPU tensor) on `batch`."""
+    card's initial `state` (name -> CPU tensor) on `feed` (on the
+    CPU)."""
     prog = pt.io._prune_program(main, [cost.name])
     scope = pt.Scope()
     for n, t in state.items():
         scope.var(n).get_tensor().set_tensor(t.clone())
     exe = pt.Executor(pt.CPUPlace())
-    return float(exe.run(prog, feed=_seq_feed(pt, batch, pt.CPUPlace()),
-                         fetch_list=[cost], scope=scope,
+    return float(exe.run(prog, feed=feed, fetch_list=[cost], scope=scope,
                          use_program_cache=False)[0])
 
 
@@ -4445,26 +4468,42 @@ def _seq_profile(torch, fn):
     return wall, busy / wall, sum(e.count for e in kernels), top
 
 
-def _seq_compare(torch, pt, kreg, label, main, cost, acc, init, feeds):
-    """Each pool batch three times through the plan cache (its first run
-    eager, its second captures, its third replays) and the same runs
+def _seq_compare(torch, pt, kreg, label, main, fetch, init, feeds,
+                 runs=3, routed=None):
+    """Each pool batch `runs` times through the plan cache (its first
+    run eager, its second captures, the others replay) and the same runs
     with use_program_cache=False, from copies of the initial state, in
-    deterministic mode: fetches and persistables bit-equal, no kernel of
-    the port launched. Returns (exe, scope, losses, eager reasons) of the
-    cached runs."""
-    runs = [f for f in feeds] * 3
-    out, state = {}, {}
+    deterministic mode: fetches and persistables bit-equal. With
+    `routed` (a count of parameters) exactly one fused_adam launch a
+    step covers that many parameter updates; without it no kernel of
+    the port launches. Returns (exe, scope, losses, eager reasons,
+    fused_adam launches) of the cached runs."""
+    steps = [f for f in feeds] * runs
+    out, state, adam = {}, {}, {}
     with _deterministic(torch):
         for cached in (True, False):
             exe = pt.Executor(pt.CUDAPlace(0))
             scope = _copy_scope(pt, init, list(init._vars))
             kreg.reset_counts()
+            if routed is not None:
+                kreg.reset_stats()
             with _capture_clock() as clock:
                 out[cached] = [[np.asarray(v) for v in _cap_run(
-                    exe, main, f, [cost, acc], scope, cached)]
-                    for f in runs]
+                    exe, main, f, fetch, scope, cached)] for f in steps]
             launched = {k: v for k, v in kreg.launches().items() if v}
-            _require(not launched, f"{label}: the phase launched {launched}")
+            if routed is None:
+                _require(not launched,
+                         f"{label}: the phase launched {launched}")
+            else:
+                adam[cached] = (launched.pop("fused_adam", 0),
+                                kreg.dispatch_stats()["per_kernel"]
+                                .get("fused_adam", {}).get("custom", 0))
+                _require(not launched,
+                         f"{label}: the phase launched {launched}")
+                _require(adam[cached] == (len(steps), routed * len(steps)),
+                         f"{label}: fused_adam {adam[cached]}, want one "
+                         f"launch over {routed} parameters in each of "
+                         f"{len(steps)} steps")
             state[cached] = {n: v.get_tensor().tensor.clone()
                              for n, v in scope._vars.items()}
             if cached:
@@ -4478,13 +4517,19 @@ def _seq_compare(torch, pt, kreg, label, main, cost, acc, init, feeds):
     exe, scope, clock, reasons = kept
     c = _counters(exe)
     losses = [float(o[0]) for o in out[True]]
-    print(f"  {label}: {len(runs)} runs over {len(feeds)} LoD batches "
+    print(f"  {label}: {len(steps)} runs over {len(feeds)} LoD batches "
           f"with the plan cache ({c['captures']} captures, {c['replays']} "
-          f"replays, {c['eager_runs']} eager) and {len(runs)} eager, "
+          f"replays, {c['eager_runs']} eager) and {len(steps)} eager, "
           f"deterministic mode: fetches bit-equal {equal_out}, "
           f"{len(state[True])} persistables bit-equal {equal_state}; "
-          f"losses {', '.join(f'{x:.6f}' for x in losses)}; 0 kernel "
-          f"launches")
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}")
+    if routed is None:
+        print(f"  {label}: 0 kernel launches")
+    else:
+        print(f"  {label}: fused_adam launches {adam[True][0]} captured / "
+              f"{adam[False][0]} eager in {len(steps)} steps, covering "
+              f"{adam[True][1]} / {adam[False][1]} parameter updates "
+              f"({routed} routed parameters a step)")
     print(f"  {label}: the captures' parts: the capture rule "
           f"{clock['rule']:.3f} s, warm-up {clock['warm_up']:.3f} s, "
           f"capture {clock['capture']:.3f} s (of it gc.collect "
@@ -4494,13 +4539,13 @@ def _seq_compare(torch, pt, kreg, label, main, cost, acc, init, feeds):
     _require(all(np.isfinite(losses)), f"{label}: losses {losses}")
     if not reasons:
         _require((c["captures"], c["replays"], c["eager_runs"]) ==
-                 (len(feeds), 2 * len(feeds), len(feeds)),
+                 (len(feeds), (runs - 1) * len(feeds), len(feeds)),
                  f"{label}: counters {c}")
-    return exe, scope, losses, reasons
+    return exe, scope, losses, reasons, adam.get(True, (0, 0))[0]
 
 
 def _seq_rates(torch, pt, label, exe, main, fetch, scope, feeds, tokens,
-               captured):
+               captured, B=SEQ_B):
     """Eager (use_program_cache=False) against the plan cache's runs
     (replays where `captured`: `fetch` is the fetch list the plans were
     made for) in SEQ_TURNS turns of one pass over the pool each, the
@@ -4542,22 +4587,21 @@ def _seq_rates(torch, pt, label, exe, main, fetch, scope, feeds, tokens,
               f"{', '.join(f'{x:.3f}' for x in secs[m])} (median "
               f"{med:.3f}; host s a run before its fetch "
               f"{', '.join(f'{x:.3f}' for x in runs[m])}): "
-              f"{SEQ_B * len(feeds) / med:.1f} examples/s, "
+              f"{B * len(feeds) / med:.1f} examples/s, "
               f"{tokens / med:.1f} tokens/s")
     delta = {k: after[k] - before[k] for k in after}
     print(f"  {label}: counters over the turns {delta}")
     _require(delta["captures"] == 0, f"{label}: the turns captured again")
 
 
-def _seq_stream(torch, pt, label, main, cost, init, n):
-    """SEQ_STREAM batches never seen before, one run each through the
+def _seq_stream(torch, pt, label, main, cost, init, feeds, tokens, B,
+                unit="tokens"):
+    """`feeds`, batches never seen before, one run each through the
     plan cache on a fresh Executor: each builds its own plan and runs
     eagerly (a user without bucketing)."""
     exe = pt.Executor(pt.CUDAPlace(0))
     scope = _copy_scope(pt, init, list(init._vars))
-    batches = [_seq_batch(1000 + i) for i in range(n)]
-    feeds = [_seq_feed(pt, b, pt.CUDAPlace(0)) for b in batches]
-    tokens = sum(sum(b[1][0]) for b in batches)
+    n = len(feeds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for f in feeds:
@@ -4565,68 +4609,70 @@ def _seq_stream(torch, pt, label, main, cost, init, n):
     float(loss)
     secs = time.perf_counter() - t0
     c = _counters(exe)
-    print(f"  {label}: a stream of {n} distinct batches ({tokens} tokens): "
-          f"{secs:.3f} s, {SEQ_B * n / secs:.1f} examples/s, "
-          f"{tokens / secs:.1f} tokens/s; counters {c}")
+    print(f"  {label}: a stream of {n} distinct batches ({tokens} {unit}): "
+          f"{secs:.3f} s, {B * n / secs:.1f} examples/s, "
+          f"{tokens / secs:.1f} {unit}/s; counters {c}")
     _require(c["traces"] == n and c["eager_runs"] == n and
              c["captures"] == 0, f"{label}: stream counters {c}")
     exe.close()
 
 
-def _seq_serve(torch, pt, exe, main, pred, scope, batches):
-    """save_inference_model of the trained net, then AnalysisPredictor on
-    the card on LoD feeds: each pool batch warmed (its plan, then its
-    capture), then SEQ_SERVE_RUNS runs each with no capture, their
-    outputs against the Executor's eager forward on the same scope."""
+def _seq_serve(torch, pt, label, exe, main, pred, scope, names, host,
+               feeds, B):
+    """save_inference_model of the trained net with `pred` as the fetch,
+    then AnalysisPredictor on the card (a fresh scope) on the LoD inputs
+    `names` of each pool batch (`host`, on the CPU; `feeds`, the same on
+    the card): each warmed (its plan, then its capture), then
+    SEQ_SERVE_RUNS runs each with no capture, their outputs against the
+    Executor's eager forward on the same scope."""
     import tempfile
     from paddle_tpu_torch.inference import (AnalysisConfig,
                                             create_paddle_predictor)
     test = pt.io._prune_program(main, [pred.name])
     with tempfile.TemporaryDirectory() as d:
         with pt.scope_guard(scope):
-            pt.io.save_inference_model(d, ["words"], [pred], exe,
+            pt.io.save_inference_model(d, names, [pred], exe,
                                        main_program=main)
         predictor = create_paddle_predictor(AnalysisConfig(d))
-    it = predictor.get_input_tensor("words")
+    ins = {n: predictor.get_input_tensor(n) for n in names}
     ot = predictor.get_output_tensor(predictor.get_output_names()[0])
 
-    def run(b):
-        it.copy_from_cpu(b[0])
-        it.set_lod([[0] + np.cumsum(b[1][0]).tolist()])
+    def run(f):
+        for n, it in ins.items():
+            it.copy_from_cpu(np.asarray(f[n]))
+            it.set_lod(f[n].lod())
         predictor.zero_copy_run()
         return ot.copy_to_cpu()
 
     t0 = time.perf_counter()
-    for b in batches:
+    for f in host:
         for _ in range(2):
-            run(b)
+            run(f)
     warm = time.perf_counter() - t0
     c0 = dict(predictor._engine.counters)
     worst = 0.0
     t0 = time.perf_counter()
-    outs = [[run(b) for b in batches] for _ in range(SEQ_SERVE_RUNS)]
+    outs = [[run(f) for f in host] for _ in range(SEQ_SERVE_RUNS)]
     secs = time.perf_counter() - t0
     c1 = predictor._engine.counters
-    for i, b in enumerate(batches):
-        ref = np.asarray(exe.run(test, feed=_seq_feed(pt, b,
-                                                      pt.CUDAPlace(0)),
-                                 fetch_list=[pred], scope=scope,
-                                 use_program_cache=False)[0])
+    for i, f in enumerate(feeds):
+        ref = np.asarray(exe.run(test, feed=f, fetch_list=[pred],
+                                 scope=scope, use_program_cache=False)[0])
         for o in outs:
             worst = max(worst, float(np.abs(o[i] - ref).max()))
-    n = SEQ_SERVE_RUNS * len(batches)
+    n = SEQ_SERVE_RUNS * len(host)
     new = {k: c1[k] - c0[k] for k in ("captures", "eager_runs", "traces")}
-    print(f"  serving: AnalysisPredictor on {len(batches)} LoD signatures "
-          f"of B={SEQ_B}: warmup {warm:.3f} s ({c0['captures']} captures); "
-          f"then {n} runs in {secs:.3f} s ({SEQ_B * n / secs:.1f} "
+    print(f"  {label} serving: AnalysisPredictor on {len(host)} LoD "
+          f"signatures of B={B}: warmup {warm:.3f} s ({c0['captures']} "
+          f"captures); then {n} runs in {secs:.3f} s ({B * n / secs:.1f} "
           f"examples/s, the outputs' host copies included) with "
           f"{new['captures']} captures, {new['eager_runs']} eager runs; "
           f"max |predictor - Executor| {worst:.3e} (bound "
           f"{SEQ_INFER_ATOL:g})")
-    _require(c0["captures"] == len(batches) and not any(new.values()),
-             f"serving: counters {c0} -> {dict(c1)}")
-    _require(worst <= SEQ_INFER_ATOL, "serving: the predictor disagrees "
-             "with the Executor")
+    _require(c0["captures"] == len(host) and not any(new.values()),
+             f"{label} serving: counters {c0} -> {dict(c1)}")
+    _require(worst <= SEQ_INFER_ATOL, f"{label} serving: the predictor "
+             "disagrees with the Executor")
 
 
 def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
@@ -4651,10 +4697,11 @@ def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
                  for n, v in init._vars.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    exe, scope, losses, reasons = _seq_compare(
-        torch, pt, kreg, label, main, cost, acc, init, feeds)
+    exe, scope, losses, reasons, _ = _seq_compare(
+        torch, pt, kreg, label, main, [cost, acc], init, feeds)
     t1 = time.perf_counter()
-    cpu = _seq_first_loss_cpu(pt, main, cost, cpu_state, batches[0])
+    cpu = _seq_first_loss_cpu(pt, main, cost, cpu_state,
+                              _seq_feed(pt, batches[0], pt.CPUPlace()))
     err = abs(losses[0] - cpu) / abs(cpu)
     print(f"  {label}: first loss {losses[0]:.7f} on the card, {cpu:.7f} "
           f"on the CPU ({time.perf_counter() - t1:.1f} s): rel err "
@@ -4679,9 +4726,14 @@ def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
     for e in top:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}")
-    _seq_stream(torch, pt, label, main, cost, init, SEQ_STREAM)
+    stream = [_seq_batch(1000 + i) for i in range(SEQ_STREAM)]
+    _seq_stream(torch, pt, label, main, cost, init,
+                [_seq_feed(pt, b, pt.CUDAPlace(0)) for b in stream],
+                sum(sum(b[1][0]) for b in stream), SEQ_B)
     if net == "stacked_lstm":
-        _seq_serve(torch, pt, exe, main, pred, scope, batches)
+        _seq_serve(torch, pt, label, exe, main, pred, scope, ["words"],
+                   [_seq_feed(pt, b, pt.CPUPlace()) for b in batches],
+                   feeds, SEQ_B)
     launched = {k: v for k, v in kreg.launches().items() if v}
     _require(not launched, f"{label}: the phase launched {launched}")
     exe.close()
@@ -4713,6 +4765,263 @@ def sequence_phase(torch, dev):
     for net in ("stacked_lstm", "conv"):
         _seq_net(torch, pt, kreg, net, batches, feeds, tokens)
     print(f"  sequence phase: {time.perf_counter() - t0:.1f} s")
+
+
+# [control flow phase]: the book's RNN encoder-decoder (models/seq2seq.py)
+# at chapter 08's widths, and small programs with sub-blocks
+CF = {"src_vocab": 30000, "tgt_vocab": 30000, "word_dim": 512,
+      "hidden_dim": 512}
+CF_B = 64
+CF_LR = 0.01
+# WMT14-shaped sentence lengths: log-normal, median 26, sigma 0.55,
+# clipped to [2, 80] (the paddle.dataset.wmt14 reader's bound)
+CF_LEN = {"median": 26.0, "sigma": 0.55, "lo": 2, "hi": 80}
+CF_POOL = 2         # LoD batches cycled (each its own plan and graph)
+CF_RUNS = 4         # runs of each pool batch in the captured-vs-eager check
+CF_STREAM = 2       # distinct batches run once each, eagerly
+# the first loss on the card against the port on the CPU from the same
+# parameters and feed (float32 on both, TF32 off; sums in another order)
+CF_LOSS_RTOL = 1e-6
+# the small programs (While, IfElse, StaticRNN) on the card against the
+# CPU
+CF_ATOL = 1e-6
+
+
+def _cf_feed(pt, seed, place):
+    from paddle_tpu_torch.models import seq2seq
+    return seq2seq.wmt14_batch(np.random.default_rng(seed), CF_B,
+                               CF["src_vocab"], CF["tgt_vocab"],
+                               place=place, **CF_LEN)
+
+
+def _cf_lens(feed, name):
+    return np.diff(feed[name].lod()[0])
+
+
+def _cf_against_plain(torch, pt, kreg, main, loss, init, feed):
+    """One eager step from the initial state with the Adam kernel and
+    the same step under plain_reference(), in deterministic mode: every
+    persistable bit-equal."""
+    state = {}
+    with _deterministic(torch):
+        for mode in ("kernel", "plain"):
+            exe = pt.Executor(pt.CUDAPlace(0))
+            scope = _copy_scope(pt, init, list(init._vars))
+            kreg.reset_counts()
+            with (kreg.plain_reference() if mode == "plain"
+                  else contextlib.nullcontext()):
+                _cap_run(exe, main, feed, [loss], scope, cached=False)
+            state[mode] = ({n: v.get_tensor().tensor.clone()
+                            for n, v in scope._vars.items()},
+                           kreg.launches()["fused_adam"])
+            exe.close()
+    (sk, nk), (sp, n_plain) = state["kernel"], state["plain"]
+    differ = sum(not torch.equal(sk[n], sp[n]) for n in sk)
+    print(f"  seq2seq: one step with the Adam kernel ({nk} launch) against "
+          f"plain_reference() ({n_plain} launches): {differ} of {len(sk)} "
+          f"persistables differ (bound 0)")
+    _require(nk == 1 and n_plain == 0 and differ == 0,
+             "seq2seq: the Adam kernel's step is not plain_reference()'s")
+
+
+def _cf_small_programs(pt):
+    """(name, builder) of the small programs: each builder returns
+    (main, startup, fetch list, feed, steps, optimizer) in the current
+    program guard."""
+    L = pt.layers
+
+    def while_loop():
+        x = L.data("x", [3], dtype="float32")
+        i = L.fill_constant([1], "float32", 0.0)
+        n = L.fill_constant([1], "float32", 5.0)
+        acc = L.assign(x)
+        cond = L.less_than(i, n)
+        loop = L.While(cond)
+        with loop.block():
+            L.assign(L.elementwise_add(acc * 0.5, x), output=acc)
+            L.increment(i, in_place=True)
+            L.less_than(i, n, cond=cond)
+        return [acc * 1.0], {"x": np.arange(12, dtype=np.float32)
+                             .reshape(4, 3)}, 2
+
+    def ifelse():
+        x = L.data("x", [8], dtype="float32")
+        h = L.fc(x, 8, act="tanh")
+        cond = L.less_than(L.reduce_sum(h, dim=1, keep_dim=True),
+                           L.fill_constant([1], "float32", 0.0))
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(ie.input(h) * 2.0)
+        with ie.false_block():
+            ie.output(ie.input(h) - 1.0)
+        out = ie()[0]
+        return [out], {"x": np.random.default_rng(1).standard_normal(
+            (16, 8)).astype(np.float32)}, 2
+
+    def static_rnn():
+        T, B, D, H = 12, 16, 32, 64
+        x = L.data("x", [T, B, D], dtype="float32", append_batch_size=False)
+        y = L.data("y", [T, B, H], dtype="float32", append_batch_size=False)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            word = rnn.step_input(x)
+            prev = rnn.memory(shape=[-1, H], batch_ref=word)
+            hidden = L.fc([word, prev], H, act="tanh")
+            rnn.update_memory(prev, hidden)
+            rnn.step_output(hidden)
+        loss = L.mean(L.square(rnn() - y))
+        pt.optimizer.AdamOptimizer(0.01).minimize(loss)
+        rng = np.random.default_rng(2)
+        return [loss], {"x": rng.standard_normal((T, B, D))
+                        .astype(np.float32),
+                        "y": rng.standard_normal((T, B, H))
+                        .astype(np.float32)}, 3
+
+    return (("While", while_loop), ("IfElse", ifelse),
+            ("StaticRNN", static_rnn))
+
+
+def _cf_small(torch, pt):
+    """Each small program on the card and on the CPU from the same
+    startup state: every fetch of every run within CF_ATOL. While stays
+    eager with its reason; IfElse and the StaticRNN's 3 Adam steps are
+    captured from their second run."""
+    for name, build in _cf_small_programs(pt):
+        res = {}
+        for where, place in (("card", pt.CUDAPlace(0)),
+                             ("cpu", pt.CPUPlace())):
+            pt.framework.unique_name.reset()
+            main, startup = pt.Program(), pt.Program()
+            main.random_seed = startup.random_seed = SEED
+            with pt.program_guard(main, startup):
+                fetch, feed, steps = build()
+            exe, scope = pt.Executor(place), pt.Scope()
+            if where == "cpu":
+                for n, t in res["card"][2].items():
+                    scope.var(n).get_tensor().set_tensor(t.cpu())
+            else:
+                exe.run(startup, scope=scope)
+            init = {n: v.get_tensor().tensor.clone()
+                    for n, v in scope._vars.items()}
+            outs = [[np.asarray(v) for v in exe.run(
+                main, feed=feed, fetch_list=fetch, scope=scope)]
+                for _ in range(steps)]
+            res[where] = (outs, dict(exe._engine.eager_reasons), init,
+                          _counters(exe))
+        (oc, reasons, _, c), (oh, _, _, _) = res["card"], res["cpu"]
+        worst = max(float(np.abs(a - b).max()) for x, y in zip(oc, oh)
+                    for a, b in zip(x, y))
+        print(f"  {name}: {len(oc)} runs on the card against the CPU: max "
+              f"|card - cpu| {worst:.3e} (bound {CF_ATOL:g}); captures "
+              f"{c['captures']}, replays {c['replays']}, eager runs "
+              f"{c['eager_runs']}; eager reasons "
+              f"{list(reasons.values()) or 'none'}")
+        _require(worst <= CF_ATOL, f"{name}: the card disagrees with "
+                 f"the CPU")
+        if name == "While":
+            _require(list(reasons.values()) == ["while"] and
+                     c["captures"] == 0, f"While: {reasons} {c}")
+        else:
+            _require(not reasons and c["captures"] == 1,
+                     f"{name}: {reasons} {c}")
+
+
+def control_flow_phase(torch, dev, card):
+    """The book's RNN encoder-decoder (models/seq2seq.py: two DynamicRNN
+    blocks, AdamOptimizer(0.01)) at chapter 08's widths (vocab 30000,
+    word 512, hidden 512), B=64, on WMT14-shaped LoD batches through
+    Executor.run on the card; the predictor on its LoD feeds; the small
+    programs with sub-blocks. Returns the fused_adam launches of the
+    captured steps (the main path)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    from paddle_tpu_torch.models import seq2seq
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss, logits = seq2seq.seq2seq_train(lr=CF_LR, **CF)
+    main.random_seed = startup.random_seed = SEED
+    params = main.all_parameters()
+    routed = [p for p in params
+              if int(np.prod(p.shape)) >= kreg.min_numel()]
+    types = [op.type for op in main.global_block().ops]
+    print(f"  seq2seq: {len(main.blocks)} blocks, {len(types)} ops in "
+          f"block 0 ({types.count('recurrent')} recurrent, "
+          f"{types.count('recurrent_grad')} recurrent_grad, "
+          f"{types.count('adam')} adam), "
+          f"{sum(len(b.ops) for b in main.blocks[1:])} in the sub-blocks; "
+          f"{len(params)} parameters, "
+          f"{sum(int(np.prod(p.shape)) for p in params)} elements, "
+          f"{len(routed)} routed to fused_adam "
+          f"({sum(int(np.prod(p.shape)) for p in routed)} elements)")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    seeds = list(range(CF_POOL))
+    feeds = [_cf_feed(pt, s, pt.CUDAPlace(0)) for s in seeds]
+    tokens = sum(int(_cf_lens(f, "tgt_in").sum()) for f in feeds)
+    for s, f in zip(seeds, feeds):
+        share = {n: CF_B * _cf_lens(f, n).max() / _cf_lens(f, n).sum()
+                 for n in ("src", "tgt_in")}
+        print(f"  batch {s}: {CF_B} pairs, source {_cf_lens(f, 'src').sum()}"
+              f" tokens (lengths {_cf_lens(f, 'src').min()}-"
+              f"{_cf_lens(f, 'src').max()}), target "
+              f"{_cf_lens(f, 'tgt_in').sum()} tokens (lengths "
+              f"{_cf_lens(f, 'tgt_in').min()}-{_cf_lens(f, 'tgt_in').max()})"
+              f"; padded share N*maxT/sum(T) source {share['src']:.3f}, "
+              f"target {share['tgt_in']:.3f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, launches = _seq_compare(
+        torch, pt, kreg, "seq2seq", main, [loss], init, feeds, CF_RUNS,
+        len(routed))
+    _require(not reasons, f"seq2seq: a block was kept eager: {reasons}")
+    t1 = time.perf_counter()
+    cpu = _seq_first_loss_cpu(pt, main, loss, cpu_state,
+                              _cf_feed(pt, seeds[0], pt.CPUPlace()))
+    err = abs(losses[0] - cpu) / abs(cpu)
+    print(f"  seq2seq: first loss {losses[0]:.7f} on the card, {cpu:.7f} "
+          f"on the CPU ({time.perf_counter() - t1:.1f} s): rel err "
+          f"{err:.3e} (bound {CF_LOSS_RTOL:g})")
+    _require(err <= CF_LOSS_RTOL, "seq2seq: card and CPU disagree")
+    _cf_against_plain(torch, pt, kreg, main, loss, init, feeds[0])
+    _seq_rates(torch, pt, "seq2seq", exe, main, [loss], scope, feeds,
+               tokens, True, B=CF_B)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pool = _graph_pool_gb(torch)
+    c0 = _counters(exe)
+    wall, busy, n_kernels, top = _seq_profile(torch, lambda: _cap_run(
+        exe, main, feeds[0], [loss], scope, numpy=False))
+    c1 = _counters(exe)
+    _require(c1["replays"] == c0["replays"] + 1,
+             f"seq2seq: the profiled run was no replay: {c0} -> {c1}")
+    print(f"  seq2seq: peak memory allocated {peak:.3f} GB; graph pools "
+          f"{pool[0]:.3f} GB allocated, {pool[1]:.3f} GB reserved")
+    print(f"  seq2seq: profiled replay of batch 0: wall {wall:.4f} s, "
+          f"device busy {100 * busy:.1f} %, {n_kernels} kernels")
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+    stream = [_cf_feed(pt, 100 + i, pt.CUDAPlace(0))
+              for i in range(CF_STREAM)]
+    _seq_stream(torch, pt, "seq2seq", main, loss, init, stream,
+                sum(int(_cf_lens(f, "tgt_in").sum()) for f in stream),
+                CF_B, "target tokens")
+    _seq_serve(torch, pt, "seq2seq", exe, main, logits, scope,
+               ["src", "tgt_in"],
+               [_cf_feed(pt, s, pt.CPUPlace()) for s in seeds], feeds,
+               CF_B)
+    exe.close()
+    del exe, scope, init
+    gc_cuda(torch)
+    _cf_small(torch, pt)
+    print("  fused_adam at the seq2seq's parameter shapes:")
+    at = time_adam(torch, dev, card, [p.shape for p in params])
+    print(f"  fused_adam seq2seq row: " + json.dumps(
+        {k: at[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "elements", "routed")}))
+    print(f"  control flow phase: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main(argv=None):
@@ -4852,6 +5161,9 @@ def main(argv=None):
     print("[sequence phase]")
     sequence_phase(torch, dev)
 
+    print("[control flow phase]")
+    cf_adam = control_flow_phase(torch, dev, card)
+
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
     print("[mnist phase]")
@@ -4911,7 +5223,7 @@ def main(argv=None):
              tcounts["flash_attention_bwd_dkv_sm90"]),
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
-             adam_err, tcounts["fused_adam"] + dy_adam),
+             adam_err, tcounts["fused_adam"] + dy_adam + cf_adam),
             ("fused_sgd", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
              sgd_err, sgd_launches)):

@@ -75,7 +75,8 @@ def _create_grad_var(block, fwd_name: str, grad_name: str):
     fwd = block._find_var_recursive(fwd_name)
     return block.create_var(
         name=grad_name, shape=fwd.shape if fwd is not None else (),
-        dtype=fwd.dtype if fwd is not None else "float32")
+        dtype=fwd.dtype if fwd is not None else "float32",
+        lod_level=fwd.lod_level if fwd is not None else 0)
 
 
 def _input_needs_grad(block, name: str, no_grad_set: Set[str]) -> bool:
@@ -130,9 +131,12 @@ def _make_grad_op(block, op, acc: _GradAccumulator, no_grad_set: Set[str]):
     return True
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
     """Append the ops computing d loss / d params to loss's program.
-    Returns [(param, grad_var)]."""
+    Returns [(param, grad_var)]. `callbacks` and `checkpoints` are taken
+    as the JAX package takes them: the grad ops are the same with or
+    without them (a recomputation checkpoint changes no value)."""
     block = loss.block
     no_grad = set(no_grad_set or ())
     if tuple(loss.shape) not in ((), (1,)):

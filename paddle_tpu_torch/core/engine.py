@@ -49,8 +49,9 @@ of one run added at each replay. On the CPU a replay runs the step on
 the same static tensors.
 
 Engine.run takes the reference's arguments: a Place (or a torch.device;
-None is default_place(), CUDAPlace(0)), block_idx 0 (sub-blocks are not
-ported) and `iterations`: K runs of the plan on the same feeds, each
+None is default_place(), CUDAPlace(0)), block_idx 0 (a sub-block runs
+inside its control-flow op) and `iterations`: K runs of the plan on the
+same feeds, each
 with its own run index (replays of a captured block), returning the
 fetches of the last. A feed that is already a torch tensor on the run's
 device is used as it is (copied on the device into a captured block's
@@ -66,9 +67,18 @@ sequence ops set their outputs' (ExecContext.set_lod) and the
 row-preserving ops of _LOD_SHARING_OPS pass their input's on
 (_share_lod), the meta-device run of the capture rule included. The
 index tensors the sequence ops derive from offsets are made at a plan's
-first run and kept in its LodIndexCache, so a capture and its replays
+first run and kept in its HostTableCache, so a capture and its replays
 copy nothing from the host. A fetch with a LoD comes back as a
 LoDTensor holding its offsets.
+
+Control flow: a control-flow op (ops/control_flow.py) runs its sub-block
+through the run's SubBlocks (RunState.blocks), in the same run. The
+names a sub-block reads count as reads of its op (the free lists and
+the persistables). `recurrent` runs its body once a time step, and its
+meta run in the capture rule one step, so a DynamicRNN block is
+captured like any other; `while` and `conditional_block` read their
+condition on the host, fail the rule's meta run, and keep their block
+eager (eager_reasons: the op type).
 """
 from __future__ import annotations
 
@@ -82,7 +92,7 @@ from .amp import amp_guard
 from .enforce import EnforceNotMet, wrap_op_error
 from .place import Place, default_place
 from .registry import (OP_UID_ATTR, OPS, ExecContext, GraphRandom,
-                       LodIndexCache, RunState, grad_diff_slots,
+                       HostTableCache, RunState, grad_diff_slots,
                        has_generic_grad, run_forward_for_vjp)
 from .scope import LoDTensor, Scope, tensor_to_numpy
 from .selected_rows import is_selected_rows
@@ -104,12 +114,24 @@ def training_plan(block):
     return record_slots, frozenset(grad_ops)
 
 
+def _op_reads(op):
+    """The names an op reads: its inputs, and those of the ops of its
+    sub-block (a control-flow op's body reads outer vars by name)."""
+    sub = op.attr("sub_block")
+    if sub is None:
+        return op.input_arg_names
+    names = list(op.input_arg_names)
+    for sop in op.block.program.block(sub.idx).ops:
+        names.extend(_op_reads(sop))
+    return names
+
+
 def _last_reads(block, keep):
     """op index -> names whose last reader is that op (names in `keep`
     excluded)."""
     last: Dict[str, int] = {}
     for i, op in enumerate(block.ops):
-        for n in op.input_arg_names:
+        for n in _op_reads(op):
             last[n] = i
     frees: Dict[int, List[str]] = {}
     for n, i in last.items():
@@ -215,6 +237,28 @@ def block_spans(block, record_slots, frees):
     return spans
 
 
+class SubBlocks:
+    """The block runner of one program's runs (RunState.blocks): runs
+    the ops of block `idx` on an env the control-flow op gives, in the
+    same run (its seeds, LoDs, index cache and capture state), with the
+    block's steps worked out once. A sub-block's ops leave no forward
+    records: the grad op of a control-flow op differentiates the whole
+    op (the generic gradient runs the sub-block under autograd)."""
+
+    __slots__ = ("program", "_spans")
+
+    def __init__(self, program):
+        self.program = program
+        self._spans: Dict[int, list] = {}
+
+    def __call__(self, idx, env, device, run):
+        block = self.program.block(idx)
+        spans = self._spans.get(idx)
+        if spans is None:
+            spans = self._spans[idx] = block_spans(block, {}, {})
+        run_block_ops(block, env, device, run, spans)
+
+
 def _run_span(block, env, device, run, span):
     i, j, kind, info, _ = span
     op = block.ops[i]
@@ -251,11 +295,11 @@ def run_block_ops(block, env: Dict[str, torch.Tensor], device, run, spans):
 
 
 def _persistable_inputs(block) -> List[str]:
-    """Persistable vars the block reads before (or without) writing
-    them: they must come from the scope."""
+    """Persistable vars the block reads (its sub-blocks included) before
+    (or without) writing them: they must come from the scope."""
     names, written = [], set()
     for op in block.ops:
-        for n in op.input_arg_names:
+        for n in _op_reads(op):
             if n in written or n in names:
                 continue
             v = block.find_var(n)
@@ -368,7 +412,8 @@ def capture_blocker(program, block, plan, feeds, fetch_names):
         env[n] = _meta(t)
     env.update((n, _meta(t)) for n, t in feeds.items())
     run = RunState(program.random_seed, 0, plan.record_slots,
-                   plan.grad_uids, lod_env=dict(plan.feed_lods))
+                   plan.grad_uids, lod_env=dict(plan.feed_lods),
+                   blocks=plan.blocks)
     meta = torch.device("meta")
     with torch.no_grad(), _amp_guard(program):
         for span in plan.spans:
@@ -446,14 +491,15 @@ class _Captured:
         written = {n: state[n] for n in plan.written}
         records, grad_uids, spans = plan.record_slots, plan.grad_uids, \
             plan.spans
-        feed_lods, lod_cache = plan.feed_lods, plan.lod_cache
+        feed_lods, host_tables = plan.feed_lods, plan.host_tables
+        blocks = plan.blocks
 
         def step(start, index):
             env = dict(start)
             env.update(inputs)
             run = RunState(program.random_seed, index, records, grad_uids,
                            graph=random, lod_env=dict(feed_lods),
-                           lod_cache=lod_cache)
+                           host_tables=host_tables, blocks=blocks)
             with torch.no_grad(), _amp_guard(program):
                 run_block_ops(block, env, device, run, spans)
             return env
@@ -554,14 +600,15 @@ class _Plan:
     feed's dtype, the forward records to take, and the steps with their
     free lists. Built at the first run of a key; the runs after it reuse
     it and read each Variable's current tensor. The feed signature
-    holds the feeds' LoDs (`feed_lods`), so a plan's LoD-derived index
-    tensors (`lod_cache`) and the LoDs of its fetches (`fetch_lods`, set
-    by its first run, which is eager) are the same at every run."""
+    holds the feeds' LoDs (`feed_lods`), so a plan's host tables (the
+    LoD-derived index tensors and attr constants, `host_tables`) and
+    the LoDs of its fetches (`fetch_lods`, set by its first run, which
+    is eager) are the same at every run."""
 
     __slots__ = ("scope", "generation", "device", "feed_sig", "feed_lods",
-                 "lod_cache", "fetch_lods", "in_vars", "out_vars",
+                 "host_tables", "fetch_lods", "in_vars", "out_vars",
                  "feed_dtypes", "record_slots", "grad_uids", "spans",
-                 "runs", "blocker", "written", "captured")
+                 "blocks", "runs", "blocker", "written", "captured")
 
     def __init__(self, block, scope, device, feed_sig, fetch_names,
                  feed_lods=None):
@@ -570,7 +617,7 @@ class _Plan:
         self.device = device
         self.feed_sig = feed_sig
         self.feed_lods = feed_lods or {}
-        self.lod_cache = LodIndexCache()
+        self.host_tables = HostTableCache()
         self.fetch_lods = {}
         inputs = _persistable_inputs(block)
         missing = [n for n in inputs if scope.find_var(n) is None]
@@ -587,6 +634,7 @@ class _Plan:
         self.record_slots, self.grad_uids = training_plan(block)
         frees = _last_reads(block, set(fetch_names) | set(outputs))
         self.spans = block_spans(block, self.record_slots, frees)
+        self.blocks = SubBlocks(block.program)
         self.runs = 0
         self.blocker = _UNPROBED
         self.written = None
@@ -710,8 +758,9 @@ class Engine:
         overwrites."""
         if block_idx != 0:
             raise NotImplementedError(
-                f"block_idx={block_idx}: sub-blocks are not ported; the "
-                f"engine runs block 0")
+                f"block_idx={block_idx}: the engine runs block 0; "
+                f"sub-blocks run inside the control-flow ops that name "
+                f"them")
         iterations = int(iterations)
         if iterations < 1:
             raise ValueError(f"iterations must be at least 1, got "
@@ -830,7 +879,9 @@ class Engine:
 
         run = RunState(program.random_seed, scope.next_run(program._uid),
                        plan.record_slots, plan.grad_uids,
-                       lod_env=dict(plan.feed_lods), lod_cache=plan.lod_cache)
+                       lod_env=dict(plan.feed_lods),
+                       host_tables=plan.host_tables,
+                       blocks=plan.blocks)
         with torch.no_grad(), _amp_guard(program):
             run_block_ops(block, env, device, run, plan.spans)
         plan.fetch_lods = {n: run.lod_env[n] for n in fetch_names

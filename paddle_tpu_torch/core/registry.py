@@ -237,10 +237,12 @@ class GraphRandom:
             self._buf.copy_(host)
 
 
-class LodIndexCache:
-    """The index tensors that one engine plan's ops derive from host LoD
-    offsets (gather and scatter tables, masks, segment ids), by (kind,
-    key, device): made at the plan's first run, before any capture, and
+class HostTableCache:
+    """The tensors that one engine plan's ops build from host data, by
+    (kind, key, device): the index tables derived from LoD offsets
+    (gather and scatter tables, masks, segment ids, rank-table orders)
+    and the constants of op attrs (assign_value, tensor_array_to_tensor's
+    OutIndex). Made at the plan's first run, before any capture, and
     read by every later run and by the captured graph, so that no run
     after the first copies one to the card. `built` counts the tensors
     made (the meta device's excepted)."""
@@ -262,8 +264,11 @@ class RunState:
     block's GraphRandom: the random ops draw from its generators and
     seed tensors, counted per source in `draws`. `lod_env` maps a var
     name to its LoD (host offsets: the feeds', then what the ops set or
-    share), and `lod_cache` is the plan's LodIndexCache (None: an index
-    tensor is made at each use).
+    share), and `host_tables` is the plan's HostTableCache (None: a host
+    table is made at each use). `blocks` runs a sub-block of the
+    program (the engine's SubBlocks: blocks(idx, env, device, run)), for
+    the control-flow ops (ExecContext.block_runner); None outside an
+    engine run.
 
     The dygraph tracer keeps one RunState for all its ops: `generator`
     is then its own generator, which every random op without a fixed
@@ -272,11 +277,11 @@ class RunState:
 
     __slots__ = ("program_seed", "run", "records", "record_slots",
                  "grad_uids", "generator", "capturing", "graph", "draws",
-                 "lod_env", "lod_cache")
+                 "lod_env", "host_tables", "blocks")
 
     def __init__(self, program_seed=0, run=0, record_slots=None,
                  grad_uids=(), generator=None, graph=None, lod_env=None,
-                 lod_cache=None):
+                 host_tables=None, blocks=None):
         self.program_seed = program_seed
         self.run = run
         self.records: Dict[int, object] = {}
@@ -287,7 +292,8 @@ class RunState:
         self.graph = graph
         self.draws: Dict[tuple, int] = {}
         self.lod_env = {} if lod_env is None else lod_env
-        self.lod_cache = lod_cache
+        self.host_tables = host_tables
+        self.blocks = blocks
 
 
 def op_seed_words(seed: int):
@@ -390,6 +396,25 @@ class ExecContext:
     def attr(self, name: str, default=None):
         return self.op.attr(name, default)
 
+    # ---- sub-blocks (control flow) -----------------------------------------
+    @property
+    def block_runner(self):
+        """runner(idx, env=None): run the ops of sub-block `idx` of the
+        program on `env` (None: this op's env) on this op's device, in
+        this run, and return the env (the JAX ExecContext's
+        block_runner). Sub-blocks run only inside an engine run."""
+        blocks = self.run.blocks if self.run is not None else None
+        if blocks is None:
+            raise RuntimeError(f"{self.op.type}: a sub-block runs only "
+                               f"inside an Executor run")
+        own, device, run = self.env, self.device, self.run
+
+        def runner(idx, env=None):
+            env = own if env is None else env
+            blocks(idx, env, device, run)
+            return env
+        return runner
+
     # ---- LoD (ragged metadata, host side) ----------------------------------
     def get_lod(self, slot_or_name: str):
         """The LoD of the first var of input slot `slot_or_name` (or of
@@ -403,19 +428,20 @@ class ExecContext:
         name = names[0] if names else slot_or_name
         self.lod_env[name] = [list(map(int, lv)) for lv in lod]
 
-    def lod_index(self, kind: str, key, build) -> torch.Tensor:
+    def host_table(self, kind: str, key, build) -> torch.Tensor:
         """The tensor on the op's device of the numpy array `build()`
-        makes from host offsets: an index, mask or segment table. `key`
+        makes from host data (LoD offsets or op attrs): an index, mask or
+        segment table, or a constant. `key`
         (hashable: the offsets and whatever else fixes the array) with
         `kind` names it; within an engine plan it is made once, at the
-        plan's first run, and kept (RunState.lod_cache), so a captured
+        plan's first run, and kept (RunState.host_tables), so a captured
         graph reads it and no later run copies it to the card. On the
         meta device an empty tensor of its shape."""
         if self.device.type == "meta":
             a = build()
             return torch.empty(a.shape, device="meta",
                                dtype=torch.from_numpy(a[:0]).dtype)
-        cache = self.run.lod_cache if self.run is not None else None
+        cache = self.run.host_tables if self.run is not None else None
         full = (kind, key, self.device)
         if cache is not None:
             t = cache.tensors.get(full)
@@ -582,7 +608,8 @@ def run_forward_for_vjp(fwd_type, inputs, outputs, attrs, diff_slots,
             if n in lod_env:
                 local_lod[ln] = lod_env[n]
             v = env_in[n]
-            if s in diff_slots and v.is_floating_point():
+            if s in diff_slots and isinstance(v, torch.Tensor) and \
+                    v.is_floating_point():
                 v = v.detach().requires_grad_(True)
                 leaves[(s, i)] = v
             local[ln] = v

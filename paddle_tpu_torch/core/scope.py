@@ -2,7 +2,8 @@
 
 Counterpart of paddle_tpu/core/scope.py. Values are torch.Tensors that
 live on the device of the place that wrote them; LoDTensor keeps the
-fluid-style surface (set / __array__) over one.
+fluid-style surface (set / __array__) over one. A block's env may also
+hold a TensorArray (the array ops) or a LoDRankTable (DynamicRNN).
 """
 from __future__ import annotations
 
@@ -113,6 +114,51 @@ def create_lod_tensor(data, recursive_seq_lens, place=None):
             f"recursive_seq_lens {recursive_seq_lens} do not partition the "
             f"{t.shape()[0] if t.shape() else 0} rows of the data")
     return t
+
+
+class TensorArray(list):
+    """The LoDTensorArray: a list of tensors, written and read by index
+    (write_to_array, read_from_array)."""
+
+
+class LoDRankTable:
+    """The sequences of one LoD level sorted by length, longest first
+    (ties in sequence order): `items` holds (sequence index, length)
+    pairs. Host data, as the LoD it comes from: DynamicRNN's sort, pad
+    and unsort (ops/control_flow.py) read it to build their index
+    tensors."""
+
+    __slots__ = ("items", "offsets")
+
+    def __init__(self, offsets):
+        lengths = [int(offsets[i + 1]) - int(offsets[i])
+                   for i in range(len(offsets) - 1)]
+        order = sorted(range(len(lengths)),
+                       key=lambda i: (-lengths[i], i))
+        self.items = [(i, lengths[i]) for i in order]
+        self.offsets = [int(o) for o in offsets]
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def __len__(self):
+        return len(self.items)
+
+    @property
+    def indices(self):
+        return [i for i, _ in self.items]
+
+    @property
+    def lengths(self):
+        return [n for _, n in self.items]
+
+    @property
+    def max_len(self):
+        return self.items[0][1] if self.items else 0
+
+    def key(self):
+        """Hashable: the offsets fix the table."""
+        return tuple(self.offsets)
 
 
 class Variable:

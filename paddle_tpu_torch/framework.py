@@ -7,7 +7,9 @@ format, written without a protobuf package), which `clone`,
 `serialize_to_string` and `parse_from_string` use. Build-time shape
 inference runs the op's torch lowering on ``device="meta"`` tensors, the
 counterpart of the JAX package's jax.eval_shape: every lowering is
-meta-safe, reading no tensor value on the host.
+meta-safe, reading no tensor value on the host. A control-flow layer
+builds its body in a sub-block (Program._create_block / _rollback);
+the op names it by a block attr, written as AT_BLOCK.
 """
 from __future__ import annotations
 
@@ -142,6 +144,26 @@ class Variable:
 
     __str__ = __repr__
 
+    # operator sugar: graph mode builds elementwise ops
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_ops
+        return math_ops.elementwise_binary_sugar(self, other, op, reverse)
+
+    def __add__(self, o): return self._binary(o, "elementwise_add")
+    def __radd__(self, o): return self._binary(o, "elementwise_add", True)
+    def __sub__(self, o): return self._binary(o, "elementwise_sub")
+    def __rsub__(self, o): return self._binary(o, "elementwise_sub", True)
+    def __mul__(self, o): return self._binary(o, "elementwise_mul")
+    def __rmul__(self, o): return self._binary(o, "elementwise_mul", True)
+    def __truediv__(self, o): return self._binary(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elementwise_div", True)
+
+    def __neg__(self):
+        from .layers import tensor as _t
+        return _t.scale(self, scale=-1.0)
+
     def to_proto(self) -> fd.VarDesc:
         return fd.VarDesc(
             name=self.name, kind=self.kind, persistable=self.persistable,
@@ -170,6 +192,7 @@ class Parameter(Variable):
                                         {"learning_rate": 1.0})
         self.regularizer = kwargs.pop("regularizer", None)
         self.gradient_clip_attr = kwargs.pop("gradient_clip_attr", None)
+        self.do_model_average = kwargs.pop("do_model_average", None)
         super().__init__(block, shape=shape, dtype=dtype, **kwargs)
         self.stop_gradient = not trainable
 
@@ -291,6 +314,8 @@ def _encode_attr(name, val) -> fd.Attr:
             a.type, a.strings = fd.AT_STRINGS, list(val)
         else:
             raise TypeError(f"unsupported list attr {name}: {val!r}")
+    elif isinstance(val, (Block, _BlockRef)):
+        a.type, a.block_idx = fd.AT_BLOCK, val.idx
     elif val is None:
         a.type = fd.AT_NONE
     else:
@@ -316,10 +341,21 @@ def _decode_attr(a: fd.Attr):
         return list(a.strings)
     if t == fd.AT_BOOLS:
         return list(a.bools)
-    if t in (fd.AT_BLOCK, fd.AT_BLOCKS):
-        raise NotImplementedError(f"attr {a.name!r} names a sub-block: "
-                                  f"control flow is not ported")
+    if t == fd.AT_BLOCK:
+        return _BlockRef(a.block_idx)
+    if t == fd.AT_BLOCKS:
+        return [_BlockRef(i) for i in a.block_idxs]
     return None
+
+
+class _BlockRef:
+    """A block attr read from a desc: the index of a block of the
+    program that holds the op."""
+
+    __slots__ = ("idx",)
+
+    def __init__(self, idx):
+        self.idx = int(idx)
 
 
 # ---------------------------------------------------------------------------
@@ -327,14 +363,22 @@ def _decode_attr(a: fd.Attr):
 # ---------------------------------------------------------------------------
 
 class Block:
-    """Ordered ops + named vars. Sub-blocks (control flow) are not ported
-    yet: a Program has its global block only."""
+    """Ordered ops + named vars. Block 0 is the global block; a
+    control-flow op's sub-block (an AT_BLOCK attr) has a parent, whose
+    vars it reads by name (_find_var_recursive, var)."""
 
-    def __init__(self, program: "Program", idx: int):
+    def __init__(self, program: "Program", idx: int, parent_idx: int = -1):
         self.program = program
         self.idx = idx
+        self.parent_idx = parent_idx
+        self.forward_block_idx = -1
         self.vars: Dict[str, Variable] = {}
         self.ops: List[Operator] = []
+
+    @property
+    def parent(self) -> Optional["Block"]:
+        return (self.program.block(self.parent_idx)
+                if self.parent_idx >= 0 else None)
 
     # -- vars ---------------------------------------------------------------
     def create_var(self, **kwargs) -> Variable:
@@ -360,11 +404,24 @@ class Block:
     def find_var(self, name: str) -> Optional[Variable]:
         return self.vars.get(name)
 
+    def var(self, name: str) -> Variable:
+        """The var of that name, in this block or an ancestor."""
+        v = self._find_var_recursive(name)
+        if v is None:
+            raise ValueError(f"variable {name!r} not found in block "
+                             f"{self.idx}")
+        return v
+
     def has_var(self, name: str) -> bool:
         return name in self.vars
 
     def _find_var_recursive(self, name: str) -> Optional[Variable]:
-        return self.vars.get(name)   # one block: no parent to search
+        b = self
+        while b is not None:
+            if name in b.vars:
+                return b.vars[name]
+            b = b.parent
+        return None
 
     def all_parameters(self) -> List[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
@@ -390,7 +447,7 @@ class Block:
         for name in op.input_arg_names:
             if name in env:
                 continue
-            v = self.find_var(name)
+            v = self._find_var_recursive(name)
             if v is None:
                 raise ValueError(f"op {op.type!r}: unknown input var "
                                  f"{name!r}")
@@ -407,8 +464,8 @@ class Block:
             return
         for name in op.output_arg_names:
             val = env.get(name)
-            v = self.find_var(name)
-            if val is None or v is None:
+            v = self._find_var_recursive(name)
+            if not isinstance(val, torch.Tensor) or v is None:
                 continue
             v.shape = tuple(
                 -1 if (d >= _DYN_SENTINEL and d % _DYN_SENTINEL == 0)
@@ -416,10 +473,8 @@ class Block:
             v.dtype = convert_dtype(val.dtype)
 
     def to_proto(self) -> fd.BlockDesc:
-        # one block: no parent and no forward block (-1, as the JAX
-        # package writes a root block)
-        return fd.BlockDesc(idx=self.idx, parent_idx=-1,
-                            forward_block_idx=-1,
+        return fd.BlockDesc(idx=self.idx, parent_idx=self.parent_idx,
+                            forward_block_idx=self.forward_block_idx,
                             vars=[v.to_proto() for v in self.vars.values()],
                             ops=[op.to_proto() for op in self.ops])
 
@@ -441,6 +496,7 @@ class Program:
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
+        self.current_block_idx = 0
         self.random_seed = 0
         self._uid = next(Program._next_uid)
         self._version = 0
@@ -458,8 +514,30 @@ class Program:
     def global_block(self) -> Block:
         return self.blocks[0]
 
+    def block(self, idx: int) -> Block:
+        return self.blocks[idx]
+
     def current_block(self) -> Block:
-        return self.blocks[0]   # no sub-blocks yet
+        return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block, child of the current one (or of `parent_idx`),
+        made current: a control-flow layer builds its body there."""
+        parent = self.current_block_idx if parent_idx is None \
+            else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self.blocks)
 
     def all_parameters(self):
         return self.global_block().all_parameters()
@@ -486,6 +564,7 @@ class Program:
                         optimize_attr=dict(v.optimize_attr),
                         regularizer=v.regularizer,
                         gradient_clip_attr=v.gradient_clip_attr,
+                        do_model_average=v.do_model_average,
                         lod_level=old.lod_level, kind=old.kind)
                     db.vars[name] = param
         if for_test:
@@ -510,16 +589,16 @@ class Program:
 
     @staticmethod
     def from_proto(proto: fd.ProgramDesc) -> "Program":
-        if len(proto.blocks) > 1:
-            raise NotImplementedError(
-                f"a program of {len(proto.blocks)} blocks: control-flow "
-                f"sub-blocks are not ported")
         prog = Program()
-        b = prog.global_block()
+        if proto.blocks:
+            prog.blocks = []
         for bp in proto.blocks:
+            b = Block(prog, bp.idx, bp.parent_idx)
+            b.forward_block_idx = bp.forward_block_idx
             for vp in bp.vars:
                 b.vars[vp.name] = Variable.from_proto(b, vp)
             b.ops = [Operator.from_proto(b, opp) for opp in bp.ops]
+            prog.blocks.append(b)
         prog._bump_version()
         return prog
 

@@ -32,7 +32,10 @@ class Initializer:
 
 
 class ConstantInitializer(Initializer):
-    def __init__(self, value=0.0):
+    """`force_cpu` is taken as the JAX package takes it: the fill goes
+    where every other op of the program runs."""
+
+    def __init__(self, value=0.0, force_cpu=False):
         self.value = float(value)
 
     def __call__(self, var, block):

@@ -212,8 +212,11 @@ def load_persistables(executor, dirname, main_program=None, filename=None):
 # ---------------------------------------------------------------------------
 
 def _prune_program(program: Program, fetch_names: Sequence[str]) -> Program:
-    """A test clone of `program` keeping only the forward ops that the
-    fetch targets need (paddle_tpu/io.py _prune_program)."""
+    """A test clone of `program` keeping only the forward ops of block
+    0 that the fetch targets need (paddle_tpu/io.py _prune_program).
+    Every sub-block is kept, those the kept control-flow ops name among
+    them, as the JAX package keeps them: its __model__ is the same
+    bytes."""
     pruned = program.clone(for_test=True)
     block = pruned.global_block()
     needed = set(fetch_names)

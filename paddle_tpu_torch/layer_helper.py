@@ -76,8 +76,12 @@ class LayerHelper:
                     f"ParamAttr name {attr.name!r} collides with a "
                     f"non-parameter variable of the same name")
             return existing
-        param = gb.create_parameter(name=attr.name, shape=shape,
-                                    dtype=dtype, trainable=attr.trainable)
+        param = gb.create_parameter(
+            name=attr.name, shape=shape, dtype=dtype,
+            trainable=attr.trainable, regularizer=attr.regularizer,
+            optimize_attr={"learning_rate": attr.learning_rate},
+            gradient_clip_attr=attr.gradient_clip,
+            do_model_average=attr.do_model_average)
         # mirror into the startup program with its init op
         sb = self.startup_program.global_block()
         sv = sb.create_parameter(name=attr.name, shape=shape, dtype=dtype,

@@ -1,13 +1,13 @@
 """Loss layers (counterpart of paddle_tpu/layers/loss.py: cross_entropy,
-softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits and
-label_smoothed_softmax_xent)."""
+softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
+label_smoothed_softmax_xent and square_error_cost)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits",
-           "label_smoothed_softmax_xent"]
+           "label_smoothed_softmax_xent", "square_error_cost"]
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
@@ -63,3 +63,16 @@ def label_smoothed_softmax_xent(logits, label, epsilon=0.1):
         outputs={"Loss": loss},
         attrs={"epsilon": float(epsilon)})
     return loss
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise: an elementwise_sub, then square."""
+    helper = LayerHelper("square_error_cost")
+    minus_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("elementwise_sub",
+                     inputs={"X": input, "Y": label},
+                     outputs={"Out": minus_out})
+    sq = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square", inputs={"X": minus_out},
+                     outputs={"Out": sq})
+    return sq

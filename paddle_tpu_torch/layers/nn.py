@@ -4,8 +4,9 @@ fused_attention, dropout, reshape, squeeze, unsqueeze, reduce_sum,
 add_position_encoding, elementwise_*; matmul; those of LeNet:
 conv2d, pool2d, softmax, mean, top_k/topk; those of ResNet:
 batch_norm, relu; those of the CTR models: flatten, concat,
-sigmoid, elementwise_sub; and the recurrent layers of the sequence
-models: dynamic_lstm, dynamic_gru."""
+sigmoid, elementwise_sub; the recurrent layers of the sequence
+models: dynamic_lstm, dynamic_gru; and the activations tanh and
+square."""
 from __future__ import annotations
 
 import copy
@@ -22,7 +23,7 @@ __all__ = [
     "squeeze", "unsqueeze", "reduce_sum", "add_position_encoding",
     "elementwise_add", "elementwise_mul", "elementwise_div", "batch_norm",
     "relu", "flatten", "concat", "sigmoid", "elementwise_sub",
-    "dynamic_lstm", "dynamic_gru",
+    "dynamic_lstm", "dynamic_gru", "tanh", "square",
 ]
 
 
@@ -217,12 +218,17 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
-def relu(x, name=None):
-    return _single_op("relu", x, {})
+def _make_act(op_type):
+    def _act(x, name=None, **attrs):
+        return _single_op(op_type, x, attrs)
+    _act.__name__ = op_type
+    return _act
 
 
-def sigmoid(x, name=None):
-    return _single_op("sigmoid", x, {})
+relu = _make_act("relu")
+sigmoid = _make_act("sigmoid")
+tanh = _make_act("tanh")
+square = _make_act("square")
 
 
 def flatten(x, axis=1, name=None):
@@ -254,14 +260,18 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
     return out
 
 
-def reshape(x, shape, name=None):
-    helper = LayerHelper("reshape2", name=name)
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    """reshape2 to `shape`, then `act`. `actual_shape` and `inplace`
+    are taken as the JAX package takes them: the op's shape is `shape`,
+    and the output is a new var."""
+    helper = LayerHelper("reshape2", act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     xshape = helper.create_variable_for_type_inference(x.dtype, True)
     helper.append_op("reshape2", inputs={"X": x},
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"shape": [int(s) for s in shape]})
-    return out
+    return helper.append_activation(out)
 
 
 def squeeze(input, axes, name=None):
@@ -342,28 +352,28 @@ def add_position_encoding(input, alpha, beta, name=None):
                       {"alpha": float(alpha), "beta": float(beta)})
 
 
-def _elementwise(op_type, x, y, axis=-1, name=None):
-    helper = LayerHelper(op_type, name=name)
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(op_type, inputs={"X": x, "Y": y},
                      outputs={"Out": out}, attrs={"axis": axis})
-    return out
+    return helper.append_activation(out)
 
 
-def elementwise_add(x, y, axis=-1, name=None):
-    return _elementwise("elementwise_add", x, y, axis, name)
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
-def elementwise_sub(x, y, axis=-1, name=None):
-    return _elementwise("elementwise_sub", x, y, axis, name)
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
 
 
-def elementwise_mul(x, y, axis=-1, name=None):
-    return _elementwise("elementwise_mul", x, y, axis, name)
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
 
 
-def elementwise_div(x, y, axis=-1, name=None):
-    return _elementwise("elementwise_div", x, y, axis, name)
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
 
 
 def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,

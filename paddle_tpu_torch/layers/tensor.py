@@ -1,20 +1,28 @@
 """Tensor layers (counterpart of paddle_tpu/layers/tensor.py: scale,
-create_global_var)."""
+create_global_var, fill_constant, fill_constant_batch_size_like, zeros,
+ones, assign, increment)."""
 from __future__ import annotations
 
+import numpy as np
+
+from ..core.types import convert_dtype
+from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["scale", "create_global_var"]
+__all__ = ["scale", "create_global_var", "fill_constant",
+           "fill_constant_batch_size_like", "zeros", "ones", "assign",
+           "increment"]
 
 
-def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
-    helper = LayerHelper("scale", name=name)
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("scale", inputs={"X": x}, outputs={"Out": out},
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
-    return out
+    return helper.append_activation(out)
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -30,3 +38,72 @@ def create_global_var(shape, value, dtype, persistable=False,
                        persistable=persistable)
     Constant(value)(sv, sb)
     return var
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "fill_constant", outputs={"Out": out},
+        attrs={"shape": [int(s) for s in shape], "value": float(value),
+               "dtype": int(convert_dtype(dtype))})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "fill_constant_batch_size_like", inputs={"Input": input},
+        outputs={"Out": out},
+        attrs={"shape": [int(s) for s in shape], "value": float(value),
+               "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx,
+               "dtype": int(convert_dtype(dtype))})
+    out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def assign(input, output=None):
+    """A copy of a Variable (assign), or of a numpy array (assign_value,
+    its values in the op's attrs)."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("assign", inputs={"X": input},
+                         outputs={"Out": output})
+        return output
+    arr = np.asarray(input)
+    if output is None:
+        output = helper.create_variable_for_type_inference(str(arr.dtype))
+    attrs = {"shape": list(arr.shape),
+             "dtype": int(convert_dtype(arr.dtype))}
+    if arr.dtype == np.int32:
+        attrs["int32_values"] = [int(v) for v in arr.reshape(-1)]
+    elif arr.dtype == np.int64:
+        attrs["int64_values"] = [int(v) for v in arr.reshape(-1)]
+    else:
+        attrs["fp32_values"] = [float(v) for v in arr.reshape(-1)]
+    helper.append_op("assign_value", outputs={"Out": output}, attrs=attrs)
+    return output
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op("increment", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"step": float(value)})
+    return out

@@ -1,8 +1,10 @@
 """Model builders."""
-from . import lenet, resnet, sentiment, transformer, wide_deep  # noqa: F401
+from . import (lenet, resnet, sentiment, seq2seq,  # noqa: F401
+               transformer, wide_deep)
 from .lenet import lenet_train  # noqa: F401
 from .resnet import resnet_train  # noqa: F401
 from .sentiment import sentiment_train  # noqa: F401
+from .seq2seq import seq2seq_train  # noqa: F401
 from .transformer import (TransformerConfig, transformer_base,  # noqa: F401
                           transformer_train)
 from .wide_deep import ctr_train  # noqa: F401

@@ -1,5 +1,5 @@
 """Activation ops (counterpart of paddle_tpu/ops/activations.py: relu,
-sigmoid and tanh)."""
+sigmoid, tanh and square)."""
 from __future__ import annotations
 
 import torch
@@ -20,3 +20,9 @@ def sigmoid(ctx):
 @register_op("tanh")
 def tanh(ctx):
     ctx.set_output("Out", torch.tanh(ctx.input("X")))
+
+
+@register_op("square")
+def square(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", x * x)

@@ -1,12 +1,15 @@
-"""Tensor ops: fill_constant, sum, cast, scale, reshape2, squeeze2,
-unsqueeze, unsqueeze2, flatten, flatten2, concat, top_k, lookup_table
-with its dense and SelectedRows grads, merge_selected_rows and
-get_tensor_from_selected_rows (counterpart of paddle_tpu/ops/basic.py).
+"""Tensor ops: fill_constant, fill_constant_batch_size_like,
+fill_zeros_like, assign, assign_value, increment, is_empty, sum, cast,
+scale, reshape2, squeeze2, unsqueeze, unsqueeze2, flatten, flatten2,
+concat, top_k, lookup_table with its dense and SelectedRows grads,
+merge_selected_rows and get_tensor_from_selected_rows (counterpart of
+paddle_tpu/ops/basic.py).
 The "2"-suffixed ops carry an XShape output, here a zero-size marker
 holding the input's shape. sum and scale take SelectedRows too
 (core/selected_rows.py)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.registry import (GRAD_SUFFIX, override_grad_lowering,
@@ -23,6 +26,60 @@ def fill_constant(ctx):
                                      dtype=dtype_to_torch(
                                          ctx.attr("dtype", "float32")),
                                      device=ctx.device))
+
+
+@register_no_grad_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(ctx):
+    """A fill of `shape` whose dim output_dim_idx is Input's dim
+    input_dim_idx."""
+    shape = [int(s) for s in ctx.attr("shape", [])]
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ctx.input("Input").shape[ctx.attr("input_dim_idx", 0)]
+    ctx.set_output("Out", torch.full(shape, ctx.attr("value", 0.0),
+                                     dtype=dtype_to_torch(
+                                         ctx.attr("dtype", "float32")),
+                                     device=ctx.device))
+
+
+@register_no_grad_op("fill_zeros_like")
+def fill_zeros_like(ctx):
+    ctx.set_output("Out", torch.zeros_like(ctx.input("X")))
+
+
+@register_op("assign")
+def assign(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+@register_no_grad_op("assign_value")
+def assign_value(ctx):
+    """The values of the op's attrs (int32_values, int64_values or
+    fp32_values by dtype) in `shape`: a host constant, made once a plan
+    (ExecContext.host_table) so a captured block copies nothing."""
+    shape = [int(s) for s in ctx.attr("shape", [])]
+    dt = dtype_to_torch(ctx.attr("dtype", "float32"))
+    slot = {torch.int32: "int32_values", torch.int64: "int64_values"}.get(
+        dt, "fp32_values")
+    vals = tuple(ctx.attr(slot, []))
+    npdt = {torch.int32: np.int32, torch.int64: np.int64}.get(dt,
+                                                             np.float32)
+    ctx.set_output("Out", ctx.host_table(
+        "assign_value", (vals, tuple(shape), slot),
+        lambda: np.asarray(vals, npdt).reshape(shape)).to(dt))
+
+
+@register_no_grad_op("increment")
+def increment(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", (x + ctx.attr("step", 1.0)).to(x.dtype))
+
+
+@register_no_grad_op("is_empty")
+def is_empty(ctx):
+    """[1] bool: whether X has no element (its shape, not its values)."""
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.full((1,), x.numel() == 0,
+                                     dtype=torch.bool, device=ctx.device))
 
 
 @register_op("sum")

@@ -1,11 +1,12 @@
 """Elementwise binary ops with fluid's axis broadcast (counterpart of
 paddle_tpu/ops/elementwise.py): Y's shape aligns to a contiguous run of
-X's dims starting at `axis`; axis == -1 aligns trailing dims."""
+X's dims starting at `axis`; axis == -1 aligns trailing dims. The
+comparisons and the logical ops give bool tensors and no gradient."""
 from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_no_grad_op, register_op
 
 
 def _broadcast_y(x, y, axis):
@@ -38,3 +39,36 @@ _binary("elementwise_add", torch.add)
 _binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
 _binary("elementwise_div", torch.div)
+
+
+def _compare(op_type, fn):
+    @register_no_grad_op(op_type)
+    def _lower(ctx, _fn=fn):
+        x = ctx.input("X")
+        y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
+        ctx.set_output("Out", _fn(x, y))
+    _lower.__name__ = op_type
+    return _lower
+
+
+_compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
+_compare("equal", torch.eq)
+_compare("not_equal", torch.ne)
+
+
+def _logical(op_type, fn):
+    @register_no_grad_op(op_type)
+    def _lower(ctx, _fn=fn):
+        ctx.set_output("Out", _fn(*[ctx.input(s) for s in ("X", "Y")
+                                    if ctx.has_input(s)]))
+    _lower.__name__ = op_type
+    return _lower
+
+
+_logical("logical_and", torch.logical_and)
+_logical("logical_or", torch.logical_or)
+_logical("logical_xor", torch.logical_xor)
+_logical("logical_not", torch.logical_not)

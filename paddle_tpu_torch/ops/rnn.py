@@ -72,7 +72,7 @@ def _tables(ctx, off, rows, reverse):
             parts.update(enumerate(_time_tables(off, rows, reverse)))
         return parts[i]
 
-    return tuple(ctx.lod_index(kind, key, lambda i=i: part(i))
+    return tuple(ctx.host_table(kind, key, lambda i=i: part(i))
                  for i, kind in enumerate(("rnn_gather", "rnn_live",
                                            "rnn_unpack")))
 

@@ -8,7 +8,7 @@ signature), so every op here whose output shape the LoD fixes lowers to
 gathers by index tables built from the offsets, masks and dense
 reductions: no shape depends on a value, and a captured CUDA graph
 replays the step. The index tables are made through
-ExecContext.lod_index: once a plan, before any capture, and kept by the
+ExecContext.host_table: once a plan, before any capture, and kept by the
 plan, so that no run after the first copies one to the card.
 
 The reductions over a sequence (sequence_pool's AVERAGE, SUM, SQRT and
@@ -87,18 +87,18 @@ def _padded(ctx, x, off):
     rows of each sequence, padded to the longest."""
     key = tuple(off)
     n, maxT, rows = len(off) - 1, _max_len(off), x.shape[0]
-    mask = ctx.lod_index("pad_mask", key, lambda: _pad_mask(off, maxT))
+    mask = ctx.host_table("pad_mask", key, lambda: _pad_mask(off, maxT))
     mask = mask.reshape((n, maxT) + (1,) * (x.dim() - 1))
     if rows == 0:
         return x.new_zeros((n, maxT) + tuple(x.shape[1:])), mask
-    gather = ctx.lod_index("pad_gather", (key, rows),
+    gather = ctx.host_table("pad_gather", (key, rows),
                            lambda: _pad_gather(off, rows, maxT).reshape(-1))
     return x[gather].reshape((n, maxT) + tuple(x.shape[1:])), mask
 
 
 def _lens_column(ctx, off, kind, fn, x):
     """fn(lengths) as float32 [N, 1, ...] in x's dtype."""
-    t = ctx.lod_index(kind, tuple(off), lambda: fn(
+    t = ctx.host_table(kind, tuple(off), lambda: fn(
         _lengths(off)).astype(np.float32))
     t = t.reshape((-1,) + (1,) * (x.dim() - 1))
     return t if t.dtype == x.dtype else t.to(x.dtype)
@@ -118,7 +118,10 @@ def sequence_pool(ctx):
     if ptype in ("AVERAGE", "SUM", "SQRT", "MAX"):
         xp, mask = _padded(ctx, x, off)
         if ptype == "MAX":
-            out = torch.where(mask, xp, float("-inf")).amax(1)
+            # every sequence empty: no time step to reduce (the rows
+            # become pad_value below)
+            out = torch.where(mask, xp, float("-inf")).amax(1) \
+                if xp.shape[1] else xp.new_zeros((n,) + tuple(x.shape[1:]))
             ctx.set_output("MaxIndex", torch.zeros(
                 (n,) + tuple(x.shape[1:]), dtype=torch.int32,
                 device=x.device))
@@ -138,12 +141,12 @@ def sequence_pool(ctx):
         else:
             a = np.asarray(off, np.int64)
             pick = a[1:] - 1 if ptype == "LAST" else a[:-1]
-            idx = ctx.lod_index("pool_" + ptype.lower(), tuple(off),
+            idx = ctx.host_table("pool_" + ptype.lower(), tuple(off),
                                 lambda: np.clip(pick, 0, rows - 1))
             out = x[idx]
     else:
         raise ValueError(f"unknown pooltype {ptype}")
-    empty = ctx.lod_index("pool_empty", tuple(off),
+    empty = ctx.host_table("pool_empty", tuple(off),
                           lambda: _lengths(off) == 0)
     empty = empty.reshape((-1,) + (1,) * (x.dim() - 1))
     out = torch.where(empty, float(pad_value), out)
@@ -159,7 +162,7 @@ def sequence_softmax(ctx):
     xp, mask = _padded(ctx, flat, off)
     sm = torch.softmax(torch.where(mask, xp, torch.finfo(x.dtype).min),
                        dim=1)
-    idx = ctx.lod_index("unpack", tuple(off),
+    idx = ctx.host_table("unpack", tuple(off),
                         lambda: _unpack(off, _max_len(off)))
     ctx.set_output("Out", sm.reshape(-1)[idx].reshape(x.shape))
     ctx.set_lod("Out", ctx.get_lod("X"))
@@ -176,7 +179,7 @@ def sequence_reverse(ctx):
                                for s, e in zip(a[:-1], a[1:])]) \
             if len(a) > 1 else np.arange(0)
 
-    ctx.set_output("Y", x[ctx.lod_index("reverse", tuple(off), build)])
+    ctx.set_output("Y", x[ctx.host_table("reverse", tuple(off), build)])
     ctx.set_lod("Y", ctx.get_lod("X"))
 
 
@@ -214,10 +217,10 @@ def sequence_expand(ctx):
                 out_off.append(out_off[-1] + len(seq))
         idx = np.concatenate(idx) if idx else np.arange(0)
         key = (tuple(x_off), tuple(ref))
-        ctx.set_output("Out", x[ctx.lod_index("expand", key, lambda: idx)])
+        ctx.set_output("Out", x[ctx.host_table("expand", key, lambda: idx)])
         ctx.set_lod("Out", [list(map(int, out_off))])
     else:
-        ctx.set_output("Out", x[ctx.lod_index(
+        ctx.set_output("Out", x[ctx.host_table(
             "expand_rows", (x.shape[0], tuple(ref)),
             lambda: np.repeat(np.arange(x.shape[0]), rep))])
         ctx.set_lod("Out", [])
@@ -231,7 +234,7 @@ def sequence_expand_as(ctx):
     if x.shape[0] != len(rep):
         raise ValueError(f"sequence_expand_as: X has {x.shape[0]} rows for "
                          f"{len(rep)} sequences of Y")
-    idx = ctx.lod_index("expand_rows", (x.shape[0], tuple(y_off)),
+    idx = ctx.host_table("expand_rows", (x.shape[0], tuple(y_off)),
                         lambda: np.repeat(np.arange(x.shape[0]), rep))
     ctx.set_output("Out", x[idx])
     ctx.set_lod("Out", [list(map(int, y_off))])
@@ -252,7 +255,7 @@ def sequence_concat(ctx):
         out_off.append(out_off[-1] + total)
     idx = np.concatenate(idx) if idx else np.arange(0)
     key = (tuple(lods), tuple(int(b) for b in bases))
-    ctx.set_output("Out", torch.cat(xs, 0)[ctx.lod_index("concat", key,
+    ctx.set_output("Out", torch.cat(xs, 0)[ctx.host_table("concat", key,
                                                          lambda: idx)])
     ctx.set_lod("Out", [list(map(int, out_off))])
 
@@ -272,19 +275,19 @@ def sequence_pad(ctx):
         padded_len = int(lens.max()) if len(lens) else 0
     n, feat = len(lens), tuple(x.shape[1:])
     key, rows = tuple(off), x.shape[0]
-    mask = ctx.lod_index("seqpad_mask", (key, padded_len),
+    mask = ctx.host_table("seqpad_mask", (key, padded_len),
                          lambda: _pad_mask(off, padded_len))
     mask = mask.reshape((n, padded_len) + (1,) * len(feat))
     if rows == 0:
         out = x.new_zeros((n, padded_len) + feat)
     else:
-        gather = ctx.lod_index(
+        gather = ctx.host_table(
             "seqpad_gather", (key, rows, padded_len),
             lambda: _pad_gather(off, rows, padded_len).reshape(-1))
         out = x[gather].reshape((n, padded_len) + feat)
     pv = pad_value.to(x.dtype).reshape((1, 1) + (1,) * len(feat))
     ctx.set_output("Out", torch.where(mask, out, pv))
-    ctx.set_output("Length", ctx.lod_index(
+    ctx.set_output("Length", ctx.host_table(
         "lengths", key, lambda: lens.astype(np.int64)).clone())
     # host metadata so sequence_unpad can invert statically
     ctx.set_lod(ctx.op.output("Out")[0], [])
@@ -302,7 +305,7 @@ def sequence_unpad(ctx):
             "output): lengths read from values are not ported")
     off = _last_level(lod)
     padded_len = x.shape[1]
-    idx = ctx.lod_index("unpack", (tuple(off), padded_len),
+    idx = ctx.host_table("unpack", (tuple(off), padded_len),
                         lambda: _unpack(off, padded_len))
     ctx.set_output("Out", x.reshape((-1,) + tuple(x.shape[2:]))[idx])
     ctx.set_lod("Out", [list(off)])
@@ -351,9 +354,9 @@ def sequence_conv(ctx):
     off = _last_level(ctx.get_lod("X"))
     T, D = x.shape
     key = (tuple(off), ctx_start, ctx_len)
-    src = ctx.lod_index("conv_src", key, lambda: _window(
+    src = ctx.host_table("conv_src", key, lambda: _window(
         off, T, ctx_start, ctx_len)[0].reshape(-1))
-    ok = ctx.lod_index("conv_ok", key, lambda: _window(
+    ok = ctx.host_table("conv_ok", key, lambda: _window(
         off, T, ctx_start, ctx_len)[1][:, :, None])
     col = torch.where(ok, x[src].reshape(T, ctx_len, D), 0.0)
     ctx.set_output("Out", col.reshape(T, ctx_len * D) @ filt)
@@ -373,8 +376,8 @@ def sequence_enumerate(ctx):
         src, ok = _window(off, T, 0, win)
         return src.reshape(-1) if part == 0 else ok
 
-    src = ctx.lod_index("enum_src", key, lambda: build(0))
-    ok = ctx.lod_index("enum_ok", key, lambda: build(1))
+    src = ctx.host_table("enum_src", key, lambda: build(0))
+    ok = ctx.host_table("enum_ok", key, lambda: build(1))
     vals = x.reshape(T)[src].reshape(T, win)
     ctx.set_output("Out", torch.where(ok, vals, pad))
     ctx.set_lod("Out", ctx.get_lod("X"))
@@ -407,7 +410,7 @@ def sequence_scatter(ctx):
     upd = ctx.input("Updates")
     off = _last_level(ctx.get_lod("Ids"))
     # row r of updates goes to x[seq_of(r), ids[r]] += updates[r]
-    seg = ctx.lod_index("segment_ids", tuple(off),
+    seg = ctx.host_table("segment_ids", tuple(off),
                         lambda: _segment_ids(off))
     ctx.set_output("Out", x.index_put(
         (seg, ids.reshape(-1).long()), upd.reshape(-1).to(x.dtype),

@@ -182,13 +182,14 @@ class Optimizer:
         return block.run() if in_dygraph_mode() else ops
 
     def backward(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
+                 no_grad_set=None, callbacks=None):
         if in_dygraph_mode():
             # loss.backward() left the gradients on the parameters
             return self._dygraph_params_grads(parameter_list)
         with program_guard(loss.block.program,
                            startup_program or default_startup_program()):
-            return append_backward(loss, parameter_list, no_grad_set)
+            return append_backward(loss, parameter_list, no_grad_set,
+                                   callbacks)
 
     def apply_gradients(self, params_grads):
         if in_dygraph_mode():
@@ -211,7 +212,14 @@ class Optimizer:
             return self.apply_gradients(params_grads)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
+                 no_grad_set=None, grad_clip=None):
+        """append_backward, then the update ops. `grad_clip` (the
+        reference's dygraph clip) raises NotImplementedError until the
+        clip ops are ported (clip.py): a clip is never dropped."""
+        if grad_clip is not None:
+            raise NotImplementedError(
+                "minimize(grad_clip=...): gradient clipping is not ported "
+                "to paddle_tpu_torch yet")
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         optimize_ops = self.apply_optimize(loss, startup_program,
@@ -287,8 +295,12 @@ class AdagradOptimizer(Optimizer):
 
 
 class AdamOptimizer(Optimizer):
+    """`lazy_mode` is taken as the JAX package takes it: the adam op's
+    update is the same either way (a SelectedRows gradient updates the
+    touched rows only, as ops/optimizer_ops.py sets out)."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kw):
+                 epsilon=1e-8, lazy_mode=False, **kw):
         super().__init__(learning_rate, **kw)
         self.type = "adam"
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon

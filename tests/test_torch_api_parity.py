@@ -1,0 +1,185 @@
+"""The reference's arguments in the port (queue C's faults C.1-C.3).
+
+* C.3: every public name that both the port and the JAX package export
+  from `layers`, `optimizer`, `backward`, `initializer` and `param_attr`
+  takes the same parameters: names, kinds and defaults, by
+  inspect.signature (a class by its __init__ and its public methods).
+  So a reference script that passes `act` to elementwise_add, `callbacks`
+  to append_backward or `force_cpu` to Constant runs in the port.
+* C.1: ParamAttr takes the reference's seven arguments in their order
+  and a list; a parameter's learning_rate multiplies its step (half the
+  SGD step at 0.5, as in the JAX package); a regularizer or a clip that
+  the port cannot apply yet raises NotImplementedError at minimize.
+* C.2: sequence_pool MAX over sequences that are all empty gives the JAX
+  lowering's pad_value rows.
+"""
+import importlib
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu as fluid
+from paddle_tpu.core.registry import ExecContext as JaxContext
+from paddle_tpu.core.registry import OPS as JAX_OPS
+from paddle_tpu.core.scope import Scope as JaxScope
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.core.registry import ExecContext as PtContext
+from paddle_tpu_torch.core.registry import OPS as PT_OPS
+from paddle_tpu_torch.io import load_params_from_numpy
+
+from test_torch_ops import _Op
+
+# the fewest signatures each module must share (so the test cannot pass
+# by comparing nothing)
+MIN_CHECKED = {"layers": 60, "optimizer": 40, "backward": 1,
+               "initializer": 10, "param_attr": 1}
+MODULES = list(MIN_CHECKED)
+
+
+def _public(mod):
+    names = getattr(mod, "__all__", None) or \
+        [n for n in dir(mod) if not n.startswith("_")]
+    return {n for n in names if hasattr(mod, n)}
+
+
+def _callables(name, obj):
+    """(qualified name, callable) pairs to compare: a function, or a
+    class's __init__ and its public methods."""
+    if inspect.isclass(obj):
+        yield f"{name}.__init__", obj.__init__
+        for m in dir(obj):
+            f = getattr(obj, m)
+            if not m.startswith("_") and callable(f) and \
+                    not inspect.isclass(f):
+                yield f"{name}.{m}", f
+    elif callable(obj):
+        yield name, obj
+
+
+def _params(fn):
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return None
+    return [(p.name, p.kind, p.default) for p in sig.parameters.values()]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_shared_names_take_the_reference_arguments(module):
+    jmod = importlib.import_module(f"paddle_tpu.{module}")
+    pmod = importlib.import_module(f"paddle_tpu_torch.{module}")
+    shared = sorted(_public(jmod) & _public(pmod))
+    assert shared, module
+    checked, wrong = 0, {}
+    for name in shared:
+        jobj, pobj = getattr(jmod, name), getattr(pmod, name)
+        if inspect.ismodule(jobj):
+            continue
+        port = dict(_callables(name, pobj))
+        for qual, jfn in _callables(name, jobj):
+            if qual not in port:
+                continue
+            a, b = _params(jfn), _params(port[qual])
+            if a is None or b is None:
+                continue
+            checked += 1
+            if a != b:
+                wrong[qual] = (a, b)
+    assert not wrong, wrong
+    assert checked >= MIN_CHECKED[module], checked
+
+
+# ---------------------------------------------------------------------------
+# C.1
+# ---------------------------------------------------------------------------
+
+def test_param_attr_takes_the_reference_arguments():
+    a = pt.ParamAttr("w", None, 0.5)
+    assert (a.name, a.learning_rate, a.trainable) == ("w", 0.5, True)
+    b = pt.ParamAttr(name="w", learning_rate=0.25, trainable=False,
+                     do_model_average=True)
+    assert (b.learning_rate, b.trainable, b.do_model_average) == \
+        (0.25, False, True)
+    attrs = pt.ParamAttr._to_attr(["a", None, b])
+    assert [x.name for x in attrs] == ["a", None, "w"] and attrs[2] is b
+
+
+def _sgd_program(fl, attr):
+    fl.framework.unique_name.reset()
+    main, startup = fl.Program(), fl.Program()
+    with fl.program_guard(main, startup):
+        x = fl.layers.data("x", [4], dtype="float32")
+        loss = fl.layers.mean(fl.layers.fc(x, 3, param_attr=attr,
+                                           bias_attr=False))
+        fl.optimizer.SGD(0.1).minimize(loss)
+    return main, startup
+
+
+def test_learning_rate_multiplier_halves_the_step_as_in_jax():
+    x = np.random.default_rng(0).standard_normal((5, 4)).astype(np.float32)
+    steps = {}
+    for lr_mult in (1.0, 0.5):
+        jmain, jstart = _sgd_program(
+            fluid, fluid.ParamAttr(name="w", learning_rate=lr_mult))
+        pmain, pstart = _sgd_program(
+            pt, pt.ParamAttr(name="w", learning_rate=lr_mult))
+        assert [o.type for o in pmain.global_block().ops] == \
+            [o.type for o in jmain.global_block().ops]
+        assert pmain.global_block().vars["w"].optimize_attr == \
+            {"learning_rate": lr_mult}
+        jscope, jexe = JaxScope(), fluid.Executor(fluid.CPUPlace())
+        jexe.run(jstart, scope=jscope)
+        w0 = np.asarray(jscope.find_var("w").get_tensor())
+        pscope, pexe = pt.Scope(), pt.Executor(pt.CPUPlace())
+        pexe.run(pstart, scope=pscope)
+        load_params_from_numpy(pscope, {"w": w0}, pt.CPUPlace())
+        jexe.run(jmain, feed={"x": x}, scope=jscope)
+        pexe.run(pmain, feed={"x": x}, scope=pscope)
+        jw = np.asarray(jscope.find_var("w").get_tensor())
+        pw = np.asarray(pscope.find_var("w").get_tensor())
+        np.testing.assert_allclose(pw, jw, rtol=1e-6, atol=1e-7)
+        steps[lr_mult] = pw - w0
+    # within the rounding of w (|w| < 1: 6e-8) around each step
+    np.testing.assert_allclose(steps[0.5], 0.5 * steps[1.0], rtol=1e-5,
+                               atol=1e-7)
+    assert np.abs(steps[1.0]).max() > 0
+
+
+@pytest.mark.parametrize("kind", ["regularizer", "gradient_clip",
+                                  "grad_clip"])
+def test_regularizer_and_clip_are_never_dropped(kind):
+    attr = pt.ParamAttr(name="w", **({kind: object()}
+                                     if kind != "grad_clip" else {}))
+    with pytest.raises(NotImplementedError):
+        pt.framework.unique_name.reset()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("x", [4], dtype="float32")
+            loss = pt.layers.mean(pt.layers.fc(x, 3, param_attr=attr))
+            pt.optimizer.SGD(0.1).minimize(
+                loss, **({"grad_clip": object()}
+                         if kind == "grad_clip" else {}))
+
+
+# ---------------------------------------------------------------------------
+# C.2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lod", [[0, 0, 0], [0, 0, 0, 0]])
+def test_sequence_pool_max_over_empty_sequences(lod):
+    op = _Op("sequence_pool", {"X": None}, ["Out", "MaxIndex"],
+             {"pooltype": "MAX", "pad_value": 2.0})
+    x = np.zeros((0, 3), np.float32)
+    jenv, penv = {"x": jnp.asarray(x)}, {"x": torch.from_numpy(x)}
+    JAX_OPS.get("sequence_pool").lowering(
+        JaxContext(op, jenv, None, None, {"x": [lod]}))
+    PT_OPS.get("sequence_pool").lowering(
+        PtContext(op, penv, torch.device("cpu"), None, {"x": [lod]}))
+    want = np.full((len(lod) - 1, 3), 2.0, np.float32)
+    np.testing.assert_array_equal(np.asarray(jenv["out_out"]), want)
+    np.testing.assert_array_equal(penv["out_out"].numpy(), want)

@@ -2114,7 +2114,7 @@ def test_sentiment_steps_captured_bit_equal_eager_on_card(cuda, monkeypatch,
                     use_program_cache=cached)])
                 plans = exe._engine._plans.get(
                     exe._engine._key(main, [cost.name, acc.name]), [])
-                built.append(sum(p.lod_cache.built for p in plans))
+                built.append(sum(p.host_tables.built for p in plans))
             assert not any(kreg.launches().values())
             state = {v.name: scope.find_var(v.name).get_tensor().tensor
                      .clone() for v in main.global_block().vars.values()
@@ -2169,3 +2169,133 @@ def test_lod_predictor_on_card_matches_executor(cuda, tmp_path):
     c = predictor._engine.counters
     assert c["captures"] == 2 == before["captures"]
     assert c["eager_runs"] == 2 and c["replays"] == 4
+
+
+# ---------------------------------------------------------------------------
+# sub-blocks: the recurrent block, While, and sequence_pool over empty
+# sequences
+# ---------------------------------------------------------------------------
+
+def _s2s_tiny():
+    from paddle_tpu_torch.models import seq2seq
+    pt.framework.unique_name.reset()
+    main, startup, loss, logits = seq2seq.seq2seq_train(
+        src_vocab=50, tgt_vocab=50, word_dim=16, hidden_dim=32)
+    return main, startup, loss, logits
+
+
+def _s2s_feeds(place, seeds=(0, 1)):
+    from paddle_tpu_torch.models import seq2seq
+    return [seq2seq.wmt14_batch(np.random.default_rng(s), 6, 50, 50,
+                                place=place, median=5.0, lo=1, hi=12)
+            for s in seeds]
+
+
+def test_recurrent_steps_captured_bit_equal_eager_on_card(cuda, monkeypatch):
+    """The tiny encoder-decoder (two DynamicRNN blocks): two LoD
+    batches, three runs each with the plan cache (eager, the capture, a
+    replay) and the same runs with use_program_cache=False from one
+    startup state in deterministic mode: fetches and persistables
+    bit-equal, no block kept eager."""
+    old = _deterministic(monkeypatch)
+    main, startup, loss, _ = _s2s_tiny()
+    feeds = _s2s_feeds(pt.CUDAPlace(0)) * 3
+    try:
+        runs = {}
+        for cached in (True, False):
+            exe, scope = pt.Executor(), pt.Scope()
+            exe.run(startup, scope=scope)
+            out = [np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                      scope=scope,
+                                      use_program_cache=cached)[0])
+                   for f in feeds]
+            state = {v.name: scope.find_var(v.name).get_tensor().tensor
+                     .clone() for v in main.global_block().vars.values()
+                     if v.persistable and scope.find_var(v.name)
+                     is not None}
+            runs[cached] = (out, state, dict(exe._engine.counters),
+                            dict(exe._engine.eager_reasons))
+            exe.close()
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+    (oa, sa, ca, reasons), (ob, sb, _, _) = runs[True], runs[False]
+    assert not reasons
+    assert (ca["captures"], ca["replays"], ca["eager_runs"]) == (2, 4, 3)
+    for a, b in zip(oa, ob):
+        np.testing.assert_array_equal(a, b)
+    for n in sa:
+        assert torch.equal(sa[n], sb[n]), n
+
+
+def test_seq2seq_adam_is_one_launch_a_step_on_card(cuda, monkeypatch):
+    """With every parameter routed (PT_KERNEL_MIN_NUMEL=1), each step of
+    the tiny encoder-decoder, eager or replayed, is one fused_adam launch
+    over all ten parameters."""
+    monkeypatch.setenv("PT_KERNEL_MIN_NUMEL", "1")
+    main, startup, loss, _ = _s2s_tiny()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _s2s_feeds(pt.CUDAPlace(0), seeds=(0,))[0]
+    kreg.reset_counts()
+    kreg.reset_stats()
+    for _ in range(4):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    n_params = len(main.all_parameters())
+    assert n_params == 10
+    assert kreg.launches()["fused_adam"] == 4
+    assert kreg.dispatch_stats()["per_kernel"]["fused_adam"]["custom"] == \
+        4 * n_params
+    # runs 2-4: the capture (and its replay), then two replays
+    assert exe._engine.counters["replays"] == 3
+
+
+def test_while_block_runs_eager_on_card(cuda):
+    """A While loop: its condition is read on the host every trip, so
+    the engine keeps the block eager and records why; the result equals
+    the CPU's."""
+    L = pt.layers
+    outs = {}
+    for place in (pt.CPUPlace(), pt.CUDAPlace(0)):
+        pt.framework.unique_name.reset()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = L.data("x", [3], dtype="float32")
+            i = L.fill_constant([1], "float32", 0.0)
+            n = L.fill_constant([1], "float32", 5.0)
+            acc = L.assign(x)
+            cond = L.less_than(i, n)
+            loop = L.While(cond)
+            with loop.block():
+                L.assign(L.elementwise_add(acc * 0.5, x), output=acc)
+                L.increment(i, in_place=True)
+                L.less_than(i, n, cond=cond)
+            out = acc * 1.0
+        exe = pt.Executor(place)
+        feed = {"x": np.arange(6, dtype=np.float32).reshape(2, 3)}
+        for _ in range(3):
+            outs[place.torch_device().type] = exe.run(
+                main, feed=feed, fetch_list=[out])[0]
+        if place.torch_device().type == "cuda":
+            assert list(exe._engine.eager_reasons.values()) == ["while"]
+            assert exe._engine.counters["captures"] == 0
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("lod", [[0, 0, 0], [0, 0, 3]])
+def test_sequence_pool_max_over_empty_sequences_on_card(cuda, lod):
+    """MAX pooling where every (or one) sequence is empty: pad_value
+    rows, as on the CPU."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext
+    x = np.arange(lod[-1] * 3, dtype=np.float32).reshape(-1, 3)
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        view = _seq_op_view("sequence_pool", {"X": x},
+                            {"Out": "out", "MaxIndex": "mi"},
+                            {"pooltype": "MAX", "pad_value": 2.0})
+        env = {"x": torch.from_numpy(x).to(dev)}
+        OPS.get("sequence_pool").lowering(ExecContext(view, env, dev, None,
+                                                      {"x": [lod]}))
+        res[dev.type] = env["out"].cpu()
+    assert torch.equal(res["cuda"], res["cpu"])
+    assert torch.equal(res["cpu"][0], torch.full((3,), 2.0))

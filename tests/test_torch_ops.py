@@ -1,6 +1,9 @@
 """One-op parity: each forward op type on Transformer inference's and
-training's path (and the serving book LM's unsqueeze) runs through the JAX package's lowering and the port's
-lowering on the same numpy inputs, made from a seed. (The grad ops are
+training's path (and the serving book LM's unsqueeze, the book models'
+square and cos_sim, and the comparison, logical, fill, assign and
+increment ops of the control-flow programs) runs through the JAX
+package's lowering and the port's lowering on the same numpy inputs,
+made from a seed. (The grad ops are
 held against the JAX package in tests/test_torch_backward.py, adam in
 tests/test_torch_training.py; dropout's random branch, which cannot draw
 the JAX package's bits, in tests/test_torch_training.py too.)
@@ -189,7 +192,36 @@ def _cases():
          {"axes": [0, -1]}),
         ("unsqueeze", {"X": _f32(rng, 2, 3)}, ["Out"], {"axes": [2, 0]}),
         ("tanh", {"X": 3 * _f32(rng, 4, 5)}, ["Out"], {}),
-    ]
+        # the book models' (fit_a_line, recommender_system) and the
+        # control-flow programs' small ops
+        ("square", {"X": x3}, ["Out"], {}),
+        ("cos_sim", {"X": _f32(rng, 5, 7), "Y": _f32(rng, 5, 7)},
+         ["Out", "XNorm", "YNorm"], {}),
+        ("cos_sim", {"X": _f32(rng, 5, 7), "Y": _f32(rng, 1, 7)},
+         ["Out", "XNorm", "YNorm"], {}),
+        ("fill_constant_batch_size_like", {"Input": _f32(rng, 4, 3, 2)},
+         ["Out"], {"shape": [-1, 6], "value": 1.5, "input_dim_idx": 1,
+                   "output_dim_idx": 0, "dtype": 9}),
+        ("fill_zeros_like", {"X": x3}, ["Out"], {}),
+        ("assign", {"X": x3}, ["Out"], {}),
+        ("assign_value", {}, ["Out"],
+         {"shape": [2, 2], "dtype": 9, "fp32_values": [1.0, -2.0, 3.5, 0.0]}),
+        ("assign_value", {}, ["Out"],
+         {"shape": [3], "dtype": 5, "int32_values": [4, -1, 7]}),
+        ("increment", {"X": np.array([2.0], np.float32)}, ["Out"],
+         {"step": 1.5}),
+        ("is_empty", {"X": x3}, ["Out"], {}),
+        ("is_empty", {"X": np.zeros((0, 3), np.float32)}, ["Out"], {}),
+    ] + [(op, {"X": a, "Y": b}, ["Out"], {"axis": -1})
+         for op in ("less_than", "less_equal", "greater_than",
+                    "greater_equal", "equal", "not_equal")
+         for a, b in ((x3.round(), x3[0].round()),
+                      (x3, _f32(rng, 8)))] + [
+        (op, {"X": rng.standard_normal((3, 4)) > 0,
+              "Y": rng.standard_normal((3, 4)) > 0}, ["Out"], {})
+        for op in ("logical_and", "logical_or", "logical_xor")] + [
+        ("logical_not", {"X": rng.standard_normal((3, 4)) > 0}, ["Out"],
+         {})]
 
 
 _CASES = _cases()
@@ -229,8 +261,19 @@ def test_every_slice_op_type_is_covered():
            "get_tensor_from_selected_rows"}
     sequence = {c[0] for c in test_torch_sequence._CASES}
     rnn = {"lstm", "gru", "lstm_unit", "gru_unit"}
+    # held in test_torch_control_flow.py (the array ops, the rank-table
+    # ops, and the programs of StaticRNN, DynamicRNN, IfElse, While,
+    # Switch, conditional_block and Print)
+    control_flow = {
+        "print", "assert", "while", "conditional_block", "write_to_array",
+        "read_from_array", "lod_array_length", "tensor_array_to_tensor",
+        "max_sequence_len", "delete_var", "lod_rank_table",
+        "lod_tensor_to_array", "array_to_lod_tensor",
+        "reorder_lod_tensor_by_rank", "shrink_rnn_memory",
+        "expand_to_rank_table_batch", "split_lod_tensor",
+        "merge_lod_tensor", "recurrent"}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
-        lenet | resnet | ctr | sequence | rnn == forward
+        lenet | resnet | ctr | sequence | rnn | control_flow == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])

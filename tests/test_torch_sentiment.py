@@ -276,7 +276,7 @@ def test_replay_is_bit_equal_to_eager_and_makes_no_index(net):
             if cached:
                 plan = pexe._engine._plans[E.Engine._key(
                     pmain, [pcost.name, pacc.name])][0]
-                built.append(plan.lod_cache.built)
+                built.append(plan.host_tables.built)
         state[cached] = _persistables(pmain, pscope)
         if cached:
             c = pexe._engine.counters
