@@ -199,7 +199,30 @@
    loop (kept eager, its reason printed), an IfElse row-wise branch and
    a StaticRNN trained 3 Adam steps captured, each against the CPU
    (CF_ATOL); Adam timed at the seq2seq's parameter shapes.
-13. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+13. Book models phase: the book's last two models.
+   label_semantic_roles (models/label_semantic_roles.py: embedding, a
+   DynamicRNN, the emission fc, linear_chain_crf, Adam(0.01)) at the
+   CoNLL-05 widths (vocab 44068, 59 tags, embedding 32, hidden 512),
+   B=64 on synthetic CoNLL-05 batches (lengths uniform in 5-29): SRL_POOL
+   batches SRL_RUNS times each captured against eager, bit-equal, one
+   fused_adam launch a step over its 2 routed tensors, the first loss
+   against the CPU (SRL_LOSS_RTOL), one step against plain_reference(),
+   eager against captured in turns, a profiled replay, peak memory; its
+   crf_decoding program on the trained scope captured against eager and
+   through the AnalysisPredictor (the Viterbi paths and their LoD equal
+   the Executor's). machine_translation (models/machine_translation.py)
+   at chapter 08's widths (30000 / 512 / 512): 4 Adam steps at B=64
+   captured against eager, then its beam-search decoder (statically
+   unrolled: 128 sources, beam 4, 80 steps) on the trained scope,
+   captured as one CUDA graph against eager in float32 and with every
+   eligible GEMM in the int8 and bf16 kernels (2 x the longest source +
+   160 quantized_matmul launches a decode), each against the same
+   decode under plain_reference() (float32 and int8 bit-equal, bf16
+   within MT_SCORE_RTOL / MT_SCORE_ATOL up to a near-tie); sources/s,
+   generated tokens/s, ms a decode, the captures clocked, a profiled
+   replay (busy share, kernels), peak memory, and the AnalysisPredictor
+   on its two-level LoD feed (equal to the Executor).
+14. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -212,10 +235,12 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-14. Prints one JSON line of per-kernel numbers (fused_adam's launches:
-   the training phase's, the dygraph phase's and the control flow
-   phase's captured steps; the quantized and
-   tuned GEMMs': the scoring and the serving phase's), then, last, the device
+15. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+   the training phase's, the dygraph phase's, the control flow
+   phase's and the book models phase's captured steps; the quantized
+   and tuned GEMMs': the scoring and the serving phase's, and the
+   quantized ones' also the book models phase's captured decodes),
+   then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
 
@@ -4469,17 +4494,20 @@ def _seq_profile(torch, fn):
 
 
 def _seq_compare(torch, pt, kreg, label, main, fetch, init, feeds,
-                 runs=3, routed=None):
+                 runs=3, routed=None, kernels=None):
     """Each pool batch `runs` times through the plan cache (its first
     run eager, its second captures, the others replay) and the same runs
     with use_program_cache=False, from copies of the initial state, in
     deterministic mode: fetches and persistables bit-equal. With
     `routed` (a count of parameters) exactly one fused_adam launch a
-    step covers that many parameter updates; without it no kernel of
-    the port launches. Returns (exe, scope, losses, eager reasons,
-    fused_adam launches) of the cached runs."""
+    step covers that many parameter updates; `kernels` ({name: launches
+    a run}) are the other kernels each run launches; no other kernel of
+    the port launches. Returns (exe, scope, losses (the first fetch
+    where it is one number), eager reasons, the cached runs' launches by
+    kernel)."""
     steps = [f for f in feeds] * runs
-    out, state, adam = {}, {}, {}
+    out, state, adam, counted = {}, {}, {}, {}
+    want = {k: n * len(steps) for k, n in (kernels or {}).items()}
     with _deterministic(torch):
         for cached in (True, False):
             exe = pt.Executor(pt.CUDAPlace(0))
@@ -4491,19 +4519,17 @@ def _seq_compare(torch, pt, kreg, label, main, fetch, init, feeds,
                 out[cached] = [[np.asarray(v) for v in _cap_run(
                     exe, main, f, fetch, scope, cached)] for f in steps]
             launched = {k: v for k, v in kreg.launches().items() if v}
-            if routed is None:
-                _require(not launched,
-                         f"{label}: the phase launched {launched}")
-            else:
+            counted[cached] = dict(launched)
+            if routed is not None:
                 adam[cached] = (launched.pop("fused_adam", 0),
                                 kreg.dispatch_stats()["per_kernel"]
                                 .get("fused_adam", {}).get("custom", 0))
-                _require(not launched,
-                         f"{label}: the phase launched {launched}")
                 _require(adam[cached] == (len(steps), routed * len(steps)),
                          f"{label}: fused_adam {adam[cached]}, want one "
                          f"launch over {routed} parameters in each of "
                          f"{len(steps)} steps")
+            _require(launched == want,
+                     f"{label}: the phase launched {launched}, want {want}")
             state[cached] = {n: v.get_tensor().tensor.clone()
                              for n, v in scope._vars.items()}
             if cached:
@@ -4516,43 +4542,51 @@ def _seq_compare(torch, pt, kreg, label, main, fetch, init, feeds,
                       for n in state[True])
     exe, scope, clock, reasons = kept
     c = _counters(exe)
-    losses = [float(o[0]) for o in out[True]]
+    firsts = [o[0] for o in out[True]]
+    losses = [float(x) for x in firsts if x.size == 1]
+    shown = (f"losses {', '.join(f'{x:.6f}' for x in losses)}" if losses
+             else f"first fetch {firsts[0].dtype} {list(firsts[0].shape)}")
     print(f"  {label}: {len(steps)} runs over {len(feeds)} LoD batches "
           f"with the plan cache ({c['captures']} captures, {c['replays']} "
           f"replays, {c['eager_runs']} eager) and {len(steps)} eager, "
           f"deterministic mode: fetches bit-equal {equal_out}, "
           f"{len(state[True])} persistables bit-equal {equal_state}; "
-          f"losses {', '.join(f'{x:.6f}' for x in losses)}")
-    if routed is None:
-        print(f"  {label}: 0 kernel launches")
-    else:
+          f"{shown}")
+    if routed is not None:
         print(f"  {label}: fused_adam launches {adam[True][0]} captured / "
               f"{adam[False][0]} eager in {len(steps)} steps, covering "
               f"{adam[True][1]} / {adam[False][1]} parameter updates "
               f"({routed} routed parameters a step)")
+    others = [{k: v for k, v in counted[c].items() if k != "fused_adam"}
+              or 0 for c in (True, False)]
+    print(f"  {label}: other kernel launches {others[0]} captured / "
+          f"{others[1]} eager in {len(steps)} runs")
     print(f"  {label}: the captures' parts: the capture rule "
           f"{clock['rule']:.3f} s, warm-up {clock['warm_up']:.3f} s, "
           f"capture {clock['capture']:.3f} s (of it gc.collect "
           f"{clock['gc']:.3f} s); eager reasons {reasons or 'none'}")
     _require(equal_out and equal_state,
              f"{label}: captured runs differ from eager runs")
-    _require(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    _require(all(np.isfinite(x).all() for x in firsts),
+             f"{label}: first fetches not finite")
     if not reasons:
         _require((c["captures"], c["replays"], c["eager_runs"]) ==
                  (len(feeds), (runs - 1) * len(feeds), len(feeds)),
                  f"{label}: counters {c}")
-    return exe, scope, losses, reasons, adam.get(True, (0, 0))[0]
+    return exe, scope, losses, reasons, counted[True]
 
 
 def _seq_rates(torch, pt, label, exe, main, fetch, scope, feeds, tokens,
-               captured, B=SEQ_B):
+               captured, B=SEQ_B, units=("examples", "tokens")):
     """Eager (use_program_cache=False) against the plan cache's runs
     (replays where `captured`: `fetch` is the fetch list the plans were
     made for) in SEQ_TURNS turns of one pass over the pool each, the
     order alternating: examples/s and tokens/s, each turn ending at its
-    last fetched loss. First one pass of cached runs: the plans were
+    last run's first fetch on the host. First one pass of cached runs: the plans were
     captured in deterministic mode, and leaving it changes the routing a
-    capture bakes in, so each is captured again (clocked)."""
+    capture bakes in, so each is captured again (clocked). `units`
+    name the examples and the tokens. Returns the median s a pass by
+    mode."""
     with _capture_clock() as clock:
         c0 = _counters(exe)
         t0 = time.perf_counter()
@@ -4577,7 +4611,7 @@ def _seq_rates(torch, pt, label, exe, main, fetch, scope, feeds, tokens,
                 loss = _cap_run(exe, main, f, fetch, scope,
                                 cached=m == "captured", numpy=False)[0]
                 runs[m].append(time.perf_counter() - t1)
-            float(loss)
+            loss.reshape(-1)[0].item()      # waits for the fetch
             secs[m].append(time.perf_counter() - t0)
     after = _counters(exe)
     for m in modes:
@@ -4587,11 +4621,12 @@ def _seq_rates(torch, pt, label, exe, main, fetch, scope, feeds, tokens,
               f"{', '.join(f'{x:.3f}' for x in secs[m])} (median "
               f"{med:.3f}; host s a run before its fetch "
               f"{', '.join(f'{x:.3f}' for x in runs[m])}): "
-              f"{B * len(feeds) / med:.1f} examples/s, "
-              f"{tokens / med:.1f} tokens/s")
+              f"{B * len(feeds) / med:.1f} {units[0]}/s, "
+              f"{tokens / med:.1f} {units[1]}/s")
     delta = {k: after[k] - before[k] for k in after}
     print(f"  {label}: counters over the turns {delta}")
     _require(delta["captures"] == 0, f"{label}: the turns captured again")
+    return {m: float(np.median(secs[m])) for m in modes}
 
 
 def _seq_stream(torch, pt, label, main, cost, init, feeds, tokens, B,
@@ -4640,9 +4675,10 @@ def _seq_serve(torch, pt, label, exe, main, pred, scope, names, host,
     def run(f):
         for n, it in ins.items():
             it.copy_from_cpu(np.asarray(f[n]))
-            it.set_lod(f[n].lod())
+            if hasattr(f[n], "lod"):
+                it.set_lod(f[n].lod())
         predictor.zero_copy_run()
-        return ot.copy_to_cpu()
+        return ot.copy_to_cpu(), ot.lod()
 
     t0 = time.perf_counter()
     for f in host:
@@ -4655,11 +4691,15 @@ def _seq_serve(torch, pt, label, exe, main, pred, scope, names, host,
     outs = [[run(f) for f in host] for _ in range(SEQ_SERVE_RUNS)]
     secs = time.perf_counter() - t0
     c1 = predictor._engine.counters
+    lods_equal = True
     for i, f in enumerate(feeds):
-        ref = np.asarray(exe.run(test, feed=f, fetch_list=[pred],
-                                 scope=scope, use_program_cache=False)[0])
+        ref = exe.run(test, feed=f, fetch_list=[pred], scope=scope,
+                      use_program_cache=False)[0]
         for o in outs:
-            worst = max(worst, float(np.abs(o[i] - ref).max()))
+            worst = max(worst, float(np.abs(o[i][0] - np.asarray(ref))
+                                     .max()))
+            lods_equal &= o[i][1] == (ref.lod() if hasattr(ref, "lod")
+                                      else [])
     n = SEQ_SERVE_RUNS * len(host)
     new = {k: c1[k] - c0[k] for k in ("captures", "eager_runs", "traces")}
     print(f"  {label} serving: AnalysisPredictor on {len(host)} LoD "
@@ -4668,11 +4708,11 @@ def _seq_serve(torch, pt, label, exe, main, pred, scope, names, host,
           f"examples/s, the outputs' host copies included) with "
           f"{new['captures']} captures, {new['eager_runs']} eager runs; "
           f"max |predictor - Executor| {worst:.3e} (bound "
-          f"{SEQ_INFER_ATOL:g})")
+          f"{SEQ_INFER_ATOL:g}); output LoDs equal {lods_equal}")
     _require(c0["captures"] == len(host) and not any(new.values()),
              f"{label} serving: counters {c0} -> {dict(c1)}")
-    _require(worst <= SEQ_INFER_ATOL, f"{label} serving: the predictor "
-             "disagrees with the Executor")
+    _require(worst <= SEQ_INFER_ATOL and lods_equal,
+             f"{label} serving: the predictor disagrees with the Executor")
 
 
 def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
@@ -4798,7 +4838,34 @@ def _cf_lens(feed, name):
     return np.diff(feed[name].lod()[0])
 
 
-def _cf_against_plain(torch, pt, kreg, main, loss, init, feed):
+def _routed_params(kreg, main):
+    params = main.all_parameters()
+    routed = [p for p in params
+              if int(np.prod(p.shape)) >= kreg.min_numel()]
+    return params, routed
+
+
+def _profiled_replay(torch, label, exe, main, feed, fetch, scope):
+    """Peak memory, the graph pools, and one profiled replay of `feed`:
+    busy share, kernels, the top kernels by device time."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pool = _graph_pool_gb(torch)
+    c0 = _counters(exe)
+    wall, busy, n_kernels, top = _seq_profile(torch, lambda: _cap_run(
+        exe, main, feed, fetch, scope, numpy=False))
+    c1 = _counters(exe)
+    _require(c1["replays"] == c0["replays"] + 1,
+             f"{label}: the profiled run was no replay: {c0} -> {c1}")
+    print(f"  {label}: peak memory allocated {peak:.3f} GB; graph pools "
+          f"{pool[0]:.3f} GB allocated, {pool[1]:.3f} GB reserved")
+    print(f"  {label}: profiled replay: wall {wall:.4f} s, device busy "
+          f"{100 * busy:.1f} %, {n_kernels} kernels")
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+
+
+def _against_plain(torch, pt, kreg, label, main, loss, init, feed):
     """One eager step from the initial state with the Adam kernel and
     the same step under plain_reference(), in deterministic mode: every
     persistable bit-equal."""
@@ -4817,11 +4884,11 @@ def _cf_against_plain(torch, pt, kreg, main, loss, init, feed):
             exe.close()
     (sk, nk), (sp, n_plain) = state["kernel"], state["plain"]
     differ = sum(not torch.equal(sk[n], sp[n]) for n in sk)
-    print(f"  seq2seq: one step with the Adam kernel ({nk} launch) against "
+    print(f"  {label}: one step with the Adam kernel ({nk} launch) against "
           f"plain_reference() ({n_plain} launches): {differ} of {len(sk)} "
           f"persistables differ (bound 0)")
     _require(nk == 1 and n_plain == 0 and differ == 0,
-             "seq2seq: the Adam kernel's step is not plain_reference()'s")
+             f"{label}: the Adam kernel's step is not plain_reference()'s")
 
 
 def _cf_small_programs(pt):
@@ -4940,9 +5007,7 @@ def control_flow_phase(torch, dev, card):
     pt.framework.unique_name.reset()
     main, startup, loss, logits = seq2seq.seq2seq_train(lr=CF_LR, **CF)
     main.random_seed = startup.random_seed = SEED
-    params = main.all_parameters()
-    routed = [p for p in params
-              if int(np.prod(p.shape)) >= kreg.min_numel()]
+    params, routed = _routed_params(kreg, main)
     types = [op.type for op in main.global_block().ops]
     print(f"  seq2seq: {len(main.blocks)} blocks, {len(types)} ops in "
           f"block 0 ({types.count('recurrent')} recurrent, "
@@ -4984,24 +5049,10 @@ def control_flow_phase(torch, dev, card):
           f"on the CPU ({time.perf_counter() - t1:.1f} s): rel err "
           f"{err:.3e} (bound {CF_LOSS_RTOL:g})")
     _require(err <= CF_LOSS_RTOL, "seq2seq: card and CPU disagree")
-    _cf_against_plain(torch, pt, kreg, main, loss, init, feeds[0])
+    _against_plain(torch, pt, kreg, "seq2seq", main, loss, init, feeds[0])
     _seq_rates(torch, pt, "seq2seq", exe, main, [loss], scope, feeds,
                tokens, True, B=CF_B)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    pool = _graph_pool_gb(torch)
-    c0 = _counters(exe)
-    wall, busy, n_kernels, top = _seq_profile(torch, lambda: _cap_run(
-        exe, main, feeds[0], [loss], scope, numpy=False))
-    c1 = _counters(exe)
-    _require(c1["replays"] == c0["replays"] + 1,
-             f"seq2seq: the profiled run was no replay: {c0} -> {c1}")
-    print(f"  seq2seq: peak memory allocated {peak:.3f} GB; graph pools "
-          f"{pool[0]:.3f} GB allocated, {pool[1]:.3f} GB reserved")
-    print(f"  seq2seq: profiled replay of batch 0: wall {wall:.4f} s, "
-          f"device busy {100 * busy:.1f} %, {n_kernels} kernels")
-    for e in top:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<6d} {e.key[:90]}")
+    _profiled_replay(torch, "seq2seq", exe, main, feeds[0], [loss], scope)
     stream = [_cf_feed(pt, 100 + i, pt.CUDAPlace(0))
               for i in range(CF_STREAM)]
     _seq_stream(torch, pt, "seq2seq", main, loss, init, stream,
@@ -5021,7 +5072,365 @@ def control_flow_phase(torch, dev, card):
         {k: at[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "bound_by", "elements", "routed")}))
     print(f"  control flow phase: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches.get("fused_adam", 0)
+
+
+# [book models phase]: the book's last two models, label_semantic_roles
+# at the CoNLL-05 widths and machine_translation's beam-search decoder at
+# chapter 08's
+SRL = {"vocab": 44068, "n_tag": 59, "emb_dim": 32, "hidden_dim": 512}
+SRL_B = 64
+SRL_POOL = 2        # LoD batches cycled (each its own plan and graph)
+SRL_RUNS = 4        # runs of each pool batch: 8 steps captured vs eager
+# the first loss on the card against the port on the CPU from the same
+# parameters and feed (float32 on both, TF32 off; sums in another order)
+SRL_LOSS_RTOL = 1e-6
+MT = {"vocab": 30000, "word_dim": 512, "hidden_dim": 512}
+MT_POOL = 2         # training batches (B=CF_B, CF_LEN's lengths)
+MT_RUNS = 2         # training runs of each: 4 Adam steps
+MT_SOURCES = 128    # sources a decode
+MT_BEAM = 4
+MT_LEN = 80         # decode steps: the wmt14 reader's length bound
+MT_RUNS_DECODE = 3  # decode runs a mode: eager, the capture, a replay
+MT_TIMED = 5        # replays timed a mode
+# the bf16 GEMM kernel against its plain version sums float32 in another
+# order (GEMM_RTOL), and each step's GEMM inputs are rounded to bf16
+# anew: a float32 difference that moves one across a bf16 rounding
+# boundary moves it by a bf16 ulp, and the encoder's 80-step recurrence
+# and the decoder's carry such moves on. The two decodes then hold the
+# same hypotheses, or part at a near-tie (a near-random model's top
+# candidates lie close). A source's hypotheses are held equal until the
+# first step its selections (ids, parents) differ; there its sorted
+# selected scores, and before it all of its scores, agree within
+# MT_SCORE_ATOL + MT_SCORE_RTOL * |score|, the relative term bf16's unit
+# roundoff 2^-9: the two decodes agree to one bf16 rounding. (Measured
+# on the H100: 6.1e-4 relative at worst.)
+MT_SCORE_RTOL, MT_SCORE_ATOL = 2.0 ** -9, 1e-4
+
+
+def _srl_feed(pt, seed, place, words_only=False):
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    f = srl.conll05_batch(np.random.default_rng(seed), SRL_B,
+                          SRL["vocab"], SRL["n_tag"], place)
+    return {"word": f["word"]} if words_only else f
+
+
+def srl_phase(torch, dev, card, pt, kreg):
+    """The book's CRF tagger (models/label_semantic_roles.py) at the
+    CoNLL-05 widths, B=64: trained captured against eager, its first
+    loss against the CPU, one step against plain_reference(); then its
+    decode program on the trained scope, captured against eager, and
+    through AnalysisPredictor. Returns the fused_adam launches of the
+    captured steps."""
+    import warnings
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss, _ = srl.srl_train(lr=CF_LR, **SRL)
+    main.random_seed = startup.random_seed = SEED
+    with warnings.catch_warnings():
+        # crfw is declared there: its value is the trained scope's
+        warnings.simplefilter("ignore", UserWarning)
+        decode, path = srl.srl_decode(**SRL)
+    params, routed = _routed_params(kreg, main)
+    types = [op.type for op in main.global_block().ops]
+    print(f"  srl: {len(types)} ops in block 0 ({types.count('recurrent')} "
+          f"recurrent, {types.count('linear_chain_crf')} linear_chain_crf, "
+          f"{types.count('linear_chain_crf_grad')} linear_chain_crf_grad, "
+          f"{types.count('adam')} adam); {len(params)} parameters, "
+          f"{sum(int(np.prod(p.shape)) for p in params)} elements, "
+          f"{len(routed)} routed to fused_adam "
+          f"({sum(int(np.prod(p.shape)) for p in routed)} elements: "
+          f"{', '.join(f'{p.name} {list(p.shape)}' for p in routed)})")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    seeds = list(range(SRL_POOL))
+    feeds = [_srl_feed(pt, s, pt.CUDAPlace(0)) for s in seeds]
+    lens = [np.diff(f["word"].lod()[0]) for f in feeds]
+    tokens = int(sum(x.sum() for x in lens))
+    for s, x in zip(seeds, lens):
+        print(f"  batch {s}: {SRL_B} sentences, {x.sum()} tokens (lengths "
+              f"{x.min()}-{x.max()}); padded share N*maxT/sum(T) "
+              f"{SRL_B * x.max() / x.sum():.3f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, launched = _seq_compare(
+        torch, pt, kreg, "srl", main, [loss], init, feeds, SRL_RUNS,
+        len(routed))
+    _require(not reasons, f"srl: a block was kept eager: {reasons}")
+    t1 = time.perf_counter()
+    cpu = _seq_first_loss_cpu(pt, main, loss, cpu_state,
+                              _srl_feed(pt, seeds[0], pt.CPUPlace()))
+    err = abs(losses[0] - cpu) / abs(cpu)
+    print(f"  srl: first loss {losses[0]:.7f} on the card, {cpu:.7f} on "
+          f"the CPU ({time.perf_counter() - t1:.1f} s): rel err "
+          f"{err:.3e} (bound {SRL_LOSS_RTOL:g})")
+    _require(err <= SRL_LOSS_RTOL, "srl: card and CPU disagree")
+    _against_plain(torch, pt, kreg, "srl", main, loss, init, feeds[0])
+    _seq_rates(torch, pt, "srl", exe, main, [loss], scope, feeds, tokens,
+               True, B=SRL_B)
+    _profiled_replay(torch, "srl", exe, main, feeds[0], [loss], scope)
+
+    # the decode program on the trained scope
+    words = [_srl_feed(pt, s, pt.CUDAPlace(0), True) for s in seeds]
+    dexe, _, _, dreasons, _ = _seq_compare(
+        torch, pt, kreg, "srl decode", decode, [path], scope, words)
+    _require(not dreasons, f"srl decode: kept eager: {dreasons}")
+    got = dexe.run(decode, feed=words[0], fetch_list=[path], scope=scope,
+                   use_program_cache=False)[0]
+    tags = np.asarray(got)
+    print(f"  srl decode: ViterbiPath {tags.dtype} {list(tags.shape)}, LoD "
+          f"the feed's {got.lod() == words[0]['word'].lod()}, tags in "
+          f"[{tags.min()}, {tags.max()}]")
+    _require(tags.dtype == np.int32 and got.lod() == words[0]["word"].lod()
+             and 0 <= tags.min() and tags.max() < SRL["n_tag"],
+             "srl decode: the paths")
+    _seq_serve(torch, pt, "srl decode", dexe, decode, path, scope, ["word"],
+               [_srl_feed(pt, s, pt.CPUPlace(), True) for s in seeds],
+               words, SRL_B)
+    for e in (exe, dexe):
+        e.close()
+    del exe, dexe, scope, init
+    gc_cuda(torch)
+    print("  fused_adam at the srl's parameter shapes:")
+    at = time_adam(torch, dev, card, [p.shape for p in params])
+    print("  fused_adam srl row: " + json.dumps(
+        {k: at[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "elements", "routed")}))
+    print(f"  srl: {time.perf_counter() - t0:.1f} s")
+    return launched.get("fused_adam", 0)
+
+
+def _mt_decode_feed(pt, place):
+    from paddle_tpu_torch.models import machine_translation as mt
+    return mt.decode_feed(np.random.default_rng(500), MT_SOURCES,
+                          MT["vocab"], place, **CF_LEN)
+
+
+def _mt_generated(ids):
+    """Positions each hypothesis generates: up to its first end id,
+    that included, else all MT_LEN."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    ended = ids == mt.EOS
+    return int(np.where(ended.any(1), ended.argmax(1) + 1, MT_LEN).sum())
+
+
+def _mt_beam_agree(ref, got):
+    """Two decodes of one feed, each (sentence ids, sentence scores,
+    stacked step ids, step scores, step parents): (the sources that
+    part, their first parting steps, the worst excess over the score
+    bound, the worst relative score difference). A source is held to the reference's hypotheses until the
+    first step its selections (ids, parents) differ; its scores before
+    that step, and its sorted selected scores at it (a near-tie swaps
+    candidates, not their scores), within MT_SCORE_ATOL +
+    MT_SCORE_RTOL * |score|."""
+    K = MT_BEAM
+    r_ids, r_sc, r_si, r_ss, r_sp = ref
+    g_ids, g_sc, g_si, g_ss, g_sp = got
+    T = r_si.shape[0]
+    B = r_si.shape[1] // K
+
+    def by_source(a):
+        return a.reshape(T, B, K)
+
+    ri, gi, rs, gs, rp, gp = (by_source(a) for a in
+                              (r_si, g_si, r_ss, g_ss, r_sp, g_sp))
+    parted, steps, excess, rel = [], [], 0.0, [0.0]
+
+    def over(a, b):
+        d = np.abs(a - b)
+        rel[0] = max(rel[0], float((d / np.maximum(np.abs(a), 1e-30))
+                                   .max()))
+        return float((d - MT_SCORE_ATOL - MT_SCORE_RTOL * np.abs(a)).max())
+
+    for b in range(B):
+        differ = np.flatnonzero(((ri[:, b] != gi[:, b]) |
+                                 (rp[:, b] != gp[:, b])).any(1))
+        t = int(differ[0]) if differ.size else T
+        if t:
+            excess = max(excess, over(rs[:t, b], gs[:t, b]))
+        if t < T:
+            excess = max(excess, over(np.sort(rs[t, b]),
+                                      np.sort(gs[t, b])))
+            parted.append(b)
+            steps.append(t)
+        else:
+            rows = slice(b * K, (b + 1) * K)
+            _require(np.array_equal(r_ids[rows], g_ids[rows]),
+                     f"source {b}: equal selections, other sentences")
+            excess = max(excess, over(r_sc[rows], g_sc[rows]))
+    return parted, steps, excess, rel[0]
+
+
+def _mt_mode(torch, pt, kreg, mode, decode, fetch, steps, scope, feed,
+             t_src):
+    """The decode in one GEMM mode ("" = float32): captured against
+    eager (_seq_compare, with the quantized_matmul launches a run that
+    the shapes give), then one eager decode against the same decode
+    under plain_reference(). Returns the kernel's launches in the
+    captured runs."""
+    label = f"mt decode {mode or 'float32'}"
+    name = f"quantized_matmul_{mode}" if mode else None
+    # the encoder's two step GEMMs at M = MT_SOURCES a source step, the
+    # decoder's two at M = MT_SOURCES (step 0) then MT_SOURCES * MT_BEAM
+    # a step; K = N = 512 (multiples of 128); the softmax fc's N = 30000
+    # is no multiple of 128: cuBLAS
+    per_run = 2 * t_src + 2 * MT_LEN
+    old = os.environ.get("PT_KERNEL_QUANT_MATMUL")
+    os.environ["PT_KERNEL_QUANT_MATMUL"] = mode
+    try:
+        exe, dscope, _, reasons, launched = _seq_compare(
+            torch, pt, kreg, label, decode, fetch[:2], scope, [feed],
+            MT_RUNS_DECODE, kernels={name: per_run} if mode else None)
+        _require(not reasons, f"{label}: kept eager: {reasons}")
+        # out of deterministic mode: one run captures again, then
+        # MT_TIMED replays, each to its end on the card
+        _cap_run(exe, decode, feed, fetch[:2], dscope, numpy=False)
+        secs = []
+        for _ in range(MT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _cap_run(exe, decode, feed, fetch[:2], dscope, numpy=False)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        print(f"  {label}: ms a decode (replays) "
+              f"{', '.join(f'{1e3 * x:.2f}' for x in secs)} (median "
+              f"{1e3 * float(np.median(secs)):.2f})")
+        if mode:
+            print(f"  {label}: {per_run} {name} launches a decode = 2 x "
+                  f"{t_src} encoder steps (M = {MT_SOURCES}, K = N = "
+                  f"{MT['hidden_dim']}) + 2 x {MT_LEN} decoder steps (M = "
+                  f"{MT_SOURCES} at step 0, {MT_SOURCES * MT_BEAM} after); "
+                  f"the softmax fc's N = {MT['vocab']} (% 128 = "
+                  f"{MT['vocab'] % 128}) stays on cuBLAS")
+        res = {}
+        with _deterministic(torch):
+            for ref in (False, True):
+                kreg.reset_counts()
+                with (kreg.plain_reference() if ref
+                      else contextlib.nullcontext()):
+                    res[ref] = [np.asarray(v) for v in _cap_run(
+                        exe, decode, feed, fetch + steps, scope, False)]
+                n = kreg.launches().get(name, 0) if name else 0
+                _require(n == (0 if ref or not mode else per_run),
+                         f"{label}: {n} launches (plain_reference {ref})")
+        exe.close()
+    finally:
+        if old is None:
+            os.environ.pop("PT_KERNEL_QUANT_MATMUL")
+        else:
+            os.environ["PT_KERNEL_QUANT_MATMUL"] = old
+    same = all(np.array_equal(a, b) for a, b in zip(res[False], res[True]))
+    parted, at, excess, rel = _mt_beam_agree(res[True], res[False])
+    print(f"  {label}: against plain_reference(): bit-equal {same}; "
+          f"{len(parted)} of {MT_SOURCES} sources part at a near-tie "
+          f"(first parting steps {sorted(at) or '-'}); worst relative "
+          f"score difference {rel:.3e}, worst excess over the bound "
+          f"{excess:.3e} (<= 0)")
+    # float32 launches nothing, int8 is bit-equal to its plain version
+    _require(same if mode != "bf16" else excess <= 0,
+             f"{label}: the decode disagrees with plain_reference()")
+    return launched.get(name, 0) if name else 0
+
+
+def mt_phase(torch, pt, kreg):
+    """The book's machine translation model
+    (models/machine_translation.py) at chapter 08's widths: 4 Adam steps
+    at B=64 captured against eager, then its beam-search decoder on the
+    trained scope: 128 sources, beam 4, 80 steps, captured as one CUDA
+    graph a source LoD against eager in float32 and with its step GEMMs
+    in the int8 and bf16 kernels (each against plain_reference()), the
+    decode's rates, a profiled replay and peak memory, and the
+    AnalysisPredictor on its two-level LoD feed. Returns (fused_adam
+    launches of the captured steps, quantized_matmul launches of the
+    captured decodes by mode)."""
+    from paddle_tpu_torch.models import machine_translation as mt, seq2seq
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss = mt.mt_train(lr=CF_LR, **MT)
+    main.random_seed = startup.random_seed = SEED
+    decode, ids, scores = mt.mt_decode(beam=MT_BEAM, max_len=MT_LEN, **MT)
+    stacks = [op.output("Y")[0] for op in decode.global_block().ops
+              if op.type == "stack"]           # step ids, scores, parents
+    params, routed = _routed_params(kreg, main)
+    dtypes = [op.type for op in decode.global_block().ops]
+    print(f"  mt: training {len(main.global_block().ops)} ops in block 0, "
+          f"{len(params)} parameters, {len(routed)} routed to fused_adam; "
+          f"decode {len(dtypes)} ops ({dtypes.count('beam_search')} "
+          f"beam_search, {dtypes.count('mul')} mul, "
+          f"{dtypes.count('top_k')} top_k, {dtypes.count('gather')} "
+          f"gather)")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    feeds = [seq2seq.wmt14_batch(np.random.default_rng(200 + s), CF_B,
+                                 MT["vocab"], MT["vocab"],
+                                 place=pt.CUDAPlace(0), **CF_LEN)
+             for s in range(MT_POOL)]
+    texe, trained, _, reasons, launched = _seq_compare(
+        torch, pt, kreg, "mt", main, [loss], init, feeds, MT_RUNS,
+        len(routed))
+    _require(not reasons, f"mt: a block was kept eager: {reasons}")
+    texe.close()
+    del init, texe
+    gc_cuda(torch)
+
+    feed = _mt_decode_feed(pt, pt.CUDAPlace(0))
+    src = np.diff(feed["src"].lod()[0])
+    t_src = int(src.max())
+    print(f"  mt decode: {MT_SOURCES} sources, {src.sum()} tokens "
+          f"(lengths {src.min()}-{t_src}), beam {MT_BEAM}, {MT_LEN} steps; "
+          f"init_ids LoD {len(feed['init_ids'].lod())} levels")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fetch = [ids, scores]
+    qmm = {}
+    for mode in ("", "int8", "bf16"):
+        n = _mt_mode(torch, pt, kreg, mode, decode, fetch, stacks, trained,
+                     feed, t_src)
+        if mode:
+            qmm[mode] = n
+    # rates, a profiled replay and peak memory, in float32
+    exe = pt.Executor(pt.CUDAPlace(0))
+    out = _cap_run(exe, decode, feed, fetch, trained)
+    sent, sent_sc = (np.asarray(v) for v in out)
+    _require(sent.shape == (MT_SOURCES * MT_BEAM, MT_LEN) and
+             sent.dtype == np.int32 and np.isfinite(sent_sc).all() and
+             ((sent >= 0) & (sent < MT["vocab"])).all(),
+             f"mt decode: sentences {sent.dtype} {sent.shape}")
+    tokens = _mt_generated(sent)
+    print(f"  mt decode: SentenceIds {sent.dtype} {list(sent.shape)}, "
+          f"scores in [{sent_sc.min():.3f}, {sent_sc.max():.3f}]; "
+          f"{tokens} generated tokens a decode (each hypothesis up to its "
+          f"end id)")
+    med = _seq_rates(torch, pt, "mt decode", exe, decode, fetch, trained,
+                     [feed], tokens, True, B=MT_SOURCES,
+                     units=("sources", "generated tokens"))
+    print(f"  mt decode: {1e3 * med['captured']:.2f} ms a decode captured "
+          f"(one replay), {1e3 * med['eager']:.2f} ms eager")
+    _profiled_replay(torch, "mt decode", exe, decode, feed, fetch, trained)
+    _seq_serve(torch, pt, "mt decode", exe, decode, ids, trained,
+               ["src", "init_ids", "init_scores"],
+               [_mt_decode_feed(pt, pt.CPUPlace())], [feed], MT_SOURCES)
+    exe.close()
+    del exe, trained
+    gc_cuda(torch)
+    print(f"  mt: {time.perf_counter() - t0:.1f} s")
+    return launched.get("fused_adam", 0), qmm
+
+
+def book_models_phase(torch, dev, card):
+    """label_semantic_roles, then machine_translation (srl_phase,
+    mt_phase). Returns (fused_adam launches, quantized_matmul launches
+    by mode)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    adam = srl_phase(torch, dev, card, pt, kreg)
+    mt_adam, qmm = mt_phase(torch, pt, kreg)
+    print(f"  book models phase: {time.perf_counter() - t0:.1f} s")
+    return adam + mt_adam, qmm
 
 
 def main(argv=None):
@@ -5164,6 +5573,11 @@ def main(argv=None):
     print("[control flow phase]")
     cf_adam = control_flow_phase(torch, dev, card)
 
+    print("[book models phase]")
+    book_adam, book_qmm = book_models_phase(torch, dev, card)
+    for mode, n in book_qmm.items():
+        serve_launches[mode] += n
+
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
     print("[mnist phase]")
@@ -5223,7 +5637,8 @@ def main(argv=None):
              tcounts["flash_attention_bwd_dkv_sm90"]),
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
-             adam_err, tcounts["fused_adam"] + dy_adam + cf_adam),
+             adam_err,
+             tcounts["fused_adam"] + dy_adam + cf_adam + book_adam),
             ("fused_sgd", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
              sgd_err, sgd_launches)):

@@ -12,6 +12,7 @@ from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
 from . import backward, contrib, dygraph, inference, optimizer  # noqa: F401
 from . import unique_name  # noqa: F401
+from .backward import gradients  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .core.scope import (LoDTensor, Scope, create_lod_tensor,  # noqa: F401
                          global_scope, scope_guard)

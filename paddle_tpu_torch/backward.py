@@ -18,7 +18,7 @@ from .core.registry import GRAD_SUFFIX, OP_UID_ATTR, OPS, RENAME_SEP
 from .core.types import DT_BFLOAT16, DT_FLOAT16, DT_FLOAT32, DT_FLOAT64, \
     convert_dtype
 
-__all__ = ["append_backward", "OP_ROLE_ATTR"]
+__all__ = ["append_backward", "gradients", "OP_ROLE_ATTR"]
 
 OP_ROLE_ATTR = "op_role"
 
@@ -176,3 +176,16 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         params_and_grads.append((block._find_var_recursive(pname),
                                  block._find_var_recursive(g)))
     return params_and_grads
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """The gradient vars of one target with respect to `inputs` (fluid's
+    gradients): append_backward of the target, then each input's
+    `@GRAD` var (None where no gradient reaches it)."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if len(targets) != 1:
+        raise NotImplementedError("gradients of several targets")
+    append_backward(targets[0], no_grad_set=no_grad_set)
+    block = targets[0].block
+    return [block._find_var_recursive(_grad_name(v.name)) for v in inputs]

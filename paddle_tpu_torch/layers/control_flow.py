@@ -5,7 +5,7 @@ completes into one `while` op, which the engine runs eagerly: its
 condition is read on the host before every trip (ops/control_flow.py).
 `Switch` is the JAX package's: its cases are context managers around
 ops that run unconditionally, a schedule's arithmetic selecting the
-result. py_func is not ported.
+result. `py_func` runs a Python callable as an op, eagerly.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from .. import framework
 from ..layer_helper import LayerHelper
 from ..proto import framework_desc as fpb
 
-__all__ = ["While", "Switch", "Print", "is_empty",
+__all__ = ["While", "Switch", "py_func", "Print", "is_empty",
            "tensor_array_to_tensor", "array_write", "array_read",
            "array_length", "create_array"]
 
@@ -134,6 +134,34 @@ def array_length(array):
     out = helper.create_variable_for_type_inference("int64", True)
     helper.append_op("lod_array_length", inputs={"X": array},
                      outputs={"Out": out})
+    return out
+
+
+# py_func: the callables by id (the ops read them, ops/misc.py)
+py_func_registry = []
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """Call a Python function as an op, eagerly (ops/misc.py: the block
+    holding it is never captured). `backward_func(*inputs, *outputs,
+    *out_grads)` gives the gradient (the py_func_grad op); without it
+    each input's gradient is zeros."""
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    py_func_registry.append(func)
+    attrs = {"forward_callable_id": len(py_func_registry) - 1}
+    if backward_func is not None:
+        py_func_registry.append(backward_func)
+        attrs["backward_callable_id"] = len(py_func_registry) - 1
+    if skip_vars_in_backward_input:
+        sk = skip_vars_in_backward_input
+        sk = sk if isinstance(sk, (list, tuple)) else [sk]
+        attrs["skip_vars_in_backward_input"] = [
+            v.name if hasattr(v, "name") else str(v) for v in sk]
+    helper.append_op("py_func", inputs={"X": list(xs)},
+                     outputs={"Out": list(outs)}, attrs=attrs)
     return out
 
 

@@ -5,8 +5,9 @@ add_position_encoding, elementwise_*; matmul; those of LeNet:
 conv2d, pool2d, softmax, mean, top_k/topk; those of ResNet:
 batch_norm, relu; those of the CTR models: flatten, concat,
 sigmoid, elementwise_sub; the recurrent layers of the sequence
-models: dynamic_lstm, dynamic_gru; and the activations tanh and
-square."""
+models: dynamic_lstm, dynamic_gru; the activations tanh, square and
+log; and those of the beam-search decoder: stack, gather, beam_search
+and beam_search_decode."""
 from __future__ import annotations
 
 import copy
@@ -23,7 +24,8 @@ __all__ = [
     "squeeze", "unsqueeze", "reduce_sum", "add_position_encoding",
     "elementwise_add", "elementwise_mul", "elementwise_div", "batch_norm",
     "relu", "flatten", "concat", "sigmoid", "elementwise_sub",
-    "dynamic_lstm", "dynamic_gru", "tanh", "square",
+    "dynamic_lstm", "dynamic_gru", "tanh", "square", "log", "stack",
+    "gather", "beam_search", "beam_search_decode",
 ]
 
 
@@ -229,6 +231,7 @@ relu = _make_act("relu")
 sigmoid = _make_act("sigmoid")
 tanh = _make_act("tanh")
 square = _make_act("square")
+log = _make_act("log")
 
 
 def flatten(x, axis=1, name=None):
@@ -238,6 +241,23 @@ def flatten(x, axis=1, name=None):
     helper.append_op("flatten2", inputs={"X": x},
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", inputs={"X": x}, outputs={"Y": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
     return out
 
 
@@ -440,3 +460,45 @@ def dynamic_gru(input, size, param_attr=None, bias_attr=None,
                "gate_activation": gate_activation,
                "activation": candidate_activation}, infer_shape=False)
     return h
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    """The top `beam_size` of each source's beam x candidate scores
+    (ops/beam_search.py: finished beams are frozen, not pruned)."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_variable_for_type_inference(pre_ids.dtype)
+    sel_scores = helper.create_variable_for_type_inference(
+        pre_scores.dtype)
+    parent_idx = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "beam_search",
+        inputs={"pre_ids": pre_ids, "pre_scores": pre_scores,
+                "ids": ids, "scores": scores},
+        outputs={"selected_ids": sel_ids,
+                 "selected_scores": sel_scores,
+                 "parent_idx": parent_idx},
+        attrs={"beam_size": beam_size, "end_id": end_id,
+               "level": level, "is_accumulated": is_accumulated},
+        infer_shape=False)
+    if return_parent_idx:
+        return sel_ids, sel_scores, parent_idx
+    return sel_ids, sel_scores
+
+
+def beam_search_decode(ids, scores, parent_idx, beam_size, end_id,
+                       name=None):
+    """Backtrack stacked beam selections ([T, B*K] tensors) into padded
+    hypotheses [B*K, T], padded with end_id, and their scores."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_variable_for_type_inference(ids.dtype)
+    sent_scores = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "beam_search_decode",
+        inputs={"Ids": ids, "Scores": scores, "ParentIdx": parent_idx},
+        outputs={"SentenceIds": sent_ids,
+                 "SentenceScores": sent_scores},
+        attrs={"beam_size": beam_size, "end_id": end_id},
+        infer_shape=False)
+    return sent_ids, sent_scores

@@ -1,5 +1,6 @@
 """Model builders."""
-from . import (lenet, resnet, sentiment, seq2seq,  # noqa: F401
+from . import (label_semantic_roles, lenet,  # noqa: F401
+               machine_translation, resnet, sentiment, seq2seq,
                transformer, wide_deep)
 from .lenet import lenet_train  # noqa: F401
 from .resnet import resnet_train  # noqa: F401

@@ -1,4 +1,5 @@
 """Op lowerings. Importing this package registers every op."""
-from . import (activations, basic, control_flow, conv,  # noqa: F401
-               elementwise, fused, matmul, metrics, nn, optimizer_ops,
-               random_ops, reduce, rnn, sequence)
+from . import (activations, basic, beam_search,  # noqa: F401
+               control_flow, conv, elementwise, fused, matmul, metrics,
+               misc, nlp, nn, optimizer_ops, random_ops, reduce, rnn,
+               sequence)

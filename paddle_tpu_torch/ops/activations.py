@@ -1,5 +1,5 @@
 """Activation ops (counterpart of paddle_tpu/ops/activations.py: relu,
-sigmoid, tanh and square)."""
+sigmoid, tanh, square and log)."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +26,8 @@ def tanh(ctx):
 def square(ctx):
     x = ctx.input("X")
     ctx.set_output("Out", x * x)
+
+
+@register_op("log")
+def log(ctx):
+    ctx.set_output("Out", torch.log(ctx.input("X")))

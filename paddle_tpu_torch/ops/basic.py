@@ -1,9 +1,9 @@
 """Tensor ops: fill_constant, fill_constant_batch_size_like,
 fill_zeros_like, assign, assign_value, increment, is_empty, sum, cast,
 scale, reshape2, squeeze2, unsqueeze, unsqueeze2, flatten, flatten2,
-concat, top_k, lookup_table with its dense and SelectedRows grads,
-merge_selected_rows and get_tensor_from_selected_rows (counterpart of
-paddle_tpu/ops/basic.py).
+concat, stack, gather, top_k, lookup_table with its dense and
+SelectedRows grads, merge_selected_rows and
+get_tensor_from_selected_rows (counterpart of paddle_tpu/ops/basic.py).
 The "2"-suffixed ops carry an XShape output, here a zero-size marker
 holding the input's shape. sum and scale take SelectedRows too
 (core/selected_rows.py)."""
@@ -206,6 +206,21 @@ def flatten2(ctx):
 def concat(ctx):
     ctx.set_output("Out", torch.cat(ctx.inputs("X"),
                                     dim=ctx.attr("axis", 0)))
+
+
+@register_op("stack")
+def stack(ctx):
+    ctx.set_output("Y", torch.stack(ctx.inputs("X"),
+                                    dim=ctx.attr("axis", 0)))
+
+
+@register_op("gather", no_grad_slots=("Index",))
+def gather(ctx):
+    """Rows of X by Index along axis 0: Index's shape then X's trailing
+    dims (jnp.take's), the index read as int32 as the JAX op casts it."""
+    x, idx = ctx.input("X"), ctx.input("Index").to(torch.int32)
+    out = x.index_select(0, idx.reshape(-1).long())
+    ctx.set_output("Out", out.reshape(tuple(idx.shape) + tuple(x.shape[1:])))
 
 
 @register_no_grad_op("top_k")

@@ -18,6 +18,13 @@ types are read as int64 first, _widen_int32).
 The encoder-decoder is also served: AnalysisPredictor on LoD feeds
 (src, tgt_in) equals the port's Executor, and a second run of the same
 LoD replays its capture.
+
+label_semantic_roles and machine_translation (models/
+label_semantic_roles.py, models/machine_translation.py) are held the
+same way at their book tests' widths, then decoded through both trained
+scopes: the Viterbi paths equal; the beam decoder's ids equal but for
+near-ties (counted and printed), its scores within DEC_RTOL / DEC_ATOL,
+and the AnalysisPredictor serves it on a two-level LoD feed.
 """
 import os
 import struct
@@ -33,6 +40,8 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.types import DT_INT32, DT_INT64
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.io import load_params_from_numpy
+from paddle_tpu_torch.models import label_semantic_roles as srl
+from paddle_tpu_torch.models import machine_translation as mt
 from paddle_tpu_torch.models import seq2seq
 from paddle_tpu_torch.proto import framework_desc as fd
 
@@ -250,7 +259,7 @@ def _train_both(jmain, jstart, jloss, pmain, pstart, ploss, draw,
 
 
 def _round_trip(tmp_path, pscope, pexe, pmain, feed_names, pred, feed,
-                jscope, jmain, jpred):
+                jscope, jmain, jpred, int_vars=("accuracy",)):
     """book_util.save_load_infer_roundtrip in the port, and the
     __model__ against the JAX package's."""
     d = str(tmp_path / "pt")
@@ -275,24 +284,31 @@ def _round_trip(tmp_path, pscope, pexe, pmain, feed_names, pred, feed,
     with open(os.path.join(d, "__model__"), "rb") as a, \
             open(os.path.join(jd, "__model__"), "rb") as b:
         mine, theirs = a.read(), b.read()
-    assert mine == _widen_int32(theirs, mine)
+    assert mine == _widen_int32(theirs, mine, int_vars)
     return d, got
 
 
-def _widen_int32(theirs, mine):
+def _widen_int32(theirs, mine, int_vars=("accuracy",)):
     """The JAX package's __model__ with the int32 var types that its
-    32-bit mode infers for accuracy's int64 outputs written as the
-    port's int64 (no other var may differ in type)."""
+    32-bit mode infers for int64 outputs (accuracy's; `int_vars` names
+    the prefixes allowed) written as the port's int64 (no other var may
+    differ in type)."""
     head = 8 + struct.unpack("<I", theirs[4:8])[0]
-    j = fd.ProgramDesc.FromString(theirs[head:])
-    p = fd.ProgramDesc.FromString(mine[head:])
+    return theirs[:head] + _widen_desc(theirs[head:], mine[head:],
+                                       int_vars)
+
+
+def _widen_desc(theirs, mine, int_vars):
+    """_widen_int32 on ProgramDesc bytes."""
+    j = fd.ProgramDesc.FromString(theirs)
+    p = fd.ProgramDesc.FromString(mine)
     for jb, pb in zip(j.blocks, p.blocks):
         for jv, pv in zip(jb.vars, pb.vars):
             if (jv.tensor.data_type, pv.tensor.data_type) == \
                     (DT_INT32, DT_INT64):
-                assert jv.name.startswith("accuracy"), jv.name
+                assert jv.name.startswith(int_vars), jv.name
                 jv.tensor.data_type = DT_INT64
-    return theirs[:head] + j.SerializeToString()
+    return j.SerializeToString()
 
 
 def _same_ops(pmain, jmain):
@@ -414,5 +430,267 @@ def test_seq2seq_matches_jax_and_serves(tmp_path):
         out = predictor.get_output_tensor(predictor.get_output_names()[0])
         np.testing.assert_array_equal(out.copy_to_cpu(),
                                       np.asarray(got[0]))
+    c = predictor._engine.counters
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 1), c
+
+
+# ---------------------------------------------------------------------------
+# label_semantic_roles: the CRF tagger, trained, then Viterbi-decoded
+# ---------------------------------------------------------------------------
+
+SRL = {"vocab": 16, "n_tag": 4, "emb_dim": 16, "hidden_dim": 32}
+SRL_B = 8
+
+
+def _jax_emission(word):
+    """tests/book/test_label_semantic_roles.py's _emission_net."""
+    L = fluid.layers
+    emb = L.embedding(word, [SRL["vocab"], SRL["emb_dim"]],
+                      param_attr=fluid.ParamAttr(name="w_emb"))
+    drnn = L.DynamicRNN()
+    with drnn.block():
+        w = drnn.step_input(emb)
+        prev = drnn.memory(shape=[SRL["hidden_dim"]], value=0.0)
+        h = L.fc([w, prev], SRL["hidden_dim"], act="tanh",
+                 param_attr=[fluid.ParamAttr(name="r_wx"),
+                             fluid.ParamAttr(name="r_wh")],
+                 bias_attr=fluid.ParamAttr(name="r_b"))
+        drnn.update_memory(prev, h)
+        drnn.output(h)
+    return L.fc(drnn(), SRL["n_tag"], param_attr=fluid.ParamAttr(name="em_w"),
+                bias_attr=fluid.ParamAttr(name="em_b"))
+
+
+def _jax_srl():
+    """(main, startup, loss, decode program, path) as the JAX book test
+    builds them."""
+    L = fluid.layers
+    fluid.framework.unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        word = L.data("word", [1], dtype="int64", lod_level=1)
+        tag = L.data("tag", [1], dtype="int64", lod_level=1)
+        cost = L.linear_chain_crf(_jax_emission(word), tag,
+                                  param_attr=fluid.ParamAttr(name="crfw"))
+        loss = L.mean(cost)
+        fluid.optimizer.AdamOptimizer(0.01).minimize(loss)
+    decode = fluid.Program()
+    with fluid.program_guard(decode, fluid.Program()):
+        word = L.data("word", [1], dtype="int64", lod_level=1)
+        with pytest.warns(UserWarning, match="crfw"):
+            path = L.crf_decoding(_jax_emission(word),
+                                  fluid.ParamAttr(name="crfw"))
+    return main, startup, loss, decode, path
+
+
+def _lod_pairs(feeds):
+    return [({k: JaxLoD(np.asarray(v), v.lod()) for k, v in f.items()}, f)
+            for f in feeds]
+
+
+def test_label_semantic_roles_matches_jax(tmp_path):
+    """The same programs (training, its startup and the decode program:
+    ProgramDesc bytes), 3 Adam steps from the JAX package's parameters on
+    synthetic CoNLL-05 batches, then the Viterbi paths of a new batch
+    through both trained scopes equal, with the feed's LoD; the decode
+    program round-trips as an inference model (__model__ bytes)."""
+    jmain, jstart, jloss, jdecode, jpath = _jax_srl()
+    pt.framework.unique_name.reset()
+    pmain, pstart, ploss, _ = srl.srl_train(**SRL)
+    with pytest.warns(UserWarning, match="crfw"):
+        pdecode, ppath = srl.srl_decode(**SRL)
+    assert pmain.serialize_to_string() == jmain.serialize_to_string()
+    assert pstart.serialize_to_string() == jstart.serialize_to_string()
+    assert pdecode.serialize_to_string() == jdecode.serialize_to_string()
+    rng = np.random.default_rng(7)
+    pairs = _lod_pairs([srl.conll05_batch(rng, SRL_B, SRL["vocab"],
+                                          SRL["n_tag"], pt.CPUPlace())
+                        for _ in range(STEPS + 1)])
+    jscope, pscope, pexe = _train_both(jmain, jstart, jloss, pmain, pstart,
+                                       ploss, iter(pairs[:STEPS]).__next__)
+    jf, pf = pairs[STEPS]
+    jf, pf = {"word": jf["word"]}, {"word": pf["word"]}
+    want, = fluid.Executor(fluid.CPUPlace()).run(
+        jdecode, feed=jf, fetch_list=[jpath], scope=jscope)
+    got, = pexe.run(pdecode, feed=pf, fetch_list=[ppath], scope=pscope)
+    assert np.asarray(got).dtype == np.int32
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert got.lod() == pf["word"].lod()
+    _round_trip(tmp_path, pscope, pexe, pdecode, ["word"], ppath, pf,
+                jscope, jdecode, jpath)
+
+
+# ---------------------------------------------------------------------------
+# machine_translation: the seq2seq, trained, then beam-search decoded
+# ---------------------------------------------------------------------------
+
+MT = {"vocab": 10, "word_dim": 16, "hidden_dim": 48}
+MT_BEAM, MT_LEN, MT_SOURCES = 3, 4, 5
+# the beam decode's scores (sums of MT_LEN log-probabilities) after 3
+# Adam steps in each package: within DEC_RTOL / DEC_ATOL (measured worst
+# 1.4e-6 absolute, no near-tie); two hypotheses whose JAX scores lie
+# within DEC_ATOL of each other may swap (a near-tie)
+DEC_RTOL, DEC_ATOL = 1e-4, 1e-5
+# the decode program's vars that the JAX package infers int32: top_k's
+# indices, the stacked ids and the decoded sentences
+_MT_INT_VARS = ("top_k", "stack", "beam_search_decode")
+
+
+def _jax_mt_encoder(src):
+    L = fluid.layers
+    src_emb = L.embedding(src, [MT["vocab"], MT["word_dim"]],
+                          param_attr=fluid.ParamAttr(name="src_e"))
+    enc = L.DynamicRNN()
+    with enc.block():
+        w = enc.step_input(src_emb)
+        prev = enc.memory(shape=[MT["hidden_dim"]], value=0.0)
+        h = L.fc([w, prev], MT["hidden_dim"], act="tanh",
+                 param_attr=[fluid.ParamAttr(name="enc_wx"),
+                             fluid.ParamAttr(name="enc_wh")],
+                 bias_attr=fluid.ParamAttr(name="enc_b"))
+        enc.update_memory(prev, h)
+        enc.output(h)
+    return L.sequence_last_step(enc())
+
+
+def _jax_mt_step(L, w, prev):
+    return L.fc([w, prev], MT["hidden_dim"], act="tanh",
+                param_attr=[fluid.ParamAttr(name="dec_wx"),
+                            fluid.ParamAttr(name="dec_wh")],
+                bias_attr=fluid.ParamAttr(name="dec_b"))
+
+
+def _jax_mt_probs(L, h):
+    return L.fc(h, MT["vocab"], act="softmax",
+                param_attr=fluid.ParamAttr(name="out_w"),
+                bias_attr=fluid.ParamAttr(name="out_b"))
+
+
+def _jax_mt():
+    """tests/book/test_machine_translation.py's _train_net (with Adam)
+    and _decode_net: (main, startup, loss, decode, ids, scores)."""
+    L = fluid.layers
+    fluid.framework.unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = L.data("src", [1], dtype="int64", lod_level=1)
+        tgt_in = L.data("tgt_in", [1], dtype="int64", lod_level=1)
+        tgt_lab = L.data("tgt_lab", [1], dtype="int64", lod_level=1)
+        enc_last = _jax_mt_encoder(src)
+        tgt_emb = L.embedding(tgt_in, [MT["vocab"], MT["word_dim"]],
+                              param_attr=fluid.ParamAttr(name="tgt_e"))
+        dec = L.DynamicRNN()
+        with dec.block():
+            w = dec.step_input(tgt_emb)
+            prev = dec.memory(init=enc_last, need_reorder=True)
+            h = _jax_mt_step(L, w, prev)
+            dec.update_memory(prev, h)
+            dec.output(h)
+        loss = L.mean(L.cross_entropy(_jax_mt_probs(L, dec()), tgt_lab))
+        fluid.optimizer.AdamOptimizer(0.01).minimize(loss)
+    decode = fluid.Program()
+    with fluid.program_guard(decode, fluid.Program()):
+        src = L.data("src", [1], dtype="int64", lod_level=1)
+        pre_ids = L.data("init_ids", [1], dtype="int64", lod_level=2)
+        pre_scores = L.data("init_scores", [1], dtype="float32")
+        state = _jax_mt_encoder(src)
+        hist = ([], [], [])
+        for _ in range(MT_LEN):
+            emb = L.embedding(pre_ids, [MT["vocab"], MT["word_dim"]],
+                              param_attr=fluid.ParamAttr(name="tgt_e"))
+            h = _jax_mt_step(L, emb, state)
+            top_sc, top_idx = L.top_k(_jax_mt_probs(L, h), k=MT_BEAM)
+            acc = L.elementwise_add(L.log(top_sc), pre_scores)
+            pre_ids, pre_scores, parent = L.beam_search(
+                pre_ids, pre_scores, top_idx, acc, beam_size=MT_BEAM,
+                end_id=mt.EOS, return_parent_idx=True)
+            state = L.gather(h, parent)
+            for lst, v in zip(hist, (pre_ids, pre_scores, parent)):
+                lst.append(v)
+        ids, scores = L.beam_search_decode(
+            *[L.stack(lst, axis=0) for lst in hist], beam_size=MT_BEAM,
+            end_id=mt.EOS)
+    return main, startup, loss, decode, ids, scores
+
+
+def _near_ties(want_ids, want_sc, got_ids, got_sc):
+    """The hypotheses (rows) whose ids differ between the packages. Each
+    must be a near-tie: the port's row is another of the source's JAX
+    rows whose JAX score lies within DEC_ATOL of this row's, or (a tie at
+    the beam's cut) a hypothesis the JAX decode left out whose port score
+    lies within DEC_ATOL of this row's JAX score. Returns the rows."""
+    rows = []
+    for r in np.flatnonzero((want_ids != got_ids).any(1)):
+        group = range(r - r % MT_BEAM, r - r % MT_BEAM + MT_BEAM)
+        same = [q for q in group if (want_ids[q] == got_ids[r]).all()]
+        other = want_sc[same[0]] if same else got_sc[r]
+        assert abs(float(other) - float(want_sc[r])) <= DEC_ATOL, (
+            f"hypothesis {r}: {got_ids[r]} (port) against {want_ids[r]} "
+            f"(JAX) is no near-tie: scores {float(other)} and "
+            f"{float(want_sc[r])}")
+        rows.append(int(r))
+    return rows
+
+
+def test_machine_translation_matches_jax_and_serves(tmp_path):
+    """The same training and decode programs (ProgramDesc bytes; the JAX
+    package infers int32 where the port keeps int64 ids, _widen_int32),
+    3 Adam steps from the JAX package's parameters on WMT14-shaped
+    batches, then a beam decode of MT_SOURCES new sources through both
+    trained scopes: SentenceIds equal but for near-ties (counted and
+    printed), SentenceScores within DEC_RTOL / DEC_ATOL. The decode
+    program round-trips as an inference model, and AnalysisPredictor
+    serves it on the two-level LoD feed: its ids and scores equal the
+    Executor's, a second run replays its capture."""
+    jmain, jstart, jloss, jdecode, jids, jsc = _jax_mt()
+    pt.framework.unique_name.reset()
+    pmain, pstart, ploss = mt.mt_train(**MT)
+    pdecode, pids, psc = mt.mt_decode(beam=MT_BEAM, max_len=MT_LEN, **MT)
+    assert pmain.serialize_to_string() == jmain.serialize_to_string()
+    assert pstart.serialize_to_string() == jstart.serialize_to_string()
+    mine = pdecode.serialize_to_string()
+    assert mine == _widen_desc(jdecode.serialize_to_string(), mine,
+                               _MT_INT_VARS)
+    rng = np.random.default_rng(5)
+    pairs = _lod_pairs([seq2seq.wmt14_batch(
+        rng, 6, MT["vocab"], MT["vocab"], place=pt.CPUPlace(), median=4.0,
+        lo=1, hi=9) for _ in range(STEPS)])
+    jscope, pscope, pexe = _train_both(jmain, jstart, jloss, pmain, pstart,
+                                       ploss, iter(pairs).__next__)
+    pf = mt.decode_feed(np.random.default_rng(9), MT_SOURCES, MT["vocab"],
+                        pt.CPUPlace(), median=3.0, lo=2, hi=6)
+    jf = {"src": JaxLoD(np.asarray(pf["src"]), pf["src"].lod()),
+          "init_ids": JaxLoD(np.asarray(pf["init_ids"]),
+                             pf["init_ids"].lod()),
+          "init_scores": pf["init_scores"]}
+    want = [np.asarray(v) for v in fluid.Executor(fluid.CPUPlace()).run(
+        jdecode, feed=jf, fetch_list=[jids, jsc], scope=jscope)]
+    got = [np.asarray(v) for v in pexe.run(
+        pdecode, feed=pf, fetch_list=[pids, psc], scope=pscope)]
+    assert got[0].dtype == np.int32
+    assert got[0].shape == (MT_SOURCES * MT_BEAM, MT_LEN)
+    ties = _near_ties(want[0], want[1], got[0], got[1])
+    print(f"machine_translation: {len(ties)} near-ties of "
+          f"{len(got[0])} hypotheses {ties}; max |score diff| "
+          f"{float(np.abs(got[1] - want[1]).max()):.3e}")
+    keep = [r for r in range(len(got[0])) if r not in ties]
+    np.testing.assert_allclose(got[1][keep], want[1][keep], rtol=DEC_RTOL,
+                               atol=DEC_ATOL)
+    d, served = _round_trip(tmp_path, pscope, pexe, pdecode,
+                            ["src", "init_ids", "init_scores"], pids, pf,
+                            jscope, jdecode, jids, _MT_INT_VARS)
+    np.testing.assert_array_equal(np.asarray(served[0]), got[0])
+    config = AnalysisConfig(d)
+    config.disable_gpu()
+    predictor = create_paddle_predictor(config)
+    for name in ("src", "init_ids", "init_scores"):
+        it = predictor.get_input_tensor(name)
+        it.copy_from_cpu(np.asarray(pf[name]))
+        if name != "init_scores":
+            it.set_lod(pf[name].lod())
+    for _ in range(3):
+        predictor.zero_copy_run()
+        out = predictor.get_output_tensor(predictor.get_output_names()[0])
+        np.testing.assert_array_equal(out.copy_to_cpu(), got[0])
     c = predictor._engine.counters
     assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 1), c

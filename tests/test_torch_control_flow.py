@@ -512,3 +512,78 @@ def test_delete_var_and_assert():
     assert list(env) == ["y"]
     PT_OPS.get("assert").lowering(PtContext(_op("assert", ["Cond"], []),
                                             {}, CPU))
+
+
+# ---------------------------------------------------------------------------
+# py_func (tests/test_misc_ops.py's three cases, through both packages)
+# ---------------------------------------------------------------------------
+
+def _py_func_program(fl, case):
+    """(main, startup, feed, fetch names) of one py_func case."""
+    L = fl.layers
+    fl.framework.unique_name.reset()
+    main, startup = fl.Program(), fl.Program()
+    with fl.program_guard(main, startup):
+        if case == "forward":
+            x = L.data("x", [3], dtype="float32")
+            out = main.global_block().create_var(
+                name="pyout", shape=[-1, 3], dtype="float32")
+            L.py_func(lambda a: a * 2, x, out)
+            feed, fetch = {"x": np.arange(6, dtype=np.float32)
+                           .reshape(2, 3)}, ["pyout"]
+        elif case == "backward":
+            x = L.data("x", [3], dtype="float32")
+            x.stop_gradient = False
+            out = main.global_block().create_var(
+                name="pf_out", shape=[-1, 3], dtype="float32")
+            L.py_func(lambda a: a * 3, x, out,
+                      backward_func=lambda a, o, d: d * 3)
+            g, = fl.gradients(L.reduce_sum(out), x)
+            feed, fetch = {"x": np.ones((2, 3), np.float32)}, \
+                ["pf_out", g.name]
+        else:
+            a = L.data("a", [3], dtype="float32")
+            b = L.data("b", [5], dtype="float32")
+            a.stop_gradient = b.stop_gradient = False
+            h = L.fc(b, 5)   # downstream of b, so b's gradient is asked
+            out = main.global_block().create_var(
+                name="pf2_out", shape=[-1, 3], dtype="float32")
+            L.py_func(lambda p, q: p, [a, h], out)
+            loss = L.elementwise_add(L.reduce_sum(out), L.reduce_sum(h))
+            ga, gb = fl.gradients(loss, [a, b])
+            feed = {"a": np.ones((2, 3), np.float32),
+                    "b": np.ones((2, 5), np.float32)}
+            fetch = [ga.name, gb.name]
+    return main, startup, feed, fetch
+
+
+@pytest.mark.parametrize("case", ["forward", "backward", "zero_grads"])
+def test_py_func_matches_jax(case):
+    """py_func's forward, its backward_func through py_func_grad, and,
+    with no backward_func, zero gradients of each input's own shape: the
+    same ProgramDesc bytes and results as the JAX package; the block
+    stays eager (reason py_func) over 3 runs."""
+    jmain, jstart, feed, fetch = _py_func_program(fluid, case)
+    pmain, pstart, _, _ = _py_func_program(pt, case)
+    assert pmain.serialize_to_string() == jmain.serialize_to_string()
+    jscope, jexe = JaxScope(), fluid.Executor(fluid.CPUPlace())
+    jexe.run(jstart, scope=jscope)
+    want = jexe.run(jmain, feed=feed, fetch_list=fetch, scope=jscope)
+    pscope, pexe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    pexe.run(pstart, scope=pscope)
+    load_params_from_numpy(pscope, {
+        p.name: np.asarray(jscope.find_var(p.name).get_tensor())
+        for p in jmain.all_parameters()}, pt.CPUPlace())
+    runs = pexe._engine.counters["eager_runs"]
+    for _ in range(3):
+        got = pexe.run(pmain, feed=feed, fetch_list=fetch, scope=pscope)
+        for w, g in zip(want, got):
+            assert np.asarray(g).shape == np.asarray(w).shape
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       rtol=FWD_RTOL, atol=FWD_ATOL)
+    if case == "zero_grads":
+        np.testing.assert_array_equal(np.asarray(got[0]),
+                                      np.zeros((2, 3), np.float32))
+    assert list(pexe._engine.eager_reasons.values()) == ["py_func"]
+    c = pexe._engine.counters
+    assert c["captures"] == 0 and c["eager_runs"] == runs + 3, c

@@ -27,8 +27,10 @@ capture after every graph of an engine was released), and the serving
 engine (the book LM's signatures captured by warmup(), a burst of
 replays only with each request's tokens equal to its solo run, 37
 GEMM-kernel launches a dispatch in bf16 and int8 mode, ServeServer's
-threads against the in-process engine). They skip where torch sees no
-CUDA device.
+threads against the in-process engine), and the book's CRF tagger and
+beam-search decoder captured against eager bit for bit (the decoder in
+float32 and with its step GEMMs in the int8 and bf16 kernels, their
+launches counted). They skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -2299,3 +2301,131 @@ def test_sequence_pool_max_over_empty_sequences_on_card(cuda, lod):
         res[dev.type] = env["out"].cpu()
     assert torch.equal(res["cuda"], res["cpu"])
     assert torch.equal(res["cpu"][0], torch.full((3,), 2.0))
+
+
+# ---------------------------------------------------------------------------
+# the book's last two models: the CRF tagger and the beam-search decoder
+# ---------------------------------------------------------------------------
+
+def _cached_against_eager(main, startup, feeds, fetch, monkeypatch,
+                          init=None):
+    """`feeds` run in turn through the plan cache and with
+    use_program_cache=False, each from one startup state (or the scope
+    `init` copies), in deterministic mode: (fetches, persistables,
+    counters, eager reasons) of each way, keyed by cached."""
+    old = _deterministic(monkeypatch)
+    runs = {}
+    try:
+        for cached in (True, False):
+            exe, scope = pt.Executor(), pt.Scope()
+            if init is None:
+                exe.run(startup, scope=scope)
+            else:
+                for n, v in init._vars.items():
+                    scope.var(n).get_tensor().set_tensor(
+                        v.get_tensor().tensor.clone())
+            out = [[np.asarray(v) for v in exe.run(
+                main, feed=f, fetch_list=fetch, scope=scope,
+                use_program_cache=cached)] for f in feeds]
+            state = {n: v.get_tensor().tensor.clone()
+                     for n, v in scope._vars.items()}
+            runs[cached] = (out, state, dict(exe._engine.counters),
+                            dict(exe._engine.eager_reasons))
+            exe.close()
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+    return runs
+
+
+def _assert_bit_equal(runs):
+    (oa, sa, _, _), (ob, sb, _, _) = runs[True], runs[False]
+    for x, y in zip(oa, ob):
+        for a, b in zip(x, y):
+            np.testing.assert_array_equal(a, b)
+    for n in sa:
+        assert torch.equal(sa[n], sb[n]), n
+
+
+def test_srl_steps_and_decode_captured_bit_equal_eager_on_card(
+        cuda, monkeypatch):
+    """The tiny CRF tagger (models/label_semantic_roles.py: a DynamicRNN
+    block, linear_chain_crf and its generic gradient, Adam): two LoD
+    batches, three runs each with the plan cache (eager, the capture, a
+    replay) and the same runs with use_program_cache=False, fetches and
+    persistables bit-equal, no block kept eager; then its decode program
+    (crf_decoding) on the trained scope, captured against eager: the
+    same Viterbi paths with the feed's LoD."""
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    widths = {"vocab": 50, "n_tag": 5, "emb_dim": 16, "hidden_dim": 32}
+    pt.framework.unique_name.reset()
+    main, startup, loss, _ = srl.srl_train(**widths)
+    with pytest.warns(UserWarning, match="crfw"):
+        decode, path = srl.srl_decode(**widths)
+    feeds = [srl.conll05_batch(np.random.default_rng(s), 6, 50, 5,
+                               pt.CUDAPlace(0)) for s in (0, 1)]
+    runs = _cached_against_eager(main, startup, feeds * 3, [loss],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (2, 4, 3)
+    trained = pt.Scope()
+    for n, t in runs[True][1].items():
+        trained.var(n).get_tensor().set_tensor(t)
+    words = [{"word": f["word"]} for f in feeds]
+    dec = _cached_against_eager(decode, None, words * 3, [path],
+                                monkeypatch, init=trained)
+    _assert_bit_equal(dec)
+    assert dec[True][0][0][0].dtype == np.int32
+    assert dec[True][2]["captures"] == 2 and not dec[True][3]
+
+
+def _mt_tiny(width=128, vocab=50, beam=4, max_len=6):
+    from paddle_tpu_torch.models import machine_translation as mt
+    pt.framework.unique_name.reset()
+    main, startup, loss = mt.mt_train(vocab=vocab, word_dim=width,
+                                      hidden_dim=width)
+    decode, ids, scores = mt.mt_decode(vocab=vocab, word_dim=width,
+                                       hidden_dim=width, beam=beam,
+                                       max_len=max_len)
+    return main, startup, loss, decode, ids, scores
+
+
+@pytest.mark.parametrize("mode", ["", "int8", "bf16"])
+def test_beam_decode_captured_bit_equal_eager_on_card(cuda, monkeypatch,
+                                                      mode):
+    """The tiny beam-search decoder (models/machine_translation.py,
+    width 128, beam 4, 6 steps) on 128 sources: the decode program's
+    runs through the plan cache (eager, the capture, replays) bit-equal
+    to eager runs, in float32 and with every eligible GEMM in the
+    int8 / bf16 kernel. Each eligible `mul` launches its kernel: the
+    encoder's two step GEMMs at M = 128 a source step and the
+    decoder's two at M = 128 (step 0) then 512 a decode step; the
+    softmax fc (N = 50) stays on cuBLAS."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    if mode:
+        monkeypatch.setenv("PT_KERNEL_QUANT_MATMUL", mode)
+    main, startup, _, decode, ids, scores = _mt_tiny()
+    init = pt.Scope()
+    pt.Executor().run(startup, scope=init)
+    feed = mt.decode_feed(np.random.default_rng(3), 128, 50,
+                          pt.CUDAPlace(0), median=5.0, lo=2, hi=9)
+    runs = _cached_against_eager(decode, None, [feed] * 3, [ids, scores],
+                                 monkeypatch, init=init)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 1)
+    kreg.reset_counts()
+    exe = pt.Executor()
+    exe.run(decode, feed=feed, fetch_list=[ids], scope=init,
+            use_program_cache=False)
+    n = {k: v for k, v in kreg.launches().items() if v}
+    if mode:
+        t_src = int(np.diff(feed["src"].lod()[0]).max())
+        assert n == {f"quantized_matmul_{mode}": 2 * t_src + 2 * 6}, n
+    else:
+        assert not n, n
+    got = runs[True][0][0]
+    assert got[0].shape == (128 * 4, 6) and got[0].dtype == np.int32
+    assert np.isfinite(got[1]).all()

@@ -247,8 +247,10 @@ def test_every_slice_op_type_is_covered():
     the ones held elsewhere (see the module docstring; the ops of LeNet
     and SGD are held in test_torch_lenet.py, those of ResNet and Momentum
     in test_torch_resnet.py, those of the CTR models and Adagrad in
-    test_torch_ctr.py, the sequence ops in test_torch_sequence.py and the
-    recurrent ones in test_torch_rnn.py)."""
+    test_torch_ctr.py, the sequence ops in test_torch_sequence.py, the
+    recurrent ones in test_torch_rnn.py, the CRF ops in test_torch_crf.py
+    and the beam-search decoder's in test_torch_beam_search.py)."""
+    import test_torch_beam_search
     import test_torch_sequence
     forward = {t for t in PT_OPS.types() if not PT_OPS.get(t).is_grad_op}
     lenet = {"conv2d", "depthwise_conv2d", "pool2d", "softmax",
@@ -271,9 +273,13 @@ def test_every_slice_op_type_is_covered():
         "lod_tensor_to_array", "array_to_lod_tensor",
         "reorder_lod_tensor_by_rank", "shrink_rnn_memory",
         "expand_to_rank_table_batch", "split_lod_tensor",
-        "merge_lod_tensor", "recurrent"}
+        "merge_lod_tensor", "recurrent", "py_func", "py_func_grad"}
+    crf = {"linear_chain_crf", "crf_decoding"}
+    beam = {c[0] for c in test_torch_beam_search._UNARY} | \
+        {"beam_search", "beam_search_decode"}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
-        lenet | resnet | ctr | sequence | rnn | control_flow == forward
+        lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
+        beam == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
