@@ -222,7 +222,42 @@
    generated tokens/s, ms a decode, the captures clocked, a profiled
    replay (busy share, kernels), peak memory, and the AnalysisPredictor
    on its two-level LoD feed (equal to the Executor).
-14. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+14. The bucket sweep, schedule, contrib decoder, value-dependent
+   sequence and op sweep phases. Flash lse phase: flash_attention_lse at the
+   training shape (B=96, S=128, H=8, D=64, [B, H, S, D]) in bf16
+   (tensor-core kernels) and float32 (CUDA-core backward): g_lse = 0
+   gives fused_attention_backward's gradients bit for bit, a random
+   g_lse float64 exact gradients of the composed (out, lse) within
+   BWD_F32_TOL (float32) and bf16_backward_bound (bf16). Bucket sweep
+   phase: Transformer-base's training program planned into gradient
+   buckets (parallel/comm_scheduler.py), one step's parameters,
+   gradients and Adam moments flattened a bucket, and
+   kernels.fused_optimizer.bucket_sweep's Adam and SGD kernels over
+   every bucket: bit-equal to the plain version and to the
+   per-parameter fused_*_multi, 4 ZeRO-1 windows (each writing only its
+   own rows) together equal to the unsharded sweep, the guard's
+   nonfinite (inputs back) and spike (damp 0.5) gates, a captured sweep
+   replayed with a new hyper table; timed against the plain version,
+   torch.optim.Adam(fused=True) / torch._foreach_add_ and the byte
+   bound. LR schedule phase: Transformer-base (the training phase's
+   program) under AdamOptimizer(noam_decay(512, 4000)), 5 captured runs
+   against 5 eager ones bit for bit with 18/18/18/1 launches a run and
+   each run's rate against the schedule (LR_RTOL); ResNet-50 under
+   piecewise_decay, one eager and one captured run against two eager.
+   Contrib decoder phase: the book's machine translation model through
+   the contrib API (models/machine_translation.py contrib_train,
+   contrib_decode) at 30000 / 512 / 512: 4 Adam steps of the
+   TrainingDecoder against mt_train's (targets of 26 words), losses
+   bit-equal; the BeamSearchDecoder (128 sources, beam 4, 80 steps)
+   captured as one CUDA graph against eager and against mt_decode in
+   float32, int8 (bit-equal) and bf16 (ids equal, scores within
+   MT_BF16_RTOL). Value-dependent sequence phase: sequence_erase,
+   sequence_slice and edit_distance on 128 IMDB-shaped sequences, the
+   card against the CPU (values, LoDs), each block eager with the op
+   named in Engine.eager_reasons. Op sweep: every case of
+   ops/family_cases.py (the basic, reduce, elementwise and activation
+   families and the three sequence ops) on the card against the CPU.
+15. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -235,11 +270,14 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-15. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+16. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's, the dygraph phase's, the control flow
-   phase's and the book models phase's captured steps; the quantized
-   and tuned GEMMs': the scoring and the serving phase's, and the
-   quantized ones' also the book models phase's captured decodes),
+   phase's, the book models phase's, the lr schedule phase's and the
+   contrib decoder phase's captured steps; the quantized and tuned
+   GEMMs': the scoring and the serving phase's, and the quantized ones'
+   also the book models and contrib decoder phases' captured decodes;
+   the bucket sweep rows: the bucket sweep phase's main sweep; the
+   attention backward rows' g_lse_launches: the flash lse phase's),
    then, last, the device
    line {"ok": true, "device": {...}}. Any failed check raises: the
    script exits non-zero and prints no result.
@@ -3626,13 +3664,14 @@ def _cap_turns(torch, label, units, per_step, modes):
 
 
 def _cap_compare(torch, pt, kreg, label, main, startup, feed, fetch, steps,
-                 want_launches=None, env=None):
+                 want_launches=None, env=None, fetched=None):
     """steps + 1 runs with the plan cache (the first eager, the second
     captures, the rest replay) and steps + 1 with use_program_cache=False
     from copies of one startup scope, with the same run indices, in
     deterministic mode: the fetches of every run and every persistable
     at the end must be equal bit for bit; with want_launches, the launch
-    counts of every run too. Returns the captured engine's counters."""
+    counts of every run too. Returns the captured engine's counters; the
+    cached runs' fetches are appended to `fetched` where it is a list."""
     old = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
     try:
@@ -3663,6 +3702,8 @@ def _cap_compare(torch, pt, kreg, label, main, startup, feed, fetch, steps,
             os.environ.pop(k, None)
             if v is not None:
                 os.environ[k] = v
+    if fetched is not None:
+        fetched.extend(outs[True])
     equal_out = all(np.array_equal(a, b) for x, y in
                     zip(outs[True], outs[False]) for a, b in zip(x, y))
     equal_state = all(torch.equal(state[True][n], state[False][n])
@@ -5433,6 +5474,647 @@ def book_models_phase(torch, dev, card):
     return adam + mt_adam, qmm
 
 
+# ---------------------------------------------------------------------------
+# the bucket sweep, flash_attention_lse
+# ---------------------------------------------------------------------------
+
+SWEEP_SHARDS = 4   # ZeRO-1 windows checked a bucket
+SWEEP_LR = 1e-3    # the sweep's rate (Adam: with step 3's beta powers)
+
+
+def _sweep_state(torch, pt, built):
+    """Transformer-base's training program (`built`) planned into buckets
+    (parallel/comm_scheduler.py, FLAGS_allreduce_bucket_mb), one step run
+    from a fresh scope fetching every planned gradient, and each bucket's
+    parameters, gradients and Adam moments flattened in plan order:
+    [(bucket, p, g, m, v, [(name, numel)])]."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import comm_scheduler as cs
+    cfg, main, startup, cost = built
+    plan = cs.plan_program_buckets(main)
+    stats = cs.plan_stats(plan, len(main.global_block().ops))
+    block = main.global_block()
+    moments = {op.input("Param")[0]: (op.input("Moment1")[0],
+                                      op.input("Moment2")[0])
+               for op in block.ops if op.type == "adam"}
+    names = [n for b in plan for n in b.names]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    grads = exe.run(main, feed=_training_feed(T, cfg), fetch_list=names,
+                    scope=scope, return_numpy=False)
+    grads = dict(zip(names, grads))
+
+    def tensor(n):
+        return scope.find_var(n).get_tensor().tensor
+
+    out = []
+    for b in plan:
+        params = [n[:-len("@GRAD")] for n in b.names]
+        parts = ([tensor(n) for n in params],
+                 [grads[n].float() for n in b.names],
+                 [tensor(moments[n][0]) for n in params],
+                 [tensor(moments[n][1]) for n in params])
+        flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in parts]
+        out.append((b, *flat, [(n, t.numel())
+                               for n, t in zip(params, parts[0])]))
+    print(f"  plan: {stats['buckets']} buckets of Transformer-base's "
+          f"{len(names)} gradients at FLAGS_allreduce_bucket_mb="
+          f"{cs.bucket_bytes_from_flags() / 2 ** 20:g}, {stats['bytes']} "
+          f"bytes; bucket sizes {[b.size for b in plan]}")
+    _require(len(names) == len(main.all_parameters()) == 255 and
+             len(plan) > 1, "the plan does not hold Transformer-base's "
+                            "255 gradients in several buckets")
+    del scope, exe
+    return out
+
+
+def _sweep_pows(torch, dev):
+    return (torch.tensor([0.9 ** 3], device=dev),
+            torch.tensor([0.999 ** 3], device=dev))
+
+
+def _sweep(fo, kind, st, lr, b1p, b2p, **kw):
+    _, p, g, m, v, _ = st
+    if kind == "adam":
+        return fo.bucket_sweep("adam", p, g, m, v, lr=lr, beta1_pow=b1p,
+                               beta2_pow=b2p, **kw)
+    return (fo.bucket_sweep("sgd", p, g, lr=lr, **kw),)
+
+
+def _bit_equal(torch, a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _sweep_checks(torch, fo, kreg, kind, state, dev):
+    """Every check of one kind's sweep over every bucket; returns the
+    launches of the main sweep and the worst difference from the plain
+    version (0 when bit-equal)."""
+    lr = torch.tensor([SWEEP_LR], device=dev)
+    b1p, b2p = _sweep_pows(torch, dev)
+    kreg.reset_counts()
+    outs = [_sweep(fo, kind, st, lr, b1p, b2p) for st in state]
+    torch.cuda.synchronize()
+    launches = kreg.launches()["bucket_sweep_" + kind]
+    _require(launches == len(state), f"{kind} sweep: {launches} launches "
+                                     f"for {len(state)} buckets")
+    with kreg.plain_reference():
+        plain = [_sweep(fo, kind, st, lr, b1p, b2p) for st in state]
+    worst = max(float((a - b).abs().max()) for o, q in zip(outs, plain)
+                for a, b in zip(o, q))
+    _require(all(_bit_equal(torch, o, q) for o, q in zip(outs, plain)),
+             f"{kind} sweep differs from its plain version by {worst}")
+    # the per-parameter update over the same tensors
+    for st, o in zip(state, outs):
+        _, p, g, m, v, members = st
+        sizes = [n for _, n in members]
+        ps, gs, ms, vs = ([t.clone() for t in x.split(sizes)]
+                          for x in (p, g, m, v))
+        if kind == "adam":
+            fo.fused_adam_multi(ps, gs, ms, vs, lr, [b1p] * len(ps),
+                                [b2p] * len(ps))
+            per = [torch.cat(x) for x in (ps, ms, vs)]
+        else:
+            per = [torch.cat(fo.fused_sgd_multi(ps, gs, lr))]
+        _require(_bit_equal(torch, o, per), f"{kind} sweep differs from "
+                                            f"the per-parameter update")
+    # ZeRO-1: each shard writes its window alone; the four make the whole
+    olds = [(st[1], st[3], st[4]) if kind == "adam" else (st[1],)
+            for st in state]
+    for st, o, old in zip(state, outs, olds):
+        n = st[1].numel()
+        per = fo.rows_padded(n) // SWEEP_SHARDS * 128
+        merged = [t.clone() for t in old]
+        for i in range(SWEEP_SHARDS):
+            part = _sweep(fo, kind, st, lr, b1p, b2p,
+                          shard=(torch.tensor(i, device=dev), SWEEP_SHARDS))
+            lo, hi = min(i * per, n), min((i + 1) * per, n)
+            for a, was, acc in zip(part, old, merged):
+                _require(torch.equal(a[:lo], was[:lo]) and
+                         torch.equal(a[hi:], was[hi:]),
+                         f"{kind} shard {i} wrote outside its window")
+                acc[lo:hi] = a[lo:hi]
+        _require(_bit_equal(torch, merged, o),
+                 f"{kind}: the {SWEEP_SHARDS} windows differ from the "
+                 f"unsharded sweep")
+    # the guard: a nonfinite step changes nothing; a spike is damped
+    for st, old in zip(state, olds):
+        nf = _sweep(fo, kind, st, lr, b1p, b2p, guard=(1.0, 0.0, 0.0))
+        _require(_bit_equal(torch, nf, old),
+                 f"{kind}: nonfinite=1 changed the state")
+        sp = _sweep(fo, kind, st, lr, b1p, b2p, guard=(0.0, 1.0, 0.5))
+        with kreg.plain_reference():
+            sp_plain = _sweep(fo, kind, st, lr, b1p, b2p,
+                              guard=(0.0, 1.0, 0.5))
+        _require(_bit_equal(torch, sp, sp_plain),
+                 f"{kind}: the spike gate differs from the plain _gate")
+    # capture: one graph, replayed with a new hyper table
+    st = state[0]
+    guard = [torch.zeros((), device=dev) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _sweep(fo, kind, st, lr, b1p, b2p, guard=guard)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = _sweep(fo, kind, st, lr, b1p, b2p, guard=guard)
+    for new_lr, new_guard in ((5e-4, (0.0, 1.0, 0.25)), (2e-3, (0.0, 0.0,
+                                                                 0.0))):
+        lr.fill_(new_lr)
+        for t, x in zip(guard, new_guard):
+            t.fill_(x)
+        graph.replay()
+        eager = _sweep(fo, kind, st, lr, b1p, b2p, guard=new_guard)
+        torch.cuda.synchronize()
+        _require(_bit_equal(torch, cap, eager),
+                 f"{kind}: a replay with a new hyper table differs from "
+                 f"the eager sweep")
+    del graph, cap
+    print(f"  {kind} sweep over {len(state)} buckets: {launches} launches, "
+          f"bit-equal to the plain version, to the per-parameter "
+          f"fused_{kind}_multi, across {SWEEP_SHARDS} ZeRO-1 windows (each "
+          f"writing only its own), under the guard (nonfinite, spike damp "
+          f"0.5) and in a replay with a new hyper table")
+    return launches, worst
+
+
+def _time_sweep(torch, fo, kind, state, card, dev):
+    """Device time of one sweep over every bucket (one launch a bucket),
+    its plain version, the bound (28 or 12 bytes an element at the card's
+    bandwidth) and the library yardstick over the same flat tensors:
+    torch.optim.Adam(fused=True), or torch._foreach_add_."""
+    _, _, peak_bw, _, _ = _peaks(card)
+    lr = torch.tensor([SWEEP_LR], device=dev)
+    b1p, b2p = _sweep_pows(torch, dev)
+    n = sum(st[1].numel() for st in state)
+
+    def kernel():
+        for st in state:
+            _sweep(fo, kind, st, lr, b1p, b2p)
+
+    from paddle_tpu_torch.kernels import registry as kreg
+
+    def plain():
+        with kreg.plain_reference():
+            kernel()
+
+    ms, host = _queued_ms(torch, kernel)
+    pl = _time_ms(plain, iters=3, warmup=1)
+    params = [st[1].clone() for st in state]
+    grads = [st[2].clone() for st in state]
+    if kind == "adam":
+        leaves = [p.requires_grad_(True) for p in params]
+        for prm, g in zip(leaves, grads):
+            prm.grad = g
+        opt = torch.optim.Adam(leaves, lr=SWEEP_LR, fused=True)
+        lib, _ = _queued_ms(torch, opt.step)
+        del opt, leaves
+    else:
+        lib, _ = _queued_ms(torch, lambda: torch._foreach_add_(
+            params, grads, alpha=-SWEEP_LR))
+    del params, grads
+    per = 28 if kind == "adam" else 12
+    bound = per * n / peak_bw * 1e3
+    print(f"  {kind} sweep over {len(state)} buckets, {n} elements: kernel "
+          f"{ms:.4f} ms ({len(state)} launches, queued events; host "
+          f"{host:.1f} ms to queue 10), plain {pl:.4f} ms, library "
+          f"{lib:.4f} ms, bound {bound:.4f} ms ({per} B x {n})")
+    return {"ms": ms, "plain_ms": pl, "library_ms": lib, "bound_ms": bound,
+            "bound_by": "bytes"}
+
+
+
+BWD_F32_TOL = 1e-4   # tests/test_torch_cuda.py's float32 backward tolerance
+
+
+def _lse_exact(torch, q, k, v, bias, g_out, g_lse, scale):
+    """float64 gradients of the composed (out, lse) of attention."""
+    qd, kd, vd = (x.detach().double().requires_grad_() for x in (q, k, v))
+    s = qd @ kd.transpose(-1, -2) * scale + bias.double()
+    torch.autograd.backward(
+        [torch.softmax(s, -1) @ vd, torch.logsumexp(s, -1)],
+        [g_out.double(), g_lse.double()])
+    return qd.grad, kd.grad, vd.grad
+
+
+def flash_lse_phase(torch, dev):
+    """flash_attention_lse at the training shape (B=96, S=128, H=8, D=64,
+    [B, H, S, D], key-padding bias) in bf16 (tensor-core kernels) and
+    float32 (tensor-core forward, CUDA-core backward): with g_lse = 0 the
+    gradients equal fused_attention_backward's bit for bit; with a random
+    g_lse they are held to float64 exact gradients of the composed
+    (out, lse), float32 within BWD_F32_TOL, bf16 within
+    bf16_backward_bound (its step 3). Returns {kernel: launches made
+    with a g_lse} and the worst errors."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import registry as kreg
+    B, H, S, D = TRAIN_B, 8, TRAIN_S, 64
+    scale = D ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    lens = torch.randint(S // 2, S + 1, (B,), generator=gen, device=dev)
+    bias = torch.where(torch.arange(S, device=dev)[None] < lens[:, None],
+                       0.0, -1e9).float()[:, None, None, :]
+    launches, worst = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g_out = (torch.randn((B, H, S, D), generator=gen,
+                                      device=dev).to(dtype)
+                          for _ in range(4))
+        g_lse = torch.randn((B, H, S), generator=gen, device=dev)
+        kreg.reset_counts()
+        grads = {}
+        for label, gl in (("zero", torch.zeros_like(g_lse)),
+                          ("random", g_lse)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out, lse = fa.flash_attention_lse(*leaves, bias, scale)
+            torch.autograd.backward([out, lse], [g_out, gl])
+            grads[label] = [x.grad for x in leaves]
+        torch.cuda.synchronize()
+        got = kreg.launches()
+        sm90 = dtype == torch.bfloat16
+        dq_name = "flash_attention_bwd_dq_sm90" if sm90 else \
+            "flash_attention_bwd_dq"
+        dkv_name = "flash_attention_bwd_dkv_sm90" if sm90 else \
+            "flash_attention_bwd_dkv"
+        fwd_name = "flash_attention_fwd_sm90" if sm90 else \
+            "flash_attention_fwd_f32_sm90"
+        _require(got[fwd_name] == 2 and got[dq_name] == 2 and
+                 got[dkv_name] == 2 and got["flash_attention_bwd_dq"] == 2,
+                 f"flash_attention_lse {_dname(torch, dtype)}: launches "
+                 f"{ {n: c for n, c in got.items() if c} }")
+        # both calls pass a g_lse tensor (zeros, then random)
+        launches[dq_name] = launches.get(dq_name, 0) + 2
+        launches[dkv_name] = launches.get(dkv_name, 0) + 2
+        out, lse = fa.fused_attention_forward(q, k, v, bias, scale, False,
+                                              "bhsd", return_lse=True)
+        ref = fa.fused_attention_backward(q, k, v, bias, out, lse, g_out,
+                                          scale, False, "bhsd")
+        _require(all(torch.equal(a, b) for a, b in zip(grads["zero"], ref)),
+                 f"flash_attention_lse {_dname(torch, dtype)}: g_lse = 0 "
+                 f"differs from fused_attention_backward")
+        name = _dname(torch, dtype)
+        if sm90:
+            exact, bound = fa.bf16_backward_bound(q, k, v, bias, out, lse,
+                                                  g_out, scale, False,
+                                                  "bhsd", g_lse=g_lse)
+            excess = max(float(((a.double() - e).abs() - w).max())
+                         for a, e, w in zip(grads["random"], exact, bound))
+            err = max(float((a.double() - e).abs().max())
+                      for a, e in zip(grads["random"], exact))
+            _require(excess <= 0, f"flash_attention_lse bf16 exceeds "
+                                  f"bf16_backward_bound by {excess}")
+            print(f"  {name}: g_lse=0 bit-equal to fused_attention_backward; "
+                  f"random g_lse: worst |err| {err:.3e} against exact, "
+                  f"within bf16_backward_bound (worst excess {excess:.3e})")
+        else:
+            exact = _lse_exact(torch, q, k, v, bias, g_out, g_lse, scale)
+            err, ok = 0.0, True
+            for a, e in zip(grads["random"], exact):
+                e_, ok_ = _close(torch, a, e, BWD_F32_TOL)
+                err, ok = max(err, e_), ok and ok_
+            _require(ok, f"flash_attention_lse float32 off the exact "
+                         f"gradients by {err}")
+            print(f"  {name}: g_lse=0 bit-equal to fused_attention_backward; "
+                  f"random g_lse: worst |err| {err:.3e} against float64 exact "
+                  f"(BWD_F32_TOL {BWD_F32_TOL})")
+        worst[name] = err
+        del q, k, v, g_out, grads, ref, out, lse
+    print(f"  launches with a g_lse: {launches}")
+    return launches, worst
+
+
+def bucket_sweep_phase(torch, dev, card, built):
+    """kernels.fused_optimizer.bucket_sweep over Transformer-base's planned
+    buckets at full width: Adam then SGD, each held to its plain version,
+    the per-parameter update, the ZeRO-1 windows, the guard's gate and a
+    captured replay; then timed. Returns ({kind: launches}, {kind:
+    worst}, {kind: times})."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.kernels import registry as kreg
+    state = _sweep_state(torch, pt, built)
+    launches, worst, times = {}, {}, {}
+    for kind in ("adam", "sgd"):
+        launches[kind], worst[kind] = _sweep_checks(torch, fo, kreg, kind,
+                                                    state, dev)
+    for kind in ("adam", "sgd"):
+        times[kind] = _time_sweep(torch, fo, kind, state, card, dev)
+    del state
+    gc_cuda(torch)
+    return launches, worst, times
+
+
+
+# ---------------------------------------------------------------------------
+# the learning-rate schedules, the contrib decoder, the value-dependent
+# sequence ops and the op sweep
+# ---------------------------------------------------------------------------
+
+NOAM = (512, 4000)    # Transformer-base's noam_decay(d_model, warmup)
+# the rate a step reads against the schedule's closed form (the JAX
+# package's formula, in float64): float32 ops on the card
+LR_RTOL = 1e-6
+RN_BOUNDS, RN_VALUES = [1, 3], [0.1, 0.01, 0.001]   # piecewise_decay
+CT_TGT = 26           # the contrib training decoder's target length
+CT_RUNS = 4           # Adam steps, contrib against mt_train
+# bf16 decodes: scores within bf16's unit roundoff of each other (the
+# bound mt_phase holds the bf16 decode to, MT_SCORE_RTOL)
+MT_BF16_RTOL = 2.0 ** -9
+
+
+def _noam(step):
+    d, w = NOAM
+    return d ** -0.5 * min(step ** -0.5, step * w ** -1.5)
+
+
+def lr_schedule_phase(torch, dev):
+    """Transformer-base as the training phase builds it (B=96, S=128,
+    dropout 0.1, bf16 AMP) with AdamOptimizer(noam_decay(512, 4000)):
+    CAP_CMP_STEPS + 1 runs captured against as many eager ones, bit for
+    bit, 18 / 18 / 18 attention and 1 fused_adam launch a run, and the
+    rate each run reads against the schedule; then ResNet-50 (bf16 AMP,
+    Momentum) under piecewise_decay, one eager run and one captured,
+    against two eager runs, with the capture rule's verdict. Returns the
+    fused_adam launches of the captured runs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    from paddle_tpu_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = T.transformer_base(fuse_attention=True, dropout=0.1)
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, _, _ = T.transformer_train(cfg)
+        lr = pt.layers.noam_decay(*NOAM)
+        pt.contrib.mixed_precision.decorate(
+            pt.optimizer.AdamOptimizer(learning_rate=lr)).minimize(cost)
+    main.random_seed = startup.random_seed = SEED
+    want = {"flash_attention_fwd": 18, "flash_attention_bwd_dq": 18,
+            "flash_attention_bwd_dkv": 18, "flash_attention_fwd_sm90": 18,
+            "flash_attention_bwd_dq_sm90": 18,
+            "flash_attention_bwd_dkv_sm90": 18, "fused_adam": 1}
+    runs = []
+    c = _cap_compare(torch, pt, kreg, "Transformer-base noam_decay", main,
+                     startup, _training_feed(T, cfg), [cost, lr],
+                     CAP_CMP_STEPS, want, fetched=runs)
+    rates = [float(np.asarray(r[1]).reshape(-1)[0]) for r in runs]
+    rel = max(abs(r - _noam(i + 1)) / _noam(i + 1)
+              for i, r in enumerate(rates))
+    print(f"  noam_decay{NOAM}: rates read by the {len(rates)} runs "
+          f"{', '.join(f'{r:.6e}' for r in rates)}; worst relative "
+          f"difference from the schedule {rel:.3e} (<= {LR_RTOL})")
+    _require(rel <= LR_RTOL, f"noam_decay rates off by {rel}")
+    adam = c["replays"] + 1   # one launch a run: the eager one's too
+    gc_cuda(torch)
+
+    pt.framework.unique_name.reset()
+    rmain, rstart = pt.Program(), pt.Program()
+    with pt.program_guard(rmain, rstart):
+        rcost, _, _ = pt.models.resnet_train(depth=50)
+        rlr = pt.layers.piecewise_decay(RN_BOUNDS, RN_VALUES)
+        pt.contrib.mixed_precision.decorate(pt.optimizer.MomentumOptimizer(
+            rlr, RN_MU)).minimize(rcost)
+    rmain.random_seed = rstart.random_seed = SEED
+    runs = []
+    rc = _cap_compare(torch, pt, kreg, "ResNet-50 piecewise_decay", rmain,
+                      rstart, _resnet_feed(), [rcost, rlr], 1,
+                      fetched=runs)
+    rates = [float(np.asarray(r[1]).reshape(-1)[0]) for r in runs]
+    _require(rates == [np.float32(RN_VALUES[1]).item()] * 2,
+             f"piecewise_decay rates {rates}")
+    print(f"  ResNet-50 piecewise_decay{RN_BOUNDS, RN_VALUES}: runs read "
+          f"{rates}; the capture rule captured the step ({rc['captures']} "
+          f"capture, eager reasons none: the JAX package's schedule "
+          f"selects arithmetically, with no Switch block)")
+    gc_cuda(torch)
+    print(f"  lr schedule phase: {time.perf_counter() - t0:.1f} s")
+    return adam
+
+
+def _mt_contrib_scopes(torch, pt, mt):
+    """The init scopes of contrib_train and mt_train at full width, with
+    the same parameters (contrib_train's startup's)."""
+    scopes = {}
+    progs = {}
+    for name, build in (("contrib", lambda: mt.contrib_train(
+            lr=CF_LR, tgt_len=CT_TGT, **MT)),
+                        ("mt", lambda: mt.mt_train(lr=CF_LR, **MT))):
+        pt.framework.unique_name.reset()
+        main, startup, loss = build()
+        main.random_seed = startup.random_seed = SEED
+        scopes[name] = pt.Scope()
+        pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scopes[name])
+        progs[name] = (main, loss)
+    for p in progs["mt"][0].all_parameters():
+        scopes["mt"].find_var(p.name).get_tensor().set_tensor(
+            scopes["contrib"].find_var(p.name).get_tensor().tensor.clone())
+    return scopes, progs
+
+
+def _decode_pair(torch, pt, kreg, mt, mode, progs, scope, feed, t_src):
+    """contrib_decode against mt_decode in one GEMM mode ("" float32):
+    the contrib decode captured against eager (one CUDA graph, bit for
+    bit), then a replay of each program: (quantized_matmul launches a
+    decode, ids equal, worst relative score difference)."""
+    label = f"contrib decode {mode or 'float32'}"
+    name = f"quantized_matmul_{mode}" if mode else None
+    per_run = 2 * t_src + 2 * MT_LEN
+    old = os.environ.get("PT_KERNEL_QUANT_MATMUL")
+    os.environ["PT_KERNEL_QUANT_MATMUL"] = mode
+    try:
+        cexe, _, _, reasons, launched = _seq_compare(
+            torch, pt, kreg, label, progs["contrib"][0],
+            progs["contrib"][1], scope, [feed], MT_RUNS_DECODE,
+            kernels={name: per_run} if mode else None)
+        _require(not reasons, f"{label}: kept eager: {reasons}")
+        got = {}
+        for key in ("contrib", "mt"):
+            exe = pt.Executor(pt.CUDAPlace(0))
+            for _ in range(2):       # the plan, then the capture
+                out = _cap_run(exe, progs[key][0], feed, progs[key][1],
+                               scope)
+            got[key] = [np.asarray(v) for v in out]
+            exe.close()
+        cexe.close()
+    finally:
+        if old is None:
+            os.environ.pop("PT_KERNEL_QUANT_MATMUL")
+        else:
+            os.environ["PT_KERNEL_QUANT_MATMUL"] = old
+    ids_equal = np.array_equal(got["contrib"][0], got["mt"][0])
+    d = np.abs(got["contrib"][1] - got["mt"][1])
+    rel = float((d / np.maximum(np.abs(got["mt"][1]), 1e-30)).max())
+    n = launched.get(name, 0) // MT_RUNS_DECODE if name else 0
+    print(f"  {label}: against mt_decode: ids equal {ids_equal}, scores "
+          f"bit-equal {bool((d == 0).all())}, worst relative difference "
+          f"{rel:.3e}; {n} {name or 'quantized_matmul'} launches a decode")
+    return n, ids_equal, rel
+
+
+def contrib_decoder_phase(torch, dev):
+    """The book's machine translation model through the contrib decoder
+    API (models/machine_translation.py contrib_train, contrib_decode) at
+    chapter 08's widths (30000 / 512 / 512): CT_RUNS Adam steps of the
+    TrainingDecoder captured against eager and against mt_train's on
+    the same sources and targets of CT_TGT words, losses bit-equal; then
+    the BeamSearchDecoder (128 sources, beam 4, 80 steps) captured as one
+    CUDA graph against eager and against mt_decode in float32, int8
+    (bit-equal) and bf16 (ids equal, scores within MT_BF16_RTOL).
+    Returns (fused_adam launches, quantized_matmul launches by mode)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    from paddle_tpu_torch.models import machine_translation as mt
+    t0 = time.perf_counter()
+    scopes, progs = _mt_contrib_scopes(torch, pt, mt)
+    cfeed, mfeed = mt.dense_target_feed(np.random.default_rng(300), CF_B,
+                                        MT["vocab"], CT_TGT,
+                                        pt.CUDAPlace(0), **CF_LEN)
+    losses, adam, trained = {}, 0, None
+    for name, feed in (("contrib", cfeed), ("mt", mfeed)):
+        main, loss = progs[name]
+        _, routed = _routed_params(kreg, main)
+        exe, scope, losses[name], reasons, launched = _seq_compare(
+            torch, pt, kreg, f"{name} training", main, [loss],
+            scopes[name], [feed], CT_RUNS, len(routed))
+        _require(not reasons, f"{name} training kept eager: {reasons}")
+        adam += launched.get("fused_adam", 0)
+        exe.close()
+        if name == "mt":
+            trained = scope
+    print(f"  contrib TrainingDecoder against mt_train, {CT_RUNS} Adam "
+          f"steps at B={CF_B}, targets of {CT_TGT} words: losses "
+          f"{losses['contrib']} / {losses['mt']}, bit-equal "
+          f"{losses['contrib'] == losses['mt']}")
+    _require(losses["contrib"] == losses["mt"],
+             "the contrib training decoder's losses differ from mt_train's")
+    del scopes
+    gc_cuda(torch)
+    for mine, theirs in mt.CONTRIB_NAMES.items():
+        trained.var(mine).get_tensor().set_tensor(
+            trained.find_var(theirs).get_tensor().tensor.clone())
+    pt.framework.unique_name.reset()
+    cdec, cids, csc = mt.contrib_decode(beam=MT_BEAM, max_len=MT_LEN, **MT)
+    pt.framework.unique_name.reset()
+    mdec, mids, msc = mt.mt_decode(beam=MT_BEAM, max_len=MT_LEN, **MT)
+    dprogs = {"contrib": (cdec, [cids, csc]), "mt": (mdec, [mids, msc])}
+    feed = _mt_decode_feed(pt, pt.CUDAPlace(0))
+    t_src = int(np.diff(feed["src"].lod()[0]).max())
+    qmm = {}
+    for mode in ("", "int8", "bf16"):
+        n, same_ids, rel = _decode_pair(torch, pt, kreg, mt, mode, dprogs,
+                                        trained, feed, t_src)
+        if mode:
+            qmm[mode] = n * MT_RUNS_DECODE
+        _require(same_ids and (rel == 0 if mode != "bf16"
+                               else rel <= MT_BF16_RTOL),
+                 f"contrib decode {mode or 'float32'} differs from "
+                 f"mt_decode")
+    del trained
+    gc_cuda(torch)
+    print(f"  contrib decoder phase: {time.perf_counter() - t0:.1f} s")
+    return adam, qmm
+
+
+def value_sequence_phase(torch, dev):
+    """sequence_erase, sequence_slice and edit_distance on a CTC-style
+    batch (SEQ_B sequences of IMDB-shaped lengths, the sequence phase's
+    first batch, ids below 30): the program on the card against the same
+    program on the CPU, values and output LoDs equal, the block eager
+    with each op named in Engine.eager_reasons."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    ids, lens, _ = _seq_batch(0)
+    ids = ids % 30
+    refs = (ids + (np.arange(len(ids))[:, None] % 7 == 0)) % 30
+    n = len(lens[0])
+    offsets = np.array([[min(3, L - 1)] for L in lens[0]], np.int64)
+    lengths = np.array([[max(1, (L - 3) // 2)] for L in lens[0]],
+                       np.int64)
+    for op_type in ("sequence_erase", "sequence_slice", "edit_distance"):
+        pt.framework.unique_name.reset()
+        main = pt.Program()
+        L = pt.layers
+        with pt.program_guard(main, pt.Program()):
+            x = L.data("ids", [1], dtype="int64", lod_level=1)
+            if op_type == "sequence_erase":
+                out = L.sequence_erase(x, tokens=[0, 1, 2])
+            elif op_type == "sequence_slice":
+                out = L.sequence_slice(x, L.data("off", [1], dtype="int64"),
+                                       L.data("len", [1], dtype="int64"))
+            else:
+                y = L.data("refs", [1], dtype="int64", lod_level=1)
+                out, _ = L.edit_distance(x, y, normalized=True)
+        got = []
+        for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+            feed = {"ids": pt.create_lod_tensor(ids, lens, place),
+                    "refs": pt.create_lod_tensor(refs, lens, place),
+                    "off": offsets, "len": lengths}
+            exe = pt.Executor(place)
+            for _ in range(2):
+                res = exe.run(main, feed=feed, fetch_list=[out],
+                              return_numpy=False)[0]
+            vals = res.cpu() if isinstance(res, torch.Tensor) else res
+            got.append((np.asarray(vals), getattr(res, "lod", list)(),
+                        list(exe._engine.eager_reasons.values()),
+                        _counters(exe)))
+            exe.close()
+        (a, alod, reasons, cnt), (b, blod, _, _) = got
+        _require(np.array_equal(a, b) and alod == blod,
+                 f"{op_type}: the card's output differs from the CPU's")
+        _require(reasons == [op_type] and cnt["captures"] == 0 and
+                 cnt["eager_runs"] == 2,
+                 f"{op_type}: eager reasons {reasons}, counters {cnt}")
+        print(f"  {op_type} on {n} sequences ({len(ids)} rows): output "
+              f"{a.dtype} {list(a.shape)} equal to the CPU's, LoD equal; "
+              f"2 eager runs, eager reasons {reasons}")
+    print(f"  value-dependent sequence phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# the op sweep's tolerance, card against CPU: float32 within 1e-5
+# relative and absolute (libm and summation order differ); the rest exact
+SWEEP_TOL = 1e-5
+
+
+def op_sweep_phase(torch, dev):
+    """Every op type of the basic, reduce, elementwise and activation
+    families and the three value-dependent sequence ops, each case of
+    ops/family_cases.py once through its lowering on the card against
+    the same lowering on the CPU."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    t0 = time.perf_counter()
+    worst, types = 0.0, set()
+    runs = [(c[0], c[1], c[2], c[3], None) for cs in fc.cases().values()
+            for c in cs]
+    runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
+             for c in fc.sequence_cases()]
+    for op_type, ins, attrs, outs, lods in runs:
+        card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
+        cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
+        for n, v in card.items():
+            a, b = v.cpu(), cpu[n]
+            ok = a.dtype == b.dtype and a.shape == b.shape
+            if ok and a.is_floating_point():
+                err = float((a - b).abs().max()) if a.numel() else 0.0
+                worst = max(worst, err)
+                ok = bool(torch.allclose(a, b, rtol=SWEEP_TOL,
+                                         atol=SWEEP_TOL))
+            elif ok:
+                ok = torch.equal(a, b)
+            _require(ok and clod[n] == plod[n],
+                     f"op sweep: {op_type} {n} on the card differs from "
+                     f"the CPU")
+        types.add(op_type)
+    torch.cuda.synchronize()
+    print(f"  op sweep: {len(runs)} cases of {len(types)} op types on the "
+          f"card equal to their CPU lowerings (float32 worst |err| "
+          f"{worst:.3e}, SWEEP_TOL {SWEEP_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return len(types)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5578,6 +6260,22 @@ def main(argv=None):
     for mode, n in book_qmm.items():
         serve_launches[mode] += n
 
+    print("[flash lse phase]")
+    lse_launches, _ = flash_lse_phase(torch, dev)
+    print("[bucket sweep phase]")
+    sweep_launches, sweep_worst, sweep_times = bucket_sweep_phase(
+        torch, dev, card, built)
+    print("[lr schedule phase]")
+    lr_adam = lr_schedule_phase(torch, dev)
+    print("[contrib decoder phase]")
+    ct_adam, ct_qmm = contrib_decoder_phase(torch, dev)
+    for mode, n in ct_qmm.items():
+        serve_launches[mode] += n
+    print("[value-dependent sequence phase]")
+    value_sequence_phase(torch, dev)
+    print("[op sweep]")
+    op_sweep_phase(torch, dev)
+
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
     print("[mnist phase]")
@@ -5637,17 +6335,29 @@ def main(argv=None):
              tcounts["flash_attention_bwd_dkv_sm90"]),
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
-             adam_err,
-             tcounts["fused_adam"] + dy_adam + cf_adam + book_adam),
+             adam_err, tcounts["fused_adam"] + dy_adam + cf_adam +
+             book_adam + lr_adam + ct_adam),
             ("fused_sgd", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
-             sgd_err, sgd_launches)):
+             sgd_err, sgd_launches),
+            ("bucket_sweep_adam", "fused_optimizer.cu",
+             "paddle_tpu/kernels/fused_optimizer.py:238",
+             sweep_times["adam"], sweep_worst["adam"],
+             sweep_launches["adam"]),
+            ("bucket_sweep_sgd", "fused_optimizer.cu",
+             "paddle_tpu/kernels/fused_optimizer.py:238",
+             sweep_times["sgd"], sweep_worst["sgd"],
+             sweep_launches["sgd"])):
         rows.append({"name": name, "route": "cuda", "source": src + source,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+        if name in lse_launches:
+            # the backward launches the flash lse phase made with an
+            # lse cotangent (flash_attention_lse's g_lse term)
+            rows[-1]["g_lse_launches"] = lse_launches[name]
     # the GEMM kernels at the serving forward's most frequent shape; the
     # launches of the routed ones are those of their serving mode, those
     # of the two fused epilogues and of the CUDA-core tiles the variant

@@ -11,7 +11,7 @@ numpy, and nothing of JAX or of paddle_tpu.
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
 from . import backward, contrib, dygraph, inference, optimizer  # noqa: F401
-from . import unique_name  # noqa: F401
+from . import parallel, unique_name  # noqa: F401
 from .backward import gradients  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .core.scope import (LoDTensor, Scope, create_lod_tensor,  # noqa: F401

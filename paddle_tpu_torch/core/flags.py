@@ -29,6 +29,9 @@ _DEFAULTS: Dict[str, Any] = {
     "rpc_max_message_mb": 1024,   # refuse a larger length prefix unread
     # metric observation and spans (observability/metrics.py)
     "telemetry": False,
+    # the gradient bucket cap in MB of parallel/comm_scheduler.py's
+    # planner; <= 0: one bucket a gradient
+    "allreduce_bucket_mb": 32.0,
 }
 _VALUES: Dict[str, Any] = dict(_DEFAULTS)
 _LOCK = threading.Lock()

@@ -5,7 +5,7 @@
 // (line 426) and _fa_bwd_dkv_kernel (line 502), reached through
 // _fa_backward (line 714) and its two pl.pallas_call. Same function, from
 // the forward's out and lse:
-//   di = rowsum(dO * O)                      (pre-pass, [B, H, Sq] f32)
+//   di = rowsum(dO * O) - g_lse              (pre-pass, [B, H, Sq] f32)
 //   p  = exp(s - lse), s = q.k^T*scale + bias, causal -1e30 (the forward's)
 //   dp = dO.v^T, dropped as keep ? dp*256/t : 0
 //   ds = p * (dp - di)
@@ -70,6 +70,7 @@ struct Params {
   const float* bias;
   const float* lse;  // [B, H, Sq]
   float* di;         // [B, H, Sq], written by the pre-pass
+  const float* g_lse;  // [B, H, Sq] or null: subtracted from di
   void* dq;
   void* dk;
   void* dv;
@@ -185,7 +186,7 @@ __global__ void __launch_bounds__(NTHREADS) di_kernel(const Params p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.di[r] = acc;
+  if (lane == 0) p.di[r] = p.g_lse ? acc - p.g_lse[r] : acc;
 }
 
 // The column groups of a gradient and the blocks of one tile: one group
@@ -489,8 +490,9 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
 int fill(Params& p, const void* q, const void* k, const void* v,
          const void* out, const void* dout, const void* bias,
          const void* lse, void* di, void* dq, void* dk, void* dv, void* ds,
-         int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
-         int causal, const void* seed, int drop_t) {
+         const void* g_lse, int B, int H, int Sq, int Sk, int D,
+         const int64_t* st, float scale, int causal, const void* seed,
+         int drop_t) {
   if (D < 1 || B < 1 || H < 1 || Sq < 1 || Sk < 1 || drop_t < 0 ||
       drop_t > 255 || (drop_t > 0 && seed == nullptr))
     return 0;
@@ -506,6 +508,7 @@ int fill(Params& p, const void* q, const void* k, const void* v,
   p.dk = dk;
   p.dv = dv;
   p.ds = static_cast<float*>(ds);
+  p.g_lse = static_cast<const float*>(g_lse);
   p.B = B;
   p.H = H;
   p.Sq = Sq;
@@ -531,23 +534,23 @@ int fill(Params& p, const void* q, const void* k, const void* v,
 // Both entry points take the same arguments. dtype: 0 float32,
 // 1 bfloat16. strides: 27 element strides, in order q, k, v, out, dout,
 // dq, dk, dv (each batch, sequence, head) and bias (batch, head, query).
-// lse and di are [B, H, Sq] float32; bias, ds and the outputs the entry
-// point does not write may be null. drop_t: 0 for no dropout, else the
-// keep threshold 1..255, with seed pointing at the two seed words on the
-// card (int64 [2]). Returns the cudaError_t.
+// lse, di and g_lse are [B, H, Sq] float32; bias, ds, g_lse and the
+// outputs the entry point does not write may be null. drop_t: 0 for no
+// dropout, else the keep threshold 1..255, with seed pointing at the two
+// seed words on the card (int64 [2]). Returns the cudaError_t.
 //
-// pt_flash_attention_bwd_dq: writes di (pre-pass), dq and, if ds is not
-// null, ds (which the caller zeroes: causal-skipped tiles are not
+// pt_flash_attention_bwd_dq: writes di (pre-pass, less g_lse), dq and, if
+// ds is not null, ds (which the caller zeroes: causal-skipped tiles are not
 // written).
 extern "C" int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
-    void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* strides, float scale, int causal, const void* seed,
-    int drop_t, void* stream) {
+    void* dk, void* dv, void* ds, const void* g_lse, int dtype, int B, int H,
+    int Sq, int Sk, int D, const int64_t* strides, float scale, int causal,
+    const void* seed, int drop_t, void* stream) {
   Params p;
-  if (!fill(p, q, k, v, out, dout, bias, lse, di, dq, dk, dv, ds, B, H, Sq,
-            Sk, D, strides, scale, causal, seed, drop_t))
+  if (!fill(p, q, k, v, out, dout, bias, lse, di, dq, dk, dv, ds, g_lse, B,
+            H, Sq, Sk, D, strides, scale, causal, seed, drop_t))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -569,12 +572,12 @@ extern "C" int pt_flash_attention_bwd_dq(
 extern "C" int pt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
-    void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* strides, float scale, int causal, const void* seed,
-    int drop_t, void* stream) {
+    void* dk, void* dv, void* ds, const void* g_lse, int dtype, int B, int H,
+    int Sq, int Sk, int D, const int64_t* strides, float scale, int causal,
+    const void* seed, int drop_t, void* stream) {
   Params p;
-  if (!fill(p, q, k, v, out, dout, bias, lse, di, dq, dk, dv, ds, B, H, Sq,
-            Sk, D, strides, scale, causal, seed, drop_t))
+  if (!fill(p, q, k, v, out, dout, bias, lse, di, dq, dk, dv, ds, g_lse, B,
+            H, Sq, Sk, D, strides, scale, causal, seed, drop_t))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

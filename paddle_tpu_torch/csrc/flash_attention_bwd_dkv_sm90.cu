@@ -353,16 +353,16 @@ bool aligned8(const int64_t* st, int n) {
 
 // Same arguments as pt_flash_attention_bwd_dkv (flash_attention_bwd.cu):
 // reads q, k, v, dout, bias, lse and di (written by the dq entry point),
-// writes dk and dv; out, dq and ds are not read. dtype must be 1
+// writes dk and dv; out, dq, ds and g_lse (folded into di) are not read. dtype must be 1
 // (bfloat16). Returns the cudaError_t of the launch, or
 // cudaErrorInvalidValue when the call breaks TMA's rules (see the top).
 extern "C" int pt_flash_attention_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
-    void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* st, float scale, int causal, const void* seed,
-    int drop_t, void* stream) {
-  (void)out, (void)dq, (void)ds;
+    void* dk, void* dv, void* ds, const void* g_lse, int dtype, int B, int H,
+    int Sq, int Sk, int D, const int64_t* st, float scale, int causal,
+    const void* seed, int drop_t, void* stream) {
+  (void)out, (void)dq, (void)ds, (void)g_lse;  // g_lse is in di already
   if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || B < 1 || H < 1 ||
       Sq < 1 || Sk < 1 || drop_t < 0 ||
       (drop_t > 0 && seed == nullptr) || drop_t > 255 ||

@@ -8,7 +8,7 @@
 // that break TMA's rules, keep the CUDA-core dq_kernel and di_kernel of
 // flash_attention_bwd.cu. Same function as those two, from the forward's
 // out and lse:
-//   di = rowsum(dO * O)                     (written for the dk/dv kernel)
+//   di = rowsum(dO * O) - g_lse             (written for the dk/dv kernel)
 //   p  = exp(s - lse), s = q.k^T*scale + bias, causal -1e30 (the forward's)
 //   dp = dO.v^T, dropped as keep ? dp*256/t : 0
 //   ds = p * (dp - di)
@@ -60,6 +60,7 @@ struct Params {
   sm90::SeqMap tq, tdo, to, tk, tv;
   const float* lse;  // [B, H, Sq]
   float* di;         // [B, H, Sq], written here
+  const float* g_lse;  // [B, H, Sq] or null: the lse cotangent, from di
   const float* bias;
   __nv_bfloat16* dq;
   float* ds;  // [B, H, Sq, Sk] or null
@@ -179,6 +180,7 @@ __global__ void __launch_bounds__(128, DCH == 1 ? 3 : 2)
         }
       }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (p.g_lse && q0 + rr < p.Sq) acc -= p.g_lse[bh * p.Sq + q0 + rr];
     if (half == 0) {
       di_s[rr] = acc;  // rows past Sq: zero-filled tiles, di = 0
       if (q0 + rr < p.Sq) p.di[bh * p.Sq + q0 + rr] = acc;
@@ -361,7 +363,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // Same arguments as pt_flash_attention_bwd_dq (flash_attention_bwd.cu):
-// reads q, k, v, out, dout, bias and lse, writes di, dq and, if ds is not
+// reads q, k, v, out, dout, bias, lse and g_lse, writes di (less g_lse),
+// dq and, if ds is not
 // null, ds (which the caller zeroes: causal-skipped tiles are not
 // written); dk and dv are not touched. dtype must be 1 (bfloat16).
 // Returns the cudaError_t of the launch, or cudaErrorInvalidValue when the
@@ -369,9 +372,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" int pt_flash_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* bias, const void* lse, void* di, void* dq,
-    void* dk, void* dv, void* ds, int dtype, int B, int H, int Sq, int Sk,
-    int D, const int64_t* st, float scale, int causal, const void* seed,
-    int drop_t, void* stream) {
+    void* dk, void* dv, void* ds, const void* g_lse, int dtype, int B, int H,
+    int Sq, int Sk, int D, const int64_t* st, float scale, int causal,
+    const void* seed, int drop_t, void* stream) {
   (void)dk, (void)dv;
   if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || B < 1 || H < 1 ||
       Sq < 1 || Sk < 1 || drop_t < 0 ||
@@ -390,6 +393,7 @@ extern "C" int pt_flash_attention_bwd_dq_sm90(
     return static_cast<int>(cudaErrorInvalidValue);
   p.lse = static_cast<const float*>(lse);
   p.di = static_cast<float*>(di);
+  p.g_lse = static_cast<const float*>(g_lse);
   p.bias = static_cast<const float*>(bias);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.ds = static_cast<float*>(ds);

@@ -60,6 +60,28 @@
 // and stores between a scalar head and tail; else element by element.
 // Each operation is rounded on its own (lr*g is never contracted into an
 // FMA with the subtraction), as in the plain version: 0 ulp.
+//
+// The bucket sweep replaces: paddle_tpu/kernels/fused_optimizer.py
+// bucket_sweep (line 238), which drives the same bodies (_adam_block :108,
+// _sgd_block :133, through _call :147 and its pl.pallas_call :153) over a
+// comm-scheduler bucket's flat view, with two modes the list kernels lack:
+// the stability guard's gate _gate (:95),
+//   gated = nonfinite ? old : (spike ? old + (new - old)*damp : new)
+// applied to p', m' and v' alike, and the ZeRO-1 row window _row_mask
+// (:101) over _bounds (:182): the view counts rows of 128 lanes, and only
+// the elements of rows [lo, hi) are updated; the rest are written back
+// unchanged. The hyper table (lr_t, nonfinite, spike, damp: four float32)
+// and the window (lo, hi: two int64) are read from device memory, so a
+// CUDA graph that captured a sweep reads them anew at every replay.
+// Unlike the list kernels it writes p', m' and v' to fresh buffers, as
+// the reference returns new arrays.
+//
+// What bounds it: as the list kernels, HBM bandwidth (Adam 28 bytes per
+// element, SGD 12). What the design does about that: one launch a bucket,
+// a grid-stride loop of float4 loads and stores where every pointer is
+// 16-byte aligned (a window's edges are multiples of 128 elements, so no
+// float4 straddles one), else element by element; the gate and the window
+// are selects on values already in registers, so they add no access.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -265,6 +287,148 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bucket sweep (ZeRO-1 row window, guard gate)
+// ---------------------------------------------------------------------------
+
+constexpr int SWEEP_LANES = 128;     // a row of the reference's view
+constexpr int SWEEP_MAX_BLOCKS = 132 * 16;
+
+struct SweepHyper {
+  float lr, damp;
+  bool nonfinite, spike;
+  int64_t lo, hi;  // the window, in elements
+};
+
+__device__ __forceinline__ SweepHyper load_sweep(const float* hyper,
+                                                 const int64_t* bounds) {
+  SweepHyper s;
+  s.lr = hyper[0];
+  s.nonfinite = hyper[1] > 0.0f;
+  s.spike = hyper[2] > 0.0f;
+  s.damp = hyper[3];
+  s.lo = bounds[0] * SWEEP_LANES;
+  s.hi = bounds[1] * SWEEP_LANES;
+  return s;
+}
+
+// stability/guard.py _gate_value: old + (new - old)*damp on a spike,
+// old on a nonfinite step
+__device__ __forceinline__ float gate(float nw, float old, const SweepHyper& s) {
+  const float damped = __fadd_rn(old, __fmul_rn(__fsub_rn(nw, old), s.damp));
+  return s.nonfinite ? old : (s.spike ? damped : nw);
+}
+
+__device__ __forceinline__ void sweep_adam(float& p, float g, float& m,
+                                           float& v, bool inside,
+                                           const AdamHyper& h,
+                                           const SweepHyper& s) {
+  float pn = p, mn = m, vn = v;
+  adam_step(pn, g, mn, vn, h);
+  if (inside) {
+    p = gate(pn, p, s);
+    m = gate(mn, m, s);
+    v = gate(vn, v, s);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    bucket_sweep_adam_kernel(const float* __restrict__ hyper,
+                             const int64_t* __restrict__ bounds,
+                             const float* __restrict__ p,
+                             const float* __restrict__ g,
+                             const float* __restrict__ m,
+                             const float* __restrict__ v,
+                             float* __restrict__ po, float* __restrict__ mo,
+                             float* __restrict__ vo, int64_t n, float b1,
+                             float one_minus_b1, float b2,
+                             float one_minus_b2, float eps, float wd,
+                             int vec4) {
+  const SweepHyper s = load_sweep(hyper, bounds);
+  AdamHyper h;
+  h.b1 = b1;
+  h.one_minus_b1 = one_minus_b1;
+  h.b2 = b2;
+  h.one_minus_b2 = one_minus_b2;
+  h.eps = eps;
+  h.wd = wd;
+  h.lr_t = s.lr;
+  h.lr_wd = __fmul_rn(s.lr, wd);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * NTHREADS;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * NTHREADS +
+                        threadIdx.x;
+  if (vec4) {
+    const int64_t nv = n >> 2;
+    for (int64_t j = first; j < nv; j += stride) {
+      const bool inside = 4 * j >= s.lo && 4 * j < s.hi;
+      float4 x = reinterpret_cast<const float4*>(p)[j];
+      float4 mm = reinterpret_cast<const float4*>(m)[j];
+      float4 vv = reinterpret_cast<const float4*>(v)[j];
+      const float4 y = __ldg(reinterpret_cast<const float4*>(g) + j);
+      sweep_adam(x.x, y.x, mm.x, vv.x, inside, h, s);
+      sweep_adam(x.y, y.y, mm.y, vv.y, inside, h, s);
+      sweep_adam(x.z, y.z, mm.z, vv.z, inside, h, s);
+      sweep_adam(x.w, y.w, mm.w, vv.w, inside, h, s);
+      reinterpret_cast<float4*>(po)[j] = x;
+      reinterpret_cast<float4*>(mo)[j] = mm;
+      reinterpret_cast<float4*>(vo)[j] = vv;
+    }
+    return;
+  }
+  for (int64_t e = first; e < n; e += stride) {
+    float pe = p[e], me = m[e], ve = v[e];
+    sweep_adam(pe, g[e], me, ve, e >= s.lo && e < s.hi, h, s);
+    po[e] = pe;
+    mo[e] = me;
+    vo[e] = ve;
+  }
+}
+
+__device__ __forceinline__ float sweep_sgd(float p, float g, bool inside,
+                                           float wd, const SweepHyper& s) {
+  return inside ? gate(sgd_step(p, g, s.lr, wd), p, s) : p;
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    bucket_sweep_sgd_kernel(const float* __restrict__ hyper,
+                            const int64_t* __restrict__ bounds,
+                            const float* __restrict__ p,
+                            const float* __restrict__ g,
+                            float* __restrict__ po, int64_t n, float wd,
+                            int vec4) {
+  const SweepHyper s = load_sweep(hyper, bounds);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * NTHREADS;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * NTHREADS +
+                        threadIdx.x;
+  if (vec4) {
+    const int64_t nv = n >> 2;
+    for (int64_t j = first; j < nv; j += stride) {
+      const bool inside = 4 * j >= s.lo && 4 * j < s.hi;
+      float4 x = reinterpret_cast<const float4*>(p)[j];
+      const float4 y = __ldg(reinterpret_cast<const float4*>(g) + j);
+      x.x = sweep_sgd(x.x, y.x, inside, wd, s);
+      x.y = sweep_sgd(x.y, y.y, inside, wd, s);
+      x.z = sweep_sgd(x.z, y.z, inside, wd, s);
+      x.w = sweep_sgd(x.w, y.w, inside, wd, s);
+      reinterpret_cast<float4*>(po)[j] = x;
+    }
+    return;
+  }
+  for (int64_t e = first; e < n; e += stride)
+    po[e] = sweep_sgd(p[e], g[e], e >= s.lo && e < s.hi, wd, s);
+}
+
+bool aligned16(const void* const* ptrs, int count) {
+  for (int i = 0; i < count; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return false;
+  return true;
+}
+
+unsigned sweep_blocks(int64_t work) {
+  const int64_t b = (work + NTHREADS - 1) / NTHREADS;
+  return static_cast<unsigned>(b < 1 ? 1 : (b > SWEEP_MAX_BLOCKS ? SWEEP_MAX_BLOCKS : b));
+}
+
 }  // namespace
 
 // count tensors: p[i], m[i], v[i] float32 [n[i]], updated in place; g[i]
@@ -369,4 +533,46 @@ extern "C" int pt_fused_sgd_multi(void* const* p, const void* const* g,
     ++*launches;
   }
   return 0;
+}
+
+// One Adam step over a bucket's flat view of n elements: p, g, m, v float32
+// [n] in; po, mo, vo float32 [n] out (fresh buffers). hyper: float32 [4] on
+// the card (lr_t, nonfinite, spike, damp); bounds: int64 [2] on the card,
+// the window [lo, hi) in rows of 128 elements. One launch. Returns the
+// cudaError_t of the launch, or 0.
+extern "C" int pt_bucket_sweep_adam(const void* hyper, const void* bounds,
+                                    const void* p, const void* g,
+                                    const void* m, const void* v, void* po,
+                                    void* mo, void* vo, int64_t n, float b1,
+                                    float one_minus_b1, float b2,
+                                    float one_minus_b2, float eps, float wd,
+                                    void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {p, g, m, v, po, mo, vo};
+  const int vec4 = (n % 4 == 0) && aligned16(ptrs, 7);
+  bucket_sweep_adam_kernel<<<sweep_blocks(vec4 ? n / 4 : n), NTHREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hyper), static_cast<const int64_t*>(bounds),
+      static_cast<const float*>(p), static_cast<const float*>(g),
+      static_cast<const float*>(m), static_cast<const float*>(v),
+      static_cast<float*>(po), static_cast<float*>(mo),
+      static_cast<float*>(vo), n, b1, one_minus_b1, b2, one_minus_b2, eps, wd,
+      vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One SGD step over a bucket's flat view: p, g float32 [n] in, po float32
+// [n] out; hyper and bounds as for pt_bucket_sweep_adam (hyper[0] is lr).
+extern "C" int pt_bucket_sweep_sgd(const void* hyper, const void* bounds,
+                                   const void* p, const void* g, void* po,
+                                   int64_t n, float wd, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {p, g, po};
+  const int vec4 = (n % 4 == 0) && aligned16(ptrs, 3);
+  bucket_sweep_sgd_kernel<<<sweep_blocks(vec4 ? n / 4 : n), NTHREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hyper), static_cast<const int64_t*>(bounds),
+      static_cast<const float*>(p), static_cast<const float*>(g),
+      static_cast<float*>(po), n, wd, vec4);
+  return static_cast<int>(cudaGetLastError());
 }

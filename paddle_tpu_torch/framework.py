@@ -160,6 +160,8 @@ class Variable:
     def __rtruediv__(self, o):
         return self._binary(o, "elementwise_div", True)
 
+    def __pow__(self, o): return self._binary(o, "elementwise_pow")
+
     def __neg__(self):
         from .layers import tensor as _t
         return _t.scale(self, scale=-1.0)

@@ -3,7 +3,8 @@ dq and dk/dv) and their plain PyTorch versions.
 
 Counterpart of paddle_tpu/kernels/flash_attention.py: _fa_kernel via
 _fa_forward, and _fa_bwd_dq_kernel / _fa_bwd_dkv_kernel via
-_fa_backward. The kernels are paddle_tpu_torch/csrc/flash_attention_fwd.cu
+_fa_backward, with its g_lse term (flash_attention_lse, an entry point
+that returns (out, lse) and takes cotangents on both). The kernels are paddle_tpu_torch/csrc/flash_attention_fwd.cu
 and flash_attention_bwd.cu (float32 FMA on CUDA cores, any dtype the
 wrappers take, any head dim), the tensor-core designs for bf16,
 flash_attention_fwd_sm90.cu, flash_attention_bwd_dq_sm90.cu (di fused
@@ -206,11 +207,12 @@ def _reduce_bias_grad(ds, bias):
 
 def fused_attention_backward_plain(q, k, v, bias, out, lse, dout, scale,
                                    causal, layout, dropout=None,
-                                   want_dbias=False):
+                                   want_dbias=False, g_lse=None):
     """The backward kernels' function in plain PyTorch, from the
     forward's out and lse [B, H, Sq]: returns (dq, dk, dv, dbias), the
     gradients in q/k/v's dtypes, dbias (bias's dtype) only with
-    want_dbias and a bias."""
+    want_dbias and a bias. g_lse, the cotangent of lse ([B, H, Sq]), is
+    subtracted from di in float32: ds = p*(dp - (di - g_lse))."""
     dropout = _check_dropout(dropout, q.device)
     bshd = layout == "bshd"
     p = torch.exp(_scores(q, k, bias, scale, causal, bshd)
@@ -219,6 +221,8 @@ def fused_attention_backward_plain(q, k, v, bias, out, lse, dout, scale,
     di = (do * out.float()).sum(-1)                 # [B,S,H] or [B,H,S]
     if bshd:
         di = di.transpose(1, 2)
+    if g_lse is not None:
+        di = di - g_lse.float()
     dp = torch.einsum("bqhd,bkhd->bhqk" if bshd else "bhqd,bhkd->bhqk",
                       do, v.float())
     p_v = p
@@ -248,7 +252,7 @@ _F32_SLACK = 2.0 ** -12
 
 
 def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
-                        layout, dropout=None):
+                        layout, dropout=None, g_lse=None):
     """What a correct bf16 backward must meet: ((dq, dk, dv) exact, (dq,
     dk, dv) bound), float64 tensors in q/k/v's shapes.
 
@@ -278,7 +282,16 @@ def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
     2. The kernel then rounds f, not the exact value, to bf16:
        |bf16(f) - f| <= 2^-8 |f| <= 2^-8 (|exact| + s). So
            |dq - exact| <= s + 2^-8 (|exact| + s).
-    3. Head dims above 128: the CUDA-core kernels run the scores and dp
+    3. With an lse cotangent g_lse (flash_attention_lse), ds_ij =
+       p_ij (dp_ij - (di_i - g_lse_i)): the kernels subtract g_lse_i,
+       read exactly in float32, from the float32 di_i once, and then
+       di_i - g_lse_i from dp_ij. Each subtraction rounds within 2^-24
+       of |dp_ij| + |di_i| + |g_lse_i|, so |g_lse_i| joins the
+       magnitudes: m_ij = p_ij (sum_d |dO_id| |v_jd| + sum_d |dO_id|
+       |O_id| + |g_lse_i|), and the exact ds takes the term. Where
+       di - g_lse cancels the bound so still holds the float32 rounding
+       of the three, which a bound without |g_lse_i| would not.
+    4. Head dims above 128: the CUDA-core kernels run the scores and dp
        over 128-column chunks, each chunk's products added to the same
        float32 register, so a score is one float32 sum of D products in
        D's order, as below 128, and gets no term of its own; the
@@ -299,6 +312,9 @@ def bf16_backward_bound(q, k, v, bias, out, lse, dout, scale, causal,
     dp = gd @ vd.transpose(-1, -2)
     # the magnitudes of the two dot products' terms (step 1)
     adi = (gd.abs() * od.abs()).sum(-1, keepdim=True)
+    if g_lse is not None:   # step 3
+        gl = g_lse.to(f64)[..., None]
+        di, adi = di - gl, adi + gl.abs()
     adp = gd.abs() @ vd.abs().transpose(-1, -2)
     p_v = p
     if dropout is not None:
@@ -369,18 +385,58 @@ def fused_attention_forward(q, k, v, bias, scale, causal, layout,
 
 
 def fused_attention_backward(q, k, v, bias, out, lse, dout, scale, causal,
-                             layout, dropout=None, want_dbias=False):
+                             layout, dropout=None, want_dbias=False,
+                             g_lse=None):
     """Gradients of fused_attention_forward from its out and lse:
     (dq, dk, dv, dbias). On the card: the dq kernel (with di), then the
-    dk/dv kernel."""
+    dk/dv kernel. g_lse: the cotangent of lse, float32 [B, H, Sq], or
+    None (zero)."""
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"unknown attention layout {layout!r}")
     if _route(q) == "kernel":
         return _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal,
-                           layout, dropout, want_dbias)
+                           layout, dropout, want_dbias, g_lse)
     return fused_attention_backward_plain(q, k, v, bias, out, lse, dout,
                                           scale, causal, layout, dropout,
-                                          want_dbias)
+                                          want_dbias, g_lse)
+
+
+class _FlashLse(torch.autograd.Function):
+    """(out, lse) of attention on [B, H, S, D] with cotangents on both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = fused_attention_forward(q, k, v, bias, scale, False,
+                                           "bhsd", return_lse=True)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv, dbias = fused_attention_backward(
+            q, k, v, bias, out, lse, g_out, ctx.scale, False, "bhsd",
+            want_dbias=ctx.needs_input_grad[3], g_lse=g_lse)
+        return dq, dk, dv, dbias, None
+
+
+def flash_attention_lse(q, k, v, bias=None, scale=1.0, block_q=128,
+                        block_k=128):
+    """Attention on q, k, v [B, H, S, D] returning (out, lse): out in q's
+    dtype, lse [B, H, Sq] float32, the block primitive of ring
+    attention's online-softmax merge (the reference's
+    flash_attention_lse). Differentiable through both outputs: the lse
+    cotangent folds into di in the backward kernels' di pre-pass,
+    ds = p*(dp - (di - g_lse)). Routed as fused attention is (_route):
+    on the card the kernels (the tensor-core design where
+    _sm90_eligible holds), on the CPU the plain versions. block_q and
+    block_k are the TPU kernel's tiles, taken for the signature; the
+    CUDA kernels tile on their own."""
+    del block_q, block_k
+    return _FlashLse.apply(q, k, v, bias, scale)
 
 
 def _seq_strides(x, layout):
@@ -509,14 +565,14 @@ def _bind_bwd(lib, symbol):
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 6 + [
+        fn.argtypes = [p] * 13 + [i] * 6 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i, p, i, p]
         fn.restype = i
     return fn
 
 
 def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
-                dropout, want_dbias):
+                dropout, want_dbias, g_lse=None):
     """The dq kernel, then the dk/dv kernel: for bf16 where _sm90_eligible
     holds (out too meets TMA's rules) the tensor-core ones, the dq kernel
     with the di pre-pass fused in; else (float32 always) the CUDA-core
@@ -533,6 +589,12 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
                          f"[{B}, {H}, {Sq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     lse = lse.contiguous()
+    if g_lse is not None:
+        if g_lse.shape != (B, H, Sq) or g_lse.device != q.device:
+            raise ValueError(f"fused attention backward: g_lse must be "
+                             f"[{B}, {H}, {Sq}] on {q.device}, got "
+                             f"{tuple(g_lse.shape)} on {g_lse.device}")
+        g_lse = g_lse.to(torch.float32).contiguous()
     sm90 = q.dtype == torch.bfloat16 and \
         _sm90_eligible(q, k, v, dout, layout) and \
         _sm90_eligible(out, k, v, dout, layout)
@@ -548,7 +610,7 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, scale, causal, layout,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), ptr(bias), lse.data_ptr(), di.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ds),
-            _DTYPES[q.dtype], B, H, Sq, Sk, D, strides, float(scale),
+            ptr(g_lse), _DTYPES[q.dtype], B, H, Sq, Sk, D, strides, float(scale),
             int(bool(causal)), ptr(seed), t)
     if sm90:
         launches = (((_KERNEL_DQ, _KERNEL_DQ_SM90),

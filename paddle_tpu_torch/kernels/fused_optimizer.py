@@ -2,8 +2,7 @@
 PyTorch versions and their registry entries.
 
 Counterpart of paddle_tpu/kernels/fused_optimizer.py (_adam_block via
-fused_adam, _sgd_block via fused_sgd; the bucket_sweep surface is not
-ported). The kernels are in paddle_tpu_torch/csrc/fused_optimizer.cu:
+fused_adam, _sgd_block via fused_sgd, both through bucket_sweep). The kernels are in paddle_tpu_torch/csrc/fused_optimizer.cu:
 one pass over the operands that writes the new values in place, any
 length, a list of parameters a launch, with the rates read from
 one-element float32 tensors on the card (no host sync). Adam's list
@@ -33,6 +32,15 @@ op path):
     sgd:   p' = p - lr*(g + wd*p)
 The kernels round each operation separately (no fused multiply-add), so
 they give the plain versions' float32 results bit for bit.
+
+bucket_sweep is the reference's bucket surface: one Adam or SGD step over
+a comm-scheduler bucket's flat view (parallel/comm_scheduler.py), with
+the stability guard's gate and a ZeRO-1 row window, on fresh output
+buffers. Its kernels (bucket_sweep_adam, bucket_sweep_sgd) read a device
+hyper table (lr_t, nonfinite, spike, damp) and a device window
+[lo, hi) in rows of 128 lanes of the view padded to 256-row blocks, so a
+captured sweep reads them anew at each replay; bucket_sweep_plain
+follows _adam_block / _sgd_block / _gate line for line.
 """
 from __future__ import annotations
 
@@ -43,7 +51,11 @@ import torch
 from . import registry
 
 __all__ = ["adam_plain", "fused_adam", "fused_adam_multi", "sgd_plain",
-           "fused_sgd", "fused_sgd_multi"]
+           "fused_sgd", "fused_sgd_multi", "bucket_sweep",
+           "bucket_sweep_plain", "sweep_hyper", "sweep_bounds"]
+
+_LANES = 128
+_BLOCK_ROWS = 256
 
 
 def adam_plain(p, g, m, v, lr_t, beta1, beta2, epsilon, weight_decay=0.0):
@@ -243,6 +255,185 @@ def _launch_sgd(ps, gs, lr, weight_decay):
     if err != 0:
         raise RuntimeError(f"fused_sgd launch failed with CUDA error {err}")
     return ps
+
+
+# ---------------------------------------------------------------------------
+# the bucket surface (paddle_tpu/kernels/fused_optimizer.py:238-287)
+# ---------------------------------------------------------------------------
+
+def rows_padded(n: int) -> int:
+    """Rows of 128 lanes of an n-element view, padded to whole blocks of
+    256 rows (the reference's _rows_padded)."""
+    rows = -(-n // _LANES)
+    return -(-rows // _BLOCK_ROWS) * _BLOCK_ROWS
+
+
+def _on(x, dtype, device):
+    """x as a 0-d tensor of `dtype` on `device`: a tensor is converted
+    there (a captured graph reads it), a number filled in (a constant)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(()).to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def sweep_hyper(lr_t, guard, device) -> torch.Tensor:
+    """The hyper table float32 [4]: (lr_t, nonfinite, spike, damp), zeros
+    for the gate without a guard (the reference's _hyper)."""
+    nf, sp, damp = (0.0, 0.0, 0.0) if guard is None else guard
+    return torch.stack([_on(x, torch.float32, device)
+                        for x in (lr_t, nf, sp, damp)])
+
+
+def sweep_bounds(rows: int, shard, device) -> torch.Tensor:
+    """The row window int64 [2]: [0, rows) without a shard, else shard
+    (i, num)'s [i*rows/num, (i+1)*rows/num); i may be a tensor. A padded
+    row count that num does not divide raises (the reference's
+    _bounds)."""
+    if shard is None:
+        return torch.stack([_on(0, torch.int64, device),
+                            _on(rows, torch.int64, device)])
+    idx, num = shard
+    if rows % num:
+        raise ValueError(
+            "bucket rows (%d) not divisible by num_shards (%d); pad "
+            "the bucket to num_shards*128 elements" % (rows, num))
+    per = rows // num
+    lo = _on(idx, torch.int64, device) * per
+    return torch.stack([lo, lo + per])
+
+
+def _gate(new, old, nf, sp, damp):
+    """stability/guard.py _gate_value, elementwise (the reference's
+    _gate)."""
+    damped = old + (new - old) * damp
+    return torch.where(nf, old, torch.where(sp, damped, new))
+
+
+def _sqrt_rn(x):
+    """The correctly rounded float32 square root (XLA's and the kernel's
+    __fsqrt_rn): torch's float32 sqrt on the CPU is not, in about 0.7 %
+    of normal inputs; float64's, rounded to float32, is."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def bucket_sweep_plain(kind, hyper, bounds, p, g, m=None, v=None, *,
+                       beta1=0.9, beta2=0.999, epsilon=1e-8,
+                       weight_decay=0.0, gated=False):
+    """The bucket kernels' function in plain PyTorch, _adam_block /
+    _sgd_block over the flat view: returns p' (sgd) or (p', m', v')."""
+    rows = torch.arange(p.shape[0], device=p.device) // _LANES
+    inside = (rows >= bounds[0]) & (rows < bounds[1])
+    lr_t = hyper[0]
+    nf, sp, damp = hyper[1] > 0.0, hyper[2] > 0.0, hyper[3]
+    if kind == "adam":
+        m_new = beta1 * m + (1.0 - beta1) * g
+        v_new = beta2 * v + (1.0 - beta2) * g * g
+        upd = lr_t * m_new / (_sqrt_rn(v_new) + epsilon)
+        if weight_decay:
+            upd = upd + lr_t * weight_decay * p
+        p_new = p - upd
+        if gated:
+            p_new = _gate(p_new, p, nf, sp, damp)
+            m_new = _gate(m_new, m, nf, sp, damp)
+            v_new = _gate(v_new, v, nf, sp, damp)
+        return (torch.where(inside, p_new, p), torch.where(inside, m_new, m),
+                torch.where(inside, v_new, v))
+    if weight_decay:
+        g = g + weight_decay * p
+    p_new = p - lr_t * g
+    if gated:
+        p_new = _gate(p_new, p, nf, sp, damp)
+    return torch.where(inside, p_new, p)
+
+
+def bucket_sweep(kind, flat_param, flat_grad, flat_m=None, flat_v=None,
+                 *, lr, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 beta1_pow=None, beta2_pow=None, weight_decay=0.0,
+                 shard=None, guard=None):
+    """One optimizer step over a bucket's flat view (the reference's
+    bucket_sweep, same arguments and results).
+
+    kind        "adam" | "sgd".
+    flat_*      1-D float32 views in the comm scheduler's GradBucket
+                order (param and grad, plus m and v for adam).
+    lr          the rate, a number or a one-element float32 tensor; for
+                adam the bias correction lr*sqrt(1-b2p)/(1-b1p) is
+                folded on the tensors' device, in float32, when
+                beta1_pow and beta2_pow are given.
+    shard       optional (shard_index, num_shards), the index a number
+                or a tensor: only rows [i*rows/num, (i+1)*rows/num) of
+                the padded view are updated, the rest pass through.
+    guard       optional (nonfinite, spike, damp), numbers or tensors:
+                the gate of stability/guard.py _gate_value.
+
+    Numbers are constants of a captured graph; tensors are read at each
+    replay. Returns p' for sgd, (p', m', v') for adam, in new tensors.
+    On the card one launch of the bucket kernel; on the CPU (and under
+    kernels.registry.plain_reference()) bucket_sweep_plain."""
+    if kind not in ("adam", "sgd"):
+        raise ValueError("bucket_sweep kind must be adam|sgd, got %r"
+                         % (kind,))
+    dev = flat_param.device
+    n = flat_param.shape[0]
+    lr_t = lr
+    if kind == "adam" and beta1_pow is not None and beta2_pow is not None:
+        b1p = _on(beta1_pow, torch.float32, dev)
+        b2p = _on(beta2_pow, torch.float32, dev)
+        lr_t = _on(lr, torch.float32, dev) * torch.sqrt(1.0 - b2p) / \
+            (1.0 - b1p)
+    hyper = sweep_hyper(lr_t, guard, dev)
+    bounds = sweep_bounds(rows_padded(n), shard, dev)
+    bufs = (flat_param, flat_grad) + \
+        ((flat_m, flat_v) if kind == "adam" else ())
+    if dev.type == "cuda" and not registry.plain_forced():
+        return _launch_sweep(kind, hyper, bounds, bufs, beta1, beta2,
+                             epsilon, weight_decay)
+    if dev.type in ("cpu", "meta", "cuda"):
+        return bucket_sweep_plain(kind, hyper, bounds, *bufs, beta1=beta1,
+                                  beta2=beta2, epsilon=epsilon,
+                                  weight_decay=weight_decay,
+                                  gated=guard is not None)
+    raise ValueError(f"bucket_sweep: unsupported device {dev}")
+
+
+_SWEEP_ADAM_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _N, _F, _F, _F, _F,
+                    _F, _F, _P]
+_SWEEP_SGD_ARGS = [_P, _P, _P, _P, _P, _N, _F, _P]
+
+
+def _launch_sweep(kind, hyper, bounds, bufs, beta1, beta2, epsilon,
+                  weight_decay):
+    name = "bucket_sweep_" + kind
+    p = bufs[0]
+    for label, t in zip(("flat_param", "flat_grad", "flat_m", "flat_v"),
+                        bufs):
+        if t.device != p.device or t.dtype != torch.float32 or \
+                t.ndim != 1 or t.shape != p.shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous 1-D "
+                             f"float32 [{p.shape[0]}] on {p.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    outs = [torch.empty_like(p) for _ in range(3 if kind == "adam" else 1)]
+    dev = p.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if kind == "adam":
+            fn = _bind(registry.library(name), "pt_bucket_sweep_adam",
+                       _SWEEP_ADAM_ARGS)
+            err = fn(hyper.data_ptr(), bounds.data_ptr(),
+                     *(t.data_ptr() for t in bufs),
+                     *(t.data_ptr() for t in outs), p.shape[0], beta1,
+                     1.0 - beta1, beta2, 1.0 - beta2, epsilon,
+                     weight_decay, stream)
+        else:
+            fn = _bind(registry.library(name), "pt_bucket_sweep_sgd",
+                       _SWEEP_SGD_ARGS)
+            err = fn(hyper.data_ptr(), bounds.data_ptr(),
+                     *(t.data_ptr() for t in bufs), outs[0].data_ptr(),
+                     p.shape[0], weight_decay, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    registry.count_launch(name)
+    return tuple(outs) if kind == "adam" else outs[0]
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,8 @@ SOURCES = {
     "flash_attention_bwd_dq_sm90": "flash_attention_bwd_dq_sm90.cu",
     "fused_adam": "fused_optimizer.cu",
     "fused_sgd": "fused_optimizer.cu",
+    "bucket_sweep_adam": "fused_optimizer.cu",
+    "bucket_sweep_sgd": "fused_optimizer.cu",
     "quantized_matmul_int8": "quantized_matmul.cu",
     "quantized_matmul_bf16": "quantized_matmul.cu",
     "tuned_matmul": "tuned_matmul.cu",

@@ -38,6 +38,9 @@ class LayerHelper:
             name=unique_name.generate(f"{self.name}.tmp"),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_variable(self, **kwargs):
+        return self.main_program.current_block().create_var(**kwargs)
+
     def create_global_variable(self, persistable=False, **kwargs):
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)

@@ -6,8 +6,9 @@ conv2d, pool2d, softmax, mean, top_k/topk; those of ResNet:
 batch_norm, relu; those of the CTR models: flatten, concat,
 sigmoid, elementwise_sub; the recurrent layers of the sequence
 models: dynamic_lstm, dynamic_gru; the activations tanh, square and
-log; and those of the beam-search decoder: stack, gather, beam_search
-and beam_search_decode."""
+log; those of the beam-search decoder: stack, gather, beam_search
+and beam_search_decode; and those of the basic, reduce, elementwise and
+activation op families, with autoincreased_step_counter."""
 from __future__ import annotations
 
 import copy
@@ -26,13 +27,26 @@ __all__ = [
     "relu", "flatten", "concat", "sigmoid", "elementwise_sub",
     "dynamic_lstm", "dynamic_gru", "tanh", "square", "log", "stack",
     "gather", "beam_search", "beam_search_decode",
+    # the basic, reduce, elementwise and activation families
+    "reduce_mean", "reduce_max", "reduce_min", "reduce_prod", "reduce_all",
+    "reduce_any", "elementwise_max", "elementwise_min", "elementwise_pow",
+    "elementwise_mod", "elementwise_floordiv", "exp", "sqrt", "rsqrt",
+    "abs", "ceil", "floor", "cos", "sin", "round", "reciprocal",
+    "softplus", "softsign", "logsigmoid", "gelu", "tanh_shrink", "relu6",
+    "leaky_relu", "elu", "swish", "prelu", "brelu", "soft_relu", "maxout",
+    "hard_sigmoid", "selu", "pow", "hard_shrink", "softshrink",
+    "thresholded_relu", "stanh", "one_hot", "transpose", "split",
+    "unstack", "expand", "slice", "pad", "pad2d", "crop", "gather_nd",
+    "scatter", "argsort", "argmax", "argmin", "cumsum", "clip",
+    "clip_by_norm", "label_smooth", "multiplex", "shape", "size", "where",
+    "hash", "shard_index", "autoincreased_step_counter",
 ]
 
 
-def _single_op(op_type, x, attrs):
+def _single_op(op_type, x, attrs, dtype=None, in_slot="X"):
     helper = LayerHelper(op_type)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(op_type, inputs={"X": x}, outputs={"Out": out},
+    out = helper.create_variable_for_type_inference(dtype or x.dtype)
+    helper.append_op(op_type, inputs={in_slot: x}, outputs={"Out": out},
                      attrs=attrs)
     return out
 
@@ -232,6 +246,21 @@ sigmoid = _make_act("sigmoid")
 tanh = _make_act("tanh")
 square = _make_act("square")
 log = _make_act("log")
+exp = _make_act("exp")
+sqrt = _make_act("sqrt")
+rsqrt = _make_act("rsqrt")
+abs = _make_act("abs")
+ceil = _make_act("ceil")
+floor = _make_act("floor")
+cos = _make_act("cos")
+sin = _make_act("sin")
+round = _make_act("round")
+reciprocal = _make_act("reciprocal")
+softplus = _make_act("softplus")
+softsign = _make_act("softsign")
+logsigmoid = _make_act("logsigmoid")
+gelu = _make_act("gelu")
+tanh_shrink = _make_act("tanh_shrink")
 
 
 def flatten(x, axis=1, name=None):
@@ -314,14 +343,42 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
+def _reduce(op_type, input, dim, keep_dim):
     if dim is None:
         attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
     else:
         dims = dim if isinstance(dim, (list, tuple)) else [dim]
         attrs = {"reduce_all": False, "dim": list(dims),
                  "keep_dim": keep_dim}
-    return _single_op("reduce_sum", input, attrs)
+    return _single_op(op_type, input, attrs)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim)
 
 
 def fused_attention(q, k, v, bias=None, scale=None, block_q=None,
@@ -394,6 +451,26 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
 
 
 def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
@@ -502,3 +579,298 @@ def beam_search_decode(ids, scores, parent_idx, beam_size, end_id,
         attrs={"beam_size": beam_size, "end_id": end_id},
         infer_shape=False)
     return sent_ids, sent_scores
+
+
+# ---------------------------------------------------------------------------
+# the builders of the basic, reduce, elementwise and activation
+# op families (the reductions and elementwise ops are above)
+# ---------------------------------------------------------------------------
+
+def relu6(x, threshold=6.0, name=None):
+    return _single_op("relu6", x, {"threshold": threshold})
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _single_op("leaky_relu", x, {"alpha": alpha})
+
+
+def elu(x, alpha=1.0, name=None):
+    return _single_op("elu", x, {"alpha": alpha})
+
+
+def swish(x, beta=1.0, name=None):
+    return _single_op("swish", x, {"beta": beta})
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """where(x > 0, x, alpha x) with a learned alpha (0.25 at first): one
+    ("all"), one a channel ("channel") or one an element ("element")."""
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(param_attr, alpha_shape, x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", inputs={"X": x, "Alpha": alpha},
+                     outputs={"Out": out}, attrs={"mode": mode})
+    return out
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _single_op("brelu", x, {"t_min": t_min, "t_max": t_max})
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _single_op("soft_relu", x, {"threshold": threshold})
+
+
+def maxout(x, groups, name=None):
+    return _single_op("maxout", x, {"groups": groups})
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _single_op("hard_sigmoid", x, {"slope": slope,
+                                          "offset": offset})
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = scale
+    if alpha is not None:
+        attrs["alpha"] = alpha
+    return _single_op("selu", x, attrs)
+
+
+def pow(x, factor=1.0, name=None):
+    return _single_op("pow", x, {"factor": factor})
+
+
+def hard_shrink(x, threshold=0.5):
+    return _single_op("hard_shrink", x, {"threshold": threshold})
+
+
+def softshrink(x, alpha=0.5):
+    return _single_op("softshrink", x, {"lambda": alpha})
+
+
+def thresholded_relu(x, threshold=1.0):
+    return _single_op("thresholded_relu", x, {"threshold": threshold})
+
+
+def stanh(x, scale_a=2.0 / 3.0, scale_b=1.7159, name=None):
+    return _single_op("stanh", x, {"scale_a": scale_a, "scale_b": scale_b})
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    return _single_op("one_hot", input, {"depth": depth}, dtype="float32")
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("transpose2", inputs={"X": x},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """`num_or_sections` equal parts (an int) or parts of those sizes
+    along `dim`: a list of vars."""
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op("split", inputs={"X": input}, outputs={"Out": outs},
+                     attrs=attrs)
+    return outs
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", inputs={"X": x}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    return _single_op("expand", x, {"expand_times": list(expand_times)})
+
+
+def slice(input, axes, starts, ends):
+    return _single_op("slice", input, {"axes": list(axes),
+                                       "starts": list(starts),
+                                       "ends": list(ends)},
+                      in_slot="Input")
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _single_op("pad", x, {"paddings": list(paddings),
+                                 "pad_value": float(pad_value)})
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _single_op("pad2d", input,
+                      {"paddings": list(paddings), "mode": mode,
+                       "pad_value": float(pad_value)})
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    return _single_op("crop", x, {"shape": list(shape),
+                                  "offsets": list(offsets or
+                                                  [0] * len(shape))})
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather_nd", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter", inputs={"X": input, "Ids": index,
+                                        "Updates": updates},
+                     outputs={"Out": out}, attrs={"overwrite": overwrite})
+    return out
+
+
+def argsort(input, axis=-1, name=None):
+    """(sorted values, int64 indices) along `axis`."""
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("argsort", inputs={"X": input},
+                     outputs={"Out": out, "Indices": ids},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def argmax(x, axis=0):
+    return _single_op("arg_max", x, {"axis": axis}, dtype="int64")
+
+
+def argmin(x, axis=0):
+    return _single_op("arg_min", x, {"axis": axis}, dtype="int64")
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None):
+    attrs = {}
+    if axis is not None:
+        attrs["axis"] = axis
+    if exclusive is not None:
+        attrs["exclusive"] = exclusive
+    if reverse is not None:
+        attrs["reverse"] = reverse
+    return _single_op("cumsum", x, attrs)
+
+
+def clip(x, min, max, name=None):
+    return _single_op("clip", x, {"min": float(min), "max": float(max)})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_op("clip_by_norm", x, {"max_norm": float(max_norm)})
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": label}
+    if prior_dist is not None:
+        inputs["PriorDist"] = prior_dist
+    helper.append_op("label_smooth", inputs=inputs, outputs={"Out": out},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op("multiplex", inputs={"X": inputs, "Ids": index},
+                     outputs={"Out": out})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("shape", inputs={"Input": input}, outputs={"Out": out})
+    return out
+
+
+def size(input):
+    helper = LayerHelper("size")
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("size", inputs={"Input": input}, outputs={"Out": out})
+    return out
+
+
+def where(condition):
+    """int64 [N, rank]: the coordinates of the true elements (read on the
+    host: a block holding it runs eagerly)."""
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("where", inputs={"Condition": condition},
+                     outputs={"Out": out})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    return _single_op("hash", input, {"mod_by": hash_size,
+                                      "num_hash": num_hash})
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    helper = LayerHelper("shard_index")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("shard_index", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"index_num": index_num, "nshards": nshards,
+                            "shard_id": shard_id,
+                            "ignore_value": ignore_value})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 [1] counter (@STEP_COUNTER@ unless named),
+    filled with begin - step by the startup program and advanced by
+    `step` by an increment op every run of the main program, so the
+    first run reads `begin`. A captured run replays the increment on the
+    card: the counter advances at every replay."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    counter = helper.main_program.global_block()._find_var_recursive(name)
+    if counter is None:
+        counter = helper.main_program.global_block().create_var(
+            name=name, dtype="int64", shape=[1], persistable=True)
+        helper.startup_program.global_block().create_var(
+            name=name, dtype="int64", shape=[1], persistable=True)
+        helper.startup_program.global_block().append_op(
+            "fill_constant", outputs={"Out": [name]},
+            attrs={"shape": [1], "dtype": counter.dtype,
+                   "value": float(begin - step)})
+    helper.append_op("increment", inputs={"X": [name]},
+                     outputs={"Out": [name]}, attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter

@@ -17,7 +17,7 @@ __all__ = [
     "sequence_expand_as", "sequence_concat", "sequence_reverse",
     "sequence_reshape", "sequence_pad", "sequence_unpad",
     "sequence_conv", "sequence_enumerate", "sequence_scatter",
-    "im2sequence",
+    "im2sequence", "sequence_erase", "sequence_slice", "edit_distance",
 ]
 
 
@@ -162,3 +162,37 @@ def im2sequence(input, filter_size=1, stride=1, padding=0,
     return _seq_op("im2sequence", {"X": input}, input.dtype, (-1, width),
                    attrs={"kernels": filter_size, "strides": stride,
                           "paddings": padding}, name=name)
+
+
+def sequence_erase(input, tokens, name=None):
+    """input's rows without the ids in `tokens` (read on the host)."""
+    helper = LayerHelper("sequence_erase", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("sequence_erase", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"tokens": list(tokens)},
+                     infer_shape=False)
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Of each sequence, length[i] rows from its row offset[i] (both
+    read on the host)."""
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("sequence_slice", inputs={"X": input, "Offset": offset,
+                                               "Length": length},
+                     outputs={"Out": out}, infer_shape=False)
+    return out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  name=None):
+    """(distances [N, 1] float32, sequence count [1] int64) of each
+    hypothesis in `input` to its reference in `label`, on the host."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_variable_for_type_inference("float32", True)
+    seq_num = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("edit_distance", inputs={"Hyps": input, "Refs": label},
+                     outputs={"Out": out, "SequenceNum": seq_num},
+                     attrs={"normalized": normalized}, infer_shape=False)
+    return out, seq_num

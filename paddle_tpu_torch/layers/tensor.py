@@ -1,6 +1,9 @@
 """Tensor layers (counterpart of paddle_tpu/layers/tensor.py: scale,
-create_global_var, fill_constant, fill_constant_batch_size_like, zeros,
-ones, assign, increment)."""
+create_global_var, create_tensor, create_parameter, fill_constant,
+fill_constant_batch_size_like, zeros, ones, zeros_like, ones_like,
+assign, increment, cast, sums, reverse, isfinite, has_inf, has_nan,
+range, linspace, diag, eye). has_nan is has_inf, as in the JAX package:
+both give isfinite's flag."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,7 +15,9 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["scale", "create_global_var", "fill_constant",
            "fill_constant_batch_size_like", "zeros", "ones", "assign",
-           "increment"]
+           "increment", "create_tensor", "create_parameter", "cast",
+           "sums", "ones_like", "zeros_like", "reverse", "has_inf",
+           "has_nan", "isfinite", "range", "linspace", "diag", "eye"]
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -106,4 +111,122 @@ def increment(x, value=1.0, in_place=True):
         x.dtype)
     helper.append_op("increment", inputs={"X": x}, outputs={"Out": out},
                      attrs={"step": float(value)})
+    return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+    helper = LayerHelper("create_parameter")
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"in_dtype": int(x.dtype),
+                            "out_dtype": int(dtype)})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": input}, outputs={"Out": out})
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_any_like", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"value": 1.0})
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_zeros_like", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("reverse", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": [axis] if isinstance(axis, int)
+                            else list(axis)})
+    return out
+
+
+def isfinite(x):
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference("bool", True)
+    helper.append_op("isfinite", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def has_inf(x):
+    return isfinite(x)
+
+
+has_nan = has_inf
+
+
+def _scalar(v, dtype):
+    return v if isinstance(v, Variable) else fill_constant([1], dtype, v)
+
+
+def range(start, end, step, dtype):
+    """arange(start, end, step): numbers become fill_constant vars; the
+    op reads them on the host."""
+    helper = LayerHelper("range")
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("range", inputs={"Start": _scalar(start, dtype),
+                                      "End": _scalar(end, dtype),
+                                      "Step": _scalar(step, dtype)},
+                     outputs={"Out": out})
+    return out
+
+
+def linspace(start, stop, num, dtype):
+    helper = LayerHelper("linspace")
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("linspace", inputs={"Start": _scalar(start, dtype),
+                                         "Stop": _scalar(stop, dtype),
+                                         "Num": _scalar(num, "int32")},
+                     outputs={"Out": out})
+    return out
+
+
+def diag(diagonal):
+    helper = LayerHelper("diag")
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    helper.append_op("diag", inputs={"Diagonal": diagonal},
+                     outputs={"Out": out})
+    return out
+
+
+def eye(num_rows, num_columns=None, batch_shape=None, dtype="float32"):
+    helper = LayerHelper("eye")
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("eye", outputs={"Out": out},
+                     attrs={"num_rows": num_rows,
+                            "num_columns": num_columns or num_rows,
+                            "dtype": int(convert_dtype(dtype))})
     return out

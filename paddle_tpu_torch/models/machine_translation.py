@@ -16,12 +16,23 @@ named (enc_*, dec_*, src_e, tgt_e, out_*), so the decode program runs in
 the trained scope. The defaults are chapter 08's widths: dict 30000,
 word 512, hidden 512; models/seq2seq.py's wmt14_batch makes the
 training feeds.
+
+The same two programs through the contrib decoder API
+(contrib/decoder.py): contrib_train teacher-forces a TrainingDecoder
+over a dense target of one length T (`tgt_in`, `tgt_lab` int64 [B, T]),
+contrib_decode decodes with a BeamSearchDecoder. Their cell is the
+decoder step above (the dec_* parameters); the beam decoder names its
+embedding and softmax fc itself (CONTRIB_NAMES maps them to tgt_e,
+out_w, out_b). On targets of one length the DynamicRNN of mt_train and
+the TrainingDecoder's unroll run the same steps on the same rows.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .. import layers
+from ..contrib.decoder import (BeamSearchDecoder, InitState, StateCell,
+                               TrainingDecoder)
 from ..core.scope import create_lod_tensor
 from ..framework import Program, program_guard
 from ..optimizer import AdamOptimizer
@@ -133,3 +144,87 @@ def decode_feed(rng, batch, vocab, place=None, **lengths):
             "init_ids": create_lod_tensor(np.full((batch, 1), BOS, np.int64),
                                           [[1] * batch] * 2, place),
             "init_scores": np.zeros((batch, 1), np.float32)}
+
+
+def _cell(init, hidden_dim):
+    """The decoder step as a StateCell: h = tanh(fc([x, h]))."""
+    cell = StateCell(inputs={"x": None}, states={"h": InitState(init=init)},
+                     out_state="h")
+
+    @cell.state_updater
+    def _step(c):
+        c.set_state("h", layers.fc([c.get_input("x"), c.get_state("h")],
+                                   hidden_dim, act="tanh",
+                                   **_dec_step_params()))
+    return cell
+
+
+def contrib_train(lr=0.01, vocab=30000, word_dim=512, hidden_dim=512,
+                  tgt_len=26):
+    """(main, startup, avg_cost) of mt_train's model through the contrib
+    API: feeds `src` (int64, lod_level 1), `tgt_in` and `tgt_lab` (int64
+    [B, tgt_len]), AdamOptimizer(lr)."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        src = layers.data("src", [1], dtype="int64", lod_level=1)
+        tgt_in = layers.data("tgt_in", [tgt_len], dtype="int64")
+        tgt_lab = layers.data("tgt_lab", [tgt_len], dtype="int64")
+        enc_last = _encoder(src, vocab, word_dim, hidden_dim)
+        tgt_emb = layers.embedding(tgt_in, [vocab, word_dim],
+                                   param_attr=ParamAttr(name="tgt_e"))
+        cell = _cell(enc_last, hidden_dim)
+        dec = TrainingDecoder(cell)
+        with dec.block():
+            cell.compute_state({"x": dec.step_input(tgt_emb)})
+            dec.output(cell.out_state())
+            cell.update_states()
+        h = layers.reshape(dec(), [-1, hidden_dim])
+        lab = layers.reshape(tgt_lab, [-1, 1])
+        loss = layers.mean(layers.cross_entropy(_softmax_fc(h, vocab), lab))
+        AdamOptimizer(lr).minimize(loss)
+    return main, startup, loss
+
+
+# the beam decoder's own parameter names -> mt_decode's
+CONTRIB_NAMES = {"beam_search_decoder_emb.w_0": "tgt_e",
+                 "beam_search_decoder_fc.w_0": "out_w",
+                 "beam_search_decoder_fc.b_0": "out_b"}
+
+
+def contrib_decode(vocab=30000, word_dim=512, hidden_dim=512, beam=4,
+                   max_len=80):
+    """mt_decode's program through a BeamSearchDecoder (top `beam`
+    candidates a step): the same feeds and outputs; its embedding and
+    softmax fc read the parameters CONTRIB_NAMES names."""
+    prog = Program()
+    with program_guard(prog, Program()):
+        src = layers.data("src", [1], dtype="int64", lod_level=1)
+        init_ids = layers.data("init_ids", [1], dtype="int64", lod_level=2)
+        init_scores = layers.data("init_scores", [1], dtype="float32")
+        state = _encoder(src, vocab, word_dim, hidden_dim)
+        dec = BeamSearchDecoder(
+            _cell(state, hidden_dim), init_ids, init_scores,
+            target_dict_dim=vocab, word_dim=word_dim, topk_size=beam,
+            sparse_emb=False, max_len=max_len, beam_size=beam, end_id=EOS)
+        dec.decode()
+        sent_ids, sent_scores = dec()
+    return prog, sent_ids, sent_scores
+
+
+def dense_target_feed(rng, batch, vocab, tgt_len, place=None, **lengths):
+    """A training feed of `batch` pairs whose targets all have tgt_len
+    words: `src` (a LoDTensor, lengths by wmt14_lengths(**lengths)) and
+    `tgt_in` / `tgt_lab` both as dense [batch, tgt_len] arrays
+    (contrib_train's) and as LoDTensors of equal lengths (mt_train's):
+    returns (contrib feed, mt_train feed)."""
+    src_len = wmt14_lengths(rng, batch, **lengths)
+    src = create_lod_tensor(rng.integers(2, vocab, (int(src_len.sum()), 1)),
+                            [src_len.tolist()], place)
+    tgt = rng.integers(2, vocab, (batch, tgt_len)).astype(np.int64)
+    tgt_in = np.concatenate([np.full((batch, 1), BOS, np.int64),
+                             tgt[:, :-1]], axis=1)
+    lod = [[tgt_len] * batch]
+    return ({"src": src, "tgt_in": tgt_in, "tgt_lab": tgt},
+            {"src": src,
+             "tgt_in": create_lod_tensor(tgt_in.reshape(-1, 1), lod, place),
+             "tgt_lab": create_lod_tensor(tgt.reshape(-1, 1), lod, place)})

@@ -1,7 +1,10 @@
 """Elementwise binary ops with fluid's axis broadcast (counterpart of
 paddle_tpu/ops/elementwise.py): Y's shape aligns to a contiguous run of
-X's dims starting at `axis`; axis == -1 aligns trailing dims. The
-comparisons and the logical ops give bool tensors and no gradient."""
+X's dims starting at `axis`; axis == -1 aligns trailing dims; a
+Scale_out attr other than 1 scales the result. elementwise_floordiv has
+no gradient (floor's is zero, as the JAX package's vjp gives), mod the
+remainder's. The comparisons and the logical ops give bool tensors and
+no gradient."""
 from __future__ import annotations
 
 import torch
@@ -30,15 +33,30 @@ def _binary(op_type, fn):
     def _lower(ctx, _fn=fn):
         x = ctx.input("X")
         y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
-        ctx.set_output("Out", _fn(x, y))
+        out = _fn(x, y)
+        scale = ctx.attr("Scale_out", 1.0) or 1.0
+        if scale != 1.0:
+            out = out * scale
+        ctx.set_output("Out", out)
     _lower.__name__ = op_type
     return _lower
+
+
+def _floordiv(x, y):
+    """Python's floor division (numpy's); a step function, so no
+    gradient flows through it."""
+    return torch.floor_divide(x.detach(), y.detach())
 
 
 _binary("elementwise_add", torch.add)
 _binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
 _binary("elementwise_div", torch.div)
+_binary("elementwise_max", torch.maximum)
+_binary("elementwise_min", torch.minimum)
+_binary("elementwise_pow", torch.pow)
+_binary("elementwise_mod", torch.remainder)
+_binary("elementwise_floordiv", _floordiv)
 
 
 def _compare(op_type, fn):

@@ -15,9 +15,13 @@ The reductions over a sequence (sequence_pool's AVERAGE, SUM, SQRT and
 MAX, sequence_softmax) gather the rows into a padded [sequences, longest,
 ...] block, mask the padding and reduce over time: the same bits every
 run (no atomic adds), and MAX's gradient split evenly between tied
-maxima, as torch.amax and JAX's segment_max both split it. The ops whose
-output shape depends on values (sequence_erase, sequence_slice with
-tensor offsets, edit_distance) are not ported.
+maxima, as torch.amax and JAX's segment_max both split it.
+
+Three ops read values on the host, because their output's rows depend
+on them: sequence_erase (the tokens found), sequence_slice (its Offset
+and Length tensors) and edit_distance (a dynamic program over the ids).
+They cannot run on the meta device, so the engine's capture rule keeps
+a block that holds one eager, and names the op in Engine.eager_reasons.
 """
 from __future__ import annotations
 
@@ -415,3 +419,86 @@ def sequence_scatter(ctx):
     ctx.set_output("Out", x.index_put(
         (seg, ids.reshape(-1).long()), upd.reshape(-1).to(x.dtype),
         accumulate=True))
+
+
+# ---------------------------------------------------------------------------
+# value-dependent: read on the host, the block stays eager
+# ---------------------------------------------------------------------------
+
+def _host(t) -> np.ndarray:
+    """A tensor's values on the host (a sync; refused on meta)."""
+    if t.device.type == "meta":
+        raise RuntimeError("a value read on the host: no meta run")
+    return t.detach().cpu().numpy()
+
+
+@register_no_grad_op("sequence_erase")
+def sequence_erase(ctx):
+    """X's rows without those whose id is in `tokens`; the LoD shrinks
+    with them."""
+    x = ctx.input("X")
+    tokens = [int(t) for t in ctx.attr("tokens", [])]
+    off = np.asarray(_last_level(ctx.get_lod("X")), np.int64)
+    keep = ~np.isin(_host(x).reshape(-1), tokens)
+    out_off = [0]
+    for a, b in zip(off[:-1], off[1:]):
+        out_off.append(out_off[-1] + int(keep[a:b].sum()))
+    idx = torch.from_numpy(np.nonzero(keep)[0]).to(x.device)
+    ctx.set_output("Out", x.reshape(-1).index_select(0, idx).reshape(
+        (-1,) + tuple(x.shape[1:])))
+    ctx.set_lod("Out", [out_off])
+
+
+@register_op("sequence_slice", no_grad_slots=("Offset", "Length"))
+def sequence_slice(ctx):
+    """Of each sequence i, Length[i] rows from its row Offset[i]."""
+    x = ctx.input("X")
+    off = np.asarray(_last_level(ctx.get_lod("X")), np.int64)
+    o = _host(ctx.input("Offset")).reshape(-1)
+    ln = _host(ctx.input("Length")).reshape(-1)
+    idx, out_off = [], [0]
+    for i in range(len(off) - 1):
+        start = off[i] + int(o[i])
+        idx.append(np.arange(start, start + int(ln[i])))
+        out_off.append(out_off[-1] + int(ln[i]))
+    idx = np.concatenate(idx) if idx else np.arange(0)
+    ctx.set_output("Out", x.index_select(
+        0, torch.from_numpy(idx.astype(np.int64)).to(x.device)))
+    ctx.set_lod("Out", [out_off])
+
+
+def _levenshtein(a, b) -> float:
+    """The edit distance of a to b, one row of the dynamic program a
+    token of a: row[j] = min(up + 1, diagonal + (tok != b[j-1]),
+    row[j-1] + 1), the last term as a running minimum of base[k] - k
+    (plus j), so a row is a few numpy ops."""
+    b = np.asarray(b)
+    cols = np.arange(len(b) + 1, dtype=np.float32)
+    dp = cols.copy()
+    for tok in a:
+        base = np.empty_like(dp)
+        base[0] = dp[0] + 1
+        base[1:] = np.minimum(dp[1:] + 1, dp[:-1] + (b != tok))
+        dp = np.minimum.accumulate(base - cols) + cols
+    return float(dp[-1])
+
+
+@register_no_grad_op("edit_distance")
+def edit_distance(ctx):
+    """[N, 1] float32: the Levenshtein distance of each hypothesis
+    sequence to its reference (divided by the reference's length with
+    `normalized`); SequenceNum [1] int64 = N."""
+    h_off = np.asarray(_last_level(ctx.get_lod("Hyps")), np.int64)
+    r_off = np.asarray(_last_level(ctx.get_lod("Refs")), np.int64)
+    h = _host(ctx.input("Hyps")).reshape(-1)
+    r = _host(ctx.input("Refs")).reshape(-1)
+    n = len(h_off) - 1
+    out = np.zeros((n, 1), np.float32)
+    for i in range(n):
+        b = r[r_off[i]:r_off[i + 1]]
+        d = _levenshtein(h[h_off[i]:h_off[i + 1]], b)
+        out[i, 0] = d / max(len(b), 1) if ctx.attr("normalized", False) \
+            else d
+    ctx.set_output("Out", torch.from_numpy(out).to(ctx.device))
+    ctx.set_output("SequenceNum", torch.tensor([n], dtype=torch.int64,
+                                               device=ctx.device))

@@ -36,14 +36,35 @@ from test_torch_ops import _Op
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
-MIN_CHECKED = {"layers": 118, "optimizer": 40, "backward": 2,
+MIN_CHECKED = {"layers": 213, "optimizer": 40, "backward": 2,
                "initializer": 10, "param_attr": 1}
 MODULES = list(MIN_CHECKED)
 # names each module must share (the builders of the book's last two
-# models and py_func, and fluid.gradients)
+# models and py_func, fluid.gradients, and the builders of the op
+# families, the schedules and the value-dependent sequence ops)
+FAMILY_BUILDERS = {
+    "transpose", "split", "slice", "expand", "one_hot", "label_smooth",
+    "clip", "clip_by_norm", "reduce_mean", "reduce_max", "reduce_min",
+    "reduce_prod", "reduce_all", "reduce_any", "elementwise_max",
+    "elementwise_min", "elementwise_pow", "elementwise_mod",
+    "elementwise_floordiv", "exp", "sqrt", "rsqrt", "abs", "ceil", "floor",
+    "cos", "sin", "round", "reciprocal", "softplus", "softsign",
+    "logsigmoid", "gelu", "tanh_shrink", "relu6", "leaky_relu", "elu",
+    "swish", "prelu", "brelu", "soft_relu", "maxout", "hard_sigmoid",
+    "selu", "pow", "hard_shrink", "softshrink", "thresholded_relu",
+    "stanh", "unstack", "pad", "pad2d", "crop", "gather_nd", "scatter",
+    "argsort", "argmax", "argmin", "cumsum", "multiplex", "shape", "size",
+    "where", "hash", "shard_index", "autoincreased_step_counter", "acos",
+    "asin", "atan", "uniform_random", "cast", "zeros_like", "ones_like",
+    "range", "linspace", "eye", "diag", "reverse", "isfinite", "has_inf",
+    "has_nan", "sums", "create_tensor", "create_parameter", "noam_decay",
+    "exponential_decay", "natural_exp_decay", "inverse_time_decay",
+    "polynomial_decay", "piecewise_decay", "cosine_decay",
+    "linear_lr_warmup", "sequence_erase", "sequence_slice",
+    "edit_distance"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
-                       "crf_decoding", "py_func"},
+                       "crf_decoding", "py_func"} | FAMILY_BUILDERS,
             "backward": {"gradients"}}
 
 

@@ -30,7 +30,11 @@ GEMM-kernel launches a dispatch in bf16 and int8 mode, ServeServer's
 threads against the in-process engine), and the book's CRF tagger and
 beam-search decoder captured against eager bit for bit (the decoder in
 float32 and with its step GEMMs in the int8 and bf16 kernels, their
-launches counted). They skip where torch sees no CUDA device.
+launches counted), and the bucket sweep kernels against their
+plain version (every ZeRO-1 window of 4, the guard's gate, weight decay,
+views off a 16-byte boundary), flash_attention_lse with an lse
+cotangent, and every case of ops/family_cases.py on the card against
+the CPU. They skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -2429,3 +2433,108 @@ def test_beam_decode_captured_bit_equal_eager_on_card(cuda, monkeypatch,
     got = runs[True][0][0]
     assert got[0].shape == (128 * 4, 6) and got[0].dtype == np.int32
     assert np.isfinite(got[1]).all()
+
+
+# ---------------------------------------------------------------------------
+# the bucket sweep, flash_attention_lse, the op families
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+@pytest.mark.parametrize("n", [1, 129, 256 * 128 * 3 + 7],
+                         ids=["1", "129", "3blocks+7"])
+def test_bucket_sweep_kernel_equals_plain_on_card(cuda, kind, n):
+    """One launch a sweep, bit-equal to the plain version, with weight
+    decay, a guard spike, every ZeRO-1 window of 4 and views off a
+    16-byte boundary (the element-by-element path)."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    buf = torch.randn(3 * n + 1, generator=gen, device=cuda)
+    v = torch.rand(n, generator=gen, device=cuda)
+    for off in (0, 1):
+        p, g, m = (buf[off + i * n: off + (i + 1) * n] for i in range(3))
+        args = (p, g, m, v) if kind == "adam" else (p, g)
+        for shard in [None] + [(i, 4) for i in range(4)]:
+            kw = dict(lr=torch.tensor(1e-3, device=cuda),
+                      weight_decay=0.01, shard=shard,
+                      guard=(0.0, 1.0, 0.5))
+            if kind == "adam":
+                kw.update(beta1_pow=0.9 ** 3, beta2_pow=0.999 ** 3)
+            kreg.reset_counts()
+            got = fo.bucket_sweep(kind, *args, **kw)
+            torch.cuda.synchronize()
+            assert kreg.launches()["bucket_sweep_" + kind] == 1
+            with kreg.plain_reference():
+                want = fo.bucket_sweep(kind, *args, **kw)
+            got = got if kind == "adam" else (got,)
+            want = want if kind == "adam" else (want,)
+            for a, b in zip(got, want):
+                assert torch.equal(_bits(a), _bits(b)), (kind, n, shard)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_lse_on_card(cuda, dtype):
+    """g_lse = 0 gives fused_attention_backward's gradients bit for bit;
+    a random g_lse is held to float64 exact gradients (float32:
+    BWD_F32_TOL; bf16: bf16_backward_bound)."""
+    B, H, S, D = 2, 4, 96, 64
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    q, k, v, g = (torch.randn((B, H, S, D), generator=gen,
+                              device=cuda).to(dtype) for _ in range(4))
+    gl = torch.randn((B, H, S), generator=gen, device=cuda)
+    bias = torch.zeros((B, 1, 1, S), device=cuda)
+    bias[1, ..., S - 20:] = -1e9
+    scale = D ** -0.5
+    grads = {}
+    for label, lse_ct in (("zero", torch.zeros_like(gl)), ("random", gl)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse = pfa.flash_attention_lse(*leaves, bias, scale)
+        torch.autograd.backward([out, lse], [g, lse_ct])
+        grads[label] = [x.grad for x in leaves]
+    out, lse = pfa.fused_attention_forward(q, k, v, bias, scale, False,
+                                           "bhsd", return_lse=True)
+    ref = pfa.fused_attention_backward(q, k, v, bias, out, lse, g, scale,
+                                       False, "bhsd")
+    for a, b in zip(grads["zero"], ref):
+        assert torch.equal(a, b)
+    if dtype == torch.bfloat16:
+        exact, bound = pfa.bf16_backward_bound(q, k, v, bias, out, lse, g,
+                                               scale, False, "bhsd",
+                                               g_lse=gl)
+        for a, e, w in zip(grads["random"], exact, bound):
+            assert bool(((a.double() - e).abs() <= w).all())
+        return
+    qd, kd, vd = (x.double().requires_grad_() for x in (q, k, v))
+    s = qd @ kd.transpose(-1, -2) * scale + bias.double()
+    torch.autograd.backward([torch.softmax(s, -1) @ vd,
+                             torch.logsumexp(s, -1)],
+                            [g.double(), gl.double()])
+    for a, e in zip(grads["random"], (qd.grad, kd.grad, vd.grad)):
+        torch.testing.assert_close(a.double(), e, rtol=BWD_F32_TOL,
+                                   atol=BWD_F32_TOL)
+
+
+def test_op_families_on_card_equal_the_cpu(cuda):
+    """Every case of ops/family_cases.py through its lowering on the card
+    and on the CPU: float32 within F32_TOL, the rest exact, LoDs
+    equal."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    runs = [(c[0], c[1], c[2], c[3], None) for cs in fc.cases().values()
+            for c in cs]
+    runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
+             for c in fc.sequence_cases()]
+    for op_type, ins, attrs, outs, lods in runs:
+        card, clod = fc.run(op_type, ins, attrs, outs, cuda, lods)
+        cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
+        for n, v in card.items():
+            a, b = v.cpu(), cpu[n]
+            assert a.dtype == b.dtype and a.shape == b.shape, op_type
+            if a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
+            else:
+                assert torch.equal(a, b), op_type
+            assert clod[n] == plod[n], op_type

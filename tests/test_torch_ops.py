@@ -248,9 +248,12 @@ def test_every_slice_op_type_is_covered():
     and SGD are held in test_torch_lenet.py, those of ResNet and Momentum
     in test_torch_resnet.py, those of the CTR models and Adagrad in
     test_torch_ctr.py, the sequence ops in test_torch_sequence.py, the
-    recurrent ones in test_torch_rnn.py, the CRF ops in test_torch_crf.py
-    and the beam-search decoder's in test_torch_beam_search.py)."""
+    recurrent ones in test_torch_rnn.py, the CRF ops in test_torch_crf.py,
+    the beam-search decoder's in test_torch_beam_search.py and the basic,
+    reduce, elementwise and activation families in
+    test_torch_op_families.py)."""
     import test_torch_beam_search
+    import test_torch_op_families
     import test_torch_sequence
     forward = {t for t in PT_OPS.types() if not PT_OPS.get(t).is_grad_op}
     lenet = {"conv2d", "depthwise_conv2d", "pool2d", "softmax",
@@ -277,9 +280,11 @@ def test_every_slice_op_type_is_covered():
     crf = {"linear_chain_crf", "crf_decoding"}
     beam = {c[0] for c in test_torch_beam_search._UNARY} | \
         {"beam_search", "beam_search_decode"}
+    families = {c[0] for cases in test_torch_op_families.CASES.values()
+                for c in cases}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
-        beam == forward
+        beam | families == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])

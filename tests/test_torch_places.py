@@ -82,3 +82,18 @@ def test_dropout_keep_mask_takes_the_cpu_only_when_asked():
     for dev in ("cpu", torch.device("cpu")):
         keep = FA.dropout_keep_mask(1, 2, 1, 2, 4, 4, 230, dev)
         assert keep.device.type == "cpu" and keep.shape == (1, 2, 4, 4)
+
+
+def test_dense_target_feed_without_a_place_raises_without_a_card(no_card):
+    from paddle_tpu_torch.models import machine_translation as mt
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
+        mt.dense_target_feed(np.random.default_rng(0), 2, 50, 4)
+
+
+def test_dense_target_feed_takes_the_cpu_only_when_asked():
+    from paddle_tpu_torch.models import machine_translation as mt
+    dense, lod = mt.dense_target_feed(np.random.default_rng(0), 3, 50, 4,
+                                      pt.CPUPlace(), median=4.0)
+    assert dense["tgt_in"].shape == (3, 4)
+    assert lod["tgt_lab"].tensor.device.type == "cpu"
+    assert lod["tgt_lab"].lod() == [[0, 4, 8, 12]]

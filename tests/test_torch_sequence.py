@@ -8,6 +8,9 @@
   float32 values; only the order of a sum may differ), output LoDs
   equal. sequence_pool's MAX is held on tie-free data; with ties each
   package splits a maximum's gradient evenly between the tied rows.
+* sequence_erase, sequence_slice and edit_distance, which read values
+  on the host, likewise (values and output LoD), and a program holding
+  each runs eagerly with the op named in Engine.eager_reasons.
 * The engine's LoD plumbing: its _LOD_SHARING_OPS equal the JAX
   engine's as a set, embedding -> fc -> fc carries the feed's LoD to a
   fetch as the JAX engine does, create_lod_tensor and
@@ -148,6 +151,29 @@ def _cases():
                                                [2]], np.int64),
                               "Updates": _f32(r, 6, 1)},
          {"ids": [[0, 2, 5, 6]]}, {}, ["Out"], ["X", "Updates"]),
+        # the value-dependent ops (read on the host)
+        ("sequence_erase", {"X": np.array([[2], [5], [3], [5], [5], [7]],
+                                          np.int64)},
+         {"x": LOD}, {"tokens": [5, 9]}, ["Out"], []),
+        ("sequence_erase", {"X": np.array([[1], [1], [4], [2], [1], [0]],
+                                          np.int32)},
+         {"x": [[0, 3, 6]]}, {"tokens": [1]}, ["Out"], []),
+        ("sequence_slice", {"X": x, "Offset": np.array([[1], [0], [2], [0]],
+                                                       np.int64),
+                            "Length": np.array([[1], [0], [1], [1]],
+                                               np.int64)},
+         {"x": LOD}, {}, ["Out"], ["X"]),
+        ("edit_distance", {"Hyps": np.array([[1], [2], [3], [4], [4], [6]],
+                                            np.int64),
+                           "Refs": np.array([[1], [3], [3], [4], [5], [6],
+                                             [7]], np.int64)},
+         {"hyps": [[0, 3, 3, 6]], "refs": [[0, 2, 4, 7]]},
+         {"normalized": False}, ["Out", "SequenceNum"], []),
+        ("edit_distance", {"Hyps": np.array([[1], [2], [3], [4], [4], [6]],
+                                            np.int64),
+                           "Refs": np.array([[2], [3], [4], [4]], np.int64)},
+         {"hyps": [[0, 2, 6]], "refs": [[0, 1, 4]]},
+         {"normalized": True}, ["Out", "SequenceNum"], []),
     ]
     return cases
 
@@ -341,3 +367,44 @@ def test_lod_tensor_files_cross_packages(tmp_path, writer):
     got = rscope.find_var("seq_state").get_tensor()
     assert got.lod() == lod
     np.testing.assert_array_equal(np.asarray(got), data)
+
+
+def _value_dependent_program(op_type):
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    L = pt.layers
+    with pt.program_guard(main, startup):
+        ids = L.data("ids", [1], dtype="int64", lod_level=1)
+        if op_type == "sequence_erase":
+            out = L.sequence_erase(ids, tokens=[5])
+        elif op_type == "sequence_slice":
+            off = L.data("off", [1], dtype="int64")
+            ln = L.data("len", [1], dtype="int64")
+            out = L.sequence_slice(ids, off, ln)
+        else:
+            out, _ = L.edit_distance(ids, ids, normalized=False)
+    return main, out
+
+
+@pytest.mark.parametrize("op_type", ["sequence_erase", "sequence_slice",
+                                     "edit_distance"])
+def test_value_dependent_ops_keep_their_block_eager(op_type):
+    main, out = _value_dependent_program(op_type)
+    feed = {"ids": pt.create_lod_tensor(
+        np.array([[2], [5], [3], [5], [7]], np.int64), [[2, 3]],
+        pt.CPUPlace()),
+        "off": np.array([[1], [0]], np.int64),
+        "len": np.array([[1], [2]], np.int64)}
+    exe = pt.Executor(pt.CPUPlace())
+    got = [exe.run(main, feed=feed, fetch_list=[out], return_numpy=False)[0]
+           for _ in range(3)]
+    c = exe._engine.counters
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (0, 0, 3)
+    assert list(exe._engine.eager_reasons.values()) == [op_type]
+    want = {"sequence_erase": ([[2], [3], [7]], [[0, 1, 3]]),
+            "sequence_slice": ([[5], [3], [5]], [[0, 1, 3]]),
+            "edit_distance": ([[0.0], [0.0]], None)}[op_type]
+    for g in got:
+        np.testing.assert_array_equal(np.asarray(g), np.array(want[0]))
+        if want[1] is not None:
+            assert g.lod() == want[1]
