@@ -237,11 +237,17 @@
    per-parameter fused_*_multi, 4 ZeRO-1 windows (each writing only its
    own rows) together equal to the unsharded sweep, the guard's
    nonfinite (inputs back) and spike (damp 0.5) gates, a captured sweep
-   replayed with a new hyper table; timed against the plain version,
-   torch.optim.Adam(fused=True) / torch._foreach_add_ and the byte
-   bound. LR schedule phase: Transformer-base (the training phase's
-   program) under AdamOptimizer(noam_decay(512, 4000)), 5 captured runs
-   against 5 eager ones bit for bit with 18/18/18/1 launches a run and
+   replayed with a new hyper table and one replayed with new beta
+   powers and shard index (tensors); timed by queued events behind a
+   card sleep the host must finish queuing inside (its ms printed),
+   beside the profiler's time of the sweep's kernels alone (the window
+   may hold nothing but the one launch a bucket), shard 0 of 4 against
+   its own byte bound, the plain version, torch.optim.Adam(fused=True)
+   / torch._foreach_add_ and the byte bound (with --baseline, the
+   earlier checkout's sweep in turns). LR schedule phase:
+   Transformer-base (the training phase's program) under
+   AdamOptimizer(noam_decay(512, 4000)), 5 captured runs against 5
+   eager ones bit for bit with 18/18/18/1 launches a run and
    each run's rate against the schedule (LR_RTOL); ResNet-50 under
    piecewise_decay, one eager and one captured run against two eager.
    Contrib decoder phase: the book's machine translation model through
@@ -475,23 +481,11 @@ def _time_ms(fn, iters=30, warmup=3):
 
 def _queued_ms(torch, fn, iters=10):
     """Device time per call of fn from CUDA events around `iters` calls
-    queued behind torch.cuda._sleep (about 60 ms of the card's time, in
+    queued behind torch.cuda._sleep (about 50 ms of the card's time, in
     which the host queues them), so the card runs them back to back
     whatever the host takes a call: a check on the profiler's reading,
     printed beside it. Returns (ms a call, host ms to queue them)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    host = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    return start.elapsed_time(end) / iters, host
+    return _queued_inside(torch, fn, "", iters, 100_000_000, False)[:2]
 
 
 def _attn_inputs(torch, dev, dtype, layout, B, H, Sq, Sk, D, bias_kind,
@@ -5632,27 +5626,253 @@ def _sweep_checks(torch, fo, kreg, kind, state, dev):
                  f"{kind}: a replay with a new hyper table differs from "
                  f"the eager sweep")
     del graph, cap
+    # capture: the beta powers and the window's index are tensors too,
+    # changed between replays; eager takes them as numbers (value slots)
+    pows = [t.clone() for t in (b1p, b2p)]
+    idx = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.cuda.stream(side):
+        _sweep(fo, kind, st, lr, *pows, shard=(idx, SWEEP_SHARDS))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = _sweep(fo, kind, st, lr, *pows, shard=(idx, SWEEP_SHARDS))
+    for step, i in ((7, 2), (20, 3)):
+        new_pows = (0.9 ** step, 0.999 ** step)
+        for t, x in zip(pows, new_pows):
+            t.fill_(x)
+        idx.fill_(i)
+        graph.replay()
+        eager = _sweep(fo, kind, st, lr, *new_pows, shard=(i, SWEEP_SHARDS))
+        torch.cuda.synchronize()
+        _require(_bit_equal(torch, cap, eager),
+                 f"{kind}: a replay with new beta powers and shard index "
+                 f"{i} differs from the eager sweep")
+    del graph, cap
     print(f"  {kind} sweep over {len(state)} buckets: {launches} launches, "
           f"bit-equal to the plain version, to the per-parameter "
           f"fused_{kind}_multi, across {SWEEP_SHARDS} ZeRO-1 windows (each "
           f"writing only its own), under the guard (nonfinite, spike damp "
-          f"0.5) and in a replay with a new hyper table")
+          f"0.5), in a replay with a new hyper table and in replays with "
+          f"new beta powers and shard index (tensors)")
     return launches, worst
 
 
-def _time_sweep(torch, fo, kind, state, card, dev):
-    """Device time of one sweep over every bucket (one launch a bucket),
-    its plain version, the bound (28 or 12 bytes an element at the card's
-    bandwidth) and the library yardstick over the same flat tensors:
-    torch.optim.Adam(fused=True), or torch._foreach_add_."""
+SWEEP_SLEEP = 400_000_000   # card cycles the sweep timings queue behind
+
+
+def _queued_inside(torch, fn, label, iters=10, cycles=SWEEP_SLEEP,
+                   require=True):
+    """Device time per call of fn from CUDA events around `iters` calls
+    queued behind torch.cuda._sleep(cycles) (SWEEP_SLEEP: about 0.2 s),
+    the sleep timed by its own events: raises unless the host queued the
+    calls inside the sleep (else the reading holds host gaps), or with
+    `require` False returns all the same. Returns (ms a call, host ms
+    to queue them, the sleep's ms)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ev[2].record()
+    host = (time.perf_counter() - t0) * 1e3
+    ev[2].synchronize()
+    sleep = ev[0].elapsed_time(ev[1])
+    _require(host < sleep or not require,
+             f"{label}: the host took {host:.1f} ms to queue "
+                           f"{iters} calls, longer than the card's "
+                           f"{sleep:.1f} ms sleep")
+    return ev[1].elapsed_time(ev[2]) / iters, host, sleep
+
+
+# sleep kernels a sweep's profiler session launches first: a session
+# loses the events of its first one or two kernels (on the H100: 8 of a
+# sweep's 10 seen after the book models phase)
+SWEEP_PRIMERS = 4
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0   # cuda.h's CUgraphNodeType
+
+
+def _graph_kernels(torch, fn):
+    """The names of the nodes of a CUDA graph captured from one call of
+    fn, read through the driver API (cuGraphGetNodes): every kernel that
+    call queues, which no profiler can drop. A node that is no kernel
+    reads '<node type N>'."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+
+    def check(err, what):
+        _require(err == 0, f"{what} failed: CUresult {err}")
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ptr(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    nodes = (ptr * count.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != CU_GRAPH_NODE_TYPE_KERNEL:
+            names.append(f"<node type {kind.value}>")
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2 in pointer slots: func [0], kern [7]
+        params = (ptr * 16)()
+        check(cu.cuGraphKernelNodeGetParams_v2(ptr(node), params),
+              "cuGraphKernelNodeGetParams")
+        name, err = ctypes.c_char_p(), -1
+        if params[0]:
+            err = cu.cuFuncGetName(ctypes.byref(name), ptr(params[0]))
+        if err and params[7]:
+            err = cu.cuKernelGetName(ctypes.byref(name), ptr(params[7]))
+        check(err, "cuFuncGetName / cuKernelGetName")
+        names.append(name.value.decode())
+    del graph
+    return names
+
+
+def _sweep_profile(torch, fn, kind, launches):
+    """One sweep's kernels. A CUDA graph captured from one call must hold
+    `launches` nodes, each a bucket_sweep_<kind> kernel (_graph_kernels):
+    raises otherwise. Then their device ms alone, from torch.profiler:
+    each session warms up on one sweep (its events discarded), then
+    launches SWEEP_PRIMERS sleep kernels, waits for them and runs the
+    sweep; raises if that window holds any kernel but those and the
+    sweep's. The median of up to three sessions that saw exactly
+    `launches` of the sweep's kernels, out of at most eight; None, said
+    in a printed line, where none did (the profiler loses events on this
+    card: _device_ms). Returns (ms or None, the graph's node names)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    name = "bucket_sweep_" + kind
+    nodes = _graph_kernels(torch, fn)
+    _require(len(nodes) == launches and all(name in n for n in nodes),
+             f"{kind} sweep: a captured call holds {len(nodes)} nodes "
+             f"{sorted(set(n[:60] for n in nodes))}, not {launches} "
+             f"{name} kernels")
+    fn()
+    torch.cuda.synchronize()
+    reads, seen_all = [], []
+    for _ in range(8):
+        got = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: got.append(_kernels(p))) \
+                as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(SWEEP_PRIMERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        kernels = [e for e in (got[0] if got else [])
+                   if "spin_kernel" not in e.key]
+        others = [e.key[:80] for e in kernels if name not in e.key]
+        seen = sum(e.count for e in kernels if name in e.key)
+        seen_all.append(seen)
+        _require(not others, f"{kind} sweep: the profiled window holds "
+                             f"other kernels {others[:4]}")
+        if seen == launches:
+            reads.append(sum(e.self_device_time_total
+                             for e in kernels) / 1e3)
+            if len(reads) == 3:
+                break
+    if not reads:
+        print(f"  {kind} sweep: no profiler session saw exactly its "
+              f"{launches} launches (saw {seen_all}): its profiler time "
+              f"is not measured")
+        return None, nodes
+    return sorted(reads)[len(reads) // 2], nodes
+
+
+def _baseline_sweep(torch, fo, baseline, kind, state, lr, b1p, b2p):
+    """call() -> outputs of one sweep of an earlier checkout's bucket
+    kernels (its fused_optimizer.cu) over every bucket, through that
+    checkout's host route: a library without pt_bucket_sweep_args_size
+    (the design before the packed arguments) takes a device hyper table
+    and window that its wrapper made with 12 (Adam) or 7 (SGD) torch ops
+    a bucket, made here as it made them; one with it takes this
+    checkout's packed arguments."""
+    import ctypes
+    lib = _baseline_lib(baseline, "fused_optimizer.cu")
+    fn = getattr(lib, "pt_bucket_sweep_" + kind)
+    fn.restype = ctypes.c_int
+    adam = kind == "adam"
+    packed = hasattr(lib, "pt_bucket_sweep_args_size")
+    P, F, N = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
+    if packed:
+        fn.argtypes = fo._SWEEP_ADAM_ARGS if adam else fo._SWEEP_SGD_ARGS
+        _require(lib.pt_bucket_sweep_args_size() ==
+                 ctypes.sizeof(fo._SweepArgs),
+                 "the baseline's SweepArgs differs from _SweepArgs")
+    else:
+        fn.argtypes = [P] * 9 + [N] + [F] * 6 + [P] if adam else \
+            [P] * 5 + [N, F, P]
+
+    def call():
+        outs = []
+        stream = torch.cuda.current_stream().cuda_stream
+        for _, p, g, m, v, _ in state:
+            n, dev = p.numel(), p.device
+            bufs = (p, g, m, v) if adam else (p, g)
+            out = [torch.empty_like(p) for _ in bufs[1:]]
+            if packed:
+                args, keep = fo.sweep_args(n, lr, b1p if adam else None,
+                                           b2p if adam else None,
+                                           device=dev)
+                head = [ctypes.byref(args)]
+            else:
+                rate = fo._on(lr, torch.float32, dev)
+                if adam:
+                    rate = rate * torch.sqrt(1.0 - b2p.reshape(())) / \
+                        (1.0 - b1p.reshape(()))
+                hyper = fo.sweep_hyper(rate, None, dev)
+                bounds = fo.sweep_bounds(fo.rows_padded(n), None, dev)
+                head = [hyper.data_ptr(), bounds.data_ptr()]
+            tail = [n, 0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-8, 0.0] \
+                if adam else [n, 0.0]
+            err = fn(*head, *(t.data_ptr() for t in bufs + tuple(out)),
+                     *tail, stream)
+            _require(err == 0, f"baseline bucket_sweep_{kind} failed: "
+                               f"{err}")
+            outs.append(out)
+        return outs
+    return call
+
+
+def _time_sweep(torch, fo, kind, state, card, dev, baseline=None):
+    """Device time of one sweep over every bucket (one launch a bucket):
+    queued events around ten sweeps behind a card sleep the host must
+    finish queuing inside (the row's time, and the host's ms to queue
+    them), beside the profiler's time of the sweep's kernels alone (the
+    window may hold nothing else); shard 0 of SWEEP_SHARDS (ZeRO-1) against
+    its own bound; its plain version; the bound (Adam 28 bytes an element,
+    SGD 12; outside a window 24 and 8); and the library yardstick over the
+    same flat tensors: torch.optim.Adam(fused=True), or
+    torch._foreach_add_. With `baseline` (an earlier checkout) its sweep
+    in turns with this one's (baseline, this, this, baseline), equal
+    results required."""
     _, _, peak_bw, _, _ = _peaks(card)
     lr = torch.tensor([SWEEP_LR], device=dev)
     b1p, b2p = _sweep_pows(torch, dev)
     n = sum(st[1].numel() for st in state)
 
-    def kernel():
-        for st in state:
-            _sweep(fo, kind, st, lr, b1p, b2p)
+    def kernel(**kw):
+        return [_sweep(fo, kind, st, lr, b1p, b2p, **kw) for st in state]
 
     from paddle_tpu_torch.kernels import registry as kreg
 
@@ -5660,8 +5880,33 @@ def _time_sweep(torch, fo, kind, state, card, dev):
         with kreg.plain_reference():
             kernel()
 
-    ms, host = _queued_ms(torch, kernel)
+    label = f"{kind} sweep"
+    ms, host, sleep = _queued_inside(torch, kernel, label)
+    prof, nodes = _sweep_profile(torch, kernel, kind, len(state))
+
+    def shard():
+        return kernel(shard=(0, SWEEP_SHARDS))
+
+    shard_ms, _, _ = _queued_inside(torch, shard, label + ", shard 0")
     pl = _time_ms(plain, iters=3, warmup=1)
+    base_ms = None
+    if baseline:
+        base = _baseline_sweep(torch, fo, baseline, kind, state, lr, b1p,
+                               b2p)
+        _require(all(_bit_equal(torch, a, b)
+                     for a, b in zip(base(), kernel())),
+                 f"the baseline's {kind} sweep disagrees")
+        # the earlier route queues 13 (Adam) or 8 launches a bucket: more
+        # than the launch queue holds, so its host outlasts the sleep
+        turns = [_queued_inside(torch, f, label, require=False)
+                 for f in (base, kernel, kernel, base)]
+        base_ms = (turns[0][0] + turns[3][0]) / 2
+        print(f"  {kind} sweep: the baseline checkout's {base_ms:.4f} ms "
+              f"against this one's {(turns[1][0] + turns[2][0]) / 2:.4f} "
+              f"ms (queued events, in turns: "
+              f"{', '.join(f'{t[0]:.4f}' for t in turns)}; host ms to "
+              f"queue 10: {', '.join(f'{t[1]:.1f}' for t in turns)}, "
+              f"the card's sleep {turns[0][2]:.1f} ms; equal results)")
     params = [st[1].clone() for st in state]
     grads = [st[2].clone() for st in state]
     if kind == "adam":
@@ -5669,21 +5914,33 @@ def _time_sweep(torch, fo, kind, state, card, dev):
         for prm, g in zip(leaves, grads):
             prm.grad = g
         opt = torch.optim.Adam(leaves, lr=SWEEP_LR, fused=True)
-        lib, _ = _queued_ms(torch, opt.step)
+        lib, _, _ = _queued_inside(torch, opt.step, "Adam(fused=True)")
         del opt, leaves
     else:
-        lib, _ = _queued_ms(torch, lambda: torch._foreach_add_(
-            params, grads, alpha=-SWEEP_LR))
+        lib, _, _ = _queued_inside(torch, lambda: torch._foreach_add_(
+            params, grads, alpha=-SWEEP_LR), "_foreach_add_")
     del params, grads
     per = 28 if kind == "adam" else 12
     bound = per * n / peak_bw * 1e3
+    inside = sum(min(st[1].numel(), fo.rows_padded(st[1].numel())
+                     // SWEEP_SHARDS * 128) for st in state)
+    shard_bound = (per * inside + (per - 4) * (n - inside)) / peak_bw * 1e3
     print(f"  {kind} sweep over {len(state)} buckets, {n} elements: kernel "
           f"{ms:.4f} ms ({len(state)} launches, queued events; host "
-          f"{host:.1f} ms to queue 10), plain {pl:.4f} ms, library "
-          f"{lib:.4f} ms, bound {bound:.4f} ms ({per} B x {n})")
+          f"{host:.1f} ms to queue 10 inside the card's {sleep:.1f} ms "
+          f"sleep; a captured call holds {len(nodes)} graph nodes, each a "
+          f"bucket_sweep_{kind} kernel), the profiler "
+          f"{'not measured' if prof is None else f'{prof:.4f} ms'} for "
+          f"the {len(state)} kernels alone (nothing else in the window), "
+          f"plain {pl:.4f} "
+          f"ms, library {lib:.4f} ms, bound {bound:.4f} ms ({per} B x "
+          f"{n}); shard 0 of {SWEEP_SHARDS} {shard_ms:.4f} ms against its "
+          f"bound {shard_bound:.4f} ms ({per} B x {inside} inside, "
+          f"{per - 4} B x {n - inside} outside)")
     return {"ms": ms, "plain_ms": pl, "library_ms": lib, "bound_ms": bound,
-            "bound_by": "bytes"}
-
+            "bound_by": "bytes", "profiler_ms": prof, "host_ms": host,
+            "shard_ms": shard_ms, "shard_bound_ms": shard_bound,
+            "baseline_ms": base_ms}
 
 
 BWD_F32_TOL = 1e-4   # tests/test_torch_cuda.py's float32 backward tolerance
@@ -5785,12 +6042,13 @@ def flash_lse_phase(torch, dev):
     return launches, worst
 
 
-def bucket_sweep_phase(torch, dev, card, built):
+def bucket_sweep_phase(torch, dev, card, built, baseline=None):
     """kernels.fused_optimizer.bucket_sweep over Transformer-base's planned
     buckets at full width: Adam then SGD, each held to its plain version,
-    the per-parameter update, the ZeRO-1 windows, the guard's gate and a
-    captured replay; then timed. Returns ({kind: launches}, {kind:
-    worst}, {kind: times})."""
+    the per-parameter update, the ZeRO-1 windows, the guard's gate and
+    captured replays; then timed (with `baseline`, an earlier checkout's
+    sweep in turns). Returns ({kind: launches}, {kind: worst}, {kind:
+    times})."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import fused_optimizer as fo
     from paddle_tpu_torch.kernels import registry as kreg
@@ -5800,7 +6058,8 @@ def bucket_sweep_phase(torch, dev, card, built):
         launches[kind], worst[kind] = _sweep_checks(torch, fo, kreg, kind,
                                                     state, dev)
     for kind in ("adam", "sgd"):
-        times[kind] = _time_sweep(torch, fo, kind, state, card, dev)
+        times[kind] = _time_sweep(torch, fo, kind, state, card, dev,
+                                  baseline)
     del state
     gc_cuda(torch)
     return launches, worst, times
@@ -6121,8 +6380,8 @@ def main(argv=None):
     ap.add_argument("--baseline", metavar="DIR",
                     help="an earlier checkout of this repo: time its "
                          "CUDA-core attention forward, SGD and Adam "
-                         "kernels and quantized GEMM in turns with this "
-                         "one's")
+                         "kernels, quantized GEMM and bucket sweeps in "
+                         "turns with this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6264,7 +6523,7 @@ def main(argv=None):
     lse_launches, _ = flash_lse_phase(torch, dev)
     print("[bucket sweep phase]")
     sweep_launches, sweep_worst, sweep_times = bucket_sweep_phase(
-        torch, dev, card, built)
+        torch, dev, card, built, args.baseline)
     print("[lr schedule phase]")
     lr_adam = lr_schedule_phase(torch, dev)
     print("[contrib decoder phase]")

@@ -70,18 +70,40 @@
 // applied to p', m' and v' alike, and the ZeRO-1 row window _row_mask
 // (:101) over _bounds (:182): the view counts rows of 128 lanes, and only
 // the elements of rows [lo, hi) are updated; the rest are written back
-// unchanged. The hyper table (lr_t, nonfinite, spike, damp: four float32)
-// and the window (lo, hi: two int64) are read from device memory, so a
-// CUDA graph that captured a sweep reads them anew at every replay.
-// Unlike the list kernels it writes p', m' and v' to fresh buffers, as
-// the reference returns new arrays.
+// unchanged. Unlike the list kernels it writes p', m' and v' to fresh
+// buffers, as the reference returns new arrays.
 //
-// What bounds it: as the list kernels, HBM bandwidth (Adam 28 bytes per
-// element, SGD 12). What the design does about that: one launch a bucket,
-// a grid-stride loop of float4 loads and stores where every pointer is
-// 16-byte aligned (a window's edges are multiples of 128 elements, so no
-// float4 straddles one), else element by element; the gate and the window
-// are selects on values already in registers, so they add no access.
+// What bounds it: HBM bandwidth, as the list kernels: Adam 28 bytes an
+// element inside the window and 24 outside (no gradient read), SGD 12
+// and 8 (Transformer-base's 10 buckets, 93.3M elements: 0.78 and 0.33 ms
+// at 3.35 TB/s). Launches matter too, at one a bucket: the reference
+// builds its hyper table (lr_t, nonfinite, spike, damp) and its window
+// with scalar ops, which on the card are 12 (Adam) or 7 (SGD) kernels
+// ahead of every sweep launch.
+//
+// What the design does about that. No work on the card but the sweep's
+// launch: its scalars travel by value in the kernel's parameters
+// (SweepArgs), each as a pointer to one value on the card where the
+// caller passed a tensor (read at each launch, so a captured graph
+// rereads it at each replay) or as the value itself (a graph constant);
+// the kernel folds the bias correction lr*sqrt(1-b2p)/(1-b1p) in the
+// adam op's order and finds its window [idx*per, idx*per + per) rows from
+// the index and the rows a window holds. The body: one block of 256
+// threads a chunk of 2048 elements; each thread issues all its streaming
+// float4 loads before any arithmetic and writes with streaming stores.
+// The window is decided once a chunk: a chunk outside it reads no
+// gradient and is copied through, one inside compares nothing, and only
+// a chunk that an edge cuts (edges are multiples of 128 elements, so no
+// float4 straddles one) selects a float4 at a time; a nonfinite step is
+// an empty window. The launches are stream-ordered (programmatic
+// dependent launch: sweep_stream_order), so one launch of a sweep starts
+// during the tail of the one before. A view off a 16-byte boundary, or
+// of a length 4 does not divide, takes an element-by-element grid-stride
+// kernel. (A design that fed shared memory from a ring of 1-D bulk
+// copies, a persistent grid and a copy-issuing warp, ran 3-5 % slower on
+// the H100 at these sizes: PERF.md.)
+// Each operation is rounded on its own, as in the list kernels, so the
+// sweep equals its plain version bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -291,142 +313,262 @@ __global__ void __launch_bounds__(NTHREADS)
 // bucket sweep (ZeRO-1 row window, guard gate)
 // ---------------------------------------------------------------------------
 
-constexpr int SWEEP_LANES = 128;     // a row of the reference's view
-constexpr int SWEEP_MAX_BLOCKS = 132 * 16;
+constexpr int SWEEP_LANES = 128;    // a row of the reference's view
+// elements a block updates: a multiple of 128, so a window edge (a
+// multiple of 128) never cuts a float4
+constexpr int SWEEP_CHUNK = 2048;
+constexpr int SWEEP_ITERS = SWEEP_CHUNK / 4 / NTHREADS;  // float4s a thread
+static_assert(SWEEP_CHUNK % (4 * NTHREADS) == 0 &&
+                  SWEEP_CHUNK % SWEEP_LANES == 0,
+              "a chunk is whole float4s of every thread and whole rows");
+constexpr int SWEEP_ELEM_BLOCKS = 132 * 16;  // the element path's grid cap
+
+// A scalar of the sweep: read from the card at each launch where `ptr` is
+// set (the caller passed a tensor: a captured graph rereads it at each
+// replay), else `value` (a number: a constant of the graph).
+struct SweepScalar {
+  const float* ptr;
+  float value;
+};
+struct SweepIndex {
+  const int64_t* ptr;
+  int64_t value;
+};
+
+// The scalars as the wrapper packs them (kernels/fused_optimizer.py
+// _SweepArgs mirrors this layout; pt_bucket_sweep_args_size checks it).
+struct SweepArgs {
+  SweepScalar lr, beta1_pow, beta2_pow, nonfinite, spike, damp;
+  SweepIndex shard;  // the window's index
+  int64_t per;       // rows of 128 a window holds
+  int fold;          // 1: lr_t = lr*sqrt(1-b2p)/(1-b1p); 0: lr_t = lr
+};
+
+struct SweepParams {
+  SweepArgs a;
+  const float* in[4];  // p, g, m, v (sgd: p, g)
+  float* out[3];       // p', m', v' (sgd: p')
+  int64_t n;
+  float b1, one_minus_b1, b2, one_minus_b2, eps, wd;
+};
 
 struct SweepHyper {
   float lr, damp;
-  bool nonfinite, spike;
+  bool spike;
   int64_t lo, hi;  // the window, in elements
 };
 
-__device__ __forceinline__ SweepHyper load_sweep(const float* hyper,
-                                                 const int64_t* bounds) {
+__device__ __forceinline__ float sweep_read(const SweepScalar& s) {
+  return s.ptr ? *s.ptr : s.value;
+}
+
+// The launch's scalars: the adam op's bias correction in its order
+// (adam_multi_kernel's), and the window [idx*per, idx*per + per) rows. A
+// nonfinite step returns every element unchanged (the gate's `old`): an
+// empty window.
+__device__ __forceinline__ SweepHyper load_sweep(const SweepArgs& a) {
   SweepHyper s;
-  s.lr = hyper[0];
-  s.nonfinite = hyper[1] > 0.0f;
-  s.spike = hyper[2] > 0.0f;
-  s.damp = hyper[3];
-  s.lo = bounds[0] * SWEEP_LANES;
-  s.hi = bounds[1] * SWEEP_LANES;
+  float lr = sweep_read(a.lr);
+  if (a.fold) {
+    const float b1p = sweep_read(a.beta1_pow);
+    const float b2p = sweep_read(a.beta2_pow);
+    lr = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.0f, b2p))),
+                   __fsub_rn(1.0f, b1p));
+  }
+  s.lr = lr;
+  s.spike = sweep_read(a.spike) > 0.0f;
+  s.damp = sweep_read(a.damp);
+  const int64_t idx = a.shard.ptr ? *a.shard.ptr : a.shard.value;
+  const bool nonfinite = sweep_read(a.nonfinite) > 0.0f;
+  s.lo = nonfinite ? 0 : idx * a.per * SWEEP_LANES;
+  s.hi = nonfinite ? 0 : s.lo + a.per * SWEEP_LANES;
   return s;
 }
 
-// stability/guard.py _gate_value: old + (new - old)*damp on a spike,
-// old on a nonfinite step
-__device__ __forceinline__ float gate(float nw, float old, const SweepHyper& s) {
-  const float damped = __fadd_rn(old, __fmul_rn(__fsub_rn(nw, old), s.damp));
-  return s.nonfinite ? old : (s.spike ? damped : nw);
+__device__ __forceinline__ AdamHyper adam_hyper(const SweepParams& prm,
+                                                const SweepHyper& s) {
+  AdamHyper h;
+  h.b1 = prm.b1;
+  h.one_minus_b1 = prm.one_minus_b1;
+  h.b2 = prm.b2;
+  h.one_minus_b2 = prm.one_minus_b2;
+  h.eps = prm.eps;
+  h.wd = prm.wd;
+  h.lr_t = s.lr;
+  h.lr_wd = __fmul_rn(s.lr, prm.wd);
+  return h;
 }
 
+// stability/guard.py _gate_value on a spike: old + (new - old)*damp
+__device__ __forceinline__ float damped(float nw, float old, float damp) {
+  return __fadd_rn(old, __fmul_rn(__fsub_rn(nw, old), damp));
+}
+
+// one element of the window
 __device__ __forceinline__ void sweep_adam(float& p, float g, float& m,
-                                           float& v, bool inside,
-                                           const AdamHyper& h,
+                                           float& v, const AdamHyper& h,
                                            const SweepHyper& s) {
   float pn = p, mn = m, vn = v;
   adam_step(pn, g, mn, vn, h);
-  if (inside) {
-    p = gate(pn, p, s);
-    m = gate(mn, m, s);
-    v = gate(vn, v, s);
-  }
+  p = s.spike ? damped(pn, p, s.damp) : pn;
+  m = s.spike ? damped(mn, m, s.damp) : mn;
+  v = s.spike ? damped(vn, v, s.damp) : vn;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    bucket_sweep_adam_kernel(const float* __restrict__ hyper,
-                             const int64_t* __restrict__ bounds,
-                             const float* __restrict__ p,
-                             const float* __restrict__ g,
-                             const float* __restrict__ m,
-                             const float* __restrict__ v,
-                             float* __restrict__ po, float* __restrict__ mo,
-                             float* __restrict__ vo, int64_t n, float b1,
-                             float one_minus_b1, float b2,
-                             float one_minus_b2, float eps, float wd,
-                             int vec4) {
-  const SweepHyper s = load_sweep(hyper, bounds);
+__device__ __forceinline__ float sweep_sgd(float p, float g, float wd,
+                                           const SweepHyper& s) {
+  const float pn = sgd_step(p, g, s.lr, wd);
+  return s.spike ? damped(pn, p, s.damp) : pn;
+}
+
+// Stream-ordered launches (programmatic dependent launch): each block
+// lets the next launch on the stream start as soon as every block of this
+// one has started, then waits until the launch before it has finished and
+// its writes are visible, before it reads anything. Back to back, the
+// sweep's launches overlap one's tail with the next one's start, and no
+// read runs ahead of the work it depends on.
+__device__ __forceinline__ void sweep_stream_order() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// One chunk of SWEEP_CHUNK elements a block: every thread issues all its
+// streaming float4 loads (SWEEP_ITERS of each operand) before any
+// arithmetic, then updates and stores them (streaming: every byte is
+// touched once). A chunk outside the window loads no gradient and is
+// copied through; one inside compares nothing; only a chunk that a window
+// edge cuts compares a float4 at a time. NOPS: the operands (p, g, m, v:
+// 4; p, g: 2).
+template <int NOPS>
+__device__ __forceinline__ void sweep_chunk(const SweepParams& prm) {
+  sweep_stream_order();
+  const SweepHyper s = load_sweep(prm.a);
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * SWEEP_CHUNK;
+  const int64_t end = min(prm.n, start + SWEEP_CHUNK);
+  const bool outside = end <= s.lo || start >= s.hi;
+  const bool inside = start >= s.lo && end <= s.hi;
+  const int len4 = static_cast<int>(end - start) >> 2;
+  const float4* in[NOPS];
+  for (int k = 0; k < NOPS; ++k)
+    in[k] = reinterpret_cast<const float4*>(prm.in[k] + start);
+  float4 x[SWEEP_ITERS], y[SWEEP_ITERS], mm[SWEEP_ITERS], vv[SWEEP_ITERS];
+#pragma unroll
+  for (int i = 0; i < SWEEP_ITERS; ++i) {
+    const int j = threadIdx.x + i * NTHREADS;
+    if (j < len4) {
+      x[i] = __ldcs(in[0] + j);
+      if constexpr (NOPS == 4) {
+        mm[i] = __ldcs(in[2] + j);
+        vv[i] = __ldcs(in[3] + j);
+      }
+      if (!outside) y[i] = __ldcs(in[1] + j);
+    }
+  }
   AdamHyper h;
-  h.b1 = b1;
-  h.one_minus_b1 = one_minus_b1;
-  h.b2 = b2;
-  h.one_minus_b2 = one_minus_b2;
-  h.eps = eps;
-  h.wd = wd;
-  h.lr_t = s.lr;
-  h.lr_wd = __fmul_rn(s.lr, wd);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * NTHREADS;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * NTHREADS +
-                        threadIdx.x;
-  if (vec4) {
-    const int64_t nv = n >> 2;
-    for (int64_t j = first; j < nv; j += stride) {
-      const bool inside = 4 * j >= s.lo && 4 * j < s.hi;
-      float4 x = reinterpret_cast<const float4*>(p)[j];
-      float4 mm = reinterpret_cast<const float4*>(m)[j];
-      float4 vv = reinterpret_cast<const float4*>(v)[j];
-      const float4 y = __ldg(reinterpret_cast<const float4*>(g) + j);
-      sweep_adam(x.x, y.x, mm.x, vv.x, inside, h, s);
-      sweep_adam(x.y, y.y, mm.y, vv.y, inside, h, s);
-      sweep_adam(x.z, y.z, mm.z, vv.z, inside, h, s);
-      sweep_adam(x.w, y.w, mm.w, vv.w, inside, h, s);
-      reinterpret_cast<float4*>(po)[j] = x;
-      reinterpret_cast<float4*>(mo)[j] = mm;
-      reinterpret_cast<float4*>(vo)[j] = vv;
+  if constexpr (NOPS == 4) h = adam_hyper(prm, s);
+#pragma unroll
+  for (int i = 0; i < SWEEP_ITERS; ++i) {
+    const int j = threadIdx.x + i * NTHREADS;
+    if (j >= len4) break;
+    const bool upd = !outside && (inside || (start + 4 * j >= s.lo &&
+                                             start + 4 * j < s.hi));
+    if constexpr (NOPS == 4) {
+      if (upd) {
+        sweep_adam(x[i].x, y[i].x, mm[i].x, vv[i].x, h, s);
+        sweep_adam(x[i].y, y[i].y, mm[i].y, vv[i].y, h, s);
+        sweep_adam(x[i].z, y[i].z, mm[i].z, vv[i].z, h, s);
+        sweep_adam(x[i].w, y[i].w, mm[i].w, vv[i].w, h, s);
+      }
+      __stcs(reinterpret_cast<float4*>(prm.out[1] + start) + j, mm[i]);
+      __stcs(reinterpret_cast<float4*>(prm.out[2] + start) + j, vv[i]);
+    } else if (upd) {
+      x[i].x = sweep_sgd(x[i].x, y[i].x, prm.wd, s);
+      x[i].y = sweep_sgd(x[i].y, y[i].y, prm.wd, s);
+      x[i].z = sweep_sgd(x[i].z, y[i].z, prm.wd, s);
+      x[i].w = sweep_sgd(x[i].w, y[i].w, prm.wd, s);
     }
-    return;
+    __stcs(reinterpret_cast<float4*>(prm.out[0] + start) + j, x[i]);
   }
-  for (int64_t e = first; e < n; e += stride) {
-    float pe = p[e], me = m[e], ve = v[e];
-    sweep_adam(pe, g[e], me, ve, e >= s.lo && e < s.hi, h, s);
-    po[e] = pe;
-    mo[e] = me;
-    vo[e] = ve;
-  }
-}
-
-__device__ __forceinline__ float sweep_sgd(float p, float g, bool inside,
-                                           float wd, const SweepHyper& s) {
-  return inside ? gate(sgd_step(p, g, s.lr, wd), p, s) : p;
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-    bucket_sweep_sgd_kernel(const float* __restrict__ hyper,
-                            const int64_t* __restrict__ bounds,
-                            const float* __restrict__ p,
-                            const float* __restrict__ g,
-                            float* __restrict__ po, int64_t n, float wd,
-                            int vec4) {
-  const SweepHyper s = load_sweep(hyper, bounds);
+    bucket_sweep_adam_kernel(const __grid_constant__ SweepParams prm) {
+  sweep_chunk<4>(prm);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    bucket_sweep_sgd_kernel(const __grid_constant__ SweepParams prm) {
+  sweep_chunk<2>(prm);
+}
+
+// The element path: a view off a 16-byte boundary or of a length that 4
+// does not divide, a grid-stride loop an element at a time.
+__global__ void __launch_bounds__(NTHREADS)
+    bucket_sweep_adam_elem_kernel(const __grid_constant__ SweepParams prm) {
+  const SweepHyper s = load_sweep(prm.a);
+  const AdamHyper h = adam_hyper(prm, s);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * NTHREADS;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * NTHREADS +
-                        threadIdx.x;
-  if (vec4) {
-    const int64_t nv = n >> 2;
-    for (int64_t j = first; j < nv; j += stride) {
-      const bool inside = 4 * j >= s.lo && 4 * j < s.hi;
-      float4 x = reinterpret_cast<const float4*>(p)[j];
-      const float4 y = __ldg(reinterpret_cast<const float4*>(g) + j);
-      x.x = sweep_sgd(x.x, y.x, inside, wd, s);
-      x.y = sweep_sgd(x.y, y.y, inside, wd, s);
-      x.z = sweep_sgd(x.z, y.z, inside, wd, s);
-      x.w = sweep_sgd(x.w, y.w, inside, wd, s);
-      reinterpret_cast<float4*>(po)[j] = x;
-    }
-    return;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NTHREADS + threadIdx.x;
+       e < prm.n; e += stride) {
+    float pe = prm.in[0][e], me = prm.in[2][e], ve = prm.in[3][e];
+    if (e >= s.lo && e < s.hi) sweep_adam(pe, prm.in[1][e], me, ve, h, s);
+    prm.out[0][e] = pe;
+    prm.out[1][e] = me;
+    prm.out[2][e] = ve;
   }
-  for (int64_t e = first; e < n; e += stride)
-    po[e] = sweep_sgd(p[e], g[e], e >= s.lo && e < s.hi, wd, s);
 }
 
-bool aligned16(const void* const* ptrs, int count) {
-  for (int i = 0; i < count; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return false;
-  return true;
+__global__ void __launch_bounds__(NTHREADS)
+    bucket_sweep_sgd_elem_kernel(const __grid_constant__ SweepParams prm) {
+  const SweepHyper s = load_sweep(prm.a);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * NTHREADS;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NTHREADS + threadIdx.x;
+       e < prm.n; e += stride) {
+    const float pe = prm.in[0][e];
+    prm.out[0][e] = e >= s.lo && e < s.hi
+                        ? sweep_sgd(pe, prm.in[1][e], prm.wd, s)
+                        : pe;
+  }
 }
 
-unsigned sweep_blocks(int64_t work) {
-  const int64_t b = (work + NTHREADS - 1) / NTHREADS;
-  return static_cast<unsigned>(b < 1 ? 1 : (b > SWEEP_MAX_BLOCKS ? SWEEP_MAX_BLOCKS : b));
+// Launches one sweep: the chunked kernel where every pointer is 16-byte
+// aligned and 4 divides n, else the element path.
+template <int NOPS>
+int launch_sweep(const SweepParams& prm, cudaStream_t stream) {
+  if (prm.n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  bool vec4 = prm.n % 4 == 0;
+  for (int i = 0; i < NOPS; ++i)
+    vec4 = vec4 && (reinterpret_cast<uintptr_t>(prm.in[i]) & 15) == 0;
+  for (int i = 0; i < NOPS - 1; ++i)
+    vec4 = vec4 && (reinterpret_cast<uintptr_t>(prm.out[i]) & 15) == 0;
+  if (!vec4) {
+    const int64_t b = (prm.n + NTHREADS - 1) / NTHREADS;
+    const unsigned grid = static_cast<unsigned>(
+        b < 1 ? 1 : (b > SWEEP_ELEM_BLOCKS ? SWEEP_ELEM_BLOCKS : b));
+    if constexpr (NOPS == 4)
+      bucket_sweep_adam_elem_kernel<<<grid, NTHREADS, 0, stream>>>(prm);
+    else
+      bucket_sweep_sgd_elem_kernel<<<grid, NTHREADS, 0, stream>>>(prm);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t chunks = (prm.n + SWEEP_CHUNK - 1) / SWEEP_CHUNK;
+  if (chunks > 0x7FFFFFFF)  // the grid's x limit
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(chunks < 1 ? 1 : chunks));
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute order;
+  order.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  order.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &order;
+  cfg.numAttrs = 1;
+  if constexpr (NOPS == 4)
+    return static_cast<int>(
+        cudaLaunchKernelEx(&cfg, bucket_sweep_adam_kernel, prm));
+  else
+    return static_cast<int>(
+        cudaLaunchKernelEx(&cfg, bucket_sweep_sgd_kernel, prm));
 }
 
 }  // namespace
@@ -535,44 +677,54 @@ extern "C" int pt_fused_sgd_multi(void* const* p, const void* const* g,
   return 0;
 }
 
+// The size of SweepArgs, for the wrapper's check of its ctypes mirror.
+extern "C" int pt_bucket_sweep_args_size() {
+  return static_cast<int>(sizeof(SweepArgs));
+}
+
 // One Adam step over a bucket's flat view of n elements: p, g, m, v float32
-// [n] in; po, mo, vo float32 [n] out (fresh buffers). hyper: float32 [4] on
-// the card (lr_t, nonfinite, spike, damp); bounds: int64 [2] on the card,
-// the window [lo, hi) in rows of 128 elements. One launch. Returns the
-// cudaError_t of the launch, or 0.
-extern "C" int pt_bucket_sweep_adam(const void* hyper, const void* bounds,
-                                    const void* p, const void* g,
-                                    const void* m, const void* v, void* po,
-                                    void* mo, void* vo, int64_t n, float b1,
+// [n] in; po, mo, vo float32 [n] out (fresh buffers). args: a SweepArgs
+// (a C type of internal linkage, hence void*): the scalars (rate, beta
+// powers, guard, window index), each a value or a pointer to one on the
+// card, and the window's rows. One launch, no other work on
+// the card. Returns the cudaError_t of the launch, or 0.
+extern "C" int pt_bucket_sweep_adam(const void* args, const void* p,
+                                    const void* g, const void* m,
+                                    const void* v, void* po, void* mo,
+                                    void* vo, int64_t n, float b1,
                                     float one_minus_b1, float b2,
                                     float one_minus_b2, float eps, float wd,
                                     void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[] = {p, g, m, v, po, mo, vo};
-  const int vec4 = (n % 4 == 0) && aligned16(ptrs, 7);
-  bucket_sweep_adam_kernel<<<sweep_blocks(vec4 ? n / 4 : n), NTHREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hyper), static_cast<const int64_t*>(bounds),
-      static_cast<const float*>(p), static_cast<const float*>(g),
-      static_cast<const float*>(m), static_cast<const float*>(v),
-      static_cast<float*>(po), static_cast<float*>(mo),
-      static_cast<float*>(vo), n, b1, one_minus_b1, b2, one_minus_b2, eps, wd,
-      vec4);
-  return static_cast<int>(cudaGetLastError());
+  SweepParams prm;
+  prm.a = *static_cast<const SweepArgs*>(args);
+  prm.in[0] = static_cast<const float*>(p);
+  prm.in[1] = static_cast<const float*>(g);
+  prm.in[2] = static_cast<const float*>(m);
+  prm.in[3] = static_cast<const float*>(v);
+  prm.out[0] = static_cast<float*>(po);
+  prm.out[1] = static_cast<float*>(mo);
+  prm.out[2] = static_cast<float*>(vo);
+  prm.n = n;
+  prm.b1 = b1;
+  prm.one_minus_b1 = one_minus_b1;
+  prm.b2 = b2;
+  prm.one_minus_b2 = one_minus_b2;
+  prm.eps = eps;
+  prm.wd = wd;
+  return launch_sweep<4>(prm, static_cast<cudaStream_t>(stream));
 }
 
 // One SGD step over a bucket's flat view: p, g float32 [n] in, po float32
-// [n] out; hyper and bounds as for pt_bucket_sweep_adam (hyper[0] is lr).
-extern "C" int pt_bucket_sweep_sgd(const void* hyper, const void* bounds,
-                                   const void* p, const void* g, void* po,
-                                   int64_t n, float wd, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[] = {p, g, po};
-  const int vec4 = (n % 4 == 0) && aligned16(ptrs, 3);
-  bucket_sweep_sgd_kernel<<<sweep_blocks(vec4 ? n / 4 : n), NTHREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hyper), static_cast<const int64_t*>(bounds),
-      static_cast<const float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(po), n, wd, vec4);
-  return static_cast<int>(cudaGetLastError());
+// [n] out; args as for pt_bucket_sweep_adam (lr is the rate; fold 0).
+extern "C" int pt_bucket_sweep_sgd(const void* args, const void* p,
+                                   const void* g, void* po, int64_t n,
+                                   float wd, void* stream) {
+  SweepParams prm = {};
+  prm.a = *static_cast<const SweepArgs*>(args);
+  prm.in[0] = static_cast<const float*>(p);
+  prm.in[1] = static_cast<const float*>(g);
+  prm.out[0] = static_cast<float*>(po);
+  prm.n = n;
+  prm.wd = wd;
+  return launch_sweep<2>(prm, static_cast<cudaStream_t>(stream));
 }

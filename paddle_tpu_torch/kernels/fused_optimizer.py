@@ -36,10 +36,15 @@ they give the plain versions' float32 results bit for bit.
 bucket_sweep is the reference's bucket surface: one Adam or SGD step over
 a comm-scheduler bucket's flat view (parallel/comm_scheduler.py), with
 the stability guard's gate and a ZeRO-1 row window, on fresh output
-buffers. Its kernels (bucket_sweep_adam, bucket_sweep_sgd) read a device
-hyper table (lr_t, nonfinite, spike, damp) and a device window
-[lo, hi) in rows of 128 lanes of the view padded to 256-row blocks, so a
-captured sweep reads them anew at each replay; bucket_sweep_plain
+buffers. On the card its kernels (bucket_sweep_adam, bucket_sweep_sgd)
+are the only work: sweep_args packs the scalars (rate, beta powers,
+guard, window index) into the kernel's parameters, a tensor as a pointer
+the kernel reads at each launch (so a captured sweep rereads it at each
+replay), a number as its value; the kernel folds the bias correction and
+finds its window [idx*per, idx*per + per) rows of 128 lanes of the view
+padded to 256-row blocks itself. The plain route builds the same
+scalars as a hyper table (lr_t, nonfinite, spike, damp: sweep_hyper,
+with sweep_lr_t's fold) and a window (sweep_bounds); bucket_sweep_plain
 follows _adam_block / _sgd_block / _gate line for line.
 """
 from __future__ import annotations
@@ -52,7 +57,8 @@ from . import registry
 
 __all__ = ["adam_plain", "fused_adam", "fused_adam_multi", "sgd_plain",
            "fused_sgd", "fused_sgd_multi", "bucket_sweep",
-           "bucket_sweep_plain", "sweep_hyper", "sweep_bounds"]
+           "bucket_sweep_plain", "sweep_hyper", "sweep_bounds",
+           "sweep_lr_t", "sweep_args"]
 
 _LANES = 128
 _BLOCK_ROWS = 256
@@ -293,13 +299,84 @@ def sweep_bounds(rows: int, shard, device) -> torch.Tensor:
         return torch.stack([_on(0, torch.int64, device),
                             _on(rows, torch.int64, device)])
     idx, num = shard
+    per = _rows_per(rows, num)
+    lo = _on(idx, torch.int64, device) * per
+    return torch.stack([lo, lo + per])
+
+
+def _rows_per(rows, num):
     if rows % num:
         raise ValueError(
             "bucket rows (%d) not divisible by num_shards (%d); pad "
             "the bucket to num_shards*128 elements" % (rows, num))
-    per = rows // num
-    lo = _on(idx, torch.int64, device) * per
-    return torch.stack([lo, lo + per])
+    return rows // num
+
+
+def sweep_lr_t(lr, beta1_pow, beta2_pow, device) -> torch.Tensor:
+    """The reference's bias-corrected rate lr*sqrt(1-b2p)/(1-b1p), float32
+    on `device`, each operation rounded once in this order (the adam op's
+    and the kernel's; the square root correctly rounded, _sqrt_rn)."""
+    b1p = _on(beta1_pow, torch.float32, device)
+    b2p = _on(beta2_pow, torch.float32, device)
+    return _on(lr, torch.float32, device) * _sqrt_rn(1.0 - b2p) / \
+        (1.0 - b1p)
+
+
+class _Scalar(ctypes.Structure):
+    """csrc/fused_optimizer.cu SweepScalar: a pointer to one float32 on
+    the card (read at each launch), or null and the value."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("value", ctypes.c_float)]
+
+
+class _Index(ctypes.Structure):
+    """SweepIndex: the same for one int64."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("value", ctypes.c_int64)]
+
+
+_SWEEP_SCALARS = ("lr", "beta1_pow", "beta2_pow", "nonfinite", "spike",
+                  "damp")
+
+
+class _SweepArgs(ctypes.Structure):
+    """SweepArgs: the sweep kernels' scalars, the window's index and rows,
+    and whether to fold the bias correction (pt_bucket_sweep_args_size
+    holds the C side's size)."""
+    _fields_ = [(name, _Scalar) for name in _SWEEP_SCALARS] + [
+        ("shard", _Index), ("per", ctypes.c_int64), ("fold", ctypes.c_int)]
+
+
+def sweep_args(n, lr, beta1_pow=None, beta2_pow=None, shard=None,
+               guard=None, *, device):
+    """The sweep kernels' scalars for an n-element view, packed for one
+    launch: lr, beta1_pow, beta2_pow, the guard's (nonfinite, spike, damp)
+    and the shard index each take a pointer slot where they are tensors
+    and a value slot where they are numbers. A tensor of another dtype
+    than float32 (int64 for the index) or on another device is converted
+    onto `device` first: one kernel. The bias correction is folded (fold
+    1) where both beta powers are given; the window holds rows_padded(n)
+    / num rows, and a count that num does not divide raises ValueError.
+    Returns (args, tensors): the converted tensors must outlive the
+    launch's queuing."""
+    idx, num = (0, 1) if shard is None else shard
+    fold = beta1_pow is not None and beta2_pow is not None
+    nf, sp, damp = (0.0, 0.0, 0.0) if guard is None else guard
+    args = _SweepArgs(per=_rows_per(rows_padded(n), num), fold=int(fold))
+    keep = []
+
+    def put(slot, x, dtype, number):
+        if isinstance(x, torch.Tensor):
+            t = x.reshape(()).to(device=device, dtype=dtype)
+            keep.append(t)
+            slot.ptr = t.data_ptr()
+        else:
+            slot.value = number(x)
+
+    values = (lr, beta1_pow if fold else 0.0, beta2_pow if fold else 0.0,
+              nf, sp, damp)
+    for name, x in zip(_SWEEP_SCALARS, values):
+        put(getattr(args, name), x, torch.float32, float)
+    put(args.shard, idx, torch.int64, int)
+    return args, keep
 
 
 def _gate(new, old, nf, sp, damp):
@@ -356,10 +433,10 @@ def bucket_sweep(kind, flat_param, flat_grad, flat_m=None, flat_v=None,
     kind        "adam" | "sgd".
     flat_*      1-D float32 views in the comm scheduler's GradBucket
                 order (param and grad, plus m and v for adam).
-    lr          the rate, a number or a one-element float32 tensor; for
-                adam the bias correction lr*sqrt(1-b2p)/(1-b1p) is
-                folded on the tensors' device, in float32, when
-                beta1_pow and beta2_pow are given.
+    lr          the rate, a number or a one-element tensor; for adam
+                the bias correction lr*sqrt(1-b2p)/(1-b1p) is folded in
+                float32 (on the card, by the kernel) when beta1_pow and
+                beta2_pow are given.
     shard       optional (shard_index, num_shards), the index a number
                 or a tensor: only rows [i*rows/num, (i+1)*rows/num) of
                 the padded view are updated, the rest pass through.
@@ -368,41 +445,60 @@ def bucket_sweep(kind, flat_param, flat_grad, flat_m=None, flat_v=None,
 
     Numbers are constants of a captured graph; tensors are read at each
     replay. Returns p' for sgd, (p', m', v') for adam, in new tensors.
-    On the card one launch of the bucket kernel; on the CPU (and under
+    On the card one launch of the bucket kernel and no other work (a
+    scalar tensor that is not float32, int64 for the index, or not on
+    the card is converted first: one kernel); on the CPU (and under
     kernels.registry.plain_reference()) bucket_sweep_plain."""
     if kind not in ("adam", "sgd"):
         raise ValueError("bucket_sweep kind must be adam|sgd, got %r"
                          % (kind,))
     dev = flat_param.device
     n = flat_param.shape[0]
-    lr_t = lr
-    if kind == "adam" and beta1_pow is not None and beta2_pow is not None:
-        b1p = _on(beta1_pow, torch.float32, dev)
-        b2p = _on(beta2_pow, torch.float32, dev)
-        lr_t = _on(lr, torch.float32, dev) * torch.sqrt(1.0 - b2p) / \
-            (1.0 - b1p)
-    hyper = sweep_hyper(lr_t, guard, dev)
-    bounds = sweep_bounds(rows_padded(n), shard, dev)
+    if kind == "sgd" or beta1_pow is None or beta2_pow is None:
+        beta1_pow = beta2_pow = None
     bufs = (flat_param, flat_grad) + \
         ((flat_m, flat_v) if kind == "adam" else ())
     if dev.type == "cuda" and not registry.plain_forced():
-        return _launch_sweep(kind, hyper, bounds, bufs, beta1, beta2,
-                             epsilon, weight_decay)
+        # keep: the converted scalars, alive until the launch is queued
+        args, keep = sweep_args(n, lr, beta1_pow, beta2_pow, shard, guard,
+                                device=dev)
+        return _launch_sweep(kind, args, bufs, beta1, beta2, epsilon,
+                             weight_decay)
     if dev.type in ("cpu", "meta", "cuda"):
-        return bucket_sweep_plain(kind, hyper, bounds, *bufs, beta1=beta1,
-                                  beta2=beta2, epsilon=epsilon,
+        lr_t = lr if beta1_pow is None else \
+            sweep_lr_t(lr, beta1_pow, beta2_pow, dev)
+        return bucket_sweep_plain(kind, sweep_hyper(lr_t, guard, dev),
+                                  sweep_bounds(rows_padded(n), shard, dev),
+                                  *bufs, beta1=beta1, beta2=beta2,
+                                  epsilon=epsilon,
                                   weight_decay=weight_decay,
                                   gated=guard is not None)
     raise ValueError(f"bucket_sweep: unsupported device {dev}")
 
 
-_SWEEP_ADAM_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _N, _F, _F, _F, _F,
-                    _F, _F, _P]
-_SWEEP_SGD_ARGS = [_P, _P, _P, _P, _P, _N, _F, _P]
+_SWEEP_ADAM_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _N, _F, _F, _F, _F, _F,
+                    _F, _P]
+_SWEEP_SGD_ARGS = [_P, _P, _P, _P, _N, _F, _P]
 
 
-def _launch_sweep(kind, hyper, bounds, bufs, beta1, beta2, epsilon,
-                  weight_decay):
+def _sweep_entry(name):
+    """The C entry of a sweep kernel, bound once; its library's SweepArgs
+    must have _SweepArgs's size."""
+    lib = registry.library(name)
+    kind = name[len("bucket_sweep_"):]
+    fn = _bind(lib, "pt_bucket_sweep_" + kind, _SWEEP_ADAM_ARGS
+               if kind == "adam" else _SWEEP_SGD_ARGS)
+    if not getattr(fn, "checked", False):
+        size = lib.pt_bucket_sweep_args_size()
+        if size != ctypes.sizeof(_SweepArgs):
+            raise RuntimeError(f"{name}: SweepArgs is {size} bytes in the "
+                               f"library, {ctypes.sizeof(_SweepArgs)} in "
+                               f"_SweepArgs")
+        fn.checked = True
+    return fn
+
+
+def _launch_sweep(kind, args, bufs, beta1, beta2, epsilon, weight_decay):
     name = "bucket_sweep_" + kind
     p = bufs[0]
     for label, t in zip(("flat_param", "flat_grad", "flat_m", "flat_v"),
@@ -413,23 +509,18 @@ def _launch_sweep(kind, hyper, bounds, bufs, beta1, beta2, epsilon,
                              f"float32 [{p.shape[0]}] on {p.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     outs = [torch.empty_like(p) for _ in range(3 if kind == "adam" else 1)]
+    fn = _sweep_entry(name)
     dev = p.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in bufs + tuple(outs)]
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "adam":
-            fn = _bind(registry.library(name), "pt_bucket_sweep_adam",
-                       _SWEEP_ADAM_ARGS)
-            err = fn(hyper.data_ptr(), bounds.data_ptr(),
-                     *(t.data_ptr() for t in bufs),
-                     *(t.data_ptr() for t in outs), p.shape[0], beta1,
+            err = fn(ctypes.byref(args), *ptrs, p.shape[0], beta1,
                      1.0 - beta1, beta2, 1.0 - beta2, epsilon,
                      weight_decay, stream)
         else:
-            fn = _bind(registry.library(name), "pt_bucket_sweep_sgd",
-                       _SWEEP_SGD_ARGS)
-            err = fn(hyper.data_ptr(), bounds.data_ptr(),
-                     *(t.data_ptr() for t in bufs), outs[0].data_ptr(),
-                     p.shape[0], weight_decay, stream)
+            err = fn(ctypes.byref(args), *ptrs, p.shape[0], weight_decay,
+                     stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     registry.count_launch(name)

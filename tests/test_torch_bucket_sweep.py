@@ -16,6 +16,17 @@ bucket_sweep) and the comm scheduler's bucket planner
   the reference; the shard index may be a tensor.
 * The guard: nonfinite=1 returns the inputs bit for bit; spike=1 with
   damp 0.5 is the reference's gate.
+* The kernels' arguments (sweep_args): every scalar takes a pointer slot
+  as a tensor (converted to float32 / int64 first where it is not) and a
+  value slot as a number; a plain mirror of what the kernel computes from
+  the slots (load_sweep in csrc/fused_optimizer.cu: the bias-corrected
+  rate in float32, one rounding an operation, and the window) is
+  bit-equal to the plain route's hyper table and window (sweep_lr_t,
+  sweep_hyper, sweep_bounds) over seeded rates and beta powers, and to
+  the JAX bucket_sweep itself (interpret mode) over mixes of numbers and
+  tensors: with beta1 = 1, epsilon = 1, p = g = v = 0 and m = 1 the
+  Adam step writes p' = -lr_t inside the window (-(lr_t*damp) on a
+  spike, 0 on a nonfinite step) and 0 outside, exactly.
 * The planner: the bucket plan of a 2+2-layer Transformer's training
   program (names, shapes, bytes, dtype, ready op) equals the JAX
   planner's at three caps; plan_stats equal; the flag's cap is read.
@@ -24,6 +35,8 @@ Tolerance: SWEEP_RTOL = 1e-5, SWEEP_ATOL = 1e-7 against the Pallas kernel
 (measured worst: 2.4e-6 relative on m' near zero, 2.4e-7 absolute: one
 or two fused roundings); everything else exact.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -186,6 +199,190 @@ def test_hyper_table_and_window_are_tensors():
         [0, 256]
     assert pfo.rows_padded(1) == 256 and pfo.rows_padded(256 * 128 + 1) \
         == 512
+
+
+# ---------------------------------------------------------------------------
+# the kernels' arguments
+# ---------------------------------------------------------------------------
+
+CPU = torch.device("cpu")
+SCALARS = ("lr", "beta1_pow", "beta2_pow", "nonfinite", "spike", "damp",
+           "shard")
+NUMBERS = {"lr": 0.01, "beta1_pow": 0.9 ** 3, "beta2_pow": 0.999 ** 3,
+           "nonfinite": 0.0, "spike": 1.0, "damp": 0.25, "shard": 2}
+
+
+def _pack(n, values, num=4):
+    """sweep_args with each scalar of `values` as given."""
+    v = dict(values)
+    return pfo.sweep_args(n, v["lr"], v["beta1_pow"], v["beta2_pow"],
+                          (v["shard"], num),
+                          (v["nonfinite"], v["spike"], v["damp"]),
+                          device=CPU)
+
+
+@pytest.mark.parametrize("name", SCALARS)
+def test_sweep_args_slots(name):
+    """A tensor takes a pointer slot (the tensor itself where it is
+    float32 / int64 already, else a converted copy the packing keeps), a
+    number a value slot; the others stay as they were given."""
+    dtype = torch.int64 if name == "shard" else torch.float32
+    t = torch.tensor(NUMBERS[name], dtype=dtype)
+    args, keep = _pack(N, {**NUMBERS, name: t})
+    assert getattr(args, name).ptr == t.data_ptr() and keep == [t]
+    assert getattr(args, name).value == 0
+    for other in SCALARS:
+        if other != name:
+            slot = getattr(args, other)
+            assert slot.ptr is None
+            assert slot.value == (NUMBERS[other] if other == "shard" else
+                                  np.float32(NUMBERS[other]))
+    other = torch.tensor(NUMBERS[name], dtype=torch.float64)
+    args, keep = _pack(N, {**NUMBERS, name: other.reshape(1)})
+    (conv,) = keep
+    assert conv.dtype == dtype and getattr(args, name).ptr == conv.data_ptr()
+    args, keep = _pack(N, NUMBERS)
+    assert getattr(args, name).ptr is None and not keep
+    assert (args.per, args.fold) == (pfo.rows_padded(N) // 4, 1)
+
+
+def test_sweep_args_fold_and_rows():
+    """No beta powers: no fold (the rate as given, sgd's case); no shard:
+    one window of every padded row; a count the shards do not divide
+    raises as the plain route does."""
+    args, _ = pfo.sweep_args(N, 0.5, device=CPU)
+    assert (args.fold, args.per, args.shard.value) == \
+        (0, pfo.rows_padded(N), 0)
+    args, _ = pfo.sweep_args(N, 0.5, 0.9, None, device=CPU)
+    assert args.fold == 0
+    with pytest.raises(ValueError, match="not divisible"):
+        pfo.sweep_args(N, 0.5, shard=(0, 3), device=CPU)
+
+
+def _read(slot, ctype):
+    return ctype.from_address(slot.ptr).value if slot.ptr else slot.value
+
+
+def _kernel_scalars(args):
+    """What load_sweep (csrc/fused_optimizer.cu) computes from the slots,
+    in numpy float32: (lr_t, spike, damp, lo, hi), the window in elements
+    (empty on a nonfinite step)."""
+    f32 = np.float32
+    lr = f32(_read(args.lr, ctypes.c_float))
+    if args.fold:
+        b1p = f32(_read(args.beta1_pow, ctypes.c_float))
+        b2p = f32(_read(args.beta2_pow, ctypes.c_float))
+        lr = (lr * np.sqrt(f32(1) - b2p)) / (f32(1) - b1p)
+    spike = f32(_read(args.spike, ctypes.c_float)) > 0
+    damp = f32(_read(args.damp, ctypes.c_float))
+    idx = _read(args.shard, ctypes.c_int64)
+    if f32(_read(args.nonfinite, ctypes.c_float)) > 0:
+        return lr, spike, damp, 0, 0
+    lo = idx * args.per * 128
+    return lr, spike, damp, lo, lo + args.per * 128
+
+
+def _as(kind, x):
+    """x as a number or as a one-element tensor of another dtype than the
+    slot's (float64 / int32: the packing converts it)."""
+    if kind == "number" or isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor([x], dtype=torch.int32 if isinstance(x, int)
+                        else torch.float64)
+
+
+def test_mirror_equals_the_plain_route():
+    """The kernel's scalars against the plain route's hyper table and
+    window, bit for bit, over 1000 seeded rates and beta powers (the
+    fold's square root is correctly rounded on both sides)."""
+    rng = np.random.default_rng(19)
+    rows = pfo.rows_padded(N)
+    for i in range(1000):
+        lr = float(10.0 ** rng.uniform(-6, 0))
+        b1p, b2p = (float(b ** rng.integers(1, 5000))
+                    for b in (0.9, 0.999))
+        guard = (float(i % 7 == 0), float(i % 3 == 0), float(rng.random()))
+        shard = (int(rng.integers(0, 4)), 4)
+        kind = ("number", "tensor")[i % 2]
+        args, keep = pfo.sweep_args(
+            N, _as(kind, lr), _as(kind, b1p), b2p,
+            (_as(kind, shard[0]), 4), tuple(_as(kind, x) for x in guard),
+            device=CPU)
+        lr_t, spike, damp, lo, hi = _kernel_scalars(args)
+        hyper = pfo.sweep_hyper(pfo.sweep_lr_t(lr, b1p, b2p, CPU), guard,
+                                CPU)
+        bounds = pfo.sweep_bounds(rows, shard, CPU)
+        assert np.float32(lr_t).view(np.int32) == \
+            hyper[0].numpy().view(np.int32), (lr, b1p, b2p)
+        assert spike == bool(hyper[2] > 0) and damp == hyper[3].item()
+        if hyper[1] > 0:
+            assert lo == hi == 0
+        else:
+            assert (lo, hi) == tuple(128 * bounds.numpy())
+
+
+MIXES = {
+    "numbers": {},
+    "tensors": {n: "tensor" for n in SCALARS},
+    "rate and index": {"lr": "tensor", "shard": "tensor"},
+    "beta powers": {"beta1_pow": "tensor", "beta2_pow": "tensor"},
+    "guard spike": {"spike": "tensor", "damp": "tensor"},
+    "guard nonfinite": {"nonfinite": "tensor"},
+}
+MIX_VALUES = {"numbers": (0.003, 0.9 ** 7, 0.999 ** 7, 0.0, 0.0, 0.0, 1),
+              "tensors": (0.0123, 0.9 ** 2, 0.999 ** 2, 0.0, 1.0, 0.3, 3),
+              "rate and index": (1e-4, 0.9 ** 40, 0.999 ** 40, 0.0, 0.0,
+                                 0.0, 0),
+              "beta powers": (0.5, 0.9 ** 1, 0.999 ** 1, 0.0, 0.0, 0.0, 2),
+              "guard spike": (2e-3, 0.9 ** 5, 0.999 ** 5, 0.0, 1.0, 0.7, 1),
+              "guard nonfinite": (2e-3, 0.9 ** 5, 0.999 ** 5, 1.0, 0.0,
+                                  0.0, 3)}
+
+
+@pytest.mark.parametrize("mix", list(MIXES))
+def test_mirror_equals_jax_bucket_sweep(mix, monkeypatch):
+    """The JAX bucket_sweep writes p' = -lr_t (spike: -(lr_t*damp);
+    nonfinite: 0) inside its window and 0 outside when beta1 = 1,
+    epsilon = 1, p = g = v = 0 and m = 1 (every other operation is
+    exact); so does the port's plain route; both equal what the kernel
+    computes from the packed slots, bit for bit."""
+    monkeypatch.setattr(jreg, "_INTERPRET", True, raising=False)
+    n = 256 * 128
+    values = dict(zip(SCALARS, MIX_VALUES[mix]))
+    kinds = {name: MIXES[mix].get(name, "number") for name in SCALARS}
+    args, keep = pfo.sweep_args(
+        n, *(_as(kinds[k], values[k]) for k in SCALARS[:3]),
+        (_as(kinds["shard"], values["shard"]), 4),
+        tuple(_as(kinds[k], values[k]) for k in SCALARS[3:6]),
+        device=CPU)
+    lr_t, spike, damp, lo, hi = _kernel_scalars(args)
+    inside = np.float32(-lr_t) * damp if spike else np.float32(-lr_t)
+    want = np.zeros(n, np.float32)
+    want[lo:hi] = inside
+
+    def jx(name):
+        x = values[name]
+        if kinds[name] == "number":
+            return x
+        return jnp.asarray(x, jnp.int32 if name == "shard" else jnp.float32)
+
+    zeros, ones = np.zeros(n, np.float32), np.ones(n, np.float32)
+    kw = dict(beta1=1.0, epsilon=1.0, shard=(jx("shard"), 4),
+              guard=tuple(jx(k) for k in SCALARS[3:6]))
+    got_jax = jfo.bucket_sweep("adam", *map(jnp.asarray, (zeros, zeros,
+                                                         ones, zeros)),
+                               lr=jx("lr"), beta1_pow=jx("beta1_pow"),
+                               beta2_pow=jx("beta2_pow"), **kw)[0]
+    t = [torch.from_numpy(a.copy()) for a in (zeros, zeros, ones, zeros)]
+    got_port = pfo.bucket_sweep(
+        "adam", *t, lr=_as(kinds["lr"], values["lr"]),
+        beta1_pow=_as(kinds["beta1_pow"], values["beta1_pow"]),
+        beta2_pow=_as(kinds["beta2_pow"], values["beta2_pow"]),
+        beta1=1.0, epsilon=1.0,
+        shard=(_as(kinds["shard"], values["shard"]), 4),
+        guard=tuple(_as(kinds[k], values[k]) for k in SCALARS[3:6]))[0]
+    np.testing.assert_array_equal(_bits(got_jax), _bits(want))
+    np.testing.assert_array_equal(_bits(got_port.numpy()), _bits(want))
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,11 @@ beam-search decoder captured against eager bit for bit (the decoder in
 float32 and with its step GEMMs in the int8 and bf16 kernels, their
 launches counted), and the bucket sweep kernels against their
 plain version (every ZeRO-1 window of 4, the guard's gate, weight decay,
-views off a 16-byte boundary), flash_attention_lse with an lse
+views off a 16-byte boundary, window edges inside a kernel's chunk, a
+16,384,000-element bucket; a captured sweep replayed with new beta
+powers and shard index; one kernel a call under the profiler and
+in a captured graph's nodes),
+flash_attention_lse with an lse
 cotangent, and every case of ops/family_cases.py on the card against
 the CPU. They skip where torch sees no CUDA device.
 
@@ -2473,6 +2477,156 @@ def test_bucket_sweep_kernel_equals_plain_on_card(cuda, kind, n):
             want = want if kind == "adam" else (want,)
             for a, b in zip(got, want):
                 assert torch.equal(_bits(a), _bits(b)), (kind, n, shard)
+
+
+def _sweep_case(kind, n, gen, dev):
+    p, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.rand(n, generator=gen, device=dev)
+    return (p, g, m, v) if kind == "adam" else (p, g)
+
+
+def _sweep_pows(kind, b1p, b2p):
+    return dict(beta1_pow=b1p, beta2_pow=b2p) if kind == "adam" else {}
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+@pytest.mark.parametrize("n, num", [(98004, 96), (8145920, 4),
+                                    (16384000, 4)],
+                         ids=["edges-in-chunks", "ragged-chunk",
+                              "16384000"])
+def test_bucket_sweep_chunk_edges_on_card(cuda, kind, n, num):
+    """Windows whose edges fall inside a chunk of the kernel (96 shards
+    of 768 padded rows: an edge every 1024 elements), a view that is no
+    whole number of chunks, and one 16,384,000-element bucket (an
+    embedding's): one launch, bit-equal to the plain version, and the
+    rows outside the window are the inputs bit for bit."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    args = _sweep_case(kind, n, gen, cuda)
+    olds = (args[0], args[2], args[3]) if kind == "adam" else args[:1]
+    per = fo.rows_padded(n) // num * 128
+    for i in sorted({0, 1, num // 2 - 1, num - 1}):
+        for guard in (None, (0.0, 1.0, 0.5)):
+            kw = dict(lr=torch.tensor(1e-3, device=cuda), shard=(i, num),
+                      guard=guard, **_sweep_pows(kind, 0.9 ** 3,
+                                                 0.999 ** 3))
+            kreg.reset_counts()
+            got = fo.bucket_sweep(kind, *args, **kw)
+            torch.cuda.synchronize()
+            assert kreg.launches()["bucket_sweep_" + kind] == 1
+            with kreg.plain_reference():
+                want = fo.bucket_sweep(kind, *args, **kw)
+            got = got if kind == "adam" else (got,)
+            want = want if kind == "adam" else (want,)
+            lo, hi = min(i * per, n), min((i + 1) * per, n)
+            for a, b, old in zip(got, want, olds):
+                assert torch.equal(_bits(a), _bits(b)), (kind, n, i, guard)
+                assert torch.equal(_bits(a[:lo]), _bits(old[:lo]))
+                assert torch.equal(_bits(a[hi:]), _bits(old[hi:]))
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_bucket_sweep_replay_rereads_pows_and_shard(cuda, kind):
+    """A captured sweep whose beta powers and shard index are tensors:
+    replays after they change equal the eager sweep given the new values
+    as numbers, and the plain version."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    n = 8145920
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    args = _sweep_case(kind, n, gen, cuda)
+    lr = torch.tensor([1e-3], device=cuda)
+    b1p, b2p = (torch.tensor([b ** 3], device=cuda) for b in (0.9, 0.999))
+    idx = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def sweep():
+        return fo.bucket_sweep(kind, *args, lr=lr, shard=(idx, 4),
+                               **_sweep_pows(kind, b1p, b2p))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sweep()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = sweep()
+    cap = cap if kind == "adam" else (cap,)
+    for step, i in ((7, 2), (20, 3), (1, 0)):
+        b1p.fill_(0.9 ** step)
+        b2p.fill_(0.999 ** step)
+        idx.fill_(i)
+        graph.replay()
+        kw = dict(lr=lr, shard=(i, 4),
+                  **_sweep_pows(kind, 0.9 ** step, 0.999 ** step))
+        eager = fo.bucket_sweep(kind, *args, **kw)
+        with kreg.plain_reference():
+            plain = fo.bucket_sweep(kind, *args, **kw)
+        torch.cuda.synchronize()
+        eager = eager if kind == "adam" else (eager,)
+        plain = plain if kind == "adam" else (plain,)
+        for a, b, c in zip(cap, eager, plain):
+            assert torch.equal(_bits(a), _bits(b)), (kind, step, i)
+            assert torch.equal(_bits(a), _bits(c)), (kind, step, i)
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_bucket_sweep_is_one_kernel_on_card(cuda, kind):
+    """Under torch.profiler a sweep given tensors on the card (rate, beta
+    powers, guard, shard index) runs one kernel, bucket_sweep_<kind>'s,
+    and nothing else. A session may lose its first kernels' events, so
+    each launches four sleep kernels (not counted) before the sweep; up
+    to five sessions, one of which must see the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args = _sweep_case(kind, 3414528, gen, cuda)
+    f32 = [torch.tensor(x, device=cuda) for x in (1e-3, 0.0, 1.0, 0.5)]
+    kw = dict(lr=f32[0], guard=tuple(f32[1:]),
+              shard=(torch.tensor(1, device=cuda), 4),
+              **_sweep_pows(kind, torch.tensor(0.9, device=cuda),
+                            torch.tensor(0.999, device=cuda)))
+    fo.bucket_sweep(kind, *args, **kw)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fo.bucket_sweep(kind, *args, **kw)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and "spin_kernel" not in e.key]
+        assert all("bucket_sweep_" + kind in k for k, _ in kernels), kernels
+        seen.append(sum(c for _, c in kernels))
+        if seen[-1] == 1:
+            break
+    assert seen[-1] == 1 and max(seen) == 1, seen
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_bucket_sweep_graph_is_one_kernel(cuda, kind):
+    """A CUDA graph captured from one sweep given tensors on the card
+    holds one node, a bucket_sweep_<kind> kernel (read through the driver
+    API by chip_smoke._graph_kernels, which no profiler can drop)."""
+    import chip_smoke
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    args = _sweep_case(kind, 787456, gen, cuda)
+    f32 = [torch.tensor(x, device=cuda) for x in (1e-3, 0.0, 1.0, 0.5)]
+    kw = dict(lr=f32[0], guard=tuple(f32[1:]),
+              shard=(torch.tensor(2, device=cuda), 4),
+              **_sweep_pows(kind, torch.tensor(0.9, device=cuda),
+                            torch.tensor(0.999, device=cuda)))
+    fo.bucket_sweep(kind, *args, **kw)
+    torch.cuda.synchronize()
+    nodes = chip_smoke._graph_kernels(
+        torch, lambda: fo.bucket_sweep(kind, *args, **kw))
+    assert len(nodes) == 1 and "bucket_sweep_" + kind in nodes[0], nodes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
