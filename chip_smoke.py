@@ -261,9 +261,30 @@
    sequence_slice and edit_distance on 128 IMDB-shaped sequences, the
    card against the CPU (values, LoDs), each block eager with the op
    named in Engine.eager_reasons. Op sweep: every case of
-   ops/family_cases.py (the basic, reduce, elementwise and activation
-   families and the three sequence ops) on the card against the CPU.
-15. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+   ops/family_cases.py (the basic, reduce, elementwise, activation and
+   nn families, the nine update ops without a kernel, the three
+   sequence ops and SSD's eight detection ops) on the card against the
+   CPU.
+15. Detection phase: MobileNet-SSD as PaddleCV's object_detection
+   defines it (mobilenet_ssd: MobileNet-v1 at scale 1.0, extra blocks,
+   multi_box_head over six maps: 1917 priors) at Pascal VOC's 300x300,
+   21 classes, B=64, ssd_loss summed, RMSProp(piecewise_decay from
+   1e-3, L2Decay(5e-5)) as train.py runs it, on VOC-shaped LoD batches
+   (a geometric number of boxes an image, mean 2.4, 1-42; labels 1-20;
+   difficult flags). SSD_POOL batches SSD_RUNS times each captured
+   against eager in deterministic mode, bit-equal; the first loss
+   against the port on the CPU (SSD_LOSS_RTOL); images/s eager against
+   captured in turns, the captures clocked; a profiled replay (busy
+   share, top kernels), peak memory; a stream of SSD_STREAM new LoD
+   batches (eager). Then eval.py's detection_output (nms 0.45, top 400,
+   keep 200, score 0.01) on the trained net's test clone through
+   Executor.run (eager, captured, replayed rows equal) and
+   AnalysisPredictor (within SSD_ROWS_ATOL), images/s eager against
+   captured, a profiled replay, multiclass_nms alone at 64 x 21 x 1917
+   eager and captured (rows equal to the CPU's), and the DetectionMAP
+   evaluator (11point) over two batches, eager. No kernel of the port
+   lies on this path.
+16. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -276,7 +297,7 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-16. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+17. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's, the dygraph phase's, the control flow
    phase's, the book models phase's, the lr schedule phase's and the
    contrib decoder phase's captured steps; the quantized and tuned
@@ -4898,6 +4919,7 @@ def _profiled_replay(torch, label, exe, main, feed, fetch, scope):
     for e in top:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}")
+    return wall, busy, n_kernels
 
 
 def _against_plain(torch, pt, kreg, label, main, loss, init, feed):
@@ -6332,23 +6354,454 @@ def value_sequence_phase(torch, dev):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# [detection phase]: MobileNet-SSD as PaddleCV's object_detection defines it
+# ---------------------------------------------------------------------------
+
+SSD = {"num_classes": 21, "image": 300, "scale": 1.0}   # Pascal VOC
+SSD_B = 64          # train.py's batch
+SSD_POOL = 2        # LoD batches cycled (each its own plan and graph)
+SSD_RUNS = 4        # runs of each pool batch: 8 steps captured vs eager
+SSD_STREAM = 3      # new LoD batches run once each, eagerly
+SSD_TIMED = 5       # detection runs timed a mode
+# gt boxes an image: geometric with mean SSD_BOXES[0], clipped to
+# [SSD_BOXES[1], SSD_BOXES[2]] (VOC 2007+2012 trainval: 2.4 objects an
+# image on average, 1 to 42)
+SSD_BOXES = (2.4, 1, 42)
+SSD_DIFFICULT = 0.1     # share of boxes flagged difficult
+# train.py's schedule: lr 1e-3, decayed at epochs 40, 60, 80, 100 of
+# 16551 images (VOC 2007+2012 trainval) at SSD_B a step; L2Decay(5e-5)
+SSD_LR = 1e-3
+SSD_LR_EPOCHS = (40, 60, 80, 100)
+SSD_LR_DECAY = (1.0, 0.5, 0.25, 0.1, 0.01)
+SSD_L2 = 5e-5
+# eval.py / infer.py's detection_output
+SSD_DET = {"nms_threshold": 0.45, "nms_top_k": 400, "keep_top_k": 200,
+           "score_threshold": 0.01}
+# the first loss, card against CPU: float32 convolutions (TF32 off)
+# summed in other orders; the mining's sort can take another of two
+# near-equal negatives
+SSD_LOSS_RTOL = 1e-4
+# detection rows, predictor against the Executor (both on the card)
+SSD_ROWS_ATOL = 1e-6
+
+
+def mobilenet_ssd(L, img, num_classes, scale=1.0):
+    """PaddleCV object_detection/mobilenet_ssd.py's MobileNetSSD.ssd_net
+    built with the layers module `L` (the port's or the JAX package's):
+    MobileNet-v1 at `scale` with depthwise-separable blocks (a depthwise
+    conv2d(groups=C, use_cudnn=False), then a 1x1 conv, each with batch
+    norm and relu; every conv's filter MSRA-initialized at learning rate
+    0.1, no bias), four extra blocks down to 1x1, and multi_box_head over
+    the 19, 10, 5, 3, 2 and 1 maps of a 300x300 image: 1917 priors.
+    Returns (locs [N, P, 4], confs [N, P, num_classes], boxes [P, 4],
+    variances [P, 4])."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+
+    def conv_bn(x, k, n, stride, padding, groups=1, use_cudnn=True):
+        conv = L.conv2d(x, n, k, stride=stride, padding=padding,
+                        groups=groups, act=None, use_cudnn=use_cudnn,
+                        param_attr=pkg.ParamAttr(
+                            learning_rate=0.1,
+                            initializer=pkg.initializer.MSRA()),
+                        bias_attr=False)
+        return L.batch_norm(conv, act="relu")
+
+    def separable(x, n1, n2, groups, stride):
+        dw = conv_bn(x, 3, int(n1 * scale), stride, 1,
+                     groups=int(groups * scale), use_cudnn=False)
+        return conv_bn(dw, 1, int(n2 * scale), 1, 0)
+
+    def extra(x, n1, n2, stride):
+        x = conv_bn(x, 1, int(n1 * scale), 1, 0)
+        return conv_bn(x, 3, int(n2 * scale), stride, 1)
+
+    x = conv_bn(img, 3, int(32 * scale), 2, 1)                  # 150
+    for n1, n2, g, s in ((32, 64, 32, 1), (64, 128, 64, 2),     # 75
+                         (128, 128, 128, 1), (128, 256, 128, 2),  # 38
+                         (256, 256, 256, 1), (256, 512, 256, 2)):  # 19
+        x = separable(x, n1, n2, g, s)
+    for _ in range(5):
+        x = separable(x, 512, 512, 512, 1)
+    m11 = x
+    x = separable(x, 512, 1024, 512, 2)                         # 10
+    m13 = separable(x, 1024, 1024, 1024, 1)
+    m14 = extra(m13, 256, 512, 2)                               # 5
+    m15 = extra(m14, 128, 256, 2)                               # 3
+    m16 = extra(m15, 128, 256, 2)                               # 2
+    m17 = extra(m16, 64, 128, 2)                                # 1
+    return L.multi_box_head(
+        inputs=[m11, m13, m14, m15, m16, m17], image=img,
+        num_classes=num_classes, min_ratio=20, max_ratio=90,
+        min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+        max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+        aspect_ratios=[[2.], [2., 3.], [2., 3.], [2., 3.], [2., 3.],
+                       [2., 3.]],
+        base_size=img.shape[2], offset=0.5, flip=True)
+
+
+def ssd_train(pt, num_classes, image, scale, batch=None):
+    """(main, startup, loss, (locs, confs, boxes, variances)) of train.py:
+    mobilenet_ssd, ssd_loss over the LoD ground truth (gt_box float32,
+    gt_label int32, one segment an image) summed, minimized by
+    RMSProp(piecewise_decay from SSD_LR, L2Decay(SSD_L2))."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = L.data("img", [3, image, image], dtype="float32")
+        gt_box = L.data("gt_box", [4], dtype="float32", lod_level=1)
+        gt_label = L.data("gt_label", [1], dtype="int32", lod_level=1)
+        head = mobilenet_ssd(L, img, num_classes, scale)
+        loss = L.reduce_sum(L.ssd_loss(head[0], head[1], gt_box, gt_label,
+                                       head[2], head[3]))
+        iters = 16551 // (batch or SSD_B)
+        lr = L.piecewise_decay([e * iters for e in SSD_LR_EPOCHS],
+                               [SSD_LR * d for d in SSD_LR_DECAY])
+        pt.optimizer.RMSProp(
+            learning_rate=lr,
+            regularization=pt.regularizer.L2Decay(SSD_L2)).minimize(loss)
+    return main, startup, loss, head
+
+
+def ssd_detect(pt, main, head, with_map=False):
+    """eval.py's program on the trained net: the forward of `main` up to
+    the head (batch norm in inference mode), detection_output with
+    SSD_DET; with `with_map`, also the difficult flags and the
+    DetectionMAP evaluator (11point, overlap 0.5, difficult boxes not
+    evaluated). Returns (program, nmsed, evaluator or None)."""
+    L = pt.layers
+    prog = pt.io._prune_program(main, [v.name for v in head])
+    block = prog.global_block()
+    with pt.program_guard(prog, pt.Program()):
+        nmsed = L.detection_output(*[block.var(v.name) for v in head],
+                                   **SSD_DET)
+        ev = None
+        if with_map:
+            difficult = L.data("difficult", [1], dtype="int32",
+                               lod_level=1)
+            ev = pt.evaluator.DetectionMAP(
+                nmsed, block.var("gt_label"), block.var("gt_box"),
+                difficult, SSD["num_classes"], overlap_threshold=0.5,
+                evaluate_difficult=False, ap_version="11point")
+    return prog, nmsed, ev
+
+
+def _voc_batch(torch, pt, seed, place, B=None, image=None):
+    """A VOC-shaped batch from default_rng(seed): B images (standard
+    normal, on `place`'s device), a geometric number of boxes an image
+    (SSD_BOXES), each normalized with sides log-uniform in [0.05, 0.95],
+    labels 1-20, SSD_DIFFICULT of them difficult; gt_box, gt_label and
+    difficult as LoD tensors on `place`."""
+    B, image = B or SSD_B, image or SSD["image"]
+    rng = np.random.default_rng(seed)
+    mean, lo, hi = SSD_BOXES
+    n = np.clip(rng.geometric(1.0 / mean, B), lo, hi)
+    g = int(n.sum())
+    wh = np.exp(rng.uniform(np.log(0.05), np.log(0.95), (g, 2)))
+    c = rng.uniform(wh / 2, 1 - wh / 2)
+    box = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+    label = rng.integers(1, SSD["num_classes"], (g, 1)).astype(np.int32)
+    difficult = (rng.random((g, 1)) < SSD_DIFFICULT).astype(np.int32)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    img = torch.randn((B, 3, image, image), generator=gen).to(
+        place.torch_device())
+    lens = [n.tolist()]
+    return {"img": img,
+            "gt_box": pt.create_lod_tensor(box, lens, place),
+            "gt_label": pt.create_lod_tensor(label, lens, place),
+            "difficult": pt.create_lod_tensor(difficult, lens, place)}
+
+
+def _train_mode_loss_cpu(pt, main, loss, state, feed):
+    """The forward of `main` up to `loss` on the CPU from `state` (name
+    -> CPU tensor) on `feed`, batch norm in training mode (a test clone
+    would normalize by the running statistics)."""
+    prog = main.clone()
+    block = prog.global_block()
+    needed, keep = {loss.name}, []
+    for op in reversed(block.ops):
+        if op.attr("op_role", "forward") == "forward" and \
+                set(op.output_arg_names) & needed:
+            keep.append(op)
+            needed.update(op.input_arg_names)
+    block.ops = keep[::-1]
+    scope = pt.Scope()
+    for n, t in state.items():
+        scope.var(n).get_tensor().set_tensor(t.clone())
+    return float(pt.Executor(pt.CPUPlace()).run(
+        prog, feed=feed, fetch_list=[loss], scope=scope,
+        use_program_cache=False)[0])
+
+
+def _train_feed(f):
+    return {k: f[k] for k in ("img", "gt_box", "gt_label")}
+
+
+def _ssd_train_phase(torch, pt, kreg, card):
+    """MobileNet-SSD trained captured against eager: returns (main, the
+    trained scope, head, feeds)."""
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss, head = ssd_train(pt, SSD["num_classes"],
+                                          SSD["image"], SSD["scale"])
+    main.random_seed = startup.random_seed = SEED
+    types = [op.type for op in main.global_block().ops]
+    priors = int(head[2].shape[0])
+    params = main.all_parameters()
+    print(f"  ssd: {len(types)} ops in block 0 "
+          f"({types.count('depthwise_conv2d')} depthwise_conv2d, "
+          f"{types.count('conv2d')} conv2d, {types.count('rmsprop')} "
+          f"rmsprop, {types.count('sum')} sum); {len(params)} parameters, "
+          f"{sum(int(np.prod(p.shape)) for p in params)} elements; "
+          f"{priors} priors, {SSD['num_classes']} classes, "
+          f"{SSD['image']}x{SSD['image']}, B={SSD_B}")
+    _require(priors == 1917, f"ssd: {priors} priors, want 1917")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    seeds = list(range(SSD_POOL))
+    batches = [_voc_batch(torch, pt, s, pt.CUDAPlace(0)) for s in seeds]
+    feeds = [_train_feed(b) for b in batches]
+    boxes = 0
+    for s, f in zip(seeds, feeds):
+        n = np.diff(f["gt_box"].lod()[0])
+        boxes += int(n.sum())
+        print(f"  batch {s}: {SSD_B} images, {n.sum()} boxes ({n.min()}-"
+              f"{n.max()} an image, mean {n.mean():.2f})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, _ = _seq_compare(
+        torch, pt, kreg, "ssd", main, [loss], init, feeds, SSD_RUNS)
+    _require(not reasons, f"ssd: a block was kept eager: {reasons}")
+    t1 = time.perf_counter()
+    cpu_feed = {k: v if k != "img" else v.cpu() for k, v in
+                _train_feed(_voc_batch(torch, pt, seeds[0],
+                                       pt.CPUPlace())).items()}
+    cpu = _train_mode_loss_cpu(pt, main, loss, cpu_state, cpu_feed)
+    err = abs(losses[0] - cpu) / abs(cpu)
+    print(f"  ssd: first loss {losses[0]:.6f} on the card, {cpu:.6f} on "
+          f"the CPU ({time.perf_counter() - t1:.1f} s): rel err "
+          f"{err:.3e} (bound {SSD_LOSS_RTOL:g})")
+    _require(err <= SSD_LOSS_RTOL, "ssd: card and CPU disagree")
+    _seq_rates(torch, pt, "ssd", exe, main, [loss], scope, feeds, boxes,
+               True, B=SSD_B, units=("images", "gt boxes"))
+    _profiled_replay(torch, "ssd", exe, main, feeds[0], [loss], scope)
+    stream = [_train_feed(_voc_batch(torch, pt, 100 + i, pt.CUDAPlace(0)))
+              for i in range(SSD_STREAM)]
+    _seq_stream(torch, pt, "ssd", main, loss, init, stream,
+                sum(int(f["gt_box"].lod()[0][-1]) for f in stream), SSD_B,
+                unit="gt boxes")
+    exe.close()
+    print(f"  ssd training: {time.perf_counter() - t0:.1f} s")
+    return main, scope, head, batches
+
+
+def _det_rows(out):
+    rows = np.asarray(out)
+    lod = out.lod() if hasattr(out, "lod") else []
+    return rows, lod
+
+
+def _ssd_nms_alone(torch, pt, scope, det_prog, feed):
+    """multiclass_nms alone on the detection program's decoded boxes
+    and transposed scores (B x 21 x 1917): eager and captured, device
+    rows against the CPU's, ms a call each way."""
+    L = pt.layers
+    block = det_prog.global_block()
+    nms_op = [op for op in block.ops if op.type == "multiclass_nms"][0]
+    names = (nms_op.input("BBoxes")[0], nms_op.input("Scores")[0])
+    exe = pt.Executor(pt.CUDAPlace(0))
+    bx, sc = exe.run(det_prog, feed=feed, fetch_list=list(names),
+                     scope=scope, use_program_cache=False,
+                     return_numpy=False)
+    exe.close()
+    pt.framework.unique_name.reset()
+    prog = pt.Program()
+    with pt.program_guard(prog, pt.Program()):
+        b = L.data("bboxes", list(bx.shape[1:]), dtype="float32")
+        s = L.data("scores", list(sc.shape[1:]), dtype="float32")
+        out = L.multiclass_nms(b, s, background_label=0, normalized=False,
+                               nms_eta=1.0, **SSD_DET)
+    f = {"bboxes": bx, "scores": sc}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    secs = {}
+    for mode in ("eager", "captured"):
+        cached = mode == "captured"
+        for _ in range(2):
+            _cap_run(exe, prog, f, [out], None, cached, numpy=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SSD_TIMED):
+            got = _cap_run(exe, prog, f, [out], None, cached,
+                           numpy=False)[0]
+        torch.cuda.synchronize()     # a fetch with a LoD stays on the card
+        secs[mode] = (time.perf_counter() - t0) / SSD_TIMED
+    wall, busy, n_kernels, _ = _seq_profile(torch, lambda: _cap_run(
+        exe, prog, f, [out], None, numpy=False))
+    secs["device"] = wall * busy
+    cpu = pt.Executor(pt.CPUPlace()).run(
+        prog, feed={"bboxes": bx.cpu(), "scores": sc.cpu()},
+        fetch_list=[out])[0]
+    equal = np.array_equal(np.asarray(got), np.asarray(cpu))
+    c = _counters(exe)
+    exe.close()
+    print(f"  multiclass_nms alone at {list(sc.shape)} (nms_top_k "
+          f"{SSD_DET['nms_top_k']}, keep_top_k {SSD_DET['keep_top_k']}): "
+          f"eager {1e3 * secs['eager']:.3f} ms a call, captured "
+          f"{1e3 * secs['captured']:.3f} ms a call (the host's clock to "
+          f"a synchronize); a profiled replay {n_kernels} kernels, "
+          f"{1e3 * secs['device']:.3f} ms of device time in {1e3 * wall:.3f} "
+          f"ms; rows equal to the CPU's {equal}; counters {c}")
+    _require(equal, "multiclass_nms: the card's rows differ from the CPU's")
+    return secs
+
+
+def _ssd_detect_phase(torch, pt, main, scope, head, batches):
+    """detection_output on the trained net through Executor.run (eager,
+    then captured) and through AnalysisPredictor; DetectionMAP over two
+    batches, eager; images/s of detection and a profiled replay."""
+    import tempfile
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    t0 = time.perf_counter()
+    prog, nmsed, _ = ssd_detect(pt, main, head)
+    feeds = [{"img": b["img"]} for b in batches]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    rows = []
+    with _deterministic(torch):
+        for cached in (False, True, True, True):
+            rows.append(_det_rows(_cap_run(exe, prog, feeds[0], [nmsed],
+                                           scope, cached)[0]))
+    c = _counters(exe)
+    eq = all(np.array_equal(r[0], rows[0][0]) and r[1] == rows[0][1]
+             for r in rows)
+    det, lod = rows[0]
+    kept = det[det[:, 0] >= 0]
+    print(f"  detect: {len(prog.global_block().ops)} ops; rows "
+          f"{list(det.shape)}, LoD {lod[0][:3]}...{lod[0][-1]}; "
+          f"{len(kept)} detections (labels {int(kept[:, 0].min()) if len(kept) else '-'}-"
+          f"{int(kept[:, 0].max()) if len(kept) else '-'}, scores "
+          f"{kept[:, 1].min() if len(kept) else 0:.4f}-"
+          f"{kept[:, 1].max() if len(kept) else 0:.4f}); eager, captured "
+          f"and replayed rows equal {eq}; counters {c}; eager reasons "
+          f"{list(exe._engine.eager_reasons.values()) or 'none'}")
+    _require(eq and c["captures"] == 1 and c["replays"] == 2 and
+             det.shape == (SSD_B * SSD_DET["keep_top_k"], 6) and
+             np.isfinite(det).all(), "ssd detect: the rows")
+    # the predictor
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["img"], [nmsed], exe,
+                                       main_program=prog)
+        predictor = create_paddle_predictor(AnalysisConfig(d))
+    it = predictor.get_input_tensor("img")
+    ot = predictor.get_output_tensor(predictor.get_output_names()[0])
+    host = np.asarray(feeds[0]["img"].cpu())
+    for _ in range(3):
+        it.copy_from_cpu(host)
+        predictor.zero_copy_run()
+    prow = ot.copy_to_cpu()
+    worst = float(np.abs(prow - det).max())
+    pc = dict(predictor._engine.counters)
+    print(f"  detect serving: AnalysisPredictor rows {list(prow.shape)}, "
+          f"LoD {ot.lod() == lod}, max |predictor - Executor| {worst:.3e} "
+          f"(bound {SSD_ROWS_ATOL:g}); counters captures {pc['captures']}, "
+          f"replays {pc['replays']}")
+    _require(worst <= SSD_ROWS_ATOL and ot.lod() == lod and
+             pc["captures"] == 1, "ssd detect: the predictor's rows")
+    # images/s, eager against captured in turns (each batch's plan
+    # captured first)
+    for f in feeds[1:]:
+        for _ in range(2):
+            _cap_run(exe, prog, f, [nmsed], scope, numpy=False)
+    secs = {"eager": [], "captured": []}
+    for turn in range(2):
+        for m in (("eager", "captured") if turn == 0 else
+                  ("captured", "eager")):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for f in feeds * 2:
+                _cap_run(exe, prog, f, [nmsed], scope, m == "captured",
+                         numpy=False)
+            torch.cuda.synchronize()
+            secs[m].append(time.perf_counter() - t1)
+    n_img = SSD_B * len(feeds) * 2
+    for m, s in secs.items():
+        print(f"  detect {m}: s a pass of {n_img} images "
+              f"{', '.join(f'{x:.3f}' for x in s)}: "
+              f"{n_img / float(np.median(s)):.1f} images/s")
+    wall, busy, _ = _profiled_replay(torch, "detect", exe, prog,
+                                     feeds[0], [nmsed], scope)
+    nms = _ssd_nms_alone(torch, pt, scope, prog, feeds[0])
+    print(f"  detect: multiclass_nms alone takes {1e3 * nms['device']:.3f} "
+          f"ms of device time captured, "
+          f"{100 * nms['device'] / (wall * busy):.1f} % of a captured "
+          f"detection run's {1e3 * wall * busy:.3f} ms")
+    exe.close()
+    # DetectionMAP over two batches, eager
+    mprog, mnmsed, ev = ssd_detect(pt, main, head, with_map=True)
+    mexe = pt.Executor(pt.CUDAPlace(0))
+    fetch = list(ev.get_map_var())
+    with pt.scope_guard(scope):
+        ev.reset(mexe)
+        maps = [tuple(float(v) for v in mexe.run(
+            mprog, feed=b, fetch_list=fetch, scope=scope)) for b in batches]
+        # batch 0 again from a fresh state: its plan's second run, where
+        # the capture rule decides (and keeps the block eager)
+        ev.reset(mexe)
+        again = tuple(float(v) for v in mexe.run(
+            mprog, feed=batches[0], fetch_list=fetch, scope=scope))
+    reasons = list(mexe._engine.eager_reasons.values())
+    c = _counters(mexe)
+    mexe.close()
+    print(f"  DetectionMAP (11point, overlap 0.5, difficult not "
+          f"evaluated) over {len(batches)} batches: (batch mAP, "
+          f"accumulated mAP) {maps}; batch 0 again after reset {again}; "
+          f"counters {c}; eager reasons {reasons}")
+    _require(all(0.0 <= x <= 1.0 for m in maps for x in m) and
+             maps[0][0] == maps[0][1] == again[0] == again[1] and
+             c["captures"] == 0 and c["eager_runs"] == 3 and reasons,
+             "ssd DetectionMAP: the maps or the block's mode")
+    print(f"  ssd detection: {time.perf_counter() - t0:.1f} s")
+
+
+def detection_phase(torch, dev, card):
+    """MobileNet-SSD (mobilenet_ssd) at Pascal VOC's 300x300, 21 classes,
+    B=64: trained with RMSProp and L2Decay on VOC-shaped LoD batches,
+    captured against eager bit for bit, its first loss against the CPU,
+    rates, a stream of new LoDs, a profiled replay and peak memory; then
+    detection_output through Executor.run (eager and captured) and
+    AnalysisPredictor, multiclass_nms alone eager and captured, and the
+    DetectionMAP evaluator. No kernel of the port lies on this path."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    main, scope, head, batches = _ssd_train_phase(torch, pt, kreg, card)
+    _ssd_detect_phase(torch, pt, main, scope, head, batches)
+    del scope, batches
+    gc_cuda(torch)
+
+
 # the op sweep's tolerance, card against CPU: float32 within 1e-5
 # relative and absolute (libm and summation order differ); the rest exact
 SWEEP_TOL = 1e-5
 
 
 def op_sweep_phase(torch, dev):
-    """Every op type of the basic, reduce, elementwise and activation
-    families and the three value-dependent sequence ops, each case of
-    ops/family_cases.py once through its lowering on the card against
-    the same lowering on the CPU."""
+    """Every op type of the basic, reduce, elementwise, activation and nn
+    families, the nine update ops without a kernel, the three
+    value-dependent sequence ops and SSD's eight detection ops, each
+    case of ops/family_cases.py once through its lowering on the card
+    against the same lowering on the CPU."""
     from paddle_tpu_torch.ops import family_cases as fc
     t0 = time.perf_counter()
     worst, types = 0.0, set()
     runs = [(c[0], c[1], c[2], c[3], None) for cs in fc.cases().values()
             for c in cs]
     runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
-             for c in fc.sequence_cases()]
+             for c in fc.sequence_cases() + fc.detection_cases()]
     for op_type, ins, attrs, outs, lods in runs:
         card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
         cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
@@ -6534,6 +6987,8 @@ def main(argv=None):
     value_sequence_phase(torch, dev)
     print("[op sweep]")
     op_sweep_phase(torch, dev)
+    print("[detection phase]")
+    detection_phase(torch, dev, card)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

@@ -869,10 +869,10 @@ class Engine:
             t = var.get_tensor().tensor
             if t is None:
                 missing.append(n)
-            elif t.device != device:
+            elif isinstance(t, torch.Tensor) and t.device != device:
                 env[n] = t.to(device)
             else:
-                env[n] = t
+                env[n] = t    # a tensor, or a host object (an eager op's)
         if missing:
             raise _missing_error(missing)
         env.update(feeds)
@@ -891,7 +891,8 @@ class Engine:
             t = env[n]
             holder = var.get_tensor()
             old = holder.tensor
-            if old is not None and old.dtype != t.dtype:
+            if isinstance(old, torch.Tensor) and \
+                    isinstance(t, torch.Tensor) and old.dtype != t.dtype:
                 t = t.to(old.dtype)   # params and optimizer state keep
             holder.set_tensor(t)      # their dtype (float32 under AMP)
         return env

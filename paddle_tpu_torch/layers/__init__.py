@@ -1,8 +1,10 @@
 """Op-builder layer API (counterpart of paddle_tpu/layers/)."""
-from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
-               loss, math_ops, metric_op, nn, ops, rnn, sequence, tensor)
+from . import (control_flow, detection, io,  # noqa: F401
+               learning_rate_scheduler, loss, math_ops, metric_op, nn, ops,
+               rnn, sequence, tensor)
 
 from .control_flow import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .math_ops import *  # noqa: F401,F403

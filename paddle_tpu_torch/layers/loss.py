@@ -1,7 +1,8 @@
 """Loss layers (counterpart of paddle_tpu/layers/loss.py: cross_entropy,
 softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
-label_smoothed_softmax_xent, square_error_cost, linear_chain_crf and
-crf_decoding)."""
+label_smoothed_softmax_xent, square_error_cost, mse_loss, log_loss,
+huber_loss, kldiv_loss, smooth_l1, margin_rank_loss, rank_loss,
+hinge_loss, bpr_loss, linear_chain_crf and crf_decoding)."""
 from __future__ import annotations
 
 import warnings
@@ -10,7 +11,9 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits",
-           "label_smoothed_softmax_xent", "square_error_cost",
+           "label_smoothed_softmax_xent", "square_error_cost", "mse_loss",
+           "log_loss", "huber_loss", "kldiv_loss", "smooth_l1",
+           "margin_rank_loss", "rank_loss", "hinge_loss", "bpr_loss",
            "linear_chain_crf", "crf_decoding"]
 
 
@@ -80,6 +83,92 @@ def square_error_cost(input, label):
     helper.append_op("square", inputs={"X": minus_out},
                      outputs={"Out": sq})
     return sq
+
+
+def mse_loss(input, label):
+    from .nn import reduce_mean
+    return reduce_mean(square_error_cost(input, label))
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_loss",
+                     inputs={"Predicted": input, "Labels": label},
+                     outputs={"Loss": out}, attrs={"epsilon": epsilon})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("huber_loss", inputs={"X": input, "Y": label},
+                     outputs={"Out": out, "Residual": residual},
+                     attrs={"delta": float(delta)})
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("kldiv_loss", inputs={"X": x, "Target": target},
+                     outputs={"Loss": out},
+                     attrs={"reduction": reduction})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    inputs = {"X": x, "Y": y}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = outside_weight
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": out, "Diff": diff},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype, True)
+    helper.append_op("margin_rank_loss",
+                     inputs={"Label": label, "X1": left, "X2": right},
+                     outputs={"Out": out, "Activated": act},
+                     attrs={"margin": float(margin)})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op("rank_loss",
+                     inputs={"Label": label, "Left": left,
+                             "Right": right},
+                     outputs={"Out": out})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper("hinge_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("hinge_loss",
+                     inputs={"Logits": input, "Labels": label},
+                     outputs={"Loss": out})
+    return out
+
+
+def bpr_loss(input, label, name=None):
+    helper = LayerHelper("bpr_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("bpr_loss", inputs={"X": input, "Label": label},
+                     outputs={"Y": out})
+    return out
 
 
 def linear_chain_crf(input, label, param_attr=None):

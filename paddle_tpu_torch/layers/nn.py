@@ -7,8 +7,10 @@ batch_norm, relu; those of the CTR models: flatten, concat,
 sigmoid, elementwise_sub; the recurrent layers of the sequence
 models: dynamic_lstm, dynamic_gru; the activations tanh, square and
 log; those of the beam-search decoder: stack, gather, beam_search
-and beam_search_decode; and those of the basic, reduce, elementwise and
-activation op families, with autoincreased_step_counter."""
+and beam_search_decode; those of the basic, reduce, elementwise and
+activation op families, with autoincreased_step_counter; and those of
+the nn family (group_norm, instance_norm, data_norm, log_softmax,
+l2_normalize, lrn), sign, dice_loss and npair_loss."""
 from __future__ import annotations
 
 import copy
@@ -40,6 +42,9 @@ __all__ = [
     "scatter", "argsort", "argmax", "argmin", "cumsum", "clip",
     "clip_by_norm", "label_smooth", "multiplex", "shape", "size", "where",
     "hash", "shard_index", "autoincreased_step_counter",
+    # the nn family and the composed losses
+    "group_norm", "instance_norm", "data_norm", "log_softmax",
+    "l2_normalize", "lrn", "sign", "dice_loss", "npair_loss",
 ]
 
 
@@ -874,3 +879,133 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
                      outputs={"Out": [name]}, attrs={"step": float(step)})
     counter.stop_gradient = True
     return counter
+
+
+# ---------------------------------------------------------------------------
+# the nn op family's norms, log_softmax, l2_normalize, lrn and sign, and
+# two composed losses
+# ---------------------------------------------------------------------------
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None,
+               bias_attr=None, act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", act=act, name=name)
+    dtype = input.dtype
+    ch = input.shape[1]
+    inputs = {"X": input}
+    if param_attr is not False:
+        inputs["Scale"] = helper.create_parameter(
+            param_attr, [ch], dtype, default_initializer=Constant(1.0))
+    if bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(bias_attr, [ch], dtype,
+                                                 is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype, True)
+    var = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": out, "Mean": mean, "Variance": var},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    ch = input.shape[1]
+    inputs = {"X": input}
+    if param_attr is not False:
+        inputs["Scale"] = helper.create_parameter(
+            param_attr, [ch], input.dtype,
+            default_initializer=Constant(1.0))
+    if bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(bias_attr, [ch],
+                                                 input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("instance_norm", inputs=inputs,
+                     outputs={"Y": out}, attrs={"epsilon": epsilon})
+    return out
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False):
+    """BatchSize, BatchSum and BatchSquareSum are parameters (1e4, 0 and
+    1e4 at the start), as in the JAX package."""
+    helper = LayerHelper("data_norm", act=act, name=name)
+    c = input.shape[-1]
+    dtype = input.dtype
+    batch_size = helper.create_parameter(
+        ParamAttr(initializer=Constant(1e4)), [c], dtype)
+    batch_sum = helper.create_parameter(
+        ParamAttr(initializer=Constant(0.0)), [c], dtype)
+    batch_square = helper.create_parameter(
+        ParamAttr(initializer=Constant(1e4)), [c], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    means = helper.create_variable_for_type_inference(dtype, True)
+    scales = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op(
+        "data_norm",
+        inputs={"X": input, "BatchSize": batch_size,
+                "BatchSum": batch_sum, "BatchSquareSum": batch_square},
+        outputs={"Y": out, "Means": means, "Scales": scales},
+        attrs={"epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _single_op("log_softmax", input, {"axis": axis})
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    return _single_op("l2_normalize", x, {"axis": axis,
+                                          "epsilon": epsilon})
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("lrn", inputs={"X": input},
+                     outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def sign(x):
+    helper = LayerHelper("sign")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sign", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2*|input . onehot(label)| / (|input| + |onehot|), averaged:
+    composed of the builders, as the JAX package composes it."""
+    label = one_hot(label, depth=input.shape[-1])
+    reduce_dims = list(range(1, len(input.shape)))
+    inse = reduce_sum(elementwise_mul(input, label), dim=reduce_dims)
+    dice_denominator = reduce_sum(input, dim=reduce_dims) + \
+        reduce_sum(label, dim=reduce_dims)
+    dice_score = 1 - inse * 2 / (dice_denominator + epsilon)
+    return mean(dice_score)
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """N-pair loss: soft-label cross entropy of anchor @ positive^T
+    against the same-label targets, normalized a row, plus l2_reg/4
+    times the embeddings' mean squared norms (composed as in the JAX
+    package)."""
+    from .loss import softmax_with_cross_entropy
+    from .math_ops import equal
+    from .tensor import cast, scale
+    labels = cast(reshape(labels, [-1, 1]), "float32")
+    same = cast(equal(labels, transpose(labels, perm=[1, 0])), "float32")
+    targets = elementwise_div(same, reduce_sum(same, dim=1, keep_dim=True))
+    similarity = matmul(anchor, positive, transpose_y=True)
+    ce = reduce_mean(softmax_with_cross_entropy(similarity, targets,
+                                                soft_label=True))
+    reg = scale(elementwise_add(
+        reduce_mean(reduce_sum(square(anchor), dim=1)),
+        reduce_mean(reduce_sum(square(positive), dim=1))),
+        scale=l2_reg * 0.25)
+    return elementwise_add(ce, reg)

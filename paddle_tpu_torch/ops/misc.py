@@ -1,5 +1,6 @@
-"""py_func and py_func_grad: a Python callable run as an op (counterpart
-of paddle_tpu/ops/misc.py's py_func and py_func_grad).
+"""sign, and py_func and py_func_grad: a Python callable run as an op
+(counterpart of paddle_tpu/ops/misc.py's sign, py_func and
+py_func_grad).
 
 The callable gets host (numpy) copies of its inputs, and its results go
 back to the op's device. A host copy cannot run on the meta device nor
@@ -11,8 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.registry import register_no_grad_op
+from ..core.registry import register_no_grad_op, register_op
 from ..core.scope import tensor_to_numpy
+
+
+@register_op("sign")
+def sign(ctx):
+    """-1, 0 or 1 elementwise (L1Decay's term); its gradient is zero."""
+    ctx.set_output("Out", torch.sign(ctx.input("X")))
 
 
 def _host(ctx, v):

@@ -1,6 +1,8 @@
-"""Dense NN ops: softmax, cross_entropy, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits, layer_norm, batch_norm,
-add_position_encoding, label_smoothed_softmax_xent with its
+"""Dense NN ops: softmax, log_softmax, cross_entropy, cross_entropy2,
+softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits, the
+losses (log, huber, smooth_l1, hinge, rank, margin_rank, kldiv, bpr),
+layer_norm, batch_norm, group_norm, instance_norm, lrn, l2_normalize,
+data_norm, add_position_encoding, label_smoothed_softmax_xent with its
 hand-written grad, and dropout (counterpart of paddle_tpu/ops/nn.py).
 softmax, cross_entropy, softmax_with_cross_entropy and
 sigmoid_cross_entropy_with_logits take the generic gradient. layer_norm,
@@ -68,8 +70,11 @@ def softmax_with_cross_entropy(ctx):
         ids = label.long()
         if ids.ndim == logits.ndim:
             ids = ids.squeeze(-1)
-        loss = -torch.gather(log_p, -1, ids[..., None].clamp(
-            0, logits.shape[-1] - 1))
+        # the leading dims broadcast, as jnp.take_along_axis's do
+        lead = torch.broadcast_shapes(ids.shape, log_p.shape[:-1])
+        ids = ids.expand(lead)
+        loss = -torch.gather(log_p.expand(*lead, log_p.shape[-1]), -1,
+                             ids[..., None].clamp(0, logits.shape[-1] - 1))
         keep = ids[..., None] != ctx.attr("ignore_index", -100)
         loss = torch.where(keep, loss, torch.zeros_like(loss))
     ctx.set_output("Softmax", torch.exp(log_p))
@@ -252,3 +257,231 @@ def dropout(ctx):
     kept = x / q if impl == "upscale_in_train" else x
     ctx.set_output("Out", torch.where(keep, kept, torch.zeros_like(x)))
     ctx.set_output("Mask", keep.to(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# log_softmax, cross_entropy2 and the losses (the JAX lowerings' formulas,
+# operation for operation; each takes the generic gradient)
+# ---------------------------------------------------------------------------
+
+@register_op("log_softmax")
+def log_softmax(ctx):
+    """Over the last axis, as the JAX op computes it (a other axis is
+    refused, as by softmax)."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    if axis not in (-1, x.ndim - 1):
+        raise NotImplementedError(f"log_softmax over axis {axis} (not the "
+                                  f"last) is not ported")
+    ctx.set_output("Out", torch.log_softmax(x, dim=-1))
+
+
+def _hard_ids(label, x):
+    ids = label.long()
+    return ids.squeeze(-1) if ids.ndim == x.ndim else ids
+
+
+@register_op("cross_entropy2", no_grad_slots=("Label",))
+def cross_entropy2(ctx):
+    """Y = -log(x[label] + 1e-12), MatchX = x[label], XShape an empty
+    [0, *x.shape] tensor."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    ids = _hard_ids(label, x)
+    picked = torch.gather(x, -1, ids[..., None])
+    ctx.set_output("Y", -torch.log(picked + 1e-12))
+    ctx.set_output("XShape", x.new_zeros((0,) + tuple(x.shape)))
+    ctx.set_output("MatchX", picked)
+
+
+@register_op("log_loss", no_grad_slots=("Labels",))
+def log_loss(ctx):
+    p, y = ctx.input("Predicted"), ctx.input("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    ctx.set_output("Loss", -y * torch.log(p + eps) -
+                   (1 - y) * torch.log(1 - p + eps))
+
+
+@register_op("huber_loss", no_grad_slots=("Y",))
+def huber_loss(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    delta = ctx.attr("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    ctx.set_output("Residual", r)
+    ctx.set_output("Out", torch.where(ar <= delta, 0.5 * r * r,
+                                      delta * (ar - 0.5 * delta)))
+
+
+@register_op("smooth_l1_loss", no_grad_slots=("Y",))
+def smooth_l1_loss(ctx):
+    """Diff = (x - y) * InsideWeight; Out [N, 1] = the sum over every axis
+    but the first of 0.5*d*d*s2 where |d| < 1/s2, else |d| - 0.5/s2
+    (s2 = sigma^2), times OutsideWeight."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    sigma = ctx.attr("sigma", 1.0)
+    s2 = sigma * sigma
+    d = x - y
+    in_w, out_w = ctx.input("InsideWeight"), ctx.input("OutsideWeight")
+    if in_w is not None:
+        d = d * in_w
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * d * d * s2, ad - 0.5 / s2)
+    if out_w is not None:
+        loss = loss * out_w
+    ctx.set_output("Diff", d)
+    ctx.set_output("Out", torch.sum(loss, dim=tuple(range(1, x.ndim)))[:, None]
+                   if x.ndim > 1 else loss[:, None])
+
+
+@register_op("hinge_loss", no_grad_slots=("Labels",))
+def hinge_loss(ctx):
+    logits, labels = ctx.input("Logits"), ctx.input("Labels")
+    ctx.set_output("Loss", torch.maximum(
+        1.0 - (2.0 * labels - 1.0) * logits, logits.new_zeros(())))
+
+
+@register_op("rank_loss", no_grad_slots=("Label",))
+def rank_loss(ctx):
+    label = ctx.input("Label")
+    d = ctx.input("Left") - ctx.input("Right")
+    ctx.set_output("Out", torch.log1p(torch.exp(d)) - label * d)
+
+
+@register_op("margin_rank_loss", no_grad_slots=("Label",))
+def margin_rank_loss(ctx):
+    label = ctx.input("Label")
+    x1, x2 = ctx.input("X1"), ctx.input("X2")
+    margin = ctx.attr("margin", 0.0)
+    out = torch.maximum(-label * (x1 - x2) + margin, x1.new_zeros(()))
+    ctx.set_output("Activated", (out > 0).to(x1.dtype))
+    ctx.set_output("Out", out)
+
+
+@register_op("kldiv_loss", no_grad_slots=("Target",))
+def kldiv_loss(ctx):
+    """target * (log(target) - x) where target > 0, else 0; reduced by
+    `reduction`: mean and sum to a 0-d tensor, batchmean the sum over
+    the first dim's size, none elementwise."""
+    x, target = ctx.input("X"), ctx.input("Target")
+    reduction = ctx.attr("reduction", "mean")
+    loss = torch.where(target > 0, target * (torch.log(target) - x),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+    if reduction == "mean":
+        loss = torch.mean(loss)
+    elif reduction == "sum":
+        loss = torch.sum(loss)
+    elif reduction == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    ctx.set_output("Loss", loss)
+
+
+@register_op("bpr_loss", no_grad_slots=("Label",))
+def bpr_loss(ctx):
+    """Y [.., 1] = the mean over the negatives j != label of
+    -log(sigmoid(x[label] - x[j]) + 1e-12)."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    ids = _hard_ids(label, x)
+    pos = torch.gather(x, -1, ids[..., None])
+    loss = -torch.log(torch.sigmoid(pos - x) + 1e-12)
+    n = x.shape[-1]
+    mask = torch.nn.functional.one_hot(ids, n).to(x.dtype)
+    ctx.set_output("Y", torch.sum(loss * (1 - mask), dim=-1, keepdim=True)
+                   / (n - 1))
+
+
+# ---------------------------------------------------------------------------
+# group_norm, instance_norm, lrn, l2_normalize, data_norm
+# ---------------------------------------------------------------------------
+
+def _moments(x, axes):
+    """mean and biased variance over `axes` (kept), each a mean as
+    jnp.mean and jnp.var compute it: the variance is the mean of the
+    squared deviations."""
+    mean = x.mean(dim=axes, keepdim=True)
+    dev = x - mean
+    return mean, (dev * dev).mean(dim=axes, keepdim=True)
+
+
+@register_op("group_norm")
+def group_norm(ctx):
+    """NCHW: each sample's `groups` channel groups normalized over their
+    channels and spatial positions, then Scale and Bias a channel; Mean
+    and Variance [N, groups]. A bf16 x is normalized in float32."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    eps = ctx.attr("epsilon", 1e-5)
+    groups = ctx.attr("groups")
+    n, c = x.shape[0], x.shape[1]
+    reduced = x.dtype in (torch.bfloat16, torch.float16)
+    xf = x.float() if reduced else x
+    g = xf.reshape(n, groups, c // groups, *x.shape[2:])
+    mean, var = _moments(g, tuple(range(2, g.ndim)))
+    y = ((g - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = [1, c] + [1] * (x.ndim - 2)
+    if scale is not None:
+        y = y * scale.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    ctx.set_output("Y", y.to(x.dtype) if reduced else y)
+    ctx.set_output("Mean", mean.reshape(n, groups))
+    ctx.set_output("Variance", var.reshape(n, groups))
+
+
+@register_op("instance_norm")
+def instance_norm(ctx):
+    """Each (sample, channel) normalized over its spatial positions, then
+    Scale and Bias a channel."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    eps = ctx.attr("epsilon", 1e-5)
+    mean, var = _moments(x, tuple(range(2, x.ndim)))
+    y = (x - mean) * torch.rsqrt(var + eps)
+    shape = [1, x.shape[1]] + [1] * (x.ndim - 2)
+    if scale is not None:
+        y = y * scale.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    ctx.set_output("Y", y)
+
+
+@register_op("lrn")
+def lrn(ctx):
+    """NCHW cross-channel LRN: MidOut = k + alpha * the sum of x^2 over
+    the n channels around each (zero-padded), Out = x / MidOut^beta; the
+    window summed in the JAX lowering's order."""
+    x = ctx.input("X")
+    n = ctx.attr("n", 5)
+    alpha, beta = ctx.attr("alpha", 1e-4), ctx.attr("beta", 0.75)
+    k = ctx.attr("k", 1.0)
+    half = n // 2
+    pad = torch.nn.functional.pad(x * x, (0, 0, 0, 0, half, half))
+    acc = torch.zeros_like(x)
+    for i in range(n):
+        acc = acc + pad[:, i:i + x.shape[1]]
+    mid = k + alpha * acc
+    ctx.set_output("MidOut", mid)
+    ctx.set_output("Out", x / torch.pow(mid, beta))
+
+
+@register_op("l2_normalize")
+def l2_normalize(ctx):
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    eps = ctx.attr("epsilon", 1e-10)
+    ctx.set_output("Out", x * torch.rsqrt(
+        torch.sum(x * x, dim=axis, keepdim=True) + eps))
+
+
+@register_op("data_norm")
+def data_norm(ctx):
+    """Y = (x - BatchSum/BatchSize) * sqrt(BatchSize/BatchSquareSum), with
+    Means and Scales the two factors. The three statistics are
+    parameters, moved by the optimizer through their generic gradients,
+    as in the JAX package."""
+    x = ctx.input("X")
+    size = ctx.input("BatchSize")
+    means = ctx.input("BatchSum") / size
+    scales = torch.sqrt(size / ctx.input("BatchSquareSum"))
+    ctx.set_output("Means", means)
+    ctx.set_output("Scales", scales)
+    ctx.set_output("Y", (x - means) * scales)

@@ -1,6 +1,7 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py:
 sgd, momentum, adagrad and adam, on dense and on SelectedRows
-gradients). Updates write ParamOut/...Out, which name the same vars as
+gradients; lars_momentum, adamax, decayed_adagrad, proximal_adagrad,
+proximal_gd, adadelta, rmsprop, ftrl and lamb on dense ones). Updates write ParamOut/...Out, which name the same vars as
 their inputs; the engine writes them back to the scope. Gradients never
 flow through updates (register_no_grad_op).
 
@@ -38,7 +39,7 @@ import torch
 from ..core.registry import register_group, register_no_grad_op
 from ..core.selected_rows import is_selected_rows, parked_to_row0
 from ..kernels import registry as kreg
-from ..kernels.fused_optimizer import adam_plain, sgd_plain
+from ..kernels.fused_optimizer import _sqrt_rn, adam_plain, sgd_plain
 
 
 def _select(op_type, *tensors):
@@ -274,3 +275,197 @@ def adam_group(ctxs):
                             beta2=b2, epsilon=eps)
         for ctx, *new in zip(cs, *outs):
             _set_adam_outputs(ctx, *new)
+
+
+# ---------------------------------------------------------------------------
+# lars_momentum, adamax, decayed_adagrad, proximal_adagrad, proximal_gd,
+# adadelta, rmsprop, ftrl, lamb: dense updates with no kernel (none in the
+# JAX package), each the JAX lowering's operations in its order, each
+# rounded once; every square root correctly rounded (_sqrt), so that the
+# CPU update equals the JAX one bit for bit
+# ---------------------------------------------------------------------------
+
+def _sqrt(x):
+    """The correctly rounded square root: the card's is; torch's float32
+    one on the CPU is not in about 0.7 % of inputs (_sqrt_rn)."""
+    return torch.sqrt(x) if x.is_cuda else _sqrt_rn(x)
+
+
+def _lr(ctx, p):
+    return ctx.input("LearningRate").reshape(()).to(p.dtype)
+
+
+def _norm(x):
+    """sqrt(sum(x*x)) over every element."""
+    return _sqrt(torch.sum(x * x))
+
+
+@register_no_grad_op("lars_momentum")
+def lars_momentum(ctx):
+    """local_lr = lr*coeff*|p| / (|g| + decay*|p| + 1e-18);
+    v' = mu*v + local_lr*(g + decay*p); p' = p - v'."""
+    p, g, v = ctx.input("Param"), ctx.input("Grad"), ctx.input("Velocity")
+    lr = _lr(ctx, p)
+    mu = ctx.attr("mu")
+    coeff = ctx.attr("lars_coeff", 0.001)
+    decay = ctx.attr("lars_weight_decay", 0.0005)
+    p_norm, g_norm = _norm(p), _norm(g)
+    local_lr = lr * coeff * p_norm / (g_norm + decay * p_norm + 1e-18)
+    v_new = mu * v + local_lr * (g + decay * p)
+    ctx.set_output("ParamOut", p - v_new)
+    ctx.set_output("VelocityOut", v_new)
+
+
+@register_no_grad_op("adamax")
+def adamax(ctx):
+    """m' = b1*m + (1-b1)*g; u' = max(b2*u, |g|);
+    p' = p - (lr/(1-b1^t))*m'/(u' + eps). Beta1Pow moves in the scale op
+    the optimizer appends after the updates."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    m, inf = ctx.input("Moment"), ctx.input("InfNorm")
+    lr = _lr(ctx, p)
+    b1p = ctx.input("Beta1Pow").reshape(()).to(p.dtype)
+    b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m_new = b1 * m + (1 - b1) * g
+    inf_new = torch.maximum(b2 * inf, torch.abs(g))
+    ctx.set_output("ParamOut",
+                   p - (lr / (1 - b1p)) * m_new / (inf_new + eps))
+    ctx.set_output("MomentOut", m_new)
+    ctx.set_output("InfNormOut", inf_new)
+
+
+@register_no_grad_op("decayed_adagrad")
+def decayed_adagrad(ctx):
+    """m' = decay*m + (1-decay)*g*g; p' = p - lr*g/(sqrt(m') + eps)."""
+    p, g, mom = ctx.input("Param"), ctx.input("Grad"), ctx.input("Moment")
+    lr = _lr(ctx, p)
+    decay = ctx.attr("decay", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    m_new = decay * mom + (1 - decay) * g * g
+    ctx.set_output("ParamOut", p - lr * g / (_sqrt(m_new) + eps))
+    ctx.set_output("MomentOut", m_new)
+
+
+def _proximal(prox, lr_t, l1, l2):
+    """sign(prox) * max(|prox| - lr_t*l1, 0) / (1 + lr_t*l2)."""
+    return torch.sign(prox) * torch.clamp_min(
+        torch.abs(prox) - lr_t * l1, 0.0) / (1.0 + lr_t * l2)
+
+
+@register_no_grad_op("proximal_adagrad")
+def proximal_adagrad(ctx):
+    """m' = m + g*g; lr_t = lr/sqrt(m'); the proximal step of
+    p - lr_t*g."""
+    p, g, mom = ctx.input("Param"), ctx.input("Grad"), ctx.input("Moment")
+    lr = _lr(ctx, p)
+    m_new = mom + g * g
+    lr_t = lr / _sqrt(m_new)
+    ctx.set_output("ParamOut", _proximal(p - lr_t * g, lr_t,
+                                         ctx.attr("l1", 0.0),
+                                         ctx.attr("l2", 0.0)))
+    ctx.set_output("MomentOut", m_new)
+
+
+@register_no_grad_op("proximal_gd")
+def proximal_gd(ctx):
+    """The proximal step of p - lr*g."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    lr = _lr(ctx, p)
+    ctx.set_output("ParamOut", _proximal(p - lr * g, lr,
+                                         ctx.attr("l1", 0.0),
+                                         ctx.attr("l2", 0.0)))
+
+
+@register_no_grad_op("adadelta")
+def adadelta(ctx):
+    """E[g^2]' = rho*E[g^2] + (1-rho)*g*g;
+    upd = -sqrt((E[u^2] + eps)/(E[g^2]' + eps))*g;
+    E[u^2]' = rho*E[u^2] + (1-rho)*upd*upd; p' = p + upd (no rate)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    asg, asu = ctx.input("AvgSquaredGrad"), ctx.input("AvgSquaredUpdate")
+    rho = ctx.attr("rho", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    g2 = rho * asg + (1 - rho) * g * g
+    upd = -_sqrt((asu + eps) / (g2 + eps)) * g
+    ctx.set_output("ParamOut", p + upd)
+    ctx.set_output("AvgSquaredGradOut", g2)
+    ctx.set_output("AvgSquaredUpdateOut", rho * asu + (1 - rho) * upd * upd)
+
+
+@register_no_grad_op("rmsprop")
+def rmsprop(ctx):
+    """ms' = decay*ms + (1-decay)*g*g; centered: mg' = decay*mg +
+    (1-decay)*g and denominator ms' - mg'^2 + eps, else ms' + eps;
+    mom' = momentum*mom + lr*g/sqrt(denominator); p' = p - mom'."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    ms, mom = ctx.input("MeanSquare"), ctx.input("Moment")
+    lr = _lr(ctx, p)
+    eps = ctx.attr("epsilon", 1e-10)
+    decay = ctx.attr("decay", 0.9)
+    momentum = ctx.attr("momentum", 0.0)
+    ms_new = decay * ms + (1 - decay) * g * g
+    if ctx.attr("centered", False):
+        mg_new = decay * ctx.input("MeanGrad") + (1 - decay) * g
+        denom = ms_new - mg_new * mg_new + eps
+        ctx.set_output("MeanGradOut", mg_new)
+    else:
+        denom = ms_new + eps
+    mom_new = momentum * mom + lr * g / _sqrt(denom)
+    ctx.set_output("ParamOut", p - mom_new)
+    ctx.set_output("MeanSquareOut", ms_new)
+    ctx.set_output("MomentOut", mom_new)
+
+
+@register_no_grad_op("ftrl")
+def ftrl(ctx):
+    """FTRL-proximal with the reference's 2*l2 denominator: n' = n + g*g;
+    sigma = (n'^-power - n^-power)/lr; z' = z + g - sigma*p;
+    p' = (clip(z', -l1, l1) - z') / (2*l2 + n'^-power/lr) (square roots
+    for the default power -0.5)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    sq, lin = ctx.input("SquaredAccumulator"), ctx.input("LinearAccumulator")
+    lr = _lr(ctx, p)
+    l1, l2 = ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)
+    power = ctx.attr("lr_power", -0.5)
+    new_sq = sq + g * g
+    if power == -0.5:
+        root_new = _sqrt(new_sq)
+        sigma = (root_new - _sqrt(sq)) / lr
+    else:
+        root_new = torch.pow(new_sq, -power)
+        sigma = (root_new - torch.pow(sq, -power)) / lr
+    new_lin = lin + g - sigma * p
+    x = 2.0 * l2 + root_new / lr
+    pre = torch.clamp(new_lin, -l1, l1) - new_lin
+    ctx.set_output("ParamOut", pre / x)
+    ctx.set_output("SquaredAccumOut", new_sq)
+    ctx.set_output("LinearAccumOut", new_lin)
+
+
+@register_no_grad_op("lamb")
+def lamb(ctx):
+    """Adam's moments, their bias-corrected ratio plus wd*p as r, and the
+    trust ratio |p|/|r| (1 where either is 0): p' = p - lr*trust*r; the
+    beta powers fold into the op as adam's do."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    m, v = ctx.input("Moment1"), ctx.input("Moment2")
+    lr = _lr(ctx, p)
+    b1p = ctx.input("Beta1Pow").reshape(()).to(p.dtype)
+    b2p = ctx.input("Beta2Pow").reshape(()).to(p.dtype)
+    b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-6)
+    wd = ctx.attr("weight_decay", 0.0)
+    m_new = b1 * m + (1 - b1) * g
+    v_new = b2 * v + (1 - b2) * g * g
+    r = (m_new / (1 - b1p)) / (_sqrt(v_new / (1 - b2p)) + eps) + wd * p
+    p_norm, r_norm = _norm(p), _norm(r)
+    trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        torch.ones((), dtype=p.dtype, device=p.device))
+    ctx.set_output("ParamOut", p - lr * trust * r)
+    ctx.set_output("Moment1Out", m_new)
+    ctx.set_output("Moment2Out", v_new)
+    ctx.set_output("Beta1PowOut",
+                   (b1p * b1).reshape(ctx.input("Beta1Pow").shape))
+    ctx.set_output("Beta2PowOut",
+                   (b2p * b2).reshape(ctx.input("Beta2Pow").shape))

@@ -1,8 +1,9 @@
 """Optimizers: minimize() = append_backward + one update op per parameter.
 
-Counterpart of paddle_tpu/optimizer.py (Optimizer, SGDOptimizer,
-MomentumOptimizer, AdagradOptimizer and AdamOptimizer; the other rules
-are not ported yet). The learning rate is
+Counterpart of paddle_tpu/optimizer.py (Optimizer, SGD, Momentum,
+LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
+Ftrl and Lamb; ModelAverage, ExponentialMovingAverage, the pipeline and
+DGC optimizers are not ported yet). The learning rate is
 a persistable global var; accumulators are persistable vars initialized
 by fill ops in the startup program; every op of the optimize phase (clip,
 regularization, update) carries op_role "optimize". Update ops bind
@@ -39,7 +40,10 @@ from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "MomentumOptimizer", "Adagrad", "AdagradOptimizer", "Adam",
-           "AdamOptimizer"]
+           "AdamOptimizer", "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
+           "DecayedAdagradOptimizer", "Adadelta", "AdadeltaOptimizer",
+           "RMSProp", "RMSPropOptimizer", "Ftrl", "FtrlOptimizer", "Lamb",
+           "LambOptimizer", "LarsMomentum", "LarsMomentumOptimizer"]
 
 
 class Optimizer:
@@ -168,6 +172,9 @@ class Optimizer:
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
 
+    def _finish_update(self, block, parameters_and_grads):
+        """Ops after every update (Adamax's beta-power scale ops)."""
+
     # ---- the pass ---------------------------------------------------------
     def _create_optimization_pass(self, parameters_and_grads):
         block = Optimizer._EagerBlock() if in_dygraph_mode() else \
@@ -179,6 +186,7 @@ class Optimizer:
         ops = [self._append_optimize_op(block, pg)
                for pg in parameters_and_grads
                if pg[1] is not None and pg[0].trainable]
+        self._finish_update(block, parameters_and_grads)
         return block.run() if in_dygraph_mode() else ops
 
     def backward(self, loss, startup_program=None, parameter_list=None,
@@ -331,7 +339,224 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon}, infer_shape=False)
 
 
+class LarsMomentumOptimizer(Optimizer):
+    """One velocity accumulator a parameter; the lars_momentum op's attrs
+    mu, lars_coeff and lars_weight_decay."""
+
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "lars_momentum"
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "lars_momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "VelocityOut": v},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay},
+            infer_shape=False)
+
+
+class AdamaxOptimizer(Optimizer):
+    """Moment, infinity-norm and beta1-power accumulators; the beta1
+    powers move in one `scale` op a parameter after all the updates."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adamax"
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, shape=[1],
+                                  fill_value=self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "adamax",
+            inputs={"Param": p, "Grad": g,
+                    "Moment": self._get_accumulator("moment", p),
+                    "InfNorm": self._get_accumulator("inf_norm", p),
+                    "Beta1Pow": self._get_accumulator("beta1_pow_acc", p),
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p,
+                     "MomentOut": self._get_accumulator("moment", p),
+                     "InfNormOut": self._get_accumulator("inf_norm", p)},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon}, infer_shape=False)
+
+    def _finish_update(self, block, parameters_and_grads):
+        for p, g in parameters_and_grads:
+            if g is None:
+                continue
+            b1p = self._get_accumulator("beta1_pow_acc", p)
+            block.append_op("scale", inputs={"X": b1p},
+                            outputs={"Out": b1p},
+                            attrs={"scale": self._beta1},
+                            infer_shape=False)
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "decayed_adagrad"
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "decayed_adagrad",
+            inputs={"Param": p, "Grad": g, "Moment": m,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "MomentOut": m},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+            infer_shape=False)
+
+
+class AdadeltaOptimizer(Optimizer):
+    """The adadelta op reads no learning rate (as in the JAX package):
+    `learning_rate` is kept, and its var made, all the same."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adadelta"
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("_avg_squared_grad", p)
+            self._add_accumulator("_avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        asg = self._get_accumulator("_avg_squared_grad", p)
+        asu = self._get_accumulator("_avg_squared_update", p)
+        return block.append_op(
+            "adadelta",
+            inputs={"Param": p, "Grad": g, "AvgSquaredGrad": asg,
+                    "AvgSquaredUpdate": asu},
+            outputs={"ParamOut": p, "AvgSquaredGradOut": asg,
+                     "AvgSquaredUpdateOut": asu},
+            attrs={"epsilon": self._epsilon, "rho": self._rho},
+            infer_shape=False)
+
+
+class RMSPropOptimizer(Optimizer):
+    """Momentum, mean-square and mean-gradient accumulators a parameter
+    (the last read only when centered); rho is the op's decay."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6,
+                 momentum=0.0, centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "rmsprop"
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        mom = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        mg = self._get_accumulator("mean_grad", p)
+        return block.append_op(
+            "rmsprop",
+            inputs={"Param": p, "Grad": g, "Moment": mom,
+                    "MeanSquare": ms, "MeanGrad": mg,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "MomentOut": mom,
+                     "MeanSquareOut": ms, "MeanGradOut": mg},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum,
+                   "centered": self._centered}, infer_shape=False)
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "ftrl"
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            "ftrl",
+            inputs={"Param": p, "Grad": g, "SquaredAccumulator": sq,
+                    "LinearAccumulator": lin,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "SquaredAccumOut": sq,
+                     "LinearAccumOut": lin},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power}, infer_shape=False)
+
+
+class LambOptimizer(AdamOptimizer):
+    """Adam's accumulators; the lamb op's trust ratio and weight decay."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self.type = "lamb"
+        self._weight_decay = lamb_weight_decay
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
+        return block.append_op(
+            "lamb",
+            inputs={"Param": p, "Grad": g, "Moment1": m1, "Moment2": m2,
+                    "Beta1Pow": b1p, "Beta2Pow": b2p,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+                     "Beta1PowOut": b1p, "Beta2PowOut": b2p},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon,
+                   "weight_decay": self._weight_decay},
+            infer_shape=False)
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+Lamb = LambOptimizer
+LarsMomentum = LarsMomentumOptimizer

@@ -1,8 +1,9 @@
 """ParamAttr (counterpart of paddle_tpu/param_attr.py). The learning
 rate multiplier reaches the optimizer through the Parameter's
 optimize_attr; the regularizer and the clip reach the optimizer's
-regularization and clip passes (regularizer.py, clip.py), which raise
-where they cannot apply one yet."""
+regularization and clip passes (regularizer.py, clip.py): the
+regularizer's decay term is added to the gradient, a clip raises until
+the clip ops are ported."""
 from __future__ import annotations
 
 __all__ = ["ParamAttr"]

@@ -1,15 +1,16 @@
 """The reference's arguments in the port (queue C's faults C.1-C.3).
 
 * C.3: every public name that both the port and the JAX package export
-  from `layers`, `optimizer`, `backward`, `initializer` and `param_attr`
-  takes the same parameters: names, kinds and defaults, by
+  from `layers`, `optimizer`, `backward`, `initializer`, `param_attr`,
+  `regularizer` and `evaluator` takes the same parameters: names, kinds and defaults, by
   inspect.signature (a class by its __init__ and its public methods).
   So a reference script that passes `act` to elementwise_add, `callbacks`
   to append_backward or `force_cpu` to Constant runs in the port.
 * C.1: ParamAttr takes the reference's seven arguments in their order
   and a list; a parameter's learning_rate multiplies its step (half the
-  SGD step at 0.5, as in the JAX package); a regularizer or a clip that
-  the port cannot apply yet raises NotImplementedError at minimize.
+  SGD step at 0.5, as in the JAX package); a regularizer builds the JAX
+  package's decay ops, and a clip, which the port cannot apply yet,
+  raises NotImplementedError at minimize.
 * C.2: sequence_pool MAX over sequences that are all empty gives the JAX
   lowering's pad_value rows.
 """
@@ -36,8 +37,9 @@ from test_torch_ops import _Op
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
-MIN_CHECKED = {"layers": 213, "optimizer": 40, "backward": 2,
-               "initializer": 10, "param_attr": 1}
+MIN_CHECKED = {"layers": 242, "optimizer": 110, "backward": 2,
+               "initializer": 10, "param_attr": 1, "regularizer": 5,
+               "evaluator": 7}
 MODULES = list(MIN_CHECKED)
 # names each module must share (the builders of the book's last two
 # models and py_func, fluid.gradients, and the builders of the op
@@ -62,10 +64,30 @@ FAMILY_BUILDERS = {
     "polynomial_decay", "piecewise_decay", "cosine_decay",
     "linear_lr_warmup", "sequence_erase", "sequence_slice",
     "edit_distance"}
+# the nn family's and SSD's builders, and the losses
+NN_AND_SSD_BUILDERS = {
+    "group_norm", "instance_norm", "data_norm", "log_softmax",
+    "l2_normalize", "lrn", "dice_loss", "npair_loss", "sign", "mse_loss",
+    "log_loss", "huber_loss", "kldiv_loss", "smooth_l1",
+    "margin_rank_loss", "rank_loss", "hinge_loss", "bpr_loss",
+    "prior_box", "iou_similarity", "box_coder", "bipartite_match",
+    "target_assign", "mine_hard_examples", "multiclass_nms",
+    "detection_output", "ssd_loss", "multi_box_head", "detection_map"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
-                       "crf_decoding", "py_func"} | FAMILY_BUILDERS,
-            "backward": {"gradients"}}
+                       "crf_decoding", "py_func"} | FAMILY_BUILDERS |
+            NN_AND_SSD_BUILDERS,
+            "backward": {"gradients"},
+            "optimizer": {"LarsMomentum", "LarsMomentumOptimizer",
+                          "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
+                          "DecayedAdagradOptimizer", "Adadelta",
+                          "AdadeltaOptimizer", "RMSProp",
+                          "RMSPropOptimizer", "Ftrl", "FtrlOptimizer",
+                          "Lamb", "LambOptimizer"},
+            "regularizer": {"L1Decay", "L2Decay", "L1DecayRegularizer",
+                            "L2DecayRegularizer",
+                            "append_regularization_ops"},
+            "evaluator": {"EditDistance", "DetectionMAP"}}
 
 
 def _public(mod):
@@ -178,9 +200,38 @@ def test_learning_rate_multiplier_halves_the_step_as_in_jax():
     assert np.abs(steps[1.0]).max() > 0
 
 
+def _decayed_program(fl):
+    fl.framework.unique_name.reset()
+    main, startup = fl.Program(), fl.Program()
+    with fl.program_guard(main, startup):
+        x = fl.layers.data("x", [4], dtype="float32")
+        attr = fl.ParamAttr(name="w",
+                            regularizer=fl.regularizer.L2Decay(1e-2))
+        loss = fl.layers.mean(fl.layers.fc(x, 3, param_attr=attr))
+        fl.optimizer.SGD(0.1).minimize(loss)
+    return main
+
+
 @pytest.mark.parametrize("kind", ["regularizer", "gradient_clip",
                                   "grad_clip"])
 def test_regularizer_and_clip_are_never_dropped(kind):
+    """A parameter's regularizer reaches its update: the decay ops (scale
+    of w, then sum with w@GRAD) the JAX package builds, the same bytes.
+    A clip raises until the clip ops are ported."""
+    if kind == "regularizer":
+        pmain = _decayed_program(pt)
+        assert pmain.serialize_to_string() == \
+            _decayed_program(fluid).serialize_to_string()
+        ops = pmain.global_block().ops
+        scale = [o for o in ops if o.type == "scale"
+                 and o.input("X") == ["w"]]
+        assert len(scale) == 1 and scale[0].attr("scale") == 1e-2
+        sgd = [o for o in ops if o.type == "sgd" and o.input("Param")
+               == ["w"]][0]
+        summed = [o for o in ops if o.type == "sum" and
+                  o.output("Out") == sgd.input("Grad")][0]
+        assert summed.input("X") == ["w@GRAD", scale[0].output("Out")[0]]
+        return
     attr = pt.ParamAttr(name="w", **({kind: object()}
                                      if kind != "grad_clip" else {}))
     with pytest.raises(NotImplementedError):

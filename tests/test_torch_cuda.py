@@ -37,8 +37,11 @@ views off a 16-byte boundary, window edges inside a kernel's chunk, a
 powers and shard index; one kernel a call under the profiler and
 in a captured graph's nodes),
 flash_attention_lse with an lse
-cotangent, and every case of ops/family_cases.py on the card against
-the CPU. They skip where torch sees no CUDA device.
+cotangent, every case of ops/family_cases.py on the card against the
+CPU, full-width MobileNet-SSD (chip_smoke.mobilenet_ssd, B=8) captured
+against eager bit for bit, multiclass_nms at 64 x 21 x 1917 against the
+CPU, and the update ops without a kernel against the CPU. They skip
+where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -2680,7 +2683,7 @@ def test_op_families_on_card_equal_the_cpu(cuda):
     runs = [(c[0], c[1], c[2], c[3], None) for cs in fc.cases().values()
             for c in cs]
     runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
-             for c in fc.sequence_cases()]
+             for c in fc.sequence_cases() + fc.detection_cases()]
     for op_type, ins, attrs, outs, lods in runs:
         card, clod = fc.run(op_type, ins, attrs, outs, cuda, lods)
         cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
@@ -2692,3 +2695,69 @@ def test_op_families_on_card_equal_the_cpu(cuda):
             else:
                 assert torch.equal(a, b), op_type
             assert clod[n] == plod[n], op_type
+
+
+def test_ssd_full_width_captured_bit_equal_eager_on_card(cuda, monkeypatch):
+    """chip_smoke's MobileNet-SSD at full width (scale 1.0, 300x300, 21
+    classes, 1917 priors) with ssd_loss, RMSProp and L2Decay, at B=8 on
+    two VOC-shaped LoD batches: three runs each through the plan cache
+    (eager, the capture, a replay) bit-equal to the same runs eager, in
+    deterministic mode; no block kept eager."""
+    import chip_smoke as cs
+    pt.framework.unique_name.reset()
+    main, startup, loss, head = cs.ssd_train(pt, 21, 300, 1.0, batch=8)
+    assert int(head[2].shape[0]) == 1917
+    feeds = [cs._train_feed(cs._voc_batch(torch, pt, s, pt.CUDAPlace(0),
+                                          B=8)) for s in (0, 1)]
+    runs = _cached_against_eager(main, startup, feeds * 3, [loss],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    # eager runs: the startup program's and each batch's first
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (2, 4, 3)
+    assert all(np.isfinite(o[0]).all() for o in runs[True][0])
+
+
+def test_multiclass_nms_full_size_on_card_equals_cpu(cuda):
+    """multiclass_nms at MobileNet-SSD's detection shape (64 images, 21
+    classes, 1917 priors; nms_top_k 400, keep_top_k 200, threshold 0.45)
+    on the card: the rows the CPU gives, with ties in the scores."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    rng = np.random.default_rng(0)
+    boxes = fc._boxes(rng, 64, 1917)
+    scores = rng.dirichlet(np.ones(21), (64, 1917)).astype(
+        np.float32).transpose(0, 2, 1).copy()
+    scores[:, 3, 100:110] = scores[:, 3, 100:101]      # equal scores
+    attrs = {"score_threshold": 0.01, "nms_top_k": 400, "keep_top_k": 200,
+             "nms_threshold": 0.45, "normalized": False, "nms_eta": 1.0,
+             "background_label": 0}
+    ins = {"BBoxes": boxes, "Scores": scores}
+    card, clod = fc.run("multiclass_nms", ins, attrs, {"Out": 1}, cuda)
+    cpu, plod = fc.run("multiclass_nms", ins, attrs, {"Out": 1}, "cpu")
+    a, b = card["out_out0"].cpu(), cpu["out_out0"]
+    assert a.shape == (64 * 200, 6) and clod == plod
+    assert torch.equal(a, b)
+    assert (a[:, 0] >= 0).sum() > 64 * 50
+
+
+# the update ops whose lowering reduces over a whole tensor (the LARS
+# and LAMB norms): the card sums in another order than the CPU
+NORM_UPDATES = ("lars_momentum", "lamb")
+
+
+def test_update_ops_on_card_equal_the_cpu(cuda):
+    """Each update op with no kernel (ops/family_cases.py's "optimizer"
+    cases) on the card: bit-equal to the CPU (every square root
+    correctly rounded on both), but for lars_momentum and lamb, whose
+    norms the card sums in another order: within F32_TOL."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    for op_type, ins, attrs, outs, _ in fc.cases()["optimizer"]:
+        card, _ = fc.run(op_type, ins, attrs, outs, cuda)
+        cpu, _ = fc.run(op_type, ins, attrs, outs, "cpu")
+        for n, v in card.items():
+            if op_type in NORM_UPDATES:
+                torch.testing.assert_close(v.cpu(), cpu[n], rtol=F32_TOL,
+                                           atol=F32_TOL)
+            else:
+                assert torch.equal(v.cpu(), cpu[n]), (op_type, n)

@@ -28,6 +28,7 @@ from paddle_tpu.core.registry import OPS as JAX_OPS
 import paddle_tpu_torch  # noqa: F401  (registers the port's lowerings)
 from paddle_tpu_torch.core.registry import ExecContext as PtContext
 from paddle_tpu_torch.core.registry import OPS as PT_OPS
+from paddle_tpu_torch.ops import family_cases
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -249,9 +250,12 @@ def test_every_slice_op_type_is_covered():
     in test_torch_resnet.py, those of the CTR models and Adagrad in
     test_torch_ctr.py, the sequence ops in test_torch_sequence.py, the
     recurrent ones in test_torch_rnn.py, the CRF ops in test_torch_crf.py,
-    the beam-search decoder's in test_torch_beam_search.py and the basic,
+    the beam-search decoder's in test_torch_beam_search.py, the basic,
     reduce, elementwise and activation families in
-    test_torch_op_families.py)."""
+    test_torch_op_families.py, the nn family and the update ops without
+    a kernel (the same file's cases, held in test_torch_nn_family.py and
+    test_torch_optimizers.py) and SSD's detection ops in
+    test_torch_detection.py)."""
     import test_torch_beam_search
     import test_torch_op_families
     import test_torch_sequence
@@ -282,9 +286,11 @@ def test_every_slice_op_type_is_covered():
         {"beam_search", "beam_search_decode"}
     families = {c[0] for cases in test_torch_op_families.CASES.values()
                 for c in cases}
+    # held in test_torch_detection.py
+    detection = {c[0] for c in family_cases.detection_cases()}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
-        beam | families == forward
+        beam | families | detection == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
