@@ -261,8 +261,8 @@
    sequence_slice and edit_distance on 128 IMDB-shaped sequences, the
    card against the CPU (values, LoDs), each block eager with the op
    named in Engine.eager_reasons. Op sweep: every case of
-   ops/family_cases.py (the basic, reduce, elementwise, activation and
-   nn families, the nine update ops without a kernel, the three
+   ops/family_cases.py (the basic, reduce, elementwise, activation, nn
+   and conv families, the nine update ops without a kernel, the three
    sequence ops and SSD's eight detection ops) on the card against the
    CPU.
 15. Detection phase: MobileNet-SSD as PaddleCV's object_detection
@@ -284,7 +284,22 @@
    eager and captured (rows equal to the CPU's), and the DetectionMAP
    evaluator (11point) over two batches, eager. No kernel of the port
    lies on this path.
-16. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+16. Pose phase: SimpleBaseline as PaddleCV's human_pose_estimation
+   defines it (pose_resnet: ResNet-50 up to res5c, three
+   conv2d_transpose of 256 filters, 4x4, stride 2, padding 1, each with
+   batch norm and relu, a 1x1 conv to 17 heatmaps) at COCO's 256x192,
+   float32, B=32, Adam(1e-3), the paper's half mean squared heatmap
+   error weighted by target_weight, on COCO-shaped batches (Gaussian
+   heatmaps of sigma 2 at seeded joints, POSE_VISIBLE of them weighted
+   1). POSE_RUNS steps captured against eager in deterministic mode,
+   bit-equal, one fused_adam launch a step; the first loss and heatmaps
+   against the port on the CPU (POSE_LOSS_RTOL, POSE_HEAT_RTOL); one
+   step against plain_reference(); images/s eager against captured in
+   turns, the capture clocked; a profiled replay (busy share, top
+   kernels, the ranks of the kernels the deconvolutions launch, their
+   device time alone), peak memory; the heatmaps through
+   save_inference_model and AnalysisPredictor against Executor.run.
+17. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -297,10 +312,10 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-17. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+18. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's, the dygraph phase's, the control flow
-   phase's, the book models phase's, the lr schedule phase's and the
-   contrib decoder phase's captured steps; the quantized and tuned
+   phase's, the book models phase's, the lr schedule phase's, the
+   contrib decoder phase's and the pose phase's captured steps; the quantized and tuned
    GEMMs': the scoring and the serving phase's, and the quantized ones'
    also the book models and contrib decoder phases' captured decodes;
    the bucket sweep rows: the bucket sweep phase's main sweep; the
@@ -4895,9 +4910,11 @@ def _cf_lens(feed, name):
 
 
 def _routed_params(kreg, main):
+    """(parameters, the trainable ones the registry routes to a kernel:
+    at least its minimum size)."""
     params = main.all_parameters()
-    routed = [p for p in params
-              if int(np.prod(p.shape)) >= kreg.min_numel()]
+    routed = [p for p in params if p.trainable and
+              int(np.prod(p.shape)) >= kreg.min_numel()]
     return params, routed
 
 
@@ -6514,13 +6531,15 @@ def _voc_batch(torch, pt, seed, place, B=None, image=None):
             "difficult": pt.create_lod_tensor(difficult, lens, place)}
 
 
-def _train_mode_loss_cpu(pt, main, loss, state, feed):
-    """The forward of `main` up to `loss` on the CPU from `state` (name
-    -> CPU tensor) on `feed`, batch norm in training mode (a test clone
-    would normalize by the running statistics)."""
+def _train_mode_forward(pt, main, fetch, state, feed, place=None):
+    """The fetches of the forward of `main` up to `fetch` from `state`
+    (name -> CPU tensor) on `feed`, on `place` (the CPU by default),
+    batch norm in training mode (a test clone would normalize by the
+    running statistics), as numpy arrays."""
+    place = place or pt.CPUPlace()
     prog = main.clone()
     block = prog.global_block()
-    needed, keep = {loss.name}, []
+    needed, keep = {v.name for v in fetch}, []
     for op in reversed(block.ops):
         if op.attr("op_role", "forward") == "forward" and \
                 set(op.output_arg_names) & needed:
@@ -6528,11 +6547,17 @@ def _train_mode_loss_cpu(pt, main, loss, state, feed):
             needed.update(op.input_arg_names)
     block.ops = keep[::-1]
     scope = pt.Scope()
+    dev = place.torch_device()
     for n, t in state.items():
-        scope.var(n).get_tensor().set_tensor(t.clone())
-    return float(pt.Executor(pt.CPUPlace()).run(
-        prog, feed=feed, fetch_list=[loss], scope=scope,
-        use_program_cache=False)[0])
+        scope.var(n).get_tensor().set_tensor(t.to(dev, copy=True))
+    return [np.asarray(v) for v in pt.Executor(place).run(
+        prog, feed=feed, fetch_list=fetch, scope=scope,
+        use_program_cache=False)]
+
+
+def _train_mode_loss_cpu(pt, main, loss, state, feed):
+    """The forward's loss on the CPU (_train_mode_forward)."""
+    return float(_train_mode_forward(pt, main, [loss], state, feed)[0])
 
 
 def _train_feed(f):
@@ -6784,14 +6809,317 @@ def detection_phase(torch, dev, card):
     gc_cuda(torch)
 
 
+# SimpleBaseline (Xiao, Wu and Wei, ECCV 2018; PaddleCV's
+# human_pose_estimation/lib/pose_resnet.py) on COCO keypoints: ResNet-50,
+# three 4x4 stride-2 deconvolutions of 256 filters, 17 joint heatmaps;
+# input 256x192, heatmaps 64x48; Adam at 1e-3, 32 images a card
+POSE = {"kps": 17, "image": (256, 192), "stages": (3, 4, 6, 3)}
+POSE_B = 32
+POSE_LR = 1e-3
+POSE_RUNS = 8       # steps of one batch, captured against eager
+POSE_SIGMA = 2.0    # the target heatmaps' Gaussian, in heatmap pixels
+# share of joints whose target_weight is 1: assumed, for a COCO person
+# that is annotated with keypoints (most of its 17 joints are labelled;
+# an unlabelled joint has a zero heatmap and weight 0, as in the
+# paper's target generator)
+POSE_VISIBLE = 0.7
+# the first loss and heatmaps, card against CPU: float32 convolutions
+# (TF32 off) summed in other orders. The heatmaps' bound, of the largest
+# |heatmap|: the rounding of a dot product of K terms grows as a random
+# walk, sqrt(K) units of 2^-24, and adds up over the layers: 60 (the 53
+# convolutions of ResNet-50 up to res5c, 3 deconvolutions and the head,
+# rounded up), K at most 4608 (3 x 3 x 512)
+POSE_LOSS_RTOL = 1e-5
+POSE_HEAT_RTOL = 60 * 4608 ** 0.5 * 2.0 ** -24     # 2.43e-4
+
+
+def pose_resnet(L, img, kps=17, stages=(3, 4, 6, 3)):
+    """SimpleBaseline's network built with the layers module `L` (the
+    port's or the JAX package's) and that package's models/resnet.py
+    blocks: ResNet (conv_bn_layer stem, max pool, `stages` bottleneck
+    blocks a stage; ResNet-50 up to res5c at (3, 4, 6, 3)) with no pool
+    and no fc, then three conv2d_transpose(256, 4x4, stride 2, padding
+    1, no bias, weights Normal(0, 0.001)) each with batch_norm and relu,
+    then a 1x1 conv2d to `kps` heatmaps (weights Normal(0, 0.001), a
+    bias). Returns the heatmaps [N, kps, H', W']."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+    R = importlib.import_module(pkg.__name__ + ".models.resnet")
+
+    def normal():
+        return pkg.ParamAttr(initializer=pkg.initializer.Normal(0.0, 0.001))
+
+    x = R.conv_bn_layer(img, 64, 7, stride=2, act="relu", name="res_conv1")
+    x = L.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1,
+                 pool_type="max")
+    for stage, n_blocks in enumerate(stages):
+        for blk in range(n_blocks):
+            x = R._bottleneck(x, (64, 128, 256, 512)[stage],
+                              2 if blk == 0 and stage != 0 else 1,
+                              f"res{stage + 2}{chr(ord('a') + blk)}", False,
+                              "NCHW")
+    for _ in range(3):
+        x = L.conv2d_transpose(x, num_filters=256, filter_size=4, stride=2,
+                               padding=1, bias_attr=False,
+                               param_attr=normal())
+        x = L.batch_norm(x, act="relu")
+    return L.conv2d(x, kps, 1, param_attr=normal())
+
+
+def pose_loss(L, heat, target, weight):
+    """The paper's loss: half the mean over joints of the squared heatmap
+    error, each joint's weighted by its target_weight ([N, kps])."""
+    sq = L.square_error_cost(heat, target)
+    return L.scale(L.reduce_mean(L.elementwise_mul(sq, weight, axis=0)),
+                   scale=0.5)
+
+
+def pose_train(pt, image=None, kps=None, stages=None, lr=POSE_LR):
+    """(main, startup, loss, heatmaps) of SimpleBaseline's training
+    program in package `pt`: feeds image [3, H, W], target [kps, H', W']
+    and target_weight [kps]; AdamOptimizer(lr) minimizes pose_loss."""
+    L = pt.layers
+    image, kps = image or POSE["image"], kps or POSE["kps"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = L.data("image", [3, *image], dtype="float32")
+        heat = pose_resnet(L, img, kps, stages or POSE["stages"])
+        target = L.data("target", list(heat.shape[1:]), dtype="float32")
+        weight = L.data("target_weight", [kps], dtype="float32")
+        loss = pose_loss(L, heat, target, weight)
+        pt.optimizer.AdamOptimizer(learning_rate=lr).minimize(loss)
+    return main, startup, loss, heat
+
+
+def _pose_batch(torch, seed, device, B=None, image=None, heat=(64, 48),
+                kps=None):
+    """A COCO-shaped batch from `seed`: B images (standard normal, made
+    by a torch generator on the CPU, then moved to `device`), joints
+    uniform over the heatmap, target heatmaps exp(-d^2 / (2 sigma^2))
+    within 3 sigma of the joint (POSE_SIGMA), zero for a joint whose
+    target_weight is 0 (POSE_VISIBLE of them are 1)."""
+    B, image, kps = B or POSE_B, image or POSE["image"], kps or POSE["kps"]
+    rng = np.random.default_rng(seed)
+    h, w = heat
+    joints = rng.uniform(0, 1, (B, kps, 2)) * [w - 1, h - 1]
+    weight = (rng.random((B, kps)) < POSE_VISIBLE).astype(np.float32)
+    dx = np.arange(w)[None, None, None, :] - joints[..., 0, None, None]
+    dy = np.arange(h)[None, None, :, None] - joints[..., 1, None, None]
+    g = np.exp(-(dx ** 2 + dy ** 2) / (2 * POSE_SIGMA ** 2))
+    near = (np.abs(dx) <= 3 * POSE_SIGMA) & (np.abs(dy) <= 3 * POSE_SIGMA)
+    target = (g * near * weight[..., None, None]).astype(np.float32)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    img = torch.randn((B, 3, *image), generator=gen)
+    return {"image": img.to(device),
+            "target": torch.from_numpy(target).to(device),
+            "target_weight": torch.from_numpy(weight).to(device)}
+
+
+POSE_DECONV_ITERS = 5     # calls a timing of the deconvolutions alone
+
+
+def _pose_deconv_alone(torch, heat_shape, B):
+    """The three deconvolutions alone at their shapes, forward and
+    backward (the input's and the filter's gradients): ({part: device ms
+    a call, by CUDA events over POSE_DECONV_ITERS calls}, {part: {the
+    profiler key of each kernel it launches: device ms}}; the latter
+    empty where every one of three profiler sessions lost its events)."""
+    from torch.profiler import ProfilerActivity, profile
+    F = torch.nn.functional
+    h, w = heat_shape
+    shapes = [(2048, h // 8, w // 8), (256, h // 4, w // 4),
+              (256, h // 2, w // 2)]
+    xs = [torch.randn((B, c, hh, ww), device="cuda", requires_grad=True)
+          for c, hh, ww in shapes]
+    ws = [torch.randn((c, 256, 4, 4), device="cuda", requires_grad=True)
+          for c, _, _ in shapes]
+
+    def forward():
+        return [F.conv_transpose2d(x, wt, stride=2, padding=1)
+                for x, wt in zip(xs, ws)]
+
+    outs = forward()
+    grads = [torch.ones_like(o) for o in outs]
+    parts = {"forward": forward,
+             "backward": lambda: torch.autograd.backward(
+                 outs, grads, retain_graph=True)}
+    ms, names = {}, {}
+    for part, fn in parts.items():
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(POSE_DECONV_ITERS):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms[part] = a.elapsed_time(b) / POSE_DECONV_ITERS
+        names[part] = {}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names[part] = {e.key: e.self_device_time_total / 1e3
+                           for e in _kernels(prof)}
+            if names[part]:
+                break
+    return ms, names
+
+
+def _pose_profile(torch, exe, main, feed, fetch, scope, heat_shape):
+    """One profiled replay: wall, busy share, kernels, the top kernels
+    by device time; the three deconvolutions' device time alone and
+    where it would rank among the replay's kernels, and the rank in the
+    replay of each kernel they launch."""
+    from torch.profiler import ProfilerActivity, profile
+    alone, deconv = _pose_deconv_alone(torch, heat_shape, POSE_B)
+    c0 = _counters(exe)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _cap_run(exe, main, feed, fetch, scope, numpy=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c1 = _counters(exe)
+    _require(c1["replays"] == c0["replays"] + 1,
+             f"pose: the profiled run was no replay: {c0} -> {c1}")
+    kernels = sorted(_kernels(prof), key=lambda e: e.self_device_time_total,
+                     reverse=True)
+    _require(kernels, "pose: the profiler saw no kernel of the replay")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  pose: profiled replay: wall {wall:.4f} s, device busy "
+          f"{100 * busy / wall:.1f} %, {sum(e.count for e in kernels)} "
+          f"kernels, {total:.3f} ms of device time")
+    for e in kernels[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+    times = [e.self_device_time_total / 1e3 for e in kernels]
+    rank = {e.key: i + 1 for i, e in enumerate(kernels)}
+    for part in ("forward", "backward"):
+        print(f"  pose: the three deconvolutions' {part} alone: "
+              f"{alone[part]:.3f} ms of device time a call (CUDA events; "
+              f"the replay: {total:.3f} ms); as one entry it would rank "
+              f"{sum(t > alone[part] for t in times) + 1} of "
+              f"{len(kernels) + 1} by device time")
+        if not deconv[part]:
+            print(f"  pose: the kernels the deconvolutions' {part} "
+                  f"launches: not measured (three profiler sessions "
+                  f"lost their events)")
+        for key in sorted(deconv[part], key=lambda k: rank.get(k, 10 ** 6)):
+            e = kernels[rank[key] - 1] if key in rank else None
+            print(f"  pose: conv2d_transpose {part} kernel ranks "
+                  f"{rank.get(key, 'absent')} of {len(kernels)}"
+                  + (f" ({e.self_device_time_total / 1e3:.3f} ms x"
+                     f"{e.count}, shared with every op that launches it)"
+                     if e else "") + f": {key[:80]}")
+    return wall, busy / wall
+
+
+def pose_phase(torch, dev, card):
+    """SimpleBaseline (pose_resnet: ResNet-50 and three deconvolutions)
+    at COCO's 256x192 and 17 joints, float32, B=32: Adam(1e-3) trained
+    POSE_RUNS steps captured against eager bit for bit (one fused_adam
+    launch a step), the first loss and heatmaps against the CPU, one
+    step against plain_reference(), images/s eager against captured in
+    turns, the capture clocked, a profiled replay (busy share, top
+    kernels, the deconvolutions' ranks), peak memory; then
+    save_inference_model and the heatmaps through AnalysisPredictor
+    against Executor.run. Returns the captured steps' fused_adam
+    launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss, heat = pose_train(pt)
+    main.random_seed = startup.random_seed = SEED
+    params, routed = _routed_params(kreg, main)
+    types = [op.type for op in main.global_block().ops]
+    hw = tuple(int(d) for d in heat.shape[2:])
+    print(f"  pose: {len(types)} ops in block 0 "
+          f"({types.count('conv2d_transpose')} conv2d_transpose, "
+          f"{types.count('conv2d_transpose_grad')} conv2d_transpose_grad, "
+          f"{types.count('conv2d')} conv2d, {types.count('batch_norm')} "
+          f"batch_norm, {types.count('adam')} adam); {len(params)} "
+          f"parameters, {sum(int(np.prod(p.shape)) for p in params)} "
+          f"elements, {len(routed)} routed to fused_adam; "
+          f"{POSE['image'][0]}x{POSE['image'][1]} -> heatmaps "
+          f"{POSE['kps']}x{hw[0]}x{hw[1]}, B={POSE_B}")
+    _require(hw == (POSE["image"][0] // 4, POSE["image"][1] // 4) and
+             types.count("conv2d_transpose") == 3, "pose: the network")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    feed = _pose_batch(torch, 0, dev, heat=hw)
+    w = feed["target_weight"]
+    print(f"  batch: {POSE_B} images, {int(w.sum())} of {w.numel()} joints "
+          f"weighted 1, heatmap peaks 1 (sigma {POSE_SIGMA})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, launched = _seq_compare(
+        torch, pt, kreg, "pose", main, [loss], init, [feed], POSE_RUNS,
+        len(routed))
+    _require(not reasons, f"pose: the block was kept eager: {reasons}")
+    t1 = time.perf_counter()
+    cpu_feed = _pose_batch(torch, 0, "cpu", heat=hw)
+    cpu_loss, cpu_heat = _train_mode_forward(pt, main, [loss, heat],
+                                             cpu_state, cpu_feed)
+    _, card_heat = _train_mode_forward(pt, main, [loss, heat], cpu_state,
+                                       feed, pt.CUDAPlace(0))
+    err = abs(losses[0] - float(cpu_loss)) / abs(float(cpu_loss))
+    herr = float(np.abs(card_heat - cpu_heat).max() /
+                 np.abs(cpu_heat).max())
+    print(f"  pose: first loss {losses[0]:.8f} on the card, "
+          f"{float(cpu_loss):.8f} on the CPU: rel err {err:.3e} (bound "
+          f"{POSE_LOSS_RTOL:g}); first heatmaps {list(card_heat.shape)}, "
+          f"max |card - CPU| / max |CPU| {herr:.3e} (bound "
+          f"{POSE_HEAT_RTOL:.3e}); {time.perf_counter() - t1:.1f} s")
+    _require(err <= POSE_LOSS_RTOL and herr <= POSE_HEAT_RTOL and
+             np.isfinite(card_heat).all() and
+             card_heat.shape == (POSE_B, POSE["kps"], *hw),
+             "pose: card and CPU disagree")
+    _against_plain(torch, pt, kreg, "pose", main, loss, init, feed)
+    with _capture_clock() as clock:
+        c0 = _counters(exe)
+        t1 = time.perf_counter()
+        _cap_run(exe, main, feed, [loss], scope)
+        secs = time.perf_counter() - t1
+    print(f"  pose: {_counters(exe)['captures'] - c0['captures']} capture "
+          f"outside deterministic mode, {secs:.3f} s for the run: the "
+          f"capture rule {clock['rule']:.3f} s, warm-up "
+          f"{clock['warm_up']:.3f} s, capture {clock['capture']:.3f} s")
+    rates = _cap_turns(torch, "pose", "images/s", POSE_B, {
+        "eager": lambda: _cap_run(exe, main, feed, [loss], scope,
+                                  cached=False, numpy=False)[0],
+        "captured": lambda: _cap_run(exe, main, feed, [loss], scope,
+                                     numpy=False)[0]})
+    print(f"  pose: captured / eager {rates['captured'] / rates['eager']:.3f}")
+    print(f"  pose: peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; graph pools "
+          f"{_graph_pool_gb(torch)[0]:.3f} GB allocated")
+    _pose_profile(torch, exe, main, feed, [loss], scope, hw)
+    _seq_serve(torch, pt, "pose", exe, main, heat, scope, ["image"],
+               [{"image": cpu_feed["image"].numpy()}],
+               [{"image": feed["image"]}], POSE_B)
+    exe.close()
+    del exe, scope, init
+    gc_cuda(torch)
+    print(f"  pose: {time.perf_counter() - t0:.1f} s")
+    return launched.get("fused_adam", 0)
+
+
 # the op sweep's tolerance, card against CPU: float32 within 1e-5
 # relative and absolute (libm and summation order differ); the rest exact
 SWEEP_TOL = 1e-5
 
 
 def op_sweep_phase(torch, dev):
-    """Every op type of the basic, reduce, elementwise, activation and nn
-    families, the nine update ops without a kernel, the three
+    """Every op type of the basic, reduce, elementwise, activation, nn
+    and conv families, the nine update ops without a kernel, the three
     value-dependent sequence ops and SSD's eight detection ops, each
     case of ops/family_cases.py once through its lowering on the card
     against the same lowering on the CPU."""
@@ -6800,6 +7128,7 @@ def op_sweep_phase(torch, dev):
     worst, types = 0.0, set()
     runs = [(c[0], c[1], c[2], c[3], None) for cs in fc.cases().values()
             for c in cs]
+    runs += [(c[0], c[1], c[2], c[3], None) for c in fc.conv_cases()]
     runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
              for c in fc.sequence_cases() + fc.detection_cases()]
     for op_type, ins, attrs, outs, lods in runs:
@@ -6989,6 +7318,8 @@ def main(argv=None):
     op_sweep_phase(torch, dev)
     print("[detection phase]")
     detection_phase(torch, dev, card)
+    print("[pose phase]")
+    pose_adam = pose_phase(torch, dev, card)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
@@ -7050,7 +7381,7 @@ def main(argv=None):
             ("fused_adam", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:108", atimes,
              adam_err, tcounts["fused_adam"] + dy_adam + cf_adam +
-             book_adam + lr_adam + ct_adam),
+             book_adam + lr_adam + ct_adam + pose_adam),
             ("fused_sgd", "fused_optimizer.cu",
              "paddle_tpu/kernels/fused_optimizer.py:133", slenet,
              sgd_err, sgd_launches),

@@ -625,7 +625,11 @@ class _Plan:
             raise _missing_error(missing)
         self.in_vars = [(n, scope.find_var(n)) for n in inputs]
         outputs = _persistable_outputs(block)
-        self.out_vars = [(n, scope.var(n)) for n in outputs]
+        # a persistable the block writes is the Variable a parent
+        # scope holds where one does (the reference keeps
+        # persistables in the outer scope), else made in this scope
+        self.out_vars = [(n, scope.find_var(n) or scope.var(n))
+                         for n in outputs]
         self.feed_dtypes = {}
         for name, _, _, _ in feed_sig:
             var = block.find_var(name)

@@ -34,8 +34,10 @@ class LoDTensor:
 
     __slots__ = ("_tensor", "_lod")
 
-    def __init__(self, tensor: Optional[torch.Tensor] = None, lod=None):
-        self._tensor = tensor
+    def __init__(self, array=None, lod=None):
+        # a numpy array is taken as a CPU tensor (set() places one)
+        self._tensor = torch.from_numpy(np.array(array)) \
+            if isinstance(array, np.ndarray) else array
         self._lod = [list(map(int, level)) for level in (lod or [])]
 
     def set(self, array, place=None):
@@ -120,6 +122,9 @@ class TensorArray(list):
     """The LoDTensorArray: a list of tensors, written and read by index
     (write_to_array, read_from_array)."""
 
+    def append(self, tensor):
+        list.append(self, tensor)
+
 
 class LoDRankTable:
     """The sequences of one LoD level sorted by length, longest first
@@ -183,16 +188,34 @@ class Variable:
 
 
 class Scope:
-    """Name -> Variable map, and the count of runs of each Program in
-    this scope (it seeds random ops: every run draws anew, and a fresh
-    scope replays the same draws). `generation` counts erasures: the
-    engine's plans hold Variables by reference and are valid only while
-    it stays the same. Child scopes arrive with control flow."""
+    """Name -> Variable map with a parent (the reference's hierarchical
+    scope): `find_var` walks up to the parents, `var` creates a name in
+    this scope, `new_scope` makes a child and `drop_kids` forgets the
+    children. It also counts the runs of each Program in this scope (it
+    seeds random ops: every run draws anew, and a fresh scope replays
+    the same draws).
 
-    def __init__(self):
+    `generation` says whether the Variables a name resolves to may have
+    changed: the engine's plans hold Variables by reference and are
+    valid only while it stays the same. It grows when this scope erases
+    names, when a name created here hides a parent's Variable, when the
+    parent drops this scope, and with the parent's own generation (a
+    child resolves names to its parents' Variables)."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, Variable] = {}
         self._runs: Dict[int, int] = {}
-        self.generation = 0
+        self._parent = parent
+        self._kids = []
+        self._changes = 0
+
+    @property
+    def generation(self) -> int:
+        g, s = 0, self
+        while s is not None:
+            g += s._changes
+            s = s._parent
+        return g
 
     def next_run(self, program_uid: int) -> int:
         """Index of this run of the program in this scope (0, 1, ...)."""
@@ -207,24 +230,49 @@ class Scope:
         return self._runs.get(program_uid, 0)
 
     def var(self, name: str) -> Variable:
+        """The Variable `name` of this scope, created here if it is not
+        (a parent's Variable of that name is then hidden)."""
         v = self._vars.get(name)
         if v is None:
+            if self._parent is not None and \
+                    self._parent.find_var(name) is not None:
+                self._changes += 1
             v = Variable(name)
             self._vars[name] = v
         return v
 
     def find_var(self, name: str) -> Optional[Variable]:
-        return self._vars.get(name)
+        """The Variable `name` of this scope or of the nearest parent
+        that has one; None if none has."""
+        s = self
+        while s is not None:
+            v = s._vars.get(name)
+            if v is not None:
+                return v
+            s = s._parent
+        return None
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        """Forget the child scopes. A plan made for one of them (or for
+        a scope below it) is no longer valid."""
+        for kid in self._kids:
+            kid._changes += 1
+        self._kids.clear()
 
     def local_var_names(self):
         return list(self._vars)
 
     def erase(self, names):
-        """Remove the named variables (names not in the scope are
+        """Remove the named variables of this scope (names not in it are
         skipped)."""
         for n in names:
             self._vars.pop(n, None)
-        self.generation += 1
+        self._changes += 1
 
 
 _global_scope = Scope()

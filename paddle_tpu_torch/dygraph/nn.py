@@ -1,5 +1,6 @@
 """Dygraph NN layers (counterpart of paddle_tpu/dygraph/nn.py): FC,
-Linear, Conv2D, Pool2D, BatchNorm, Embedding, LayerNorm and Dropout. Each
+Linear, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose, Pool2D,
+BatchNorm, Embedding, LayerNorm, GroupNorm, PRelu and Dropout. Each
 layer calls the graph-mode layer builder, which in dygraph mode creates
 the layer's parameters through the tracer (once: the tracer's lazy
 creation memo) and runs its ops at once. BatchNorm's moving mean and
@@ -11,7 +12,8 @@ from .. import layers as L
 from .layers import Layer
 
 __all__ = ["Conv2D", "Pool2D", "FC", "Linear", "BatchNorm", "Embedding",
-           "LayerNorm", "Dropout"]
+           "LayerNorm", "GroupNorm", "PRelu", "Dropout", "Conv2DTranspose",
+           "Conv3D", "Conv3DTranspose"]
 
 
 class FC(Layer):
@@ -52,6 +54,53 @@ class Conv2D(Layer):
 
     def forward(self, input):
         return L.conv2d(input, **self._kw)
+
+
+class Conv2DTranspose(Layer):
+    def __init__(self, name_scope=None, num_filters=None, output_size=None,
+                 filter_size=None, padding=0, stride=1, dilation=1,
+                 groups=None, param_attr=None, bias_attr=None,
+                 use_cudnn=True, act=None):
+        super().__init__(name_scope)
+        self._kw = dict(num_filters=num_filters, output_size=output_size,
+                        filter_size=filter_size, padding=padding,
+                        stride=stride, dilation=dilation, groups=groups,
+                        param_attr=param_attr, bias_attr=bias_attr,
+                        act=act)
+
+    def forward(self, input):
+        return L.conv2d_transpose(input, **self._kw)
+
+
+class Conv3D(Layer):
+    def __init__(self, name_scope=None, num_filters=None, filter_size=3,
+                 stride=1, padding=0, dilation=1, groups=None,
+                 param_attr=None, bias_attr=None, use_cudnn=True,
+                 act=None):
+        super().__init__(name_scope)
+        self._kw = dict(num_filters=num_filters, filter_size=filter_size,
+                        stride=stride, padding=padding, dilation=dilation,
+                        groups=groups, param_attr=param_attr,
+                        bias_attr=bias_attr, act=act)
+
+    def forward(self, input):
+        return L.conv3d(input, **self._kw)
+
+
+class Conv3DTranspose(Layer):
+    def __init__(self, name_scope=None, num_filters=None,
+                 output_size=None, filter_size=None, padding=0,
+                 stride=1, dilation=1, groups=None, param_attr=None,
+                 bias_attr=None, use_cudnn=True, act=None):
+        super().__init__(name_scope)
+        self._kw = dict(num_filters=num_filters, output_size=output_size,
+                        filter_size=filter_size, padding=padding,
+                        stride=stride, dilation=dilation, groups=groups,
+                        param_attr=param_attr, bias_attr=bias_attr,
+                        act=act)
+
+    def forward(self, input):
+        return L.conv3d_transpose(input, **self._kw)
 
 
 class Pool2D(Layer):
@@ -112,6 +161,29 @@ class LayerNorm(Layer):
 
     def forward(self, input):
         return L.layer_norm(input, **self._kw)
+
+
+class GroupNorm(Layer):
+    def __init__(self, name_scope=None, groups=None, epsilon=1e-5,
+                 param_attr=None, bias_attr=None, act=None,
+                 data_layout="NCHW"):
+        super().__init__(name_scope)
+        self._kw = dict(groups=groups, epsilon=epsilon,
+                        param_attr=param_attr, bias_attr=bias_attr,
+                        act=act)
+
+    def forward(self, input):
+        return L.group_norm(input, **self._kw)
+
+
+class PRelu(Layer):
+    def __init__(self, name_scope=None, mode="all", param_attr=None):
+        super().__init__(name_scope)
+        self._mode = mode
+        self._param_attr = param_attr
+
+    def forward(self, input):
+        return L.prelu(input, self._mode, self._param_attr)
 
 
 class Dropout(Layer):

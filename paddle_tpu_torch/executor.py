@@ -14,10 +14,10 @@ import torch
 from . import framework
 from .core.engine import Engine
 from .core.place import Place, default_place
-from .core.scope import LoDTensor, global_scope
+from .core.scope import LoDTensor, global_scope, scope_guard
 from .core.types import dtype_to_np
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "global_scope", "scope_guard"]
 
 
 def _to_name_str(fetch):

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .core.registry import OPS, ExecContext, OP_UID_ATTR
+from .core.registry import GRAD_SUFFIX, OPS, ExecContext, OP_UID_ATTR
 from .core.types import (DT_FLOAT32, convert_dtype, dtype_to_str,
                          dtype_to_torch)
 from .proto import framework_desc as fd
@@ -29,8 +29,8 @@ from .proto import framework_desc as fd
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_startup_program", "default_main_program", "program_guard",
-    "unique_name", "in_dygraph_mode", "_dygraph_tracer",
-    "dygraph_guard_level",
+    "grad_var_name", "unique_name", "name_scope", "in_dygraph_mode",
+    "_dygraph_tracer", "dygraph_guard_level",
 ]
 
 # Stands in for -1 (dynamic) dims during shape inference. Highly
@@ -124,18 +124,21 @@ class Variable:
 
     def __init__(self, block: "Block", name: Optional[str] = None,
                  shape: Optional[Sequence[int]] = None, dtype=None,
-                 persistable: bool = False, stop_gradient: bool = False,
-                 lod_level: int = 0, kind: int = fd.VK_DENSE_TENSOR):
+                 lod_level: int = 0, persistable: bool = False,
+                 stop_gradient: bool = False,
+                 kind: int = fd.VK_DENSE_TENSOR, **kwargs):
         self.block = block
         self.name = name or unique_name.generate("_generated_var")
         self.shape = tuple(int(d) for d in shape) if shape is not None \
             else ()
         self.dtype = convert_dtype(dtype) if dtype is not None \
             else DT_FLOAT32
+        self.lod_level = lod_level
         self.persistable = persistable
         self.stop_gradient = stop_gradient
-        self.lod_level = lod_level
         self.kind = kind
+        self.is_data = kwargs.get("is_data", False)
+        self.dim_sharding: List[str] = list(kwargs.get("dim_sharding", ()))
 
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
@@ -171,7 +174,8 @@ class Variable:
             name=self.name, kind=self.kind, persistable=self.persistable,
             stop_gradient=self.stop_gradient,
             tensor=fd.TensorDesc(data_type=self.dtype, dims=list(self.shape),
-                                 lod_level=self.lod_level))
+                                 lod_level=self.lod_level),
+            dim_sharding=list(self.dim_sharding))
 
     @staticmethod
     def from_proto(block, p: fd.VarDesc) -> "Variable":
@@ -179,7 +183,8 @@ class Variable:
         return Variable(block, name=p.name, shape=t.dims,
                         dtype=t.data_type, persistable=p.persistable,
                         stop_gradient=p.stop_gradient,
-                        lod_level=t.lod_level, kind=p.kind)
+                        lod_level=t.lod_level, kind=p.kind,
+                        dim_sharding=list(p.dim_sharding or ()))
 
 
 class Parameter(Variable):
@@ -187,9 +192,9 @@ class Parameter(Variable):
     learning-rate multiplier; regularizer and gradient_clip_attr are read
     by the optimizer's regularization and clip passes."""
 
-    def __init__(self, block, shape, dtype, trainable=True, **kwargs):
+    def __init__(self, block, shape, dtype, **kwargs):
         kwargs.setdefault("persistable", True)
-        self.trainable = trainable
+        self.trainable = trainable = kwargs.pop("trainable", True)
         self.optimize_attr = kwargs.pop("optimize_attr",
                                         {"learning_rate": 1.0})
         self.regularizer = kwargs.pop("regularizer", None)
@@ -637,6 +642,11 @@ def switch_startup_program(p: Program) -> Program:
     return old
 
 
+def grad_var_name(name: str) -> str:
+    """The name of the gradient variable of `name` (`name@GRAD`)."""
+    return name + GRAD_SUFFIX
+
+
 @contextlib.contextmanager
 def program_guard(main_program: Program,
                   startup_program: Optional[Program] = None):
@@ -650,3 +660,10 @@ def program_guard(main_program: Program,
         switch_main_program(old_main)
         if old_startup is not None:
             switch_startup_program(old_startup)
+
+
+@contextlib.contextmanager
+def name_scope(prefix: str):
+    """Accepted for the reference's scripts; names are unaffected, as in
+    the JAX package."""
+    yield

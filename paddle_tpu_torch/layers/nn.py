@@ -10,13 +10,20 @@ log; those of the beam-search decoder: stack, gather, beam_search
 and beam_search_decode; those of the basic, reduce, elementwise and
 activation op families, with autoincreased_step_counter; and those of
 the nn family (group_norm, instance_norm, data_norm, log_softmax,
-l2_normalize, lrn), sign, dice_loss and npair_loss."""
+l2_normalize, lrn), sign, dice_loss and npair_loss; mul, sum,
+gaussian_random, lstm_unit, gru_unit, merge_selected_rows,
+get_tensor_from_selected_rows and rank; and the conv family's
+(conv2d_transpose, conv3d, conv3d_transpose, pool3d, the adaptive pools,
+the resizes, the layout ops, unfold, spp)."""
 from __future__ import annotations
 
+import builtins
 import copy
 
 import numpy as np
 
+from ..core.types import convert_dtype
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..initializer import Constant, Normal
@@ -45,6 +52,15 @@ __all__ = [
     # the nn family and the composed losses
     "group_norm", "instance_norm", "data_norm", "log_softmax",
     "l2_normalize", "lrn", "sign", "dice_loss", "npair_loss",
+    # builders over ops registered earlier
+    "mul", "sum", "gaussian_random", "lstm_unit", "gru_unit",
+    "merge_selected_rows", "get_tensor_from_selected_rows", "rank",
+    # the conv family
+    "conv2d_transpose", "conv3d", "conv3d_transpose", "pool3d",
+    "adaptive_pool2d", "adaptive_pool3d", "image_resize",
+    "resize_bilinear", "resize_nearest", "image_resize_short",
+    "pixel_shuffle", "space_to_depth", "shuffle_channel",
+    "affine_channel", "unfold", "temporal_shift", "spp",
 ]
 
 
@@ -101,8 +117,8 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
-def _pair(v):
-    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+def _pair(v, n=2):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * n
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -1009,3 +1025,321 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
         reduce_mean(reduce_sum(square(positive), dim=1))),
         scale=l2_reg * 0.25)
     return elementwise_add(ce, reg)
+
+
+# ---------------------------------------------------------------------------
+# builders over ops registered earlier
+# ---------------------------------------------------------------------------
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "mul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def sum(x):
+    """The elementwise sum of a variable or a list of them (a `sum`
+    op)."""
+    helper = LayerHelper("sum")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("sum", inputs={"X": list(xs)}, outputs={"Out": out})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "gaussian_random", outputs={"Out": out},
+        attrs={"shape": list(shape), "mean": mean, "std": std,
+               "seed": seed, "dtype": int(convert_dtype(dtype))})
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: an fc of concat([x_t, hidden_t_prev]) to 4 * size,
+    then the lstm_unit op. Returns (h, c)."""
+    helper = LayerHelper("lstm_unit", name=name)
+    size = cell_t_prev.shape[-1]
+    fc_out = fc(concat([x_t, hidden_t_prev], axis=-1), 4 * size,
+                param_attr=param_attr, bias_attr=bias_attr)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op("lstm_unit",
+                     inputs={"X": fc_out, "C_prev": cell_t_prev},
+                     outputs={"C": c, "H": h},
+                     attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             origin_mode=False, name=None):
+    """One GRU step on the [N, 3 * hidden] projection `input`; `size` is
+    3 * hidden. Returns (hidden, reset hidden, gate)."""
+    helper = LayerHelper("gru_unit", name=name)
+    dtype = input.dtype
+    hidden_dim = size // 3
+    weight = helper.create_parameter(param_attr,
+                                     [hidden_dim, 3 * hidden_dim], dtype)
+    bias = helper.create_parameter(bias_attr, [1, 3 * hidden_dim], dtype,
+                                   is_bias=True)
+    act_codes = {"identity": 0, "sigmoid": 1, "tanh": 2, "relu": 3}
+    gate = helper.create_variable_for_type_inference(dtype)
+    reset_h = helper.create_variable_for_type_inference(dtype)
+    updated = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "gru_unit",
+        inputs={"Input": input, "HiddenPrev": hidden, "Weight": weight,
+                "Bias": bias},
+        outputs={"Gate": gate, "ResetHiddenPrev": reset_h,
+                 "Hidden": updated},
+        attrs={"activation": act_codes[activation],
+               "gate_activation": act_codes[gate_activation],
+               "origin_mode": origin_mode})
+    return updated, reset_h, gate
+
+
+def merge_selected_rows(x, name=None):
+    helper = LayerHelper("merge_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("merge_selected_rows", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    helper = LayerHelper("get_tensor_from_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("get_tensor_from_selected_rows", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def rank(input):
+    """The number of dimensions of `input`, a constant int32 [1]."""
+    from .tensor import fill_constant
+    return fill_constant([1], "int32", len(input.shape))
+
+
+# ---------------------------------------------------------------------------
+# the conv family
+# ---------------------------------------------------------------------------
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=None, param_attr=None, bias_attr=None,
+           use_cudnn=True, act=None, name=None):
+    helper = LayerHelper("conv3d", bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    num_channels = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, [num_filters, num_channels // groups] +
+        _pair(filter_size, 3), input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "conv3d", inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": _pair(stride, 3),
+               "paddings": _pair(padding, 3),
+               "dilations": _pair(dilation, 3), "groups": groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def _conv_transpose(op_type, nd, input, num_filters, output_size,
+                    filter_size, padding, stride, dilation, groups,
+                    param_attr, bias_attr, act, name):
+    helper = LayerHelper(op_type, bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    if filter_size is None:
+        # the filter that makes `output_size` from the input's size
+        osz = _pair(output_size, nd)
+        st, pd = _pair(stride, nd), _pair(padding, nd)
+        filter_size = [osz[i] - (input.shape[2 + i] - 1) * st[i] +
+                       2 * pd[i] for i in range(nd)]
+    w = helper.create_parameter(
+        param_attr, [input.shape[1], num_filters // groups] +
+        _pair(filter_size, nd), input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        op_type, inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": _pair(stride, nd),
+               "paddings": _pair(padding, nd),
+               "dilations": _pair(dilation, nd), "groups": groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=None, param_attr=None, bias_attr=None,
+                     use_cudnn=True, act=None, name=None):
+    """The filter is [in_c, num_filters / groups, kh, kw]; without
+    filter_size it is derived from output_size."""
+    return _conv_transpose("conv2d_transpose", 2, input, num_filters,
+                           output_size, filter_size, padding, stride,
+                           dilation, groups, param_attr, bias_attr, act,
+                           name)
+
+
+def conv3d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=None, param_attr=None, bias_attr=None,
+                     use_cudnn=True, act=None, name=None):
+    """A conv3d_transpose op with 3-element attrs and a [in_c,
+    num_filters / groups, kd, kh, kw] filter. (The JAX package's
+    builder is its 2-D one, which cannot run on a 5-D input.)"""
+    return _conv_transpose("conv3d_transpose", 3, input, num_filters,
+                           output_size, filter_size, padding, stride,
+                           dilation, groups, param_attr, bias_attr, act,
+                           name)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool3d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type,
+               "ksize": _pair(pool_size, 3),
+               "strides": _pair(pool_stride, 3),
+               "paddings": _pair(pool_padding, 3),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max",
+                    require_index=False, name=None):
+    """A pool2d op pooling to output size `pool_size` in even windows
+    (each spatial size must divide by its output size)."""
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "adaptive": True})
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max",
+                    require_index=False, name=None):
+    """A pool3d op pooling to output size `pool_size` in even windows.
+    require_index asks for the misc family's max_pool3d_with_index,
+    which is not ported yet: it raises."""
+    if require_index:
+        raise NotImplementedError(
+            "adaptive_pool3d(require_index=True) builds a "
+            "max_pool3d_with_index op, which is not ported yet")
+    helper = LayerHelper("adaptive_pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool3d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type,
+               "ksize": _pair(pool_size, 3), "adaptive": True})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None,
+                 align_corners=True, align_mode=1):
+    """A bilinear_interp or nearest_interp op to `out_shape` ([h, w]) or
+    by `scale`. `actual_shape`, or `out_shape` given as a Variable, is
+    the op's OutSize input, as in the reference (the JAX builder drops
+    actual_shape): a shape read at run time, so the block that holds it
+    runs eagerly."""
+    op = "bilinear_interp" if resample.upper() == "BILINEAR" else \
+        "nearest_interp"
+    if isinstance(out_shape, Variable):
+        actual_shape, out_shape = out_shape, None
+    attrs = {"align_corners": align_corners}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), \
+            int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    if actual_shape is None:
+        return _single_op(op, input, attrs)
+    helper = LayerHelper(op, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(op, inputs={"X": input, "OutSize": actual_shape},
+                     outputs={"Out": out}, attrs=attrs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape, align_corners, align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape, align_corners)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so that the short side is `out_short_len` (the other side
+    rounded to keep the aspect)."""
+    h, w = input.shape[2], input.shape[3]
+    s = out_short_len / float(min(h, w))
+    return image_resize(input, out_shape=[int(builtins.round(h * s)),
+                                          int(builtins.round(w * s))],
+                        resample=resample)
+
+
+def pixel_shuffle(x, upscale_factor):
+    return _single_op("pixel_shuffle", x,
+                      {"upscale_factor": upscale_factor})
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _single_op("space_to_depth", x, {"blocksize": blocksize})
+
+
+def shuffle_channel(x, group, name=None):
+    return _single_op("shuffle_channel", x, {"group": group})
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW",
+                   name=None):
+    helper = LayerHelper("affine_channel", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("affine_channel",
+                     inputs={"X": x, "Scale": scale, "Bias": bias},
+                     outputs={"Out": out},
+                     attrs={"data_layout": data_layout})
+    return out
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """An unfold op, its output in slot Y, as the op writes it (the JAX
+    builder binds Out, which the op never writes)."""
+    helper = LayerHelper("unfold", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "unfold", inputs={"X": x}, outputs={"Y": out},
+        attrs={"kernel_sizes": _pair(kernel_sizes),
+               "strides": _pair(strides), "paddings": _pair(paddings, 4),
+               "dilations": _pair(dilations)})
+    return out
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _single_op("temporal_shift", x,
+                      {"seg_num": seg_num, "shift_ratio": shift_ratio})
+
+
+def spp(input, pyramid_height, pool_type="max"):
+    return _single_op("spp", input, {"pyramid_height": pyramid_height,
+                                     "pooling_type": pool_type})

@@ -1,7 +1,8 @@
 """One case or more a op type of the basic, reduce, elementwise,
 activation and nn op families (ops/basic.py, reduce.py, elementwise.py,
 activations.py, nn.py), the nine update ops that have no kernel
-(optimizer_ops.py: lars_momentum ... lamb), the value-dependent sequence
+(optimizer_ops.py: lars_momentum ... lamb), the conv family
+(conv.py), the value-dependent sequence
 ops and SSD's detection ops (detection.py, on LoD inputs), on seeded
 numpy inputs, and a runner of one op's lowering on a device: the cases
 tests/test_torch_op_families.py holds against the JAX package's
@@ -22,7 +23,8 @@ import torch
 
 from ..core.registry import OPS, ExecContext, _SlotView
 
-__all__ = ["cases", "sequence_cases", "detection_cases", "run"]
+__all__ = ["cases", "conv_cases", "sequence_cases", "detection_cases",
+           "run"]
 
 
 def _f32(rng, *shape, lo=None, hi=None):
@@ -383,6 +385,137 @@ def cases() -> Dict[str, List[tuple]]:
             "elementwise": _elementwise_cases(),
             "activations": _activation_cases(), "nn": _nn_cases(),
             "optimizer": _optimizer_cases()}
+
+
+def conv_cases() -> List[tuple]:
+    """One case or more a op type of the conv family (ops/conv.py):
+    transposed convolutions (groups 2, depthwise, the pose head's 4x4
+    stride-2 padding-1 deconvolution), conv3d and pool3d (ceil_mode,
+    exclusive and not, global), adaptive pool2d / pool3d, unfold, spp,
+    both interpolations with align_corners both ways, a scale and an
+    OutSize input, max_pool2d_with_index and the layout ops. No ties of
+    a max and no window wholly in the padding."""
+    r = np.random.default_rng(21)
+    img = _f32(r, 2, 3, 4, 6)
+    vol = _f32(r, 1, 2, 5, 6, 7)
+    out = {"Output": 1}
+    return [
+        ("conv2d_transpose", {"Input": _f32(r, 2, 4, 5, 5),
+                              "Filter": _f32(r, 4, 3, 3, 3)},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 1}, out, ["Input", "Filter"]),
+        ("conv2d_transpose", {"Input": _f32(r, 2, 4, 4, 5),
+                              "Filter": _f32(r, 4, 3, 3, 2)},
+         {"strides": [1, 2], "paddings": [0, 1], "dilations": [2, 1],
+          "groups": 2}, out, ["Input", "Filter"]),
+        ("conv2d_transpose", {"Input": _f32(r, 1, 3, 4, 3),
+                              "Filter": _f32(r, 3, 2, 4, 4)},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 1}, out, ["Input", "Filter"]),
+        ("depthwise_conv2d_transpose", {"Input": _f32(r, 2, 4, 4, 4),
+                                        "Filter": _f32(r, 4, 1, 3, 3)},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 4}, out, ["Input", "Filter"]),
+        ("conv3d", {"Input": _f32(r, 1, 2, 4, 5, 5),
+                    "Filter": _f32(r, 3, 2, 3, 3, 3)},
+         {"strides": [1, 2, 2], "paddings": [1, 1, 1],
+          "dilations": [1, 1, 1], "groups": 1}, out, ["Input", "Filter"]),
+        ("conv3d", {"Input": _f32(r, 1, 4, 4, 4, 4),
+                    "Filter": _f32(r, 4, 2, 2, 2, 2)},
+         {"strides": [1, 1, 1], "paddings": [0, 1, 0],
+          "dilations": [1, 1, 2], "groups": 2}, out, ["Input", "Filter"]),
+        ("conv3d_transpose", {"Input": _f32(r, 1, 3, 3, 4, 4),
+                              "Filter": _f32(r, 3, 2, 2, 3, 3)},
+         {"strides": [2, 2, 2], "paddings": [0, 1, 1],
+          "dilations": [1, 1, 1], "groups": 1}, out, ["Input", "Filter"]),
+        ("conv3d_transpose", {"Input": _f32(r, 1, 4, 2, 3, 3),
+                              "Filter": _f32(r, 4, 1, 2, 2, 2)},
+         {"strides": [1, 2, 1], "paddings": [0, 0, 1],
+          "dilations": [1, 1, 1], "groups": 2}, out, ["Input", "Filter"]),
+        ("pool3d", {"X": vol}, {"pooling_type": "max", "ksize": [2, 3, 3],
+                                "strides": [2, 2, 2], "paddings": [0, 1, 1],
+                                "ceil_mode": True}, {"Out": 1}, ["X"]),
+        ("pool3d", {"X": vol}, {"pooling_type": "avg", "ksize": [3, 3, 3],
+                                "strides": [2, 2, 2], "paddings": [1, 1, 1],
+                                "exclusive": True}, {"Out": 1}, ["X"]),
+        ("pool3d", {"X": vol}, {"pooling_type": "avg", "ksize": [3, 2, 3],
+                                "strides": [1, 2, 2], "paddings": [1, 0, 1],
+                                "exclusive": False}, {"Out": 1}, ["X"]),
+        ("pool3d", {"X": vol}, {"pooling_type": "avg", "ksize": [2, 2, 2],
+                                "strides": [2, 2, 2], "paddings": [0, 0, 0],
+                                "exclusive": False, "ceil_mode": True},
+         {"Out": 1}, ["X"]),
+        ("pool3d", {"X": vol}, {"pooling_type": "max",
+                                "global_pooling": True}, {"Out": 1},
+         ["X"]),
+        ("pool2d", {"X": img}, {"pooling_type": "max", "ksize": [2, 3],
+                                "adaptive": True}, {"Out": 1}, ["X"]),
+        ("pool2d", {"X": img}, {"pooling_type": "avg", "ksize": [4, 2],
+                                "adaptive": True}, {"Out": 1}, ["X"]),
+        ("pool2d", {"X": img}, {"pooling_type": "avg", "ksize": [1, 1],
+                                "adaptive": True}, {"Out": 1}, ["X"]),
+        ("pool3d", {"X": _f32(r, 1, 2, 4, 4, 6)},
+         {"pooling_type": "avg", "ksize": [2, 1, 3], "adaptive": True},
+         {"Out": 1}, ["X"]),
+        ("pool3d", {"X": _f32(r, 1, 2, 4, 4, 6)},
+         {"pooling_type": "max", "ksize": [2, 2, 2], "adaptive": True},
+         {"Out": 1}, ["X"]),
+        ("max_pool2d_with_index", {"X": _f32(r, 2, 3, 6, 7)},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]},
+         {"Out": 1, "Mask": 1}, ["X"]),
+        ("max_pool2d_with_index", {"X": _f32(r, 1, 2, 5, 6)},
+         {"ksize": [2, 3], "strides": [1, 2], "paddings": [0, 1]},
+         {"Out": 1, "Mask": 1}, ["X"]),
+        ("unfold", {"X": _f32(r, 2, 3, 5, 6)},
+         {"kernel_sizes": [2, 3], "strides": [1, 2],
+          "paddings": [1, 0, 2, 1], "dilations": [1, 1]}, {"Y": 1}, ["X"]),
+        ("unfold", {"X": _f32(r, 1, 2, 6, 6)},
+         {"kernel_sizes": [3, 2], "strides": [2, 1],
+          "paddings": [1, 1, 1, 1], "dilations": [2, 2]}, {"Y": 1}, ["X"]),
+        ("spp", {"X": _f32(r, 2, 3, 5, 7)},
+         {"pyramid_height": 3, "pooling_type": "max"}, {"Out": 1}, ["X"]),
+        ("spp", {"X": _f32(r, 2, 3, 5, 6)},
+         {"pyramid_height": 2, "pooling_type": "avg"}, {"Out": 1}, ["X"]),
+        ("bilinear_interp", {"X": img},
+         {"out_h": 7, "out_w": 5, "align_corners": True}, {"Out": 1},
+         ["X"]),
+        ("bilinear_interp", {"X": img},
+         {"out_h": 9, "out_w": 4, "align_corners": False}, {"Out": 1},
+         ["X"]),
+        ("bilinear_interp", {"X": img},
+         {"scale": 1.5, "align_corners": False}, {"Out": 1}, ["X"]),
+        ("bilinear_interp", {"X": img, "OutSize": np.array([8, 3],
+                                                           np.int32)},
+         {"out_h": 2, "out_w": 2, "align_corners": True}, {"Out": 1},
+         ["X"]),
+        ("nearest_interp", {"X": img},
+         {"out_h": 7, "out_w": 5, "align_corners": True}, {"Out": 1},
+         ["X"]),
+        ("nearest_interp", {"X": img},
+         {"out_h": 8, "out_w": 12, "align_corners": False}, {"Out": 1},
+         ["X"]),
+        ("nearest_interp", {"X": img},
+         {"scale": 2.0, "align_corners": False}, {"Out": 1}, ["X"]),
+        ("nearest_interp", {"X": img, "OutSize": np.array([3, 9],
+                                                          np.int32)},
+         {"align_corners": True}, {"Out": 1}, ["X"]),
+        ("pixel_shuffle", {"X": _f32(r, 2, 8, 3, 2)},
+         {"upscale_factor": 2}, {"Out": 1}, ["X"]),
+        ("space_to_depth", {"X": _f32(r, 2, 3, 4, 6)}, {"blocksize": 2},
+         {"Out": 1}, ["X"]),
+        ("shuffle_channel", {"X": _f32(r, 2, 6, 3, 2)}, {"group": 3},
+         {"Out": 1}, ["X"]),
+        ("affine_channel", {"X": img, "Scale": _f32(r, 3),
+                            "Bias": _f32(r, 3)},
+         {"data_layout": "NCHW"}, {"Out": 1}, ["X", "Scale", "Bias"]),
+        ("affine_channel", {"X": _f32(r, 2, 4, 5, 3), "Scale": _f32(r, 3),
+                            "Bias": _f32(r, 3)},
+         {"data_layout": "NHWC"}, {"Out": 1}, ["X", "Scale", "Bias"]),
+        ("temporal_shift", {"X": _f32(r, 6, 8, 3, 2)},
+         {"seg_num": 3, "shift_ratio": 0.25}, {"Out": 1}, ["X"]),
+        ("temporal_shift", {"X": _f32(r, 4, 10, 2, 2)},
+         {"seg_num": 2, "shift_ratio": 0.2}, {"Out": 1}, ["X"]),
+    ]
 
 
 LOD = [[0, 2, 2, 5, 6]]     # four sequences, the second empty

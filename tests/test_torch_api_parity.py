@@ -2,7 +2,8 @@
 
 * C.3: every public name that both the port and the JAX package export
   from `layers`, `optimizer`, `backward`, `initializer`, `param_attr`,
-  `regularizer` and `evaluator` takes the same parameters: names, kinds and defaults, by
+  `regularizer`, `evaluator`, the package itself, `framework`,
+  `executor`, `core.scope` and `dygraph.nn` takes the same parameters: names, kinds and defaults, by
   inspect.signature (a class by its __init__ and its public methods).
   So a reference script that passes `act` to elementwise_add, `callbacks`
   to append_backward or `force_cpu` to Constant runs in the port.
@@ -37,9 +38,10 @@ from test_torch_ops import _Op
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
-MIN_CHECKED = {"layers": 242, "optimizer": 110, "backward": 2,
+MIN_CHECKED = {"layers": 267, "optimizer": 110, "backward": 2,
                "initializer": 10, "param_attr": 1, "regularizer": 5,
-               "evaluator": 7}
+               "evaluator": 7, "(top level)": 88, "framework": 43,
+               "executor": 5, "core.scope": 36, "dygraph.nn": 221}
 MODULES = list(MIN_CHECKED)
 # names each module must share (the builders of the book's last two
 # models and py_func, fluid.gradients, and the builders of the op
@@ -73,10 +75,22 @@ NN_AND_SSD_BUILDERS = {
     "prior_box", "iou_similarity", "box_coder", "bipartite_match",
     "target_assign", "mine_hard_examples", "multiclass_nms",
     "detection_output", "ssd_loss", "multi_box_head", "detection_map"}
+# the builders over ops registered before slice 21 and the conv
+# family's builders
+CONV_BUILDERS = {
+    "mul", "sum", "gaussian_random", "lstm_unit", "gru_unit",
+    "merge_selected_rows", "get_tensor_from_selected_rows", "rank",
+    "conv2d_transpose", "conv3d", "conv3d_transpose", "pool3d",
+    "adaptive_pool2d", "adaptive_pool3d", "image_resize",
+    "resize_bilinear", "resize_nearest", "image_resize_short",
+    "pixel_shuffle", "space_to_depth", "shuffle_channel", "affine_channel",
+    "unfold", "temporal_shift", "spp"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
                        "crf_decoding", "py_func"} | FAMILY_BUILDERS |
-            NN_AND_SSD_BUILDERS,
+            NN_AND_SSD_BUILDERS | CONV_BUILDERS,
+            "dygraph.nn": {"Conv2DTranspose", "Conv3D", "Conv3DTranspose",
+                           "GroupNorm", "PRelu"},
             "backward": {"gradients"},
             "optimizer": {"LarsMomentum", "LarsMomentumOptimizer",
                           "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
@@ -87,7 +101,20 @@ REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
             "regularizer": {"L1Decay", "L2Decay", "L1DecayRegularizer",
                             "L2DecayRegularizer",
                             "append_regularization_ops"},
-            "evaluator": {"EditDistance", "DetectionMAP"}}
+            "evaluator": {"EditDistance", "DetectionMAP"},
+            # the package's own names (the reference's fluid.*) and the
+            # framework's, executor's and scope's
+            "(top level)": {"append_backward", "Variable", "Block",
+                            "Operator", "Parameter", "name_scope",
+                            "get_flags", "set_flags", "cpu_places",
+                            "cuda_places", "cuda_pinned_places",
+                            "CUDAPinnedPlace", "is_compiled_with_cuda",
+                            "LoDTensorArray", "EnforceNotMet", "Scope",
+                            "LoDTensor", "global_scope", "scope_guard"},
+            "framework": {"grad_var_name", "name_scope", "Variable",
+                          "Parameter", "Block", "Operator"},
+            "executor": {"Executor", "global_scope", "scope_guard"},
+            "core.scope": {"Scope", "LoDTensor", "TensorArray"}}
 
 
 def _public(mod):
@@ -120,8 +147,9 @@ def _params(fn):
 
 @pytest.mark.parametrize("module", MODULES)
 def test_shared_names_take_the_reference_arguments(module):
-    jmod = importlib.import_module(f"paddle_tpu.{module}")
-    pmod = importlib.import_module(f"paddle_tpu_torch.{module}")
+    suffix = "" if module == "(top level)" else f".{module}"
+    jmod = importlib.import_module(f"paddle_tpu{suffix}")
+    pmod = importlib.import_module(f"paddle_tpu_torch{suffix}")
     shared = sorted(_public(jmod) & _public(pmod))
     assert shared, module
     assert REQUIRED.get(module, set()) <= set(shared), module

@@ -40,8 +40,11 @@ flash_attention_lse with an lse
 cotangent, every case of ops/family_cases.py on the card against the
 CPU, full-width MobileNet-SSD (chip_smoke.mobilenet_ssd, B=8) captured
 against eager bit for bit, multiclass_nms at 64 x 21 x 1917 against the
-CPU, and the update ops without a kernel against the CPU. They skip
-where torch sees no CUDA device.
+CPU, the update ops without a kernel against the CPU, the conv family's
+cases forward and backward against the CPU, the transposed
+convolutions under AMP, full-width SimpleBaseline (chip_smoke.pose_resnet,
+B=4) captured against eager bit for bit, and a resize by an OutSize input
+kept eager. They skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -2761,3 +2764,129 @@ def test_update_ops_on_card_equal_the_cpu(cuda):
                                            atol=F32_TOL)
             else:
                 assert torch.equal(v.cpu(), cpu[n]), (op_type, n)
+
+
+def _no_tf32(monkeypatch):
+    """cuDNN's convolutions in full float32, as chip_smoke.py runs them
+    (torch's default lets cuDNN use TF32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def test_conv_family_on_card_equals_the_cpu(cuda, monkeypatch):
+    """Every case of ops/family_cases.py's conv_cases() through its
+    lowering on the card and on the CPU, and its `<op>_grad` lowering
+    under one random cotangent of every float output: float32 within
+    F32_TOL forward, BWD_F32_TOL backward (a filter's gradient sums over
+    the batch and every position), max_pool2d_with_index's Mask
+    exactly."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    _no_tf32(monkeypatch)
+    rng = np.random.default_rng(5)
+    for op_type, ins, attrs, outs, diff in fc.conv_cases():
+        card, _ = fc.run(op_type, ins, attrs, outs, cuda)
+        cpu, _ = fc.run(op_type, ins, attrs, outs, "cpu")
+        for n, v in card.items():
+            a, b = v.cpu(), cpu[n]
+            assert a.dtype == b.dtype and a.shape == b.shape, (op_type, n)
+            if a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
+            else:
+                assert torch.equal(a, b), (op_type, n)
+        if not diff:
+            continue
+        g_ins = dict(ins)
+        for slot, count in outs.items():
+            v = cpu[f"{slot.lower()}_out0"]
+            if count == 1 and v.is_floating_point():
+                g_ins[slot] = v.numpy()
+                g_ins[slot + "@GRAD"] = rng.standard_normal(
+                    tuple(v.shape)).astype(np.float32)
+        g_outs = {s + "@GRAD": 1 for s in diff}
+        gcard, _ = fc.run(op_type + "_grad", g_ins, attrs, g_outs, cuda)
+        gcpu, _ = fc.run(op_type + "_grad", g_ins, attrs, g_outs, "cpu")
+        for n, v in gcard.items():
+            torch.testing.assert_close(v.cpu(), gcpu[n], rtol=BWD_F32_TOL,
+                                       atol=BWD_F32_TOL)
+
+
+@pytest.mark.parametrize("op_type", ["conv2d_transpose",
+                                     "depthwise_conv2d_transpose",
+                                     "conv3d_transpose"])
+def test_transposed_convolution_under_amp_on_card(cuda, monkeypatch,
+                                                  op_type):
+    """Under amp_guard a transposed convolution computes in bf16 on the
+    card as on the CPU: conv2d_transpose returns bf16, the other two
+    float32 (the JAX op's dtypes), within BF16_TOL of the CPU's largest
+    value."""
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import family_cases as fc
+    _no_tf32(monkeypatch)
+    case = next(c for c in fc.conv_cases() if c[0] == op_type)
+    with amp.amp_guard(True):
+        card, _ = fc.run(op_type, case[1], case[2], case[3], cuda)
+        cpu, _ = fc.run(op_type, case[1], case[2], case[3], "cpu")
+    a, b = card["output_out0"].cpu(), cpu["output_out0"]
+    assert a.dtype == b.dtype == (torch.bfloat16 if op_type ==
+                                  "conv2d_transpose" else torch.float32)
+    assert float((a.float() - b.float()).abs().max()) <= \
+        BF16_TOL * float(b.float().abs().max())
+
+
+def test_pose_full_width_captured_bit_equal_eager_on_card(cuda,
+                                                          monkeypatch):
+    """chip_smoke's SimpleBaseline at full width (ResNet-50, three
+    deconvolutions, 17 heatmaps at 64x48 of a 256x192 input) with Adam at
+    B=4: three runs of one batch through the plan cache (eager, the
+    capture, a replay) bit-equal to the same runs eager in deterministic
+    mode, no block kept eager, one fused_adam launch a step."""
+    import chip_smoke as cs
+    _no_tf32(monkeypatch)
+    pt.framework.unique_name.reset()
+    main, startup, loss, heat = cs.pose_train(pt)
+    assert tuple(heat.shape[1:]) == (17, 64, 48)
+    feed = cs._pose_batch(torch, 0, cuda, B=4)
+    kreg.reset_counts()
+    runs = _cached_against_eager(main, startup, [feed] * 3, [loss, heat],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 2)
+    # each way: three steps, one launch each (the capture counts its run)
+    assert kreg.launches()["fused_adam"] == 6
+    out = runs[True][0][0]
+    assert np.isfinite(out[0]).all() and out[1].shape == (4, 17, 64, 48)
+
+
+@pytest.mark.parametrize("size", ["OutSize", "list"])
+def test_resize_size_and_the_capture_on_card(cuda, size):
+    """A resize whose size is an OutSize input reads it on the host: its
+    block runs eagerly on the card with bilinear_interp as the reason; to
+    a list out_shape it is captured. Both equal the CPU's output."""
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = pt.layers.data("img", [3, 4, 6], dtype="float32")
+        if size == "OutSize":
+            shape = pt.layers.data("shape", [2], dtype="int32",
+                                   append_batch_size=False)
+            out = pt.layers.resize_bilinear(img, actual_shape=shape)
+        else:
+            out = pt.layers.resize_bilinear(img, out_shape=[8, 9])
+    feed = {"img": np.random.default_rng(0).standard_normal(
+        (2, 3, 4, 6)).astype(np.float32)}
+    if size == "OutSize":
+        feed["shape"] = np.array([8, 9], np.int32)
+    want = np.asarray(pt.Executor(pt.CPUPlace()).run(
+        main, feed=feed, fetch_list=[out], scope=pt.Scope())[0])
+    exe, scope = pt.Executor(), pt.Scope()
+    for _ in range(3):
+        got = np.asarray(exe.run(main, feed=feed, fetch_list=[out],
+                                 scope=scope)[0])
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    c = exe._engine.counters
+    if size == "OutSize":
+        assert set(exe._engine.eager_reasons.values()) == \
+            {"bilinear_interp"} and c["captures"] == 0
+    else:
+        assert not exe._engine.eager_reasons and c["captures"] == 1

@@ -254,8 +254,9 @@ def test_every_slice_op_type_is_covered():
     reduce, elementwise and activation families in
     test_torch_op_families.py, the nn family and the update ops without
     a kernel (the same file's cases, held in test_torch_nn_family.py and
-    test_torch_optimizers.py) and SSD's detection ops in
-    test_torch_detection.py)."""
+    test_torch_optimizers.py), SSD's detection ops in
+    test_torch_detection.py and the conv family in
+    test_torch_conv_family.py)."""
     import test_torch_beam_search
     import test_torch_op_families
     import test_torch_sequence
@@ -288,9 +289,11 @@ def test_every_slice_op_type_is_covered():
                 for c in cases}
     # held in test_torch_detection.py
     detection = {c[0] for c in family_cases.detection_cases()}
+    # held in test_torch_conv_family.py
+    conv = {c[0] for c in family_cases.conv_cases()}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
-        beam | families | detection == forward
+        beam | families | detection | conv == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
