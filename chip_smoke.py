@@ -263,8 +263,8 @@
    named in Engine.eager_reasons. Op sweep: every case of
    ops/family_cases.py (the basic, reduce, elementwise, activation, nn
    and conv families, the nine update ops without a kernel, the three
-   sequence ops and SSD's eight detection ops) on the card against the
-   CPU.
+   sequence ops, SSD's eight detection ops and the one-stage detectors'
+   ten) on the card against the CPU.
 15. Detection phase: MobileNet-SSD as PaddleCV's object_detection
    defines it (mobilenet_ssd: MobileNet-v1 at scale 1.0, extra blocks,
    multi_box_head over six maps: 1917 priors) at Pascal VOC's 300x300,
@@ -299,7 +299,30 @@
    kernels, the ranks of the kernels the deconvolutions launch, their
    device time alone), peak memory; the heatmaps through
    save_inference_model and AnalysisPredictor against Executor.run.
-17. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+17. Yolo phase: YOLOv3 as PaddleCV's yolov3 defines it (yolov3:
+   DarkNet-53's stages of 1, 2, 8, 8 and 4 residual blocks, three heads
+   on strides 32, 16 and 8 with their routes, resize_nearest(scale=2),
+   COCO's 9 anchors) at 608x608, 80 classes, float32, B=8, the sum of
+   the heads' yolov3_loss (ignore 0.7, label smoothing, gt_score)
+   minimized by Momentum(0.9) under linear_lr_warmup(piecewise_decay)
+   and L2Decay(5e-4), on COCO-shaped batches (a geometric number of
+   boxes an image, mean 7.3, padded to 50; im_shape from COCO's sizes).
+   YOLO_RUNS steps captured against eager in deterministic mode,
+   bit-equal; the first loss and the heads' outputs at B=2 against the
+   port on the CPU (YOLO_LOSS_RTOL); images/s eager against captured in
+   turns, the capture clocked; a profiled replay (busy share, top
+   kernels, the three yolov3_loss ops' device time alone and the ranks
+   of their kernels), peak memory. Then infer.py's program (yolo_box on
+   each head, multiclass_nms over 80 classes, background -1) through
+   Executor.run (eager, captured, replayed rows equal) and
+   AnalysisPredictor (within YOLO_ROWS_ATOL), images/s eager against
+   captured, a profiled replay and multiclass_nms alone at 8 x 80 x
+   22743. Then a RetinaNet head (retinanet: two levels,
+   anchor_generator, retinanet_target_assign on a LoD of boxes,
+   sigmoid_focal_loss, smooth_l1, SGD) at B=4, RETINA_RUNS steps
+   captured against eager bit-equal, and its retinanet_detection_output
+   captured against eager. No kernel of the port lies on this path.
+18. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -312,7 +335,7 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-18. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+19. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's, the dygraph phase's, the control flow
    phase's, the book models phase's, the lr schedule phase's, the
    contrib decoder phase's and the pose phase's captured steps; the quantized and tuned
@@ -335,6 +358,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -6630,14 +6654,18 @@ def _det_rows(out):
     return rows, lod
 
 
-def _ssd_nms_alone(torch, pt, scope, det_prog, feed):
-    """multiclass_nms alone on the detection program's decoded boxes
-    and transposed scores (B x 21 x 1917): eager and captured, device
-    rows against the CPU's, ms a call each way."""
+def _nms_alone(torch, pt, scope, det_prog, feed, label="multiclass_nms"):
+    """multiclass_nms alone, with the detection program's own attrs, on
+    its decoded boxes and transposed scores (SSD: B x 21 x 1917; YOLOv3:
+    B x 80 x 22743): eager and captured, device rows against the CPU's,
+    ms a call each way."""
     L = pt.layers
     block = det_prog.global_block()
     nms_op = [op for op in block.ops if op.type == "multiclass_nms"][0]
     names = (nms_op.input("BBoxes")[0], nms_op.input("Scores")[0])
+    attrs = {k: nms_op.attr(k) for k in (
+        "score_threshold", "nms_top_k", "keep_top_k", "nms_threshold",
+        "normalized", "nms_eta", "background_label")}
     exe = pt.Executor(pt.CUDAPlace(0))
     bx, sc = exe.run(det_prog, feed=feed, fetch_list=list(names),
                      scope=scope, use_program_cache=False,
@@ -6648,8 +6676,7 @@ def _ssd_nms_alone(torch, pt, scope, det_prog, feed):
     with pt.program_guard(prog, pt.Program()):
         b = L.data("bboxes", list(bx.shape[1:]), dtype="float32")
         s = L.data("scores", list(sc.shape[1:]), dtype="float32")
-        out = L.multiclass_nms(b, s, background_label=0, normalized=False,
-                               nms_eta=1.0, **SSD_DET)
+        out = L.multiclass_nms(b, s, **attrs)
     f = {"bboxes": bx, "scores": sc}
     exe = pt.Executor(pt.CUDAPlace(0))
     secs = {}
@@ -6673,14 +6700,14 @@ def _ssd_nms_alone(torch, pt, scope, det_prog, feed):
     equal = np.array_equal(np.asarray(got), np.asarray(cpu))
     c = _counters(exe)
     exe.close()
-    print(f"  multiclass_nms alone at {list(sc.shape)} (nms_top_k "
-          f"{SSD_DET['nms_top_k']}, keep_top_k {SSD_DET['keep_top_k']}): "
+    print(f"  {label} alone at {list(sc.shape)} (nms_top_k "
+          f"{attrs['nms_top_k']}, keep_top_k {attrs['keep_top_k']}): "
           f"eager {1e3 * secs['eager']:.3f} ms a call, captured "
           f"{1e3 * secs['captured']:.3f} ms a call (the host's clock to "
           f"a synchronize); a profiled replay {n_kernels} kernels, "
           f"{1e3 * secs['device']:.3f} ms of device time in {1e3 * wall:.3f} "
           f"ms; rows equal to the CPU's {equal}; counters {c}")
-    _require(equal, "multiclass_nms: the card's rows differ from the CPU's")
+    _require(equal, f"{label}: the card's rows differ from the CPU's")
     return secs
 
 
@@ -6760,7 +6787,7 @@ def _ssd_detect_phase(torch, pt, main, scope, head, batches):
               f"{n_img / float(np.median(s)):.1f} images/s")
     wall, busy, _ = _profiled_replay(torch, "detect", exe, prog,
                                      feeds[0], [nmsed], scope)
-    nms = _ssd_nms_alone(torch, pt, scope, prog, feeds[0])
+    nms = _nms_alone(torch, pt, scope, prog, feeds[0])
     print(f"  detect: multiclass_nms alone takes {1e3 * nms['device']:.3f} "
           f"ms of device time captured, "
           f"{100 * nms['device'] / (wall * busy):.1f} % of a captured "
@@ -6919,13 +6946,40 @@ def _pose_batch(torch, seed, device, B=None, image=None, heat=(64, 48),
 POSE_DECONV_ITERS = 5     # calls a timing of the deconvolutions alone
 
 
+def _timed_parts(torch, parts, iters):
+    """({part: device ms a call of parts[part](), by CUDA events over
+    `iters` calls}, {part: {the profiler key of each kernel it launches:
+    device ms}}; the latter empty where every one of three profiler
+    sessions lost its events)."""
+    from torch.profiler import ProfilerActivity, profile
+    ms, names = {}, {}
+    for part, fn in parts.items():
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms[part] = a.elapsed_time(b) / iters
+        names[part] = {}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names[part] = {e.key: e.self_device_time_total / 1e3
+                           for e in _kernels(prof)}
+            if names[part]:
+                break
+    return ms, names
+
+
 def _pose_deconv_alone(torch, heat_shape, B):
     """The three deconvolutions alone at their shapes, forward and
-    backward (the input's and the filter's gradients): ({part: device ms
-    a call, by CUDA events over POSE_DECONV_ITERS calls}, {part: {the
-    profiler key of each kernel it launches: device ms}}; the latter
-    empty where every one of three profiler sessions lost its events)."""
-    from torch.profiler import ProfilerActivity, profile
+    backward (the input's and the filter's gradients): _timed_parts over
+    POSE_DECONV_ITERS calls."""
     F = torch.nn.functional
     h, w = heat_shape
     shapes = [(2048, h // 8, w // 8), (256, h // 4, w // 4),
@@ -6941,40 +6995,23 @@ def _pose_deconv_alone(torch, heat_shape, B):
 
     outs = forward()
     grads = [torch.ones_like(o) for o in outs]
-    parts = {"forward": forward,
-             "backward": lambda: torch.autograd.backward(
-                 outs, grads, retain_graph=True)}
-    ms, names = {}, {}
-    for part, fn in parts.items():
-        fn()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(POSE_DECONV_ITERS):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        ms[part] = a.elapsed_time(b) / POSE_DECONV_ITERS
-        names[part] = {}
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            names[part] = {e.key: e.self_device_time_total / 1e3
-                           for e in _kernels(prof)}
-            if names[part]:
-                break
-    return ms, names
+    return _timed_parts(torch, {
+        "forward": forward,
+        "backward": lambda: torch.autograd.backward(outs, grads,
+                                                    retain_graph=True)},
+        POSE_DECONV_ITERS)
 
 
-def _pose_profile(torch, exe, main, feed, fetch, scope, heat_shape):
+def _profile_with_alone(torch, label, exe, main, feed, fetch, scope, what,
+                        alone, names):
     """One profiled replay: wall, busy share, kernels, the top kernels
-    by device time; the three deconvolutions' device time alone and
-    where it would rank among the replay's kernels, and the rank in the
-    replay of each kernel they launch."""
+    by device time; then `what`'s time alone, from CUDA events over its
+    calls (`alone`: {part: ms}), beside the sum of its kernels' device
+    time where a profiler session caught them (`names`: {part: {kernel
+    key: ms}}), where that sum would rank among the replay's kernels,
+    and the rank in the replay of each kernel it launches. Returns (wall
+    s, busy share, replay device ms)."""
     from torch.profiler import ProfilerActivity, profile
-    alone, deconv = _pose_deconv_alone(torch, heat_shape, POSE_B)
     c0 = _counters(exe)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -6985,13 +7022,13 @@ def _pose_profile(torch, exe, main, feed, fetch, scope, heat_shape):
         wall = time.perf_counter() - t0
     c1 = _counters(exe)
     _require(c1["replays"] == c0["replays"] + 1,
-             f"pose: the profiled run was no replay: {c0} -> {c1}")
+             f"{label}: the profiled run was no replay: {c0} -> {c1}")
     kernels = sorted(_kernels(prof), key=lambda e: e.self_device_time_total,
                      reverse=True)
-    _require(kernels, "pose: the profiler saw no kernel of the replay")
+    _require(kernels, f"{label}: the profiler saw no kernel of the replay")
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"  pose: profiled replay: wall {wall:.4f} s, device busy "
+    print(f"  {label}: profiled replay: wall {wall:.4f} s, device busy "
           f"{100 * busy / wall:.1f} %, {sum(e.count for e in kernels)} "
           f"kernels, {total:.3f} ms of device time")
     for e in kernels[:10]:
@@ -6999,24 +7036,40 @@ def _pose_profile(torch, exe, main, feed, fetch, scope, heat_shape):
               f"x{e.count:<6d} {e.key[:90]}")
     times = [e.self_device_time_total / 1e3 for e in kernels]
     rank = {e.key: i + 1 for i, e in enumerate(kernels)}
-    for part in ("forward", "backward"):
-        print(f"  pose: the three deconvolutions' {part} alone: "
-              f"{alone[part]:.3f} ms of device time a call (CUDA events; "
-              f"the replay: {total:.3f} ms); as one entry it would rank "
-              f"{sum(t > alone[part] for t in times) + 1} of "
-              f"{len(kernels) + 1} by device time")
-        if not deconv[part]:
-            print(f"  pose: the kernels the deconvolutions' {part} "
-                  f"launches: not measured (three profiler sessions "
-                  f"lost their events)")
-        for key in sorted(deconv[part], key=lambda k: rank.get(k, 10 ** 6)):
+    for part in alone:
+        # events_ms also counts the gaps where the card waits for the
+        # host to launch the next kernel, which a replay does not have,
+        # so the rank among the replay's kernels is the profiler's sum's
+        if names[part]:
+            dev_ms = sum(names[part].values())
+            prof = (f"{dev_ms:.3f} ms; as one entry it would rank "
+                    f"{sum(t > dev_ms for t in times) + 1} of "
+                    f"{len(kernels) + 1} by device time")
+        else:
+            prof = ("not measured, nor its rank (three profiler sessions "
+                    "lost their events)")
+        print(f"  {label}: {what}' {part} alone: events_ms "
+              f"{alone[part]:.3f} a call (CUDA events over the calls; "
+              f"the replay: {total:.3f} ms of device time), profiler_ms "
+              f"(its kernels' device time in a profiler session) {prof}")
+        for key in sorted(names[part], key=lambda k: rank.get(k, 10 ** 6)):
             e = kernels[rank[key] - 1] if key in rank else None
-            print(f"  pose: conv2d_transpose {part} kernel ranks "
+            print(f"  {label}: {what} {part} kernel ranks "
                   f"{rank.get(key, 'absent')} of {len(kernels)}"
                   + (f" ({e.self_device_time_total / 1e3:.3f} ms x"
                      f"{e.count}, shared with every op that launches it)"
                      if e else "") + f": {key[:80]}")
-    return wall, busy / wall
+    return wall, busy / wall, total
+
+
+def _pose_profile(torch, exe, main, feed, fetch, scope, heat_shape):
+    """A profiled replay with the three deconvolutions' time alone and
+    ranks (_profile_with_alone)."""
+    alone, deconv = _pose_deconv_alone(torch, heat_shape, POSE_B)
+    wall, busy, _ = _profile_with_alone(
+        torch, "pose", exe, main, feed, fetch, scope,
+        "the three deconvolutions", alone, deconv)
+    return wall, busy
 
 
 def pose_phase(torch, dev, card):
@@ -7112,6 +7165,641 @@ def pose_phase(torch, dev, card):
     return launched.get("fused_adam", 0)
 
 
+# YOLOv3 (Redmon and Farhadi, 2018) as PaddleCV ships it
+# (PaddleCV/yolov3: models/darknet.py, models/yolov3.py, config.py,
+# train.py): DarkNet-53, three heads, COCO's 80 classes at 608x608
+YOLO = {"class_num": 80, "image": 608, "stages": (1, 2, 8, 8, 4),
+        "width": 32}
+YOLO_B = 8            # PaddleCV's batch a card
+YOLO_BOXES = 50       # gt slots an image (config.py max_box_num)
+YOLO_RUNS = 8         # steps of one batch, captured against eager
+# COCO's 9 anchors (config.py), the masks of the heads at strides 32,
+# 16 and 8
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
+YOLO_IGNORE = 0.7
+# train.py: Momentum(0.9) under L2Decay(5e-4) (batch norm's parameters
+# and the heads' biases L2Decay(0)), piecewise_decay([400000, 450000],
+# [1e-3, 1e-4, 1e-5]) under linear_lr_warmup(4000, 0, 1e-3)
+YOLO_LR = 1e-3
+YOLO_LR_STEPS = (400000, 450000)
+YOLO_WARMUP = 4000
+YOLO_L2 = 5e-4
+# infer.py: yolo_box's conf_thresh, then multiclass_nms
+YOLO_DET = {"score_threshold": 0.005, "nms_top_k": 400, "keep_top_k": 100,
+            "nms_threshold": 0.45}
+# gt boxes an image: geometric with mean 7.3 (COCO train2017's instances
+# an image), clipped to [1, YOLO_BOXES]; sides log-uniform in
+# [0.02, 0.8] of the image
+YOLO_OBJECTS = 7.3
+# (h, w) of COCO's most common image sizes, one drawn an image
+COCO_SIZES = ((480, 640), (640, 480), (427, 640), (640, 427), (426, 640),
+              (424, 640), (375, 500), (640, 640))
+# the first loss at B=2, card against CPU: float32 convolutions (TF32
+# off) summed in other orders. The heads' outputs move, relative to the
+# largest, by at most the sum over the layers of a random walk of sqrt(K)
+# units of 2^-24: 75 convolutions (52 of DarkNet-53, 23 of the heads),
+# K at most 9216 (3 x 3 x 1024); every term of the loss is 1-Lipschitz
+# in those outputs (a sigmoid cross entropy or an absolute difference)
+YOLO_LOSS_RTOL = 75 * 9216 ** 0.5 * 2.0 ** -24      # 4.29e-4
+# detection rows, the predictor against Executor.run (both on the card,
+# in deterministic mode)
+YOLO_ROWS_ATOL = 1e-6
+YOLO_TIMED = 3        # detection passes timed a mode
+YOLO_LOSS_ITERS = 5   # calls a timing of yolov3_loss alone
+
+
+def yolov3(L, img, class_num=80, stages=(1, 2, 8, 8, 4), width=32,
+           is_test=False):
+    """PaddleCV's YOLOv3 built with the layers module `L` (the port's or
+    the JAX package's): DarkNet-53 (`stages` residual blocks a stage, each
+    a 1x1 then a 3x3 conv_bn; a 3x3 stride-2 conv_bn before each stage,
+    `width` channels at the stem), then three heads on the last three
+    stages (strides 32, 16, 8): five alternating 1x1 / 3x3 conv_bn, a 3x3
+    tip and a 1x1 conv with a bias to 3 x (5 + class_num) channels; the
+    routes between the heads a 1x1 conv_bn, resize_nearest(scale=2) and
+    a concat. Every conv_bn is a conv2d (no bias, Normal(0, 0.02)), batch
+    norm (Normal(0, 0.02) scale, 0 offset, both L2Decay(0)) and
+    leaky_relu(0.1) (batch norm in inference mode with `is_test`); the
+    parameters carry PaddleCV's names, so a program built again (the
+    detection program) shares them. Returns the three heads' outputs."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+    normal = pkg.initializer.Normal(0.0, 0.02)
+    no_decay = pkg.regularizer.L2Decay(0.0)
+
+    def conv_bn(x, ch, k, stride, padding, name):
+        x = L.conv2d(x, ch, k, stride=stride, padding=padding, act=None,
+                     param_attr=pkg.ParamAttr(name=name + ".conv.weights",
+                                              initializer=normal),
+                     bias_attr=False)
+        x = L.batch_norm(
+            x, act=None, is_test=is_test,
+            param_attr=pkg.ParamAttr(name=name + ".bn.scale",
+                                     initializer=normal,
+                                     regularizer=no_decay),
+            bias_attr=pkg.ParamAttr(name=name + ".bn.offset",
+                                    initializer=pkg.initializer.Constant(0.0),
+                                    regularizer=no_decay),
+            moving_mean_name=name + ".bn.mean",
+            moving_variance_name=name + ".bn.var")
+        return L.leaky_relu(x, alpha=0.1)
+
+    x = conv_bn(img, width, 3, 1, 1, "yolo_input")
+    x = conv_bn(x, 2 * width, 3, 2, 1, "yolo_input.downsample")
+    blocks = []
+    for i, n_blocks in enumerate(stages):
+        ch = width * 2 ** i
+        for j in range(n_blocks):
+            name = f"stage.{i}.{j}"
+            y = conv_bn(x, ch, 1, 1, 0, name + ".0")
+            x = L.elementwise_add(x, conv_bn(y, 2 * ch, 3, 1, 1,
+                                             name + ".1"))
+        blocks.append(x)
+        if i < len(stages) - 1:
+            x = conv_bn(x, 4 * ch, 3, 2, 1, f"stage.{i}.downsample")
+    outs, route = [], None
+    for i, block in enumerate(blocks[-1:-4:-1]):
+        if i:
+            block = L.concat([route, block], axis=1)
+        ch = 16 * width // 2 ** i
+        name = f"yolo_block.{i}"
+        for j in range(2):
+            block = conv_bn(block, ch, 1, 1, 0, f"{name}.{j}.0")
+            block = conv_bn(block, 2 * ch, 3, 1, 1, f"{name}.{j}.1")
+        route = conv_bn(block, ch, 1, 1, 0, f"{name}.2")
+        tip = conv_bn(route, 2 * ch, 3, 1, 1, f"{name}.tip")
+        outs.append(L.conv2d(
+            tip, len(YOLO_MASKS[i]) * (class_num + 5), 1, stride=1,
+            padding=0, act=None,
+            param_attr=pkg.ParamAttr(name=f"yolo_output.{i}.conv.weights",
+                                     initializer=normal),
+            bias_attr=pkg.ParamAttr(name=f"yolo_output.{i}.conv.bias",
+                                    initializer=pkg.initializer.Constant(0.0),
+                                    regularizer=no_decay)))
+        if i < 2:
+            route = conv_bn(route, 8 * width // 2 ** i, 1, 1, 0,
+                            f"yolo_transition.{i}")
+            route = L.resize_nearest(route, scale=2)
+    return outs
+
+
+def yolov3_losses(L, outs, gt_box, gt_label, gt_score, class_num):
+    """The sum over the heads of each head's yolov3_loss (label
+    smoothing on, ignore_thresh YOLO_IGNORE), averaged over the batch."""
+    losses = [L.reduce_mean(L.yolov3_loss(
+        o, gt_box, gt_label, YOLO_ANCHORS, YOLO_MASKS[i], class_num,
+        YOLO_IGNORE, 32 // 2 ** i, gt_score=gt_score, use_label_smooth=True))
+        for i, o in enumerate(outs)]
+    return L.sum(losses)
+
+
+def yolov3_train(pt, image=None, class_num=None, stages=None, width=None,
+                 boxes=YOLO_BOXES):
+    """(main, startup, loss, heads) of PaddleCV's train.py in package `pt`:
+    feeds image [3, image, image], gt_box [boxes, 4] (normalized cx, cy,
+    w, h; w = 0 pads), gt_label [boxes] int32, gt_score [boxes]; Momentum
+    (0.9) under the warm-up and piecewise schedule and L2Decay minimizes
+    yolov3_losses."""
+    L = pt.layers
+    image = image or YOLO["image"]
+    class_num = class_num or YOLO["class_num"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = L.data("image", [3, image, image], dtype="float32")
+        gt_box = L.data("gt_box", [boxes, 4], dtype="float32")
+        gt_label = L.data("gt_label", [boxes], dtype="int32")
+        gt_score = L.data("gt_score", [boxes], dtype="float32")
+        outs = yolov3(L, img, class_num, stages or YOLO["stages"],
+                      width or YOLO["width"])
+        loss = yolov3_losses(L, outs, gt_box, gt_label, gt_score, class_num)
+        lr = L.linear_lr_warmup(
+            L.piecewise_decay(list(YOLO_LR_STEPS),
+                              [YOLO_LR * 0.1 ** i for i in range(3)]),
+            YOLO_WARMUP, 0.0, YOLO_LR)
+        pt.optimizer.MomentumOptimizer(
+            learning_rate=lr, momentum=0.9,
+            regularization=pt.regularizer.L2Decay(YOLO_L2)).minimize(loss)
+    return main, startup, loss, outs
+
+
+def yolov3_detect(pt, image=None, class_num=None, stages=None, width=None):
+    """(program, startup, nmsed) of infer.py in package `pt`: yolov3 built
+    again with batch norm in inference mode (its parameters those of
+    the trained program, by name), yolo_box on each head (feed im_shape
+    [2] int32, (h, w) an image; the head's mask's anchors, conf_thresh
+    YOLO_DET's score_threshold), then multiclass_nms over the three
+    heads' boxes (background -1)."""
+    L = pt.layers
+    image = image or YOLO["image"]
+    class_num = class_num or YOLO["class_num"]
+    prog, startup = pt.Program(), pt.Program()
+    with pt.program_guard(prog, startup):
+        img = L.data("image", [3, image, image], dtype="float32")
+        im_shape = L.data("im_shape", [2], dtype="int32")
+        outs = yolov3(L, img, class_num, stages or YOLO["stages"],
+                      width or YOLO["width"], is_test=True)
+        boxes, scores = [], []
+        for i, o in enumerate(outs):
+            anchors = [YOLO_ANCHORS[2 * m + k] for m in YOLO_MASKS[i]
+                       for k in (0, 1)]
+            b, sc = L.yolo_box(o, im_shape, anchors, class_num,
+                               YOLO_DET["score_threshold"], 32 // 2 ** i)
+            boxes.append(b)
+            scores.append(L.transpose(sc, perm=[0, 2, 1]))
+        nmsed = L.multiclass_nms(L.concat(boxes, axis=1),
+                                 L.concat(scores, axis=2),
+                                 background_label=-1, **YOLO_DET)
+    return prog, startup, nmsed
+
+
+def _coco_batch(torch, seed, device, B=None, image=None, boxes=YOLO_BOXES,
+                class_num=None):
+    """A COCO-shaped batch from `seed`: B images (standard normal, made by
+    a torch generator on the CPU, then moved to `device`); per image a
+    geometric number of boxes (YOLO_OBJECTS, at most `boxes`), normalized
+    (cx, cy, w, h) with sides log-uniform in [0.02, 0.8] inside the
+    image, labels uniform in [0, class_num), scores 1, the rest of the
+    slots zero; im_shape one of COCO_SIZES an image."""
+    B, image = B or YOLO_B, image or YOLO["image"]
+    class_num = class_num or YOLO["class_num"]
+    rng = np.random.default_rng(seed)
+    n = np.clip(rng.geometric(1.0 / YOLO_OBJECTS, B), 1, boxes)
+    box = np.zeros((B, boxes, 4), np.float32)
+    label = np.zeros((B, boxes), np.int32)
+    score = np.zeros((B, boxes), np.float32)
+    for b, k in enumerate(n):
+        wh = np.exp(rng.uniform(np.log(0.02), np.log(0.8), (k, 2)))
+        box[b, :k, :2] = rng.uniform(wh / 2, 1 - wh / 2)
+        box[b, :k, 2:] = wh
+        label[b, :k] = rng.integers(0, class_num, k)
+        score[b, :k] = 1.0
+    sizes = np.array(COCO_SIZES, np.int32)[
+        rng.integers(0, len(COCO_SIZES), B)]
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    img = torch.randn((B, 3, image, image), generator=gen)
+    t = {"image": img, "gt_box": torch.from_numpy(box),
+         "gt_label": torch.from_numpy(label),
+         "gt_score": torch.from_numpy(score),
+         "im_shape": torch.from_numpy(sizes)}
+    return {k: v.to(device) for k, v in t.items()}
+
+
+def _yolo_train_feed(f):
+    return {k: f[k] for k in ("image", "gt_box", "gt_label", "gt_score")}
+
+
+# RetinaNet's head at test size (Lin et al., 2017): two levels (strides 8
+# and 16) of a 64x64 image, 3 anchors a cell, 5 classes, width 16
+RETINA = {"num_classes": 5, "image": 64, "width": 16}
+RETINA_RATIOS = (0.5, 1.0, 2.0)
+RETINA_B = 4
+RETINA_RUNS = 3
+RETINA_LR = 0.01
+RETINA_DET = {"score_threshold": 0.05, "nms_top_k": 1000, "keep_top_k": 100,
+              "nms_threshold": 0.5}
+
+
+def retinanet(L, img, num_classes, width):
+    """A RetinaNet head at test size built with the layers module `L`:
+    three stride-2 3x3 convs (relu) to stride 8, a fourth to stride 16;
+    on each of the two levels anchor_generator (size 4 x stride, the
+    RETINA_RATIOS), a 3x3 class conv (bias -log(99): prior 0.01) and a
+    3x3 box conv. Returns per level (boxes [N, M, 4], class logits [N,
+    M, num_classes], anchors [M, 4], variances [M, 4])."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+    x, levels = img, []
+    for _ in range(3):
+        x = L.conv2d(x, width, 3, stride=2, padding=1, act="relu")
+    for lvl in range(2):
+        if lvl:
+            x = L.conv2d(x, width, 3, stride=2, padding=1, act="relu")
+        stride = 8.0 * 2 ** lvl
+        anchors, var = L.anchor_generator(
+            x, anchor_sizes=[4 * stride], aspect_ratios=list(RETINA_RATIOS),
+            stride=[stride, stride])
+        a = len(RETINA_RATIOS)
+        cls = L.conv2d(x, a * num_classes, 3, padding=1,
+                       bias_attr=pkg.ParamAttr(
+                           initializer=pkg.initializer.Constant(
+                               -math.log(99.0))))
+        box = L.conv2d(x, a * 4, 3, padding=1)
+        levels.append((
+            L.reshape(L.transpose(box, perm=[0, 2, 3, 1]), [0, -1, 4]),
+            L.reshape(L.transpose(cls, perm=[0, 2, 3, 1]),
+                      [0, -1, num_classes]),
+            L.reshape(anchors, [-1, 4]), L.reshape(var, [-1, 4])))
+    return levels
+
+
+def retinanet_loss(L, levels, gt_box, gt_label, is_crowd, im_info,
+                   num_classes):
+    """retinanet_target_assign over the levels' concatenated predictions
+    and anchors, then sigmoid_focal_loss (gamma 2, alpha 0.25) over the
+    batch's foreground count plus smooth_l1 (sigma 3) of the positives'
+    boxes over it. The builder gathers the predictions by [R, 1] indices,
+    which gather (jnp.take's rule) keeps: [R, 1, C] and [R, 1, 4], where
+    the reference's builder returns [R, C] and [R, 4]; reshaped to those,
+    or the losses would broadcast them against [R] labels to [R, R, C]."""
+    box = L.concat([lv[0] for lv in levels], axis=1)
+    cls = L.concat([lv[1] for lv in levels], axis=1)
+    anchors = L.concat([lv[2] for lv in levels], axis=0)
+    var = L.concat([lv[3] for lv in levels], axis=0)
+    score, loc, label, target, weight, fg = L.retinanet_target_assign(
+        box, cls, anchors, var, gt_box, gt_label, is_crowd, im_info,
+        num_classes, positive_overlap=0.5, negative_overlap=0.4)
+    score = L.reshape(score, [-1, num_classes])
+    loc = L.reshape(loc, [-1, 4])
+    fg = L.reduce_sum(fg)
+    focal = L.reduce_sum(L.sigmoid_focal_loss(score, label, fg, gamma=2.0,
+                                              alpha=0.25))
+    l1 = L.reduce_sum(L.smooth_l1(loc, target, inside_weight=weight,
+                                  outside_weight=weight, sigma=3.0))
+    return L.elementwise_add(focal, L.elementwise_div(
+        l1, L.cast(fg, "float32")))
+
+
+def retinanet_train(pt):
+    """(main, startup, loss, levels) of the RetinaNet head in package
+    `pt`: feeds image, gt_box [4] / gt_label [1] int32 / is_crowd [1]
+    int32 (LoD tensors, a segment an image, pixel boxes), im_info [3]
+    (h, w, scale); SGD(RETINA_LR) minimizes retinanet_loss."""
+    L = pt.layers
+    c, image = RETINA["num_classes"], RETINA["image"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = L.data("image", [3, image, image], dtype="float32")
+        gt_box = L.data("gt_box", [4], dtype="float32", lod_level=1)
+        gt_label = L.data("gt_label", [1], dtype="int32", lod_level=1)
+        is_crowd = L.data("is_crowd", [1], dtype="int32", lod_level=1)
+        im_info = L.data("im_info", [3], dtype="float32")
+        levels = retinanet(L, img, c, RETINA["width"])
+        loss = retinanet_loss(L, levels, gt_box, gt_label, is_crowd,
+                              im_info, c)
+        pt.optimizer.SGD(learning_rate=RETINA_LR).minimize(loss)
+    return main, startup, loss, levels
+
+
+def retinanet_detect(pt, main, levels):
+    """The forward up to the levels, then retinanet_detection_output on
+    the sigmoid of their class logits (RETINA_DET). Returns (program,
+    out)."""
+    L = pt.layers
+    prog = pt.io._prune_program(main, [v.name for lv in levels
+                                       for v in lv])
+    block = prog.global_block()
+    with pt.program_guard(prog, pt.Program()):
+        out = L.retinanet_detection_output(
+            [block.var(lv[0].name) for lv in levels],
+            [L.sigmoid(block.var(lv[1].name)) for lv in levels],
+            [block.var(lv[2].name) for lv in levels],
+            block.var("im_info"), **RETINA_DET)
+    return prog, out
+
+
+def _retina_batch(pt, seed, place, B=None):
+    """A batch from default_rng(seed): B images (standard normal), 1-4
+    pixel boxes an image (sides 8-40 of the 64-pixel image, labels 1 to
+    num_classes - 1, one in ten crowd) as LoD tensors on `place`,
+    im_info (64, 64, 1) an image."""
+    import torch
+    B = B or RETINA_B
+    rng = np.random.default_rng(seed)
+    image = RETINA["image"]
+    n = rng.integers(1, 5, B)
+    g = int(n.sum())
+    wh = rng.uniform(8.0, 40.0, (g, 2))
+    xy = rng.uniform(0.0, image - wh)
+    box = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    label = rng.integers(1, RETINA["num_classes"], (g, 1)).astype(np.int32)
+    crowd = (rng.random((g, 1)) < 0.1).astype(np.int32)
+    img = rng.standard_normal((B, 3, image, image)).astype(np.float32)
+    lens = [n.tolist()]
+    dev = place.torch_device()
+    return {"image": torch.from_numpy(img).to(dev),
+            "gt_box": pt.create_lod_tensor(box, lens, place),
+            "gt_label": pt.create_lod_tensor(label, lens, place),
+            "is_crowd": pt.create_lod_tensor(crowd, lens, place),
+            "im_info": torch.tensor([[image, image, 1.0]] * B,
+                                    dtype=torch.float32, device=dev)}
+
+
+def _yolo_loss_alone(torch, outs, feed):
+    """The three heads' yolov3_loss ops alone at the replay's shapes
+    (`outs`: the heads' outputs on the card, the feed's boxes), forward
+    (recording for autograd, as a training step runs it) and backward
+    (the generic gradient: torch's reverse mode through the lowering):
+    _timed_parts over YOLO_LOSS_ITERS calls."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext, _SlotView
+    xs = [o.detach().clone().requires_grad_(True) for o in outs]
+    ins = {"X": ["x"], "GTBox": ["gtb"], "GTLabel": ["gtl"],
+           "GTScore": ["gts"]}
+    slots = {"Loss": ["loss"], "ObjectnessMask": ["om"],
+             "GTMatchMask": ["gm"]}
+
+    def forward():
+        total = 0.0
+        for i, x in enumerate(xs):
+            env = {"x": x, "gtb": feed["gt_box"], "gtl": feed["gt_label"],
+                   "gts": feed["gt_score"]}
+            view = _SlotView("yolov3_loss", ins, slots, {
+                "anchors": YOLO_ANCHORS, "anchor_mask": YOLO_MASKS[i],
+                "class_num": YOLO["class_num"],
+                "ignore_thresh": YOLO_IGNORE,
+                "downsample_ratio": 32 // 2 ** i,
+                "use_label_smooth": True})
+            OPS.get("yolov3_loss").lowering(ExecContext(view, env, x.device,
+                                                        None, {}))
+            total = total + env["loss"].mean()
+        return total
+
+    loss = forward()
+    return _timed_parts(torch, {
+        "forward": forward,
+        "backward": lambda: torch.autograd.backward(loss, retain_graph=True)},
+        YOLO_LOSS_ITERS)
+
+
+def _yolo_train(torch, pt, kreg, dev):
+    """YOLOv3 trained captured against eager: returns (the trained scope,
+    the feed)."""
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss, outs = yolov3_train(pt)
+    main.random_seed = startup.random_seed = SEED
+    types = [op.type for op in main.global_block().ops]
+    params = main.all_parameters()
+    shapes = [tuple(int(d) for d in o.shape[1:]) for o in outs]
+    print(f"  yolov3: {len(types)} ops in block 0 ({types.count('conv2d')} "
+          f"conv2d, {types.count('batch_norm')} batch_norm, "
+          f"{types.count('yolov3_loss')} yolov3_loss, "
+          f"{types.count('nearest_interp')} nearest_interp, "
+          f"{types.count('momentum')} momentum); {len(params)} parameters, "
+          f"{sum(int(np.prod(p.shape)) for p in params)} elements; heads "
+          f"{shapes}, {YOLO['image']}x{YOLO['image']}, B={YOLO_B}")
+    # DarkNet-53: 2 stem convs, 2 a block, a downsample between stages;
+    # the heads 23 (75 in all at (1, 2, 8, 8, 4))
+    stages = YOLO["stages"]
+    _require(types.count("conv2d") == 2 + 2 * sum(stages) + len(stages) - 1
+             + 23 and types.count("yolov3_loss") == 3
+             and shapes[0] == (255, YOLO["image"] // 32,
+                               YOLO["image"] // 32), "yolov3: the network")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    batch = _coco_batch(torch, 0, dev)
+    feed = _yolo_train_feed(batch)
+    n = (feed["gt_box"][:, :, 2] > 0).sum(1).tolist()
+    print(f"  batch: {YOLO_B} images, {sum(n)} gt boxes ({min(n)}-{max(n)} "
+          f"an image), im_shape {batch['im_shape'].tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, _ = _seq_compare(
+        torch, pt, kreg, "yolov3", main, [loss], init, [feed], YOLO_RUNS)
+    _require(not reasons, f"yolov3: the block was kept eager: {reasons}")
+    # the first loss at B=2 (the same program, the batch's first two
+    # images), card against CPU
+    t1 = time.perf_counter()
+    two = {k: v[:2] for k, v in feed.items()}
+    card2 = _train_mode_forward(pt, main, [loss] + outs, cpu_state, two,
+                                pt.CUDAPlace(0))
+    cpu2 = _train_mode_forward(pt, main, [loss] + outs, cpu_state,
+                               {k: v.cpu() for k, v in two.items()})
+    err = abs(float(card2[0]) - float(cpu2[0])) / abs(float(cpu2[0]))
+    herr = max(float(np.abs(a - b).max() / np.abs(b).max())
+               for a, b in zip(card2[1:], cpu2[1:]))
+    print(f"  yolov3: first loss at B=2 {float(card2[0]):.8f} on the card, "
+          f"{float(cpu2[0]):.8f} on the CPU: rel err {err:.3e}; the heads' "
+          f"outputs max |card - CPU| / max |CPU| {herr:.3e} (bound of "
+          f"both {YOLO_LOSS_RTOL:.3e}); {time.perf_counter() - t1:.1f} s")
+    _require(err <= YOLO_LOSS_RTOL and herr <= YOLO_LOSS_RTOL and
+             all(np.isfinite(a).all() for a in card2),
+             "yolov3: card and CPU disagree")
+    with _capture_clock() as clock:
+        c0 = _counters(exe)
+        t1 = time.perf_counter()
+        _cap_run(exe, main, feed, [loss], scope)
+        secs = time.perf_counter() - t1
+    print(f"  yolov3: {_counters(exe)['captures'] - c0['captures']} capture "
+          f"outside deterministic mode, {secs:.3f} s for the run: the "
+          f"capture rule {clock['rule']:.3f} s, warm-up "
+          f"{clock['warm_up']:.3f} s, capture {clock['capture']:.3f} s")
+    rates = _cap_turns(torch, "yolov3", "images/s", YOLO_B, {
+        "eager": lambda: _cap_run(exe, main, feed, [loss], scope,
+                                  cached=False, numpy=False)[0],
+        "captured": lambda: _cap_run(exe, main, feed, [loss], scope,
+                                     numpy=False)[0]})
+    print(f"  yolov3: captured / eager "
+          f"{rates['captured'] / rates['eager']:.3f}")
+    print(f"  yolov3: peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; graph pools "
+          f"{_graph_pool_gb(torch)[0]:.3f} GB allocated")
+    heads = exe.run(main, feed=feed, fetch_list=outs, scope=scope,
+                    use_program_cache=False, return_numpy=False)
+    alone, names = _yolo_loss_alone(torch, heads, feed)
+    del heads
+    _profile_with_alone(torch, "yolov3", exe, main, feed, [loss], scope,
+                        "the three yolov3_loss ops", alone, names)
+    exe.close()
+    print(f"  yolov3 training: {time.perf_counter() - t0:.1f} s")
+    return scope, batch
+
+
+def _yolo_detect(torch, pt, scope, batch):
+    """The detection program on the trained parameters through
+    Executor.run (eager, captured, replays) and AnalysisPredictor, in
+    deterministic mode: rows equal; images/s eager against captured;
+    multiclass_nms's device time in a detection replay and alone."""
+    import tempfile
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    prog, _, nmsed = yolov3_detect(pt)
+    feed = {"image": batch["image"], "im_shape": batch["im_shape"]}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    rows = []
+    with _deterministic(torch):
+        for cached in (False, True, True, True):
+            rows.append(_det_rows(_cap_run(exe, prog, feed, [nmsed],
+                                           scope, cached)[0]))
+    c = _counters(exe)
+    eq = all(np.array_equal(r[0], rows[0][0]) and r[1] == rows[0][1]
+             for r in rows)
+    det, lod = rows[0]
+    kept = det[det[:, 0] >= 0]
+    print(f"  yolov3 detect: {len(prog.global_block().ops)} ops; rows "
+          f"{list(det.shape)}, LoD {lod[0][:3]}...{lod[0][-1]}; "
+          f"{len(kept)} detections (labels "
+          f"{int(kept[:, 0].min()) if len(kept) else '-'}-"
+          f"{int(kept[:, 0].max()) if len(kept) else '-'}); eager, captured "
+          f"and replayed rows equal {eq}; counters {c}; eager reasons "
+          f"{list(exe._engine.eager_reasons.values()) or 'none'}")
+    _require(eq and c["captures"] == 1 and c["replays"] == 2 and
+             det.shape == (YOLO_B * YOLO_DET["keep_top_k"], 6) and
+             np.isfinite(det).all(), "yolov3 detect: the rows")
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["image", "im_shape"], [nmsed],
+                                       exe, main_program=prog)
+        predictor = create_paddle_predictor(AnalysisConfig(d))
+    host = {k: np.asarray(v.cpu()) for k, v in feed.items()}
+    with _deterministic(torch):
+        for _ in range(3):
+            for k, v in host.items():
+                predictor.get_input_tensor(k).copy_from_cpu(v)
+            predictor.zero_copy_run()
+    ot = predictor.get_output_tensor(predictor.get_output_names()[0])
+    prow = ot.copy_to_cpu()
+    worst = float(np.abs(prow - det).max())
+    pc = dict(predictor._engine.counters)
+    print(f"  yolov3 detect serving: AnalysisPredictor rows "
+          f"{list(prow.shape)}, LoD {ot.lod() == lod}, max |predictor - "
+          f"Executor| {worst:.3e} (bound {YOLO_ROWS_ATOL:g}); counters "
+          f"captures {pc['captures']}, replays {pc['replays']}")
+    _require(worst <= YOLO_ROWS_ATOL and ot.lod() == lod and
+             pc["captures"] == 1, "yolov3 detect: the predictor's rows")
+    # leaving deterministic mode changes the routing a capture bakes in:
+    # the plan captures again before the turns
+    for _ in range(2):
+        _cap_run(exe, prog, feed, [nmsed], scope, numpy=False)
+    secs = {"eager": [], "captured": []}
+    for turn in range(2):
+        for m in (("eager", "captured") if turn == 0 else
+                  ("captured", "eager")):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(YOLO_TIMED):
+                _cap_run(exe, prog, feed, [nmsed], scope, m == "captured",
+                         numpy=False)
+            torch.cuda.synchronize()
+            secs[m].append(time.perf_counter() - t1)
+    n_img = YOLO_B * YOLO_TIMED
+    for m, v in secs.items():
+        print(f"  yolov3 detect {m}: s a pass of {n_img} images "
+              f"{', '.join(f'{x:.3f}' for x in v)}: "
+              f"{n_img / float(np.median(v)):.1f} images/s")
+    wall, busy, _ = _profiled_replay(torch, "yolov3 detect", exe, prog,
+                                     feed, [nmsed], scope)
+    nms = _nms_alone(torch, pt, scope, prog, feed,
+                     label="yolov3 multiclass_nms")
+    print(f"  yolov3 detect: multiclass_nms alone takes "
+          f"{1e3 * nms['device']:.3f} ms of device time captured, "
+          f"{100 * nms['device'] / (wall * busy):.1f} % of a captured "
+          f"detection run's {1e3 * wall * busy:.3f} ms")
+    exe.close()
+    print(f"  yolov3 detection: {time.perf_counter() - t0:.1f} s")
+
+
+def _retina_phase(torch, pt, kreg):
+    """The RetinaNet head of the CPU tests at RETINA_B on the card: SGD
+    RETINA_RUNS steps captured against eager bit for bit, then its
+    detection program captured against eager."""
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, loss, levels = retinanet_train(pt)
+    main.random_seed = startup.random_seed = SEED
+    types = [op.type for op in main.global_block().ops]
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    feed = _retina_batch(pt, 0, pt.CUDAPlace(0))
+    print(f"  retinanet: {len(types)} ops in block 0, B={RETINA_B}, "
+          f"{int(feed['gt_box'].lod()[0][-1])} gt boxes, "
+          f"{sum(int(np.prod(lv[2].shape[:1])) for lv in levels)} anchors")
+    exe, scope, losses, reasons, _ = _seq_compare(
+        torch, pt, kreg, "retinanet", main, [loss], init, [feed],
+        RETINA_RUNS)
+    _require(not reasons, f"retinanet: the block was kept eager: {reasons}")
+    det, out = retinanet_detect(pt, main, levels)
+    f = {k: feed[k] for k in ("image", "im_info")}
+    rows = []
+    with _deterministic(torch):
+        for cached in (False, True, True):
+            rows.append(_det_rows(_cap_run(exe, det, f, [out], scope,
+                                           cached)[0]))
+    eq = all(np.array_equal(r[0], rows[0][0]) and r[1] == rows[0][1]
+             for r in rows)
+    r = rows[0][0]
+    print(f"  retinanet detect: rows {list(r.shape)}, "
+          f"{int((r[:, 0] >= 0).sum())} detections; eager, captured and "
+          f"replayed rows equal {eq}; eager reasons "
+          f"{list(exe._engine.eager_reasons.values()) or 'none'}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(eq and np.isfinite(r).all() and not exe._engine.eager_reasons
+             and r.shape == (RETINA_B * RETINA_DET["keep_top_k"], 6),
+             "retinanet detect: the rows")
+    exe.close()
+
+
+def yolo_phase(torch, dev):
+    """YOLOv3 (yolov3: DarkNet-53 and three heads) at COCO's 608x608 and
+    80 classes, float32, B=8: Momentum (warm-up, piecewise decay,
+    L2Decay) trained YOLO_RUNS steps captured against eager bit for bit,
+    the first loss at B=2 against the CPU, images/s eager against
+    captured in turns, the capture clocked, peak memory, a profiled
+    replay (busy share, top kernels, the yolov3_loss ops' time alone and
+    their kernels' ranks); then the detection program (yolo_box and
+    multiclass_nms) through Executor.run and AnalysisPredictor, its
+    images/s and multiclass_nms's device time; then the RetinaNet head
+    at B=4 (retinanet_target_assign, sigmoid_focal_loss, gather,
+    retinanet_detection_output) captured against eager. No kernel of the
+    port lies on this path."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    scope, batch = _yolo_train(torch, pt, kreg, dev)
+    _yolo_detect(torch, pt, scope, batch)
+    del scope, batch
+    gc_cuda(torch)
+    _retina_phase(torch, pt, kreg)
+    gc_cuda(torch)
+    print(f"  yolo phase: {time.perf_counter() - t0:.1f} s")
+
+
 # the op sweep's tolerance, card against CPU: float32 within 1e-5
 # relative and absolute (libm and summation order differ); the rest exact
 SWEEP_TOL = 1e-5
@@ -7120,9 +7808,10 @@ SWEEP_TOL = 1e-5
 def op_sweep_phase(torch, dev):
     """Every op type of the basic, reduce, elementwise, activation, nn
     and conv families, the nine update ops without a kernel, the three
-    value-dependent sequence ops and SSD's eight detection ops, each
-    case of ops/family_cases.py once through its lowering on the card
-    against the same lowering on the CPU."""
+    value-dependent sequence ops, SSD's eight detection ops and the
+    one-stage detectors' ten, each case of ops/family_cases.py once
+    through its lowering on the card against the same lowering on the
+    CPU."""
     from paddle_tpu_torch.ops import family_cases as fc
     t0 = time.perf_counter()
     worst, types = 0.0, set()
@@ -7131,6 +7820,7 @@ def op_sweep_phase(torch, dev):
     runs += [(c[0], c[1], c[2], c[3], None) for c in fc.conv_cases()]
     runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
              for c in fc.sequence_cases() + fc.detection_cases()]
+    runs += [(c[0], c[1], c[3], c[4], c[2]) for c in fc.one_stage_cases()]
     for op_type, ins, attrs, outs, lods in runs:
         card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
         cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
@@ -7320,6 +8010,8 @@ def main(argv=None):
     detection_phase(torch, dev, card)
     print("[pose phase]")
     pose_adam = pose_phase(torch, dev, card)
+    print("[yolo phase]")
+    yolo_phase(torch, dev)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

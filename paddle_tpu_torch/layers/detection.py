@@ -1,8 +1,11 @@
-"""SSD's detection layers (counterpart of paddle_tpu/layers/detection.py:
-prior_box, iou_similarity, box_coder, bipartite_match, target_assign,
-mine_hard_examples, multiclass_nms, detection_output, ssd_loss,
-multi_box_head and detection_map), each with the JAX package's signature
-and ops. The composite layers compose the same primitive ops in the same
+"""The detection layers (counterpart of paddle_tpu/layers/detection.py:
+SSD's prior_box, iou_similarity, box_coder, bipartite_match,
+target_assign, mine_hard_examples, multiclass_nms, detection_output,
+ssd_loss, multi_box_head and detection_map; the one-stage detectors'
+density_prior_box, anchor_generator, box_clip, polygon_box_transform,
+yolov3_loss, yolo_box, sigmoid_focal_loss, retinanet_detection_output,
+retinanet_target_assign and box_decoder_and_assign), each with the JAX
+package's signature and ops. The composite layers compose the same primitive ops in the same
 order, but for two faults of the JAX builders: ssd_loss's mining reshape
 (one attr) and detection_output's softmax (one op); see their
 docstrings."""
@@ -20,6 +23,10 @@ __all__ = [
     "prior_box", "iou_similarity", "box_coder", "bipartite_match",
     "target_assign", "mine_hard_examples", "multiclass_nms",
     "detection_output", "ssd_loss", "multi_box_head", "detection_map",
+    "density_prior_box", "anchor_generator", "box_clip",
+    "polygon_box_transform", "yolov3_loss", "yolo_box",
+    "sigmoid_focal_loss", "retinanet_detection_output",
+    "retinanet_target_assign", "box_decoder_and_assign",
 ]
 
 
@@ -311,3 +318,183 @@ def detection_map(detect_res, label, class_num, background_label=0,
                "evaluate_difficult": evaluate_difficult,
                "ap_type": ap_version, "class_num": class_num})
     return map_out
+
+
+# ---------------------------------------------------------------------------
+# one-stage detectors
+# ---------------------------------------------------------------------------
+
+def density_prior_box(input, image, densities=None, fixed_sizes=None,
+                      fixed_ratios=None,
+                      variance=(0.1, 0.1, 0.2, 0.2), clip=False,
+                      steps=(0.0, 0.0), offset=0.5, flatten_to_2d=False,
+                      name=None):
+    helper = LayerHelper("density_prior_box", name=name)
+    boxes = _out(helper, input.dtype)
+    var = _out(helper, input.dtype)
+    helper.append_op(
+        "density_prior_box", inputs={"Input": input, "Image": image},
+        outputs={"Boxes": boxes, "Variances": var},
+        attrs={"densities": [int(d) for d in densities],
+               "fixed_sizes": [float(s) for s in fixed_sizes],
+               "fixed_ratios": [float(r) for r in fixed_ratios],
+               "variances": [float(v) for v in variance],
+               "clip": clip, "step_w": float(steps[0]),
+               "step_h": float(steps[1]), "offset": offset})
+    if flatten_to_2d:
+        boxes = _nn.reshape(boxes, [-1, 4])
+        var = _nn.reshape(var, [-1, 4])
+    return boxes, var
+
+
+def anchor_generator(input, anchor_sizes=None, aspect_ratios=None,
+                     variance=(0.1, 0.1, 0.2, 0.2), stride=None,
+                     offset=0.5, name=None):
+    helper = LayerHelper("anchor_generator", name=name)
+    anchors = _out(helper, input.dtype)
+    var = _out(helper, input.dtype)
+    helper.append_op(
+        "anchor_generator", inputs={"Input": input},
+        outputs={"Anchors": anchors, "Variances": var},
+        attrs={"anchor_sizes": [float(s) for s in anchor_sizes],
+               "aspect_ratios": [float(r) for r in aspect_ratios],
+               "variances": [float(v) for v in variance],
+               "stride": [float(s) for s in stride],
+               "offset": offset})
+    return anchors, var
+
+
+def box_clip(input, im_info, name=None):
+    helper = LayerHelper("box_clip", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("box_clip",
+                     inputs={"Input": input, "ImInfo": im_info},
+                     outputs={"Output": out})
+    return out
+
+
+def polygon_box_transform(input, name=None):
+    helper = LayerHelper("polygon_box_transform", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("polygon_box_transform", inputs={"Input": input},
+                     outputs={"Output": out})
+    return out
+
+
+def yolov3_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num,
+                ignore_thresh, downsample_ratio, gt_score=None,
+                use_label_smooth=True, name=None):
+    """Loss [N] of one YOLOv3 head; gt_score (optional, [N, B]) weights
+    each box's terms as the reference does (the op's docstring)."""
+    helper = LayerHelper("yolov3_loss", name=name)
+    loss = _out(helper, x.dtype)
+    obj_mask = _out(helper, x.dtype)
+    gt_match = helper.create_variable_for_type_inference("int32")
+    inputs = {"X": x, "GTBox": gt_box, "GTLabel": gt_label}
+    if gt_score is not None:
+        inputs["GTScore"] = gt_score
+    helper.append_op(
+        "yolov3_loss", inputs=inputs,
+        outputs={"Loss": loss, "ObjectnessMask": obj_mask,
+                 "GTMatchMask": gt_match},
+        attrs={"anchors": [int(a) for a in anchors],
+               "anchor_mask": [int(m) for m in anchor_mask],
+               "class_num": class_num, "ignore_thresh": ignore_thresh,
+               "downsample_ratio": downsample_ratio,
+               "use_label_smooth": use_label_smooth})
+    return loss
+
+
+def yolo_box(x, img_size, anchors, class_num, conf_thresh,
+             downsample_ratio, name=None):
+    helper = LayerHelper("yolo_box", name=name)
+    boxes = _out(helper, x.dtype)
+    scores = _out(helper, x.dtype)
+    helper.append_op(
+        "yolo_box", inputs={"X": x, "ImgSize": img_size},
+        outputs={"Boxes": boxes, "Scores": scores},
+        attrs={"anchors": [int(a) for a in anchors],
+               "class_num": class_num, "conf_thresh": conf_thresh,
+               "downsample_ratio": downsample_ratio})
+    return boxes, scores
+
+
+def sigmoid_focal_loss(x, label, fg_num, gamma=2, alpha=0.25):
+    helper = LayerHelper("sigmoid_focal_loss")
+    out = _out(helper, x.dtype)
+    helper.append_op(
+        "sigmoid_focal_loss",
+        inputs={"X": x, "Label": label, "FgNum": fg_num},
+        outputs={"Out": out},
+        attrs={"gamma": float(gamma), "alpha": float(alpha)})
+    return out
+
+
+def retinanet_detection_output(bboxes, scores, anchors, im_info,
+                               score_threshold=0.05, nms_top_k=1000,
+                               keep_top_k=100, nms_threshold=0.3,
+                               nms_eta=1.0):
+    helper = LayerHelper("retinanet_detection_output")
+    out = _out(helper, bboxes[0].dtype)
+    helper.append_op(
+        "retinanet_detection_output",
+        inputs={"BBoxes": bboxes, "Scores": scores,
+                "Anchors": anchors, "ImInfo": im_info},
+        outputs={"Out": out},
+        attrs={"score_threshold": float(score_threshold),
+               "nms_top_k": nms_top_k, "keep_top_k": keep_top_k,
+               "nms_threshold": float(nms_threshold),
+               "nms_eta": float(nms_eta)})
+    return out
+
+
+def retinanet_target_assign(bbox_pred, cls_logits, anchor_box,
+                            anchor_var, gt_boxes, gt_labels, is_crowd,
+                            im_info, num_classes=1,
+                            positive_overlap=0.5,
+                            negative_overlap=0.4):
+    """(pred_score, pred_loc, target_label, target_bbox,
+    bbox_inside_weight, fg_num): one row per anchor per image, the
+    predictions gathered by the op's -1-padded indices (a -1 reads the
+    last row, as jnp.take's index counts from the end)."""
+    helper = LayerHelper("retinanet_target_assign")
+    loc_index = helper.create_variable_for_type_inference("int32")
+    score_index = helper.create_variable_for_type_inference("int32")
+    target_label = helper.create_variable_for_type_inference("int32")
+    target_bbox = _out(helper, anchor_box.dtype)
+    bbox_inside_weight = _out(helper, anchor_box.dtype)
+    fg_num = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "retinanet_target_assign",
+        inputs={"Anchor": anchor_box, "GtBoxes": gt_boxes,
+                "GtLabels": gt_labels, "IsCrowd": is_crowd,
+                "ImInfo": im_info},
+        outputs={"LocationIndex": loc_index,
+                 "ScoreIndex": score_index,
+                 "TargetLabel": target_label,
+                 "TargetBBox": target_bbox,
+                 "BBoxInsideWeight": bbox_inside_weight,
+                 "ForegroundNumber": fg_num},
+        attrs={"positive_overlap": positive_overlap,
+               "negative_overlap": negative_overlap})
+    preds = _nn.reshape(bbox_pred, [-1, 4])
+    scores = _nn.reshape(cls_logits,
+                         [-1, int(cls_logits.shape[-1])])
+    pred_loc = _nn.gather(preds, loc_index)
+    pred_score = _nn.gather(scores, score_index)
+    return (pred_score, pred_loc, target_label, target_bbox,
+            bbox_inside_weight, fg_num)
+
+
+def box_decoder_and_assign(prior_box, prior_box_var, target_box,
+                           box_score, box_clip, name=None):
+    helper = LayerHelper("box_decoder_and_assign", name=name)
+    decoded = _out(helper, target_box.dtype)
+    assigned = _out(helper, target_box.dtype)
+    helper.append_op(
+        "box_decoder_and_assign",
+        inputs={"PriorBox": prior_box, "PriorBoxVar": prior_box_var,
+                "TargetBox": target_box, "BoxScore": box_score},
+        outputs={"DecodeBox": decoded, "OutputAssignBox": assigned},
+        attrs={"box_clip": float(box_clip)})
+    return decoded, assigned

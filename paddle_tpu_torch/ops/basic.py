@@ -250,21 +250,51 @@ def stack(ctx):
                                     dim=ctx.attr("axis", 0)))
 
 
+def _fill_value(dtype):
+    """jnp.take's fill for an index out of range: NaN for a float, the
+    type's minimum for a signed int, its maximum for an unsigned one,
+    True for bool."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def _wrap(idx, n):
+    """(idx wrapped into [0, n) where it lies in [-n, 0), in range)."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx, (idx >= 0) & (idx < n)
+
+
 @register_op("gather", no_grad_slots=("Index",))
 def gather(ctx):
     """Rows of X by Index along axis 0: Index's shape then X's trailing
-    dims (jnp.take's), the index read as int32 as the JAX op casts it."""
+    dims, the index read as int32 as the JAX op casts it, by jnp.take's
+    rule: an index in [-n, 0) counts from the end, one outside [-n, n)
+    gives _fill_value rows (and sends no gradient). No index out of
+    range reaches index_select: those rows read row 0, then are
+    replaced."""
     x, idx = ctx.input("X"), ctx.input("Index").to(torch.int32)
-    out = x.index_select(0, idx.reshape(-1).long())
+    flat, ok = _wrap(idx.reshape(-1).long(), x.shape[0])
+    out = x.index_select(0, torch.where(ok, flat, 0))
+    out = torch.where(ok.reshape((-1,) + (1,) * (x.ndim - 1)), out,
+                      out.new_full((), _fill_value(x.dtype)))
     ctx.set_output("Out", out.reshape(tuple(idx.shape) + tuple(x.shape[1:])))
 
 
-@register_no_grad_op("top_k")
+@register_op("top_k", no_grad_slots=("K",))
 def top_k(ctx):
     """The k largest values of the last axis, in descending order, and
-    their int64 indices. No gradient: the JAX op has one, but no program
-    of the port differentiates through top_k (accuracy reads it)."""
-    vals, idx = torch.topk(ctx.input("X"), int(ctx.attr("k", 1)), dim=-1)
+    their int64 indices; k is the K input where one is given (read on
+    the host: a block that holds it is not captured), else the attr.
+    The gradient scatters Out's cotangent to Indices along the last
+    axis (torch.topk's, the JAX op's lax.top_k vjp)."""
+    k = ctx.input("K")
+    k = int(k.reshape(-1)[0].item()) if k is not None \
+        else int(ctx.attr("k", 1))
+    vals, idx = torch.topk(ctx.input("X"), k, dim=-1)
     ctx.set_output("Out", vals)
     ctx.set_output("Indices", idx.long())
 
@@ -541,21 +571,39 @@ def crop(ctx):
 @register_op("scatter", no_grad_slots=("Ids",))
 def scatter(ctx):
     """X with the rows at Ids replaced by Updates' (overwrite), or set to
-    the sum of the Updates rows sent there."""
+    the sum of the Updates rows sent there. As the JAX op's x.at[ids]:
+    an id in [-n, 0) counts from the end, an update to an id outside
+    [-n, n) is dropped (written to a spare row past the end, then cut
+    off)."""
     x, upd = ctx.input("X"), ctx.input("Updates")
-    ids = ctx.input("Ids").reshape(-1).long()
+    n = x.shape[0]
+    ids, ok = _wrap(ctx.input("Ids").reshape(-1).long(), n)
+    ids = torch.where(ok, ids, n)
+    xp = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
     if ctx.attr("overwrite", True):
-        out = x.index_put((ids,), upd)
+        out = xp.index_put((ids,), upd)
     else:
-        out = x.index_fill(0, ids, 0).index_add(0, ids, upd)
-    ctx.set_output("Out", out)
+        out = xp.index_fill(0, ids, 0).index_add(0, ids, upd)
+    ctx.set_output("Out", out[:n])
 
 
 @register_op("gather_nd", no_grad_slots=("Index",))
 def gather_nd(ctx):
+    """X at the leading coordinates of Index's last axis, as the JAX
+    op's x[tuple(idx)]: a coordinate in [-n, 0) counts from the end, one
+    further out is clamped into [0, n) and sends no gradient (the JAX
+    gather's vjp drops an update out of range)."""
     x, idx = ctx.input("X"), ctx.input("Index").long()
-    ctx.set_output("Out", x[tuple(idx[..., i]
-                                  for i in range(idx.shape[-1]))])
+    coords, ok = [], None
+    for i in range(idx.shape[-1]):
+        c, fits = _wrap(idx[..., i], x.shape[i])
+        ok = fits if ok is None else ok & fits
+        coords.append(torch.clamp(c, 0, x.shape[i] - 1))
+    out = x[tuple(coords)]
+    if ok is not None:
+        out = torch.where(ok.reshape(ok.shape + (1,) * (out.ndim - ok.ndim)),
+                          out, out.detach())
+    ctx.set_output("Out", out)
 
 
 @register_no_grad_op("one_hot")

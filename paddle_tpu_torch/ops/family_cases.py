@@ -3,7 +3,8 @@ activation and nn op families (ops/basic.py, reduce.py, elementwise.py,
 activations.py, nn.py), the nine update ops that have no kernel
 (optimizer_ops.py: lars_momentum ... lamb), the conv family
 (conv.py), the value-dependent sequence
-ops and SSD's detection ops (detection.py, on LoD inputs), on seeded
+ops, SSD's detection ops and the one-stage detectors' ops (detection.py,
+on LoD inputs), on seeded
 numpy inputs, and a runner of one op's lowering on a device: the cases
 tests/test_torch_op_families.py holds against the JAX package's
 lowerings on the CPU and chip_smoke.py's op sweep holds on the card
@@ -24,7 +25,7 @@ import torch
 from ..core.registry import OPS, ExecContext, _SlotView
 
 __all__ = ["cases", "conv_cases", "sequence_cases", "detection_cases",
-           "run"]
+           "one_stage_cases", "run"]
 
 
 def _f32(rng, *shape, lo=None, hi=None):
@@ -661,6 +662,163 @@ def detection_cases() -> List[tuple]:
          {"overlap_threshold": 0.3, "evaluate_difficult": True,
           "ap_type": "integral", "class_num": 4},
          ["MAP", "AccumPosCount", "AccumTruePos", "AccumFalsePos"]),
+    ]
+
+
+# YOLOv3 at test size: 9 anchors of a 32-pixel input, this head's the
+# middle three (downsample 8 on a 4x4 map), 3 classes
+YOLO_ANCHORS = [2, 2, 3, 4, 4, 3, 6, 6, 8, 10, 10, 8, 14, 14, 18, 22, 24, 20]
+YOLO_MASK = [3, 4, 5]
+
+
+def _yolo_inputs(r):
+    """(X [2, 24, 4, 4], GTBox [2, 6, 4], GTLabel [2, 6], GTScore [2, 6]):
+    image 0 has a box on a cell edge (cx W = 2 exactly), two boxes on one
+    cell and anchor, a box of another head's anchor and two padding
+    rows; image 1 has no box. The third anchor of cell (2, 2) of image 0
+    predicts the second box's shape: an ignored cell."""
+    x = (0.5 * r.standard_normal((2, 24, 4, 4))).astype(np.float32)
+    x[0, 16:20, 2, 2] = [0.0, 0.0, np.log(0.832), np.log(1.2)]
+    box = np.zeros((2, 6, 4), np.float32)
+    box[0, :4] = [[0.5, 0.3, 0.19, 0.19], [0.61, 0.62, 0.26, 0.30],
+                  [0.63, 0.60, 0.25, 0.31], [0.4, 0.5, 0.7, 0.6]]
+    label = np.array([[2, 0, 1, 1, 0, 0], [0] * 6], np.int32)
+    score = np.array([[0.8, 0.5, 0.9, 0.7, 1.0, 1.0], [1.0] * 6],
+                     np.float32)
+    return x, box, label, score
+
+
+def _pixel_boxes(r, n, lo=0.0, hi=40.0, side=(4.0, 20.0)):
+    """n boxes (x1, y1, x2, y2) in pixels, [n, 4] float32."""
+    xy = r.uniform(lo, hi, (n, 2))
+    wh = r.uniform(side[0], side[1], (n, 2))
+    return np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+
+
+def one_stage_cases() -> List[tuple]:
+    """(op type, inputs, {input name: LoD}, attrs, {output slot: count},
+    [input slots to differentiate]) of the one-stage detectors' ten ops:
+    yolov3_loss with and without GTScore (a box on a cell edge, two on
+    one cell and anchor, an image with no box; the last case's scores
+    below 1, which the JAX lowering does not read), yolo_box, the
+    anchors and priors (Python's half-to-even rounding, int(step /
+    density)), sigmoid_focal_loss (an ignored label, FgNum 0), box_clip
+    on a LoD, box_decoder_and_assign (a tie, a clipped delta),
+    polygon_box_transform, retinanet_target_assign (a crowd box; an
+    image with no box, which the JAX lowering cannot take) and
+    retinanet_detection_output over two levels."""
+    r = np.random.default_rng(22)
+    x, box, label, score = _yolo_inputs(r)
+    yolo = {"anchors": YOLO_ANCHORS, "anchor_mask": YOLO_MASK,
+            "class_num": 3, "ignore_thresh": 0.5, "downsample_ratio": 8}
+    y_out = {"Loss": 1, "ObjectnessMask": 1, "GTMatchMask": 1}
+    anchors = _pixel_boxes(r, 12)
+    gt = _pixel_boxes(r, 5, side=(8.0, 24.0))
+    gt[1] = anchors[3] + 1.0            # one box over an anchor
+    gt_labels = np.array([[1], [3], [2], [1], [2]], np.int32)
+    crowd = np.array([[0], [0], [1], [0], [0]], np.int32)
+    im_info = np.array([[48.0, 48.0, 1.0], [64.0, 64.0, 2.0],
+                        [50.0, 40.0, 1.0]], np.float32)
+    det_scores = [r.uniform(0, 1, (2, 6, 3)).astype(np.float32),
+                  r.uniform(0, 1, (2, 3, 3)).astype(np.float32)]
+    det_scores[0][0, 2, 1] = det_scores[0][0, 4, 0]        # a tie
+    det_scores[0][:, :2, 1] = [[0.95, 0.93]]   # overlapping, one class
+    det_anchors = [_pixel_boxes(r, 6), _pixel_boxes(r, 3)]
+    det_anchors[0][1] = det_anchors[0][0] + 0.5            # overlapping
+    prior = _pixel_boxes(r, 4)
+    deltas = (0.3 * r.standard_normal((4, 12))).astype(np.float32)
+    deltas[1, 2] = 9.0                  # past box_clip
+    bscore = r.uniform(0, 1, (4, 3)).astype(np.float32)
+    bscore[2, 0] = bscore[2, 2]         # a tie: the first class
+    clip_in = _pixel_boxes(r, 5, lo=-10.0, hi=50.0)
+    return [
+        ("yolov3_loss", {"X": x, "GTBox": box, "GTLabel": label}, {},
+         dict(yolo, use_label_smooth=True), y_out, ["X"]),
+        ("yolov3_loss", {"X": x, "GTBox": box, "GTLabel": label,
+                         "GTScore": np.ones_like(score)}, {},
+         dict(yolo, use_label_smooth=False), y_out, ["X"]),
+        ("yolov3_loss", {"X": x, "GTBox": box, "GTLabel": label,
+                         "GTScore": score}, {},
+         dict(yolo, use_label_smooth=True), y_out, ["X"]),
+        ("yolo_box", {"X": (r.standard_normal((2, 16, 3, 4))
+                            .astype(np.float32)),
+                      "ImgSize": np.array([[60, 80], [40, 50]], np.int32)},
+         {}, {"anchors": [4, 5, 10, 12], "class_num": 3,
+              "conf_thresh": 0.5, "downsample_ratio": 16},
+         {"Boxes": 1, "Scores": 1}, []),
+        ("anchor_generator", {"Input": np.zeros((1, 4, 3, 5), np.float32)},
+         {}, {"anchor_sizes": [32.0, 64.0], "aspect_ratios": [0.5, 1.0, 2.0],
+              "variances": [0.1, 0.1, 0.2, 0.2], "stride": [16.0, 16.0],
+              "offset": 0.5}, {"Anchors": 1, "Variances": 1}, []),
+        ("anchor_generator", {"Input": np.zeros((1, 4, 2, 3), np.float32)},
+         {}, {"anchor_sizes": [10.0], "aspect_ratios": [0.5, 2.0],
+              "variances": [1.0, 1.0, 1.0, 1.0], "stride": [6.0, 7.0],
+              "offset": 0.0}, {"Anchors": 1, "Variances": 1}, []),
+        ("density_prior_box", {"Input": np.zeros((1, 2, 3, 3), np.float32),
+                               "Image": np.zeros((1, 3, 30, 30),
+                                                 np.float32)},
+         {}, {"densities": [2, 1], "fixed_sizes": [8.0, 16.0],
+              "fixed_ratios": [1.0, 2.0], "variances": [0.1, 0.1, 0.2, 0.2],
+              "clip": True, "step_w": 0.0, "step_h": 0.0, "offset": 0.5},
+         {"Boxes": 1, "Variances": 1}, []),
+        ("density_prior_box", {"Input": np.zeros((1, 2, 2, 4), np.float32),
+                               "Image": np.zeros((1, 3, 16, 28),
+                                                 np.float32)},
+         {}, {"densities": [3], "fixed_sizes": [6.0],
+              "fixed_ratios": [0.5], "variances": [0.1, 0.1, 0.2, 0.2],
+              "clip": False, "step_w": 7.0, "step_h": 8.0, "offset": 0.5},
+         {"Boxes": 1, "Variances": 1}, []),
+        ("sigmoid_focal_loss", {"X": _f32(r, 6, 4),
+                                "Label": np.array([[1], [0], [-1], [4], [2],
+                                                   [0]], np.int32),
+                                "FgNum": np.array([3], np.int32)}, {},
+         {"gamma": 2.0, "alpha": 0.25}, {"Out": 1}, ["X"]),
+        ("sigmoid_focal_loss", {"X": _f32(r, 3, 2),
+                                "Label": np.array([[0], [2], [1]], np.int32),
+                                "FgNum": np.array([0], np.int32)}, {},
+         {"gamma": 1.5, "alpha": 0.5}, {"Out": 1}, ["X"]),
+        ("box_clip", {"Input": clip_in,
+                      "ImInfo": np.array([[20.0, 30.0, 1.0],
+                                          [40.0, 20.0, 2.0]], np.float32)},
+         {"input": [[0, 2, 5]]}, {}, {"Output": 1}, ["Input"]),
+        ("box_clip", {"Input": np.concatenate(
+            [clip_in[:3], clip_in[2:]], 1).reshape(3, 2, 4),
+            "ImInfo": np.array([[33.0, 47.0, 1.0]], np.float32)}, {}, {},
+         {"Output": 1}, ["Input"]),
+        ("box_decoder_and_assign", {"PriorBox": prior,
+                                    "PriorBoxVar": np.full((4, 4), 0.5,
+                                                           np.float32),
+                                    "TargetBox": deltas, "BoxScore": bscore},
+         {}, {"box_clip": 4.135}, {"DecodeBox": 1, "OutputAssignBox": 1},
+         []),
+        ("polygon_box_transform", {"Input": _f32(r, 2, 8, 3, 4)}, {}, {},
+         {"Output": 1}, []),
+        ("retinanet_target_assign", {"Anchor": anchors, "GtBoxes": gt,
+                                     "GtLabels": gt_labels,
+                                     "IsCrowd": crowd,
+                                     "ImInfo": im_info[:2]},
+         {"gtboxes": [[0, 2, 5]]},
+         {"positive_overlap": 0.5, "negative_overlap": 0.4},
+         {"LocationIndex": 1, "ScoreIndex": 1, "TargetLabel": 1,
+          "TargetBBox": 1, "BBoxInsideWeight": 1, "ForegroundNumber": 1},
+         []),
+        ("retinanet_target_assign", {"Anchor": anchors, "GtBoxes": gt,
+                                     "GtLabels": gt_labels,
+                                     "IsCrowd": crowd, "ImInfo": im_info},
+         {"gtboxes": [[0, 2, 2, 5]]},
+         {"positive_overlap": 0.3, "negative_overlap": 0.2},
+         {"LocationIndex": 1, "ScoreIndex": 1, "TargetLabel": 1,
+          "TargetBBox": 1, "BBoxInsideWeight": 1, "ForegroundNumber": 1},
+         []),
+        ("retinanet_detection_output", {
+            "BBoxes": [(0.2 * r.standard_normal((2, 6, 4))).astype(
+                np.float32), (0.2 * r.standard_normal((2, 3, 4))).astype(
+                    np.float32)],
+            "Scores": det_scores, "Anchors": det_anchors,
+            "ImInfo": np.array([[40.0, 36.0, 1.0], [60.0, 60.0, 2.0]],
+                               np.float32)}, {},
+         {"score_threshold": 0.85, "nms_top_k": 5, "keep_top_k": 6,
+          "nms_threshold": 0.4, "nms_eta": 1.0}, {"Out": 1}, []),
     ]
 
 

@@ -21,16 +21,28 @@ def _dims(ctx, x):
     return [d if d >= 0 else d + x.ndim for d in dims]
 
 
+# jnp.sum's accumulation type for an integer X (torch would widen every
+# one to int64): bool, int8 and int16 sum to int32, int32 and int64 keep
+# their type. uint8 and uint16 sum to uint32 there; torch has no uint32
+# sum, so here they take int64, which holds every such sum exactly.
+_SUM_TYPE = {torch.bool: torch.int32, torch.int8: torch.int32,
+             torch.int16: torch.int32, torch.uint8: torch.int64,
+             torch.uint16: torch.int64}
+
+
 @register_op("reduce_sum")
 def reduce_sum(ctx):
+    """The sum in jnp.sum's type (`_SUM_TYPE`): an int32 X sums to int32,
+    as in the JAX op and the reference."""
     x = ctx.input("X")
     keep = ctx.attr("keep_dim", False)
+    dt = None if x.is_floating_point() else _SUM_TYPE.get(x.dtype, x.dtype)
     if ctx.attr("reduce_all", False):
-        out = x.sum()
+        out = x.sum(dtype=dt)
         if keep:
             out = out.reshape([1] * x.ndim)
     else:
-        out = x.sum(dim=_dims(ctx, x), keepdim=keep)
+        out = x.sum(dim=_dims(ctx, x), keepdim=keep, dtype=dt)
     ctx.set_output("Out", out)
 
 

@@ -38,7 +38,7 @@ from test_torch_ops import _Op
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
-MIN_CHECKED = {"layers": 267, "optimizer": 110, "backward": 2,
+MIN_CHECKED = {"layers": 277, "optimizer": 110, "backward": 2,
                "initializer": 10, "param_attr": 1, "regularizer": 5,
                "evaluator": 7, "(top level)": 88, "framework": 43,
                "executor": 5, "core.scope": 36, "dygraph.nn": 221}
@@ -85,10 +85,15 @@ CONV_BUILDERS = {
     "resize_bilinear", "resize_nearest", "image_resize_short",
     "pixel_shuffle", "space_to_depth", "shuffle_channel", "affine_channel",
     "unfold", "temporal_shift", "spp"}
+ONE_STAGE_BUILDERS = {
+    "density_prior_box", "anchor_generator", "box_clip",
+    "polygon_box_transform", "yolov3_loss", "yolo_box",
+    "sigmoid_focal_loss", "retinanet_detection_output",
+    "retinanet_target_assign", "box_decoder_and_assign"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
                        "crf_decoding", "py_func"} | FAMILY_BUILDERS |
-            NN_AND_SSD_BUILDERS | CONV_BUILDERS,
+            NN_AND_SSD_BUILDERS | CONV_BUILDERS | ONE_STAGE_BUILDERS,
             "dygraph.nn": {"Conv2DTranspose", "Conv3D", "Conv3DTranspose",
                            "GroupNorm", "PRelu"},
             "backward": {"gradients"},

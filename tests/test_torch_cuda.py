@@ -2890,3 +2890,131 @@ def test_resize_size_and_the_capture_on_card(cuda, size):
             {"bilinear_interp"} and c["captures"] == 0
     else:
         assert not exe._engine.eager_reasons and c["captures"] == 1
+
+
+def test_one_stage_ops_on_card_equal_the_cpu(cuda, monkeypatch):
+    """Every case of ops/family_cases.py's one_stage_cases() through its
+    lowering on the card and on the CPU (LoDs equal), and its `<op>_grad`
+    lowering under one random cotangent of every float output: float32
+    within F32_TOL forward, BWD_F32_TOL backward, the rest exact."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    _no_tf32(monkeypatch)
+    rng = np.random.default_rng(6)
+    for op_type, ins, lods, attrs, outs, diff in fc.one_stage_cases():
+        card, clod = fc.run(op_type, ins, attrs, outs, cuda, lods)
+        cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
+        for n, v in card.items():
+            a, b = v.cpu(), cpu[n]
+            assert a.dtype == b.dtype and a.shape == b.shape, (op_type, n)
+            if a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
+            else:
+                assert torch.equal(a, b), (op_type, n)
+            assert clod[n] == plod[n], (op_type, n)
+        if not diff:
+            continue
+        g_ins = dict(ins)
+        for slot, count in outs.items():
+            v = cpu[f"{slot.lower()}_out0"]
+            if count == 1 and v.is_floating_point():
+                g_ins[slot] = v.numpy()
+                g_ins[slot + "@GRAD"] = rng.standard_normal(
+                    tuple(v.shape)).astype(np.float32)
+        g_outs = {s + "@GRAD": 1 for s in diff}
+        gcard, _ = fc.run(op_type + "_grad", g_ins, attrs, g_outs, cuda,
+                          lods)
+        gcpu, _ = fc.run(op_type + "_grad", g_ins, attrs, g_outs, "cpu",
+                         lods)
+        for n, v in gcard.items():
+            torch.testing.assert_close(v.cpu(), gcpu[n], rtol=BWD_F32_TOL,
+                                       atol=BWD_F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_gather_out_of_range_on_card(cuda, dtype):
+    """gather at [-1, -n, n, 0] on the card: no device assert, the rows
+    the CPU gives (the fill value for n), and the gradient: the wrapped
+    rows receive theirs, the filled row sends none."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    x = (np.arange(12).reshape(4, 3) * 1.5).astype(dtype)
+    ins = {"X": x, "Index": np.array([-1, -4, 4, 0], np.int32)}
+    card, _ = fc.run("gather", ins, {}, {"Out": 1}, cuda)
+    cpu, _ = fc.run("gather", ins, {}, {"Out": 1}, "cpu")
+    torch.testing.assert_close(card["out_out0"].cpu(), cpu["out_out0"],
+                               equal_nan=True, rtol=0, atol=0)
+    if dtype is np.float32:
+        g = dict(ins, Out=cpu["out_out0"].numpy(),
+                 **{"Out@GRAD": np.ones((4, 3), np.float32)})
+        gc, _ = fc.run("gather_grad", g, {}, {"X@GRAD": 1}, cuda)
+        np.testing.assert_array_equal(gc["x@grad_out0"].cpu().numpy(),
+                                      [[2] * 3, [0] * 3, [0] * 3, [1] * 3])
+
+
+def test_top_k_input_keeps_its_block_eager_on_card(cuda):
+    """top_k with a K input reads it on the host: its block runs eagerly
+    on the card with top_k as the reason, equal to the CPU's output."""
+    pt.framework.unique_name.reset()
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        x = pt.layers.data("x", [7], dtype="float32")
+        k = pt.layers.data("k", [1], dtype="int32", append_batch_size=False)
+        vals = main.global_block().create_var(name="vals", dtype="float32")
+        ids = main.global_block().create_var(name="ids", dtype="int64")
+        main.global_block().append_op(
+            "top_k", inputs={"X": x, "K": k},
+            outputs={"Out": vals, "Indices": ids}, attrs={"k": 1},
+            infer_shape=False)
+    feed = {"x": np.random.default_rng(0).standard_normal(
+        (3, 7)).astype(np.float32), "k": np.array([4], np.int32)}
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feed,
+                                          fetch_list=[vals],
+                                          scope=pt.Scope())[0]
+    exe, scope = pt.Executor(), pt.Scope()
+    for _ in range(3):
+        got = exe.run(main, feed=feed, fetch_list=[vals], scope=scope)[0]
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert set(exe._engine.eager_reasons.values()) == {"top_k"}
+    assert exe._engine.counters["captures"] == 0
+    assert np.asarray(want).shape == (3, 4)
+
+
+def test_yolov3_full_width_captured_bit_equal_eager_on_card(cuda,
+                                                            monkeypatch):
+    """chip_smoke's YOLOv3 at full width and depth (DarkNet-53, three
+    heads, 80 classes, 608x608) with Momentum under the warm-up schedule
+    and L2Decay at B=2: three runs of one COCO-shaped batch through the
+    plan cache (eager, the capture, a replay) bit-equal to the same runs
+    eager in deterministic mode, no block kept eager."""
+    import chip_smoke as cs
+    _no_tf32(monkeypatch)
+    pt.framework.unique_name.reset()
+    main, startup, loss, outs = cs.yolov3_train(pt)
+    assert [tuple(o.shape[1:]) for o in outs] == \
+        [(255, 19, 19), (255, 38, 38), (255, 76, 76)]
+    feed = cs._yolo_train_feed(cs._coco_batch(torch, 0, cuda, B=2))
+    runs = _cached_against_eager(main, startup, [feed] * 3, [loss],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 2)
+    assert all(np.isfinite(o[0]).all() for o in runs[True][0])
+
+
+def test_retinanet_head_captured_bit_equal_eager_on_card(cuda,
+                                                         monkeypatch):
+    """chip_smoke's RetinaNet head (two levels, anchor_generator,
+    retinanet_target_assign on a LoD of boxes, sigmoid_focal_loss,
+    smooth_l1) with SGD at B=4: three runs of one batch through the plan
+    cache bit-equal to eager, no block kept eager."""
+    import chip_smoke as cs
+    _no_tf32(monkeypatch)
+    pt.framework.unique_name.reset()
+    main, startup, loss, _ = cs.retinanet_train(pt)
+    feed = cs._retina_batch(pt, 0, pt.CUDAPlace(0))
+    runs = _cached_against_eager(main, startup, [feed] * 3, [loss],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 2)

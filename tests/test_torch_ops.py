@@ -255,8 +255,9 @@ def test_every_slice_op_type_is_covered():
     test_torch_op_families.py, the nn family and the update ops without
     a kernel (the same file's cases, held in test_torch_nn_family.py and
     test_torch_optimizers.py), SSD's detection ops in
-    test_torch_detection.py and the conv family in
-    test_torch_conv_family.py)."""
+    test_torch_detection.py, the conv family in test_torch_conv_family.py
+    and the one-stage detectors' ops in
+    test_torch_one_stage_detection.py)."""
     import test_torch_beam_search
     import test_torch_op_families
     import test_torch_sequence
@@ -291,9 +292,11 @@ def test_every_slice_op_type_is_covered():
     detection = {c[0] for c in family_cases.detection_cases()}
     # held in test_torch_conv_family.py
     conv = {c[0] for c in family_cases.conv_cases()}
+    # held in test_torch_one_stage_detection.py
+    one_stage = {c[0] for c in family_cases.one_stage_cases()}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
-        beam | families | detection | conv == forward
+        beam | families | detection | conv | one_stage == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
