@@ -263,8 +263,8 @@
    named in Engine.eager_reasons. Op sweep: every case of
    ops/family_cases.py (the basic, reduce, elementwise, activation, nn
    and conv families, the nine update ops without a kernel, the three
-   sequence ops, SSD's eight detection ops and the one-stage detectors'
-   ten) on the card against the CPU.
+   sequence ops, SSD's eight detection ops and the one- and two-stage
+   detectors' ten each) on the card against the CPU.
 15. Detection phase: MobileNet-SSD as PaddleCV's object_detection
    defines it (mobilenet_ssd: MobileNet-v1 at scale 1.0, extra blocks,
    multi_box_head over six maps: 1917 priors) at Pascal VOC's 300x300,
@@ -322,7 +322,32 @@
    sigmoid_focal_loss, smooth_l1, SGD) at B=4, RETINA_RUNS steps
    captured against eager bit-equal, and its retinanet_detection_output
    captured against eager. No kernel of the port lies on this path.
-18. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+18. Rcnn phase: Faster R-CNN as PaddleCV's rcnn defines it
+   (faster_rcnn: ResNet-50-C4 with frozen affine_channels, calibrated on
+   one batch by rcnn_calibrate; the RPN's anchors, rpn_target_assign and
+   generate_proposals (12000 / 2000); generate_proposal_labels (512
+   RoIs an image); roi_align 14x14; res5; the two fc heads) on COCO's
+   800x1344 canvas, 81 classes, float32, B=2, the sum of the RPN's and
+   the head's losses minimized by Momentum(0.9) under
+   linear_lr_warmup(piecewise_decay) and L2Decay(1e-4), on COCO-shaped
+   LoD batches (landscape sizes resized to a short side of 800, a
+   geometric number of boxes an image, mean 7.3, a crowd box).
+   RCNN_RUNS steps captured against eager in deterministic mode,
+   bit-equal (losses, persistables, the sampled ScoreIndex and RoIs);
+   at B=1 res4, the RPN's outputs and the head's logits on the card's
+   RoIs against the CPU (RCNN_RTOL), and generate_proposals,
+   rpn_target_assign and generate_proposal_labels on the card's inputs
+   against the CPU (rows that differ); images/s eager against captured
+   in turns, the capture clocked, peak memory, a profiled replay (busy
+   share, top kernels), generate_proposals and its greedy loop alone
+   (kernels, device ms, share of a replay), roi_align alone (forward,
+   backward, peak bytes). Then the detection program
+   (box_decoder_and_assign, multiclass_nms) through Executor.run
+   (eager, captured, replayed rows equal) and AnalysisPredictor (within
+   RCNN_ROWS_ATOL), images/s eager against captured, a profiled replay
+   and multiclass_nms alone at 2 x 81 x 1000. No kernel of the port
+   lies on this path.
+19. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -335,7 +360,7 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-19. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+20. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's, the dygraph phase's, the control flow
    phase's, the book models phase's, the lr schedule phase's, the
    contrib decoder phase's and the pose phase's captured steps; the quantized and tuned
@@ -7800,6 +7825,832 @@ def yolo_phase(torch, dev):
     print(f"  yolo phase: {time.perf_counter() - t0:.1f} s")
 
 
+# Faster R-CNN (Ren et al., 2015) as PaddleCV ships it (PaddleCV/rcnn:
+# models/model_builder.py, models/resnet.py, config.py), Detectron's
+# e2e_faster_rcnn_R-50-C4_1x layout: ResNet-50 to res4 (conv1 and res2
+# frozen), an RPN on res4, roi_align to 14x14, res5 and a 7x7 average
+# pool, COCO's 81 classes, images resized to a short side of 800 (long
+# side at most 1333) on a fixed 800x1344 canvas
+RCNN = {"class_num": 81, "image": (800, 1344), "stages": (3, 4, 6, 3),
+        "width": 64}
+RCNN_B = 2            # images a card (Detectron's C4 config takes 1)
+RCNN_RUNS = 8         # steps of one batch, captured against eager
+RCNN_ANCHOR_SIZES = [32.0, 64.0, 128.0, 256.0, 512.0]
+RCNN_RATIOS = [0.5, 1.0, 2.0]
+RCNN_STRIDE = 16.0
+# (pre_nms_topN, post_nms_topN) of generate_proposals; NMS 0.7, min_size 0
+RCNN_PROPOSALS = {"train": (12000, 2000), "detect": (6000, 1000)}
+RCNN_RPN_BATCH = 256  # rpn_target_assign's anchors an image
+RCNN_ROI_BATCH = 512  # generate_proposal_labels' RoIs an image
+RCNN_REG_WEIGHTS = [0.1, 0.1, 0.2, 0.2]
+RCNN_CALIBRATION_SEED = 100   # the batch rcnn_calibrate reads
+# train.py: Momentum(0.9) under L2Decay(1e-4); piecewise_decay([120000,
+# 160000], [0.01, 0.001, 0.0001]) under linear_lr_warmup(500, 0.01 / 3,
+# 0.01)
+RCNN_LR = 0.01
+RCNN_LR_STEPS = (120000, 160000)
+RCNN_WARMUP = 500
+RCNN_L2 = 1e-4
+# config.py TEST: score 0.05, NMS 0.5, 100 detections an image
+RCNN_DET = {"score_threshold": 0.05, "nms_threshold": 0.5,
+            "keep_top_k": 100}
+# COCO's landscape (w, h) sizes, one drawn an image
+COCO_LANDSCAPE = ((640, 480), (640, 427), (500, 375), (640, 426),
+                  (640, 424), (500, 333), (640, 512))
+
+
+def _frozen_affine(L, pkg, x, ch, name):
+    """PaddleCV's frozen batch norm after a conv: affine_channel with a
+    scale (1) and an offset (0) that no step updates."""
+    bn = "bn_" + name if name == "conv1" else "bn" + name[3:]
+    scale = L.create_parameter(
+        [ch], "float32", attr=pkg.ParamAttr(name=bn + "_scale",
+                                            learning_rate=0.0),
+        default_initializer=pkg.initializer.Constant(1.0))
+    offset = L.create_parameter(
+        [ch], "float32", attr=pkg.ParamAttr(name=bn + "_offset",
+                                            learning_rate=0.0),
+        default_initializer=pkg.initializer.Constant(0.0))
+    scale.stop_gradient = offset.stop_gradient = True
+    return L.affine_channel(x, scale=scale, bias=offset)
+
+
+def _conv_affine(L, pkg, x, ch, k, stride, padding, name, act=True):
+    x = L.conv2d(x, ch, k, stride=stride, padding=padding, act=None,
+                 param_attr=pkg.ParamAttr(name=name + "_weights"),
+                 bias_attr=False)
+    x = _frozen_affine(L, pkg, x, ch, name)
+    return L.relu(x) if act else x
+
+
+def _bottleneck(L, pkg, x, ch, stride, name):
+    """resnet.py's bottleneck: the stride on the first 1x1 (Detectron's
+    STRIDE_1X1), a projection shortcut where the width changes."""
+    short = x if int(x.shape[1]) == 4 * ch else _conv_affine(
+        L, pkg, x, 4 * ch, 1, stride, 0, name + "_branch1", act=False)
+    y = _conv_affine(L, pkg, x, ch, 1, stride, 0, name + "_branch2a")
+    y = _conv_affine(L, pkg, y, ch, 3, 1, 1, name + "_branch2b")
+    y = _conv_affine(L, pkg, y, 4 * ch, 1, 1, 0, name + "_branch2c",
+                     act=False)
+    return L.relu(L.elementwise_add(short, y))
+
+
+def _res_stage(L, pkg, x, ch, count, stride, name):
+    for i in range(count):
+        x = _bottleneck(L, pkg, x, ch, stride if i == 0 else 1,
+                        name + chr(ord("a") + i))
+    return x
+
+
+def faster_rcnn(L, img, im_info, gt_box=None, gt_label=None,
+                is_crowd=None, class_num=81, stages=(3, 4, 6, 3),
+                mode="train", width=64, proposals=None, rpn_batch=None,
+                roi_batch=None, use_random=True, rois=None):
+    """PaddleCV's Faster R-CNN (ResNet-50-C4) built with the layers module
+    `L` (the port's or the JAX package's), its parameters under
+    PaddleCV's names. The backbone: conv1 (7x7, stride 2; `width`
+    channels) and a 3x3 max pool, then res2-res4 of `stages[:3]`
+    bottlenecks (res2 stops the gradient: freeze_at 2), every conv
+    without a bias and followed by a frozen affine_channel. The RPN: a
+    3x3 conv of res4's width (relu), 1x1 convs to 15 objectness logits
+    and 60 deltas, anchor_generator (RCNN_ANCHOR_SIZES x RCNN_RATIOS,
+    stride 16, variances 1) and generate_proposals (sigmoid scores;
+    `proposals` = (pre, post), RCNN_PROPOSALS[mode] by default; NMS 0.7,
+    min_size 0). mode "train": rpn_target_assign (`rpn_batch` anchors an
+    image, RCNN_RPN_BATCH by default; fg 0.5, 0.7 / 0.3, straddle 0) and
+    generate_proposal_labels (`roi_batch` RoIs an image, RCNN_ROI_BATCH
+    by default; fg 0.25, fg 0.5, bg [0, 0.5),
+    RCNN_REG_WEIGHTS) with `use_random`; the head pools the sampled
+    RoIs. mode "detect": the head pools the proposals. mode "head": the
+    head pools `rois` (a fed LoD var). The head: roi_align (14x14, 1/16,
+    sampling_ratio 0), res5 (`stages[3]` bottlenecks of 8 x width, the
+    first stride 2), a 7x7 average pool, an fc to class_num scores
+    (Normal(0, 0.001)) and an fc to 4 class_num deltas (Normal(0,
+    0.01)). Returns a dict of the vars: res4, rpn_cls, rpn_bbox,
+    rpn_rois, cls_score, bbox_pred; in training also rois, labels,
+    score_index and the losses (rpn_cls_loss, rpn_reg_loss, cls_loss,
+    bbox_loss, loss: their sum); in detection nmsed."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+    lr2 = {"learning_rate": 2.0, "regularizer": pkg.regularizer.L2Decay(0.0)}
+    rpn_batch = rpn_batch or RCNN_RPN_BATCH
+    roi_batch = roi_batch or RCNN_ROI_BATCH
+    x = _conv_affine(L, pkg, img, width, 7, 2, 3, "conv1")
+    x = L.pool2d(x, pool_size=3, pool_type="max", pool_stride=2,
+                 pool_padding=1)
+    res2 = _res_stage(L, pkg, x, width, stages[0], 1, "res2")
+    res2.stop_gradient = True
+    res3 = _res_stage(L, pkg, res2, 2 * width, stages[1], 2, "res3")
+    res4 = _res_stage(L, pkg, res3, 4 * width, stages[2], 2, "res4")
+    out = {"res4": res4}
+    dim = int(res4.shape[1])
+    rpn = L.conv2d(res4, dim, 3, padding=1, act="relu",
+                   param_attr=pkg.ParamAttr(
+                       name="conv_rpn_w",
+                       initializer=pkg.initializer.Normal(0.0, 0.01)),
+                   bias_attr=pkg.ParamAttr(name="conv_rpn_b", **lr2))
+    anchor, var = L.anchor_generator(
+        rpn, anchor_sizes=RCNN_ANCHOR_SIZES, aspect_ratios=RCNN_RATIOS,
+        variance=[1.0, 1.0, 1.0, 1.0], stride=[RCNN_STRIDE, RCNN_STRIDE])
+    a = len(RCNN_ANCHOR_SIZES) * len(RCNN_RATIOS)
+
+    def rpn_conv(ch, name):
+        return L.conv2d(rpn, ch, 1, act=None, param_attr=pkg.ParamAttr(
+            name=name + "_w", initializer=pkg.initializer.Normal(0.0, 0.01)),
+            bias_attr=pkg.ParamAttr(name=name + "_b", **lr2))
+    out["rpn_cls"] = rpn_cls = rpn_conv(a, "rpn_cls_logits")
+    out["rpn_bbox"] = rpn_bbox = rpn_conv(4 * a, "rpn_bbox_pred")
+    pre, post = proposals or RCNN_PROPOSALS[
+        "train" if mode == "train" else "detect"]
+    rpn_rois, _ = L.generate_proposals(
+        L.sigmoid(rpn_cls), rpn_bbox, im_info, anchor, var,
+        pre_nms_top_n=pre, post_nms_top_n=post, nms_thresh=0.7,
+        min_size=0.0, eta=1.0)
+    out["rpn_rois"] = rpn_rois
+    pool_rois = rpn_rois if mode == "detect" else rois
+    if mode == "train":
+        (pool_rois, labels, targets, inside,
+         outside) = L.generate_proposal_labels(
+            rpn_rois, gt_label, is_crowd, gt_box, im_info,
+            batch_size_per_im=roi_batch, fg_fraction=0.25, fg_thresh=0.5,
+            bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+            bbox_reg_weights=RCNN_REG_WEIGHTS, class_nums=class_num,
+            use_random=use_random)
+        out.update(rois=pool_rois, labels=labels)
+    pool = L.roi_align(res4, pool_rois, 14, 14, 1.0 / RCNN_STRIDE, 0)
+    res5 = _res_stage(L, pkg, pool, 8 * width, stages[3], 2, "res5")
+    head = L.pool2d(res5, pool_size=7, pool_type="avg", pool_stride=1)
+    out["cls_score"] = cls_score = L.fc(
+        head, class_num, act=None, param_attr=pkg.ParamAttr(
+            name="cls_score_w",
+            initializer=pkg.initializer.Normal(0.0, 0.001)),
+        bias_attr=pkg.ParamAttr(name="cls_score_b", **lr2))
+    out["bbox_pred"] = bbox_pred = L.fc(
+        head, 4 * class_num, act=None, param_attr=pkg.ParamAttr(
+            name="bbox_pred_w",
+            initializer=pkg.initializer.Normal(0.0, 0.01)),
+        bias_attr=pkg.ParamAttr(name="bbox_pred_b", **lr2))
+    if mode == "train":
+        out.update(_rcnn_losses(L, rpn_cls, rpn_bbox, anchor, var, gt_box,
+                                is_crowd, im_info, rpn_batch, use_random,
+                                cls_score, bbox_pred, labels, targets,
+                                inside, outside))
+    elif mode == "detect":
+        prob = L.softmax(cls_score)
+        pvar = L.elementwise_mul(
+            L.fill_constant_batch_size_like(rpn_rois, [-1, 4], "float32",
+                                            1.0),
+            L.assign(np.asarray(RCNN_REG_WEIGHTS, np.float32)))
+        _, boxes = L.box_decoder_and_assign(rpn_rois, pvar, bbox_pred, prob,
+                                            box_clip=4.135)
+        out["nmsed"] = L.multiclass_nms(
+            L.reshape(boxes, [-1, post, 4]),
+            L.transpose(L.reshape(prob, [-1, post, class_num]),
+                        perm=[0, 2, 1]),
+            nms_top_k=-1, background_label=0, normalized=False,
+            **RCNN_DET)
+    return out
+
+
+def _rcnn_losses(L, rpn_cls, rpn_bbox, anchor, var, gt_box, is_crowd,
+                 im_info, rpn_batch, use_random, cls_score, bbox_pred,
+                 labels, targets, inside, outside):
+    """model_builder.py's rpn_loss and fast_rcnn_loss over the targets'
+    -1-padded rows: the RPN's sigmoid cross entropy (ignore_index -1,
+    normalized: a mean over the sampled anchors) and smooth_l1 (sigma 3,
+    the inside weights) summed over the sampled anchors' count; the
+    head's softmax cross entropy (ignore_index -1) and smooth_l1 (sigma
+    1) summed over the sampled RoIs' count. The gathers of the RPN's
+    predictions by [R, 1] indices keep a dim: reshaped to [R, 1] and [R,
+    4], as retinanet_loss does."""
+    cls_t = L.reshape(L.transpose(rpn_cls, perm=[0, 2, 3, 1]), [0, -1, 1])
+    box_t = L.reshape(L.transpose(rpn_bbox, perm=[0, 2, 3, 1]), [0, -1, 4])
+    score, loc, label, target, weight = L.rpn_target_assign(
+        box_t, cls_t, L.reshape(anchor, [-1, 4]), L.reshape(var, [-1, 4]),
+        gt_box, is_crowd, im_info, rpn_batch_size_per_im=rpn_batch,
+        rpn_straddle_thresh=0.0, rpn_fg_fraction=0.5,
+        rpn_positive_overlap=0.7, rpn_negative_overlap=0.3,
+        use_random=use_random)
+    score = L.reshape(score, [-1, 1])
+    loc = L.reshape(loc, [-1, 4])
+    zero = L.fill_constant([1], "int32", 0)
+
+    def count(lbl):
+        return L.reduce_sum(L.cast(L.greater_equal(lbl, zero), "float32"))
+    rpn_cls_loss = L.reduce_sum(L.sigmoid_cross_entropy_with_logits(
+        score, L.cast(label, "float32"), ignore_index=-1, normalize=True))
+    rpn_reg_loss = L.elementwise_div(L.reduce_sum(L.smooth_l1(
+        loc, target, inside_weight=weight, outside_weight=weight,
+        sigma=3.0)), count(label))
+    n_rois = count(labels)
+    cls_loss = L.elementwise_div(L.reduce_sum(L.softmax_with_cross_entropy(
+        cls_score, L.cast(labels, "int64"), ignore_index=-1)), n_rois)
+    bbox_loss = L.elementwise_div(L.reduce_sum(L.smooth_l1(
+        bbox_pred, targets, inside_weight=inside, outside_weight=outside,
+        sigma=1.0)), n_rois)
+    return {"rpn_cls_loss": rpn_cls_loss,
+            "rpn_reg_loss": rpn_reg_loss, "cls_loss": cls_loss,
+            "bbox_loss": bbox_loss,
+            "loss": L.sum([rpn_cls_loss, rpn_reg_loss, cls_loss,
+                           bbox_loss])}
+
+
+def rcnn_calibrate(pt, main, scope, feed, place):
+    """Sets every frozen affine_channel's scale and offset in `scope` so
+    that its output has zero mean and unit variance a channel on `feed`
+    (a frozen batch norm with that batch's statistics, the form in which
+    PaddleCV's pretrained weights carry theirs; random convolutions
+    under identity affines grow res4 to ~1e3 and the first steps
+    diverge). One forward pass of `main`'s forward ops, op by op through
+    their lowerings on `place`: each affine_channel is set from its input
+    just before it runs."""
+    from paddle_tpu_torch.core.registry import (OPS, ExecContext,
+                                                HostTableCache, RunState)
+    block = main.global_block()
+    ops = [op for op in block.ops if op.attr("op_role", "forward") ==
+           "forward"]
+    last = max(i for i, op in enumerate(ops) if op.type == "affine_channel")
+    dev = place.torch_device()
+    env, lods = {}, {}
+    for name, v in feed.items():
+        env[name] = (v.tensor if hasattr(v, "tensor") else v).to(dev)
+        if hasattr(v, "lod") and v.lod():
+            lods[name] = v.lod()
+    made = set(env)
+    for op in ops[:last + 1]:
+        for name in op.input_arg_names:
+            if name not in made:
+                env[name] = scope.find_var(name).get_tensor().tensor
+        made.update(op.output_arg_names)
+    run = RunState(program_seed=main.random_seed, lod_env=lods,
+                   host_tables=HostTableCache())
+    with __import__("torch").no_grad():
+        for op in ops[:last + 1]:
+            if op.type == "affine_channel":
+                x = env[op.input("X")[0]]
+                mean, std = x.mean((0, 2, 3)), x.std((0, 2, 3))
+                scale = 1.0 / (std + 1e-5)
+                for slot, value in (("Scale", scale), ("Bias", -mean * scale)):
+                    env[op.input(slot)[0]].copy_(value)
+            OPS.get(op.type).lowering(ExecContext(op, env, dev, run))
+
+
+def _rcnn_inputs(L, image):
+    """The feeds' vars: image [3, h, w], im_info [3] (h, w, scale), and
+    gt_box [4] / gt_label [1] int32 / is_crowd [1] int32 LoD vars."""
+    return (L.data("image", [3, image[0], image[1]], dtype="float32"),
+            L.data("im_info", [3], dtype="float32"),
+            L.data("gt_box", [4], dtype="float32", lod_level=1),
+            L.data("gt_label", [1], dtype="int32", lod_level=1),
+            L.data("is_crowd", [1], dtype="int32", lod_level=1))
+
+
+def faster_rcnn_train(pt, image=None, class_num=None, stages=None,
+                      width=None, **kw):
+    """(main, startup, outs) of PaddleCV's train.py in package `pt`:
+    faster_rcnn in training mode (`kw`: its proposals, rpn_batch,
+    roi_batch and use_random) minimized by Momentum(0.9) under the
+    warm-up and piecewise schedule and L2Decay(RCNN_L2)."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img, im_info, gt_box, gt_label, is_crowd = _rcnn_inputs(
+            L, image or RCNN["image"])
+        outs = faster_rcnn(L, img, im_info, gt_box, gt_label, is_crowd,
+                           class_num or RCNN["class_num"],
+                           stages or RCNN["stages"], "train",
+                           width or RCNN["width"], **kw)
+        lr = L.linear_lr_warmup(
+            L.piecewise_decay(list(RCNN_LR_STEPS),
+                              [RCNN_LR * 0.1 ** i for i in range(3)]),
+            RCNN_WARMUP, RCNN_LR / 3, RCNN_LR)
+        pt.optimizer.MomentumOptimizer(
+            learning_rate=lr, momentum=0.9,
+            regularization=pt.regularizer.L2Decay(RCNN_L2)).minimize(
+                outs["loss"])
+    return main, startup, outs
+
+
+def faster_rcnn_detect(pt, image=None, class_num=None, stages=None,
+                       width=None, mode="detect", **kw):
+    """(program, startup, outs) of PaddleCV's eval and infer in package
+    `pt`: faster_rcnn in detection mode (its parameters those of the
+    trained program, by name): softmax scores, box_decoder_and_assign of
+    each proposal's best class (the per-class deltas times
+    RCNN_REG_WEIGHTS), multiclass_nms (RCNN_DET, background 0, pixel
+    boxes). mode "head": faster_rcnn's head on fed `rois`."""
+    L = pt.layers
+    prog, startup = pt.Program(), pt.Program()
+    with pt.program_guard(prog, startup):
+        image = image or RCNN["image"]
+        img = L.data("image", [3, image[0], image[1]], dtype="float32")
+        im_info = L.data("im_info", [3], dtype="float32")
+        rois = L.data("rois", [4], dtype="float32", lod_level=1) \
+            if mode == "head" else None
+        outs = faster_rcnn(L, img, im_info, None, None, None,
+                           class_num or RCNN["class_num"],
+                           stages or RCNN["stages"], mode,
+                           width or RCNN["width"], rois=rois, **kw)
+    return prog, startup, outs
+
+
+def _rcnn_batch(torch, pt, seed, place, B=None, image=None, short=800,
+                long_max=1333, class_num=None):
+    """A COCO-shaped batch from default_rng(seed): B images on the
+    canvas `image` (h, w), each a COCO landscape size resized to a short
+    side of `short` (the long side at most long_max), its pixels standard
+    normal and the rest of the canvas 0; im_info (h, w, 1.0) an image;
+    a geometric number of boxes an image (mean YOLO_OBJECTS, at most
+    50) in the resized frame, sides log-uniform in [0.03, 0.8] of the
+    image's, labels uniform in [1, class_num), one box in a hundred a
+    crowd box and at least one in the batch, crowd boxes first in their
+    image; as LoD tensors on `place`."""
+    B, image = B or RCNN_B, image or RCNN["image"]
+    class_num = class_num or RCNN["class_num"]
+    rng = np.random.default_rng(seed)
+    img = np.zeros((B, 3) + tuple(image), np.float32)
+    info = np.zeros((B, 3), np.float32)
+    boxes, labels, crowd, lens = [], [], [], []
+    for b in range(B):
+        w0, h0 = COCO_LANDSCAPE[rng.integers(len(COCO_LANDSCAPE))]
+        s = min(short / h0, long_max / w0)
+        h, w = int(round(h0 * s)), int(round(w0 * s))
+        info[b] = (h, w, 1.0)
+        img[b, :, :h, :w] = rng.standard_normal((3, h, w))
+        k = int(np.clip(rng.geometric(1.0 / YOLO_OBJECTS), 1, 50))
+        side = np.exp(rng.uniform(np.log(0.03), np.log(0.8), (k, 2))) * \
+            np.array([w, h])
+        side = np.maximum(side, 2.0)
+        xy = rng.uniform(0.0, 1.0, (k, 2)) * (np.array([w, h]) - side)
+        boxes.append(np.concatenate([xy, xy + side - 1.0], axis=1))
+        labels.append(rng.integers(1, class_num, (k, 1)))
+        crowd.append((rng.random((k, 1)) < 0.01).astype(np.int32))
+        lens.append(k)
+    crowd[int(np.argmax(lens))][-1, 0] = 1
+    for b in range(B):
+        # crowd boxes first in their image: where one and a non-crowd box
+        # pick the same anchor, the JAX lowering's last scatter write is
+        # then the non-crowd box's, the reference's rule
+        order = np.argsort(-crowd[b][:, 0], kind="stable")
+        boxes[b], labels[b], crowd[b] = (boxes[b][order], labels[b][order],
+                                         crowd[b][order])
+    dev = place.torch_device()
+    lod = [lens]
+    return {"image": torch.from_numpy(img).to(dev),
+            "im_info": torch.from_numpy(info).to(dev),
+            "gt_box": pt.create_lod_tensor(
+                np.concatenate(boxes).astype(np.float32), lod, place),
+            "gt_label": pt.create_lod_tensor(
+                np.concatenate(labels).astype(np.int32), lod, place),
+            "is_crowd": pt.create_lod_tensor(np.concatenate(crowd), lod,
+                                             place)}
+
+
+# the card against the CPU at B=1, float32 (TF32 off): res4, the RPN's
+# outputs and the head's logits on the same RoIs move, relative to the
+# largest, by at most the sum over the layers of a random walk of sqrt(K)
+# units of 2^-24: 50 layers on the longest path (conv1, three convs a
+# bottleneck of res2-res5's 16, the fc), K at most 9216 (the RPN's 3 x 3
+# x 1024)
+RCNN_RTOL = 50 * 9216 ** 0.5 * 2.0 ** -24           # 2.86e-4
+# the discrete ops on the card's inputs, card against CPU: libm's exp
+# (the decode) moves a box by a few units in the last place, and may
+# flip a near-tie of the sort or the NMS; a row more than RCNN_ROW_MOVE
+# pixels from the CPU's is another row chosen, and a share of those
+# above RCNN_ROWS_SHARE is a fault
+RCNN_ROW_MOVE = 1e-2
+RCNN_ROWS_SHARE = 0.05
+RCNN_ROWS_ATOL = 1e-6     # detection rows, the predictor against Executor
+RCNN_TIMED = 3            # detection passes timed a mode
+RCNN_ALONE_ITERS = 3      # calls a timing of an op alone
+
+
+def _rcnn_check_cpu(torch, pt, main, outs, state):
+    """The first step's forward at B=1 (batch seed 1) from `state` on the
+    card and on the CPU: res4 and the RPN's logits and deltas within
+    RCNN_RTOL of the largest; the head's scores and deltas on the card's
+    sampled RoIs (faster_rcnn_detect's head program, fed them) within
+    RCNN_RTOL; then generate_proposals on the card's Scores, deltas and
+    anchors, and rpn_target_assign and generate_proposal_labels
+    (use_random=False) on the card's RpnRois, each run on the card and
+    on the CPU: the rows that differ."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    t0 = time.perf_counter()
+    card_f = _rcnn_batch(torch, pt, 1, pt.CUDAPlace(0), B=1)
+    cpu_f = _rcnn_batch(torch, pt, 1, pt.CPUPlace(), B=1)
+    block = main.global_block()
+    ops = {op.type: op for op in block.ops}
+    gp, ra, pl = (ops["generate_proposals"], ops["rpn_target_assign"],
+                  ops["generate_proposal_labels"])
+    gp_in = {s: block.var(gp.input(s)[0]) for s in
+             ("Scores", "BboxDeltas", "ImInfo", "Anchors", "Variances")}
+    dense = [outs["res4"], outs["rpn_cls"], outs["rpn_bbox"]]
+    fetch = dense + list(gp_in.values()) + [outs["rpn_rois"], outs["rois"]]
+    card = _train_mode_forward(pt, main, fetch, state, card_f,
+                               pt.CUDAPlace(0))
+    cpu = _train_mode_forward(pt, main, dense, state, cpu_f)
+    errs = [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(card[:3], cpu)]
+    print(f"  faster_rcnn: B=1 card against CPU, max |card - CPU| / max "
+          f"|CPU|: res4 {errs[0]:.3e}, RPN logits {errs[1]:.3e}, RPN "
+          f"deltas {errs[2]:.3e} (bound RCNN_RTOL {RCNN_RTOL:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(max(errs) <= RCNN_RTOL and
+             all(np.isfinite(a).all() for a in card[:3]),
+             "faster_rcnn: res4 or the RPN, card and CPU disagree")
+    # the head on the card's RoIs
+    t1 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    head, _, hout = faster_rcnn_detect(pt, mode="head")
+    rois = card[-1]
+    lod = [[len(rois)]]
+    hfeed = {"image": card_f["image"], "im_info": card_f["im_info"],
+             "rois": pt.create_lod_tensor(rois, lod, pt.CUDAPlace(0))}
+    hfetch = [hout["cls_score"], hout["bbox_pred"]]
+    hcard = _train_mode_forward(pt, head, hfetch, state, hfeed,
+                                pt.CUDAPlace(0))
+    hcpu = _train_mode_forward(pt, head, hfetch, state, {
+        "image": cpu_f["image"], "im_info": cpu_f["im_info"],
+        "rois": pt.create_lod_tensor(rois, lod, pt.CPUPlace())})
+    herrs = [float(np.abs(a - b).max() / np.abs(b).max())
+             for a, b in zip(hcard, hcpu)]
+    print(f"  faster_rcnn: the head on the card's {len(rois)} sampled RoIs, "
+          f"max |card - CPU| / max |CPU|: scores {herrs[0]:.3e}, deltas "
+          f"{herrs[1]:.3e} (bound {RCNN_RTOL:.3e}); "
+          f"{time.perf_counter() - t1:.1f} s")
+    _require(max(herrs) <= RCNN_RTOL and
+             all(np.isfinite(a).all() for a in hcard),
+             "faster_rcnn: the head, card and CPU disagree")
+    # the discrete ops on the card's inputs
+    rpn_rois = card[-2]
+    gt = {"GtBoxes": np.asarray(cpu_f["gt_box"]),
+          "IsCrowd": np.asarray(cpu_f["is_crowd"]),
+          "ImInfo": cpu_f["im_info"].numpy()}
+    gt_lod = cpu_f["gt_box"].lod()
+    runs = [
+        ("generate_proposals", dict(zip(gp_in, card[3:8])), {},
+         gp.all_attrs(), {"RpnRois": 1, "RpnRoiProbs": 1}, "rpnrois_out0"),
+        ("rpn_target_assign", dict(gt, Anchor=card[6]),
+         {"gtboxes": gt_lod}, dict(ra.all_attrs(), use_random=False),
+         {"LocationIndex": 1, "ScoreIndex": 1, "TargetLabel": 1,
+          "TargetBBox": 1, "BBoxInsideWeight": 1}, "scoreindex_out0"),
+        ("generate_proposal_labels",
+         dict(gt, RpnRois=rpn_rois, GtClasses=np.asarray(cpu_f["gt_label"])),
+         {"rpnrois": [[0, len(rpn_rois)]], "gtboxes": gt_lod,
+          "gtclasses": gt_lod, "iscrowd": gt_lod},
+         dict(pl.all_attrs(), use_random=False),
+         {"Rois": 1, "LabelsInt32": 1, "BboxTargets": 1,
+          "BboxInsideWeights": 1, "BboxOutsideWeights": 1}, "rois_out0")]
+    for op_type, ins, lods, attrs, slots, key in runs:
+        a, _ = fc.run(op_type, ins, attrs, slots, "cuda", lods)
+        b, _ = fc.run(op_type, ins, attrs, slots, "cpu", lods)
+        x, y = a[key].cpu().numpy(), b[key].numpy()
+        gap = np.abs(x.astype(np.float64) - y).reshape(len(x), -1).max(1)
+        moved = int((gap > RCNN_ROW_MOVE).sum())
+        print(f"  faster_rcnn: {op_type} on the card's inputs, card against "
+              f"CPU: of {len(x)} rows of {key.split('_')[0]}, "
+              f"{int((gap > 0).sum())} not bit-equal, {moved} apart by more "
+              f"than {RCNN_ROW_MOVE} (another row chosen)")
+        _require(moved <= RCNN_ROWS_SHARE * len(x),
+                 f"faster_rcnn: {op_type}'s rows, card and CPU differ")
+
+
+def _lowering_call(op_type, env, ins, outs, attrs, device, lods=None):
+    """A call of op `op_type`'s lowering on `env` (input slot -> names in
+    `ins`, outputs to the names in `outs`), with one host-table cache
+    for all calls (made at the first: a later call, and a CUDA graph
+    captured from one, copies nothing to the card)."""
+    from paddle_tpu_torch.core.registry import (OPS, ExecContext,
+                                                HostTableCache, RunState,
+                                                _SlotView)
+    view = _SlotView(op_type, ins, outs, attrs)
+    run = RunState(host_tables=HostTableCache())
+
+    def call():
+        OPS.get(op_type).lowering(ExecContext(view, env, device, run,
+                                              dict(lods or {})))
+        return env
+    return call
+
+
+def _rcnn_roi_align_alone(torch, res4, rois, lod):
+    """roi_align at the step's shapes alone, forward (recording for
+    autograd) and backward (the generic gradient: torch's reverse mode
+    through the lowering): device ms a call (_timed_parts) by default
+    and in deterministic mode (the backward's accumulate then sorts its
+    rows), and the peak bytes of a forward and backward beyond their
+    inputs. Returns ({part: ms}, {part: ms deterministic}, peak)."""
+    x = res4.detach().clone().requires_grad_(True)
+    env = {"x": x, "rois": rois}
+    call = _lowering_call(
+        "roi_align", env, {"X": ["x"], "ROIs": ["rois"]}, {"Out": ["out"]},
+        {"pooled_height": 14, "pooled_width": 14,
+         "spatial_scale": 1.0 / RCNN_STRIDE, "sampling_ratio": 0},
+        x.device, {"rois": lod})
+
+    def forward():
+        return call()["out"]
+
+    out = forward()
+    g = torch.ones_like(out)
+    torch.autograd.backward(out, g)
+    del out
+    x.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = forward()
+    torch.autograd.backward(out, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = []
+    for mode in (contextlib.nullcontext(), _deterministic(torch)):
+        with mode:
+            out = forward()
+            ms.append(_timed_parts(torch, {
+                "forward": forward,
+                "backward": lambda: torch.autograd.backward(
+                    out, g, retain_graph=True)}, RCNN_ALONE_ITERS)[0])
+    return ms[0], ms[1], peak
+
+
+def _rcnn_nms_alone(torch, inputs, attrs):
+    """generate_proposals on the step's inputs (`inputs`: slot -> card
+    tensor) alone, and its greedy NMS loop alone on a mask of the same
+    [N, K, K] shape: each captured as one CUDA graph, its kernel nodes
+    counted (_graph_kernels) and its replays timed by CUDA events (device
+    ms a call)."""
+    from paddle_tpu_torch.ops import detection as det
+    dev = inputs["Scores"].device
+    env = {s.lower(): v for s, v in inputs.items()}
+    whole = _lowering_call("generate_proposals", env,
+                           {s: [s.lower()] for s in inputs},
+                           {"RpnRois": ["rois"], "RpnRoiProbs": ["probs"]},
+                           attrs, dev)
+    n = inputs["Scores"].shape[0]
+    k = min(attrs["pre_nms_topN"], inputs["Scores"][0].numel())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    boxes = torch.rand((n, k, 4), generator=gen, device=dev) * 600
+    boxes[..., 2:] += boxes[..., :2]
+    thr = torch.full((k,), attrs["nms_thresh"], device=dev)
+    over = det._over_rows(boxes, thr, False)
+    keep = torch.ones((n, k), dtype=torch.bool, device=dev)
+
+    def loop():
+        keep.fill_(True)
+        det._greedy_keep(over, keep)
+    out = {}
+    for name, fn in (("generate_proposals", whole), ("its greedy loop", loop)):
+        fn()
+        torch.cuda.synchronize()
+        kernels = len(_graph_kernels(torch, fn))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(RCNN_ALONE_ITERS):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out[name] = (kernels, a.elapsed_time(b) / RCNN_ALONE_ITERS)
+        del graph
+    return out
+
+
+def _rcnn_train(torch, pt, kreg, dev):
+    """Faster R-CNN trained captured against eager: returns (the trained
+    scope, the feed)."""
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, outs = faster_rcnn_train(pt)
+    main.random_seed = startup.random_seed = SEED
+    block = main.global_block()
+    types = [op.type for op in block.ops]
+    params = main.all_parameters()
+    stages = RCNN["stages"]
+    print(f"  faster_rcnn: {len(types)} ops in block 0 "
+          f"({types.count('conv2d')} conv2d, "
+          f"{types.count('affine_channel')} affine_channel, "
+          f"{types.count('momentum')} momentum, roi_align and its grad, "
+          f"generate_proposals, rpn_target_assign, "
+          f"generate_proposal_labels); {len(params)} parameters, "
+          f"{sum(int(np.prod(p.shape)) for p in params)} elements; "
+          f"{RCNN['image'][0]}x{RCNN['image'][1]}, B={RCNN_B}")
+    # conv1, three convs a bottleneck and a projection a stage, the RPN's
+    # three
+    _require(types.count("conv2d") == 1 + 3 * sum(stages) + 4 + 3 and
+             types.count("roi_align_grad") == 1 and
+             tuple(outs["res4"].shape[1:2]) == (16 * RCNN["width"],),
+             "faster_rcnn: the network")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    t1 = time.perf_counter()
+    rcnn_calibrate(pt, main, init, _rcnn_batch(
+        torch, pt, RCNN_CALIBRATION_SEED, pt.CUDAPlace(0)), pt.CUDAPlace(0))
+    torch.cuda.synchronize()
+    print(f"  faster_rcnn: the frozen affine_channels calibrated on batch "
+          f"{RCNN_CALIBRATION_SEED} in {time.perf_counter() - t1:.1f} s")
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    feed = _rcnn_batch(torch, pt, 0, pt.CUDAPlace(0))
+    lens = np.diff(feed["gt_box"].lod()[0]).tolist()
+    print(f"  batch: {RCNN_B} images, im_info "
+          f"{feed['im_info'].cpu().numpy()[:, :2].astype(int).tolist()}, "
+          f"{sum(lens)} gt boxes ({lens} an image), "
+          f"{int(np.asarray(feed['is_crowd']).sum())} crowd")
+    ra = [op for op in block.ops if op.type == "rpn_target_assign"][0]
+    score_index = block.var(ra.output("ScoreIndex")[0])
+    fetch = [outs["loss"], score_index, outs["rois"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, _ = _seq_compare(
+        torch, pt, kreg, "faster_rcnn", main, fetch, init, [feed],
+        RCNN_RUNS)
+    _require(not reasons,
+             f"faster_rcnn: the block was kept eager: {reasons}")
+    _rcnn_check_cpu(torch, pt, main, outs, cpu_state)
+    # the plan of [loss] alone: its first run eager, its second captures
+    _cap_run(exe, main, feed, [outs["loss"]], scope)
+    with _capture_clock() as clock:
+        c0 = _counters(exe)
+        t1 = time.perf_counter()
+        _cap_run(exe, main, feed, [outs["loss"]], scope)
+        secs = time.perf_counter() - t1
+    print(f"  faster_rcnn: {_counters(exe)['captures'] - c0['captures']} "
+          f"capture outside deterministic mode, {secs:.3f} s for the run: "
+          f"the capture rule {clock['rule']:.3f} s, warm-up "
+          f"{clock['warm_up']:.3f} s, capture {clock['capture']:.3f} s")
+    rates = _cap_turns(torch, "faster_rcnn", "images/s", RCNN_B, {
+        "eager": lambda: _cap_run(exe, main, feed, [outs["loss"]], scope,
+                                  cached=False, numpy=False)[0],
+        "captured": lambda: _cap_run(exe, main, feed, [outs["loss"]], scope,
+                                     numpy=False)[0]})
+    print(f"  faster_rcnn: captured / eager "
+          f"{rates['captured'] / rates['eager']:.3f}")
+    print(f"  faster_rcnn: peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; graph pools "
+          f"{_graph_pool_gb(torch)[0]:.3f} GB allocated")
+    gp = [op for op in block.ops if op.type == "generate_proposals"][0]
+    slots = ("Scores", "BboxDeltas", "ImInfo", "Anchors", "Variances")
+    got = exe.run(main, feed=feed, fetch_list=[gp.input(s)[0] for s in slots]
+                  + [outs["res4"].name, outs["rois"].name], scope=scope,
+                  use_program_cache=False, return_numpy=False)
+    tensors = [v.tensor if hasattr(v, "tensor") else v for v in got]
+    nms = _rcnn_nms_alone(torch, dict(zip(slots, tensors[:5])),
+                          gp.all_attrs())
+    roi_ms, roi_det, roi_peak = _rcnn_roi_align_alone(
+        torch, tensors[5], tensors[6], got[6].lod())
+    del got, tensors
+    gc_cuda(torch)
+    c0 = _counters(exe)
+    wall, busy, n_kernels, top = _seq_profile(torch, lambda: _cap_run(
+        exe, main, feed, [outs["loss"]], scope, numpy=False))
+    _require(_counters(exe)["replays"] == c0["replays"] + 1,
+             "faster_rcnn: the profiled run was no replay")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    _cap_run(exe, main, feed, [outs["loss"]], scope, numpy=False)
+    b.record()
+    torch.cuda.synchronize()
+    replay_ms = a.elapsed_time(b)
+    busy_ms = 1e3 * wall * busy
+    print(f"  faster_rcnn: profiled replay: wall {wall:.4f} s, device busy "
+          f"{100 * busy:.1f} % ({busy_ms:.3f} ms), {n_kernels} kernels "
+          f"seen by the profiler; a replay between CUDA events "
+          f"{replay_ms:.3f} ms")
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+    for name, (kernels, ms) in nms.items():
+        print(f"  faster_rcnn: {name} alone at the step's shapes "
+              f"({RCNN_PROPOSALS['train'][0]} candidates an image, {RCNN_B} "
+              f"images): {kernels} kernels, {ms:.3f} ms a captured call, "
+              f"{100 * ms / replay_ms:.1f} % of a replay's {replay_ms:.3f} ms")
+    print(f"  faster_rcnn: roi_align alone (14x14 of {RCNN_B * RCNN_ROI_BATCH}"
+          f" RoIs on res4 {list(outs['res4'].shape[1:])}): forward "
+          f"{roi_ms['forward']:.3f} ms, backward {roi_ms['backward']:.3f} ms "
+          f"a call (CUDA events); in deterministic mode "
+          f"{roi_det['forward']:.3f} / {roi_det['backward']:.3f} ms; peak "
+          f"{roi_peak / 1e9:.3f} GB beyond its inputs")
+    exe.close()
+    print(f"  faster_rcnn training: {time.perf_counter() - t0:.1f} s")
+    return scope, feed
+
+
+def _rcnn_detect(torch, pt, scope, batch):
+    """The detection program on the trained parameters through
+    Executor.run (eager, captured, replays) and AnalysisPredictor, in
+    deterministic mode: rows equal; images/s eager against captured;
+    multiclass_nms's device time alone and its share of a replay."""
+    import tempfile
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    prog, _, outs = faster_rcnn_detect(pt)
+    nmsed = outs["nmsed"]
+    feed = {"image": batch["image"], "im_info": batch["im_info"]}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    rows = []
+    with _deterministic(torch):
+        for cached in (False, True, True, True):
+            rows.append(_det_rows(_cap_run(exe, prog, feed, [nmsed], scope,
+                                           cached)[0]))
+    c = _counters(exe)
+    eq = all(np.array_equal(r[0], rows[0][0]) and r[1] == rows[0][1]
+             for r in rows)
+    det, lod = rows[0]
+    kept = det[det[:, 0] >= 0]
+    print(f"  faster_rcnn detect: {len(prog.global_block().ops)} ops; rows "
+          f"{list(det.shape)}, LoD {lod}; {len(kept)} detections; eager, "
+          f"captured and replayed rows equal {eq}; counters {c}; eager "
+          f"reasons {list(exe._engine.eager_reasons.values()) or 'none'}")
+    _require(eq and c["captures"] == 1 and c["replays"] == 2 and
+             det.shape == (RCNN_B * RCNN_DET["keep_top_k"], 6) and
+             np.isfinite(det).all(), "faster_rcnn detect: the rows")
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["image", "im_info"], [nmsed],
+                                       exe, main_program=prog)
+        predictor = create_paddle_predictor(AnalysisConfig(d))
+    host = {k: np.asarray(v.cpu()) for k, v in feed.items()}
+    with _deterministic(torch):
+        for _ in range(3):
+            for k, v in host.items():
+                predictor.get_input_tensor(k).copy_from_cpu(v)
+            predictor.zero_copy_run()
+    ot = predictor.get_output_tensor(predictor.get_output_names()[0])
+    prow = ot.copy_to_cpu()
+    worst = float(np.abs(prow - det).max())
+    pc = dict(predictor._engine.counters)
+    print(f"  faster_rcnn detect serving: AnalysisPredictor rows "
+          f"{list(prow.shape)}, LoD {ot.lod() == lod}, max |predictor - "
+          f"Executor| {worst:.3e} (bound {RCNN_ROWS_ATOL:g}); counters "
+          f"captures {pc['captures']}, replays {pc['replays']}")
+    _require(worst <= RCNN_ROWS_ATOL and ot.lod() == lod and
+             pc["captures"] == 1, "faster_rcnn detect: the predictor's rows")
+    del predictor, ot       # its graph's pool
+    gc_cuda(torch)
+    for _ in range(2):
+        _cap_run(exe, prog, feed, [nmsed], scope, numpy=False)
+    secs = {"eager": [], "captured": []}
+    for turn in range(2):
+        for m in (("eager", "captured") if turn == 0 else
+                  ("captured", "eager")):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(RCNN_TIMED):
+                _cap_run(exe, prog, feed, [nmsed], scope, m == "captured",
+                         numpy=False)
+            torch.cuda.synchronize()
+            secs[m].append(time.perf_counter() - t1)
+    n_img = RCNN_B * RCNN_TIMED
+    for m, v in secs.items():
+        print(f"  faster_rcnn detect {m}: s a pass of {n_img} images "
+              f"{', '.join(f'{x:.3f}' for x in v)}: "
+              f"{n_img / float(np.median(v)):.2f} images/s")
+    wall, busy, _ = _profiled_replay(torch, "faster_rcnn detect", exe, prog,
+                                     feed, [nmsed], scope)
+    nms = _nms_alone(torch, pt, scope, prog, feed,
+                     label="faster_rcnn multiclass_nms")
+    print(f"  faster_rcnn detect: multiclass_nms alone takes "
+          f"{1e3 * nms['device']:.3f} ms of device time captured, "
+          f"{100 * nms['device'] / (wall * busy):.1f} % of a captured "
+          f"detection run's {1e3 * wall * busy:.3f} ms")
+    exe.close()
+    print(f"  faster_rcnn detection: {time.perf_counter() - t0:.1f} s")
+
+
+def rcnn_phase(torch, dev):
+    """Faster R-CNN (faster_rcnn: ResNet-50-C4, the RPN, roi_align, res5)
+    at COCO's 800x1344 canvas and 81 classes, float32, B=2: Momentum
+    (warm-up, piecewise decay, L2Decay) trained RCNN_RUNS steps captured
+    against eager bit for bit (losses, parameters, the sampled ScoreIndex
+    and RoIs), the first step at B=1 against the CPU (dense outputs
+    within RCNN_RTOL, the discrete ops' rows on the card's inputs),
+    images/s eager against captured in turns, the capture clocked, peak
+    memory, a profiled replay, generate_proposals and its greedy NMS
+    loop alone (kernels, device ms, share of a replay), roi_align alone
+    (forward, backward, peak bytes); then the detection program through
+    Executor.run and AnalysisPredictor, its images/s and multiclass_nms's
+    device time. No kernel of the port lies on this path."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    scope, batch = _rcnn_train(torch, pt, kreg, dev)
+    _rcnn_detect(torch, pt, scope, batch)
+    del scope, batch
+    gc_cuda(torch)
+    print(f"  rcnn phase: {time.perf_counter() - t0:.1f} s")
+
+
 # the op sweep's tolerance, card against CPU: float32 within 1e-5
 # relative and absolute (libm and summation order differ); the rest exact
 SWEEP_TOL = 1e-5
@@ -7820,7 +8671,8 @@ def op_sweep_phase(torch, dev):
     runs += [(c[0], c[1], c[2], c[3], None) for c in fc.conv_cases()]
     runs += [(c[0], c[1], c[3], {s: 1 for s in c[4]}, c[2])
              for c in fc.sequence_cases() + fc.detection_cases()]
-    runs += [(c[0], c[1], c[3], c[4], c[2]) for c in fc.one_stage_cases()]
+    runs += [(c[0], c[1], c[3], c[4], c[2]) for c in fc.one_stage_cases()
+             + fc.two_stage_cases()]
     for op_type, ins, attrs, outs, lods in runs:
         card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
         cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
@@ -8012,6 +8864,8 @@ def main(argv=None):
     pose_adam = pose_phase(torch, dev, card)
     print("[yolo phase]")
     yolo_phase(torch, dev)
+    print("[rcnn phase]")
+    rcnn_phase(torch, dev)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

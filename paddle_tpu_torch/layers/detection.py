@@ -4,11 +4,14 @@ target_assign, mine_hard_examples, multiclass_nms, detection_output,
 ssd_loss, multi_box_head and detection_map; the one-stage detectors'
 density_prior_box, anchor_generator, box_clip, polygon_box_transform,
 yolov3_loss, yolo_box, sigmoid_focal_loss, retinanet_detection_output,
-retinanet_target_assign and box_decoder_and_assign), each with the JAX
-package's signature and ops. The composite layers compose the same primitive ops in the same
-order, but for two faults of the JAX builders: ssd_loss's mining reshape
-(one attr) and detection_output's softmax (one op); see their
-docstrings."""
+retinanet_target_assign and box_decoder_and_assign; the two-stage
+detectors' rpn_target_assign, generate_proposals,
+generate_proposal_labels, generate_mask_labels,
+roi_perspective_transform, distribute_fpn_proposals and
+collect_fpn_proposals), each with the JAX package's signature and ops.
+The composite layers compose the same primitive ops in the same order,
+but for two faults of the JAX builders: ssd_loss's mining reshape (one
+attr) and detection_output's softmax (one op); see their docstrings."""
 from __future__ import annotations
 
 import math
@@ -27,6 +30,9 @@ __all__ = [
     "polygon_box_transform", "yolov3_loss", "yolo_box",
     "sigmoid_focal_loss", "retinanet_detection_output",
     "retinanet_target_assign", "box_decoder_and_assign",
+    "rpn_target_assign", "generate_proposals", "generate_proposal_labels",
+    "generate_mask_labels", "roi_perspective_transform",
+    "distribute_fpn_proposals", "collect_fpn_proposals",
 ]
 
 
@@ -498,3 +504,156 @@ def box_decoder_and_assign(prior_box, prior_box_var, target_box,
         outputs={"DecodeBox": decoded, "OutputAssignBox": assigned},
         attrs={"box_clip": float(box_clip)})
     return decoded, assigned
+
+
+# ---------------------------------------------------------------------------
+# two-stage detectors
+# ---------------------------------------------------------------------------
+
+def rpn_target_assign(bbox_pred, cls_logits, anchor_box, anchor_var,
+                      gt_boxes, is_crowd, im_info,
+                      rpn_batch_size_per_im=256,
+                      rpn_straddle_thresh=0.0, rpn_fg_fraction=0.5,
+                      rpn_positive_overlap=0.7,
+                      rpn_negative_overlap=0.3, use_random=True):
+    """(pred_score, pred_loc, target_label, target_bbox,
+    bbox_inside_weight): the predictions (cls_logits and bbox_pred in
+    the anchors' order, [N, M, 1] and [N, M, 4]) gathered by the op's
+    -1-padded [R, 1] indices, which gather keeps: [R, 1, 1] and [R, 1,
+    4] (a -1 reads the last row, as jnp.take counts from the end)."""
+    helper = LayerHelper("rpn_target_assign")
+    loc_index = helper.create_variable_for_type_inference("int32")
+    score_index = helper.create_variable_for_type_inference("int32")
+    target_label = helper.create_variable_for_type_inference("int32")
+    target_bbox = _out(helper, anchor_box.dtype)
+    bbox_inside_weight = _out(helper, anchor_box.dtype)
+    helper.append_op(
+        "rpn_target_assign",
+        inputs={"Anchor": anchor_box, "GtBoxes": gt_boxes,
+                "IsCrowd": is_crowd, "ImInfo": im_info},
+        outputs={"LocationIndex": loc_index,
+                 "ScoreIndex": score_index,
+                 "TargetLabel": target_label,
+                 "TargetBBox": target_bbox,
+                 "BBoxInsideWeight": bbox_inside_weight},
+        attrs={"rpn_batch_size_per_im": rpn_batch_size_per_im,
+               "rpn_straddle_thresh": rpn_straddle_thresh,
+               "rpn_fg_fraction": rpn_fg_fraction,
+               "rpn_positive_overlap": rpn_positive_overlap,
+               "rpn_negative_overlap": rpn_negative_overlap,
+               "use_random": use_random})
+    preds = _nn.reshape(bbox_pred, [-1, 4])
+    scores = _nn.reshape(cls_logits, [-1, 1])
+    pred_loc = _nn.gather(preds, loc_index)
+    pred_score = _nn.gather(scores, score_index)
+    return (pred_score, pred_loc, target_label, target_bbox,
+            bbox_inside_weight)
+
+
+def generate_proposals(scores, bbox_deltas, im_info, anchors,
+                       variances, pre_nms_top_n=6000,
+                       post_nms_top_n=1000, nms_thresh=0.5,
+                       min_size=0.1, eta=1.0, name=None):
+    helper = LayerHelper("generate_proposals", name=name)
+    rois = _out(helper, scores.dtype)
+    roi_probs = _out(helper, scores.dtype)
+    helper.append_op(
+        "generate_proposals",
+        inputs={"Scores": scores, "BboxDeltas": bbox_deltas,
+                "ImInfo": im_info, "Anchors": anchors,
+                "Variances": variances},
+        outputs={"RpnRois": rois, "RpnRoiProbs": roi_probs},
+        attrs={"pre_nms_topN": pre_nms_top_n,
+               "post_nms_topN": post_nms_top_n,
+               "nms_thresh": nms_thresh, "min_size": min_size,
+               "eta": eta})
+    return rois, roi_probs
+
+
+def generate_proposal_labels(rpn_rois, gt_classes, is_crowd, gt_boxes,
+                             im_info, batch_size_per_im=256,
+                             fg_fraction=0.25, fg_thresh=0.25,
+                             bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+                             bbox_reg_weights=(0.1, 0.1, 0.2, 0.2),
+                             class_nums=None, use_random=True):
+    helper = LayerHelper("generate_proposal_labels")
+    rois = _out(helper, rpn_rois.dtype)
+    labels = helper.create_variable_for_type_inference("int32")
+    bbox_targets = _out(helper, rpn_rois.dtype)
+    bbox_inside = _out(helper, rpn_rois.dtype)
+    bbox_outside = _out(helper, rpn_rois.dtype)
+    helper.append_op(
+        "generate_proposal_labels",
+        inputs={"RpnRois": rpn_rois, "GtClasses": gt_classes,
+                "IsCrowd": is_crowd, "GtBoxes": gt_boxes,
+                "ImInfo": im_info},
+        outputs={"Rois": rois, "LabelsInt32": labels,
+                 "BboxTargets": bbox_targets,
+                 "BboxInsideWeights": bbox_inside,
+                 "BboxOutsideWeights": bbox_outside},
+        attrs={"batch_size_per_im": batch_size_per_im,
+               "fg_fraction": fg_fraction, "fg_thresh": fg_thresh,
+               "bg_thresh_hi": bg_thresh_hi,
+               "bg_thresh_lo": bg_thresh_lo,
+               "bbox_reg_weights": list(bbox_reg_weights),
+               "class_nums": class_nums or 81,
+               "use_random": use_random})
+    return rois, labels, bbox_targets, bbox_inside, bbox_outside
+
+
+def generate_mask_labels(im_info, gt_classes, is_crowd, gt_segms, rois,
+                         labels_int32, num_classes, resolution):
+    helper = LayerHelper("generate_mask_labels")
+    mask_rois = _out(helper, rois.dtype)
+    has_mask = helper.create_variable_for_type_inference("int32")
+    mask_int32 = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "generate_mask_labels",
+        inputs={"ImInfo": im_info, "GtClasses": gt_classes,
+                "IsCrowd": is_crowd, "GtSegms": gt_segms, "Rois": rois,
+                "LabelsInt32": labels_int32},
+        outputs={"MaskRois": mask_rois, "RoiHasMaskInt32": has_mask,
+                 "MaskInt32": mask_int32},
+        attrs={"num_classes": num_classes, "resolution": resolution})
+    return mask_rois, has_mask, mask_int32
+
+
+def roi_perspective_transform(input, rois, transformed_height,
+                              transformed_width, spatial_scale=1.0):
+    helper = LayerHelper("roi_perspective_transform")
+    out = _out(helper, input.dtype)
+    helper.append_op(
+        "roi_perspective_transform",
+        inputs={"X": input, "ROIs": rois},
+        outputs={"Out": out},
+        attrs={"transformed_height": transformed_height,
+               "transformed_width": transformed_width,
+               "spatial_scale": spatial_scale})
+    return out
+
+
+def distribute_fpn_proposals(fpn_rois, min_level, max_level,
+                             refer_level, refer_scale, name=None):
+    helper = LayerHelper("distribute_fpn_proposals", name=name)
+    n = max_level - min_level + 1
+    outs = [_out(helper, fpn_rois.dtype) for _ in range(n)]
+    restore = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "distribute_fpn_proposals", inputs={"FpnRois": fpn_rois},
+        outputs={"MultiFpnRois": outs, "RestoreIndex": restore},
+        attrs={"min_level": min_level, "max_level": max_level,
+               "refer_level": refer_level, "refer_scale": refer_scale})
+    return outs, restore
+
+
+def collect_fpn_proposals(multi_rois, multi_scores, min_level,
+                          max_level, post_nms_top_n, name=None):
+    helper = LayerHelper("collect_fpn_proposals", name=name)
+    out = _out(helper, multi_rois[0].dtype)
+    helper.append_op(
+        "collect_fpn_proposals",
+        inputs={"MultiLevelRois": multi_rois,
+                "MultiLevelScores": multi_scores},
+        outputs={"FpnRois": out},
+        attrs={"post_nms_topN": post_nms_top_n})
+    return out

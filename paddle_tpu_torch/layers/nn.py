@@ -12,9 +12,10 @@ activation op families, with autoincreased_step_counter; and those of
 the nn family (group_norm, instance_norm, data_norm, log_softmax,
 l2_normalize, lrn), sign, dice_loss and npair_loss; mul, sum,
 gaussian_random, lstm_unit, gru_unit, merge_selected_rows,
-get_tensor_from_selected_rows and rank; and the conv family's
+get_tensor_from_selected_rows and rank; the conv family's
 (conv2d_transpose, conv3d, conv3d_transpose, pool3d, the adaptive pools,
-the resizes, the layout ops, unfold, spp)."""
+the resizes, the layout ops, unfold, spp); and the RoI poolings
+roi_align, roi_pool and psroi_pool."""
 from __future__ import annotations
 
 import builtins
@@ -61,6 +62,8 @@ __all__ = [
     "resize_bilinear", "resize_nearest", "image_resize_short",
     "pixel_shuffle", "space_to_depth", "shuffle_channel",
     "affine_channel", "unfold", "temporal_shift", "spp",
+    # the RoI poolings
+    "roi_align", "roi_pool", "psroi_pool",
 ]
 
 
@@ -1343,3 +1346,45 @@ def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
 def spp(input, pyramid_height, pool_type="max"):
     return _single_op("spp", input, {"pyramid_height": pyramid_height,
                                      "pooling_type": pool_type})
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, name=None):
+    helper = LayerHelper("roi_align", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "roi_align", inputs={"X": input, "ROIs": rois},
+        outputs={"Out": out},
+        attrs={"pooled_height": pooled_height,
+               "pooled_width": pooled_width,
+               "spatial_scale": spatial_scale,
+               "sampling_ratio": sampling_ratio})
+    return out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, name=None):
+    helper = LayerHelper("roi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    argmax = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "roi_pool", inputs={"X": input, "ROIs": rois},
+        outputs={"Out": out, "Argmax": argmax},
+        attrs={"pooled_height": pooled_height,
+               "pooled_width": pooled_width,
+               "spatial_scale": spatial_scale})
+    return out
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale,
+               pooled_height, pooled_width, name=None):
+    helper = LayerHelper("psroi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "psroi_pool", inputs={"X": input, "ROIs": rois},
+        outputs={"Out": out},
+        attrs={"output_channels": output_channels,
+               "spatial_scale": spatial_scale,
+               "pooled_height": pooled_height,
+               "pooled_width": pooled_width})
+    return out

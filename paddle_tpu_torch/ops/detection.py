@@ -4,7 +4,10 @@ mine_hard_examples, multiclass_nms and detection_map; and the
 one-stage detectors' yolov3_loss, yolo_box, anchor_generator,
 density_prior_box, sigmoid_focal_loss, retinanet_target_assign,
 retinanet_detection_output, box_clip, box_decoder_and_assign and
-polygon_box_transform.
+polygon_box_transform; and the two-stage detectors' roi_align, roi_pool,
+psroi_pool, roi_perspective_transform, generate_proposals,
+rpn_target_assign, generate_proposal_labels, generate_mask_labels,
+distribute_fpn_proposals and collect_fpn_proposals.
 
 Every op but detection_map is shape-static for a LoD, so a block that
 holds them is captured as one CUDA graph. The JAX lowerings unroll over
@@ -14,12 +17,16 @@ padded to the batch's largest count, through index and mask tensors
 made from the LoD offsets by ExecContext.host_table (once a plan: no
 host copy under capture), and each greedy loop runs once for the batch,
 over [N, G_max, M] (bipartite_match), [N, C-1, K] (multiclass_nms) and
-[N, K] (retinanet_detection_output). The priors and anchors are
-host-table constants. The results equal the JAX lowerings', ties
-included: argmax takes the first maximum and every sort is stable, as
-jnp.argsort of the negated scores is. On the meta device (build-time
-shape inference, the engine's capture rule) the loops are skipped: they
-change no shape.
+[N, K] (retinanet_detection_output, generate_proposals). The sampling
+of rpn_target_assign and generate_proposal_labels draws from the op's
+generator (ExecContext.generator: a captured step draws what an eager
+one draws). The RoI ops gather their samples from a channels-last view
+of the map, so that their gradient is one accumulate of rows. The
+priors and anchors are host-table constants. The results equal the JAX
+lowerings', ties included: argmax takes the first maximum and every
+sort is stable, as jnp.argsort of the negated scores is. On the meta
+device (build-time shape inference, the engine's capture rule) the
+loops are skipped: they change no shape.
 
 detection_map reads its inputs on the host (value-dependent per-class
 lists, as the reference registers it for the CPU only), so a block that
@@ -762,6 +769,21 @@ def _row_images(ctx, kind, segs, n_rows):
     return ctx.host_table(kind, (tuple(segs), n_rows), build)
 
 
+def _encode(a, g):
+    """The (+1 sizes) centre-size offsets of boxes g against boxes a,
+    [..., 4]: dx, dy over a's size, log size ratios."""
+    aw = a[..., 2] - a[..., 0] + 1.0
+    ah = a[..., 3] - a[..., 1] + 1.0
+    acx = a[..., 0] + aw / 2
+    acy = a[..., 1] + ah / 2
+    gw = g[..., 2] - g[..., 0] + 1.0
+    gh = g[..., 3] - g[..., 1] + 1.0
+    gcx = (g[..., 2] + g[..., 0]) / 2
+    gcy = (g[..., 3] + g[..., 1]) / 2
+    return [(gcx - acx) / aw, (gcy - acy) / ah, torch.log(gw / aw),
+            torch.log(gh / ah)]
+
+
 @register_op("box_clip", no_grad_slots=("ImInfo",))
 def box_clip(ctx):
     """Input's boxes (x1, y1, x2, y2 in its last dim of 4k) clipped to
@@ -1079,16 +1101,7 @@ def retinanet_target_assign(ctx):
     lab = torch.where(is_pos, lab, 0)
     lab = torch.where(is_pos | is_neg, lab, -1)
     g = torch.gather(gtp, 1, best_gt[..., None].expand(n, m, 4))
-    aw = anchors[:, 2] - anchors[:, 0] + 1.0
-    ah = anchors[:, 3] - anchors[:, 1] + 1.0
-    acx = anchors[:, 0] + aw / 2
-    acy = anchors[:, 1] + ah / 2
-    gw = g[..., 2] - g[..., 0] + 1.0
-    gh = g[..., 3] - g[..., 1] + 1.0
-    gcx = (g[..., 2] + g[..., 0]) / 2
-    gcy = (g[..., 3] + g[..., 1]) / 2
-    tb = torch.stack([(gcx - acx) / aw, (gcy - acy) / ah,
-                      torch.log(gw / aw), torch.log(gh / ah)], dim=-1)
+    tb = torch.stack(_encode(anchors, g), dim=-1)
     i32 = torch.int32
     ctx.set_output("LocationIndex", torch.where(is_pos, row, minus)
                    .to(i32).reshape(-1, 1))
@@ -1174,3 +1187,559 @@ def retinanet_detection_output(ctx):
         torch.gather(cl, 1, order),
         torch.gather(cb, 1, order[..., None].expand(n, kt, 4)), keep_top_k))
     ctx.set_lod("Out", [[keep_top_k * i for i in range(n + 1)]])
+
+
+# ---------------------------------------------------------------------------
+# two-stage detectors: RoI feature extraction
+# ---------------------------------------------------------------------------
+
+def _roi_images(ctx, n_rois):
+    """[R] int64: each RoI's image, its LoD segment's number (image 0
+    for all of them without a LoD, as the JAX lowerings read RoIs)."""
+    return _row_images(ctx, "roi_images",
+                       _segments(ctx.get_lod("ROIs"), n_rois), n_rois)
+
+
+def _bilinear(rows, h, w, bid, ys, xs):
+    """Bilinear samples of a map at (ys, xs) [R, ...] of image bid [R]
+    (the JAX _bilinear_sample: corners clipped into the map, weights
+    clipped to [0, 1]): [R, ..., C]. `rows` is the map [N, C, h, w] as
+    channels-last rows [N*h*w, C]: each of the four taps fetches C
+    contiguous values a sample (index_select), so its gradient is one
+    accumulate of rows, deterministic in torch's deterministic mode; the
+    temporaries are [R, ..., C]."""
+    c = rows.shape[1]
+    y0 = torch.clamp(torch.floor(ys), 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs), 0, w - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    ly = torch.clamp(ys - y0, 0.0, 1.0)[..., None]
+    lx = torch.clamp(xs - x0, 0.0, 1.0)[..., None]
+    base = bid.reshape((-1,) + (1,) * (ys.dim() - 1)) * (h * w)
+
+    def tap(yy, xx):
+        # clamped again as integers: a NaN coordinate reads row 0 (as
+        # jnp's clamped gather reads a row) rather than out of range
+        idx = (base + yy.long().clamp(0, h - 1) * w +
+               xx.long().clamp(0, w - 1)).reshape(-1)
+        return rows.index_select(0, idx).reshape(ys.shape + (c,))
+
+    out = tap(y0, x0) * ((1 - ly) * (1 - lx))
+    out = out + tap(y0, x1) * ((1 - ly) * lx)
+    out = out + tap(y1, x0) * (ly * (1 - lx))
+    return out + tap(y1, x1) * (ly * lx)
+
+
+def _channels_last(x):
+    n, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(n * h * w, c)
+
+
+# roi_align's samples are gathered for as many RoIs at a time as keep a
+# temporary [RoIs, samples, C] within this many elements (1 GiB of
+# float32): Faster R-CNN's 2 x 512 RoIs of 28 x 28 samples of 1024
+# channels take four rounds, not 3.3 GB temporaries
+_SAMPLES_AT_ONCE = 1 << 28
+
+
+@register_op("roi_align", no_grad_slots=("ROIs",))
+def roi_align(ctx):
+    """Out [R, C, ph, pw]: each RoI (x1, y1, x2, y2 of ROIs [R, 4], times
+    spatial_scale; its image the LoD segment) cut into ph x pw bins of
+    its size (at least 1), each bin the mean of sr x sr bilinear samples
+    at the centres of its sub-cells, sr = sampling_ratio or 2 where that
+    is at most 0 (the JAX rule: the reference adapts the count to the
+    RoI). The gradient reaches X only. The samples are taken for a block
+    of RoIs at a time (_SAMPLES_AT_ONCE) and pooled before the next."""
+    x, rois = ctx.input("X"), ctx.input("ROIs")
+    ph, pw = ctx.attr("pooled_height", 1), ctx.attr("pooled_width", 1)
+    sr = ctx.attr("sampling_ratio", -1)
+    sr = sr if sr > 0 else 2
+    r, c, h, w = rois.shape[0], x.shape[1], x.shape[2], x.shape[3]
+    box = rois * ctx.attr("spatial_scale", 1.0)
+    x1, y1, x2, y2 = box.unbind(1)
+    bin_w = torch.clamp_min(x2 - x1, 1.0) / pw
+    bin_h = torch.clamp_min(y2 - y1, 1.0) / ph
+    iy = (torch.arange(ph * sr, dtype=x.dtype, device=x.device) + 0.5) / sr
+    ix = (torch.arange(pw * sr, dtype=x.dtype, device=x.device) + 0.5) / sr
+    ys = y1[:, None] + iy[None, :] * bin_h[:, None]          # [R, ph sr]
+    xs = x1[:, None] + ix[None, :] * bin_w[:, None]          # [R, pw sr]
+    rows, bid = _channels_last(x), _roi_images(ctx, r)
+    step = max(1, _SAMPLES_AT_ONCE // (ph * sr * pw * sr * c))
+    pooled = []
+    for i in range(0, r, step):
+        k = min(step, r - i)
+        shape = (k, ph * sr, pw * sr)
+        s = _bilinear(rows, h, w, bid[i:i + k],
+                      ys[i:i + k, :, None].expand(shape),
+                      xs[i:i + k, None, :].expand(shape))
+        pooled.append(s.reshape(k, ph, sr, pw, sr, c).mean(dim=(2, 4)))
+    out = pooled[0] if len(pooled) == 1 else torch.cat(pooled)
+    ctx.set_output("Out", out.permute(0, 3, 1, 2))
+
+
+def _bin_masks(start, size, bins, n, dtype):
+    """[R, bins, n] bool: cell j of the map lies in bin p of each RoI,
+    floor(start + p size) <= j < ceil(start + (p + 1) size) (the JAX
+    lowerings' integer bins; start and size [R])."""
+    dev = start.device
+    grid = torch.arange(n, dtype=dtype, device=dev)[None, None, :]
+    p = torch.arange(bins, dtype=dtype, device=dev)[None, :, None]
+    s, z = start[:, None, None], size[:, None, None]
+    return (torch.floor(s + p * z) <= grid) & \
+        (grid < torch.ceil(s + (p + 1) * z))
+
+
+@register_op("roi_pool", no_grad_slots=("ROIs",))
+def roi_pool(ctx):
+    """Out [R, C, ph, pw]: the max over each integer bin of each RoI
+    (corners times spatial_scale, rounded half to even; size + 1, at
+    least 1), 0 for an empty bin. The gradient reaches X, split evenly
+    over a bin's tied maxima (one amax over the whole bin, as jnp.max
+    over both axes splits it). Argmax [R, C, ph, pw] int64: the flat h *
+    W + w index of each bin's first maximum in row-major order, -1 for
+    an empty bin (the reference's; the JAX lowering writes zeros). The
+    bins are masks over the whole map, [R, C, ph, pw, H, W] as in the
+    JAX lowering: a size for tests and sweeps, not a full-width head."""
+    x, rois = ctx.input("X"), ctx.input("ROIs")
+    ph, pw = ctx.attr("pooled_height", 1), ctx.attr("pooled_width", 1)
+    _, c, h, w = x.shape
+    r = rois.shape[0]
+    x1, y1, x2, y2 = torch.round(rois * ctx.attr("spatial_scale",
+                                                 1.0)).unbind(1)
+    bin_w = torch.clamp_min(x2 - x1 + 1, 1.0) / pw
+    bin_h = torch.clamp_min(y2 - y1 + 1, 1.0) / ph
+    m = _bin_masks(y1, bin_h, ph, h, x.dtype)[:, :, None, :, None] & \
+        _bin_masks(x1, bin_w, pw, w, x.dtype)[:, None, :, None, :]
+    feat = x.index_select(0, _roi_images(ctx, r))
+    masked = torch.where(m[:, None], feat[:, :, None, None],
+                         x.new_full((), float("-inf"))).reshape(
+                             r, c, ph, pw, h * w)
+    out = torch.amax(masked, dim=-1)
+    ctx.set_output("Out", torch.where(torch.isfinite(out), out,
+                                      x.new_zeros(())))
+    empty = ~torch.any(m.reshape(r, 1, ph, pw, h * w), dim=-1)
+    ctx.set_output("Argmax", torch.where(
+        empty, -1, torch.argmax(masked.detach(), dim=-1)))
+
+
+@register_op("psroi_pool", no_grad_slots=("ROIs",))
+def psroi_pool(ctx):
+    """Out [R, output_channels, ph, pw]: position-sensitive pooling, bin
+    (i, j) of channel c the mean of input channel c ph pw + i pw + j over
+    the bin's integer cells (corners rounded, then times spatial_scale,
+    the far corner + 1; size at least 0.1; an empty bin 0). The gradient
+    reaches X."""
+    x, rois = ctx.input("X"), ctx.input("ROIs")
+    oc = ctx.attr("output_channels")
+    ph, pw = ctx.attr("pooled_height", 1), ctx.attr("pooled_width", 1)
+    scale = ctx.attr("spatial_scale", 1.0)
+    _, _, h, w = x.shape
+    r = rois.shape[0]
+    x1 = torch.round(rois[:, 0]) * scale
+    y1 = torch.round(rois[:, 1]) * scale
+    x2 = torch.round(rois[:, 2] + 1.0) * scale
+    y2 = torch.round(rois[:, 3] + 1.0) * scale
+    bin_w = torch.clamp_min(x2 - x1, 0.1) / pw
+    bin_h = torch.clamp_min(y2 - y1, 0.1) / ph
+    m = _bin_masks(y1, bin_h, ph, h, x.dtype)[:, :, None, :, None] & \
+        _bin_masks(x1, bin_w, pw, w, x.dtype)[:, None, :, None, :]
+    feat = x.index_select(0, _roi_images(ctx, r)).reshape(r, oc, ph, pw,
+                                                          h, w)
+    cnt = torch.clamp_min(torch.sum(m, dim=(3, 4)), 1)       # [R, ph, pw]
+    s = torch.sum(torch.where(m[:, None], feat, x.new_zeros(())),
+                  dim=(4, 5))
+    ctx.set_output("Out", s / cnt[:, None])
+
+
+@register_op("roi_perspective_transform", no_grad_slots=("ROIs",))
+def roi_perspective_transform(ctx):
+    """Out [R, C, transformed_height, transformed_width]: each quad RoI
+    (ROIs [R, 8], four (x, y) corners times spatial_scale) sampled
+    bilinearly at the grid of the JAX lowering: the point at (u, v) =
+    ((j + 0.5) / out_w, (i + 0.5) / out_h) interpolated bilinearly
+    between the corners (top edge 0 -> 1, bottom edge 3 -> 2). The
+    gradient reaches X."""
+    x, rois = ctx.input("X"), ctx.input("ROIs")
+    oh = ctx.attr("transformed_height", 1)
+    ow = ctx.attr("transformed_width", 1)
+    r = rois.shape[0]
+    q = (rois.reshape(r, 4, 2) * ctx.attr("spatial_scale", 1.0))[
+        :, :, None, None, :]                                 # [R, 4, 1, 1, 2]
+    u = (torch.arange(ow, dtype=x.dtype, device=x.device) + 0.5) / ow
+    v = (torch.arange(oh, dtype=x.dtype, device=x.device) + 0.5) / oh
+    ug = u[None, :, None].expand(oh, ow, 1)
+    vg = v[:, None, None].expand(oh, ow, 1)
+    top = q[:, 0] * (1 - ug) + q[:, 1] * ug                  # [R, oh, ow, 2]
+    bot = q[:, 3] * (1 - ug) + q[:, 2] * ug
+    pts = top * (1 - vg) + bot * vg
+    s = _bilinear(_channels_last(x), x.shape[2], x.shape[3],
+                  _roi_images(ctx, r), pts[..., 1], pts[..., 0])
+    ctx.set_output("Out", s.permute(0, 3, 1, 2))
+
+
+# ---------------------------------------------------------------------------
+# two-stage detectors: proposals and their targets
+# ---------------------------------------------------------------------------
+
+def _over_rows(b, thr, normalized, rows=2048):
+    """[..., K, K] bool: the IoU of candidates b [..., K, 4] (sorted)
+    above row i's threshold thr[i], made in blocks of `rows` rows so that
+    the float temporaries stay [..., rows, K]."""
+    k = b.shape[-2]
+    return torch.cat([_pairwise_iou(b[..., i:i + rows, :], b, normalized)
+                      > thr[i:i + rows, None] for i in range(0, k, rows)],
+                     dim=-2)
+
+
+def _sample(mask, count, gen):
+    """[N, count] int64: the first min(count, sum) entries of each row
+    of `mask` [N, M] in index order (JAX's stable argsort of the negated
+    mask), or with `gen` in the order of the mask times 1 + a uniform
+    draw; -1 after them."""
+    score = mask.to(torch.float32)
+    if gen is not None:
+        score = score * (1 + torch.rand(mask.shape, generator=gen,
+                                        device=mask.device))
+    order = torch.sort(score, dim=1, descending=True, stable=True)[1][
+        :, :count]
+    got = torch.arange(count, device=mask.device)[None, :] < \
+        torch.sum(mask, dim=1, keepdim=True)
+    return torch.where(got, order, -1)
+
+
+def _generator(ctx):
+    """The op's generator where use_random draws (None on the meta
+    device, where nothing is drawn)."""
+    return ctx.generator() if ctx.attr("use_random", True) else None
+
+
+@register_no_grad_op("generate_proposals")
+def generate_proposals(ctx):
+    """RPN proposals of each image: its A x H x W Scores (sorted by
+    descending score, stable) cut to pre_nms_topN (all where it is at
+    most 0), decoded against Anchors [H, W, A, 4] and Variances (log
+    sizes capped at log(1000 / 16)), clipped to ImInfo's (h, w); a box
+    under min_size * scale a side scores -1; a greedy NMS (IoU above the
+    step's threshold: nms_thresh, times eta after each step while above
+    0.5) with no top-k cut over them by descending score; the kept ones
+    with a positive score, in that order. RpnRois [N * post_nms_topN, 4]
+    and RpnRoiProbs [N * post_nms_topN, 1], zero-padded, LoD
+    [post_nms_topN * i]. Batched: the IoU-above-threshold mask [N, K, K]
+    made in row blocks, then K - 1 greedy steps of 4 kernels each."""
+    scores, deltas = ctx.input("Scores"), ctx.input("BboxDeltas")
+    im_info = ctx.input("ImInfo")
+    anc = ctx.input("Anchors").reshape(-1, 4)
+    var = ctx.input("Variances").reshape(-1, 4)
+    pre, post = ctx.attr("pre_nms_topN", 6000), ctx.attr("post_nms_topN",
+                                                          1000)
+    eta = ctx.attr("eta", 1.0)
+    n, a, h, w = scores.shape
+    m = a * h * w
+    k = min(pre, m) if pre > 0 else m
+    if post > k:
+        raise ValueError(
+            f"generate_proposals: post_nms_topN {post} exceeds the {k} "
+            f"candidates an image, so the static contract of "
+            f"post_nms_topN rows an image cannot hold")
+    s = scores.permute(0, 2, 3, 1).reshape(n, m)
+    d = deltas.reshape(n, a, 4, h, w).permute(0, 3, 4, 1, 2).reshape(n, m, 4)
+    s_t, top = torch.sort(s, dim=1, descending=True, stable=True)
+    s_t, top = s_t[:, :k], top[:, :k]
+    d_t = torch.gather(d, 1, top[..., None].expand(n, k, 4))
+    a_t = anc.index_select(0, top.reshape(-1)).reshape(n, k, 4)
+    v_t = var.index_select(0, top.reshape(-1)).reshape(n, k, 4)
+    aw = a_t[..., 2] - a_t[..., 0] + 1.0
+    ah = a_t[..., 3] - a_t[..., 1] + 1.0
+    acx = a_t[..., 0] + aw / 2
+    acy = a_t[..., 1] + ah / 2
+    cx = v_t[..., 0] * d_t[..., 0] * aw + acx
+    cy = v_t[..., 1] * d_t[..., 1] * ah + acy
+    cap = math.log(1000.0 / 16)
+    bw = torch.exp(torch.clamp_max(v_t[..., 2] * d_t[..., 2], cap)) * aw
+    bh = torch.exp(torch.clamp_max(v_t[..., 3] * d_t[..., 3], cap)) * ah
+    zero = scores.new_zeros(())
+    wmax = (im_info[:n, 1] - 1)[:, None]
+    hmax = (im_info[:n, 0] - 1)[:, None]
+    props = torch.stack([
+        _clip(cx - bw / 2, zero, wmax), _clip(cy - bh / 2, zero, hmax),
+        _clip(cx + bw / 2 - 1, zero, wmax),
+        _clip(cy + bh / 2 - 1, zero, hmax)], dim=-1)         # [N, K, 4]
+    ms = (ctx.attr("min_size", 0.1) * im_info[:n, 2])[:, None]
+    big = ((props[..., 2] - props[..., 0] + 1) >= ms) & \
+        ((props[..., 3] - props[..., 1] + 1) >= ms)
+    s_t = torch.where(big, s_t, scores.new_full((), -1.0))
+    s_sorted, order = torch.sort(s_t, dim=1, descending=True, stable=True)
+    cand = torch.gather(props, 1, order[..., None].expand(n, k, 4))
+    keep = torch.ones((n, k), dtype=torch.bool, device=scores.device)
+    if ctx.device.type != "meta":
+        nms = ctx.attr("nms_thresh", 0.5)
+        thr = ctx.host_table("nms_thresholds", (k, nms, eta),
+                             lambda: _nms_thresholds(k, nms, eta))
+        _greedy_keep(_over_rows(cand, thr, False), keep)
+    valid = keep & (s_sorted > 0)
+    perm = torch.sort(valid.to(torch.uint8), dim=1, descending=True,
+                      stable=True)[1][:, :post]
+    sel = torch.gather(order, 1, perm)
+    ok = torch.gather(valid, 1, perm)
+    rois = torch.gather(props, 1, sel[..., None].expand(n, post, 4)) * \
+        ok[..., None]
+    probs = torch.where(ok, torch.gather(s_t, 1, sel), zero)
+    lod = [[post * i for i in range(n + 1)]]
+    ctx.set_output("RpnRois", rois.reshape(n * post, 4))
+    ctx.set_output("RpnRoiProbs", probs.reshape(n * post, 1))
+    ctx.set_lod("RpnRois", lod)
+    ctx.set_lod("RpnRoiProbs", lod)
+
+
+@register_no_grad_op("rpn_target_assign")
+def rpn_target_assign(ctx):
+    """RPN training targets of the M anchors (Anchor, pixel boxes) of
+    each image against its GtBoxes (a LoD segment an image, IsCrowd's
+    crowd boxes and the padding of the batch's other images at IoU 0):
+    an anchor inside the image (rpn_straddle_thresh) is positive at IoU
+    >= rpn_positive_overlap with its best box or where it is a non-crowd
+    box's best inside anchor (the first on a tie; where two boxes pick
+    one anchor it is positive if either is not a crowd box: the JAX
+    lowering's duplicate writes leave that to the order of its scatter),
+    negative below rpn_negative_overlap; then n_fg = int(batch *
+    fg_fraction) positives and batch - n_fg negatives sampled (the first
+    in anchor order, or with use_random a draw from the op's generator).
+    LocationIndex [N * n_fg, 1] and ScoreIndex [N * batch, 1] int32
+    (the row b * M + m of a sampled anchor, positives first; -1
+    padding), TargetLabel [N * batch, 1] int32 (1, 0, -1 padding),
+    TargetBBox and BBoxInsideWeight [N * n_fg, 4] (the best box encoded
+    against the anchor; 0 on padding)."""
+    anchors = ctx.input("Anchor").reshape(-1, 4)
+    gt, crowd, im_info = (ctx.input("GtBoxes"), ctx.input("IsCrowd"),
+                          ctx.input("ImInfo"))
+    batch = ctx.attr("rpn_batch_size_per_im", 256)
+    straddle = ctx.attr("rpn_straddle_thresh", 0.0)
+    m, dev = anchors.shape[0], anchors.device
+    n_fg = int(batch * ctx.attr("rpn_fg_fraction", 0.5))
+    n_bg = batch - n_fg
+    if max(n_fg, n_bg) > m:
+        raise ValueError(f"rpn_target_assign: {max(n_fg, n_bg)} samples of "
+                         f"{m} anchors")
+    segs = _segments(ctx.get_lod("GtBoxes"), gt.shape[0])
+    n = len(segs)
+    idx, valid = _padded_rows(ctx, "rpn_gt", segs)           # [N, G]
+    gtp = gt[idx]
+    live = valid if crowd is None else \
+        valid & (crowd.reshape(-1)[idx] == 0)
+    info = im_info[:n]
+    inside = (anchors[:, 0] >= -straddle) & (anchors[:, 1] >= -straddle) & \
+        (anchors[:, 2] < info[:, 1:2] + straddle) & \
+        (anchors[:, 3] < info[:, 0:1] + straddle)            # [N, M]
+    iou = torch.where(live[:, None, :],
+                      _pairwise_iou(anchors[None], gtp, normalized=False),
+                      anchors.new_zeros(()))                 # [N, M, G]
+    best, best_gt = torch.amax(iou, dim=2), torch.argmax(iou, dim=2)
+    per_gt = torch.argmax(torch.where(inside[..., None], iou,
+                                      anchors.new_full((), -1.0)), dim=1)
+    forced = torch.zeros((n, m + 1), dtype=torch.bool, device=dev).scatter(
+        1, torch.where(live, per_gt, m),
+        torch.ones(live.shape, dtype=torch.bool, device=dev))[:, :m]
+    is_pos = ((best >= ctx.attr("rpn_positive_overlap", 0.7)) & inside) | \
+        forced
+    is_neg = (best < ctx.attr("rpn_negative_overlap", 0.3)) & inside & \
+        ~is_pos
+    gen = _generator(ctx)
+    fg = _sample(is_pos, n_fg, gen)
+    bg = _sample(is_neg, n_bg, gen)
+    off = torch.arange(n, device=dev)[:, None] * m
+    i32 = torch.int32
+    safe = torch.clamp_min(fg, 0)
+    a_t = anchors.index_select(0, safe.reshape(-1)).reshape(n, n_fg, 4)
+    g_t = torch.gather(gtp, 1, torch.gather(best_gt, 1, safe)[..., None]
+                       .expand(n, n_fg, 4))
+    got = (fg >= 0)[..., None]
+    both = torch.cat([fg, bg], dim=1)
+    ctx.set_output("LocationIndex", torch.where(fg >= 0, fg + off, -1)
+                   .to(i32).reshape(-1, 1))
+    ctx.set_output("ScoreIndex", torch.where(both >= 0, both + off, -1)
+                   .to(i32).reshape(-1, 1))
+    ctx.set_output("TargetLabel", torch.cat([
+        torch.where(fg >= 0, 1, -1), torch.where(bg >= 0, 0, -1)], dim=1)
+        .to(i32).reshape(-1, 1))
+    ctx.set_output("TargetBBox", (torch.stack(_encode(a_t, g_t), dim=-1)
+                                  * got).reshape(-1, 4))
+    ctx.set_output("BBoxInsideWeight", got.to(torch.float32).expand(
+        n, n_fg, 4).reshape(-1, 4))
+
+
+@register_no_grad_op("generate_proposal_labels")
+def generate_proposal_labels(ctx):
+    """Fast R-CNN head targets: each image's candidates are its RpnRois
+    (LoD segment) divided by ImInfo's scale, then its GtBoxes; each
+    takes its best non-crowd box (IoU 0 with crowd boxes); foreground at
+    IoU >= fg_thresh, background in [bg_thresh_lo, bg_thresh_hi); n_fg =
+    int(batch_size_per_im * fg_fraction) foreground and the rest
+    background sampled as rpn_target_assign samples. Rois [N * batch, 4]
+    (0 on padding), LabelsInt32 [N * batch, 1] (the box's class, 0
+    background, -1 padding), BboxTargets [N * batch, 4 * class_nums]
+    (the box encoded against the RoI over bbox_reg_weights, in its
+    class's four columns), BboxInsideWeights (1 where a target is not
+    0) and BboxOutsideWeights; LoD [batch * i]. Batched: the RoIs and
+    boxes padded to the batch's largest counts (never sampled). An image
+    with fewer candidates than n_fg or than the background count has no
+    such static contract in the JAX lowering: refused."""
+    rois, gt_classes = ctx.input("RpnRois"), ctx.input("GtClasses")
+    crowd, gt, im_info = (ctx.input("IsCrowd"), ctx.input("GtBoxes"),
+                          ctx.input("ImInfo"))
+    batch = ctx.attr("batch_size_per_im", 256)
+    classes = ctx.attr("class_nums", 81)
+    n_fg = int(batch * ctx.attr("fg_fraction", 0.25))
+    n_bg = batch - n_fg
+    rsegs = _segments(ctx.get_lod("RpnRois"), rois.shape[0])
+    gsegs = _segments(ctx.get_lod("GtBoxes"), gt.shape[0])
+    n = min(len(rsegs), len(gsegs))
+    rsegs, gsegs = rsegs[:n], gsegs[:n]
+    for b, ((rs, re), (gs, ge)) in enumerate(zip(rsegs, gsegs)):
+        if re - rs + ge - gs < max(n_fg, n_bg):
+            raise ValueError(
+                f"generate_proposal_labels: image {b} has {re - rs} RoIs "
+                f"and {ge - gs} boxes, fewer than the {max(n_fg, n_bg)} "
+                f"samples of batch_size_per_im {batch}")
+    ridx, rvalid = _padded_rows(ctx, "proposal_rois", rsegs)
+    gidx, gvalid = _padded_rows(ctx, "proposal_gts", gsegs)
+    dev = rois.device
+    gtp = gt[gidx]                                           # [N, G, 4]
+    cand = torch.cat([rois[ridx] / im_info[:n, 2][:, None, None], gtp],
+                     dim=1)                                  # [N, R+G, 4]
+    cvalid = torch.cat([rvalid, gvalid], dim=1)
+    live = gvalid if crowd is None else \
+        gvalid & (crowd.reshape(-1)[gidx] == 0)
+    iou = torch.where(live[:, None, :],
+                      _pairwise_iou(cand, gtp, normalized=False),
+                      rois.new_zeros(()))
+    best, best_gt = torch.amax(iou, dim=2), torch.argmax(iou, dim=2)
+    is_fg = (best >= ctx.attr("fg_thresh", 0.5)) & cvalid
+    is_bg = (best < ctx.attr("bg_thresh_hi", 0.5)) & \
+        (best >= ctx.attr("bg_thresh_lo", 0.0)) & cvalid
+    gen = _generator(ctx)
+    sel = torch.cat([_sample(is_fg, n_fg, gen), _sample(is_bg, n_bg, gen)],
+                    dim=1)                                   # [N, batch]
+    got = sel >= 0
+    safe = torch.clamp_min(sel, 0)
+    sel_rois = torch.gather(cand, 1, safe[..., None].expand(n, batch, 4)) \
+        * got[..., None]
+    fg_row = (torch.arange(batch, device=dev) < n_fg)[None, :] & got
+    g_of = torch.gather(best_gt, 1, safe)
+    cls = torch.gather(gt_classes.reshape(-1)[gidx], 1, g_of)
+    label = torch.where(got, torch.where(fg_row, cls, 0), -1).to(torch.int32)
+    wts = tuple(float(v) for v in ctx.attr("bbox_reg_weights",
+                                           [0.1, 0.1, 0.2, 0.2]))
+    wt = ctx.host_table("bbox_reg_weights", wts,
+                        lambda: np.asarray(wts, np.float32)).to(rois.dtype)
+    g = torch.gather(gtp, 1, g_of[..., None].expand(n, batch, 4))
+    t = torch.stack([e / wt[i] for i, e in
+                     enumerate(_encode(sel_rois, g))], dim=-1)
+    col = torch.clamp(label.long(), 0, classes - 1)
+    slot = (col[..., None] == torch.arange(classes, device=dev)) & \
+        fg_row[..., None]                                    # [N, batch, C]
+    tgt = torch.where(slot[..., None], t[:, :, None, :], rois.new_zeros(())
+                      ).reshape(n * batch, 4 * classes)
+    w_in = (tgt != 0).to(torch.float32)
+    lod = [[batch * i for i in range(n + 1)]]
+    for name, v in (("Rois", sel_rois.reshape(-1, 4)),
+                    ("LabelsInt32", label.reshape(-1, 1)),
+                    ("BboxTargets", tgt), ("BboxInsideWeights", w_in),
+                    ("BboxOutsideWeights", (w_in > 0).to(torch.float32))):
+        ctx.set_output(name, v)
+        ctx.set_lod(name, lod)
+
+
+@register_no_grad_op("generate_mask_labels")
+def generate_mask_labels(ctx):
+    """Mask head targets: each RoI (Rois, a LoD segment an image) takes
+    the GtSegms box (box-encoded masks, a LoD segment an image) of its
+    own image with the best IoU (the first on a tie), and MaskInt32 [R,
+    num_classes * res * res] int32 holds, in its label's res x res
+    columns, 1 at the sub-cell centres of the RoI inside that box (all 0
+    for a background RoI); MaskRois is Rois, RoiHasMaskInt32 [R, 1] its
+    label > 0. The JAX lowering matches every RoI against every image's
+    boxes: equal at one image. Without a LoD on either, or with unequal
+    segment counts, every RoI matches against every box, as there."""
+    rois, segms = ctx.input("Rois"), ctx.input("GtSegms").reshape(-1, 4)
+    lab = ctx.input("LabelsInt32").reshape(-1)
+    classes = ctx.attr("num_classes", 81)
+    res = ctx.attr("resolution", 14)
+    r, dev = rois.shape[0], rois.device
+    rsegs = _segments(ctx.get_lod("Rois"), r)
+    ssegs = _segments(ctx.get_lod("GtSegms"), segms.shape[0])
+    if len(rsegs) != len(ssegs):
+        rsegs, ssegs = [(0, r)], [(0, segms.shape[0])]
+    sidx, svalid = _padded_rows(ctx, "mask_segms", ssegs)    # [N, S]
+    img = _row_images(ctx, "mask_rois", rsegs, r)
+    own = sidx.index_select(0, img)                          # [R, S]
+    cand = segms[own]                                        # [R, S, 4]
+    iou = torch.where(svalid.index_select(0, img),
+                      _pairwise_iou(rois[:, None, :], cand,
+                                    normalized=False)[:, 0],
+                      rois.new_full((), -1.0))
+    g = torch.gather(cand, 1, torch.argmax(iou, dim=1)[:, None, None]
+                     .expand(r, 1, 4))[:, 0]                 # [R, 4]
+    grid = torch.arange(res, dtype=rois.dtype, device=dev)
+    rw = torch.clamp_min(rois[:, 2] - rois[:, 0], 1.0)
+    rh = torch.clamp_min(rois[:, 3] - rois[:, 1], 1.0)
+    gx = rois[:, 0:1] + (grid + 0.5) / res * rw[:, None]     # [R, res]
+    gy = rois[:, 1:2] + (grid + 0.5) / res * rh[:, None]
+    inside = ((gx[:, None, :] >= g[:, 0, None, None]) &
+              (gx[:, None, :] <= g[:, 2, None, None]) &
+              (gy[:, :, None] >= g[:, 1, None, None]) &
+              (gy[:, :, None] <= g[:, 3, None, None]))       # [R, res, res]
+    flat = (inside & (lab > 0)[:, None, None]).reshape(r, 1, res * res)
+    col = torch.clamp(lab.long(), 0, classes - 1)
+    slot = col[:, None] == torch.arange(classes, device=dev)  # [R, C]
+    ctx.set_output("MaskRois", rois)
+    ctx.set_output("RoiHasMaskInt32", (lab > 0).to(torch.int32)
+                   .reshape(-1, 1))
+    ctx.set_output("MaskInt32", (slot[..., None] & flat).to(torch.int32)
+                   .reshape(r, classes * res * res))
+
+
+# ---------------------------------------------------------------------------
+# two-stage detectors: FPN routing
+# ---------------------------------------------------------------------------
+
+@register_no_grad_op("distribute_fpn_proposals")
+def distribute_fpn_proposals(ctx):
+    """FpnRois [R, 4] routed to the levels min_level..max_level by
+    floor(log2(sqrt(max(w h, 1e-6)) / refer_scale + 1e-6)) + refer_level
+    (w and h with no +1), clipped. Each of MultiFpnRois is [R, 4]: the
+    level's rows first in their order, then zero rows; RestoreIndex [L
+    * R, 1] int32 the original row of each emitted row, -1 on padding
+    (the JAX package's static contract: no LoD)."""
+    rois = ctx.input("FpnRois")
+    lo, hi = ctx.attr("min_level", 2), ctx.attr("max_level", 5)
+    w = rois[:, 2] - rois[:, 0]
+    h = rois[:, 3] - rois[:, 1]
+    scale = torch.sqrt(torch.clamp_min(w * h, 1e-6))
+    lvl = torch.floor(torch.log2(scale / ctx.attr("refer_scale", 224) +
+                                 1e-6)) + ctx.attr("refer_level", 4)
+    lvl = torch.clamp(lvl, lo, hi).to(torch.int32)
+    outs, restore = [], []
+    for level in range(lo, hi + 1):
+        on = lvl == level
+        perm = torch.sort(on.to(torch.uint8), descending=True,
+                          stable=True)[1]
+        kept = on[perm]
+        outs.append(rois[perm] * kept[:, None])
+        restore.append(torch.where(kept, perm, -1))
+    ctx.set_outputs("MultiFpnRois", outs)
+    ctx.set_output("RestoreIndex", torch.cat(restore).to(torch.int32)
+                   .reshape(-1, 1))
+
+
+@register_no_grad_op("collect_fpn_proposals")
+def collect_fpn_proposals(ctx):
+    """FpnRois: the post_nms_topN rows (all, where fewer) of the levels'
+    MultiLevelRois by descending MultiLevelScores, stable on ties, one
+    top-k over the whole batch (the JAX package's: no LoD)."""
+    rois = torch.cat(ctx.inputs("MultiLevelRois"), dim=0)
+    scores = torch.cat([s.reshape(-1) for s in
+                        ctx.inputs("MultiLevelScores")])
+    k = min(ctx.attr("post_nms_topN", 1000), scores.shape[0])
+    top = torch.sort(scores, descending=True, stable=True)[1][:k]
+    ctx.set_output("FpnRois", rois.index_select(0, top))

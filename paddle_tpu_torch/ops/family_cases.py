@@ -3,8 +3,8 @@ activation and nn op families (ops/basic.py, reduce.py, elementwise.py,
 activations.py, nn.py), the nine update ops that have no kernel
 (optimizer_ops.py: lars_momentum ... lamb), the conv family
 (conv.py), the value-dependent sequence
-ops, SSD's detection ops and the one-stage detectors' ops (detection.py,
-on LoD inputs), on seeded
+ops, SSD's detection ops and the one- and two-stage detectors' ops
+(detection.py, on LoD inputs), on seeded
 numpy inputs, and a runner of one op's lowering on a device: the cases
 tests/test_torch_op_families.py holds against the JAX package's
 lowerings on the CPU and chip_smoke.py's op sweep holds on the card
@@ -25,7 +25,7 @@ import torch
 from ..core.registry import OPS, ExecContext, _SlotView
 
 __all__ = ["cases", "conv_cases", "sequence_cases", "detection_cases",
-           "one_stage_cases", "run"]
+           "one_stage_cases", "two_stage_cases", "run"]
 
 
 def _f32(rng, *shape, lo=None, hi=None):
@@ -819,6 +819,190 @@ def one_stage_cases() -> List[tuple]:
                                np.float32)}, {},
          {"score_threshold": 0.85, "nms_top_k": 5, "keep_top_k": 6,
           "nms_threshold": 0.4, "nms_eta": 1.0}, {"Out": 1}, []),
+    ]
+
+
+def _grid_anchors(fh, fw, stride, sizes):
+    """[fh, fw, len(sizes), 4] square pixel anchors centred at (j + 0.5)
+    stride, as anchor_generator lays them out."""
+    c = (np.arange(max(fh, fw)) + 0.5) * stride
+    half = np.asarray(sizes, np.float64) / 2
+    cy = c[:fh, None, None]
+    cx = c[None, :fw, None]
+    a = np.stack(np.broadcast_arrays(cx - half, cy - half, cx + half,
+                                     cy + half), axis=-1)
+    return a.astype(np.float32)
+
+
+# the RoI ops' maps: two images, 2 channels of 6 x 7
+ROI_LOD = [[0, 1, 4]]       # one RoI in image 0, three in image 1
+
+
+def _roi_inputs(r):
+    """(X [2, 2, 6, 7], ROIs [4, 4] in pixels at scale 0.5): a RoI
+    reaching past the map's right and bottom edges, one under a pixel
+    wide, one beyond the map (roi_pool's empty bins); X holds a block of
+    tied values under the first RoI's top-left bin."""
+    x = _f32(r, 2, 2, 6, 7)
+    x[0, :, 0:2, 0:2] = 0.75            # a tie in a bin
+    rois = np.array([[0.4, 0.6, 5.2, 7.0], [6.4, 4.2, 13.8, 11.7],
+                     [3.1, 2.2, 3.5, 9.4], [16.2, 15.3, 22.6, 20.1]],
+                    np.float32)
+    return x, rois
+
+
+def two_stage_cases() -> List[tuple]:
+    """(op type, inputs, {input name: LoD}, attrs, {output slot: count},
+    [input slots to differentiate]) of the two-stage detectors' ten ops:
+    roi_align (a RoI past the map's edge, one under a pixel, sampling
+    ratio 2 and 1), roi_pool (an empty bin, a bin of tied values, one of
+    relu zeros), psroi_pool, roi_perspective_transform, on a LoD of two
+    images; generate_proposals (min_size filtering, eta 1 and eta < 1);
+    rpn_target_assign (a single-box image, a crowd box, two boxes whose
+    best anchor is the same; the last case a crowd and a non-crowd box on
+    one anchor, which the JAX lowering leaves to its scatter's order);
+    generate_proposal_labels (ImInfo scales 1 and 2, a crowd box);
+    generate_mask_labels at one image and at two (the JAX lowering matches
+    across the images there); distribute_fpn_proposals and
+    collect_fpn_proposals (a tie). Sampling is use_random=False: the
+    first samples in order."""
+    r = np.random.default_rng(23)
+    x, rois = _roi_inputs(r)
+    relu = np.maximum(_f32(r, 2, 2, 6, 7), 0.0)
+    ps = _f32(r, 2, 8, 5, 6)
+    quads = np.array([[1.0, 1.5, 9.0, 0.5, 10.5, 8.0, 0.5, 9.5],
+                      [4.0, 2.0, 12.0, 3.0, 11.0, 11.5, 3.5, 10.0],
+                      [0.5, 0.5, 13.5, 0.5, 13.5, 11.5, 0.5, 11.5]],
+                     np.float32)
+    roi_lod = {"rois": ROI_LOD}
+    # generate_proposals: 3 anchors a cell of a 3 x 4 map at stride 8
+    anchors = _grid_anchors(3, 4, 8.0, [12.0, 18.0, 26.0])
+    scores = r.uniform(0.05, 0.95, (2, 3, 3, 4)).astype(np.float32)
+    deltas = (0.2 * r.standard_normal((2, 12, 3, 4))).astype(np.float32)
+    info = np.array([[24.0, 30.0, 1.0], [20.0, 32.0, 2.0]], np.float32)
+    ones = np.ones_like(anchors)
+    gp = {"Scores": scores, "BboxDeltas": deltas, "ImInfo": info,
+          "Anchors": anchors, "Variances": ones}
+    gp_out = {"RpnRois": 1, "RpnRoiProbs": 1}
+    # rpn_target_assign: 2 anchors a cell of a 4 x 5 map at stride 12
+    ra = _grid_anchors(4, 5, 12.0, [10.0, 18.0]).reshape(-1, 4)
+    gt = np.stack([ra[4] + [1.0, -1.0, 2.0, 1.0],       # image 0, alone
+                   ra[13] + [0.5, 0.5, 1.0, 0.0],       # two boxes whose
+                   ra[13] + [-2.0, -2.0, 2.0, 2.0],     # best anchor is 13
+                   ra[20] + [0.0, 0.0, 3.0, 3.0]])      # a crowd box
+    gt = gt.astype(np.float32)
+    crowd = np.array([[0], [0], [0], [1]], np.int32)
+    rinfo = np.array([[48.0, 60.0, 1.0], [44.0, 56.0, 1.0]], np.float32)
+    ra_attrs = {"rpn_batch_size_per_im": 8, "rpn_straddle_thresh": 0.0,
+                "rpn_fg_fraction": 0.5, "rpn_positive_overlap": 0.7,
+                "rpn_negative_overlap": 0.3, "use_random": False}
+    ra_out = {"LocationIndex": 1, "ScoreIndex": 1, "TargetLabel": 1,
+              "TargetBBox": 1, "BBoxInsideWeight": 1}
+    # the crowd box of image 1 (its IoUs all 0) picks the image's first
+    # inside anchor, anchor 0; so does a non-crowd box at IoU 0.36
+    conflict = gt.copy()
+    conflict[2] = ra[0] + [3.0, 3.0, 3.0, 3.0]
+    # generate_proposal_labels: RoIs around the boxes of two images, the
+    # second's at ImInfo scale 2
+    pgt = np.array([[4.0, 6.0, 20.0, 22.0], [2.0, 3.0, 14.0, 12.0],
+                    [16.0, 10.0, 30.0, 26.0], [6.0, 14.0, 18.0, 28.0]],
+                   np.float32)
+    jitter = r.uniform(-3.0, 3.0, (12, 4)).astype(np.float32)
+    prois = np.concatenate([pgt[[0, 0, 0]] + jitter[:3],
+                            _pixel_boxes(r, 2, 0.0, 20.0, (4.0, 10.0)),
+                            2 * (pgt[[1, 2, 2, 3]] + jitter[3:7]),
+                            2 * _pixel_boxes(r, 3, 0.0, 20.0, (4.0, 10.0))])
+    pl = {"RpnRois": prois, "GtClasses": np.array([[3], [1], [4], [2]],
+                                                  np.int32),
+          "IsCrowd": np.array([[0], [0], [0], [1]], np.int32),
+          "GtBoxes": pgt, "ImInfo": np.array([[32.0, 32.0, 1.0],
+                                              [64.0, 64.0, 2.0]],
+                                             np.float32)}
+    pl_lod = {"rpnrois": [[0, 5, 12]], "gtclasses": [[0, 1, 4]],
+              "iscrowd": [[0, 1, 4]], "gtboxes": [[0, 1, 4]]}
+    pl_attrs = {"batch_size_per_im": 8, "fg_fraction": 0.25,
+                "fg_thresh": 0.5, "bg_thresh_hi": 0.5, "bg_thresh_lo": 0.0,
+                "bbox_reg_weights": [0.1, 0.1, 0.2, 0.2], "class_nums": 5,
+                "use_random": False}
+    pl_out = {"Rois": 1, "LabelsInt32": 1, "BboxTargets": 1,
+              "BboxInsideWeights": 1, "BboxOutsideWeights": 1}
+    # generate_mask_labels
+    segs = np.array([[2.0, 2.0, 12.0, 14.0], [10.0, 4.0, 24.0, 16.0],
+                     [4.0, 12.0, 20.0, 26.0]], np.float32)
+    mrois = np.concatenate([segs[[0, 1, 2]] + jitter[:3],
+                            segs[[2, 0]] + jitter[3:5]])
+    mask = {"ImInfo": info[:1], "GtClasses": np.array([[1], [2], [3]],
+                                                      np.int32),
+            "IsCrowd": np.zeros((3, 1), np.int32), "GtSegms": segs,
+            "Rois": mrois, "LabelsInt32": np.array([[1], [2], [0], [3],
+                                                    [1]], np.int32)}
+    mask_out = {"MaskRois": 1, "RoiHasMaskInt32": 1, "MaskInt32": 1}
+    # FPN routing: sides from 20 to 600 pixels, away from the level
+    # boundaries (224 * 2^k)
+    side = np.array([20.0, 70.0, 150.0, 300.0, 600.0, 90.0, 40.0, 180.0],
+                    np.float32)
+    xy = r.uniform(0.0, 50.0, (8, 2)).astype(np.float32)
+    fpn = np.concatenate([xy, xy + side[:, None] *
+                          np.array([[1.0, 0.8]], np.float32)], axis=1)
+    lv_scores = [r.uniform(0, 1, (n, 1)).astype(np.float32)
+                 for n in (4, 3, 2)]
+    lv_scores[1][0, 0] = lv_scores[0][2, 0]          # a tie
+    return [
+        ("roi_align", {"X": x, "ROIs": rois}, roi_lod,
+         {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 0.5,
+          "sampling_ratio": -1}, {"Out": 1}, ["X"]),
+        ("roi_align", {"X": x, "ROIs": rois[:3]}, {},
+         {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.5,
+          "sampling_ratio": 1}, {"Out": 1}, ["X"]),
+        ("roi_pool", {"X": x, "ROIs": rois}, roi_lod,
+         {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5},
+         {"Out": 1, "Argmax": 1}, ["X"]),
+        ("roi_pool", {"X": relu, "ROIs": rois}, roi_lod,
+         {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.5},
+         {"Out": 1, "Argmax": 1}, ["X"]),
+        ("psroi_pool", {"X": ps, "ROIs": rois}, roi_lod,
+         {"output_channels": 2, "pooled_height": 2, "pooled_width": 2,
+          "spatial_scale": 0.5}, {"Out": 1}, ["X"]),
+        ("roi_perspective_transform", {"X": x, "ROIs": quads},
+         {"rois": [[0, 2, 3]]},
+         {"transformed_height": 3, "transformed_width": 4,
+          "spatial_scale": 0.5}, {"Out": 1}, ["X"]),
+        ("generate_proposals", gp, {},
+         {"pre_nms_topN": 20, "post_nms_topN": 8, "nms_thresh": 0.5,
+          "min_size": 6.0, "eta": 1.0}, gp_out, []),
+        ("generate_proposals", dict(gp, Variances=np.broadcast_to(
+            np.array([0.5, 0.5, 1.0, 1.0], np.float32), anchors.shape)
+            .copy()), {},
+         {"pre_nms_topN": -1, "post_nms_topN": 30, "nms_thresh": 0.9,
+          "min_size": 0.0, "eta": 0.8}, gp_out, []),
+        ("rpn_target_assign", {"Anchor": ra, "GtBoxes": gt,
+                               "IsCrowd": crowd, "ImInfo": rinfo},
+         {"gtboxes": [[0, 1, 4]]}, ra_attrs, ra_out, []),
+        ("rpn_target_assign", {"Anchor": ra, "GtBoxes": gt[:3],
+                               "IsCrowd": crowd[:3], "ImInfo": rinfo[:1]},
+         {}, dict(ra_attrs, rpn_batch_size_per_im=6,
+                  rpn_positive_overlap=0.6, rpn_straddle_thresh=2.0),
+         ra_out, []),
+        ("rpn_target_assign", {"Anchor": ra, "GtBoxes": conflict,
+                               "IsCrowd": np.array([[0], [0], [0], [1]],
+                                                   np.int32),
+                               "ImInfo": rinfo},
+         {"gtboxes": [[0, 1, 4]]}, ra_attrs, ra_out, []),
+        ("generate_proposal_labels", pl, pl_lod, pl_attrs, pl_out, []),
+        ("generate_mask_labels", mask, {"rois": [[0, 5]],
+                                        "gtsegms": [[0, 3]]},
+         {"num_classes": 4, "resolution": 4}, mask_out, []),
+        ("generate_mask_labels", dict(mask, ImInfo=info),
+         {"rois": [[0, 3, 5]], "gtsegms": [[0, 2, 3]]},
+         {"num_classes": 4, "resolution": 4}, mask_out, []),
+        ("distribute_fpn_proposals", {"FpnRois": fpn}, {},
+         {"min_level": 2, "max_level": 5, "refer_level": 4,
+          "refer_scale": 224}, {"MultiFpnRois": 4, "RestoreIndex": 1},
+         []),
+        ("collect_fpn_proposals", {
+            "MultiLevelRois": [fpn[:4], fpn[4:7], fpn[6:]],
+            "MultiLevelScores": lv_scores}, {}, {"post_nms_topN": 6},
+         {"FpnRois": 1}, []),
     ]
 
 

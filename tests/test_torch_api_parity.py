@@ -90,10 +90,16 @@ ONE_STAGE_BUILDERS = {
     "polygon_box_transform", "yolov3_loss", "yolo_box",
     "sigmoid_focal_loss", "retinanet_detection_output",
     "retinanet_target_assign", "box_decoder_and_assign"}
+TWO_STAGE_BUILDERS = {
+    "roi_align", "roi_pool", "psroi_pool", "rpn_target_assign",
+    "generate_proposals", "generate_proposal_labels",
+    "generate_mask_labels", "roi_perspective_transform",
+    "distribute_fpn_proposals", "collect_fpn_proposals"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
                        "crf_decoding", "py_func"} | FAMILY_BUILDERS |
-            NN_AND_SSD_BUILDERS | CONV_BUILDERS | ONE_STAGE_BUILDERS,
+            NN_AND_SSD_BUILDERS | CONV_BUILDERS | ONE_STAGE_BUILDERS |
+            TWO_STAGE_BUILDERS,
             "dygraph.nn": {"Conv2DTranspose", "Conv3D", "Conv3DTranspose",
                            "GroupNorm", "PRelu"},
             "backward": {"gradients"},

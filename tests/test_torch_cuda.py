@@ -43,8 +43,11 @@ against eager bit for bit, multiclass_nms at 64 x 21 x 1917 against the
 CPU, the update ops without a kernel against the CPU, the conv family's
 cases forward and backward against the CPU, the transposed
 convolutions under AMP, full-width SimpleBaseline (chip_smoke.pose_resnet,
-B=4) captured against eager bit for bit, and a resize by an OutSize input
-kept eager. They skip where torch sees no CUDA device.
+B=4) captured against eager bit for bit, a resize by an OutSize input
+kept eager, the one- and two-stage detection ops' cases against the CPU,
+roi_align's gradient deterministic, and full-width YOLOv3, the RetinaNet
+head and Faster R-CNN (B=1) captured against eager bit for bit. They
+skip where torch sees no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -2892,15 +2895,14 @@ def test_resize_size_and_the_capture_on_card(cuda, size):
         assert not exe._engine.eager_reasons and c["captures"] == 1
 
 
-def test_one_stage_ops_on_card_equal_the_cpu(cuda, monkeypatch):
-    """Every case of ops/family_cases.py's one_stage_cases() through its
-    lowering on the card and on the CPU (LoDs equal), and its `<op>_grad`
-    lowering under one random cotangent of every float output: float32
-    within F32_TOL forward, BWD_F32_TOL backward, the rest exact."""
+def _detection_cases_on_card(cases, cuda):
+    """Each case through its lowering on the card and on the CPU (LoDs
+    equal), and its `<op>_grad` lowering under one random cotangent of
+    every float output: float32 within F32_TOL forward, BWD_F32_TOL
+    backward, the rest exact."""
     from paddle_tpu_torch.ops import family_cases as fc
-    _no_tf32(monkeypatch)
     rng = np.random.default_rng(6)
-    for op_type, ins, lods, attrs, outs, diff in fc.one_stage_cases():
+    for op_type, ins, lods, attrs, outs, diff in cases:
         card, clod = fc.run(op_type, ins, attrs, outs, cuda, lods)
         cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
         for n, v in card.items():
@@ -2928,6 +2930,55 @@ def test_one_stage_ops_on_card_equal_the_cpu(cuda, monkeypatch):
         for n, v in gcard.items():
             torch.testing.assert_close(v.cpu(), gcpu[n], rtol=BWD_F32_TOL,
                                        atol=BWD_F32_TOL)
+
+
+def test_one_stage_ops_on_card_equal_the_cpu(cuda, monkeypatch):
+    """Every case of ops/family_cases.py's one_stage_cases() on the card
+    against the CPU (_detection_cases_on_card)."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    _no_tf32(monkeypatch)
+    _detection_cases_on_card(fc.one_stage_cases(), cuda)
+
+
+def test_two_stage_ops_on_card_equal_the_cpu(cuda, monkeypatch):
+    """Every case of ops/family_cases.py's two_stage_cases() (the RoI
+    poolings with their gradients, proposals, the sampling ops with
+    use_random=False, mask targets, FPN routing) on the card against
+    the CPU (_detection_cases_on_card): roi_pool's Argmax and every
+    sampled index exactly."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    _no_tf32(monkeypatch)
+    _detection_cases_on_card(fc.two_stage_cases(), cuda)
+
+
+def test_roi_align_backward_is_deterministic_on_card(cuda, monkeypatch):
+    """roi_align's gradient (an accumulate of the taps' rows) at 256 RoIs
+    of 14x14 on a [2, 64, 50, 84] map: two calls bit-equal in
+    deterministic mode, and within BWD_F32_TOL of the CPU's."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 64, 50, 84)).astype(np.float32)
+    xy = rng.uniform(0, 1000, (256, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(16, 400, (256, 2))],
+                          1).astype(np.float32)
+    attrs = {"pooled_height": 14, "pooled_width": 14,
+             "spatial_scale": 1.0 / 16, "sampling_ratio": 0}
+    ins = {"X": x, "ROIs": rois,
+           "Out": np.zeros((256, 64, 14, 14), np.float32),
+           "Out@GRAD": rng.standard_normal((256, 64, 14, 14)).astype(
+               np.float32)}
+    lods = {"rois": [[0, 128, 256]]}
+    old = _deterministic(monkeypatch)
+    try:
+        got = [fc.run("roi_align_grad", ins, attrs, {"X@GRAD": 1}, cuda,
+                      lods)[0]["x@grad_out0"].cpu() for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+    assert torch.equal(got[0], got[1])
+    cpu = fc.run("roi_align_grad", ins, attrs, {"X@GRAD": 1}, "cpu",
+                 lods)[0]["x@grad_out0"]
+    torch.testing.assert_close(got[0], cpu, rtol=BWD_F32_TOL,
+                               atol=BWD_F32_TOL)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
@@ -3018,3 +3069,38 @@ def test_retinanet_head_captured_bit_equal_eager_on_card(cuda,
     _, _, c, reasons = runs[True]
     assert not reasons
     assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 2)
+
+
+def test_faster_rcnn_full_width_captured_bit_equal_eager_on_card(
+        cuda, monkeypatch):
+    """chip_smoke's Faster R-CNN at full width and depth (ResNet-50-C4,
+    81 classes, the 800x1344 canvas, 12000 / 2000 proposals, 256 anchors
+    and 512 RoIs an image, use_random; the frozen affines calibrated,
+    rcnn_calibrate) with Momentum under the warm-up schedule and L2Decay
+    at B=1: three runs of one COCO-shaped batch
+    through the plan cache (eager, the capture, a replay) bit-equal to
+    the same runs eager in deterministic mode (the loss, the sampled
+    ScoreIndex and RoIs, every persistable), no block kept eager."""
+    import chip_smoke as cs
+    _no_tf32(monkeypatch)
+    pt.framework.unique_name.reset()
+    main, startup, outs = cs.faster_rcnn_train(pt)
+    block = main.global_block()
+    ra = [op for op in block.ops if op.type == "rpn_target_assign"][0]
+    fetch = [outs["loss"], block.var(ra.output("ScoreIndex")[0]),
+             outs["rois"]]
+    feed = cs._rcnn_batch(torch, pt, 0, pt.CUDAPlace(0), B=1)
+    init = pt.Scope()
+    pt.Executor().run(startup, scope=init)
+    cs.rcnn_calibrate(pt, main, init, cs._rcnn_batch(
+        torch, pt, cs.RCNN_CALIBRATION_SEED, pt.CUDAPlace(0), B=1),
+        pt.CUDAPlace(0))
+    runs = _cached_against_eager(main, startup, [feed] * 3, fetch,
+                                 monkeypatch, init=init)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons
+    # the calibrated scope is copied in: no startup run
+    assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 1)
+    assert all(np.isfinite(o[0]).all() for o in runs[True][0])
+    assert runs[True][0][0][2].shape == (cs.RCNN_ROI_BATCH, 4)

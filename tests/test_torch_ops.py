@@ -255,9 +255,9 @@ def test_every_slice_op_type_is_covered():
     test_torch_op_families.py, the nn family and the update ops without
     a kernel (the same file's cases, held in test_torch_nn_family.py and
     test_torch_optimizers.py), SSD's detection ops in
-    test_torch_detection.py, the conv family in test_torch_conv_family.py
-    and the one-stage detectors' ops in
-    test_torch_one_stage_detection.py)."""
+    test_torch_detection.py, the conv family in test_torch_conv_family.py,
+    the one-stage detectors' ops in test_torch_one_stage_detection.py and
+    the two-stage detectors' ops in test_torch_two_stage_detection.py)."""
     import test_torch_beam_search
     import test_torch_op_families
     import test_torch_sequence
@@ -294,9 +294,12 @@ def test_every_slice_op_type_is_covered():
     conv = {c[0] for c in family_cases.conv_cases()}
     # held in test_torch_one_stage_detection.py
     one_stage = {c[0] for c in family_cases.one_stage_cases()}
+    # held in test_torch_two_stage_detection.py
+    two_stage = {c[0] for c in family_cases.two_stage_cases()}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
-        beam | families | detection | conv | one_stage == forward
+        beam | families | detection | conv | one_stage | two_stage == \
+        forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
