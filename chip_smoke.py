@@ -136,7 +136,9 @@
    by kernel). Then a padding_idx table with
    duplicate ids through the sparse update of SGD, Momentum, Adagrad
    and Adam: no device-side assert, no host sync, the padding row and
-   the rows never looked up unchanged.
+   the rows never looked up unchanged. Then layers.auc over Wide&Deep's
+   probability (PaddleRec's streaming AUC): 8 captured steps against 8
+   eager ones, the AUC and both stats bit-equal.
 10. Dygraph phase (BASELINE config 5, bench.py's bench_dygraph): the
    dygraph ResNet-50 (dygraph_resnet: bottleneck [3, 4, 6, 3], NCHW,
    1000 classes) built under dygraph.guard(CUDAPlace(0)) and trained
@@ -263,8 +265,11 @@
    named in Engine.eager_reasons. Op sweep: every case of
    ops/family_cases.py (the basic, reduce, elementwise, activation, nn
    and conv families, the nine update ops without a kernel, the three
-   sequence ops, SSD's eight detection ops and the one- and two-stage
-   detectors' ten each) on the card against the CPU.
+   sequence ops, SSD's eight detection ops, the one- and two-stage
+   detectors' ten each, and slice 24's eleven nlp, metric and bilinear
+   ops with their gradients) on the card against the CPU (nce and
+   sample_logits' draws held to the numpy reckoning on the card's own
+   samples).
 15. Detection phase: MobileNet-SSD as PaddleCV's object_detection
    defines it (mobilenet_ssd: MobileNet-v1 at scale 1.0, extra blocks,
    multi_box_head over six maps: 1917 priors) at Pascal VOC's 300x300,
@@ -347,6 +352,33 @@
    RCNN_ROWS_ATOL), images/s eager against captured, a profiled replay
    and multiclass_nms alone at 2 x 81 x 1000. No kernel of the port
    lies on this path.
+   Ocr phase: CRNN-CTC as PaddleCV's ocr_recognition defines it
+   (crnn_ctc: four conv_bn_pool groups of widths 16-128, im2sequence to
+   64 columns of 768, two 600-wide projections, a forward and a reverse
+   dynamic_gru of 200 with relu candidates, fc to 96; warpctc(blank 95,
+   norm_by_times), reduce_sum, Momentum(1e-3, 0.9) with L2Decay(4e-4))
+   at 48x512 grayscale, B=32, on OCR-shaped batches (labels of 4-20
+   characters, one repeat). OCR_RUNS steps captured against eager in
+   deterministic mode, bit-equal; the first step against the CPU
+   (fc_out within OCR_RTOL, per-image losses, each image's CTC gradient
+   and the last fc's gradients within bounds that must also reject a
+   planted fault, one image's loss dropped; the card's fc_out aligned to
+   spell the labels, decoded equal on both and back to the labels);
+   images/s eager
+   against captured in turns, the capture clocked; a profiled replay,
+   peak memory; warpctc alone against F.ctc_loss (a yardstick on no
+   path) and the GRUs alone; the program with ctc_greedy_decoder and
+   the EditDistance evaluator as PaddleCV trains it (eager: ctc_align);
+   a stream of new label LoDs (each one's capture clocked); the decode
+   program, the blank's bias lowered so that columns decode to
+   characters, through Executor.run (against a numpy greedy decode) and
+   AnalysisPredictor. Sampled heads
+   phase: nce (uniform, log-uniform, a Zipf custom_dist), hsigmoid and
+   sampled_softmax_with_cross_entropy at 4096 x 512 over 32000 classes:
+   captured steps against eager bit-equal, draws included, and each
+   step's device ms. SRL's decode paths through ChunkEvaluator (IOB, 29
+   types) on the card and the CPU (book models phase). No kernel of the
+   port lies on these paths.
 19. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
@@ -1063,18 +1095,29 @@ def _baseline_sgd(torch, baseline, pairs, lr):
     return call
 
 
-def _build_ctr(pt, kind, optimizer=None):
+def _build_ctr(pt, kind, optimizer=None, auc=False):
     """bench.py's CTR training program (bench_ctr): kind "wide_deep" or
     "deepfm" is ctr_train(kind, vocab_size=1000001); "sparse" is
     Wide&Deep with is_sparse=True and ctr_train's loss, as a user builds
     it; "padded" looks a sparse [1000001, 16] table up with padding_idx
     0 into one fc. Minimized by AdagradOptimizer(0.01), or `optimizer`.
-    Returns (main, startup, cost, feed names)."""
+    With `auc` (wide_deep and deepfm), layers.auc over the probability
+    ctr_train computes ([1 - p, p]), as PaddleRec's CTR nets report it.
+    Returns (main, startup, cost, feed names); with `auc`, the cost is
+    a list [cost, auc, stat_pos, stat_neg]."""
     pt.framework.unique_name.reset()
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         if kind in ("wide_deep", "deepfm"):
-            cost, _, feeds = pt.models.ctr_train(kind, vocab_size=CTR_VOCAB)
+            cost, prob, feeds = pt.models.ctr_train(kind,
+                                                    vocab_size=CTR_VOCAB)
+            if auc:
+                L = pt.layers
+                label = main.global_block().var("ctr_label")
+                a, _, stats = L.auc(
+                    L.concat([L.scale(prob, scale=-1.0, bias=1.0), prob],
+                             axis=1), L.cast(label, "int64"))
+                auc = [a] + stats
         else:
             L = pt.layers
             slots = L.data("slot_ids", [-1, CTR_SLOTS],
@@ -1096,7 +1139,7 @@ def _build_ctr(pt, kind, optimizer=None):
             L.sigmoid(logit)                  # ctr_train's probability
         (optimizer or pt.optimizer.AdagradOptimizer(CTR_LR)).minimize(cost)
     main.random_seed = startup.random_seed = SEED
-    return main, startup, cost, feeds
+    return main, startup, [cost] + auc if auc else cost, feeds
 
 
 def _ctr_feed(feeds):
@@ -1284,6 +1327,7 @@ def ctr_phase(torch, dev):
             del pd, ps
     ctr_ab(torch, pt)
     ctr_update_times(torch, dev)
+    ctr_auc(torch, pt, kreg)
 
     # padding_idx and duplicate ids through each optimizer's sparse update
     rng = np.random.RandomState(1)
@@ -1328,6 +1372,31 @@ def ctr_phase(torch, dev):
         del exe, scope, table, before
     torch.cuda.empty_cache()
     print(f"  CTR phase: {time.perf_counter() - t0:.1f} s")
+
+
+CTR_AUC_STEPS = 8
+
+
+def ctr_auc(torch, pt, kreg):
+    """layers.auc over Wide&Deep's probability (PaddleRec's streaming
+    AUC, 4096 thresholds): CTR_AUC_STEPS captured steps (after the
+    plan's eager first) against as many eager ones from one startup, in
+    deterministic mode: the AUC fetched each step, both stats and every
+    parameter bit-equal; the stats count every example of every step."""
+    t0 = time.perf_counter()
+    main, startup, fetch, feeds = _build_ctr(pt, "wide_deep", auc=True)
+    got = []
+    _cap_compare(torch, pt, kreg, "Wide&Deep + auc", main, startup,
+                 _ctr_feed(feeds), fetch, CTR_AUC_STEPS, fetched=got)
+    aucs = [float(np.asarray(f[1]).reshape(-1)[0]) for f in got]
+    counted = float(got[-1][2].sum() + got[-1][3].sum())
+    runs = CTR_AUC_STEPS + 1
+    print(f"  Wide&Deep + auc: AUC after each run "
+          f"{', '.join(f'{v:.6f}' for v in aucs)}; the stats hold "
+          f"{counted:.0f} examples ({runs} runs of {CTR_B}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(all(0.0 < v < 1.0 for v in aucs) and
+             counted == runs * CTR_B, "Wide&Deep + auc: the stats")
 
 
 def ctr_ab(torch, pt):
@@ -5238,12 +5307,67 @@ def _srl_feed(pt, seed, place, words_only=False):
     return {"word": f["word"]} if words_only else f
 
 
+def _chunk_program(pt):
+    """ChunkEvaluator over fed decoded tags and gold tags: IOB with
+    SRL_CHUNK_TYPES types (the book's 59 tags: a B and an I tag a type
+    and the outside tag), as chapter 07 evaluates the tagger."""
+    import warnings
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        inf = pt.layers.data("inf", [1], dtype="int64", lod_level=1)
+        lab = pt.layers.data("lab", [1], dtype="int64", lod_level=1)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # deprecated
+            ev = pt.evaluator.ChunkEvaluator(inf, lab, "IOB",
+                                             SRL_CHUNK_TYPES)
+    return main, startup, ev
+
+
+SRL_CHUNK_TYPES = (SRL["n_tag"] - 1) // 2
+
+
+def _srl_chunk_eval(pt, exe, decode, path, scope, seeds):
+    """ChunkEvaluator on the decode program's paths of the pool batches
+    against their tags, accumulated on the card and on the CPU (the same
+    paths, copied): the chunk counts and the epoch's metrics equal."""
+    t0 = time.perf_counter()
+    counts = {}
+    for where, place in (("card", pt.CUDAPlace(0)), ("cpu", pt.CPUPlace())):
+        main, startup, ev = _chunk_program(pt)
+        cexe, cscope = pt.Executor(place), pt.Scope()
+        cexe.run(startup, scope=cscope)
+        for s in seeds:
+            f = _srl_feed(pt, s, pt.CUDAPlace(0))
+            got = exe.run(decode, feed={"word": f["word"]}, fetch_list=[path],
+                          scope=scope, return_numpy=False)[0]
+            lod = [np.diff(got.lod()[0]).tolist()]
+            cexe.run(main, scope=cscope, feed={
+                "inf": pt.create_lod_tensor(
+                    np.asarray(got).astype(np.int64), lod, place),
+                "lab": pt.create_lod_tensor(np.asarray(f["tag"]), lod,
+                                            place)})
+        with pt.scope_guard(cscope):
+            metrics = [float(v) for v in ev.eval(cexe)]
+        counts[where] = (
+            [int(np.asarray(cscope.find_var(v.name).get_tensor())[0])
+             for v in ev.states], metrics)
+    print(f"  srl ChunkEvaluator (IOB, {SRL_CHUNK_TYPES} types) over "
+          f"{len(seeds)} decoded batches: inferred / labelled / correct "
+          f"chunks {counts['card'][0]} on the card, {counts['cpu'][0]} on "
+          f"the CPU; precision, recall, F1 "
+          f"{', '.join(f'{v:.4f}' for v in counts['card'][1])}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(counts["card"] == counts["cpu"] and counts["card"][0][1] > 0,
+             "srl ChunkEvaluator: card and CPU counts differ")
+
+
 def srl_phase(torch, dev, card, pt, kreg):
     """The book's CRF tagger (models/label_semantic_roles.py) at the
     CoNLL-05 widths, B=64: trained captured against eager, its first
     loss against the CPU, one step against plain_reference(); then its
     decode program on the trained scope, captured against eager, and
-    through AnalysisPredictor. Returns the fused_adam launches of the
+    through AnalysisPredictor, and ChunkEvaluator on its paths, on the
+    card against the CPU. Returns the fused_adam launches of the
     captured steps."""
     import warnings
     from paddle_tpu_torch.models import label_semantic_roles as srl
@@ -5313,6 +5437,7 @@ def srl_phase(torch, dev, card, pt, kreg):
     _seq_serve(torch, pt, "srl decode", dexe, decode, path, scope, ["word"],
                [_srl_feed(pt, s, pt.CPUPlace(), True) for s in seeds],
                words, SRL_B)
+    _srl_chunk_eval(pt, dexe, decode, path, scope, seeds)
     for e in (exe, dexe):
         e.close()
     del exe, dexe, scope, init
@@ -8651,18 +8776,901 @@ def rcnn_phase(torch, dev):
     print(f"  rcnn phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# OCR: CRNN-CTC (PaddleCV ocr_recognition, crnn_ctc_model.py)
+# ---------------------------------------------------------------------------
+
+OCR = {"image": (48, 512), "num_classes": 95, "rnn_hidden": 200,
+       "widths": (16, 32, 64, 128)}
+OCR_B = 32            # train.py's batch
+OCR_RUNS = 8          # steps of one batch, captured against eager
+OCR_LR, OCR_MOMENTUM, OCR_L2 = 1e-3, 0.9, 4e-4
+OCR_LABEL_LEN = (4, 20)   # characters a label
+OCR_STREAM = 4        # batches of distinct label LoDs in the stream
+OCR_EVAL_STEPS = 4    # steps of the program with the evaluator, timed
+OCR_ALONE_ITERS = 5   # calls a timing of warpctc or a GRU alone
+
+
+def crnn_ctc(L, images, label=None, num_classes=95, rnn_hidden=200,
+             widths=(16, 32, 64, 128), mode="train"):
+    """PaddleCV's CRNN-CTC (crnn_ctc_model.py: ocr_convs, conv_bn_pool,
+    encoder_net, ctc_train_net) built with the layers module `L` (the
+    port's or the JAX package's): four conv_bn_pool groups of two 3x3
+    convs (padding 1, no bias) of `widths` channels, each followed by
+    batch_norm(act="relu"), the first three groups ending in a 2x2 max
+    pool of stride 2 with ceil_mode; im2sequence with a filter of the
+    map's height and width 1 (one row a column); two fcs of 3 x
+    rnn_hidden (no bias) feeding a forward and a reverse dynamic_gru
+    (candidate_activation relu); fc([forward, reverse], num_classes + 1).
+    Every parameter has L2Decay(OCR_L2); the convs of the first group are
+    Normal(0, 0.0005), the other convs and the batch norms' scales
+    Normal(0, 0.01), the fc and GRU weights and the GRU biases (learning
+    rate 2.0) Normal(0, 0.02), the output fc's bias and the batch norms'
+    shifts Normal(0, 0). mode "train": warpctc(blank=num_classes,
+    norm_by_times=True) on the int32 LoD `label`, reduce_sum; "eval":
+    that and ctc_greedy_decoder; "decode": batch norm in inference mode
+    and ctc_greedy_decoder alone. Returns {"fc_out", and "cost", "loss"
+    and "decoded" where the mode makes them}."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+    decay = pkg.regularizer.L2Decay(OCR_L2)
+
+    def attr(std, lr=1.0):
+        return pkg.ParamAttr(initializer=pkg.initializer.Normal(0.0, std),
+                             regularizer=decay, learning_rate=lr)
+
+    x = images
+    for g, ch in enumerate(widths):
+        for _ in range(2):
+            x = L.conv2d(x, ch, 3, padding=1, act=None, bias_attr=False,
+                         param_attr=attr(0.0005 if g == 0 else 0.01))
+            x = L.batch_norm(x, act="relu", is_test=mode == "decode",
+                             param_attr=attr(0.01), bias_attr=attr(0.0))
+        if g < len(widths) - 1:
+            x = L.pool2d(x, pool_size=2, pool_type="max", pool_stride=2,
+                         ceil_mode=True)
+    seq = L.im2sequence(x, filter_size=[x.shape[2], 1], stride=[1, 1])
+    projs = [L.fc(seq, 3 * rnn_hidden, param_attr=attr(0.02),
+                  bias_attr=False) for _ in range(2)]
+    grus = [L.dynamic_gru(proj, rnn_hidden, is_reverse=reverse,
+                          param_attr=attr(0.02), bias_attr=attr(0.02, 2.0),
+                          candidate_activation="relu")
+            for proj, reverse in zip(projs, (False, True))]
+    fc_out = L.fc(grus, num_classes + 1, param_attr=attr(0.02),
+                  bias_attr=attr(0.0))
+    outs = {"fc_out": fc_out}
+    if mode != "decode":
+        outs["cost"] = L.warpctc(fc_out, label, blank=num_classes,
+                                 norm_by_times=True)
+        outs["loss"] = L.reduce_sum(outs["cost"])
+    if mode != "train":
+        outs["decoded"] = L.ctc_greedy_decoder(fc_out, blank=num_classes)
+    return outs
+
+
+def crnn_ctc_train(pt, evaluate=False, image=None, **size):
+    """(main, startup, outs) of PaddleCV's train.py in package `pt`:
+    crnn_ctc on a `pixel` [1, h, w] feed and an int32 `label` LoD feed,
+    minimized by Momentum(OCR_LR, OCR_MOMENTUM). With `evaluate`, as
+    ctc_train_net builds it: ctc_greedy_decoder and the EditDistance
+    evaluator against the label cast to int64 too (outs["evaluator"]),
+    before the backward."""
+    import warnings
+    L = pt.layers
+    image = image or OCR["image"]
+    size = {k: size.get(k, OCR[k]) for k in ("num_classes", "rnn_hidden",
+                                             "widths")}
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = L.data("pixel", [1, image[0], image[1]], dtype="float32")
+        label = L.data("label", [1], dtype="int32", lod_level=1)
+        outs = crnn_ctc(L, img, label, mode="eval" if evaluate else "train",
+                        **size)
+        if evaluate:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # deprecated
+                outs["evaluator"] = pt.evaluator.EditDistance(
+                    outs["decoded"], L.cast(label, "int64"))
+        pt.optimizer.Momentum(learning_rate=OCR_LR,
+                              momentum=OCR_MOMENTUM).minimize(outs["loss"])
+    return main, startup, outs
+
+
+def crnn_ctc_decode(pt, image=None, **size):
+    """(program, startup, outs) of PaddleCV's infer.py in package `pt`:
+    crnn_ctc in decode mode on a `pixel` feed; its parameters those of
+    the trained program, by name (built after unique_name.reset())."""
+    L = pt.layers
+    image = image or OCR["image"]
+    size = {k: size.get(k, OCR[k]) for k in ("num_classes", "rnn_hidden",
+                                             "widths")}
+    prog, startup = pt.Program(), pt.Program()
+    with pt.program_guard(prog, startup):
+        img = L.data("pixel", [1, image[0], image[1]], dtype="float32")
+        outs = crnn_ctc(L, img, mode="decode", **size)
+    return prog, startup, outs
+
+
+def ocr_batch(torch, pt, seed, place, B=None, image=None, num_classes=None):
+    """An OCR-shaped batch from default_rng(seed): B grayscale images of
+    `image` (h, w), uniform 8-bit pixels less 127.5 as data_reader.py
+    makes them, [B, 1, h, w] float32 on `place`; labels of
+    OCR_LABEL_LEN (lo, hi) characters an image, ids uniform in [0, num_classes), the
+    first label's second character a repeat of its first ("aa": the
+    skip rule matters), as an int32 LoD tensor on `place`."""
+    B = B or OCR_B
+    image = image or OCR["image"]
+    num_classes = num_classes or OCR["num_classes"]
+    lo, hi = OCR_LABEL_LEN
+    rng = np.random.default_rng(seed)
+    img = (rng.integers(0, 256, (B, 1) + tuple(image)) - 127.5).astype(
+        np.float32)
+    lens = rng.integers(lo, hi + 1, B)
+    ids = rng.integers(0, num_classes, (int(lens.sum()), 1)).astype(np.int32)
+    ids[1] = ids[0]
+    return {"pixel": torch.from_numpy(img).to(place.torch_device()),
+            "label": pt.create_lod_tensor(ids, [lens.tolist()], place)}
+
+
+# the first step at B=32, card against CPU: float32 convolutions (TF32
+# off), batch statistics and products summed in other orders. fc_out
+# moves, relative to its largest, by at most the sum over the layers of
+# a random walk of sqrt(K) units of 2^-24: the 8 convs (K at most 3 x 3
+# x 128), their 8 batch norms (means over at most B x 48 x 512), the
+# 768-wide projection, 64 GRU steps (K 200) and the output fc (K 400)
+OCR_RTOL = (8 * 1152 ** 0.5 + 8 * (32 * 48 * 512) ** 0.5 + 768 ** 0.5 +
+            64 * 200 ** 0.5 + 400 ** 0.5) * 2.0 ** -24       # 4.96e-4
+# a loss over T (norm_by_times) has the gradient (softmax - posterior) /
+# T in each row of its logits, of L1 norm at most 2 / T: it moves by at
+# most 2 x the logits' largest move, plus its recursion's own rounding
+# (3 logaddexp a step over 64 steps)
+OCR_LOSS_ULPS = 3 * 64
+
+
+def _ocr_state_run(pt, main, fetch, state, feed, place):
+    """The fetches of one run of `main` (a step) from `state` (name ->
+    CPU tensor) on `feed` on `place`, as numpy arrays (LoD fetches with
+    their LoD)."""
+    scope = pt.Scope()
+    dev = place.torch_device()
+    for n, t in state.items():
+        scope.var(n).get_tensor().set_tensor(t.to(dev, copy=True))
+    got = pt.Executor(place).run(main, feed=feed, fetch_list=fetch,
+                                 scope=scope, use_program_cache=False,
+                                 return_numpy=False)
+    return [(np.asarray((v.tensor if hasattr(v, "tensor") else v).cpu()),
+             v.lod() if hasattr(v, "lod") else None) for v in got]
+
+
+def _ocr_grad_ratios(card, cpu, T, dz, dh):
+    """|card - CPU| over its bound, the largest: for each image of the
+    CTC gradient (fc_out's), and for the last fc's gradients (its two
+    weights, its bias). `card`, `cpu`: dicts of numpy arrays (`cost`
+    [B], `g` [B*T, C], `h` the fc's two inputs, `dw` their weights'
+    gradients, `db`); dz, dh: the measured largest moves of fc_out and
+    of each h. The bounds:
+
+    a row of the CTC gradient is (softmax - posterior) / T. The softmax
+    moves by at most 2 dz. A posterior is exp(alpha + beta - log Z):
+    alpha, beta and log Z each walk T steps whose inputs (log softmax)
+    move by 2 dz and whose sums round at the size of log Z (T x the
+    image's loss), so it moves, relative, by a random walk of 3T such
+    steps. The weights' gradients are h^T g (plus the decay, equal on
+    both): they move by dh x sum |g| + |h|^T (g's bound), plus the sum's
+    rounding, a random walk over the rows; the bias's by the sum of g's
+    bounds. Returns ([B] ratios, [3] ratios)."""
+    def ratio(diff, bound):           # 0 where equal, inf past a 0 bound
+        with np.errstate(divide="ignore"):
+            return np.divide(diff, bound, out=np.zeros(diff.shape),
+                             where=diff > 0)
+    u = 2.0 ** -24
+    g = cpu["g"]
+    B = cpu["cost"].size
+    log_z = T * np.abs(cpu["cost"].reshape(B).astype(np.float64))
+    walk = np.sqrt(3 * T) * (2 * dz + 3 * u * log_z)
+    d = np.repeat((2 * dz + walk) / T, T)[:, None] + u * np.abs(g)
+    per_image = ratio(np.abs(card["g"] - g), d).reshape(B, -1).max(1)
+    rows = np.sqrt(g.shape[0]) * u
+    fc = []
+    for h, dh_i, wa, wb in zip(cpu["h"], dh, card["dw"], cpu["dw"]):
+        ah = np.abs(h).astype(np.float64).T
+        bound = (dh_i * np.abs(g).sum(0)[None, :] + ah @ d +
+                 rows * (ah @ np.abs(g)) + u * np.abs(wb))
+        fc.append(float(ratio(np.abs(wa - wb), bound).max()))
+    bound = d.sum(0) + rows * np.abs(g).sum(0) + u * np.abs(cpu["db"])
+    fc.append(float(ratio(np.abs(card["db"] - cpu["db"]), bound).max()))
+    return per_image, fc
+
+
+def _ocr_aligned(fc_out, label, blank):
+    """fc_out with a large one-hot added along a feasible alignment of
+    each image: images 0, 3, 6, ... spell their label, images 1, 4, 7,
+    ... their label with its first character changed and its last
+    dropped (each character on two columns, or one where T is short,
+    then one blank column; blank to the end); images 2, 5, 8, ... keep
+    the net's own columns. Returns (fc_out, {image: its label} of the
+    first kind, [images] of the second)."""
+    lod = label.lod()[0]
+    ids = np.asarray(label).reshape(-1)
+    B = len(lod) - 1
+    T = fc_out.shape[0] // B
+    out = fc_out.copy()
+    big = 1.0 + 2.0 * float(np.abs(fc_out).max())
+    want, changed = {}, []
+    for b in range(B):
+        row = ids[lod[b]:lod[b + 1]].tolist()
+        if b % 3 == 2:
+            continue
+        if b % 3 == 1:
+            row = [(row[0] + 1) % blank] + row[1:-1]
+        k = 2 if 3 * len(row) <= T else 1
+        if (k + 1) * len(row) > T:
+            continue
+        cols = [c for ch in row for c in [ch] * k + [blank]]
+        cols += [blank] * (T - len(cols))
+        out[b * T + np.arange(T), cols] += big
+        if b % 3 == 0:
+            want[b] = row
+        else:
+            changed.append(b)
+    return out, want, changed
+
+
+def _ocr_decode_ops(torch, pt, fc_out, label, device):
+    """top_k(k=1), ctc_align and edit_distance (the decoder and the
+    EditDistance evaluator's op) on fc_out with its images' LoD, on
+    `device`: (rows, their LoD, distances)."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    B = len(label.lod()[0]) - 1
+    T = fc_out.shape[0] // B
+    lod = {"x": [list(range(0, B * T + 1, T))]}
+    idx, ilod = fc.run("top_k", {"X": fc_out}, {"k": 1},
+                       {"Out": 1, "Indices": 1}, device, lod)
+    ids = idx["indices_out0"].cpu().numpy()
+    rows, rlod = fc.run("ctc_align", {"Input": ids},
+                        {"blank": OCR["num_classes"]}, {"Output": 1}, device,
+                        {"input": ilod["indices_out0"]})
+    hyps = rows["output_out0"].cpu().numpy().astype(np.int64)
+    dist, _ = fc.run("edit_distance", {
+        "Hyps": hyps, "Refs": np.asarray(label).astype(np.int64)},
+        {"normalized": True}, {"Out": 1, "SequenceNum": 1}, device,
+        {"hyps": rlod["output_out0"], "refs": label.lod()})
+    return (hyps, rlod["output_out0"],
+            dist["out_out0"].cpu().numpy().reshape(-1))
+
+
+def _ocr_check_cpu(torch, pt, main, outs, state):
+    """The first step from `state` on the card and on the CPU (batch 0):
+    fc_out within OCR_RTOL of its largest, each image's loss within 2 x
+    OCR_RTOL x max |fc_out| plus OCR_LOSS_ULPS of itself, the CTC
+    gradient of each image and the last fc's gradients within the
+    bounds of _ocr_grad_ratios; the same bounds must reject the card's
+    reading with the longest label's loss dropped (a planted fault).
+    Then the card's fc_out, aligned to spell the labels (_ocr_aligned),
+    through the decoder and edit_distance on the card and on the CPU:
+    the rows, their LoD and the distances equal, the spelt images decoded
+    to their labels at distance 0, the changed ones at a distance."""
+    t0 = time.perf_counter()
+    card_f = ocr_batch(torch, pt, 0, pt.CUDAPlace(0))
+    cpu_f = ocr_batch(torch, pt, 0, pt.CPUPlace())
+    block = main.global_block()
+    last = main.all_parameters()[-3:]        # the output fc's W, W, bias
+    hs = [next(op.input("X")[0] for op in block.ops
+               if op.type == "mul" and op.input("Y") == [p.name])
+          for p in last[:2]]
+    fetch = ([outs["fc_out"], outs["cost"],
+              block.var(outs["fc_out"].name + "@GRAD")] +
+             [block.var(p.name + "@GRAD") for p in last] +
+             [block.var(h) for h in hs])
+    card = [a for a, _ in _ocr_state_run(pt, main, fetch, state, card_f,
+                                         pt.CUDAPlace(0))]
+    cpu = [a for a, _ in _ocr_state_run(pt, main, fetch, state, cpu_f,
+                                        pt.CPUPlace())]
+    fa, fb = card[0], cpu[0]
+    top = float(np.abs(fb).max())
+    dz = float(np.abs(fa - fb).max())
+    e_fc = dz / top
+    la, lb = card[1].reshape(-1), cpu[1].reshape(-1)
+    bound = 2 * OCR_RTOL * top + OCR_LOSS_ULPS * 2.0 ** -24 * np.abs(lb)
+    e_loss = float(np.max(np.abs(la - lb) / bound))
+    B = lb.size
+    T = fa.shape[0] // B
+
+    def reading(r):
+        return {"cost": r[1], "g": r[2], "dw": r[3:5], "db": r[5],
+                "h": r[6:8]}
+    rc, rp = reading(card), reading(cpu)
+    dh = [float(np.abs(a - b).max()) for a, b in zip(rc["h"], rp["h"])]
+    per_image, fc = _ocr_grad_ratios(rc, rp, T, dz, dh)
+    rel = [float(np.abs(rc["g"][b * T:(b + 1) * T] -
+                        rp["g"][b * T:(b + 1) * T]).max() /
+                 np.abs(rp["g"][b * T:(b + 1) * T]).max()) for b in range(B)]
+    print(f"  crnn_ctc: first step at B={OCR_B}, card against CPU: max "
+          f"|fc_out| {top:.4f}, max |card - CPU| / max |CPU| {e_fc:.3e} "
+          f"(bound OCR_RTOL {OCR_RTOL:.3e}); per-image losses "
+          f"{', '.join(f'{v:.4f}' for v in lb[:4])}, ... worst |diff| / "
+          f"bound {e_loss:.3f}; the CTC gradient, per image: worst |diff| / "
+          f"bound {per_image.max():.3e} (worst |diff| / the image's largest "
+          f"{max(rel):.3e}); the last fc's gradients (W, W, bias) |diff| / "
+          f"bound {', '.join(f'{e:.3e}' for e in fc)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    _require(e_fc <= OCR_RTOL and e_loss <= 1.0 and per_image.max() <= 1.0
+             and max(fc) <= 1.0 and np.isfinite(la).all(),
+             "crnn_ctc: card and CPU disagree")
+    # the planted fault: the longest label's loss dropped from the card's
+    # reading (its cost 0, its rows of the CTC gradient 0, its share taken
+    # out of the last fc's gradients)
+    k = int(np.argmax(np.diff(cpu_f["label"].lod()[0])))
+    rows = slice(k * T, (k + 1) * T)
+    gk = rc["g"][rows]
+    bad = {"cost": rc["cost"].copy(), "g": rc["g"].copy(),
+           "dw": [w - h[rows].T @ gk for w, h in zip(rc["dw"], rc["h"])],
+           "db": rc["db"] - gk.sum(0), "h": rc["h"]}
+    bad["cost"].reshape(-1)[k] = 0.0
+    bad["g"][rows] = 0.0
+    f_image, f_fc = _ocr_grad_ratios(bad, rp, T, dz, dh)
+    print(f"  crnn_ctc: planted fault, image {k}'s loss dropped (its label "
+          f"the longest): the CTC gradient's |diff| / bound {f_image[k]:.3e}"
+          f" on that image; the last fc's (W, W, bias) "
+          f"{', '.join(f'{e:.3e}' for e in f_fc)}: rejected "
+          f"{bool(f_image[k] > 1.0)}")
+    _require(f_image[k] > 1.0, "crnn_ctc: the gradient bound does not "
+             "reject a dropped sequence")
+    blank = OCR["num_classes"]
+    aligned, want, changed = _ocr_aligned(fa, cpu_f["label"], blank)
+    got = [_ocr_decode_ops(torch, pt, aligned, cpu_f["label"], d)
+           for d in ("cuda", "cpu")]
+    same = (np.array_equal(got[0][0], got[1][0]) and got[0][1] == got[1][1]
+            and np.array_equal(got[0][2], got[1][2]))
+    hyps, (off, *_), dist = got[0]
+    spelt = all(hyps[off[b]:off[b + 1]].reshape(-1).tolist() == row and
+                dist[b] == 0.0 for b, row in want.items())
+    print(f"  crnn_ctc: the card's fc_out aligned to {len(want)} labels and "
+          f"{len(changed)} changed ones, decoded on the card and on the "
+          f"CPU: {hyps.shape[0]} characters, "
+          f"{int((np.diff(off) > 0).sum())} of {B} images not empty; rows, "
+          f"LoD and edit distances equal {same}; the labels spelt back at "
+          f"distance 0 {spelt}; mean normalized distance "
+          f"{float(dist.mean()):.4f}")
+    _require(same and spelt and want and changed and
+             all(dist[b] > 0.0 for b in changed),
+             "crnn_ctc: the decoder differs between card and CPU")
+
+
+def _kernels_ms(torch, fn):
+    """The device time of one call of fn, after one: the sum of its
+    kernels' device time under torch.profiler (_seq_profile), which a
+    replay would take; the host's gaps between them left out."""
+    fn()
+    wall, busy, _, _ = _seq_profile(torch, fn)
+    return 1e3 * wall * busy
+
+
+def _ocr_alone(torch, fc_out, label, projs, gru_ops):
+    """warpctc (forward, forward + backward) at the step's shapes: ms a
+    call eager between CUDA events, and its kernels' device time; then
+    F.ctc_loss on the same losses (log_softmax included, divided by T as
+    norm_by_times divides) between CUDA events and the largest |port -
+    F.ctc_loss|; the two GRUs' kernels forward + backward at theirs.
+    Returns a dict of ms and the difference."""
+    import torch.nn.functional as F
+    B = len(label.lod()[0]) - 1
+    T = fc_out.shape[0] // B
+    C = fc_out.shape[1]
+    t_lod = [list(range(0, B * T + 1, T))]
+    lab = label.tensor
+    env = {"label": lab}
+    call = _lowering_call(
+        "warpctc", env, {"Logits": ["logits"], "Label": ["label"]},
+        {"Loss": ["loss"], "WarpCTCGrad": ["g"]},
+        {"blank": OCR["num_classes"], "norm_by_times": True}, fc_out.device,
+        {"logits": t_lod, "label": label.lod()})
+
+    def fwd():
+        env["logits"] = fc_out
+        with torch.no_grad():
+            call()
+
+    def fwd_bwd():
+        x = env["logits"] = fc_out.detach().requires_grad_(True)
+        with torch.enable_grad():
+            call()
+            env["loss"].sum().backward()
+        return x
+
+    targets = lab.reshape(-1).long()
+    in_lens = torch.full((B,), T, dtype=torch.long, device=fc_out.device)
+    tg_lens = torch.tensor(np.diff(label.lod()[0]), dtype=torch.long,
+                           device=fc_out.device)
+
+    def lib(x):
+        lp = torch.log_softmax(x.reshape(B, T, C), -1).transpose(0, 1)
+        return F.ctc_loss(lp, targets, in_lens, tg_lens,
+                          blank=OCR["num_classes"], reduction="none") / T
+
+    def lib_fwd_bwd():
+        x = fc_out.detach().requires_grad_(True)
+        lib(x).sum().backward()
+
+    out = {"fwd": _time_ms(fwd, OCR_ALONE_ITERS, 1),
+           "fwd_bwd": _time_ms(fwd_bwd, OCR_ALONE_ITERS, 1),
+           "dev_fwd": _kernels_ms(torch, fwd),
+           "dev_fwd_bwd": _kernels_ms(torch, fwd_bwd)}
+    fwd()
+    with torch.no_grad():
+        ref = lib(fc_out)
+    out["ctc_diff"] = float((env["loss"].reshape(-1) - ref).abs().max())
+    out["ctc_rel"] = out["ctc_diff"] / float(ref.abs().max())
+    # a few kernels a call, so its time between CUDA events is its device
+    # time (a profiler session saw none of them on the card)
+    out["lib_fwd"] = _time_ms(lambda: lib(fc_out), OCR_ALONE_ITERS, 1)
+    out["lib_fwd_bwd"] = _time_ms(lib_fwd_bwd, OCR_ALONE_ITERS, 1)
+    gru = 0.0
+    for proj, op in zip(projs, gru_ops):
+        genv = dict(proj)
+        gcall = _lowering_call(
+            "gru", genv, {"Input": ["x"], "Weight": ["w"], "Bias": ["b"]},
+            {"Hidden": ["h"], "BatchGate": ["g1"],
+             "BatchResetHiddenPrev": ["g2"], "BatchHidden": ["g3"]},
+            op.all_attrs(), fc_out.device, {"x": t_lod})
+
+        def gru_step(genv=genv, gcall=gcall, base=proj):
+            for k in ("x", "w", "b"):
+                genv[k] = base[k].detach().requires_grad_(True)
+            with torch.enable_grad():
+                gcall()
+                genv["h"].sum().backward()
+        gru += _kernels_ms(torch, gru_step)
+    out["gru_fwd_bwd"] = gru
+    return out
+
+
+def _ocr_stream(torch, pt, main, loss, init):
+    """OCR_STREAM batches of new label LoDs (as every OCR batch has): once
+    each through a fresh Executor's plan cache (_seq_stream: each plans
+    and runs eagerly), then on another each run twice (its plan's first
+    run, then the run that captures and replays: the capture's parts
+    clocked), and once each with use_program_cache=False. Prints
+    images/s of the stream at first sight, captured at first sight (a
+    capture a batch) and eager."""
+    feeds = [ocr_batch(torch, pt, 100 + i, pt.CUDAPlace(0))
+             for i in range(OCR_STREAM)]
+    chars = [int(np.diff(f["label"].lod()[0]).sum()) for f in feeds]
+    _seq_stream(torch, pt, "crnn_ctc stream", main, loss, init, feeds,
+                sum(chars), OCR_B, unit="characters")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = _copy_scope(pt, init, list(init._vars))
+    caps, whole = [], 0.0
+    for f in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _cap_run(exe, main, f, [loss], scope)
+        with _capture_clock() as clock:
+            _cap_run(exe, main, f, [loss], scope)
+        whole += time.perf_counter() - t0
+        caps.append(clock["rule"] + clock["warm_up"] + clock["capture"])
+    c = _counters(exe)
+    exe.close()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feeds:
+        _cap_run(exe, main, f, [loss], scope, cached=False)
+    eager = time.perf_counter() - t0
+    exe.close()
+    n = OCR_B * len(feeds)
+    print(f"  crnn_ctc stream: each LoD's capture (the rule, warm-up and "
+          f"capture) {', '.join(f'{x:.3f}' for x in caps)} s; images/s "
+          f"captured at first sight (a plan, then a capture and a replay "
+          f"each, the images counted once) {n / whole:.1f}, eager "
+          f"(use_program_cache=False) {n / eager:.1f}; counters {c}")
+    _require(c["captures"] == len(feeds) and c["replays"] == len(feeds),
+             f"crnn_ctc stream: counters {c}")
+
+
+def _ocr_evaluated(torch, pt, init):
+    """The program as PaddleCV's train.py runs it (ctc_greedy_decoder
+    and the EditDistance evaluator in the step, their metric fetched):
+    its block stays eager (ctc_align reads the decoded ids on the host).
+    OCR_EVAL_STEPS steps from the initial parameters after one; prints
+    images/s, the eager reasons and the evaluator's numbers."""
+    pt.framework.unique_name.reset()
+    main, startup, outs = crnn_ctc_train(pt, evaluate=True)
+    main.random_seed = startup.random_seed = SEED
+    ev = outs["evaluator"]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = _copy_scope(pt, init, list(init._vars))
+    with pt.scope_guard(scope):
+        ev.reset(exe)          # the evaluator's states, zeroed
+    feed = ocr_batch(torch, pt, 0, pt.CUDAPlace(0))
+    fetch = [outs["loss"]] + ev.metrics
+    _cap_run(exe, main, feed, fetch, scope, numpy=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OCR_EVAL_STEPS):
+        got = _cap_run(exe, main, feed, fetch, scope)
+    secs = time.perf_counter() - t0
+    with pt.scope_guard(scope):
+        avg, err = ev.eval(exe)
+    reasons = list(exe._engine.eager_reasons.values())
+    c = _counters(exe)
+    print(f"  crnn_ctc as PaddleCV trains it (decoder and EditDistance in "
+          f"the step): {OCR_B * OCR_EVAL_STEPS / secs:.1f} images/s over "
+          f"{OCR_EVAL_STEPS} steps; eager reasons {reasons}; counters {c}; "
+          f"last loss {float(got[0].reshape(-1)[0]):.4f}, the epoch's "
+          f"average distance {float(avg):.4f}, instance error "
+          f"{float(err):.4f}")
+    _require(reasons == ["ctc_align"] and c["captures"] == 0 and
+             np.isfinite(float(avg)), "crnn_ctc with the evaluator")
+    exe.close()
+    return OCR_B * OCR_EVAL_STEPS / secs
+
+
+def _ctc_greedy_numpy(fc_out, B, blank):
+    """The greedy CTC decode in numpy: each column's argmax, repeats
+    merged, blanks dropped, for B images of equal T. Returns (ids, their
+    level-0 LoD)."""
+    best = fc_out.argmax(1).reshape(B, -1)
+    ids, lod = [], [0]
+    for seq in best:
+        keep = [int(c) for i, c in enumerate(seq)
+                if c != blank and (i == 0 or c != seq[i - 1])]
+        ids += keep
+        lod.append(lod[-1] + len(keep))
+    return ids, lod
+
+
+def _ocr_decode(torch, pt, scope):
+    """The decode program (batch norm in inference mode, the decoder) on
+    the trained parameters through Executor.run and AnalysisPredictor
+    after save_inference_model. The random net puts the blank first in
+    every column, so the output fc's bias of the blank is first lowered
+    by the median of its margins over the best other class: about half
+    the columns then decode to a character. Executor.run's rows equal the
+    numpy decode (_ctc_greedy_numpy) of the same run's fc_out and the
+    predictor's rows and LoD; images/s of Executor.run."""
+    import tempfile
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    pt.framework.unique_name.reset()
+    prog, _, outs = crnn_ctc_decode(pt)
+    blank = OCR["num_classes"]
+    bias = next(op.input("Y")[0] for op in prog.global_block().ops
+                if outs["fc_out"].name in op.output_arg_names)
+    feed = {"pixel": ocr_batch(torch, pt, 1, pt.CUDAPlace(0))["pixel"]}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    fc0 = np.asarray(exe.run(prog, feed=feed, fetch_list=[outs["fc_out"]],
+                             scope=scope)[0])
+    margin = np.sort(fc0[:, blank] - np.delete(fc0, blank, 1).max(1))
+    n = margin.size
+    shift = 0.5 * float(margin[n // 2 - 1] + margin[n // 2])
+    with torch.no_grad():
+        scope.find_var(bias).get_tensor().tensor.view(-1)[blank] -= shift
+    got = exe.run(prog, feed=feed, fetch_list=[outs["decoded"],
+                                                outs["fc_out"]],
+                  scope=scope, return_numpy=False)
+    rows, lod = np.asarray(got[0]), got[0].lod()
+    ids, want_lod = _ctc_greedy_numpy(np.asarray(got[1]), OCR_B, blank)
+    greedy = rows.reshape(-1).tolist() == ids and lod[0] == want_lod
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        exe.run(prog, feed=feed, fetch_list=[outs["decoded"]], scope=scope)
+    rate = 3 * OCR_B / (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["pixel"], [outs["decoded"]], exe,
+                                       main_program=prog)
+        predictor = create_paddle_predictor(AnalysisConfig(d))
+    predictor.get_input_tensor("pixel").copy_from_cpu(
+        feed["pixel"].cpu().numpy())
+    predictor.zero_copy_run()
+    ot = predictor.get_output_tensor(predictor.get_output_names()[0])
+    prow = ot.copy_to_cpu()
+    same = np.array_equal(prow, rows) and ot.lod() == lod
+    filled = int((np.diff(lod[0]) > 0).sum())
+    print(f"  crnn_ctc decode: {len(prog.global_block().ops)} ops; the "
+          f"blank's bias lowered by {shift:.4e}; {rows.shape[0]} characters"
+          f", {filled} of {len(lod[0]) - 1} images not empty, ids in "
+          f"[{rows.min()}, {rows.max()}]; equal to the numpy decode of the "
+          f"run's fc_out {greedy}; {rate:.1f} images/s through Executor.run "
+          f"(eager reasons {list(exe._engine.eager_reasons.values())}); "
+          f"AnalysisPredictor rows and LoD equal {same}")
+    _require(same and greedy and filled > 0 and len(lod[0]) == OCR_B + 1
+             and rows.max() < blank, "crnn_ctc decode: the rows")
+    del predictor
+    exe.close()
+
+
+def ocr_phase(torch, dev):
+    """CRNN-CTC (crnn_ctc: PaddleCV's ocr_recognition model) at 48x512,
+    95 classes, B=32, float32, Momentum with L2Decay: OCR_RUNS steps of
+    one batch captured against eager bit for bit (the loss and every
+    persistable), the first step against the CPU (_ocr_check_cpu: fc_out,
+    the per-image losses, the CTC and the last fc's gradients, a planted
+    fault; the decoder on the card's fc_out aligned to the labels),
+    images/s eager against captured in turns, the capture clocked, peak
+    memory, a profiled replay; warpctc alone (forward, backward) against
+    F.ctc_loss on the same losses, the two GRUs alone, and their shares
+    of a replay; the program with the decoder and the EditDistance
+    evaluator as PaddleCV trains it (eager: ctc_align); a stream of new
+    label LoDs; then the decode program through Executor.run and
+    AnalysisPredictor. No kernel of the port lies on this path."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, outs = crnn_ctc_train(pt)
+    main.random_seed = startup.random_seed = SEED
+    block = main.global_block()
+    types = [op.type for op in block.ops]
+    params = main.all_parameters()
+    print(f"  crnn_ctc: {len(types)} ops in block 0 "
+          f"({types.count('conv2d')} conv2d, {types.count('gru')} gru, "
+          f"{types.count('warpctc')} warpctc and its grad, "
+          f"{types.count('momentum')} momentum); {len(params)} parameters, "
+          f"{sum(int(np.prod(p.shape)) for p in params)} elements; "
+          f"{OCR['image'][0]}x{OCR['image'][1]}, {OCR['num_classes']} "
+          f"classes and the blank, B={OCR_B}")
+    _require(types.count("conv2d") == 8 and types.count("gru") == 2 and
+             types.count("warpctc_grad") == 1 and "ctc_align" not in types
+             and tuple(outs["fc_out"].shape[1:]) ==
+             (OCR["num_classes"] + 1,), "crnn_ctc: the network")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    cpu_state = {n: v.get_tensor().tensor.to("cpu", copy=True)
+                 for n, v in init._vars.items()}
+    feed = ocr_batch(torch, pt, 0, pt.CUDAPlace(0))
+    lens = np.diff(feed["label"].lod()[0])
+    print(f"  batch: {OCR_B} images, labels of {lens.min()}-{lens.max()} "
+          f"characters ({lens.sum()} in all), the first a repeat "
+          f"{np.asarray(feed['label'])[:2, 0].tolist()}; T = "
+          f"{OCR['image'][1] // 8} columns an image")
+    loss = outs["loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope, losses, reasons, _ = _seq_compare(
+        torch, pt, kreg, "crnn_ctc", main, [loss], init, [feed], OCR_RUNS)
+    _require(not reasons, f"crnn_ctc: the block was kept eager: {reasons}")
+    _require(losses[-1] < losses[0], "crnn_ctc: the loss did not fall")
+    _ocr_check_cpu(torch, pt, main, outs, cpu_state)
+    with _capture_clock() as clock:
+        c0 = _counters(exe)
+        t1 = time.perf_counter()
+        _cap_run(exe, main, feed, [loss], scope)
+        secs = time.perf_counter() - t1
+    print(f"  crnn_ctc: {_counters(exe)['captures'] - c0['captures']} "
+          f"capture outside deterministic mode, {secs:.3f} s for the run: "
+          f"the capture rule {clock['rule']:.3f} s, warm-up "
+          f"{clock['warm_up']:.3f} s, capture {clock['capture']:.3f} s")
+    rates = _cap_turns(torch, "crnn_ctc", "images/s", OCR_B, {
+        "eager": lambda: _cap_run(exe, main, feed, [loss], scope,
+                                  cached=False, numpy=False)[0],
+        "captured": lambda: _cap_run(exe, main, feed, [loss], scope,
+                                     numpy=False)[0]})
+    print(f"  crnn_ctc: captured / eager "
+          f"{rates['captured'] / rates['eager']:.3f}")
+    wall, busy, n_kernels = _profiled_replay(torch, "crnn_ctc", exe, main,
+                                             feed, [loss], scope)
+    replay_ms = _time_ms(lambda: _cap_run(
+        exe, main, feed, [loss], scope, numpy=False), 3, 1)
+    # warpctc and the GRUs alone at the step's shapes
+    gru_ops = [op for op in block.ops if op.type == "gru"]
+    fetch = [outs["fc_out"]] + [block.var(op.input("Input")[0])
+                                for op in gru_ops]
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  use_program_cache=False, return_numpy=False)
+    tensors = [v.tensor if hasattr(v, "tensor") else v for v in got]
+    projs = [{"x": x, "w": scope.find_var(op.input("Weight")[0])
+              .get_tensor().tensor,
+              "b": scope.find_var(op.input("Bias")[0]).get_tensor().tensor}
+             for x, op in zip(tensors[1:], gru_ops)]
+    alone = _ocr_alone(torch, tensors[0], feed["label"], projs, gru_ops)
+    busy_ms = 1e3 * wall * busy
+    print(f"  crnn_ctc: warpctc alone at B={OCR_B}, T={OCR['image'][1] // 8}"
+          f", C={OCR['num_classes'] + 1}: eager between CUDA events forward "
+          f"{alone['fwd']:.3f} ms, backward "
+          f"{alone['fwd_bwd'] - alone['fwd']:.3f} ms; its kernels' device "
+          f"time forward {alone['dev_fwd']:.3f} ms, forward + backward "
+          f"{alone['dev_fwd_bwd']:.3f} ms, "
+          f"{100 * alone['dev_fwd_bwd'] / busy_ms:.1f} % of the profiled "
+          f"replay's {busy_ms:.3f} ms of device time (a replay between "
+          f"CUDA events {replay_ms:.3f} ms); F.ctc_loss (yardstick, on no "
+          f"path) between CUDA events forward {alone['lib_fwd']:.3f} ms, "
+          f"forward + backward {alone['lib_fwd_bwd']:.3f} ms; max |warpctc - "
+          f"F.ctc_loss| {alone['ctc_diff']:.3e} ({alone['ctc_rel']:.3e} of "
+          f"the largest loss)")
+    print(f"  crnn_ctc: the two GRUs' kernels alone (forward + backward) "
+          f"{alone['gru_fwd_bwd']:.3f} ms of device time, "
+          f"{100 * alone['gru_fwd_bwd'] / busy_ms:.1f} % of a replay's")
+    _require(alone["ctc_rel"] <= 1e-4, "crnn_ctc: warpctc against "
+             "F.ctc_loss")
+    del got, tensors, projs
+    exe.close()
+    _ocr_evaluated(torch, pt, init)
+    _ocr_stream(torch, pt, main, loss, init)
+    _ocr_decode(torch, pt, scope)
+    del scope, init
+    gc_cuda(torch)
+    print(f"  ocr phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# sampled output heads at Transformer-base's output widths
+# ---------------------------------------------------------------------------
+
+HEADS = {"rows": 4096, "width": 512, "classes": 32000}
+HEADS_NEG = 10          # nce's noise samples a row
+HEADS_SAMPLES = 1024    # sampled softmax's samples a row
+HEADS_RUNS = 4          # captured runs against as many eager ones
+HEADS_LR = 0.01
+
+
+def _zipf(n):
+    """A Zipf distribution over n classes, p(c) proportional to 1 / (c +
+    1): the word frequencies of a vocabulary sorted by count."""
+    p = 1.0 / np.arange(1, n + 1)
+    return (p / p.sum()).astype(np.float32)
+
+
+def _heads_program(pt, kind):
+    """(main, startup, loss) of one sampled head over a [rows, width]
+    input fed as `x` and int64 labels `label`: nce (sampler "uniform",
+    "log_uniform" or "custom_dist" over _zipf, HEADS_NEG noise samples),
+    hsigmoid, or an fc to the classes and
+    sampled_softmax_with_cross_entropy (HEADS_SAMPLES log-uniform
+    samples); mean loss, Momentum(HEADS_LR, 0.9)."""
+    L = pt.layers
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    C = HEADS["classes"]
+    with pt.program_guard(main, startup):
+        x = L.data("x", [HEADS["width"]], dtype="float32")
+        label = L.data("label", [1], dtype="int64")
+        if kind.startswith("nce"):
+            sampler = kind.split(" ", 1)[1]
+            cost = L.nce(x, label, C, num_neg_samples=HEADS_NEG,
+                         sampler=sampler,
+                         custom_dist=_zipf(C) if sampler == "custom_dist"
+                         else None)
+        elif kind == "hsigmoid":
+            cost = L.hsigmoid(x, label, C)
+        else:
+            cost = L.sampled_softmax_with_cross_entropy(
+                L.fc(x, C), label, HEADS_SAMPLES)
+        loss = L.mean(cost)
+        pt.optimizer.Momentum(HEADS_LR, 0.9).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def sampled_heads_phase(torch, dev):
+    """nce (uniform, log-uniform, custom_dist over a Zipf distribution),
+    hsigmoid and sampled_softmax_with_cross_entropy at 4096 rows of width
+    512 over 32000 classes, forward, backward and a Momentum update:
+    HEADS_RUNS captured steps against as many eager ones from one
+    startup in deterministic mode, bit for bit (the draws included), and
+    each one's device ms a step from a profiled replay. The labels are
+    drawn from the same Zipf distribution."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    feed = {"x": rng.standard_normal((HEADS["rows"], HEADS["width"]))
+            .astype(np.float32),
+            "label": rng.choice(HEADS["classes"], (HEADS["rows"], 1),
+                                p=_zipf(HEADS["classes"]).astype(np.float64))
+            .astype(np.int64)}
+    for kind in ("nce uniform", "nce log_uniform", "nce custom_dist",
+                 "hsigmoid", "sampled_softmax"):
+        t1 = time.perf_counter()
+        main, startup, loss = _heads_program(pt, kind)
+        got = []
+        _cap_compare(torch, pt, kreg, kind, main, startup, feed, [loss],
+                     HEADS_RUNS, fetched=got)
+        losses = [float(np.asarray(f[0]).reshape(-1)[0]) for f in got]
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        exe.run(startup, scope=scope)
+        for _ in range(2):      # the plan, then the capture
+            _cap_run(exe, main, feed, [loss], scope)
+        wall, busy, n_kernels, _ = _seq_profile(torch, lambda: _cap_run(
+            exe, main, feed, [loss], scope, numpy=False))
+        print(f"  {kind}: {HEADS['rows']} rows x {HEADS['width']} over "
+              f"{HEADS['classes']} classes: a captured step {1e3 * wall * busy:.3f}"
+              f" ms of device time ({n_kernels} kernels, wall "
+              f"{1e3 * wall:.3f} ms); losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}; "
+              f"{time.perf_counter() - t1:.1f} s")
+        _require(all(np.isfinite(losses)), f"{kind}: the losses")
+        exe.close()
+        del exe, scope
+        gc_cuda(torch)
+    print(f"  sampled heads phase: {time.perf_counter() - t0:.1f} s")
+
+
 # the op sweep's tolerance, card against CPU: float32 within 1e-5
 # relative and absolute (libm and summation order differ); the rest exact
 SWEEP_TOL = 1e-5
 
 
+def _sweep_check(torch, op_type, card, cpu, clod=None, plod=None):
+    """Each output on the card against the CPU's: float32 within
+    SWEEP_TOL, the rest (and the LoDs) exactly. Returns the worst float
+    |err|."""
+    worst = 0.0
+    for n, v in card.items():
+        a, b = v.detach().cpu(), cpu[n].detach()
+        ok = a.dtype == b.dtype and a.shape == b.shape
+        if ok and a.is_floating_point():
+            finite = b.abs() < 1e29         # not an infeasible CTC loss
+            if finite.any():
+                worst = max(worst, float((a - b).abs()[finite].max()))
+            ok = bool(torch.allclose(a, b, rtol=SWEEP_TOL, atol=SWEEP_TOL))
+        elif ok:
+            ok = torch.equal(a, b)
+        _require(ok and (clod or {}).get(n) == (plod or {}).get(n),
+                 f"op sweep: {op_type} {n} on the card differs from the CPU")
+    return worst
+
+
+def _sweep_nlp(torch, dev):
+    """Slice 24's cases (family_cases.nlp_cases) on the card against the
+    CPU, with each gradient (under one cotangent of every float output)
+    where the op has one. nce and sample_logits without
+    CustomizedSamples draw on the card what the CPU cannot draw: their
+    outputs and gradients are held to the numpy reckoning of the JAX
+    op's formula on the card's own samples. Returns (cases, types, the
+    worst float |err|)."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    worst, types, cases = 0.0, set(), fc.nlp_cases()
+    for case in cases:
+        op_type, ins, lods, attrs, outs, diff = case
+        card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
+        rng = np.random.default_rng(7)
+        cot = {s: rng.standard_normal(tuple(card[f"{s.lower()}_out0"].shape))
+               .astype(np.float32) for s in outs
+               if card[f"{s.lower()}_out0"].is_floating_point()}
+        if fc.drawn(case):
+            if op_type == "nce":
+                key, slot = "samplelabels_out0", "Cost"
+                cost, grads = fc.nce_numpy(
+                    ins, attrs, card[key].cpu().numpy(), cot[slot])
+                want = {"cost_out0": cost}
+            else:
+                key, slot = "samples_out0", "SampledLogits"
+                logits, probs, grads = fc.sample_logits_numpy(
+                    ins, attrs, card[key].cpu().numpy(), cot[slot])
+                want = {"sampledlogits_out0": logits,
+                        "probabilities_out0": probs}
+            cot = {slot: cot[slot]}
+            cpu = {n: torch.from_numpy(v) for n, v in want.items()}
+            worst = max(worst, _sweep_check(
+                torch, op_type, {n: card[n] for n in want}, cpu))
+            cpu_g = {s: torch.from_numpy(g) for s, g in grads.items()}
+        else:
+            cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
+            worst = max(worst, _sweep_check(torch, op_type, card, cpu, clod,
+                                            plod))
+            cpu_g = fc.run_grad(op_type, ins, attrs, outs, diff, "cpu",
+                                lods, cpu, cot) if diff else {}
+        if diff:
+            card_g = fc.run_grad(op_type, ins, attrs, outs, diff, dev, lods,
+                                 card, cot)
+            worst = max(worst, _sweep_check(
+                torch, op_type + "_grad", {s: card_g[s] for s in diff},
+                {s: cpu_g[s] for s in diff}))
+        types.add(op_type)
+    return len(cases), types, worst
+
+
 def op_sweep_phase(torch, dev):
     """Every op type of the basic, reduce, elementwise, activation, nn
     and conv families, the nine update ops without a kernel, the three
-    value-dependent sequence ops, SSD's eight detection ops and the
-    one-stage detectors' ten, each case of ops/family_cases.py once
-    through its lowering on the card against the same lowering on the
-    CPU."""
+    value-dependent sequence ops, SSD's eight detection ops, the one- and
+    two-stage detectors' ten each and slice 24's eleven nlp, metric and
+    bilinear ops, each case of ops/family_cases.py once through its
+    lowering on the card against the same lowering on the CPU (slice
+    24's with their gradients; _sweep_nlp)."""
     from paddle_tpu_torch.ops import family_cases as fc
     t0 = time.perf_counter()
     worst, types = 0.0, set()
@@ -8676,24 +9684,19 @@ def op_sweep_phase(torch, dev):
     for op_type, ins, attrs, outs, lods in runs:
         card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
         cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
-        for n, v in card.items():
-            a, b = v.cpu(), cpu[n]
-            ok = a.dtype == b.dtype and a.shape == b.shape
-            if ok and a.is_floating_point():
-                err = float((a - b).abs().max()) if a.numel() else 0.0
-                worst = max(worst, err)
-                ok = bool(torch.allclose(a, b, rtol=SWEEP_TOL,
-                                         atol=SWEEP_TOL))
-            elif ok:
-                ok = torch.equal(a, b)
-            _require(ok and clod[n] == plod[n],
-                     f"op sweep: {op_type} {n} on the card differs from "
-                     f"the CPU")
+        worst = max(worst, _sweep_check(torch, op_type, card, cpu, clod,
+                                        plod))
         types.add(op_type)
+    n_nlp, nlp_types, nlp_worst = _sweep_nlp(torch, dev)
+    _require(len(nlp_types) == 11, f"op sweep: nlp types {nlp_types}")
+    types |= nlp_types
+    worst = max(worst, nlp_worst)
     torch.cuda.synchronize()
-    print(f"  op sweep: {len(runs)} cases of {len(types)} op types on the "
-          f"card equal to their CPU lowerings (float32 worst |err| "
-          f"{worst:.3e}, SWEEP_TOL {SWEEP_TOL}); "
+    print(f"  op sweep: {len(runs) + n_nlp} cases of {len(types)} op types "
+          f"on the card equal to their CPU lowerings (float32 worst |err| "
+          f"{worst:.3e}, SWEEP_TOL {SWEEP_TOL}); of them slice 24's "
+          f"{n_nlp} cases of {len(nlp_types)} types, with their gradients "
+          f"(worst |err| {nlp_worst:.3e}); "
           f"{time.perf_counter() - t0:.1f} s")
     return len(types)
 
@@ -8866,6 +9869,10 @@ def main(argv=None):
     yolo_phase(torch, dev)
     print("[rcnn phase]")
     rcnn_phase(torch, dev)
+    print("[ocr phase]")
+    ocr_phase(torch, dev)
+    print("[sampled heads phase]")
+    sampled_heads_phase(torch, dev)
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)

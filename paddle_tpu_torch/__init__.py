@@ -11,7 +11,8 @@ numpy, and nothing of JAX or of paddle_tpu.
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
 from . import backward, contrib, dygraph, inference, optimizer  # noqa: F401
-from . import evaluator, parallel, regularizer, unique_name  # noqa: F401
+from . import evaluator, metrics, parallel, regularizer  # noqa: F401
+from . import unique_name  # noqa: F401
 from .backward import append_backward, gradients  # noqa: F401
 from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401
                          cpu_places, cuda_pinned_places, cuda_places,

@@ -1,6 +1,7 @@
 """Dygraph NN layers (counterpart of paddle_tpu/dygraph/nn.py): FC,
 Linear, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose, Pool2D,
-BatchNorm, Embedding, LayerNorm, GroupNorm, PRelu and Dropout. Each
+BatchNorm, Embedding, LayerNorm, GroupNorm, PRelu, Dropout,
+BilinearTensorProduct, GRUUnit and NCE. Each
 layer calls the graph-mode layer builder, which in dygraph mode creates
 the layer's parameters through the tracer (once: the tracer's lazy
 creation memo) and runs its ops at once. BatchNorm's moving mean and
@@ -13,7 +14,8 @@ from .layers import Layer
 
 __all__ = ["Conv2D", "Pool2D", "FC", "Linear", "BatchNorm", "Embedding",
            "LayerNorm", "GroupNorm", "PRelu", "Dropout", "Conv2DTranspose",
-           "Conv3D", "Conv3DTranspose"]
+           "Conv3D", "Conv3DTranspose", "BilinearTensorProduct", "GRUUnit",
+           "NCE"]
 
 
 class FC(Layer):
@@ -195,3 +197,52 @@ class Dropout(Layer):
     def forward(self, input):
         return L.dropout(input, self._p, is_test=not self.training,
                          dropout_implementation=self._impl)
+
+
+class BilinearTensorProduct(Layer):
+    def __init__(self, name_scope=None, size=None, param_attr=None,
+                 bias_attr=None, act=None):
+        super().__init__(name_scope)
+        self._kw = dict(size=size, param_attr=param_attr,
+                        bias_attr=bias_attr, act=act)
+
+    def forward(self, x, y):
+        return L.bilinear_tensor_product(x, y, **self._kw)
+
+
+class GRUUnit(Layer):
+    """One GRU step (gru_unit): forward(input [B, 3 * size], hidden [B,
+    size]) returns (hidden, reset_hidden_prev, gate)."""
+
+    def __init__(self, name_scope=None, size=None, param_attr=None,
+                 bias_attr=None, activation="tanh",
+                 gate_activation="sigmoid", origin_mode=False,
+                 dtype="float32"):
+        super().__init__(name_scope, dtype)
+        self._kw = dict(size=size, param_attr=param_attr,
+                        bias_attr=bias_attr, activation=activation,
+                        gate_activation=gate_activation,
+                        origin_mode=origin_mode)
+
+    def forward(self, input, hidden):
+        return L.gru_unit(input, hidden, **self._kw)
+
+
+class NCE(Layer):
+    """The nce loss of its constructor's settings (the sample_weight
+    given there; forward's, as in the JAX package, is not read)."""
+
+    def __init__(self, name_scope=None, num_total_classes=None,
+                 sample_weight=None, param_attr=None, bias_attr=None,
+                 num_neg_samples=None, sampler="uniform",
+                 custom_dist=None, seed=0, is_sparse=False):
+        super().__init__(name_scope)
+        self._kw = dict(num_total_classes=num_total_classes,
+                        sample_weight=sample_weight,
+                        param_attr=param_attr, bias_attr=bias_attr,
+                        num_neg_samples=num_neg_samples,
+                        sampler=sampler, custom_dist=custom_dist,
+                        seed=seed, is_sparse=is_sparse)
+
+    def forward(self, input, label, sample_weight=None):
+        return L.nce(input, label, **self._kw)

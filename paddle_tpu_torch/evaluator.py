@@ -1,6 +1,5 @@
 """Evaluators (counterpart of paddle_tpu/evaluator.py: Evaluator,
-EditDistance and DetectionMAP; ChunkEvaluator waits for the chunk_eval
-op). An evaluator keeps persistable state vars in the main program,
+ChunkEvaluator, EditDistance and DetectionMAP). An evaluator keeps persistable state vars in the main program,
 accumulated by ops it appends there across minibatches; `reset` starts
 them again and `eval` reads the epoch's metric. Deprecated in the
 reference in favour of fluid.metrics, so each warns, as in the JAX
@@ -17,7 +16,7 @@ from .framework import Program, program_guard, unique_name
 from .layer_helper import LayerHelper
 from .ops.detection import DetectionMAPState
 
-__all__ = ["EditDistance", "DetectionMAP"]
+__all__ = ["ChunkEvaluator", "EditDistance", "DetectionMAP"]
 
 
 def _warn(cls):
@@ -85,6 +84,41 @@ class Evaluator:
     def _fetch_state(var):
         v = global_scope().find_var(var.name)
         return np.asarray(v.get_tensor())
+
+
+class ChunkEvaluator(Evaluator):
+    """The epoch's chunk precision, recall and F1: the states hold the
+    running inferred, labelled and correct chunk counts of chunk_eval."""
+
+    def __init__(self, input, label, chunk_scheme, num_chunk_types,
+                 excluded_chunk_types=None):
+        super().__init__("chunk_eval")
+        _warn("ChunkEvaluator")
+        (precision, recall, f1, num_infer, num_label,
+         num_correct) = layers.chunk_eval(
+            input=input, label=label, chunk_scheme=chunk_scheme,
+            num_chunk_types=num_chunk_types,
+            excluded_chunk_types=excluded_chunk_types)
+        self.num_infer_chunks = self._create_state(
+            "num_infer", "int32", [1])
+        self.num_label_chunks = self._create_state(
+            "num_label", "int32", [1])
+        self.num_correct_chunks = self._create_state(
+            "num_correct", "int32", [1])
+        self._accumulate(self.num_infer_chunks, num_infer)
+        self._accumulate(self.num_label_chunks, num_label)
+        self._accumulate(self.num_correct_chunks, num_correct)
+        self.metrics.extend([precision, recall, f1])
+
+    def eval(self, executor, eval_program=None):
+        ni = int(self._fetch_state(self.num_infer_chunks).reshape(-1)[0])
+        nl = int(self._fetch_state(self.num_label_chunks).reshape(-1)[0])
+        nc = int(self._fetch_state(self.num_correct_chunks).reshape(-1)[0])
+        p = nc / ni if ni else 0.0
+        r = nc / nl if nl else 0.0
+        f1 = 2 * p * r / (p + r) if p + r else 0.0
+        return np.array(p, np.float32), np.array(r, np.float32), \
+            np.array(f1, np.float32)
 
 
 class EditDistance(Evaluator):

@@ -2,10 +2,14 @@
 softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
 label_smoothed_softmax_xent, square_error_cost, mse_loss, log_loss,
 huber_loss, kldiv_loss, smooth_l1, margin_rank_loss, rank_loss,
-hinge_loss, bpr_loss, linear_chain_crf and crf_decoding)."""
+hinge_loss, bpr_loss, linear_chain_crf, crf_decoding, warpctc,
+ctc_greedy_decoder, nce, hsigmoid and
+sampled_softmax_with_cross_entropy)."""
 from __future__ import annotations
 
 import warnings
+
+import numpy as np
 
 from ..layer_helper import LayerHelper
 
@@ -14,7 +18,9 @@ __all__ = ["cross_entropy", "softmax_with_cross_entropy",
            "label_smoothed_softmax_xent", "square_error_cost", "mse_loss",
            "log_loss", "huber_loss", "kldiv_loss", "smooth_l1",
            "margin_rank_loss", "rank_loss", "hinge_loss", "bpr_loss",
-           "linear_chain_crf", "crf_decoding"]
+           "linear_chain_crf", "crf_decoding", "warpctc",
+           "ctc_greedy_decoder", "nce", "hsigmoid",
+           "sampled_softmax_with_cross_entropy"]
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
@@ -218,3 +224,128 @@ def crf_decoding(input, param_attr, label=None):
     helper.append_op("crf_decoding", inputs=inputs,
                      outputs={"ViterbiPath": path}, infer_shape=False)
     return path
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """The CTC loss of each sequence of the LoD logits `input` [sum_t,
+    C] (unnormalized) against the LoD `label` [sum_l, 1]: [B, 1]."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "warpctc", inputs={"Logits": input, "Label": label},
+        outputs={"Loss": loss, "WarpCTCGrad": grad},
+        attrs={"blank": blank, "norm_by_times": norm_by_times},
+        infer_shape=False)
+    return loss
+
+
+def ctc_greedy_decoder(input, blank):
+    """Each step's best class (top_k, k=1), then ctc_align: repeats
+    merged, blanks dropped; int32 LoD ids."""
+    from . import nn as nn_layers
+    helper = LayerHelper("ctc_greedy_decoder")
+    _, topk_indices = nn_layers.top_k(input, k=1)
+    out = helper.create_variable_for_type_inference("int32")
+    helper.append_op("ctc_align", inputs={"Input": topk_indices},
+                     outputs={"Output": out},
+                     attrs={"blank": blank, "merge_repeated": True},
+                     infer_shape=False)
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10,
+        name=None, sampler="uniform", custom_dist=None, seed=0,
+        is_sparse=False):
+    """The noise-contrastive estimation loss, [B, 1]; creates the
+    weight [num_total_classes, dim] and the bias [num_total_classes,
+    1]. sampler: "uniform", "log_uniform" or "custom_dist" (the
+    probabilities `custom_dist`, assigned to a var)."""
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                [num_total_classes, dim], input.dtype)
+    b = helper.create_parameter(bias_attr, [num_total_classes, 1],
+                                input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sample_logits_v = helper.create_variable_for_type_inference(
+        input.dtype)
+    sample_labels_v = helper.create_variable_for_type_inference("int32")
+    sampler_code = {"uniform": 0, "log_uniform": 1,
+                    "custom_dist": 2}[sampler]
+    inputs = {"Input": input, "Label": label, "Weight": w, "Bias": b}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = sample_weight
+    if custom_dist is not None:
+        from . import tensor as tensor_layers
+        inputs["CustomDistProbs"] = tensor_layers.assign(
+            np.asarray(custom_dist, np.float32))
+    helper.append_op(
+        "nce", inputs=inputs,
+        outputs={"Cost": cost, "SampleLogits": sample_logits_v,
+                 "SampleLabels": sample_labels_v},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples,
+               "sampler": sampler_code, "seed": seed,
+               "is_sparse": is_sparse},
+        infer_shape=False)
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None,
+             is_custom=False, is_sparse=False):
+    """The hierarchical sigmoid loss over the complete binary tree of
+    num_classes leaves, [B, 1]; creates the weight [num_classes - 1,
+    dim] and the bias [1, num_classes - 1]. Custom trees (path_table /
+    path_code) raise, as in the JAX package."""
+    if is_custom or path_table is not None or path_code is not None:
+        raise NotImplementedError(
+            "hsigmoid custom trees (path_table/path_code) are not "
+            "implemented; only the complete-binary-tree SimpleCode")
+    helper = LayerHelper("hierarchical_sigmoid", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_classes - 1, dim],
+                                input.dtype)
+    b = helper.create_parameter(bias_attr, [1, num_classes - 1],
+                                input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "hierarchical_sigmoid",
+        inputs={"Input": input, "W": w, "Label": label, "Bias": b},
+        outputs={"Out": out, "PreOut": pre_out},
+        attrs={"num_classes": num_classes}, infer_shape=False)
+    return out
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """Softmax cross entropy over the true classes and num_samples
+    sampled ones (sample_logits, then softmax_with_cross_entropy)."""
+    helper = LayerHelper("sample_logits")
+    samples = helper.create_variable_for_type_inference("int32")
+    probabilities = helper.create_variable_for_type_inference(
+        logits.dtype)
+    sampled_logits = helper.create_variable_for_type_inference(
+        logits.dtype)
+    sampled_label = helper.create_variable_for_type_inference("int32")
+    inputs = {"Logits": logits, "Labels": label}
+    if use_customized_samples:
+        inputs["CustomizedSamples"] = customized_samples
+        inputs["CustomizedProbabilities"] = customized_probabilities
+    helper.append_op(
+        "sample_logits", inputs=inputs,
+        outputs={"SampledLogits": sampled_logits, "Samples": samples,
+                 "Probabilities": probabilities,
+                 "SampledLabels": sampled_label},
+        attrs={"num_samples": num_samples, "seed": seed,
+               "remove_accidental_hits": remove_accidental_hits},
+        infer_shape=False)
+    return softmax_with_cross_entropy(sampled_logits, sampled_label)

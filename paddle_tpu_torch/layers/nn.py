@@ -14,8 +14,9 @@ l2_normalize, lrn), sign, dice_loss and npair_loss; mul, sum,
 gaussian_random, lstm_unit, gru_unit, merge_selected_rows,
 get_tensor_from_selected_rows and rank; the conv family's
 (conv2d_transpose, conv3d, conv3d_transpose, pool3d, the adaptive pools,
-the resizes, the layout ops, unfold, spp); and the RoI poolings
-roi_align, roi_pool and psroi_pool."""
+the resizes, the layout ops, unfold, spp); the RoI poolings
+roi_align, roi_pool and psroi_pool; and bilinear_tensor_product,
+chunk_eval and mean_iou."""
 from __future__ import annotations
 
 import builtins
@@ -64,6 +65,8 @@ __all__ = [
     "affine_channel", "unfold", "temporal_shift", "spp",
     # the RoI poolings
     "roi_align", "roi_pool", "psroi_pool",
+    # slice 24: the bilinear product and the metric builders
+    "bilinear_tensor_product", "chunk_eval", "mean_iou",
 ]
 
 
@@ -1388,3 +1391,60 @@ def psroi_pool(input, rois, output_channels, spatial_scale,
                "pooled_height": pooled_height,
                "pooled_width": pooled_width})
     return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """out[b, o] = x[b] @ W[o] @ y[b] + bias: creates W [size, dx, dy]
+    and, unless bias_attr is False, the bias [1, size]."""
+    helper = LayerHelper("bilinear_tensor_product", act=act,
+                         bias_attr=bias_attr, name=name)
+    w = helper.create_parameter(param_attr,
+                                [size, x.shape[1], y.shape[1]], x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": x, "Y": y, "Weight": w}
+    if bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            bias_attr, [1, size], x.dtype, is_bias=True)
+    helper.append_op("bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk precision, recall, F1 and the inferred, labelled and
+    correct chunk counts of the tag ids `input` against `label`
+    (schemes IOB, IOE, IOBES, plain)."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference("float32")
+    recall = helper.create_variable_for_type_inference("float32")
+    f1 = helper.create_variable_for_type_inference("float32")
+    n_infer = helper.create_variable_for_type_inference("int32")
+    n_label = helper.create_variable_for_type_inference("int32")
+    n_correct = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "chunk_eval", inputs={"Inference": input, "Label": label},
+        outputs={"Precision": precision, "Recall": recall,
+                 "F1-Score": f1, "NumInferChunks": n_infer,
+                 "NumLabelChunks": n_label,
+                 "NumCorrectChunks": n_correct},
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, n_infer, n_label, n_correct
+
+
+def mean_iou(input, label, num_classes):
+    """The mean IoU of the predicted class ids against the labels, and
+    each class's wrong and correct counts (int32 [num_classes])."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int32")
+    correct = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "mean_iou", inputs={"Predictions": input, "Labels": label},
+        outputs={"OutMeanIou": miou, "OutWrong": wrong,
+                 "OutCorrect": correct},
+        attrs={"num_classes": num_classes})
+    return miou, wrong, correct

@@ -297,6 +297,10 @@ def top_k(ctx):
     vals, idx = torch.topk(ctx.input("X"), k, dim=-1)
     ctx.set_output("Out", vals)
     ctx.set_output("Indices", idx.long())
+    lod = ctx.get_lod("X")
+    if lod:     # the reference's ShareLoD(X, Out) (top_k_op.cc)
+        ctx.set_lod("Out", lod)
+        ctx.set_lod("Indices", lod)
 
 
 def _ids(ids):

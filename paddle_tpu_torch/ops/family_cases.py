@@ -4,7 +4,9 @@ activations.py, nn.py), the nine update ops that have no kernel
 (optimizer_ops.py: lars_momentum ... lamb), the conv family
 (conv.py), the value-dependent sequence
 ops, SSD's detection ops and the one- and two-stage detectors' ops
-(detection.py, on LoD inputs), on seeded
+(detection.py, on LoD inputs), and slice 24's nlp, metric and
+bilinear ops (nlp.py, metrics.py, misc.py's chunk_eval, matmul.py's
+bilinear_tensor_product), on seeded
 numpy inputs, and a runner of one op's lowering on a device: the cases
 tests/test_torch_op_families.py holds against the JAX package's
 lowerings on the CPU and chip_smoke.py's op sweep holds on the card
@@ -25,7 +27,8 @@ import torch
 from ..core.registry import OPS, ExecContext, _SlotView
 
 __all__ = ["cases", "conv_cases", "sequence_cases", "detection_cases",
-           "one_stage_cases", "two_stage_cases", "run"]
+           "one_stage_cases", "two_stage_cases", "nlp_cases", "run",
+           "run_grad", "nce_numpy", "sample_logits_numpy", "drawn"]
 
 
 def _f32(rng, *shape, lo=None, hi=None):
@@ -1004,6 +1007,261 @@ def two_stage_cases() -> List[tuple]:
             "MultiLevelScores": lv_scores}, {}, {"post_nms_topN": 6},
          {"FpnRois": 1}, []),
     ]
+
+
+# CTC: four sequences of T = 4, 5, 2 and 6 steps over 5 classes (blank
+# 0): a label of two, an empty one, a repeat in two steps (infeasible:
+# it needs three) and a feasible repeat
+CTC_T_LOD = [[0, 4, 9, 11, 17]]
+CTC_L_LOD = [[0, 2, 2, 4, 7]]
+CTC_LABEL = np.array([[1], [2], [3], [3], [1], [1], [3]], np.int32)
+# chunk_eval: tags of three sequences, 3 chunk types
+CHUNK_LOD = [[0, 6, 10, 15]]
+
+
+def _chunk_case(r, scheme, excluded=()):
+    n_tags = {"IOB": 2, "IOE": 2, "IOBES": 4, "plain": 1}[scheme]
+    outside = 3 * n_tags
+    lab = r.integers(0, outside + 1, (15, 1)).astype(np.int64)
+    inf = lab.copy()
+    flip = r.random(15) < 0.35
+    inf[flip, 0] = r.integers(0, outside + 1, int(flip.sum()))
+    return ("chunk_eval", {"Inference": inf, "Label": lab},
+            {"inference": CHUNK_LOD, "label": CHUNK_LOD},
+            {"num_chunk_types": 3, "chunk_scheme": scheme,
+             "excluded_chunk_types": list(excluded)},
+            {"Precision": 1, "Recall": 1, "F1-Score": 1,
+             "NumInferChunks": 1, "NumLabelChunks": 1,
+             "NumCorrectChunks": 1}, [])
+
+
+# the random draws of nce and of sample_logits without
+# CustomizedSamples: a case of these ops is held to nce_numpy /
+# sample_logits_numpy on the samples its run drew
+def drawn(case) -> bool:
+    return case[0] == "nce" or (case[0] == "sample_logits" and
+                                "CustomizedSamples" not in case[1])
+
+
+def nlp_cases() -> List[tuple]:
+    """(op type, inputs, {input name: LoD}, attrs, {output slot: count},
+    [input slots to differentiate]) of slice 24's eleven ops: warpctc
+    (a label of length 0, a repeat, an infeasible alignment;
+    norm_by_times both ways), ctc_align (an all-blank sequence; a batch
+    that decodes to nothing), nce (the uniform, log-uniform and custom
+    samplers; SampleWeight), hierarchical_sigmoid (a label whose code is
+    a power of two), sample_logits (CustomizedSamples with an
+    accidental hit; log-uniform draws), bilinear_tensor_product,
+    chunk_eval (each scheme, one type excluded), auc (stats that are
+    not zero), mean_iou, precision_recall and positive_negative_pair
+    (tied scores, two queries, accumulated pairs)."""
+    r = np.random.default_rng(24)
+    logits = _f32(r, 17, 5)
+    ctc_lods = {"logits": CTC_T_LOD, "label": CTC_L_LOD}
+    ids = np.array([[1], [1], [0], [2], [2], [0], [0], [0], [3], [3], [0],
+                    [3]], np.int64)
+    x, lab = _f32(r, 6, 4), np.array([[2], [0], [5], [3], [2], [1]],
+                                     np.int64)
+    nce_w, nce_b = _f32(r, 7, 4), _f32(r, 7, 1)
+    nce_in = {"Input": x, "Label": lab, "Weight": nce_w, "Bias": nce_b}
+    nce_out = {"Cost": 1, "SampleLogits": 1, "SampleLabels": 1}
+    probs = np.array([0.3, 0.05, 0.2, 0.1, 0.15, 0.12, 0.08], np.float32)
+    sl_out = {"SampledLogits": 1, "Samples": 1, "Probabilities": 1,
+              "SampledLabels": 1}
+    sl_logits = _f32(r, 4, 9)
+    sl_labels = np.array([[2], [7], [0], [4]], np.int64)
+    # row 1 samples its own label 7 (an accidental hit), row 3 a repeat
+    custom = np.array([[2, 5, 1, 8], [7, 3, 7, 0], [0, 6, 2, 2],
+                       [4, 4, 1, 3]], np.int64)
+    custom_p = r.uniform(0.05, 0.5, (4, 4)).astype(np.float32)
+    score = r.uniform(0, 1, (8, 2)).astype(np.float32)
+    score[3, 1] = score[5, 1]                    # a tie within query 0
+    qid = np.array([[0], [0], [1], [0], [1], [0], [1], [1]], np.int64)
+    rank = np.array([[2.0], [0.0], [1.0], [1.0], [0.0], [2.0], [2.0],
+                     [1.0]], np.float32)
+    stat = r.integers(0, 5, 16).astype(np.float32)
+    auc_pred = np.stack([1 - (p := r.uniform(0, 1, 12)), p], 1).astype(
+        np.float32)
+    return [
+        ("warpctc", {"Logits": logits, "Label": CTC_LABEL}, ctc_lods,
+         {"blank": 0, "norm_by_times": False}, {"Loss": 1}, ["Logits"]),
+        ("warpctc", {"Logits": logits, "Label": CTC_LABEL}, ctc_lods,
+         {"blank": 0, "norm_by_times": True}, {"Loss": 1}, ["Logits"]),
+        ("warpctc", {"Logits": logits[:9], "Label": CTC_LABEL[:2]},
+         {"logits": [[0, 4, 9]], "label": [[0, 2, 2]]},
+         {"blank": 4, "norm_by_times": False}, {"Loss": 1}, ["Logits"]),
+        ("ctc_align", {"Input": ids}, {"input": [[0, 4, 8, 12]]},
+         {"blank": 0, "merge_repeated": True}, {"Output": 1}, []),
+        ("ctc_align", {"Input": np.zeros((5, 1), np.int64)},
+         {"input": [[0, 2, 5]]}, {"blank": 0, "merge_repeated": True},
+         {"Output": 1}, []),
+        ("nce", dict(nce_in), {}, {"num_total_classes": 7,
+                                   "num_neg_samples": 3, "sampler": 0},
+         nce_out, ["Input", "Weight", "Bias"]),
+        ("nce", dict(nce_in, SampleWeight=r.uniform(
+            0.5, 2, (6, 1)).astype(np.float32)), {},
+         {"num_total_classes": 7, "num_neg_samples": 4, "sampler": 1},
+         nce_out, ["Input", "Weight", "Bias"]),
+        ("nce", dict(nce_in, CustomDistProbs=probs), {},
+         {"num_total_classes": 7, "num_neg_samples": 5, "sampler": 2},
+         nce_out, ["Input", "Weight", "Bias"]),
+        ("hierarchical_sigmoid", {"Input": x, "W": _f32(r, 5, 4),
+                                  "Label": lab % 6, "Bias": _f32(r, 1, 5)},
+         {}, {"num_classes": 6}, {"Out": 1, "PreOut": 1},
+         ["Input", "W", "Bias"]),
+        ("hierarchical_sigmoid", {"Input": x, "W": _f32(r, 7, 4),
+                                  "Label": np.array([[0], [7], [3], [1],
+                                                     [6], [4]], np.int64)},
+         {}, {"num_classes": 8}, {"Out": 1, "PreOut": 1}, ["Input", "W"]),
+        ("sample_logits", {"Logits": sl_logits, "Labels": sl_labels,
+                           "CustomizedSamples": custom,
+                           "CustomizedProbabilities": custom_p}, {},
+         {"num_samples": 3, "remove_accidental_hits": True}, sl_out,
+         ["Logits"]),
+        ("sample_logits", {"Logits": sl_logits, "Labels": sl_labels}, {},
+         {"num_samples": 6, "remove_accidental_hits": True}, sl_out,
+         ["Logits"]),
+        ("bilinear_tensor_product", {"X": _f32(r, 3, 4), "Y": _f32(r, 3, 5),
+                                     "Weight": _f32(r, 2, 4, 5),
+                                     "Bias": _f32(r, 1, 2)}, {}, {},
+         {"Out": 1}, ["X", "Y", "Weight", "Bias"]),
+        _chunk_case(r, "IOB"),
+        _chunk_case(r, "IOE"),
+        _chunk_case(r, "IOBES"),
+        _chunk_case(r, "plain"),
+        _chunk_case(r, "IOB", excluded=(1,)),
+        ("auc", {"Predict": auc_pred,
+                 "Label": (r.random((12, 1)) < 0.5).astype(np.int64),
+                 "StatPos": stat, "StatNeg": stat[::-1].copy()}, {},
+         {"num_thresholds": 15}, {"AUC": 1, "StatPosOut": 1,
+                                  "StatNegOut": 1}, []),
+        ("mean_iou", {"Predictions": r.integers(0, 4, (10,)).astype(
+            np.int32), "Labels": r.integers(0, 4, (10,)).astype(np.int32)},
+         {}, {"num_classes": 5}, {"OutMeanIou": 1, "OutWrong": 1,
+                                  "OutCorrect": 1}, []),
+        ("precision_recall", {
+            "MaxProbs": r.uniform(0, 1, (9, 1)).astype(np.float32),
+            "Indices": r.integers(0, 4, (9, 1)).astype(np.int32),
+            "Labels": r.integers(0, 4, (9, 1)).astype(np.int32),
+            "Weights": r.uniform(0.5, 2, (9, 1)).astype(np.float32),
+            "StatesInfo": r.integers(0, 6, (4, 4)).astype(np.float32)},
+         {}, {"class_number": 4}, {"BatchMetrics": 1, "AccumMetrics": 1,
+                                   "AccumStatesInfo": 1}, []),
+        ("positive_negative_pair", {"Score": score, "Label": rank,
+                                    "QueryID": qid}, {}, {"column": -1},
+         {"PositivePair": 1, "NegativePair": 1, "NeutralPair": 1}, []),
+        ("positive_negative_pair", {
+            "Score": score, "Label": rank, "QueryID": qid,
+            "Weight": r.uniform(0.5, 2, (8, 1)).astype(np.float32),
+            "AccumulatePositivePair": np.array([2.0], np.float32),
+            "AccumulateNegativePair": np.array([1.0], np.float32),
+            "AccumulateNeutralPair": np.array([0.5], np.float32)}, {},
+         {"column": 0}, {"PositivePair": 1, "NegativePair": 1,
+                         "NeutralPair": 1}, []),
+    ]
+
+
+def _softplus(v):
+    return np.logaddexp(v, np.float32(0)).astype(v.dtype)
+
+
+def _sigmoid(v):
+    return (1.0 / (1.0 + np.exp(-v))).astype(v.dtype)
+
+
+def nce_numpy(inputs, attrs, samples, cot=None):
+    """The nce cost ([B, 1] float32) of the JAX op's formula
+    (paddle_tpu/ops/nlp.py's nce) on the samples `samples` ([B, nt + k]:
+    the labels, then the noise), and with `cot` (the cost's cotangent)
+    the gradients of Input, Weight and Bias."""
+    x, w = inputs["Input"], inputs["Weight"]
+    bias = inputs.get("Bias")
+    C, k = int(attrs["num_total_classes"]), int(attrs["num_neg_samples"])
+    sampler = int(attrs.get("sampler", 0))
+    B = x.shape[0]
+    nt = samples.shape[1] - k
+    samples = samples.astype(np.int64)
+    f = np.float32
+    if sampler == 1:
+        s = samples.astype(f)
+        q = np.log(np.log((s + f(2)) / (s + f(1))) / np.log(f(C + 1)))
+    elif sampler == 2:
+        q = np.log(np.maximum(inputs["CustomDistProbs"][samples], f(1e-30)))
+    else:
+        q = np.full(samples.shape, -np.log(f(C)), f)
+    logits = np.einsum("bd,bsd->bs", x, w[samples]).astype(f)
+    if bias is not None:
+        logits = logits + bias.reshape(-1)[samples]
+    adj = logits - (q + np.log(f(k)))
+    cost = (_softplus(-adj[:, :nt]).sum(1) +
+            _softplus(adj[:, nt:]).sum(1)).reshape(B, 1)
+    sw = inputs.get("SampleWeight")
+    scale = sw.reshape(B, 1) if sw is not None else np.ones((B, 1), f)
+    if cot is None:
+        return cost * scale
+    g = cot.reshape(B, 1) * scale * np.concatenate(
+        [-_sigmoid(-adj[:, :nt]), _sigmoid(adj[:, nt:])], axis=1)
+    gx = np.einsum("bs,bsd->bd", g, w[samples]).astype(f)
+    gw = np.zeros_like(w)
+    np.add.at(gw, samples.reshape(-1),
+              (g[..., None] * x[:, None, :]).reshape(-1, x.shape[1]))
+    grads = {"Input": gx, "Weight": gw}
+    if bias is not None:
+        gb = np.zeros(bias.size, f)
+        np.add.at(gb, samples.reshape(-1), g.reshape(-1))
+        grads["Bias"] = gb.reshape(bias.shape)
+    return cost * scale, grads
+
+
+def sample_logits_numpy(inputs, attrs, samples, cot=None):
+    """sample_logits' SampledLogits and Probabilities (the JAX op's
+    formula) on `samples` (log-uniform q), and with `cot` the gradient
+    of Logits."""
+    logits, labels = inputs["Logits"], inputs["Labels"].astype(np.int64)
+    B, C = logits.shape
+    nt = labels.shape[1]
+    f = np.float32
+    samples = samples.astype(np.int64)
+    s = samples.astype(f)
+    probs = (np.log((s + f(2)) / (s + f(1))) / np.log(f(C + 1))).astype(f)
+    out = np.take_along_axis(logits, samples, 1) - \
+        np.log(np.maximum(probs, f(1e-30)))
+    if attrs.get("remove_accidental_hits", True):
+        hit = (samples[:, None, :] == labels[:, :, None]).any(1)
+        hit[:, :nt] = False
+        out = np.where(hit, out + f(-1e30), out)
+    if cot is None:
+        return out.astype(f), probs
+    g = np.zeros_like(logits)
+    np.add.at(g, (np.repeat(np.arange(B), samples.shape[1]),
+                  samples.reshape(-1)), cot.reshape(-1))
+    return out.astype(f), probs, {"Logits": g}
+
+
+def run_grad(op_type, inputs, attrs, out_slots, diff, device, lods,
+             fwd, cot):
+    """`<op_type>_grad`'s lowering on `device`: the generic vjp of the
+    forward (which runs again, drawing what `fwd`'s run drew) under the
+    cotangents `cot` ({output slot: numpy}) of the forward outputs
+    `fwd` ({output name: tensor}, named as run() names them). Returns
+    {input slot: gradient tensor} for the slots `diff`."""
+    env, ins = {}, {}
+    for s, v in inputs.items():
+        ins[s] = _names(s, v)
+        for n, a in zip(ins[s], v if isinstance(v, list) else [v]):
+            env[n] = torch.from_numpy(np.array(a)).to(device)
+    for s, n in out_slots.items():
+        names = [f"{s.lower()}_out{i}" for i in range(n)]
+        ins[s] = names
+        env.update((m, fwd[m]) for m in names)
+        if s in cot:
+            ins[s + "@GRAD"] = [names[0] + "@g"]
+            env[names[0] + "@g"] = torch.from_numpy(cot[s]).to(device)
+    outs = {s + "@GRAD": [f"{s.lower()}@g"] for s in diff}
+    view = _SlotView(op_type + "_grad", ins, outs, dict(attrs))
+    OPS.get(op_type + "_grad").lowering(ExecContext(
+        view, env, torch.device(device), None, dict(lods or {})))
+    return {s: env[f"{s.lower()}@g"] for s in diff}
 
 
 def _names(slot, value):

@@ -1,4 +1,5 @@
-"""mul and matmul (counterpart of paddle_tpu/ops/matmul.py).
+"""mul, matmul and bilinear_tensor_product (counterpart of
+paddle_tpu/ops/matmul.py).
 
 Parity: the reference mul_op (flatten to 2-D by x_num_col_dims /
 y_num_col_dims) and matmul_op (transpose_X/Y, 1-D promotion, alpha,
@@ -69,4 +70,16 @@ def matmul(ctx):
         out = torch.matmul(x, y)
         if alpha != 1.0:
             out = out * alpha
+    ctx.set_output("Out", out)
+
+
+@register_op("bilinear_tensor_product")
+def bilinear_tensor_product(ctx):
+    """out[b, o] = x[b] @ Weight[o] @ y[b] (+ Bias [1, o]); Weight is
+    [out, dx, dy]. No kernel computes it in the JAX package either."""
+    x, y, w = ctx.input("X"), ctx.input("Y"), ctx.input("Weight")
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    b = ctx.input("Bias")
+    if b is not None:
+        out = out + b
     ctx.set_output("Out", out)

@@ -3,7 +3,7 @@
 * C.3: every public name that both the port and the JAX package export
   from `layers`, `optimizer`, `backward`, `initializer`, `param_attr`,
   `regularizer`, `evaluator`, the package itself, `framework`,
-  `executor`, `core.scope` and `dygraph.nn` takes the same parameters: names, kinds and defaults, by
+  `executor`, `core.scope`, `dygraph.nn` and `metrics` takes the same parameters: names, kinds and defaults, by
   inspect.signature (a class by its __init__ and its public methods).
   So a reference script that passes `act` to elementwise_add, `callbacks`
   to append_backward or `force_cpu` to Constant runs in the port.
@@ -38,10 +38,11 @@ from test_torch_ops import _Op
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
-MIN_CHECKED = {"layers": 277, "optimizer": 110, "backward": 2,
+MIN_CHECKED = {"layers": 296, "optimizer": 110, "backward": 2,
                "initializer": 10, "param_attr": 1, "regularizer": 5,
-               "evaluator": 7, "(top level)": 88, "framework": 43,
-               "executor": 5, "core.scope": 36, "dygraph.nn": 221}
+               "evaluator": 10, "(top level)": 88, "framework": 43,
+               "executor": 5, "core.scope": 36, "dygraph.nn": 272,
+               "metrics": 29}
 MODULES = list(MIN_CHECKED)
 # names each module must share (the builders of the book's last two
 # models and py_func, fluid.gradients, and the builders of the op
@@ -95,13 +96,20 @@ TWO_STAGE_BUILDERS = {
     "generate_proposals", "generate_proposal_labels",
     "generate_mask_labels", "roi_perspective_transform",
     "distribute_fpn_proposals", "collect_fpn_proposals"}
+NLP_BUILDERS = {
+    "warpctc", "ctc_greedy_decoder", "nce", "hsigmoid",
+    "sampled_softmax_with_cross_entropy", "bilinear_tensor_product",
+    "chunk_eval", "mean_iou", "auc"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
                        "crf_decoding", "py_func"} | FAMILY_BUILDERS |
             NN_AND_SSD_BUILDERS | CONV_BUILDERS | ONE_STAGE_BUILDERS |
-            TWO_STAGE_BUILDERS,
+            TWO_STAGE_BUILDERS | NLP_BUILDERS,
             "dygraph.nn": {"Conv2DTranspose", "Conv3D", "Conv3DTranspose",
-                           "GroupNorm", "PRelu"},
+                           "GroupNorm", "PRelu", "BilinearTensorProduct",
+                           "GRUUnit", "NCE"},
+            "metrics": {"MetricBase", "CompositeMetric", "Precision",
+                        "Recall", "Accuracy", "EditDistance", "Auc"},
             "backward": {"gradients"},
             "optimizer": {"LarsMomentum", "LarsMomentumOptimizer",
                           "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
@@ -112,7 +120,8 @@ REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
             "regularizer": {"L1Decay", "L2Decay", "L1DecayRegularizer",
                             "L2DecayRegularizer",
                             "append_regularization_ops"},
-            "evaluator": {"EditDistance", "DetectionMAP"},
+            "evaluator": {"ChunkEvaluator", "EditDistance",
+                          "DetectionMAP"},
             # the package's own names (the reference's fluid.*) and the
             # framework's, executor's and scope's
             "(top level)": {"append_backward", "Variable", "Block",

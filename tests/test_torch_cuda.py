@@ -46,8 +46,11 @@ convolutions under AMP, full-width SimpleBaseline (chip_smoke.pose_resnet,
 B=4) captured against eager bit for bit, a resize by an OutSize input
 kept eager, the one- and two-stage detection ops' cases against the CPU,
 roi_align's gradient deterministic, and full-width YOLOv3, the RetinaNet
-head and Faster R-CNN (B=1) captured against eager bit for bit. They
-skip where torch sees no CUDA device.
+head and Faster R-CNN (B=1) captured against eager bit for bit, slice
+24's nlp and metric ops' cases with their gradients against the CPU,
+full-width CRNN-CTC (B=4) and the sampled heads over 32000 classes
+captured against eager bit for bit. They skip where torch sees no CUDA
+device.
 
 This file imports no JAX (the machine with the card has none), so run it
 there without the shared conftest:
@@ -3104,3 +3107,52 @@ def test_faster_rcnn_full_width_captured_bit_equal_eager_on_card(
     assert (c["captures"], c["replays"], c["eager_runs"]) == (1, 2, 1)
     assert all(np.isfinite(o[0]).all() for o in runs[True][0])
     assert runs[True][0][0][2].shape == (cs.RCNN_ROI_BATCH, 4)
+
+
+def test_nlp_ops_on_card_equal_the_cpu(cuda):
+    """Every case of ops/family_cases.py's nlp_cases() (slice 24's
+    eleven ops) on the card against the CPU with its gradient
+    (chip_smoke._sweep_nlp: nce's and sample_logits' draws held to the
+    numpy reckoning on the card's own samples)."""
+    import chip_smoke as cs
+    n, types, worst = cs._sweep_nlp(torch, cuda)
+    assert len(types) == 11 and worst <= cs.SWEEP_TOL
+
+
+def test_crnn_ctc_full_width_captured_bit_equal_eager_on_card(
+        cuda, monkeypatch):
+    """chip_smoke's CRNN-CTC at full width (48x512, 95 classes, GRUs of
+    200) at B=4: three runs of one OCR-shaped batch through the plan
+    cache (eager, the capture, a replay) bit-equal to the same runs
+    eager in deterministic mode (the loss, every persistable), no block
+    kept eager."""
+    import chip_smoke as cs
+    _no_tf32(monkeypatch)
+    pt.framework.unique_name.reset()
+    main, startup, outs = cs.crnn_ctc_train(pt)
+    feed = cs.ocr_batch(torch, pt, 0, pt.CUDAPlace(0), B=4)
+    runs = _cached_against_eager(main, startup, [feed] * 3, [outs["loss"]],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    _, _, c, reasons = runs[True]
+    assert not reasons and (c["captures"], c["replays"]) == (1, 2)
+    assert all(np.isfinite(o[0]).all() for o in runs[True][0])
+
+
+@pytest.mark.parametrize("kind", ["nce custom_dist", "hsigmoid",
+                                  "sampled_softmax"])
+def test_sampled_heads_captured_bit_equal_eager_on_card(cuda, monkeypatch,
+                                                        kind):
+    """chip_smoke's sampled heads over 32000 classes at 512 rows: three
+    runs through the plan cache bit-equal to eager runs in deterministic
+    mode, the draws included."""
+    import chip_smoke as cs
+    monkeypatch.setitem(cs.HEADS, "rows", 512)
+    main, startup, loss = cs._heads_program(pt, kind)
+    rng = np.random.default_rng(1)
+    feed = {"x": rng.standard_normal((512, 512)).astype(np.float32),
+            "label": rng.integers(0, 32000, (512, 1)).astype(np.int64)}
+    runs = _cached_against_eager(main, startup, [feed] * 3, [loss],
+                                 monkeypatch)
+    _assert_bit_equal(runs)
+    assert not runs[True][3]

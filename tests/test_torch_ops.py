@@ -256,8 +256,9 @@ def test_every_slice_op_type_is_covered():
     a kernel (the same file's cases, held in test_torch_nn_family.py and
     test_torch_optimizers.py), SSD's detection ops in
     test_torch_detection.py, the conv family in test_torch_conv_family.py,
-    the one-stage detectors' ops in test_torch_one_stage_detection.py and
-    the two-stage detectors' ops in test_torch_two_stage_detection.py)."""
+    the one-stage detectors' ops in test_torch_one_stage_detection.py,
+    the two-stage detectors' ops in test_torch_two_stage_detection.py
+    and slice 24's nlp and metric ops in test_torch_nlp_ops.py)."""
     import test_torch_beam_search
     import test_torch_op_families
     import test_torch_sequence
@@ -296,10 +297,12 @@ def test_every_slice_op_type_is_covered():
     one_stage = {c[0] for c in family_cases.one_stage_cases()}
     # held in test_torch_two_stage_detection.py
     two_stage = {c[0] for c in family_cases.two_stage_cases()}
+    # held in test_torch_nlp_ops.py
+    nlp = {c[0] for c in family_cases.nlp_cases()}
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
-        beam | families | detection | conv | one_stage | two_stage == \
-        forward
+        beam | families | detection | conv | one_stage | two_stage | \
+        nlp == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
