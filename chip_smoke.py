@@ -171,7 +171,8 @@
    startup state in deterministic mode: fetches and persistables
    bit-equal; the first loss against the port on the CPU from the same
    parameters (SEQ_LOSS_RTOL); the captures clocked; eager against
-   captured in turns (examples/s, tokens/s, host s a run), a profiled
+   captured in turns over the first SEQ_RATE_POOL batches (examples/s,
+   tokens/s, host s a run), a profiled
    replay (busy share, kernels a step, top kernels), peak memory and
    the graph pools; a stream of SEQ_STREAM distinct batches (a plan
    each, eager); for the stacked net, save_inference_model and the
@@ -379,7 +380,33 @@
    step's device ms. SRL's decode paths through ChunkEvaluator (IOB, 29
    types) on the card and the CPU (book models phase). No kernel of the
    port lies on these paths.
-19. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
+19. QAT phase (slice 25): ResNet-50 (full depth and width, 1000
+   classes, B=128, 224x224, float32, Momentum(0.1, 0.9)) trained
+   quantization-aware through contrib.slim: the Compressor (2 epochs of
+   3 batches, a new Executor an epoch and an evaluation) with one
+   QuantizationStrategy (channel-wise abs_max weights, moving-average
+   activations) built in Python. Checks that the transform quantizes
+   the 53 conv2d and the fc's mul; 4 steps captured bit-equal to 4 eager
+   (the moving averages included); one QAT training step at B=4 held to
+   the CPU op by op: the forward quantized tensor by quantized tensor
+   (qat_forward_check: an element is equal, or one quantum away across
+   a half-step the two pre-round values straddle), the quantizers'
+   gradients and the Momentum updates within derived bounds, the checks
+   failing a bin count of 126, a per-tensor weight scale, a dropped
+   scale gradient and a momentum of 0.8; the frozen int8 export's int8 weights on
+   the grid and through the tensor files, served by AnalysisPredictor
+   (equal to Executor.run, held to the QAT eval program the same way,
+   top-1 agreement) and again under PT_KERNEL_QUANT_MATMUL=int8 (the
+   fc's launches of quantized_matmul_int8, or why it takes none).
+   Times QAT captured and eager and float32 ResNet-50 captured in turns,
+   a replay's device ms of each, an eager QAT step's device time by op
+   (the fake-quantize ops' share). Then small checks: the other QAT
+   variants (abs_max weights; range_abs_max and abs_max activations;
+   depthwise_conv2d) against the CPU, the random ops against their laws
+   (scipy, alpha 1e-3), a block with sampling_id and random_crop
+   captured against eager, and a Compressor run with distillation and
+   pruning, card against CPU.
+20. MNIST phase: LeNet (BASELINE config 1: conv 20 and 50, 5x5, max
    pool 2, fc 10 softmax) with SGD(0.05) takes 10 steps at B=512 on
    bench.py's batch, through Executor, twice from the same startup
    state: with the default knobs (every parameter below the 65536
@@ -392,12 +419,13 @@
    load_inference_model in a fresh scope (B=512 inference equal to the
    live test clone's). Prints steps/s, images/s and the device-busy
    share of one profiled step.
-20. Prints one JSON line of per-kernel numbers (fused_adam's launches:
+21. Prints one JSON line of per-kernel numbers (fused_adam's launches:
    the training phase's, the dygraph phase's, the control flow
    phase's, the book models phase's, the lr schedule phase's, the
    contrib decoder phase's and the pose phase's captured steps; the quantized and tuned
    GEMMs': the scoring and the serving phase's, and the quantized ones'
-   also the book models and contrib decoder phases' captured decodes;
+   also the book models and contrib decoder phases' captured decodes
+   and the int8 one the QAT phase's int8 serving;
    the bucket sweep rows: the bucket sweep phase's main sweep; the
    attention backward rows' g_lse_launches: the flash lse phase's),
    then, last, the device
@@ -3782,32 +3810,39 @@ def _cap_run(exe, main, feed, fetch, scope, cached=True, numpy=True):
                    use_program_cache=cached, return_numpy=numpy)
 
 
-def _cap_turns(torch, label, units, per_step, modes):
+def _cap_turns(torch, label, units, per_step, modes, fresh=()):
     """Runs of each mode in CAP_TURNS turns of CAP_TURN_STEPS steps (the
     order alternating between turns): `units` a second (units a step
     per_step), each turn ending at its last step's fetched loss, and the
     host ms of a run before that fetch (the enqueue). modes: name ->
-    step() returning the fetched value. Returns the median rates."""
+    step() returning the fetched value; for a mode named in `fresh`,
+    name -> a context manager that builds the step for one turn and
+    takes it down after (outside the turn's clock). Returns the median
+    rates."""
     rates = {m: [] for m in modes}
     host = {m: [] for m in modes}
     for turn in range(CAP_TURNS):
         for m in (list(modes) if turn % 2 == 0 else list(modes)[::-1]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            enq = 0.0
-            for _ in range(CAP_TURN_STEPS):
-                t1 = time.perf_counter()
-                out = modes[m]()
-                enq += time.perf_counter() - t1
-            float(out.reshape(-1)[0])          # the fetch fences
-            secs = time.perf_counter() - t0
+            with (modes[m]() if m in fresh else
+                  contextlib.nullcontext(modes[m])) as step:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                enq = 0.0
+                for _ in range(CAP_TURN_STEPS):
+                    t1 = time.perf_counter()
+                    out = step()
+                    enq += time.perf_counter() - t1
+                float(out.reshape(-1)[0])          # the fetch fences
+                secs = time.perf_counter() - t0
             rates[m].append(per_step * CAP_TURN_STEPS / secs)
             host[m].append(enq * 1e3 / CAP_TURN_STEPS)
     for m in modes:
         print(f"  {label} {m}: {units} a turn "
               f"{', '.join(f'{r:.1f}' for r in rates[m])} (median "
               f"{np.median(rates[m]):.1f}); host ms a run "
-              f"{', '.join(f'{h:.2f}' for h in host[m])}")
+              f"{', '.join(f'{h:.2f}' for h in host[m])}"
+              + ("; its graph captured anew each turn" if m in fresh
+                 else ""))
     return {m: float(np.median(r)) for m, r in rates.items()}
 
 
@@ -4616,8 +4651,11 @@ SEQ_B = 128
 # tokens, their longest reviews 955 and 896
 SEQ_LEN = (174.0, 0.75, 10, 2494)
 SEQ_POOL = 2        # LoD batches cycled (each its own plan and graph)
-SEQ_STREAM = 3      # distinct batches run once each, eagerly
-SEQ_TURNS = 2       # turns of one pass over the pool, eager and captured
+# the batches of the pool that the turns pass over (each captured again
+# outside deterministic mode first: ~17 s a batch for stacked_lstm_net)
+SEQ_RATE_POOL = 1
+SEQ_STREAM = 2      # distinct batches run once each, eagerly
+SEQ_TURNS = 2       # turns of one pass over SEQ_RATE_POOL batches
 SEQ_SERVE_RUNS = 4  # predictor runs a warmed signature
 # the first step's loss on the card against the port on the CPU from the
 # same parameters: float32 on both (TF32 off), sums in another order;
@@ -4904,7 +4942,7 @@ def _seq_serve(torch, pt, label, exe, main, pred, scope, names, host,
              f"{label} serving: the predictor disagrees with the Executor")
 
 
-def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
+def _seq_net(torch, pt, kreg, net, batches, feeds):
     """One net (models/sentiment.py NETS key) through the phase."""
     from paddle_tpu_torch.models import sentiment
     label = {"stacked_lstm": "stacked_lstm_net",
@@ -4937,8 +4975,10 @@ def _seq_net(torch, pt, kreg, net, batches, feeds, tokens):
           f"{err:.3e} (bound {SEQ_LOSS_RTOL:g})")
     _require(err <= SEQ_LOSS_RTOL, f"{label}: card and CPU disagree")
     kreg.reset_counts()
-    _seq_rates(torch, pt, label, exe, main, [cost, acc], scope, feeds,
-               tokens, not reasons)
+    _seq_rates(torch, pt, label, exe, main, [cost, acc], scope,
+               feeds[:SEQ_RATE_POOL],
+               sum(sum(b[1][0]) for b in batches[:SEQ_RATE_POOL]),
+               not reasons)
     peak = torch.cuda.max_memory_allocated() / 1e9
     pool = _graph_pool_gb(torch)
     c0 = _counters(exe)
@@ -4976,8 +5016,8 @@ def sequence_phase(torch, dev):
     convolution_net) at the book's widths on IMDB-shaped LoD batches of
     B=128 through Executor.run on the card: a pool of SEQ_POOL batches
     captured against eager bit for bit, the first loss against the CPU,
-    eager against captured in turns, a profiled replay, peak memory, a
-    stream of SEQ_STREAM distinct batches run eagerly, and for the
+    eager against captured in turns over SEQ_RATE_POOL of them, a
+    profiled replay, peak memory, a stream of SEQ_STREAM distinct batches run eagerly, and for the
     stacked net the predictor on LoD feeds. No kernel of the port is
     launched."""
     import paddle_tpu_torch as pt
@@ -4985,14 +5025,13 @@ def sequence_phase(torch, dev):
     t0 = time.perf_counter()
     batches = [_seq_batch(i) for i in range(SEQ_POOL)]
     feeds = [_seq_feed(pt, b, pt.CUDAPlace(0)) for b in batches]
-    tokens = sum(sum(b[1][0]) for b in batches)
     for i, b in enumerate(batches):
         lens = b[1][0]
         print(f"  batch {i}: {SEQ_B} reviews, {sum(lens)} tokens, lengths "
               f"{min(lens)}-{max(lens)} (median {int(np.median(lens))}); "
               f"padded share N*maxT/sum(T) {_seq_padded_share(b):.3f}")
     for net in ("stacked_lstm", "conv"):
-        _seq_net(torch, pt, kreg, net, batches, feeds, tokens)
+        _seq_net(torch, pt, kreg, net, batches, feeds)
     print(f"  sequence phase: {time.perf_counter() - t0:.1f} s")
 
 
@@ -9701,6 +9740,1245 @@ def op_sweep_phase(torch, dev):
     return len(types)
 
 
+# ---------------------------------------------------------------------------
+# slice 25: quantization-aware training (contrib.slim) and the random ops
+# ---------------------------------------------------------------------------
+
+QAT = {"depth": 50, "class_dim": 1000, "image": (3, 224, 224)}
+QAT_B = 128          # bench.py's ResNet-50 batch
+QAT_LR, QAT_MU = 0.1, 0.9
+QAT_BATCHES = 3      # train batches an epoch: the plan, the capture, a replay
+QAT_EPOCHS = 2       # the strategy quantizes at epoch 0 and ends at epoch 1
+QAT_STEPS = 3        # captured steps against as many eager ones
+QAT_CHECK_B = 4      # the forward held to the CPU, element by element
+QAT_TIMED = 2        # profiled or timed replays
+# The card's float32 sums (cuDNN, TF32 off) are in another order than the
+# CPU's: a pre-quantization tensor (a conv's output through batch norm
+# and relu) moves by up to ~sqrt(K) roundings of the largest products of
+# a K-term sum, K = 4608 (ResNet-50's 3x3x512 convolutions); 50 of them,
+# as RCNN_RTOL reckons, relative to the tensor's largest: 2.02e-4.
+QAT_X_RTOL = 50 * 4608 ** 0.5 * 2.0 ** -24
+# a quantized element's own rounding: 4 float32 ulps of the bin count (the
+# pre-round value is computed from float32 x and s in two roundings)
+QAT_HALF_EPS = 4 * 127 * 2.0 ** -23
+# the fake-quantize ops; of them those whose Out is the integer grid (the
+# rest give the grid value back in x's units)
+QAT_FAKE = ("fake_quantize_abs_max", "fake_quantize_dequantize_abs_max",
+            "fake_channel_wise_quantize_abs_max", "fake_dequantize_max_abs",
+            "fake_channel_wise_dequantize_max_abs",
+            "fake_quantize_range_abs_max",
+            "fake_quantize_moving_average_abs_max",
+            "fake_quantize_dequantize_moving_average_abs_max",
+            "moving_average_abs_max_scale")
+QAT_GRID = ("fake_quantize_abs_max", "fake_channel_wise_quantize_abs_max",
+            "fake_quantize_range_abs_max",
+            "fake_quantize_moving_average_abs_max")
+QAT_ROUNDING = QAT_GRID + ("fake_quantize_dequantize_abs_max",
+                           "fake_quantize_dequantize_moving_average_abs_max")
+
+
+def qat_train_program(pt, depth=None, class_dim=None, image=None):
+    """resnet_train's forward and loss program (no optimizer: the
+    Compressor applies it) with the port; returns main, startup, cost,
+    acc and the logits' name."""
+    depth = depth or QAT["depth"]
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost, acc, _ = pt.models.resnet_train(
+            class_dim=class_dim or QAT["class_dim"], depth=depth,
+            image_shape=image or QAT["image"])
+    main.random_seed = startup.random_seed = SEED
+    logits = [op.input("Logits")[0] for op in main.global_block().ops
+              if op.type == "softmax_with_cross_entropy"][0]
+    return main, startup, cost, acc, logits
+
+
+def _qat_batch(seed, B=None, image=None, class_dim=None):
+    """ImageNet-shaped numpy batch: images in [0, 1), labels."""
+    r = np.random.RandomState(seed)
+    B, image = B or QAT_B, image or QAT["image"]
+    return {"image": r.rand(B, *image).astype(np.float32),
+            "label": r.randint(0, class_dim or QAT["class_dim"],
+                               (B, 1)).astype(np.int64)}
+
+
+def qat_fetch_names(program, loss_name):
+    """The input X and every output of each fake-quantize op of the
+    program, then the loss: what qat_forward_check reads of a reference
+    run."""
+    names = []
+    for op in program.global_block().ops:
+        if op.type in QAT_FAKE:
+            for n in op.input("X") + op.output_arg_names:
+                if n not in names:
+                    names.append(n)
+    return names + [loss_name]
+
+
+def _qat_verdict(torch, op, x, x_ref, out, out_ref, s, s_ref):
+    """The elements of one fake-quantize output that neither equal the
+    reference's nor sit one quantum away across a half-step that lies
+    between the two pre-round values (float64 arithmetic); the flips
+    (the elements one quantum away, explained); and the first violating
+    element's values (None where there is none)."""
+    f = torch.float64
+    bits = op.attr("bit_length", 8)
+    bin_cnt = float((1 << (bits - 1)) - 1)
+    x, x_ref, out, out_ref = (v.to(f) for v in (x, x_ref, out, out_ref))
+    shape = (-1,) + (1,) * (x.ndim - 1) if s.numel() > 1 else ()
+    s = s.to(f).reshape(shape).clamp_min(1e-8)
+    s_ref = s_ref.to(f).reshape(shape).clamp_min(1e-8)
+
+    def pre(v, sc):
+        return torch.minimum(sc, torch.maximum(-sc, v)) / sc * bin_cnt
+
+    p, p_ref = pre(x, s), pre(x_ref, s_ref)
+    grid = op.type in QAT_GRID
+    q = torch.round(out if grid else out / s * bin_cnt)
+    q_ref = torch.round(out_ref if grid else out_ref / s_ref * bin_cnt)
+    ulp = 2.0 ** -23
+    if grid:
+        tol = 2 * ulp * bin_cnt
+    else:
+        # out - out_ref = (q - q_ref) s_ref / bin + q (s - s_ref) / bin
+        # plus each side's roundings: v = q s / bin in two (2u |v|), then
+        # the straight-through sum x + (v - x) in two (u |v - x| + u |v|),
+        # u = 2^-24; taken as 4u |out| + 2u |out - x| a side. The scale
+        # term takes the larger |q|: a flip's own quantum on the side
+        # whose q is the larger is s / bin, not s_ref / bin.
+        u = ulp / 2
+        tol = torch.maximum(q.abs(), q_ref.abs()) * (s - s_ref).abs() / \
+            bin_cnt + 4 * u * (out.abs() + out_ref.abs()) + \
+            2 * u * ((out - x).abs() + (out_ref - x_ref).abs()) + 1e-30
+    same = (q == q_ref) & ((out - out_ref).abs() <= tol)
+    half = torch.minimum(q, q_ref) + 0.5
+    lo, hi = torch.minimum(p, p_ref), torch.maximum(p, p_ref)
+    quantum = 1.0 if grid else (s_ref / bin_cnt).expand_as(out)
+    flip = ((q - q_ref).abs() == 1) & (half >= lo - QAT_HALF_EPS) & \
+        (half <= hi + QAT_HALF_EPS) & \
+        ((out - out_ref).abs() <= quantum + tol)
+    bad = ~(same | flip)
+    first = None
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad.reshape(-1))[0])
+        tol = tol + torch.zeros_like(out)
+
+        def at(v):
+            return float(v.expand_as(out).reshape(-1)[i])
+        first = {"i": i, "x": at(x), "x_ref": at(x_ref), "out": at(out),
+                 "out_ref": at(out_ref), "pre": at(p), "pre_ref": at(p_ref),
+                 "diff": at((out - out_ref).abs()), "tol": at(tol)}
+    return int(bad.sum()), int((flip & ~same).sum()), first
+
+
+def _rel(torch, a, b):
+    """max|a - b| / max|b| (0 where b is all zeros and a equals it)."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    d = float((a - b).abs().max()) if a.numel() else 0.0
+    m = float(b.abs().max()) if b.numel() else 0.0
+    return d / m if m > 0 else d
+
+
+def _qat_mutants(torch, op, env, device, run):
+    """The op's outputs under each planted fault: the bin count 126 in
+    place of 127, and (for the channel-wise weight quantizer) one scale
+    for the whole tensor in place of one a channel."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext
+    from paddle_tpu_torch.ops import quantize as Q
+    outs = {}
+    e = dict(env)
+    real = Q._bin_cnt
+    Q._bin_cnt = lambda bits: real(bits) - 1.0
+    try:
+        OPS.get(op.type).lowering(ExecContext(op, e, device, run))
+    finally:
+        Q._bin_cnt = real
+    outs["bin_cnt 126"] = e
+    if op.type == "fake_channel_wise_quantize_abs_max":
+        x = env[op.input("X")[0]]
+        s = Q._abs_max(x)
+        e = dict(env)
+        e[op.output("Out")[0]] = Q._quant(x, s, real(op.attr("bit_length",
+                                                              8)))
+        e[op.output("OutScale")[0]] = s.expand(x.shape[0])
+        outs["per-tensor scale"] = e
+    return outs
+
+
+def qat_forward_check(torch, pt, program, state, feed, ref, loss_name,
+                      device):
+    """The QAT forward `program` run op by op on `device` from `state`
+    and `feed` (numpy), held to a reference run's values `ref` (numpy or
+    tensors, named as qat_fetch_names names them) segment by segment:
+    each fake-quantize op's output is compared with the reference's and
+    then replaced by it (the reference's scales and state too), so each
+    segment between two quantizations starts from the reference's
+    quantized tensors. A quantized element must equal the reference's
+    (to the rounding of the scale), or be one quantum away where the
+    half-step lies between the two pre-round values: the segment's float
+    sums moved it across. Returns the counts: violations (must be 0),
+    flips, elements, the largest relative difference of a
+    pre-quantization tensor (x_rel) and of a scale state (scale_rel),
+    the loss's (loss_rel) with its bound (loss_bound, _qat_loss_bound),
+    and the violations under each planted fault (mutants; each must be
+    > 0)."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext, RunState
+
+    def tensor(v):
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        return t.to(device)
+
+    env = {n: tensor(a) for n, a in state.items()}
+    env.update((n, tensor(a)) for n, a in feed.items())
+    run = RunState(program.random_seed, 0)
+    res = {"violations": 0, "flips": 0, "elements": 0, "quant_ops": 0,
+           "x_rel": 0.0, "scale_rel": 0.0, "loss_rel": 0.0,
+           "mutants": {"bin_cnt 126": 0, "per-tensor scale": 0}}
+    with torch.no_grad():
+        for op in program.global_block().ops:
+            info = OPS.get(op.type)
+            checked = op.type in QAT_FAKE and all(
+                n in ref for n in op.output_arg_names)
+            if not checked:
+                info.lowering(ExecContext(op, env, device, run))
+                continue
+            res["quant_ops"] += 1
+            x_name = op.input("X")[0]
+            x_ref = tensor(ref[x_name])
+            res["x_rel"] = max(res["x_rel"], _rel(torch, env[x_name], x_ref))
+            mutants = _qat_mutants(torch, op, env, device, run) \
+                if op.type in QAT_ROUNDING else {}
+            info.lowering(ExecContext(op, env, device, run))
+            for label, got in [("", env)] + list(mutants.items()):
+                bad = 0
+                for slot in op.output_slots():
+                    n = op.output(slot)[0]
+                    r = tensor(ref[n])
+                    if slot == "Out" and op.type in QAT_ROUNDING:
+                        sn = op.output("OutScale")[0]
+                        v, flips, first = _qat_verdict(
+                            torch, op, env[x_name], x_ref, got[n], r,
+                            got[sn], tensor(ref[sn]))
+                        bad += v
+                        if first and not label and "element" not in res:
+                            res["element"] = first
+                        if not label:
+                            res["flips"] += flips
+                            res["elements"] += r.numel()
+                    elif slot == "Out":     # a dequantize, to an ulp
+                        d = (got[n].to(torch.float64) - r.to(torch.float64))
+                        bad += int((d.abs() > 2.0 ** -23 * r.abs().to(
+                            torch.float64)).sum())
+                    elif got[n].is_floating_point():
+                        rel = _rel(torch, got[n], r)
+                        bad += int(rel > QAT_X_RTOL)
+                        if not label:
+                            res["scale_rel"] = max(res["scale_rel"], rel)
+                    else:                   # the iteration counter
+                        bad += int(not torch.equal(got[n].to(r.dtype), r))
+                if label:
+                    res["mutants"][label] += bad
+                else:
+                    res["violations"] += bad
+                    if bad and "first" not in res:
+                        res["first"] = (op.type, op.output("Out")[0], bad)
+            for n in op.output_arg_names:
+                env[n] = tensor(ref[n]).to(env[n].dtype)
+    res["loss_rel"] = _rel(torch, env[loss_name].reshape(-1),
+                           tensor(ref[loss_name]).reshape(-1))
+    res["loss_bound"] = _qat_loss_bound(torch, program, env, loss_name)
+    return res
+
+
+def _qat_loss_bound(torch, program, env, loss_name):
+    """The bound of loss_rel: the segment after the last quantization is
+    the fc (its mul, K its input width, 2048 in ResNet-50) on the
+    reference's quantized input and weight, then the bias. Its sum in
+    another order moves the logits, relative to the largest, by a random
+    walk of sqrt(K) units of 2^-24, the bias add by one more. Where
+    `loss_name` is a mean of softmax cross entropies, each term moves
+    by at most twice the logits' largest move, and the exp, log and
+    mean round on each side: 8 units of 2^-24 of max |logits| + |loss|,
+    relative to |loss|."""
+    u = 2.0 ** -24
+    ops = program.global_block().ops
+    fc = [op for op in ops if op.type == "mul"][-1]
+    k = env[fc.input("Y")[0]].shape[0]
+    walk = k ** 0.5 * u + u
+    ce = [op for op in ops if op.type == "softmax_with_cross_entropy"]
+    if not ce or loss_name == ce[0].input("Logits")[0]:
+        return walk                       # the logits themselves
+    z = float(env[ce[0].input("Logits")[0]].abs().max())
+    loss = float(env[loss_name].abs().max())
+    return (2 * walk * z + 8 * u * (z + loss)) / loss
+
+
+def _qat_print_check(label, res):
+    print(f"  {label}: {res['quant_ops']} fake-quantize ops, "
+          f"{res['elements']} quantized elements, {res['flips']} one "
+          f"quantum away across a half-step "
+          f"({res['flips'] / max(res['elements'], 1):.3e} of them), "
+          f"{res['violations']} violations; pre-quantization tensors "
+          f"within {res['x_rel']:.3e} of their largest, scale state "
+          f"{res['scale_rel']:.3e} (QAT_X_RTOL {QAT_X_RTOL:.3e}); loss "
+          f"{res['loss_rel']:.3e} (bound {res['loss_bound']:.3e}); "
+          f"planted faults: " + ", ".join(
+              f"{k} {v} violations" for k, v in res["mutants"].items())
+          + (f"; first violation {res['first']}" if "first" in res else "")
+          + (f", its element {res['element']}" if "element" in res else ""))
+
+
+def _state_numpy(torch, scope, names):
+    out = {}
+    for n in names:
+        v = scope.find_var(n)
+        t = v.get_tensor().tensor if v is not None else None
+        if isinstance(t, torch.Tensor):
+            out[n] = t.detach().cpu().numpy()
+    return out
+
+
+def _persistable(program):
+    return [v.name for v in program.global_block().vars.values()
+            if v.persistable]
+
+
+@contextlib.contextmanager
+def _made_executors(pt):
+    """The engine counters of the Executors made while the block runs
+    (the Compressor makes one an epoch and one an evaluation). Only the
+    counters are kept: an Executor kept alive would keep its graphs."""
+    made = []
+    init = pt.Executor.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self._engine.counters)
+    pt.Executor.__init__ = record
+    try:
+        yield made
+    finally:
+        pt.Executor.__init__ = init
+
+
+def _op_profile(torch, fn):
+    """fn() (an eager run) under torch.profiler with one record_function
+    range around each op of the engine's runs: {op type: device ms of
+    the kernels launched inside its ranges}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch.core import engine as E
+    span = E._run_span
+
+    def ranged(block, env, device, run, s):
+        with record_function("op:" + block.ops[s[0]].type):
+            span(block, env, device, run, s)
+    E._run_span = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        E._run_span = span
+    # the host-side range of each op, whose device time is that of the
+    # kernels launched under it; its device-side twin (a user annotation
+    # on the card's timeline, spanning from its first kernel to its last)
+    # is left out
+    from torch.autograd import DeviceType
+    ms = {}
+    for e in prof.events():
+        if e.name.startswith("op:") and e.device_type == DeviceType.CPU:
+            ms[e.name[3:]] = ms.get(e.name[3:], 0.0) + \
+                e.device_time_total / 1e3
+    return ms
+
+
+def _qat_compress(torch, pt, tmp):
+    """The Compressor's QAT run over full-width ResNet-50: returns the
+    context, the scope, the programs' names and what the run cost."""
+    from paddle_tpu_torch.contrib import Compressor
+    from paddle_tpu_torch.contrib.slim.quantization import \
+        QuantizationStrategy
+    main, startup, cost, acc, logits = qat_train_program(pt)
+    test = main.clone(for_test=True)
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scope)
+    batches = [_qat_batch(i) for i in range(QAT_BATCHES)]
+    strategy = QuantizationStrategy(
+        start_epoch=0, end_epoch=1,
+        weight_quantize_type="channel_wise_abs_max",
+        activation_quantize_type="moving_average_abs_max",
+        float_model_save_path=os.path.join(tmp, "float"),
+        int8_model_save_path=os.path.join(tmp, "int8"),
+        save_in_nodes=["image"], save_out_nodes=[logits])
+    comp = Compressor(
+        pt.CUDAPlace(0), scope, main,
+        train_reader=lambda: iter(batches),
+        train_feed_list=["image", "label"],
+        train_fetch_list=[cost.name, acc.name],
+        eval_program=test, eval_reader=lambda: iter(batches[:1]),
+        eval_feed_list=["image", "label"],
+        eval_fetch_list=[cost.name, acc.name],
+        train_optimizer=pt.optimizer.MomentumOptimizer(QAT_LR, QAT_MU),
+        epoch=QAT_EPOCHS, log_period=1)
+    comp.strategies = [strategy]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _made_executors(pt) as made, _capture_clock() as clock:
+        ctx = comp.run()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counters = [{k: c[k] for k in ("runs", "captures", "replays",
+                                   "eager_runs")} for c in made]
+    caps = sum(c["captures"] for c in counters)
+    print(f"  Compressor.run: {QAT_EPOCHS} epochs of {QAT_BATCHES} "
+          f"batches and an evaluation each, then freeze and both exports, "
+          f"{secs:.2f} s; {len(made)} Executors, {caps} captures "
+          f"(capture rule {clock['rule']:.3f} s, warm-up "
+          f"{clock['warm_up']:.3f}, capture {clock['capture']:.3f}); "
+          f"eval results {ctx.eval_results}")
+    for c in counters:
+        print(f"    executor counters {c}")
+    _require(caps >= QAT_EPOCHS,
+             f"the epochs captured {caps} graphs, want one an epoch")
+    return ctx, scope, cost, logits, batches
+
+
+def _qat_types(ctx):
+    """The transform's counts on the train graph: the quantized conv2d
+    and mul ops and the fake-quantize ops."""
+    ops = ctx.train_graph[0].global_block().ops
+    types = [o.type for o in ops]
+    quantized = {t: sum(1 for o in ops if o.type == t and all(
+        n.endswith(".quant.dequant") for n in o.input_arg_names))
+        for t in ("conv2d", "mul")}
+    fake = {t: types.count(t) for t in QAT_FAKE if types.count(t)}
+    print(f"  transform: {quantized['conv2d']} of {types.count('conv2d')} "
+          f"conv2d and {quantized['mul']} of {types.count('mul')} mul "
+          f"quantized; {sum(fake.values())} fake-quantize ops {fake}")
+    want = {"conv2d": 53 if QAT["depth"] == 50 else types.count("conv2d"),
+            "mul": 1}
+    _require(quantized == want and types.count("conv2d") == want["conv2d"],
+             f"the transform quantized {quantized}, want {want}")
+    return sum(quantized.values())
+
+
+def _qat_steady(torch, pt, ctx, scope, batches):
+    """The steady state on one Executor over the optimize graph: K
+    captured steps against K eager ones from one state, bit for bit (the
+    moving averages included); then QAT captured in turns with QAT eager
+    and with float32 ResNet-50 captured; a QAT replay's device ms, an
+    eager step's device time attributed by op (the fake-quantize ops'
+    share)."""
+    prog, feeds, fetches = ctx.optimize_graph
+    names = [n for n in _persistable(prog) if scope.find_var(n)]
+    state = {n: scope.find_var(n).get_tensor().tensor.clone()
+             for n in names}
+    feed = batches[0]
+
+    def fresh():
+        s = pt.Scope()
+        for n, t in state.items():
+            s.var(n).get_tensor().set_tensor(t.clone())
+        return s
+
+    outs, ends, counters = {}, {}, {}
+    with _deterministic(torch):
+        for cached in (True, False):
+            exe, s = pt.Executor(pt.CUDAPlace(0)), fresh()
+            outs[cached] = [_cap_run(exe, prog, feed, fetches, s, cached)
+                            for _ in range(QAT_STEPS + 1)]
+            ends[cached] = {n: s.find_var(n).get_tensor().tensor.clone()
+                            for n in names}
+            counters[cached] = _counters(exe)
+            exe.close()
+            del exe, s
+    gc_cuda(torch)
+    same_out = all(np.array_equal(a, b) for x, y in
+                   zip(outs[True], outs[False]) for a, b in zip(x, y))
+    same = {n: torch.equal(ends[True][n], ends[False][n]) for n in names}
+    kinds = {k: sum(1 for n in names if k in n) for k in
+             (".quant_scale", ".quant_accum", ".quant_state")}
+    print(f"  {QAT_STEPS + 1} steps with the plan cache "
+          f"({counters[True]['captures']} capture, "
+          f"{counters[True]['replays']} replays) against "
+          f"{QAT_STEPS + 1} eager, deterministic mode: losses "
+          f"{[float(o[0]) for o in outs[True]]}, bit-equal {same_out}; "
+          f"{sum(same.values())} of {len(names)} persistables bit-equal "
+          f"(of them {kinds})")
+    _require(same_out and all(same.values()) and
+             counters[True]["replays"] == QAT_STEPS,
+             "QAT: captured steps differ from eager ones")
+    del ends
+
+    # QAT captured against QAT eager in turns, then QAT captured against
+    # float32 ResNet-50 (no QAT, Momentum) captured. The QAT graph's pool
+    # (41 GB at B=128) and an eager step's memory do not fit the card
+    # together after the earlier phases, so each captured turn captures
+    # its graph first and releases it after
+    def new_captured():
+        exe, sc = pt.Executor(pt.CUDAPlace(0)), fresh()
+        for _ in range(2):           # the plan, then the capture
+            _cap_run(exe, prog, feed, fetches, sc)
+        return exe, sc
+
+    @contextlib.contextmanager
+    def captured_turn():
+        gc_cuda(torch)
+        qexe, qscope = new_captured()
+        try:
+            yield lambda: _cap_run(qexe, prog, feed, fetches, qscope,
+                                   numpy=False)[0]
+        finally:
+            qexe.close()
+            del qexe, qscope
+            gc_cuda(torch)
+
+    eexe, escope = pt.Executor(pt.CUDAPlace(0)), fresh()
+
+    def eager():
+        return _cap_run(eexe, prog, feed, fetches, escope, cached=False,
+                        numpy=False)[0]
+    _cap_turns(torch, "ResNet-50 B=128", "images/s", QAT_B, _Modes(
+        qat_captured=captured_turn, qat_eager=eager),
+        fresh=("qat_captured",))
+    torch.cuda.reset_peak_memory_stats()
+    by_op = _op_profile(torch, eager)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    eexe.close()
+    del eexe, escope
+    gc_cuda(torch)
+    qexe, qscope = new_captured()
+
+    def captured():
+        return _cap_run(qexe, prog, feed, fetches, qscope, numpy=False)[0]
+
+    fmain, fstart, fcost, _, _ = qat_train_program(pt)
+    with pt.program_guard(fmain, fstart):
+        pt.optimizer.MomentumOptimizer(QAT_LR, QAT_MU).minimize(fcost)
+    fscope, fexe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+    fexe.run(fstart, scope=fscope)
+
+    def float32():
+        return _cap_run(fexe, fmain, feed, [fcost.name], fscope,
+                        numpy=False)[0]
+    for _ in range(2):
+        float32()
+    _cap_turns(torch, "ResNet-50 B=128", "images/s", QAT_B, _Modes(
+        qat_captured=captured, float32_captured=float32))
+    ms = {"qat": _kernels_ms(torch, captured),
+          "float32": _kernels_ms(torch, float32)}
+    pool = _graph_pool_gb(torch)
+    print(f"  a replay's device ms (its kernels): QAT {ms['qat']:.3f}, "
+          f"float32 {ms['float32']:.3f} (QAT adds "
+          f"{100 * (ms['qat'] / ms['float32'] - 1):.1f} %, "
+          f"{100 * (1 - ms['float32'] / ms['qat']):.1f} % of a QAT replay); "
+          f"the two graphs' pools {pool[0]:.3f} GB allocated, "
+          f"{pool[1]:.3f} GB reserved; an eager step's peak memory "
+          f"allocated {peak:.3f} GB")
+    total = sum(by_op.values())
+    fake = sum(v for k, v in by_op.items() if k.startswith("fake_"))
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
+    share = fake / total if total else float("nan")
+    print(f"  an eager QAT step attributed by op (a record_function range "
+          f"an op; the kernels autograd's device thread launches for the "
+          f"generic gradients fall outside them): {total:.3f} ms of the "
+          f"{ms['qat']:.3f} ms a replay's kernels take; the fake-quantize "
+          f"ops {fake:.3f} ms, {100 * share:.1f} % of the attributed, "
+          f"{100 * fake / ms['qat']:.1f} % of a replay (QAT less float32: "
+          f"{ms['qat'] - ms['float32']:.3f} ms); top: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in top))
+    for e in (qexe, fexe):
+        e.close()
+    del qscope, fscope
+    gc_cuda(torch)
+
+
+def _qat_step_reads(train, prog, cost_name):
+    """What _qat_card_vs_cpu reads of the card's step: the forward's
+    tensors (qat_fetch_names); for each quantized weight its gradient and
+    that of its dequantized copy; for each activation quantizer whose X
+    has one reader in the forward, the gradients of X and of Out; the
+    loss. Returns (fetch names, weight chains [(quantize op, dequantize
+    op)], activation quantizers)."""
+    ops = train.global_block().ops
+    block = prog.global_block()
+    params = {p.name for p in train.all_parameters()}
+    readers = {}
+    for op in ops:
+        for n in set(op.input_arg_names):
+            readers[n] = readers.get(n, 0) + 1
+    fetch = qat_fetch_names(train, cost_name)
+    chains, acts = [], []
+    for op in ops:
+        if op.type not in QAT_ROUNDING:
+            continue
+        x, out = op.input("X")[0], op.output("Out")[0]
+        if x in params:
+            deq = [o for o in ops if o.type in QAT_FAKE and
+                   out in o.input("X")]
+            chains.append((op, deq[0]))
+            grads = [x + "@GRAD", deq[0].output("Out")[0] + "@GRAD"]
+        elif readers[x] == 1 and block.has_var(x + "@GRAD"):
+            acts.append(op)
+            grads = [x + "@GRAD", out + "@GRAD"]
+        else:
+            continue
+        fetch += [n for n in grads if n not in fetch]
+    return fetch, chains, acts
+
+
+def _qat_vjp(torch, op, env, wrt, cot, run):
+    """The gradient of op's Out with respect to input `wrt` under the
+    cotangent `cot`: the op's forward lowering on the CPU under autograd,
+    as the engine's generic gradient runs it (the other inputs are
+    constants)."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext
+    env = dict(env)
+    env[wrt] = env[wrt].detach().requires_grad_()
+    with torch.enable_grad():
+        OPS.get(op.type).lowering(ExecContext(op, env, torch.device("cpu"),
+                                              run))
+        g, = torch.autograd.grad(env[op.output("Out")[0]], env[wrt], cot)
+    return g
+
+
+def _qat_grad_checks(torch, chains, acts, card, state, run):
+    """Each quantized weight's gradient reckoned on the CPU through its
+    dequantize and quantize ops' gradients from the card's gradient of
+    the dequantized copy, and each activation quantizer's gradient of X
+    from the card's gradient of Out, against the card's. The elementwise
+    operations are the same IEEE operations on both sides: 4 units of
+    2^-24 of the value. The one sum is the gradient through the scale
+    (the clip's and the division's terms, summed over the K elements a
+    scale covers, then sent by the abs max to its element): in another
+    order a K-term sum moves by at most 2 (K - 1) units of 2^-24 of the
+    sum of its terms' magnitudes, which is sum |g x| / s for a weight
+    quantized and dequantized (g the dequantized copy's gradient) and
+    sum |g x| bin_cnt / s^2 for an activation's integer grid; an
+    activation quantized and dequantized passes its gradient straight
+    through (no sum). Planted faults: the scale's gradient dropped (a
+    weight's) and the gradient masked outside the clip (an
+    activation's). Returns the counts."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext
+    from paddle_tpu_torch.ops import quantize as Q
+    u = 2.0 ** -24
+    f64 = torch.float64
+    res = {"weights": 0, "acts": 0, "elements": 0, "violations": 0,
+           "worst": 0.0, "no scale grad": 0, "clip mask": 0, "beyond": 0}
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    def verdict(got, want, tol):
+        d = (got.to(f64) - want.to(f64)).abs()
+        return int((d > tol).sum()), float((d / tol.clamp_min(1e-300))
+                                           .max())
+
+    def weight_grad(q, dq, w, g):
+        env = {q.input("X")[0]: w}
+        OPS.get(q.type).lowering(ExecContext(q, env, torch.device("cpu"),
+                                             run))
+        env = {n: v.detach() for n, v in env.items()}
+        g_q = _qat_vjp(torch, dq, env, dq.input("X")[0], g, run)
+        return _qat_vjp(torch, q, env, q.input("X")[0], g_q, run)
+
+    for q, dq in chains:
+        w_name = q.input("X")[0]
+        w = t(state[w_name])
+        g = t(card[dq.output("Out")[0] + "@GRAD"])
+        got = t(card[w_name + "@GRAD"])
+        want = weight_grad(q, dq, w, g)
+        rows = w.shape[0] if q.type.startswith("fake_channel_wise") else 1
+        wd, gd = w.to(f64).reshape(rows, -1), g.to(f64).reshape(rows, -1)
+        s = wd.abs().amax(1, keepdim=True).clamp_min(1e-8)
+        terms = (gd.abs() * wd.abs()).sum(1, keepdim=True) / s
+        tol = (4 * u * want.to(f64).abs().reshape(rows, -1) +
+               2 * wd.shape[1] * u * terms).reshape(w.shape)
+        bad, worst = verdict(got, want, tol)
+        res["weights"] += 1
+        res["elements"] += w.numel()
+        res["violations"] += bad
+        res["worst"] = max(res["worst"], worst)
+        if bad and "first" not in res:
+            res["first"] = (q.type, w_name, bad, worst)
+        floor = Q._floor_scale
+        Q._floor_scale = lambda sc: floor(sc).detach()
+        try:
+            res["no scale grad"] += verdict(got, weight_grad(q, dq, w, g),
+                                            tol)[0]
+        finally:
+            Q._floor_scale = floor
+    for op in acts:
+        x_name, out = op.input("X")[0], op.output("Out")[0]
+        env = {n: t(state[n]) for n in op.input_arg_names if n in state}
+        env[x_name] = x = t(card[x_name])
+        g = t(card[out + "@GRAD"])
+        got = t(card[x_name + "@GRAD"])
+        want = _qat_vjp(torch, op, env, x_name, g, run)
+        tol = 4 * u * want.to(f64).abs()
+        s = float(t(card[op.output("OutScale")[0]]).reshape(-1)[0])
+        if op.type in QAT_GRID:
+            bins = Q._bin_cnt(op.attr("bit_length", 8))
+            tol = tol + 2 * x.numel() * u * float(
+                (g.to(f64).abs() * x.to(f64).abs()).sum()) * bins / s ** 2
+        bad, worst = verdict(got, want, tol)
+        res["acts"] += 1
+        res["elements"] += x.numel()
+        res["violations"] += bad
+        res["worst"] = max(res["worst"], worst)
+        if bad and "first" not in res:
+            res["first"] = (op.type, x_name, bad, worst)
+        inside = x.abs() <= s
+        res["beyond"] += int((~inside).sum())
+        res["clip mask"] += verdict(got, want * inside, tol)[0]
+    return res
+
+
+def _qat_momentum_checks(torch, prog, card_after, card, state):
+    """Each Momentum update reckoned on the CPU (the op's lowering) from
+    the step's state and the card's gradient, against the card's
+    parameter and velocity after the step. v' = mu v + g and p' = p - lr
+    v' are the same IEEE operations on both sides, each rounded once:
+    within 4 units of 2^-24 of mu |v| + |g| (v') and of |p| + lr (mu |v|
+    + |g|) (p'). Planted fault: mu 0.8 in place of the op's."""
+    from paddle_tpu_torch.core.registry import OPS, ExecContext, _SlotView
+    u = 2.0 ** -24
+    f64 = torch.float64
+    res = {"updates": 0, "elements": 0, "violations": 0, "mu 0.8": 0,
+           "worst": 0.0}
+    for op in prog.global_block().ops:
+        if op.type != "momentum":
+            continue
+        p, v = op.input("Param")[0], op.input("Velocity")[0]
+        env = {n: torch.from_numpy(np.array(state[n]))
+               for n in (p, v, op.input("LearningRate")[0])}
+        g = op.input("Grad")[0]
+        env[g] = torch.from_numpy(np.array(card[g]))
+        lr = float(env[op.input("LearningRate")[0]].reshape(-1)[0])
+        mag_v = op.attr("mu") * env[v].to(f64).abs() + env[g].to(f64).abs()
+        tol = {"VelocityOut": 4 * u * mag_v,
+               "ParamOut": 4 * u * (env[p].to(f64).abs() + lr * mag_v)}
+        mutant = _SlotView(op.type,
+                           {s: op.input(s) for s in op.input_slots()},
+                           {s: op.output(s) for s in op.output_slots()},
+                           dict(op.all_attrs(), mu=0.8))
+        for label, view in (("", op), ("mu 0.8", mutant)):
+            e = dict(env)
+            OPS.get("momentum").lowering(ExecContext(
+                view, e, torch.device("cpu"), None))
+            for slot, n in (("ParamOut", p), ("VelocityOut", v)):
+                d = (torch.from_numpy(card_after[n]).to(f64) -
+                     e[op.output(slot)[0]].to(f64)).abs()
+                bad = int((d > tol[slot]).sum())
+                if label:
+                    res[label] += bad
+                else:
+                    res["violations"] += bad
+                    res["elements"] += d.numel()
+                    if bad and "first" not in res:
+                        res["first"] = (n, slot, bad)
+                    res["worst"] = max(res["worst"], float(
+                        (d / tol[slot].clamp_min(1e-300)).max()))
+        res["updates"] += 1
+    return res
+
+
+def _qat_card_vs_cpu(torch, pt, ctx, scope, cost):
+    """One QAT training step (the optimize graph: forward, backward,
+    Momentum) at B=QAT_CHECK_B on the card from the scope's state, held
+    to the CPU op by op: the forward by qat_forward_check, the
+    quantizers' gradients by _qat_grad_checks, the Momentum updates by
+    _qat_momentum_checks; each planted fault must fail its check. B=4:
+    the CPU reckons the forward element by element (~12 s at B=4)."""
+    train = ctx.train_graph[0]
+    prog = ctx.optimize_graph[0]
+    names = [n for n in _persistable(prog) if scope.find_var(n)]
+    state = _state_numpy(torch, scope, names)
+    feed = _qat_batch(100, B=QAT_CHECK_B)
+    fetch, chains, acts = _qat_step_reads(train, prog, cost.name)
+    fetch += [n for op in prog.global_block().ops if op.type == "momentum"
+              for n in op.input("Grad") if n not in fetch]
+    s = pt.Scope()
+    pt.io.load_params_from_numpy(s, state, pt.CUDAPlace(0))
+    vals = pt.Executor(pt.CUDAPlace(0)).run(prog, feed=feed,
+                                            fetch_list=fetch, scope=s,
+                                            use_program_cache=False)
+    card = {n: np.asarray(v) for n, v in zip(fetch, vals)}
+    after = _state_numpy(torch, s, names)
+    # a weight fetched after the step is the updated one; its quantizer
+    # read the state's
+    card.update((p.name, state[p.name]) for p in train.all_parameters()
+                if p.name in card)
+    del s, vals
+    t0 = time.perf_counter()
+    res = qat_forward_check(torch, pt, train, state, feed, card, cost.name,
+                            torch.device("cpu"))
+    from paddle_tpu_torch.core.registry import RunState
+    grads = _qat_grad_checks(torch, chains, acts, card, state,
+                             RunState(train.random_seed, 0))
+    mom = _qat_momentum_checks(torch, prog, after, card, state)
+    secs = time.perf_counter() - t0
+    _qat_print_check(f"one QAT step on the card against the CPU, "
+                     f"B={QAT_CHECK_B} ({secs:.1f} s): the forward", res)
+    print(f"    the gradients: {grads['weights']} quantized weights through "
+          f"their quantize and dequantize ops and {grads['acts']} "
+          f"activation quantizers, {grads['elements']} elements, "
+          f"{grads['violations']} violations (worst |diff| / bound "
+          f"{grads['worst']:.3e}); planted faults: the scale's gradient "
+          f"dropped {grads['no scale grad']} violations, the gradient "
+          f"masked outside the clip {grads['clip mask']} ({grads['beyond']}"
+          f" activation elements beyond their scale)")
+    print(f"    the Momentum updates: {mom['updates']} parameters, "
+          f"{mom['elements']} elements of parameters and velocities, "
+          f"{mom['violations']} violations (worst |diff| / bound "
+          f"{mom['worst']:.3e}); planted fault: mu 0.8 {mom['mu 0.8']} "
+          f"violations")
+    failed = [label for label, ok in (
+        (f"forward violations {res['violations']} (first "
+         f"{res.get('first')}, {res.get('element')})",
+         res["violations"] == 0),
+        (f"x_rel {res['x_rel']:.3e}", res["x_rel"] <= QAT_X_RTOL),
+        (f"scale_rel {res['scale_rel']:.3e}",
+         res["scale_rel"] <= QAT_X_RTOL),
+        (f"loss_rel {res['loss_rel']:.3e} > {res['loss_bound']:.3e}",
+         res["loss_rel"] <= res["loss_bound"]),
+        (f"gradient violations {grads['violations']} (first "
+         f"{grads.get('first')})", grads["violations"] == 0),
+        (f"Momentum violations {mom['violations']} (first "
+         f"{mom.get('first')})", mom["violations"] == 0)) if not ok]
+    _require(not failed, f"QAT: the card's step is not the CPU's: "
+                         f"{'; '.join(failed)}")
+    _require(all(v > 0 for v in res["mutants"].values()) and
+             grads["no scale grad"] > 0 and mom["mu 0.8"] > 0 and
+             (grads["clip mask"] > 0 or grads["beyond"] == 0),
+             f"QAT: a planted fault passed the check {res['mutants']}, "
+             f"{grads}, {mom}")
+    _require(chains and acts,
+             "QAT: the step check found no quantizer to hold")
+    return res
+
+
+def _qat_export(torch, pt, kreg, ctx, scope, logits, tmp, n_quantized):
+    """The frozen float and int8 exports: the int8 weights on the grid and
+    through the tensor files; the int8 export in AnalysisPredictor against
+    the frozen program through Executor.run and, quantized tensor by
+    quantized tensor, against the QAT eval program; then served under
+    PT_KERNEL_QUANT_MATMUL=int8. Returns the quantized_matmul_int8
+    launches of that run and their largest error against the plain
+    version."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qmm
+    int8_dir = os.path.join(tmp, "int8")
+    _require(os.path.exists(os.path.join(int8_dir, "__model__")) and
+             os.path.exists(os.path.join(tmp, "float", "__model__")),
+             "QAT: the compression end wrote no inference model")
+    params = [p.name for p in ctx.eval_graph[0].all_parameters()]
+    q8 = [n for n in params if scope.find_var(n + "@int8")]
+    worst = 0
+    arrays = _state_numpy(torch, scope, [m for n in q8 for m in (
+        n, n + "@int8", n + ".quant_scale")])
+    for n in q8:
+        w, q, s = arrays[n], arrays[n + "@int8"], arrays[n + ".quant_scale"]
+        _require(q.dtype == np.int8 and int(np.abs(q).max()) <= 127,
+                 f"{n}@int8 is not int8 on the grid")
+        # the freeze pass's grid value, q * s / 127 in float32 (numpy)
+        back = q.astype(np.float32) * s.reshape(
+            (-1,) + (1,) * (w.ndim - 1)) / np.float32(127.0)
+        worst = max(worst, int((back != w).sum()))
+
+    class _Named:
+        def __init__(self, name):
+            self.name = name
+    with pt.scope_guard(scope):
+        pt.io.save_vars(pt.Executor(pt.CPUPlace()), tmp,
+                        vars=[_Named(n + "@int8") for n in q8],
+                        filename="int8_weights")
+    back_scope = pt.Scope()
+    with pt.scope_guard(back_scope):
+        pt.io.load_vars(pt.Executor(pt.CPUPlace()), tmp,
+                        vars=[_Named(n + "@int8") for n in q8],
+                        filename="int8_weights")
+    trip = all(torch.equal(back_scope.find_var(n + "@int8").get_tensor()
+                           .tensor, scope.find_var(n + "@int8")
+                           .get_tensor().tensor.cpu()) for n in q8)
+    print(f"  int8 export: {len(q8)} of {len(params)} parameters with an "
+          f"int8 array, each int8 in [-127, 127] and q * scale / 127 "
+          f"equal to the frozen weight ({worst} elements differ); through "
+          f"the tensor files ({os.path.getsize(os.path.join(tmp, 'int8_weights'))} "
+          f"bytes) and back bit-equal {trip}")
+    _require(len(q8) == n_quantized and worst == 0 and trip,
+             "QAT: the int8 weights are not the frozen grid")
+
+    batch = _qat_batch(200)
+    cfg = pt.inference.AnalysisConfig(int8_dir)
+    pred = pt.inference.create_paddle_predictor(cfg)
+    name = pred.get_input_names()[0]
+
+    def serve():
+        pred.get_input_tensor(name).copy_from_cpu(batch["image"])
+        pred.zero_copy_run()
+        return pred.get_output_tensor(pred.get_output_names()[0]) \
+            .copy_to_cpu()
+    served = serve()
+    # the frozen program through Executor.run, fetching its quantized
+    # tensors too, from the exported weights
+    exe = pt.Executor(pt.CUDAPlace(0))
+    fscope = pt.Scope()
+    with pt.scope_guard(fscope):
+        frozen, feeds, fetch_vars = pt.io.load_inference_model(int8_dir,
+                                                               exe)
+    eval_prog = ctx.eval_graph[0]
+    fetch = qat_fetch_names(frozen, logits)
+    small = {"image": batch["image"][:QAT_CHECK_B]}
+    vals = exe.run(frozen, feed=small, fetch_list=fetch, scope=fscope,
+                   use_program_cache=False)
+    ref = dict(zip(fetch, vals))
+    full = exe.run(frozen, feed={"image": batch["image"]},
+                   fetch_list=[logits], scope=fscope)[0]
+    err = float(np.abs(served - full).max())
+    ev_scope = _copy_scope(pt, scope, [
+        n for n in _persistable(eval_prog) if scope.find_var(n)])
+    ev = exe.run(eval_prog, feed=batch, fetch_list=[logits],
+                 scope=ev_scope)[0]
+    top1 = float(np.mean(np.argmax(ev, 1) == np.argmax(served, 1)))
+    state = _state_numpy(torch, scope, [n for n in _persistable(eval_prog)
+                                        if scope.find_var(n)])
+    res = qat_forward_check(torch, pt, eval_prog, state, dict(
+        small, label=batch["label"][:QAT_CHECK_B]), ref, logits,
+        torch.device("cpu"))
+    print(f"  the int8 export in AnalysisPredictor, B={QAT_B}: logits "
+          f"{served.shape}, max |predictor - Executor.run| {err:.3e} "
+          f"(INFER_ATOL {INFER_ATOL:g}); top-1 equal to the QAT eval "
+          f"program's for {100 * top1:.1f} % of the images, max |logits "
+          f"diff| {float(np.abs(served - ev).max()):.3e}")
+    _qat_print_check(f"the export against the QAT eval program, "
+                     f"B={QAT_CHECK_B}", res)
+    _require(err <= INFER_ATOL and np.isfinite(served).all(),
+             "QAT: the predictor differs from Executor.run")
+    _require(res["violations"] == 0 and res["x_rel"] <= QAT_X_RTOL and
+             res["loss_rel"] <= res["loss_bound"],
+             "QAT: the export differs from the QAT eval program")
+
+    # the fc's mul under PT_KERNEL_QUANT_MATMUL=int8
+    fc = [op for op in frozen.global_block().ops if op.type == "mul"][0]
+    w_shape = tuple(fscope.find_var(fc.input("Y")[0]).get_tensor().shape())
+    M, K, N = QAT_B, w_shape[0], w_shape[1]
+    old = os.environ.get("PT_KERNEL_QUANT_MATMUL")
+    os.environ["PT_KERNEL_QUANT_MATMUL"] = "int8"
+    try:
+        pred8 = pt.inference.create_paddle_predictor(cfg)
+
+        def serve8():
+            pred8.get_input_tensor(name).copy_from_cpu(batch["image"])
+            pred8.zero_copy_run()
+            return pred8.get_output_tensor(pred8.get_output_names()[0]) \
+                .copy_to_cpu()
+        kreg.reset_counts()
+        out8 = serve8()
+        launches = kreg.launches().get("quantized_matmul_int8", 0)
+        eligible = qmm._qmm_eligible(kreg.Signature(
+            "mul", ("float32", "float32"), ((M, K), (K, N))))
+        err = 0.0
+        if launches:     # the kernel against its plain version
+            with kreg.plain_reference():
+                plain = serve8()
+            err = float(np.abs(out8 - plain).max() / np.abs(plain).max())
+    finally:
+        if old is None:
+            os.environ.pop("PT_KERNEL_QUANT_MATMUL", None)
+        else:
+            os.environ["PT_KERNEL_QUANT_MATMUL"] = old
+    why = "" if eligible else (
+        f": the fc is [{M}, {K}] x [{K}, {N}] and the kernel takes dims "
+        f"that are multiples of 128 ({N} % 128 = {N % 128}); the registry "
+        f"keeps it on torch.matmul")
+    print(f"  served again under PT_KERNEL_QUANT_MATMUL=int8: "
+          f"quantized_matmul_int8 launches {launches}{why}; max |logits - "
+          f"float32 serving| {float(np.abs(out8 - served).max()):.3e}; "
+          f"against the plain version {err:.3e} of the largest "
+          f"(QUANT_FWD_RTOL {QUANT_FWD_RTOL['int8']:g})")
+    _require(launches == (1 if eligible else 0) and
+             err <= QUANT_FWD_RTOL["int8"],
+             f"QAT: {launches} int8 GEMM launches (eligible {eligible}), "
+             f"{err:.3e} from the plain version")
+    return launches, err
+
+
+def _qat_variants(torch, pt, dev):
+    """The other QAT configurations in a small net (conv2d,
+    depthwise_conv2d, fc; B=16, 16x16): abs_max weights with
+    range_abs_max and abs_max activations, channel-wise weights with
+    moving averages; 3 Momentum steps each on the card, then one
+    forward held to the CPU by qat_forward_check."""
+    from paddle_tpu_torch.contrib.slim.quantization import \
+        QuantizationTransformPass
+    for w_type, a_type in (("abs_max", "range_abs_max"),
+                           ("abs_max", "abs_max"),
+                           ("channel_wise_abs_max",
+                            "moving_average_abs_max")):
+        pt.framework.unique_name.reset()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("image", [3, 16, 16], dtype="float32")
+            y = pt.layers.data("label", [1], dtype="int64")
+            h = pt.layers.conv2d(x, 8, 3, padding=1, act="relu")
+            h = pt.layers.conv2d(h, 8, 3, padding=1, groups=8, act="relu")
+            logits = pt.layers.fc(h, 10)
+            cost = pt.layers.mean(pt.layers.softmax_with_cross_entropy(
+                logits, y))
+        main.random_seed = startup.random_seed = SEED
+        fwd = main.clone()
+        with pt.program_guard(main, startup):
+            pt.optimizer.MomentumOptimizer(0.01, 0.9).minimize(cost)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        tp = QuantizationTransformPass(
+            scope=scope, weight_quantize_type=w_type,
+            activation_quantize_type=a_type)
+        tp.apply(main)
+        tp.apply(fwd)
+        types = [o.type for o in main.global_block().ops]
+        _require("depthwise_conv2d" in types,
+                 "the small net has no depthwise_conv2d")
+        for i in range(3):
+            loss = exe.run(main, feed=_qat_batch(i, 16, (3, 16, 16), 10),
+                           fetch_list=[cost], scope=scope)[0]
+        names = [n for n in _persistable(fwd) if scope.find_var(n)]
+        state = _state_numpy(torch, scope, names)
+        feed = _qat_batch(50, 16, (3, 16, 16), 10)
+        fetch = qat_fetch_names(fwd, cost.name)
+        s = pt.Scope()
+        pt.io.load_params_from_numpy(s, state, pt.CUDAPlace(0))
+        ref = dict(zip(fetch, exe.run(fwd, feed=feed, fetch_list=fetch,
+                                      scope=s, use_program_cache=False)))
+        res = qat_forward_check(torch, pt, fwd, state, feed, ref,
+                                cost.name, torch.device("cpu"))
+        _qat_print_check(f"small net, {w_type} weights, {a_type} "
+                         f"activations (3 steps, loss {float(loss):.4f})",
+                         res)
+        _require(res["violations"] == 0 and res["x_rel"] <= QAT_X_RTOL and
+                 res["loss_rel"] <= res["loss_bound"] and
+                 res["mutants"]["bin_cnt 126"] > 0,
+                 f"QAT {w_type}/{a_type}: the card is not the CPU")
+
+
+# statistical checks of the random ops: each test at this level
+QAT_ALPHA = 1e-3
+
+
+def _random_stats(torch, pt, kreg, dev):
+    """The random ops on the card against their laws (scipy): the
+    truncated normal by a Kolmogorov-Smirnov test, sampling_id's ids by
+    chi-square against the rows' probabilities, random_crop's starts by
+    their bounds and chi-square against uniform, each at QAT_ALPHA; then
+    a block with sampling_id and random_crop captured against eager."""
+    from scipy import stats
+    from paddle_tpu_torch.core.registry import OPS, ExecContext, RunState
+    from paddle_tpu_torch.framework import Operator
+
+    def draw(op_type, inputs, outs, attrs, run=0):
+        prog = pt.Program()
+        op = Operator(prog.global_block(), op_type,
+                      {s: [s.lower()] for s in inputs},
+                      {s: [s.lower() + "_out"] for s in outs},
+                      dict(attrs, __op_uid__=7))
+        env = {s.lower(): v for s, v in inputs.items()}
+        OPS.get(op_type).lowering(ExecContext(op, env, dev,
+                                              RunState(SEED, run)))
+        return {s: env[s.lower() + "_out"] for s in outs}
+
+    n = 200_000
+    z = draw("truncated_gaussian_random", {}, ["Out"],
+             {"shape": [n], "mean": 0.0, "std": 1.0, "dtype": 9})["Out"]
+    z = z.cpu().double().numpy()
+    law = stats.truncnorm(-2.0, 2.0)
+    ks = stats.kstest(z, law.cdf)
+    print(f"  truncated_gaussian_random: {n} draws in [{z.min():.4f}, "
+          f"{z.max():.4f}], KS p {ks.pvalue:.3f} (alpha {QAT_ALPHA})")
+    _require(ks.pvalue > QAT_ALPHA and z.min() >= -2 and z.max() <= 2,
+             "truncated_gaussian_random is not the truncated normal")
+    rng = np.random.default_rng(5)
+    p = rng.random(12) ** 2
+    p /= p.sum()
+    rows = 100_000
+    x = torch.from_numpy(np.tile(p.astype(np.float32), (rows, 1))).to(dev)
+    ids = draw("sampling_id", {"X": x}, ["Out"], {})["Out"]
+    _require(ids.dtype == torch.int64 and tuple(ids.shape) == (rows,),
+             "sampling_id's ids")
+    counts = np.bincount(ids.cpu().numpy(), minlength=12)
+    chi = stats.chisquare(counts, rows * p)
+    print(f"  sampling_id: {rows} ids over 12 classes, chi-square p "
+          f"{chi.pvalue:.3f}")
+    _require(chi.pvalue > QAT_ALPHA, "sampling_id's ids are off their law")
+    img = torch.arange(40 * 30, dtype=torch.float32,
+                       device=dev).reshape(1, 40, 30)
+    starts = np.array([[int(o[0, 0, 0]) // 30, int(o[0, 0, 0]) % 30]
+                       for o in (draw("random_crop", {"X": img},
+                                      ["Out", "SeedOut"],
+                                      {"shape": [24, 21]}, r)["Out"]
+                                 for r in range(1500))])
+    lims = (40 - 24, 30 - 21)
+    chis = [stats.chisquare(np.bincount(starts[:, i], minlength=L + 1))
+            for i, L in enumerate(lims)]
+    print(f"  random_crop: 1500 crops of 40x30 to 24x21, starts in "
+          f"[0, {starts[:, 0].max()}] x [0, {starts[:, 1].max()}] (limits "
+          f"{lims}), chi-square p {chis[0].pvalue:.3f}, {chis[1].pvalue:.3f}")
+    _require((starts >= 0).all() and starts[:, 0].max() <= lims[0] and
+             starts[:, 1].max() <= lims[1] and
+             all(c.pvalue > QAT_ALPHA for c in chis),
+             "random_crop's starts are off their law")
+    pt.framework.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        probs = pt.layers.data("probs", [12], dtype="float32")
+        ims = pt.layers.data("ims", [3, 40, 30], dtype="float32")
+        sid = pt.layers.sampling_id(probs)
+        crop = pt.layers.random_crop(ims, [3, 24, 21])
+        total = pt.layers.reduce_sum(crop)
+    feed = {"probs": np.tile(p.astype(np.float32), (64, 1)),
+            "ims": np.random.RandomState(3).rand(8, 3, 40, 30)
+            .astype(np.float32)}
+    fetched = []
+    _cap_compare(torch, pt, kreg, "sampling_id + random_crop", main,
+                 startup, feed, [total.name, sid.name], 4,
+                 fetched=fetched)
+    _require(len({f[1].tobytes() for f in fetched}) > 1,
+             "the captured runs drew the same ids every run")
+
+
+# the student's weights after the slim run (24 Momentum steps of fcs of
+# K <= 64 with pruning and soft labels), card against CPU: 1.805e-7 of
+# their largest in each of 8 runs on the H100, float32 (TF32 off); the
+# bound is 5.5 times that
+SLIM_W_RTOL = 1e-6
+
+
+def _slim_small(torch, pt, dev):
+    """A Compressor run built in Python: a width-64 teacher distilled into
+    a width-24 student (soft labels) while the student's first fc is
+    pruned by a quarter of its columns (StructuredPruner) at epoch 0;
+    Momentum; the card against the CPU from the same weights."""
+    from paddle_tpu_torch.contrib import Compressor
+    from paddle_tpu_torch.contrib.slim.distillation import (
+        DistillationStrategy, SoftLabelDistiller)
+    from paddle_tpu_torch.contrib.slim.prune import (StructuredPruner,
+                                                     UniformPruneStrategy)
+    protos = np.random.RandomState(42).normal(0, 1, (10, 64)) \
+        .astype(np.float32)
+
+    def data(n, seed):
+        r = np.random.RandomState(seed)
+        y = r.randint(0, 10, (n, 1))
+        x = protos[y[:, 0]] + r.normal(0, 0.35, (n, 64))
+        return x.astype(np.float32), y.astype(np.int64)
+
+    def net(width, prefix=""):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("img", [64], dtype="float32")
+            y = pt.layers.data("label", [1], dtype="int64")
+            h = pt.layers.fc(x, width, act="relu",
+                             param_attr=pt.ParamAttr(name=prefix + "w0"))
+            logits = pt.layers.fc(h, 10, param_attr=pt.ParamAttr(
+                name=prefix + "w1"))
+            sm = pt.layers.softmax(logits)
+            loss = pt.layers.mean(pt.layers.cross_entropy(sm, y))
+            acc = pt.layers.accuracy(sm, y)
+        main.random_seed = startup.random_seed = SEED
+        return main, startup, loss, acc, logits
+
+    xs, ys = data(512, 0)
+
+    def reader():
+        for i in range(0, 512, 64):
+            yield {"img": xs[i:i + 64], "label": ys[i:i + 64]}
+
+    init, results = None, {}
+    for key, place in (("card", pt.CUDAPlace(0)), ("cpu", pt.CPUPlace())):
+        pt.framework.unique_name.reset()
+        scope = pt.Scope()
+        t_main, t_start, _, _, t_logits = net(64, "t_")
+        s_main, s_start, s_loss, s_acc, s_logits = net(24)
+        exe = pt.Executor(place)
+        exe.run(t_start, scope=scope)
+        exe.run(s_start, scope=scope)
+        names = ["t_w0", "t_w1", "w0", "w1"] + [
+            p.name for p in t_main.all_parameters() + s_main.all_parameters()
+            if p.name not in ("t_w0", "t_w1", "w0", "w1")]
+        if init is None:
+            init = _state_numpy(torch, scope, names)
+        pt.io.load_params_from_numpy(scope, init, place)
+        comp = Compressor(
+            place, scope, s_main, train_reader=reader,
+            train_feed_list=["img", "label"],
+            train_fetch_list=[s_loss.name, s_acc.name],
+            eval_program=s_main.clone(for_test=True), eval_reader=reader,
+            eval_feed_list=["img", "label"], eval_fetch_list=[s_acc.name],
+            teacher_programs=[t_main.clone(for_test=True)],
+            train_optimizer=pt.optimizer.MomentumOptimizer(0.05, 0.9),
+            distiller_optimizer=pt.optimizer.MomentumOptimizer(0.05, 0.9),
+            epoch=3, log_period=1000)
+        comp.strategies = [
+            DistillationStrategy(
+                distillers=[SoftLabelDistiller(t_logits.name,
+                                               s_logits.name)],
+                start_epoch=0, end_epoch=2),
+            UniformPruneStrategy(
+                pruner=StructuredPruner(scope=scope), start_epoch=0,
+                target_ratio=0.25, pruned_params="w0")]
+        ctx = comp.run()
+        results[key] = (
+            ctx.eval_results[s_acc.name],
+            _state_numpy(torch, scope, ["w0", "w1"]))
+    (card_acc, card_w), (cpu_acc, cpu_w) = results["card"], results["cpu"]
+    rel = max(_rel(torch, torch.from_numpy(card_w[n]),
+                   torch.from_numpy(cpu_w[n])) for n in card_w)
+    zero_cols = float((np.abs(card_w["w0"]).sum(0) == 0).mean())
+    print(f"  slim without a config (distillation + pruning, Momentum, 3 "
+          f"epochs of 8 batches): accuracy on the card {card_acc}, on the "
+          f"CPU {cpu_acc}; the student's weights within {rel:.3e} of the "
+          f"CPU's (SLIM_W_RTOL {SLIM_W_RTOL:g}); {100 * zero_cols:.0f} % "
+          f"of w0's columns pruned on both: "
+          f"{np.array_equal(card_w['w0'] == 0, cpu_w['w0'] == 0)}")
+    _require(rel <= SLIM_W_RTOL and zero_cols == 0.25 and
+             np.array_equal(card_w["w0"] == 0, cpu_w["w0"] == 0) and
+             card_acc[-1] > 0.7,
+             "slim: the card's compression is not the CPU's")
+
+
+def qat_phase(torch, dev):
+    """ResNet-50 (full depth and width, 1000 classes, B=128, 224x224,
+    float32) trained quantization-aware through contrib.slim's
+    Compressor and QuantizationStrategy, frozen, exported to int8 and
+    served; then the small card checks of slice 25. Returns the
+    quantized_matmul_int8 launches (row 6) and their worst error."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import registry as kreg
+    gc_cuda(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx, scope, cost, logits, batches = _qat_compress(torch, pt, tmp)
+        n_quantized = _qat_types(ctx)
+        _qat_steady(torch, pt, ctx, scope, batches)
+        _qat_card_vs_cpu(torch, pt, ctx, scope, cost)
+        launches, err = _qat_export(torch, pt, kreg, ctx, scope, logits,
+                                    tmp, n_quantized)
+    del ctx, scope, batches
+    gc_cuda(torch)
+    print(f"  ResNet-50 QAT: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    _qat_variants(torch, pt, dev)
+    _random_stats(torch, pt, kreg, dev)
+    _slim_small(torch, pt, dev)
+    print(f"  the small checks: {time.perf_counter() - t1:.1f} s; the "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -9710,6 +10988,7 @@ def main(argv=None):
                          "kernels, quantized GEMM and bucket sweeps in "
                          "turns with this one's")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -9873,6 +11152,9 @@ def main(argv=None):
     ocr_phase(torch, dev)
     print("[sampled heads phase]")
     sampled_heads_phase(torch, dev)
+    print("[qat phase]")
+    qat_launches, _ = qat_phase(torch, dev)
+    serve_launches["int8"] += qat_launches
 
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
@@ -9996,6 +11278,7 @@ def main(argv=None):
         _require(row["ms"] > 0 and (row["library_ms"] is None
                                     or row["library_ms"] > 0),
                  f"{row['name']}: the profiler saw no device time")
+    print(f"the script: {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -447,7 +447,10 @@ class ExecContext:
             t = cache.tensors.get(full)
             if t is not None:
                 return t
-        t = torch.from_numpy(np.ascontiguousarray(build())).to(self.device)
+        a = build()
+        # np.ascontiguousarray makes a 0-d array 1-d: keep the shape
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(
+            self.device)
         if cache is not None:
             cache.tensors[full] = t
             cache.built += 1

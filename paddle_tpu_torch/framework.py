@@ -272,6 +272,12 @@ class Operator:
     def has_attr(self, name: str) -> bool:
         return name in self._attrs
 
+    def set_attr(self, name, val):
+        """Set an attr; the Program's version moves (its plans are made
+        again)."""
+        self._attrs[name] = val
+        self.block.program._bump_version()
+
     def __repr__(self):
         return f"Op({self.type}, in={self._inputs}, out={self._outputs})"
 

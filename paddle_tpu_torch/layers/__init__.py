@@ -15,3 +15,7 @@ from .ops import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
+from .distributions import (  # noqa: F401
+    Categorical, MultivariateNormalDiag, Normal, Uniform)
+
+from . import distributions  # noqa: F401

@@ -15,8 +15,10 @@ gaussian_random, lstm_unit, gru_unit, merge_selected_rows,
 get_tensor_from_selected_rows and rank; the conv family's
 (conv2d_transpose, conv3d, conv3d_transpose, pool3d, the adaptive pools,
 the resizes, the layout ops, unfold, spp); the RoI poolings
-roi_align, roi_pool and psroi_pool; and bilinear_tensor_product,
-chunk_eval and mean_iou."""
+roi_align, roi_pool and psroi_pool; bilinear_tensor_product,
+chunk_eval and mean_iou; and the random layers
+uniform_random_batch_size_like, gaussian_random_batch_size_like,
+sampling_id and random_crop, with fsp_matrix."""
 from __future__ import annotations
 
 import builtins
@@ -67,6 +69,9 @@ __all__ = [
     "roi_align", "roi_pool", "psroi_pool",
     # slice 24: the bilinear product and the metric builders
     "bilinear_tensor_product", "chunk_eval", "mean_iou",
+    # slice 25: the random layers and the FSP matrix of distillation
+    "uniform_random_batch_size_like", "gaussian_random_batch_size_like",
+    "sampling_id", "random_crop", "fsp_matrix",
 ]
 
 
@@ -1064,6 +1069,65 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
         "gaussian_random", outputs={"Out": out},
         attrs={"shape": list(shape), "mean": mean, "std": std,
                "seed": seed, "dtype": int(convert_dtype(dtype))})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    """Uniform on [min, max) in `shape`, dim output_dim_idx taken from
+    `input`'s dim input_dim_idx."""
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "uniform_random_batch_size_like", inputs={"Input": input},
+        outputs={"Out": out},
+        attrs={"shape": list(shape), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx, "min": min, "max": max,
+               "seed": seed, "dtype": int(convert_dtype(dtype))})
+    return out
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "gaussian_random_batch_size_like", inputs={"Input": input},
+        outputs={"Out": out},
+        attrs={"shape": list(shape), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx, "mean": mean, "std": std,
+               "seed": seed, "dtype": int(convert_dtype(dtype))})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    """One id a row of the probabilities `x`, int64. `min`, `max` and
+    `dtype` are taken and unused, as in the JAX package."""
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("sampling_id", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"seed": seed})
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("random_crop", inputs={"X": x},
+                     outputs={"Out": out},
+                     attrs={"shape": list(shape),
+                            "startup_seed": seed or 0})
+    return out
+
+
+def fsp_matrix(x, y):
+    """The FSP matrix of two NCHW feature maps (the fsp op)."""
+    helper = LayerHelper("fsp")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fsp", inputs={"X": x, "Y": y},
+                     outputs={"Out": out})
     return out
 
 

@@ -4,9 +4,11 @@ activations.py, nn.py), the nine update ops that have no kernel
 (optimizer_ops.py: lars_momentum ... lamb), the conv family
 (conv.py), the value-dependent sequence
 ops, SSD's detection ops and the one- and two-stage detectors' ops
-(detection.py, on LoD inputs), and slice 24's nlp, metric and
+(detection.py, on LoD inputs), slice 24's nlp, metric and
 bilinear ops (nlp.py, metrics.py, misc.py's chunk_eval, matmul.py's
-bilinear_tensor_product), on seeded
+bilinear_tensor_product) and slice 25's fake-quantize and int8 ops
+(quantize.py, misc.py's quantize, dequantize, requantize and fsp;
+tests/test_torch_quantization.py holds them), on seeded
 numpy inputs, and a runner of one op's lowering on a device: the cases
 tests/test_torch_op_families.py holds against the JAX package's
 lowerings on the CPU and chip_smoke.py's op sweep holds on the card
@@ -27,7 +29,8 @@ import torch
 from ..core.registry import OPS, ExecContext, _SlotView
 
 __all__ = ["cases", "conv_cases", "sequence_cases", "detection_cases",
-           "one_stage_cases", "two_stage_cases", "nlp_cases", "run",
+           "one_stage_cases", "two_stage_cases", "nlp_cases", "quant_cases",
+           "run",
            "run_grad", "nce_numpy", "sample_logits_numpy", "drawn"]
 
 
@@ -1159,6 +1162,127 @@ def nlp_cases() -> List[tuple]:
          {"column": 0}, {"PositivePair": 1, "NegativePair": 1,
                          "NeutralPair": 1}, []),
     ]
+
+
+def quant_cases() -> List[tuple]:
+    """Slice 25's nine fake-quantize ops and misc.py's quantize,
+    dequantize, requantize and fsp (fsp's inputs on a dyadic grid with
+    H * W = 16: its sums are exact in any order)."""
+    rng = np.random.default_rng(2024)
+    x = _normal(rng, 4, 3, 5, 5)
+    w = _normal(rng, 6, 3, 3, 3, scale=0.2)
+    act = _normal(rng, 8, 16)
+    grid = np.round(x * 40).astype(np.float32)
+    wgrid = np.round(w * 300).astype(np.float32)
+    ma = {"InScale": _scalar(0.4), "InAccum": _scalar(0.9), "InState": _scalar(2.1)}
+    raw = [
+        ("fake_quantize_abs_max", {"X": x}, ["Out", "OutScale"],
+         {"bit_length": 8}, ["X"]),
+        ("fake_quantize_abs_max", {"X": act}, ["Out", "OutScale"],
+         {"bit_length": 4}, ["X"]),
+        ("fake_quantize_dequantize_abs_max", {"X": x}, ["Out", "OutScale"],
+         {"bit_length": 8}, ["X"]),
+        ("fake_channel_wise_quantize_abs_max", {"X": w},
+         ["Out", "OutScale"], {"bit_length": 8}, ["X"]),
+        ("fake_channel_wise_quantize_abs_max", {"X": act},
+         ["Out", "OutScale"], {"bit_length": 8}, ["X"]),
+        ("fake_dequantize_max_abs", {"X": grid, "Scale": _scalar(2.5)},
+         ["Out"], {"max_range": 127.0}, ["X"]),
+        ("fake_channel_wise_dequantize_max_abs",
+         {"X": wgrid, "Scales": [np.abs(w).max(axis=(1, 2, 3))]}, ["Out"],
+         {"quant_bits": [8]}, ["X"]),
+        ("fake_channel_wise_dequantize_max_abs",
+         {"X": wgrid, "Scales": [np.abs(w).max(axis=(1, 2, 3)),
+                                 _scalar(3.0)]}, ["Out"],
+         {"quant_bits": [8, 8]}, ["X"]),
+        ("fake_quantize_range_abs_max",
+         {"X": x, "InScale": _scalar(0.3), "Iter": np.array([3], np.int64),
+          "OutScales": np.abs(_normal(rng, 10))},
+         ["Out", "OutScale", "OutScales", "IterOut"],
+         {"bit_length": 8, "window_size": 10, "is_test": False}, ["X"]),
+        ("fake_quantize_range_abs_max",
+         {"X": x, "InScale": _scalar(1.7), "Iter": np.array([3], np.int64),
+          "OutScales": np.zeros(10, np.float32)}, ["Out", "OutScale"],
+         {"bit_length": 8, "window_size": 10, "is_test": True}, ["X"]),
+        ("fake_quantize_moving_average_abs_max", dict(ma, X=x),
+         ["Out", "OutScale", "OutAccum", "OutState"],
+         {"bit_length": 8, "moving_rate": 0.9, "is_test": False}, ["X"]),
+        ("fake_quantize_moving_average_abs_max", dict(ma, X=x),
+         ["Out", "OutScale"],
+         {"bit_length": 8, "moving_rate": 0.9, "is_test": True}, ["X"]),
+        ("fake_quantize_dequantize_moving_average_abs_max", dict(ma, X=x),
+         ["Out", "OutScale", "OutAccum", "OutState"],
+         {"bit_length": 8, "moving_rate": 0.9, "is_test": False}, ["X"]),
+        ("fake_quantize_dequantize_moving_average_abs_max", dict(ma, X=x),
+         ["Out", "OutScale"],
+         {"bit_length": 8, "moving_rate": 0.9, "is_test": True}, ["X"]),
+        ("moving_average_abs_max_scale",
+         {"X": x, "InAccum": _scalar(0.9), "InState": _scalar(2.1)},
+         ["Out", "OutScale", "OutAccum", "OutState"],
+         {"moving_rate": 0.9, "is_test": False}, ["X"]),
+        ("quantize", {"Input": x}, ["Output"], {"Scale": 31.75}, []),
+        ("dequantize", {"Input": np.round(x * 30).astype(np.int8)},
+         ["Output"], {"Scale": 31.75}, []),
+        ("requantize", {"Input": np.round(x * 30).astype(np.int8)},
+         ["Output"], {"Scale_in": 31.75, "Scale_out": 12.5}, []),
+        # a dyadic grid and H * W = 16: every product, sum and quotient
+        # is exact
+        ("fsp", {"X": np.round(x[..., :4, :4] * 4) / 4,
+                 "Y": np.round(x[:, :2, :4, :4] * 8) / 8},
+         ["Out"], {}, ["X", "Y"]),
+    ]
+    return [(t, ins, attrs, {s: 1 for s in outs}, diff)
+            for t, ins, outs, attrs, diff in raw]
+
+
+def _dyadic(rng, shape, per_channel=False):
+    """Values on a grid of 1/16 in (-2, 2) whose abs max is 2 (a
+    channel's, per channel): the products and sums of the gradients'
+    scale terms are then exact in any order."""
+    v = np.clip(np.round(rng.standard_normal(shape) * 16) / 16,
+                -1.9375, 1.9375).astype(np.float32)
+    flat = v.reshape(shape[0], -1) if per_channel else v.reshape(1, -1)
+    flat[:, 0] = 2.0
+    return v
+
+
+def quant_grad_cases() -> List[tuple]:
+    """The quant_cases with a gradient, on dyadic inputs (and a moving
+    rate of 0.5 from a state of 2 and an accumulator of 0, so the
+    moving-average scale is 1): the gradient of a scale reached from x
+    is a sum over the tensor, exact in any order (XLA's, torch's on
+    either device)."""
+    rng = np.random.default_rng(11)
+    x = _dyadic(rng, (4, 3, 5, 5))
+    w = _dyadic(rng, (6, 3, 3, 3), per_channel=True)
+    ma = {"InScale": _scalar(1.0), "InAccum": _scalar(0.0),
+          "InState": _scalar(2.0)}
+    out = []
+    for op_type, inputs, attrs, outs, diff in quant_cases():
+        if not diff:
+            continue
+        inputs = dict(inputs)
+        attrs = dict(attrs)
+        if "X" in inputs and op_type != "fsp" and \
+                not op_type.startswith("fake_dequantize") and \
+                not op_type.startswith("fake_channel_wise_dequantize"):
+            inputs["X"] = w if op_type.startswith("fake_channel_wise") \
+                else x
+        if "moving_rate" in attrs:
+            inputs.update({k: v for k, v in ma.items() if k in inputs})
+            attrs["moving_rate"] = 0.5
+        if op_type == "fake_quantize_range_abs_max":
+            inputs["OutScales"] = np.minimum(inputs["OutScales"], 1.0)
+        out.append((op_type, inputs, attrs, outs, diff))
+    return out
+
+
+def _normal(rng, *shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _scalar(a):
+    return np.asarray([a], np.float32)
 
 
 def _softplus(v):

@@ -1,6 +1,7 @@
 """sign, py_func and py_func_grad (a Python callable run as an op),
-and chunk_eval (counterpart of paddle_tpu/ops/misc.py's sign, py_func,
-py_func_grad and chunk_eval).
+chunk_eval, fsp and the int8 inference ops quantize, dequantize and
+requantize (counterpart of paddle_tpu/ops/misc.py's sign, py_func,
+py_func_grad, chunk_eval, fsp, quantize, dequantize and requantize).
 
 The callable gets host (numpy) copies of its inputs, and its results go
 back to the op's device. A host copy cannot run on the meta device nor
@@ -16,6 +17,7 @@ import torch
 
 from ..core.registry import register_no_grad_op, register_op
 from ..core.scope import tensor_to_numpy
+from .quantize import div_scalar
 
 
 @register_op("sign")
@@ -140,3 +142,40 @@ def chunk_eval(ctx):
                         ("NumLabelChunks", n_lab, torch.int32),
                         ("NumCorrectChunks", n_correct, torch.int32)):
         ctx.set_output(slot, torch.tensor(v, dtype=dt).to(ctx.device))
+
+
+@register_op("fsp")
+def fsp(ctx):
+    """The FSP matrix of distillation: Out[n, i, j] = sum over h, w of
+    X[n, i, h, w] * Y[n, j, h, w], over H * W."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    h, w = x.shape[2], x.shape[3]
+    ctx.set_output("Out", div_scalar(torch.einsum("nihw,njhw->nij", x, y),
+                                     float(h * w)))
+
+
+def _int8(v):
+    """Round half to even, clip to [-128, 127], int8."""
+    return torch.clamp(torch.round(v), -128, 127).to(torch.int8)
+
+
+@register_no_grad_op("quantize")
+def quantize_int8(ctx):
+    """Output = int8(round(Input * Scale))."""
+    ctx.set_output("Output", _int8(ctx.input("Input") *
+                                   ctx.attr("Scale", 1.0)))
+
+
+@register_no_grad_op("dequantize")
+def dequantize_int8(ctx):
+    ctx.set_output("Output", div_scalar(
+        ctx.input("Input").to(torch.float32), ctx.attr("Scale", 1.0)))
+
+
+@register_no_grad_op("requantize")
+def requantize_int8(ctx):
+    """int8 from one scale to another: round(Input / Scale_in *
+    Scale_out)."""
+    x = ctx.input("Input").to(torch.float32)
+    ctx.set_output("Output", _int8(div_scalar(x, ctx.attr("Scale_in", 1.0))
+                                   * ctx.attr("Scale_out", 1.0)))

@@ -141,7 +141,23 @@ class Optimizer:
                          shape=None):
         cached = self._accumulators[name].get(param.name)
         if cached is not None:
-            return cached
+            if in_dygraph_mode() or default_main_program().global_block() \
+                    ._find_var_recursive(cached.name) is not None:
+                return cached
+            # one optimizer minimizing a second program (contrib.slim's
+            # Compressor minimizes each rewritten graph): declare the
+            # accumulator there too, with its fill in the new startup
+            # program, as the JAX package does (running that startup
+            # resets it)
+            var = self.helper.create_global_variable(
+                name=cached.name, persistable=True, dtype=cached.dtype,
+                shape=list(cached.shape))
+            sb = default_startup_program().global_block()
+            sv = sb.create_var(name=cached.name, shape=list(cached.shape),
+                               dtype=cached.dtype, persistable=True)
+            Constant(float(fill_value))(sv, sb)
+            self._accumulators[name][param.name] = var
+            return var
         shape = shape if shape is not None else list(param.shape)
         if in_dygraph_mode():
             from .dygraph.tracer import VarBase

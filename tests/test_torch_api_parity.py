@@ -3,7 +3,9 @@
 * C.3: every public name that both the port and the JAX package export
   from `layers`, `optimizer`, `backward`, `initializer`, `param_attr`,
   `regularizer`, `evaluator`, the package itself, `framework`,
-  `executor`, `core.scope`, `dygraph.nn` and `metrics` takes the same parameters: names, kinds and defaults, by
+  `executor`, `core.scope`, `dygraph.nn`, `metrics`, `contrib`,
+  `contrib.slim` and its five subpackages and `layers.distributions`
+  takes the same parameters: names, kinds and defaults, by
   inspect.signature (a class by its __init__ and its public methods).
   So a reference script that passes `act` to elementwise_add, `callbacks`
   to append_backward or `force_cpu` to Constant runs in the port.
@@ -38,11 +40,14 @@ from test_torch_ops import _Op
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
-MIN_CHECKED = {"layers": 296, "optimizer": 110, "backward": 2,
-               "initializer": 10, "param_attr": 1, "regularizer": 5,
+MIN_CHECKED = {"layers": 321, "optimizer": 110, "backward": 2,
+               "initializer": 15, "param_attr": 1, "regularizer": 5,
                "evaluator": 10, "(top level)": 88, "framework": 43,
                "executor": 5, "core.scope": 36, "dygraph.nn": 272,
-               "metrics": 29}
+               "metrics": 29, "contrib": 27, "contrib.slim": 0,
+               "contrib.slim.core": 19, "contrib.slim.quantization": 18,
+               "contrib.slim.prune": 37, "contrib.slim.distillation": 18,
+               "contrib.slim.nas": 27, "layers.distributions": 20}
 MODULES = list(MIN_CHECKED)
 # names each module must share (the builders of the book's last two
 # models and py_func, fluid.gradients, and the builders of the op
@@ -100,11 +105,16 @@ NLP_BUILDERS = {
     "warpctc", "ctc_greedy_decoder", "nce", "hsigmoid",
     "sampled_softmax_with_cross_entropy", "bilinear_tensor_product",
     "chunk_eval", "mean_iou", "auc"}
+# slice 25's random builders, fsp_matrix and the distributions
+RANDOM_BUILDERS = {
+    "uniform_random_batch_size_like", "gaussian_random_batch_size_like",
+    "sampling_id", "random_crop", "fsp_matrix", "Normal", "Uniform",
+    "Categorical", "MultivariateNormalDiag"}
 REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                        "beam_search_decode", "linear_chain_crf",
                        "crf_decoding", "py_func"} | FAMILY_BUILDERS |
             NN_AND_SSD_BUILDERS | CONV_BUILDERS | ONE_STAGE_BUILDERS |
-            TWO_STAGE_BUILDERS | NLP_BUILDERS,
+            TWO_STAGE_BUILDERS | NLP_BUILDERS | RANDOM_BUILDERS,
             "dygraph.nn": {"Conv2DTranspose", "Conv3D", "Conv3DTranspose",
                            "GroupNorm", "PRelu", "BilinearTensorProduct",
                            "GRUUnit", "NCE"},
@@ -134,7 +144,34 @@ REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
             "framework": {"grad_var_name", "name_scope", "Variable",
                           "Parameter", "Block", "Operator"},
             "executor": {"Executor", "global_scope", "scope_guard"},
-            "core.scope": {"Scope", "LoDTensor", "TensorArray"}}
+            "core.scope": {"Scope", "LoDTensor", "TensorArray"},
+            # slice 25: contrib.slim (its subpackages are the shared
+            # names of contrib.slim itself), the three initializers
+            "contrib": {"Compressor", "QuantizeTranspiler"},
+            "contrib.slim": {"core", "quantization", "prune",
+                             "distillation", "nas"},
+            "contrib.slim.core": {"Compressor", "Context", "Strategy",
+                                  "ConfigFactory", "load_config"},
+            "contrib.slim.quantization": {
+                "QuantizationTransformPass", "QuantizationFreezePass",
+                "ConvertToInt8Pass", "QuantizationStrategy",
+                "QuantizeTranspiler"},
+            "contrib.slim.prune": {
+                "MagnitudePruner", "StructuredPruner", "apply_prune_masks",
+                "UniformPruneStrategy", "SensitivePruneStrategy",
+                "AutoPruneStrategy"},
+            "contrib.slim.distillation": {
+                "merge", "l2_loss", "soft_label_loss", "fsp_loss",
+                "L2Distiller", "SoftLabelDistiller", "FSPDistiller",
+                "DistillationStrategy"},
+            "contrib.slim.nas": {"SearchSpaceBase", "SAController",
+                                 "ControllerServer", "SearchAgent",
+                                 "LightNASStrategy"},
+            "layers.distributions": {"Uniform", "Normal", "Categorical",
+                                     "MultivariateNormalDiag"},
+            "initializer": {"TruncatedNormal", "NumpyArrayInitializer",
+                            "Bilinear", "TruncatedNormalInitializer",
+                            "BilinearInitializer"}}
 
 
 def _public(mod):

@@ -3156,3 +3156,89 @@ def test_sampled_heads_captured_bit_equal_eager_on_card(cuda, monkeypatch,
                                  monkeypatch)
     _assert_bit_equal(runs)
     assert not runs[True][3]
+
+
+def test_fake_quantize_ops_on_card_equal_the_cpu(cuda):
+    """Slice 25's fake-quantize and int8 ops and fsp
+    (family_cases.quant_cases) on the card against the CPU, forward:
+    equal to the bit (elementwise float32 operations, exact reductions;
+    fsp's inputs on a dyadic grid, where its sums are exact in any
+    order). Then the gradients of the cases with one
+    (family_cases.quant_grad_cases: dyadic inputs, so the gradient a
+    scale gathers from the whole tensor is exact in any order) under
+    the same cotangents on a grid of 1/4: equal to the bit (the
+    straight-through estimator, the clip's tie-splitting gradient
+    through the scale, fsp's products)."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    for op_type, inputs, attrs, outs, _ in fc.quant_cases():
+        card, _ = fc.run(op_type, inputs, attrs, outs, cuda)
+        cpu, _ = fc.run(op_type, inputs, attrs, outs, "cpu")
+        for n, v in card.items():
+            assert torch.equal(v.cpu(), cpu[n]), (op_type, n)
+    rng = np.random.default_rng(7)
+    for op_type, inputs, attrs, outs, diff in fc.quant_grad_cases():
+        fwd = {d: fc.run(op_type, inputs, attrs, outs, d)[0]
+               for d in (cuda, "cpu")}
+        cot = {s: (rng.integers(-4, 5, tuple(fwd["cpu"][
+            f"{s.lower()}_out0"].shape)) / 4).astype(np.float32)
+               for s in outs if fwd["cpu"][f"{s.lower()}_out0"]
+               .is_floating_point()}
+        got = {d: fc.run_grad(op_type, inputs, attrs, outs, diff, d, None,
+                              fwd[d], cot) for d in (cuda, "cpu")}
+        for s in diff:
+            assert torch.equal(got[cuda][s].cpu(), got["cpu"][s]), \
+                (op_type, s)
+            assert got["cpu"][s].abs().max() > 0, (op_type, s)
+
+
+def test_fsp_on_card_within_its_sum_bound(cuda, monkeypatch):
+    """fsp on normal inputs (N=4, 6 and 5 channels, 14x14), forward and
+    gradients, the card against the CPU. Out is a sum of K = H * W
+    products over H * W, dX a sum over Y's 5 channels and dY over X's 6
+    (each of dOut / (H * W) times the other input). In any order a
+    K-term float32 sum of rounded products lies within K units of 2^-24
+    of the sum of its terms' magnitudes of the exact one, and the
+    division and the product with its result round once more: the two
+    devices within 2 (K + 2) units of the magnitudes' sum (computed in
+    float64 on the CPU) plus 2 units of the value."""
+    from paddle_tpu_torch.ops import family_cases as fc
+    _no_tf32(monkeypatch)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 6, 14, 14)).astype(np.float32)
+    y = rng.standard_normal((4, 5, 14, 14)).astype(np.float32)
+    g = rng.standard_normal((4, 6, 5)).astype(np.float32)
+    ins, outs = {"X": x, "Y": y}, {"Out": 1}
+    fwd = {d: fc.run("fsp", ins, {}, outs, d)[0] for d in (cuda, "cpu")}
+    grads = {d: fc.run_grad("fsp", ins, {}, outs, ["X", "Y"], d, None,
+                            fwd[d], {"Out": g}) for d in (cuda, "cpu")}
+    u, hw = 2.0 ** -24, 14 * 14
+    ax, ay, ag = (torch.from_numpy(np.abs(a)).double() for a in (x, y, g))
+    mags = {"Out": (torch.einsum("nihw,njhw->nij", ax, ay) / hw, hw),
+            "X": (torch.einsum("nij,njhw->nihw", ag, ay) / hw, 5),
+            "Y": (torch.einsum("nij,nihw->njhw", ag, ax) / hw, 6)}
+    vals = {"Out": (fwd[cuda]["out_out0"], fwd["cpu"]["out_out0"]),
+            "X": (grads[cuda]["X"], grads["cpu"]["X"]),
+            "Y": (grads[cuda]["Y"], grads["cpu"]["Y"])}
+    for name, (mag, k) in mags.items():
+        a, b = (v.cpu().double() for v in vals[name])
+        bound = 2 * (k + 2) * u * mag + 2 * u * b.abs()
+        assert ((a - b).abs() <= bound).all(), \
+            (name, float(((a - b).abs() / bound).max()))
+        assert b.abs().max() > 0
+
+
+def test_qat_variants_on_card_equal_the_cpu(cuda):
+    """chip_smoke's small QAT nets (abs_max weights with range_abs_max and
+    abs_max activations; channel-wise weights with moving averages;
+    depthwise_conv2d) trained 3 steps on the card, then one forward held
+    to the CPU by qat_forward_check."""
+    import chip_smoke as cs
+    cs._qat_variants(torch, pt, cuda)
+
+
+def test_random_ops_on_card_follow_their_laws(cuda):
+    """chip_smoke._random_stats: the truncated normal (KS), sampling_id
+    (chi-square), random_crop's starts, and a block with both replayed
+    bit-equal to its eager runs."""
+    import chip_smoke as cs
+    cs._random_stats(torch, pt, kreg, cuda)

@@ -258,7 +258,9 @@ def test_every_slice_op_type_is_covered():
     test_torch_detection.py, the conv family in test_torch_conv_family.py,
     the one-stage detectors' ops in test_torch_one_stage_detection.py,
     the two-stage detectors' ops in test_torch_two_stage_detection.py
-    and slice 24's nlp and metric ops in test_torch_nlp_ops.py)."""
+    slice 24's nlp and metric ops in test_torch_nlp_ops.py, and slice
+    25's random ops in test_torch_random_ops.py and fake-quantize and
+    int8 ops in test_torch_quantization.py)."""
     import test_torch_beam_search
     import test_torch_op_families
     import test_torch_sequence
@@ -299,10 +301,17 @@ def test_every_slice_op_type_is_covered():
     two_stage = {c[0] for c in family_cases.two_stage_cases()}
     # held in test_torch_nlp_ops.py
     nlp = {c[0] for c in family_cases.nlp_cases()}
+    # slice 25's: held in test_torch_random_ops.py and
+    # test_torch_quantization.py
+    import test_torch_quantization
+    import test_torch_random_ops
+    slice25 = set(test_torch_random_ops.SIX) | \
+        set(test_torch_quantization.QUANT_OPS) | \
+        set(test_torch_quantization.MISC_OPS)
     assert {c[0] for c in _CASES} | {"gaussian_random", "adam", "sum"} | \
         lenet | resnet | ctr | sequence | rnn | control_flow | crf | \
         beam | families | detection | conv | one_stage | two_stage | \
-        nlp == forward
+        nlp | slice25 == forward
 
 
 @pytest.mark.parametrize("seed", [0, 11])
