@@ -3810,8 +3810,10 @@ def _cap_run(exe, main, feed, fetch, scope, cached=True, numpy=True):
                    use_program_cache=cached, return_numpy=numpy)
 
 
-def _cap_turns(torch, label, units, per_step, modes, fresh=()):
-    """Runs of each mode in CAP_TURNS turns of CAP_TURN_STEPS steps (the
+def _cap_turns(torch, label, units, per_step, modes, fresh=(), turns=None,
+               steps=None):
+    """Runs of each mode in `turns` (CAP_TURNS) turns of `steps`
+    (CAP_TURN_STEPS) steps (the
     order alternating between turns): `units` a second (units a step
     per_step), each turn ending at its last step's fetched loss, and the
     host ms of a run before that fetch (the enqueue). modes: name ->
@@ -3821,21 +3823,23 @@ def _cap_turns(torch, label, units, per_step, modes, fresh=()):
     rates."""
     rates = {m: [] for m in modes}
     host = {m: [] for m in modes}
-    for turn in range(CAP_TURNS):
+    turns = turns or CAP_TURNS
+    steps = steps or CAP_TURN_STEPS
+    for turn in range(turns):
         for m in (list(modes) if turn % 2 == 0 else list(modes)[::-1]):
             with (modes[m]() if m in fresh else
                   contextlib.nullcontext(modes[m])) as step:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 enq = 0.0
-                for _ in range(CAP_TURN_STEPS):
+                for _ in range(steps):
                     t1 = time.perf_counter()
                     out = step()
                     enq += time.perf_counter() - t1
                 float(out.reshape(-1)[0])          # the fetch fences
                 secs = time.perf_counter() - t0
-            rates[m].append(per_step * CAP_TURN_STEPS / secs)
-            host[m].append(enq * 1e3 / CAP_TURN_STEPS)
+            rates[m].append(per_step * steps / secs)
+            host[m].append(enq * 1e3 / steps)
     for m in modes:
         print(f"  {label} {m}: {units} a turn "
               f"{', '.join(f'{r:.1f}' for r in rates[m])} (median "
@@ -4654,7 +4658,7 @@ SEQ_POOL = 2        # LoD batches cycled (each its own plan and graph)
 # the batches of the pool that the turns pass over (each captured again
 # outside deterministic mode first: ~17 s a batch for stacked_lstm_net)
 SEQ_RATE_POOL = 1
-SEQ_STREAM = 2      # distinct batches run once each, eagerly
+SEQ_STREAM = 1      # distinct batches run once each, eagerly
 SEQ_TURNS = 2       # turns of one pass over SEQ_RATE_POOL batches
 SEQ_SERVE_RUNS = 4  # predictor runs a warmed signature
 # the first step's loss on the card against the port on the CPU from the
@@ -7999,6 +8003,8 @@ RCNN = {"class_num": 81, "image": (800, 1344), "stages": (3, 4, 6, 3),
         "width": 64}
 RCNN_B = 2            # images a card (Detectron's C4 config takes 1)
 RCNN_RUNS = 8         # steps of one batch, captured against eager
+RCNN_TURNS = (2, 2)   # turns and steps a turn of the rates (an eager
+                      # step is ~1.6 s: the script's time)
 RCNN_ANCHOR_SIZES = [32.0, 64.0, 128.0, 256.0, 512.0]
 RCNN_RATIOS = [0.5, 1.0, 2.0]
 RCNN_STRIDE = 16.0
@@ -8653,7 +8659,8 @@ def _rcnn_train(torch, pt, kreg, dev):
         "eager": lambda: _cap_run(exe, main, feed, [outs["loss"]], scope,
                                   cached=False, numpy=False)[0],
         "captured": lambda: _cap_run(exe, main, feed, [outs["loss"]], scope,
-                                     numpy=False)[0]})
+                                     numpy=False)[0]},
+        turns=RCNN_TURNS[0], steps=RCNN_TURNS[1])
     print(f"  faster_rcnn: captured / eager "
           f"{rates['captured'] / rates['eager']:.3f}")
     print(f"  faster_rcnn: peak memory allocated "
@@ -9702,14 +9709,68 @@ def _sweep_nlp(torch, dev):
     return len(cases), types, worst
 
 
+def _sweep_misc(torch, dev):
+    """Slice 26's misc cases (family_cases.misc_cases) on the card
+    against the CPU, with each gradient under one cotangent of every
+    float output where the op has one; then the file ops: save and
+    save_combine on the card read back on the CPU by load and
+    load_combine (and the reverse), the values and LoDs exactly.
+    Returns (cases, types, the worst float |err|)."""
+    import tempfile
+    from paddle_tpu_torch.core.registry import OPS, ExecContext, _SlotView
+    from paddle_tpu_torch.ops import family_cases as fc
+    worst, types, cases = 0.0, set(), fc.misc_cases()
+    for op_type, ins, lods, attrs, outs, diff in cases:
+        card, clod = fc.run(op_type, ins, attrs, outs, dev, lods)
+        cpu, plod = fc.run(op_type, ins, attrs, outs, "cpu", lods)
+        worst = max(worst, _sweep_check(torch, op_type, card, cpu, clod,
+                                        plod))
+        if diff:
+            rng = np.random.default_rng(7)
+            cot = {s: rng.standard_normal(tuple(cpu[f"{s.lower()}_out0"]
+                                                .shape)).astype(np.float32)
+                   for s in outs if cpu[f"{s.lower()}_out0"]
+                   .is_floating_point()}
+            g = [fc.run_grad(op_type, ins, attrs, outs, diff, d, lods, f,
+                             cot) for d, f in ((dev, card), ("cpu", cpu))]
+            worst = max(worst, _sweep_check(torch, op_type + "_grad",
+                                            *g))
+        types.add(op_type)
+    x = np.random.default_rng(3).standard_normal((4, 3)).astype(np.float32)
+    ids = np.arange(6, dtype=np.int64)
+    with tempfile.TemporaryDirectory() as d:
+        for write, read in ((dev, "cpu"), ("cpu", dev)):
+            path = os.path.join(d, f"one_{write}")
+            fc.run("save", {"X": x}, {"file_path": path}, {}, write,
+                   {"x": [[0, 1, 4]]})
+            got, lod = fc.run("load", {}, {"file_path": path}, {"Out": 1},
+                              read)
+            _require(np.array_equal(got["out_out0"].cpu().numpy(), x) and
+                     lod["out_out0"] == [[0, 1, 4]],
+                     f"save on {write}, load on {read}")
+            path = os.path.join(d, f"all_{write}")
+            fc.run("save_combine", {"X": [x, ids]}, {"file_path": path}, {},
+                   write)
+            got = {}     # load_combine reads by name: the inputs' names
+            OPS.get("load_combine").lowering(ExecContext(
+                _SlotView("load_combine", {}, {"Out": ["x0", "x1"]},
+                          {"file_path": path}), got, torch.device(read)))
+            _require(np.array_equal(got["x0"].cpu().numpy(), x) and
+                     np.array_equal(got["x1"].cpu().numpy(), ids),
+                     f"save_combine on {write}, load_combine on {read}")
+    types |= {"save", "load", "save_combine", "load_combine"}
+    return len(cases) + 8, types, worst
+
+
 def op_sweep_phase(torch, dev):
     """Every op type of the basic, reduce, elementwise, activation, nn
     and conv families, the nine update ops without a kernel, the three
     value-dependent sequence ops, SSD's eight detection ops, the one- and
     two-stage detectors' ten each and slice 24's eleven nlp, metric and
-    bilinear ops, each case of ops/family_cases.py once through its
-    lowering on the card against the same lowering on the CPU (slice
-    24's with their gradients; _sweep_nlp)."""
+    bilinear ops and slice 26's twenty-six misc ops, each case of
+    ops/family_cases.py once through its lowering on the card against the
+    same lowering on the CPU (slice 24's and 26's with their gradients;
+    _sweep_nlp, _sweep_misc)."""
     from paddle_tpu_torch.ops import family_cases as fc
     t0 = time.perf_counter()
     worst, types = 0.0, set()
@@ -9730,6 +9791,13 @@ def op_sweep_phase(torch, dev):
     _require(len(nlp_types) == 11, f"op sweep: nlp types {nlp_types}")
     types |= nlp_types
     worst = max(worst, nlp_worst)
+    n_misc, misc_types, misc_worst = _sweep_misc(torch, dev)
+    _require(len(misc_types) == 26, f"op sweep: misc types {misc_types}")
+    types |= misc_types
+    worst = max(worst, misc_worst)
+    print(f"  op sweep: slice 26's {n_misc} misc cases of "
+          f"{len(misc_types)} types, with their gradients (worst |err| "
+          f"{misc_worst:.3e}; the file ops exactly)")
     torch.cuda.synchronize()
     print(f"  op sweep: {len(runs) + n_nlp} cases of {len(types)} op types "
           f"on the card equal to their CPU lowerings (float32 worst |err| "
@@ -9738,6 +9806,358 @@ def op_sweep_phase(torch, dev):
           f"(worst |err| {nlp_worst:.3e}); "
           f"{time.perf_counter() - t0:.1f} s")
     return len(types)
+
+
+# ---------------------------------------------------------------------------
+# slice 26: the PTB word language model (layers.lstm, clipped SGD)
+# ---------------------------------------------------------------------------
+
+# PaddlePaddle/models PaddleNLP/language_model (lm_model.py, its cudnn
+# path) at Zaremba et al.'s medium config
+PTB = {"vocab": 10000, "hidden": 650, "layers": 2, "steps": 35,
+       "init_scale": 0.05, "dropout": 0.5}
+PTB_B = 20            # the medium config's batch
+PTB_LR, PTB_CLIP = 1.0, 5.0
+PTB_RUNS = 7          # steps through the plan cache (the second captures,
+                      # 6 captured) against as many eager ones
+# the clipped gradients against the host's float64 reckoning: the card
+# sums 25.8 M squares in float32 (relative error well under 1e-6 for a
+# sum of positive terms) and scales once
+PTB_CLIP_RTOL = 1e-5
+
+
+def ptb_lm(L, x, y, init_hidden, init_cell, vocab=10000, hidden=650,
+           layers=2, steps=35, init_scale=0.05, dropout=0.5,
+           is_test=False):
+    """lm_model.py's language model (its cudnn path) built with the
+    layers module `L` (the port's or the JAX package's): x [B, steps, 1]
+    int64 ids through an embedding ("embedding_para"), dropout
+    (upscale_in_train) where is_test is off, layers.lstm of `layers`
+    layers of `hidden` from init_hidden / init_cell ([layers, B,
+    hidden]), dropout again, the softmax fc as a matmul with
+    "softmax_weight" plus "softmax_bias", and softmax_with_cross_entropy
+    against y [B * steps, 1]; every parameter Uniform(-init_scale,
+    init_scale). The loss is the per-token losses averaged over the
+    batch and summed over the steps. Returns {"loss", "token_loss" ([B,
+    steps]), "last_hidden", "last_cell"}."""
+    import importlib
+    pkg = importlib.import_module(L.__name__.rpartition(".")[0])
+
+    def init():
+        return pkg.initializer.UniformInitializer(low=-init_scale,
+                                                  high=init_scale)
+
+    emb = L.embedding(x, size=[vocab, hidden], dtype="float32",
+                      is_sparse=False,
+                      param_attr=pkg.ParamAttr(name="embedding_para",
+                                               initializer=init()))
+    emb = L.reshape(emb, shape=[-1, steps, hidden])
+    if dropout and not is_test:
+        emb = L.dropout(emb, dropout_prob=dropout,
+                        dropout_implementation="upscale_in_train")
+    rnn_out, last_h, last_c = L.lstm(
+        emb, init_hidden, init_cell, steps, hidden, layers,
+        is_bidirec=False, is_test=is_test, default_initializer=init())
+    rnn_out = L.reshape(rnn_out, shape=[-1, steps, hidden])
+    if dropout and not is_test:
+        rnn_out = L.dropout(rnn_out, dropout_prob=dropout,
+                            dropout_implementation="upscale_in_train")
+    rnn_out = L.reshape(rnn_out, shape=[-1, hidden])
+    w = L.create_parameter([hidden, vocab], dtype="float32",
+                           name="softmax_weight", default_initializer=init())
+    b = L.create_parameter([vocab], dtype="float32", name="softmax_bias",
+                           default_initializer=init())
+    logits = L.elementwise_add(L.matmul(rnn_out, w), b)
+    logits = L.reshape(logits, shape=[-1, vocab])
+    token_loss = L.reshape(L.softmax_with_cross_entropy(
+        logits=logits, label=y, soft_label=False), shape=[-1, steps])
+    loss = L.reduce_sum(L.reduce_mean(token_loss, dim=[0]))
+    return {"loss": loss, "token_loss": token_loss, "last_hidden": last_h,
+            "last_cell": last_c}
+
+
+def ptb_train(pt, batch=None, lr=None, clip=None, is_test=False, **size):
+    """(main, startup, outs) of lm_model.py's training in package `pt`:
+    ptb_lm on feeds x, y, init_hidden and init_cell (the batch fixed, as
+    the script declares them), gradients clipped by
+    GradientClipByGlobalNorm(clip) set with set_gradient_clip, then
+    SGD(lr), float32. With is_test, the forward alone (no dropout, no
+    update): its parameters those of the trained program, by name. The
+    clip setting is cleared after the minimize: the ops are in the
+    program, and the setting would reach every later program."""
+    L = pt.layers
+    size = {k: size.get(k, PTB[k]) for k in PTB}
+    b = batch or PTB_B
+    n, t, h = size["layers"], size["steps"], size["hidden"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [b, t, 1], dtype="int64", append_batch_size=False)
+        y = L.data("y", [b * t, 1], dtype="int64", append_batch_size=False)
+        hid = L.data("init_hidden", [n, b, h], dtype="float32",
+                     append_batch_size=False)
+        cell = L.data("init_cell", [n, b, h], dtype="float32",
+                      append_batch_size=False)
+        outs = ptb_lm(L, x, y, hid, cell, is_test=is_test, **size)
+        if not is_test:
+            pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(
+                PTB_CLIP if clip is None else clip))
+            try:
+                pt.optimizer.SGD(PTB_LR if lr is None else lr).minimize(
+                    outs["loss"])
+            finally:
+                pt.clip.set_gradient_clip(None)
+    return main, startup, outs
+
+
+def ptb_batches(n, batch=None, steps=None, vocab=None, seed=0):
+    """n (x, y) batches of token ids in reader.ptb_iterator's layout: a
+    stream of Zipf-distributed ids (the frequencies of a vocabulary
+    sorted by count; no PTB file is read) cut into `batch` rows, each
+    batch the next `steps` columns and y the ids one column later
+    ([batch * steps, 1])."""
+    b, t = batch or PTB_B, steps or PTB["steps"]
+    v = vocab or PTB["vocab"]
+    rng = np.random.default_rng(seed)
+    data = rng.choice(v, size=(b, n * t + 1), p=_zipf(v)).astype(np.int64)
+    return [(data[:, i * t:(i + 1) * t, None],
+             data[:, i * t + 1:(i + 1) * t + 1].reshape(-1, 1))
+            for i in range(n)]
+
+
+def ptb_sgd_shapes():
+    """The shapes of the PTB LM's parameters that the engine hands to the
+    fused_sgd kernel at the default PT_KERNEL_MIN_NUMEL: embedding_para,
+    the flat LSTM W (per layer [Wx (H x 4H), Wh (H x 4H), bx, bh]) and
+    softmax_weight; the softmax bias is under the floor."""
+    v, h, n = PTB["vocab"], PTB["hidden"], PTB["layers"]
+    return [(v, h), (n * (2 * h * 4 * h + 8 * h),), (h, v)]
+
+
+def _ptb_sgd_check(torch, dev, before, after, params, clipped):
+    """One eager step's update against sgd_plain on the same parameters
+    (scope `before`) and the fetched clipped gradients: the parameters
+    in scope `after`, the three of ptb_sgd_shapes() updated by the
+    fused_sgd kernel, the softmax bias by the plain update. Returns the
+    worst distance in ulp and max |err|."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    lr = torch.tensor(PTB_LR, device=dev)
+    ulp, err = 0, 0.0
+    for p, g in zip(params, clipped):
+        g = g if isinstance(g, torch.Tensor) else \
+            torch.as_tensor(np.asarray(g))
+        want = fo.sgd_plain(before.find_var(p.name).get_tensor().tensor,
+                            g.to(dev), lr)
+        got = after.find_var(p.name).get_tensor().tensor
+        ulp = max(ulp, int(_ulps(torch, got, want).max()))
+        err = max(err, (got - want).abs().max().item())
+    return ulp, err
+
+
+def _ptb_clip_check(torch, grads, clipped):
+    """The clip's scale reckoned on the host from the fetched gradients
+    (float64): max |clipped - g * clip / max(norm, clip)| over max
+    |g * scale|, and the global norm."""
+    def host64(v):
+        return v.detach().double().cpu() if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.asarray(v)).double()
+
+    g64 = [host64(g) for g in grads]
+    norm = float(sum((g * g).sum() for g in g64) ** 0.5)
+    scale = PTB_CLIP / max(norm, PTB_CLIP)
+    want = [g * scale for g in g64]
+    err = max(float((host64(c) - w).abs().max())
+              for c, w in zip(clipped, want))
+    top = max(float(w.abs().max()) for w in want)
+    return norm, scale, err / top
+
+
+def ptb_phase(torch, dev):
+    """The PTB word language model (ptb_train: PaddleNLP's lm_model.py,
+    Zaremba et al.'s medium config: vocab 10,000, 2 layers of 650, 35
+    steps, B=20, dropout 0.5, GradientClipByGlobalNorm(5), SGD(1.0),
+    float32) on Zipf token ids from the seed, truncated BPTT (last_hidden
+    / last_cell fed back): PTB_RUNS steps through the plan cache (the
+    second captures, the rest replay) against as many without it from
+    the same state, in deterministic mode: losses, the carried states
+    and every persistable bit-equal; one fused_sgd launch a step (the
+    embedding, the LSTM weight and the softmax weight; the softmax bias
+    is under PT_KERNEL_MIN_NUMEL); the clip's scale against a host
+    reckoning from the fetched gradients at every eager step (it must
+    bind at least once); the first eager step's update against sgd_plain
+    on the same parameters and clipped gradients (0 ulp); words/s eager
+    against captured in turns; a
+    profiled replay; the is_test program's per-token losses through
+    AnalysisPredictor against Executor.run. Returns the fused_sgd
+    launches of the main path's captured run."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.kernels import registry as kreg
+    t0 = time.perf_counter()
+    pt.framework.unique_name.reset()
+    main, startup, outs = ptb_train(pt)
+    main.random_seed = startup.random_seed = SEED
+    block = main.global_block()
+    types = [op.type for op in block.ops]
+    params = main.all_parameters()
+    print(f"  ptb_lm: {len(types)} ops ({types.count('dense_lstm')} "
+          f"dense_lstm, {types.count('squared_l2_norm')} squared_l2_norm "
+          f"and {types.count('elementwise_mul')} elementwise_mul of the "
+          f"global-norm clip, {types.count('sgd')} sgd); "
+          + ", ".join(f"{p.name} {list(p.shape)}" for p in params)
+          + f"; vocab {PTB['vocab']}, {PTB['layers']} layers of "
+          f"{PTB['hidden']}, {PTB['steps']} steps, B={PTB_B}")
+    _require(types.count("dense_lstm") == 1 and
+             types.count("dense_lstm_grad") == 1 and
+             types.count("squared_l2_norm") == 4 and
+             types.count("sgd") == 4, "ptb_lm: the network")
+    big = sorted(int(np.prod(p.shape)) for p in params
+                 if int(np.prod(p.shape)) >= kreg.min_numel())
+    _require(big == sorted(int(np.prod(sh)) for sh in ptb_sgd_shapes()),
+             f"ptb_lm: the parameters at PT_KERNEL_MIN_NUMEL are {big}, "
+             f"not ptb_sgd_shapes()")
+    raw = [p.name + "@GRAD" for p in params]
+    mul = {op.input("X")[0]: op.output("Out")[0] for op in block.ops
+           if op.type == "elementwise_mul" and op.input("X")[0] in raw}
+    _require(len(mul) == 4, "ptb_lm: the clip's products")
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    names = list(init._vars)
+    place = pt.CUDAPlace(0)
+    batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+               for x, y in ptb_batches(PTB_RUNS)]
+    shape = (PTB["layers"], PTB_B, PTB["hidden"])
+    fetch = [outs["loss"], outs["last_hidden"], outs["last_cell"]]
+    res = {}
+    with _deterministic(torch):
+        for cached in (True, False):
+            exe = pt.Executor(place)
+            scope = _copy_scope(pt, init, names)
+            h = c = torch.zeros(shape, device=dev)
+            kreg.reset_counts()
+            got, checks = [], []
+            for i, (x, y) in enumerate(batches):
+                extra = [] if cached else raw + [mul[n] for n in raw]
+                vals = exe.run(main, feed={"x": x, "y": y, "init_hidden": h,
+                                           "init_cell": c}, scope=scope,
+                               fetch_list=fetch + extra,
+                               use_program_cache=cached, return_numpy=False)
+                loss, h, c = (torch.as_tensor(np.asarray(v)).to(dev)
+                              if not isinstance(v, torch.Tensor) else v
+                              for v in vals[:3])
+                got.append([t.clone() for t in (loss, h, c)])
+                if extra:
+                    checks.append(_ptb_clip_check(torch, vals[3:7],
+                                                  vals[7:]))
+                if extra and i == 0:
+                    sgd_ulp, sgd_err = _ptb_sgd_check(
+                        torch, dev, init, scope, params, vals[7:])
+            torch.cuda.synchronize()
+            res[cached] = (got, checks, {k: v for k, v in
+                                         kreg.launches().items() if v},
+                           {n: v.get_tensor().tensor.clone()
+                            for n, v in scope._vars.items()}, exe, scope)
+            if not cached:
+                exe.close()
+    (cg, _, claunch, cstate, exe, scope), (eg, checks, elaunch, estate,
+                                          _, _) = res[True], res[False]
+    counters = _counters(exe)
+    equal_steps = all(torch.equal(a, b) for x, y in zip(cg, eg)
+                      for a, b in zip(x, y))
+    equal_state = all(torch.equal(cstate[n], estate[n]) for n in cstate)
+    losses = [float(s[0]) for s in cg]
+    print(f"  ptb_lm: {PTB_RUNS} steps with the plan cache "
+          f"({counters['captures']} capture, {counters['replays']} "
+          f"replays, {counters['eager_runs']} eager) and {PTB_RUNS} "
+          f"without, deterministic mode: losses and carried last_hidden / "
+          f"last_cell bit-equal {equal_steps}, {len(cstate)} persistables "
+          f"bit-equal {equal_state}; losses "
+          + ", ".join(f"{v:.4f}" for v in losses))
+    print(f"  ptb_lm: kernel launches {claunch} captured / {elaunch} eager "
+          f"in {PTB_RUNS} steps (one fused_sgd a step: embedding_para, "
+          f"the LSTM's W, softmax_weight)")
+    for i, (norm, scale, rel) in enumerate(checks):
+        print(f"  ptb_lm: eager step {i}: global norm {norm:.4f}, clip "
+              f"scale {scale:.6f}; clipped gradients against the host "
+              f"reckoning: max rel err {rel:.3e} (PTB_CLIP_RTOL "
+              f"{PTB_CLIP_RTOL})")
+    _require(counters["captures"] == 1 and
+             counters["replays"] == PTB_RUNS - 1 >= 5,
+             f"ptb_lm: counters {counters}")
+    _require(equal_steps and equal_state,
+             "ptb_lm: captured steps differ from eager steps")
+    _require(claunch == {"fused_sgd": PTB_RUNS} and
+             elaunch == {"fused_sgd": PTB_RUNS},
+             f"ptb_lm: launches {claunch} / {elaunch}, want one fused_sgd "
+             f"a step")
+    print(f"  ptb_lm: eager step 0's update against sgd_plain on the same "
+          f"parameters and clipped gradients: max ulp {sgd_ulp}, max|err| "
+          f"{sgd_err:.3e} (bound {SGD_ULP} ulp)")
+    _require(sgd_ulp <= SGD_ULP, f"ptb_lm: the update is {sgd_ulp} ulp "
+                                 f"from sgd_plain")
+    _require(all(r <= PTB_CLIP_RTOL for _, _, r in checks) and
+             any(n > PTB_CLIP for n, _, _ in checks),
+             "ptb_lm: the clip's scale against the host reckoning, or it "
+             "never bound")
+    # lr 1.0 on a loss summed over 35 steps: the clip bounds each step,
+    # and the loss moves up and down over the first steps
+    _require(all(np.isfinite(losses)), "ptb_lm: a loss is not finite")
+    # rates: one batch from zero states, eager against captured in turns
+    x, y = batches[0]
+    feed = {"x": x, "y": y, "init_hidden": torch.zeros(shape, device=dev),
+            "init_cell": torch.zeros(shape, device=dev)}
+    words = PTB_B * PTB["steps"]
+    rates = _cap_turns(torch, "ptb_lm", "words/s", words, {
+        "eager": lambda: _cap_run(exe, main, feed, fetch, scope,
+                                  cached=False, numpy=False)[0],
+        "captured": lambda: _cap_run(exe, main, feed, fetch, scope,
+                                     numpy=False)[0]})
+    print(f"  ptb_lm: captured / eager "
+          f"{rates['captured'] / rates['eager']:.3f}")
+    wall, busy, n_kernels = _profiled_replay(torch, "ptb_lm", exe, main,
+                                             feed, fetch, scope)
+    replay_ms = _time_ms(lambda: _cap_run(exe, main, feed, fetch, scope,
+                                          numpy=False), 5, 1)
+    print(f"  ptb_lm: a replay between CUDA events {replay_ms:.3f} ms "
+          f"({words} words: {1e3 * words / replay_ms:.1f} words/s); the "
+          f"profiled replay's device time {1e3 * wall * busy:.3f} ms in "
+          f"{n_kernels} kernels")
+    # the is_test program through the predictor
+    pt.framework.unique_name.reset()
+    prog, _, touts = ptb_train(pt, is_test=True)
+    tfetch = [touts["token_loss"], touts["last_hidden"], touts["last_cell"]]
+    r = np.random.default_rng(1)
+    tfeed = {"x": batches[1][0].cpu().numpy(),
+             "y": batches[1][1].cpu().numpy(),
+             "init_hidden": r.standard_normal(shape).astype(np.float32),
+             "init_cell": r.standard_normal(shape).astype(np.float32)}
+    with _deterministic(torch):
+        want = exe.run(prog, feed=tfeed, fetch_list=tfetch, scope=scope)
+        with tempfile.TemporaryDirectory() as d:
+            with pt.scope_guard(scope):
+                pt.io.save_inference_model(d, list(tfeed), tfetch, exe,
+                                           main_program=prog)
+            predictor = create_paddle_predictor(AnalysisConfig(d))
+        for n, v in tfeed.items():
+            predictor.get_input_tensor(n).copy_from_cpu(v)
+        predictor.zero_copy_run()
+        served = [predictor.get_output_tensor(n).copy_to_cpu()
+                  for n in predictor.get_output_names()]
+    diff = max(float(np.abs(a - np.asarray(b)).max())
+               for a, b in zip(served, want))
+    ppl = float(np.exp(np.asarray(want[0]).mean()))
+    print(f"  ptb_lm: the is_test program's per-token losses "
+          f"{list(np.asarray(want[0]).shape)} and states through "
+          f"AnalysisPredictor against Executor.run: max |diff| {diff:.3e} "
+          f"(perplexity of the batch {ppl:.1f} after {PTB_RUNS} steps)")
+    _require(diff == 0.0, "ptb_lm: the predictor differs from "
+                          "Executor.run")
+    exe.close()
+    del scope, init, res
+    gc_cuda(torch)
+    print(f"  ptb phase: {time.perf_counter() - t0:.1f} s")
+    return claunch["fused_sgd"]
 
 
 # ---------------------------------------------------------------------------
@@ -11042,7 +11462,8 @@ def main(argv=None):
         ("lengths 1, 127, 129, 513", [(1,), (127,), (129,), (513,)],
          (0.0, 1e-4)),
         ("LeNet", lenet_shapes, (0.0,)),
-        ("Transformer-base", shapes, (0.0,))))
+        ("Transformer-base", shapes, (0.0,)),
+        ("PTB LM", ptb_sgd_shapes(), (0.0,))))
     stimes = time_sgd(torch, dev, card, shapes, "Transformer-base",
                       args.baseline)
     slenet = time_sgd(torch, dev, card, lenet_shapes, "LeNet",
@@ -11156,10 +11577,14 @@ def main(argv=None):
     qat_launches, _ = qat_phase(torch, dev)
     serve_launches["int8"] += qat_launches
 
+    print("[ptb phase]")
+    ptb_sgd = ptb_phase(torch, dev)
+
     # LeNet last: earlier profiler sessions and large buffers slowed a
     # later step in one process (PERF.md, PR 3)
     print("[mnist phase]")
     sgd_launches, _ = mnist_phase(torch, dev, card)
+    sgd_launches += ptb_sgd
 
     src = "paddle_tpu_torch/csrc/"
     bf = "bfloat16"

@@ -12,6 +12,7 @@ from . import ops  # noqa: F401  (registers the op lowerings)
 from . import framework, initializer, io, layers, models  # noqa: F401
 from . import backward, contrib, dygraph, inference, optimizer  # noqa: F401
 from . import evaluator, metrics, parallel, regularizer  # noqa: F401
+from . import clip, dygraph_grad_clip  # noqa: F401
 from . import unique_name  # noqa: F401
 from .backward import append_backward, gradients  # noqa: F401
 from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401

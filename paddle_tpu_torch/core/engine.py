@@ -93,7 +93,8 @@ from .enforce import EnforceNotMet, wrap_op_error
 from .place import Place, default_place
 from .registry import (OP_UID_ATTR, OPS, ExecContext, GraphRandom,
                        HostTableCache, RunState, grad_diff_slots,
-                       has_generic_grad, run_forward_for_vjp)
+                       has_generic_grad, run_forward_for_vjp,
+                       written_names)
 from .scope import LoDTensor, Scope, tensor_to_numpy
 from .selected_rows import is_selected_rows
 from .types import dtype_to_torch
@@ -312,7 +313,7 @@ def _persistable_inputs(block) -> List[str]:
 def _persistable_outputs(block) -> List[str]:
     out = []
     for op in block.ops:
-        for n in op.output_arg_names:
+        for n in written_names(op):
             v = block.find_var(n)
             if v is not None and v.persistable and n not in out:
                 out.append(n)

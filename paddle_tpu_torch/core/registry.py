@@ -112,6 +112,22 @@ def register_op(op_type: str, *, no_grad_slots: Sequence[str] = ()):
     return deco
 
 
+# op type -> the input slots whose vars its lowering writes back, by
+# rebinding ctx.env under the input's name (spectral_norm's power
+# iteration vectors): the engine keeps them as written persistables, the
+# dygraph tracer updates their VarBases
+INPUT_WRITES: Dict[str, tuple] = {}
+
+
+def written_names(op):
+    """The var names op writes: its outputs, then the inputs of the
+    slots its type writes back (INPUT_WRITES)."""
+    names = list(op.output_arg_names)
+    for s in INPUT_WRITES.get(op.type, ()):
+        names.extend(n for n in op.input(s) if n not in names)
+    return names
+
+
 def register_no_grad_op(op_type: str):
     """Register an op that has no gradient (fills, optimizer updates)."""
     def deco(fn):
@@ -623,6 +639,9 @@ def run_forward_for_vjp(fwd_type, inputs, outputs, attrs, diff_slots,
     with torch.enable_grad():
         OPS.get(fwd_type).lowering(ExecContext(view, local, device, run,
                                                local_lod))
+    for s in INPUT_WRITES.get(fwd_type, ()):
+        for i, n in enumerate(inputs.get(s, ())):
+            env_out[n] = local[f"{s}:{i}"].detach()
     outs = {}
     for s, names in outputs.items():
         for i, (ln, n) in enumerate(zip(out_map[s], names)):

@@ -1,12 +1,13 @@
 """Dygraph NN layers (counterpart of paddle_tpu/dygraph/nn.py): FC,
 Linear, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose, Pool2D,
 BatchNorm, Embedding, LayerNorm, GroupNorm, PRelu, Dropout,
-BilinearTensorProduct, GRUUnit and NCE. Each
+BilinearTensorProduct, GRUUnit, NCE, SpectralNorm and TreeConv. Each
 layer calls the graph-mode layer builder, which in dygraph mode creates
 the layer's parameters through the tracer (once: the tracer's lazy
 creation memo) and runs its ops at once. BatchNorm's moving mean and
 variance are parameters that are not trained; the batch_norm op updates
-them in place (MeanOut and VarianceOut are the same VarBases)."""
+them in place (MeanOut and VarianceOut are the same VarBases);
+spectral_norm advances SpectralNorm's U and V in place likewise."""
 from __future__ import annotations
 
 from .. import layers as L
@@ -15,7 +16,7 @@ from .layers import Layer
 __all__ = ["Conv2D", "Pool2D", "FC", "Linear", "BatchNorm", "Embedding",
            "LayerNorm", "GroupNorm", "PRelu", "Dropout", "Conv2DTranspose",
            "Conv3D", "Conv3DTranspose", "BilinearTensorProduct", "GRUUnit",
-           "NCE"]
+           "NCE", "SpectralNorm", "TreeConv"]
 
 
 class FC(Layer):
@@ -246,3 +247,26 @@ class NCE(Layer):
 
     def forward(self, input, label, sample_weight=None):
         return L.nce(input, label, **self._kw)
+
+
+class SpectralNorm(Layer):
+    def __init__(self, name_scope=None, dim=0, power_iters=1, eps=1e-12,
+                 name=None):
+        super().__init__(name_scope)
+        self._kw = dict(dim=dim, power_iters=power_iters, eps=eps)
+
+    def forward(self, weight):
+        return L.spectral_norm(weight, **self._kw)
+
+
+class TreeConv(Layer):
+    def __init__(self, name_scope=None, output_size=None, num_filters=1,
+                 max_depth=8, act="tanh", param_attr=None, bias_attr=None,
+                 name=None):
+        super().__init__(name_scope)
+        self._kw = dict(output_size=output_size, num_filters=num_filters,
+                        max_depth=max_depth, act=act,
+                        param_attr=param_attr, bias_attr=bias_attr)
+
+    def forward(self, nodes_vector, edge_set):
+        return L.tree_conv(nodes_vector, edge_set, **self._kw)

@@ -31,9 +31,9 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from ..core.registry import (GRAD_SUFFIX, OP_UID_ATTR, OPS, ExecContext,
-                             RunState, _SlotView, has_generic_grad,
-                             run_forward_for_vjp)
+from ..core.registry import (GRAD_SUFFIX, INPUT_WRITES, OP_UID_ATTR, OPS,
+                             ExecContext, RunState, _SlotView,
+                             has_generic_grad, run_forward_for_vjp)
 from ..core.scope import tensor_to_numpy
 from ..core.selected_rows import is_selected_rows
 from ..core.types import convert_dtype, dtype_to_torch
@@ -405,6 +405,9 @@ class Tracer:
                 self._run.grad_uids.add(uid)   # a hand-written grad
             with torch.no_grad():
                 info.lowering(self._ctx(view, env))
+        for s in INPUT_WRITES.get(op_type, ()):
+            for vb in in_map.get(s, ()):
+                vb.value = env[vb.name]
         out_map = self._write_outputs(out_map, env)
         if taped:
             for vs in out_map.values():

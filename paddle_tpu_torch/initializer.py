@@ -1,10 +1,11 @@
 """Parameter initializers: each appends one init op to the startup
 program (counterpart of paddle_tpu/initializer.py: Constant, Uniform,
 Normal, TruncatedNormal, Xavier, MSRA, NumpyArrayInitializer and
-Bilinear). A weight with no initializer gets Xavier, a
+Bilinear, with force_init_on_cpu and init_on_cpu). A weight with no initializer gets Xavier, a
 bias Constant(0), as in the JAX package (layer_helper.py)."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -14,7 +15,20 @@ __all__ = ["Initializer", "Constant", "Uniform", "Normal",
            "NumpyArrayInitializer", "ConstantInitializer",
            "UniformInitializer", "NormalInitializer",
            "TruncatedNormalInitializer", "XavierInitializer",
-           "MSRAInitializer", "BilinearInitializer"]
+           "MSRAInitializer", "BilinearInitializer", "force_init_on_cpu",
+           "init_on_cpu"]
+
+
+def force_init_on_cpu():
+    """False: no initializer is pinned to the host."""
+    return False
+
+
+def init_on_cpu():
+    """The reference's context pinning initializer ops to the host: a
+    null context here, as in the JAX package (the startup program's
+    init ops run where the scope's tensors live)."""
+    return contextlib.nullcontext()
 
 
 class Initializer:

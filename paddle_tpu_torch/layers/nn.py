@@ -18,7 +18,9 @@ the resizes, the layout ops, unfold, spp); the RoI poolings
 roi_align, roi_pool and psroi_pool; bilinear_tensor_product,
 chunk_eval and mean_iou; and the random layers
 uniform_random_batch_size_like, gaussian_random_batch_size_like,
-sampling_id and random_crop, with fsp_matrix."""
+sampling_id and random_crop, with fsp_matrix; and those of misc's
+user-path ops (lod_reset ... deformable_roi_pooling, lstm: slice
+26)."""
 from __future__ import annotations
 
 import builtins
@@ -72,6 +74,13 @@ __all__ = [
     # slice 25: the random layers and the FSP matrix of distillation
     "uniform_random_batch_size_like", "gaussian_random_batch_size_like",
     "sampling_id", "random_crop", "fsp_matrix",
+    # slice 26: misc's user-path ops
+    "lod_reset", "lod_append", "row_conv", "unique", "unique_with_counts",
+    "spectral_norm", "tree_conv", "dynamic_lstmp", "lstm", "affine_grid",
+    "grid_sampler", "center_loss", "continuous_value_model",
+    "pad_constant_like", "similarity_focus",
+    "teacher_student_sigmoid_loss", "unpool2d", "deformable_conv",
+    "deformable_roi_pooling",
 ]
 
 
@@ -1303,14 +1312,20 @@ def adaptive_pool2d(input, pool_size, pool_type="max",
 
 def adaptive_pool3d(input, pool_size, pool_type="max",
                     require_index=False, name=None):
-    """A pool3d op pooling to output size `pool_size` in even windows.
-    require_index asks for the misc family's max_pool3d_with_index,
-    which is not ported yet: it raises."""
-    if require_index:
-        raise NotImplementedError(
-            "adaptive_pool3d(require_index=True) builds a "
-            "max_pool3d_with_index op, which is not ported yet")
+    """A pool3d op pooling to output size `pool_size` in even windows;
+    require_index returns (out, mask) from a max_pool3d_with_index op
+    with adaptive bins."""
     helper = LayerHelper("adaptive_pool3d", name=name)
+    if require_index:
+        if pool_type != "max":
+            raise ValueError("require_index needs pool_type='max'")
+        out = helper.create_variable_for_type_inference(input.dtype)
+        mask = helper.create_variable_for_type_inference("int32")
+        helper.append_op(
+            "max_pool3d_with_index", inputs={"X": input},
+            outputs={"Out": out, "Mask": mask},
+            attrs={"ksize": _pair(pool_size, 3), "adaptive": True})
+        return out, mask
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op(
         "pool3d", inputs={"X": input}, outputs={"Out": out},
@@ -1512,3 +1527,305 @@ def mean_iou(input, label, num_classes):
                  "OutCorrect": correct},
         attrs={"num_classes": num_classes})
     return miou, wrong, correct
+
+
+# ---------------------------------------------------------------------------
+# slice 26: the builders of misc's user-path ops
+# ---------------------------------------------------------------------------
+
+def lod_reset(x, y=None, target_lod=None):
+    """X with the LoD of `y` (its LoD, else its values as offsets) or
+    `target_lod`."""
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs, attrs = {"X": x}, {}
+    if y is not None:
+        inputs["Y"] = y
+    elif target_lod is not None:
+        attrs["target_lod"] = [int(v) for v in target_lod]
+    helper.append_op("lod_reset", inputs=inputs, outputs={"Out": out},
+                     attrs=attrs)
+    return out
+
+
+def lod_append(x, level):
+    """X with `level` (offsets, or a Variable) appended under its
+    LoD's levels: a lod_reset op with append_lod."""
+    helper = LayerHelper("lod_append")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs, attrs = {"X": x}, {"append_lod": True}
+    if isinstance(level, Variable):
+        inputs["Y"] = level
+    else:
+        attrs["target_lod"] = [int(v) for v in level]
+    helper.append_op("lod_reset", inputs=inputs, outputs={"Out": out},
+                     attrs=attrs)
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", act=act)
+    w = helper.create_parameter(
+        param_attr, [future_context_size + 1, input.shape[-1]], input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("row_conv", inputs={"X": input, "Filter": w},
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def unique(x, dtype="int32"):
+    helper = LayerHelper("unique")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("unique", inputs={"X": x},
+                     outputs={"Out": out, "Index": index},
+                     attrs={"dtype": dtype})
+    return out, index
+
+
+def unique_with_counts(x, dtype="int32"):
+    helper = LayerHelper("unique_with_counts")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(dtype)
+    count = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("unique_with_counts", inputs={"X": x},
+                     outputs={"Out": out, "Index": index, "Count": count},
+                     attrs={"dtype": dtype})
+    return out, index, count
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """weight over its largest singular value; the power iteration's
+    vectors U [h] and V [w] are parameters that need no gradient, which
+    each run advances."""
+    helper = LayerHelper("spectral_norm", name=name)
+    h = int(weight.shape[dim])
+    w = int(np.prod(weight.shape)) // h
+    u = helper.create_parameter(None, [h], "float32")
+    v = helper.create_parameter(None, [w], "float32")
+    u.stop_gradient = True
+    v.stop_gradient = True
+    out = helper.create_variable_for_type_inference(weight.dtype)
+    helper.append_op("spectral_norm",
+                     inputs={"Weight": weight, "U": u, "V": v},
+                     outputs={"Out": out},
+                     attrs={"dim": dim, "power_iters": power_iters,
+                            "eps": eps})
+    return out
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """A tree_conv op (which applies tanh itself), then `act`, as the
+    JAX builder does; bias_attr makes no bias there either."""
+    helper = LayerHelper("tree_conv", name=name, bias_attr=bias_attr,
+                         act=act)
+    w = helper.create_parameter(
+        param_attr, [int(nodes_vector.shape[-1]), 3, output_size,
+                     num_filters], nodes_vector.dtype)
+    out = helper.create_variable_for_type_inference(nodes_vector.dtype)
+    helper.append_op("tree_conv",
+                     inputs={"NodesVector": nodes_vector,
+                             "EdgeSet": edge_set, "Filter": w},
+                     outputs={"Out": out}, attrs={"max_depth": max_depth})
+    return helper.append_activation(out)
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  dtype="float32", name=None):
+    helper = LayerHelper("lstmp", name=name)
+    units = size // 4
+    w = helper.create_parameter(param_attr, [proj_size, 4 * units], dtype)
+    wp = helper.create_parameter(None, [units, proj_size], dtype)
+    b = helper.create_parameter(
+        bias_attr, [1, 7 * units if use_peepholes else 4 * units], dtype)
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "lstmp",
+        inputs={"Input": input, "Weight": w, "ProjWeight": wp, "Bias": b},
+        outputs={"Projection": proj, "Cell": cell},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation,
+               "proj_activation": proj_activation})
+    return proj, cell
+
+
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         dropout_prob=0.0, is_bidirec=False, is_test=False, name=None,
+         default_initializer=None, seed=-1):
+    """A dense_lstm op (the reference's cudnn_lstm contract): input
+    [B, T, D], init_h / init_c [layers * dirs, B, hidden]; one flat
+    weight of every layer's and direction's Wx, Wh, bx and bh. Returns
+    (out, last_h, last_c)."""
+    helper = LayerHelper("cudnn_lstm", name=name)
+    dtype = input.dtype
+    d = int(input.shape[-1])
+    dirs = 2 if is_bidirec else 1
+    size = 0
+    for i in range(num_layers):
+        din = d if i == 0 else hidden_size * dirs
+        size += (din + hidden_size) * hidden_size * 4 * dirs
+        size += hidden_size * 8 * dirs
+    w = helper.create_parameter(default_initializer, [size], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    last_h = helper.create_variable_for_type_inference(dtype)
+    last_c = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "dense_lstm",
+        inputs={"Input": input, "InitH": init_h, "InitC": init_c, "W": w},
+        outputs={"Out": out, "LastH": last_h, "LastC": last_c},
+        attrs={"hidden_size": hidden_size, "num_layers": num_layers,
+               "is_bidirec": is_bidirec, "dropout_prob": dropout_prob,
+               "is_test": is_test})
+    return out, last_h, last_c
+
+
+def affine_grid(theta, out_shape=None, name=None):
+    """A tensor out_shape is the op's OutputShape (read on the host: its
+    block runs eagerly), else its output_shape attr."""
+    helper = LayerHelper("affine_grid", name=name)
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    inputs, attrs = {"Theta": theta}, {}
+    if isinstance(out_shape, Variable):
+        inputs["OutputShape"] = out_shape
+    else:
+        attrs["output_shape"] = [int(v) for v in out_shape]
+    helper.append_op("affine_grid", inputs=inputs, outputs={"Output": out},
+                     attrs=attrs)
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("grid_sampler", inputs={"X": x, "Grid": grid},
+                     outputs={"Output": out})
+    return out
+
+
+def center_loss(input, label, num_classes, alpha, param_attr=None,
+                update_center=True):
+    """The center loss; the centers are a parameter the op updates
+    (CentersOut is the same var), at rate `alpha` (a fill_constant)."""
+    from .tensor import fill_constant
+    helper = LayerHelper("center_loss")
+    centers = helper.create_parameter(
+        param_attr, [num_classes, int(input.shape[-1])], input.dtype)
+    centers.stop_gradient = True
+    rate = fill_constant([1], "float32", float(alpha))
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    diff = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "center_loss",
+        inputs={"X": input, "Label": label, "Centers": centers,
+                "CenterUpdateRate": rate},
+        outputs={"Loss": loss, "CentersOut": centers,
+                 "SampleCenterDiff": diff},
+        attrs={"need_update": update_center})
+    return loss
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    helper = LayerHelper("cvm")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cvm", inputs={"X": input, "CVM": cvm},
+                     outputs={"Y": out}, attrs={"use_cvm": use_cvm})
+    return out
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", name=name)
+    out = helper.create_variable_for_type_inference(y.dtype)
+    helper.append_op("pad_constant_like", inputs={"X": x, "Y": y},
+                     outputs={"Out": out},
+                     attrs={"pad_value": float(pad_value)})
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    helper = LayerHelper("similarity_focus", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("similarity_focus", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"axis": axis,
+                            "indexes": [int(i) for i in indexes]})
+    return out
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    helper = LayerHelper("teacher_student_sigmoid_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "teacher_student_sigmoid_loss",
+        inputs={"X": input, "Label": label}, outputs={"Y": out},
+        attrs={"soft_max_up_bound": soft_max_up_bound,
+               "soft_max_lower_bound": soft_max_lower_bound})
+    return out
+
+
+def unpool2d(input, indices, ksize, strides=None, paddings=None):
+    helper = LayerHelper("unpool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "unpool", inputs={"X": input, "Indices": indices},
+        outputs={"Out": out},
+        attrs={"ksize": list(ksize), "strides": list(strides or [1, 1]),
+               "paddings": list(paddings or [0, 0])})
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=1,
+                    deformable_groups=1, im2col_step=1, param_attr=None,
+                    bias_attr=None, name=None):
+    helper = LayerHelper("deformable_conv", name=name, bias_attr=bias_attr)
+    ks = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size] * 2
+    w = helper.create_parameter(
+        param_attr, [num_filters, input.shape[1] // groups, ks[0], ks[1]],
+        input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+
+    def two(v):
+        return [v] * 2 if isinstance(v, int) else list(v)
+
+    helper.append_op(
+        "deformable_conv",
+        inputs={"Input": input, "Offset": offset, "Mask": mask,
+                "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": two(stride), "paddings": two(padding),
+               "dilations": two(dilation), "groups": groups,
+               "deformable_groups": deformable_groups,
+               "im2col_step": im2col_step})
+    return helper.append_bias_op(out, dim_start=1)
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=(1, 1),
+                           pooled_height=1, pooled_width=1, part_size=None,
+                           sample_per_part=1, trans_std=0.1,
+                           position_sensitive=False, name=None):
+    helper = LayerHelper("deformable_psroi_pooling", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ph, pw = pooled_height, pooled_width
+    out_dim = input.shape[1] // (group_size[0] * group_size[1]) \
+        if position_sensitive else input.shape[1]
+    helper.append_op(
+        "deformable_psroi_pooling",
+        inputs={"Input": input, "ROIs": rois, "Trans": trans},
+        outputs={"Output": out},
+        attrs={"no_trans": no_trans, "spatial_scale": spatial_scale,
+               "output_dim": int(out_dim), "group_size": list(group_size),
+               "pooled_height": ph, "pooled_width": pw,
+               "part_size": list(part_size) if part_size else [ph, pw],
+               "sample_per_part": sample_per_part, "trans_std": trans_std})
+    return out

@@ -1,5 +1,5 @@
 """Tensor layers (counterpart of paddle_tpu/layers/tensor.py: scale,
-create_global_var, create_tensor, create_parameter, fill_constant,
+create_global_var, create_tensor, create_parameter, concat, fill_constant,
 fill_constant_batch_size_like, zeros, ones, zeros_like, ones_like,
 assign, increment, cast, sums, reverse, isfinite, has_inf, has_nan,
 range, linspace, diag, eye). has_nan is has_inf, as in the JAX package:
@@ -16,8 +16,14 @@ from ..layer_helper import LayerHelper
 __all__ = ["scale", "create_global_var", "fill_constant",
            "fill_constant_batch_size_like", "zeros", "ones", "assign",
            "increment", "create_tensor", "create_parameter", "cast",
-           "sums", "ones_like", "zeros_like", "reverse", "has_inf",
+           "concat", "sums", "ones_like", "zeros_like", "reverse", "has_inf",
            "has_nan", "isfinite", "range", "linspace", "diag", "eye"]
+
+
+def concat(input, axis=0, name=None):
+    """nn.concat, which the JAX module exports from here too."""
+    from .nn import concat as _concat
+    return _concat(input, axis, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

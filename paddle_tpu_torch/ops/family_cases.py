@@ -6,9 +6,10 @@ activations.py, nn.py), the nine update ops that have no kernel
 ops, SSD's detection ops and the one- and two-stage detectors' ops
 (detection.py, on LoD inputs), slice 24's nlp, metric and
 bilinear ops (nlp.py, metrics.py, misc.py's chunk_eval, matmul.py's
-bilinear_tensor_product) and slice 25's fake-quantize and int8 ops
+bilinear_tensor_product), slice 25's fake-quantize and int8 ops
 (quantize.py, misc.py's quantize, dequantize, requantize and fsp;
-tests/test_torch_quantization.py holds them), on seeded
+tests/test_torch_quantization.py holds them) and slice 26's misc ops
+(misc_cases: tests/test_torch_misc_ops.py holds them), on seeded
 numpy inputs, and a runner of one op's lowering on a device: the cases
 tests/test_torch_op_families.py holds against the JAX package's
 lowerings on the CPU and chip_smoke.py's op sweep holds on the card
@@ -30,6 +31,7 @@ from ..core.registry import OPS, ExecContext, _SlotView
 
 __all__ = ["cases", "conv_cases", "sequence_cases", "detection_cases",
            "one_stage_cases", "two_stage_cases", "nlp_cases", "quant_cases",
+           "misc_cases", "MISC_HOST_OPS",
            "run",
            "run_grad", "nce_numpy", "sample_logits_numpy", "drawn"]
 
@@ -1275,6 +1277,166 @@ def quant_grad_cases() -> List[tuple]:
             inputs["OutScales"] = np.minimum(inputs["OutScales"], 1.0)
         out.append((op_type, inputs, attrs, outs, diff))
     return out
+
+
+# the misc ops that read values on the host (their blocks run eagerly):
+# a case of one runs the JAX lowering eagerly
+MISC_HOST_OPS = ("tree_conv", "unique", "unique_with_counts")
+
+
+def _unpool_indices(r, n, c, h, w, k):
+    """Indices of one maximum in each k x k window of an [h*k, w*k] map,
+    as max_pool2d_with_index writes them."""
+    i = np.arange(h)[:, None] * k + r.integers(0, k, (n, c, h, w))
+    j = np.arange(w)[None, :] * k + r.integers(0, k, (n, c, h, w))
+    return (i * (w * k) + j).astype(np.int32)
+
+
+def _dense_lstm_case(r, op_type, b, t, d, hid, layers, bidi, init):
+    dirs = 2 if bidi else 1
+    size = sum((d if i == 0 else hid * dirs) * 4 * hid * dirs +
+               hid * 4 * hid * dirs + 8 * hid * dirs for i in range(layers))
+    ins = {"Input": _f32(r, b, t, d), "W": _f32(r, size, lo=-0.4, hi=0.4)}
+    if init:
+        ins["InitH"] = _f32(r, layers * dirs, b, hid)
+        ins["InitC"] = _f32(r, layers * dirs, b, hid)
+    return (op_type, ins, {}, {"hidden_size": hid, "num_layers": layers,
+                               "is_bidirec": bidi},
+            {"Out": 1, "LastH": 1, "LastC": 1}, ["Input", "W"])
+
+
+def misc_cases() -> List[tuple]:
+    """(op type, inputs, {input name: LoD}, attrs, {output slot: count},
+    [input slots to differentiate]) of slice 26's misc ops that run on
+    inputs alone (save, load, save_combine and load_combine write and
+    read files: tests/test_torch_misc_ops.py and chip_smoke.py hold
+    them apart): lod_reset (target_lod, Y's LoD, Y's values, appended),
+    row_conv (a LoD with an empty sequence; batched), lstmp (peepholes
+    with H0 / C0 and an empty sequence; reversed without), dense_lstm
+    and cudnn_lstm (2 bidirectional layers from InitH / InitC; 1 layer
+    from zeros), max_pool3d_with_index (padded, global, adaptive),
+    affine_grid (attr and tensor shape), deformable_psroi_pooling (with
+    and without Trans), center_loss (with and without the update),
+    cvm both ways, and one case each of the rest."""
+    r = np.random.default_rng(26)
+    lstmp_w = {"Weight": _f32(r, 3, 16), "ProjWeight": _f32(r, 4, 3)}
+    grid = r.uniform(-1.2, 1.2, (2, 4, 3, 2)).astype(np.float32)
+    theta = _f32(r, 2, 2, 3)
+    edges = np.array([[[0, 1], [0, 2], [0, 3], [2, 4]],
+                      [[0, 1], [1, 2], [1, 3], [0, 0]]], np.int32)
+    rois = np.array([[1, 2, 9, 10], [0, 0, 5, 7], [3, 1, 12, 11]],
+                    np.float32)
+    psroi = {"spatial_scale": 0.5, "output_dim": 2, "group_size": [2, 2],
+             "pooled_height": 2, "pooled_width": 3, "part_size": [2, 3],
+             "sample_per_part": 2, "trans_std": 0.1}
+    vals = np.array([4, 1, 4, 7, 1, 0, 7, 4], np.int64)
+    return [
+        ("pad_constant_like", {"X": _f32(r, 3, 4, 5), "Y": _f32(r, 2, 3, 5)},
+         {}, {"pad_value": 0.5}, {"Out": 1}, ["Y"]),
+        ("lod_reset", {"X": _f32(r, 6, 2)}, {}, {"target_lod": [0, 2, 6]},
+         {"Out": 1}, []),
+        ("lod_reset", {"X": _f32(r, 5, 2), "Y": _f32(r, 3, 1)},
+         {"y": [[0, 1, 3]]}, {}, {"Out": 1}, []),
+        ("lod_reset", {"X": _f32(r, 5, 2),
+                       "Y": np.array([0, 2, 5], np.int32)}, {}, {},
+         {"Out": 1}, []),
+        ("lod_reset", {"X": _f32(r, 5, 2)}, {"x": [[0, 2, 3]]},
+         {"append_lod": True, "target_lod": [0, 2, 4, 5]}, {"Out": 1}, []),
+        ("conv_shift", {"X": _f32(r, 2, 7), "Y": _f32(r, 2, 3)}, {}, {},
+         {"Out": 1}, ["X", "Y"]),
+        ("cvm", {"X": r.uniform(0.2, 3.0, (4, 6)).astype(np.float32),
+                 "CVM": _f32(r, 4, 2)}, {}, {"use_cvm": True}, {"Y": 1},
+         ["X"]),
+        ("cvm", {"X": _f32(r, 4, 6), "CVM": _f32(r, 4, 2)}, {},
+         {"use_cvm": False}, {"Y": 1}, ["X"]),
+        ("modified_huber_loss",
+         {"X": np.array([[-2.5], [-0.4], [0.3], [1.6], [0.8], [-1.3]],
+                        np.float32),
+          "Y": np.array([[1], [1], [0], [1], [0], [0]], np.float32)},
+         {}, {}, {"Out": 1, "IntermediateVal": 1}, ["X"]),
+        ("teacher_student_sigmoid_loss",
+         {"X": _f32(r, 6, 1) * 2,
+          "Label": np.array([[-2], [-1], [0.3], [1.7], [0.5], [1.2]],
+                            np.float32)}, {}, {}, {"Y": 1}, ["X"]),
+        ("center_loss", {"X": _f32(r, 5, 3),
+                         "Label": np.array([[1], [3], [1], [0], [3]],
+                                           np.int64),
+                         "Centers": _f32(r, 4, 3),
+                         "CenterUpdateRate": np.array([0.1], np.float32)},
+         {}, {"need_update": True},
+         {"Loss": 1, "CentersOut": 1, "SampleCenterDiff": 1}, ["X"]),
+        ("center_loss", {"X": _f32(r, 3, 2),
+                         "Label": np.array([[0], [1], [0]], np.int64),
+                         "Centers": _f32(r, 2, 2),
+                         "CenterUpdateRate": np.array([0.5], np.float32)},
+         {}, {"need_update": False}, {"Loss": 1, "CentersOut": 1}, ["X"]),
+        ("spectral_norm", {"Weight": _f32(r, 4, 3, 2), "U": _f32(r, 3),
+                           "V": _f32(r, 8)}, {},
+         {"dim": 1, "power_iters": 2, "eps": 1e-12}, {"Out": 1}, ["Weight"]),
+        ("similarity_focus", {"X": _f32(r, 2, 3, 4, 5)}, {},
+         {"axis": 1, "indexes": [0, 2]}, {"Out": 1}, ["X"]),
+        ("row_conv", {"X": _f32(r, 7, 3), "Filter": _f32(r, 3, 3)},
+         {"x": [[0, 3, 3, 7]]}, {}, {"Out": 1}, ["X", "Filter"]),
+        ("row_conv", {"X": _f32(r, 2, 5, 3), "Filter": _f32(r, 2, 3)}, {},
+         {}, {"Out": 1}, ["X", "Filter"]),
+        ("unpool", {"X": _f32(r, 1, 2, 2, 3),
+                    "Indices": _unpool_indices(r, 1, 2, 2, 3, 2)}, {},
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]},
+         {"Out": 1}, ["X"]),
+        ("max_pool3d_with_index", {"X": _f32(r, 1, 2, 4, 5, 6)}, {},
+         {"ksize": [2, 2, 3], "strides": [2, 2, 2], "paddings": [0, 1, 1]},
+         {"Out": 1, "Mask": 1}, ["X"]),
+        ("max_pool3d_with_index", {"X": _f32(r, 2, 1, 3, 2, 4)}, {},
+         {"ksize": [1, 1, 1], "global_pooling": True},
+         {"Out": 1, "Mask": 1}, ["X"]),
+        ("max_pool3d_with_index", {"X": _f32(r, 1, 2, 5, 6, 7)}, {},
+         {"ksize": [2, 3, 2], "adaptive": True}, {"Out": 1, "Mask": 1},
+         ["X"]),
+        ("affine_grid", {"Theta": theta}, {},
+         {"output_shape": [2, 3, 4, 5]}, {"Output": 1}, ["Theta"]),
+        ("affine_grid", {"Theta": theta,
+                         "OutputShape": np.array([2, 3, 3, 6], np.int32)},
+         {}, {}, {"Output": 1}, ["Theta"]),
+        ("grid_sampler", {"X": _f32(r, 2, 3, 5, 6), "Grid": grid}, {}, {},
+         {"Output": 1}, ["X", "Grid"]),
+        ("deformable_conv",
+         {"Input": _f32(r, 1, 4, 5, 5),
+          "Offset": _f32(r, 1, 2 * 2 * 9, 5, 5) * 1.5,
+          "Mask": r.uniform(0.1, 1.0, (1, 2 * 9, 5, 5)).astype(np.float32),
+          "Filter": _f32(r, 4, 2, 3, 3)}, {},
+         {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 2, "deformable_groups": 2, "im2col_step": 1},
+         {"Output": 1}, ["Input", "Offset", "Filter"]),
+        ("deformable_psroi_pooling",
+         {"Input": _f32(r, 2, 8, 6, 7), "ROIs": rois,
+          "Trans": _f32(r, 3, 2, 2, 3)}, {"rois": [[0, 2, 3]]},
+         dict(psroi, no_trans=False), {"Output": 1, "TopCount": 1},
+         ["Input", "Trans"]),
+        ("deformable_psroi_pooling",
+         {"Input": _f32(r, 2, 8, 6, 7), "ROIs": rois,
+          "Trans": _f32(r, 3, 2, 2, 3)}, {"rois": [[0, 1, 3]]},
+         dict(psroi, no_trans=True), {"Output": 1}, ["Input"]),
+        ("tree_conv", {"NodesVector": _f32(r, 2, 5, 3), "EdgeSet": edges,
+                       "Filter": _f32(r, 3, 3, 2, 2)}, {},
+         {"max_depth": 2}, {"Out": 1}, ["NodesVector", "Filter"]),
+        ("lstmp", dict(lstmp_w, Input=_f32(r, 7, 16),
+                       Bias=_f32(r, 1, 28), H0=_f32(r, 3, 3),
+                       C0=_f32(r, 3, 4)), {"input": [[0, 3, 3, 7]]},
+         {"use_peepholes": True}, {"Projection": 1, "Cell": 1},
+         ["Input", "Weight", "ProjWeight", "Bias", "H0"]),
+        ("lstmp", dict(lstmp_w, Input=_f32(r, 6, 16), Bias=_f32(r, 1, 16)),
+         {"input": [[0, 4, 6]]},
+         {"use_peepholes": False, "is_reverse": True,
+          "proj_activation": "identity"},
+         {"Projection": 1, "Cell": 1},
+         ["Input", "Weight", "ProjWeight", "Bias"]),
+        ("unique", {"X": vals}, {}, {"dtype": "int32"},
+         {"Out": 1, "Index": 1}, []),
+        ("unique_with_counts", {"X": vals.astype(np.float32)}, {},
+         {"dtype": "int32"}, {"Out": 1, "Index": 1, "Count": 1}, []),
+        _dense_lstm_case(r, "dense_lstm", 2, 4, 3, 5, 2, True, True),
+        _dense_lstm_case(r, "cudnn_lstm", 3, 5, 4, 6, 1, False, False),
+    ]
 
 
 def _normal(rng, *shape, scale=1.0):

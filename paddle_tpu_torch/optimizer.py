@@ -237,15 +237,24 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, grad_clip=None):
-        """append_backward, then the update ops. `grad_clip` (the
-        reference's dygraph clip) raises NotImplementedError until the
-        clip ops are ported (clip.py): a clip is never dropped."""
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "minimize(grad_clip=...): gradient clipping is not ported "
-                "to paddle_tpu_torch yet")
+        """append_backward, then the update ops. `grad_clip` is applied
+        as in the reference's minimize, in dygraph mode only: a
+        dygraph_grad_clip clip rewrites the parameters' gradients before
+        the update (the JAX package drops it). The reference ignores it
+        in graph mode; here it raises there, so a clip is never dropped
+        (a program sets its clip with set_gradient_clip or
+        ParamAttr(gradient_clip=...))."""
+        if grad_clip is not None and not in_dygraph_mode():
+            raise ValueError(
+                "minimize(grad_clip=...) applies in dygraph mode only, as "
+                "in the reference; in a program set the clip with "
+                "clip.set_gradient_clip or ParamAttr(gradient_clip=...)")
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
+        if grad_clip is not None:
+            grad_clip([p for p, _ in params_grads])
+            params_grads = self._dygraph_params_grads(
+                [p for p, _ in params_grads])
         optimize_ops = self.apply_optimize(loss, startup_program,
                                            params_grads)
         return optimize_ops, params_grads

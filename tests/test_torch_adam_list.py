@@ -49,6 +49,7 @@ from paddle_tpu_torch.models import transformer as pt_transformer
 
 from test_torch_ops import _run_both
 from test_torch_training import ADAM_ULP, F32_TOL, _ulps
+from torch_threads import one_torch_thread  # noqa: F401
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 LR, STEPS = 2e-3, 3

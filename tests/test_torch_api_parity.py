@@ -12,8 +12,12 @@
 * C.1: ParamAttr takes the reference's seven arguments in their order
   and a list; a parameter's learning_rate multiplies its step (half the
   SGD step at 0.5, as in the JAX package); a regularizer builds the JAX
-  package's decay ops, and a clip, which the port cannot apply yet,
-  raises NotImplementedError at minimize.
+  package's decay ops, a parameter's clip its clip op, and
+  minimize(grad_clip=...) in a program raises (the reference applies it
+  in dygraph mode only; tests/test_torch_clip.py holds that).
+* C.1 (slice 26): every name in the JAX `__all__` of each module above
+  (for `layers`, of its submodules) is in the port's, but those a queue-A
+  item of ROADMAP.md still lists (QUEUED).
 * C.2: sequence_pool MAX over sequences that are all empty gives the JAX
   lowering's pad_value rows.
 """
@@ -37,6 +41,7 @@ from paddle_tpu_torch.core.registry import OPS as PT_OPS
 from paddle_tpu_torch.io import load_params_from_numpy
 
 from test_torch_ops import _Op
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the fewest signatures each module must share (so the test cannot pass
 # by comparing nothing)
@@ -174,6 +179,48 @@ REQUIRED = {"layers": {"log", "stack", "gather", "beam_search",
                             "BilinearInitializer"}}
 
 
+# the JAX `__all__` names that queue-A items of ROADMAP.md still list:
+# A.5c item 6 (the other optimizers, WeightNormParamAttr), A.8 (the
+# reader builders and `batch`), A.7 (layers/collective.py)
+QUEUED = {"optimizer": {"DGCMomentumOptimizer", "ExponentialMovingAverage",
+                        "ModelAverage", "PipelineOptimizer"},
+          "param_attr": {"WeightNormParamAttr"},
+          "layers": {"py_reader", "double_buffer", "open_files",
+                     "read_file", "shuffle", "create_py_reader_by_data",
+                     "random_data_generator", "Preprocessor", "batch",
+                     "_allreduce"}}
+
+
+def _jax_all(module, jmod):
+    """The JAX module's `__all__` (for `layers`, its submodules')."""
+    if module == "layers":
+        import pkgutil
+        names = set()
+        for info in pkgutil.iter_modules(jmod.__path__):
+            sub = importlib.import_module(f"paddle_tpu.layers.{info.name}")
+            names |= set(getattr(sub, "__all__", ()))
+        return names
+    return set(jmod.__all__)
+
+
+# the modules of MODULES whose JAX counterpart has no `__all__` (their
+# shared names are held by REQUIRED)
+NO_ALL = {"(top level)", "core.scope", "contrib", "contrib.slim",
+          "contrib.slim.quantization"}
+
+
+@pytest.mark.parametrize("module", [m for m in MODULES if m not in NO_ALL])
+def test_jax_all_names_are_in_the_port(module):
+    suffix = "" if module == "(top level)" else f".{module}"
+    jmod = importlib.import_module(f"paddle_tpu{suffix}")
+    pmod = importlib.import_module(f"paddle_tpu_torch{suffix}")
+    names = _jax_all(module, jmod)
+    queued = QUEUED.get(module, set())
+    assert queued <= names, module
+    assert not (names - queued) - _public(pmod), module
+    assert not queued & _public(pmod), module   # a ported name leaves
+
+
 def _public(mod):
     names = getattr(mod, "__all__", None) or \
         [n for n in dir(mod) if not n.startswith("_")]
@@ -302,7 +349,9 @@ def _decayed_program(fl):
 def test_regularizer_and_clip_are_never_dropped(kind):
     """A parameter's regularizer reaches its update: the decay ops (scale
     of w, then sum with w@GRAD) the JAX package builds, the same bytes.
-    A clip raises until the clip ops are ported."""
+    A parameter's gradient_clip builds the JAX package's clip op before
+    its update (the same bytes); minimize(grad_clip=...) in a program
+    raises (the reference ignores it there, the JAX package drops it)."""
     if kind == "regularizer":
         pmain = _decayed_program(pt)
         assert pmain.serialize_to_string() == \
@@ -317,17 +366,36 @@ def test_regularizer_and_clip_are_never_dropped(kind):
                   o.output("Out") == sgd.input("Grad")][0]
         assert summed.input("X") == ["w@GRAD", scale[0].output("Out")[0]]
         return
-    attr = pt.ParamAttr(name="w", **({kind: object()}
-                                     if kind != "grad_clip" else {}))
-    with pytest.raises(NotImplementedError):
-        pt.framework.unique_name.reset()
-        main, startup = pt.Program(), pt.Program()
-        with pt.program_guard(main, startup):
-            x = pt.layers.data("x", [4], dtype="float32")
-            loss = pt.layers.mean(pt.layers.fc(x, 3, param_attr=attr))
-            pt.optimizer.SGD(0.1).minimize(
-                loss, **({"grad_clip": object()}
-                         if kind == "grad_clip" else {}))
+
+    def build(fl, clip, **kw):
+        fl.framework.unique_name.reset()
+        main, startup = fl.Program(), fl.Program()
+        attr = fl.ParamAttr(name="w", gradient_clip=clip) \
+            if kind == "gradient_clip" else fl.ParamAttr(name="w")
+        with fl.program_guard(main, startup):
+            x = fl.layers.data("x", [4], dtype="float32")
+            loss = fl.layers.mean(fl.layers.fc(x, 3, param_attr=attr))
+            fl.optimizer.SGD(0.1).minimize(loss, **kw)
+        return main
+
+    if kind == "gradient_clip":
+        pmain = build(pt, pt.clip.GradientClipByValue(0.01))
+        assert pmain.serialize_to_string() == build(
+            fluid, fluid.clip.GradientClipByValue(0.01)
+        ).serialize_to_string()
+    else:
+        for clip in (pt.clip.GradientClipByValue(0.01),
+                     pt.dygraph_grad_clip.GradClipByValue(0.01)):
+            with pytest.raises(ValueError, match="dygraph mode only"):
+                build(pt, None, grad_clip=clip)
+        return
+    ops = pmain.global_block().ops
+    clip = [o for o in ops if o.type == "clip"
+            and o.input("X") == ["w@GRAD"]]
+    sgd = [o for o in ops if o.type == "sgd" and o.input("Param") ==
+           ["w"]][0]
+    assert len(clip) == 1 and sgd.input("Grad") == clip[0].output("Out")
+    assert clip[0].attr("max") == 0.01
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from paddle_tpu_torch.core.registry import OPS as PT_OPS
 from paddle_tpu_torch.core.registry import ExecContext
 from paddle_tpu_torch.core.types import dtype_to_torch
 from paddle_tpu_torch.models import transformer as pt_transformer
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 B, S_SRC, S_TRG = 4, 16, 12

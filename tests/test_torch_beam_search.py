@@ -30,6 +30,7 @@ from paddle_tpu_torch.core.registry import ExecContext as PtContext
 from paddle_tpu_torch.core.registry import OPS as PT_OPS
 
 from test_torch_sequence import CPU, _both, _close, _names, _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 END = 0
 

@@ -44,6 +44,7 @@ from paddle_tpu_torch.models import label_semantic_roles as srl
 from paddle_tpu_torch.models import machine_translation as mt
 from paddle_tpu_torch.models import seq2seq
 from paddle_tpu_torch.proto import framework_desc as fd
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The first loss (the same parameters and feed): FIRST_RTOL, worst
 # measured 2.0e-7. Then the losses within RTOL and every persistable

@@ -58,6 +58,7 @@ from paddle_tpu_torch.models import transformer as pt_transformer
 from paddle_tpu_torch.parallel import comm_scheduler as pcs
 
 from test_torch_ops import _Op
+from torch_threads import one_torch_thread  # noqa: F401
 
 SWEEP_RTOL, SWEEP_ATOL = 1e-5, 1e-7
 # two 256-row blocks and a ragged tail: 512 padded rows

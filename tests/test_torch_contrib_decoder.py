@@ -32,6 +32,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.models import machine_translation as mt
 
 from test_torch_book import _widen_desc
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 V, E, HID = 7, 4, 6

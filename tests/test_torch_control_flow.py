@@ -42,6 +42,7 @@ from paddle_tpu_torch.core.scope import LoDRankTable, TensorArray
 from paddle_tpu_torch.io import load_params_from_numpy
 
 from test_torch_ops import _Op
+from torch_threads import one_torch_thread  # noqa: F401
 
 # forward: worst measured 2.4e-7 absolute (float32 tanh/fc chains)
 FWD_RTOL, FWD_ATOL = 1e-5, 1e-6

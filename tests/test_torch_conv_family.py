@@ -57,6 +57,7 @@ from paddle_tpu_torch.ops import family_cases
 
 from test_torch_op_families import TOL, _check, _grads
 from test_torch_sequence import CPU, _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = family_cases.conv_cases()
 
@@ -273,12 +274,20 @@ def _program_only(fl):
 def test_program_only_builders_match_jax():
     assert _program_only(pt).serialize_to_string() == \
         _program_only(fluid).serialize_to_string()
-    # require_index needs max_pool3d_with_index (the misc family)
-    with pt.program_guard(pt.Program(), pt.Program()):
-        with pytest.raises(NotImplementedError, match="max_pool3d"):
-            pt.layers.adaptive_pool3d(
-                pt.layers.data("v", [2, 4, 4, 4], dtype="float32"), 2,
+    # require_index builds a max_pool3d_with_index op (slice 26; its
+    # program and run against JAX: tests/test_torch_misc_ops.py)
+    progs = []
+    for fl in (pt, fluid):
+        fl.framework.unique_name.reset()
+        main = fl.Program()
+        with fl.program_guard(main, fl.Program()):
+            fl.layers.adaptive_pool3d(
+                fl.layers.data("v", [2, 4, 4, 4], dtype="float32"), 2,
                 require_index=True)
+        progs.append(main)
+    assert [o.type for o in progs[0].global_block().ops] == \
+        ["max_pool3d_with_index"]
+    assert progs[0].serialize_to_string() == progs[1].serialize_to_string()
 
 
 def test_conv3d_transpose_builder_runs_the_3d_op():

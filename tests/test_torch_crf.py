@@ -35,6 +35,7 @@ from paddle_tpu_torch.core.registry import OPS as PT_OPS
 from paddle_tpu_torch.io import load_params_from_numpy
 
 from test_torch_sequence import CPU, TOL, _both, _close, _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_TAG = 4
 # (name, LoD or None)

@@ -48,6 +48,7 @@ import chip_smoke as cs
 from test_torch_book import _same_ops
 from test_torch_one_stage_detection import jax_start_state
 from test_torch_sequence import _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = {"image": (16, 64), "num_classes": 7, "rnn_hidden": 8,
         "widths": (4, 4, 8, 8)}

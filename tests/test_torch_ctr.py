@@ -55,6 +55,7 @@ from paddle_tpu_torch.models import wide_deep as pt_wd
 
 from test_torch_ops import _Op
 from test_torch_training import _ulps
+from torch_threads import one_torch_thread  # noqa: F401
 
 # op parity: the same float32 operations (exp, log1p and sigmoid may
 # round their last bit differently in XLA and torch)

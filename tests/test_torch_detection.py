@@ -58,6 +58,7 @@ from paddle_tpu_torch.ops import family_cases
 import chip_smoke
 from test_torch_book import _widen_desc
 from test_torch_sequence import CPU, _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 LOSS_RTOL = 1e-5

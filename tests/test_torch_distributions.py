@@ -25,6 +25,7 @@ from paddle_tpu.core.scope import Scope as JaxScope
 import paddle_tpu_torch as pt
 
 from test_torch_quantization import _same_program
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 ALPHA = 1e-3

@@ -34,6 +34,7 @@ import paddle_tpu as fluid
 import paddle_tpu.framework as jfw
 
 import paddle_tpu_torch as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 AMP_RATIO = 1.5

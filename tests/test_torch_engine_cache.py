@@ -22,6 +22,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.core import engine as E
 from paddle_tpu_torch.core.registry import OPS
 from paddle_tpu_torch.models import lenet, transformer as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = pt.CPUPlace()
 

@@ -38,6 +38,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.kernels import registry as kreg
 from paddle_tpu_torch.models import lenet, resnet as R
 from paddle_tpu_torch.models import transformer as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = pt.CPUPlace()
 # the float32 tolerance of tests/test_torch_training.py: float32 sums in

@@ -55,6 +55,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.kernels import flash_attention as pfa
 from paddle_tpu_torch.kernels import registry as pkreg
 from paddle_tpu_torch.models import transformer as pt_transformer
+from torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu_torch.kernels import flash_attention as pfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 

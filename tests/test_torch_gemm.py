@@ -55,6 +55,7 @@ from paddle_tpu_torch.kernels import registry as pkreg
 from paddle_tpu_torch.models import transformer as pt_transformer
 from paddle_tpu_torch.tuning import knobs as pknobs
 from paddle_tpu_torch.tuning import variants as pvariants
+from torch_threads import one_torch_thread  # noqa: F401
 
 jqm = importlib.import_module("paddle_tpu.kernels.quantized_matmul")
 

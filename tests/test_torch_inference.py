@@ -33,6 +33,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.inference import (AnalysisConfig, PaddleTensor,
                                         create_paddle_predictor)
 from paddle_tpu_torch.observability import memory as obs_memory
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

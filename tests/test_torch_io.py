@@ -33,6 +33,7 @@ from paddle_tpu_torch.core.op_version import (VERSION_OP, OpVersionError,
 from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.models import lenet as pt_lenet
 from paddle_tpu_torch.proto import framework_desc as fd
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 B, LR = 8, 0.05

@@ -43,6 +43,7 @@ from paddle_tpu_torch.models import lenet as pt_lenet
 
 from test_torch_ops import _Op, _run_both
 from test_torch_training import _ulps
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 B, LR, STEPS = 8, 0.05, 3

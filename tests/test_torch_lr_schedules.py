@@ -29,6 +29,7 @@ import paddle_tpu as fluid
 from paddle_tpu.core.scope import Scope as JaxScope
 
 import paddle_tpu_torch as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 LOSS_RTOL = 1e-5

@@ -50,6 +50,7 @@ from test_torch_one_stage_detection import (_grads, _jax_lowering,
                                             _out_names)
 from test_torch_op_families import _check
 from test_torch_sequence import _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 CASES = family_cases.nlp_cases()
@@ -542,18 +543,12 @@ def test_chunk_evaluator_and_auc_over_three_runs_match_jax():
 
 def test_nlp_ops_are_registered():
     """The eleven op types are registered in the port, each with a case,
-    a gradient op where the JAX package has one; the port registers 297
-    of the JAX package's 382 forward op types (278 with these eleven,
-    then slice 25's nineteen)."""
+    a gradient op where the JAX package has one (the whole registry's
+    count is held by tests/test_torch_misc_ops.py)."""
     assert ELEVEN == {c[0] for c in CASES}
     for t in ELEVEN:
         assert PT_OPS.has(t) and \
             PT_OPS.has(t + "_grad") == JAX_OPS.has(t + "_grad"), t
-
-    def forward(ops):
-        return {t for t in ops.types() if not ops.get(t).is_grad_op}
-    assert len(forward(PT_OPS)) == 297 and len(forward(JAX_OPS)) == 382
-    assert forward(PT_OPS) <= forward(JAX_OPS)
 
 
 def test_hsigmoid_custom_trees_raise():

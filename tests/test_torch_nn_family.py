@@ -35,6 +35,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.ops import family_cases
 
 from test_torch_op_families import TOL, _run
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = family_cases.cases()["nn"]
 

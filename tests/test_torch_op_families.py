@@ -38,6 +38,7 @@ from paddle_tpu_torch.core.registry import OPS as PT_OPS
 from paddle_tpu_torch.ops import family_cases
 
 from test_torch_sequence import CPU, _names, _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 FAMILIES = ("basic", "reduce", "elementwise", "activations")

@@ -37,6 +37,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.ops import family_cases
 
 from test_torch_sequence import CPU, _op
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = family_cases.cases()["optimizer"]
 STEPS = 3

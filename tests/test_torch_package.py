@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "paddle_tpu_torch"
@@ -47,8 +48,10 @@ def test_package_calls_no_library_attention_or_compiler():
     for path in _sources(False):
         # `use_cudnn` is an argument of the fluid layer API (conv2d,
         # pool2d, softmax) that the port accepts and ignores, as the JAX
-        # package does
-        text = path.read_text().replace("use_cudnn", "")
+        # package does; `cudnn_lstm` is the reference's op type (and
+        # layers.lstm's parameter prefix), lowered by the port's own loop
+        text = path.read_text().replace("use_cudnn", "").replace(
+            "cudnn_lstm", "")
         for word in ("scaled_dot_product_attention", "torch.compile",
                      "cudnn"):
             assert word not in text, f"{path} mentions {word}"

@@ -16,6 +16,7 @@ from paddle_tpu_torch.core.scope import LoDTensor
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import parity
 from paddle_tpu_torch.tuning import variants as V
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -61,6 +61,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.ops import family_cases
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 QUANT_OPS = (

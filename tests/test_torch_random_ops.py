@@ -30,6 +30,7 @@ from paddle_tpu_torch.core.registry import OPS as PT_OPS
 from paddle_tpu_torch.core.registry import RunState
 
 from test_torch_ops import _Op
+from torch_threads import one_torch_thread  # noqa: F401
 
 ALPHA = 1e-3
 SIX = ("uniform_random_batch_size_like", "gaussian_random_batch_size_like",

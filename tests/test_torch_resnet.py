@@ -40,6 +40,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 
 from test_torch_ops import _Op, _run_both
 from test_torch_training import _ulps
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 # a bf16 Y: both packages normalize in float32 and round once to bf16;

@@ -30,6 +30,7 @@ from paddle_tpu.core.scope import Scope as JaxScope
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.scope import Scope as PtScope
 from paddle_tpu_torch.io import load_params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 

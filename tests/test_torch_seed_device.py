@@ -26,6 +26,7 @@ from paddle_tpu_torch.core.registry import (OP_UID_ATTR, ExecContext,
                                             GraphRandom, RunState, op_seed,
                                             op_seed_words)
 from paddle_tpu_torch.kernels import flash_attention as pfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 

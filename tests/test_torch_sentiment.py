@@ -46,6 +46,7 @@ from paddle_tpu_torch.inference import (AnalysisConfig, PaddleTensor,
                                         create_paddle_predictor)
 from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.models import sentiment
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 STEPS = 3

@@ -35,6 +35,7 @@ from paddle_tpu_torch.core.registry import ExecContext as PtContext
 from paddle_tpu_torch.core.registry import OPS as PT_OPS
 
 from test_torch_ops import _Op
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 CPU = torch.device("cpu")

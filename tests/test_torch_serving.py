@@ -47,6 +47,7 @@ from paddle_tpu_torch.inference.serving import export as pexport
 from paddle_tpu_torch.observability import memory as obs_memory
 from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.observability import tracing
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 BATCH = 3

@@ -39,6 +39,7 @@ from paddle_tpu_torch.models import lenet as pt_lenet
 from test_torch_lenet import _batch, _build
 from test_torch_ops import _run_both
 from test_torch_training import _ulps
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 LR, STEPS = 0.05, 3

@@ -35,6 +35,7 @@ from paddle_tpu_torch.contrib.slim.core import Compressor
 from paddle_tpu_torch.io import load_params_from_numpy
 
 from test_torch_quantization import _same_program
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _blobs(n, seed, sigma=0.5):

@@ -47,6 +47,7 @@ from paddle_tpu_torch.kernels import registry as kreg
 from paddle_tpu_torch.models import transformer as pt_transformer
 
 from test_torch_ops import _Op
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR, STEPS = 2e-3, 3
 F32_TOL = 1e-5

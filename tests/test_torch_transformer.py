@@ -24,6 +24,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.io import load_params_from_numpy
 from paddle_tpu_torch.kernels import registry as kreg
 from paddle_tpu_torch.models import transformer as pt_transformer
+from torch_threads import one_torch_thread  # noqa: F401
 
 fa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 

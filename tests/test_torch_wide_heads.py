@@ -25,6 +25,7 @@ from paddle_tpu.kernels import registry as jkreg
 from paddle_tpu_torch.kernels import flash_attention as pfa
 
 from test_torch_faults import _wide_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 

@@ -35,6 +35,7 @@ from paddle_tpu_torch.io import load_params_from_numpy
 
 import chip_smoke as cs
 from test_torch_one_stage_detection import jax_start_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = {"image": 64, "class_num": 4, "stages": (1, 1, 1, 1, 1), "width": 8}
 B, BOXES = 2, 6
